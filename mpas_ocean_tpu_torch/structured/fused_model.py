@@ -1,0 +1,57 @@
+"""Fused rollout of the structured linear core: one hand-written kernel step
+per launch on the card (kernels/fe_step.py, csrc/fe_step.cu).
+
+Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
+``pallas_run_loop`` (:712) and ``structured_auto_run_loop`` (:1419) for the
+periodic linear core with forward Euler. State on a CUDA device runs the
+kernel, and a failed build or launch raises; state on the CPU runs the plain
+version, ``model.structured_run_loop``. Nothing falls back from one to the
+other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import fe_step
+from .model import StructMesh, StructState, structured_run_loop
+
+__all__ = ["fused_run_loop", "structured_auto_run_loop"]
+
+
+def _scal(mesh: StructMesh, dt, dtype: torch.dtype) -> tuple[float, float, float]:
+    """(dt, 1/dc, dv/A), each computed in the mesh dtype and rounded to the
+    state dtype exactly as pallas_model._scal does, so the kernel's scalar
+    products round like the TPU kernel's."""
+    dt = torch.as_tensor(dt, dtype=dtype)
+    inv_dc = (1.0 / mesh.dc.cpu()).to(dtype)
+    s_div = (mesh.dv.cpu() / mesh.area_cell.cpu()).to(dtype)
+    return float(dt), float(inv_dc), float(s_div)
+
+
+def fused_run_loop(
+    state: StructState, mesh: StructMesh, dt, n_steps: int
+) -> StructState:
+    """n_steps forward-Euler steps of the linear periodic core."""
+    device = state.layer_thickness.device
+    if device.type == "cpu":
+        return structured_run_loop(state, mesh, dt, n_steps)
+    if device.type != "cuda":
+        raise ValueError(f"no rollout for state on {device}")
+    dtype = state.layer_thickness.dtype
+    ssh, h, u = fe_step.fe_rollout(
+        state.ssh, state.layer_thickness, state.normal_velocity,
+        mesh.f_edge.to(dtype), mesh.resting_thickness_sum.to(dtype),
+        mesh.stencil_table, mesh.coriolis_weight.to(dtype),
+        *_scal(mesh, dt, dtype), n_steps,
+    )
+    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
+
+
+def structured_auto_run_loop(
+    state: StructState, mesh: StructMesh, dt, n_steps: int
+) -> StructState:
+    """The lattice rollout entry point. On the TPU this chose between the
+    whole-rollout VMEM kernel and the tiled kernel by size; on the card one
+    kernel serves every size, so every lattice runs ``fused_run_loop``."""
+    return fused_run_loop(state, mesh, dt, n_steps)
