@@ -14,7 +14,13 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      8000 steps: mesh -> StructuredModel -> to_struct ->
      structured_auto_run_loop -> from_struct, with the kernel's launch count,
      kernel and plain timings and the IGW error against the exact solution;
-  5. 256x256x100 f32 through the same entry.
+  5. 256x256x100 f32 through the same entry;
+  6. the gradient: the adjoint-step kernel against its plain version (f64,
+     and f32 at the headline size), the dot-product identity, then
+     torch.autograd.grad of sum(ssh_final^2) through fused_rollout_diff at
+     64x64x100 f32 over 4000 steps (bench.py's measure_adjoint), from
+     StructuredModel -> to_struct, with both kernels' launch counts and
+     timings, and the same at 256x256x100.
 The line before the last prints the GPU's name and power limit as nvidia-smi
 gives them, the one before it the kernels' JSON summary, and the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
@@ -24,6 +30,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -32,11 +39,20 @@ import time
 DT = 30.0
 HEADLINE_N, LEVELS, HEADLINE_STEPS = 64, 100, 8000
 LARGE_N, LARGE_STEPS = 256, 200
+GRAD_STEPS, LARGE_GRAD_STEPS, PLAIN_ADJ_STEPS = HEADLINE_STEPS // 2, 20, 100
 REPS = 3
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM
+# bytes/s, and non-tensor-core FLOP/s per dtype itemsize.
+HBM_RATE = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"{msg} ({time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def gpu_line() -> str:
@@ -47,7 +63,7 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def igw_case(n: int, levels: int, np_dtype, device):
+def igw_case(n: int, levels: int, np_dtype, device=None):
     """The headline inputs, built as bench.py's build() builds them: uniform
     periodic hex lattice over a 10000 km box, IGW state, dt = 30 s."""
     import numpy as np
@@ -71,11 +87,11 @@ def igw_case(n: int, levels: int, np_dtype, device):
         layer_thickness=torch.from_numpy(h.astype(np_dtype)),
         normal_velocity=torch.from_numpy(u.astype(np_dtype)),
     )
-    model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n).to(device)
+    model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n, device=device)
     return horz, igw, model, prog
 
 
-def random_case(n: int, levels: int, device, seed: int = 7):
+def random_case(n: int, levels: int, seed: int = 7):
     """A random f64 lattice state (numpy seed), as tests/test_pallas.py
     builds it."""
     import numpy as np
@@ -95,7 +111,7 @@ def random_case(n: int, levels: int, device, seed: int = 7):
         layer_thickness=torch.from_numpy(h),
         normal_velocity=torch.from_numpy(u),
     )
-    model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n).to(device)
+    model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n)
     return model, prog
 
 
@@ -148,6 +164,66 @@ def rate_line(name: str, per_step: list, sites: int, gpu: str) -> str:
     )
 
 
+def cuda_times(fn, reps: int) -> list:
+    """Device seconds of each of reps calls of fn(), by CUDA events, after
+    one warm-up call."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / 1e3)
+    return out
+
+
+def spread(times: list, scale: float = 1.0, unit: str = "s") -> str:
+    t = [x * scale for x in times]
+    return (f"{statistics.median(t):.6g} {unit} (median of {len(t)}, min {min(t):.6g}, "
+            f"max {max(t):.6g})")
+
+
+def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int):
+    """(bound seconds, "bytes" or "operations") of one step of a kernel:
+    each input read once and each output written once, over the HBM rate;
+    the arithmetic counted from the kernel's source, over the dtype's peak.
+    fe_step reads a state (ssh, h, u), f_edge, rts and the table and writes
+    a state; per cell-level it does 24 flux/update operations, 4 per owned
+    edge for u and 3 per Coriolis tap (1.5 n_terms). adjoint_step reads a
+    primal state, a cotangent, f_edge and the table and writes a cotangent
+    and one d(dt) share per column; per cell-level it does 20 operations per
+    owned edge plus 2 per transposed tap (n_terms), 6 per incoming edge
+    and 3 for dh."""
+    cells = 2 * ny2 * nx
+    state = cells * (1 + 4 * k)
+    table = 4 * (44 + 3 * n_terms) + itemsize * n_terms
+    if kind == "fe_step":
+        nbytes = itemsize * (2 * state + 4 * cells) + table
+        ops = cells * k * (36 + 1.5 * n_terms)
+    else:
+        nbytes = itemsize * (3 * state + 4 * cells) + table
+        ops = cells * k * (81 + n_terms)
+    t_bytes, t_ops = nbytes / HBM_RATE, ops / PEAK_FLOPS[itemsize]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_report(log_text: str, kernels: tuple) -> list:
+    """ptxas's lines (registers, spills) for the entry functions whose
+    mangled names contain one of ``kernels``."""
+    out, keep = [], False
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            keep = any(k in line for k in kernels)
+        if keep and ("Compiling" in line or "registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -191,7 +267,7 @@ def main() -> int:
                 log(f"[2] ptxas {line.strip()}")
 
     # -- 3. kernel against its plain version on the card ---------------------
-    model, prog = random_case(16, 4, dev)
+    model, prog = random_case(16, 4)
     st, sm = model.to_struct(prog), model.struct_mesh
     errs = field_errors(fused_run_loop(st, sm, 10.0, 20),
                         structured_run_loop(st, sm, 10.0, 20), sm.resting_thickness_sum)
@@ -201,7 +277,7 @@ def main() -> int:
         if not r <= 1e-12:
             raise AssertionError(f"f64 kernel vs plain: {f} relative error {r:.3e} > 1e-12")
 
-    horz, igw, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32, dev)
+    horz, igw, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
     st, sm = model.to_struct(prog), model.struct_mesh
     kern = fused_run_loop(st, sm, DT, 100)
     plain = structured_run_loop(st, sm, DT, 100)
@@ -263,10 +339,10 @@ def main() -> int:
         return error_measures(ssh.double().numpy(), exact, horz, "cell").L_two
 
     l2_k, l2_p = l2(final.ssh), l2(model.from_struct(p_out).ssh)
-    _, _, model64, prog64 = igw_case(HEADLINE_N, LEVELS, np.float64, dev)
+    _, _, model64, prog64 = igw_case(HEADLINE_N, LEVELS, np.float64)
     k64 = model64.from_struct(structured_auto_run_loop(
         model64.to_struct(prog64), model64.struct_mesh, DT, HEADLINE_STEPS))
-    _, _, model1, prog1 = igw_case(HEADLINE_N, 1, np.float64, torch.device("cpu"))
+    _, _, model1, prog1 = igw_case(HEADLINE_N, 1, np.float64, device="cpu")
     ref = model1.from_struct(structured_run_loop(
         model1.to_struct(prog1), model1.struct_mesh, DT, HEADLINE_STEPS))
     l2_k64, l2_ref = l2(k64.ssh), l2(ref.ssh)
@@ -283,7 +359,7 @@ def main() -> int:
         raise AssertionError(f"f32 IGW error out of range: kernel {l2_k}, plain {l2_p}")
 
     # -- 5. 256x256x100 through the same entry ----------------------------------
-    horz_l, _, model_l, prog_l = igw_case(LARGE_N, LEVELS, np.float32, dev)
+    horz_l, _, model_l, prog_l = igw_case(LARGE_N, LEVELS, np.float32)
     st_l, sm_l = model_l.to_struct(prog_l), model_l.struct_mesh
     sites_l = 2 * sm_l.ny2 * sm_l.nx * LEVELS
     kl_out, kl_times = timed_rollout(
@@ -297,7 +373,7 @@ def main() -> int:
     log(f"[5] {LARGE_N}x{LARGE_N}x{LEVELS} f32, {LARGE_STEPS} steps, kernel vs "
         f"plain: max|diff| (/scale) = {format_errors(errs_l)}")
     # the same size in f64, where the two may differ only by roundoff
-    _, _, model_l64, prog_l64 = igw_case(LARGE_N, LEVELS, np.float64, dev)
+    _, _, model_l64, prog_l64 = igw_case(LARGE_N, LEVELS, np.float64)
     st_l64, sm_l64 = model_l64.to_struct(prog_l64), model_l64.struct_mesh
     errs_l64 = field_errors(fused_run_loop(st_l64, sm_l64, DT, 20),
                             structured_run_loop(st_l64, sm_l64, DT, 20),
@@ -310,18 +386,277 @@ def main() -> int:
     log("[5] " + rate_line("kernel", kl_times, sites_l, gpu))
     log("[5] " + rate_line("plain ", pl_times, sites_l, gpu))
 
+    # -- 6. the gradient ------------------------------------------------------
+    from mpas_ocean_tpu_torch.kernels import adjoint_step
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        adjoint_plan,
+        fused_adjoint_rollout,
+        fused_rollout_diff,
+        structured_adjoint_run_loop,
+        structured_adjoint_step,
+    )
+    from mpas_ocean_tpu_torch.structured.fused_model import _scal
+
+    for line in ptxas_report(log_file.read_text(), ("adjoint_step_kernel", "ddt_reduce")):
+        log(f"[6] ptxas {line}")
+
+    def fields(state):
+        return [getattr(state, f) for f in FIELDS]
+
+    def random_cot(state, seed):
+        rng = np.random.default_rng(seed)
+        return StructState(*(torch.from_numpy(rng.normal(size=tuple(x.shape))).to(
+            device=dev, dtype=x.dtype) for x in fields(state)))
+
+    def plain_reverse(st, sm, dt, n, g):
+        """The plain adjoint step back through the forward kernel's own
+        primal states (which the kernel sweep rebuilds bit for bit), so
+        that a comparison sees only the adjoint's arithmetic: the plain
+        forward's states differ from the kernel's by the rounding of
+        ssh = sum_k h - rts, which d(dt) picks up through grad(ssh)."""
+        states = [st]
+        for _ in range(n - 1):
+            states.append(fused_run_loop(states[-1], sm, dt, 1))
+        ddt = torch.zeros((), dtype=torch.float64, device=dev)
+        for s in reversed(states):
+            g, dd = structured_adjoint_step(s, g, sm, dt)
+            ddt = ddt + dd
+        return g, ddt
+
+    def cot_errors(a, b, ddt_a, ddt_b) -> dict:
+        """max |a - b| per cotangent field and over max |b|; d(dt) over |b|."""
+        out = {}
+        for f in FIELDS:
+            x, y = getattr(a, f).double(), getattr(b, f).double()
+            err = float((x - y).abs().max())
+            out[f] = (err, err / float(y.abs().max()))
+        err = abs(float(ddt_a) - float(ddt_b))
+        out["d_dt"] = (err, err / abs(float(ddt_b)))
+        return out
+
+    # f64, 16x16x4 random state and cotangent: kernel against plain, twice
+    model, prog = random_case(16, 4)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    g = random_cot(st, 11)
+    for n in (1, 7):
+        out, ddt = fused_adjoint_rollout(st, sm, 10.0, n, g, plan=3)
+        again, ddt_again = fused_adjoint_rollout(st, sm, 10.0, n, g, plan=3)
+        ref, ref_dt = plain_reverse(st, sm, 10.0, n, g)
+        errs = cot_errors(out, ref, ddt, ref_dt)
+        repeat = torch.equal(ddt, ddt_again) and all(
+            torch.equal(x, y) for x, y in zip(fields(out), fields(again)))
+        log(f"[6] f64 16x16x4 random, {n} reverse steps, adjoint kernel vs plain: "
+            f"max|diff| (/scale) = {format_errors(errs)}; rerun bitwise equal: {repeat}")
+        for f, (_, r) in errs.items():
+            if not r <= 1e-12:
+                raise AssertionError(f"f64 adjoint kernel vs plain: {f} {r:.3e} > 1e-12")
+        if not repeat:
+            raise AssertionError("f64 adjoint rerun is not bitwise equal")
+
+    # the dot-product identity <J v, g> = <v, J^T g>, J the 7-step rollout's
+    # Jacobian: J v by forward-mode AD of the plain rollout (which the kernel
+    # rollout matches to 1e-12), J^T g by the kernels
+    v = random_cot(st, 12)
+
+    def rollout7(*xs):
+        return tuple(fields(structured_run_loop(StructState(*xs), sm, 10.0, 7)))
+
+    _, jv = torch.func.jvp(rollout7, tuple(fields(st)), tuple(fields(v)))
+    lhs = sum(float((x * y).sum()) for x, y in zip(jv, fields(g)))
+    d7, _ = fused_adjoint_rollout(st, sm, 10.0, 7, g)
+    rhs = sum(float((x * y).sum()) for x, y in zip(fields(v), fields(d7)))
+    dot_err = abs(lhs - rhs) / abs(rhs)
+    log(f"[6] f64 dot-product identity, 7 steps: <Jv, g> {lhs:.17g}, <v, J^T g> "
+        f"{rhs:.17g}, relative gap {dot_err:.3e}")
+    if not dot_err <= 1e-12:
+        raise AssertionError(f"dot-product identity off by {dot_err:.3e} > 1e-12")
+
+    # f32 headline IGW, 100 reverse steps from the cotangent of sum(ssh^2)
+    horz, igw, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    fin = fused_run_loop(st, sm, DT, PLAIN_ADJ_STEPS)
+    g = StructState(2 * fin.ssh, torch.zeros_like(fin.layer_thickness),
+                    torch.zeros_like(fin.normal_velocity))
+    k_adj, k_ddt = fused_adjoint_rollout(st, sm, DT, PLAIN_ADJ_STEPS, g)
+    p_adj, p_ddt = plain_reverse(st, sm, DT, PLAIN_ADJ_STEPS, g)
+    w_adj, w_ddt = structured_adjoint_run_loop(st, sm, DT, PLAIN_ADJ_STEPS, g)
+    torch.cuda.synchronize()
+    log(f"[6] f32 {HEADLINE_N}x{HEADLINE_N}x{LEVELS} IGW, {PLAIN_ADJ_STEPS} reverse steps, "
+        f"kernel sweep vs the all-plain reverse (plain forward too): max|diff| (/scale) = "
+        f"{format_errors(cot_errors(k_adj, w_adj, k_ddt, w_ddt))}")
+    errs = cot_errors(k_adj, p_adj, k_ddt, p_ddt)
+    log(f"[6] f32 {HEADLINE_N}x{HEADLINE_N}x{LEVELS} IGW, {PLAIN_ADJ_STEPS} reverse steps, "
+        f"adjoint kernel vs plain on the same primal states: max|diff| (/scale) = "
+        f"{format_errors(errs)}")
+    adj_max_abs_err = max(e for f, (e, _) in errs.items() if f != "d_dt")
+    # f32 bounds, from an H100 (700 W) run: on the same primal states the
+    # two differ by summation order only. d_ssh, a difference of 100-level
+    # column sums of the cotangent, came in at 1.6e-6 of its scale; d_h,
+    # d_u and d(dt) at 2-4e-7. The bounds leave 6-10x. Against the plain
+    # forward's states, d(dt) also carries the forward's f32 rounding of
+    # ssh = sum_k h - rts (1.8e-4 m on the ~1000 m column, phase 3) through
+    # grad(ssh): 2.0e-4 measured, bound 2e-3; the fields do not see it.
+    tol = {"ssh": 1e-5, "layer_thickness": 2e-6, "normal_velocity": 2e-6, "d_dt": 4e-6}
+    for f, (_, r) in errs.items():
+        if not r <= tol[f]:
+            raise AssertionError(f"f32 adjoint kernel vs plain: {f} {r:.3e} > {tol[f]}")
+    for f, (_, r) in cot_errors(k_adj, w_adj, k_ddt, w_ddt).items():
+        bound = 2e-3 if f == "d_dt" else tol[f]
+        if not r <= bound:
+            raise AssertionError(f"f32 kernel sweep vs all-plain reverse: {f} {r:.3e} > {bound}")
+
+    # per-step times at the headline size: the plain adjoint step, the kernel
+    # inside a group of the main path's length, and one launch alone
+    state_bytes = sum(x.numel() * x.element_size() for x in fields(st))
+    group = adjoint_plan(GRAD_STEPS, state_bytes, math.inf)
+    f_edge, adj_tab, adj_w = sm.f_edge, sm.adjoint_table, sm.adjoint_weight
+    scal = _scal(sm, DT, torch.float32)
+    stack = tuple(torch.empty((group, *x.shape), dtype=x.dtype, device=dev)
+                  for x in fields(st))
+    for dst, x in zip(stack, fields(st)):
+        dst[0].copy_(x)
+    fe_step.fe_fill_stack(stack, f_edge, sm.resting_thickness_sum, sm.stencil_table,
+                          sm.coriolis_weight, *scal, group - 1)
+    ddt_acc = torch.zeros(1, dtype=torch.float64, device=dev)
+    g_in = tuple(x.contiguous() for x in fields(g))
+
+    def adj_run(n):
+        return adjoint_step.adjoint_rollout(stack, g_in, f_edge, adj_tab, adj_w, *scal, n,
+                                            ddt_acc)
+
+    for _ in range(20):  # sustained load first, so the clocks are up
+        adj_run(group)
+    ka_times = [t / group for t in cuda_times(lambda: adj_run(group), REPS)]
+    _, k1_times = timed_rollout(lambda n: [adj_run(1) for _ in range(n)], 100, REPS)
+
+    def plain_adj(n):
+        gg = g
+        for _ in range(n):
+            gg, _ = structured_adjoint_step(st, gg, sm, DT)
+        return gg
+
+    _, pa_times = timed_rollout(plain_adj, PLAIN_ADJ_STEPS, REPS)
+    log(f"[6] adjoint_step per step, {HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32: kernel in a "
+        f"{group}-step call {spread(ka_times, 1e6, 'us')}; one call of 1 step (kernel, "
+        f"d(dt) sum, host) {spread(k1_times, 1e6, 'us')}; plain "
+        f"{spread(pa_times, 1e6, 'us')} [{gpu}]")
+
+    # the slice at full width: grad of sum(ssh_final^2) over 4000 steps
+    def grad_run(st, sm, n_steps):
+        leaves = [x.clone().requires_grad_(True) for x in fields(st)]
+        dt = torch.tensor(DT, dtype=torch.float32, device=dev, requires_grad=True)
+        out = fused_rollout_diff(StructState(*leaves), sm, dt, n_steps)
+        grads = torch.autograd.grad((out.ssh ** 2).sum(), leaves + [dt])
+        return out, grads
+
+    fe_step.launches = adjoint_step.launches = 0
+    t0 = time.perf_counter()
+    out, grads = grad_run(model.to_struct(prog), model.struct_mesh, GRAD_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grad_fe, grad_adj = fe_step.launches, adjoint_step.launches
+    n_groups = -(-GRAD_STEPS // group)
+    want_fe = 2 * GRAD_STEPS - n_groups
+    log(f"[6] main path: grad of sum(ssh^2) through fused_rollout_diff, "
+        f"{HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32, {GRAD_STEPS} steps, groups of {group}: "
+        f"{wall:.3f} s wall (to_struct .. grad); launches fe_step {grad_fe} (want "
+        f"{want_fe}), adjoint_step {grad_adj} (want {GRAD_STEPS})")
+    if (grad_fe, grad_adj) != (want_fe, GRAD_STEPS):
+        raise AssertionError(f"launch counts {grad_fe}, {grad_adj} != {want_fe}, {GRAD_STEPS}")
+    for name, x in zip(("d_ssh", "d_h", "d_u", "d_dt"), grads):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"main path gradient {name} is not finite")
+    log(f"[6] |d_ssh|max {float(grads[0].abs().max()):.6e}, |d_h|max "
+        f"{float(grads[1].abs().max()):.6e}, |d_u|max {float(grads[2].abs().max()):.6e}, "
+        f"d_dt {float(grads[3]):.6e}")
+    ref = fused_run_loop(st, sm, DT, GRAD_STEPS)
+    if not all(torch.equal(x, y) for x, y in zip(fields(out), fields(ref))):
+        raise AssertionError("fused_rollout_diff's forward differs from fused_run_loop")
+    log("[6] fused_rollout_diff forward is bitwise fused_run_loop's")
+    g_times = cuda_times(lambda: grad_run(st, sm, GRAD_STEPS), REPS)
+    log(f"[6] grad from the lattice state, {GRAD_STEPS} steps: {spread(g_times)} per grad, "
+        f"{spread([t / GRAD_STEPS for t in g_times], 1e6, 'us')} per rollout step [{gpu}]")
+    # where one grad's device time goes, by kernel, from a profiler trace
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        grad_run(st, sm, GRAD_STEPS)
+        end.record()
+        end.synchronize()
+    window_us = start.elapsed_time(end) * 1e3
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce")
+                     if k in e.key), "other")
+        t, c = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (t + e.self_device_time_total, c + e.count)
+    busy_us = sum(t for t, _ in by_kernel.values())
+    log(f"[6] profiler, one grad ({window_us:.0f} us by events): " + ", ".join(
+        f"{k} {t:.0f} us / {c} = {t / max(c, 1):.3f} us" for k, (t, c) in by_kernel.items())
+        + f"; device busy {busy_us:.0f} us, idle share "
+        f"{1 - busy_us / window_us:.4f} [{gpu}]")
+    prof_ms = {k: t / max(c, 1) / 1e3 for k, (t, c) in by_kernel.items()}
+
+    # 256x256x100: the same grad, and the adjoint in f64 against plain
+    _, _, model_l, prog_l = igw_case(LARGE_N, LEVELS, np.float32)
+    st_l, sm_l = model_l.to_struct(prog_l), model_l.struct_mesh
+    _, grads_l = grad_run(st_l, sm_l, LARGE_GRAD_STEPS)
+    for name, x in zip(("d_ssh", "d_h", "d_u", "d_dt"), grads_l):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{LARGE_N}x{LARGE_N} gradient {name} is not finite")
+    gl_times = cuda_times(lambda: grad_run(st_l, sm_l, LARGE_GRAD_STEPS), REPS)
+    log(f"[6] grad, {LARGE_N}x{LARGE_N}x{LEVELS} f32, {LARGE_GRAD_STEPS} steps: "
+        f"{spread(gl_times)} per grad, "
+        f"{spread([t / LARGE_GRAD_STEPS for t in gl_times], 1e6, 'us')} per rollout step "
+        f"[{gpu}]")
+    _, _, model_l64, prog_l64 = igw_case(LARGE_N, LEVELS, np.float64)
+    st_l64, sm_l64 = model_l64.to_struct(prog_l64), model_l64.struct_mesh
+    g_l64 = random_cot(st_l64, 13)
+    out_l64, ddt_l64 = fused_adjoint_rollout(st_l64, sm_l64, DT, 5, g_l64)
+    ref_l64, ref_ddt_l64 = plain_reverse(st_l64, sm_l64, DT, 5, g_l64)
+    errs = cot_errors(out_l64, ref_l64, ddt_l64, ref_ddt_l64)
+    log(f"[6] {LARGE_N}x{LARGE_N}x{LEVELS} f64, 5 reverse steps, adjoint kernel vs plain: "
+        f"max|diff| (/scale) = {format_errors(errs)}")
+    for f, (_, r) in errs.items():
+        if not r <= 1e-12:
+            raise AssertionError(f"f64 {LARGE_N}x{LARGE_N} adjoint vs plain: {f} {r:.3e} > 1e-12")
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [{
-        "name": "fe_step",
-        "route": "cuda",
-        "source": "mpas_ocean_tpu_torch/csrc/fe_step.cu",
-        "replaces": "mpas_ocean_tpu/structured/pallas_model.py:320",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": statistics.median(k_times) * 1e3,
-        "plain_ms": statistics.median(p_times) * 1e3,
-    }]}))
+    dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+    kernels = []
+    for name, src, replaces, launches_n, err, ms, plain_ms in (
+        ("fe_step", "fe_step.cu", "mpas_ocean_tpu/structured/pallas_model.py:320",
+         grad_fe, max_abs_err, statistics.median(k_times) * 1e3,
+         statistics.median(p_times) * 1e3),
+        ("adjoint_step", "adjoint_step.cu", "mpas_ocean_tpu/structured/pallas_model.py:1480",
+         grad_adj, adj_max_abs_err, statistics.median(ka_times) * 1e3,
+         statistics.median(pa_times) * 1e3),
+    ):
+        bound, bound_by = step_bound(name, *dims)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"mpas_ocean_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": launches_n,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound * 1e3,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    kernels[0]["launches_forward_path"] = launches
+    for entry, key in zip(kernels, ("fe_step_kernel", "adjoint_step_kernel")):
+        entry["ms_in_grad_profiler"] = prof_ms.get(key)
+    print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,9 +8,10 @@ port is tested against; this package never imports JAX.
 
 Main path: ``planar_hex_mesh`` + ``make_vertical_mesh`` +
 ``InertialGravityWave.initial_state`` -> ``StructuredModel(mesh, nx, ny)``
--> ``to_struct`` -> ``structured_auto_run_loop`` -> ``from_struct``.
-Device and dtype are explicit: the state's device picks the kernel (CUDA)
-or the plain version (CPU).
+-> ``to_struct`` -> ``structured_auto_run_loop`` -> ``from_struct``; and
+its gradient, ``fused_rollout_diff`` under ``torch.autograd``. The model
+builds on the card unless given ``device="cpu"``; the state's device picks
+the kernels (CUDA) or the plain versions (CPU).
 """
 
 from .constants import GRAVITY
@@ -27,7 +28,10 @@ from .mesh import (
 from .models import PrognosticVars
 from .structured import (
     StructuredModel,
+    fused_adjoint_rollout,
+    fused_rollout_diff,
     fused_run_loop,
+    fused_step,
     structured_auto_run_loop,
     structured_run_loop,
 )
@@ -46,7 +50,10 @@ __all__ = [
     "StructuredModel",
     "VerticalMesh",
     "error_measures",
+    "fused_adjoint_rollout",
+    "fused_rollout_diff",
     "fused_run_loop",
+    "fused_step",
     "make_vertical_mesh",
     "planar_hex_mesh",
     "structured_auto_run_loop",

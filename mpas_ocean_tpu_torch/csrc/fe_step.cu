@@ -4,7 +4,7 @@
 // Replaces: _rollout_kernel (mpas_ocean_tpu/structured/pallas_model.py:320),
 // the arm with masks=None, nl=None, tr=None, strat_w=None, fb=False and
 // forc=None. One launch is one step of _step_planes (:91-299); the exported
-// entry loops n_steps launches on the caller's stream.
+// entries loop n_steps launches on the caller's stream.
 //
 // Layout (all contiguous, K innermost):
 //   ssh (2, ny2, nx)   h (2, ny2, nx, K)   u (6, ny2, nx, K), channel f*2+p
@@ -19,7 +19,9 @@
 // No in-place update: the TPU kernel rewrites its VMEM state in place, which
 // is safe there only because each step reads whole planes first. Blocks here
 // run in parallel and in no order, so a step reads one buffer set and writes
-// the other, and the entry ping-pongs between the two.
+// another: mot_fe_steps_* alternates between the caller's output and one
+// scratch set, mot_fe_stack_* writes each step into the next slot of a stack
+// of states (the reverse sweep's rebuilt group).
 //
 // What bounds it on this card: the compulsory traffic is about 2 state passes
 // per step (read h and u, write h and u), 13 MB at 64x64x100 in f32, which
@@ -32,39 +34,13 @@
 // shared memory, capturing the step loop in a graph or a persistent kernel,
 // and temporal blocking over q steps are later work.
 //
-// Stencil table (int32, built by kernels/fe_step.py:pack_stencil):
-//   [0]                 n_terms
-//   [1 .. 18]           neighbour across each owned edge, per channel c:
-//                       (plane_in, dm, di)
-//   [19 .. 36]          incoming-edge taps of the divergence, per plane p,
-//                       3 taps: (channel_in, dm, di)
-//   [37 .. 43]          first term of each output channel (7 offsets)
-//   [44 ..]             Coriolis terms grouped by output channel:
-//                       (channel_in, dm, di); weights alongside, in T.
-// A tap (dm, di) reads (m + dm, i + di), periodic.
+// The stencil table's layout is in lattice.cuh.
 
-#include <cuda_runtime.h>
+#include "lattice.cuh"
 
 namespace {
 
-constexpr int kMaxTerms = 128;
-constexpr int kHeader = 44;
-constexpr int kNbr = 1;
-constexpr int kInc = 19;
-constexpr int kOff = 37;
-constexpr double kGravity = 9.80616;
-constexpr long long kMaxIndex = 2147483647LL;  // largest u offset + 1 that fits int
-
-__device__ __forceinline__ int wrap(int x, int n) {
-  x %= n;
-  return x < 0 ? x + n : x;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
+using namespace lattice;
 
 template <typename T>
 __global__ void fe_step_kernel(const T* __restrict__ ssh, const T* __restrict__ h,
@@ -173,51 +149,76 @@ __global__ void fe_step_kernel(const T* __restrict__ ssh, const T* __restrict__ 
 }
 
 template <typename T>
-int fe_rollout(const T* f_edge, const T* rts, const int* table, const T* weights,
-               T* ssh0, T* h0, T* u0, T* ssh1, T* h1, T* u1, double dt, double inv_dc,
-               double s_div, int ny2, int nx, int k, int n_steps, int n_terms,
-               cudaStream_t stream) {
-  if (ny2 <= 0 || nx <= 0 || k <= 0 || n_steps < 0) return cudaErrorInvalidValue;
-  if (n_terms < 0 || n_terms > kMaxTerms) return cudaErrorInvalidValue;
-  // offsets are 32-bit (half the registers of 64-bit address arithmetic)
-  if (6LL * ny2 * nx * k > kMaxIndex) return cudaErrorInvalidValue;
-  const int threads = k >= 256 ? 256 : ((k + 31) / 32) * 32;
-  const int blocks = 2 * ny2 * nx;
-  T* ssh[2] = {ssh0, ssh1};
-  T* h[2] = {h0, h1};
-  T* u[2] = {u0, u1};
+int launch_step(const T* f_edge, const T* rts, const int* table, const T* weights,
+                const T* ssh, const T* h, const T* u, T* ssh_out, T* h_out, T* u_out,
+                double dt, double inv_dc, double s_div, int ny2, int nx, int k,
+                cudaStream_t stream) {
+  fe_step_kernel<T><<<2 * ny2 * nx, column_threads(k), 0, stream>>>(
+      ssh, h, u, f_edge, rts, table, weights, ssh_out, h_out, u_out, T(dt), T(inv_dc),
+      T(s_div), ny2, nx, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n_steps steps from `in` into `out`. Step s writes `out` when
+// n_steps - 1 - s is even and `tmp` otherwise, so the last step lands in
+// `out`, no step writes the buffer it reads, and `in` is left as it is.
+template <typename T>
+int fe_steps(const T* f_edge, const T* rts, const int* table, const T* weights,
+             const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,
+             T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,
+             int nx, int k, int n_steps, int n_terms, cudaStream_t stream) {
+  if (!valid_shape(ny2, nx, k, n_steps, n_terms)) return cudaErrorInvalidValue;
+  const T *ssh = ssh_in, *h = h_in, *u = u_in;
   for (int s = 0; s < n_steps; ++s) {
-    const int a = s & 1, b = a ^ 1;
-    fe_step_kernel<T><<<blocks, threads, 0, stream>>>(
-        ssh[a], h[a], u[a], f_edge, rts, table, weights, ssh[b], h[b], u[b], T(dt),
-        T(inv_dc), T(s_div), ny2, nx, k);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool to_out = ((n_steps - 1 - s) & 1) == 0;
+    T* ssh_d = to_out ? ssh_out : ssh_tmp;
+    T* h_d = to_out ? h_out : h_tmp;
+    T* u_d = to_out ? u_out : u_tmp;
+    const int err = launch_step<T>(f_edge, rts, table, weights, ssh, h, u, ssh_d, h_d, u_d,
+                                   dt, inv_dc, s_div, ny2, nx, k, stream);
+    if (err != 0) return err;
+    ssh = ssh_d, h = h_d, u = u_d;
+  }
+  return 0;
+}
+
+// n_steps steps through a stack of states: slot s + 1 = step(slot s).
+template <typename T>
+int fe_stack(const T* f_edge, const T* rts, const int* table, const T* weights, T* ssh,
+             T* h, T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k,
+             int n_steps, int n_terms, cudaStream_t stream) {
+  if (!valid_shape(ny2, nx, k, n_steps, n_terms)) return cudaErrorInvalidValue;
+  const size_t cells = 2ULL * ny2 * nx;
+  const size_t hs = cells * k, us = 3 * cells * k;
+  for (int s = 0; s < n_steps; ++s) {
+    const int err = launch_step<T>(f_edge, rts, table, weights, ssh + s * cells, h + s * hs,
+                                   u + s * us, ssh + (s + 1) * cells, h + (s + 1) * hs,
+                                   u + (s + 1) * us, dt, inv_dc, s_div, ny2, nx, k, stream);
+    if (err != 0) return err;
   }
   return 0;
 }
 
 }  // namespace
 
-// Runs n_steps forward-Euler steps. Buffer set 0 holds the initial state;
-// after the call the result is in set (n_steps % 2). Returns 0 or the CUDA
-// error of the first launch that failed.
-extern "C" int mot_fe_rollout_f32(const float* f_edge, const float* rts, const int* table,
-                                  const float* weights, float* ssh0, float* h0, float* u0,
-                                  float* ssh1, float* h1, float* u1, double dt,
-                                  double inv_dc, double s_div, int ny2, int nx, int k,
-                                  int n_steps, int n_terms, void* stream) {
-  return fe_rollout<float>(f_edge, rts, table, weights, ssh0, h0, u0, ssh1, h1, u1, dt,
-                           inv_dc, s_div, ny2, nx, k, n_steps, n_terms,
-                           static_cast<cudaStream_t>(stream));
-}
+// Each entry returns 0 or the CUDA error of the first launch that failed.
+#define MOT_FE_ENTRIES(T, SUFFIX)                                                          \
+  extern "C" int mot_fe_steps_##SUFFIX(                                                    \
+      const T* f_edge, const T* rts, const int* table, const T* weights, const T* ssh_in,  \
+      const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp,  \
+      T* u_tmp, double dt, double inv_dc, double s_div, int ny2, int nx, int k,            \
+      int n_steps, int n_terms, void* stream) {                                            \
+    return fe_steps<T>(f_edge, rts, table, weights, ssh_in, h_in, u_in, ssh_out, h_out,    \
+                       u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,        \
+                       n_steps, n_terms, static_cast<cudaStream_t>(stream));               \
+  }                                                                                        \
+  extern "C" int mot_fe_stack_##SUFFIX(                                                    \
+      const T* f_edge, const T* rts, const int* table, const T* weights, T* ssh, T* h,     \
+      T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,   \
+      int n_terms, void* stream) {                                                         \
+    return fe_stack<T>(f_edge, rts, table, weights, ssh, h, u, dt, inv_dc, s_div, ny2, nx, \
+                       k, n_steps, n_terms, static_cast<cudaStream_t>(stream));            \
+  }
 
-extern "C" int mot_fe_rollout_f64(const double* f_edge, const double* rts, const int* table,
-                                  const double* weights, double* ssh0, double* h0,
-                                  double* u0, double* ssh1, double* h1, double* u1,
-                                  double dt, double inv_dc, double s_div, int ny2, int nx,
-                                  int k, int n_steps, int n_terms, void* stream) {
-  return fe_rollout<double>(f_edge, rts, table, weights, ssh0, h0, u0, ssh1, h1, u1, dt,
-                            inv_dc, s_div, ny2, nx, k, n_steps, n_terms,
-                            static_cast<cudaStream_t>(stream));
-}
+MOT_FE_ENTRIES(float, f32)
+MOT_FE_ENTRIES(double, f64)

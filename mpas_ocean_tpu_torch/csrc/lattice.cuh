@@ -1,0 +1,51 @@
+// Shared pieces of the parity-plane lattice kernels (fe_step.cu,
+// adjoint_step.cu): the stencil table's layout, periodic wrap, warp sums.
+//
+// Stencil table (int32, built by kernels/fe_step.py:pack_stencil):
+//   [0]                 n_terms
+//   [1 .. 18]           neighbour across each owned edge, per channel c:
+//                       (plane_in, dm, di)
+//   [19 .. 36]          incoming-edge taps of the divergence, per plane p,
+//                       3 taps: (channel_in, dm, di)
+//   [37 .. 43]          first term of each output channel (7 offsets)
+//   [44 ..]             Coriolis terms grouped by output channel:
+//                       (channel_in, dm, di); weights alongside, in T.
+// A tap (dm, di) reads (m + dm, i + di), periodic.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace lattice {
+
+constexpr int kMaxTerms = 128;
+constexpr int kHeader = 44;
+constexpr int kNbr = 1;
+constexpr int kInc = 19;
+constexpr int kOff = 37;
+constexpr double kGravity = 9.80616;
+constexpr long long kMaxIndex = 2147483647LL;  // largest u offset + 1 that fits int
+
+__device__ __forceinline__ int wrap(int x, int n) {
+  x %= n;
+  return x < 0 ? x + n : x;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Arguments every entry checks before it launches.
+inline bool valid_shape(int ny2, int nx, int k, int n_steps, int n_terms) {
+  if (ny2 <= 0 || nx <= 0 || k <= 0 || n_steps < 0) return false;
+  if (n_terms < 0 || n_terms > kMaxTerms) return false;
+  // offsets are 32-bit (half the registers of 64-bit address arithmetic)
+  return 6LL * ny2 * nx * k <= kMaxIndex;
+}
+
+// One block per cell column; threads stride over the levels.
+inline int column_threads(int k) { return k >= 256 ? 256 : ((k + 31) / 32) * 32; }
+
+}  // namespace lattice

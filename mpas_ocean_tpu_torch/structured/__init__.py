@@ -1,3 +1,15 @@
+from .adjoint import structured_adjoint_run_loop, structured_adjoint_step
+from .diff_model import (
+    FusedRolloutDiff,
+    FusedStep,
+    adjoint_from_ckpts,
+    adjoint_plan,
+    adjoint_segment,
+    forward_ckpts,
+    fused_adjoint_rollout,
+    fused_rollout_diff,
+    fused_step,
+)
 from .fused_model import fused_run_loop, structured_auto_run_loop
 from .hex_layout import HexLayout
 from .model import (
@@ -13,15 +25,26 @@ from .model import (
 )
 
 __all__ = [
+    "FusedRolloutDiff",
+    "FusedStep",
     "HexLayout",
     "StructMesh",
     "StructState",
     "StructuredModel",
+    "adjoint_from_ckpts",
+    "adjoint_plan",
+    "adjoint_segment",
+    "forward_ckpts",
+    "fused_adjoint_rollout",
+    "fused_rollout_diff",
     "fused_run_loop",
+    "fused_step",
     "struct_mesh_from_numpy",
     "struct_mesh_to_numpy",
     "struct_state_from_numpy",
     "struct_state_to_numpy",
+    "structured_adjoint_run_loop",
+    "structured_adjoint_step",
     "structured_auto_run_loop",
     "structured_run_loop",
     "structured_step",

@@ -1,0 +1,346 @@
+"""Differentiable rollout of the structured linear core: the forward-Euler
+step kernel (kernels/fe_step.py) forward, and a reverse sweep through the
+hand-written adjoint-step kernel (kernels/adjoint_step.py).
+
+Counterpart of mpas_ocean_tpu/structured/pallas_model.py:1460-1960 (the fused
+adjoint segments: ``_adjoint_plan``, ``_pallas_forward_ckpts``,
+``_adjoint_segment``, ``_pallas_adjoint_from_ckpts``,
+``pallas_adjoint_rollout``) and :2587-3034 (``pallas_rollout_diff``,
+``pallas_step``), for the periodic linear core with forward Euler.
+
+Plan. The forward runs in groups of ``group`` steps and keeps each group's
+start state (the outer checkpoints). The reverse takes the groups last to
+first: it rebuilds the group's states in a stack with the forward kernel,
+from its checkpoint, then runs the adjoint kernel back through the stack.
+So ceil(n / group) + group states live in device memory, and the forward
+runs about twice. The TPU kernel rebuilt b-step segments inside VMEM under a
+fitted VMEM model; on the card the limit is device memory, so there is one
+level of groups and no recompute inside a kernel.
+
+State on a CUDA device runs the kernels, and a failed build or launch
+raises. State on the CPU runs the same plan with the plain step
+(``model.structured_step``) and the plain adjoint step
+(``adjoint.structured_adjoint_step``). Nothing falls back from one to the
+other.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..kernels import adjoint_step, fe_step
+from .adjoint import structured_adjoint_step
+from .fused_model import _scal, fused_run_loop
+from .model import StructMesh, StructState, structured_run_loop, structured_step
+
+__all__ = [
+    "MEMORY_SHARE",
+    "FusedRolloutDiff",
+    "FusedStep",
+    "adjoint_from_ckpts",
+    "adjoint_plan",
+    "adjoint_segment",
+    "forward_ckpts",
+    "fused_adjoint_rollout",
+    "fused_rollout_diff",
+    "fused_step",
+]
+
+# share of the card's free memory that the checkpoints may take by default
+MEMORY_SHARE = 0.5
+
+_FIELDS = ("ssh", "layer_thickness", "normal_velocity")
+
+
+def _fields(state: StructState) -> tuple:
+    return tuple(getattr(state, f) for f in _FIELDS)
+
+
+def _state_bytes(state: StructState) -> int:
+    return sum(x.numel() * x.element_size() for x in _fields(state))
+
+
+def _default_budget(device: torch.device) -> float:
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return MEMORY_SHARE * free
+    return math.inf
+
+
+def adjoint_plan(n_steps: int, state_bytes: int, budget: float) -> int:
+    """Steps per group for an n-step reverse sweep: the group that keeps
+    the fewest states resident, ceil(n / group) checkpoints plus group
+    rebuilt states, which is group = ceil(sqrt(n)). The last group takes the
+    remainder, so every n >= 1 has a plan. Raises ValueError when those
+    states take more than ``budget`` bytes."""
+    if n_steps < 1:
+        raise ValueError("a reverse sweep needs n_steps >= 1")
+    group = math.isqrt(n_steps - 1) + 1
+    need = (-(-n_steps // group) + group) * state_bytes
+    if need > budget:
+        raise ValueError(
+            f"the reverse sweep of {n_steps} steps keeps {need / 2**20:.1f} MiB "
+            f"of states, over the budget of {budget / 2**20:.1f} MiB"
+        )
+    return group
+
+
+class _Steps:
+    """The forward and reverse steps one device runs: the kernels for a
+    CUDA state, the plain versions for a CPU state. States are StructStates
+    of preallocated tensors; stacks carry a leading slot axis."""
+
+    def __init__(self, mesh: StructMesh, dt, like: torch.Tensor):
+        self.mesh, self.dt = mesh, dt
+        self.cuda = like.device.type == "cuda"
+        if not self.cuda and like.device.type != "cpu":
+            raise ValueError(f"no rollout for state on {like.device}")
+        if self.cuda:
+            dtype = like.dtype
+            self.scal = _scal(mesh, dt, dtype)
+            f_edge = mesh.f_edge.to(dtype).contiguous()
+            self.fwd = (f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
+                        mesh.stencil_table, mesh.coriolis_weight.to(dtype))
+            self.adj = (f_edge, mesh.adjoint_table, mesh.adjoint_weight.to(dtype))
+
+    def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
+        """n >= 1 steps from src into out."""
+        if self.cuda:
+            fe_step.fe_rollout_into(_fields(src), _fields(out), *self.fwd, *self.scal,
+                                    n, _fields(scratch))
+        else:
+            for dst, x in zip(_fields(out), _fields(structured_run_loop(
+                    src, self.mesh, self.dt, n))):
+                dst.copy_(x)
+
+    def fill(self, stack: StructState, n: int):
+        """Slot j + 1 = one step of slot j, for j < n."""
+        if self.cuda:
+            fe_step.fe_fill_stack(_fields(stack), *self.fwd, *self.scal, n)
+        else:
+            for j in range(n):
+                nxt = structured_step(_slot(stack, j), self.mesh, self.dt)
+                for dst, x in zip(_fields(_slot(stack, j + 1)), _fields(nxt)):
+                    dst.copy_(x)
+
+    def reverse(self, stack: StructState, g: StructState, n: int, ddt: torch.Tensor,
+                out: StructState, scratch: StructState):
+        """n >= 1 reverse steps through the stack's slots n - 1 .. 0, from
+        the cotangent g at step n into out; d(dt) is added to ddt."""
+        if self.cuda:
+            adjoint_step.adjoint_rollout(_fields(stack), _fields(g), *self.adj,
+                                         *self.scal, n, ddt, _fields(out),
+                                         _fields(scratch))
+            return
+        for j in reversed(range(n)):
+            g, dd = structured_adjoint_step(_slot(stack, j), g, self.mesh, self.dt)
+            ddt += dd
+        for dst, x in zip(_fields(out), _fields(g)):
+            dst.copy_(x)
+
+
+def _slot(stack: StructState, j: int) -> StructState:
+    return StructState(*(x[j] for x in _fields(stack)))
+
+
+def _empty(like: StructState, slots: int | None = None) -> StructState:
+    lead = () if slots is None else (slots,)
+    return StructState(*(torch.empty(lead + tuple(x.shape), dtype=x.dtype, device=x.device)
+                         for x in _fields(like)))
+
+
+def _copy(state: StructState) -> StructState:
+    return StructState(*(x.clone(memory_format=torch.contiguous_format)
+                         for x in _fields(state)))
+
+
+def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
+                  group: int) -> tuple[StructState, StructState]:
+    """The forward in groups of ``group`` steps (the last takes the
+    remainder), keeping each group's start state. Returns (final state,
+    checkpoints as a StructState of stacks with one slot per group). The
+    per-step arithmetic is that of one ``fused_run_loop`` call, so the final
+    state is bitwise the same. Counterpart of ``_pallas_forward_ckpts``."""
+    starts = range(0, n_steps, group)
+    ckpts = _empty(state, len(starts))
+    if n_steps == 0:
+        return _copy(state), ckpts
+    steps = _Steps(mesh, dt, state.layer_thickness)
+    for dst, x in zip(_fields(_slot(ckpts, 0)), _fields(state)):
+        dst.copy_(x)
+    final, scratch = _empty(state), _empty(state)
+    for gi, start in enumerate(starts):
+        dst = _slot(ckpts, gi + 1) if gi + 1 < len(starts) else final
+        steps.advance(_slot(ckpts, gi), dst, min(group, n_steps - start), scratch)
+    return final, ckpts
+
+
+def _segment(steps: _Steps, ckpt: StructState, cot: StructState, n: int,
+             stack: StructState, ddt: torch.Tensor, out: StructState,
+             scratch: StructState):
+    for dst, x in zip(_fields(_slot(stack, 0)), _fields(ckpt)):
+        dst.copy_(x)
+    steps.fill(stack, n - 1)
+    steps.reverse(stack, cot, n, ddt, out, scratch)
+
+
+def _cotangent(g: StructState, like: StructState) -> StructState:
+    return StructState(*(x.to(y.dtype).contiguous()
+                         for x, y in zip(_fields(g), _fields(like))))
+
+
+def _dt_meta(dt, device) -> tuple:
+    """(dtype, device) of d(dt): dt's own for a tensor, float64 on the
+    state's device for a Python number."""
+    if torch.is_tensor(dt):
+        return dt.dtype, dt.device
+    return torch.float64, device
+
+
+def _plan(state: StructState, n_steps: int, plan) -> int:
+    if plan:
+        return plan
+    if n_steps == 0:
+        return 1
+    return adjoint_plan(n_steps, _state_bytes(state),
+                        _default_budget(state.layer_thickness.device))
+
+
+def adjoint_segment(ckpt: StructState, cot: StructState, mesh: StructMesh, dt,
+                    n_steps: int) -> tuple[StructState, torch.Tensor]:
+    """Reverse of one n-step segment: rebuild its states from its start
+    state ``ckpt``, then step the cotangent ``cot`` at its end back to its
+    start. Returns (cotangent at the start, d(dt) as a 0-d float64 tensor).
+    Counterpart of ``_adjoint_segment``."""
+    if n_steps < 1:
+        raise ValueError("a segment has n_steps >= 1")
+    steps = _Steps(mesh, dt, ckpt.layer_thickness)
+    ddt = torch.zeros(1, dtype=torch.float64, device=ckpt.layer_thickness.device)
+    out = _empty(ckpt)
+    _segment(steps, ckpt, _cotangent(cot, ckpt), n_steps, _empty(ckpt, n_steps), ddt,
+             out, _empty(ckpt))
+    return out, ddt.reshape(())
+
+
+def adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
+                       group: int, g: StructState) -> tuple[StructState, torch.Tensor]:
+    """The reverse sweep from the checkpoints of ``forward_ckpts``: per
+    group, last to first, rebuild its states and step the cotangent back
+    through them. Returns (cotangent of the rollout's input, d(dt) as a
+    0-d float64 tensor). Counterpart of ``_pallas_adjoint_from_ckpts``."""
+    x = ckpts.layer_thickness
+    ddt = torch.zeros(1, dtype=torch.float64, device=x.device)
+    if n_steps == 0:
+        return g, ddt.reshape(())
+    like = _slot(ckpts, 0)
+    steps = _Steps(mesh, dt, x)
+    stack = _empty(like, min(group, n_steps))
+    bufs, scratch = (_empty(like), _empty(like)), _empty(like)
+    cot = _cotangent(g, like)
+    for gi in reversed(range(len(range(0, n_steps, group)))):
+        out = bufs[gi % 2]
+        _segment(steps, _slot(ckpts, gi), cot, min(group, n_steps - gi * group), stack,
+                 ddt, out, scratch)
+        cot = out
+    return cot, ddt.reshape(())
+
+
+def fused_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
+                          g: StructState, *, plan: int | None = None):
+    """VJP of an n-step rollout: given its input ``state`` and an output
+    cotangent ``g``, returns (d_state, d_dt), d_dt as a 0-d tensor in dt's
+    dtype (float64 for a Python dt). ``plan`` (steps per group) overrides
+    ``adjoint_plan``, whose budget is MEMORY_SHARE of the card's free
+    memory (unbounded on the CPU). Counterpart of
+    ``pallas_adjoint_rollout``."""
+    dtype, device = _dt_meta(dt, state.layer_thickness.device)
+    group = _plan(state, n_steps, plan)
+    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, group)
+    d_state, ddt = adjoint_from_ckpts(ckpts, mesh, dt, n_steps, group, g)
+    return d_state, ddt.to(dtype=dtype, device=device)
+
+
+def _dt_value(dt) -> float:
+    return float(dt.detach()) if torch.is_tensor(dt) else float(dt)
+
+
+def _save_dt(ctx, dt, device):
+    ctx.dt_v, ctx.dt_meta = _dt_value(dt), _dt_meta(dt, device)
+
+
+def _grads(ctx, d_state: StructState, ddt: torch.Tensor):
+    d_dt = None
+    if ctx.needs_input_grad[3]:
+        dtype, device = ctx.dt_meta
+        d_dt = ddt.to(dtype=dtype, device=device)
+    return (*_fields(d_state), d_dt)
+
+
+def _output_cotangent(like: StructState, grads) -> StructState:
+    return StructState(*(torch.zeros_like(x) if gx is None else gx
+                         for x, gx in zip(_fields(like), grads)))
+
+
+class FusedRolloutDiff(torch.autograd.Function):
+    """n-step rollout whose backward is the checkpointed reverse sweep
+    (``forward_ckpts`` forward, ``adjoint_from_ckpts`` backward). Inputs:
+    ssh, h, u, dt (float or tensor), mesh, n_steps, plan. The mesh gets no
+    cotangent (None; the JAX package returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, ssh, h, u, dt, mesh, n_steps, plan=None):
+        state = StructState(ssh, h, u)
+        _save_dt(ctx, dt, h.device)
+        group = _plan(state, n_steps, plan)
+        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, group)
+        ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.group = ckpts, mesh, n_steps, group
+        return _fields(final)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gs, gh, gu):
+        if ctx.n_steps == 0:
+            return gs, gh, gu, None, None, None, None
+        g = _output_cotangent(_slot(ctx.ckpts, 0), (gs, gh, gu))
+        d_state, ddt = adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps,
+                                          ctx.group, g)
+        return (*_grads(ctx, d_state, ddt), None, None, None)
+
+
+def fused_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
+                       plan: int | None = None) -> StructState:
+    """n-step rollout of the linear periodic core, differentiable with
+    respect to the state and a tensor ``dt``: the reverse-mode pass through
+    the whole loop, which the reference validates with Enzyme against finite
+    differences. Forward through ``fe_step`` on the card, backward through
+    ``adjoint_step``. Counterpart of ``pallas_rollout_diff``."""
+    return StructState(*FusedRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan))
+
+
+class FusedStep(torch.autograd.Function):
+    """One differentiable step: the forward kernel forward, the adjoint
+    kernel backward. Inputs: ssh, h, u, dt, mesh."""
+
+    @staticmethod
+    def forward(ctx, ssh, h, u, dt, mesh):
+        ctx.save_for_backward(ssh, h, u)
+        ctx.mesh = mesh
+        _save_dt(ctx, dt, h.device)
+        return _fields(fused_run_loop(StructState(ssh, h, u), mesh, ctx.dt_v, 1))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gs, gh, gu):
+        state = StructState(*ctx.saved_tensors)
+        d_state, ddt = adjoint_segment(
+            state, _output_cotangent(state, (gs, gh, gu)), ctx.mesh, ctx.dt_v, 1)
+        return (*_grads(ctx, d_state, ddt), None)
+
+
+def fused_step(state: StructState, mesh: StructMesh, dt) -> StructState:
+    """One differentiable forward-Euler step. Counterpart of
+    ``pallas_step``."""
+    return StructState(*FusedStep.apply(*_fields(state), dt, mesh))

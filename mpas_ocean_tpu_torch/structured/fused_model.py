@@ -41,7 +41,8 @@ def fused_run_loop(
     dtype = state.layer_thickness.dtype
     ssh, h, u = fe_step.fe_rollout(
         state.ssh, state.layer_thickness, state.normal_velocity,
-        mesh.f_edge.to(dtype), mesh.resting_thickness_sum.to(dtype),
+        mesh.f_edge.to(dtype).contiguous(),
+        mesh.resting_thickness_sum.to(dtype).contiguous(),
         mesh.stencil_table, mesh.coriolis_weight.to(dtype),
         *_scal(mesh, dt, dtype), n_steps,
     )

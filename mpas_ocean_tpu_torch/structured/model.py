@@ -21,11 +21,14 @@ from torch import nn
 from ..constants import GRAVITY
 from ..models.state import PrognosticVars
 from .hex_layout import E, NE, NW, HexLayout
+from .stencils import transpose_coriolis_terms
 
 __all__ = [
     "StructMesh",
     "StructState",
     "StructuredModel",
+    "apply_stencil",
+    "packed_stencils",
     "struct_mesh_from_numpy",
     "struct_mesh_to_numpy",
     "struct_state_from_numpy",
@@ -66,6 +69,9 @@ class StructMesh:
     # (kernels/fe_step.pack_stencil): int32 table + weights in the state dtype
     stencil_table: torch.Tensor
     coriolis_weight: torch.Tensor
+    # the same for its transpose, which the adjoint kernel reads
+    adjoint_table: torch.Tensor
+    adjoint_weight: torch.Tensor
 
     def to(self, device) -> "StructMesh":
         return StructMesh(
@@ -80,6 +86,8 @@ class StructMesh:
             resting_thickness_sum=self.resting_thickness_sum.to(device),
             stencil_table=self.stencil_table.to(device),
             coriolis_weight=self.coriolis_weight.to(device),
+            adjoint_table=self.adjoint_table.to(device),
+            adjoint_weight=self.adjoint_weight.to(device),
         )
 
 
@@ -88,23 +96,33 @@ _MESH_ARRAYS = ("dc", "dv", "area_cell", "f_edge", "resting_thickness_sum")
 _STATE_ARRAYS = ("ssh", "layer_thickness", "normal_velocity")
 
 
-def struct_mesh_from_numpy(d: dict) -> StructMesh:
-    """StructMesh from a dict of the JAX StructMesh's fields (arrays as
-    numpy, the rest as given), bit for bit; the kernel's stencil table is
-    packed from ``coriolis_terms``."""
+def packed_stencils(terms, dtype) -> dict:
+    """The kernels' tables of the Coriolis stencil and of its transpose
+    (kernels/fe_step.pack_stencil), as numpy, weights in ``dtype``."""
     from ..kernels.fe_step import pack_stencil
 
-    terms = tuple(tuple(t) for t in d["coriolis_terms"])
     table, weights = pack_stencil(terms)
+    adj_table, adj_weights = pack_stencil(transpose_coriolis_terms(terms))
+    return {
+        "stencil_table": table,
+        "coriolis_weight": weights.astype(dtype),
+        "adjoint_table": adj_table,
+        "adjoint_weight": adj_weights.astype(dtype),
+    }
+
+
+def struct_mesh_from_numpy(d: dict) -> StructMesh:
+    """StructMesh from a dict of the JAX StructMesh's fields (arrays as
+    numpy, the rest as given), bit for bit; the kernels' stencil tables are
+    packed from ``coriolis_terms``."""
+    terms = tuple(tuple(t) for t in d["coriolis_terms"])
+    packed = packed_stencils(terms, np.asarray(d["f_edge"]).dtype)
     return StructMesh(
         nx=int(d["nx"]),
         ny2=int(d["ny2"]),
         n_vert_levels=int(d["n_vert_levels"]),
         coriolis_terms=terms,
-        stencil_table=torch.from_numpy(table),
-        coriolis_weight=torch.from_numpy(
-            weights.astype(np.asarray(d["f_edge"]).dtype)
-        ),
+        **{k: torch.from_numpy(v) for k, v in packed.items()},
         **{k: torch.from_numpy(np.array(d[k])) for k in _MESH_ARRAYS},
     )
 
@@ -183,16 +201,22 @@ def div_on_cell(u, mesh: StructMesh):
     return total * (mesh.dv / mesh.area_cell)
 
 
-def tangential_times_f(u, mesh: StructMesh):
-    """TRiSK Coriolis accumulation sum_j w_j * (u * f)[eoe_j] as 60 static
-    roll-multiply-adds (stencil machine-extracted in hex_layout.py)."""
-    uf = u * mesh.f_edge[..., None]
+def apply_stencil(x, terms):
+    """sum_j w_j * x[f_in, p_in] shifted by (dm, di), per output channel,
+    for a static term list (f_out, p_out, f_in, p_in, dm, di, w); x is an
+    edge field (3, 2, ny2, nx, ...)."""
     out = [[None, None] for _ in range(3)]
-    for (f_out, p_out, f_in, p_in, dm, di, w) in mesh.coriolis_terms:
-        contrib = w * _shift(uf[f_in, p_in], dm, di)
+    for (f_out, p_out, f_in, p_in, dm, di, w) in terms:
+        contrib = w * _shift(x[f_in, p_in], dm, di)
         cur = out[f_out][p_out]
         out[f_out][p_out] = contrib if cur is None else cur + contrib
     return torch.stack([torch.stack(planes) for planes in out])
+
+
+def tangential_times_f(u, mesh: StructMesh):
+    """TRiSK Coriolis accumulation sum_j w_j * (u * f)[eoe_j] as 60 static
+    roll-multiply-adds (stencil machine-extracted in hex_layout.py)."""
+    return apply_stencil(u * mesh.f_edge[..., None], mesh.coriolis_terms)
 
 
 def structured_step(state: StructState, mesh: StructMesh, dt) -> StructState:
@@ -227,15 +251,23 @@ class StructuredModel(nn.Module):
 
     Built from an unstructured Mesh; converts state in and out of the
     lattice layout on the host and holds the lattice constants (``f_edge``,
-    ``rts``, the metric scalars and the Coriolis term table) as buffers, so
-    ``.to(device)`` moves them to the card. The culled-channel form of the
-    JAX package (``parent_horz`` / ``keep_cells``) is not ported yet.
+    ``rts``, the metric scalars and the Coriolis term tables) as buffers on
+    ``device``. ``device=None`` means the card ("cuda"), and raises where
+    there is none; the plain version runs on the host only for
+    ``device="cpu"``. The culled-channel form of the JAX package
+    (``parent_horz`` / ``keep_cells``) is not ported yet.
     """
 
-    def __init__(self, mesh, nx: int, ny: int):
+    def __init__(self, mesh, nx: int, ny: int, device=None):
         super().__init__()
-        from ..kernels.fe_step import pack_stencil
-
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "StructuredModel builds on the CUDA card by default and "
+                    "torch.cuda.is_available() is false; pass device='cpu' "
+                    "to run the plain version on the host"
+                )
+            device = "cuda"
         horz, vert = mesh.horz, mesh.vert
         self.layout = HexLayout(horz, nx, ny)
         lay = self.layout
@@ -252,17 +284,16 @@ class StructuredModel(nn.Module):
             raise ValueError("lattice metrics are not uniform")
 
         def buf(name, a):
-            self.register_buffer(name, torch.from_numpy(np.array(a)))
+            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(a)).to(device))
 
         buf("dc", dtype.type(lay.dc))
         buf("dv", dtype.type(dv_edge[0]))
         buf("area_cell", dtype.type(area[0]))
         buf("f_edge", lay.edges_to_struct(np.asarray(horz.edges.f)))
         buf("rts", lay.cells_to_struct(np.asarray(vert.resting_thickness_sum)))
-        # the kernel's device copy of the Coriolis stencil
-        table, weights = pack_stencil(self.coriolis_terms)
-        buf("stencil_table", table)
-        buf("coriolis_weight", weights.astype(dtype))
+        # the kernels' device copies of the Coriolis stencil and its transpose
+        for name, a in packed_stencils(self.coriolis_terms, dtype).items():
+            buf(name, a)
 
     @property
     def struct_mesh(self) -> StructMesh:
@@ -279,6 +310,8 @@ class StructuredModel(nn.Module):
             resting_thickness_sum=self.rts,
             stencil_table=self.stencil_table,
             coriolis_weight=self.coriolis_weight,
+            adjoint_table=self.adjoint_table,
+            adjoint_weight=self.adjoint_weight,
         )
 
     def to_struct(self, prog: PrognosticVars) -> StructState:

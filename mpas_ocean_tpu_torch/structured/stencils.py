@@ -27,3 +27,15 @@ INCOMING = {
     0: [(E * 2 + 0, 0, -1), (NE * 2 + 1, -1, -1), (NW * 2 + 1, -1, 0)],
     1: [(E * 2 + 1, 0, -1), (NE * 2 + 0, 0, 0), (NW * 2 + 0, 0, 1)],
 }
+
+
+def transpose_coriolis_terms(terms) -> tuple:
+    """The transpose of a Coriolis stencil: a term (f_out, p_out, f_in, p_in,
+    dm, di, w) adds w * x[f_in, p_in] at (m + dm, i + di) to out[f_out, p_out]
+    at (m, i), so its transpose adds w * y[f_out, p_out] at (m - dm, i - di)
+    to x[f_in, p_in] at (m, i). Packed by ``kernels.fe_step.pack_stencil``,
+    it is the table the adjoint kernel gathers with."""
+    return tuple(
+        (f_in, p_in, f_out, p_out, -dm, -di, w)
+        for (f_out, p_out, f_in, p_in, dm, di, w) in terms
+    )

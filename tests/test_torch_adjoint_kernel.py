@@ -1,0 +1,151 @@
+"""The hand-written CUDA adjoint-step kernel against its plain PyTorch
+version, on a CUDA card. These tests skip on machines without one. They
+import no JAX, so on a GPU machine without JAX they run with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_adjoint_kernel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step
+from mpas_ocean_tpu_torch.structured import (
+    StructState,
+    fused_adjoint_rollout,
+    fused_rollout_diff,
+    fused_run_loop,
+    structured_adjoint_run_loop,
+    structured_adjoint_step,
+    structured_run_loop,
+)
+
+from torch_gpu_cases import FIELDS, cuda, random_lattice  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.gpu
+
+DT = 10.0
+
+
+def _cotangent(state, seed):
+    rng = np.random.default_rng(seed)
+    return StructState(*(
+        torch.from_numpy(rng.normal(size=tuple(getattr(state, f).shape))).to(
+            getattr(state, f).device)
+        for f in FIELDS))
+
+
+def _plain_reverse(states, g, sm):
+    """The plain adjoint step back through the given primal states."""
+    ddt = 0.0
+    for s in reversed(states):
+        g, dd = structured_adjoint_step(s, g, sm, DT)
+        ddt += float(dd)
+    return g, ddt
+
+
+@pytest.mark.parametrize("n_steps", [0, 1, 2, 7])
+@pytest.mark.parametrize(
+    "shape, dc", [((16, 16, 4), 1e3), ((10, 12, 33), 1e3), ((8, 8, 300), 1e5)]
+)
+def test_adjoint_kernel_matches_plain_f64(cuda, shape, dc, n_steps):
+    """f64: the kernel sweep against the plain adjoint step run back through
+    the same primal states (the forward kernel's, which the sweep rebuilds
+    bit for bit), so the two differ only in summation order: 1e-12 of each
+    field's magnitude, and of d(dt). K = 33 and 300 cover ragged warps and
+    k-striding; plan 3 makes n = 7 a 3 + 3 + 1 sweep. Against the plain
+    forward's states instead, d(dt) would differ by ~1e-10: it carries the
+    pressure gradient of ssh = sum_k h - rts, which the two forwards round
+    apart by ~1e-12 of ssh (tests/test_torch_kernel.py)."""
+    model, st = random_lattice(*shape, cuda, dc=dc)
+    sm = model.struct_mesh
+    g = _cotangent(st, 3)
+    out, ddt = fused_adjoint_rollout(st, sm, DT, n_steps, g, plan=3)
+    states = [st]
+    for _ in range(n_steps - 1):
+        states.append(fused_run_loop(states[-1], sm, DT, 1))
+    ref, ref_dt = _plain_reverse(states if n_steps else [], g, sm)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        a, b = getattr(out, f), getattr(ref, f)
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float64
+        assert a.device.type == "cuda"
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 1e-12, (f, err)
+    if n_steps:
+        assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
+    whole, _ = structured_adjoint_run_loop(st, sm, DT, n_steps, g)
+    for f in FIELDS:
+        a, b = getattr(out, f), getattr(whole, f)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, f
+
+
+def test_adjoint_kernel_counts_launches_and_repeats_bitwise(cuda):
+    """n = 7 in groups of 3: 7 forward launches, 2 + 2 + 0 rebuild
+    launches, 7 adjoint launches; an f64 rerun gives the same bits (no
+    atomics)."""
+    model, st = random_lattice(16, 16, 4, cuda)
+    g = _cotangent(st, 4)
+    before = [getattr(st, f).clone() for f in FIELDS] + [getattr(g, f).clone() for f in FIELDS]
+    fe_step.launches = adjoint_step.launches = 0
+    a, a_dt = fused_adjoint_rollout(st, model.struct_mesh, DT, 7, g, plan=3)
+    assert (fe_step.launches, adjoint_step.launches) == (11, 7)
+    b, b_dt = fused_adjoint_rollout(st, model.struct_mesh, DT, 7, g, plan=3)
+    assert torch.equal(a_dt, b_dt)
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f))
+    after = [getattr(st, f) for f in FIELDS] + [getattr(g, f) for f in FIELDS]
+    for x, y in zip(before, after):
+        assert torch.equal(x, y)
+
+
+def test_adjoint_kernel_passes_the_dot_product_identity(cuda):
+    """<J v, g> = <v, J^T g> for J the Jacobian of the 7-step rollout, f64:
+    J v by forward-mode AD (torch.func.jvp) of the plain rollout, which the
+    kernel rollout matches to 1e-12, and J^T g by the kernels."""
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    n = 7
+    v = _cotangent(st, 5)
+    g = _cotangent(st, 6)
+
+    def rollout(*fields):
+        out = structured_run_loop(StructState(*fields), sm, DT, n)
+        return tuple(getattr(out, f) for f in FIELDS)
+
+    _, jv = torch.func.jvp(rollout, tuple(getattr(st, f) for f in FIELDS),
+                           tuple(getattr(v, f) for f in FIELDS))
+    lhs = sum(float((x * getattr(g, f)).sum()) for x, f in zip(jv, FIELDS))
+    d, _ = fused_adjoint_rollout(st, sm, DT, n, g)
+    rhs = sum(float((getattr(v, f) * getattr(d, f)).sum()) for f in FIELDS)
+    assert abs(lhs - rhs) <= 1e-12 * abs(rhs)
+
+
+def test_rollout_diff_forward_is_the_fused_run_loop_bitwise(cuda):
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    out = fused_rollout_diff(st, sm, DT, 9, plan=4)
+    ref = fused_run_loop(st, sm, DT, 9)
+    for f in FIELDS:
+        assert torch.equal(getattr(out, f), getattr(ref, f))
+
+
+def test_adjoint_kernel_rejects_what_it_does_not_take(cuda):
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    g = _cotangent(st, 7)
+    with pytest.raises(TypeError):
+        half = StructState(*(getattr(st, f).half() for f in FIELDS))
+        fused_adjoint_rollout(half, sm, DT, 1, g)
+    stack = tuple(getattr(st, f)[None] for f in FIELDS)
+    ddt = torch.zeros(1, dtype=torch.float64, device=cuda)
+    args = (sm.f_edge, sm.adjoint_table, sm.adjoint_weight, DT, 1e-3, 1e-3, 1, ddt)
+    with pytest.raises(ValueError):
+        bad = (stack[0], stack[1], stack[2][:, :, :, :, :-1])
+        adjoint_step.adjoint_rollout(bad, tuple(getattr(g, f) for f in FIELDS), *args)
+    with pytest.raises(ValueError):
+        adjoint_step.adjoint_rollout(stack, (g.ssh, g.layer_thickness[..., :-1],
+                                             g.normal_velocity), *args)
+    with pytest.raises(ValueError):
+        adjoint_step.adjoint_rollout(stack, tuple(getattr(g, f) for f in FIELDS),
+                                     *args[:6], 2, ddt)

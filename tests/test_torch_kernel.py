@@ -5,7 +5,6 @@ so on a GPU machine without JAX they run with
     python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
 """
 
-import numpy as np
 import pytest
 import torch
 
@@ -13,34 +12,9 @@ import mpas_ocean_tpu_torch as mt
 from mpas_ocean_tpu_torch.kernels import fe_step
 from mpas_ocean_tpu_torch.structured import fused_run_loop, structured_run_loop
 
+from torch_gpu_cases import FIELDS, cuda, random_lattice  # noqa: F401 (fixture)
+
 pytestmark = pytest.mark.gpu
-
-FIELDS = ("ssh", "layer_thickness", "normal_velocity")
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-def _random_lattice(nx, ny, k, device, seed=7, dc=1000.0):
-    horz = mt.planar_hex_mesh(nx, ny, dc, f0=1e-4, beta=1e-11)
-    vert = mt.make_vertical_mesh(
-        horz, k, resting_thickness=np.full((horz.n_cells, k), 10.0)
-    )
-    rng = np.random.default_rng(seed)
-    h = 10.0 + 0.01 * rng.normal(size=(horz.n_cells, k))
-    u = 0.01 * rng.normal(size=(horz.n_edges, k))
-    prog = mt.PrognosticVars(
-        ssh=torch.from_numpy(h.sum(1) - vert.resting_thickness_sum),
-        layer_thickness=torch.from_numpy(h),
-        normal_velocity=torch.from_numpy(u),
-    )
-    model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), nx, ny).to(device)
-    return model, model.to_struct(prog)
-
 
 @pytest.mark.parametrize("n_steps", [0, 1, 2, 7])
 @pytest.mark.parametrize(
@@ -53,7 +27,7 @@ def test_kernel_matches_plain_f64(cuda, shape, dc, n_steps):
     K = 33 and 300 cover ragged warps and k-striding. At K = 300 the 3000 m
     column rounds to ~5e-13 m; at 1 km spacing the pressure gradient would
     carry that into 1e-12 of u within two steps, at 100 km it stays below."""
-    model, st = _random_lattice(*shape, cuda, dc=dc)
+    model, st = random_lattice(*shape, cuda, dc=dc)
     sm = model.struct_mesh
     out = fused_run_loop(st, sm, 10.0, n_steps)
     ref = structured_run_loop(st, sm, 10.0, n_steps)
@@ -68,7 +42,7 @@ def test_kernel_matches_plain_f64(cuda, shape, dc, n_steps):
 
 
 def test_kernel_counts_launches_and_keeps_inputs(cuda):
-    model, st = _random_lattice(16, 16, 4, cuda)
+    model, st = random_lattice(16, 16, 4, cuda)
     before = [getattr(st, f).clone() for f in FIELDS]
     fe_step.launches = 0
     fused_run_loop(st, model.struct_mesh, 10.0, 5)
@@ -78,7 +52,7 @@ def test_kernel_counts_launches_and_keeps_inputs(cuda):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    model, st = _random_lattice(16, 16, 4, cuda)
+    model, st = random_lattice(16, 16, 4, cuda)
     sm = model.struct_mesh
     with pytest.raises(TypeError):
         fused_run_loop(

@@ -59,7 +59,7 @@ def test_struct_round_trips_match_jax(layouts):
 def test_structured_model_matches_jax(layouts):
     nx, ny, mj, mp, *_ = layouts
     ref = JaxStructuredModel(mj, nx, ny)
-    port = StructuredModel(mp, nx, ny)
+    port = StructuredModel(mp, nx, ny, device="cpu")
     sm = port.struct_mesh
     assert sm.coriolis_terms == ref.struct_mesh.coriolis_terms
     for name in ("dc", "dv", "area_cell", "f_edge", "resting_thickness_sum"):

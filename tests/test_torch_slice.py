@@ -40,7 +40,7 @@ def runs():
     horz, igw, mesh, init = _igw_inputs(mt, mt.make_vertical_mesh, mt.InertialGravityWave)
     for a, b in zip(init, init_j):
         np.testing.assert_array_equal(a, b)
-    model = mt.StructuredModel(mesh, N, N)
+    model = mt.StructuredModel(mesh, N, N, device="cpu")
     prog = mt.PrognosticVars(*(torch.from_numpy(a) for a in init))
     out = model.from_struct(mt.structured_auto_run_loop(
         model.to_struct(prog), model.struct_mesh, DT, STEPS))
