@@ -8,7 +8,9 @@ port is tested against; this package never imports JAX.
 
 Main path: ``planar_hex_mesh`` + ``make_vertical_mesh`` +
 ``InertialGravityWave.initial_state`` -> ``StructuredModel(mesh, nx, ny)``
--> ``to_struct`` -> ``structured_auto_run_loop`` -> ``from_struct``; and
+-> ``to_struct`` -> ``structured_auto_run_loop`` (forward Euler, or
+forward-backward with ``fb=True``; the tiled q-step kernel behind
+``tiled_run_loop`` or the one-step kernel, by size) -> ``from_struct``; and
 its gradient, ``fused_rollout_diff`` under ``torch.autograd``. The model
 builds on the card unless given ``device="cpu"``; the state's device picks
 the kernels (CUDA) or the plain versions (CPU).
@@ -33,7 +35,10 @@ from .structured import (
     fused_run_loop,
     fused_step,
     structured_auto_run_loop,
+    structured_fb_step,
     structured_run_loop,
+    tiled_run_loop,
+    window_steps,
 )
 from .utils import error_measures
 from .verification import InertialGravityWave
@@ -57,5 +62,8 @@ __all__ = [
     "make_vertical_mesh",
     "planar_hex_mesh",
     "structured_auto_run_loop",
+    "structured_fb_step",
     "structured_run_loop",
+    "tiled_run_loop",
+    "window_steps",
 ]

@@ -20,9 +20,12 @@ from .model import (
     struct_mesh_to_numpy,
     struct_state_from_numpy,
     struct_state_to_numpy,
+    structured_fb_step,
     structured_run_loop,
     structured_step,
 )
+from .slab import window_steps
+from .tiled_model import tile_plan, tiled_run_loop
 
 __all__ = [
     "FusedRolloutDiff",
@@ -46,6 +49,10 @@ __all__ = [
     "structured_adjoint_run_loop",
     "structured_adjoint_step",
     "structured_auto_run_loop",
+    "structured_fb_step",
     "structured_run_loop",
     "structured_step",
+    "tile_plan",
+    "tiled_run_loop",
+    "window_steps",
 ]

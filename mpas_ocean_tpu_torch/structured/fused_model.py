@@ -1,12 +1,14 @@
-"""Fused rollout of the structured linear core: one hand-written kernel step
-per launch on the card (kernels/fe_step.py, csrc/fe_step.cu).
+"""Fused rollouts of the structured linear core on the card, and the entry
+point that routes between them.
 
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
 ``pallas_run_loop`` (:712) and ``structured_auto_run_loop`` (:1419) for the
-periodic linear core with forward Euler. State on a CUDA device runs the
-kernel, and a failed build or launch raises; state on the CPU runs the plain
-version, ``model.structured_run_loop``. Nothing falls back from one to the
-other.
+periodic linear core. ``fused_run_loop`` runs forward Euler (FE) one
+hand-written kernel step per launch (kernels/fe_step.py, csrc/fe_step.cu);
+``tiled_model.tiled_run_loop`` runs FE or forward-backward (FB) q steps per
+launch (kernels/tiled_step.py). State on a CUDA device runs a kernel, and a
+failed build or launch raises; state on the CPU runs the plain version,
+``model.structured_run_loop``. Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import fe_step
+from . import tiled_model
 from .model import StructMesh, StructState, structured_run_loop
 
 __all__ = ["fused_run_loop", "structured_auto_run_loop"]
@@ -50,9 +53,17 @@ def fused_run_loop(
 
 
 def structured_auto_run_loop(
-    state: StructState, mesh: StructMesh, dt, n_steps: int
+    state: StructState, mesh: StructMesh, dt, n_steps: int, *, fb: bool = False
 ) -> StructState:
-    """The lattice rollout entry point. On the TPU this chose between the
-    whole-rollout VMEM kernel and the tiled kernel by size; on the card one
-    kernel serves every size, so every lattice runs ``fused_run_loop``."""
+    """The lattice rollout entry point. A CPU state runs the plain
+    ``structured_run_loop`` (as the JAX package does off the TPU). On the
+    card, FB runs the tiled kernel at every size (fe_step has no FB arm).
+    FE runs fe_step at every size: that is the size rule measured on an
+    H100 (PERF.md §5), where fe_step beat the tiled kernel's best plan at
+    both 64x64x100 and 256x256x100 f32."""
+    device = state.layer_thickness.device
+    if device.type == "cpu":
+        return structured_run_loop(state, mesh, dt, n_steps, fb=fb)
+    if fb:
+        return tiled_model.tiled_run_loop(state, mesh, dt, n_steps, fb=True)
     return fused_run_loop(state, mesh, dt, n_steps)

@@ -33,6 +33,7 @@ __all__ = [
     "struct_mesh_to_numpy",
     "struct_state_from_numpy",
     "struct_state_to_numpy",
+    "structured_fb_step",
     "structured_run_loop",
     "structured_step",
 ]
@@ -237,12 +238,30 @@ def structured_step(state: StructState, mesh: StructMesh, dt) -> StructState:
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
+def structured_fb_step(state: StructState, mesh: StructMesh, dt) -> StructState:
+    """One forward-backward step of the linear core (the linear, unforced,
+    tracer-free, unstratified arm of mpas_ocean_tpu/structured/model.py:
+    433-485): the continuity update first, then the pressure gradient of
+    the fresh ssh and the Coriolis term of the old u."""
+    h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
+    flux = state.normal_velocity * h_edge
+    h = state.layer_thickness + dt * (-div_on_cell(flux, mesh))
+    ssh = h.sum(-1) - mesh.resting_thickness_sum
+
+    tend_u = -GRAVITY * grad_on_edge(ssh, mesh)[..., None]
+    tend_u = tend_u + tangential_times_f(state.normal_velocity, mesh)
+    u = state.normal_velocity + dt * tend_u
+    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
+
+
 def structured_run_loop(
-    state: StructState, mesh: StructMesh, dt, n_steps: int
+    state: StructState, mesh: StructMesh, dt, n_steps: int, fb: bool = False
 ) -> StructState:
-    """n_steps forward-Euler steps of ``structured_step``."""
+    """n_steps steps of ``structured_step`` (forward Euler) or, with
+    ``fb=True``, of ``structured_fb_step`` (forward-backward)."""
+    step = structured_fb_step if fb else structured_step
     for _ in range(n_steps):
-        state = structured_step(state, mesh, dt)
+        state = step(state, mesh, dt)
     return state
 
 

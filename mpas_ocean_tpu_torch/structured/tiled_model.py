@@ -1,0 +1,200 @@
+"""Tiled, temporally blocked rollout of the structured linear core, for
+lattices of any size: one hand-written kernel launch per q steps on the card
+(kernels/tiled_step.py, csrc/tiled_step.cu).
+
+Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
+``pallas_tiled_run_loop`` (:1332) and ``_pallas_tiled_rollout`` (:1221) for
+the periodic linear core with forward Euler (FE) or forward-backward (FB).
+The lattice is cut into row_tile x col_tile tiles; each tile reads its core
+and q halos of ``slab.stencil_reach`` rows and columns per side, advances q
+steps on the shrinking window (``slab.window_steps``) and writes its core.
+
+A CUDA state runs the kernel, and a failed build, a failed launch or a plan
+that does not fit raises; a CPU state runs ``plain_tiled_rollout``, the
+kernel's plain version with the same plan. Nothing falls back from one to
+the other.
+
+The planner (``tile_plan``) replaces the TPU's VMEM fit model
+(``tile_window_fits``, ``auto_tile_plan``, pallas_model.py:965-1045): a plan
+fits when one block's share of the window, ``window_bytes``, fits the
+card's shared memory (csrc/tiled_step.cu reckons it the same way; the
+registers are fixed by the kernel's 512-thread blocks); among the plans
+that fit it takes q = 1 and the largest tile, the rule read off the
+measurements in PERF.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import tiled_step
+from . import fused_model
+from .model import StructMesh, StructState
+from .slab import stencil_reach, window_steps
+
+__all__ = [
+    "plain_tiled_rollout",
+    "resolve_plan",
+    "tile_plan",
+    "tiled_run_loop",
+    "window_bytes",
+]
+
+
+def window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int, itemsize: int) -> int:
+    """Shared memory of one block of the tiled kernel: two copies of its
+    level chunk of the window (2 h planes + 6 u channels), the window's ssh
+    (two copies), column partial sums (two), f_edge, rts, its lattice sites
+    and the stencil tables (csrc/tiled_step.cu: ``smem_bytes``)."""
+    hm, hi = halo
+    sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
+    _, kc = tiled_step.level_split(k)
+    return tiled_step.smem_bytes(sites, kc, itemsize)
+
+
+def _divisors(n: int) -> list[int]:
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+def _fits(rt, ct, q, halo, ny2, nx, k, itemsize) -> bool:
+    hm, hi = halo
+    return (rt + 2 * hm * q <= ny2 and ct + 2 * hi * q <= nx
+            and window_bytes(rt, ct, q, halo, k, itemsize) <= tiled_step.SMEM_BYTES)
+
+
+def _best_tile(ny2, nx, k, itemsize, halo, q):
+    """The tile of largest area that fits at this q; among those, the one
+    with the smallest window, then the widest. None if no tile fits."""
+    hm, hi = halo
+    tiles = [(rt * ct, -(rt + 2 * hm * q) * (ct + 2 * hi * q), ct, rt)
+             for rt in _divisors(ny2) for ct in _divisors(nx)
+             if _fits(rt, ct, q, halo, ny2, nx, k, itemsize)]
+    if not tiles:
+        return None
+    *_, ct, rt = max(tiles)
+    return rt, ct
+
+
+def tile_plan(ny2: int, nx: int, k: int, itemsize: int, reach, n_steps: int):
+    """(row_tile, col_tile, q) for a lattice of ny2 x nx sites and k levels,
+    ``reach`` the per-step halo (rows, columns) of ``slab.stencil_reach``:
+    q = 1, which divides every n_steps, and the largest tile that fits
+    (``_best_tile``). Measured on an H100 at 256x256x100 and 64x64x100 f32
+    (PERF.md, tools/tile_sweep.py), no q = 2 or 4 plan was the fastest, FE
+    or FB: the kernel is not bound by bytes, so the halo rings that
+    temporal blocking recomputes cost more than the state passes it saves.
+    The largest tile was the fastest FB plan at 256x256 and within 7% of
+    the fastest at 64x64."""
+    tile = _best_tile(ny2, nx, k, itemsize, reach, 1)
+    return (*(tile or (1, 1)), 1)
+
+
+def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
+                 row_tile=None, col_tile=None, q=None):
+    """The plan ``tiled_run_loop`` runs: the caller's choices completed by
+    ``tile_plan``, q lowered until it divides n_steps, and the reach*q clamp
+    of pallas_tiled_run_loop (pallas_model.py:1372-1384) applied to rows
+    against ny2 and to columns against nx. Raises ValueError for a tile
+    that does not divide the lattice."""
+    hm, hi = halo
+    if q is None:
+        _, _, q = tile_plan(ny2, nx, k, itemsize, halo, n_steps)
+    q = max(1, min(int(q), n_steps))
+    while n_steps % q:
+        q -= 1
+    if row_tile is None or col_tile is None:
+        rt, ct = _best_tile(ny2, nx, k, itemsize, halo, q) or (1, 1)
+        row_tile = rt if row_tile is None else row_tile
+        col_tile = ct if col_tile is None else col_tile
+    if ny2 % row_tile:
+        raise ValueError(f"row_tile {row_tile} must divide ny2={ny2}")
+    if nx % col_tile:
+        raise ValueError(f"col_tile {col_tile} must divide nx={nx}")
+    for tile, n, h in ((row_tile, ny2, hm), (col_tile, nx, hi)):
+        if tile + 2 * h * q > n:
+            q = max(1, (n - tile) // (2 * h))
+            while n_steps % q:
+                q -= 1
+    return int(row_tile), int(col_tile), int(q)
+
+
+def _windows(x, rt, ct, hm, hi):
+    """(ch, ny2, nx, K) periodic planes -> (n_row_tiles, n_col_tiles, ch,
+    rt + 2 hm, ct + 2 hi, K) halo-padded tile windows (the counterpart of
+    ``halos()`` in _pallas_tiled_rollout, pallas_model.py:1254-1279, for
+    rows and columns)."""
+    _, ny2, nx, _ = x.shape
+    dev = x.device
+    rows = (torch.arange(0, ny2, rt, device=dev)[:, None] - hm
+            + torch.arange(rt + 2 * hm, device=dev)) % ny2
+    cols = (torch.arange(0, nx, ct, device=dev)[:, None] - hi
+            + torch.arange(ct + 2 * hi, device=dev)) % nx
+    return x[:, rows[:, None, :, None], cols[None, :, None, :]].permute(1, 2, 0, 3, 4, 5)
+
+
+def _untile(w):
+    """(n_row_tiles, n_col_tiles, ch, rt, ct, K) interiors -> (ch, ny2, nx, K)."""
+    n_tm, n_ti, ch, rt, ct, k = w.shape
+    return w.permute(2, 0, 3, 1, 4, 5).reshape(ch, n_tm * rt, n_ti * ct, k)
+
+
+def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
+                        row_tile: int, col_tile: int, q: int, fb: bool = False
+                        ) -> StructState:
+    """The tiled kernel's plain version: n_steps / q times, cut the
+    periodic state into halo-padded tile windows, run ``window_steps`` on
+    all of them as one batch, and put the interiors back together."""
+    if n_steps % q:
+        raise ValueError(f"q={q} must divide n_steps={n_steps}")
+    ny2, nx = mesh.ny2, mesh.nx
+    k = state.layer_thickness.shape[-1]
+    dtype = state.layer_thickness.dtype
+    halo = stencil_reach(mesh.coriolis_terms, fb)
+    hm, hi = halo[0] * q, halo[1] * q
+    dt_, inv_dc, s_div = fused_model._scal(mesh, dt, dtype)
+    win = lambda x: _windows(x, row_tile, col_tile, hm, hi)
+    f_w = win(mesh.f_edge.to(dtype).reshape(6, ny2, nx, 1))
+    rts_w = win(mesh.resting_thickness_sum.to(dtype).reshape(2, ny2, nx, 1))
+    ssh = state.ssh[..., None]
+    h = state.layer_thickness
+    u = state.normal_velocity.reshape(6, ny2, nx, k)
+    for _ in range(n_steps // q):
+        out = window_steps(win(ssh), win(h), win(u), f_w, rts_w, dt_, inv_dc, s_div,
+                           mesh.coriolis_terms, rows=row_tile, cols=col_tile, q=q,
+                           halo=halo, fb=fb)
+        ssh, h, u = (_untile(x) for x in out)
+    return StructState(ssh=ssh[..., 0], layer_thickness=h,
+                       normal_velocity=u.reshape(3, 2, ny2, nx, k))
+
+
+def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
+                   row_tile: int | None = None, col_tile: int | None = None,
+                   q: int | None = None, fb: bool = False) -> StructState:
+    """n_steps FE (or, with ``fb=True``, FB) steps of the linear periodic
+    core, q per kernel launch over row_tile x col_tile tiles; the plan is
+    completed by ``resolve_plan``. A CUDA state runs the kernel, a CPU
+    state its plain version with the same plan."""
+    device = state.layer_thickness.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no rollout for state on {device}")
+    if n_steps < 0:
+        raise ValueError("n_steps must be >= 0")
+    k = state.layer_thickness.shape[-1]
+    dtype = state.layer_thickness.dtype
+    halo = stencil_reach(mesh.coriolis_terms, fb)
+    rt, ct, q = resolve_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, halo, n_steps,
+                             row_tile, col_tile, q)
+    if device.type == "cpu":
+        if n_steps == 0:
+            return StructState(*(x.clone() for x in (
+                state.ssh, state.layer_thickness, state.normal_velocity)))
+        return plain_tiled_rollout(state, mesh, dt, n_steps, rt, ct, q, fb)
+    ssh, h, u = tiled_step.tiled_rollout(
+        state.ssh, state.layer_thickness, state.normal_velocity,
+        mesh.f_edge.to(dtype).contiguous(),
+        mesh.resting_thickness_sum.to(dtype).contiguous(),
+        mesh.stencil_table, mesh.coriolis_weight.to(dtype),
+        *fused_model._scal(mesh, dt, dtype), n_steps,
+        row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb,
+    )
+    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)

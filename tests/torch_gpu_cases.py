@@ -1,5 +1,6 @@
 """Shared inputs for the port's tests on a CUDA card
-(tests/test_torch_kernel.py, tests/test_torch_adjoint_kernel.py). They import
+(tests/test_torch_kernel.py, tests/test_torch_adjoint_kernel.py,
+tests/test_torch_tiled_kernel.py). They import
 no JAX, so they run on a GPU machine without it."""
 
 import numpy as np
