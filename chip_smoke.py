@@ -22,14 +22,23 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      torch.autograd.grad of sum(ssh_final^2) through fused_rollout_diff at
      64x64x100 f32 over 4000 steps (bench.py's measure_adjoint), from
      StructuredModel -> to_struct, with both kernels' launch counts and
-     timings, and the same at 256x256x100;
+     timings;
   7. the tiled q-step kernel: against its plain version (f64 64x64x4 for FE
      and FB at q = 1, 2, 4 and three tiles, bitwise reruns; f64 and f32
      256x256x100), the main path at 256x256x100 f32 for 1000 steps, FE
      (routed to fe_step) and FB (the tiled kernel), with launch counts,
      plan and bound, the tiled kernel's FE beside fe_step at 64^2 and 256^2
      (the size rule), and FB over 8000 steps at 64x64x100 against the exact
-     IGW and an f64 host run.
+     IGW and an f64 host run;
+  8. the tiled reverse: the tiled adjoint kernel against its plain version
+     (f64 16x16x4 and 64x64x4 at q = 1, 2 over wrapping and non-wrapping
+     tiles, bitwise reruns; f64 256x256x100 for 5 reverse steps; f32 64^2 and
+     256^2 for 100), the dot-product identity through tiled_rollout_diff,
+     the grad of sum(ssh_final^2) through tiled_rollout_diff at 256x256x100
+     f32 over 100 steps (bench.py's large-mesh tiled adjoint) with launch
+     counts, timing and a profiler breakdown, and the numbers behind
+     auto_rollout_diff's size rule (both reverse kernels per launch at 64^2,
+     128^2, 256^2; both grads at 256^2 and 64^2).
 The line before the last prints the GPU's name and power limit as nvidia-smi
 gives them, the one before it the kernels' JSON summary, and the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
@@ -48,7 +57,9 @@ import time
 DT = 30.0
 HEADLINE_N, LEVELS, HEADLINE_STEPS = 64, 100, 8000
 LARGE_N, LARGE_STEPS = 256, 200
-GRAD_STEPS, LARGE_GRAD_STEPS, PLAIN_ADJ_STEPS = HEADLINE_STEPS // 2, 20, 100
+GRAD_STEPS, PLAIN_ADJ_STEPS = HEADLINE_STEPS // 2, 100
+# the tiled reverse: bench.py's "large-mesh tiled adjoint" line, max(10, STEPS // 80)
+LARGE_ADJ_STEPS = max(10, HEADLINE_STEPS // 80)
 # the tiled path: bench.py's large rollout, max(10, STEPS // 8) steps; the
 # kernel-vs-plain check's length
 LARGE_MAIN_STEPS, TILED_CHECK_STEPS = HEADLINE_STEPS // 8, 100
@@ -473,6 +484,388 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
     }
 
 
+def state_fields(state) -> list:
+    return [getattr(state, f) for f in FIELDS]
+
+
+def random_cot(state, seed: int):
+    """A random cotangent like ``state`` (numpy seed), on its device."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.structured import StructState
+
+    rng = np.random.default_rng(seed)
+    return StructState(*(torch.from_numpy(rng.normal(size=tuple(x.shape))).to(
+        device=x.device, dtype=x.dtype) for x in state_fields(state)))
+
+
+def cot_errors(a, b, ddt_a, ddt_b) -> dict:
+    """max |a - b| per cotangent field and over max |b|; d(dt) over |b|."""
+    out = {}
+    for f in FIELDS:
+        x, y = getattr(a, f).double(), getattr(b, f).double()
+        err = float((x - y).abs().max())
+        out[f] = (err, err / float(y.abs().max()))
+    err = abs(float(ddt_a) - float(ddt_b))
+    out["d_dt"] = (err, err / abs(float(ddt_b)))
+    return out
+
+
+def grad_sum_ssh2(route, st, sm, n_steps: int, plan=None):
+    """torch.autograd.grad of sum(ssh_final^2) in the state and dt through
+    ``route`` (fused_rollout_diff, tiled_rollout_diff, auto_rollout_diff).
+    Returns (final state, (d_ssh, d_h, d_u, d_dt))."""
+    import torch
+
+    from mpas_ocean_tpu_torch.structured import StructState
+
+    leaves = [x.clone().requires_grad_(True) for x in state_fields(st)]
+    x = st.layer_thickness
+    dt = torch.tensor(DT, dtype=x.dtype, device=x.device, requires_grad=True)
+    out = route(StructState(*leaves), sm, dt, n_steps, plan=plan)
+    return out, torch.autograd.grad((out.ssh ** 2).sum(), leaves + [dt])
+
+
+def profile_by_kernel(fn, names: tuple):
+    """Device time by kernel of one call of fn(), from a profiler trace, and
+    the window's length by CUDA events: ({name: (us, count)}, window us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in names if k in e.key), "other")
+        t, c = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (t + e.self_device_time_total, c + e.count)
+    return by_kernel, start.elapsed_time(end) * 1e3
+
+
+def profile_line(by_kernel: dict, window_us: float, gpu: str) -> str:
+    busy_us = sum(t for t, _ in by_kernel.values())
+    return (", ".join(f"{k} {t:.0f} us / {c} = {t / max(c, 1):.3f} us"
+                      for k, (t, c) in by_kernel.items())
+            + f"; device busy {busy_us:.0f} us, idle share {1 - busy_us / window_us:.4f} [{gpu}]")
+
+
+def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
+    """Phase 8, the tiled reverse: the tiled adjoint kernel against its plain
+    version (f64 16^2 and 64^2 random states at q = 1 and 2 over tiles that
+    wrap and tiles that do not, with bitwise reruns; f64 256^2 IGW for 5
+    reverse steps; f32 64^2 and 256^2 for 100 on the same primal states),
+    the dot-product identity through tiled_rollout_diff, the main path at
+    full width (grad of sum(ssh_final^2) through tiled_rollout_diff at
+    256x256x100 f32 over 100 steps, bench.py's "large-mesh tiled adjoint"
+    line) with its launch counts, timing and profiler breakdown, and the
+    numbers of auto_rollout_diff's size rule. ``fused_grad_64`` holds
+    phase 6's 64^2 4000-step grad times through fused_rollout_diff. Returns
+    the kernels line's entries (tiled_adjoint; adjoint_step's 256^2
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        auto_rollout_diff,
+        diff_model,
+        fused_rollout_diff,
+        fused_run_loop,
+        plain_tiled_adjoint_superstep,
+        structured_auto_run_loop,
+        structured_run_loop,
+        tiled_adjoint_plan,
+        tiled_adjoint_rollout,
+        tiled_rollout_diff,
+    )
+    from mpas_ocean_tpu_torch.structured.fused_model import _scal
+    from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
+
+    for line in ptxas_report(log_text, ("tiled_adjoint_kernel",)):
+        log(f"[8] ptxas {line}")
+
+    def plan_of(st, sm, n_steps, **kw):
+        x = st.layer_thickness
+        return tiled_adjoint_plan(sm.ny2, sm.nx, x.shape[-1], x.element_size(), n_steps,
+                                  halo=reverse_halo(sm.coriolis_terms), **kw)
+
+    def plain_reverse(st, sm, dt, n, g, rt, ct, q, dtype=None):
+        """The plain superstep back through the superstep-start states of the
+        forward kernel (which the kernel sweep rebuilds bit for bit), so that
+        a comparison sees only the reverse's arithmetic; in ``dtype`` (those
+        states and g cast to it) where given."""
+        starts = [st]
+        for _ in range(n // q - 1):
+            starts.append(fused_run_loop(starts[-1], sm, dt, q))
+        cast = lambda s: s if dtype is None else StructState(
+            *(x.to(dtype) for x in state_fields(s)))
+        ddt = torch.zeros((), dtype=torch.float64, device=st.layer_thickness.device)
+        g = cast(g)
+        for s in reversed(starts):
+            g, dd = plain_tiled_adjoint_superstep(cast(s), g, sm, dt, rt, ct, q)
+            ddt = ddt + dd.double()
+        return g, ddt
+
+    def hold(what: str, errs: dict, tol: dict):
+        log(f"[8] {what}: max|diff| (/scale) = {format_errors(errs)}")
+        for f, (_, r) in errs.items():
+            if not r <= tol[f]:
+                raise AssertionError(f"{what}: {f} {r:.3e} > {tol[f]}")
+
+    # f64 random states: 16^2 (ny2 = 8; the one-tile window wraps onto
+    # itself) and 64^2 (ny2 = 32), 6 steps, q = 1 and 2, groups of 2
+    f64_tol = dict.fromkeys((*FIELDS, "d_dt"), 1e-12)
+    worst = {}
+    for n_side, tiles in ((16, ((8, 16), (2, 4))), (64, ((4, 4), (8, 16)))):
+        model, prog = random_case(n_side, 4)
+        st, sm = model.to_struct(prog), model.struct_mesh
+        g = random_cot(st, 11)
+        for rt, ct in tiles:
+            for q in (1, 2):
+                plan = (rt, ct, q, 2)
+                out, ddt = tiled_adjoint_rollout(st, sm, 10.0, 6, g, plan=plan)
+                again, ddt_again = tiled_adjoint_rollout(st, sm, 10.0, 6, g, plan=plan)
+                ref, ref_dt = plain_reverse(st, sm, 10.0, 6, g, rt, ct, q)
+                errs = cot_errors(out, ref, ddt, ref_dt)
+                key = f"{n_side}^2 {rt}x{ct} q={q}"
+                worst[key] = max(r for _, r in errs.values())
+                for f, (_, r) in errs.items():
+                    if not r <= 1e-12:
+                        raise AssertionError(f"f64 tiled adjoint {key} vs plain: {f} {r:.3e}")
+                if not (torch.equal(ddt, ddt_again) and all(
+                        torch.equal(x, y) for x, y in zip(state_fields(out),
+                                                          state_fields(again)))):
+                    raise AssertionError(f"f64 tiled adjoint {key}: rerun differs")
+    log("[8] f64 random x4 levels, 6 reverse steps, tiled adjoint kernel vs plain (same plan, "
+        "same primal states): max relative error " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()) + "; reruns bitwise equal")
+
+    # f64 256x256x100 IGW, 5 reverse steps at the planner's f64 plan
+    _, _, model_l64, prog_l64 = igw_case(LARGE_N, LEVELS, np.float64)
+    st_l64, sm_l64 = model_l64.to_struct(prog_l64), model_l64.struct_mesh
+    g_l64 = random_cot(st_l64, 13)
+    plan64 = plan_of(st_l64, sm_l64, 5)
+    out, ddt = tiled_adjoint_rollout(st_l64, sm_l64, DT, 5, g_l64, plan=plan64)
+    ref, ref_dt = plain_reverse(st_l64, sm_l64, DT, 5, g_l64, *plan64[:3])
+    errs = cot_errors(out, ref, ddt, ref_dt)
+    hold(f"f64 {LARGE_N}x{LARGE_N}x{LEVELS} IGW, 5 reverse steps, plan {plan64}, tiled adjoint "
+         "vs plain", errs, f64_tol)
+    del model_l64, st_l64, sm_l64, g_l64, out, ref
+
+    # the dot-product identity <J v, g> = <v, J^T g> through
+    # tiled_rollout_diff, J the 7-step rollout's Jacobian (J v by
+    # forward-mode AD of the plain rollout)
+    model, prog = random_case(16, 4)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    v, g = random_cot(st, 12), random_cot(st, 14)
+    _, jv = torch.func.jvp(
+        lambda *xs: tuple(state_fields(structured_run_loop(StructState(*xs), sm, 10.0, 7))),
+        tuple(state_fields(st)), tuple(state_fields(v)))
+    lhs = sum(float((x * y).sum()) for x, y in zip(jv, state_fields(g)))
+    leaves = [x.clone().requires_grad_(True) for x in state_fields(st)]
+    out = tiled_rollout_diff(StructState(*leaves), sm, 10.0, 7, plan=(2, 4, 1, 3))
+    jtg = torch.autograd.grad(state_fields(out), leaves, state_fields(g))
+    rhs = sum(float((x * y).sum()) for x, y in zip(state_fields(v), jtg))
+    dot_err = abs(lhs - rhs) / abs(rhs)
+    log(f"[8] f64 dot-product identity through tiled_rollout_diff, 7 steps: <Jv, g> "
+        f"{lhs:.17g}, <v, J^T g> {rhs:.17g}, relative gap {dot_err:.3e}")
+    if not dot_err <= 1e-12:
+        raise AssertionError(f"tiled dot-product identity off by {dot_err:.3e} > 1e-12")
+
+    # f32, 100 reverse steps from the cotangent of sum(ssh^2) on the same
+    # primal states, at 64^2 and 256^2, each also against the plain reverse
+    # in f64 on those f32 inputs; the plain superstep's time at 256^2. The
+    # f32 bounds, from an H100 (700 W) run: the kernel and the plain version
+    # sum in other orders, and against the f64 reverse the kernel came in
+    # closer than the plain version (d_h at 256^2: within 1.2x). d_u and d_h
+    # differ by 1.2-1.4e-6 of
+    # their scale at 64^2 and 3.5-5.7e-6 at 256^2; d_ssh, the divergence of
+    # the level sums of d_u, carries d_u's rounding over 1/(k dc) of the
+    # wave (~10 at 64^2, ~40 at 256^2): 1.0e-5 and 1.7e-4. The bounds leave
+    # about 3x (PERF.md section 2).
+    f32_tol = {"ssh": 5e-4, "layer_thickness": 1e-5, "normal_velocity": 2e-5, "d_dt": 4e-6}
+    max_abs_err, plain_s, cases = 0.0, None, {}
+    for n_side in (HEADLINE_N, LARGE_N):
+        _, _, model, prog = igw_case(n_side, LEVELS, np.float32)
+        st, sm = model.to_struct(prog), model.struct_mesh
+        cases[n_side] = (model, prog, st, sm)
+        fin = fused_run_loop(st, sm, DT, TILED_CHECK_STEPS)
+        g = StructState(2 * fin.ssh, torch.zeros_like(fin.layer_thickness),
+                        torch.zeros_like(fin.normal_velocity))
+        plan = plan_of(st, sm, TILED_CHECK_STEPS)
+        out, ddt = tiled_adjoint_rollout(st, sm, DT, TILED_CHECK_STEPS, g, plan=plan)
+        ref, ref_dt = plain_reverse(st, sm, DT, TILED_CHECK_STEPS, g, *plan[:3])
+        ref64, ref64_dt = plain_reverse(st, sm, DT, TILED_CHECK_STEPS, g, *plan[:3],
+                                        dtype=torch.float64)
+        what = f"f32 {n_side}x{n_side}x{LEVELS} IGW, {TILED_CHECK_STEPS} reverse steps"
+        log(f"[8] {what}, against the plain reverse in f64 on the same inputs: kernel "
+            f"{format_errors(cot_errors(out, ref64, ddt, ref64_dt))}; plain f32 "
+            f"{format_errors(cot_errors(ref, ref64, ref_dt, ref64_dt))}")
+        del ref64
+        errs = cot_errors(out, ref, ddt, ref_dt)
+        hold(f"{what}, plan {plan}, tiled adjoint vs plain on the same primal states", errs,
+             f32_tol)
+        if n_side == LARGE_N:
+            max_abs_err = max(e for f, (e, _) in errs.items() if f != "d_dt")
+            plain_s = cuda_times(lambda: plain_tiled_adjoint_superstep(st, g, sm, DT,
+                                                                       *plan[:3]), REPS)
+        del fin, g, out, ref
+
+    # per-launch times of the two reverse kernels, each over a stack of 40
+    # primal states (long enough that the call's host set-up does not show),
+    # after a sustained load
+    def per_launch(kernel, st, sm, group=40):
+        scal = _scal(sm, DT, torch.float32)
+        stack = tuple(torch.empty((group, *x.shape), dtype=x.dtype, device=x.device)
+                      for x in state_fields(st))
+        for dst, x in zip(stack, state_fields(st)):
+            dst[0].copy_(x)
+        fe_step.fe_fill_stack(stack, sm.f_edge, sm.resting_thickness_sum, sm.stencil_table,
+                              sm.coriolis_weight, *scal, group - 1)
+        g_in = tuple(x.contiguous() for x in state_fields(random_cot(st, 15)))
+        acc = torch.zeros(1, dtype=torch.float64, device=st.layer_thickness.device)
+        if kernel == "adjoint_step":
+            run = lambda: adjoint_step.adjoint_rollout(
+                stack, g_in, sm.f_edge, sm.adjoint_table, sm.adjoint_weight, *scal, group, acc)
+        else:
+            rt, ct, q, _ = plan_of(st, sm, group)
+            run = lambda: tiled_adjoint.tiled_adjoint_rollout(
+                stack, g_in, sm.f_edge, sm.resting_thickness_sum, sm.stencil_table,
+                sm.coriolis_weight, sm.adjoint_table, sm.adjoint_weight, *scal, group, acc,
+                row_tile=rt, col_tile=ct, q=q, halo=reverse_halo(sm.coriolis_terms))
+        for _ in range(20):
+            run()
+        return [t / group for t in cuda_times(run, REPS)]
+
+    _, _, model_m, prog_m = igw_case(128, LEVELS, np.float32)
+    cases[128] = (model_m, prog_m, model_m.to_struct(prog_m), model_m.struct_mesh)
+    launch_s = {}
+    for n_side in (HEADLINE_N, 128, LARGE_N):
+        st, sm = cases[n_side][2:]
+        for kernel in ("adjoint_step", "tiled_adjoint"):
+            launch_s[kernel, n_side] = per_launch(kernel, st, sm)
+        log(f"[8] per launch in a 40-step call (with its d(dt) sum), {n_side}x{n_side}x{LEVELS} "
+            f"f32: adjoint_step {spread(launch_s['adjoint_step', n_side], 1e6, 'us')}; "
+            f"tiled_adjoint, plan {plan_of(st, sm, 40)}, "
+            f"{spread(launch_s['tiled_adjoint', n_side], 1e6, 'us')} [{gpu}]")
+
+    # the slice at full width: grad of sum(ssh_final^2) through
+    # tiled_rollout_diff, 256x256x100 f32, 100 steps, from the lattice state
+    model_l, prog_l, st_l, sm_l = cases[LARGE_N]
+    n = LARGE_ADJ_STEPS
+    plan_l = plan_of(st_l, sm_l, n, budget=diff_model._default_budget(st_l.ssh.device))
+    fe_step.launches = adjoint_step.launches = tiled_adjoint.launches = 0
+    t0 = time.perf_counter()
+    out, grads = grad_sum_ssh2(tiled_rollout_diff, model_l.to_struct(prog_l), sm_l, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (fe_step.launches, tiled_adjoint.launches, adjoint_step.launches)
+    n_ss = n // plan_l[2]
+    want = (2 * n - plan_l[2] * -(-n_ss // plan_l[3]), n_ss, 0)
+    log(f"[8] main path: grad of sum(ssh^2) through tiled_rollout_diff, {LARGE_N}x{LARGE_N}x"
+        f"{LEVELS} f32, {n} steps, plan {plan_l}: {wall:.3f} s wall (to_struct .. grad) "
+        f"[{gpu}]; launches fe_step {counts[0]}, "
+        f"tiled_adjoint {counts[1]}, adjoint_step {counts[2]} (want {want})")
+    if counts != want:
+        raise AssertionError(f"tiled grad launch counts {counts} != {want}")
+    for name, x in zip(("d_ssh", "d_h", "d_u", "d_dt"), grads):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"tiled grad {name} is not finite")
+    log(f"[8] |d_ssh|max {float(grads[0].abs().max()):.6e}, |d_h|max "
+        f"{float(grads[1].abs().max()):.6e}, |d_u|max {float(grads[2].abs().max()):.6e}, "
+        f"d_dt {float(grads[3]):.6e}")
+    ref = structured_auto_run_loop(st_l, sm_l, DT, n)
+    if not all(torch.equal(x, y) for x, y in zip(state_fields(out), state_fields(ref))):
+        raise AssertionError("tiled_rollout_diff's forward differs from structured_auto_run_loop")
+    log("[8] tiled_rollout_diff forward is bitwise structured_auto_run_loop's")
+    del out, grads, ref
+    tiled_s = cuda_times(lambda: grad_sum_ssh2(tiled_rollout_diff, st_l, sm_l, n), REPS)
+    log(f"[8] grad through tiled_rollout_diff from the lattice state, {n} steps: "
+        f"{spread(tiled_s)} per grad, {spread([t / n for t in tiled_s], 1e6, 'us')} per "
+        f"rollout step [{gpu}]")
+    by_kernel, window_us = profile_by_kernel(
+        lambda: grad_sum_ssh2(tiled_rollout_diff, st_l, sm_l, n),
+        ("fe_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
+    log(f"[8] profiler, one tiled grad ({window_us:.0f} us by events): "
+        + profile_line(by_kernel, window_us, gpu))
+
+    # the size rule: the same 256^2 grad through the fused reverse, the
+    # 64^2 4000-step grad through the tiled one (phase 6 ran it fused), and
+    # the 100-step grad through both at 128^2
+    fused_s = cuda_times(lambda: grad_sum_ssh2(fused_rollout_diff, st_l, sm_l, n), REPS)
+    log(f"[8] the same grad through fused_rollout_diff (adjoint_step): {spread(fused_s)} per "
+        f"grad, {spread([t / n for t in fused_s], 1e6, 'us')} per rollout step [{gpu}]")
+    st_h, sm_h = cases[HEADLINE_N][2:]
+    tiled_64 = cuda_times(lambda: grad_sum_ssh2(tiled_rollout_diff, st_h, sm_h, GRAD_STEPS),
+                          REPS)
+    log(f"[8] grad, {HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32, {GRAD_STEPS} steps, through "
+        f"tiled_rollout_diff: {spread(tiled_64)} per grad; through fused_rollout_diff (phase "
+        f"6) {spread(fused_grad_64)} [{gpu}]")
+    st_m, sm_m = cases[128][2:]
+    grad_128 = {route.__name__: cuda_times(lambda: grad_sum_ssh2(route, st_m, sm_m, n), REPS)
+                for route in (fused_rollout_diff, tiled_rollout_diff)}
+    log(f"[8] grad, 128x128x{LEVELS} f32, {n} steps: " + "; ".join(
+        f"through {k} {spread(v)}" for k, v in grad_128.items()) + f" [{gpu}]")
+    routes = {}
+    for n_side in (HEADLINE_N, 128, LARGE_N):
+        st, sm = cases[n_side][2:]
+        adjoint_step.launches = tiled_adjoint.launches = 0
+        grad_sum_ssh2(auto_rollout_diff, st, sm, 10)
+        routes[n_side] = ("tiled_adjoint" if tiled_adjoint.launches and not adjoint_step.launches
+                          else "adjoint_step" if adjoint_step.launches
+                          and not tiled_adjoint.launches else "both")
+    grad_med = {HEADLINE_N: (fused_grad_64, tiled_64), LARGE_N: (fused_s, tiled_s),
+                128: tuple(grad_128.values())}
+    ratio = {s: statistics.median(t) / statistics.median(f)
+             for s, (f, t) in sorted(grad_med.items())}
+    log(f"[8] auto_rollout_diff's size rule on the card: the tiled reverse on lattices of at "
+        f"least {diff_model.TILED_REVERSE_SITES} sites (2 ny2 nx), the fused reverse below; "
+        f"it took " + ", ".join(f"{s}^2 -> {r}" for s, r in routes.items())
+        + "; grad time, tiled over fused: " + ", ".join(f"{s}^2 {r:.4f}"
+                                                        for s, r in ratio.items()))
+
+    dims = (sm_l.ny2, sm_l.nx, LEVELS, len(sm_l.coriolis_terms), 4)
+    bound, bound_by = step_bound("adjoint_step", *dims)
+    log(f"[8] tiled_adjoint {LARGE_N}^2 per launch: "
+        f"{statistics.median(launch_s['tiled_adjoint', LARGE_N]) * 1e6:.3f} us; bound "
+        f"{bound * 1e6:.3f} us ({bound_by}, each input read once); plain superstep "
+        f"{statistics.median(plain_s) * 1e6:.3f} us [{gpu}]")
+    entry = {
+        "name": "tiled_adjoint",
+        "route": "cuda",
+        "source": "mpas_ocean_tpu_torch/csrc/tiled_adjoint.cu",
+        "replaces": "mpas_ocean_tpu/structured/pallas_model.py:1979",
+        "launches": counts[1],
+        "max_abs_err": max_abs_err,
+        "ms": statistics.median(launch_s["tiled_adjoint", LARGE_N]) * 1e3,
+        "plain_ms": statistics.median(plain_s) * 1e3,
+        "bound_ms": bound * 1e3,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "plan": list(plan_l),
+        "ms_64": statistics.median(launch_s["tiled_adjoint", HEADLINE_N]) * 1e3,
+        "ms_128": statistics.median(launch_s["tiled_adjoint", 128]) * 1e3,
+        "grad_s_256": statistics.median(tiled_s),
+        "grad_s_256_fused": statistics.median(fused_s),
+        "grad_s_64": statistics.median(tiled_64),
+    }
+    adjoint_256 = {
+        "ms_256": statistics.median(launch_s["adjoint_step", LARGE_N]) * 1e3,
+        "ms_128": statistics.median(launch_s["adjoint_step", 128]) * 1e3,
+        "bound_ms_256": bound * 1e3,
+    }
+    return entry, adjoint_256
+
+
 def ptxas_report(log_text: str, kernels: tuple) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``."""
@@ -663,13 +1056,7 @@ def main() -> int:
     for line in ptxas_report(log_file.read_text(), ("adjoint_step_kernel", "ddt_reduce")):
         log(f"[6] ptxas {line}")
 
-    def fields(state):
-        return [getattr(state, f) for f in FIELDS]
-
-    def random_cot(state, seed):
-        rng = np.random.default_rng(seed)
-        return StructState(*(torch.from_numpy(rng.normal(size=tuple(x.shape))).to(
-            device=dev, dtype=x.dtype) for x in fields(state)))
+    fields = state_fields
 
     def plain_reverse(st, sm, dt, n, g):
         """The plain adjoint step back through the forward kernel's own
@@ -685,17 +1072,6 @@ def main() -> int:
             g, dd = structured_adjoint_step(s, g, sm, dt)
             ddt = ddt + dd
         return g, ddt
-
-    def cot_errors(a, b, ddt_a, ddt_b) -> dict:
-        """max |a - b| per cotangent field and over max |b|; d(dt) over |b|."""
-        out = {}
-        for f in FIELDS:
-            x, y = getattr(a, f).double(), getattr(b, f).double()
-            err = float((x - y).abs().max())
-            out[f] = (err, err / float(y.abs().max()))
-        err = abs(float(ddt_a) - float(ddt_b))
-        out["d_dt"] = (err, err / abs(float(ddt_b)))
-        return out
 
     # f64, 16x16x4 random state and cotangent: kernel against plain, twice
     model, prog = random_case(16, 4)
@@ -806,11 +1182,7 @@ def main() -> int:
 
     # the slice at full width: grad of sum(ssh_final^2) over 4000 steps
     def grad_run(st, sm, n_steps):
-        leaves = [x.clone().requires_grad_(True) for x in fields(st)]
-        dt = torch.tensor(DT, dtype=torch.float32, device=dev, requires_grad=True)
-        out = fused_rollout_diff(StructState(*leaves), sm, dt, n_steps)
-        grads = torch.autograd.grad((out.ssh ** 2).sum(), leaves + [dt])
-        return out, grads
+        return grad_sum_ssh2(fused_rollout_diff, st, sm, n_steps)
 
     fe_step.launches = adjoint_step.launches = 0
     t0 = time.perf_counter()
@@ -840,43 +1212,15 @@ def main() -> int:
     log(f"[6] grad from the lattice state, {GRAD_STEPS} steps: {spread(g_times)} per grad, "
         f"{spread([t / GRAD_STEPS for t in g_times], 1e6, 'us')} per rollout step [{gpu}]")
     # where one grad's device time goes, by kernel, from a profiler trace
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        grad_run(st, sm, GRAD_STEPS)
-        end.record()
-        end.synchronize()
-    window_us = start.elapsed_time(end) * 1e3
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = next((k for k in ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce")
-                     if k in e.key), "other")
-        t, c = by_kernel.get(name, (0.0, 0))
-        by_kernel[name] = (t + e.self_device_time_total, c + e.count)
-    busy_us = sum(t for t, _ in by_kernel.values())
-    log(f"[6] profiler, one grad ({window_us:.0f} us by events): " + ", ".join(
-        f"{k} {t:.0f} us / {c} = {t / max(c, 1):.3f} us" for k, (t, c) in by_kernel.items())
-        + f"; device busy {busy_us:.0f} us, idle share "
-        f"{1 - busy_us / window_us:.4f} [{gpu}]")
+    by_kernel, window_us = profile_by_kernel(
+        lambda: grad_run(st, sm, GRAD_STEPS),
+        ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce"))
+    log(f"[6] profiler, one grad ({window_us:.0f} us by events): "
+        + profile_line(by_kernel, window_us, gpu))
     prof_ms = {k: t / max(c, 1) / 1e3 for k, (t, c) in by_kernel.items()}
 
-    # 256x256x100: the same grad, and the adjoint in f64 against plain
-    _, _, model_l, prog_l = igw_case(LARGE_N, LEVELS, np.float32)
-    st_l, sm_l = model_l.to_struct(prog_l), model_l.struct_mesh
-    _, grads_l = grad_run(st_l, sm_l, LARGE_GRAD_STEPS)
-    for name, x in zip(("d_ssh", "d_h", "d_u", "d_dt"), grads_l):
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"{LARGE_N}x{LARGE_N} gradient {name} is not finite")
-    gl_times = cuda_times(lambda: grad_run(st_l, sm_l, LARGE_GRAD_STEPS), REPS)
-    log(f"[6] grad, {LARGE_N}x{LARGE_N}x{LEVELS} f32, {LARGE_GRAD_STEPS} steps: "
-        f"{spread(gl_times)} per grad, "
-        f"{spread([t / LARGE_GRAD_STEPS for t in gl_times], 1e6, 'us')} per rollout step "
-        f"[{gpu}]")
+    # 256x256x100: the adjoint in f64 against plain (phase 8 times the
+    # grad there through both reverses)
     _, _, model_l64, prog_l64 = igw_case(LARGE_N, LEVELS, np.float64)
     st_l64, sm_l64 = model_l64.to_struct(prog_l64), model_l64.struct_mesh
     g_l64 = random_cot(st_l64, 13)
@@ -894,6 +1238,9 @@ def main() -> int:
         HEADLINE_N: statistics.median(k_times) * 1e6,
         LARGE_N: statistics.median(kl_times) * 1e6,
     })
+
+    # -- 8. the tiled reverse ----------------------------------------------------
+    tiled_adj_entry, adjoint_256 = tiled_adjoint_phase(gpu, log_file.read_text(), g_times)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -924,7 +1271,9 @@ def main() -> int:
     kernels[0]["launches_forward_path"] = launches
     for entry, key in zip(kernels, ("fe_step_kernel", "adjoint_step_kernel")):
         entry["ms_in_grad_profiler"] = prof_ms.get(key)
+    kernels[1].update(adjoint_256)
     kernels.append(tiled_entry)
+    kernels.append(tiled_adj_entry)
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

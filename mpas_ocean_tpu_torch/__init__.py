@@ -11,7 +11,10 @@ Main path: ``planar_hex_mesh`` + ``make_vertical_mesh`` +
 -> ``to_struct`` -> ``structured_auto_run_loop`` (forward Euler, or
 forward-backward with ``fb=True``; the tiled q-step kernel behind
 ``tiled_run_loop`` or the one-step kernel, by size) -> ``from_struct``; and
-its gradient, ``fused_rollout_diff`` under ``torch.autograd``. The model
+its gradient under ``torch.autograd``, ``auto_rollout_diff`` (the
+``fe_step`` forward, and the reverse through the one-step adjoint kernel
+behind ``fused_rollout_diff`` or the tiled adjoint kernel behind
+``tiled_rollout_diff``, by size). The model
 builds on the card unless given ``device="cpu"``; the state's device picks
 the kernels (CUDA) or the plain versions (CPU).
 """
@@ -30,6 +33,7 @@ from .mesh import (
 from .models import PrognosticVars
 from .structured import (
     StructuredModel,
+    auto_rollout_diff,
     fused_adjoint_rollout,
     fused_rollout_diff,
     fused_run_loop,
@@ -37,6 +41,7 @@ from .structured import (
     structured_auto_run_loop,
     structured_fb_step,
     structured_run_loop,
+    tiled_rollout_diff,
     tiled_run_loop,
     window_steps,
 )
@@ -54,6 +59,7 @@ __all__ = [
     "PrognosticVars",
     "StructuredModel",
     "VerticalMesh",
+    "auto_rollout_diff",
     "error_measures",
     "fused_adjoint_rollout",
     "fused_rollout_diff",
@@ -64,6 +70,7 @@ __all__ = [
     "structured_auto_run_loop",
     "structured_fb_step",
     "structured_run_loop",
+    "tiled_rollout_diff",
     "tiled_run_loop",
     "window_steps",
 ]

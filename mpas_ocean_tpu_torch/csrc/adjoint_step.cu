@@ -45,8 +45,6 @@ namespace {
 
 using namespace lattice;
 
-constexpr int kReduceThreads = 1024;
-
 template <typename T>
 __global__ void adjoint_step_kernel(const T* __restrict__ ssh, const T* __restrict__ h,
                                     const T* __restrict__ u, const T* __restrict__ f_edge,
@@ -167,22 +165,6 @@ __global__ void adjoint_step_kernel(const T* __restrict__ ssh, const T* __restri
   }
 }
 
-// acc[0] += the sum of part[0 .. n), in a fixed order (one block).
-template <typename T>
-__global__ void ddt_reduce_kernel(const T* __restrict__ part, long long n,
-                                  double* __restrict__ acc) {
-  __shared__ double s[kReduceThreads];
-  double v = 0.0;
-  for (long long idx = threadIdx.x; idx < n; idx += blockDim.x) v += static_cast<double>(part[idx]);
-  s[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) acc[0] += s[0];
-}
-
 // n_steps reverse steps. The primal state of step j lies in slot j of the
 // stacks (ssh (n, 2, ny2, nx), h (n, 2, ny2, nx, K), u (n, 6, ny2, nx, K));
 // the cotangent at step n_steps comes in `g_in` and the one at step 0 goes
@@ -212,13 +194,9 @@ int adjoint_rollout(const T* f_edge, const int* table, const T* weights, const T
     if (err != cudaSuccess) return static_cast<int>(err);
     gs = ds, gh = dh, gu = du;
   }
-  if (n_steps > 0) {
-    ddt_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(
-        part, static_cast<long long>(n_steps) * static_cast<long long>(cells), ddt);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  if (n_steps == 0) return 0;
+  return reduce_ddt(part, static_cast<long long>(n_steps) * static_cast<long long>(cells), ddt,
+                    stream);
 }
 
 }  // namespace

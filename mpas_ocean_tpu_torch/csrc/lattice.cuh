@@ -1,5 +1,6 @@
 // Shared pieces of the parity-plane lattice kernels (fe_step.cu,
-// adjoint_step.cu): the stencil table's layout, periodic wrap, warp sums.
+// adjoint_step.cu, tiled_step.cu, tiled_adjoint.cu): the stencil table's
+// layout, periodic wrap, warp sums, the fixed-order d(dt) sum.
 //
 // Stencil table (int32, built by kernels/fe_step.py:pack_stencil):
 //   [0]                 n_terms
@@ -47,5 +48,31 @@ inline bool valid_shape(int ny2, int nx, int k, int n_steps, int n_terms) {
 
 // One block per cell column; threads stride over the levels.
 inline int column_threads(int k) { return k >= 256 ? 256 : ((k + 31) / 32) * 32; }
+
+constexpr int kReduceThreads = 1024;
+
+// acc[0] += the sum of part[0 .. n), in a fixed order (one block). Static:
+// each source that includes this header keeps its own copy of the kernel.
+template <typename T>
+static __global__ void ddt_reduce_kernel(const T* __restrict__ part, long long n,
+                                         double* __restrict__ acc) {
+  __shared__ double s[kReduceThreads];
+  double v = 0.0;
+  for (long long idx = threadIdx.x; idx < n; idx += blockDim.x) v += static_cast<double>(part[idx]);
+  s[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) acc[0] += s[0];
+}
+
+// Launches ddt_reduce_kernel; returns 0 or the CUDA error of the launch.
+template <typename T>
+static int reduce_ddt(const T* part, long long n, double* acc, cudaStream_t stream) {
+  ddt_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(part, n, acc);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace lattice

@@ -52,28 +52,11 @@
 // core) do not overlap; and the halo rings that q > 1 recomputes cost more
 // than the state passes it saves.
 
-#include <cooperative_groups.h>
-#include <cuda_pipeline.h>
-
-#include "lattice.cuh"
-
-namespace cg = cooperative_groups;
+#include "tiled_window.cuh"
 
 namespace {
 
 using namespace lattice;
-
-constexpr int kMaxCluster = 8;  // blocks per cluster (the portable maximum)
-constexpr int kThreads = 512;
-constexpr int kSmallInts = 64;  // neighbour / incoming offsets and channel starts
-
-// A Coriolis tap: the offset of its u value from the reading thread's
-// (site, level), its f_edge's offset from the site, and its weight.
-template <typename T>
-struct alignas(16) Tap {
-  int u, f;
-  T w;
-};
 
 // Dynamic shared memory of one block (kernels/tiled_step.smem_bytes):
 // state [2][8][sites][kc], ssh [2][2][sites], partial sums [2][2][sites],
@@ -99,34 +82,6 @@ struct TiledArgs {
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc, n_tiles_i;
 };
-
-// Division of 0 <= n < 2^31 by a divisor fixed at run time, by a multiply
-// and a shift (the round-up method CUTLASS's FastDivmod uses): the index
-// arithmetic of every loop below would otherwise spend more instructions in
-// integer division than in the stencil.
-struct FastDiv {
-  int d;
-  unsigned mul, shr;
-  __device__ explicit FastDiv(int d_) : d(d_), mul(0), shr(0) {
-    if (d != 1) {
-      const int log2_up = (31 - __clz(d)) + ((d & (d - 1)) != 0);
-      const unsigned p = 31 + log2_up;
-      mul = static_cast<unsigned>(((1ull << p) + static_cast<unsigned>(d) - 1) /
-                                  static_cast<unsigned>(d));
-      shr = p - 32;
-    }
-  }
-  __device__ __forceinline__ int div(int n) const {
-    return d != 1 ? static_cast<int>(__umulhi(static_cast<unsigned>(n), mul) >> shr) : n;
-  }
-  __device__ __forceinline__ int mod(int n, int quo) const { return n - quo * d; }
-};
-
-// async copy of one value from device memory into shared memory
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  __pipeline_memcpy_async(dst, src, sizeof(T));
-}
 
 template <typename T, bool FB>
 __global__ void __launch_bounds__(kThreads) tiled_step_kernel(const TiledArgs<T> a) {
@@ -336,29 +291,12 @@ int prepare(int max_smem) {
 }
 
 template <typename T, bool FB>
-cudaLaunchConfig_t launch_config(int n_ranks, int n_tiles, size_t smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_tiles * n_ranks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <typename T, bool FB>
 int launch(const TiledArgs<T>& a, int n_ranks, int n_tiles, size_t smem, int max_smem,
            cudaStream_t stream) {
   const int err = prepare<T, FB>(max_smem);
   if (err != 0) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config<T, FB>(n_ranks, n_tiles, smem, stream, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(n_ranks, n_tiles, smem, stream, attr);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB>, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -370,17 +308,9 @@ int active_clusters(int n_ranks, size_t smem, int max_smem, int* out) {
   const int err = prepare<T, FB>(max_smem);
   if (err != 0) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config<T, FB>(n_ranks, 1, smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(n_ranks, 1, smem, nullptr, attr);
   return static_cast<int>(
       cudaOccupancyMaxActiveClusters(out, tiled_step_kernel<T, FB>, &cfg));
-}
-
-int opt_in_smem(int* max_smem) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return static_cast<int>(e);
 }
 
 // n_steps steps from `in` into `out`, q per launch. Launch l writes `out`

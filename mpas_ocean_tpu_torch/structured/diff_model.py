@@ -43,6 +43,7 @@ __all__ = [
     "adjoint_from_ckpts",
     "adjoint_plan",
     "adjoint_segment",
+    "auto_rollout_diff",
     "forward_ckpts",
     "fused_adjoint_rollout",
     "fused_rollout_diff",
@@ -225,27 +226,37 @@ def adjoint_segment(ckpt: StructState, cot: StructState, mesh: StructMesh, dt,
     return out, ddt.reshape(())
 
 
+def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int,
+          g: StructState) -> tuple[StructState, torch.Tensor]:
+    """The reverse sweep over n slots from the checkpoints, one per group of
+    ``group`` slots (the last takes the remainder): per group, last to
+    first, rebuild its slots with ``steps.fill`` and step the cotangent back
+    through them with ``steps.reverse``. A slot is a step here and a
+    superstep in tiled_diff. Returns (cotangent of the rollout's input,
+    d(dt) as a 0-d float64 tensor)."""
+    x = ckpts.layer_thickness
+    ddt = torch.zeros(1, dtype=torch.float64, device=x.device)
+    if n == 0:
+        return g, ddt.reshape(())
+    like = _slot(ckpts, 0)
+    stack = _empty(like, min(group, n))
+    bufs, scratch = (_empty(like), _empty(like)), _empty(like)
+    cot = _cotangent(g, like)
+    for gi in reversed(range(len(range(0, n, group)))):
+        out = bufs[gi % 2]
+        _segment(steps, _slot(ckpts, gi), cot, min(group, n - gi * group), stack,
+                 ddt, out, scratch)
+        cot = out
+    return cot, ddt.reshape(())
+
+
 def adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
                        group: int, g: StructState) -> tuple[StructState, torch.Tensor]:
     """The reverse sweep from the checkpoints of ``forward_ckpts``: per
     group, last to first, rebuild its states and step the cotangent back
     through them. Returns (cotangent of the rollout's input, d(dt) as a
     0-d float64 tensor). Counterpart of ``_pallas_adjoint_from_ckpts``."""
-    x = ckpts.layer_thickness
-    ddt = torch.zeros(1, dtype=torch.float64, device=x.device)
-    if n_steps == 0:
-        return g, ddt.reshape(())
-    like = _slot(ckpts, 0)
-    steps = _Steps(mesh, dt, x)
-    stack = _empty(like, min(group, n_steps))
-    bufs, scratch = (_empty(like), _empty(like)), _empty(like)
-    cot = _cotangent(g, like)
-    for gi in reversed(range(len(range(0, n_steps, group)))):
-        out = bufs[gi % 2]
-        _segment(steps, _slot(ckpts, gi), cot, min(group, n_steps - gi * group), stack,
-                 ddt, out, scratch)
-        cot = out
-    return cot, ddt.reshape(())
+    return _sweep(_Steps(mesh, dt, ckpts.layer_thickness), ckpts, n_steps, group, g)
 
 
 def fused_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
@@ -344,3 +355,31 @@ def fused_step(state: StructState, mesh: StructMesh, dt) -> StructState:
     """One differentiable forward-Euler step. Counterpart of
     ``pallas_step``."""
     return StructState(*FusedStep.apply(*_fields(state), dt, mesh))
+
+
+# The size rule of auto_rollout_diff on the card: lattices of at least this
+# many sites (2 * ny2 * nx, the cells) take the tiled reverse. Measured on an
+# H100 (chip_smoke.py phase 8, PERF.md section 5), grad of sum(ssh^2) over
+# 100 levels in f32: the tiled reverse took 0.94x the fused one's time at
+# 256^2 and 1.27x at 64^2; at 128^2 the two tied (within 1.5%, inside the
+# spread of three runs), and the fused reverse keeps it.
+TILED_REVERSE_SITES = 256 * 256
+
+
+def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
+                      plan=None) -> StructState:
+    """The differentiable lattice rollout's entry point, the routing half of
+    ``pallas_rollout_diff``'s forward (pallas_model.py:2779-2823). A CPU
+    state takes ``fused_rollout_diff``, whose plain route runs the plain
+    step and adjoint step. On the card the forward runs ``fe_step`` either
+    way, and the reverse is ``adjoint_step`` (``fused_rollout_diff``) on
+    lattices of fewer than TILED_REVERSE_SITES sites and ``tiled_adjoint``
+    (``tiled_diff.tiled_rollout_diff``) on larger ones. ``plan`` is the
+    chosen route's: steps per group for the fused reverse, (row_tile,
+    col_tile, q, group) for the tiled one."""
+    sites = 2 * mesh.ny2 * mesh.nx
+    if state.layer_thickness.device.type == "cuda" and sites >= TILED_REVERSE_SITES:
+        from .tiled_diff import tiled_rollout_diff
+
+        return tiled_rollout_diff(state, mesh, dt, n_steps, plan=plan)
+    return fused_rollout_diff(state, mesh, dt, n_steps, plan=plan)

@@ -23,9 +23,9 @@ import torch
 
 from ..constants import GRAVITY
 from .hex_layout import E, NE, NW
-from .stencils import INCOMING, NEIGHBOR
+from .stencils import INCOMING, NEIGHBOR, transpose_coriolis_terms
 
-__all__ = ["reach", "stencil_reach", "step_slab", "window_steps"]
+__all__ = ["adjoint_stencil_reach", "reach", "stencil_reach", "step_slab", "window_steps"]
 
 
 def reach(fb: bool) -> int:
@@ -56,6 +56,16 @@ def stencil_reach(terms, fb: bool) -> tuple[int, int]:
     taps = cont + grad + [(t[4], t[5]) for t in terms]
     if fb:
         taps += [(a + c, b + d) for a, b in grad for c, d in cont]
+    return max(abs(dm) for dm, _ in taps), max(abs(di) for _, di in taps)
+
+
+def adjoint_stencil_reach(terms) -> tuple[int, int]:
+    """(rows, columns) one reverse step reads per side, from the same tables
+    (structured/adjoint.py): G = gh + gs at the neighbours across the owned
+    edges and at the incoming edges' own cells, u and gu at the incoming
+    edges (u * dG and S_e = sum_k gu_e), both of which ``_continuity_taps``
+    lists, and the transposed Coriolis taps."""
+    taps = _continuity_taps() + [(t[4], t[5]) for t in transpose_coriolis_terms(terms)]
     return max(abs(dm) for dm, _ in taps), max(abs(di) for _, di in taps)
 
 

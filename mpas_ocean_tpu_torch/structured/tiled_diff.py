@@ -1,0 +1,261 @@
+"""Differentiable rollout of the structured linear core with a tiled reverse:
+the forward-Euler step kernel (kernels/fe_step.py) forward, and a reverse
+sweep through the hand-written tiled adjoint kernel
+(kernels/tiled_adjoint.py, csrc/tiled_adjoint.cu), q steps per launch over
+row x column tiles.
+
+Counterpart of mpas_ocean_tpu/structured/pallas_model.py's tiled reverse
+(:1960-2584: ``_tiled_adjoint_plan``, ``_halo_unscatter``,
+``_pallas_tiled_adjoint``, ``_tiled_adjoint_from_ckpts``) and of the tiled
+arms of ``_rollout_fwd`` / ``_rollout_bwd`` (:2779-2944), for the periodic
+linear core with forward Euler. It mirrors ``tiled_model``.
+
+The forward is ``diff_model.forward_ckpts`` in groups of ``group * q``
+steps, which runs ``fe_step`` on the card: that is the counterpart of
+``_tiled_fwd_ckpts``, and the forward that ``structured_auto_run_loop``
+takes at every size, so the gradient's forward is bitwise the forward
+path's own. The reverse takes the groups last to first (``diff_model``'s
+sweep): it rebuilds the group's superstep-start states with ``fe_step``, q
+steps per slot, then runs one tiled adjoint launch per superstep back
+through them. This replaces the reverse of ``_tiled_adjoint_from_ckpts``.
+Only d(dt) is returned of the scalars' cotangents: d(1/dc) and d(dv/A) go
+with the mesh, which gets none (``_rollout_bwd`` returns zeros for it).
+
+The planner (``tiled_adjoint_plan``) replaces ``_tiled_adjoint_plan``, the
+TPU's VMEM model ``_adj_window_planes`` and ``_ADJ_TILED_VMEM_BUDGET``: a
+plan fits when one block's share of the window, ``adjoint_window_bytes``,
+fits the card's shared memory (csrc/tiled_adjoint.cu reckons it the same
+way); it takes q = 1 and the largest tile that fits, with
+``tiled_model.resolve_plan``'s clamp, and ``group`` from
+``diff_model.adjoint_plan`` over the n / q supersteps.
+
+A CUDA state runs the kernels, and a failed build, a failed launch or a
+plan that does not fit raises; a CPU state runs the same plan with the plain
+step and ``plain_tiled_adjoint_superstep``, the kernel's plain version.
+Nothing falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..kernels import tiled_adjoint, tiled_step
+from . import fused_model
+from .diff_model import (
+    _default_budget,
+    _dt_meta,
+    _empty,
+    _fields,
+    _grads,
+    _output_cotangent,
+    _save_dt,
+    _slot,
+    _Steps,
+    _sweep,
+    adjoint_plan,
+    forward_ckpts,
+)
+from .model import StructMesh, StructState
+from .slab import adjoint_stencil_reach, stencil_reach, window_steps
+from .tiled_model import _windows, halo_unscatter, resolve_plan
+
+__all__ = [
+    "TiledRolloutDiff",
+    "adjoint_window_bytes",
+    "plain_tiled_adjoint_superstep",
+    "reverse_halo",
+    "tiled_adjoint_from_ckpts",
+    "tiled_adjoint_plan",
+    "tiled_adjoint_rollout",
+    "tiled_rollout_diff",
+]
+
+
+def reverse_halo(terms) -> tuple[int, int]:
+    """(rows, columns) per side that one step of the reverse reads: the
+    larger of the forward step's reach (the recompute, q > 1) and the
+    transposed step's, both (1, 2) for the hex lattice's tables."""
+    fwd, adj = stencil_reach(terms, False), adjoint_stencil_reach(terms)
+    return max(fwd[0], adj[0]), max(fwd[1], adj[1])
+
+
+def adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
+                         itemsize: int) -> int:
+    """Shared memory of one block of the tiled adjoint kernel: its level
+    chunk of q primal states and min(q, 2) cotangents over the window of
+    2q - 1 halos per side, and the window's planes without levels
+    (csrc/tiled_adjoint.cu: ``smem_bytes``)."""
+    _, kc = tiled_step.level_split(k)
+    sites = tiled_adjoint.window_sites(row_tile, col_tile, q, halo)
+    return tiled_adjoint.smem_bytes(sites, kc, q, itemsize)
+
+
+def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *, halo,
+                       budget: float = math.inf, row_tile=None, col_tile=None, q=None):
+    """(row_tile, col_tile, q, group) for the gradient of an n-step rollout
+    on ny2 x nx sites and k levels, ``halo`` from ``reverse_halo``: the
+    caller's choices completed by ``tiled_model.resolve_plan`` with the
+    adjoint's window (q = 1 and the largest tile that fits by default), and
+    ``group`` supersteps per checkpoint group from ``diff_model.adjoint_plan``
+    over n / q supersteps within ``budget`` bytes."""
+    rt, ct, q = resolve_plan(ny2, nx, k, itemsize, halo, n_steps, row_tile, col_tile, q,
+                             window=adjoint_window_bytes)
+    state_bytes = itemsize * 2 * ny2 * nx * (1 + 4 * k)
+    group = adjoint_plan(n_steps // q, state_bytes, budget) if n_steps else 1
+    return rt, ct, q, group
+
+
+def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: StructMesh,
+                                  dt, row_tile: int, col_tile: int, q: int
+                                  ) -> tuple[StructState, torch.Tensor]:
+    """The tiled adjoint kernel's plain version, one reverse superstep of q
+    forward-Euler steps: cut the primal ``state`` at the superstep start into
+    halo-padded windows and the cotangent ``cot`` at its end into the tiles'
+    cores, take ``torch.func.vjp`` of ``slab.window_steps`` over all windows
+    as one batch (dt a 0-d tensor), and overlap-add the windows' cotangents
+    onto the lattice (``tiled_model.halo_unscatter``). Returns (cotangent at
+    the superstep start, d(dt) as a 0-d tensor in the state dtype). It is
+    what the TPU kernel and its caller compute together
+    (pallas_model.py:2528-2553), by autograd rather than by the hand-written
+    transpose the kernel runs."""
+    ny2, nx = mesh.ny2, mesh.nx
+    h = state.layer_thickness
+    k, dtype = h.shape[-1], h.dtype
+    halo = stencil_reach(mesh.coriolis_terms, False)
+    hm, hi = halo[0] * q, halo[1] * q
+    dt_, inv_dc, s_div = fused_model._scal(mesh, dt, dtype)
+    win = lambda x: _windows(x, row_tile, col_tile, hm, hi)
+    core = lambda x: _windows(x, row_tile, col_tile, 0, 0)
+    f_w = win(mesh.f_edge.to(dtype).reshape(6, ny2, nx, 1))
+    rts_w = win(mesh.resting_thickness_sum.to(dtype).reshape(2, ny2, nx, 1))
+
+    def steps(ssh, h, u, d):
+        return window_steps(ssh, h, u, f_w, rts_w, d, inv_dc, s_div, mesh.coriolis_terms,
+                            rows=row_tile, cols=col_tile, q=q, halo=halo)
+
+    _, vjp = torch.func.vjp(
+        steps, win(state.ssh[..., None]), win(h),
+        win(state.normal_velocity.reshape(6, ny2, nx, k)),
+        torch.tensor(dt_, dtype=dtype, device=h.device))
+    d_ssh, d_h, d_u, d_dt = vjp((core(cot.ssh[..., None].to(dtype)),
+                                 core(cot.layer_thickness.to(dtype)),
+                                 core(cot.normal_velocity.to(dtype).reshape(6, ny2, nx, k))))
+    back = lambda w: halo_unscatter(w, ny2, nx, hm, hi)
+    return StructState(ssh=back(d_ssh)[..., 0], layer_thickness=back(d_h),
+                       normal_velocity=back(d_u).reshape(3, 2, ny2, nx, k)), d_dt
+
+
+class _TiledSteps(_Steps):
+    """diff_model's steps with a slot per superstep of q steps: the
+    forward kernel fills the slots, the tiled adjoint kernel (or its plain
+    version, for a CPU state) reverses them."""
+
+    def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, plan):
+        super().__init__(mesh, dt, like)
+        self.rt, self.ct, self.q, _ = plan
+        self.halo = reverse_halo(mesh.coriolis_terms)
+
+    def fill(self, stack: StructState, n: int):
+        """Slot j + 1 = q steps of slot j, for j < n."""
+        if self.q == 1:
+            super().fill(stack, n)
+            return
+        scratch = _empty(_slot(stack, 0))
+        for j in range(n):
+            self.advance(_slot(stack, j), _slot(stack, j + 1), self.q, scratch)
+
+    def reverse(self, stack: StructState, g: StructState, n: int, ddt: torch.Tensor,
+                out: StructState, scratch: StructState):
+        """n >= 1 reverse supersteps through the stack's slots n - 1 .. 0,
+        from the cotangent g at the end into out; d(dt) is added to ddt."""
+        if self.cuda:
+            tiled_adjoint.tiled_adjoint_rollout(
+                _fields(stack), _fields(g), *self.fwd, *self.adj[1:], *self.scal, n, ddt,
+                _fields(out), _fields(scratch), row_tile=self.rt, col_tile=self.ct,
+                q=self.q, halo=self.halo)
+            return
+        for j in reversed(range(n)):
+            g, dd = plain_tiled_adjoint_superstep(_slot(stack, j), g, self.mesh, self.dt,
+                                                  self.rt, self.ct, self.q)
+            ddt += dd
+        for dst, x in zip(_fields(out), _fields(g)):
+            dst.copy_(x)
+
+
+def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan):
+    if plan:
+        return tuple(plan)
+    h = state.layer_thickness
+    return tiled_adjoint_plan(mesh.ny2, mesh.nx, h.shape[-1], h.element_size(), n_steps,
+                              halo=reverse_halo(mesh.coriolis_terms),
+                              budget=_default_budget(h.device))
+
+
+def tiled_adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
+                             plan, g: StructState) -> tuple[StructState, torch.Tensor]:
+    """The tiled reverse sweep from the checkpoints that
+    ``forward_ckpts(state, mesh, dt, n_steps, group * q)`` kept, for
+    ``plan`` = (row_tile, col_tile, q, group): per group, last to first,
+    rebuild its superstep-start states and reverse them one superstep per
+    launch. Returns (cotangent of the rollout's input, d(dt) as a 0-d
+    float64 tensor). Counterpart of ``_tiled_adjoint_from_ckpts``."""
+    _, _, q, group = plan
+    if n_steps % q:
+        raise ValueError(f"q={q} must divide n_steps={n_steps}")
+    steps = _TiledSteps(mesh, dt, ckpts.layer_thickness, plan)
+    return _sweep(steps, ckpts, n_steps // q, group, g)
+
+
+def tiled_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
+                          g: StructState, *, plan=None):
+    """VJP of an n-step rollout through the tiled reverse: given its input
+    ``state`` and an output cotangent ``g``, returns (d_state, d_dt), d_dt
+    as a 0-d tensor in dt's dtype (float64 for a Python dt). ``plan`` =
+    (row_tile, col_tile, q, group) overrides ``tiled_adjoint_plan``.
+    Counterpart of ``_pallas_tiled_adjoint``."""
+    dtype, device = _dt_meta(dt, state.layer_thickness.device)
+    plan = _plan(state, mesh, n_steps, plan)
+    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, plan[2] * plan[3])
+    d_state, ddt = tiled_adjoint_from_ckpts(ckpts, mesh, dt, n_steps, plan, g)
+    return d_state, ddt.to(dtype=dtype, device=device)
+
+
+class TiledRolloutDiff(torch.autograd.Function):
+    """n-step rollout whose backward is the tiled reverse sweep
+    (``forward_ckpts`` forward, ``tiled_adjoint_from_ckpts`` backward).
+    Inputs: ssh, h, u, dt (float or tensor), mesh, n_steps, plan. The mesh
+    gets no cotangent."""
+
+    @staticmethod
+    def forward(ctx, ssh, h, u, dt, mesh, n_steps, plan=None):
+        state = StructState(ssh, h, u)
+        _save_dt(ctx, dt, h.device)
+        plan = _plan(state, mesh, n_steps, plan)
+        if n_steps % plan[2]:
+            raise ValueError(f"q={plan[2]} must divide n_steps={n_steps}")
+        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, plan[2] * plan[3])
+        ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.plan = ckpts, mesh, n_steps, plan
+        return _fields(final)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gs, gh, gu):
+        if ctx.n_steps == 0:
+            return gs, gh, gu, None, None, None, None
+        g = _output_cotangent(_slot(ctx.ckpts, 0), (gs, gh, gu))
+        d_state, ddt = tiled_adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps,
+                                                ctx.plan, g)
+        return (*_grads(ctx, d_state, ddt), None, None, None)
+
+
+def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
+                       plan=None) -> StructState:
+    """n-step rollout of the linear periodic core, differentiable with
+    respect to the state and a tensor ``dt``, with the tiled reverse: forward
+    through ``fe_step`` on the card, backward through ``tiled_adjoint``.
+    ``plan`` = (row_tile, col_tile, q, group) overrides
+    ``tiled_adjoint_plan``. The tiled arm of ``pallas_rollout_diff``."""
+    return StructState(*TiledRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan))

@@ -33,6 +33,7 @@ from .model import StructMesh, StructState
 from .slab import stencil_reach, window_steps
 
 __all__ = [
+    "halo_unscatter",
     "plain_tiled_rollout",
     "resolve_plan",
     "tile_plan",
@@ -56,19 +57,20 @@ def _divisors(n: int) -> list[int]:
     return [d for d in range(1, n + 1) if n % d == 0]
 
 
-def _fits(rt, ct, q, halo, ny2, nx, k, itemsize) -> bool:
+def _fits(rt, ct, q, halo, ny2, nx, k, itemsize, window) -> bool:
     hm, hi = halo
     return (rt + 2 * hm * q <= ny2 and ct + 2 * hi * q <= nx
-            and window_bytes(rt, ct, q, halo, k, itemsize) <= tiled_step.SMEM_BYTES)
+            and window(rt, ct, q, halo, k, itemsize) <= tiled_step.SMEM_BYTES)
 
 
-def _best_tile(ny2, nx, k, itemsize, halo, q):
-    """The tile of largest area that fits at this q; among those, the one
-    with the smallest window, then the widest. None if no tile fits."""
+def _best_tile(ny2, nx, k, itemsize, halo, q, window=window_bytes):
+    """The tile of largest area whose ``window`` (one block's shared memory)
+    fits at this q; among those, the one with the smallest window, then the
+    widest. None if no tile fits."""
     hm, hi = halo
     tiles = [(rt * ct, -(rt + 2 * hm * q) * (ct + 2 * hi * q), ct, rt)
              for rt in _divisors(ny2) for ct in _divisors(nx)
-             if _fits(rt, ct, q, halo, ny2, nx, k, itemsize)]
+             if _fits(rt, ct, q, halo, ny2, nx, k, itemsize, window)]
     if not tiles:
         return None
     *_, ct, rt = max(tiles)
@@ -90,12 +92,13 @@ def tile_plan(ny2: int, nx: int, k: int, itemsize: int, reach, n_steps: int):
 
 
 def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
-                 row_tile=None, col_tile=None, q=None):
+                 row_tile=None, col_tile=None, q=None, window=window_bytes):
     """The plan ``tiled_run_loop`` runs: the caller's choices completed by
     ``tile_plan``, q lowered until it divides n_steps, and the reach*q clamp
     of pallas_tiled_run_loop (pallas_model.py:1372-1384) applied to rows
-    against ny2 and to columns against nx. Raises ValueError for a tile
-    that does not divide the lattice."""
+    against ny2 and to columns against nx. ``window`` gives one block's
+    shared memory for a plan (the tiled adjoint passes its own). Raises
+    ValueError for a tile that does not divide the lattice."""
     hm, hi = halo
     if q is None:
         _, _, q = tile_plan(ny2, nx, k, itemsize, halo, n_steps)
@@ -103,7 +106,7 @@ def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
     while n_steps % q:
         q -= 1
     if row_tile is None or col_tile is None:
-        rt, ct = _best_tile(ny2, nx, k, itemsize, halo, q) or (1, 1)
+        rt, ct = _best_tile(ny2, nx, k, itemsize, halo, q, window) or (1, 1)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
     if ny2 % row_tile:
@@ -130,6 +133,26 @@ def _windows(x, rt, ct, hm, hi):
     cols = (torch.arange(0, nx, ct, device=dev)[:, None] - hi
             + torch.arange(ct + 2 * hi, device=dev)) % nx
     return x[:, rows[:, None, :, None], cols[None, :, None, :]].permute(1, 2, 0, 3, 4, 5)
+
+
+def halo_unscatter(w, ny2: int, nx: int, hm: int, hi: int):
+    """The transpose of ``_windows``: (n_row_tiles, n_col_tiles, ch,
+    rt + 2 hm, ct + 2 hi, K) per-window values -> (ch, ny2, nx, K), each
+    window site overlap-added onto the periodic plane it was read from, over
+    rows and columns. The adds run in a fixed order, one window offset at a
+    time; within one offset the tiles' sites are distinct. Counterpart of
+    ``_halo_unscatter`` (pallas_model.py:2257), whose windows are whole
+    rows."""
+    _, _, ch, wm, wi, k = w.shape
+    rt, ct = wm - 2 * hm, wi - 2 * hi
+    out = w.new_zeros((ch, ny2, nx, k))
+    r0 = torch.arange(0, ny2, rt, device=w.device) - hm
+    c0 = torch.arange(0, nx, ct, device=w.device) - hi
+    for a in range(wm):
+        rows = ((r0 + a) % ny2)[:, None]
+        for b in range(wi):
+            out[:, rows, ((c0 + b) % nx)[None, :]] += w[:, :, :, a, b].permute(2, 0, 1, 3)
+    return out
 
 
 def _untile(w):

@@ -1,0 +1,167 @@
+"""The hand-written tiled adjoint kernel against its plain PyTorch version, on
+a CUDA card. These tests skip on machines without one. They import no JAX,
+so on a GPU machine without JAX they run with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_tiled_adjoint_kernel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mpas_ocean_tpu_torch.kernels import fe_step, tiled_adjoint
+from mpas_ocean_tpu_torch.structured import (
+    StructState,
+    diff_model,
+    fused_run_loop,
+    plain_tiled_adjoint_superstep,
+    structured_run_loop,
+    tiled_adjoint_rollout,
+    tiled_diff,
+    tiled_rollout_diff,
+)
+
+from torch_gpu_cases import FIELDS, cuda, random_lattice  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.gpu
+
+DT = 10.0
+
+
+def _cotangent(state, seed):
+    rng = np.random.default_rng(seed)
+    return StructState(*(
+        torch.from_numpy(rng.normal(size=tuple(getattr(state, f).shape))).to(
+            getattr(state, f).device)
+        for f in FIELDS))
+
+
+def _plain_reverse(st, sm, n, g, rt, ct, q):
+    """The plain superstep back through the superstep-start states that the
+    forward kernel gives (which the kernel sweep rebuilds bit for bit)."""
+    starts = [st]
+    for _ in range(n // q - 1):
+        starts.append(fused_run_loop(starts[-1], sm, DT, q))
+    ddt = 0.0
+    for s in reversed(starts):
+        g, dd = plain_tiled_adjoint_superstep(s, g, sm, DT, rt, ct, q)
+        ddt += float(dd)
+    return g, ddt
+
+
+@pytest.mark.parametrize("q", [1, 2])
+@pytest.mark.parametrize("shape, tile", [
+    ((16, 16, 4), (8, 16)),   # one tile, its window wraps onto itself
+    ((16, 16, 4), (2, 4)),
+    ((64, 64, 4), (1, 8)),
+    ((64, 64, 4), (4, 4)),
+    ((64, 64, 4), (8, 16)),
+    ((64, 64, 4), (16, 2)),
+    ((10, 12, 33), (3, 5)),   # 33 levels: clusters of 7 blocks, the last with 3
+])
+def test_kernel_matches_plain_f64(cuda, shape, tile, q):
+    """6 steps, f64: the kernel sweep and the plain superstep on the same
+    primal states differ only in summation order, so 1e-12 of each field's
+    magnitude and of d(dt); a rerun gives the same bits (no atomics)."""
+    model, st = random_lattice(*shape, cuda)
+    sm = model.struct_mesh
+    rt, ct = tile
+    n = 6
+    g = _cotangent(st, 3)
+    out, ddt = tiled_adjoint_rollout(st, sm, DT, n, g, plan=(rt, ct, q, 2))
+    again, ddt_again = tiled_adjoint_rollout(st, sm, DT, n, g, plan=(rt, ct, q, 2))
+    ref, ref_dt = _plain_reverse(st, sm, n, g, rt, ct, q)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        a, b = getattr(out, f), getattr(ref, f)
+        assert a.shape == b.shape and a.dtype == torch.float64 and a.device.type == "cuda"
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 1e-12, (f, err)
+        assert torch.equal(a, getattr(again, f)), f
+    assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
+    assert torch.equal(ddt, ddt_again)
+
+
+@pytest.mark.parametrize("q", [1, 2])
+def test_launch_counts(cuda, q):
+    """n = 12 in groups of 2 supersteps: tiled_adjoint n / q launches;
+    fe_step n forward launches and q per rebuilt superstep; the inputs are
+    left as they are."""
+    model, st = random_lattice(16, 16, 4, cuda)
+    g = _cotangent(st, 4)
+    before = [getattr(x, f).clone() for x in (st, g) for f in FIELDS]
+    fe_step.launches = tiled_adjoint.launches = 0
+    tiled_adjoint_rollout(st, model.struct_mesh, DT, 12, g, plan=(4, 8, q, 2))
+    n_ss = 12 // q
+    n_groups = -(-n_ss // 2)
+    assert tiled_adjoint.launches == n_ss
+    assert fe_step.launches == 12 + q * (n_ss - n_groups)
+    after = [getattr(x, f) for x in (st, g) for f in FIELDS]
+    for x, y in zip(before, after):
+        assert torch.equal(x, y)
+
+
+def test_kernel_passes_the_dot_product_identity(cuda):
+    """<J v, g> = <v, J^T g> for J the Jacobian of the 7-step rollout, f64:
+    J v by forward-mode AD of the plain rollout, J^T g by the kernels."""
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    n = 7
+    v, g = _cotangent(st, 5), _cotangent(st, 6)
+
+    def rollout(*fields):
+        out = structured_run_loop(StructState(*fields), sm, DT, n)
+        return tuple(getattr(out, f) for f in FIELDS)
+
+    _, jv = torch.func.jvp(rollout, tuple(getattr(st, f) for f in FIELDS),
+                           tuple(getattr(v, f) for f in FIELDS))
+    lhs = sum(float((x * getattr(g, f)).sum()) for x, f in zip(jv, FIELDS))
+    d, _ = tiled_adjoint_rollout(st, sm, DT, n, g, plan=(2, 4, 1, 3))
+    rhs = sum(float((getattr(v, f) * getattr(d, f)).sum()) for f in FIELDS)
+    assert abs(lhs - rhs) <= 1e-12 * abs(rhs)
+
+
+def test_tiled_rollout_diff_forward_is_the_fused_run_loop_bitwise(cuda):
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    out = tiled_rollout_diff(st, sm, DT, 8, plan=(4, 8, 2, 2))
+    ref = fused_run_loop(st, sm, DT, 8)
+    for f in FIELDS:
+        assert torch.equal(getattr(out, f), getattr(ref, f))
+
+
+def test_cuda_state_never_runs_the_plain_version(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA state reached a plain version")
+
+    monkeypatch.setattr(tiled_diff, "plain_tiled_adjoint_superstep", refuse)
+    monkeypatch.setattr(diff_model, "structured_run_loop", refuse)
+    monkeypatch.setattr(diff_model, "structured_step", refuse)
+    model, st = random_lattice(16, 16, 4, cuda)
+    x = [getattr(st, f).clone().requires_grad_(True) for f in FIELDS]
+    tiled_adjoint.launches = 0
+    out = tiled_rollout_diff(StructState(*x), model.struct_mesh, DT, 6, plan=(4, 8, 2, 2))
+    torch.autograd.grad((out.ssh ** 2).sum(), x)
+    torch.cuda.synchronize()
+    assert tiled_adjoint.launches == 3
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    g = _cotangent(st, 7)
+    stack = tuple(getattr(st, f)[None] for f in FIELDS)
+    ddt = torch.zeros(1, dtype=torch.float64, device=cuda)
+    args = (sm.f_edge, sm.resting_thickness_sum, sm.stencil_table, sm.coriolis_weight,
+            sm.adjoint_table, sm.adjoint_weight, DT, 1e-3, 1e-3, 1, ddt)
+    g_in = tuple(getattr(g, f) for f in FIELDS)
+    with pytest.raises(ValueError, match="shared memory"):
+        tiled_adjoint.tiled_adjoint_rollout(stack, g_in, *args, row_tile=8, col_tile=16,
+                                            q=8, halo=(1, 2))
+    with pytest.raises(ValueError, match="divide"):
+        tiled_adjoint.tiled_adjoint_rollout(stack, g_in, *args, row_tile=3, col_tile=4,
+                                            q=1, halo=(1, 2))
+    with pytest.raises(ValueError):
+        tiled_adjoint.tiled_adjoint_rollout(
+            stack, (g.ssh, g.layer_thickness[..., :-1], g.normal_velocity), *args,
+            row_tile=2, col_tile=4, q=1, halo=(1, 2))
