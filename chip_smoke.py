@@ -65,6 +65,19 @@ LARGE_ADJ_STEPS = max(10, HEADLINE_STEPS // 80)
 LARGE_MAIN_STEPS, TILED_CHECK_STEPS = HEADLINE_STEPS // 8, 100
 REPS = 3
 
+# Earlier per-launch times, f32, on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md), printed beside this run's: the forward kernels' first designs,
+# and the two reverse kernels, which share their headers, as they were
+# before the forward kernels' redesign, by the same held-stream timer as
+# phase 8's (tools/reverse_timing.py, median of four runs).
+EARLIER_US = {
+    "fe_step 64": 27.817, "fe_step 256": 399.454,
+    "tiled_step FB 64": 59.022, "tiled_step FB 256": 553.694,
+    "adjoint_step 64": 38.133, "adjoint_step 256": 654.212,
+    "tiled_adjoint 64": 62.687, "tiled_adjoint 256": 552.090,
+}
+EARLIER_GRAD_S = {64: 0.37974, 256: 0.136373}
+
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM
 # bytes/s, and non-tensor-core FLOP/s per dtype itemsize.
 HBM_RATE = 3.35e12
@@ -178,13 +191,23 @@ def timed_rollout(run, n_steps: int, reps: int):
     return out, per_step
 
 
-def rate_line(name: str, per_step: list, sites: int, gpu: str) -> str:
+def rate_line(name: str, per_step: list, sites: int, gpu: str, earlier: str = "") -> str:
     med = statistics.median(per_step)
+    was = (f"; earlier {EARLIER_US[earlier]:.3f} us/step, "
+           f"now x{med * 1e6 / EARLIER_US[earlier]:.4f}" if earlier else "")
     return (
         f"{name}: {med * 1e6:.3f} us/step (median of {len(per_step)}, "
         f"min {min(per_step) * 1e6:.3f}, max {max(per_step) * 1e6:.3f}), "
-        f"{sites / med:.4e} cells*levels*steps/s [{gpu}]"
+        f"{sites / med:.4e} cells*levels*steps/s{was} [{gpu}]"
     )
+
+
+def share_line(name: str, per_step: list, bound_s: float) -> str:
+    """A kernel's median time beside its bound: the share of the bound it
+    reaches."""
+    med = statistics.median(per_step)
+    return (f"{name}: {med * 1e6:.3f} us per step against a bound of {bound_s * 1e6:.3f} us: "
+            f"{bound_s / med:.4f} of the bound")
 
 
 def cuda_times(fn, reps: int) -> list:
@@ -388,12 +411,21 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
             lambda n: structured_auto_run_loop(st_l, sm_l, DT, n, fb=fb), LARGE_MAIN_STEPS, REPS)
         dims = (sm_l.ny2, sm_l.nx, LEVELS, len(sm_l.coriolis_terms), 4)
         if fb:
+            halo = stencil_reach(sm_l.coriolis_terms, fb)
             route = f"tiled_step, plan {plans[fb]}"
-            bound = tiled_bounds(*dims, plans[fb], stencil_reach(sm_l.coriolis_terms, fb))[0]
+            bound = tiled_bounds(*dims, plans[fb], halo)[0]
+            occ = tiled_step.occupancy(*plans[fb], halo, LEVELS, fb)
+            occ_line = f"{occ[0]} clusters resident, {occ[1]} blocks per SM"
         else:
             route, bound = "fe_step", step_bound("fe_step", *dims)[0]
+            tile = fe_step.fe_tile(sm_l.ny2, sm_l.nx, LEVELS, 4)
+            lp = fe_step.launch_plan(sm_l.host_stencil[0], sm_l.ny2, sm_l.nx, LEVELS, tile)
+            occ_line = (f"tile {tile}, {lp['clusters']} clusters, {lp['blocks_per_sm']} blocks "
+                        f"per SM")
+        name = "tiled_step FB" if fb else "fe_step"
         log("[7] " + rate_line(f"main path {scheme[fb]} ({route}; bound {bound * 1e6:.3f} "
-                               f"us/step)", main_s[fb], sites_l, gpu))
+                               f"us/step)", main_s[fb], sites_l, gpu, f"{name} {LARGE_N}"))
+        log(f"[7] {occ_line} (occupancy query); " + share_line(name, main_s[fb], bound))
     # the FE size rule: the tiled kernel's FE beside fe_step at both sizes
     _, tiled_fe_l = timed_rollout(lambda n: tiled_run_loop(st_l, sm_l, DT, n),
                                   LARGE_MAIN_STEPS, REPS)
@@ -428,8 +460,12 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
         lambda: plain_tiled_rollout(st, sm, DT, 10, *plan_fb, True), REPS)]
     log("[7] " + rate_line(f"main path FB {HEADLINE_N}x{HEADLINE_N} (tiled_step, plan "
                            f"{plan_fb}; bound {bound_fb[0] * 1e6:.3f} us/step, "
-                           f"{bound_fb[2] * 1e6:.3f} with the plan's halos)", fb_s, sites, gpu)
+                           f"{bound_fb[2] * 1e6:.3f} with the plan's halos)", fb_s, sites, gpu,
+                           f"tiled_step FB {HEADLINE_N}")
         + f"; plain {statistics.median(plain_fb) * 1e6:.3f} us/step")
+    occ = tiled_step.occupancy(*plan_fb, halo_fb, LEVELS, True)
+    log(f"[7] {occ[0]} clusters resident, {occ[1]} blocks per SM (occupancy query); "
+        + share_line("tiled_step FB", fb_s, bound_fb[0]))
     t_end = HEADLINE_STEPS * DT
     exact = igw.exact_ssh(np.asarray(horz.cells.x, np.float64),
                           np.asarray(horz.cells.y, np.float64), t_end)
@@ -476,6 +512,7 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
         "plan": list(plans[True]),
+        "blocks_per_sm": tiled_step.occupancy(*plans[True], halo, LEVELS, True)[1],
         "bound_ms_with_halos": plan_bound * q * 1e3,
         "ms_fe_256": statistics.median(tiled_fe_l) * 1e3,
         "ms_fe_64": statistics.median(tiled_fe) * 1e3,
@@ -486,6 +523,32 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
 
 def state_fields(state) -> list:
     return [getattr(state, f) for f in FIELDS]
+
+
+def graph_times(st, sm, n_seg: int, replays: int, reps: int) -> list:
+    """Device seconds per step of fe_step's step loop captured in a CUDA
+    graph of n_seg steps and replayed ``replays`` times, for reps reps."""
+    import torch
+
+    from mpas_ocean_tpu_torch.kernels import fe_step
+    from mpas_ocean_tpu_torch.structured.fused_model import _scal
+
+    consts = (sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil)
+    scal = _scal(sm, DT, st.layer_thickness.dtype)
+    src = tuple(x.contiguous() for x in state_fields(st))
+    out = tuple(torch.empty_like(x) for x in src)
+    tmp = tuple(torch.empty_like(x) for x in src)
+    run = lambda: fe_step.fe_rollout_into(src, out, *consts, *scal, n_seg, scratch=tmp)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    times = cuda_times(lambda: [graph.replay() for _ in range(replays)], reps)
+    return [t / (n_seg * replays) for t in times]
 
 
 def random_cot(state, seed: int):
@@ -589,6 +652,7 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
     )
     from mpas_ocean_tpu_torch.structured.fused_model import _scal
     from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
     for line in ptxas_report(log_text, ("tiled_adjoint_kernel",)):
         log(f"[8] ptxas {line}")
@@ -720,17 +784,16 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
                                                                        *plan[:3]), REPS)
         del fin, g, out, ref
 
-    # per-launch times of the two reverse kernels, each over a stack of 40
-    # primal states (long enough that the call's host set-up does not show),
-    # after a sustained load
+    # device time per launch of the two reverse kernels, each over a stack of
+    # 40 primal states, the stream held until the call is queued (held_us)
     def per_launch(kernel, st, sm, group=40):
         scal = _scal(sm, DT, torch.float32)
         stack = tuple(torch.empty((group, *x.shape), dtype=x.dtype, device=x.device)
                       for x in state_fields(st))
         for dst, x in zip(stack, state_fields(st)):
             dst[0].copy_(x)
-        fe_step.fe_fill_stack(stack, sm.f_edge, sm.resting_thickness_sum, sm.stencil_table,
-                              sm.coriolis_weight, *scal, group - 1)
+        fe_step.fe_fill_stack(stack, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+                              *scal, group - 1)
         g_in = tuple(x.contiguous() for x in state_fields(random_cot(st, 15)))
         acc = torch.zeros(1, dtype=torch.float64, device=st.layer_thickness.device)
         if kernel == "adjoint_step":
@@ -742,9 +805,7 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
                 stack, g_in, sm.f_edge, sm.resting_thickness_sum, sm.stencil_table,
                 sm.coriolis_weight, sm.adjoint_table, sm.adjoint_weight, *scal, group, acc,
                 row_tile=rt, col_tile=ct, q=q, halo=reverse_halo(sm.coriolis_terms))
-        for _ in range(20):
-            run()
-        return [t / group for t in cuda_times(run, REPS)]
+        return [t / 1e6 for t in held_us(run, group, REPS)]
 
     _, _, model_m, prog_m = igw_case(128, LEVELS, np.float32)
     cases[128] = (model_m, prog_m, model_m.to_struct(prog_m), model_m.struct_mesh)
@@ -753,10 +814,15 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
         st, sm = cases[n_side][2:]
         for kernel in ("adjoint_step", "tiled_adjoint"):
             launch_s[kernel, n_side] = per_launch(kernel, st, sm)
-        log(f"[8] per launch in a 40-step call (with its d(dt) sum), {n_side}x{n_side}x{LEVELS} "
+        was = "".join(
+            f"; {k} earlier {EARLIER_US[f'{k} {n_side}']:.3f} us, now x"
+            f"{statistics.median(launch_s[k, n_side]) * 1e6 / EARLIER_US[f'{k} {n_side}']:.4f}"
+            for k in ("adjoint_step", "tiled_adjoint") if f"{k} {n_side}" in EARLIER_US)
+        log(f"[8] device time per launch in a 40-step call (with its d(dt) sum; the stream "
+            f"held until the call is queued), {n_side}x{n_side}x{LEVELS} "
             f"f32: adjoint_step {spread(launch_s['adjoint_step', n_side], 1e6, 'us')}; "
             f"tiled_adjoint, plan {plan_of(st, sm, 40)}, "
-            f"{spread(launch_s['tiled_adjoint', n_side], 1e6, 'us')} [{gpu}]")
+            f"{spread(launch_s['tiled_adjoint', n_side], 1e6, 'us')}{was} [{gpu}]")
 
     # the slice at full width: grad of sum(ssh_final^2) through
     # tiled_rollout_diff, 256x256x100 f32, 100 steps, from the lattice state
@@ -791,7 +857,7 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
     tiled_s = cuda_times(lambda: grad_sum_ssh2(tiled_rollout_diff, st_l, sm_l, n), REPS)
     log(f"[8] grad through tiled_rollout_diff from the lattice state, {n} steps: "
         f"{spread(tiled_s)} per grad, {spread([t / n for t in tiled_s], 1e6, 'us')} per "
-        f"rollout step [{gpu}]")
+        f"rollout step; earlier {EARLIER_GRAD_S[LARGE_N]} s per grad [{gpu}]")
     by_kernel, window_us = profile_by_kernel(
         lambda: grad_sum_ssh2(tiled_rollout_diff, st_l, sm_l, n),
         ("fe_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
@@ -977,8 +1043,20 @@ def main() -> int:
         lambda n: fused_run_loop(st, sm, DT, n), HEADLINE_STEPS, REPS)
     p_out, p_times = timed_rollout(
         lambda n: structured_run_loop(st, sm, DT, n), HEADLINE_STEPS, REPS)
-    log("[4] " + rate_line("kernel", k_times, sites, gpu))
+    log("[4] " + rate_line("kernel", k_times, sites, gpu, "fe_step 64"))
     log("[4] " + rate_line("plain ", p_times, sites, gpu))
+    dims_h = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+    tile_h = fe_step.fe_tile(sm.ny2, sm.nx, LEVELS, 4)
+    plan_h = fe_step.launch_plan(sm.host_stencil[0], sm.ny2, sm.nx, LEVELS, tile_h)
+    log(f"[4] fe_step tile {tile_h}: {plan_h['clusters']} clusters, "
+        f"{plan_h['blocks_per_sm']} blocks of 512 threads per SM (occupancy query); "
+        + share_line("fe_step", k_times, step_bound("fe_step", *dims_h)[0]))
+    # the launch gaps: the same steps as one stream of programmatically
+    # dependent launches (above) and as a CUDA graph of 100 steps, replayed
+    graph_s = graph_times(st, sm, 100, HEADLINE_STEPS // 100, REPS)
+    log(f"[4] fe_step per step in a replayed CUDA graph of 100 steps: "
+        f"{spread(graph_s, 1e6, 'us')}; in stream launches "
+        f"{spread(k_times, 1e6, 'us')} [{gpu}]")
     # The IGW error after 8000 FE steps. FE is unstable for gravity waves
     # and grows the grid-scale modes fastest, so in f32 the column-sum
     # rounding noise grows to dominate the error of both versions (~0.8
@@ -1052,6 +1130,7 @@ def main() -> int:
         structured_adjoint_step,
     )
     from mpas_ocean_tpu_torch.structured.fused_model import _scal
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
     for line in ptxas_report(log_file.read_text(), ("adjoint_step_kernel", "ddt_reduce")):
         log(f"[6] ptxas {line}")
@@ -1154,8 +1233,8 @@ def main() -> int:
                   for x in fields(st))
     for dst, x in zip(stack, fields(st)):
         dst[0].copy_(x)
-    fe_step.fe_fill_stack(stack, f_edge, sm.resting_thickness_sum, sm.stencil_table,
-                          sm.coriolis_weight, *scal, group - 1)
+    fe_step.fe_fill_stack(stack, f_edge, sm.resting_thickness_sum, *sm.host_stencil, *scal,
+                          group - 1)
     ddt_acc = torch.zeros(1, dtype=torch.float64, device=dev)
     g_in = tuple(x.contiguous() for x in fields(g))
 
@@ -1163,9 +1242,7 @@ def main() -> int:
         return adjoint_step.adjoint_rollout(stack, g_in, f_edge, adj_tab, adj_w, *scal, n,
                                             ddt_acc)
 
-    for _ in range(20):  # sustained load first, so the clocks are up
-        adj_run(group)
-    ka_times = [t / group for t in cuda_times(lambda: adj_run(group), REPS)]
+    ka_times = [t / 1e6 for t in held_us(lambda: adj_run(group), group, REPS)]
     _, k1_times = timed_rollout(lambda n: [adj_run(1) for _ in range(n)], 100, REPS)
 
     def plain_adj(n):
@@ -1175,7 +1252,7 @@ def main() -> int:
         return gg
 
     _, pa_times = timed_rollout(plain_adj, PLAIN_ADJ_STEPS, REPS)
-    log(f"[6] adjoint_step per step, {HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32: kernel in a "
+    log(f"[6] adjoint_step per step, {HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32: device time in a "
         f"{group}-step call {spread(ka_times, 1e6, 'us')}; one call of 1 step (kernel, "
         f"d(dt) sum, host) {spread(k1_times, 1e6, 'us')}; plain "
         f"{spread(pa_times, 1e6, 'us')} [{gpu}]")
@@ -1209,7 +1286,8 @@ def main() -> int:
         raise AssertionError("fused_rollout_diff's forward differs from fused_run_loop")
     log("[6] fused_rollout_diff forward is bitwise fused_run_loop's")
     g_times = cuda_times(lambda: grad_run(st, sm, GRAD_STEPS), REPS)
-    log(f"[6] grad from the lattice state, {GRAD_STEPS} steps: {spread(g_times)} per grad, "
+    log(f"[6] grad from the lattice state, {GRAD_STEPS} steps (earlier "
+        f"{EARLIER_GRAD_S[HEADLINE_N]} s): {spread(g_times)} per grad, "
         f"{spread([t / GRAD_STEPS for t in g_times], 1e6, 'us')} per rollout step [{gpu}]")
     # where one grad's device time goes, by kernel, from a profiler trace
     by_kernel, window_us = profile_by_kernel(
@@ -1269,6 +1347,9 @@ def main() -> int:
             "library_ms": None,
         })
     kernels[0]["launches_forward_path"] = launches
+    kernels[0]["tile"] = list(tile_h)
+    kernels[0]["launch_plan"] = plan_h
+    kernels[0]["ms_in_cuda_graph"] = statistics.median(graph_s) * 1e3
     for entry, key in zip(kernels, ("fe_step_kernel", "adjoint_step_kernel")):
         entry["ms_in_grad_profiler"] = prof_ms.get(key)
     kernels[1].update(adjoint_256)

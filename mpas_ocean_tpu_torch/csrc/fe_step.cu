@@ -9,153 +9,300 @@
 // Layout (all contiguous, K innermost):
 //   ssh (2, ny2, nx)   h (2, ny2, nx, K)   u (6, ny2, nx, K), channel f*2+p
 //   f_edge (6, ny2, nx)   rts (2, ny2, nx)
-// Block = one cell column (p, m, i); its threads stride over the levels k,
-// so every load of a neighbour column is contiguous. Each block writes its
-// column of h, its three owned edges of u and its ssh value. Offsets are
-// 32-bit, so u may hold at most 2^31 - 1 values: 64-bit address arithmetic
-// doubled the registers (128 against 72) and cost 22-34% of the step time on
-// an H100.
+// No in-place update: blocks run in parallel and in no order, so a step
+// reads one buffer set and writes another: mot_fe_steps_* alternates between
+// the caller's output and one scratch set, mot_fe_stack_* writes each step
+// into the next slot of a stack of states (the reverse sweep's rebuilt
+// group). Offsets are 32-bit, so u may hold at most 2^31 - 1 values.
 //
-// No in-place update: the TPU kernel rewrites its VMEM state in place, which
-// is safe there only because each step reads whole planes first. Blocks here
-// run in parallel and in no order, so a step reads one buffer set and writes
-// another: mot_fe_steps_* alternates between the caller's output and one
-// scratch set, mot_fe_stack_* writes each step into the next slot of a stack
-// of states (the reverse sweep's rebuilt group).
+// What bound the first design (PERF.md): 14-16% of the byte bound
+// on an H100. One 128-thread block per cell column (28 of 128 lanes idle at
+// K = 100), each repeating a prologue of three dependent memory round trips
+// (the table, ~50 wrapped tap sources, f_edge at them) before its 100 levels
+// of work, and ~40 L1/L2 loads per cell-level that no neighbouring column's
+// block shared (each h value read by ~4 blocks, each u value by ~9). The
+// time per cell-level was the same with the state in L2 (64x64) and beyond
+// it (256x256): latency, not bandwidth.
 //
-// What bounds it on this card: the compulsory traffic is about 2 state passes
-// per step (read h and u, write h and u), 13 MB at 64x64x100 in f32, which
-// fits the 50 MB L2, so launch latency could rival the work. Measured on an
-// H100 (700 W), it does not: the time per cell-level is the same at
-// 64x64x100 and at 256x256x100 (state beyond L2), about 10% of the HBM rate
-// for the compulsory bytes. What bounds it is the latency of ~40 L1/L2 loads
-// per cell-level (10 of h, 6 of u for the fluxes, 24 Coriolis taps), none of
-// them shared with the neighbouring columns' blocks. Staging halo tiles in
-// shared memory, capturing the step loop in a graph or a persistent kernel,
-// and temporal blocking over q steps are later work.
+// This design. A thread-block cluster takes an rt x ct tile of lattice sites
+// (both parities; (4, 16) at K = 100 f32, kernels/fe_step.fe_tile), its
+// blocks split the levels in chunks of kc (a power of two, 16 at K = 100;
+// step_window.cuh), and each block stages its chunk of the tile's window
+// (the tile plus the FE reach, 1 row and 2 columns per side, wrapped
+// periodically) of h, u, ssh, f_edge and rts in shared memory by 16-byte
+// async copies, so each value leaves L2 once per tile and not 4-9 times.
+// The stencil is resolved once per call on the host into constant-bank
+// offsets; only the window's sites wrap. Each of the 25 u and 10 h values
+// a cell-level reads is loaded once, and each u * f product formed once
+// (step_window.cuh, hex::): the kernel takes the hex lattice's table only,
+// and its entries refuse any other. Groups of min(16, kc)
+// lanes take consecutive levels of one site and compute its h' and u' in
+// one pass (FE reads only the old state); each block's partial column sums
+// are a shuffle over the group, stored straight into rank 0's shared
+// memory (once a split cluster barrier, whose wait the window's loads
+// hide, has seen every block of the cluster start), and after a second
+// cluster barrier rank 0 adds them in rank order
+// (fixed order, no atomics: f64 reruns are bitwise equal). The window
+// takes at most half an SM's shared memory, so two 512-thread blocks share
+// an SM. Tiles need not divide the lattice: sites past its edge are
+// skipped. Launches are programmatically dependent, so the next step's
+// blocks are scheduled while this step's last wave runs.
+// Measured share of the byte bound (f32, NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md section 5): 29% at 64x64x100 (13.8 us/step against 3.94) and 34%
+// at 256x256x100 (184.6 against 63.1); the first design reached 14-16%.
 //
 // The stencil table's layout is in lattice.cuh.
 
-#include "lattice.cuh"
+#include <algorithm>
+#include <cstdlib>
+
+#include "step_window.cuh"
 
 namespace {
 
 using namespace lattice;
 
+constexpr int kPlanes = 10;  // ssh [2], f_edge [6], rts [2]
+
 template <typename T>
-__global__ void fe_step_kernel(const T* __restrict__ ssh, const T* __restrict__ h,
-                               const T* __restrict__ u, const T* __restrict__ f_edge,
-                               const T* __restrict__ rts, const int* __restrict__ table,
-                               const T* __restrict__ weights, T* __restrict__ ssh_out,
-                               T* __restrict__ h_out, T* __restrict__ u_out, T dt,
-                               T inv_dc, T s_div, int ny2, int nx, int K) {
-  __shared__ int s_tab[kHeader];
-  __shared__ int s_src[kMaxTerms];  // channel * plane + site of each Coriolis tap
-  __shared__ T s_w[kMaxTerms];
-  __shared__ T s_f[kMaxTerms];  // f_edge at that tap
-  __shared__ T s_part[32];
+struct FeArgs {
+  const T* ssh;
+  const T* h;
+  const T* u;
+  const T* f_edge;
+  const T* rts;
+  T* ssh_out;
+  T* h_out;
+  T* u_out;
+  T dt, inv_dc, s_div;
+  int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
+};
 
-  const int plane = ny2 * nx;
-  const int site = blockIdx.x;  // p * plane + m * nx + i
-  const int p = site / plane;
-  const int m = (site / nx) % ny2;
-  const int i = site % nx;
-  const int cell = m * nx + i;
+// Each distinct u and h value of a (site, level) is loaded once and each
+// u * f product formed once (step_window.cuh, hex::).
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads, 2)
+    fe_step_kernel(const FeArgs<T> a, const StepTaps<T> tp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int tile = blockIdx.x / n_ranks;
+  const int tm = tile / a.n_tiles_i, ti = tile % a.n_tiles_i;
+  const int Wi = a.ct + 2 * a.hi, W = (a.rt + 2 * a.hm) * Wi;
+  const int kc = 1 << a.kc_log2, k0 = rank * kc, kr = min(kc, a.K - k0);
+  const int plane = a.ny2 * a.nx;
+  const int pk = W * kc;
+  const int K = a.K;
+  const int core = a.rt * a.ct;
 
-  auto at = [&](int dm, int di) { return wrap(m + dm, ny2) * nx + wrap(i + di, nx); };
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [8][W][kc]: h p0, h p1, u c0..c5
+  T* ssh_s = buf + 8 * pk;                  // [2][W]
+  T* f_s = ssh_s + 2 * W;                   // [6][W]
+  T* rts_s = f_s + 6 * W;                   // [2][W]
+  T* recv = rts_s + 2 * W;                  // [n_ranks][2][core]: rank 0's are read
+  int* gs = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
 
-  const int n_terms = table[0];
-  for (int t = threadIdx.x; t < kHeader; t += blockDim.x) s_tab[t] = table[t];
-  for (int t = threadIdx.x; t < n_terms; t += blockDim.x) {
-    const int* tt = table + kHeader + 3 * t;
-    const int src = tt[0] * plane + at(tt[1], tt[2]);
-    s_src[t] = src;
-    s_f[t] = f_edge[src];
-    s_w[t] = weights[t];
-  }
+  // The partial column sums below go straight into rank 0's shared memory,
+  // which only a cluster barrier guarantees to exist: its arrival here and
+  // its wait after the loads, so that the loads hide it.
+  cluster_arrive_relaxed();
+  allow_next_grid();
+  window_sites(gs, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx);
   __syncthreads();
+  wait_previous_grid();
+  load_consts(f_s, rts_s, gs, a.f_edge, a.rts, W, plane);
+  load_state(buf, ssh_s, gs, a.ssh, a.h, a.u, W, a.kc_log2, a.vec_log2, k0, kr, K, plane);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  cluster_wait();
 
-  // the cell's neighbour across each owned edge: plane * plane + (m', i')
-  int nbr[3];
-  for (int f = 0; f < 3; ++f) {
-    const int* t = s_tab + kNbr + 3 * (f * 2 + p);
-    nbr[f] = t[0] * plane + at(t[1], t[2]);
-  }
-  // incoming edges: channel, site, and that edge's own neighbour cell
-  int inc_u[3], inc_self[3], inc_nbr[3];
-  for (int j = 0; j < 3; ++j) {
-    const int* t = s_tab + kInc + 9 * p + 3 * j;
-    const int ch = t[0];
-    const int s = at(t[1], t[2]);
-    const int p_in = ch & 1;
-    const int* tn = s_tab + kNbr + 3 * ch;
-    const int ms = s / nx, is = s % nx;
-    inc_u[j] = ch * plane + s;
-    inc_self[j] = p_in * plane + s;
-    inc_nbr[j] = tn[0] * plane + wrap(ms + tn[1], ny2) * nx + wrap(is + tn[2], nx);
-  }
-  // FE: the pressure gradient reads the old ssh
-  const T ssh_c = ssh[site];
-  T grad[3];
-  for (int f = 0; f < 3; ++f) grad[f] = (ssh[nbr[f]] - ssh_c) * inv_dc;
-
-  const T dt_div = dt * s_div;
-  const T pg_scale = T(-kGravity) * dt;
-  const int Kz = K;
-  const int self_col = site * Kz;
-
-  T col = T(0);
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const T hc = h[self_col + k];
-    // thickness flux u * 0.5 (h_nbr + h_self): owned edges out, incoming in
-    T total = T(0);
-    for (int f = 0; f < 3; ++f) {
-      const T he = T(0.5) * (h[nbr[f] * Kz + k] + hc);
-      const T fl = u[((f * 2 + p) * plane + cell) * Kz + k] * he;
-      total = (f == 0) ? fl : total + fl;
-    }
-    for (int j = 0; j < 3; ++j) {
-      const T he = T(0.5) * (h[inc_nbr[j] * Kz + k] + h[inc_self[j] * Kz + k]);
-      total = total - u[inc_u[j] * Kz + k] * he;
-    }
-    const T hn = hc - dt_div * total;
-    h_out[self_col + k] = hn;
-    col += hn;
-
-    // u' = u + dt * (TRiSK Coriolis of u * f) + pg_scale * grad(ssh)
-    for (int f = 0; f < 3; ++f) {
-      const int c = f * 2 + p;
-      const int t0 = s_tab[kOff + c], t1 = s_tab[kOff + c + 1];
-      T acc = T(0);
-      for (int t = t0; t < t1; ++t) {
-        const T contrib = s_w[t] * (u[s_src[t] * Kz + k] * s_f[t]);
-        acc = (t == t0) ? contrib : acc + contrib;
+  const T dt_div = a.dt * a.s_div;
+  const T pg_scale = T(-kGravity) * a.dt;
+  T* const sums = cluster.map_shared_rank(recv, 0) + rank * 2 * core;
+  // groups of G = min(16, kc) lanes, one site each, 32 / G sites per warp
+  const int g_log2 = min(a.kc_log2, kLanesLog2), G = 1 << g_log2;
+  const int lane = threadIdx.x & (G - 1), sub = (threadIdx.x & 31) >> g_log2;
+  const int warp_sites = 32 >> g_log2;
+  const int site_stride = static_cast<int>(blockDim.x >> 5) * warp_sites;
+  const FastDiv by_ct(a.ct);
+  for (int base = static_cast<int>(threadIdx.x >> 5) * warp_sites; base < core;
+       base += site_stride) {
+    const int t = base + sub;
+    const int tt = t < core ? t : base;
+    const int r = by_ct.div(tt), c = by_ct.mod(tt, r);
+    const int gm = tm * a.rt + r, gi = ti * a.ct + c;
+    const bool valid = t < core && gm < a.ny2 && gi < a.nx;  // a ragged tile's edge
+    const int g = gm * a.nx + gi;
+    const int s = (a.hm + r) * Wi + a.hi + c;
+    // FE: the pressure gradient of the old ssh
+    T grad[6];
+#pragma unroll
+    for (int ch = 0; ch < 6; ++ch)
+      grad[ch] = (ssh_s[s + tp.nb[ch]] - ssh_s[(ch & 1) * W + s]) * a.inv_dc;
+    T acc0 = T(0), acc1 = T(0);
+    for (int kl = lane; kl < kc; kl += G) {
+      if (!valid || kl >= kr) continue;
+      const T* lv = buf + s * kc + kl;
+      T* h_o = a.h_out + g * K + k0 + kl;
+      T* u_o = a.u_out + g * K + k0 + kl;
+      // thickness flux u * 0.5 (h_nbr + h_self): owned edges out, incoming in;
+      // u' = u + dt * (TRiSK Coriolis of u * f) + pg_scale * grad(ssh). The
+      // stores come last, so that no store sits between two loads of a value
+      // (a store through a generic pointer may alias shared memory).
+      T hnew[2], unew[6];
+      T u[hex::kU], h[hex::kH];
+#pragma unroll
+      for (int x = 0; x < hex::kU; ++x) u[x] = lv[tp.us[x]];
+#pragma unroll
+      for (int x = 0; x < hex::kH; ++x) h[x] = lv[tp.hs[x]];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const T hc = h[hex::self_h(p)];
+        T total = T(0);
+#pragma unroll
+        for (int f = 0; f < 3; ++f) {
+          const int ch = f * 2 + p;
+          const T fl = u[hex::self_u(ch)] * (T(0.5) * (h[hex::nb_h(ch)] + hc));
+          total = (f == 0) ? fl : total + fl;
+        }
+#pragma unroll
+        for (int x = 3 * p; x < 3 * p + 3; ++x) {
+          const T he = T(0.5) * (h[hex::inc_nb_h(x)] + h[hex::inc_self_h(x)]);
+          total = total - u[hex::inc_u(x)] * he;
+        }
+        hnew[p] = hc - dt_div * total;
       }
-      const int dst = (c * plane + cell) * Kz + k;
-      u_out[dst] = u[dst] + dt * acc + pg_scale * grad[f];
+      T uf[hex::kU];
+#pragma unroll
+      for (int x = 0; x < hex::kU; ++x) uf[x] = u[x] * f_s[s + tp.fs[x]];
+#pragma unroll
+      for (int ch = 0; ch < 6; ++ch) {
+        T acc = T(0);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const int t2 = 8 * ch + x;
+          const T contrib = tp.w[t2] * uf[hex::tap_u(t2)];
+          acc = (x == 0) ? contrib : acc + contrib;
+        }
+        unew[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) h_o[p * plane * K] = hnew[p];
+#pragma unroll
+      for (int ch = 0; ch < 6; ++ch) u_o[ch * plane * K] = unew[ch];
+      acc0 += hnew[0];
+      acc1 += hnew[1];
+    }
+    acc0 = group_sum(acc0, G);
+    acc1 = group_sum(acc1, G);
+    if (t < core && lane == 0) {
+      sums[t] = acc0;
+      sums[core + t] = acc1;
     }
   }
 
-  // ssh' = sum_k h' - rts: block reduction over the column
-  col = warp_sum(col);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) s_part[warp] = col;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T s = s_part[0];
-    for (int w = 1; w < (blockDim.x + 31) / 32; ++w) s += s_part[w];
-    ssh_out[site] = s - rts[site];
+  // ssh' = sum_k h' - rts: rank 0 adds the ranks' partial sums in rank order
+  // (the barrier orders the remote stores above before rank 0's reads; no
+  // block reads another's shared memory after it, so none waits to leave)
+  cluster.sync();
+  if (rank != 0) return;
+  for (int e = threadIdx.x; e < 2 * core; e += blockDim.x) {
+    const int p = e >= core ? 1 : 0, x = e - p * core;
+    const int r = by_ct.div(x), c = by_ct.mod(x, r);
+    const int gm = tm * a.rt + r, gi = ti * a.ct + c;
+    if (gm >= a.ny2 || gi >= a.nx) continue;
+    T v = recv[e];
+    for (int rr = 1; rr < n_ranks; ++rr) v += recv[rr * 2 * core + e];
+    a.ssh_out[p * plane + gm * a.nx + gi] = v - rts_s[p * W + (a.hm + r) * Wi + a.hi + c];
   }
 }
 
 template <typename T>
-int launch_step(const T* f_edge, const T* rts, const int* table, const T* weights,
-                const T* ssh, const T* h, const T* u, T* ssh_out, T* h_out, T* u_out,
-                double dt, double inv_dc, double s_div, int ny2, int nx, int k,
-                cudaStream_t stream) {
-  fe_step_kernel<T><<<2 * ny2 * nx, column_threads(k), 0, stream>>>(
-      ssh, h, u, f_edge, rts, table, weights, ssh_out, h_out, u_out, T(dt), T(inv_dc),
-      T(s_div), ny2, nx, k);
+int prepare(int max_smem) {
+  static bool done = false;
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fe_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  done = e == cudaSuccess;
+  return static_cast<int>(e);
+}
+
+// A window's state chunk, ssh, f_edge, rts and sites, and the ranks'
+// partial sums (kernels/fe_step.smem_bytes mirrors this).
+size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize) {
+  return step_smem_bytes(sites, kc, 1, kPlanes, itemsize) +
+         itemsize * static_cast<size_t>(n_ranks) * 2 * core;
+}
+
+// The rows and columns one FE step reads per side, from the table (host
+// copy): the neighbour and incoming-edge taps and the Coriolis taps
+// (slab.stencil_reach with fb=False).
+void fe_reach(const int* table, int* hm, int* hi) {
+  *hm = 0, *hi = 0;
+  auto take = [&](int dm, int di) {
+    *hm = std::max(*hm, std::abs(dm));
+    *hi = std::max(*hi, std::abs(di));
+  };
+  for (int c = 0; c < 6; ++c) take(table[kNbr + 3 * c + 1], table[kNbr + 3 * c + 2]);
+  for (int x = 0; x < 6; ++x) {
+    const int* tc = table + kInc + 3 * x;
+    const int* te = table + kNbr + 3 * tc[0];
+    take(tc[1], tc[2]);
+    take(tc[1] + te[1], tc[2] + te[2]);
+  }
+  for (int t = 0; t < table[0]; ++t) take(table[kHeader + 3 * t + 1], table[kHeader + 3 * t + 2]);
+}
+
+// One call's launch set-up: the plan, the resolved stencil, the shared memory.
+template <typename T>
+struct FePlan {
+  FeArgs<T> a;
+  StepTaps<T> tp;
+  int n_ranks, n_tiles, max_smem;
+  size_t smem;
+};
+
+template <typename T>
+int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* table,
+              const double* weights, double dt, double inv_dc, double s_div, int ny2, int nx,
+              int k, int n_steps, int n_terms, int rt, int ct, bool vec) {
+  if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
+    return cudaErrorInvalidValue;
+  if (rt < 1 || ct < 1 || rt > ny2 || ct > nx) return cudaErrorInvalidValue;
+  int hm = 0, hi = 0;
+  fe_reach(table, &hm, &hi);
+  hm = std::max(hm, 1), hi = std::max(hi, 1);
+  const int kc = step_chunk(k);
+  const int Wi = ct + 2 * hi, W = (rt + 2 * hm) * Wi;
+  pl->n_ranks = (k + kc - 1) / kc;
+  if (!resolve_taps<T>(&pl->tp, table, weights, Wi, W, kc)) return kNotHexTable;
+  int e = opt_in_smem(&pl->max_smem);
+  if (e != 0) return e;
+  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T));
+  if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
+  const int n_ti = (nx + ct - 1) / ct;
+  pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
+  pl->a = FeArgs<T>{nullptr, nullptr, nullptr, f_edge, rts, nullptr, nullptr, nullptr,
+                    T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, hm, hi,
+                    log2_exact(kc),
+                    vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
+  return 0;
+}
+
+template <typename T>
+int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out, T* h_out,
+                T* u_out, cudaStream_t stream) {
+  pl->a.ssh = ssh, pl->a.h = h, pl->a.u = u;
+  pl->a.ssh_out = ssh_out, pl->a.h_out = h_out, pl->a.u_out = u_out;
+  const int err = prepare<T>(pl->max_smem);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg =
+      step_config(pl->n_ranks, pl->n_tiles, pl->smem, stream, attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fe_step_kernel<T>, pl->a, pl->tp);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -163,19 +310,25 @@ int launch_step(const T* f_edge, const T* rts, const int* table, const T* weight
 // n_steps - 1 - s is even and `tmp` otherwise, so the last step lands in
 // `out`, no step writes the buffer it reads, and `in` is left as it is.
 template <typename T>
-int fe_steps(const T* f_edge, const T* rts, const int* table, const T* weights,
+int fe_steps(const T* f_edge, const T* rts, const int* table, const double* weights,
              const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,
              T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,
-             int nx, int k, int n_steps, int n_terms, cudaStream_t stream) {
-  if (!valid_shape(ny2, nx, k, n_steps, n_terms)) return cudaErrorInvalidValue;
+             int nx, int k, int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
+  const int kc = step_chunk(k);
+  const bool vec = vector_loads(k, kc, sizeof(T), h_in, u_in) &&
+                   vector_loads(k, kc, sizeof(T), h_out, u_out) &&
+                   vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
+  FePlan<T> pl;
+  int err = make_plan(&pl, f_edge, rts, table, weights, dt, inv_dc, s_div, ny2, nx, k,
+                      n_steps, n_terms, rt, ct, vec);
+  if (err != 0) return err;
   const T *ssh = ssh_in, *h = h_in, *u = u_in;
   for (int s = 0; s < n_steps; ++s) {
     const bool to_out = ((n_steps - 1 - s) & 1) == 0;
     T* ssh_d = to_out ? ssh_out : ssh_tmp;
     T* h_d = to_out ? h_out : h_tmp;
     T* u_d = to_out ? u_out : u_tmp;
-    const int err = launch_step<T>(f_edge, rts, table, weights, ssh, h, u, ssh_d, h_d, u_d,
-                                   dt, inv_dc, s_div, ny2, nx, k, stream);
+    err = launch_step<T>(&pl, ssh, h, u, ssh_d, h_d, u_d, stream);
     if (err != 0) return err;
     ssh = ssh_d, h = h_d, u = u_d;
   }
@@ -184,16 +337,19 @@ int fe_steps(const T* f_edge, const T* rts, const int* table, const T* weights,
 
 // n_steps steps through a stack of states: slot s + 1 = step(slot s).
 template <typename T>
-int fe_stack(const T* f_edge, const T* rts, const int* table, const T* weights, T* ssh,
+int fe_stack(const T* f_edge, const T* rts, const int* table, const double* weights, T* ssh,
              T* h, T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k,
-             int n_steps, int n_terms, cudaStream_t stream) {
-  if (!valid_shape(ny2, nx, k, n_steps, n_terms)) return cudaErrorInvalidValue;
+             int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
+  FePlan<T> pl;
+  int err = make_plan(&pl, f_edge, rts, table, weights, dt, inv_dc, s_div, ny2, nx, k,
+                      n_steps, n_terms, rt, ct,
+                      vector_loads(k, step_chunk(k), sizeof(T), h, u));
+  if (err != 0) return err;
   const size_t cells = 2ULL * ny2 * nx;
   const size_t hs = cells * k, us = 3 * cells * k;
   for (int s = 0; s < n_steps; ++s) {
-    const int err = launch_step<T>(f_edge, rts, table, weights, ssh + s * cells, h + s * hs,
-                                   u + s * us, ssh + (s + 1) * cells, h + (s + 1) * hs,
-                                   u + (s + 1) * us, dt, inv_dc, s_div, ny2, nx, k, stream);
+    err = launch_step<T>(&pl, ssh + s * cells, h + s * hs, u + s * us, ssh + (s + 1) * cells,
+                         h + (s + 1) * hs, u + (s + 1) * us, stream);
     if (err != 0) return err;
   }
   return 0;
@@ -201,24 +357,43 @@ int fe_stack(const T* f_edge, const T* rts, const int* table, const T* weights, 
 
 }  // namespace
 
-// Each entry returns 0 or the CUDA error of the first launch that failed.
-#define MOT_FE_ENTRIES(T, SUFFIX)                                                          \
-  extern "C" int mot_fe_steps_##SUFFIX(                                                    \
-      const T* f_edge, const T* rts, const int* table, const T* weights, const T* ssh_in,  \
-      const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp,  \
-      T* u_tmp, double dt, double inv_dc, double s_div, int ny2, int nx, int k,            \
-      int n_steps, int n_terms, void* stream) {                                            \
-    return fe_steps<T>(f_edge, rts, table, weights, ssh_in, h_in, u_in, ssh_out, h_out,    \
-                       u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,        \
-                       n_steps, n_terms, static_cast<cudaStream_t>(stream));               \
-  }                                                                                        \
-  extern "C" int mot_fe_stack_##SUFFIX(                                                    \
-      const T* f_edge, const T* rts, const int* table, const T* weights, T* ssh, T* h,     \
-      T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,   \
-      int n_terms, void* stream) {                                                         \
-    return fe_stack<T>(f_edge, rts, table, weights, ssh, h, u, dt, inv_dc, s_div, ny2, nx, \
-                       k, n_steps, n_terms, static_cast<cudaStream_t>(stream));            \
+// Each entry returns 0, kNotHexTable for a stencil that is not the hex
+// lattice's, or the CUDA error of the first launch that failed
+// (cudaErrorInvalidValue for a tile the card does not take). `table` and
+// `weights` are host copies of the stencil; rt x ct is the tile.
+#define MOT_FE_ENTRIES(T, SUFFIX)                                                           \
+  extern "C" int mot_fe_steps_##SUFFIX(                                                     \
+      const T* f_edge, const T* rts, const int* table, const double* weights,               \
+      const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,        \
+      T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,      \
+      int nx, int k, int n_steps, int n_terms, int rt, int ct, void* stream) {              \
+    return fe_steps<T>(f_edge, rts, table, weights, ssh_in, h_in, u_in, ssh_out, h_out,     \
+                       u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,         \
+                       n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));        \
+  }                                                                                         \
+  extern "C" int mot_fe_stack_##SUFFIX(                                                     \
+      const T* f_edge, const T* rts, const int* table, const double* weights, T* ssh, T* h, \
+      T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,    \
+      int n_terms, int rt, int ct, void* stream) {                                          \
+    return fe_stack<T>(f_edge, rts, table, weights, ssh, h, u, dt, inv_dc, s_div, ny2, nx,  \
+                       k, n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));     \
   }
 
 MOT_FE_ENTRIES(float, f32)
 MOT_FE_ENTRIES(double, f64)
+
+// The launch fe_step makes for an rt x ct tile of an ny2 x nx x k f32
+// lattice with the stencil `table` (a host copy): out[0] the clusters (one
+// per tile), out[1] the blocks per SM. Returns 0, kNotHexTable or the CUDA
+// error.
+extern "C" int mot_fe_plan(const int* table, int ny2, int nx, int k, int rt, int ct, int* out) {
+  double weights[kMaxTerms] = {};
+  FePlan<float> pl;
+  int e = make_plan<float>(&pl, nullptr, nullptr, table, weights, 1.0, 1.0, 1.0, ny2, nx, k, 1,
+                           table[0], rt, ct, true);
+  if (e != 0) return e;
+  if ((e = prepare<float>(pl.max_smem)) != 0) return e;
+  out[0] = pl.n_tiles;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], fe_step_kernel<float>, kStepThreads, pl.smem));
+}

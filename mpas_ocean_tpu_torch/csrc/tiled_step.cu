@@ -14,77 +14,80 @@
 //
 // Design. The lattice is cut into rt x ct tiles of sites. A tile's window
 // is the tile plus q halos of (hm, hi) sites per side, hm = 1 (FE) or 2 (FB)
-// rows and hi = 2 columns (the Coriolis stencil reaches two columns; the
-// Python side derives both from the tables, slab.stencil_reach). Step j
-// computes on the window less (j + 1) halos per side, so after q steps the
-// tile's core is left, and only the core is written, into buffers the launch
-// does not read (a tile reads its neighbours' pre-step sites, so there is no
-// in-place update: the entry ping-pongs between the output and a scratch
-// set, as fe_step.cu does).
+// rows and hi = 2 columns (slab.stencil_reach). Step j computes on the
+// window less (j + 1) halos per side, so after q steps the tile's core is
+// left. A site holds 8 values (2 h, 6 u) per level, so the levels are split
+// over a thread-block cluster of up to 8 blocks (chunks of kc levels, a
+// power of two; step_window.cuh). Levels couple only through the
+// column sum ssh = sum_k h - rts: once per step each block writes its
+// partial column sums, and after cluster.sync every block adds the ranks'
+// partials in rank order through distributed shared memory. No atomics, so
+// f64 reruns are bitwise equal. A tile reads its neighbours' pre-step sites,
+// so nothing is updated in place: the entry ping-pongs between the output
+// and a scratch set, as fe_step.cu does.
 //
-// The window does not fit one block: a site holds 8 values (2 h, 6 u) per
-// level, 3.2 KB at K = 100 in f32, and the smallest FE q = 2 window around
-// an 8 x 8 tile has 192 sites. Levels are coupled only through the column
-// sum ssh = sum_k h - rts, so the tile is given to a thread-block cluster of
-// up to 8 blocks that split the levels. Each block keeps its level chunk of
-// the window in shared memory, two copies (step j and j + 1), and runs all q
-// steps there. Once per step the blocks exchange their partial column sums
-// through distributed shared memory (cluster.sync, then each block adds the
-// ranks' partials in rank order), so every block holds the window's new
-// ssh. The other candidates: a per-block scratch window in device memory
-// would be written and read back through L2 once per step; a tile small
-// enough for one block to hold all its levels (~70 window sites at K = 100
-// in f32) would read 2-3 halo sites per core site even at q = 1.
+// What bound the first design (PERF.md): 11% of the byte bound at
+// 256x256x100 f32 FB. Two window copies even at q = 1 (217 KB for the FB
+// (8, 16) window) left one 512-thread block per SM; the window came in by
+// one 4-byte cp.async per value behind two run-time divisions; every
+// Coriolis tap was a 16-byte shared-memory load per edge-level.
 //
-// Sums run in a fixed order (levels in order within a block, then blocks in
-// rank order), with no atomics, so f64 reruns are bitwise equal. Offsets
-// are 32-bit (as in fe_step.cu). Every launch is checked with
-// cudaGetLastError(): a launch refused for its shared memory or its cluster
-// never runs, and a later synchronize would not say so.
-//
-// What bounds it on this card. Per launch the state is read once and written
-// once, plus the halo re-reads, so the byte bound per step falls as 1/q
-// (63 us / q at 256x256x100 f32 on an H100). Measured (PERF.md), the kernel
-// is 8x slower than that bound and no q = 2 or 4 plan is the fastest: the
-// largest windows fill a block's shared memory, so one 512-thread block runs
-// per SM and its phases (load the window, continuity, column sums, momentum
-// with ~25 shared loads per edge and level for its 8 Coriolis taps, store the
-// core) do not overlap; and the halo rings that q > 1 recomputes cost more
-// than the state passes it saves.
+// This design:
+// - q = 1 keeps one window copy: the last step writes the core's new h and
+//   u straight to the output buffers, and FB's momentum needs only the
+//   fresh ssh, which stays in the small ssh planes. q > 1 keeps two copies.
+// - Level chunks are powers of two (16 levels at K = 100), so every index
+//   splits by shifts and masks, and where K * itemsize allows, each (site,
+//   plane) chunk moves by 16-byte cp.async, neighbouring threads on
+//   neighbouring vectors.
+// - The stencil is resolved once per call on the host into a kernel
+//   parameter (StepTaps), so every offset and weight is a constant-bank
+//   operand, not a shared-memory load, and each of the 25 u and 10 h
+//   values a cell-level reads is loaded once and each u * f product formed
+//   once (step_window.cuh, hex::): the kernel takes the hex lattice's table
+//   only, and its entry refuses any other.
+// - The planner takes the largest tile whose window leaves room for a
+//   second 512-thread block on the SM ((8, 8) for FB at K = 100 f32;
+//   tiled_model.tile_plan), so one block's load overlaps the other's work.
+// - Groups of min(16, kc) lanes take consecutive levels of one site:
+//   conflict-free shared-memory reads, coalesced stores (64 bytes per group
+//   in f32 at K = 100), and the block's partial column sum is a shuffle
+//   over the group in a fixed order. The ranks' partials are read from
+//   distributed shared memory all at once and then added in rank order.
+// - Launches are programmatically dependent (step_window.cuh): the next
+//   launch is scheduled while this one's last wave runs.
+// Measured share of the byte bound (f32 FB, NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md section 5): 20% at 64x64x100 (19.7 us/step against 3.94) and 23%
+// at 256x256x100 (276.5 against 63.1; 37% of the bound with the plan's halo
+// reads and ring recompute).
 
-#include "tiled_window.cuh"
+#include "step_window.cuh"
 
 namespace {
 
 using namespace lattice;
 
-// Dynamic shared memory of one block (kernels/tiled_step.smem_bytes):
-// state [2][8][sites][kc], ssh [2][2][sites], partial sums [2][2][sites],
-// f_edge [6][sites], rts [2][sites]; the taps; the window's lattice sites and
-// the small tables.
-size_t smem_bytes(long long sites, int kc, size_t itemsize) {
-  return itemsize * static_cast<size_t>(sites) * (16 * kc + 16) + 16 * kMaxTerms +
-         sizeof(int) * (static_cast<size_t>(sites) + kSmallInts);
-}
+constexpr int kPlanes = 16;  // ssh [2][2], partial sums [2][2], f_edge [6], rts [2]
 
 template <typename T>
-struct TiledArgs {
+struct StepArgs {
   const T* ssh;
   const T* h;
   const T* u;
   const T* f_edge;
   const T* rts;
-  const int* table;
-  const T* weights;
   T* ssh_out;
   T* h_out;
   T* u_out;
   T dt, inv_dc, s_div;
-  int ny2, nx, K, rt, ct, q, hm, hi, kc, n_tiles_i;
+  int ny2, nx, K, rt, ct, q, hm, hi, kc_log2, vec_log2, n_tiles_i;
 };
 
+// Each distinct u and h value of a (site, level) is loaded once and each
+// u * f product formed once (step_window.cuh, hex::).
 template <typename T, bool FB>
-__global__ void __launch_bounds__(kThreads) tiled_step_kernel(const TiledArgs<T> a) {
+__global__ void __launch_bounds__(kStepThreads, 2)
+    tiled_step_kernel(const StepArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -92,194 +95,195 @@ __global__ void __launch_bounds__(kThreads) tiled_step_kernel(const TiledArgs<T>
   const int tile = blockIdx.x / n_ranks;
   const int tm = tile / a.n_tiles_i, ti = tile % a.n_tiles_i;
   const int Wm = a.rt + 2 * a.hm * a.q, Wi = a.ct + 2 * a.hi * a.q, W = Wm * Wi;
-  const int kc = a.kc, k0 = rank * kc, kr = min(kc, a.K - k0);
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int kc = 1 << a.kc_log2, k0 = rank * kc, kr = min(kc, a.K - k0);
   const int plane = a.ny2 * a.nx;
   const int pk = W * kc;  // one plane of a level chunk
-  const FastDiv by_kr(kr), by_w(W), by_wi(Wi);
+  const int K = a.K;
 
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [2][8][W][kc]: h p0, h p1, u c0..c5
-  T* ssh_s = buf + 16 * pk;                 // [2][2][W]
-  T* part = ssh_s + 4 * W;                  // [2][2][W], by step parity
-  T* f_s = part + 4 * W;                    // [6][W]
-  T* rts_s = f_s + 6 * W;                   // [2][W]
-  Tap<T>* taps = reinterpret_cast<Tap<T>*>(rts_s + 2 * W);  // [kMaxTerms]
-  int* gs = reinterpret_cast<int*>(taps + kMaxTerms);      // [W]: lattice site
-  int* nb = gs + W;         // per channel: neighbour cell (site offset)
-  int* inc_u = nb + 6;      // per (p, j) = 3p + j, in level-chunk units: incoming edge,
-  int* inc_self = nb + 12;  //   that edge's own cell,
-  int* inc_nb = nb + 18;    //   and that edge's neighbour cell
-  int* off = nb + 24;       // first tap of each channel (7)
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [copies][8][W][kc]: h p0, h p1, u c0..c5
+  T* ssh_s = buf + (a.q > 1 ? 16 : 8) * pk;  // [2][2][W], by step parity
+  T* part = ssh_s + 4 * W;                   // [2][2][W], by step parity
+  T* f_s = part + 4 * W;                     // [6][W]
+  T* rts_s = f_s + 6 * W;                    // [2][W]
+  int* gs = reinterpret_cast<int*>(rts_s + 2 * W);  // [W]: lattice site
 
-  const int n_terms = a.table[0];
-  for (int t = tid; t < n_terms; t += nt) {
-    const int* tt = a.table + kHeader + 3 * t;
-    taps[t].u = ((2 + tt[0]) * W + tt[1] * Wi + tt[2]) * kc;
-    taps[t].f = tt[0] * W + tt[1] * Wi + tt[2];
-    taps[t].w = a.weights[t];
-  }
-  if (tid < 6) {
-    const int* tn = a.table + kNbr + 3 * tid;
-    nb[tid] = tn[0] * W + tn[1] * Wi + tn[2];
-    const int* tc = a.table + kInc + 3 * tid;  // p = tid / 3, j = tid % 3
-    const int* te = a.table + kNbr + 3 * tc[0];
-    const int d = tc[1] * Wi + tc[2];
-    inc_u[tid] = ((2 + tc[0]) * W + d) * kc;
-    inc_self[tid] = ((tc[0] & 1) * W + d) * kc;
-    inc_nb[tid] = (te[0] * W + d + te[1] * Wi + te[2]) * kc;
-  }
-  if (tid < 7) off[tid] = a.table[kOff + tid];
-
-  // the window, wrapped periodically, by async copies: this block's levels
-  // of h and u, and ssh, f_edge and rts
+  allow_next_grid();
   const int m_base = tm * a.rt - a.hm * a.q, i_base = ti * a.ct - a.hi * a.q;
-  for (int s = tid; s < W; s += nt) {
-    const int r = by_wi.div(s), c = by_wi.mod(s, r);
-    const int g = wrap(m_base + r, a.ny2) * a.nx + wrap(i_base + c, a.nx);
-    gs[s] = g;
-    for (int p = 0; p < 2; ++p) {
-      copy_async(ssh_s + p * W + s, a.ssh + p * plane + g);
-      copy_async(rts_s + p * W + s, a.rts + p * plane + g);
-    }
-    for (int c6 = 0; c6 < 6; ++c6) copy_async(f_s + c6 * W + s, a.f_edge + c6 * plane + g);
-  }
+  window_sites(gs, m_base, i_base, Wi, W, a.ny2, a.nx);
   __syncthreads();
-  for (int e = tid; e < 8 * W * kr; e += nt) {
-    const int t = by_kr.div(e), kl = by_kr.mod(e, t);
-    const int ch = by_w.div(t), s = by_w.mod(t, ch);
-    const int g = gs[s];
-    copy_async(buf + ch * pk + s * kc + kl,
-               ch < 2 ? a.h + (ch * plane + g) * a.K + k0 + kl
-                      : a.u + ((ch - 2) * plane + g) * a.K + k0 + kl);
-  }
+  wait_previous_grid();
+  load_consts(f_s, rts_s, gs, a.f_edge, a.rts, W, plane);
+  load_state(buf, ssh_s, gs, a.ssh, a.h, a.u, W, a.kc_log2, a.vec_log2, k0, kr, K, plane);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
 
   const T dt_div = a.dt * a.s_div;
   const T pg_scale = T(-kGravity) * a.dt;
+  // groups of G = min(16, kc) lanes, one site each, 32 / G sites per warp
+  const int g_log2 = min(a.kc_log2, kLanesLog2), G = 1 << g_log2;
+  const int lane = threadIdx.x & (G - 1), sub = (threadIdx.x & 31) >> g_log2;
+  const int warp_sites = 32 >> g_log2;
+  const int site_stride = static_cast<int>(blockDim.x >> 5) * warp_sites;
+  const int r_core = a.hm * a.q, c_core = a.hi * a.q;
   for (int j = 0; j < a.q; ++j) {
+    const bool last = j == a.q - 1;
     const T* cur = buf + (j & 1) * 8 * pk;
-    T* nxt = buf + ((j + 1) & 1) * 8 * pk;
+    T* nxt = buf + ((j + 1) & 1) * 8 * pk;  // read only when q > 1
     const T* ssh_cur = ssh_s + (j & 1) * 2 * W;
     T* ssh_nxt = ssh_s + ((j + 1) & 1) * 2 * W;
+    // A rank writes this parity's partial sums again two steps on, past the
+    // next barrier, which every rank reaches only once it has read them.
     T* part_j = part + (j & 1) * 2 * W;
 
     // continuity: h' on the window less j halos and one ring (FB: the
-    // pressure gradient reads the fresh ssh one ring out) or j + 1 halos (FE)
+    // pressure gradient reads the fresh ssh one ring out) or j + 1 halos
+    // (FE); the block's partial column sums. The last step writes the
+    // core's h' to the output, earlier ones the next window copy.
     const int hr0 = FB ? a.hm * j + 1 : a.hm * (j + 1);
     const int hc0 = FB ? a.hi * j + 1 : a.hi * (j + 1);
     const int hnc = Wi - 2 * hc0, hn = (Wm - 2 * hr0) * hnc;
-    const FastDiv by_hnc(hnc), by_hn(hn);
-    {
-      int nbk[6], iu[6], isf[6], inb[6];
-      for (int x = 0; x < 6; ++x) {
-        nbk[x] = nb[x] * kc;
-        iu[x] = inc_u[x], isf[x] = inc_self[x], inb[x] = inc_nb[x];
-      }
-      for (int e = tid; e < hn * kr; e += nt) {
-        const int t = by_kr.div(e), kl = by_kr.mod(e, t);
-        const int r = by_hnc.div(t), c = by_hnc.mod(t, r);
-        const int base = ((hr0 + r) * Wi + hc0 + c) * kc + kl;
-        const T* lv = cur + base;
+    const FastDiv by_hnc(hnc);
+    for (int base = static_cast<int>(threadIdx.x >> 5) * warp_sites; base < hn;
+         base += site_stride) {
+      const int t = base + sub;
+      const bool valid = t < hn;
+      const int tt = valid ? t : base;
+      const int r = by_hnc.div(tt), c = by_hnc.mod(tt, r);
+      const int s = (hr0 + r) * Wi + hc0 + c;
+      const int cr = hr0 + r - r_core, cc = hc0 + c - c_core;
+      const bool out = last && cr >= 0 && cr < a.rt && cc >= 0 && cc < a.ct;
+      const int g = (tm * a.rt + cr) * a.nx + ti * a.ct + cc;
+      T acc0 = T(0), acc1 = T(0);
+      for (int kl = lane; kl < kc; kl += G) {
+        if (!valid || kl >= kr) continue;
+        const int b = s * kc + kl;
+        const T* lv = cur + b;
+        T hnew[2];
+        constexpr int kU = 11;  // the sources continuity reads: own and incoming edges
+        T u[kU], h[hex::kH];
+#pragma unroll
+        for (int i = 0; i < kU; ++i) u[i] = lv[tp.us[i]];
+#pragma unroll
+        for (int i = 0; i < hex::kH; ++i) h[i] = lv[tp.hs[i]];
+#pragma unroll
         for (int p = 0; p < 2; ++p) {
-          const T hc = lv[p * pk];
+          const T hc = h[hex::self_h(p)];
           T total = T(0);
+#pragma unroll
           for (int f = 0; f < 3; ++f) {
             const int ch = f * 2 + p;
-            const T he = T(0.5) * (lv[nbk[ch]] + hc);
-            const T fl = lv[(2 + ch) * pk] * he;
+            const T fl = u[hex::self_u(ch)] * (T(0.5) * (h[hex::nb_h(ch)] + hc));
             total = (f == 0) ? fl : total + fl;
           }
+#pragma unroll
           for (int x = 3 * p; x < 3 * p + 3; ++x) {
-            const T he = T(0.5) * (lv[inb[x]] + lv[isf[x]]);
-            total = total - lv[iu[x]] * he;
+            const T he = T(0.5) * (h[hex::inc_nb_h(x)] + h[hex::inc_self_h(x)]);
+            total = total - u[hex::inc_u(x)] * he;
           }
-          nxt[p * pk + base] = hc - dt_div * total;
+          hnew[p] = hc - dt_div * total;
+        }
+        acc0 += hnew[0];
+        acc1 += hnew[1];
+        if (!last) {
+          nxt[b] = hnew[0];
+          nxt[pk + b] = hnew[1];
+        } else if (out) {
+          a.h_out[g * K + k0 + kl] = hnew[0];
+          a.h_out[(plane + g) * K + k0 + kl] = hnew[1];
         }
       }
+      acc0 = group_sum(acc0, G);
+      acc1 = group_sum(acc1, G);
+      if (valid && lane == 0) {
+        part_j[s] = acc0;
+        part_j[W + s] = acc1;
+      }
     }
-    __syncthreads();
 
-    // ssh' = sum_k h' - rts: this block's levels in order, then the
-    // cluster's partial sums in rank order
-    for (int e = tid; e < 2 * hn; e += nt) {
-      const int p = by_hn.div(e), t = by_hn.mod(e, p);
-      const int r = by_hnc.div(t), c = by_hnc.mod(t, r);
-      const T* col = nxt + p * pk + ((hr0 + r) * Wi + hc0 + c) * kc;
-      T acc = col[0];
-      for (int kl = 1; kl < kr; ++kl) acc += col[kl];
-      part_j[p * W + (hr0 + r) * Wi + hc0 + c] = acc;
-    }
+    // ssh' = sum_k h' - rts: the cluster's partial sums in rank order (all
+    // ranks' values are loaded before the first add, so the remote loads
+    // overlap)
     cluster.sync();
-    for (int e = tid; e < 2 * hn; e += nt) {
-      const int p = by_hn.div(e), t = by_hn.mod(e, p);
+    for (int e = threadIdx.x; e < 2 * hn; e += blockDim.x) {
+      const int p = e >= hn ? 1 : 0, t = e - p * hn;
       const int r = by_hnc.div(t), c = by_hnc.mod(t, r);
       const int x = p * W + (hr0 + r) * Wi + hc0 + c;
-      T v = *cluster.map_shared_rank(part_j + x, 0);
-      for (int rr = 1; rr < n_ranks; ++rr) v += *cluster.map_shared_rank(part_j + x, rr);
-      ssh_nxt[x] = v - rts_s[x];
+      T v[kMaxCluster];
+#pragma unroll
+      for (int rr = 0; rr < kMaxCluster; ++rr)
+        if (rr < n_ranks) v[rr] = *cluster.map_shared_rank(part_j + x, rr);
+      T sum = v[0];
+#pragma unroll
+      for (int rr = 1; rr < kMaxCluster; ++rr)
+        if (rr < n_ranks) sum += v[rr];
+      ssh_nxt[x] = sum - rts_s[x];
     }
     __syncthreads();
 
     // momentum: u' = u + dt * (TRiSK Coriolis of u * f) + pg_scale * grad,
     // grad of the old ssh (FE) or the fresh one (FB), on the window less
-    // j + 1 halos
+    // j + 1 halos (the core at the last step)
     const T* pg = FB ? ssh_nxt : ssh_cur;
     const int ur0 = a.hm * (j + 1), uc0 = a.hi * (j + 1);
     const int unc = Wi - 2 * uc0, un = (Wm - 2 * ur0) * unc;
     const FastDiv by_unc(unc);
-    for (int e = tid; e < un * kr; e += nt) {
-      const int t = by_kr.div(e), kl = by_kr.mod(e, t);
+    for (int t = threadIdx.x >> g_log2; t < un; t += blockDim.x >> g_log2) {
       const int r = by_unc.div(t), c = by_unc.mod(t, r);
       const int s = (ur0 + r) * Wi + uc0 + c;
-      const int base = s * kc + kl;
-      for (int ch = 0; ch < 6; ++ch) {
-        const int t0 = off[ch], t1 = off[ch + 1];
-        T acc = T(0);
-        for (int t2 = t0; t2 < t1; ++t2) {
-          const Tap<T> tp = taps[t2];
-          const T contrib = tp.w * (cur[base + tp.u] * f_s[s + tp.f]);
-          acc = (t2 == t0) ? contrib : acc + contrib;
+      const int g = (tm * a.rt + r) * a.nx + ti * a.ct + c;  // the core's site (last step)
+      T grad[6];
+#pragma unroll
+      for (int ch = 0; ch < 6; ++ch)
+        grad[ch] = (pg[s + tp.nb[ch]] - pg[(ch & 1) * W + s]) * a.inv_dc;
+      for (int kl = lane; kl < kr; kl += G) {
+        const int b = s * kc + kl;
+        T v[6];
+        T u[hex::kU];
+#pragma unroll
+        for (int i = 0; i < hex::kU; ++i) u[i] = cur[b + tp.us[i]];
+        T uf[hex::kU];
+#pragma unroll
+        for (int i = 0; i < hex::kU; ++i) uf[i] = u[i] * f_s[s + tp.fs[i]];
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) {
+          T acc = T(0);
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int t2 = 8 * ch + x;
+            const T contrib = tp.w[t2] * uf[hex::tap_u(t2)];
+            acc = (x == 0) ? contrib : acc + contrib;
+          }
+          v[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
         }
-        const T grad = (pg[s + nb[ch]] - pg[(ch & 1) * W + s]) * a.inv_dc;
-        const int o = (2 + ch) * pk + base;
-        nxt[o] = cur[o] + a.dt * acc + pg_scale * grad;
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch) {
+          if (last)
+            a.u_out[(ch * plane + g) * K + k0 + kl] = v[ch];
+          else
+            nxt[(2 + ch) * pk + b] = v[ch];
+        }
       }
     }
     __syncthreads();
   }
 
-  // the tile's core, into the output buffers
-  const T* fin = buf + (a.q & 1) * 8 * pk;
-  const T* ssh_fin = ssh_s + (a.q & 1) * 2 * W;
-  const int r0 = a.hm * a.q, c0 = a.hi * a.q, core = a.rt * a.ct;
-  const FastDiv by_core(core), by_ct(a.ct);
-  for (int e = tid; e < 8 * core * kr; e += nt) {
-    const int t = by_kr.div(e), kl = by_kr.mod(e, t);
-    const int ch = by_core.div(t), x = by_core.mod(t, ch);
-    const int r = by_ct.div(x), c = by_ct.mod(x, r);
-    const int g = (tm * a.rt + r) * a.nx + ti * a.ct + c;
-    const T v = fin[ch * pk + ((r0 + r) * Wi + c0 + c) * kc + kl];
-    if (ch < 2)
-      a.h_out[(ch * plane + g) * a.K + k0 + kl] = v;
-    else
-      a.u_out[((ch - 2) * plane + g) * a.K + k0 + kl] = v;
-  }
+  // the tile's ssh, from rank 0
   if (rank == 0) {
-    for (int e = tid; e < 2 * core; e += nt) {
-      const int p = by_core.div(e), x = by_core.mod(e, p);
+    const T* ssh_fin = ssh_s + (a.q & 1) * 2 * W;
+    const int core = a.rt * a.ct;
+    const FastDiv by_ct(a.ct);
+    for (int e = threadIdx.x; e < 2 * core; e += blockDim.x) {
+      const int p = e >= core ? 1 : 0, x = e - p * core;
       const int r = by_ct.div(x), c = by_ct.mod(x, r);
       a.ssh_out[p * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c] =
-          ssh_fin[p * W + (r0 + r) * Wi + c0 + c];
+          ssh_fin[p * W + (r_core + r) * Wi + c_core + c];
     }
   }
   // no block may leave while another can still read its partial sums
   cluster.sync();
 }
 
-// The kernel's attribute, set once per instantiation: dynamic shared memory
-// up to the device's opt-in limit.
 template <typename T, bool FB>
 int prepare(int max_smem) {
   static bool done = false;
@@ -291,96 +295,115 @@ int prepare(int max_smem) {
 }
 
 template <typename T, bool FB>
-int launch(const TiledArgs<T>& a, int n_ranks, int n_tiles, size_t smem, int max_smem,
+int launch(const StepArgs<T>& a, const StepTaps<T>& tp, int n_ranks, int n_tiles, size_t smem,
            cudaStream_t stream) {
-  const int err = prepare<T, FB>(max_smem);
-  if (err != 0) return err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(n_ranks, n_tiles, smem, stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB>, a);
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = step_config(n_ranks, n_tiles, smem, stream, attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB>, a, tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// How many clusters of one plan the device holds at once.
-template <typename T, bool FB>
-int active_clusters(int n_ranks, size_t smem, int max_smem, int* out) {
-  const int err = prepare<T, FB>(max_smem);
-  if (err != 0) return err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(n_ranks, 1, smem, nullptr, attr);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(out, tiled_step_kernel<T, FB>, &cfg));
+// kernels/tiled_step.smem_bytes mirrors this
+size_t smem_bytes(long long sites, int kc, int q, size_t itemsize) {
+  return step_smem_bytes(sites, kc, q > 1 ? 2 : 1, kPlanes, itemsize);
 }
 
-// n_steps steps from `in` into `out`, q per launch. Launch l writes `out`
-// when n_launches - 1 - l is even and `tmp` otherwise, so the last launch
-// lands in `out`, no launch writes the buffers it reads, and `in` is left
-// as it is.
-template <typename T>
-int tiled_steps(const T* f_edge, const T* rts, const int* table, const T* weights,
-                const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out,
-                T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,
-                double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
-                int ct, int q, int hm, int hi, int kc, int fb, cudaStream_t stream) {
-  if (!valid_shape(ny2, nx, k, n_steps, n_terms)) return cudaErrorInvalidValue;
-  if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || kc < 1 || ny2 % rt || nx % ct ||
-      n_steps % q)
-    return cudaErrorInvalidValue;
-  const int n_ranks = (k + kc - 1) / kc;  // no block without levels
-  if (n_ranks > kMaxCluster) return cudaErrorInvalidValue;
-  const long long sites = static_cast<long long>(rt + 2 * hm * q) * (ct + 2 * hi * q);
-  const size_t smem = smem_bytes(sites, kc, sizeof(T));
+template <typename T, bool FB>
+int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_tiles,
+        int n_steps, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,
+        cudaStream_t stream) {
   int max_smem = 0;
-  const int e = opt_in_smem(&max_smem);
-  if (e != 0) return e;
+  int err = opt_in_smem(&max_smem);
+  if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  const int n_tiles = (ny2 / rt) * (nx / ct);
-  TiledArgs<T> a{nullptr, nullptr, nullptr, f_edge, rts, table, weights,
-                 nullptr, nullptr, nullptr, T(dt), T(inv_dc), T(s_div),
-                 ny2, nx, k, rt, ct, q, hm, hi, kc, nx / ct};
-  a.ssh = ssh_in, a.h = h_in, a.u = u_in;
-  const int n_launches = n_steps / q;
+  if ((err = prepare<T, FB>(max_smem)) != 0) return err;
+  const int n_launches = n_steps / a.q;
   for (int l = 0; l < n_launches; ++l) {
     const bool to_out = ((n_launches - 1 - l) & 1) == 0;
     a.ssh_out = to_out ? ssh_out : ssh_tmp;
     a.h_out = to_out ? h_out : h_tmp;
     a.u_out = to_out ? u_out : u_tmp;
-    const int err = fb ? launch<T, true>(a, n_ranks, n_tiles, smem, max_smem, stream)
-                       : launch<T, false>(a, n_ranks, n_tiles, smem, max_smem, stream);
-    if (err != 0) return err;
+    if ((err = launch<T, FB>(a, tp, n_ranks, n_tiles, smem, stream)) != 0) return err;
     a.ssh = a.ssh_out, a.h = a.h_out, a.u = a.u_out;
   }
   return 0;
 }
 
+// n_steps steps from `in` into `out`, q per launch. Launch l writes `out`
+// when n_launches - 1 - l is even and `tmp` otherwise, so the last launch
+// lands in `out`, no launch writes the buffers it reads, and `in` is left
+// as it is. `table` and `weights` are host copies of the stencil.
+template <typename T>
+int tiled_steps(const T* f_edge, const T* rts, const int* table, const double* weights,
+                const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out,
+                T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,
+                double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
+                int ct, int q, int hm, int hi, int fb, cudaStream_t stream) {
+  if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
+    return cudaErrorInvalidValue;
+  if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || ny2 % rt || nx % ct || n_steps % q)
+    return cudaErrorInvalidValue;
+  const int kc = step_chunk(k);
+  const int n_ranks = (k + kc - 1) / kc;
+  const int Wm = rt + 2 * hm * q, Wi = ct + 2 * hi * q;
+  const long long sites = static_cast<long long>(Wm) * Wi;
+  StepTaps<T> tp;
+  if (!resolve_taps<T>(&tp, table, weights, Wi, static_cast<int>(sites), kc))
+    return kNotHexTable;
+  const bool vec = vector_loads(k, kc, sizeof(T), h_in, u_in) &&
+                   vector_loads(k, kc, sizeof(T), h_out, u_out) &&
+                   vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
+  const StepArgs<T> a{ssh_in, h_in, u_in, f_edge, rts, nullptr, nullptr, nullptr,
+                      T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, q, hm, hi,
+                      log2_exact(kc),
+                      vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct};
+  const size_t smem = smem_bytes(sites, kc, q, sizeof(T));
+  const int n_tiles = (ny2 / rt) * (nx / ct);
+  auto go = fb ? run<T, true> : run<T, false>;
+  return go(a, tp, smem, n_ranks, n_tiles, n_steps, ssh_out, h_out, u_out, ssh_tmp, h_tmp,
+            u_tmp, stream);
+}
+
 }  // namespace
 
-// Returns 0 or the CUDA error of the first launch that failed
-// (cudaErrorInvalidValue for a plan the lattice or the card does not take).
+// Returns 0, kNotHexTable for a stencil that is not the hex lattice's, or
+// the CUDA error of the first launch that failed (cudaErrorInvalidValue for
+// a plan the lattice or the card does not take).
 #define MOT_TILED_ENTRY(T, SUFFIX)                                                          \
   extern "C" int mot_tiled_steps_##SUFFIX(                                                  \
-      const T* f_edge, const T* rts, const int* table, const T* weights, const T* ssh_in,   \
-      const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp,   \
-      T* u_tmp, double dt, double inv_dc, double s_div, int ny2, int nx, int k,             \
-      int n_steps, int n_terms, int rt, int ct, int q, int hm, int hi, int kc, int fb,      \
-      void* stream) {                                                                       \
+      const T* f_edge, const T* rts, const int* table, const double* weights,               \
+      const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,        \
+      T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,      \
+      int nx, int k, int n_steps, int n_terms, int rt, int ct, int q, int hm, int hi,       \
+      int fb, void* stream) {                                                               \
     return tiled_steps<T>(f_edge, rts, table, weights, ssh_in, h_in, u_in, ssh_out, h_out,  \
                           u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,      \
-                          n_steps, n_terms, rt, ct, q, hm, hi, kc, fb,                      \
+                          n_steps, n_terms, rt, ct, q, hm, hi, fb,                          \
                           static_cast<cudaStream_t>(stream));                               \
   }
 
 MOT_TILED_ENTRY(float, f32)
 MOT_TILED_ENTRY(double, f64)
 
-// How many clusters of a plan (f32, FE) the device holds at once, into *out;
-// returns 0 or the CUDA error.
-extern "C" int mot_tiled_active_clusters(int sites, int kc, int n_ranks, int* out) {
+// The launch of an f32 plan (FE or FB) with a window of `sites` sites and k
+// levels: out[0] the clusters the card holds at once, out[1] the blocks per
+// SM. Returns 0 or the CUDA error.
+extern "C" int mot_tiled_occupancy(int sites, int k, int q, int fb, int* out) {
   int max_smem = 0;
-  const int e = opt_in_smem(&max_smem);
+  int e = opt_in_smem(&max_smem);
   if (e != 0) return e;
-  const size_t smem = smem_bytes(sites, kc, sizeof(float));
+  const int kc = step_chunk(k);
+  const size_t smem = smem_bytes(sites, kc, q, sizeof(float));
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  return active_clusters<float, false>(n_ranks, smem, max_smem, out);
+  auto kernel = fb ? tiled_step_kernel<float, true> : tiled_step_kernel<float, false>;
+  e = fb ? prepare<float, true>(max_smem) : prepare<float, false>(max_smem);
+  if (e != 0) return e;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = step_config((k + kc - 1) / kc, 1, smem, nullptr, attr);
+  cfg.numAttrs = 1;  // the cluster shape only
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&out[0], kernel, &cfg);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, kStepThreads, smem);
+  return static_cast<int>(err);
 }

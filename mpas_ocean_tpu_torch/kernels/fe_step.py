@@ -2,8 +2,10 @@
 which replaces the TPU kernel ``_rollout_kernel``
 (mpas_ocean_tpu/structured/pallas_model.py:320) for the linear periodic core.
 
-The entries take tensors on a CUDA device and launch one kernel per step on
-the current stream; they raise on anything else:
+The entries take tensors on a CUDA device and the stencil on the host
+(``StructMesh.host_stencil``), and launch one kernel per step on the
+current stream, each over tiles of ``fe_tile`` sites; they raise on
+anything else, a stencil that is not the hex lattice's included:
 
 * ``fe_rollout`` returns new state tensors;
 * ``fe_rollout_into`` writes the result into tensors the caller gives;
@@ -29,13 +31,36 @@ __all__ = [
     "fe_fill_stack",
     "fe_rollout",
     "fe_rollout_into",
+    "fe_tile",
+    "host_stencil",
+    "launch_plan",
     "launches",
+    "level_split",
     "pack_stencil",
+    "smem_bytes",
 ]
 
 MAX_TERMS = 128  # kMaxTerms in csrc/lattice.cuh
+# What the forward kernels' entries return for a stencil table that is not
+# the hex lattice's (kNotHexTable in csrc/step_window.cuh)
+NOT_HEX_TABLE = -1
 _HEADER = 44  # kHeader in csrc/lattice.cuh
 _MAX_INDEX = 2**31 - 1  # kMaxIndex in csrc/lattice.cuh
+# Largest dynamic shared memory of one block on an H100 (sm_90), in bytes:
+# the planners' budget; the kernels' entries check it against the device.
+SMEM_BYTES = 232448
+# An H100 SM's shared memory (228 KB), of which the runtime keeps 1 KB per
+# block: two blocks of the forward kernels share an SM when each takes at
+# most TWO_BLOCK_BYTES (their 512 threads at 64 registers allow two).
+SM_SMEM_BYTES = 233472
+TWO_BLOCK_BYTES = SM_SMEM_BYTES // 2 - 1024
+# Most blocks in a thread-block cluster, which split a tile's levels
+# (kMaxCluster in csrc/tiled_window.cuh, the portable maximum).
+MAX_CLUSTER = 8
+_FE_PLANES = 10  # kPlanes in csrc/fe_step.cu
+# The reach of one FE step, (rows, columns) per side: slab.stencil_reach of
+# the hex lattice's tables; csrc/fe_step.cu derives it from the table.
+FE_REACH = (1, 2)
 
 # kernel launches made by this module's entries (one per step)
 launches = 0
@@ -65,10 +90,97 @@ def pack_stencil(terms) -> tuple[np.ndarray, np.ndarray]:
     return table, np.array([t[6] for t in terms], dtype=np.float64)
 
 
+def level_split(k: int) -> tuple[int, int]:
+    """(blocks per cluster, levels per block) of the forward window kernels
+    (``step_chunk`` in csrc/step_window.cuh): the least power of two of
+    levels per block over at most MAX_CLUSTER blocks (16 at K = 100); no
+    block is without levels."""
+    kc = 1
+    while kc * MAX_CLUSTER < k:
+        kc *= 2
+    return -(-k // kc), kc
+
+
+def smem_bytes(tile, k: int, itemsize: int) -> int:
+    """Dynamic shared memory of one fe_step block for a tile (rows, columns)
+    at k levels (``smem_bytes`` in csrc/fe_step.cu): its level chunk of the
+    window's state [8][sites][kc], the window's ssh, f_edge, rts and site
+    indices, and the ranks' partial column sums of the tile's sites."""
+    ranks, kc = level_split(k)
+    hm, hi = FE_REACH
+    sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
+    return (itemsize * (sites * (8 * kc + _FE_PLANES) + ranks * 2 * tile[0] * tile[1])
+            + 4 * sites)
+
+
+def fe_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
+    """fe_step's tile (rows, columns) on a ny2 x nx lattice: among the
+    powers of two up to 64 a side, cut to the lattice, the tile of largest
+    area whose window lets two blocks share an SM (TWO_BLOCK_BYTES), or
+    else fits one block; then the smallest window; then the widest. Tiles
+    need not divide the lattice. On an H100 at 64x64x100 and 256x256x100
+    f32 that is (4, 16): the fastest tile at 64^2 and within 2.5% of the
+    fastest at 256^2, where the best one-block tile took 1.12x as long
+    (PERF.md section 5, tools/tile_sweep.py)."""
+    hm, hi = FE_REACH
+    tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
+    for budget in (TWO_BLOCK_BYTES, SMEM_BYTES):
+        fit = [(rt * ct, -(rt + 2 * hm) * (ct + 2 * hi), ct, rt) for rt, ct in tiles
+               if smem_bytes((rt, ct), k, itemsize) <= budget]
+        if fit:
+            *_, ct, rt = max(fit)
+            return rt, ct
+    raise ValueError(f"no fe_step tile fits {k} levels of {itemsize}-byte values")
+
+
+def host_stencil(table, weights) -> tuple[np.ndarray, np.ndarray, int]:
+    """(int32 table, float64 weights, number of terms) of a stencil given on
+    the host (``pack_stencil``'s arrays, or ``StructMesh.host_stencil``):
+    the forward kernels take it resolved on the host, as kernel
+    parameters."""
+    if not (isinstance(table, np.ndarray) and isinstance(weights, np.ndarray)):
+        raise TypeError("the forward kernels take the stencil table and weights as "
+                        "numpy arrays (StructMesh.host_stencil)")
+    table = np.ascontiguousarray(table, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    n_terms = weights.shape[0]
+    if weights.ndim != 1 or n_terms > MAX_TERMS:
+        raise ValueError(f"coriolis weights must be (n_terms <= {MAX_TERMS},), "
+                         f"got {weights.shape}")
+    if table.shape != (_HEADER + 3 * n_terms,) or table[0] != n_terms:
+        raise ValueError(f"stencil table has shape {table.shape}, expected "
+                         f"({_HEADER + 3 * n_terms},) for {n_terms} terms")
+    return table, weights, n_terms
+
+
+def check_error(name: str, err: int, what: str = "") -> None:
+    """Raise for an entry's nonzero return: ValueError for a stencil that is
+    not the hex lattice's, RuntimeError for a CUDA error."""
+    if err == NOT_HEX_TABLE:
+        raise ValueError(f"{name} takes the hex lattice's stencil table only "
+                         "(csrc/step_window.cuh, hex::); this one does not map so")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}{what}")
+
+
+def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile) -> dict:
+    """The launch fe_step makes for ``tile`` on an f32 ny2 x nx x k lattice
+    with the stencil ``table`` (host copy): its clusters (one per tile) and
+    the blocks one SM holds (CUDA's occupancy calculator)."""
+    fn = build.load().mot_fe_plan
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    table = np.ascontiguousarray(table, dtype=np.int32)
+    check_error("fe_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile,
+                                           ctypes.addressof(out)))
+    return {"clusters": out[0], "blocks_per_sm": out[1]}
+
+
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
-    "steps": [_P] * 13 + [_D] * 3 + [_I] * 5 + [_P],
-    "stack": [_P] * 7 + [_D] * 3 + [_I] * 5 + [_P],
+    "steps": [_P] * 13 + [_D] * 3 + [_I] * 7 + [_P],
+    "stack": [_P] * 7 + [_D] * 3 + [_I] * 7 + [_P],
 }
 
 
@@ -128,71 +240,80 @@ def _consts(h, f_edge, rts, table, weights):
     dtype, device = h.dtype, h.device
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
-    n_terms = check_stencil(table, weights, dtype, device)
-    return (ny2, nx, k), n_terms
+    return (ny2, nx, k), host_stencil(table, weights)
 
 
-def _run(kind, h, tensors, consts, dt, inv_dc, s_div, dims, n_steps, n_terms):
+def _run(kind, h, tensors, f_edge, rts, stencil, scal, dims, n_steps, tile):
     global launches
+    table, weights, n_terms = stencil
+    tile = fe_tile(*dims, h.element_size()) if tile is None else tuple(tile)
+    if smem_bytes(tile, dims[2], h.element_size()) > SMEM_BYTES:
+        raise ValueError(f"an fe_step tile {tile} at {dims[2]} levels needs "
+                         f"{smem_bytes(tile, dims[2], h.element_size())} bytes of shared "
+                         f"memory per block, more than {SMEM_BYTES}")
     fn = _entry(kind, h.dtype)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(*[x.data_ptr() for x in consts], *[x.data_ptr() for x in tensors],
-                 float(dt), float(inv_dc), float(s_div), *dims, n_steps, n_terms, stream)
-    if err != 0:
-        raise RuntimeError(f"fe_step kernel launch failed with CUDA error {err}")
+        err = fn(f_edge.data_ptr(), rts.data_ptr(), table.ctypes.data, weights.ctypes.data,
+                 *[x.data_ptr() for x in tensors], *(float(x) for x in scal), *dims,
+                 n_steps, n_terms, *tile, stream)
+    check_error("fe_step", err, f" (tile {tile})")
     launches += n_steps
 
 
+def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch, tile):
+    if n_steps < 1:
+        raise ValueError("fe_rollout_into takes n_steps >= 1")
+    h = src[1]
+    dims, stencil = _consts(h, f_edge, rts, table, weights)
+    if scratch is None:
+        scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
+    for group, name in ((src, "src"), (out, "out"), (scratch, "scratch")):
+        for x, shape, f in zip(group, state_shapes(*dims), ("ssh", "h", "u")):
+            check_tensor(f"{name} {f}", x, shape, h.dtype, h.device)
+    _run("steps", h, (*src, *out, *scratch), f_edge, rts, stencil, scal, dims, n_steps, tile)
+
+
 def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
-                    dt: float, inv_dc: float, s_div: float, n_steps: int,
-                    scratch=None):
+                    dt: float, inv_dc: float, s_div: float, n_steps: int, scratch=None):
     """n_steps >= 1 forward-Euler steps of the linear core on the card, from
     ``src`` = (ssh, h, u) into ``out`` (same shapes, another buffer), through
     ``scratch`` (allocated here when None and n_steps > 1). ``src`` is left as
     it is.
 
     ssh (2, ny2, nx), h (2, ny2, nx, K), u (3, 2, ny2, nx, K), f_edge
-    (3, 2, ny2, nx), rts (2, ny2, nx) and coriolis_weight (n_terms,) in
-    float32 or float64, contiguous; stencil_table int32 from
-    ``pack_stencil``; the scalars already rounded to the state dtype."""
-    if n_steps < 1:
-        raise ValueError("fe_rollout_into takes n_steps >= 1")
-    h = src[1]
-    dims, n_terms = _consts(h, f_edge, rts, stencil_table, coriolis_weight)
-    if scratch is None:
-        scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
-    for group, name in ((src, "src"), (out, "out"), (scratch, "scratch")):
-        for x, shape, f in zip(group, state_shapes(*dims), ("ssh", "h", "u")):
-            check_tensor(f"{name} {f}", x, shape, h.dtype, h.device)
-    _run("steps", h, (*src, *out, *scratch),
-         (f_edge, rts, stencil_table, coriolis_weight),
-         dt, inv_dc, s_div, dims, n_steps, n_terms)
+    (3, 2, ny2, nx) and rts (2, ny2, nx) in float32 or float64, contiguous,
+    on the card; the stencil on the host (``StructMesh.host_stencil``):
+    stencil_table int32 from ``pack_stencil`` and coriolis_weight
+    (n_terms,), rounded to the state dtype in the kernel; the scalars
+    already rounded to the state dtype. Raises ValueError for a stencil
+    that is not the hex lattice's."""
+    _rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
+                  (dt, inv_dc, s_div), n_steps, scratch, None)
 
 
 def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
                   dt: float, inv_dc: float, s_div: float, n_steps: int):
     """Fill a stack of states on the card: slot j + 1 = one step of slot j
     for j < n_steps. ``stack`` = (ssh (S, 2, ny2, nx), h (S, 2, ny2, nx, K),
-    u (S, 3, 2, ny2, nx, K)) with S > n_steps; slot 0 holds the start."""
+    u (S, 3, 2, ny2, nx, K)) with S > n_steps; slot 0 holds the start. The
+    rest as for ``fe_rollout_into``."""
     ssh, h, u = stack
     if h.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h.shape)}")
-    dims, n_terms = _consts(h[0], f_edge, rts, stencil_table, coriolis_weight)
+    dims, stencil = _consts(h[0], f_edge, rts, stencil_table, coriolis_weight)
     slots = h.shape[0]
     if not 0 <= n_steps < slots:
         raise ValueError(f"{n_steps} steps do not fit a stack of {slots} slots")
     for x, shape, f in zip(stack, state_shapes(*dims), ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), h.dtype, h.device)
-    _run("stack", h, stack, (f_edge, rts, stencil_table, coriolis_weight),
-         dt, inv_dc, s_div, dims, n_steps, n_terms)
+    _run("stack", h, stack, f_edge, rts, stencil, (dt, inv_dc, s_div), dims, n_steps, None)
 
 
-def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
-               dt: float, inv_dc: float, s_div: float, n_steps: int):
-    """n_steps forward-Euler steps of the linear core on the card (shapes as
-    in ``fe_rollout_into``). Returns new (ssh, h, u) tensors; the inputs
-    are left as they are."""
+def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile):
+    """``fe_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
+    ``tile`` (rows, columns) sites, or ``fe_tile``'s for None (the tile
+    sweep and the tests give their own)."""
     lattice_dims(h)
     if n_steps < 0:
         raise ValueError("n_steps must be >= 0")
@@ -200,6 +321,15 @@ def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     if n_steps == 0:
         return tuple(x.clone() for x in src)
     out = tuple(torch.empty_like(x) for x in src)
-    fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
-                    dt, inv_dc, s_div, n_steps)
+    _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, None, tile)
     return out
+
+
+def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
+               dt: float, inv_dc: float, s_div: float, n_steps: int):
+    """n_steps forward-Euler steps of the linear core on the card (arguments
+    as for ``fe_rollout_into``). Returns new (ssh, h, u) tensors; the inputs
+    are left as they are."""
+    return _rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
+                    (dt, inv_dc, s_div), n_steps, None)
+

@@ -20,16 +20,31 @@ import ctypes
 import torch
 
 from . import build
-from .fe_step import MAX_TERMS, check_stencil, check_tensor, lattice_dims, state_shapes
-from .tiled_step import SMEM_BYTES, level_split
+from .fe_step import (
+    MAX_CLUSTER,
+    MAX_TERMS,
+    SMEM_BYTES,
+    check_stencil,
+    check_tensor,
+    lattice_dims,
+    state_shapes,
+)
 
-__all__ = ["launches", "smem_bytes", "tiled_adjoint_rollout", "window_sites"]
+__all__ = ["launches", "level_split", "smem_bytes", "tiled_adjoint_rollout", "window_sites"]
 
 _SMALL_INTS = 64  # kSmallInts in csrc/tiled_window.cuh
 _TAP_BYTES = 16  # sizeof(Tap<T>) in csrc/tiled_window.cuh
 
 # kernel launches made by tiled_adjoint_rollout (one per superstep)
 launches = 0
+
+
+def level_split(k: int) -> tuple[int, int]:
+    """(blocks per cluster, levels per block) of the tiled adjoint kernel:
+    the fewest levels per block over at most MAX_CLUSTER blocks, and no
+    block without levels."""
+    kc = -(-k // MAX_CLUSTER)
+    return -(-k // kc), kc
 
 
 def window_sites(row_tile: int, col_tile: int, q: int, halo) -> int:

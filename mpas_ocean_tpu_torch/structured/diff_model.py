@@ -104,7 +104,7 @@ class _Steps:
             self.scal = _scal(mesh, dt, dtype)
             f_edge = mesh.f_edge.to(dtype).contiguous()
             self.fwd = (f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
-                        mesh.stencil_table, mesh.coriolis_weight.to(dtype))
+                        *mesh.host_stencil)
             self.adj = (f_edge, mesh.adjoint_table, mesh.adjoint_weight.to(dtype))
 
     def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
@@ -360,10 +360,10 @@ def fused_step(state: StructState, mesh: StructMesh, dt) -> StructState:
 # The size rule of auto_rollout_diff on the card: lattices of at least this
 # many sites (2 * ny2 * nx, the cells) take the tiled reverse. Measured on an
 # H100 (chip_smoke.py phase 8, PERF.md section 5), grad of sum(ssh^2) over
-# 100 levels in f32: the tiled reverse took 0.94x the fused one's time at
-# 256^2 and 1.27x at 64^2; at 128^2 the two tied (within 1.5%, inside the
-# spread of three runs), and the fused reverse keeps it.
-TILED_REVERSE_SITES = 256 * 256
+# 100 levels in f32, with the redesigned forward kernels: the tiled reverse took
+# 0.91-0.92x the fused one's time at 256^2, 0.96x at 128^2 (two runs; its
+# kernel 4-5% faster per launch there) and 1.37x at 64^2.
+TILED_REVERSE_SITES = 128 * 128
 
 
 def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,

@@ -46,8 +46,7 @@ def fused_run_loop(
         state.ssh, state.layer_thickness, state.normal_velocity,
         mesh.f_edge.to(dtype).contiguous(),
         mesh.resting_thickness_sum.to(dtype).contiguous(),
-        mesh.stencil_table, mesh.coriolis_weight.to(dtype),
-        *_scal(mesh, dt, dtype), n_steps,
+        *mesh.host_stencil, *_scal(mesh, dt, dtype), n_steps,
     )
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 

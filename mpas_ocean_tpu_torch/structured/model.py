@@ -73,6 +73,9 @@ class StructMesh:
     # the same for its transpose, which the adjoint kernel reads
     adjoint_table: torch.Tensor
     adjoint_weight: torch.Tensor
+    # (stencil_table as int32, coriolis_weight as float64) in numpy: the
+    # forward kernels take the stencil from the host (kernels/fe_step)
+    host_stencil: tuple
 
     def to(self, device) -> "StructMesh":
         return StructMesh(
@@ -89,6 +92,7 @@ class StructMesh:
             coriolis_weight=self.coriolis_weight.to(device),
             adjoint_table=self.adjoint_table.to(device),
             adjoint_weight=self.adjoint_weight.to(device),
+            host_stencil=self.host_stencil,
         )
 
 
@@ -112,6 +116,11 @@ def packed_stencils(terms, dtype) -> dict:
     }
 
 
+def _host_stencil(packed: dict) -> tuple:
+    """StructMesh.host_stencil from ``packed_stencils``' arrays."""
+    return packed["stencil_table"], packed["coriolis_weight"].astype(np.float64)
+
+
 def struct_mesh_from_numpy(d: dict) -> StructMesh:
     """StructMesh from a dict of the JAX StructMesh's fields (arrays as
     numpy, the rest as given), bit for bit; the kernels' stencil tables are
@@ -125,6 +134,7 @@ def struct_mesh_from_numpy(d: dict) -> StructMesh:
         coriolis_terms=terms,
         **{k: torch.from_numpy(v) for k, v in packed.items()},
         **{k: torch.from_numpy(np.array(d[k])) for k in _MESH_ARRAYS},
+        host_stencil=_host_stencil(packed),
     )
 
 
@@ -310,9 +320,12 @@ class StructuredModel(nn.Module):
         buf("area_cell", dtype.type(area[0]))
         buf("f_edge", lay.edges_to_struct(np.asarray(horz.edges.f)))
         buf("rts", lay.cells_to_struct(np.asarray(vert.resting_thickness_sum)))
-        # the kernels' device copies of the Coriolis stencil and its transpose
-        for name, a in packed_stencils(self.coriolis_terms, dtype).items():
+        # the kernels' device copies of the Coriolis stencil and its
+        # transpose, and the forward kernels' host copy
+        packed = packed_stencils(self.coriolis_terms, dtype)
+        for name, a in packed.items():
             buf(name, a)
+        self.host_stencil = _host_stencil(packed)
 
     @property
     def struct_mesh(self) -> StructMesh:
@@ -331,6 +344,7 @@ class StructuredModel(nn.Module):
             coriolis_weight=self.coriolis_weight,
             adjoint_table=self.adjoint_table,
             adjoint_weight=self.adjoint_weight,
+            host_stencil=self.host_stencil,
         )
 
     def to_struct(self, prog: PrognosticVars) -> StructState:

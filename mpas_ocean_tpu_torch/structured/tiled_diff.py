@@ -42,7 +42,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..kernels import tiled_adjoint, tiled_step
+from ..kernels import tiled_adjoint
 from . import fused_model
 from .diff_model import (
     _default_budget,
@@ -88,7 +88,7 @@ def adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
     chunk of q primal states and min(q, 2) cotangents over the window of
     2q - 1 halos per side, and the window's planes without levels
     (csrc/tiled_adjoint.cu: ``smem_bytes``)."""
-    _, kc = tiled_step.level_split(k)
+    _, kc = tiled_adjoint.level_split(k)
     sites = tiled_adjoint.window_sites(row_tile, col_tile, q, halo)
     return tiled_adjoint.smem_bytes(sites, kc, q, itemsize)
 
@@ -102,7 +102,7 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
     ``group`` supersteps per checkpoint group from ``diff_model.adjoint_plan``
     over n / q supersteps within ``budget`` bytes."""
     rt, ct, q = resolve_plan(ny2, nx, k, itemsize, halo, n_steps, row_tile, col_tile, q,
-                             window=adjoint_window_bytes)
+                             window=adjoint_window_bytes, budgets=(tiled_adjoint.SMEM_BYTES,))
     state_bytes = itemsize * 2 * ny2 * nx * (1 + 4 * k)
     group = adjoint_plan(n_steps // q, state_bytes, budget) if n_steps else 1
     return rt, ct, q, group
@@ -157,6 +157,10 @@ class _TiledSteps(_Steps):
         super().__init__(mesh, dt, like)
         self.rt, self.ct, self.q, _ = plan
         self.halo = reverse_halo(mesh.coriolis_terms)
+        if self.cuda:  # the tiled adjoint kernel reads the stencil on the card
+            dtype = like.dtype
+            self.tiled_adj = (*self.fwd[:2], mesh.stencil_table,
+                              mesh.coriolis_weight.to(dtype), *self.adj[1:])
 
     def fill(self, stack: StructState, n: int):
         """Slot j + 1 = q steps of slot j, for j < n."""
@@ -173,7 +177,7 @@ class _TiledSteps(_Steps):
         from the cotangent g at the end into out; d(dt) is added to ddt."""
         if self.cuda:
             tiled_adjoint.tiled_adjoint_rollout(
-                _fields(stack), _fields(g), *self.fwd, *self.adj[1:], *self.scal, n, ddt,
+                _fields(stack), _fields(g), *self.tiled_adj, *self.scal, n, ddt,
                 _fields(out), _fields(scratch), row_tile=self.rt, col_tile=self.ct,
                 q=self.q, halo=self.halo)
             return

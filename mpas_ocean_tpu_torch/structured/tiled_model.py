@@ -43,62 +43,74 @@ __all__ = [
 
 
 def window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int, itemsize: int) -> int:
-    """Shared memory of one block of the tiled kernel: two copies of its
-    level chunk of the window (2 h planes + 6 u channels), the window's ssh
-    (two copies), column partial sums (two), f_edge, rts, its lattice sites
-    and the stencil tables (csrc/tiled_step.cu: ``smem_bytes``)."""
+    """Shared memory of one block of the tiled kernel: its level chunk of
+    the window (2 h planes + 6 u channels), one copy at q = 1 and two at
+    q > 1, the window's ssh (two copies), column partial sums (two), f_edge,
+    rts and its lattice sites (csrc/tiled_step.cu: ``smem_bytes``)."""
     hm, hi = halo
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
     _, kc = tiled_step.level_split(k)
-    return tiled_step.smem_bytes(sites, kc, itemsize)
+    return tiled_step.smem_bytes(sites, kc, q, itemsize)
 
 
 def _divisors(n: int) -> list[int]:
     return [d for d in range(1, n + 1) if n % d == 0]
 
 
-def _fits(rt, ct, q, halo, ny2, nx, k, itemsize, window) -> bool:
+# shared-memory budgets of the forward kernel's tile, in order of preference:
+# two blocks per SM, then one
+FORWARD_BUDGETS = (tiled_step.TWO_BLOCK_BYTES, tiled_step.SMEM_BYTES)
+
+
+def _fits(rt, ct, q, halo, ny2, nx, k, itemsize, window, budget) -> bool:
     hm, hi = halo
     return (rt + 2 * hm * q <= ny2 and ct + 2 * hi * q <= nx
-            and window(rt, ct, q, halo, k, itemsize) <= tiled_step.SMEM_BYTES)
+            and window(rt, ct, q, halo, k, itemsize) <= budget)
 
 
-def _best_tile(ny2, nx, k, itemsize, halo, q, window=window_bytes):
+def _best_tile(ny2, nx, k, itemsize, halo, q, window=window_bytes,
+               budgets=FORWARD_BUDGETS):
     """The tile of largest area whose ``window`` (one block's shared memory)
-    fits at this q; among those, the one with the smallest window, then the
-    widest. None if no tile fits."""
+    fits the first of ``budgets`` that any tile fits at this q; among
+    those, the one with the smallest window, then the widest. None if no
+    tile fits."""
     hm, hi = halo
-    tiles = [(rt * ct, -(rt + 2 * hm * q) * (ct + 2 * hi * q), ct, rt)
-             for rt in _divisors(ny2) for ct in _divisors(nx)
-             if _fits(rt, ct, q, halo, ny2, nx, k, itemsize, window)]
-    if not tiles:
-        return None
-    *_, ct, rt = max(tiles)
-    return rt, ct
+    for budget in budgets:
+        tiles = [(rt * ct, -(rt + 2 * hm * q) * (ct + 2 * hi * q), ct, rt)
+                 for rt in _divisors(ny2) for ct in _divisors(nx)
+                 if _fits(rt, ct, q, halo, ny2, nx, k, itemsize, window, budget)]
+        if tiles:
+            *_, ct, rt = max(tiles)
+            return rt, ct
+    return None
 
 
 def tile_plan(ny2: int, nx: int, k: int, itemsize: int, reach, n_steps: int):
     """(row_tile, col_tile, q) for a lattice of ny2 x nx sites and k levels,
     ``reach`` the per-step halo (rows, columns) of ``slab.stencil_reach``:
-    q = 1, which divides every n_steps, and the largest tile that fits
+    q = 1, which divides every n_steps, and the largest tile whose window
+    lets two blocks share an SM, else the largest that fits one
     (``_best_tile``). Measured on an H100 at 256x256x100 and 64x64x100 f32
-    (PERF.md, tools/tile_sweep.py), no q = 2 or 4 plan was the fastest, FE
-    or FB: the kernel is not bound by bytes, so the halo rings that
-    temporal blocking recomputes cost more than the state passes it saves.
-    The largest tile was the fastest FB plan at 256x256 and within 7% of
-    the fastest at 64x64."""
+    (PERF.md section 5, tools/tile_sweep.py): the rule's FB (8, 8, 1) and FE
+    (4, 16, 1) were the fastest plans or within 1.1% of them, and the best
+    one-block plans took 1.04-1.52x as long; q = 2 took 1.47-2.39x as long
+    as q = 1 (the kernel is far from its byte bound, so the halo rings that
+    temporal blocking recomputes cost more than the state passes it saves),
+    and no q = 4 window fits."""
     tile = _best_tile(ny2, nx, k, itemsize, reach, 1)
     return (*(tile or (1, 1)), 1)
 
 
 def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
-                 row_tile=None, col_tile=None, q=None, window=window_bytes):
+                 row_tile=None, col_tile=None, q=None, window=window_bytes,
+                 budgets=FORWARD_BUDGETS):
     """The plan ``tiled_run_loop`` runs: the caller's choices completed by
     ``tile_plan``, q lowered until it divides n_steps, and the reach*q clamp
     of pallas_tiled_run_loop (pallas_model.py:1372-1384) applied to rows
     against ny2 and to columns against nx. ``window`` gives one block's
-    shared memory for a plan (the tiled adjoint passes its own). Raises
-    ValueError for a tile that does not divide the lattice."""
+    shared memory for a plan and ``budgets`` the budgets ``_best_tile``
+    tries (the tiled adjoint passes its own). Raises ValueError for a tile
+    that does not divide the lattice."""
     hm, hi = halo
     if q is None:
         _, _, q = tile_plan(ny2, nx, k, itemsize, halo, n_steps)
@@ -106,7 +118,7 @@ def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
     while n_steps % q:
         q -= 1
     if row_tile is None or col_tile is None:
-        rt, ct = _best_tile(ny2, nx, k, itemsize, halo, q, window) or (1, 1)
+        rt, ct = _best_tile(ny2, nx, k, itemsize, halo, q, window, budgets) or (1, 1)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
     if ny2 % row_tile:
@@ -216,8 +228,7 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
         state.ssh, state.layer_thickness, state.normal_velocity,
         mesh.f_edge.to(dtype).contiguous(),
         mesh.resting_thickness_sum.to(dtype).contiguous(),
-        mesh.stencil_table, mesh.coriolis_weight.to(dtype),
-        *fused_model._scal(mesh, dt, dtype), n_steps,
+        *mesh.host_stencil, *fused_model._scal(mesh, dt, dtype), n_steps,
         row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb,
     )
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)

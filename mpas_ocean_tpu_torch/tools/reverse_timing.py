@@ -1,0 +1,107 @@
+"""Time the two reverse kernels per launch on the card, by device time, to
+compare two checkouts of the package.
+
+    python -m mpas_ocean_tpu_torch.tools.reverse_timing [--sizes 64 256] [--group 40]
+
+For each lattice size (n x n cells, 100 levels, f32, the inertial-gravity
+wave at dt = 30 s) it fills a stack of ``group`` primal states through
+``structured_auto_run_loop`` (an entry whose arguments every checkout
+shares), then times one call of ``adjoint_step.adjoint_rollout`` and one of
+``tiled_adjoint.tiled_adjoint_rollout`` (the planner's plan) over that
+stack by ``held_us``, the timer chip_smoke.py's phase 8 uses too. Prints
+one JSON line with the µs per launch of every rep, the card and the
+package's path. To compare two checkouts of the package on one card, run
+this file against each in turn:
+
+    PYTHONPATH=<checkout> python <checkout under test>/mpas_ocean_tpu_torch/tools/reverse_timing.py
+
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+import mpas_ocean_tpu_torch
+from mpas_ocean_tpu_torch.kernels import adjoint_step, tiled_adjoint
+from mpas_ocean_tpu_torch.structured import structured_auto_run_loop, tiled_adjoint_plan
+from mpas_ocean_tpu_torch.structured.fused_model import _scal
+from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
+from mpas_ocean_tpu_torch.tools.tile_sweep import DT, LEVELS, igw_lattice
+
+REPS = 5
+# clock cycles the stream sleeps before each timed call (tens of ms on an
+# H100, far more than the host needs to queue one call)
+HOLD_CYCLES = 50_000_000
+
+
+def held_us(run, n_launches: int, reps: int = REPS) -> list[float]:
+    """Device µs per launch of run(), ``reps`` times after a warm-up call,
+    each timed by CUDA events behind a sleep kernel that holds the stream
+    until the host has queued all of run(): the time is the device's, not
+    the wrapper's set-up (which takes about as long as a 64x64 launch)."""
+    run()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) * 1e3 / n_launches)
+    return out
+
+
+def time_size(n: int, group: int) -> dict:
+    model, st = igw_lattice(n)
+    sm = model.struct_mesh
+    scal = _scal(sm, DT, torch.float32)
+    fields = (st.ssh, st.layer_thickness, st.normal_velocity)
+    stack = tuple(torch.empty((group, *x.shape), dtype=x.dtype, device=x.device)
+                  for x in fields)
+    state = st
+    for j in range(group):
+        for dst, x in zip(stack, (state.ssh, state.layer_thickness, state.normal_velocity)):
+            dst[j].copy_(x)
+        state = structured_auto_run_loop(state, sm, DT, 1)
+    gen = torch.Generator(device=st.ssh.device).manual_seed(15)
+    g_in = tuple(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+                 for x in fields)
+    acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
+    halo = reverse_halo(sm.coriolis_terms)
+    rt, ct, q, _ = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, group, halo=halo)
+    fused = held_us(lambda: adjoint_step.adjoint_rollout(
+        stack, g_in, sm.f_edge, sm.adjoint_table, sm.adjoint_weight, *scal, group, acc),
+        group)
+    tiled = held_us(lambda: tiled_adjoint.tiled_adjoint_rollout(
+        stack, g_in, sm.f_edge, sm.resting_thickness_sum, sm.stencil_table,
+        sm.coriolis_weight, sm.adjoint_table, sm.adjoint_weight, *scal, group // q, acc,
+        row_tile=rt, col_tile=ct, q=q, halo=halo), group // q)
+    return {"n": n, "group": group, "tiled_plan": [rt, ct, q], "adjoint_step_us": fused,
+            "tiled_adjoint_us": tiled}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sizes", type=int, nargs="+", default=[64, 256])
+    ap.add_argument("--group", type=int, default=40)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("reverse_timing needs a CUDA device")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=False).stdout.strip()
+    sizes = [time_size(n, args.group) for n in args.sizes]
+    print(json.dumps({"package": mpas_ocean_tpu_torch.__file__, "gpu": gpu, "sizes": sizes}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

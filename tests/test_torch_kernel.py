@@ -10,9 +10,14 @@ import torch
 
 import mpas_ocean_tpu_torch as mt
 from mpas_ocean_tpu_torch.kernels import fe_step
-from mpas_ocean_tpu_torch.structured import fused_run_loop, structured_run_loop
+from mpas_ocean_tpu_torch.structured import fused_model, fused_run_loop, structured_run_loop
 
-from torch_gpu_cases import FIELDS, cuda, random_lattice  # noqa: F401 (fixture)
+from torch_gpu_cases import (  # noqa: F401 (fixture)
+    FIELDS,
+    cuda,
+    random_lattice,
+    reversed_terms_mesh,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -41,6 +46,52 @@ def test_kernel_matches_plain_f64(cuda, shape, dc, n_steps):
         assert err <= 1e-12, (f, err)
 
 
+@pytest.mark.parametrize("shape, tile, dc", [
+    ((16, 16, 4), (3, 5), 1e3),      # ragged tiles in both directions (ny2 = 8, nx = 16)
+    ((16, 16, 20), (2, 16), 1e3),    # chunks of 4 levels, 16-byte copies of f64 pairs
+    ((8, 8, 4), (4, 8), 1e3),        # one tile: its 6 x 12 window wraps over the 4 x 8 lattice
+    ((10, 12, 33), (4, 4), 1e3),     # K * 8 bytes not a multiple of 16: one value per copy
+    ((16, 16, 100), (4, 16), 1e3),   # the main path's chunk of 16 levels
+    ((8, 8, 300), (1, 3), 1e5),      # chunks of 64 levels
+])
+def test_kernel_tiles_match_plain_f64(cuda, shape, tile, dc):
+    """fe_step's tiles at the lattice's edge and wider than it, 5 steps,
+    f64: 1e-12 of each field's scale against the plain version, and a
+    rerun bitwise equal (the column sums run in a fixed order). K = 300 at
+    100 km spacing, as in test_kernel_matches_plain_f64."""
+    model, st = random_lattice(*shape, cuda, seed=3, dc=dc)
+    sm = model.struct_mesh
+    args = (st.ssh, st.layer_thickness, st.normal_velocity, sm.f_edge,
+            sm.resting_thickness_sum, *sm.host_stencil,
+            fused_model._scal(sm, 10.0, torch.float64), 5, tile)
+    out = fe_step._rollout(*args)
+    again = fe_step._rollout(*args)
+    ref = structured_run_loop(st, sm, 10.0, 5)
+    torch.cuda.synchronize()
+    column = (ref.ssh + sm.resting_thickness_sum).abs().max()
+    for a, b, f in zip(out, (getattr(ref, f) for f in FIELDS), FIELDS):
+        scale = column if f == "ssh" else b.abs().max()
+        err = float((a.reshape(b.shape) - b).abs().max() / scale)
+        assert err <= 1e-12, (f, err)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+
+
+def test_kernel_refuses_a_table_that_is_not_the_hex_lattices(cuda):
+    """fe_step takes the hex lattice's stencil table only
+    (csrc/step_window.cuh, hex::): the same stencil with each channel's
+    terms in reverse order raises ValueError before any launch."""
+    model, st = random_lattice(16, 16, 20, cuda, seed=4)
+    sm = reversed_terms_mesh(model.struct_mesh)
+    assert not torch.equal(sm.stencil_table, model.struct_mesh.stencil_table)
+    fe_step.launches = 0
+    with pytest.raises(ValueError, match="hex lattice"):
+        fused_run_loop(st, sm, 10.0, 5)
+    with pytest.raises(ValueError, match="hex lattice"):
+        fe_step.launch_plan(sm.host_stencil[0], sm.ny2, sm.nx, 20, (4, 16))
+    assert fe_step.launches == 0
+
+
 def test_kernel_counts_launches_and_keeps_inputs(cuda):
     model, st = random_lattice(16, 16, 4, cuda)
     before = [getattr(st, f).clone() for f in FIELDS]
@@ -62,6 +113,6 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         fe_step.fe_rollout(
             st.ssh, st.layer_thickness, st.normal_velocity[:, :, :-1],
-            sm.f_edge, sm.resting_thickness_sum, sm.stencil_table,
-            sm.coriolis_weight, 10.0, 1e-3, 1e-3, 1,
+            sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+            10.0, 1e-3, 1e-3, 1,
         )

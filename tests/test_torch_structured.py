@@ -164,8 +164,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fe_step.fe_rollout(
             state.ssh, state.layer_thickness, state.normal_velocity,
-            mesh.f_edge, mesh.resting_thickness_sum, mesh.stencil_table,
-            mesh.coriolis_weight, 10.0, 1e-3, 1e-3, 1,
+            mesh.f_edge, mesh.resting_thickness_sum, *mesh.host_stencil,
+            10.0, 1e-3, 1e-3, 1,
         )
     with pytest.raises(ValueError, match="no rollout"):
         fused_run_loop(StructState(
@@ -182,3 +182,4 @@ def test_containers_move_with_to():
               "stencil_table", "coriolis_weight"):
         assert getattr(moved_mesh, f).device.type == "meta"
     assert moved_mesh.coriolis_terms == mesh.coriolis_terms
+    assert moved_mesh.host_stencil is mesh.host_stencil  # the forward kernels' host copy

@@ -297,7 +297,7 @@ def _walk_tiled_adjoint_launch(ssh, h, u, gs, gh, gu, f, rts, table, w, adj_tabl
     (6, ny2, nx), rts (2, ny2, nx). Returns (ds, dh, du, d(dt))."""
     _, ny2, nx, k = h.shape
     hm, hi = halo
-    ranks, kc = tiled_step.level_split(k)
+    ranks, kc = tiled_adjoint.level_split(k)
     span = 2 * q - 1
     wm, wi = rt + 2 * hm * span, ct + 2 * hi * span
     nbr, inc, off = table[1:19].reshape(6, 3), table[19:37].reshape(6, 3), table[37:44]

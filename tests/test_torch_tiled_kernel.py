@@ -5,6 +5,7 @@ so on a GPU machine without JAX they run with
     python -m pytest --noconftest -m gpu tests/test_torch_tiled_kernel.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,8 +16,14 @@ from mpas_ocean_tpu_torch.structured import (
     tiled_model,
     tiled_run_loop,
 )
+from mpas_ocean_tpu_torch.structured.slab import stencil_reach
 
-from torch_gpu_cases import FIELDS, random_lattice
+from torch_gpu_cases import (  # noqa: F401 (fixture)
+    FIELDS,
+    cuda,
+    random_lattice,
+    reversed_terms_mesh,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -57,6 +64,55 @@ def test_kernel_matches_plain_f64(lattice64, fb, q, tile):
     torch.cuda.synchronize()
     for f, err in _rel_errors(out, ref, sm.resting_thickness_sum).items():
         assert err <= 1e-12, (f, err)
+
+
+# (dtype, levels, FE or FB, q, tile): chunks of 16 levels (K = 100, the main
+# path's: 6 x 16 + 4) and of 4 levels (K = 22: 5 x 4 + 2), so the last
+# chunk is short, at q = 1, 2 and 4 where the window fits
+CHUNK_CASES = [
+    (np.float32, 100, False, 1, (8, 16)), (np.float32, 100, True, 1, (8, 16)),
+    (np.float32, 100, False, 2, (4, 8)), (np.float32, 100, True, 2, (2, 4)),
+    (np.float32, 100, False, 4, (1, 4)),
+    (np.float64, 22, False, 1, (4, 8)), (np.float64, 22, True, 1, (4, 8)),
+    (np.float64, 22, False, 2, (4, 8)), (np.float64, 22, True, 2, (4, 8)),
+    (np.float64, 22, False, 4, (2, 4)), (np.float64, 22, True, 4, (1, 2)),
+]
+
+
+@pytest.mark.parametrize("dtype, k, fb, q, tile", CHUNK_CASES)
+def test_kernel_level_chunks_match_plain(cuda, dtype, k, fb, q, tile):
+    """32 x 64 lattice (ny2 = 32, nx = 32) at 100 km spacing, 8 steps
+    against the plain version with the same plan: f64 to 1e-12 of each
+    field's scale; f32 to PERF.md section 2's bounds (ssh and h 1e-5, u
+    3e-4: the column sums run in another order). At 1 km spacing and
+    dt = 10 s a gravity wave crosses a cell per step, and forward Euler
+    grows the f32 rounding past those bounds within 8 steps."""
+    model, st = random_lattice(32, 64, k, cuda, seed=5, dtype=dtype, dc=1e5)
+    sm = model.struct_mesh
+    rt, ct = tile
+    halo = stencil_reach(sm.coriolis_terms, fb)
+    assert tiled_model.resolve_plan(sm.ny2, sm.nx, k, st.layer_thickness.element_size(),
+                                    halo, 8, rt, ct, q) == (rt, ct, q)
+    out = tiled_run_loop(st, sm, 10.0, 8, row_tile=rt, col_tile=ct, q=q, fb=fb)
+    ref = tiled_model.plain_tiled_rollout(st, sm, 10.0, 8, rt, ct, q, fb)
+    torch.cuda.synchronize()
+    tol = (dict.fromkeys(FIELDS, 1e-12) if dtype == np.float64 else
+           {"ssh": 1e-5, "layer_thickness": 1e-5, "normal_velocity": 3e-4})
+    for f, err in _rel_errors(out, ref, sm.resting_thickness_sum).items():
+        assert err <= tol[f], (f, err)
+
+
+@pytest.mark.parametrize("fb, q", [(False, 1), (True, 1), (True, 2)])
+def test_kernel_refuses_a_table_that_is_not_the_hex_lattices(lattice64, fb, q):
+    """tiled_step takes the hex lattice's stencil table only
+    (csrc/step_window.cuh, hex::): the same stencil with each channel's
+    terms in reverse order raises ValueError before any launch."""
+    model, st = lattice64
+    sm = reversed_terms_mesh(model.struct_mesh)
+    tiled_step.launches = 0
+    with pytest.raises(ValueError, match="hex lattice"):
+        tiled_run_loop(st, sm, 10.0, 8, row_tile=4, col_tile=8, q=q, fb=fb)
+    assert tiled_step.launches == 0
 
 
 @pytest.mark.parametrize("fb", [False, True])
@@ -101,6 +157,6 @@ def test_kernel_rejects_a_plan_that_does_not_fit(lattice64):
     with pytest.raises(ValueError, match="shared memory"):
         tiled_step.tiled_rollout(
             st.ssh, st.layer_thickness, st.normal_velocity, sm.f_edge,
-            sm.resting_thickness_sum, sm.stencil_table, sm.coriolis_weight,
+            sm.resting_thickness_sum, *sm.host_stencil,
             10.0, 1e-3, 1e-3, 4, row_tile=32, col_tile=64, q=4, halo=(2, 2),
         )
