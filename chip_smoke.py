@@ -65,18 +65,18 @@ LARGE_ADJ_STEPS = max(10, HEADLINE_STEPS // 80)
 LARGE_MAIN_STEPS, TILED_CHECK_STEPS = HEADLINE_STEPS // 8, 100
 REPS = 3
 
-# Earlier per-launch times, f32, on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md), printed beside this run's: the forward kernels' first designs,
-# and the two reverse kernels, which share their headers, as they were
-# before the forward kernels' redesign, by the same held-stream timer as
-# phase 8's (tools/reverse_timing.py, median of four runs).
+# Earlier times, f32, on an NVIDIA H100 80GB HBM3 at 700 W, printed beside
+# this run's: the kernels and grads as they were before the reverse kernels'
+# redesign (PERF.md): the forward kernels per step by CUDA events, the
+# reverse kernels per launch by the held-stream timer of phases 6 and 8
+# (tools/reverse_timing.py).
 EARLIER_US = {
-    "fe_step 64": 27.817, "fe_step 256": 399.454,
-    "tiled_step FB 64": 59.022, "tiled_step FB 256": 553.694,
-    "adjoint_step 64": 38.133, "adjoint_step 256": 654.212,
-    "tiled_adjoint 64": 62.687, "tiled_adjoint 256": 552.090,
+    "fe_step 64": 13.943, "fe_step 256": 184.883,
+    "tiled_step FB 64": 19.931, "tiled_step FB 256": 276.334,
+    "adjoint_step 64": 38.24, "adjoint_step 128": 165.29, "adjoint_step 256": 652.89,
+    "tiled_adjoint 64": 62.72, "tiled_adjoint 128": 154.63, "tiled_adjoint 256": 553.12,
 }
-EARLIER_GRAD_S = {64: 0.37974, 256: 0.136373}
+EARLIER_GRAD_S = {64: 0.273416, 256: 0.0939624}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM
 # bytes/s, and non-tensor-core FLOP/s per dtype itemsize.
@@ -242,9 +242,8 @@ def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int
     a state; per cell-level it does 24 flux/update operations, 4 per owned
     edge for u and 3 per Coriolis tap (1.5 n_terms). adjoint_step reads a
     primal state, a cotangent, f_edge and the table and writes a cotangent
-    and one d(dt) share per column; per cell-level it does 20 operations per
-    owned edge plus 2 per transposed tap (n_terms), 6 per incoming edge
-    and 3 for dh."""
+    and d(dt); per cell-level it does 20 operations per owned edge plus 2
+    per transposed tap (n_terms), 6 per incoming edge and 3 for dh."""
     cells = 2 * ny2 * nx
     state = cells * (1 + 4 * k)
     table = 4 * (44 + 3 * n_terms) + itemsize * n_terms
@@ -252,7 +251,7 @@ def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int
         nbytes = itemsize * (2 * state + 4 * cells) + table
         ops = cells * k * (36 + 1.5 * n_terms)
     else:
-        nbytes = itemsize * (3 * state + 4 * cells) + table
+        nbytes = itemsize * (3 * state + 3 * cells) + 8 + table
         ops = cells * k * (81 + n_terms)
     t_bytes, t_ops = nbytes / HBM_RATE, ops / PEAK_FLOPS[itemsize]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -620,6 +619,15 @@ def profile_line(by_kernel: dict, window_us: float, gpu: str) -> str:
             + f"; device busy {busy_us:.0f} us, idle share {1 - busy_us / window_us:.4f} [{gpu}]")
 
 
+def ddt_line(by_kernel: dict) -> str:
+    """ddt_reduce's device time in a traced grad and its share of the
+    device's busy time."""
+    busy_us = sum(t for t, _ in by_kernel.values())
+    t, c = by_kernel.get("ddt_reduce", (0.0, 0))
+    return (f"ddt_reduce {t:.1f} us in {c} launches, {t / busy_us:.5f} of the device's busy "
+            f"time")
+
+
 def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
     """Phase 8, the tiled reverse: the tiled adjoint kernel against its plain
     version (f64 16^2 and 64^2 random states at q = 1 and 2 over tiles that
@@ -798,13 +806,13 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
         acc = torch.zeros(1, dtype=torch.float64, device=st.layer_thickness.device)
         if kernel == "adjoint_step":
             run = lambda: adjoint_step.adjoint_rollout(
-                stack, g_in, sm.f_edge, sm.adjoint_table, sm.adjoint_weight, *scal, group, acc)
+                stack, g_in, sm.f_edge, *sm.host_adjoint_stencil, *scal, group, acc)
         else:
             rt, ct, q, _ = plan_of(st, sm, group)
             run = lambda: tiled_adjoint.tiled_adjoint_rollout(
-                stack, g_in, sm.f_edge, sm.resting_thickness_sum, sm.stencil_table,
-                sm.coriolis_weight, sm.adjoint_table, sm.adjoint_weight, *scal, group, acc,
-                row_tile=rt, col_tile=ct, q=q, halo=reverse_halo(sm.coriolis_terms))
+                stack, g_in, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+                *sm.host_adjoint_stencil, *scal, group, acc, row_tile=rt, col_tile=ct, q=q,
+                halo=reverse_halo(sm.coriolis_terms))
         return [t / 1e6 for t in held_us(run, group, REPS)]
 
     _, _, model_m, prog_m = igw_case(128, LEVELS, np.float32)
@@ -837,6 +845,9 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
     counts = (fe_step.launches, tiled_adjoint.launches, adjoint_step.launches)
     n_ss = n // plan_l[2]
     want = (2 * n - plan_l[2] * -(-n_ss // plan_l[3]), n_ss, 0)
+    occ = tiled_adjoint.occupancy(*plan_l[:3], reverse_halo(sm_l.coriolis_terms), LEVELS)
+    log(f"[8] tiled_adjoint plan {plan_l[:3]}: {occ[0]} bytes of shared memory per block, "
+        f"{occ[1]} blocks of 512 threads per SM (occupancy query)")
     log(f"[8] main path: grad of sum(ssh^2) through tiled_rollout_diff, {LARGE_N}x{LARGE_N}x"
         f"{LEVELS} f32, {n} steps, plan {plan_l}: {wall:.3f} s wall (to_struct .. grad) "
         f"[{gpu}]; launches fe_step {counts[0]}, "
@@ -863,6 +874,7 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
         ("fe_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
     log(f"[8] profiler, one tiled grad ({window_us:.0f} us by events): "
         + profile_line(by_kernel, window_us, gpu))
+    log(f"[8] {ddt_line(by_kernel)}")
 
     # the size rule: the same 256^2 grad through the fused reverse, the
     # 64^2 4000-step grad through the tiled one (phase 6 ran it fused), and
@@ -1227,7 +1239,7 @@ def main() -> int:
     # inside a group of the main path's length, and one launch alone
     state_bytes = sum(x.numel() * x.element_size() for x in fields(st))
     group = adjoint_plan(GRAD_STEPS, state_bytes, math.inf)
-    f_edge, adj_tab, adj_w = sm.f_edge, sm.adjoint_table, sm.adjoint_weight
+    f_edge, (adj_tab, adj_w) = sm.f_edge, sm.host_adjoint_stencil
     scal = _scal(sm, DT, torch.float32)
     stack = tuple(torch.empty((group, *x.shape), dtype=x.dtype, device=dev)
                   for x in fields(st))
@@ -1252,10 +1264,16 @@ def main() -> int:
         return gg
 
     _, pa_times = timed_rollout(plain_adj, PLAIN_ADJ_STEPS, REPS)
+    tile_a = adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4)
+    plan_a = adjoint_step.launch_plan(adj_tab, sm.ny2, sm.nx, LEVELS, tile_a)
+    log(f"[6] adjoint_step tile {tile_a}: {plan_a['clusters']} clusters, "
+        f"{plan_a['blocks_per_sm']} blocks of 512 threads per SM, {plan_a['smem_bytes']} bytes "
+        f"of shared memory per block (occupancy query)")
     log(f"[6] adjoint_step per step, {HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32: device time in a "
         f"{group}-step call {spread(ka_times, 1e6, 'us')}; one call of 1 step (kernel, "
         f"d(dt) sum, host) {spread(k1_times, 1e6, 'us')}; plain "
-        f"{spread(pa_times, 1e6, 'us')} [{gpu}]")
+        f"{spread(pa_times, 1e6, 'us')}; earlier {EARLIER_US['adjoint_step 64']:.3f} us, now x"
+        f"{statistics.median(ka_times) * 1e6 / EARLIER_US['adjoint_step 64']:.4f} [{gpu}]")
 
     # the slice at full width: grad of sum(ssh_final^2) over 4000 steps
     def grad_run(st, sm, n_steps):
@@ -1295,6 +1313,7 @@ def main() -> int:
         ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce"))
     log(f"[6] profiler, one grad ({window_us:.0f} us by events): "
         + profile_line(by_kernel, window_us, gpu))
+    log(f"[6] {ddt_line(by_kernel)}")
     prof_ms = {k: t / max(c, 1) / 1e3 for k, (t, c) in by_kernel.items()}
 
     # 256x256x100: the adjoint in f64 against plain (phase 8 times the

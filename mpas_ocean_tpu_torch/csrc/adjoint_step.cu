@@ -11,10 +11,7 @@
 // a stack of states in device memory. One launch maps (primal state at step
 // j, cotangent at step j + 1) to the cotangent at step j.
 //
-// Layout and block shape as in fe_step.cu: one block per cell column
-// (p, m, i), threads over the levels k, 32-bit offsets, the stencil tables
-// resolved into shared memory. For output cotangents (gs, gh, gu):
-//   G        = gh + gs                       (ssh' = sum_k h' - rts)
+// For output cotangents (gs, gh, gu), with G = gh + gs (ssh' = sum_k h' - rts):
 //   dG_e     = G[nbr(e)] - G[owner(e)]
 //   dh_c     = G_c + 1/2 sum over the 6 edges e of c of u_e * dt * s_div * dG_e
 //   du_e     = gu_e + 1/2 (h_owner + h_nbr) * dt * s_div * dG_e
@@ -25,195 +22,370 @@
 // C^T is the Coriolis stencil transposed (structured/stencils.py:
 // transpose_coriolis_terms), packed in fe_step.cu's table layout.
 //
-// Two sums cross the level axis: S_e for the cell's 6 edges (the 3 incoming
-// ones are other blocks' columns, read here, never waited on) and the block's
-// share of d(dt). Both are block reductions in a fixed order. The d(dt)
-// shares go to a scratch row per step, and one more small kernel sums all
-// rows of a call in a fixed order into a float64 accumulator: no atomics, so
-// an f64 run repeats bit for bit.
+// What bound the first design (PERF.md): 15% of the byte bound on an H100
+// (35.5 us per launch at 64x64x100 f32 against 5.9). One 128-thread block
+// per cell column (28 lanes idle at K = 100), each resolving the stencil
+// tables again, ~45 L1/L2 loads per cell-level that neighbouring columns
+// repeated, a runtime loop over the transposed taps, seven block
+// reductions per column, and one d(dt) share per column that a one-block
+// kernel then summed (6.2 ms of a 4000-step grad).
 //
-// What bounds it on this card: about 3 state passes per step (read the
-// primal h and u, read the cotangent, write the new one), 19.7 MB at
-// 64x64x100 in f32, 5.9 us at 3.35 TB/s. Like fe_step.cu it does ~45 loads
-// per cell-level that the neighbouring blocks repeat (7 of G, 4 of h, 6 of u,
-// 6 edge columns of gu and 24 transposed Coriolis taps), so load latency,
-// not bandwidth, is expected to bound it. Making it fast is later work.
+// This design, that of fe_step.cu (step_window.cuh) for the transpose. A
+// thread-block cluster takes an rt x ct tile of lattice sites (both
+// parities; any tile, sites past the lattice's edge skipped), its blocks
+// split the levels in chunks of kc (a power of two, 16 at K = 100), and each
+// block stages its chunk of the tile's window (the tile plus the transposed
+// step's reach, 1 row and 2 columns per side, wrapped periodically) of the
+// primal h, u, ssh and of the cotangent gh, gu, gs, and f_edge, by 16-byte
+// async copies, so each value leaves L2 once per tile. gs is folded into gh
+// in shared memory (G), since the transpose reads gh only through G. The
+// transposed stencil is resolved once per call on the host into
+// constant-bank offsets (adjoint_window.cuh, hex_adj::), so each of the 25 gu,
+// 10 G, 7 h and 11 u values a site-level reads is loaded once and every loop
+// is unrolled: the kernel takes the hex lattice's table only, and its entry
+// refuses any other. Groups of min(16, kc) lanes take consecutive levels of
+// one site. Each block's per-site partials of sum_owned S_e - sum_incoming
+// S_e are a shuffle over the group, stored straight into rank 0's shared
+// memory (once a split cluster barrier, whose wait the loads hide, has seen
+// every block start); after a second cluster barrier rank 0 adds them in
+// rank order and writes ds. Each block writes one d(dt) share (its threads'
+// values summed by warps in order, in float64), and one small kernel per
+// call adds the call's n_steps * tiles * ranks shares in a fixed order: no
+// atomics, so f64 reruns are bitwise equal. The window leaves room for two
+// 512-thread blocks per SM at the planner's tile
+// (kernels/adjoint_step.adjoint_tile), and launches are programmatically
+// dependent.
+//
+// What bounds it: about 3 state passes per step (read the primal h and u,
+// read the cotangent, write the new one), 19.7 MB at 64x64x100 in f32, 5.9
+// us at 3.35 TB/s. Measured (f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+// section 5): 24% of that bound at 64x64x100 (25 us per launch, (4, 8)
+// tiles) and 33% at 256x256x100 (287 against 94 us, (4, 12) tiles); the
+// first design reached 15%.
 
-#include "lattice.cuh"
+#include "adjoint_window.cuh"
 
 namespace {
 
 using namespace lattice;
 
+// f_edge [6] and ssh, gs [2 + 2] per window site
+constexpr int kPlanes = 10;
+
 template <typename T>
-__global__ void adjoint_step_kernel(const T* __restrict__ ssh, const T* __restrict__ h,
-                                    const T* __restrict__ u, const T* __restrict__ f_edge,
-                                    const int* __restrict__ table,
-                                    const T* __restrict__ weights, const T* __restrict__ gs,
-                                    const T* __restrict__ gh, const T* __restrict__ gu,
-                                    T* __restrict__ ds, T* __restrict__ dh,
-                                    T* __restrict__ du, T* __restrict__ ddt_part, T dt,
-                                    T inv_dc, T s_div, int ny2, int nx, int K) {
-  __shared__ int s_tab[kHeader];
-  __shared__ int s_src[kMaxTerms];  // channel * plane + site of each transposed tap
-  __shared__ T s_w[kMaxTerms];
-  __shared__ T s_part[7][32];  // per warp: S_e of the 6 edges, then d(dt)
+struct AdjArgs {
+  const T* ssh;  // primal state j
+  const T* h;
+  const T* u;
+  const T* gs;  // cotangent j + 1
+  const T* gh;
+  const T* gu;
+  const T* f_edge;
+  T* ds;  // cotangent j
+  T* dh;
+  T* du;
+  double* ddt_part;  // one share per block: (tile, rank)
+  T dt, inv_dc, s_div;
+  int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
+};
 
-  const int plane = ny2 * nx;
-  const int site = blockIdx.x;  // p * plane + m * nx + i
-  const int p = site / plane;
-  const int m = (site / nx) % ny2;
-  const int i = site % nx;
-  const int cell = m * nx + i;
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads, 2)
+    adjoint_step_kernel(const AdjArgs<T> a, const AdjTaps<T> tp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int tile = blockIdx.x / n_ranks;
+  const int tm = tile / a.n_tiles_i, ti = tile % a.n_tiles_i;
+  const int Wi = a.ct + 2 * a.hi, W = (a.rt + 2 * a.hm) * Wi;
+  const int kc = 1 << a.kc_log2, k0 = rank * kc, kr = min(kc, a.K - k0);
+  const int plane = a.ny2 * a.nx;
+  const int pk = W * kc;
+  const int K = a.K;
+  const int core = a.rt * a.ct;
 
-  auto at = [&](int dm, int di) { return wrap(m + dm, ny2) * nx + wrap(i + di, nx); };
+  double* red = reinterpret_cast<double*>(smem_raw);  // [kRedDoubles]
+  T* prim = reinterpret_cast<T*>(red + kRedDoubles);  // [8][W][kc]: h p0, h p1, u c0..c5
+  T* cot = prim + 8 * pk;                             // [8][W][kc]: G p0, G p1, gu c0..c5
+  T* ssh_s = cot + 8 * pk;                            // [2][W]
+  T* gs_s = ssh_s + 2 * W;                            // [2][W]
+  T* f_s = gs_s + 2 * W;                              // [6][W]
+  T* recv = f_s + 6 * W;  // [n_ranks][2][core]: rank 0's are read
+  int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
 
-  const int n_terms = table[0];
-  for (int t = threadIdx.x; t < kHeader; t += blockDim.x) s_tab[t] = table[t];
-  for (int t = threadIdx.x; t < n_terms; t += blockDim.x) {
-    const int* tt = table + kHeader + 3 * t;
-    s_src[t] = tt[0] * plane + at(tt[1], tt[2]);
-    s_w[t] = weights[t];
-  }
+  // The partial sums below go straight into rank 0's shared memory, which
+  // only a cluster barrier guarantees to exist: its arrival here and its
+  // wait after the loads, so that the loads hide it.
+  cluster_arrive_relaxed();
+  allow_next_grid();
+  window_sites(gsite, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx);
   __syncthreads();
+  wait_previous_grid();
+  for (int s = threadIdx.x; s < W; s += blockDim.x)
+    for (int c6 = 0; c6 < 6; ++c6)
+      copy_async(f_s + c6 * W + s, a.f_edge + c6 * plane + gsite[s]);
+  load_chunk(prim, ssh_s, gsite, a.ssh, a.h, a.u, W, kc, a.kc_log2, a.vec_log2, k0, kr, K,
+             plane);
+  load_chunk(cot, gs_s, gsite, a.gs, a.gh, a.gu, W, kc, a.kc_log2, a.vec_log2, k0, kr, K,
+             plane);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  fold_ssh(cot, gs_s, W, Wi, 0, 0, a.rt + 2 * a.hm, Wi, kc, a.kc_log2, kr);
+  __syncthreads();
+  cluster_wait();
 
-  // owned edges: the edge itself, the neighbour across it, its G and grad(ssh)
-  const T gs_c = gs[site];
-  const T ssh_c = ssh[site];
-  int own[3], nbr[3];
-  T gs_nbr[3], grad[3], f_own[3];
-#pragma unroll
-  for (int f = 0; f < 3; ++f) {
-    const int* t = s_tab + kNbr + 3 * (f * 2 + p);
-    nbr[f] = t[0] * plane + at(t[1], t[2]);
-    own[f] = (f * 2 + p) * plane + cell;
-    gs_nbr[f] = gs[nbr[f]];
-    grad[f] = (ssh[nbr[f]] - ssh_c) * inv_dc;
-    f_own[f] = f_edge[own[f]];
-  }
-  // incoming edges: the edge (channel, site) and its owner cell
-  int inc_u[3], inc_own[3];
-  T gs_inc[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int* t = s_tab + kInc + 9 * p + 3 * j;
-    const int ch = t[0];
-    const int s = at(t[1], t[2]);
-    inc_u[j] = ch * plane + s;
-    inc_own[j] = (ch & 1) * plane + s;
-    gs_inc[j] = gs[inc_own[j]];
-  }
-
-  const T dt_div = dt * s_div;
+  const T dt_div = a.dt * a.s_div;
   const T grav = T(kGravity);
-  const int self_col = site * K;
-  T S[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-  T part = T(0);
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const T hc = h[self_col + k];
-    const T Gc = gh[self_col + k] + gs_c;
-    T flux = T(0);  // sum over the cell's 6 edges of u * d(flux)
+  T* const sums = cluster.map_shared_rank(recv, 0) + rank * 2 * core;
+  // groups of G = min(16, kc) lanes, one site each, 32 / G sites per warp
+  const int g_log2 = min(a.kc_log2, kLanesLog2), G = 1 << g_log2;
+  const int lane = threadIdx.x & (G - 1), sub = (threadIdx.x & 31) >> g_log2;
+  const int warp_sites = 32 >> g_log2;
+  const int site_stride = static_cast<int>(blockDim.x >> 5) * warp_sites;
+  const FastDiv by_ct(a.ct);
+  double share = 0.0;
+  for (int base = static_cast<int>(threadIdx.x >> 5) * warp_sites; base < core;
+       base += site_stride) {
+    const int t = base + sub;
+    const int tt = t < core ? t : base;
+    const int r = by_ct.div(tt), c = by_ct.mod(tt, r);
+    const int gm = tm * a.rt + r, gi = ti * a.ct + c;
+    const bool valid = t < core && gm < a.ny2 && gi < a.nx;  // a ragged tile's edge
+    const int g = gm * a.nx + gi;
+    const int s = (a.hm + r) * Wi + a.hi + c;
+    // per site: the pressure gradient of the primal ssh and f on the 6 owned edges
+    T grad[6], fo[6];
 #pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      const int c = f * 2 + p;
-      const int e = own[f] * K + k;
-      const T ue = u[e];
-      const T gue = gu[e];
-      const T dG = gh[nbr[f] * K + k] + gs_nbr[f] - Gc;
-      const T gflux = dt_div * dG;
-      const T he = T(0.5) * (h[nbr[f] * K + k] + hc);
-      const int t0 = s_tab[kOff + c], t1 = s_tab[kOff + c + 1];
-      T ct = T(0);
-      for (int t = t0; t < t1; ++t) ct += s_w[t] * gu[s_src[t] * K + k];
-      const T fct = f_own[f] * ct;
-      du[e] = gue + he * gflux + dt * fct;
-      flux += ue * gflux;
-      S[f] += gue;
-      part += ue * (s_div * dG * he + fct) - grav * grad[f] * gue;
+    for (int ch = 0; ch < 6; ++ch) {
+      grad[ch] = (ssh_s[s + tp.nb[ch]] - ssh_s[(ch & 1) * W + s]) * a.inv_dc;
+      fo[ch] = f_s[ch * W + s];
     }
+    T acc0 = T(0), acc1 = T(0);
+    for (int kl = lane; kl < kc; kl += G) {
+      if (!valid || kl >= kr) continue;
+      const T* P = prim + s * kc + kl;
+      const T* C = cot + s * kc + kl;
+      // every source loaded once; the stores come last, so that no store
+      // sits between two loads of a value
+      T gu[hex_adj::kGu], Gv[hex_adj::kG], h[hex_adj::kH], u[hex_adj::kU];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int e = inc_u[j] * K + k;
-      const T dG = Gc - (gh[inc_own[j] * K + k] + gs_inc[j]);
-      flux += u[e] * (dt_div * dG);
-      S[3 + j] += gu[e];
+      for (int x = 0; x < hex_adj::kGu; ++x) gu[x] = C[tp.us[x]];
+#pragma unroll
+      for (int x = 0; x < hex_adj::kG; ++x) Gv[x] = C[tp.hs[x]];
+#pragma unroll
+      for (int x = 0; x < hex_adj::kH; ++x) h[x] = P[tp.hs[x]];
+#pragma unroll
+      for (int x = 0; x < hex_adj::kU; ++x) u[x] = P[tp.us[x]];
+      T dh[2], du[6], S[2];
+      T part = T(0);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const T Gc = Gv[hex::self_h(p)], hc = h[hex::self_h(p)];
+        T flux = T(0);
+#pragma unroll
+        for (int f = 0; f < 3; ++f) {
+          const int ch = f * 2 + p;
+          const T dG = Gv[hex::nb_h(ch)] - Gc;
+          const T gflux = dt_div * dG;
+          const T he = T(0.5) * (h[hex::nb_h(ch)] + hc);
+          T ct = T(0);
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int t2 = 8 * ch + x;
+            const T contrib = tp.w[t2] * gu[hex_adj::tap_u(t2)];
+            ct = (x == 0) ? contrib : ct + contrib;
+          }
+          const T fct = fo[ch] * ct;
+          const T gue = gu[hex::self_u(ch)], ue = u[hex::self_u(ch)];
+          du[ch] = gue + he * gflux + a.dt * fct;
+          flux += ue * gflux;
+          part += ue * (a.s_div * dG * he + fct) - grav * grad[ch] * gue;
+        }
+#pragma unroll
+        for (int x = 3 * p; x < 3 * p + 3; ++x)
+          flux += u[hex::inc_u(x)] * (dt_div * (Gc - Gv[hex::inc_self_h(x)]));
+        dh[p] = Gc + T(0.5) * flux;
+        S[p] = (gu[hex::self_u(p)] + gu[hex::self_u(2 + p)] + gu[hex::self_u(4 + p)]) -
+               (gu[hex::inc_u(3 * p)] + gu[hex::inc_u(3 * p + 1)] + gu[hex::inc_u(3 * p + 2)]);
+      }
+      T* h_o = a.dh + g * K + k0 + kl;
+      T* u_o = a.du + g * K + k0 + kl;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) h_o[p * plane * K] = dh[p];
+#pragma unroll
+      for (int ch = 0; ch < 6; ++ch) u_o[ch * plane * K] = du[ch];
+      acc0 += S[0];
+      acc1 += S[1];
+      share += static_cast<double>(part);
     }
-    dh[self_col + k] = Gc + T(0.5) * flux;
+    acc0 = group_sum(acc0, G);
+    acc1 = group_sum(acc1, G);
+    if (t < core && lane == 0) {
+      sums[t] = acc0;
+      sums[core + t] = acc1;
+    }
   }
+  share_warps(share, red);
 
-  // column sums: warp shuffles, then one thread over the warps in order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < 6; ++q) {
-    const T v = warp_sum(S[q]);
-    if (lane == 0) s_part[q][warp] = v;
+  // ds = (g dt / dc) * the ranks' partial sums, added by rank 0 in rank
+  // order (the barrier orders the remote stores above before rank 0's
+  // reads; no block reads another's shared memory after it, so none waits
+  // to leave); each block's d(dt) share
+  cluster.sync();
+  if (threadIdx.x == 0) a.ddt_part[blockIdx.x] = share_total(red);
+  if (rank != 0) return;
+  const T ds_scale = grav * a.dt * a.inv_dc;
+  for (int e = threadIdx.x; e < 2 * core; e += blockDim.x) {
+    const int p = e >= core ? 1 : 0, x = e - p * core;
+    const int r = by_ct.div(x), c = by_ct.mod(x, r);
+    const int gm = tm * a.rt + r, gi = ti * a.ct + c;
+    if (gm >= a.ny2 || gi >= a.nx) continue;
+    T v = recv[e];
+    for (int rr = 1; rr < n_ranks; ++rr) v += recv[rr * 2 * core + e];
+    a.ds[p * plane + gm * a.nx + gi] = ds_scale * v;
   }
-  {
-    const T v = warp_sum(part);
-    if (lane == 0) s_part[6][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int n_warps = (blockDim.x + 31) / 32;
-    T tot[7];
-    for (int q = 0; q < 7; ++q) {
-      tot[q] = s_part[q][0];
-      for (int w = 1; w < n_warps; ++w) tot[q] += s_part[q][w];
-    }
-    ds[site] = (grav * dt * inv_dc) * ((tot[0] + tot[1] + tot[2]) - (tot[3] + tot[4] + tot[5]));
-    ddt_part[site] = tot[6];
-  }
+}
+
+template <typename T>
+int prepare(int max_smem) {
+  static bool done = false;
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      adjoint_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  done = e == cudaSuccess;
+  return static_cast<int>(e);
+}
+
+// The warps' d(dt) sums, a window's primal and cotangent chunks, its ssh,
+// gs and f_edge and sites, and the ranks' partial sums
+// (kernels/adjoint_step.smem_bytes mirrors this).
+size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize) {
+  return sizeof(double) * kRedDoubles + step_smem_bytes(sites, kc, 2, kPlanes, itemsize) +
+         itemsize * static_cast<size_t>(n_ranks) * 2 * core;
+}
+
+// One call's launch set-up: the plan, the resolved stencil, the shared memory.
+template <typename T>
+struct AdjPlan {
+  AdjArgs<T> a;
+  AdjTaps<T> tp;
+  int n_ranks, n_tiles, max_smem;
+  size_t smem;
+};
+
+template <typename T>
+int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* table, const double* weights,
+              double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,
+              int n_terms, int rt, int ct, bool vec) {
+  if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
+    return cudaErrorInvalidValue;
+  if (rt < 1 || ct < 1 || rt > ny2 || ct > nx) return cudaErrorInvalidValue;
+  int hm = 0, hi = 0;
+  adjoint_reach(table, &hm, &hi);
+  const int kc = step_chunk(k);
+  const int Wi = ct + 2 * hi, W = (rt + 2 * hm) * Wi;
+  pl->n_ranks = (k + kc - 1) / kc;
+  if (!resolve_adjoint_taps<T>(&pl->tp, table, weights, Wi, W, kc)) return kNotHexTable;
+  int e = opt_in_smem(&pl->max_smem);
+  if (e != 0) return e;
+  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T));
+  if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
+  const int n_ti = (nx + ct - 1) / ct;
+  pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
+  pl->a = AdjArgs<T>{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, f_edge,
+                     nullptr, nullptr, nullptr, nullptr, T(dt), T(inv_dc), T(s_div),
+                     ny2, nx, k, rt, ct, hm, hi, log2_exact(kc),
+                     vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
+  return 0;
 }
 
 // n_steps reverse steps. The primal state of step j lies in slot j of the
 // stacks (ssh (n, 2, ny2, nx), h (n, 2, ny2, nx, K), u (n, 6, ny2, nx, K));
 // the cotangent at step n_steps comes in `g_in` and the one at step 0 goes
 // out in `g_out`, through `g_tmp` as in fe_step.cu's fe_steps; `g_in` is left
-// as it is. `part` holds n_steps * 2 * ny2 * nx scratch values; d(dt) of the
+// as it is. `part` holds n_steps * tiles * ranks doubles; d(dt) of the
 // n_steps steps is added to ddt[0].
 template <typename T>
-int adjoint_rollout(const T* f_edge, const int* table, const T* weights, const T* ssh_st,
+int adjoint_rollout(const T* f_edge, const int* table, const double* weights, const T* ssh_st,
                     const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                     const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
-                    T* gu_tmp, T* part, double* ddt, double dt, double inv_dc, double s_div,
-                    int ny2, int nx, int k, int n_steps, int n_terms, cudaStream_t stream) {
-  if (!valid_shape(ny2, nx, k, n_steps, n_terms)) return cudaErrorInvalidValue;
+                    T* gu_tmp, double* part, double* ddt, double dt, double inv_dc,
+                    double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
+                    int ct, cudaStream_t stream) {
+  const int kc = step_chunk(k);
+  const bool vec = vector_loads(k, kc, sizeof(T), h_st, u_st) &&
+                   vector_loads(k, kc, sizeof(T), gh_in, gu_in) &&
+                   vector_loads(k, kc, sizeof(T), gh_out, gu_out) &&
+                   vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp);
+  AdjPlan<T> pl;
+  int err = make_plan(&pl, f_edge, table, weights, dt, inv_dc, s_div, ny2, nx, k, n_steps,
+                      n_terms, rt, ct, vec);
+  if (err != 0) return err;
+  if ((err = prepare<T>(pl.max_smem)) != 0) return err;
   const size_t cells = 2ULL * ny2 * nx;
   const size_t hs = cells * k, us = 3 * cells * k;
+  const size_t shares = static_cast<size_t>(pl.n_tiles) * pl.n_ranks;
   const T *gs = gs_in, *gh = gh_in, *gu = gu_in;
   for (int s = 0; s < n_steps; ++s) {
     const size_t j = n_steps - 1 - s;
     const bool to_out = ((n_steps - 1 - s) & 1) == 0;
-    T* ds = to_out ? gs_out : gs_tmp;
-    T* dh = to_out ? gh_out : gh_tmp;
-    T* du = to_out ? gu_out : gu_tmp;
-    adjoint_step_kernel<T><<<static_cast<int>(cells), column_threads(k), 0, stream>>>(
-        ssh_st + j * cells, h_st + j * hs, u_st + j * us, f_edge, table, weights, gs, gh, gu,
-        ds, dh, du, part + s * cells, T(dt), T(inv_dc), T(s_div), ny2, nx, k);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gs = ds, gh = dh, gu = du;
+    AdjArgs<T>& a = pl.a;
+    a.ssh = ssh_st + j * cells, a.h = h_st + j * hs, a.u = u_st + j * us;
+    a.gs = gs, a.gh = gh, a.gu = gu;
+    a.ds = to_out ? gs_out : gs_tmp;
+    a.dh = to_out ? gh_out : gh_tmp;
+    a.du = to_out ? gu_out : gu_tmp;
+    a.ddt_part = part + s * shares;
+    cudaLaunchAttribute attr[2];
+    const cudaLaunchConfig_t cfg = step_config(pl.n_ranks, pl.n_tiles, pl.smem, stream, attr);
+    cudaError_t le = cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T>, pl.a, pl.tp);
+    if (le == cudaSuccess) le = cudaGetLastError();
+    if (le != cudaSuccess) return static_cast<int>(le);
+    gs = a.ds, gh = a.dh, gu = a.du;
   }
   if (n_steps == 0) return 0;
-  return reduce_ddt(part, static_cast<long long>(n_steps) * static_cast<long long>(cells), ddt,
+  return reduce_ddt(part, static_cast<long long>(n_steps) * static_cast<long long>(shares), ddt,
                     stream);
 }
 
 }  // namespace
 
-// Returns 0 or the CUDA error of the first launch that failed.
-#define MOT_ADJOINT_ENTRY(T, SUFFIX)                                                        \
-  extern "C" int mot_adjoint_rollout_##SUFFIX(                                              \
-      const T* f_edge, const int* table, const T* weights, const T* ssh_st, const T* h_st,  \
-      const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in, T* gs_out, T* gh_out,  \
-      T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, T* part, double* ddt, double dt,          \
-      double inv_dc, double s_div, int ny2, int nx, int k, int n_steps, int n_terms,        \
-      void* stream) {                                                                       \
-    return adjoint_rollout<T>(f_edge, table, weights, ssh_st, h_st, u_st, gs_in, gh_in,     \
-                              gu_in, gs_out, gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part,  \
-                              ddt, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms,         \
-                              static_cast<cudaStream_t>(stream));                           \
+// Returns 0, kNotHexTable for a transposed table that is not the hex
+// lattice's, or the CUDA error of the first launch that failed
+// (cudaErrorInvalidValue for a tile the card does not take). `table` and
+// `weights` are host copies of the TRANSPOSED stencil; rt x ct is the tile.
+#define MOT_ADJOINT_ENTRY(T, SUFFIX)                                                          \
+  extern "C" int mot_adjoint_rollout_##SUFFIX(                                                \
+      const T* f_edge, const int* table, const double* weights, const T* ssh_st,              \
+      const T* h_st, const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in,           \
+      T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part,         \
+      double* ddt, double dt, double inv_dc, double s_div, int ny2, int nx, int k,            \
+      int n_steps, int n_terms, int rt, int ct, void* stream) {                               \
+    return adjoint_rollout<T>(f_edge, table, weights, ssh_st, h_st, u_st, gs_in, gh_in,       \
+                              gu_in, gs_out, gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part,    \
+                              ddt, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct,   \
+                              static_cast<cudaStream_t>(stream));                             \
   }
 
 MOT_ADJOINT_ENTRY(float, f32)
 MOT_ADJOINT_ENTRY(double, f64)
+
+// The launch adjoint_step makes for an rt x ct tile of an ny2 x nx x k f32
+// lattice with the transposed stencil `table` (a host copy): out[0] the
+// clusters (one per tile), out[1] the blocks per SM, out[2] one block's
+// dynamic shared memory in bytes. Returns 0, kNotHexTable or the CUDA error.
+extern "C" int mot_adjoint_plan(const int* table, int ny2, int nx, int k, int rt, int ct,
+                                int* out) {
+  double weights[kMaxTerms] = {};
+  AdjPlan<float> pl;
+  int e = make_plan<float>(&pl, nullptr, table, weights, 1.0, 1.0, 1.0, ny2, nx, k, 1,
+                           table[0], rt, ct, true);
+  if (e != 0) return e;
+  if ((e = prepare<float>(pl.max_smem)) != 0) return e;
+  out[0] = pl.n_tiles;
+  out[2] = static_cast<int>(pl.smem);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], adjoint_step_kernel<float>, kStepThreads, pl.smem));
+}

@@ -46,9 +46,6 @@ inline bool valid_shape(int ny2, int nx, int k, int n_steps, int n_terms) {
   return 6LL * ny2 * nx * k <= kMaxIndex;
 }
 
-// One block per cell column; threads stride over the levels.
-inline int column_threads(int k) { return k >= 256 ? 256 : ((k + 31) / 32) * 32; }
-
 constexpr int kReduceThreads = 1024;
 
 // acc[0] += the sum of part[0 .. n), in a fixed order (one block). Static:

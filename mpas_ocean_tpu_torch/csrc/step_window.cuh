@@ -65,7 +65,7 @@ __host__ __device__ constexpr int inc_nb_h(int x) {
 }
 }  // namespace hex
 
-// What the forward kernels' entries return for a table that is not the hex
+// What the kernels' entries return for a table that is not the hex
 // lattice's (kernels/fe_step.NOT_HEX_TABLE).
 constexpr int kNotHexTable = -1;
 

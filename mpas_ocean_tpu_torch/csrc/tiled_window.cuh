@@ -1,10 +1,6 @@
-// Shared pieces of the tiled window kernels (tiled_step.cu, tiled_adjoint.cu):
-// Coriolis taps, division by a run-time divisor, async copies into shared
-// memory, the cluster launch.
-//
-// A window is Wm x Wi lattice sites, flattened s = r * Wi + c. A block keeps
-// its level chunk (kc levels, kr of them real) of 8 planes per state: h of
-// parity 0 and 1, then u of channels 0..5, each plane [W][kc].
+// Shared pieces of the window kernels (every kernel, through step_window.cuh):
+// the cluster's size, division by a run-time divisor, async copies into
+// shared memory, the device's shared-memory limit.
 
 #pragma once
 
@@ -18,16 +14,6 @@ namespace lattice {
 namespace cg = cooperative_groups;
 
 constexpr int kMaxCluster = 8;  // blocks per cluster (the portable maximum)
-constexpr int kThreads = 512;
-constexpr int kSmallInts = 64;  // neighbour / incoming offsets and channel starts
-
-// A Coriolis tap: the offset of its u value from the reading thread's
-// (site, level), its f_edge's offset from the site, and its weight.
-template <typename T>
-struct alignas(16) Tap {
-  int u, f;
-  T w;
-};
 
 // Division of 0 <= n < 2^31 by a divisor fixed at run time, by a multiply
 // and a shift (the round-up method CUTLASS's FastDivmod uses): the index
@@ -64,23 +50,6 @@ inline int opt_in_smem(int* max_smem) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return static_cast<int>(e);
-}
-
-// A launch of n_tiles clusters of n_ranks blocks of kThreads threads.
-inline cudaLaunchConfig_t cluster_config(int n_ranks, int n_tiles, size_t smem,
-                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_tiles * n_ranks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 }  // namespace lattice

@@ -3,30 +3,113 @@ which replaces the TPU kernel ``_adjoint_segment_kernel``
 (mpas_ocean_tpu/structured/pallas_model.py:1480) for the linear periodic
 forward-Euler core.
 
-``adjoint_rollout`` takes tensors on a CUDA device and launches one adjoint
-kernel per reverse step on the current stream, then one small kernel that
-adds the call's d(dt) to an accumulator; it raises on anything else. Its
-plain PyTorch version is ``structured.adjoint.structured_adjoint_step``.
-``launches`` counts adjoint-step launches (one per reverse step).
+``adjoint_rollout`` takes tensors on a CUDA device and the transposed
+stencil on the host (``StructMesh.host_adjoint_stencil``), launches one
+adjoint kernel per reverse step on the current stream, each over tiles of
+``adjoint_tile`` sites, then one small kernel that adds the call's d(dt) to
+an accumulator; it raises on anything else, a table that is not the hex
+lattice's transpose included. Its plain PyTorch version is
+``structured.adjoint.structured_adjoint_step``. ``launches`` counts
+adjoint-step launches (one per reverse step).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build
-from .fe_step import check_stencil, check_tensor, lattice_dims, state_shapes
+from .fe_step import (
+    SMEM_BYTES,
+    TWO_BLOCK_BYTES,
+    best_tile,
+    check_error,
+    check_tensor,
+    host_stencil,
+    lattice_dims,
+    level_split,
+    state_shapes,
+)
 
-__all__ = ["adjoint_rollout", "launches"]
+__all__ = ["REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout", "adjoint_tile", "launch_plan",
+           "launches", "smem_bytes"]
 
 # adjoint-step kernel launches made by adjoint_rollout (one per step)
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_double] * 3 + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p
-]
+# The reach of one reverse step, (rows, columns) per side:
+# slab.adjoint_stencil_reach of the hex lattice's tables; csrc/adjoint_step.cu
+# derives it from the table.
+REACH = (1, 2)
+_PLANES = 10  # kPlanes in csrc/adjoint_step.cu
+_RED_BYTES = 8 * 16  # kRedDoubles doubles in csrc/adjoint_window.cuh
+# adjoint_tile's tiles besides the powers of two: these rows by these
+# columns, cut to the lattice (tools/tile_sweep.py sweeps the same set)
+TILE_ROWS = (1, 2, 3, 4, 6, 8, 16)
+TILE_COLS = (2, 4, 6, 8, 12, 16, 24, 32)
+# An H100's SMs, and the waves of clusters (two blocks per SM) from which a
+# launch takes a larger tile than the power-of-two rule's
+SMS = 132
+MIN_WAVES = 4
+
+
+def smem_bytes(tile, k: int, itemsize: int) -> int:
+    """Dynamic shared memory of one adjoint_step block for a tile (rows,
+    columns) at k levels (``smem_bytes`` in csrc/adjoint_step.cu): the warps'
+    d(dt) sums, its level chunk of the window's primal state and cotangent
+    [2][8][sites][kc], the window's ssh, gs, f_edge and site indices, and
+    the ranks' partial sums of the tile's sites."""
+    ranks, kc = level_split(k)
+    hm, hi = REACH
+    sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
+    return (_RED_BYTES + itemsize * (sites * (16 * kc + _PLANES) + ranks * 2 * tile[0] * tile[1])
+            + 4 * sites)
+
+
+def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
+    """adjoint_step's tile (rows, columns) on a ny2 x nx lattice: the
+    largest tile of TILE_ROWS x TILE_COLS (ragged ones too) whose window
+    leaves room for two blocks per SM, then the smallest window, then the
+    widest, where its launch makes at least MIN_WAVES waves of clusters on
+    the card; else ``fe_step.best_tile``'s power-of-two tile. At 100 f32
+    levels that is (4, 12) at 256x256 and (4, 8) at 64x64, the fastest
+    tiles of the sweep there (PERF.md section 5, tools/tile_sweep.py): a
+    larger tile re-reads less halo, but on a small lattice its few
+    clusters leave the card's last wave part empty."""
+    smem = lambda t: smem_bytes(t, k, itemsize)
+    tile = best_tile(ny2, nx, REACH, smem, f"adjoint_step ({k} levels of {itemsize}-byte values)")
+    hm, hi = REACH
+    two = [(rt * ct, -(rt + 2 * hm) * (ct + 2 * hi), ct, rt)
+           for rt, ct in {(min(r, ny2), min(c, nx)) for r in TILE_ROWS for c in TILE_COLS}
+           if smem((rt, ct)) <= TWO_BLOCK_BYTES]
+    if not two or smem(tile) > TWO_BLOCK_BYTES:
+        return tile
+    area, _, ct, rt = max(two)
+    clusters = -(-ny2 // rt) * -(-nx // ct)
+    if area > tile[0] * tile[1] and clusters * level_split(k)[0] >= MIN_WAVES * 2 * SMS:
+        return rt, ct
+    return tile
+
+
+def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile) -> dict:
+    """The launch adjoint_step makes for ``tile`` on an f32 ny2 x nx x k
+    lattice with the transposed stencil ``table`` (host copy): its clusters
+    (one per tile), the blocks one SM holds (CUDA's occupancy calculator)
+    and one block's shared memory in bytes, as the kernel reckons it."""
+    fn = build.load().mot_adjoint_plan
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    table = np.ascontiguousarray(table, dtype=np.int32)
+    check_error("adjoint_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile,
+                                                ctypes.addressof(out)))
+    return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_double] * 3 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p])
 
 
 def _entry(dtype: torch.dtype):
@@ -38,21 +121,10 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
-def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
-                    dt: float, inv_dc: float, s_div: float, n_steps: int,
-                    ddt: torch.Tensor, out=None, scratch=None):
-    """n_steps >= 1 reverse forward-Euler steps of the linear core on the
-    card.
-
-    ``stack`` = (ssh (S, 2, ny2, nx), h (S, 2, ny2, nx, K),
-    u (S, 3, 2, ny2, nx, K)) holds the primal state of step j in slot j,
-    S >= n_steps. ``g_in`` = (ssh, h, u) is the cotangent at step n_steps
-    and is left as it is. ``stencil_table`` / ``coriolis_weight`` are the
-    TRANSPOSED Coriolis stencil packed by ``fe_step.pack_stencil``. d(dt) is
-    added to ``ddt``, a float64 (1,) tensor on the card. Returns the
-    cotangent at step 0, written into ``out`` (allocated when None), through
-    ``scratch`` (allocated when None and n_steps > 1). The scalars are
-    rounded to the state dtype as for the forward kernel."""
+def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scratch, tile):
+    """``adjoint_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
+    ``tile`` (rows, columns) sites, or ``adjoint_tile``'s for None (the tile
+    sweep and the tests give their own)."""
     global launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
@@ -66,7 +138,6 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
         raise ValueError(f"{n_steps} steps need {n_steps} primal slots, got {slots}")
     shapes = state_shapes(ny2, nx, k)
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
-    n_terms = check_stencil(stencil_table, coriolis_weight, dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
     if out is None:
         out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
@@ -77,17 +148,45 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
     for group, name in ((g_in, "g_in"), (out, "out"), (scratch, "scratch")):
         for x, shape, f in zip(group, shapes, ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, dtype, device)
-    part = torch.empty(n_steps * 2 * ny2 * nx, dtype=dtype, device=device)
+    table, weights, n_terms = host_stencil(table, weights)
+    itemsize = h_st.element_size()
+    tile = adjoint_tile(ny2, nx, k, itemsize) if tile is None else tuple(tile)
+    if smem_bytes(tile, k, itemsize) > SMEM_BYTES:
+        raise ValueError(f"an adjoint_step tile {tile} at {k} levels needs "
+                         f"{smem_bytes(tile, k, itemsize)} bytes of shared memory per "
+                         f"block, more than {SMEM_BYTES}")
+    ranks, _ = level_split(k)
+    tiles = -(-ny2 // tile[0]) * -(-nx // tile[1])
+    part = torch.empty(n_steps * tiles * ranks, dtype=torch.float64, device=device)
     fn = _entry(dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *[x.data_ptr() for x in (f_edge, stencil_table, coriolis_weight, *stack,
-                                      *g_in, *out, *scratch, part, ddt)],
-            float(dt), float(inv_dc), float(s_div), ny2, nx, k, n_steps, n_terms,
-            stream,
+            f_edge.data_ptr(), table.ctypes.data, weights.ctypes.data,
+            *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
+            *(float(x) for x in scal), ny2, nx, k, n_steps, n_terms, *tile, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"adjoint_step kernel launch failed with CUDA error {err}")
+    check_error("adjoint_step", err, f" (tile {tile})")
     launches += n_steps
     return out
+
+
+def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
+                    dt: float, inv_dc: float, s_div: float, n_steps: int,
+                    ddt: torch.Tensor, out=None, scratch=None):
+    """n_steps >= 1 reverse forward-Euler steps of the linear core on the
+    card.
+
+    ``stack`` = (ssh (S, 2, ny2, nx), h (S, 2, ny2, nx, K),
+    u (S, 3, 2, ny2, nx, K)) holds the primal state of step j in slot j,
+    S >= n_steps. ``g_in`` = (ssh, h, u) is the cotangent at step n_steps
+    and is left as it is. ``stencil_table`` / ``coriolis_weight`` are the
+    TRANSPOSED Coriolis stencil packed by ``fe_step.pack_stencil``, on the
+    host (``StructMesh.host_adjoint_stencil``); a table that is not the hex
+    lattice's transpose raises ValueError. d(dt) is added to ``ddt``, a
+    float64 (1,) tensor on the card. Returns the cotangent at step 0,
+    written into ``out`` (allocated when None), through ``scratch``
+    (allocated when None and n_steps > 1). The scalars are rounded to the
+    state dtype as for the forward kernel."""
+    return _rollout(stack, g_in, f_edge, stencil_table, coriolis_weight, (dt, inv_dc, s_div),
+                    n_steps, ddt, out, scratch, None)

@@ -28,6 +28,7 @@ from . import build
 
 __all__ = [
     "MAX_TERMS",
+    "best_tile",
     "fe_fill_stack",
     "fe_rollout",
     "fe_rollout_into",
@@ -41,8 +42,8 @@ __all__ = [
 ]
 
 MAX_TERMS = 128  # kMaxTerms in csrc/lattice.cuh
-# What the forward kernels' entries return for a stencil table that is not
-# the hex lattice's (kNotHexTable in csrc/step_window.cuh)
+# What the kernels' entries return for a stencil table that is not the hex
+# lattice's (kNotHexTable in csrc/step_window.cuh)
 NOT_HEX_TABLE = -1
 _HEADER = 44  # kHeader in csrc/lattice.cuh
 _MAX_INDEX = 2**31 - 1  # kMaxIndex in csrc/lattice.cuh
@@ -113,34 +114,42 @@ def smem_bytes(tile, k: int, itemsize: int) -> int:
             + 4 * sites)
 
 
-def fe_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
-    """fe_step's tile (rows, columns) on a ny2 x nx lattice: among the
-    powers of two up to 64 a side, cut to the lattice, the tile of largest
-    area whose window lets two blocks share an SM (TWO_BLOCK_BYTES), or
-    else fits one block; then the smallest window; then the widest. Tiles
-    need not divide the lattice. On an H100 at 64x64x100 and 256x256x100
-    f32 that is (4, 16): the fastest tile at 64^2 and within 2.5% of the
-    fastest at 256^2, where the best one-block tile took 1.12x as long
-    (PERF.md section 5, tools/tile_sweep.py)."""
-    hm, hi = FE_REACH
+def best_tile(ny2: int, nx: int, reach, smem, name: str) -> tuple[int, int]:
+    """The tile (rows, columns) of a one-step window kernel on a ny2 x nx
+    lattice: among the powers of two up to 64 a side, cut to the lattice,
+    the tile of largest area whose window (``smem(tile)`` bytes of shared
+    memory per block, ``reach`` = (rows, columns) per side) lets two blocks
+    share an SM (TWO_BLOCK_BYTES), or else fits one block; then the
+    smallest window; then the widest. Tiles need not divide the lattice."""
+    hm, hi = reach
     tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
     for budget in (TWO_BLOCK_BYTES, SMEM_BYTES):
         fit = [(rt * ct, -(rt + 2 * hm) * (ct + 2 * hi), ct, rt) for rt, ct in tiles
-               if smem_bytes((rt, ct), k, itemsize) <= budget]
+               if smem((rt, ct)) <= budget]
         if fit:
             *_, ct, rt = max(fit)
             return rt, ct
-    raise ValueError(f"no fe_step tile fits {k} levels of {itemsize}-byte values")
+    raise ValueError(f"no {name} tile fits")
+
+
+def fe_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
+    """fe_step's tile (rows, columns) on a ny2 x nx lattice, by
+    ``best_tile``'s rule. On an H100 at 64x64x100 and 256x256x100 f32 that
+    is (4, 16): the fastest tile at 64^2 and within 2.5% of the fastest at
+    256^2, where the best one-block tile took 1.12x as long (PERF.md
+    section 5, tools/tile_sweep.py)."""
+    return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize),
+                     f"fe_step ({k} levels of {itemsize}-byte values)")
 
 
 def host_stencil(table, weights) -> tuple[np.ndarray, np.ndarray, int]:
     """(int32 table, float64 weights, number of terms) of a stencil given on
-    the host (``pack_stencil``'s arrays, or ``StructMesh.host_stencil``):
-    the forward kernels take it resolved on the host, as kernel
-    parameters."""
+    the host (``pack_stencil``'s arrays, or ``StructMesh.host_stencil`` and
+    ``host_adjoint_stencil``): the kernels take it resolved on the host, as
+    kernel parameters."""
     if not (isinstance(table, np.ndarray) and isinstance(weights, np.ndarray)):
-        raise TypeError("the forward kernels take the stencil table and weights as "
-                        "numpy arrays (StructMesh.host_stencil)")
+        raise TypeError("the kernels take the stencil table and weights as numpy arrays "
+                        "(StructMesh.host_stencil, StructMesh.host_adjoint_stencil)")
     table = np.ascontiguousarray(table, dtype=np.int32)
     weights = np.ascontiguousarray(weights, dtype=np.float64)
     n_terms = weights.shape[0]
@@ -157,8 +166,9 @@ def check_error(name: str, err: int, what: str = "") -> None:
     """Raise for an entry's nonzero return: ValueError for a stencil that is
     not the hex lattice's, RuntimeError for a CUDA error."""
     if err == NOT_HEX_TABLE:
-        raise ValueError(f"{name} takes the hex lattice's stencil table only "
-                         "(csrc/step_window.cuh, hex::); this one does not map so")
+        raise ValueError(f"{name} takes the hex lattice's stencil tables only "
+                         "(csrc/step_window.cuh, hex::; csrc/adjoint_window.cuh, "
+                         "hex_adj::); this one does not map so")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}{what}")
 
@@ -223,16 +233,6 @@ def lattice_dims(h: torch.Tensor, name: str = "fe_step") -> tuple[int, int, int]
         raise ValueError(f"u would hold {6 * ny2 * nx * k} values; the kernels' "
                          f"32-bit offsets take at most {_MAX_INDEX}")
     return ny2, nx, k
-
-
-def check_stencil(table, weights, dtype, device) -> int:
-    """Checks a packed stencil and returns its number of terms."""
-    n_terms = weights.shape[0]
-    if n_terms > MAX_TERMS:
-        raise ValueError(f"{n_terms} Coriolis terms > {MAX_TERMS}")
-    check_tensor("coriolis_weight", weights, (n_terms,), dtype, device)
-    check_tensor("stencil_table", table, (_HEADER + 3 * n_terms,), torch.int32, device)
-    return n_terms
 
 
 def _consts(h, f_edge, rts, table, weights):

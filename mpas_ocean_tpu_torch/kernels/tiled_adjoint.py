@@ -3,14 +3,15 @@ which replaces the TPU kernel ``_tiled_adjoint_kernel``
 (mpas_ocean_tpu/structured/pallas_model.py:1979) for the linear periodic
 forward-Euler core.
 
-``tiled_adjoint_rollout`` takes tensors on a CUDA device and launches one
-kernel per reverse superstep of q steps on the current stream, then one small
-kernel that adds the call's d(dt) to an accumulator; it raises on anything
-else, including a plan whose window does not fit the card's shared memory.
-Its plain PyTorch version is
-``structured.tiled_diff.plain_tiled_adjoint_superstep``, which
-``structured.tiled_diff`` runs for tensors on the CPU. ``launches`` counts
-kernel launches (one per superstep).
+``tiled_adjoint_rollout`` takes tensors on a CUDA device and the stencils on
+the host (``StructMesh.host_stencil``, ``StructMesh.host_adjoint_stencil``),
+and launches one kernel per reverse superstep of q steps on the current
+stream, then one small kernel that adds the call's d(dt) to an accumulator;
+it raises on anything else, including a plan whose window does not fit the
+card's shared memory and a stencil that is not the hex lattice's. Its plain
+PyTorch version is ``structured.tiled_diff.plain_tiled_adjoint_superstep``,
+which ``structured.tiled_diff`` runs for tensors on the CPU. ``launches``
+counts kernel launches (one per superstep).
 """
 
 from __future__ import annotations
@@ -19,30 +20,36 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, fe_step
 from .fe_step import (
     MAX_CLUSTER,
-    MAX_TERMS,
     SMEM_BYTES,
-    check_stencil,
+    TWO_BLOCK_BYTES,
+    check_error,
     check_tensor,
+    host_stencil,
     lattice_dims,
     state_shapes,
 )
 
-__all__ = ["launches", "level_split", "smem_bytes", "tiled_adjoint_rollout", "window_sites"]
+__all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "launches", "level_split",
+           "occupancy", "smem_bytes", "tiled_adjoint_rollout", "window_sites"]
 
-_SMALL_INTS = 64  # kSmallInts in csrc/tiled_window.cuh
-_TAP_BYTES = 16  # sizeof(Tap<T>) in csrc/tiled_window.cuh
+_RED_BYTES = 8 * 16  # kRedDoubles doubles in csrc/adjoint_window.cuh
 
 # kernel launches made by tiled_adjoint_rollout (one per superstep)
 launches = 0
 
 
-def level_split(k: int) -> tuple[int, int]:
-    """(blocks per cluster, levels per block) of the tiled adjoint kernel:
-    the fewest levels per block over at most MAX_CLUSTER blocks, and no
-    block without levels."""
+def level_split(k: int, q: int) -> tuple[int, int]:
+    """(blocks per cluster, levels per block) of the tiled adjoint kernel.
+    At q = 1 the forward kernels' split (``fe_step.level_split``: power-of-
+    two chunks, 16 at K = 100, moved by 16-byte copies); at q > 1, whose
+    window holds q primal copies and two cotangents, the fewest levels per
+    block over at most MAX_CLUSTER blocks (13 at K = 100). No block is
+    without levels."""
+    if q == 1:
+        return fe_step.level_split(k)
     kc = -(-k // MAX_CLUSTER)
     return -(-k // kc), kc
 
@@ -55,15 +62,30 @@ def window_sites(row_tile: int, col_tile: int, q: int, halo) -> int:
     return (row_tile + 2 * hm * span) * (col_tile + 2 * hi * span)
 
 
-def smem_bytes(sites: int, kc: int, q: int, itemsize: int) -> int:
+def smem_bytes(sites: int, core: int, k: int, q: int, itemsize: int) -> int:
     """Dynamic shared memory of one block for a window of ``sites`` lattice
-    sites, ``kc`` levels and q steps (``smem_bytes`` in
-    csrc/tiled_adjoint.cu): q primal states and min(q, 2) cotangents of 8
-    planes per level, 2q + 16 planes without levels, two tap tables, the
-    sites and the small tables."""
-    states = 8 * (q + min(q, 2))
-    return (2 * _TAP_BYTES * MAX_TERMS + itemsize * sites * (states * kc + 2 * q + 16)
-            + 4 * (sites + _SMALL_INTS))
+    sites around a core of ``core`` sites, k levels and q steps
+    (``smem_bytes`` in csrc/tiled_adjoint.cu): the warps' d(dt) sums; q
+    primal chunks and one cotangent chunk (two at q > 1) of 8 planes; per
+    site f_edge, gs and q ssh planes, at q > 1 also rts and two pairs of
+    partial sums; the ranks' partial sums of the core; the site indices."""
+    ranks, kc = level_split(k, q)
+    chunks = 8 * (q + (2 if q > 1 else 1)) * kc
+    planes = 8 + 2 * q + (6 if q > 1 else 0)
+    return _RED_BYTES + itemsize * (sites * (chunks + planes) + ranks * 2 * core) + 4 * sites
+
+
+def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int) -> tuple[int, int]:
+    """(one block's shared memory in bytes as the kernel reckons it, blocks
+    per SM by CUDA's occupancy calculator) of an f32 plan."""
+    ranks, kc = level_split(k, q)
+    fn = build.load().mot_tiled_adjoint_occupancy
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    check_error("tiled_adjoint's occupancy query",
+                fn(row_tile, col_tile, q, *halo, kc, ranks, ctypes.addressof(out)))
+    return out[0], out[1]
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_double] * 3 + [ctypes.c_int] * 11
@@ -92,12 +114,13 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     cotangent at the end of the last superstep and is left as it is.
     ``stencil_table`` / ``coriolis_weight`` pack the Coriolis stencil and
     ``adjoint_table`` / ``adjoint_weight`` its transpose
-    (``fe_step.pack_stencil``); ``halo`` = (rows, columns) one step reads per
-    side. d(dt) is added to ``ddt``, a float64 (1,) tensor on the card.
-    Returns the cotangent at the start of superstep 0, written into ``out``
-    (allocated when None), through ``scratch`` (allocated when None and
-    n_supersteps > 1). The scalars are rounded to the state dtype as for
-    the forward kernel."""
+    (``fe_step.pack_stencil``), on the host (``StructMesh.host_stencil``,
+    ``StructMesh.host_adjoint_stencil``); ``halo`` = (rows, columns) one
+    step reads per side. d(dt) is added to ``ddt``, a float64 (1,) tensor on
+    the card. Returns the cotangent at the start of superstep 0, written
+    into ``out`` (allocated when None), through ``scratch`` (allocated when
+    None and n_supersteps > 1). The scalars are rounded to the state dtype
+    as for the forward kernel."""
     global launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
@@ -115,17 +138,15 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     if row_tile < 1 or col_tile < 1 or ny2 % row_tile or nx % col_tile:
         raise ValueError(f"tile {row_tile}x{col_tile} must divide the {ny2}x{nx} lattice")
     hm, hi = halo
-    cluster, kc = level_split(k)
-    need = smem_bytes(window_sites(row_tile, col_tile, q, halo), kc, q, h_st.element_size())
+    cluster, kc = level_split(k, q)
+    need = smem_bytes(window_sites(row_tile, col_tile, q, halo), row_tile * col_tile, k, q,
+                      h_st.element_size())
     if need > SMEM_BYTES:
         raise ValueError(f"a {row_tile}x{col_tile} tile at q={q} needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
     shapes = state_shapes(ny2, nx, k)
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
-    n_terms = check_stencil(stencil_table, coriolis_weight, dtype, device)
-    if check_stencil(adjoint_table, adjoint_weight, dtype, device) != n_terms:
-        raise ValueError("the adjoint table must be the transpose of the stencil table")
     check_tensor("ddt", ddt, (1,), torch.float64, device)
     if out is None:
         out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
@@ -136,19 +157,22 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     for group, name in ((g_in, "g_in"), (out, "out"), (scratch, "scratch")):
         for x, shape, f in zip(group, shapes, ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, dtype, device)
+    table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
+    adj_table, adj_weights, n_adj = host_stencil(adjoint_table, adjoint_weight)
+    if n_adj != n_terms:
+        raise ValueError("the adjoint table must be the transpose of the stencil table")
     n_tiles = (ny2 // row_tile) * (nx // col_tile)
-    part = torch.empty(n_supersteps * n_tiles * cluster, dtype=dtype, device=device)
+    part = torch.empty(n_supersteps * n_tiles * cluster, dtype=torch.float64, device=device)
     fn = _entry(dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *[x.data_ptr() for x in (f_edge, rts, stencil_table, coriolis_weight,
-                                      adjoint_table, adjoint_weight, *stack, *g_in, *out,
-                                      *scratch, part, ddt)],
+            f_edge.data_ptr(), rts.data_ptr(), table.ctypes.data, weights.ctypes.data,
+            adj_table.ctypes.data, adj_weights.ctypes.data,
+            *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
             float(dt), float(inv_dc), float(s_div), ny2, nx, k, n_supersteps, n_terms,
             row_tile, col_tile, q, hm, hi, kc, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"tiled_adjoint kernel launch failed with CUDA error {err}")
+    check_error("tiled_adjoint", err, f" (plan {(row_tile, col_tile, q)})")
     launches += n_supersteps
     return out

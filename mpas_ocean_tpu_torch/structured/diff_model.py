@@ -105,7 +105,7 @@ class _Steps:
             f_edge = mesh.f_edge.to(dtype).contiguous()
             self.fwd = (f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
                         *mesh.host_stencil)
-            self.adj = (f_edge, mesh.adjoint_table, mesh.adjoint_weight.to(dtype))
+            self.adj = (f_edge, *mesh.host_adjoint_stencil)
 
     def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
         """n >= 1 steps from src into out."""
@@ -358,12 +358,15 @@ def fused_step(state: StructState, mesh: StructMesh, dt) -> StructState:
 
 
 # The size rule of auto_rollout_diff on the card: lattices of at least this
-# many sites (2 * ny2 * nx, the cells) take the tiled reverse. Measured on an
-# H100 (chip_smoke.py phase 8, PERF.md section 5), grad of sum(ssh^2) over
-# 100 levels in f32, with the redesigned forward kernels: the tiled reverse took
-# 0.91-0.92x the fused one's time at 256^2, 0.96x at 128^2 (two runs; its
-# kernel 4-5% faster per launch there) and 1.37x at 64^2.
-TILED_REVERSE_SITES = 128 * 128
+# many sites (2 * ny2 * nx, the cells) take the tiled reverse; none do.
+# Measured on an H100 (chip_smoke.py phase 8, PERF.md section 5), grad of
+# sum(ssh^2) over 100 levels in f32, with both reverse kernels redesigned:
+# the tiled reverse took 0.99-1.01x the fused one's time at 64^2 (both on
+# (4, 8) tiles), 1.05-1.08x at 128^2 and 1.08-1.09x at 256^2 (two runs),
+# where adjoint_step's (4, 12) tile, which does not divide the lattice, is
+# 10-13% faster per launch than the tiled kernel's (4, 8). The tiled reverse
+# stays the route of tiled_rollout_diff and of q > 1.
+TILED_REVERSE_SITES = math.inf
 
 
 def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,

@@ -66,16 +66,18 @@ class StructMesh:
     area_cell: torch.Tensor  # 0-d
     f_edge: torch.Tensor  # (3, 2, ny2, nx)
     resting_thickness_sum: torch.Tensor  # (2, ny2, nx)
-    # the Coriolis stencil as the fused kernel reads it
+    # the Coriolis stencil packed as the kernels read it
     # (kernels/fe_step.pack_stencil): int32 table + weights in the state dtype
     stencil_table: torch.Tensor
     coriolis_weight: torch.Tensor
-    # the same for its transpose, which the adjoint kernel reads
+    # the same for its transpose
     adjoint_table: torch.Tensor
     adjoint_weight: torch.Tensor
-    # (stencil_table as int32, coriolis_weight as float64) in numpy: the
-    # forward kernels take the stencil from the host (kernels/fe_step)
+    # (stencil_table as int32, coriolis_weight as float64) in numpy, and the
+    # same for the transpose: the kernels take the stencils from the host
+    # (kernels/fe_step, kernels/adjoint_step)
     host_stencil: tuple
+    host_adjoint_stencil: tuple
 
     def to(self, device) -> "StructMesh":
         return StructMesh(
@@ -93,6 +95,7 @@ class StructMesh:
             adjoint_table=self.adjoint_table.to(device),
             adjoint_weight=self.adjoint_weight.to(device),
             host_stencil=self.host_stencil,
+            host_adjoint_stencil=self.host_adjoint_stencil,
         )
 
 
@@ -116,9 +119,12 @@ def packed_stencils(terms, dtype) -> dict:
     }
 
 
-def _host_stencil(packed: dict) -> tuple:
-    """StructMesh.host_stencil from ``packed_stencils``' arrays."""
-    return packed["stencil_table"], packed["coriolis_weight"].astype(np.float64)
+def _host_stencil(packed: dict, kind: str = "") -> tuple:
+    """StructMesh.host_stencil (kind "") or host_adjoint_stencil (kind
+    "adjoint_") from ``packed_stencils``' arrays."""
+    table = packed["stencil_table" if not kind else "adjoint_table"]
+    weights = packed["coriolis_weight" if not kind else "adjoint_weight"]
+    return table, weights.astype(np.float64)
 
 
 def struct_mesh_from_numpy(d: dict) -> StructMesh:
@@ -135,6 +141,7 @@ def struct_mesh_from_numpy(d: dict) -> StructMesh:
         **{k: torch.from_numpy(v) for k, v in packed.items()},
         **{k: torch.from_numpy(np.array(d[k])) for k in _MESH_ARRAYS},
         host_stencil=_host_stencil(packed),
+        host_adjoint_stencil=_host_stencil(packed, "adjoint_"),
     )
 
 
@@ -320,12 +327,13 @@ class StructuredModel(nn.Module):
         buf("area_cell", dtype.type(area[0]))
         buf("f_edge", lay.edges_to_struct(np.asarray(horz.edges.f)))
         buf("rts", lay.cells_to_struct(np.asarray(vert.resting_thickness_sum)))
-        # the kernels' device copies of the Coriolis stencil and its
-        # transpose, and the forward kernels' host copy
+        # the Coriolis stencil and its transpose, packed: on the buffers'
+        # device, and the host copies the kernels take
         packed = packed_stencils(self.coriolis_terms, dtype)
         for name, a in packed.items():
             buf(name, a)
         self.host_stencil = _host_stencil(packed)
+        self.host_adjoint_stencil = _host_stencil(packed, "adjoint_")
 
     @property
     def struct_mesh(self) -> StructMesh:
@@ -345,6 +353,7 @@ class StructuredModel(nn.Module):
             adjoint_table=self.adjoint_table,
             adjoint_weight=self.adjoint_weight,
             host_stencil=self.host_stencil,
+            host_adjoint_stencil=self.host_adjoint_stencil,
         )
 
     def to_struct(self, prog: PrognosticVars) -> StructState:

@@ -25,7 +25,8 @@ The planner (``tiled_adjoint_plan``) replaces ``_tiled_adjoint_plan``, the
 TPU's VMEM model ``_adj_window_planes`` and ``_ADJ_TILED_VMEM_BUDGET``: a
 plan fits when one block's share of the window, ``adjoint_window_bytes``,
 fits the card's shared memory (csrc/tiled_adjoint.cu reckons it the same
-way); it takes q = 1 and the largest tile that fits, with
+way); it takes q = 1 and the largest tile whose window leaves room for two
+blocks per SM (else the largest that fits one), with
 ``tiled_model.resolve_plan``'s clamp, and ``group`` from
 ``diff_model.adjoint_plan`` over the n / q supersteps.
 
@@ -74,6 +75,11 @@ __all__ = [
 ]
 
 
+# shared-memory budgets of the tiled adjoint's tile, in order of preference:
+# two blocks per SM, then one
+ADJOINT_BUDGETS = (tiled_adjoint.TWO_BLOCK_BYTES, tiled_adjoint.SMEM_BYTES)
+
+
 def reverse_halo(terms) -> tuple[int, int]:
     """(rows, columns) per side that one step of the reverse reads: the
     larger of the forward step's reach (the recompute, q > 1) and the
@@ -85,12 +91,11 @@ def reverse_halo(terms) -> tuple[int, int]:
 def adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
                          itemsize: int) -> int:
     """Shared memory of one block of the tiled adjoint kernel: its level
-    chunk of q primal states and min(q, 2) cotangents over the window of
-    2q - 1 halos per side, and the window's planes without levels
+    chunk of q primal states and one cotangent (two at q > 1) over the
+    window of 2q - 1 halos per side, and the window's planes without levels
     (csrc/tiled_adjoint.cu: ``smem_bytes``)."""
-    _, kc = tiled_adjoint.level_split(k)
     sites = tiled_adjoint.window_sites(row_tile, col_tile, q, halo)
-    return tiled_adjoint.smem_bytes(sites, kc, q, itemsize)
+    return tiled_adjoint.smem_bytes(sites, row_tile * col_tile, k, q, itemsize)
 
 
 def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *, halo,
@@ -98,11 +103,12 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
     """(row_tile, col_tile, q, group) for the gradient of an n-step rollout
     on ny2 x nx sites and k levels, ``halo`` from ``reverse_halo``: the
     caller's choices completed by ``tiled_model.resolve_plan`` with the
-    adjoint's window (q = 1 and the largest tile that fits by default), and
+    adjoint's window (by default q = 1 and the largest tile whose window
+    leaves room for two blocks per SM, else the largest that fits one), and
     ``group`` supersteps per checkpoint group from ``diff_model.adjoint_plan``
     over n / q supersteps within ``budget`` bytes."""
     rt, ct, q = resolve_plan(ny2, nx, k, itemsize, halo, n_steps, row_tile, col_tile, q,
-                             window=adjoint_window_bytes, budgets=(tiled_adjoint.SMEM_BYTES,))
+                             window=adjoint_window_bytes, budgets=ADJOINT_BUDGETS)
     state_bytes = itemsize * 2 * ny2 * nx * (1 + 4 * k)
     group = adjoint_plan(n_steps // q, state_bytes, budget) if n_steps else 1
     return rt, ct, q, group
@@ -157,10 +163,8 @@ class _TiledSteps(_Steps):
         super().__init__(mesh, dt, like)
         self.rt, self.ct, self.q, _ = plan
         self.halo = reverse_halo(mesh.coriolis_terms)
-        if self.cuda:  # the tiled adjoint kernel reads the stencil on the card
-            dtype = like.dtype
-            self.tiled_adj = (*self.fwd[:2], mesh.stencil_table,
-                              mesh.coriolis_weight.to(dtype), *self.adj[1:])
+        if self.cuda:  # f_edge, rts, the stencil and its transpose
+            self.tiled_adj = (*self.fwd, *self.adj[1:])
 
     def fill(self, stack: StructState, n: int):
         """Slot j + 1 = q steps of slot j, for j < n."""

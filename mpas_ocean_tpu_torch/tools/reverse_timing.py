@@ -77,12 +77,16 @@ def time_size(n: int, group: int) -> dict:
     acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
     halo = reverse_halo(sm.coriolis_terms)
     rt, ct, q, _ = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, group, halo=halo)
+    # the stencils as each checkout's wrappers take them: on the host where
+    # the mesh carries host copies of both, else on the card
+    if hasattr(sm, "host_adjoint_stencil"):
+        fwd, adj = sm.host_stencil, sm.host_adjoint_stencil
+    else:
+        fwd, adj = (sm.stencil_table, sm.coriolis_weight), (sm.adjoint_table, sm.adjoint_weight)
     fused = held_us(lambda: adjoint_step.adjoint_rollout(
-        stack, g_in, sm.f_edge, sm.adjoint_table, sm.adjoint_weight, *scal, group, acc),
-        group)
+        stack, g_in, sm.f_edge, *adj, *scal, group, acc), group)
     tiled = held_us(lambda: tiled_adjoint.tiled_adjoint_rollout(
-        stack, g_in, sm.f_edge, sm.resting_thickness_sum, sm.stencil_table,
-        sm.coriolis_weight, sm.adjoint_table, sm.adjoint_weight, *scal, group // q, acc,
+        stack, g_in, sm.f_edge, sm.resting_thickness_sum, *fwd, *adj, *scal, group // q, acc,
         row_tile=rt, col_tile=ct, q=q, halo=halo), group // q)
     return {"n": n, "group": group, "tiled_plan": [rt, ct, q], "adjoint_step_us": fused,
             "tiled_adjoint_us": tiled}

@@ -1,20 +1,29 @@
-"""Time the tiled kernel's plans and the one-step kernel's tiles on the card.
+"""Time the window kernels' plans and tiles on the card.
 
     python -m mpas_ocean_tpu_torch.tools.tile_sweep [--sizes 256 64] [--steps 40]
-        [--out tile_sweep.json]
+        [--kernels forward reverse] [--out tile_sweep.json]
 
 For each lattice size (n x n cells, 100 levels, f32, the inertial-gravity
-wave at dt = 30 s), each stepper (FE, FB) and each plan (row_tile,
-col_tile, q) of at least 16 sites whose window fits one block's shared
-memory, it times ``tiled_run_loop`` by CUDA events (median of 3 after a
-warm-up); and fe_step (FE) through ``fe_step._rollout`` for each tile of
-powers of two up to 16 x 32 that fits. Prints one line per plan, fastest
-first, with the clusters the card holds at once and the blocks per SM
-(CUDA's occupancy calculator), the plan ``tile_plan`` (or ``fe_tile``)
-picks and its rank (from 0), and writes all the numbers as JSON to
-``--out``; a line on stderr names each plan before it is timed. The
-planners' rules and the FE size rule of ``fused_model`` are read off this
-output (PERF.md). Needs a CUDA device.
+wave at dt = 30 s):
+
+* forward: for each stepper (FE, FB) and each plan (row_tile, col_tile, q)
+  of at least 16 sites whose window fits one block's shared memory, it times
+  ``tiled_run_loop`` by CUDA events (median of 3 after a warm-up); and
+  fe_step (FE) through ``fe_step._rollout`` for each tile of powers of two
+  up to 16 x 32 that fits;
+* reverse: over a stack of ``--steps`` primal states, adjoint_step through
+  ``adjoint_step._rollout`` for each tile of at least 8 sites (rows 1-16,
+  columns 2-32, ragged tiles too) that fits, and ``tiled_adjoint_rollout``
+  for each plan of at least 8 sites that divides the lattice and fits (q = 1
+  and 2), each per launch by ``reverse_timing.held_us`` (median of 3 after
+  a warm-up).
+
+Prints one line per plan, fastest first, with the blocks per SM (CUDA's
+occupancy calculator), the plan the planner (``tile_plan``, ``fe_tile``,
+``adjoint_tile``, ``tiled_adjoint_plan``) picks and its rank (from 0), and
+writes all the numbers as JSON to ``--out``; a line on stderr names each
+plan before it is timed. The planners' rules and the FE size rule of
+``fused_model`` are read off this output (PERF.md). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,10 +40,11 @@ import numpy as np
 import torch
 
 import mpas_ocean_tpu_torch as mt
-from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
-from mpas_ocean_tpu_torch.structured import tile_plan, tiled_run_loop
+from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint, tiled_step
+from mpas_ocean_tpu_torch.structured import tile_plan, tiled_adjoint_plan, tiled_run_loop
 from mpas_ocean_tpu_torch.structured.fused_model import _scal
 from mpas_ocean_tpu_torch.structured.slab import stencil_reach
+from mpas_ocean_tpu_torch.structured.tiled_diff import adjoint_window_bytes, reverse_halo
 from mpas_ocean_tpu_torch.structured.tiled_model import resolve_plan, window_bytes
 
 LEVELS, DT, REPS = 100, 30.0, 3
@@ -105,13 +115,105 @@ def fe_tiles(ny2: int, nx: int, k: int, itemsize: int):
     return [t for t in tiles if fe_step.smem_bytes(t, k, itemsize) <= fe_step.SMEM_BYTES]
 
 
-def sweep(sizes, n_steps: int) -> dict:
+def reverse_tiles(ny2: int, nx: int, k: int, itemsize: int):
+    """adjoint_step's candidate tiles: rows 1-16 and columns 2-32 of at least
+    8 sites, cut to the lattice (ragged tiles included), whose window fits
+    one block's shared memory."""
+    tiles = dict.fromkeys((min(rt, ny2), min(ct, nx)) for rt in adjoint_step.TILE_ROWS
+                          for ct in adjoint_step.TILE_COLS if rt * ct >= 8)
+    return [t for t in tiles if adjoint_step.smem_bytes(t, k, itemsize) <= fe_step.SMEM_BYTES]
+
+
+def reverse_plans(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int):
+    """The tiled adjoint's candidate plans: tiles up to 32 sites a side of
+    at least 8 sites that divide the lattice, q = 1 and 2 (dividing
+    n_steps), kept by the clamp and fitting one block's shared memory."""
+    for q in (1, 2):
+        if n_steps % q:
+            continue
+        for rt in (d for d in range(1, min(ny2, 32) + 1) if ny2 % d == 0):
+            for ct in (d for d in range(1, min(nx, 32) + 1) if nx % d == 0):
+                if (rt * ct >= 8
+                        and resolve_plan(ny2, nx, k, itemsize, halo, n_steps, rt, ct, q)
+                        == (rt, ct, q)
+                        and adjoint_window_bytes(rt, ct, q, halo, k, itemsize)
+                        <= fe_step.SMEM_BYTES):
+                    yield rt, ct, q
+
+
+def reverse_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
+    """Per-launch device times of both reverse kernels over every tile and
+    plan that fits, from a stack of n_steps primal states of the lattice."""
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    sm = model.struct_mesh
+    scal = _scal(sm, DT, torch.float32)
+    fields = (st.ssh, st.layer_thickness, st.normal_velocity)
+    stack = tuple(torch.empty((n_steps, *x.shape), dtype=x.dtype, device=x.device)
+                  for x in fields)
+    for dst, x in zip(stack, fields):
+        dst[0].copy_(x)
+    fe_step.fe_fill_stack(stack, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+                          *scal, n_steps - 1)
+    gen = torch.Generator(device=st.ssh.device).manual_seed(15)
+    g_in = tuple(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+                 for x in fields)
+    acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
+    table = sm.host_adjoint_stencil[0]
+    rows = []
+    for tile in reverse_tiles(sm.ny2, sm.nx, LEVELS, 4):
+        progress(f"{n}: adjoint_step {tile}")
+        t = held_us(lambda: adjoint_step._rollout(
+            stack, g_in, sm.f_edge, *sm.host_adjoint_stencil, scal, n_steps, acc, None, None,
+            tile), n_steps, REPS)
+        rows.append((tile, t, adjoint_step.launch_plan(table, sm.ny2, sm.nx, LEVELS, tile)))
+    rows.sort(key=lambda r: statistics.median(r[1]))
+    chosen = adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4)
+    rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
+    print(f"{n}x{n}x{LEVELS} f32: adjoint_step, {len(rows)} tiles; adjoint_tile picks "
+          f"{chosen}, rank {rank} [{gpu}]", flush=True)
+    for tile, t, lp in rows:
+        print(f"    adjoint_step {tile}: {statistics.median(t):.3f} us/launch (min "
+              f"{min(t):.3f}, max {max(t):.3f}); {lp['smem_bytes']} bytes, "
+              f"{lp['blocks_per_sm']} blocks per SM, {lp['clusters']} clusters", flush=True)
+    entry = {"adjoint_step": [{"tile": p, "us_per_launch": t, **lp} for p, t, lp in rows],
+             "adjoint_step_chosen": chosen}
+    halo = reverse_halo(sm.coriolis_terms)
+    rows = []
+    for rt, ct, q in reverse_plans(sm.ny2, sm.nx, LEVELS, 4, halo, n_steps):
+        progress(f"{n}: tiled_adjoint {(rt, ct, q)}")
+        t = held_us(lambda: tiled_adjoint.tiled_adjoint_rollout(
+            stack, g_in, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+            *sm.host_adjoint_stencil, *scal, n_steps // q, acc, row_tile=rt, col_tile=ct, q=q,
+            halo=halo), n_steps // q, REPS)
+        rows.append(((rt, ct, q), [x / q for x in t],
+                     tiled_adjoint.occupancy(rt, ct, q, halo, LEVELS)))
+    rows.sort(key=lambda r: statistics.median(r[1]))
+    chosen = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n_steps, halo=halo)[:3]
+    rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
+    print(f"  tiled_adjoint: {len(rows)} plans; tiled_adjoint_plan picks {chosen}, rank "
+          f"{rank}", flush=True)
+    for plan, t, (smem, bps) in rows:
+        print(f"    tiled_adjoint {plan}: {statistics.median(t):.3f} us/step (min "
+              f"{min(t):.3f}, max {max(t):.3f}); {smem} bytes, {bps} blocks per SM",
+              flush=True)
+    entry["tiled_adjoint"] = [{"plan": p, "us_per_step": t, "smem_bytes": smem,
+                               "blocks_per_sm": bps} for p, t, (smem, bps) in rows]
+    entry["tiled_adjoint_chosen"] = chosen
+    return entry
+
+
+def sweep(sizes, n_steps: int, kernels=("forward", "reverse")) -> dict:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     result = {"gpu": gpu, "levels": LEVELS, "steps": n_steps, "sizes": {}}
     for n in sizes:
         model, st = igw_lattice(n)
+        if "reverse" in kernels:
+            result.setdefault("reverse", {})[str(n)] = reverse_sweep(n, model, st, n_steps, gpu)
+        if "forward" not in kernels:
+            continue
         sm = model.struct_mesh
         scal = _scal(sm, DT, torch.float32)
         consts = (sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil)
@@ -167,11 +269,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[256, 64])
     ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--kernels", nargs="+", choices=("forward", "reverse"),
+                    default=["forward", "reverse"])
     ap.add_argument("--out", type=Path, default=Path("tile_sweep.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep needs a CUDA device")
-    result = sweep(args.sizes, args.steps)
+    result = sweep(args.sizes, args.steps, args.kernels)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     return 0

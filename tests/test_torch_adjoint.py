@@ -402,9 +402,8 @@ def test_adjoint_wrapper_refuses_cpu_tensors(lattice):
     stack = tuple(x[None] for x in _fields(state))
     with pytest.raises(ValueError, match="CUDA"):
         adjoint_step.adjoint_rollout(
-            stack, tuple(_fields(state)), mesh.f_edge, mesh.adjoint_table,
-            mesh.adjoint_weight, DT, 1e-3, 1e-3, 1,
-            torch.zeros(1, dtype=torch.float64))
+            stack, tuple(_fields(state)), mesh.f_edge, *mesh.host_adjoint_stencil,
+            DT, 1e-3, 1e-3, 1, torch.zeros(1, dtype=torch.float64))
     with pytest.raises(ValueError, match="no rollout"):
         fused_adjoint_rollout(StructState(*(x.to("meta") for x in _fields(state))),
                               mesh, DT, 2, state, plan=1)

@@ -19,8 +19,9 @@ from mpas_ocean_tpu_torch.structured import (
     structured_adjoint_step,
     structured_run_loop,
 )
+from mpas_ocean_tpu_torch.structured.fused_model import _scal
 
-from torch_gpu_cases import FIELDS, cuda, random_lattice  # noqa: F401 (fixture)
+from torch_gpu_cases import FIELDS, cuda, random_lattice, reversed_terms_mesh  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -78,6 +79,81 @@ def test_adjoint_kernel_matches_plain_f64(cuda, shape, dc, n_steps):
     for f in FIELDS:
         a, b = getattr(out, f), getattr(whole, f)
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, f
+
+
+@pytest.mark.parametrize("shape, tile", [
+    ((16, 16, 4), (4, 8)),     # the planner's tile at 100 f32 levels
+    ((16, 16, 4), (3, 5)),     # ragged tiles in both directions
+    ((10, 12, 33), (4, 8)),    # ragged rows and columns; 33 levels in chunks of 8, the last of 1
+    ((32, 32, 100), (4, 8)),   # 7 chunks of 16 levels, the last of 4; 16-byte copies
+    ((8, 8, 4), (4, 8)),       # one tile, its window wraps over the 4 x 8 lattice
+])
+def test_adjoint_kernel_tiles_match_plain_f64(cuda, shape, tile):
+    """f64, 5 reverse steps over the given tile: against the plain adjoint
+    step back through the same primal states, 1e-12 of each field's
+    magnitude and of d(dt); a rerun gives the same bits; one launch per
+    step."""
+    model, st = random_lattice(*shape, cuda)
+    sm = model.struct_mesh
+    g = _cotangent(st, 8)
+    n = 5
+    stack = tuple(torch.empty((n, *getattr(st, f).shape), dtype=torch.float64, device=cuda)
+                  for f in FIELDS)
+    states = [st]
+    for _ in range(n - 1):
+        states.append(fused_run_loop(states[-1], sm, DT, 1))
+    for j, s in enumerate(states):
+        for dst, f in zip(stack, FIELDS):
+            dst[j].copy_(getattr(s, f))
+    scal = _scal(sm, DT, torch.float64)
+
+    def run():
+        ddt = torch.zeros(1, dtype=torch.float64, device=cuda)
+        out = adjoint_step._rollout(stack, tuple(getattr(g, f) for f in FIELDS), sm.f_edge,
+                                    *sm.host_adjoint_stencil, scal, n, ddt, None, None, tile)
+        return out, ddt
+
+    adjoint_step.launches = 0
+    (out, ddt), (again, ddt_again) = run(), run()
+    assert adjoint_step.launches == 2 * n
+    ref, ref_dt = _plain_reverse(states, g, sm)
+    torch.cuda.synchronize()
+    for x, y, z, f in zip(out, again, (ref.ssh, ref.layer_thickness, ref.normal_velocity),
+                          FIELDS):
+        assert float((x - z).abs().max() / z.abs().max()) <= 1e-12, f
+        assert torch.equal(x, y), f
+    assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
+    assert torch.equal(ddt, ddt_again)
+
+
+def test_adjoint_kernel_plan_matches_the_wrappers_reckoning(cuda):
+    """The kernel's own shared memory per block for the planner's tile is
+    what adjoint_step.smem_bytes reckons, and at 100 f32 levels two blocks
+    share an SM: (4, 8) at 64x64, (4, 12) at 256x256."""
+    model, st = random_lattice(64, 64, 4, cuda)
+    table = model.struct_mesh.host_adjoint_stencil[0]
+    for ny2, nx, k in ((32, 64, 100), (128, 256, 100), (32, 64, 33)):
+        tile = adjoint_step.adjoint_tile(ny2, nx, k, 4)
+        plan = adjoint_step.launch_plan(table, ny2, nx, k, tile)
+        assert plan["smem_bytes"] == adjoint_step.smem_bytes(tile, k, 4)
+        assert plan["clusters"] == -(-ny2 // tile[0]) * -(-nx // tile[1])
+        if k == 100:
+            assert tile == ((4, 8) if nx == 64 else (4, 12)) and plan["blocks_per_sm"] == 2
+
+
+def test_adjoint_kernel_refuses_a_table_that_does_not_map(cuda):
+    """The same stencil with each channel's terms in reverse order does not
+    map as hex_adj:: lists it: the wrapper raises ValueError."""
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    stack = tuple(getattr(st, f)[None] for f in FIELDS)
+    g_in = tuple(getattr(_cotangent(st, 9), f) for f in FIELDS)
+    ddt = torch.zeros(1, dtype=torch.float64, device=cuda)
+    args = (DT, 1e-3, 1e-3, 1, ddt)
+    adjoint_step.adjoint_rollout(stack, g_in, sm.f_edge, *sm.host_adjoint_stencil, *args)
+    with pytest.raises(ValueError, match="hex lattice"):
+        adjoint_step.adjoint_rollout(stack, g_in, sm.f_edge,
+                                     *reversed_terms_mesh(sm).host_adjoint_stencil, *args)
 
 
 def test_adjoint_kernel_counts_launches_and_repeats_bitwise(cuda):
@@ -139,7 +215,7 @@ def test_adjoint_kernel_rejects_what_it_does_not_take(cuda):
         fused_adjoint_rollout(half, sm, DT, 1, g)
     stack = tuple(getattr(st, f)[None] for f in FIELDS)
     ddt = torch.zeros(1, dtype=torch.float64, device=cuda)
-    args = (sm.f_edge, sm.adjoint_table, sm.adjoint_weight, DT, 1e-3, 1e-3, 1, ddt)
+    args = (sm.f_edge, *sm.host_adjoint_stencil, DT, 1e-3, 1e-3, 1, ddt)
     with pytest.raises(ValueError):
         bad = (stack[0], stack[1], stack[2][:, :, :, :, :-1])
         adjoint_step.adjoint_rollout(bad, tuple(getattr(g, f) for f in FIELDS), *args)

@@ -216,20 +216,19 @@ def test_adjoint_stencil_reach_of_the_tables(lattice16):
 @pytest.mark.parametrize("shape", [(128, 256, 100), (32, 64, 100)])
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_tiled_adjoint_plan_fits(shape, itemsize):
-    """The planner's tiles divide the lattice, the adjoint window fits one
-    block's shared memory, q divides n_steps, and group is adjoint_plan's
-    over the supersteps."""
+    """The planner's tiles divide the lattice, the adjoint window leaves
+    room for two blocks per SM, q divides n_steps, and group is
+    adjoint_plan's over the supersteps."""
     ny2, nx, k = shape
     halo = (1, 2)
     state_bytes = itemsize * 2 * ny2 * nx * (1 + 4 * k)
     for n_steps in (100, 6, 5):
         rt, ct, q, group = tiled_adjoint_plan(ny2, nx, k, itemsize, n_steps, halo=halo)
         assert ny2 % rt == 0 and nx % ct == 0 and n_steps % q == 0 and q == 1
-        assert adjoint_window_bytes(rt, ct, q, halo, k, itemsize) <= tiled_step.SMEM_BYTES
+        assert adjoint_window_bytes(rt, ct, q, halo, k, itemsize) <= tiled_step.TWO_BLOCK_BYTES
         assert group == adjoint_plan(n_steps // q, state_bytes, float("inf"))
-    if shape == (128, 256, 100):
-        want = (8, 16) if itemsize == 4 else (4, 16)
-        assert tiled_adjoint_plan(ny2, nx, k, itemsize, 100, halo=halo)[:2] == want
+    want = (4, 8) if itemsize == 4 else (2, 8)
+    assert tiled_adjoint_plan(ny2, nx, k, itemsize, 100, halo=halo)[:2] == want
     # a caller's q is kept where it divides n_steps, and its window must fit
     rt, ct, q, group = tiled_adjoint_plan(ny2, nx, k, itemsize, 100, halo=halo,
                                           row_tile=2, col_tile=4, q=2)
@@ -258,8 +257,8 @@ def test_tiled_adjoint_wrapper_refuses_cpu_tensors(lattice8):
     with pytest.raises(ValueError, match="CUDA"):
         tiled_adjoint.tiled_adjoint_rollout(
             stack, tuple(_fields(state)), mesh.f_edge, mesh.resting_thickness_sum,
-            mesh.stencil_table, mesh.coriolis_weight, mesh.adjoint_table,
-            mesh.adjoint_weight, DT, 1e-3, 1e-3, 1, torch.zeros(1, dtype=torch.float64),
+            *mesh.host_stencil, *mesh.host_adjoint_stencil, DT, 1e-3, 1e-3, 1,
+            torch.zeros(1, dtype=torch.float64),
             row_tile=2, col_tile=4, q=1, halo=(1, 2))
 
 
@@ -297,7 +296,7 @@ def _walk_tiled_adjoint_launch(ssh, h, u, gs, gh, gu, f, rts, table, w, adj_tabl
     (6, ny2, nx), rts (2, ny2, nx). Returns (ds, dh, du, d(dt))."""
     _, ny2, nx, k = h.shape
     hm, hi = halo
-    ranks, kc = tiled_adjoint.level_split(k)
+    ranks, kc = tiled_adjoint.level_split(k, q)
     span = 2 * q - 1
     wm, wi = rt + 2 * hm * span, ct + 2 * hi * span
     nbr, inc, off = table[1:19].reshape(6, 3), table[19:37].reshape(6, 3), table[37:44]
@@ -317,18 +316,14 @@ def _walk_tiled_adjoint_launch(ssh, h, u, gs, gh, gu, f, rts, table, w, adj_tabl
 
     def level_sum(x, combine=lambda parts: parts[0]):
         """Column sums of x (columns, sites, K) as the cluster takes them:
-        each rank sums its levels in order per column, ``combine`` joins its
-        columns' sums, then the ranks' partials are added in rank order."""
+        ``combine`` joins the columns per level, each rank sums its levels,
+        then the ranks' partials are added in rank order."""
         col = None
         for rank in range(ranks):
-            parts = []
-            for xc in x:
-                lv = xc[:, rank * kc:min(k, (rank + 1) * kc)]
-                part = lv[:, 0].copy()
-                for kl in range(1, lv.shape[1]):
-                    part = part + lv[:, kl]
-                parts.append(part)
-            part = combine(parts)
+            lv = [xc[:, rank * kc:min(k, (rank + 1) * kc)] for xc in x]
+            part = combine([xc[:, 0] for xc in lv])
+            for kl in range(1, lv[0].shape[1]):
+                part = part + combine([xc[:, kl] for xc in lv])
             col = part if col is None else col + part
         return col
 

@@ -21,7 +21,7 @@ from mpas_ocean_tpu_torch.structured import (
     tiled_rollout_diff,
 )
 
-from torch_gpu_cases import FIELDS, cuda, random_lattice  # noqa: F401 (fixture)
+from torch_gpu_cases import FIELDS, cuda, random_lattice, reversed_terms_mesh  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -57,7 +57,8 @@ def _plain_reverse(st, sm, n, g, rt, ct, q):
     ((64, 64, 4), (4, 4)),
     ((64, 64, 4), (8, 16)),
     ((64, 64, 4), (16, 2)),
-    ((10, 12, 33), (3, 5)),   # 33 levels: clusters of 7 blocks, the last with 3
+    ((10, 12, 33), (3, 5)),   # 33 levels: q = 1 in 5 chunks of 8, q = 2 in 7 of 5
+    ((64, 64, 4), (4, 8)),    # the planner's tile at 100 f32 levels
 ])
 def test_kernel_matches_plain_f64(cuda, shape, tile, q):
     """6 steps, f64: the kernel sweep and the plain superstep on the same
@@ -80,6 +81,63 @@ def test_kernel_matches_plain_f64(cuda, shape, tile, q):
         assert torch.equal(a, getattr(again, f)), f
     assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
     assert torch.equal(ddt, ddt_again)
+
+
+@pytest.mark.parametrize("shape, tile", [((32, 32, 100), (4, 8)), ((16, 16, 100), (2, 8))])
+def test_kernel_matches_plain_f64_at_full_depth(cuda, shape, tile):
+    """q = 1 at 100 levels, f64: 7 chunks of 16 levels (the last of 4)
+    moved by 16-byte copies; 3 reverse steps against the plain superstep,
+    1e-12 of each field's magnitude and of d(dt), bitwise reruns."""
+    model, st = random_lattice(*shape, cuda)
+    sm = model.struct_mesh
+    g = _cotangent(st, 10)
+    plan = (*tile, 1, 3)
+    out, ddt = tiled_adjoint_rollout(st, sm, DT, 3, g, plan=plan)
+    again, ddt_again = tiled_adjoint_rollout(st, sm, DT, 3, g, plan=plan)
+    ref, ref_dt = _plain_reverse(st, sm, 3, g, *tile, 1)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        a, b = getattr(out, f), getattr(ref, f)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, f
+        assert torch.equal(a, getattr(again, f)), f
+    assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
+    assert torch.equal(ddt, ddt_again)
+
+
+def test_occupancy_matches_the_wrappers_reckoning(cuda):
+    """The kernel's own shared memory per block is what
+    tiled_adjoint.smem_bytes reckons, at q = 1 and 2; the planner's plan at
+    100 f32 levels puts two blocks on an SM."""
+    halo = (1, 2)
+    for rt, ct, q, k in ((4, 8, 1, 100), (2, 4, 2, 100), (3, 5, 2, 33), (8, 16, 1, 4)):
+        smem, per_sm = tiled_adjoint.occupancy(rt, ct, q, halo, k)
+        assert smem == tiled_adjoint.smem_bytes(tiled_adjoint.window_sites(rt, ct, q, halo),
+                                                rt * ct, k, q, 4)
+        if (rt, ct, q, k) == (4, 8, 1, 100):
+            assert per_sm == 2
+    assert tiled_diff.tiled_adjoint_plan(128, 256, 100, 4, 100, halo=halo)[:3] == (4, 8, 1)
+
+
+@pytest.mark.parametrize("q", [1, 2])
+def test_kernel_refuses_a_table_that_does_not_map(cuda, q):
+    """The same stencil with each channel's terms in reverse order maps
+    neither as hex:: nor as hex_adj:: lists it: the wrapper raises
+    ValueError for either table."""
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    bad = reversed_terms_mesh(sm)
+    stack = tuple(getattr(st, f)[None] for f in FIELDS)
+    g_in = tuple(getattr(_cotangent(st, 9), f) for f in FIELDS)
+    ddt = torch.zeros(1, dtype=torch.float64, device=cuda)
+    consts = (sm.f_edge, sm.resting_thickness_sum)
+    run = lambda fwd, adj: tiled_adjoint.tiled_adjoint_rollout(
+        stack, g_in, *consts, *fwd, *adj, DT, 1e-3, 1e-3, 1, ddt, row_tile=4, col_tile=8,
+        q=q, halo=(1, 2))
+    run(sm.host_stencil, sm.host_adjoint_stencil)
+    for fwd, adj in ((sm.host_stencil, bad.host_adjoint_stencil),
+                     (bad.host_stencil, sm.host_adjoint_stencil)):
+        with pytest.raises(ValueError, match="hex lattice"):
+            run(fwd, adj)
 
 
 @pytest.mark.parametrize("q", [1, 2])
@@ -152,8 +210,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     g = _cotangent(st, 7)
     stack = tuple(getattr(st, f)[None] for f in FIELDS)
     ddt = torch.zeros(1, dtype=torch.float64, device=cuda)
-    args = (sm.f_edge, sm.resting_thickness_sum, sm.stencil_table, sm.coriolis_weight,
-            sm.adjoint_table, sm.adjoint_weight, DT, 1e-3, 1e-3, 1, ddt)
+    args = (sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil, *sm.host_adjoint_stencil,
+            DT, 1e-3, 1e-3, 1, ddt)
     g_in = tuple(getattr(g, f) for f in FIELDS)
     with pytest.raises(ValueError, match="shared memory"):
         tiled_adjoint.tiled_adjoint_rollout(stack, g_in, *args, row_tile=8, col_tile=16,

@@ -1,6 +1,7 @@
 """Shared inputs for the port's tests on a CUDA card
 (tests/test_torch_kernel.py, tests/test_torch_adjoint_kernel.py,
-tests/test_torch_tiled_kernel.py). They import
+tests/test_torch_tiled_kernel.py, tests/test_torch_tiled_adjoint_kernel.py).
+They import
 no JAX, so they run on a GPU machine without it."""
 
 import numpy as np
@@ -40,9 +41,9 @@ def random_lattice(nx, ny, k, device, seed=7, dc=1000.0, dtype=np.float64):
 
 def reversed_terms_mesh(mesh):
     """``mesh`` with each output channel's Coriolis terms in reverse order:
-    the same stencil summed in another order, whose packed table no longer
-    maps as the hex lattice's (csrc/step_window.cuh, ``hex::``), so the
-    forward kernels refuse it."""
+    the same stencil summed in another order, whose packed tables no longer
+    map as the hex lattice's (csrc/step_window.cuh, ``hex::``;
+    csrc/adjoint_window.cuh, ``hex_adj::``), so the kernels refuse them."""
     d = mt.structured.struct_mesh_to_numpy(mesh)
     d["coriolis_terms"] = tuple(reversed(mesh.coriolis_terms))
     return mt.structured.struct_mesh_from_numpy(d).to(mesh.f_edge.device)
