@@ -38,7 +38,26 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      f32 over 100 steps (bench.py's large-mesh tiled adjoint) with launch
      counts, timing and a profiler breakdown, and the numbers behind
      auto_rollout_diff's size rule (both reverse kernels per launch at 64^2,
-     128^2, 256^2; both grads at 256^2 and 64^2).
+     128^2, 256^2; both grads at 256^2 and 64^2);
+  9. (run right after phase 2) the card's measured peaks, kernel 5: the FMA
+     probe (bench.py's measure_vpu_peak) in shared memory and in registers,
+     f32 and f64, and the stream probe through device memory and through
+     L2, each against its plain version, then their rates; every bound and
+     share printed after it divides by the ceilings (at each level the
+     highest of the data sheet's rate, the probe's and its plain
+     version's), with the bounds at the probes' rates and at the data
+     sheet's beside;
+ 10. the coastal Kelvin channel forward (bench.py's build_kelvin): the
+     masked arms of fe_step (FE) and tiled_step (FB) against the plain
+     masked steps (f64 and f32), the main path at 64x64x100 f32 over 8000
+     FE steps with its launches and live gridpoints per second, FB over
+     1000, 256x256x100 FE and FB over 1000, the walls closed bit for bit,
+     the Kelvin ssh error against the exact wave, masked beside periodic;
+ 11. the gradient on the channel: the masked arms of adjoint_step and
+     tiled_adjoint against the plain masked reverse (f64 and f32), the
+     dot-product identity, the 64x64x100 4000-step grad through
+     auto_rollout_diff and the 256x256x100 100-step grad through
+     tiled_rollout_diff with launch counts, times and profiler breakdowns.
 The line before the last prints the GPU's name and power limit as nvidia-smi
 gives them, the one before it the kernels' JSON summary, and the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
@@ -64,24 +83,45 @@ LARGE_ADJ_STEPS = max(10, HEADLINE_STEPS // 80)
 # kernel-vs-plain check's length
 LARGE_MAIN_STEPS, TILED_CHECK_STEPS = HEADLINE_STEPS // 8, 100
 REPS = 3
+# On the Kelvin channel the f32 u check holds the kernel's distance from an
+# f64 plain run to this many times the plain f32 run's: sound runs read
+# x0.99-1.03 of it, the plain run with u stored in fp16 x8.9-9.2 and in
+# bf16 x62 (PERF.md section 2), and phase 10 fails if a control passes.
+U_GAP_FACTOR = 3
 
 # Earlier times, f32, on an NVIDIA H100 80GB HBM3 at 700 W, printed beside
-# this run's: the kernels and grads as they were before the reverse kernels'
-# redesign (PERF.md): the forward kernels per step by CUDA events, the
-# reverse kernels per launch by the held-stream timer of phases 6 and 8
-# (tools/reverse_timing.py).
+# this run's, against which PERF.md section 2's 5% bound holds the periodic
+# main path: the forward kernels per step by CUDA events, the reverse
+# kernels per launch by the held-stream timer of phases 6 and 8
+# (tools/reverse_timing.py) and the grads, as PERF.md records them after
+# the reverse kernels' redesign.
 EARLIER_US = {
     "fe_step 64": 13.943, "fe_step 256": 184.883,
     "tiled_step FB 64": 19.931, "tiled_step FB 256": 276.334,
-    "adjoint_step 64": 38.24, "adjoint_step 128": 165.29, "adjoint_step 256": 652.89,
-    "tiled_adjoint 64": 62.72, "tiled_adjoint 128": 154.63, "tiled_adjoint 256": 553.12,
+    "adjoint_step 64": 24.747, "adjoint_step 128": 80.112, "adjoint_step 256": 288.599,
+    "tiled_adjoint 64": 25.067, "tiled_adjoint 128": 89.002, "tiled_adjoint 256": 333.534,
 }
-EARLIER_GRAD_S = {64: 0.273416, 256: 0.0939624}
+EARLIER_GRAD_S = {64: 0.213139, 256: 0.0732726}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM
-# bytes/s, and non-tensor-core FLOP/s per dtype itemsize.
-HBM_RATE = 3.35e12
-PEAK_FLOPS = {4: 67e12, 8: 34e12}
+# bytes/s, and non-tensor-core FLOP/s per dtype itemsize. The data sheet
+# gives no L2 rate; the bounds before the probes divided every lattice's
+# bytes by the HBM rate, so "l2" repeats it.
+DATASHEET = {"hbm": 3.35e12, "l2": 3.35e12, "flops": {4: 67e12, 8: 34e12}}
+# The same rates as phase 9's probes measure them on this card
+# (tools/peaks.py).
+MEASURED: dict = {}
+# The divisor of every bound and share this script prints: at each level
+# the highest rate the card is shown to reach, the data sheet's, the
+# probe's or its plain version's (phase 9), so that no bound is taken at a
+# rate below one the card reaches.
+CEILING: dict = {}
+# A lattice whose step reads and writes at most this many bytes of state
+# (2 state passes) streams from L2 (50 MB on an H100; the margin leaves room
+# for the constants and the other buffers): the 64x64x100 state (13 MB per
+# pass in f32, 26 MB in f64) does, the 128^2 and 256^2 ones (53 and 210 MB)
+# do not.
+L2_PASS_BYTES = 40e6
 
 
 T0 = time.perf_counter()
@@ -151,6 +191,82 @@ def random_case(n: int, levels: int, seed: int = 7):
     return model, prog
 
 
+def kelvin_case(n: int, levels: int, np_dtype, device=None):
+    """bench.py's build_kelvin at n x n cells: the periodic hex lattice over a
+    10000 km box with its first and last cell rows culled (a channel with
+    walls north and south), levels of 1000 m / levels, the coastal Kelvin
+    wave, and the masked StructuredModel. Returns (the culled HorzMesh, the
+    KelvinWave, the model, the state)."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+
+    dc = 10000.0e3 / n
+    horz = mt.planar_hex_mesh(n, n, dc, f0=1e-4, dtype=np_dtype)
+    y = np.asarray(horz.cells.y)
+    keep = (y > 0.5 * dc) & (y < y.max() - 0.5 * dc)
+    chan = mt.cull_cells(horz, keep)
+    vert = mt.make_vertical_mesh(
+        chan, levels,
+        resting_thickness=np.full((chan.n_cells, levels), 1000.0 / levels, dtype=np_dtype),
+        dtype=np_dtype,
+    )
+    kw = mt.KelvinWave(lx=n * dc / 1e3, f0=1e-4)
+    ssh, h, u = kw.initial_state(chan, levels)
+    prog = mt.PrognosticVars(
+        ssh=torch.from_numpy(ssh.astype(np_dtype)),
+        layer_thickness=torch.from_numpy(h.astype(np_dtype)),
+        normal_velocity=torch.from_numpy(u.astype(np_dtype)),
+    )
+    model = mt.StructuredModel(mt.Mesh(horz=chan, vert=vert), n, n, device=device,
+                               parent_horz=horz, keep_cells=keep)
+    return chan, kw, model, prog
+
+
+def random_channel(n: int, levels: int, seed: int = 7):
+    """A random f64 channel state (numpy seed): random_case's lattice with
+    its first and last cell rows culled, the state on the live cells."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+
+    horz = mt.planar_hex_mesh(n, n, 1000.0, f0=1e-4, beta=1e-11)
+    y = np.asarray(horz.cells.y)
+    keep = (y > 500.0) & (y < y.max() - 500.0)
+    chan = mt.cull_cells(horz, keep)
+    vert = mt.make_vertical_mesh(
+        chan, levels, resting_thickness=np.full((chan.n_cells, levels), 10.0)
+    )
+    rng = np.random.default_rng(seed)
+    h = 10.0 + 0.01 * rng.normal(size=(chan.n_cells, levels))
+    u = 0.01 * rng.normal(size=(chan.n_edges, levels))
+    prog = mt.PrognosticVars(
+        ssh=torch.from_numpy(h.sum(1) - vert.resting_thickness_sum),
+        layer_thickness=torch.from_numpy(h),
+        normal_velocity=torch.from_numpy(u),
+    )
+    model = mt.StructuredModel(mt.Mesh(horz=chan, vert=vert), n, n,
+                               parent_horz=horz, keep_cells=keep)
+    return model, prog
+
+
+def check_walls(state, mesh, what: str) -> None:
+    """u is +0.0, bit for bit, on every edge the wall mask closes, and h is 0
+    on every culled cell."""
+    import torch
+
+    u = state.normal_velocity
+    closed = u.masked_select((mesh.edge_mask == 0)[..., None].expand_as(u))
+    if not (bool((closed == 0).all()) and not bool(torch.signbit(closed).any())):
+        raise AssertionError(f"{what}: u is not +0.0 on every wall and culled edge")
+    h = state.layer_thickness
+    dead = h.masked_select((mesh.cell_mask == 0)[..., None].expand_as(h))
+    if not bool((dead == 0).all()):
+        raise AssertionError(f"{what}: h is not 0 on every culled cell")
+
+
 FIELDS = ("ssh", "layer_thickness", "normal_velocity")
 
 
@@ -202,12 +318,32 @@ def rate_line(name: str, per_step: list, sites: int, gpu: str, earlier: str = ""
     )
 
 
-def share_line(name: str, per_step: list, bound_s: float) -> str:
-    """A kernel's median time beside its bound: the share of the bound it
-    reaches."""
+def alt_bounds(fn, *args) -> dict:
+    """The bound (seconds) of ``fn`` (step_bound or tiled_bounds) at the
+    probes' own rates and at the data sheet's, beside the ceilings'."""
+    return {"probe": fn(*args, MEASURED)[0], "datasheet": fn(*args, DATASHEET)[0]}
+
+
+def alt_keys(prefix: str, alts: dict, scale: float) -> dict:
+    """Entries of the kernels line for ``alt_bounds``, scaled."""
+    return {f"{prefix}_{k}": v * scale for k, v in alts.items()}
+
+
+def share_line(name: str, per_step: list, bound_s: float, alts: dict) -> str:
+    """A kernel's median time beside its bound at the ceilings, at the
+    probes' rates and at the data sheet's (the shares printed before the probes): the
+    share of each it reaches."""
     med = statistics.median(per_step)
-    return (f"{name}: {med * 1e6:.3f} us per step against a bound of {bound_s * 1e6:.3f} us: "
-            f"{bound_s / med:.4f} of the bound")
+    return (f"{name}: {med * 1e6:.3f} us per step against a bound of {bound_s * 1e6:.3f} us "
+            f"at the ceilings: {bound_s / med:.4f} of the bound (at the probes' rates "
+            f"{alts['probe'] * 1e6:.3f} us: {alts['probe'] / med:.4f}; at the data sheet's "
+            f"{alts['datasheet'] * 1e6:.3f} us: {alts['datasheet'] / med:.4f})")
+
+
+def byte_rate(peaks: dict, state_bytes: float) -> float:
+    """The byte rate a lattice's step streams at: L2's where two passes of
+    its state fit L2_PASS_BYTES, device memory's beyond."""
+    return peaks["l2"] if 2 * state_bytes <= L2_PASS_BYTES else peaks["hbm"]
 
 
 def cuda_times(fn, reps: int) -> list:
@@ -234,10 +370,13 @@ def spread(times: list, scale: float = 1.0, unit: str = "s") -> str:
             f"max {max(t):.6g})")
 
 
-def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int):
+def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int,
+               peaks: dict | None = None):
     """(bound seconds, "bytes" or "operations") of one step of a kernel:
-    each input read once and each output written once, over the HBM rate;
-    the arithmetic counted from the kernel's source, over the dtype's peak.
+    each input read once and each output written once, over the byte rate
+    (``byte_rate``: L2's or device memory's); the arithmetic counted from
+    the kernel's source, over the dtype's FMA rate. ``peaks`` are the rates,
+    CEILING (phase 9) by default, MEASURED or DATASHEET.
     fe_step reads a state (ssh, h, u), f_edge, rts and the table and writes
     a state; per cell-level it does 24 flux/update operations, 4 per owned
     edge for u and 3 per Coriolis tap (1.5 n_terms). adjoint_step reads a
@@ -253,40 +392,47 @@ def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int
     else:
         nbytes = itemsize * (3 * state + 3 * cells) + 8 + table
         ops = cells * k * (81 + n_terms)
-    t_bytes, t_ops = nbytes / HBM_RATE, ops / PEAK_FLOPS[itemsize]
+    peaks = CEILING if peaks is None else peaks
+    rate = byte_rate(peaks, itemsize * state)
+    t_bytes, t_ops = nbytes / rate, ops / peaks["flops"][itemsize]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def tiled_bounds(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, plan, halo):
+def tiled_bounds(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, plan, halo,
+                 peaks: dict | None = None):
     """Bounds per step of tiled_step for a plan (row_tile, col_tile, q) with
     per-step halo (rows, columns): (seconds, "bytes" or "operations") with
     each input read once and each output written once per launch of q steps,
     fe_step's arithmetic per cell-level; and the plan's own bound in seconds,
     which also counts the halo re-reads of the windows and the recompute of
-    the halo rings on the shrinking windows."""
+    the halo rings on the shrinking windows. ``peaks`` as for
+    ``step_bound``."""
     rt, ct, q = plan
     hm, hi = halo
     cells = 2 * ny2 * nx
     state, consts = cells * (1 + 4 * k), 4 * cells
     table = 4 * (44 + 3 * n_terms) + itemsize * n_terms
     ops = cells * k * (36 + 1.5 * n_terms)
-    t_bytes = (itemsize * (2 * state + consts) + table) / HBM_RATE / q
-    t_ops = ops / PEAK_FLOPS[itemsize]
+    peaks = CEILING if peaks is None else peaks
+    rate = byte_rate(peaks, itemsize * state)
+    t_bytes = (itemsize * (2 * state + consts) + table) / rate / q
+    t_ops = ops / peaks["flops"][itemsize]
     reads = (rt + 2 * hm * q) * (ct + 2 * hi * q) / (rt * ct)
     rings = sum((rt + 2 * hm * (q - 1 - j)) * (ct + 2 * hi * (q - 1 - j))
                 for j in range(q)) / (rt * ct * q)
-    t_plan = max((itemsize * (reads * (state + consts) + state) + table) / HBM_RATE / q,
+    t_plan = max((itemsize * (reads * (state + consts) + state) + table) / rate / q,
                  t_ops * rings)
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return (*bound, t_plan)
 
 
-def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
+def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> tuple:
     """Phase 7, the tiled path: the kernel against its plain version (f64
     random, f64 and f32 at 256x256x100), the main path at full width for FE and FB
     with its launch counts, the FE size rule's numbers, and FB at the
     headline size against the exact IGW and an f64 host run. Returns the
-    kernel's entry of the kernels line."""
+    kernel's entry of the kernels line and the main paths' seconds per step
+    (FE and FB at 256^2, FB at 64^2)."""
     import numpy as np
     import torch
 
@@ -413,10 +559,12 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
             halo = stencil_reach(sm_l.coriolis_terms, fb)
             route = f"tiled_step, plan {plans[fb]}"
             bound = tiled_bounds(*dims, plans[fb], halo)[0]
+            old = alt_bounds(tiled_bounds, *dims, plans[fb], halo)
             occ = tiled_step.occupancy(*plans[fb], halo, LEVELS, fb)
             occ_line = f"{occ[0]} clusters resident, {occ[1]} blocks per SM"
         else:
             route, bound = "fe_step", step_bound("fe_step", *dims)[0]
+            old = alt_bounds(step_bound, "fe_step", *dims)
             tile = fe_step.fe_tile(sm_l.ny2, sm_l.nx, LEVELS, 4)
             lp = fe_step.launch_plan(sm_l.host_stencil[0], sm_l.ny2, sm_l.nx, LEVELS, tile)
             occ_line = (f"tile {tile}, {lp['clusters']} clusters, {lp['blocks_per_sm']} blocks "
@@ -424,7 +572,7 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
         name = "tiled_step FB" if fb else "fe_step"
         log("[7] " + rate_line(f"main path {scheme[fb]} ({route}; bound {bound * 1e6:.3f} "
                                f"us/step)", main_s[fb], sites_l, gpu, f"{name} {LARGE_N}"))
-        log(f"[7] {occ_line} (occupancy query); " + share_line(name, main_s[fb], bound))
+        log(f"[7] {occ_line} (occupancy query); " + share_line(name, main_s[fb], bound, old))
     # the FE size rule: the tiled kernel's FE beside fe_step at both sizes
     _, tiled_fe_l = timed_rollout(lambda n: tiled_run_loop(st_l, sm_l, DT, n),
                                   LARGE_MAIN_STEPS, REPS)
@@ -464,7 +612,9 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
         + f"; plain {statistics.median(plain_fb) * 1e6:.3f} us/step")
     occ = tiled_step.occupancy(*plan_fb, halo_fb, LEVELS, True)
     log(f"[7] {occ[0]} clusters resident, {occ[1]} blocks per SM (occupancy query); "
-        + share_line("tiled_step FB", fb_s, bound_fb[0]))
+        + share_line("tiled_step FB", fb_s, bound_fb[0],
+                     alt_bounds(tiled_bounds, sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4,
+                                plan_fb, halo_fb)))
     t_end = HEADLINE_STEPS * DT
     exact = igw.exact_ssh(np.asarray(horz.cells.x, np.float64),
                           np.asarray(horz.cells.y, np.float64), t_end)
@@ -491,12 +641,15 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
         raise AssertionError(f"f32 FB IGW error {l2_k} is off the f64 run's {l2_k64}")
 
     halo = stencil_reach(sm_l.coriolis_terms, True)
-    bound, bound_by, plan_bound = tiled_bounds(sm_l.ny2, sm_l.nx, LEVELS,
-                                               len(sm_l.coriolis_terms), 4, plans[True], halo)
+    dims_l = (sm_l.ny2, sm_l.nx, LEVELS, len(sm_l.coriolis_terms), 4)
+    bound, bound_by, plan_bound = tiled_bounds(*dims_l, plans[True], halo)
+    old = alt_bounds(tiled_bounds, *dims_l, plans[True], halo)
     q = plans[True][2]
     log(f"[7] tiled_step FB {LARGE_N}^2 per step: {statistics.median(main_s[True]) * 1e6:.3f} "
-        f"us; bound {bound * 1e6:.3f} us ({bound_by}, each input read once per launch), "
-        f"{plan_bound * 1e6:.3f} us with the plan's halo reads and ring recompute; plain "
+        f"us; bound {bound * 1e6:.3f} us at the ceilings ({bound_by}, each input read once per "
+        f"launch; {old['probe'] * 1e6:.3f} us at the probes' rates, "
+        f"{old['datasheet'] * 1e6:.3f} us at the data sheet's), {plan_bound * 1e6:.3f} us "
+        f"with the plan's halo reads and ring recompute; plain "
         f"{statistics.median(plain_s[True]) * 1e6:.3f} us [{gpu}]")
     return {
         "name": "tiled_step",
@@ -510,6 +663,7 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
         "bound_ms": bound * q * 1e3,
         "bound_by": bound_by,
         "library_ms": None,
+        **alt_keys("bound_ms", old, q * 1e3),
         "plan": list(plans[True]),
         "blocks_per_sm": tiled_step.occupancy(*plans[True], halo, LEVELS, True)[1],
         "bound_ms_with_halos": plan_bound * q * 1e3,
@@ -517,7 +671,8 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> dict:
         "ms_fe_64": statistics.median(tiled_fe) * 1e3,
         "ms_fb_64": statistics.median(fb_s) * 1e3,
         "plain_ms_fb_64": statistics.median(plain_fb) * 1e3,
-    }
+    }, {"fe 256": statistics.median(main_s[False]), "fb 256": statistics.median(main_s[True]),
+        "fb 64": statistics.median(fb_s)}
 
 
 def state_fields(state) -> list:
@@ -913,9 +1068,12 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
 
     dims = (sm_l.ny2, sm_l.nx, LEVELS, len(sm_l.coriolis_terms), 4)
     bound, bound_by = step_bound("adjoint_step", *dims)
+    old = alt_bounds(step_bound, "adjoint_step", *dims)
     log(f"[8] tiled_adjoint {LARGE_N}^2 per launch: "
         f"{statistics.median(launch_s['tiled_adjoint', LARGE_N]) * 1e6:.3f} us; bound "
-        f"{bound * 1e6:.3f} us ({bound_by}, each input read once); plain superstep "
+        f"{bound * 1e6:.3f} us at the ceilings ({bound_by}, each input read once; "
+        f"{old['probe'] * 1e6:.3f} us at the probes' rates, {old['datasheet'] * 1e6:.3f} us at "
+        f"the data sheet's); plain superstep "
         f"{statistics.median(plain_s) * 1e6:.3f} us [{gpu}]")
     entry = {
         "name": "tiled_adjoint",
@@ -929,6 +1087,7 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
         "bound_ms": bound * 1e3,
         "bound_by": bound_by,
         "library_ms": None,
+        **alt_keys("bound_ms", old, 1e3),
         "plan": list(plan_l),
         "ms_64": statistics.median(launch_s["tiled_adjoint", HEADLINE_N]) * 1e3,
         "ms_128": statistics.median(launch_s["tiled_adjoint", 128]) * 1e3,
@@ -939,9 +1098,720 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
     adjoint_256 = {
         "ms_256": statistics.median(launch_s["adjoint_step", LARGE_N]) * 1e3,
         "ms_128": statistics.median(launch_s["adjoint_step", 128]) * 1e3,
+        "ms_64_in_40_step_calls": statistics.median(launch_s["adjoint_step", HEADLINE_N]) * 1e3,
         "bound_ms_256": bound * 1e3,
+        **alt_keys("bound_ms_256", old, 1e3),
     }
     return entry, adjoint_256
+
+
+def peaks_phase(gpu: str, log_text: str) -> list:
+    """Phase 9 (run right after the build), kernel 5: the probes against
+    their plain versions (fma at T = 1000 on bench.py's inputs and at T = 10
+    on random ones, f32 and f64, both modes, to 1e-5 relative; the stream
+    probe bitwise, in the layouts the rates use), then the rates, each the
+    median of REPS calls of at least 0.1 s (fma) or of bench.py's 128 passes
+    (device memory) and 20 ms (L2), and the plain stream's beside. Sets
+    MEASURED (the probes' rates) and CEILING (at each level the highest of
+    the data sheet's, the probe's and the plain version's rate), the divisor
+    of every bound this script prints after it. Returns the kernels line's
+    entries of the two probes, each at one count: fma at T = 1000, the
+    stream at bench.py's 128 passes."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.tools import peaks
+
+    for line in ptxas_report(log_text, ("fma_stream_kernel", "fma_reg_kernel",
+                                        "stream_kernel")):
+        log(f"[9] ptxas {line}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    fma_err = {}
+    for dtype in (torch.float32, torch.float64):
+        ones = torch.ones(peaks.FMA_SHAPE, dtype=dtype, device=dev)
+        o_r, x_r = (torch.from_numpy(v).to(dev, dtype)
+                    for v in rng.uniform(0.5, 1.5, size=(2, *peaks.FMA_SHAPE)))
+        for reg in (False, True):
+            for o0, x0, steps in ((ones, ones, 1000), (o_r, x_r, 10)):
+                ref = peaks.plain_fma(o0.clone(), x0, steps)
+                out = peaks.fma_probe(o0.clone(), x0, steps, in_registers=reg)
+                err = float((out - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                key = (str(dtype).split(".")[-1], "registers" if reg else "shared", steps)
+                fma_err[key] = (err, rel)
+                if not rel <= 1e-5:
+                    raise AssertionError(f"fma_probe {key} vs plain: {rel:.3e} > 1e-5")
+    log("[9] fma_probe vs plain (max|diff|, relative): " + ", ".join(
+        f"{d} {m} T={t} {e:.3e} ({r:.3e})" for (d, m, t), (e, r) in fma_err.items()))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for n, per, layout in ((peaks.HBM_FLOATS, 1, peaks.HBM_LAYOUT),
+                           (peaks.state_floats(HEADLINE_N, LEVELS), 4, peaks.L2_LAYOUT)):
+        b = torch.randn(n, device=dev, generator=gen)
+        out = peaks.stream_probe(b.clone(), 4, per_launch=per, **layout)
+        if not torch.equal(out, peaks.plain_stream(b, 4)):
+            raise AssertionError(f"stream_probe over {n} values differs from plain")
+        del b, out
+    log(f"[9] stream_probe vs plain: bitwise equal over the 256 MB array (a pass per launch, "
+        f"{peaks.HBM_LAYOUT}) and the 64x64x100 state's size (four per launch, "
+        f"{peaks.L2_LAYOUT})")
+
+    # the rates; the launches of this phase's measuring runs
+    peaks.fma_launches = peaks.stream_launches = 0
+    fma = {(itemsize, reg): peaks.measure_fma(dtype, in_registers=reg, reps=REPS)
+           for itemsize, dtype in ((4, torch.float32), (8, torch.float64))
+           for reg in (False, True)}
+    hbm = peaks.measure_stream(peaks.HBM_FLOATS, resident=False, reps=REPS)
+    l2 = peaks.measure_stream(peaks.state_floats(HEADLINE_N, LEVELS), resident=True,
+                              reps=REPS)
+    launches = (peaks.fma_launches, peaks.stream_launches)
+    want = (4 * (2 + REPS), 2 + REPS * hbm["passes"] + 2 + REPS)
+    log(f"[9] launches fma_probe {launches[0]}, stream_probe {launches[1]} (want {want})")
+    if launches != want:
+        raise AssertionError(f"probe launches {launches} != {want}")
+    l2_n = peaks.state_floats(HEADLINE_N, LEVELS)
+    plain = {"hbm": peaks.measure_plain_stream(peaks.HBM_FLOATS, peaks.STREAM_PASSES, reps=REPS),
+             "l2": peaks.measure_plain_stream(l2_n, 1000, reps=REPS)}
+    MEASURED.update(hbm=hbm["rate"], l2=l2["rate"],
+                    flops={4: fma[4, True]["rate"], 8: fma[8, True]["rate"]})
+    hbm_top = max(DATASHEET["hbm"], hbm["rate"], plain["hbm"]["rate"])
+    CEILING.update(hbm=hbm_top, l2=max(hbm_top, l2["rate"], plain["l2"]["rate"]),
+                   flops={i: max(DATASHEET["flops"][i], fma[i, True]["rate"]) for i in (4, 8)})
+    for (itemsize, reg), r in fma.items():
+        name = f"f{8 * itemsize} FMA in {'registers' if reg else 'shared memory'}"
+        log(f"[9] {name}: {spread(r['flops_per_s'], 1e-12, 'TFLOP/s')}, {r['steps']} steps of "
+            f"{r['seconds'][0]:.4f} s; data sheet {DATASHEET['flops'][itemsize] / 1e12:.0f} "
+            f"TFLOP/s [{gpu}]")
+    for name, r, pl in (("device memory (256 MB, a pass per launch)", hbm, plain["hbm"]),
+                        ("L2 (the 64x64x100 f32 state, 13.1 MB a pass)", l2, plain["l2"])):
+        log(f"[9] stream through {name}: {spread(r['bytes_per_s'], 1e-12, 'TB/s')}, "
+            f"{r['passes']} passes; plain b = b + 1 {spread(pl['bytes_per_s'], 1e-12, 'TB/s')}, "
+            f"{pl['passes']} passes (a launch each); data sheet (device memory) "
+            f"{DATASHEET['hbm'] / 1e12:.2f} TB/s [{gpu}]")
+    log(f"[9] ceilings, the divisor of every bound below: device memory "
+        f"{CEILING['hbm'] / 1e12:.4f} TB/s, L2 {CEILING['l2'] / 1e12:.4f} TB/s, FMA f32 "
+        f"{CEILING['flops'][4] / 1e12:.4f} TFLOP/s, f64 {CEILING['flops'][8] / 1e12:.4f} "
+        f"TFLOP/s (each the highest of the data sheet, probe and plain rates) [{gpu}]")
+
+    # the entries, each at one count: kernel 5's streaming mode at bench.py's
+    # shape (its counterpart) at T = 1000, and the stream probe over device
+    # memory at bench.py's 128 passes
+    n = int(np.prod(peaks.FMA_SHAPE))
+    ones = torch.ones(peaks.FMA_SHAPE, device=dev)
+    plain_fma_s = cuda_times(lambda: peaks.plain_fma(ones, ones, 1000), REPS)
+    kern_1000 = cuda_times(lambda: peaks.fma_probe(ones.clone(), ones, 1000), REPS)
+    shared = fma[4, False]
+    fma_entry = {
+        "name": "fma_probe",
+        "route": "cuda",
+        "source": "mpas_ocean_tpu_torch/csrc/peaks.cu",
+        "replaces": "bench.py:267",
+        "launches": launches[0],
+        "max_abs_err": max(e for e, _ in fma_err.values()),
+        "ms": statistics.median(kern_1000) * 1e3,
+        "plain_ms": statistics.median(plain_fma_s) * 1e3,
+        "bound_ms": peaks.fma_flops(n, 1000) / CEILING["flops"][4] * 1e3,
+        "bound_by": "operations",
+        "library_ms": None,
+        "steps": 1000,
+        "bound_source": ("NVIDIA H100 SXM data sheet, 67 TFLOP/s FP32"
+                         if CEILING["flops"][4] == DATASHEET["flops"][4]
+                         else "the f32 FMA probe in registers"),
+        "calibrated_steps": shared["steps"],
+        "calibrated_ms": statistics.median(shared["seconds"]) * 1e3,
+        "max_rel_err": max(r for _, r in fma_err.values()),
+        "tflops_shared_f32": shared["rate"] / 1e12,
+        "tflops_registers_f32": fma[4, True]["rate"] / 1e12,
+        "tflops_shared_f64": fma[8, False]["rate"] / 1e12,
+        "tflops_registers_f64": fma[8, True]["rate"] / 1e12,
+    }
+    stream_entry = {
+        "name": "stream_probe",
+        "route": "cuda",
+        "source": "mpas_ocean_tpu_torch/csrc/peaks.cu",
+        "replaces": "bench.py:293 (measure_hbm_bw, an XLA loop beside kernel 5)",
+        "launches": launches[1],
+        "max_abs_err": 0.0,
+        "ms": statistics.median(hbm["seconds"]) * 1e3,
+        "plain_ms": statistics.median(plain["hbm"]["seconds"]) * 1e3,
+        "bound_ms": peaks.stream_bytes(peaks.HBM_FLOATS, hbm["passes"]) / CEILING["hbm"] * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "passes": hbm["passes"],
+        "bound_source": ("NVIDIA H100 SXM data sheet, 3.35 TB/s" if CEILING["hbm"] == DATASHEET["hbm"]
+                         else "the stream probe or its plain version"),
+        "tbps_hbm": hbm["rate"] / 1e12,
+        "tbps_hbm_plain": plain["hbm"]["rate"] / 1e12,
+        "tbps_l2": l2["rate"] / 1e12,
+        "tbps_l2_plain": plain["l2"]["rate"] / 1e12,
+        "l2_passes": l2["passes"],
+        "tbps_ceiling_l2": CEILING["l2"] / 1e12,
+    }
+    return [fma_entry, stream_entry]
+
+
+def channel_forward_phase(gpu: str, periodic: dict) -> dict:
+    """Phase 10, the coastal Kelvin channel forward (bench.py's build_kelvin,
+    its t_kelvin line): the masked arms of fe_step (FE) and tiled_step (FB)
+    against the plain masked steps (f64 64x64x100 and 256x256x100 to 1e-12;
+    f32 64x64x100 over 100 steps: ssh and h to PERF.md section 2's 1e-5, u
+    within U_GAP_FACTOR times the plain f32 run's distance from an f64 one,
+    a factor that controls with u stored at a lower precision are shown to
+    exceed), the main path
+    at full width (64x64x100 f32 FE over 8000 steps with its launches and
+    live gridpoints per second, FB over 1000; 256x256x100 FE and FB over
+    1000), the walls closed bit for bit, the Kelvin ssh L2 error at the end
+    of the 8000 steps (f32, f64, and an f64 host run), and the masked times
+    beside the periodic ones of phases 4 and 7 (``periodic``: seconds per
+    step). Returns the masked arms' numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        structured_auto_run_loop,
+        structured_fb_step,
+        structured_run_loop,
+        structured_step,
+        tiled_run_loop,
+    )
+    from mpas_ocean_tpu_torch.structured.slab import stencil_reach
+    from mpas_ocean_tpu_torch.structured.tiled_model import plain_tiled_rollout, resolve_plan
+    from mpas_ocean_tpu_torch.utils import error_measures
+
+    def rounded_u_run(st, sm, n, fb, dtype):
+        # the control: the plain masked steps with u stored in ``dtype``
+        # between steps, as a kernel that kept u at that precision would
+        step = structured_fb_step if fb else structured_step
+        for _ in range(n):
+            st = step(st, sm, DT)
+            st = StructState(ssh=st.ssh, layer_thickness=st.layer_thickness,
+                             normal_velocity=st.normal_velocity.to(dtype).to(st.ssh.dtype))
+        return st
+
+    scheme = {False: "FE", True: "FB"}
+    n_chk = TILED_CHECK_STEPS
+
+    def plan_of(sm, itemsize, fb, n_steps):
+        return resolve_plan(sm.ny2, sm.nx, LEVELS, itemsize,
+                            stencil_reach(sm.coriolis_terms, fb), n_steps)
+
+    # f64 64x64x100: the masked arms against the plain masked steps
+    chan, kw, model64, prog64 = kelvin_case(HEADLINE_N, LEVELS, np.float64)
+    st64, sm64 = model64.to_struct(prog64), model64.struct_mesh
+    ref64 = {}
+    for fb in (False, True):
+        out = structured_auto_run_loop(st64, sm64, DT, n_chk, fb=fb)
+        again = structured_auto_run_loop(st64, sm64, DT, n_chk, fb=fb)
+        ref64[fb] = structured_run_loop(st64, sm64, DT, n_chk, fb=fb)
+        errs = field_errors(out, ref64[fb], sm64.resting_thickness_sum)
+        log(f"[10] f64 {HEADLINE_N}x{HEADLINE_N}x{LEVELS} Kelvin channel, {n_chk} "
+            f"{scheme[fb]} steps, masked {'tiled_step' if fb else 'fe_step'} vs plain: "
+            f"max|diff| (/scale) = {format_errors(errs)}")
+        for f, (_, r) in errs.items():
+            if not r <= 1e-12:
+                raise AssertionError(f"f64 channel {scheme[fb]} vs plain: {f} {r:.3e} > 1e-12")
+        if not all(torch.equal(getattr(out, f), getattr(again, f)) for f in FIELDS):
+            raise AssertionError(f"f64 channel {scheme[fb]}: rerun differs")
+        check_walls(out, sm64, f"f64 channel {scheme[fb]}")
+    plan_fb = plan_of(sm64, 8, True, n_chk)
+    errs = field_errors(tiled_run_loop(st64, sm64, DT, 10, fb=True),
+                        plain_tiled_rollout(st64, sm64, DT, 10, *plan_fb, True),
+                        sm64.resting_thickness_sum)
+    log(f"[10] f64 channel, 10 FB steps, plan {plan_fb}, masked tiled_step vs its plain "
+        f"windows: max|diff| (/scale) = {format_errors(errs)}")
+    for f, (_, r) in errs.items():
+        if not r <= 1e-12:
+            raise AssertionError(f"f64 channel tiled FB vs plain windows: {f} {r:.3e}")
+
+    # f32 64x64x100, 100 steps: against the plain masked steps, and both
+    # against the f64 plain run
+    _, _, model, prog = kelvin_case(HEADLINE_N, LEVELS, np.float32)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    max_abs_err = {}
+    for fb in (False, True):
+        out = structured_auto_run_loop(st, sm, DT, n_chk, fb=fb)
+        ref = structured_run_loop(st, sm, DT, n_chk, fb=fb)
+        errs = field_errors(out, ref, sm.resting_thickness_sum)
+        runs = {"kernel": out, "plain": ref,
+                "u in fp16": rounded_u_run(st, sm, n_chk, fb, torch.float16),
+                "u in bf16": rounded_u_run(st, sm, n_chk, fb, torch.bfloat16)}
+        gap = {name: float((x.normal_velocity.double() - ref64[fb].normal_velocity).abs().max())
+               for name, x in runs.items()}
+        log(f"[10] f32 {HEADLINE_N}x{HEADLINE_N}x{LEVELS} Kelvin channel, {n_chk} "
+            f"{scheme[fb]} steps, masked kernel vs plain: max|diff| (/scale) = "
+            f"{format_errors(errs)} (PERF.md section 2: ssh, h 1e-5, u 3e-4); max|u - u_f64| "
+            + ", ".join(f"{name} {g:.3e} (x{g / gap['plain']:.3f} the plain f32 run's)"
+                        for name, g in gap.items()) + f" m/s; limit x{U_GAP_FACTOR}")
+        for f in ("ssh", "layer_thickness"):
+            if not errs[f][1] <= 1e-5:
+                raise AssertionError(f"f32 channel {scheme[fb]} vs plain: {f} {errs[f][1]:.3e}")
+        if not gap["kernel"] <= U_GAP_FACTOR * gap["plain"]:
+            raise AssertionError(f"f32 channel {scheme[fb]}: u is {gap['kernel']:.3e} from the "
+                                 f"f64 run, the plain version {gap['plain']:.3e}")
+        for name in ("u in fp16", "u in bf16"):
+            if not gap[name] > U_GAP_FACTOR * gap["plain"]:
+                raise AssertionError(f"f32 channel {scheme[fb]}: the control with {name} passes "
+                                     f"the u limit ({gap[name]:.3e}), which then tells nothing")
+        check_walls(out, sm, f"f32 channel {scheme[fb]}")
+        max_abs_err[fb] = max(e for e, _ in errs.values())
+    del ref64
+
+    # the main path at the headline size: FE over 8000 steps, from to_struct
+    live = chan.n_cells * LEVELS
+    sites = 2 * sm.ny2 * sm.nx * LEVELS
+    fe_step.launches = tiled_step.launches = 0
+    t0 = time.perf_counter()
+    out = structured_auto_run_loop(model.to_struct(prog), sm, DT, HEADLINE_STEPS)
+    check_walls(out, sm, "FE main path")
+    final = model.from_struct(out)
+    wall = time.perf_counter() - t0
+    counts = (fe_step.launches, tiled_step.launches)
+    log(f"[10] main path {HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32 Kelvin channel FE, "
+        f"{HEADLINE_STEPS} steps: {wall:.3f} s wall (to_struct .. from_struct); launches "
+        f"fe_step {counts[0]}, tiled_step {counts[1]} (want {HEADLINE_STEPS}, 0)")
+    if counts != (HEADLINE_STEPS, 0):
+        raise AssertionError(f"channel FE main path launches {counts}")
+    fe_launches = counts[0]
+    for f in FIELDS:
+        if not bool(torch.isfinite(getattr(final, f)).all()):
+            raise AssertionError(f"channel main path: {f} is not finite")
+    if tuple(final.normal_velocity.shape) != (chan.n_edges, LEVELS) or tuple(
+            final.ssh.shape) != (chan.n_cells,):
+        raise AssertionError("channel main path: wrong output shapes")
+    _, fe_s = timed_rollout(lambda n: structured_auto_run_loop(st, sm, DT, n),
+                            HEADLINE_STEPS, REPS)
+    _, plain_fe = timed_rollout(lambda n: structured_run_loop(st, sm, DT, n), n_chk, REPS)
+    dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+    bound_fe64 = step_bound("fe_step", *dims)[0]
+    old_fe64 = alt_bounds(step_bound, "fe_step", *dims)
+    med = statistics.median(fe_s)
+    log("[10] " + rate_line("channel FE (fe_step, masked)", fe_s, sites, gpu)
+        + f"; {live / med:.4e} live gridpoints*steps/s (bench.py's "
+        f"kelvin_channel_gridpoints_per_sec: {chan.n_cells} live cells x {LEVELS}); plain "
+        f"{statistics.median(plain_fe) * 1e6:.3f} us/step; periodic fe_step (phase 4) "
+        f"{periodic['fe 64'] * 1e6:.3f} us/step, masked/periodic "
+        f"{med / periodic['fe 64']:.4f}")
+    log("[10] " + share_line("masked fe_step 64^2", fe_s, bound_fe64, old_fe64))
+
+    # the Kelvin wave after 8000 steps against the exact solution: f32 and
+    # f64 through the kernel, and an f64 run of the plain version on the
+    # host with one 1000 m layer (identical layers make the 100-layer
+    # system the 1-layer one)
+    t_end = HEADLINE_STEPS * DT
+    exact = kw.exact_ssh(np.asarray(chan.cells.x, np.float64),
+                         np.asarray(chan.cells.y, np.float64), t_end)
+
+    def l2(ssh):
+        return error_measures(ssh.double().numpy(), exact, chan, "cell").L_two
+
+    k64 = model64.from_struct(structured_auto_run_loop(st64, sm64, DT, HEADLINE_STEPS))
+    _, _, model1, prog1 = kelvin_case(HEADLINE_N, 1, np.float64, device="cpu")
+    host = model1.from_struct(structured_run_loop(model1.to_struct(prog1), model1.struct_mesh,
+                                                  DT, HEADLINE_STEPS))
+    p32 = model.from_struct(structured_run_loop(st, sm, DT, HEADLINE_STEPS))
+    l2_k, l2_p, l2_k64, l2_host = l2(final.ssh), l2(p32.ssh), l2(k64.ssh), l2(host.ssh)
+    ssh_gap = float(np.abs(k64.ssh.numpy() - host.ssh.numpy()).max())
+    log(f"[10] Kelvin ssh L2 error vs exact at t={t_end:.0f} s, {HEADLINE_N}x{HEADLINE_N}x"
+        f"{LEVELS} channel FE: f32 kernel {l2_k:.6e}, f32 plain {l2_p:.6e}; f64 kernel "
+        f"{l2_k64:.6e}, f64 1-layer host run {l2_host:.6e} (the wave not moved: "
+        f"{l2(prog.ssh):.6e}); f64 kernel vs host max|ssh diff| {ssh_gap:.3e} m")
+    if not (ssh_gap <= 1e-6 and abs(l2_k64 - l2_host) <= 1e-6):
+        raise AssertionError(f"f64 channel off the host run: {ssh_gap}, {l2_k64}, {l2_host}")
+    # FE is unstable for gravity waves and grows each f32 run's column-sum
+    # rounding into an error of its own, several times the f64 one (7.16
+    # against 0.90 on an H100 at 700 W): the kernel's must be of the plain
+    # version's size
+    if not (np.isfinite(l2_k) and 0.5 * l2_p <= l2_k <= 2.0 * l2_p):
+        raise AssertionError(f"f32 channel Kelvin error {l2_k} off the plain run's {l2_p}")
+    del k64, host, p32, model64, st64, sm64
+
+    # FB at the headline size, 1000 steps
+    q_fb = plan_of(sm, 4, True, LARGE_MAIN_STEPS)[2]
+    tiled_step.launches = fe_step.launches = 0
+    out = structured_auto_run_loop(model.to_struct(prog), sm, DT, LARGE_MAIN_STEPS, fb=True)
+    check_walls(out, sm, "FB 64^2 main path")
+    counts = (fe_step.launches, tiled_step.launches)
+    if counts != (0, LARGE_MAIN_STEPS // q_fb):
+        raise AssertionError(f"channel FB 64^2 launches {counts}")
+    _, fb_s = timed_rollout(lambda n: structured_auto_run_loop(st, sm, DT, n, fb=True),
+                            LARGE_MAIN_STEPS, REPS)
+    med = statistics.median(fb_s)
+    log("[10] " + rate_line(f"channel FB 64^2 (tiled_step, masked, plan "
+                            f"{plan_of(sm, 4, True, LARGE_MAIN_STEPS)}; launches {counts[1]})",
+                            fb_s, sites, gpu)
+        + f"; {live / med:.4e} live gridpoints*steps/s; periodic (phase 7) "
+        f"{periodic['fb 64'] * 1e6:.3f} us/step, masked/periodic {med / periodic['fb 64']:.4f}")
+    del model, st, sm, out, final
+
+    # 256x256x100: f64 against plain for 10 steps, then the main path, FE and
+    # FB over 1000 f32 steps
+    _, _, model_l64, prog_l64 = kelvin_case(LARGE_N, LEVELS, np.float64)
+    st_l64, sm_l64 = model_l64.to_struct(prog_l64), model_l64.struct_mesh
+    for fb in (False, True):
+        errs = field_errors(structured_auto_run_loop(st_l64, sm_l64, DT, 10, fb=fb),
+                            structured_run_loop(st_l64, sm_l64, DT, 10, fb=fb),
+                            sm_l64.resting_thickness_sum)
+        log(f"[10] f64 {LARGE_N}x{LARGE_N}x{LEVELS} channel, 10 {scheme[fb]} steps, masked "
+            f"kernel vs plain: max|diff| (/scale) = {format_errors(errs)}")
+        for f, (_, r) in errs.items():
+            if not r <= 1e-12:
+                raise AssertionError(f"f64 {LARGE_N}^2 channel {scheme[fb]}: {f} {r:.3e}")
+    del model_l64, st_l64, sm_l64
+    chan_l, _, model_l, prog_l = kelvin_case(LARGE_N, LEVELS, np.float32)
+    st_l, sm_l = model_l.to_struct(prog_l), model_l.struct_mesh
+    live_l, sites_l = chan_l.n_cells * LEVELS, 2 * sm_l.ny2 * sm_l.nx * LEVELS
+    dims_l = (sm_l.ny2, sm_l.nx, LEVELS, len(sm_l.coriolis_terms), 4)
+    large_s, large_counts = {}, {}
+    for fb in (False, True):
+        q = plan_of(sm_l, 4, fb, LARGE_MAIN_STEPS)[2]
+        want = (0, LARGE_MAIN_STEPS // q) if fb else (LARGE_MAIN_STEPS, 0)
+        fe_step.launches = tiled_step.launches = 0
+        t0 = time.perf_counter()
+        out = structured_auto_run_loop(model_l.to_struct(prog_l), sm_l, DT, LARGE_MAIN_STEPS,
+                                       fb=fb)
+        check_walls(out, sm_l, f"{LARGE_N}^2 {scheme[fb]} main path")
+        final = model_l.from_struct(out)
+        wall = time.perf_counter() - t0
+        large_counts[fb] = (fe_step.launches, tiled_step.launches)
+        log(f"[10] main path {LARGE_N}x{LARGE_N}x{LEVELS} f32 channel {scheme[fb]}, "
+            f"{LARGE_MAIN_STEPS} steps: {wall:.3f} s wall; launches fe_step "
+            f"{large_counts[fb][0]}, tiled_step {large_counts[fb][1]} (want {want})")
+        if large_counts[fb] != want:
+            raise AssertionError(f"{LARGE_N}^2 channel {scheme[fb]} launches {large_counts[fb]}")
+        if not all(bool(torch.isfinite(getattr(final, f)).all()) for f in FIELDS):
+            raise AssertionError(f"{LARGE_N}^2 channel {scheme[fb]}: not finite")
+        _, large_s[fb] = timed_rollout(
+            lambda n: structured_auto_run_loop(st_l, sm_l, DT, n, fb=fb), LARGE_MAIN_STEPS, REPS)
+        med = statistics.median(large_s[fb])
+        key = f"{'fb' if fb else 'fe'} 256"
+        if fb:
+            plan = plan_of(sm_l, 4, True, LARGE_MAIN_STEPS)
+            halo = stencil_reach(sm_l.coriolis_terms, True)
+            bound = tiled_bounds(*dims_l, plan, halo)[0]
+            old = alt_bounds(tiled_bounds, *dims_l, plan, halo)
+            route = f"tiled_step, masked, plan {plan}"
+        else:
+            bound = step_bound("fe_step", *dims_l)[0]
+            old = alt_bounds(step_bound, "fe_step", *dims_l)
+            route = "fe_step, masked"
+        log("[10] " + rate_line(f"channel {scheme[fb]} {LARGE_N}^2 ({route})", large_s[fb],
+                                sites_l, gpu)
+            + f"; {live_l / med:.4e} live gridpoints*steps/s; periodic (phase 7) "
+            f"{periodic[key] * 1e6:.3f} us/step, masked/periodic {med / periodic[key]:.4f}")
+        log("[10] " + share_line(f"masked {route.split(',')[0]} {LARGE_N}^2", large_s[fb], bound,
+                                 old))
+    return {
+        "fe_step": {"masked_ms": statistics.median(fe_s) * 1e3,
+                    "masked_launches": fe_launches,
+                    "masked_max_abs_err": max_abs_err[False],
+                    "masked_bound_ms": bound_fe64 * 1e3,
+                    **alt_keys("masked_bound_ms", old_fe64, 1e3),
+                    "masked_plain_ms": statistics.median(plain_fe) * 1e3,
+                    "masked_ms_256": statistics.median(large_s[False]) * 1e3,
+                    "masked_over_periodic_64": statistics.median(fe_s) / periodic["fe 64"],
+                    "masked_over_periodic_256":
+                        statistics.median(large_s[False]) / periodic["fe 256"],
+                    "kelvin_live_gridpoints_per_s": live / statistics.median(fe_s),
+                    "kelvin_ssh_l2_f32": l2_k, "kelvin_ssh_l2_f64": l2_k64},
+        "tiled_step": {"masked_ms": statistics.median(large_s[True]) * q * 1e3,
+                       "masked_launches": large_counts[True][1],
+                       "masked_max_abs_err": max_abs_err[True],
+                       "masked_bound_ms": bound * q * 1e3,
+                       **alt_keys("masked_bound_ms", old, q * 1e3),
+                       "masked_ms_fb_64": statistics.median(fb_s) * 1e3,
+                       "masked_over_periodic_256":
+                           statistics.median(large_s[True]) / periodic["fb 256"],
+                       "masked_over_periodic_64": statistics.median(fb_s) / periodic["fb 64"]},
+    }
+
+
+def channel_grad_phase(gpu: str, periodic: dict) -> dict:
+    """Phase 11, the gradient on the Kelvin channel: the masked arms of
+    adjoint_step and tiled_adjoint against the plain masked reverse (f64
+    random channels, 1e-12, reruns bitwise; f32 64x64x100 and 256x256x100
+    over 100 reverse steps on the same primal states, PERF.md section 2's
+    bounds), the f64 dot-product identity over 7 steps through both routes,
+    each reverse kernel's device time per launch (``held_us``), and the
+    main path at full width: the grad of sum(ssh_final^2) over 4000 steps at
+    64x64x100 f32 through auto_rollout_diff and over 100 steps at
+    256x256x100 through tiled_rollout_diff, with launch counts, times and a
+    profiler breakdown. ``periodic`` holds phases 6 and 8's times (seconds).
+    Returns the masked arms' numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        auto_rollout_diff,
+        diff_model,
+        fused_adjoint_rollout,
+        fused_rollout_diff,
+        fused_run_loop,
+        plain_tiled_adjoint_superstep,
+        structured_adjoint_step,
+        structured_auto_run_loop,
+        structured_run_loop,
+        tiled_adjoint_plan,
+        tiled_adjoint_rollout,
+        tiled_rollout_diff,
+    )
+    from mpas_ocean_tpu_torch.structured.fused_model import _scal, kernel_live
+    from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    def plan_of(st, sm, n_steps, **kw):
+        x = st.layer_thickness
+        return tiled_adjoint_plan(sm.ny2, sm.nx, x.shape[-1], x.element_size(), n_steps,
+                                  halo=reverse_halo(sm.coriolis_terms), **kw)
+
+    def starts(st, sm, dt, n, q):
+        out = [st]
+        for _ in range(n // q - 1):
+            out.append(fused_run_loop(out[-1], sm, dt, q))
+        return out
+
+    def plain_reverse(st, sm, dt, n, g, plan=None, dtype=None):
+        """The plain masked reverse back through the forward kernel's own
+        primal states: the adjoint step (plan None) or the tiled superstep
+        of plan (rt, ct, q); in ``dtype`` (states and g cast) where given."""
+        cast = lambda s: s if dtype is None else StructState(
+            *(x.to(dtype) for x in state_fields(s)))
+        q = 1 if plan is None else plan[2]
+        ddt = torch.zeros((), dtype=torch.float64, device=st.layer_thickness.device)
+        g = cast(g)
+        for s in reversed(starts(st, sm, dt, n, q)):
+            if plan is None:
+                g, dd = structured_adjoint_step(cast(s), g, sm, dt)
+            else:
+                g, dd = plain_tiled_adjoint_superstep(cast(s), g, sm, dt, *plan)
+            ddt = ddt + dd.double()
+        return g, ddt
+
+    def hold(what: str, errs: dict, tol: dict):
+        log(f"[11] {what}: max|diff| (/scale) = {format_errors(errs)}")
+        for f, (_, r) in errs.items():
+            if not r <= tol[f]:
+                raise AssertionError(f"{what}: {f} {r:.3e} > {tol[f]}")
+
+    # f64 random 16x16x4 and 64x64x4 channels: both reverse kernels against
+    # the plain masked reverse, 6 steps, reruns bitwise
+    f64_tol = dict.fromkeys((*FIELDS, "d_dt"), 1e-12)
+    worst = {}
+    for n_side in (16, 64):
+        model, prog = random_channel(n_side, 4)
+        st, sm = model.to_struct(prog), model.struct_mesh
+        g = random_cot(st, 11)
+        runs = [("adjoint_step", None,
+                 lambda: fused_adjoint_rollout(st, sm, 10.0, 6, g, plan=4))]
+        for plan in ((2, 4, 1), (2, 4, 2), (4, 8, 1)):
+            runs.append((f"tiled_adjoint {plan}", plan,
+                         lambda plan=plan: tiled_adjoint_rollout(st, sm, 10.0, 6, g,
+                                                                 plan=(*plan, 2))))
+        for name, plan, run in runs:
+            (out, ddt), (again, ddt_again) = run(), run()
+            ref, ref_dt = plain_reverse(st, sm, 10.0, 6, g, plan)
+            errs = cot_errors(out, ref, ddt, ref_dt)
+            worst[f"{n_side}^2 {name}"] = max(r for _, r in errs.values())
+            for f, (_, r) in errs.items():
+                if not r <= 1e-12:
+                    raise AssertionError(f"f64 {n_side}^2 channel {name} vs plain: {f} {r:.3e}")
+            if not (torch.equal(ddt, ddt_again) and all(
+                    torch.equal(x, y) for x, y in zip(state_fields(out), state_fields(again)))):
+                raise AssertionError(f"f64 channel {name}: rerun differs")
+    log("[11] f64 random channels x4 levels, 6 reverse steps, masked reverse kernels vs the "
+        "plain masked reverse (same primal states): max relative error " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()) + "; reruns bitwise equal")
+
+    # the dot-product identity <J v, g> = <v, J^T g> on a channel, 7 steps,
+    # J^T g through both differentiable routes
+    model, prog = random_channel(16, 4)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    v, g = random_cot(st, 12), random_cot(st, 14)
+    _, jv = torch.func.jvp(
+        lambda *xs: tuple(state_fields(structured_run_loop(StructState(*xs), sm, 10.0, 7))),
+        tuple(state_fields(st)), tuple(state_fields(v)))
+    lhs = sum(float((x * y).sum()) for x, y in zip(jv, state_fields(g)))
+    for route, plan in ((fused_rollout_diff, None), (tiled_rollout_diff, (2, 4, 1, 3))):
+        leaves = [x.clone().requires_grad_(True) for x in state_fields(st)]
+        out = route(StructState(*leaves), sm, 10.0, 7, plan=plan)
+        jtg = torch.autograd.grad(state_fields(out), leaves, state_fields(g))
+        rhs = sum(float((x * y).sum()) for x, y in zip(state_fields(v), jtg))
+        gap = abs(lhs - rhs) / abs(rhs)
+        log(f"[11] f64 dot-product identity on the channel through {route.__name__}, 7 steps: "
+            f"<Jv, g> {lhs:.17g}, <v, J^T g> {rhs:.17g}, relative gap {gap:.3e}")
+        if not gap <= 1e-12:
+            raise AssertionError(f"channel dot-product identity off by {gap:.3e}")
+
+    # f32 Kelvin channels, 100 reverse steps from the cotangent of
+    # sum(ssh^2) on the same primal states: adjoint_step at 64^2 and
+    # tiled_adjoint at 256^2, each also against the plain reverse in f64
+    tol = {HEADLINE_N: {"ssh": 1e-5, "layer_thickness": 2e-6, "normal_velocity": 2e-6,
+                        "d_dt": 4e-6},
+           LARGE_N: {"ssh": 5e-4, "layer_thickness": 1e-5, "normal_velocity": 2e-5,
+                     "d_dt": 4e-6}}
+    cases, max_abs_err, plain_s = {}, {}, {}
+    for n_side in (HEADLINE_N, LARGE_N):
+        chan, _, model, prog = kelvin_case(n_side, LEVELS, np.float32)
+        st, sm = model.to_struct(prog), model.struct_mesh
+        cases[n_side] = (chan, model, prog, st, sm)
+        fin = fused_run_loop(st, sm, DT, TILED_CHECK_STEPS)
+        g = StructState(2 * fin.ssh, torch.zeros_like(fin.layer_thickness),
+                        torch.zeros_like(fin.normal_velocity))
+        if n_side == HEADLINE_N:
+            plan, name = None, "adjoint_step"
+            out, ddt = fused_adjoint_rollout(st, sm, DT, TILED_CHECK_STEPS, g)
+        else:
+            plan, name = plan_of(st, sm, TILED_CHECK_STEPS)[:3], "tiled_adjoint"
+            out, ddt = tiled_adjoint_rollout(st, sm, DT, TILED_CHECK_STEPS, g,
+                                             plan=(*plan, 10))
+        ref, ref_dt = plain_reverse(st, sm, DT, TILED_CHECK_STEPS, g, plan)
+        ref64, ref64_dt = plain_reverse(st, sm, DT, TILED_CHECK_STEPS, g, plan, torch.float64)
+        what = (f"f32 {n_side}x{n_side}x{LEVELS} Kelvin channel, {TILED_CHECK_STEPS} reverse "
+                f"steps, masked {name}{'' if plan is None else f' plan {plan}'}")
+        log(f"[11] {what}, against the plain reverse in f64 on the same inputs: kernel "
+            f"{format_errors(cot_errors(out, ref64, ddt, ref64_dt))}; plain f32 "
+            f"{format_errors(cot_errors(ref, ref64, ref_dt, ref64_dt))}")
+        errs = cot_errors(out, ref, ddt, ref_dt)
+        hold(f"{what} vs plain on the same primal states", errs, tol[n_side])
+        max_abs_err[name] = max(e for f, (e, _) in errs.items() if f != "d_dt")
+        if n_side == LARGE_N:
+            plain_s[name] = cuda_times(
+                lambda: plain_tiled_adjoint_superstep(st, g, sm, DT, *plan), REPS)
+        else:
+            plain_s[name] = cuda_times(lambda: structured_adjoint_step(st, g, sm, DT), REPS)
+        del fin, g, out, ref, ref64
+
+    # device time per launch of the masked reverse kernels over a stack of 40
+    # primal states, the stream held until the call is queued
+    def per_launch(kernel, st, sm, group=40):
+        scal = _scal(sm, DT, torch.float32)
+        live = kernel_live(sm)
+        stack = tuple(torch.empty((group, *x.shape), dtype=x.dtype, device=x.device)
+                      for x in state_fields(st))
+        for dst, x in zip(stack, state_fields(st)):
+            dst[0].copy_(x)
+        fe_step.fe_fill_stack(stack, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+                              *scal, group - 1, live=live)
+        g_in = tuple(x.contiguous() for x in state_fields(random_cot(st, 15)))
+        acc = torch.zeros(1, dtype=torch.float64, device=st.layer_thickness.device)
+        if kernel == "adjoint_step":
+            run = lambda: adjoint_step.adjoint_rollout(
+                stack, g_in, sm.f_edge, *sm.host_adjoint_stencil, *scal, group, acc, live=live)
+        else:
+            rt, ct, q, _ = plan_of(st, sm, group)
+            run = lambda: tiled_adjoint.tiled_adjoint_rollout(
+                stack, g_in, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+                *sm.host_adjoint_stencil, *scal, group, acc, row_tile=rt, col_tile=ct, q=q,
+                halo=reverse_halo(sm.coriolis_terms), live=live)
+        return [t / 1e6 for t in held_us(run, group, REPS)]
+
+    launch_s = {("adjoint_step", HEADLINE_N): per_launch("adjoint_step", *cases[HEADLINE_N][3:]),
+                ("tiled_adjoint", LARGE_N): per_launch("tiled_adjoint", *cases[LARGE_N][3:])}
+    for (name, n_side), t in launch_s.items():
+        key = f"{name} {n_side}"
+        log(f"[11] masked {name} device time per launch in a 40-step call (held stream), "
+            f"{n_side}x{n_side}x{LEVELS} f32 channel: {spread(t, 1e6, 'us')}; periodic "
+            f"(phase {6 if name == 'adjoint_step' else 8}) {periodic[key] * 1e6:.3f} us, "
+            f"masked/periodic {statistics.median(t) / periodic[key]:.4f} [{gpu}]")
+
+    # the main path at full width: the 64^2 grad over 4000 steps through
+    # auto_rollout_diff (fe_step and adjoint_step's masked arms)
+    chan, model, prog, st, sm = cases[HEADLINE_N]
+    n = GRAD_STEPS
+    state_bytes = sum(x.numel() * x.element_size() for x in state_fields(st))
+    group = diff_model.adjoint_plan(n, state_bytes, diff_model._default_budget(st.ssh.device))
+    fe_step.launches = adjoint_step.launches = tiled_adjoint.launches = 0
+    t0 = time.perf_counter()
+    out, grads = grad_sum_ssh2(auto_rollout_diff, model.to_struct(prog), sm, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (fe_step.launches, adjoint_step.launches, tiled_adjoint.launches)
+    want = (2 * n - -(-n // group), n, 0)
+    log(f"[11] main path: grad of sum(ssh^2) through auto_rollout_diff, {HEADLINE_N}x"
+        f"{HEADLINE_N}x{LEVELS} f32 Kelvin channel, {n} steps, groups of {group}: {wall:.3f} s "
+        f"wall (to_struct .. grad); launches fe_step {counts[0]}, adjoint_step {counts[1]}, "
+        f"tiled_adjoint {counts[2]} (want {want}) [{gpu}]")
+    if counts != want:
+        raise AssertionError(f"channel grad launch counts {counts} != {want}")
+    adj_launches = counts[1]
+    for name, x in zip(("d_ssh", "d_h", "d_u", "d_dt"), grads):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"channel grad {name} is not finite")
+    ref = structured_auto_run_loop(st, sm, DT, n)
+    if not all(torch.equal(x, y) for x, y in zip(state_fields(out), state_fields(ref))):
+        raise AssertionError("auto_rollout_diff's forward differs from structured_auto_run_loop")
+    log(f"[11] |d_ssh|max {float(grads[0].abs().max()):.6e}, |d_h|max "
+        f"{float(grads[1].abs().max()):.6e}, |d_u|max {float(grads[2].abs().max()):.6e}, "
+        f"d_dt {float(grads[3]):.6e}; the forward is bitwise structured_auto_run_loop's")
+    del out, grads, ref
+    grad_64 = cuda_times(lambda: grad_sum_ssh2(auto_rollout_diff, st, sm, n), REPS)
+    log(f"[11] channel grad, {n} steps: {spread(grad_64)} per grad, "
+        f"{spread([t / n for t in grad_64], 1e6, 'us')} per rollout step; periodic (phase 6) "
+        f"{periodic['grad 64']:.6g} s, masked/periodic "
+        f"{statistics.median(grad_64) / periodic['grad 64']:.4f} [{gpu}]")
+    by_kernel, window_us = profile_by_kernel(
+        lambda: grad_sum_ssh2(auto_rollout_diff, st, sm, n),
+        ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce"))
+    log(f"[11] profiler, one channel grad ({window_us:.0f} us by events): "
+        + profile_line(by_kernel, window_us, gpu))
+
+    # 256^2, 100 steps, through tiled_rollout_diff (tiled_adjoint's masked arm)
+    chan_l, model_l, prog_l, st_l, sm_l = cases[LARGE_N]
+    n = LARGE_ADJ_STEPS
+    plan_l = plan_of(st_l, sm_l, n, budget=diff_model._default_budget(st_l.ssh.device))
+    fe_step.launches = adjoint_step.launches = tiled_adjoint.launches = 0
+    t0 = time.perf_counter()
+    out, grads = grad_sum_ssh2(tiled_rollout_diff, model_l.to_struct(prog_l), sm_l, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (fe_step.launches, tiled_adjoint.launches, adjoint_step.launches)
+    n_ss = n // plan_l[2]
+    want = (2 * n - plan_l[2] * -(-n_ss // plan_l[3]), n_ss, 0)
+    log(f"[11] main path: grad of sum(ssh^2) through tiled_rollout_diff, {LARGE_N}x{LARGE_N}x"
+        f"{LEVELS} f32 Kelvin channel, {n} steps, plan {plan_l}: {wall:.3f} s wall; launches "
+        f"fe_step {counts[0]}, tiled_adjoint {counts[1]}, adjoint_step {counts[2]} (want "
+        f"{want}) [{gpu}]")
+    if counts != want:
+        raise AssertionError(f"channel tiled grad launch counts {counts} != {want}")
+    tiled_adj_launches = counts[1]
+    for name, x in zip(("d_ssh", "d_h", "d_u", "d_dt"), grads):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"channel tiled grad {name} is not finite")
+    del out, grads
+    grad_256 = cuda_times(lambda: grad_sum_ssh2(tiled_rollout_diff, st_l, sm_l, n), REPS)
+    log(f"[11] channel grad through tiled_rollout_diff, {n} steps: {spread(grad_256)} per "
+        f"grad; periodic (phase 8) {periodic['grad 256']:.6g} s, masked/periodic "
+        f"{statistics.median(grad_256) / periodic['grad 256']:.4f} [{gpu}]")
+    by_kernel, window_us = profile_by_kernel(
+        lambda: grad_sum_ssh2(tiled_rollout_diff, st_l, sm_l, n),
+        ("fe_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
+    log(f"[11] profiler, one channel tiled grad ({window_us:.0f} us by events): "
+        + profile_line(by_kernel, window_us, gpu))
+
+    dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+    dims_l = (sm_l.ny2, sm_l.nx, LEVELS, len(sm_l.coriolis_terms), 4)
+    return {
+        "adjoint_step": {
+            "masked_ms": statistics.median(launch_s["adjoint_step", HEADLINE_N]) * 1e3,
+            "masked_launches": adj_launches,
+            "masked_max_abs_err": max_abs_err["adjoint_step"],
+            "masked_bound_ms": step_bound("adjoint_step", *dims)[0] * 1e3,
+            **alt_keys("masked_bound_ms", alt_bounds(step_bound, "adjoint_step", *dims), 1e3),
+            "masked_plain_ms": statistics.median(plain_s["adjoint_step"]) * 1e3,
+            "masked_grad_s_64": statistics.median(grad_64)},
+        "tiled_adjoint": {
+            "masked_ms": statistics.median(launch_s["tiled_adjoint", LARGE_N]) * 1e3,
+            "masked_launches": tiled_adj_launches,
+            "masked_max_abs_err": max_abs_err["tiled_adjoint"],
+            "masked_bound_ms": step_bound("adjoint_step", *dims_l)[0] * plan_l[2] * 1e3,
+            **alt_keys("masked_bound_ms", alt_bounds(step_bound, "adjoint_step", *dims_l),
+                       plan_l[2] * 1e3),
+            "masked_plain_ms": statistics.median(plain_s["tiled_adjoint"]) * 1e3,
+            "masked_grad_s_256": statistics.median(grad_256)},
+    }
 
 
 def ptxas_report(log_text: str, kernels: tuple) -> list:
@@ -997,6 +1867,10 @@ def main() -> int:
         for line in log_file.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[2] ptxas {line.strip()}")
+
+    # -- 9. the card's measured peaks (kernel 5), the divisor of every bound
+    # printed from here on ------------------------------------------------------
+    probe_entries = peaks_phase(gpu, log_file.read_text())
 
     # -- 3. kernel against its plain version on the card ---------------------
     model, prog = random_case(16, 4)
@@ -1062,7 +1936,8 @@ def main() -> int:
     plan_h = fe_step.launch_plan(sm.host_stencil[0], sm.ny2, sm.nx, LEVELS, tile_h)
     log(f"[4] fe_step tile {tile_h}: {plan_h['clusters']} clusters, "
         f"{plan_h['blocks_per_sm']} blocks of 512 threads per SM (occupancy query); "
-        + share_line("fe_step", k_times, step_bound("fe_step", *dims_h)[0]))
+        + share_line("fe_step", k_times, step_bound("fe_step", *dims_h)[0],
+                     alt_bounds(step_bound, "fe_step", *dims_h)))
     # the launch gaps: the same steps as one stream of programmatically
     # dependent launches (above) and as a CUDA graph of 100 steps, replayed
     graph_s = graph_times(st, sm, 100, HEADLINE_STEPS // 100, REPS)
@@ -1331,13 +2206,24 @@ def main() -> int:
             raise AssertionError(f"f64 {LARGE_N}x{LARGE_N} adjoint vs plain: {f} {r:.3e} > 1e-12")
 
     # -- 7. the tiled path -------------------------------------------------------
-    tiled_entry = tiled_phase(gpu, log_file.read_text(), {
+    tiled_entry, periodic_fwd = tiled_phase(gpu, log_file.read_text(), {
         HEADLINE_N: statistics.median(k_times) * 1e6,
         LARGE_N: statistics.median(kl_times) * 1e6,
     })
 
     # -- 8. the tiled reverse ----------------------------------------------------
     tiled_adj_entry, adjoint_256 = tiled_adjoint_phase(gpu, log_file.read_text(), g_times)
+
+    # -- 10. the coastal Kelvin channel forward -----------------------------------
+    masked = channel_forward_phase(gpu, {"fe 64": statistics.median(k_times), **periodic_fwd})
+
+    # -- 11. the gradient on the channel ---------------------------------------------
+    masked.update(channel_grad_phase(gpu, {
+        "adjoint_step 64": adjoint_256["ms_64_in_40_step_calls"] / 1e3,
+        "tiled_adjoint 256": tiled_adj_entry["ms"] / 1e3,
+        "grad 64": statistics.median(g_times),
+        "grad 256": tiled_adj_entry["grad_s_256"],
+    }))
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -1352,6 +2238,7 @@ def main() -> int:
          statistics.median(pa_times) * 1e3),
     ):
         bound, bound_by = step_bound(name, *dims)
+        old = alt_bounds(step_bound, name, *dims)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1364,6 +2251,7 @@ def main() -> int:
             "bound_ms": bound * 1e3,
             "bound_by": bound_by,
             "library_ms": None,
+            **alt_keys("bound_ms", old, 1e3),
         })
     kernels[0]["launches_forward_path"] = launches
     kernels[0]["tile"] = list(tile_h)
@@ -1374,6 +2262,9 @@ def main() -> int:
     kernels[1].update(adjoint_256)
     kernels.append(tiled_entry)
     kernels.append(tiled_adj_entry)
+    for entry in kernels:
+        entry.update(masked[entry["name"]])
+    kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

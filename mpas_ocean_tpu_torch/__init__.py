@@ -1,6 +1,7 @@
 """mpas_ocean_tpu_torch — the PyTorch and CUDA port of mpas_ocean_tpu.
 
-The TRiSK shallow-water core on uniform periodic hex lattices, run on an
+The TRiSK shallow-water core on uniform hex lattices, periodic or coastal
+channels culled from them (``cull_cells``, ``KelvinWave``), run on an
 NVIDIA H100 through hand-written CUDA kernels (``csrc/``, built with nvcc at
 first use by ``kernels/build.py``), with plain PyTorch versions of every
 kernel for the CPU. The JAX package ``mpas_ocean_tpu`` is the reference the
@@ -16,7 +17,9 @@ its gradient under ``torch.autograd``, ``auto_rollout_diff`` (the
 behind ``fused_rollout_diff`` or the tiled adjoint kernel behind
 ``tiled_rollout_diff``, by size). The model
 builds on the card unless given ``device="cpu"``; the state's device picks
-the kernels (CUDA) or the plain versions (CPU).
+the kernels (CUDA) or the plain versions (CPU). A coastal channel runs
+the same entry points from ``StructuredModel(mesh, nx, ny,
+parent_horz=parent, keep_cells=keep)``, through the kernels' masked arms.
 """
 
 from .constants import GRAVITY
@@ -27,6 +30,7 @@ from .mesh import (
     Mesh,
     PrimaryCells,
     VerticalMesh,
+    cull_cells,
     make_vertical_mesh,
     planar_hex_mesh,
 )
@@ -46,7 +50,7 @@ from .structured import (
     window_steps,
 )
 from .utils import error_measures
-from .verification import InertialGravityWave
+from .verification import InertialGravityWave, KelvinWave
 
 __all__ = [
     "GRAVITY",
@@ -54,12 +58,14 @@ __all__ = [
     "Edges",
     "HorzMesh",
     "InertialGravityWave",
+    "KelvinWave",
     "Mesh",
     "PrimaryCells",
     "PrognosticVars",
     "StructuredModel",
     "VerticalMesh",
     "auto_rollout_diff",
+    "cull_cells",
     "error_measures",
     "fused_adjoint_rollout",
     "fused_rollout_diff",

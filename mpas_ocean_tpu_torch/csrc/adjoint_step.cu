@@ -3,8 +3,10 @@
 // (sm_90a).
 //
 // Replaces: _adjoint_segment_kernel
-// (mpas_ocean_tpu/structured/pallas_model.py:1480), the arm with masks=None,
-// nl_terms=None, n_tracers=0, stratified=False and forced=False. The TPU
+// (mpas_ocean_tpu/structured/pallas_model.py:1480), the arms with
+// nl_terms=None, n_tracers=0, stratified=False and forced=False, periodic
+// (masks=None) and masked (a coastal channel: the vjp of _step_planes with
+// masks, :1497-1501, 1545-1552). The TPU
 // kernel recomputes a b-step segment in VMEM and runs an in-kernel jax.vjp of
 // _step_planes per step. CUDA has no vjp, so the transpose is written out by
 // hand here, and the recompute is the forward kernel's (fe_step.cu) filling
@@ -56,6 +58,17 @@
 // (kernels/adjoint_step.adjoint_tile), and launches are programmatically
 // dependent.
 //
+// The masked arm (kMasked, chosen by non-null live bits; the periodic arm
+// keeps its code): a masked step ends u' = m * (u + dt tend_u), so its output
+// cotangent gu enters as m * gu wherever gu appears (the taps of C^T gu,
+// du's first term, S_e, d(dt)). The wall mask comes as one int of live bits
+// per window site, copied with the window (step_window.cuh, load_live), and
+// is folded into the staged gu once per window, beside the gs fold: a warp
+// per site zeroes the chunks of its masked channels (adjoint_window.cuh,
+// fold_live); the step body does not change. A first
+// design staged the mask's six planes and folded them value by value: 20-22%
+// more time per launch at 64x64x100 f32 (PERF.md has the designs tried).
+//
 // What bounds it: about 3 state passes per step (read the primal h and u,
 // read the cotangent, write the new one), 19.7 MB at 64x64x100 in f32, 5.9
 // us at 3.35 TB/s. Measured (f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
@@ -81,6 +94,7 @@ struct AdjArgs {
   const T* gh;
   const T* gu;
   const T* f_edge;
+  const int* live;  // the masked arm's live bits, (ny2, nx); null otherwise
   T* ds;  // cotangent j
   T* dh;
   T* du;
@@ -89,7 +103,7 @@ struct AdjArgs {
   int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
 };
 
-template <typename T>
+template <typename T, bool kMasked>
 __global__ void __launch_bounds__(kStepThreads, 2)
     adjoint_step_kernel(const AdjArgs<T> a, const AdjTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -113,6 +127,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* f_s = gs_s + 2 * W;                              // [6][W]
   T* recv = f_s + 6 * W;  // [n_ranks][2][core]: rank 0's are read
   int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
+  int* live_s = gsite + W;  // [W]: the masked arm's live bits
 
   // The partial sums below go straight into rank 0's shared memory, which
   // only a cluster barrier guarantees to exist: its arrival here and its
@@ -129,10 +144,12 @@ __global__ void __launch_bounds__(kStepThreads, 2)
              plane);
   load_chunk(cot, gs_s, gsite, a.gs, a.gh, a.gu, W, kc, a.kc_log2, a.vec_log2, k0, kr, K,
              plane);
+  if (kMasked) load_live(live_s, gsite, a.live, W);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
   fold_ssh(cot, gs_s, W, Wi, 0, 0, a.rt + 2 * a.hm, Wi, kc, a.kc_log2, kr);
+  if (kMasked) fold_live(cot + 2 * pk, live_s, W, kc, kr);
   __syncthreads();
   cluster_wait();
 
@@ -248,22 +265,24 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   }
 }
 
-template <typename T>
+template <typename T, bool kMasked>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      adjoint_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+      adjoint_step_kernel<T, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
 // The warps' d(dt) sums, a window's primal and cotangent chunks, its ssh,
-// gs and f_edge and sites, and the ranks' partial sums
+// gs and f_edge and sites, the ranks' partial sums, and the masked arm's
+// live bits, reserved by the periodic arm too so that one plan serves both
 // (kernels/adjoint_step.smem_bytes mirrors this).
 size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize) {
   return sizeof(double) * kRedDoubles + step_smem_bytes(sites, kc, 2, kPlanes, itemsize) +
-         itemsize * static_cast<size_t>(n_ranks) * 2 * core;
+         itemsize * static_cast<size_t>(n_ranks) * 2 * core +
+         sizeof(int) * static_cast<size_t>(sites);
 }
 
 // One call's launch set-up: the plan, the resolved stencil, the shared memory.
@@ -276,7 +295,8 @@ struct AdjPlan {
 };
 
 template <typename T>
-int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* table, const double* weights,
+int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const int* table,
+              const double* weights,
               double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,
               int n_terms, int rt, int ct, bool vec) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
@@ -294,7 +314,7 @@ int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* table, const double* w
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
-  pl->a = AdjArgs<T>{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, f_edge,
+  pl->a = AdjArgs<T>{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, f_edge, live,
                      nullptr, nullptr, nullptr, nullptr, T(dt), T(inv_dc), T(s_div),
                      ny2, nx, k, rt, ct, hm, hi, log2_exact(kc),
                      vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
@@ -308,7 +328,8 @@ int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* table, const double* w
 // as it is. `part` holds n_steps * tiles * ranks doubles; d(dt) of the
 // n_steps steps is added to ddt[0].
 template <typename T>
-int adjoint_rollout(const T* f_edge, const int* table, const double* weights, const T* ssh_st,
+int adjoint_rollout(const T* f_edge, const int* live, const int* table, const double* weights,
+                    const T* ssh_st,
                     const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                     const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
                     T* gu_tmp, double* part, double* ddt, double dt, double inv_dc,
@@ -320,10 +341,12 @@ int adjoint_rollout(const T* f_edge, const int* table, const double* weights, co
                    vector_loads(k, kc, sizeof(T), gh_out, gu_out) &&
                    vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp);
   AdjPlan<T> pl;
-  int err = make_plan(&pl, f_edge, table, weights, dt, inv_dc, s_div, ny2, nx, k, n_steps,
-                      n_terms, rt, ct, vec);
+  int err = make_plan(&pl, f_edge, live, table, weights, dt, inv_dc, s_div, ny2, nx, k,
+                      n_steps, n_terms, rt, ct, vec);
   if (err != 0) return err;
-  if ((err = prepare<T>(pl.max_smem)) != 0) return err;
+  const bool masked = live != nullptr;
+  if ((err = masked ? prepare<T, true>(pl.max_smem) : prepare<T, false>(pl.max_smem)) != 0)
+    return err;
   const size_t cells = 2ULL * ny2 * nx;
   const size_t hs = cells * k, us = 3 * cells * k;
   const size_t shares = static_cast<size_t>(pl.n_tiles) * pl.n_ranks;
@@ -340,7 +363,8 @@ int adjoint_rollout(const T* f_edge, const int* table, const double* weights, co
     a.ddt_part = part + s * shares;
     cudaLaunchAttribute attr[2];
     const cudaLaunchConfig_t cfg = step_config(pl.n_ranks, pl.n_tiles, pl.smem, stream, attr);
-    cudaError_t le = cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T>, pl.a, pl.tp);
+    cudaError_t le = masked ? cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T, true>, pl.a, pl.tp)
+                            : cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T, false>, pl.a, pl.tp);
     if (le == cudaSuccess) le = cudaGetLastError();
     if (le != cudaSuccess) return static_cast<int>(le);
     gs = a.ds, gh = a.dh, gu = a.du;
@@ -355,15 +379,17 @@ int adjoint_rollout(const T* f_edge, const int* table, const double* weights, co
 // Returns 0, kNotHexTable for a transposed table that is not the hex
 // lattice's, or the CUDA error of the first launch that failed
 // (cudaErrorInvalidValue for a tile the card does not take). `table` and
-// `weights` are host copies of the TRANSPOSED stencil; rt x ct is the tile.
+// `weights` are host copies of the TRANSPOSED stencil; rt x ct is the tile;
+// a null `live` (the wall mask's live bits, one int per site) runs the
+// periodic arm, any other the masked one.
 #define MOT_ADJOINT_ENTRY(T, SUFFIX)                                                          \
   extern "C" int mot_adjoint_rollout_##SUFFIX(                                                \
-      const T* f_edge, const int* table, const double* weights, const T* ssh_st,              \
-      const T* h_st, const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in,           \
-      T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part,         \
-      double* ddt, double dt, double inv_dc, double s_div, int ny2, int nx, int k,            \
-      int n_steps, int n_terms, int rt, int ct, void* stream) {                               \
-    return adjoint_rollout<T>(f_edge, table, weights, ssh_st, h_st, u_st, gs_in, gh_in,       \
+      const T* f_edge, const int* live, const int* table, const double* weights,                \
+      const T* ssh_st, const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,          \
+      const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp,       \
+      double* part, double* ddt, double dt, double inv_dc, double s_div, int ny2, int nx,     \
+      int k, int n_steps, int n_terms, int rt, int ct, void* stream) {                        \
+    return adjoint_rollout<T>(f_edge, live, table, weights, ssh_st, h_st, u_st, gs_in, gh_in, \
                               gu_in, gs_out, gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part,    \
                               ddt, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct,   \
                               static_cast<cudaStream_t>(stream));                             \
@@ -380,12 +406,12 @@ extern "C" int mot_adjoint_plan(const int* table, int ny2, int nx, int k, int rt
                                 int* out) {
   double weights[kMaxTerms] = {};
   AdjPlan<float> pl;
-  int e = make_plan<float>(&pl, nullptr, table, weights, 1.0, 1.0, 1.0, ny2, nx, k, 1,
+  int e = make_plan<float>(&pl, nullptr, nullptr, table, weights, 1.0, 1.0, 1.0, ny2, nx, k, 1,
                            table[0], rt, ct, true);
   if (e != 0) return e;
-  if ((e = prepare<float>(pl.max_smem)) != 0) return e;
+  if ((e = prepare<float, false>(pl.max_smem)) != 0) return e;
   out[0] = pl.n_tiles;
   out[2] = static_cast<int>(pl.smem);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], adjoint_step_kernel<float>, kStepThreads, pl.smem));
+      &out[1], adjoint_step_kernel<float, false>, kStepThreads, pl.smem));
 }

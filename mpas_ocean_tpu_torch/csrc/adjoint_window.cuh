@@ -182,6 +182,30 @@ __device__ __forceinline__ void fold_ssh(T* gh, const T* gs_s, int W, int Wi, in
   }
 }
 
+// gu = 0 on the masked channels of the window's sites (gu [6][W][kc], the
+// live bits live_s [W]: step_window.cuh, load_live), in place. A masked step
+// ends u' = m * u', so its output cotangent enters the transpose as m * gu:
+// folded once here, every read of gu in the taps, in S_e and in d(dt) reads
+// m * gu. A warp takes a site at a time: where every bit is set (most of a
+// channel's sites) it goes on at once, else its lanes zero the site's
+// masked chunks together (one thread per site, zeroing up to 6 kc values
+// alone, cost adjoint_step 8-9% at 64x64x100 f32, PERF.md). Not inlined:
+// inlined, it cost the step body registers, and the masked arm 1.10x the
+// periodic one's time there against 1.06x.
+template <typename T>
+__device__ __noinline__ void fold_live(T* gu, const int* live_s, int W, int kc, int kr) {
+  const int lane = threadIdx.x & 31;
+  const int n_warps = static_cast<int>(blockDim.x >> 5);
+  for (int s = static_cast<int>(threadIdx.x >> 5); s < W; s += n_warps) {
+    const unsigned bits = static_cast<unsigned>(live_s[s]);
+    if (bits == kAllLive) continue;  // the same for the whole warp
+    for (int e = lane; e < 6 * kc; e += 32) {
+      const int ch = e / kc, kl = e - ch * kc;
+      if (kl < kr && !((bits >> ch) & 1u)) gu[(ch * W + s) * kc + kl] = T(0);
+    }
+  }
+}
+
 // The block's d(dt) share, in two halves around a barrier of every thread:
 // each warp's sum of its threads' values into red[warp]; after the barrier,
 // thread 0 adds the warps' sums in order. A fixed order, no atomics.

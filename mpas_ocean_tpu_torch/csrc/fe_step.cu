@@ -2,13 +2,15 @@
 // parity-plane hex lattice, for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _rollout_kernel (mpas_ocean_tpu/structured/pallas_model.py:320),
-// the arm with masks=None, nl=None, tr=None, strat_w=None, fb=False and
-// forc=None. One launch is one step of _step_planes (:91-299); the exported
-// entries loop n_steps launches on the caller's stream.
+// the arms with nl=None, tr=None, strat_w=None, fb=False and forc=None,
+// periodic (masks=None) and masked (a coastal channel culled from a periodic
+// lattice: u_new *= masks[c], :257-259). One launch is one step of
+// _step_planes (:91-299); the exported entries loop n_steps launches on the
+// caller's stream.
 //
 // Layout (all contiguous, K innermost):
 //   ssh (2, ny2, nx)   h (2, ny2, nx, K)   u (6, ny2, nx, K), channel f*2+p
-//   f_edge (6, ny2, nx)   rts (2, ny2, nx)
+//   f_edge (6, ny2, nx)   rts (2, ny2, nx)   live (ny2, nx) int, or null
 // No in-place update: blocks run in parallel and in no order, so a step
 // reads one buffer set and writes another: mot_fe_steps_* alternates between
 // the caller's output and one scratch set, mot_fe_stack_* writes each step
@@ -51,6 +53,17 @@
 // PERF.md section 5): 29% at 64x64x100 (13.8 us/step against 3.94) and 34%
 // at 256x256x100 (184.6 against 63.1); the first design reached 14-16%.
 //
+// The masked arm (kMasked, chosen by non-null live bits; the periodic arm
+// keeps its code) stages the wall mask as one int of live bits per window
+// site with f_edge (step_window.cuh, load_live), holds a site's in one
+// register through the level loop and stores u' = 0 on masked channels. A
+// first design staged the mask's six planes: 12% more copies per block and
+// 5.7-7.3% more time per step at 64x64x100 f32; a second read the bits from
+// device memory before the window's loads, which cost 7.7% at 256x256x100,
+// one memory round trip per wave of blocks (PERF.md). Culled
+// cells hold h = 0 and rts = 0, and every edge of theirs is masked, so they
+// stay so; nothing divides by h.
+//
 // The stencil table's layout is in lattice.cuh.
 
 #include <algorithm>
@@ -71,6 +84,7 @@ struct FeArgs {
   const T* u;
   const T* f_edge;
   const T* rts;
+  const int* live;  // the masked arm's live bits, (ny2, nx); null otherwise
   T* ssh_out;
   T* h_out;
   T* u_out;
@@ -80,7 +94,7 @@ struct FeArgs {
 
 // Each distinct u and h value of a (site, level) is loaded once and each
 // u * f product formed once (step_window.cuh, hex::).
-template <typename T>
+template <typename T, bool kMasked>
 __global__ void __launch_bounds__(kStepThreads, 2)
     fe_step_kernel(const FeArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -102,6 +116,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* rts_s = f_s + 6 * W;                   // [2][W]
   T* recv = rts_s + 2 * W;                  // [n_ranks][2][core]: rank 0's are read
   int* gs = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
+  int* live_s = gs + W;                     // [W]: the masked arm's live bits
 
   // The partial column sums below go straight into rank 0's shared memory,
   // which only a cluster barrier guarantees to exist: its arrival here and
@@ -113,6 +128,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   wait_previous_grid();
   load_consts(f_s, rts_s, gs, a.f_edge, a.rts, W, plane);
   load_state(buf, ssh_s, gs, a.ssh, a.h, a.u, W, a.kc_log2, a.vec_log2, k0, kr, K, plane);
+  if (kMasked) load_live(live_s, gs, a.live, W);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -141,6 +157,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 #pragma unroll
     for (int ch = 0; ch < 6; ++ch)
       grad[ch] = (ssh_s[s + tp.nb[ch]] - ssh_s[(ch & 1) * W + s]) * a.inv_dc;
+    const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
     T acc0 = T(0), acc1 = T(0);
     for (int kl = lane; kl < kc; kl += G) {
       if (!valid || kl >= kr) continue;
@@ -188,6 +205,11 @@ __global__ void __launch_bounds__(kStepThreads, 2)
         }
         unew[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
       }
+      if (kMasked && live != kAllLive) {
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch)
+          if (!((live >> ch) & 1u)) unew[ch] = T(0);
+      }
 #pragma unroll
       for (int p = 0; p < 2; ++p) h_o[p * plane * K] = hnew[p];
 #pragma unroll
@@ -219,21 +241,23 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   }
 }
 
-template <typename T>
+template <typename T, bool kMasked>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      fe_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+      fe_step_kernel<T, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
-// A window's state chunk, ssh, f_edge, rts and sites, and the ranks'
-// partial sums (kernels/fe_step.smem_bytes mirrors this).
+// A window's state chunk, ssh, f_edge, rts and sites, the ranks' partial
+// sums, and the masked arm's live bits, reserved by the periodic arm too so
+// that one plan serves both (kernels/fe_step.smem_bytes mirrors this).
 size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize) {
   return step_smem_bytes(sites, kc, 1, kPlanes, itemsize) +
-         itemsize * static_cast<size_t>(n_ranks) * 2 * core;
+         itemsize * static_cast<size_t>(n_ranks) * 2 * core +
+         sizeof(int) * static_cast<size_t>(sites);
 }
 
 // The rows and columns one FE step reads per side, from the table (host
@@ -265,7 +289,7 @@ struct FePlan {
 };
 
 template <typename T>
-int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* table,
+int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live, const int* table,
               const double* weights, double dt, double inv_dc, double s_div, int ny2, int nx,
               int k, int n_steps, int n_terms, int rt, int ct, bool vec) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
@@ -284,7 +308,7 @@ int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* table,
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
-  pl->a = FeArgs<T>{nullptr, nullptr, nullptr, f_edge, rts, nullptr, nullptr, nullptr,
+  pl->a = FeArgs<T>{nullptr, nullptr, nullptr, f_edge, rts, live, nullptr, nullptr, nullptr,
                     T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, hm, hi,
                     log2_exact(kc),
                     vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
@@ -296,12 +320,15 @@ int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out,
                 T* u_out, cudaStream_t stream) {
   pl->a.ssh = ssh, pl->a.h = h, pl->a.u = u;
   pl->a.ssh_out = ssh_out, pl->a.h_out = h_out, pl->a.u_out = u_out;
-  const int err = prepare<T>(pl->max_smem);
+  const bool masked = pl->a.live != nullptr;
+  const int err = masked ? prepare<T, true>(pl->max_smem) : prepare<T, false>(pl->max_smem);
   if (err != 0) return err;
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg =
       step_config(pl->n_ranks, pl->n_tiles, pl->smem, stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, fe_step_kernel<T>, pl->a, pl->tp);
+  const cudaError_t e =
+      masked ? cudaLaunchKernelEx(&cfg, fe_step_kernel<T, true>, pl->a, pl->tp)
+             : cudaLaunchKernelEx(&cfg, fe_step_kernel<T, false>, pl->a, pl->tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -310,7 +337,8 @@ int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out,
 // n_steps - 1 - s is even and `tmp` otherwise, so the last step lands in
 // `out`, no step writes the buffer it reads, and `in` is left as it is.
 template <typename T>
-int fe_steps(const T* f_edge, const T* rts, const int* table, const double* weights,
+int fe_steps(const T* f_edge, const T* rts, const int* live, const int* table,
+             const double* weights,
              const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,
              T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,
              int nx, int k, int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
@@ -319,8 +347,8 @@ int fe_steps(const T* f_edge, const T* rts, const int* table, const double* weig
                    vector_loads(k, kc, sizeof(T), h_out, u_out) &&
                    vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, table, weights, dt, inv_dc, s_div, ny2, nx, k,
-                      n_steps, n_terms, rt, ct, vec);
+  int err = make_plan(&pl, f_edge, rts, live, table, weights, dt, inv_dc, s_div, ny2, nx,
+                      k, n_steps, n_terms, rt, ct, vec);
   if (err != 0) return err;
   const T *ssh = ssh_in, *h = h_in, *u = u_in;
   for (int s = 0; s < n_steps; ++s) {
@@ -337,12 +365,13 @@ int fe_steps(const T* f_edge, const T* rts, const int* table, const double* weig
 
 // n_steps steps through a stack of states: slot s + 1 = step(slot s).
 template <typename T>
-int fe_stack(const T* f_edge, const T* rts, const int* table, const double* weights, T* ssh,
-             T* h, T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k,
-             int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
+int fe_stack(const T* f_edge, const T* rts, const int* live, const int* table,
+             const double* weights, T* ssh, T* h, T* u, double dt, double inv_dc,
+             double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,
+             cudaStream_t stream) {
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, table, weights, dt, inv_dc, s_div, ny2, nx, k,
-                      n_steps, n_terms, rt, ct,
+  int err = make_plan(&pl, f_edge, rts, live, table, weights, dt, inv_dc, s_div, ny2, nx,
+                      k, n_steps, n_terms, rt, ct,
                       vector_loads(k, step_chunk(k), sizeof(T), h, u));
   if (err != 0) return err;
   const size_t cells = 2ULL * ny2 * nx;
@@ -360,23 +389,27 @@ int fe_stack(const T* f_edge, const T* rts, const int* table, const double* weig
 // Each entry returns 0, kNotHexTable for a stencil that is not the hex
 // lattice's, or the CUDA error of the first launch that failed
 // (cudaErrorInvalidValue for a tile the card does not take). `table` and
-// `weights` are host copies of the stencil; rt x ct is the tile.
+// `weights` are host copies of the stencil; rt x ct is the tile; a null
+// `live` (the wall mask's live bits, one int per site) runs the periodic
+// arm, any other the masked one.
 #define MOT_FE_ENTRIES(T, SUFFIX)                                                           \
   extern "C" int mot_fe_steps_##SUFFIX(                                                     \
-      const T* f_edge, const T* rts, const int* table, const double* weights,               \
-      const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,        \
-      T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,      \
-      int nx, int k, int n_steps, int n_terms, int rt, int ct, void* stream) {              \
-    return fe_steps<T>(f_edge, rts, table, weights, ssh_in, h_in, u_in, ssh_out, h_out,     \
-                       u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,         \
+      const T* f_edge, const T* rts, const int* live, const int* table,                       \
+      const double* weights, const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out,     \
+      T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,         \
+      double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,       \
+      void* stream) {                                                                       \
+    return fe_steps<T>(f_edge, rts, live, table, weights, ssh_in, h_in, u_in, ssh_out,      \
+                       h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,  \
                        n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));        \
   }                                                                                         \
   extern "C" int mot_fe_stack_##SUFFIX(                                                     \
-      const T* f_edge, const T* rts, const int* table, const double* weights, T* ssh, T* h, \
-      T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,    \
-      int n_terms, int rt, int ct, void* stream) {                                          \
-    return fe_stack<T>(f_edge, rts, table, weights, ssh, h, u, dt, inv_dc, s_div, ny2, nx,  \
-                       k, n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));     \
+      const T* f_edge, const T* rts, const int* live, const int* table,                       \
+      const double* weights, T* ssh, T* h, T* u, double dt, double inv_dc, double s_div,    \
+      int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, void* stream) {     \
+    return fe_stack<T>(f_edge, rts, live, table, weights, ssh, h, u, dt, inv_dc, s_div,     \
+                       ny2, nx, k, n_steps, n_terms, rt, ct,                                \
+                       static_cast<cudaStream_t>(stream));                                  \
   }
 
 MOT_FE_ENTRIES(float, f32)
@@ -389,11 +422,11 @@ MOT_FE_ENTRIES(double, f64)
 extern "C" int mot_fe_plan(const int* table, int ny2, int nx, int k, int rt, int ct, int* out) {
   double weights[kMaxTerms] = {};
   FePlan<float> pl;
-  int e = make_plan<float>(&pl, nullptr, nullptr, table, weights, 1.0, 1.0, 1.0, ny2, nx, k, 1,
-                           table[0], rt, ct, true);
+  int e = make_plan<float>(&pl, nullptr, nullptr, nullptr, table, weights, 1.0, 1.0, 1.0, ny2,
+                           nx, k, 1, table[0], rt, ct, true);
   if (e != 0) return e;
-  if ((e = prepare<float>(pl.max_smem)) != 0) return e;
+  if ((e = prepare<float, false>(pl.max_smem)) != 0) return e;
   out[0] = pl.n_tiles;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], fe_step_kernel<float>, kStepThreads, pl.smem));
+      &out[1], fe_step_kernel<float, false>, kStepThreads, pl.smem));
 }

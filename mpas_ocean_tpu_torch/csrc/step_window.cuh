@@ -209,6 +209,21 @@ __device__ __forceinline__ void load_consts(T* f_s, T* rts_s, const int* gs, con
   }
 }
 
+// The masked arms' live bits of the window's sites, by async copies (needs
+// gs[]): `live` is the wall mask packed as one int per lattice site, bit c
+// set where the mask of channel c is not 0 (kernels/fe_step.live_bits). The
+// mask is 0 or 1 (StructMesh.edge_mask), so the plain version's u' * m is u'
+// on a live channel and 0 on a masked one; the masked arms store +0 there
+// (u' * 0 may carry the sign of u'). One copy per window site brings what
+// the mask's six planes would, and one register per site holds it through a
+// level loop, where a site with every bit set (most of a channel's) skips
+// the masking.
+constexpr unsigned kAllLive = 0x3f;  // a site none of whose six channels is masked
+
+__device__ __forceinline__ void load_live(int* live_s, const int* gs, const int* live, int W) {
+  for (int s = threadIdx.x; s < W; s += blockDim.x) copy_async(live_s + s, live + gs[s]);
+}
+
 // This block's level chunk of h and u over the window, and ssh. With
 // vec_log2 >= 0 (K * itemsize, the chunk and the pointers 16-byte aligned) each
 // (site, plane) chunk moves as 2^vec_log2 16-byte vectors, neighbouring

@@ -3,8 +3,10 @@
 // NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_adjoint_kernel (mpas_ocean_tpu/structured/pallas_model.py:
-// 1979), the arm with masks, nl_terms, tracers, cell masks, stratification
-// and forcing off (fb=False is fixed there). The TPU kernel traces jax.vjp of
+// 1979), the arms with nl_terms, tracers, cell masks, stratification and
+// forcing off (fb=False is fixed there), periodic (masks off) and masked (a
+// coastal channel: the vjp of _window_steps with masks_full, :2001-2006,
+// 2063). The TPU kernel traces jax.vjp of
 // _window_steps in-kernel and emits the cotangent of the whole padded window,
 // which its caller overlap-adds (_halo_unscatter). CUDA has no vjp, so the
 // transpose is written out by hand, as in adjoint_step.cu; and it is taken in
@@ -56,6 +58,14 @@
 // step body: one shared forward step function cost tiled_step's FB arm 11.5%
 // (PERF.md).
 //
+// The masked arm (kMasked, chosen by non-null live bits; the periodic arm
+// keeps its code) takes the wall mask as one int of live bits per window
+// site, copied with the window (step_window.cuh, load_live). It folds them
+// into the staged end cotangent's gu once (adjoint_window.cuh, fold_live: a
+// masked step's output cotangent enters as m * gu), the recompute writes
+// u' = 0 on masked channels as tiled_step.cu does, and each reverse step
+// stores its cotangent's gu so folded for the next step to read.
+//
 // What bounds it: a reverse step reads the primal state and the end
 // cotangent and writes the start cotangent, three state passes, 94 us at
 // 256x256x100 f32 at 3.35 TB/s, plus the halo re-reads. Measured (f32,
@@ -79,6 +89,7 @@ struct TiledArgs {
   const T* gu;
   const T* f_edge;
   const T* rts;
+  const int* live;  // the masked arm's live bits, (ny2, nx); null otherwise
   T* ds;  // cotangent at its start
   T* dh;
   T* du;
@@ -95,13 +106,15 @@ inline int site_planes(int q) { return 8 + 2 * q + (q > 1 ? 6 : 0); }
 // Dynamic shared memory of one block (kernels/tiled_adjoint.smem_bytes
 // mirrors this): the warps' d(dt) sums; q primal chunks and one cotangent
 // chunk (two at q > 1) [8][sites][kc]; the per-site planes; the ranks'
-// partial sums of the core for rank 0 [n_ranks][2][core]; the sites.
+// partial sums of the core for rank 0 [n_ranks][2][core]; the sites and
+// the masked arm's live bits, reserved by the periodic arm too so that one
+// plan serves both.
 size_t smem_bytes(long long sites, int core, int kc, int q, int n_ranks, size_t itemsize) {
   const size_t chunks = 8 * static_cast<size_t>(q + (q > 1 ? 2 : 1)) * kc;
   return sizeof(double) * kRedDoubles +
          itemsize * (static_cast<size_t>(sites) * (chunks + site_planes(q)) +
                      static_cast<size_t>(n_ranks) * 2 * core) +
-         sizeof(int) * static_cast<size_t>(sites);
+         sizeof(int) * static_cast<size_t>(sites) * 2;  // sites, live bits
 }
 
 // Sum over the `width` lanes of a group (a power of two <= 32) in lane
@@ -150,8 +163,8 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster, T* part, T* d
 
 // kMulti: q > 1. The q = 1 instantiation compiles without the recompute and
 // the exchanges between steps, which cost one body for all q 11% at q = 1
-// (PERF.md).
-template <typename T, bool kMulti>
+// (PERF.md). kMasked: the masked arm.
+template <typename T, bool kMulti, bool kMasked>
 __global__ void __launch_bounds__(kStepThreads, 2)
     tiled_adjoint_kernel(const TiledArgs<T> a, const AdjTaps<T> tp, const StepTaps<T> fw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -179,6 +192,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* part = rts_s + (kMulti ? 2 * W : 0);             // [2][2][W], q > 1
   T* recv = part + (kMulti ? 4 * W : 0);              // [n_ranks][2][core]: rank 0's
   int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
+  int* live_s = gsite + W;                            // [W]: the masked arm's live bits
 
   cluster_arrive_relaxed();
   allow_next_grid();
@@ -195,10 +209,12 @@ __global__ void __launch_bounds__(kStepThreads, 2)
              plane);
   load_chunk(cot, gs_s, gsite, a.gs, a.gh, a.gu, W, kc, a.kp_log2, a.vec_log2, k0, kr, K,
              plane);
+  if (kMasked) load_live(live_s, gsite, a.live, W);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
   fold_ssh(cot, gs_s, W, Wi, 0, 0, Wm, Wi, kc, a.kp_log2, kr);
+  if (kMasked) fold_live(cot + 2 * pk, live_s, W, kc, kr);
   __syncthreads();
   cluster_wait();
 
@@ -231,6 +247,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch)
         grad[ch] = (ssh_c[s + fw.nb[ch]] - ssh_c[(ch & 1) * W + s]) * a.inv_dc;
+      const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
       T acc0 = T(0), acc1 = T(0);
       for (int kl = lane; kl < kc; kl += G) {
         if (t >= rg.n || kl >= kr) continue;
@@ -273,6 +290,11 @@ __global__ void __launch_bounds__(kStepThreads, 2)
           }
           unew[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
         }
+        if (kMasked && live != kAllLive) {
+#pragma unroll
+          for (int ch = 0; ch < 6; ++ch)
+            if (!((live >> ch) & 1u)) unew[ch] = T(0);
+        }
 #pragma unroll
         for (int p = 0; p < 2; ++p) o[p * pk] = hnew[p];
 #pragma unroll
@@ -312,6 +334,8 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       const bool in_core = wr >= core_r && wr < core_r + a.rt && wc >= core_c &&
                            wc < core_c + a.ct;
       const int g = (tm * a.rt + r) * a.nx + ti * a.ct + c;  // for j = 0 (R_0 = core)
+      // the cotangent j's gu is stored as m * gu for step j - 1 to read
+      const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
       T grad[6], fo[6];
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) {
@@ -372,11 +396,17 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 #pragma unroll
           for (int ch = 0; ch < 6; ++ch) u_o[ch * plane * K] = du[ch];
         } else {
+          if (kMasked && live != kAllLive) {
+#pragma unroll
+            for (int ch = 0; ch < 6; ++ch)
+              if (!((live >> ch) & 1u)) du[ch] = T(0);
+          }
           T* o = Cn + s * kc + kl;
 #pragma unroll
           for (int p = 0; p < 2; ++p) o[p * pk] = dh[p];
 #pragma unroll
-          for (int ch = 0; ch < 6; ++ch) o[(2 + ch) * pk] = du[ch];
+          for (int ch = 0; ch < 6; ++ch)
+            o[(2 + ch) * pk] = du[ch];
         }
         acc0 += S[0];
         acc1 += S[1];
@@ -420,14 +450,32 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 
 // The kernel's attribute, set once per instantiation: dynamic shared memory
 // up to the device's opt-in limit.
-template <typename T, bool kMulti>
+template <typename T, bool kMulti, bool kMasked>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      tiled_adjoint_kernel<T, kMulti>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(tiled_adjoint_kernel<T, kMulti, kMasked>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
+}
+
+// The kernel of a plan: q > 1 or not, masked or not.
+template <typename T>
+using TiledKernel = void (*)(TiledArgs<T>, AdjTaps<T>, StepTaps<T>);
+template <typename T>
+TiledKernel<T> kernel_of(bool multi, bool masked) {
+  return multi ? (masked ? tiled_adjoint_kernel<T, true, true>
+                         : tiled_adjoint_kernel<T, true, false>)
+               : (masked ? tiled_adjoint_kernel<T, false, true>
+                         : tiled_adjoint_kernel<T, false, false>);
+}
+template <typename T>
+int prepare_of(bool multi, bool masked, int max_smem) {
+  return multi ? (masked ? prepare<T, true, true>(max_smem) : prepare<T, true, false>(max_smem))
+               : (masked ? prepare<T, false, true>(max_smem)
+                         : prepare<T, false, false>(max_smem));
 }
 
 // n_ss reverse supersteps through the stack's slots n_ss - 1 .. 0, from the
@@ -437,7 +485,8 @@ int prepare(int max_smem) {
 // (`table`, `weights` and their transposes) are host copies; kc is the
 // chunk of levels per block (kernels/tiled_adjoint.level_split).
 template <typename T>
-int tiled_adjoint(const T* f_edge, const T* rts, const int* table, const double* weights,
+int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const int* table,
+                  const double* weights,
                   const int* adj_table, const double* adj_weights, const T* ssh_st,
                   const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                   const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
@@ -458,12 +507,14 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* table, const double*
   if (!resolve_taps<T>(&fw, table, weights, Wi, W, kc) ||
       !resolve_adjoint_taps<T>(&tp, adj_table, adj_weights, Wi, W, kc))
     return kNotHexTable;
+  const bool masked = live != nullptr;
   const size_t smem = smem_bytes(W, rt * ct, kc, q, n_ranks, sizeof(T));
   int max_smem = 0;
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  if ((err = q > 1 ? prepare<T, true>(max_smem) : prepare<T, false>(max_smem)) != 0) return err;
+  if ((err = prepare_of<T>(q > 1, masked, max_smem)) != 0) return err;
+  const TiledKernel<T> kernel = kernel_of<T>(q > 1, masked);
   const int kp_log2 = log2_exact(kc);
   const bool vec = (1 << kp_log2) == kc && vector_loads(k, kc, sizeof(T), h_st, u_st) &&
                    vector_loads(k, kc, sizeof(T), gh_in, gu_in) &&
@@ -472,7 +523,7 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* table, const double*
   const int n_tiles = (ny2 / rt) * (nx / ct);
   const size_t cells = 2ULL * ny2 * nx;
   const size_t hs = cells * k, us = 3 * cells * k;
-  TiledArgs<T> a{nullptr, nullptr, nullptr, gs_in, gh_in, gu_in, f_edge, rts, nullptr,
+  TiledArgs<T> a{nullptr, nullptr, nullptr, gs_in, gh_in, gu_in, f_edge, rts, live, nullptr,
                  nullptr, nullptr, nullptr, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct,
                  q, hm, hi, kc, kp_log2,
                  vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct};
@@ -486,8 +537,7 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* table, const double*
     a.ddt_part = part + static_cast<size_t>(s) * n_tiles * n_ranks;
     cudaLaunchAttribute attr[2];
     const cudaLaunchConfig_t cfg = step_config(n_ranks, n_tiles, smem, stream, attr);
-    cudaError_t le = q > 1 ? cudaLaunchKernelEx(&cfg, tiled_adjoint_kernel<T, true>, a, tp, fw)
-                           : cudaLaunchKernelEx(&cfg, tiled_adjoint_kernel<T, false>, a, tp, fw);
+    cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, a, tp, fw);
     if (le == cudaSuccess) le = cudaGetLastError();
     if (le != cudaSuccess) return static_cast<int>(le);
     a.gs = a.ds, a.gh = a.dh, a.gu = a.du;
@@ -499,17 +549,19 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* table, const double*
 
 // Returns 0, kNotHexTable for a stencil that is not the hex lattice's, or
 // the CUDA error of the first launch that failed (cudaErrorInvalidValue for
-// a plan the lattice or the card does not take).
+// a plan the lattice or the card does not take). A null `live` (the wall
+// mask's live bits, one int per site) runs the periodic arm, any other the
+// masked one.
 #define MOT_TILED_ADJOINT_ENTRY(T, SUFFIX)                                                  \
   extern "C" int mot_tiled_adjoint_##SUFFIX(                                                \
-      const T* f_edge, const T* rts, const int* table, const double* weights,               \
+      const T* f_edge, const T* rts, const int* live, const int* table, const double* weights,\
       const int* adj_table, const double* adj_weights, const T* ssh_st, const T* h_st,      \
       const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in, T* gs_out, T* gh_out,  \
       T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part, double* ddt, double dt,     \
       double inv_dc, double s_div, int ny2, int nx, int k, int n_ss, int n_terms, int rt,   \
       int ct, int q, int hm, int hi, int kc, void* stream) {                                \
-    return tiled_adjoint<T>(f_edge, rts, table, weights, adj_table, adj_weights, ssh_st,    \
-                            h_st, u_st, gs_in, gh_in, gu_in, gs_out, gh_out, gu_out,        \
+    return tiled_adjoint<T>(f_edge, rts, live, table, weights, adj_table, adj_weights,      \
+                            ssh_st, h_st, u_st, gs_in, gh_in, gu_in, gs_out, gh_out, gu_out, \
                             gs_tmp, gh_tmp, gu_tmp, part, ddt, dt, inv_dc, s_div, ny2, nx,  \
                             k, n_ss, n_terms, rt, ct, q, hm, hi, kc,                        \
                             static_cast<cudaStream_t>(stream));                             \
@@ -528,12 +580,9 @@ extern "C" int mot_tiled_adjoint_occupancy(int rt, int ct, int q, int hm, int hi
   const size_t smem = smem_bytes(sites, rt * ct, kc, q, n_ranks, sizeof(float));
   int max_smem = 0;
   int e = opt_in_smem(&max_smem);
-  if (e == 0) e = q > 1 ? prepare<float, true>(max_smem) : prepare<float, false>(max_smem);
+  if (e == 0) e = prepare_of<float>(q > 1, false, max_smem);
   if (e != 0) return e;
   out[0] = static_cast<int>(smem);
-  return static_cast<int>(
-      q > 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  &out[1], tiled_adjoint_kernel<float, true>, kStepThreads, smem)
-            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  &out[1], tiled_adjoint_kernel<float, false>, kStepThreads, smem));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], kernel_of<float>(q > 1, false), kStepThreads, smem));
 }

@@ -3,14 +3,17 @@
 // for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_step_kernel (mpas_ocean_tpu/structured/pallas_model.py:852),
-// the arm with masks, forcing, tracers, cell masks, stratification and the
-// nonlinear terms off, halos read from the periodic state. One launch advances
-// the whole lattice by q steps of _window_steps (:802); the exported entry
-// loops n_steps / q launches on the caller's stream.
+// the arms with forcing, tracers, cell masks, stratification and the
+// nonlinear terms off, halos read from the state, periodic (masks off) and
+// masked (a coastal channel culled from a periodic lattice: the mask operands
+// of :875-877, 1287-1288, windowed as f_edge). One launch advances the whole
+// lattice by q steps of _window_steps (:802); the exported entry loops
+// n_steps / q launches on the caller's stream.
 //
 // Layout (all contiguous, K innermost), as in fe_step.cu:
 //   ssh (2, ny2, nx)   h (2, ny2, nx, K)   u (6, ny2, nx, K), channel f*2+p
-//   f_edge (6, ny2, nx)   rts (2, ny2, nx); stencil table as in lattice.cuh.
+//   f_edge (6, ny2, nx)   rts (2, ny2, nx)   live (ny2, nx) int, or null;
+//   stencil table as in lattice.cuh.
 //
 // Design. The lattice is cut into rt x ct tiles of sites. A tile's window
 // is the tile plus q halos of (hm, hi) sites per side, hm = 1 (FE) or 2 (FB)
@@ -60,6 +63,14 @@
 // PERF.md section 5): 20% at 64x64x100 (19.7 us/step against 3.94) and 23%
 // at 256x256x100 (276.5 against 63.1; 37% of the bound with the plan's halo
 // reads and ring recompute).
+//
+// The masked arm (kMasked, chosen by non-null live bits; the periodic arm
+// keeps its code) stages the wall mask as one int of live bits per window
+// site with f_edge (step_window.cuh, load_live), holds a site's in one
+// register through the level loop of each momentum update and writes u' = 0
+// on masked channels, at every step of the window: FB takes h first with the
+// old u, then u with the fresh ssh, and the mask last (pallas_model.py:
+// 148-153, 257-259).
 
 #include "step_window.cuh"
 
@@ -76,6 +87,7 @@ struct StepArgs {
   const T* u;
   const T* f_edge;
   const T* rts;
+  const int* live;  // the masked arm's live bits, (ny2, nx); null otherwise
   T* ssh_out;
   T* h_out;
   T* u_out;
@@ -85,7 +97,7 @@ struct StepArgs {
 
 // Each distinct u and h value of a (site, level) is loaded once and each
 // u * f product formed once (step_window.cuh, hex::).
-template <typename T, bool FB>
+template <typename T, bool FB, bool kMasked>
 __global__ void __launch_bounds__(kStepThreads, 2)
     tiled_step_kernel(const StepArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -106,6 +118,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* f_s = part + 4 * W;                     // [6][W]
   T* rts_s = f_s + 6 * W;                    // [2][W]
   int* gs = reinterpret_cast<int*>(rts_s + 2 * W);  // [W]: lattice site
+  int* live_s = gs + W;                              // [W]: the masked arm's live bits
 
   allow_next_grid();
   const int m_base = tm * a.rt - a.hm * a.q, i_base = ti * a.ct - a.hi * a.q;
@@ -114,6 +127,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   wait_previous_grid();
   load_consts(f_s, rts_s, gs, a.f_edge, a.rts, W, plane);
   load_state(buf, ssh_s, gs, a.ssh, a.h, a.u, W, a.kc_log2, a.vec_log2, k0, kr, K, plane);
+  if (kMasked) load_live(live_s, gs, a.live, W);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -236,6 +250,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch)
         grad[ch] = (pg[s + tp.nb[ch]] - pg[(ch & 1) * W + s]) * a.inv_dc;
+      const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
       for (int kl = lane; kl < kr; kl += G) {
         const int b = s * kc + kl;
         T v[6];
@@ -255,6 +270,11 @@ __global__ void __launch_bounds__(kStepThreads, 2)
             acc = (x == 0) ? contrib : acc + contrib;
           }
           v[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
+        }
+        if (kMasked && live != kAllLive) {
+#pragma unroll
+          for (int ch = 0; ch < 6; ++ch)
+            if (!((live >> ch) & 1u)) v[ch] = T(0);
         }
 #pragma unroll
         for (int ch = 0; ch < 6; ++ch) {
@@ -284,32 +304,36 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   cluster.sync();
 }
 
-template <typename T, bool FB>
+template <typename T, bool FB, bool kMasked>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      tiled_step_kernel<T, FB>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  const cudaError_t e = cudaFuncSetAttribute(tiled_step_kernel<T, FB, kMasked>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
-template <typename T, bool FB>
+template <typename T, bool FB, bool kMasked>
 int launch(const StepArgs<T>& a, const StepTaps<T>& tp, int n_ranks, int n_tiles, size_t smem,
            cudaStream_t stream) {
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = step_config(n_ranks, n_tiles, smem, stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB>, a, tp);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB, kMasked>, a, tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// kernels/tiled_step.smem_bytes mirrors this
+// The window and, reserved by the periodic arm too so that one plan serves
+// both, the masked arm's live bits (kernels/tiled_step.smem_bytes mirrors
+// this).
 size_t smem_bytes(long long sites, int kc, int q, size_t itemsize) {
-  return step_smem_bytes(sites, kc, q > 1 ? 2 : 1, kPlanes, itemsize);
+  return step_smem_bytes(sites, kc, q > 1 ? 2 : 1, kPlanes, itemsize) +
+         sizeof(int) * static_cast<size_t>(sites);
 }
 
-template <typename T, bool FB>
+template <typename T, bool FB, bool kMasked>
 int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_tiles,
         int n_steps, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,
         cudaStream_t stream) {
@@ -317,14 +341,14 @@ int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_ti
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  if ((err = prepare<T, FB>(max_smem)) != 0) return err;
+  if ((err = prepare<T, FB, kMasked>(max_smem)) != 0) return err;
   const int n_launches = n_steps / a.q;
   for (int l = 0; l < n_launches; ++l) {
     const bool to_out = ((n_launches - 1 - l) & 1) == 0;
     a.ssh_out = to_out ? ssh_out : ssh_tmp;
     a.h_out = to_out ? h_out : h_tmp;
     a.u_out = to_out ? u_out : u_tmp;
-    if ((err = launch<T, FB>(a, tp, n_ranks, n_tiles, smem, stream)) != 0) return err;
+    if ((err = launch<T, FB, kMasked>(a, tp, n_ranks, n_tiles, smem, stream)) != 0) return err;
     a.ssh = a.ssh_out, a.h = a.h_out, a.u = a.u_out;
   }
   return 0;
@@ -335,7 +359,8 @@ int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_ti
 // lands in `out`, no launch writes the buffers it reads, and `in` is left
 // as it is. `table` and `weights` are host copies of the stencil.
 template <typename T>
-int tiled_steps(const T* f_edge, const T* rts, const int* table, const double* weights,
+int tiled_steps(const T* f_edge, const T* rts, const int* live, const int* table,
+                const double* weights,
                 const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out,
                 T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,
                 double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
@@ -354,13 +379,14 @@ int tiled_steps(const T* f_edge, const T* rts, const int* table, const double* w
   const bool vec = vector_loads(k, kc, sizeof(T), h_in, u_in) &&
                    vector_loads(k, kc, sizeof(T), h_out, u_out) &&
                    vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
-  const StepArgs<T> a{ssh_in, h_in, u_in, f_edge, rts, nullptr, nullptr, nullptr,
+  const StepArgs<T> a{ssh_in, h_in, u_in, f_edge, rts, live, nullptr, nullptr, nullptr,
                       T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, q, hm, hi,
                       log2_exact(kc),
                       vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct};
   const size_t smem = smem_bytes(sites, kc, q, sizeof(T));
   const int n_tiles = (ny2 / rt) * (nx / ct);
-  auto go = fb ? run<T, true> : run<T, false>;
+  auto go = live ? (fb ? run<T, true, true> : run<T, false, true>)
+                 : (fb ? run<T, true, false> : run<T, false, false>);
   return go(a, tp, smem, n_ranks, n_tiles, n_steps, ssh_out, h_out, u_out, ssh_tmp, h_tmp,
             u_tmp, stream);
 }
@@ -369,17 +395,19 @@ int tiled_steps(const T* f_edge, const T* rts, const int* table, const double* w
 
 // Returns 0, kNotHexTable for a stencil that is not the hex lattice's, or
 // the CUDA error of the first launch that failed (cudaErrorInvalidValue for
-// a plan the lattice or the card does not take).
+// a plan the lattice or the card does not take). A null `live` (the wall
+// mask's live bits, one int per site) runs the periodic arm, any other the
+// masked one.
 #define MOT_TILED_ENTRY(T, SUFFIX)                                                          \
   extern "C" int mot_tiled_steps_##SUFFIX(                                                  \
-      const T* f_edge, const T* rts, const int* table, const double* weights,               \
-      const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,        \
-      T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,      \
-      int nx, int k, int n_steps, int n_terms, int rt, int ct, int q, int hm, int hi,       \
-      int fb, void* stream) {                                                               \
-    return tiled_steps<T>(f_edge, rts, table, weights, ssh_in, h_in, u_in, ssh_out, h_out,  \
-                          u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,      \
-                          n_steps, n_terms, rt, ct, q, hm, hi, fb,                          \
+      const T* f_edge, const T* rts, const int* live, const int* table,                       \
+      const double* weights, const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out,     \
+      T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,         \
+      double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,       \
+      int q, int hm, int hi, int fb, void* stream) {                                        \
+    return tiled_steps<T>(f_edge, rts, live, table, weights, ssh_in, h_in, u_in, ssh_out,   \
+                          h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx,  \
+                          k, n_steps, n_terms, rt, ct, q, hm, hi, fb,                       \
                           static_cast<cudaStream_t>(stream));                               \
   }
 
@@ -396,8 +424,8 @@ extern "C" int mot_tiled_occupancy(int sites, int k, int q, int fb, int* out) {
   const int kc = step_chunk(k);
   const size_t smem = smem_bytes(sites, kc, q, sizeof(float));
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  auto kernel = fb ? tiled_step_kernel<float, true> : tiled_step_kernel<float, false>;
-  e = fb ? prepare<float, true>(max_smem) : prepare<float, false>(max_smem);
+  auto kernel = fb ? tiled_step_kernel<float, true, false> : tiled_step_kernel<float, false, false>;
+  e = fb ? prepare<float, true, false>(max_smem) : prepare<float, false, false>(max_smem);
   if (e != 0) return e;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = step_config((k + kc - 1) / kc, 1, smem, nullptr, attr);

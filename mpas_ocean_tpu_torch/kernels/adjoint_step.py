@@ -1,7 +1,8 @@
 """Wrapper of the hand-written adjoint-step kernel (csrc/adjoint_step.cu),
 which replaces the TPU kernel ``_adjoint_segment_kernel``
-(mpas_ocean_tpu/structured/pallas_model.py:1480) for the linear periodic
-forward-Euler core.
+(mpas_ocean_tpu/structured/pallas_model.py:1480) for the linear
+forward-Euler core, on a periodic lattice and, with the wall mask's
+``live`` bits (``fe_step.live_bits``), on a coastal channel culled from one.
 
 ``adjoint_rollout`` takes tensors on a CUDA device and the transposed
 stencil on the host (``StructMesh.host_adjoint_stencil``), launches one
@@ -22,10 +23,12 @@ import torch
 
 from . import build
 from .fe_step import (
+    LIVE_BYTES,
     SMEM_BYTES,
     TWO_BLOCK_BYTES,
     best_tile,
     check_error,
+    check_live,
     check_tensor,
     host_stencil,
     lattice_dims,
@@ -59,13 +62,15 @@ def smem_bytes(tile, k: int, itemsize: int) -> int:
     """Dynamic shared memory of one adjoint_step block for a tile (rows,
     columns) at k levels (``smem_bytes`` in csrc/adjoint_step.cu): the warps'
     d(dt) sums, its level chunk of the window's primal state and cotangent
-    [2][8][sites][kc], the window's ssh, gs, f_edge and site indices, and
-    the ranks' partial sums of the tile's sites."""
+    [2][8][sites][kc], the window's ssh, gs, f_edge, site indices and live
+    bits (the masked arm's, reserved either way, as in
+    ``fe_step.smem_bytes``), and the ranks' partial sums of the tile's
+    sites."""
     ranks, kc = level_split(k)
     hm, hi = REACH
     sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
     return (_RED_BYTES + itemsize * (sites * (16 * kc + _PLANES) + ranks * 2 * tile[0] * tile[1])
-            + 4 * sites)
+            + (4 + LIVE_BYTES) * sites)
 
 
 def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
@@ -108,7 +113,7 @@ def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile) -> dict:
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_double] * 3 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_double] * 3 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
 
 
@@ -121,7 +126,8 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
-def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scratch, tile):
+def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scratch, tile,
+             live=None):
     """``adjoint_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
     ``tile`` (rows, columns) sites, or ``adjoint_tile``'s for None (the tile
     sweep and the tests give their own)."""
@@ -138,6 +144,7 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
         raise ValueError(f"{n_steps} steps need {n_steps} primal slots, got {slots}")
     shapes = state_shapes(ny2, nx, k)
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
+    check_live(live, ny2, nx, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
     if out is None:
         out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
@@ -149,12 +156,12 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
         for x, shape, f in zip(group, shapes, ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, dtype, device)
     table, weights, n_terms = host_stencil(table, weights)
-    itemsize = h_st.element_size()
+    itemsize, masked = h_st.element_size(), live is not None
     tile = adjoint_tile(ny2, nx, k, itemsize) if tile is None else tuple(tile)
-    if smem_bytes(tile, k, itemsize) > SMEM_BYTES:
-        raise ValueError(f"an adjoint_step tile {tile} at {k} levels needs "
-                         f"{smem_bytes(tile, k, itemsize)} bytes of shared memory per "
-                         f"block, more than {SMEM_BYTES}")
+    need = smem_bytes(tile, k, itemsize)
+    if need > SMEM_BYTES:
+        raise ValueError(f"an adjoint_step tile {tile} at {k} levels needs {need} bytes of "
+                         f"shared memory per block, more than {SMEM_BYTES}")
     ranks, _ = level_split(k)
     tiles = -(-ny2 // tile[0]) * -(-nx // tile[1])
     part = torch.empty(n_steps * tiles * ranks, dtype=torch.float64, device=device)
@@ -162,7 +169,8 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            f_edge.data_ptr(), table.ctypes.data, weights.ctypes.data,
+            f_edge.data_ptr(), live.data_ptr() if masked else None,
+            table.ctypes.data, weights.ctypes.data,
             *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
             *(float(x) for x in scal), ny2, nx, k, n_steps, n_terms, *tile, stream,
         )
@@ -173,7 +181,7 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
 
 def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
                     dt: float, inv_dc: float, s_div: float, n_steps: int,
-                    ddt: torch.Tensor, out=None, scratch=None):
+                    ddt: torch.Tensor, out=None, scratch=None, live=None):
     """n_steps >= 1 reverse forward-Euler steps of the linear core on the
     card.
 
@@ -187,6 +195,8 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
     float64 (1,) tensor on the card. Returns the cotangent at step 0,
     written into ``out`` (allocated when None), through ``scratch``
     (allocated when None and n_steps > 1). The scalars are rounded to the
-    state dtype as for the forward kernel."""
+    state dtype as for the forward kernel. ``live`` (the wall mask's live
+    bits, as for ``fe_step.fe_rollout``, or None) runs the masked arm, the
+    reverse of the masked forward step."""
     return _rollout(stack, g_in, f_edge, stencil_table, coriolis_weight, (dt, inv_dc, s_div),
-                    n_steps, ddt, out, scratch, None)
+                    n_steps, ddt, out, scratch, None, live)

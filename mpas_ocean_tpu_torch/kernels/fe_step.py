@@ -1,6 +1,8 @@
 """Wrapper of the hand-written forward-Euler step kernel (csrc/fe_step.cu),
 which replaces the TPU kernel ``_rollout_kernel``
-(mpas_ocean_tpu/structured/pallas_model.py:320) for the linear periodic core.
+(mpas_ocean_tpu/structured/pallas_model.py:320) for the linear core, on a
+periodic lattice and, with the wall mask's ``live`` bits (``live_bits`` of
+``StructMesh.edge_mask``), on a coastal channel culled from one.
 
 The entries take tensors on a CUDA device and the stencil on the host
 (``StructMesh.host_stencil``), and launch one kernel per step on the
@@ -27,8 +29,11 @@ from ..structured.stencils import INCOMING, NEIGHBOR
 from . import build
 
 __all__ = [
+    "LIVE_BYTES",
     "MAX_TERMS",
     "best_tile",
+    "check_live",
+    "live_bits",
     "fe_fill_stack",
     "fe_rollout",
     "fe_rollout_into",
@@ -59,6 +64,9 @@ TWO_BLOCK_BYTES = SM_SMEM_BYTES // 2 - 1024
 # (kMaxCluster in csrc/tiled_window.cuh, the portable maximum).
 MAX_CLUSTER = 8
 _FE_PLANES = 10  # kPlanes in csrc/fe_step.cu
+# Bytes per window site of the masked arms' live bits, one int holding the
+# six channels' wall mask (load_live in csrc/step_window.cuh)
+LIVE_BYTES = 4
 # The reach of one FE step, (rows, columns) per side: slab.stencil_reach of
 # the hex lattice's tables; csrc/fe_step.cu derives it from the table.
 FE_REACH = (1, 2)
@@ -105,13 +113,15 @@ def level_split(k: int) -> tuple[int, int]:
 def smem_bytes(tile, k: int, itemsize: int) -> int:
     """Dynamic shared memory of one fe_step block for a tile (rows, columns)
     at k levels (``smem_bytes`` in csrc/fe_step.cu): its level chunk of the
-    window's state [8][sites][kc], the window's ssh, f_edge, rts and site
-    indices, and the ranks' partial column sums of the tile's sites."""
+    window's state [8][sites][kc], the window's ssh, f_edge, rts, site
+    indices and live bits (the masked arm's, which the periodic arm
+    reserves too, so that one plan serves both), and the ranks' partial
+    column sums of the tile's sites."""
     ranks, kc = level_split(k)
     hm, hi = FE_REACH
     sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
     return (itemsize * (sites * (8 * kc + _FE_PLANES) + ranks * 2 * tile[0] * tile[1])
-            + 4 * sites)
+            + (4 + LIVE_BYTES) * sites)
 
 
 def best_tile(ny2: int, nx: int, reach, smem, name: str) -> tuple[int, int]:
@@ -134,8 +144,9 @@ def best_tile(ny2: int, nx: int, reach, smem, name: str) -> tuple[int, int]:
 
 def fe_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
     """fe_step's tile (rows, columns) on a ny2 x nx lattice, by
-    ``best_tile``'s rule. On an H100 at 64x64x100 and 256x256x100 f32 that
-    is (4, 16): the fastest tile at 64^2 and within 2.5% of the fastest at
+    ``best_tile``'s rule.
+    On an H100 at 64x64x100 and 256x256x100 f32 that is (4, 16), periodic
+    or masked: the fastest tile at 64^2 and within 2.5% of the fastest at
     256^2, where the best one-block tile took 1.12x as long (PERF.md
     section 5, tools/tile_sweep.py)."""
     return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize),
@@ -189,8 +200,8 @@ def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile) -> dict:
 
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
-    "steps": [_P] * 13 + [_D] * 3 + [_I] * 7 + [_P],
-    "stack": [_P] * 7 + [_D] * 3 + [_I] * 7 + [_P],
+    "steps": [_P] * 14 + [_D] * 3 + [_I] * 7 + [_P],
+    "stack": [_P] * 8 + [_D] * 3 + [_I] * 7 + [_P],
 }
 
 
@@ -235,47 +246,69 @@ def lattice_dims(h: torch.Tensor, name: str = "fe_step") -> tuple[int, int, int]
     return ny2, nx, k
 
 
-def _consts(h, f_edge, rts, table, weights):
+def live_bits(mask: torch.Tensor) -> torch.Tensor:
+    """The wall mask (``StructMesh.edge_mask``, (3, 2, ny2, nx), 0 or 1) as
+    the kernels' masked arms take it: one int32 per lattice site, (ny2, nx),
+    bit c set where the mask of channel c = family * 2 + parity is not 0
+    (csrc/step_window.cuh, load_live)."""
+    m = (mask.reshape(6, *mask.shape[2:]) != 0).to(torch.int32)
+    weights = torch.tensor([1 << c for c in range(6)], dtype=torch.int32, device=mask.device)
+    return (m * weights.reshape(6, 1, 1)).sum(0, dtype=torch.int32).contiguous()
+
+
+def check_live(live, ny2: int, nx: int, device) -> None:
+    """Live bits (``live_bits``) as the kernels take them: int32 (ny2, nx),
+    contiguous, on the state's device; None for a periodic lattice."""
+    if live is not None:
+        check_tensor("live", live, (ny2, nx), torch.int32, device)
+
+
+def _consts(h, f_edge, rts, table, weights, live):
     ny2, nx, k = lattice_dims(h)
     dtype, device = h.dtype, h.device
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
+    check_live(live, ny2, nx, device)
     return (ny2, nx, k), host_stencil(table, weights)
 
 
-def _run(kind, h, tensors, f_edge, rts, stencil, scal, dims, n_steps, tile):
+def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile):
     global launches
     table, weights, n_terms = stencil
     tile = fe_tile(*dims, h.element_size()) if tile is None else tuple(tile)
-    if smem_bytes(tile, dims[2], h.element_size()) > SMEM_BYTES:
-        raise ValueError(f"an fe_step tile {tile} at {dims[2]} levels needs "
-                         f"{smem_bytes(tile, dims[2], h.element_size())} bytes of shared "
-                         f"memory per block, more than {SMEM_BYTES}")
+    need = smem_bytes(tile, dims[2], h.element_size())
+    if need > SMEM_BYTES:
+        raise ValueError(f"an fe_step tile {tile} at {dims[2]} levels needs {need} bytes of "
+                         f"shared memory per block, more than {SMEM_BYTES}")
     fn = _entry(kind, h.dtype)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(f_edge.data_ptr(), rts.data_ptr(), table.ctypes.data, weights.ctypes.data,
+        err = fn(f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
+                 table.ctypes.data, weights.ctypes.data,
                  *[x.data_ptr() for x in tensors], *(float(x) for x in scal), *dims,
                  n_steps, n_terms, *tile, stream)
     check_error("fe_step", err, f" (tile {tile})")
     launches += n_steps
 
 
-def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch, tile):
+def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch, tile,
+                  live):
     if n_steps < 1:
         raise ValueError("fe_rollout_into takes n_steps >= 1")
     h = src[1]
-    dims, stencil = _consts(h, f_edge, rts, table, weights)
+    dims, stencil = _consts(h, f_edge, rts, table, weights, live)
     if scratch is None:
         scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
     for group, name in ((src, "src"), (out, "out"), (scratch, "scratch")):
         for x, shape, f in zip(group, state_shapes(*dims), ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, h.dtype, h.device)
-    _run("steps", h, (*src, *out, *scratch), f_edge, rts, stencil, scal, dims, n_steps, tile)
+    _run("steps", h, (*src, *out, *scratch), f_edge, rts, live, stencil, scal, dims,
+         n_steps, tile)
 
 
 def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
-                    dt: float, inv_dc: float, s_div: float, n_steps: int, scratch=None):
+                    dt: float, inv_dc: float, s_div: float, n_steps: int, scratch=None,
+                    live=None):
     """n_steps >= 1 forward-Euler steps of the linear core on the card, from
     ``src`` = (ssh, h, u) into ``out`` (same shapes, another buffer), through
     ``scratch`` (allocated here when None and n_steps > 1). ``src`` is left as
@@ -286,14 +319,16 @@ def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
     on the card; the stencil on the host (``StructMesh.host_stencil``):
     stencil_table int32 from ``pack_stencil`` and coriolis_weight
     (n_terms,), rounded to the state dtype in the kernel; the scalars
-    already rounded to the state dtype. Raises ValueError for a stencil
+    already rounded to the state dtype. ``live`` is the wall mask of a
+    culled channel as ``live_bits`` packs it (int32 (ny2, nx), on the card),
+    which runs the masked arm, or None. Raises ValueError for a stencil
     that is not the hex lattice's."""
     _rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
-                  (dt, inv_dc, s_div), n_steps, scratch, None)
+                  (dt, inv_dc, s_div), n_steps, scratch, None, live)
 
 
 def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
-                  dt: float, inv_dc: float, s_div: float, n_steps: int):
+                  dt: float, inv_dc: float, s_div: float, n_steps: int, live=None):
     """Fill a stack of states on the card: slot j + 1 = one step of slot j
     for j < n_steps. ``stack`` = (ssh (S, 2, ny2, nx), h (S, 2, ny2, nx, K),
     u (S, 3, 2, ny2, nx, K)) with S > n_steps; slot 0 holds the start. The
@@ -301,16 +336,17 @@ def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
     ssh, h, u = stack
     if h.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h.shape)}")
-    dims, stencil = _consts(h[0], f_edge, rts, stencil_table, coriolis_weight)
+    dims, stencil = _consts(h[0], f_edge, rts, stencil_table, coriolis_weight, live)
     slots = h.shape[0]
     if not 0 <= n_steps < slots:
         raise ValueError(f"{n_steps} steps do not fit a stack of {slots} slots")
     for x, shape, f in zip(stack, state_shapes(*dims), ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), h.dtype, h.device)
-    _run("stack", h, stack, f_edge, rts, stencil, (dt, inv_dc, s_div), dims, n_steps, None)
+    _run("stack", h, stack, f_edge, rts, live, stencil, (dt, inv_dc, s_div), dims, n_steps,
+         None)
 
 
-def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile):
+def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=None):
     """``fe_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
     ``tile`` (rows, columns) sites, or ``fe_tile``'s for None (the tile
     sweep and the tests give their own)."""
@@ -321,15 +357,15 @@ def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile):
     if n_steps == 0:
         return tuple(x.clone() for x in src)
     out = tuple(torch.empty_like(x) for x in src)
-    _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, None, tile)
+    _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, None, tile, live)
     return out
 
 
 def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
-               dt: float, inv_dc: float, s_div: float, n_steps: int):
+               dt: float, inv_dc: float, s_div: float, n_steps: int, live=None):
     """n_steps forward-Euler steps of the linear core on the card (arguments
     as for ``fe_rollout_into``). Returns new (ssh, h, u) tensors; the inputs
     are left as they are."""
     return _rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
-                    (dt, inv_dc, s_div), n_steps, None)
+                    (dt, inv_dc, s_div), n_steps, None, live)
 

@@ -1,7 +1,8 @@
 """Wrapper of the hand-written tiled adjoint kernel (csrc/tiled_adjoint.cu),
 which replaces the TPU kernel ``_tiled_adjoint_kernel``
-(mpas_ocean_tpu/structured/pallas_model.py:1979) for the linear periodic
-forward-Euler core.
+(mpas_ocean_tpu/structured/pallas_model.py:1979) for the linear
+forward-Euler core, on a periodic lattice and, with the wall mask's
+``live`` bits (``fe_step.live_bits``), on a coastal channel culled from one.
 
 ``tiled_adjoint_rollout`` takes tensors on a CUDA device and the stencils on
 the host (``StructMesh.host_stencil``, ``StructMesh.host_adjoint_stencil``),
@@ -22,10 +23,12 @@ import torch
 
 from . import build, fe_step
 from .fe_step import (
+    LIVE_BYTES,
     MAX_CLUSTER,
     SMEM_BYTES,
     TWO_BLOCK_BYTES,
     check_error,
+    check_live,
     check_tensor,
     host_stencil,
     lattice_dims,
@@ -68,11 +71,14 @@ def smem_bytes(sites: int, core: int, k: int, q: int, itemsize: int) -> int:
     (``smem_bytes`` in csrc/tiled_adjoint.cu): the warps' d(dt) sums; q
     primal chunks and one cotangent chunk (two at q > 1) of 8 planes; per
     site f_edge, gs and q ssh planes, at q > 1 also rts and two pairs of
-    partial sums; the ranks' partial sums of the core; the site indices."""
+    partial sums; the ranks' partial sums of the core; the site indices and
+    live bits (the masked arm's, reserved either way, as in
+    ``fe_step.smem_bytes``)."""
     ranks, kc = level_split(k, q)
     chunks = 8 * (q + (2 if q > 1 else 1)) * kc
     planes = 8 + 2 * q + (6 if q > 1 else 0)
-    return _RED_BYTES + itemsize * (sites * (chunks + planes) + ranks * 2 * core) + 4 * sites
+    return (_RED_BYTES + itemsize * (sites * (chunks + planes) + ranks * 2 * core)
+            + (4 + LIVE_BYTES) * sites)
 
 
 def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int) -> tuple[int, int]:
@@ -88,7 +94,7 @@ def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int) -> tuple[int, 
     return out[0], out[1]
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_double] * 3 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_double] * 3 + [ctypes.c_int] * 11
              + [ctypes.c_void_p])
 
 
@@ -104,7 +110,8 @@ def _entry(dtype: torch.dtype):
 def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weight,
                           adjoint_table, adjoint_weight, dt: float, inv_dc: float,
                           s_div: float, n_supersteps: int, ddt: torch.Tensor, out=None,
-                          scratch=None, *, row_tile: int, col_tile: int, q: int, halo):
+                          scratch=None, *, row_tile: int, col_tile: int, q: int, halo,
+                          live=None):
     """n_supersteps >= 1 reverse supersteps of q forward-Euler steps of the
     linear core on the card, over row_tile x col_tile tiles.
 
@@ -120,7 +127,9 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     the card. Returns the cotangent at the start of superstep 0, written
     into ``out`` (allocated when None), through ``scratch`` (allocated when
     None and n_supersteps > 1). The scalars are rounded to the state dtype
-    as for the forward kernel."""
+    as for the forward kernel. ``live`` (the wall mask's live bits, as
+    for ``fe_step.fe_rollout``, or None) runs the masked arm, the reverse of
+    the masked forward steps."""
     global launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
@@ -147,6 +156,7 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     shapes = state_shapes(ny2, nx, k)
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
+    check_live(live, ny2, nx, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
     if out is None:
         out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
@@ -167,8 +177,8 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            f_edge.data_ptr(), rts.data_ptr(), table.ctypes.data, weights.ctypes.data,
-            adj_table.ctypes.data, adj_weights.ctypes.data,
+            f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
+            table.ctypes.data, weights.ctypes.data, adj_table.ctypes.data, adj_weights.ctypes.data,
             *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
             float(dt), float(inv_dc), float(s_div), ny2, nx, k, n_supersteps, n_terms,
             row_tile, col_tile, q, hm, hi, kc, stream,

@@ -1,7 +1,9 @@
 """Wrapper of the hand-written tiled q-step kernel (csrc/tiled_step.cu),
 which replaces the TPU kernel ``_tiled_step_kernel``
-(mpas_ocean_tpu/structured/pallas_model.py:852) for the linear periodic
-core, forward Euler and forward-backward.
+(mpas_ocean_tpu/structured/pallas_model.py:852) for the linear core,
+forward Euler and forward-backward, on a periodic lattice and, with the wall
+mask's ``live`` bits (``fe_step.live_bits``), on a coastal channel culled
+from one.
 
 ``tiled_rollout`` takes tensors on a CUDA device and the stencil on the
 host (``StructMesh.host_stencil``), and launches one kernel per q steps on
@@ -21,10 +23,12 @@ import torch
 
 from . import build
 from .fe_step import (
+    LIVE_BYTES,
     MAX_CLUSTER,
     SMEM_BYTES,
     TWO_BLOCK_BYTES,
     check_error,
+    check_live,
     check_tensor,
     host_stencil,
     lattice_dims,
@@ -45,11 +49,13 @@ def smem_bytes(sites: int, kc: int, q: int, itemsize: int) -> int:
     """Dynamic shared memory of one block for a window of ``sites`` lattice
     sites, ``kc`` levels and q steps (``smem_bytes`` in csrc/tiled_step.cu):
     one state copy [8][sites][kc] at q = 1, two at q > 1; ssh, partial sums,
-    f_edge and rts; the sites' indices."""
-    return itemsize * sites * (8 * (2 if q > 1 else 1) * kc + _PLANES) + 4 * sites
+    f_edge and rts; the sites' indices and live bits (the masked arm's,
+    reserved either way, as in ``fe_step.smem_bytes``)."""
+    return (itemsize * sites * (8 * (2 if q > 1 else 1) * kc + _PLANES)
+            + (4 + LIVE_BYTES) * sites)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_double] * 3 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_double] * 3 + [ctypes.c_int] * 11
              + [ctypes.c_void_p])
 
 
@@ -80,10 +86,11 @@ def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int, fb: bool = Fal
 
 def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                   dt: float, inv_dc: float, s_div: float, n_steps: int, *,
-                  row_tile: int, col_tile: int, q: int, halo, fb: bool = False):
+                  row_tile: int, col_tile: int, q: int, halo, fb: bool = False, live=None):
     """n_steps FE (or FB) steps of the linear core on the card, q per launch
     over row_tile x col_tile tiles whose windows carry q ``halo`` = (rows,
-    columns) per side. Arguments as for ``fe_step.fe_rollout``.
+    columns) per side. Arguments as for ``fe_step.fe_rollout``; ``live``
+    (the wall mask's live bits, or None) runs the masked arm.
     Returns new (ssh, h, u) tensors; the inputs are left as they are."""
     global launches
     ny2, nx, k = lattice_dims(h, "tiled_step")
@@ -103,6 +110,7 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                          f"shared memory per block, more than {SMEM_BYTES}")
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
+    check_live(live, ny2, nx, device)
     table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
     src = tuple(x.contiguous() for x in (ssh, h, u))
     for x, shape, f in zip(src, state_shapes(ny2, nx, k), ("ssh", "h", "u")):
@@ -115,7 +123,8 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            f_edge.data_ptr(), rts.data_ptr(), table.ctypes.data, weights.ctypes.data,
+            f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
+            table.ctypes.data, weights.ctypes.data,
             *[x.data_ptr() for x in (*src, *out, *tmp)],
             float(dt), float(inv_dc), float(s_div), ny2, nx, k, n_steps, n_terms,
             row_tile, col_tile, q, hm, hi, int(fb), stream,

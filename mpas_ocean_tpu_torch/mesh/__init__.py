@@ -1,3 +1,4 @@
+from .cull import cull_cells
 from .horz_mesh import DualCells, Edges, HorzMesh, PrimaryCells
 from .mesh import Mesh
 from .planar_hex import planar_hex_mesh
@@ -12,6 +13,7 @@ __all__ = [
     "PrimaryCells",
     "VerticalMesh",
     "build_planar_trisk_mesh",
+    "cull_cells",
     "make_vertical_mesh",
     "planar_hex_mesh",
 ]

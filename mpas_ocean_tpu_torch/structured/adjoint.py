@@ -16,6 +16,10 @@ the CPU route of ``diff_model``. It is the counterpart of the in-kernel
 * dssh = (g dt / dc) * (owned minus incoming edge sums of sum_k gu): the input
   ssh enters the step only through its gradient;
 * d(dt) = <G, tend_h> + <gu, tend_u>.
+
+On a masked lattice (a coastal channel) the step ends u' = m * (u + dt *
+tend_u), so the output cotangent gu enters as m * gu wherever it appears:
+in C^T gu, in du's first term, in dssh's level sums and in d(dt).
 """
 
 from __future__ import annotations
@@ -45,9 +49,12 @@ def structured_adjoint_step(
     state: StructState, g: StructState, mesh: StructMesh, dt
 ) -> tuple[StructState, torch.Tensor]:
     """VJP of ``structured_step(state, mesh, dt)`` for the output cotangent
-    ``g``: (cotangent of the input state, d(dt) as a 0-d tensor)."""
+    ``g``: (cotangent of the input state, d(dt) as a 0-d tensor). With the
+    mesh's wall mask m, gu is m * gu throughout."""
     h, u = state.layer_thickness, state.normal_velocity
     gu = g.normal_velocity
+    if mesh.edge_mask is not None:
+        gu = gu * mesh.edge_mask[..., None]
     G = g.layer_thickness + g.ssh[..., None]
 
     h_edge = interp_cell_to_edge(h, mesh)

@@ -6,7 +6,9 @@ Counterpart of mpas_ocean_tpu/structured/pallas_model.py:1460-1960 (the fused
 adjoint segments: ``_adjoint_plan``, ``_pallas_forward_ckpts``,
 ``_adjoint_segment``, ``_pallas_adjoint_from_ckpts``,
 ``pallas_adjoint_rollout``) and :2587-3034 (``pallas_rollout_diff``,
-``pallas_step``), for the periodic linear core with forward Euler.
+``pallas_step``), for the linear core with forward Euler, on periodic
+lattices and on coastal channels (a mesh with a wall mask runs the masked
+arms of both kernels, and the plain masked steps on the CPU).
 
 Plan. The forward runs in groups of ``group`` steps and keeps each group's
 start state (the outer checkpoints). The reverse takes the groups last to
@@ -33,7 +35,7 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import adjoint_step, fe_step
 from .adjoint import structured_adjoint_step
-from .fused_model import _scal, fused_run_loop
+from .fused_model import _scal, fused_run_loop, kernel_live
 from .model import StructMesh, StructState, structured_run_loop, structured_step
 
 __all__ = [
@@ -91,8 +93,10 @@ def adjoint_plan(n_steps: int, state_bytes: int, budget: float) -> int:
 
 class _Steps:
     """The forward and reverse steps one device runs: the kernels for a
-    CUDA state, the plain versions for a CPU state. States are StructStates
-    of preallocated tensors; stacks carry a leading slot axis."""
+    CUDA state, the plain versions for a CPU state; both forward and
+    reverse take the mesh's wall mask where it has one. States are
+    StructStates of preallocated tensors; stacks carry a leading slot
+    axis."""
 
     def __init__(self, mesh: StructMesh, dt, like: torch.Tensor):
         self.mesh, self.dt = mesh, dt
@@ -106,12 +110,13 @@ class _Steps:
             self.fwd = (f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
                         *mesh.host_stencil)
             self.adj = (f_edge, *mesh.host_adjoint_stencil)
+            self.live = kernel_live(mesh)
 
     def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
         """n >= 1 steps from src into out."""
         if self.cuda:
             fe_step.fe_rollout_into(_fields(src), _fields(out), *self.fwd, *self.scal,
-                                    n, _fields(scratch))
+                                    n, _fields(scratch), live=self.live)
         else:
             for dst, x in zip(_fields(out), _fields(structured_run_loop(
                     src, self.mesh, self.dt, n))):
@@ -120,7 +125,7 @@ class _Steps:
     def fill(self, stack: StructState, n: int):
         """Slot j + 1 = one step of slot j, for j < n."""
         if self.cuda:
-            fe_step.fe_fill_stack(_fields(stack), *self.fwd, *self.scal, n)
+            fe_step.fe_fill_stack(_fields(stack), *self.fwd, *self.scal, n, live=self.live)
         else:
             for j in range(n):
                 nxt = structured_step(_slot(stack, j), self.mesh, self.dt)
@@ -134,7 +139,7 @@ class _Steps:
         if self.cuda:
             adjoint_step.adjoint_rollout(_fields(stack), _fields(g), *self.adj,
                                          *self.scal, n, ddt, _fields(out),
-                                         _fields(scratch))
+                                         _fields(scratch), live=self.live)
             return
         for j in reversed(range(n)):
             g, dd = structured_adjoint_step(_slot(stack, j), g, self.mesh, self.dt)
@@ -323,11 +328,12 @@ class FusedRolloutDiff(torch.autograd.Function):
 
 def fused_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                        plan: int | None = None) -> StructState:
-    """n-step rollout of the linear periodic core, differentiable with
-    respect to the state and a tensor ``dt``: the reverse-mode pass through
-    the whole loop, which the reference validates with Enzyme against finite
-    differences. Forward through ``fe_step`` on the card, backward through
-    ``adjoint_step``. Counterpart of ``pallas_rollout_diff``."""
+    """n-step rollout of the linear core (periodic, or masked where the mesh
+    has a wall mask), differentiable with respect to the state and a tensor
+    ``dt``: the reverse-mode pass through the whole loop, which the
+    reference validates with Enzyme against finite differences. Forward
+    through ``fe_step`` on the card, backward through ``adjoint_step``.
+    Counterpart of ``pallas_rollout_diff``."""
     return StructState(*FusedRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan))
 
 

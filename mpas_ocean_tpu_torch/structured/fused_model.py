@@ -3,12 +3,14 @@ point that routes between them.
 
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
 ``pallas_run_loop`` (:712) and ``structured_auto_run_loop`` (:1419) for the
-periodic linear core. ``fused_run_loop`` runs forward Euler (FE) one
-hand-written kernel step per launch (kernels/fe_step.py, csrc/fe_step.cu);
-``tiled_model.tiled_run_loop`` runs FE or forward-backward (FB) q steps per
-launch (kernels/tiled_step.py). State on a CUDA device runs a kernel, and a
-failed build or launch raises; state on the CPU runs the plain version,
-``model.structured_run_loop``. Nothing falls back from one to the other.
+linear core, on periodic lattices and on coastal channels (a mesh with a
+wall mask runs the kernels' masked arms). ``fused_run_loop`` runs forward
+Euler (FE) one hand-written kernel step per launch (kernels/fe_step.py,
+csrc/fe_step.cu); ``tiled_model.tiled_run_loop`` runs FE or
+forward-backward (FB) q steps per launch (kernels/tiled_step.py). State on
+a CUDA device runs a kernel, and a failed build or launch raises; state on
+the CPU runs the plain version, ``model.structured_run_loop``. Nothing
+falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from ..kernels import fe_step
 from . import tiled_model
 from .model import StructMesh, StructState, structured_run_loop
 
-__all__ = ["fused_run_loop", "structured_auto_run_loop"]
+__all__ = ["fused_run_loop", "kernel_live", "structured_auto_run_loop"]
 
 
 def _scal(mesh: StructMesh, dt, dtype: torch.dtype) -> tuple[float, float, float]:
@@ -32,10 +34,20 @@ def _scal(mesh: StructMesh, dt, dtype: torch.dtype) -> tuple[float, float, float
     return float(dt), float(inv_dc), float(s_div)
 
 
+def kernel_live(mesh: StructMesh):
+    """The wall mask as the kernels take it, packed into live bits
+    (``fe_step.live_bits``), or None on a periodic lattice, which runs the
+    periodic arms."""
+    if mesh.edge_mask is None:
+        return None
+    return fe_step.live_bits(mesh.edge_mask)
+
+
 def fused_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int
 ) -> StructState:
-    """n_steps forward-Euler steps of the linear periodic core."""
+    """n_steps forward-Euler steps of the linear core (periodic, or masked
+    where the mesh has a wall mask)."""
     device = state.layer_thickness.device
     if device.type == "cpu":
         return structured_run_loop(state, mesh, dt, n_steps)
@@ -47,19 +59,23 @@ def fused_run_loop(
         mesh.f_edge.to(dtype).contiguous(),
         mesh.resting_thickness_sum.to(dtype).contiguous(),
         *mesh.host_stencil, *_scal(mesh, dt, dtype), n_steps,
+        live=kernel_live(mesh),
     )
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
 def structured_auto_run_loop(
-    state: StructState, mesh: StructMesh, dt, n_steps: int, *, fb: bool = False
+    state: StructState, mesh: StructMesh, dt, n_steps: int, *, fb: bool = False,
 ) -> StructState:
     """The lattice rollout entry point. A CPU state runs the plain
     ``structured_run_loop`` (as the JAX package does off the TPU). On the
     card, FB runs the tiled kernel at every size (fe_step has no FB arm).
     FE runs fe_step at every size: that is the size rule measured on an
     H100 (PERF.md §5), where fe_step beat the tiled kernel's best plan at
-    both 64x64x100 and 256x256x100 f32."""
+    both 64x64x100 and 256x256x100 f32. A mesh with a wall mask (a coastal
+    channel) runs the same routes through the kernels' masked arms, or the
+    plain masked steps on the CPU. Only the linear core is ported: there is
+    no ``nonlinear`` option."""
     device = state.layer_thickness.device
     if device.type == "cpu":
         return structured_run_loop(state, mesh, dt, n_steps, fb=fb)

@@ -1,10 +1,11 @@
 """Linear shallow-water core on the structured hex lattice, on torch.roll.
 
-Counterpart of mpas_ocean_tpu/structured/model.py for the periodic linear
-core (pressure gradient + TRiSK Coriolis) with forward Euler. This is the
-plain PyTorch version of the fused step kernel (kernels/fe_step.py): the CPU
-tests hold it against the JAX package, and on the card the kernel is held
-against it.
+Counterpart of mpas_ocean_tpu/structured/model.py for the linear core
+(pressure gradient + TRiSK Coriolis) with forward Euler and
+forward-backward, on periodic lattices and on coastal channels culled from
+them (wall masks). This is the plain PyTorch version of the step kernels
+(kernels/fe_step.py, kernels/tiled_step.py): the CPU tests hold it against
+the JAX package, and on the card the kernels are held against it.
 
 Layout (see hex_layout.py): cell fields (2, ny2, nx, K), edge fields
 (3, 2, ny2, nx, K) with canonical family normals at 0/60/120 degrees.
@@ -78,6 +79,14 @@ class StructMesh:
     # (kernels/fe_step, kernels/adjoint_step)
     host_stencil: tuple
     host_adjoint_stencil: tuple
+    # Wall mask of a culled channel (StructuredModel's parent_horz /
+    # keep_cells form): 1 on interior edges (both cells live), 0 on wall
+    # edges and on edges of culled cells, whose u every step pins to 0; in
+    # f_edge's layout, channel family * 2 + parity. None on a periodic
+    # lattice.
+    edge_mask: torch.Tensor | None = None  # (3, 2, ny2, nx)
+    # 1 on live cells, 0 on culled ones; None on a periodic lattice
+    cell_mask: torch.Tensor | None = None  # (2, ny2, nx)
 
     def to(self, device) -> "StructMesh":
         return StructMesh(
@@ -96,11 +105,14 @@ class StructMesh:
             adjoint_weight=self.adjoint_weight.to(device),
             host_stencil=self.host_stencil,
             host_adjoint_stencil=self.host_adjoint_stencil,
+            edge_mask=None if self.edge_mask is None else self.edge_mask.to(device),
+            cell_mask=None if self.cell_mask is None else self.cell_mask.to(device),
         )
 
 
 # ---- carrying the JAX package's lattice inputs across, as numpy ----------
 _MESH_ARRAYS = ("dc", "dv", "area_cell", "f_edge", "resting_thickness_sum")
+_MASK_ARRAYS = ("edge_mask", "cell_mask")  # None on a periodic lattice
 _STATE_ARRAYS = ("ssh", "layer_thickness", "normal_velocity")
 
 
@@ -130,9 +142,14 @@ def _host_stencil(packed: dict, kind: str = "") -> tuple:
 def struct_mesh_from_numpy(d: dict) -> StructMesh:
     """StructMesh from a dict of the JAX StructMesh's fields (arrays as
     numpy, the rest as given), bit for bit; the kernels' stencil tables are
-    packed from ``coriolis_terms``."""
+    packed from ``coriolis_terms``. ``edge_mask`` and ``cell_mask`` are
+    carried where the dict holds them and they are not None; the nonlinear
+    arm's vertex constants are not read."""
     terms = tuple(tuple(t) for t in d["coriolis_terms"])
     packed = packed_stencils(terms, np.asarray(d["f_edge"]).dtype)
+    for k in _MASK_ARRAYS:
+        if d.get(k) is not None and not np.isin(np.asarray(d[k]), (0, 1)).all():
+            raise ValueError(f"{k} must hold 0 and 1 only (the kernels take it as bits)")
     return StructMesh(
         nx=int(d["nx"]),
         ny2=int(d["ny2"]),
@@ -142,6 +159,8 @@ def struct_mesh_from_numpy(d: dict) -> StructMesh:
         **{k: torch.from_numpy(np.array(d[k])) for k in _MESH_ARRAYS},
         host_stencil=_host_stencil(packed),
         host_adjoint_stencil=_host_stencil(packed, "adjoint_"),
+        **{k: torch.from_numpy(np.array(d[k])) for k in _MASK_ARRAYS
+           if d.get(k) is not None},
     )
 
 
@@ -153,6 +172,8 @@ def struct_mesh_to_numpy(mesh: StructMesh) -> dict:
         "coriolis_terms": mesh.coriolis_terms,
     }
     d.update({k: getattr(mesh, k).cpu().numpy() for k in _MESH_ARRAYS})
+    d.update({k: None if getattr(mesh, k) is None else getattr(mesh, k).cpu().numpy()
+              for k in _MASK_ARRAYS})
     return d
 
 
@@ -237,10 +258,17 @@ def tangential_times_f(u, mesh: StructMesh):
     return apply_stencil(u * mesh.f_edge[..., None], mesh.coriolis_terms)
 
 
+def _wall(u, mesh: StructMesh):
+    """u with the wall mask applied: u = 0 on wall and culled edges (JAX
+    model.py:328-329, 473-474); u itself on a periodic lattice."""
+    return u if mesh.edge_mask is None else u * mesh.edge_mask[..., None]
+
+
 def structured_step(state: StructState, mesh: StructMesh, dt) -> StructState:
     """One forward-Euler step of the linear core, all rolls + elementwise
     (the ``nonlinear=False``, unforced, tracer-free, unstratified arm of
-    mpas_ocean_tpu/structured/model.py:272-341)."""
+    mpas_ocean_tpu/structured/model.py:272-341), with the wall mask where
+    the mesh has one."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     tend_h = -div_on_cell(flux, mesh)
@@ -250,7 +278,7 @@ def structured_step(state: StructState, mesh: StructMesh, dt) -> StructState:
     tend_u = tend_u + tangential_times_f(state.normal_velocity, mesh)
 
     h = state.layer_thickness + dt * tend_h
-    u = state.normal_velocity + dt * tend_u
+    u = _wall(state.normal_velocity + dt * tend_u, mesh)
     ssh = h.sum(-1) - mesh.resting_thickness_sum
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
@@ -259,7 +287,7 @@ def structured_fb_step(state: StructState, mesh: StructMesh, dt) -> StructState:
     """One forward-backward step of the linear core (the linear, unforced,
     tracer-free, unstratified arm of mpas_ocean_tpu/structured/model.py:
     433-485): the continuity update first, then the pressure gradient of
-    the fresh ssh and the Coriolis term of the old u."""
+    the fresh ssh and the Coriolis term of the old u; the wall mask last."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     h = state.layer_thickness + dt * (-div_on_cell(flux, mesh))
@@ -267,15 +295,18 @@ def structured_fb_step(state: StructState, mesh: StructMesh, dt) -> StructState:
 
     tend_u = -GRAVITY * grad_on_edge(ssh, mesh)[..., None]
     tend_u = tend_u + tangential_times_f(state.normal_velocity, mesh)
-    u = state.normal_velocity + dt * tend_u
+    u = _wall(state.normal_velocity + dt * tend_u, mesh)
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
 def structured_run_loop(
-    state: StructState, mesh: StructMesh, dt, n_steps: int, fb: bool = False
+    state: StructState, mesh: StructMesh, dt, n_steps: int, fb: bool = False,
 ) -> StructState:
     """n_steps steps of ``structured_step`` (forward Euler) or, with
-    ``fb=True``, of ``structured_fb_step`` (forward-backward)."""
+    ``fb=True``, of ``structured_fb_step`` (forward-backward). Only the
+    linear core is ported: there is no ``nonlinear`` option, and on a
+    channel no masked vertex constants (``vertex_mask``,
+    ``vertex_kite_planes``)."""
     step = structured_fb_step if fb else structured_step
     for _ in range(n_steps):
         state = step(state, mesh, dt)
@@ -283,19 +314,30 @@ def structured_run_loop(
 
 
 class StructuredModel(nn.Module):
-    """Fast path for uniform periodic hex lattices.
+    """Fast path for uniform hex lattices: fully periodic, or coastal
+    channels carved out of a periodic parent by cell culling.
 
     Built from an unstructured Mesh; converts state in and out of the
     lattice layout on the host and holds the lattice constants (``f_edge``,
-    ``rts``, the metric scalars and the Coriolis term tables) as buffers on
-    ``device``. ``device=None`` means the card ("cuda"), and raises where
-    there is none; the plain version runs on the host only for
-    ``device="cpu"``. The culled-channel form of the JAX package
-    (``parent_horz`` / ``keep_cells``) is not ported yet.
+    ``rts``, the metric scalars, the Coriolis term tables and, on a channel,
+    the wall masks) as buffers on ``device``. ``device=None`` means the card
+    ("cuda"), and raises where there is none; the plain version runs on the
+    host only for ``device="cpu"``.
+
+    Channel form (mpas_ocean_tpu/structured/model.py:524-566, 633-700): pass
+    the periodic ``parent_horz`` the culled mesh was carved from
+    (``mesh.cull_cells``) and its ``keep_cells`` mask. The lattice then
+    covers the whole parent; culled cells and edges are dead slots, with
+    h = 0 and rts = 0, and the steps pin u to exactly 0 on wall and dead
+    edges through ``StructMesh.edge_mask``, so the walls behave as the
+    culled mesh's do.
     """
 
-    def __init__(self, mesh, nx: int, ny: int, device=None):
+    def __init__(self, mesh, nx: int, ny: int, device=None, *, parent_horz=None,
+                 keep_cells=None):
         super().__init__()
+        if (parent_horz is None) != (keep_cells is None):
+            raise ValueError("parent_horz and keep_cells go together")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -305,28 +347,58 @@ class StructuredModel(nn.Module):
                 )
             device = "cuda"
         horz, vert = mesh.horz, mesh.vert
-        self.layout = HexLayout(horz, nx, ny)
+        lattice_horz = horz if parent_horz is None else parent_horz
+        self.layout = HexLayout(lattice_horz, nx, ny)
         lay = self.layout
-        dtype = np.asarray(horz.cells.area_cell).dtype
+        dtype = np.asarray(lattice_horz.cells.area_cell).dtype
         self.nx, self.ny2, self.n_vert_levels = nx, ny // 2, vert.n_vert_levels
         self.coriolis_terms = tuple(
             (t.f_out, t.p_out, t.f_in, t.p_in, t.dm, t.di, t.w)
             for t in lay.coriolis_terms
         )
         # uniformity requirements for the scalar metric shortcut
-        dv_edge = np.asarray(horz.edges.dv_edge)
-        area = np.asarray(horz.cells.area_cell)
+        dv_edge = np.asarray(lattice_horz.edges.dv_edge)
+        area = np.asarray(lattice_horz.cells.area_cell)
         if not (np.allclose(dv_edge, dv_edge[0]) and np.allclose(area, area[0])):
             raise ValueError("lattice metrics are not uniform")
 
         def buf(name, a):
-            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(a)).to(device))
+            if a is not None:
+                a = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            self.register_buffer(name, a)
+
+        self._n_parent_cells = lattice_horz.n_cells
+        self._n_parent_edges = lattice_horz.n_edges
+        edge_mask = cell_mask = None
+        rts_cells = np.asarray(vert.resting_thickness_sum)
+        if parent_horz is None:
+            self.cell_gids = self.edge_gids = None
+        else:
+            keep = np.asarray(keep_cells, dtype=bool)
+            if int(keep.sum()) != horz.n_cells:
+                raise ValueError("keep_cells does not match the culled mesh")
+            self.cell_gids = np.flatnonzero(keep)
+            coe = np.asarray(parent_horz.edges.cells_on_edge)
+            keep_edge = keep[coe].any(axis=1)
+            if int(keep_edge.sum()) != horz.n_edges:
+                raise ValueError("culled mesh was not built from keep_cells")
+            self.edge_gids = np.flatnonzero(keep_edge)
+            if not np.allclose(np.asarray(horz.cells.x),
+                               np.asarray(parent_horz.cells.x)[self.cell_gids]):
+                raise ValueError("the culled mesh's cells are not keep_cells' cells")
+            # interior edges (two live cells) keep their dynamics; wall
+            # edges (one live cell) and dead edges are pinned to u = 0
+            edge_mask = lay.edges_to_struct(keep[coe].all(axis=1).astype(dtype))
+            cell_mask = lay.cells_to_struct(keep.astype(dtype))
+            rts_cells = self._cells_to_parent(rts_cells.astype(dtype))
 
         buf("dc", dtype.type(lay.dc))
         buf("dv", dtype.type(dv_edge[0]))
         buf("area_cell", dtype.type(area[0]))
-        buf("f_edge", lay.edges_to_struct(np.asarray(horz.edges.f)))
-        buf("rts", lay.cells_to_struct(np.asarray(vert.resting_thickness_sum)))
+        buf("f_edge", lay.edges_to_struct(np.asarray(lattice_horz.edges.f)))
+        buf("rts", lay.cells_to_struct(rts_cells))
+        buf("edge_mask", edge_mask)
+        buf("cell_mask", cell_mask)
         # the Coriolis stencil and its transpose, packed: on the buffers'
         # device, and the host copies the kernels take
         packed = packed_stencils(self.coriolis_terms, dtype)
@@ -354,33 +426,59 @@ class StructuredModel(nn.Module):
             adjoint_weight=self.adjoint_weight,
             host_stencil=self.host_stencil,
             host_adjoint_stencil=self.host_adjoint_stencil,
+            edge_mask=self.edge_mask,
+            cell_mask=self.cell_mask,
         )
+
+    # -- culled <-> parent embedding (identity on a periodic lattice) -----
+    def _cells_to_parent(self, field: np.ndarray) -> np.ndarray:
+        if self.cell_gids is None:
+            return field
+        out = np.zeros((self._n_parent_cells,) + field.shape[1:], field.dtype)
+        out[self.cell_gids] = field
+        return out
+
+    def _edges_to_parent(self, field: np.ndarray) -> np.ndarray:
+        if self.edge_gids is None:
+            return field
+        out = np.zeros((self._n_parent_edges,) + field.shape[1:], field.dtype)
+        out[self.edge_gids] = field
+        return out
 
     def to_struct(self, prog: PrognosticVars) -> StructState:
         """Unstructured state -> lattice state on the buffers' device (the
-        permutation runs on the host)."""
+        permutation runs on the host). On a channel the culled cells and
+        edges are embedded as zeros, and u is pinned to 0 on masked edges,
+        the wall condition the culled mesh's state carries (JAX
+        model.py:652-655)."""
         lay = self.layout
         dev = self.f_edge.device
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+        def cells(x):
+            return lay.cells_to_struct(self._cells_to_parent(x.cpu().numpy()))
+
+        u = lay.edges_to_struct(
+            self._edges_to_parent(prog.normal_velocity.cpu().numpy()), sign=True)
+        if self.edge_mask is not None:
+            u = u * self.edge_mask.cpu().numpy()[..., None]
         return StructState(
-            ssh=put(lay.cells_to_struct(prog.ssh.cpu().numpy())),
-            layer_thickness=put(
-                lay.cells_to_struct(prog.layer_thickness.cpu().numpy())
-            ),
-            normal_velocity=put(
-                lay.edges_to_struct(prog.normal_velocity.cpu().numpy(), sign=True)
-            ),
+            ssh=put(cells(prog.ssh)),
+            layer_thickness=put(cells(prog.layer_thickness)),
+            normal_velocity=put(u),
         )
 
     def from_struct(self, state: StructState) -> PrognosticVars:
-        """Lattice state -> unstructured state, as CPU tensors."""
+        """Lattice state -> unstructured state, as CPU tensors; on a channel,
+        the culled mesh's cells and edges only."""
         lay = self.layout
         ssh = lay.cells_from_struct(state.ssh.cpu().numpy())
         h = lay.cells_from_struct(state.layer_thickness.cpu().numpy())
         u = lay.edges_from_struct(state.normal_velocity.cpu().numpy(), sign=True)
+        if self.cell_gids is not None:
+            ssh, h, u = ssh[self.cell_gids], h[self.cell_gids], u[self.edge_gids]
         return PrognosticVars(
             ssh=torch.from_numpy(np.ascontiguousarray(ssh)),
             layer_thickness=torch.from_numpy(np.ascontiguousarray(h)),

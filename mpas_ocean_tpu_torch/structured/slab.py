@@ -1,20 +1,21 @@
 """The linear core's step on halo-padded windows, and its q-step superstep.
 
 Counterpart of mpas_ocean_tpu/structured/sharded.py:44-62,156-342
-(``_sh``, ``_interior``, ``_flux_thickness``, ``_step_slab`` with masks,
-forcing, tracers, cell masks and stratification off) and of
-pallas_model.py:791-849 (``_reach``, ``_window_steps``), for the forward
-Euler (FE) and forward-backward (FB) steppers.
+(``_sh``, ``_interior``, ``_flux_thickness``, ``_step_slab`` with the wall
+masks, and with forcing, tracers, cell masks and stratification off) and of
+pallas_model.py:791-849 (``_reach``, ``_window_steps`` with ``masks_full``),
+for the forward Euler (FE) and forward-backward (FB) steppers.
 
 The JAX windows are whole rows, padded in m and wrapped periodically in i
 (``_roll_nx``). The port's windows are tiles padded in both m and i, so the
 wrap becomes an i-halo: a window that spans all nx columns and is padded
 periodically in i gives the JAX interior.
 
-Fields carry a channel axis and any leading batch axes, with ssh, f_edge
-and rts kept as trailing singletons as in the JAX slabs: ssh and rts
-(..., 2, R, C, 1), h (..., 2, R, C, K), u and f_edge (..., 6, R, C, K or 1),
-edge channel ``family * 2 + parity``.
+Fields carry a channel axis and any leading batch axes, with ssh, f_edge,
+the wall mask and rts kept as trailing singletons as in the JAX slabs: ssh
+and rts (..., 2, R, C, 1), h (..., 2, R, C, K), u, f_edge and the mask
+(..., 6, R, C, K or 1), edge channel ``family * 2 + parity``. The mask is
+windowed as f_edge is.
 """
 
 from __future__ import annotations
@@ -106,12 +107,13 @@ def _flux_thickness(h, u, rts, dt, s_div, reg):
 
 
 def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo,
-              fb=False):
+              fb=False, mask=None):
     """One FE or FB step of the linear core on windows padded by
     ``halo`` = (rows, columns) per side (``stencil_reach``); returns the
     (rows, cols) interiors (ssh, h, u). Mirrors sharded._step_slab: FB runs
     the continuity update on the 1-padded interior and takes the pressure
-    gradient of that fresh ssh; the Coriolis term reads the old u."""
+    gradient of that fresh ssh; the Coriolis term reads the old u. The wall
+    ``mask`` (padded as f_edge, or None) multiplies u' last."""
     hm, hi = halo
     inner = (hm, hm + rows, hi, hi + cols)
     if fb:
@@ -139,16 +141,19 @@ def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo
             c = fam * 2 + p
             pin, dm, di = NEIGHBOR[(fam, p)]
             grad = (_sh(pg[pin], dm, di, pg_reg) - _interior(pg[p], pg_reg)) * inv_dc
-            u_new.append(_interior(u[..., c, :, :, :], inner) + dt * acc[c]
-                         + pg_scale * grad)
+            un = _interior(u[..., c, :, :, :], inner) + dt * acc[c] + pg_scale * grad
+            if mask is not None:
+                un = un * _interior(mask[..., c, :, :, :], inner)
+            u_new.append(un)
     return tuple(torch.stack(x, dim=-4) for x in (ssh_new, h_new, u_new))
 
 
 def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows, cols,
-                 q, halo, fb=False):
+                 q, halo, fb=False, mask_full=None):
     """Advance windows by q steps (pallas_model._window_steps, linear arm):
     the state arrives padded by q halos per side and shrinks by one halo
-    per side per step; the constant fields are cut to each step's window.
+    per side per step; the constant fields, the wall mask ``mask_full``
+    (None on a periodic lattice) among them, are cut to each step's window.
     Returns the (rows, cols) interiors."""
     hm, hi = halo
     full_m, full_i = rows + 2 * hm * q, cols + 2 * hi * q
@@ -159,5 +164,6 @@ def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows,
             ssh, h, u, _interior(f_full, win), _interior(rts_full, win),
             dt, inv_dc, s_div, terms,
             rows + 2 * hm * (q - 1 - j), cols + 2 * hi * (q - 1 - j), halo, fb,
+            None if mask_full is None else _interior(mask_full, win),
         )
     return ssh, h, u

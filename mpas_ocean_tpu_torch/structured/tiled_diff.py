@@ -7,8 +7,9 @@ row x column tiles.
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py's tiled reverse
 (:1960-2584: ``_tiled_adjoint_plan``, ``_halo_unscatter``,
 ``_pallas_tiled_adjoint``, ``_tiled_adjoint_from_ckpts``) and of the tiled
-arms of ``_rollout_fwd`` / ``_rollout_bwd`` (:2779-2944), for the periodic
-linear core with forward Euler. It mirrors ``tiled_model``.
+arms of ``_rollout_fwd`` / ``_rollout_bwd`` (:2779-2944), for the linear
+core with forward Euler, on periodic lattices and on coastal channels (the
+wall mask windowed as f_edge, ``masks_full``). It mirrors ``tiled_model``.
 
 The forward is ``diff_model.forward_ckpts`` in groups of ``group * q``
 steps, which runs ``fe_step`` on the card: that is the counterpart of
@@ -61,7 +62,7 @@ from .diff_model import (
 )
 from .model import StructMesh, StructState
 from .slab import adjoint_stencil_reach, stencil_reach, window_steps
-from .tiled_model import _windows, halo_unscatter, resolve_plan
+from .tiled_model import _windows, halo_unscatter, mask_windows, resolve_plan
 
 __all__ = [
     "TiledRolloutDiff",
@@ -93,7 +94,7 @@ def adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
     """Shared memory of one block of the tiled adjoint kernel: its level
     chunk of q primal states and one cotangent (two at q > 1) over the
     window of 2q - 1 halos per side, and the window's planes without levels
-    (csrc/tiled_adjoint.cu: ``smem_bytes``)."""
+    and live bits (csrc/tiled_adjoint.cu: ``smem_bytes``)."""
     sites = tiled_adjoint.window_sites(row_tile, col_tile, q, halo)
     return tiled_adjoint.smem_bytes(sites, row_tile * col_tile, k, q, itemsize)
 
@@ -137,10 +138,11 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
     core = lambda x: _windows(x, row_tile, col_tile, 0, 0)
     f_w = win(mesh.f_edge.to(dtype).reshape(6, ny2, nx, 1))
     rts_w = win(mesh.resting_thickness_sum.to(dtype).reshape(2, ny2, nx, 1))
+    mask_w = mask_windows(mesh, dtype, win)
 
     def steps(ssh, h, u, d):
         return window_steps(ssh, h, u, f_w, rts_w, d, inv_dc, s_div, mesh.coriolis_terms,
-                            rows=row_tile, cols=col_tile, q=q, halo=halo)
+                            rows=row_tile, cols=col_tile, q=q, halo=halo, mask_full=mask_w)
 
     _, vjp = torch.func.vjp(
         steps, win(state.ssh[..., None]), win(h),
@@ -183,7 +185,7 @@ class _TiledSteps(_Steps):
             tiled_adjoint.tiled_adjoint_rollout(
                 _fields(stack), _fields(g), *self.tiled_adj, *self.scal, n, ddt,
                 _fields(out), _fields(scratch), row_tile=self.rt, col_tile=self.ct,
-                q=self.q, halo=self.halo)
+                q=self.q, halo=self.halo, live=self.live)
             return
         for j in reversed(range(n)):
             g, dd = plain_tiled_adjoint_superstep(_slot(stack, j), g, self.mesh, self.dt,
@@ -261,9 +263,10 @@ class TiledRolloutDiff(torch.autograd.Function):
 
 def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                        plan=None) -> StructState:
-    """n-step rollout of the linear periodic core, differentiable with
-    respect to the state and a tensor ``dt``, with the tiled reverse: forward
-    through ``fe_step`` on the card, backward through ``tiled_adjoint``.
+    """n-step rollout of the linear core (periodic, or masked where the mesh
+    has a wall mask), differentiable with respect to the state and a tensor
+    ``dt``, with the tiled reverse: forward through ``fe_step`` on the card,
+    backward through ``tiled_adjoint``.
     ``plan`` = (row_tile, col_tile, q, group) overrides
     ``tiled_adjoint_plan``. The tiled arm of ``pallas_rollout_diff``."""
     return StructState(*TiledRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan))

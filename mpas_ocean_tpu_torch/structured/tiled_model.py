@@ -4,7 +4,9 @@ lattices of any size: one hand-written kernel launch per q steps on the card
 
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
 ``pallas_tiled_run_loop`` (:1332) and ``_pallas_tiled_rollout`` (:1221) for
-the periodic linear core with forward Euler (FE) or forward-backward (FB).
+the linear core with forward Euler (FE) or forward-backward (FB), on
+periodic lattices and on coastal channels (the wall mask windowed as
+f_edge, :1287-1288, 1391-1394).
 The lattice is cut into row_tile x col_tile tiles; each tile reads its core
 and q halos of ``slab.stencil_reach`` rows and columns per side, advances q
 steps on the shrinking window (``slab.window_steps``) and writes its core.
@@ -25,6 +27,7 @@ measurements in PERF.md.
 
 from __future__ import annotations
 
+
 import torch
 
 from ..kernels import tiled_step
@@ -34,6 +37,7 @@ from .slab import stencil_reach, window_steps
 
 __all__ = [
     "halo_unscatter",
+    "mask_windows",
     "plain_tiled_rollout",
     "resolve_plan",
     "tile_plan",
@@ -46,7 +50,8 @@ def window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int, itemsize: i
     """Shared memory of one block of the tiled kernel: its level chunk of
     the window (2 h planes + 6 u channels), one copy at q = 1 and two at
     q > 1, the window's ssh (two copies), column partial sums (two), f_edge,
-    rts and its lattice sites (csrc/tiled_step.cu: ``smem_bytes``)."""
+    rts, and its lattice sites with their live bits (the masked arm's,
+    reserved either way; csrc/tiled_step.cu: ``smem_bytes``)."""
     hm, hi = halo
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
     _, kc = tiled_step.level_split(k)
@@ -96,7 +101,8 @@ def tile_plan(ny2: int, nx: int, k: int, itemsize: int, reach, n_steps: int):
     one-block plans took 1.04-1.52x as long; q = 2 took 1.47-2.39x as long
     as q = 1 (the kernel is far from its byte bound, so the halo rings that
     temporal blocking recomputes cost more than the state passes it saves),
-    and no q = 4 window fits."""
+    and no q = 4 window fits. One plan serves the periodic and the masked
+    arm."""
     tile = _best_tile(ny2, nx, k, itemsize, reach, 1)
     return (*(tile or (1, 1)), 1)
 
@@ -108,9 +114,9 @@ def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
     ``tile_plan``, q lowered until it divides n_steps, and the reach*q clamp
     of pallas_tiled_run_loop (pallas_model.py:1372-1384) applied to rows
     against ny2 and to columns against nx. ``window`` gives one block's
-    shared memory for a plan and ``budgets`` the budgets ``_best_tile``
-    tries (the tiled adjoint passes its own). Raises ValueError for a tile
-    that does not divide the lattice."""
+    shared memory for a plan, and ``budgets`` the budgets ``_best_tile`` tries (the tiled adjoint
+    passes its own). Raises ValueError for a tile that does not divide the
+    lattice."""
     hm, hi = halo
     if q is None:
         _, _, q = tile_plan(ny2, nx, k, itemsize, halo, n_steps)
@@ -167,6 +173,14 @@ def halo_unscatter(w, ny2: int, nx: int, hm: int, hi: int):
     return out
 
 
+def mask_windows(mesh: StructMesh, dtype, win):
+    """The wall mask cut by ``win`` into tile windows as f_edge is, or None
+    on a periodic lattice."""
+    if mesh.edge_mask is None:
+        return None
+    return win(mesh.edge_mask.to(dtype).reshape(6, mesh.ny2, mesh.nx, 1))
+
+
 def _untile(w):
     """(n_row_tiles, n_col_tiles, ch, rt, ct, K) interiors -> (ch, ny2, nx, K)."""
     n_tm, n_ti, ch, rt, ct, k = w.shape
@@ -178,7 +192,8 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
                         ) -> StructState:
     """The tiled kernel's plain version: n_steps / q times, cut the
     periodic state into halo-padded tile windows, run ``window_steps`` on
-    all of them as one batch, and put the interiors back together."""
+    all of them as one batch (the mesh's wall mask windowed with them),
+    and put the interiors back together."""
     if n_steps % q:
         raise ValueError(f"q={q} must divide n_steps={n_steps}")
     ny2, nx = mesh.ny2, mesh.nx
@@ -190,13 +205,14 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
     win = lambda x: _windows(x, row_tile, col_tile, hm, hi)
     f_w = win(mesh.f_edge.to(dtype).reshape(6, ny2, nx, 1))
     rts_w = win(mesh.resting_thickness_sum.to(dtype).reshape(2, ny2, nx, 1))
+    mask_w = mask_windows(mesh, dtype, win)
     ssh = state.ssh[..., None]
     h = state.layer_thickness
     u = state.normal_velocity.reshape(6, ny2, nx, k)
     for _ in range(n_steps // q):
         out = window_steps(win(ssh), win(h), win(u), f_w, rts_w, dt_, inv_dc, s_div,
                            mesh.coriolis_terms, rows=row_tile, cols=col_tile, q=q,
-                           halo=halo, fb=fb)
+                           halo=halo, fb=fb, mask_full=mask_w)
         ssh, h, u = (_untile(x) for x in out)
     return StructState(ssh=ssh[..., 0], layer_thickness=h,
                        normal_velocity=u.reshape(3, 2, ny2, nx, k))
@@ -205,10 +221,11 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
 def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                    row_tile: int | None = None, col_tile: int | None = None,
                    q: int | None = None, fb: bool = False) -> StructState:
-    """n_steps FE (or, with ``fb=True``, FB) steps of the linear periodic
-    core, q per kernel launch over row_tile x col_tile tiles; the plan is
-    completed by ``resolve_plan``. A CUDA state runs the kernel, a CPU
-    state its plain version with the same plan."""
+    """n_steps FE (or, with ``fb=True``, FB) steps of the linear core, on
+    a periodic lattice or a masked channel, q per kernel launch over
+    row_tile x col_tile tiles; the plan is completed by ``resolve_plan``. A
+    CUDA state runs the kernel (its masked arm where the mesh has a wall
+    mask), a CPU state its plain version with the same plan."""
     device = state.layer_thickness.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rollout for state on {device}")
@@ -230,5 +247,6 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
         mesh.resting_thickness_sum.to(dtype).contiguous(),
         *mesh.host_stencil, *fused_model._scal(mesh, dt, dtype), n_steps,
         row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb,
+        live=fused_model.kernel_live(mesh),
     )
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)

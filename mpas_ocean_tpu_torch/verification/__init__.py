@@ -1,3 +1,4 @@
 from .inertial_gravity_wave import InertialGravityWave
+from .kelvin_wave import KelvinWave
 
-__all__ = ["InertialGravityWave"]
+__all__ = ["InertialGravityWave", "KelvinWave"]

@@ -21,7 +21,13 @@ from mpas_ocean_tpu_torch.structured import (
 )
 from mpas_ocean_tpu_torch.structured.fused_model import _scal
 
-from torch_gpu_cases import FIELDS, cuda, random_lattice, reversed_terms_mesh  # noqa: F401
+from torch_gpu_cases import (  # noqa: F401 (fixture)
+    FIELDS,
+    channel_lattice,
+    cuda,
+    random_lattice,
+    reversed_terms_mesh,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -225,3 +231,49 @@ def test_adjoint_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         adjoint_step.adjoint_rollout(stack, tuple(getattr(g, f) for f in FIELDS),
                                      *args[:6], 2, ddt)
+
+
+@pytest.mark.parametrize("n_steps", [1, 7])
+@pytest.mark.parametrize("shape", [(16, 16, 4), (12, 16, 33), (32, 32, 100)])
+def test_masked_adjoint_kernel_matches_plain_f64(cuda, shape, n_steps):
+    """adjoint_step's masked arm on a coastal channel, f64: against the
+    plain masked adjoint step back through the same primal states (the
+    masked forward kernel's), 1e-12 of each field's magnitude and of d(dt);
+    a rerun bitwise equal."""
+    model, st = channel_lattice(*shape, cuda)
+    sm = model.struct_mesh
+    g = _cotangent(st, 5)
+    out, ddt = fused_adjoint_rollout(st, sm, DT, n_steps, g, plan=3)
+    again, ddt_again = fused_adjoint_rollout(st, sm, DT, n_steps, g, plan=3)
+    states = [st]
+    for _ in range(n_steps - 1):
+        states.append(fused_run_loop(states[-1], sm, DT, 1))
+    ref, ref_dt = _plain_reverse(states, g, sm)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        a, b = getattr(out, f), getattr(ref, f)
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 1e-12, (f, err)
+        assert torch.equal(a, getattr(again, f)), f
+    assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
+    assert torch.equal(ddt, ddt_again)
+
+
+def test_masked_adjoint_kernel_passes_the_dot_product_identity(cuda):
+    """<J v, g> = <v, J^T g> on a 16x16x4 coastal channel over 7 steps, f64,
+    J^T g by fused_rollout_diff's kernels (fe_step's and adjoint_step's
+    masked arms), J v by forward-mode AD of the plain masked rollout: 1e-12
+    relative."""
+    model, st = channel_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    v, g = _cotangent(st, 12), _cotangent(st, 14)
+    fields = lambda s: tuple(getattr(s, f) for f in FIELDS)
+    _, jv = torch.func.jvp(
+        lambda *xs: fields(structured_run_loop(StructState(*xs), sm, DT, 7)),
+        fields(st), fields(v))
+    lhs = sum(float((x * y).sum()) for x, y in zip(jv, fields(g)))
+    leaves = [x.clone().requires_grad_(True) for x in fields(st)]
+    out = fused_rollout_diff(StructState(*leaves), sm, DT, 7)
+    jtg = torch.autograd.grad(fields(out), leaves, fields(g))
+    rhs = sum(float((x * y).sum()) for x, y in zip(fields(v), jtg))
+    assert abs(lhs - rhs) <= 1e-12 * abs(rhs)

@@ -251,9 +251,10 @@ def test_window_bytes_mirror_the_kernels():
         assert (adjoint_step.smem_bytes(tile, k, itemsize)
                 == tiled_adjoint.smem_bytes(sites, tile[0] * tile[1], k, 1, itemsize))
     # (4, 8) at 100 f32 levels: 72 sites of 16 planes x 16 levels and 10
-    # planes, 7 ranks' partial sums of 32 sites, the sites, the warps' sums
+    # planes, 7 ranks' partial sums of 32 sites, the sites and their live
+    # bits, the warps' sums
     assert adjoint_step.smem_bytes((4, 8), 100, 4) == (
-        128 + 4 * (72 * (16 * 16 + 10) + 7 * 2 * 32) + 4 * 72)
+        128 + 4 * (72 * (16 * 16 + 10) + 7 * 2 * 32) + 8 * 72)
 
 
 @pytest.mark.parametrize("shape", [(128, 256, 100), (32, 64, 100), (8, 16, 4), (4, 8, 300)])

@@ -5,6 +5,7 @@ so on a GPU machine without JAX they run with
     python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +15,8 @@ from mpas_ocean_tpu_torch.structured import fused_model, fused_run_loop, structu
 
 from torch_gpu_cases import (  # noqa: F401 (fixture)
     FIELDS,
+    assert_walls_closed,
+    channel_lattice,
     cuda,
     random_lattice,
     reversed_terms_mesh,
@@ -116,3 +119,84 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
             sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
             10.0, 1e-3, 1e-3, 1,
         )
+
+
+@pytest.mark.parametrize("shape, tile", [
+    ((16, 16, 4), None),       # the planner's tile
+    ((16, 16, 4), (3, 5)),     # ragged tiles in both directions
+    ((12, 16, 33), (4, 4)),    # one value per copy; the walls cut through tiles
+    ((16, 16, 100), (4, 16)),  # the main path's tile and chunk of 16 levels
+])
+def test_masked_kernel_matches_plain_f64(cuda, shape, tile):
+    """fe_step's masked arm on a coastal channel (first and last cell rows
+    culled), 7 steps, f64: 1e-12 of each field's scale against the plain
+    masked steps, a rerun bitwise equal, and u +0.0 bit for bit on every
+    wall and culled edge."""
+    model, st = channel_lattice(*shape, cuda)
+    sm = model.struct_mesh
+    assert sm.edge_mask is not None
+    args = (st.ssh, st.layer_thickness, st.normal_velocity, sm.f_edge,
+            sm.resting_thickness_sum, *sm.host_stencil,
+            fused_model._scal(sm, 10.0, torch.float64), 7, tile, fe_step.live_bits(sm.edge_mask))
+    fe_step.launches = 0
+    out = fe_step._rollout(*args)
+    again = fe_step._rollout(*args)
+    assert fe_step.launches == 14
+    ref = structured_run_loop(st, sm, 10.0, 7)
+    torch.cuda.synchronize()
+    column = (ref.ssh + sm.resting_thickness_sum).abs().max()
+    for a, b, f in zip(out, (getattr(ref, f) for f in FIELDS), FIELDS):
+        scale = column if f == "ssh" else b.abs().max()
+        err = float((a.reshape(b.shape) - b).abs().max() / scale)
+        assert err <= 1e-12, (f, err)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    assert_walls_closed(out[2], sm)
+
+
+def test_masked_kernel_f32_kelvin_channel(cuda):
+    """The masked arm at 64x64x100 f32 on bench.py's Kelvin channel, 100
+    steps of dt = 30 s through fused_run_loop: ssh and h within PERF.md
+    section 2's f32 bound of the plain masked steps (1e-5). u carries
+    g dt grad(ssh) of the two versions' different rounding of the ~1000 m
+    column sums, which forward Euler grows: on this wave, whose u is
+    smaller than the IGW's, the two f32 runs part by ~6e-4 of max|u| (H100,
+    700 W), so u is held against an f64 run of the plain version instead:
+    the kernel's distance from it at most 3x the plain f32 run's (sound
+    runs read 0.99-1.03x; the plain run with u stored in fp16 reads ~9x,
+    PERF.md section 2). The walls stay closed and the culled cells at
+    h = 0."""
+    n, k = 64, 100
+    dc = 10000.0e3 / n
+
+    def case(dtype):
+        horz = mt.planar_hex_mesh(n, n, dc, f0=1e-4, dtype=dtype)
+        y = np.asarray(horz.cells.y)
+        keep = (y > 0.5 * dc) & (y < y.max() - 0.5 * dc)
+        chan = mt.cull_cells(horz, keep)
+        vert = mt.make_vertical_mesh(
+            chan, k, resting_thickness=np.full((chan.n_cells, k), 1000.0 / k, dtype=dtype),
+            dtype=dtype)
+        ssh, h, u = mt.KelvinWave(lx=n * dc / 1e3).initial_state(chan, k)
+        model = mt.StructuredModel(mt.Mesh(horz=chan, vert=vert), n, n, device=cuda,
+                                   parent_horz=horz, keep_cells=keep)
+        st = model.to_struct(mt.PrognosticVars(*(torch.from_numpy(x.astype(dtype))
+                                                  for x in (ssh, h, u))))
+        return st, model.struct_mesh
+
+    st, sm = case(np.float32)
+    st64, sm64 = case(np.float64)
+    out = fused_run_loop(st, sm, 30.0, 100)
+    ref = structured_run_loop(st, sm, 30.0, 100)
+    ref64 = structured_run_loop(st64, sm64, 30.0, 100)
+    torch.cuda.synchronize()
+    column = (ref.ssh + sm.resting_thickness_sum).abs().max()
+    for f in ("ssh", "layer_thickness"):
+        a, b = getattr(out, f), getattr(ref, f)
+        scale = column if f == "ssh" else b.abs().max()
+        assert float((a - b).abs().max() / scale) <= 1e-5, f
+    gap = lambda x: float((x.normal_velocity.double() - ref64.normal_velocity).abs().max())
+    assert gap(out) <= 3 * gap(ref), (gap(out), gap(ref))
+    assert_walls_closed(out.normal_velocity, sm)
+    dead = (sm.cell_mask == 0)[..., None].expand_as(out.layer_thickness)
+    assert bool((out.layer_thickness.masked_select(dead) == 0).all())

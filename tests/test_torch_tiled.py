@@ -181,7 +181,7 @@ def test_tile_plan_fits(shape, itemsize, fb):
     shared memory, its q divides n_steps and keeps the clamp. One block
     holds one window copy of its level chunk at q = 1 and two at q > 1, then
     ssh, partial sums, f_edge and rts (16 planes) and the sites' indices
-    (csrc/tiled_step.cu's one-stage reckoning)."""
+    and live bits (csrc/tiled_step.cu's one-stage reckoning)."""
     ny2, nx, k = shape
     halo = (reach(fb), 2)
     _, kc = tiled_step.level_split(k)
@@ -195,7 +195,7 @@ def test_tile_plan_fits(shape, itemsize, fb):
             sites = (rt + 2 * halo[0] * qq) * (ct + 2 * halo[1] * qq)
             copies = 1 if qq == 1 else 2
             assert window_bytes(rt, ct, qq, halo, k, itemsize) == (
-                itemsize * sites * (8 * copies * kc + 16) + 4 * sites)
+                itemsize * sites * (8 * copies * kc + 16) + 8 * sites)
 
 
 @pytest.mark.parametrize("shape", [(128, 256, 100), (32, 64, 100), (32, 64, 4),
@@ -205,15 +205,15 @@ def test_fe_tile_fits(shape, itemsize):
     """fe_step's tile lies within the lattice and its window fits one
     block's shared memory: the level chunk of 8 state planes, ssh, f_edge
     and rts (10 planes), the ranks' partial sums of the tile's sites and
-    the sites' indices (csrc/fe_step.cu's reckoning). Where any tile lets
-    two blocks share an SM, the chosen one does."""
+    the sites' indices and live bits (csrc/fe_step.cu's reckoning). Where
+    any tile lets two blocks share an SM, the chosen one does."""
     ny2, nx, k = shape
     rt, ct = fe_step.fe_tile(ny2, nx, k, itemsize)
     assert 1 <= rt <= ny2 and 1 <= ct <= nx
     ranks, kc = fe_step.level_split(k)
     hm, hi = fe_step.FE_REACH
     sites = (rt + 2 * hm) * (ct + 2 * hi)
-    need = itemsize * (sites * (8 * kc + 10) + ranks * 2 * rt * ct) + 4 * sites
+    need = itemsize * (sites * (8 * kc + 10) + ranks * 2 * rt * ct) + 8 * sites
     assert fe_step.smem_bytes((rt, ct), k, itemsize) == need <= fe_step.SMEM_BYTES
     if fe_step.smem_bytes((1, 1), k, itemsize) <= fe_step.TWO_BLOCK_BYTES:
         assert need <= fe_step.TWO_BLOCK_BYTES
@@ -340,8 +340,18 @@ def _momentum(cur, s, c, pg, f_w, w, st, dt, inv_dc):
     return cur[2 + c, s] + dt * acc + (-GRAVITY * dt) * grad[:, None]
 
 
+def _masked(u_new, live_w, s):
+    """u' of the window sites s with the masked arms' live bits applied
+    (live_w, one int per window site: u' = 0 where channel c's bit is
+    clear); u' itself without them."""
+    if live_w is None:
+        return u_new
+    bits = (live_w[s][None, :] >> np.arange(6)[:, None]) & 1
+    return np.where(bits[..., None] == 1, u_new, 0.0)
+
+
 def _walk_tiled_launch(ssh, h, u, f, rts, table, w, dt, inv_dc, s_div, rt, ct, q,
-                       halo, fb, split=None, lanes=None):
+                       halo, fb, split=None, lanes=None, live=None):
     """One launch as csrc/tiled_step.cu computes it, on numpy planes: per
     tile, the wrapped window with flattened site offsets (dm * Wi + di), the
     shrinking continuity and momentum regions, the level chunks of a cluster
@@ -349,7 +359,8 @@ def _walk_tiled_launch(ssh, h, u, f, rts, table, w, dt, inv_dc, s_div, rt, ct, q
     lane-group partial sums added in rank order, the second window copy of
     the steps before the last, and the last step's core written straight
     to the output. ssh (2, ny2, nx), h (2, ny2, nx, K), u (6, ny2, nx, K),
-    f (6, ny2, nx), rts (2, ny2, nx)."""
+    f (6, ny2, nx), rts (2, ny2, nx); ``live`` (ny2, nx), the masked arm's
+    live bits, or None."""
     _, ny2, nx, k = h.shape
     hm, hi = halo
     split = split or tiled_step.level_split(k)
@@ -374,6 +385,7 @@ def _walk_tiled_launch(ssh, h, u, f, rts, table, w, dt, inv_dc, s_div, rt, ct, q
                 x.reshape(x.shape[0], rt, ct, *x.shape[2:]))
             cur, s_cur = np.concatenate([win(h), win(u)]), win(ssh)
             f_w, rts_w = win(f), win(rts)
+            live_w = None if live is None else win(live[None])[0]
             for j in range(q):
                 last = j == q - 1
                 # NaN outside what a step writes: a read there fails the test
@@ -384,8 +396,8 @@ def _walk_tiled_launch(ssh, h, u, f, rts, table, w, dt, inv_dc, s_div, rt, ct, q
                 s_nxt[:, s] = _column_sums(h_new, k, split, lanes) - rts_w[:, s]
                 pg = s_nxt if fb else s_cur
                 su = region(hm * (j + 1), hi * (j + 1))
-                u_new = np.stack([_momentum(cur, su, c, pg, f_w, w, st, dt, inv_dc)
-                                  for c in range(6)])
+                u_new = _masked(np.stack([_momentum(cur, su, c, pg, f_w, w, st, dt, inv_dc)
+                                          for c in range(6)]), live_w, su)
                 if last:  # the core, straight to the output
                     put(out[1], h_new[:, np.searchsorted(s, core)])
                     put(out[2], u_new)
@@ -440,13 +452,14 @@ def _fe_reach(table):
 
 
 def _walk_fe_launch(ssh, h, u, f, rts, table, w, dt, inv_dc, s_div, rt, ct,
-                    split=None, lanes=None):
+                    split=None, lanes=None, live=None):
     """One launch as csrc/fe_step.cu computes it, on numpy planes: tiles of
     rt x ct sites that need not divide the lattice (sites past its edge are
     skipped), each tile's window wrapped periodically (over itself where it
     is wider than the lattice), h' and u' of a core site in one pass from
     the old state, and ssh' from the blocks' lane-group partial sums added in
-    rank order. Returns the new fields and how often each site was written."""
+    rank order; ``live`` (ny2, nx), the masked arm's live bits, or None.
+    Returns the new fields and how often each site was written."""
     _, ny2, nx, k = h.shape
     hm, hi = _fe_reach(table)
     split = split or fe_step.level_split(k)
@@ -463,12 +476,13 @@ def _walk_fe_launch(ssh, h, u, f, rts, table, w, dt, inv_dc, s_div, rt, ct,
             win = lambda x: x[:, gm[:, None], gi[None, :]].reshape(x.shape[0], wm * wi,
                                                                    *x.shape[3:])
             cur, s_cur, f_w, rts_w = np.concatenate([win(h), win(u)]), win(ssh), win(f), win(rts)
+            live_w = None if live is None else win(live[None])[0]
             lm, li = (tm * rt + r).ravel(), (ti * ct + c).ravel()
             keep = (lm < ny2) & (li < nx)
             s, lm, li = s_core[keep], lm[keep], li[keep]
             h_new = np.stack([_continuity(cur, s, p, st, dt, s_div) for p in (0, 1)])
-            u_new = np.stack([_momentum(cur, s, ch, s_cur, f_w, w, st, dt, inv_dc)
-                              for ch in range(6)])
+            u_new = _masked(np.stack([_momentum(cur, s, ch, s_cur, f_w, w, st, dt, inv_dc)
+                                      for ch in range(6)]), live_w, s)
             out[0][:, lm, li] = _column_sums(h_new, k, split, lanes) - rts_w[:, s]
             out[1][:, lm, li], out[2][:, lm, li] = h_new, u_new
             written[lm, li] += 1

@@ -21,7 +21,13 @@ from mpas_ocean_tpu_torch.structured import (
     tiled_rollout_diff,
 )
 
-from torch_gpu_cases import FIELDS, cuda, random_lattice, reversed_terms_mesh  # noqa: F401
+from torch_gpu_cases import (  # noqa: F401 (fixture)
+    FIELDS,
+    channel_lattice,
+    cuda,
+    random_lattice,
+    reversed_terms_mesh,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -223,3 +229,34 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         tiled_adjoint.tiled_adjoint_rollout(
             stack, (g.ssh, g.layer_thickness[..., :-1], g.normal_velocity), *args,
             row_tile=2, col_tile=4, q=1, halo=(1, 2))
+
+
+@pytest.mark.parametrize("q", [1, 2])
+@pytest.mark.parametrize("shape, tile", [
+    ((16, 16, 4), (2, 4)),
+    ((64, 64, 4), (4, 8)),    # the planner's tile at 100 f32 levels
+    ((64, 64, 4), (8, 16)),
+    ((12, 16, 33), (2, 4)),   # 33 levels; the walls cut through the windows
+])
+def test_masked_kernel_matches_plain_f64(cuda, shape, tile, q):
+    """tiled_adjoint's masked arm on a coastal channel, 6 steps, f64: the
+    kernel sweep and the plain masked superstep on the same primal states
+    differ only in summation order, so 1e-12 of each field's magnitude and
+    of d(dt); a rerun gives the same bits. At q = 2 the recompute runs the
+    forward mask and the middle cotangent is folded again."""
+    model, st = channel_lattice(*shape, cuda)
+    sm = model.struct_mesh
+    rt, ct = tile
+    n = 6
+    g = _cotangent(st, 4)
+    out, ddt = tiled_adjoint_rollout(st, sm, DT, n, g, plan=(rt, ct, q, 2))
+    again, ddt_again = tiled_adjoint_rollout(st, sm, DT, n, g, plan=(rt, ct, q, 2))
+    ref, ref_dt = _plain_reverse(st, sm, n, g, rt, ct, q)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        a, b = getattr(out, f), getattr(ref, f)
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 1e-12, (f, err)
+        assert torch.equal(a, getattr(again, f)), f
+    assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
+    assert torch.equal(ddt, ddt_again)

@@ -13,6 +13,7 @@ from mpas_ocean_tpu_torch.kernels import tiled_step
 from mpas_ocean_tpu_torch.structured import (
     fused_model,
     structured_auto_run_loop,
+    structured_run_loop,
     tiled_model,
     tiled_run_loop,
 )
@@ -20,6 +21,8 @@ from mpas_ocean_tpu_torch.structured.slab import stencil_reach
 
 from torch_gpu_cases import (  # noqa: F401 (fixture)
     FIELDS,
+    assert_walls_closed,
+    channel_lattice,
     cuda,
     random_lattice,
     reversed_terms_mesh,
@@ -160,3 +163,52 @@ def test_kernel_rejects_a_plan_that_does_not_fit(lattice64):
             sm.resting_thickness_sum, *sm.host_stencil,
             10.0, 1e-3, 1e-3, 4, row_tile=32, col_tile=64, q=4, halo=(2, 2),
         )
+
+
+@pytest.fixture(scope="module")
+def channel64():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return channel_lattice(64, 64, 4, torch.device("cuda"), seed=9)
+
+
+@pytest.mark.parametrize("fb", [False, True])
+@pytest.mark.parametrize("q", [1, 2])
+@pytest.mark.parametrize("tile", [(1, 8), (4, 4), (8, 16)])
+def test_masked_kernel_matches_plain_f64(channel64, fb, q, tile):
+    """The masked arm on a 64x64x4 coastal channel, FE and FB, 8 steps,
+    f64: 1e-12 of each field's scale against the plain masked windows
+    (same plan) and the plain masked steps, a rerun bitwise equal, u +0.0
+    bit for bit on every wall and culled edge."""
+    model, st = channel64
+    sm = model.struct_mesh
+    rt, ct = tile
+    run = lambda: tiled_run_loop(st, sm, 10.0, 8, row_tile=rt, col_tile=ct, q=q, fb=fb)
+    tiled_step.launches = 0
+    out, again = run(), run()
+    assert tiled_step.launches == 2 * 8 // q
+    for ref in (tiled_model.plain_tiled_rollout(st, sm, 10.0, 8, rt, ct, q, fb),
+                structured_run_loop(st, sm, 10.0, 8, fb=fb)):
+        for f, err in _rel_errors(out, ref, sm.resting_thickness_sum).items():
+            assert err <= 1e-12, (f, err)
+    for f in FIELDS:
+        assert torch.equal(getattr(out, f), getattr(again, f)), f
+    assert_walls_closed(out.normal_velocity, sm)
+
+
+@pytest.mark.parametrize("fb", [False, True])
+def test_masked_kernel_f32_at_full_depth(cuda, fb):
+    """The masked arm at 100 f32 levels (chunks of 16, the main path's)
+    on a 32x64 channel at 100 km spacing, 8 steps of the planner's plan:
+    PERF.md section 2's f32 bounds against the plain version."""
+    model, st = channel_lattice(32, 64, 100, cuda, seed=5, dtype=np.float32, dc=1e5)
+    sm = model.struct_mesh
+    out = tiled_run_loop(st, sm, 10.0, 8, fb=fb)
+    halo = stencil_reach(sm.coriolis_terms, fb)
+    plan = tiled_model.resolve_plan(sm.ny2, sm.nx, 100, 4, halo, 8)
+    ref = tiled_model.plain_tiled_rollout(st, sm, 10.0, 8, *plan, fb)
+    torch.cuda.synchronize()
+    tol = {"ssh": 1e-5, "layer_thickness": 1e-5, "normal_velocity": 3e-4}
+    for f, err in _rel_errors(out, ref, sm.resting_thickness_sum).items():
+        assert err <= tol[f], (f, err)
+    assert_walls_closed(out.normal_velocity, sm)
