@@ -57,7 +57,15 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      tiled_adjoint against the plain masked reverse (f64 and f32), the
      dot-product identity, the 64x64x100 4000-step grad through
      auto_rollout_diff and the 256x256x100 100-step grad through
-     tiled_rollout_diff with launch counts, times and profiler breakdowns.
+     tiled_rollout_diff with launch counts, times and profiler breakdowns;
+ 12. the nonlinear (vector-invariant) forward: the nonlinear arms of fe_step
+     (FE) and tiled_step (FE and FB) against the plain nonlinear steps (f64
+     16^2 and 64^2, periodic and channel, with the linear run as a control;
+     f32 64^2 and 256^2 IGW and the Kelvin channel with controls), the main
+     paths (64x64x100 IGW FE over 8000 steps, 256x256x100 FE and FB over
+     1000, the 64^2 Kelvin channel FE over 8000) with launch counts, times,
+     bounds and the ratio to the linear arm, the nonlinear IGW error against
+     an f64 host run, the walls.
 The line before the last prints the GPU's name and power limit as nvidia-smi
 gives them, the one before it the kernels' JSON summary, and the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
@@ -66,6 +74,7 @@ prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -139,9 +148,13 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
 def igw_case(n: int, levels: int, np_dtype, device=None):
     """The headline inputs, built as bench.py's build() builds them: uniform
-    periodic hex lattice over a 10000 km box, IGW state, dt = 30 s."""
+    periodic hex lattice over a 10000 km box, IGW state, dt = 30 s. Built
+    once per argument set and shared by the phases (a 256^2 lattice takes
+    ~12 s on the host); the phases read it and make their states with
+    to_struct."""
     import numpy as np
     import torch
 
@@ -167,9 +180,10 @@ def igw_case(n: int, levels: int, np_dtype, device=None):
     return horz, igw, model, prog
 
 
-def random_case(n: int, levels: int, seed: int = 7):
+def random_case(n: int, levels: int, seed: int = 7, u_amp: float = 0.01, layer: float = 10.0):
     """A random f64 lattice state (numpy seed), as tests/test_pallas.py
-    builds it."""
+    builds it: layers of ``layer`` m, h perturbed by 1e-3 of it, u of
+    standard deviation u_amp."""
     import numpy as np
     import torch
 
@@ -177,11 +191,11 @@ def random_case(n: int, levels: int, seed: int = 7):
 
     horz = mt.planar_hex_mesh(n, n, 1000.0, f0=1e-4, beta=1e-11)
     vert = mt.make_vertical_mesh(
-        horz, levels, resting_thickness=np.full((horz.n_cells, levels), 10.0)
+        horz, levels, resting_thickness=np.full((horz.n_cells, levels), layer)
     )
     rng = np.random.default_rng(seed)
-    h = 10.0 + 0.01 * rng.normal(size=(horz.n_cells, levels))
-    u = 0.01 * rng.normal(size=(horz.n_edges, levels))
+    h = layer + (layer / 1000) * rng.normal(size=(horz.n_cells, levels))
+    u = u_amp * rng.normal(size=(horz.n_edges, levels))
     prog = mt.PrognosticVars(
         ssh=torch.from_numpy(h.sum(1) - vert.resting_thickness_sum),
         layer_thickness=torch.from_numpy(h),
@@ -191,12 +205,14 @@ def random_case(n: int, levels: int, seed: int = 7):
     return model, prog
 
 
+@functools.lru_cache(maxsize=None)
 def kelvin_case(n: int, levels: int, np_dtype, device=None):
     """bench.py's build_kelvin at n x n cells: the periodic hex lattice over a
     10000 km box with its first and last cell rows culled (a channel with
     walls north and south), levels of 1000 m / levels, the coastal Kelvin
     wave, and the masked StructuredModel. Returns (the culled HorzMesh, the
-    KelvinWave, the model, the state)."""
+    KelvinWave, the model, the state); built once per argument set, as
+    igw_case."""
     import numpy as np
     import torch
 
@@ -224,7 +240,8 @@ def kelvin_case(n: int, levels: int, np_dtype, device=None):
     return chan, kw, model, prog
 
 
-def random_channel(n: int, levels: int, seed: int = 7):
+def random_channel(n: int, levels: int, seed: int = 7, u_amp: float = 0.01,
+                   layer: float = 10.0):
     """A random f64 channel state (numpy seed): random_case's lattice with
     its first and last cell rows culled, the state on the live cells."""
     import numpy as np
@@ -237,11 +254,11 @@ def random_channel(n: int, levels: int, seed: int = 7):
     keep = (y > 500.0) & (y < y.max() - 500.0)
     chan = mt.cull_cells(horz, keep)
     vert = mt.make_vertical_mesh(
-        chan, levels, resting_thickness=np.full((chan.n_cells, levels), 10.0)
+        chan, levels, resting_thickness=np.full((chan.n_cells, levels), layer)
     )
     rng = np.random.default_rng(seed)
-    h = 10.0 + 0.01 * rng.normal(size=(chan.n_cells, levels))
-    u = 0.01 * rng.normal(size=(chan.n_edges, levels))
+    h = layer + (layer / 1000) * rng.normal(size=(chan.n_cells, levels))
+    u = u_amp * rng.normal(size=(chan.n_edges, levels))
     prog = mt.PrognosticVars(
         ssh=torch.from_numpy(h.sum(1) - vert.resting_thickness_sum),
         layer_thickness=torch.from_numpy(h),
@@ -1814,6 +1831,439 @@ def channel_grad_phase(gpu: str, periodic: dict) -> dict:
     }
 
 
+def nl_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, masked: bool = False,
+             peaks: dict | None = None):
+    """(bound seconds, "bytes" or "operations") of one nonlinear step (both
+    forward kernels' nonlinear arms): a state read and written, rts and the
+    vertex constants (4 planes, 20 on a channel) and the tables read, over
+    the byte rate; pallas_model.step_flop_count's FLOPs per (m, i, k) site,
+    184 + 4 n_terms (6 more masked; 376 with the hex table's 48 taps) over
+    the dtype's FMA rate. ``peaks`` as for ``step_bound``."""
+    cells = 2 * ny2 * nx
+    state = cells * (1 + 4 * k)
+    consts = cells + (20 if masked else 4) * ny2 * nx
+    tables = 4 * (44 + 3 * n_terms + 12 * 11) + 8 * (n_terms + 12)
+    nbytes = itemsize * (2 * state + consts) + tables
+    ops = ny2 * nx * k * (184 + 4 * n_terms + (6 if masked else 0))
+    peaks = CEILING if peaks is None else peaks
+    rate = byte_rate(peaks, itemsize * state)
+    t_bytes, t_ops = nbytes / rate, ops / peaks["flops"][itemsize]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nonlinear_plan_checks(scheme: dict, hold) -> dict:
+    """Phase 12's check of the nonlinear arms at the main paths' own plans;
+    ``scheme`` names FE and FB, ``hold`` logs and checks a comparison.
+    Returns the worst f64 error over scale per arm ("fe_step FE periodic",
+    ..., "tiled_step FB masked")."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
+    from mpas_ocean_tpu_torch.structured import StructState, structured_run_loop
+    from mpas_ocean_tpu_torch.structured.fused_model import _scal, kernel_live, nl_scal, nl_setup
+
+    # The main paths' own plans (nl_plan at f32: FE (4, 16, 8) at 64^2 and
+    # (8, 16, 4) at 256^2, FB (8, 8, 4)), passed to the wrappers, on random
+    # states of the main paths' lattices (layers of 10 m perturbed by 1e-3,
+    # u of 0.5 m/s; dt = 30 s, 20 steps), where the nonlinear terms move u by
+    # ~3e-3 of its scale at 64^2: in f64 at the same tiles with the largest slice
+    # that fits f64 (the f32 slices do not), within 1e-12 of the plain steps;
+    # in f32 at the exact plans, ssh and h within 1e-5 of scale of the plain
+    # f32 steps and u no farther from an f64 plain run from the same values
+    # than U_GAP_FACTOR times the plain f32 run; the linear run must miss
+    # the f64 limit and the f32 u limit by 100x.
+    n_plan = 20
+    worst = {}
+
+    def plan_run(st, sm, fb, tile, ks):
+        dtype = st.layer_thickness.dtype
+        wrapper = tiled_step.tiled_nl_rollout if fb else fe_step.fe_nl_rollout
+        before = (fe_step.launches, tiled_step.launches)
+        ssh, h, u = wrapper(st.ssh, st.layer_thickness, st.normal_velocity,
+                            sm.resting_thickness_sum.to(dtype).contiguous(), *sm.host_stencil,
+                            nl_setup(sm, dtype), sm.vertex_cell_terms, sm.edge_vertex_terms,
+                            *_scal(sm, DT, dtype), *nl_scal(sm, dtype), n_plan,
+                            live=kernel_live(sm), tile=tile, ks=ks)
+        grew = (fe_step.launches - before[0], tiled_step.launches - before[1])
+        if grew != ((0, n_plan) if fb else (n_plan, 0)):
+            raise AssertionError(f"plan run {scheme[fb]} {tile} slice {ks}: launches {grew}")
+        return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
+
+    for name, n in (("periodic", HEADLINE_N), ("periodic", LARGE_N), ("channel", HEADLINE_N)):
+        case = igw_case if name == "periodic" else kelvin_case
+        mesh_h, *_, model64 = case(n, LEVELS, np.float64)[:3]
+        model32 = case(n, LEVELS, np.float32)[2]
+        rng = np.random.default_rng(17)
+        h = 10.0 + 0.01 * rng.normal(size=(mesh_h.n_cells, LEVELS))
+        u = 0.5 * rng.normal(size=(mesh_h.n_edges, LEVELS))
+        fields = (h.sum(1) - 1000.0, h, u)
+        f32 = [x.astype(np.float32) for x in fields]
+        st32 = model32.to_struct(mt.PrognosticVars(*(torch.from_numpy(x) for x in f32)))
+        st64 = model64.to_struct(mt.PrognosticVars(*(torch.from_numpy(x) for x in fields)))
+        sm32, sm64 = model32.struct_mesh, model64.struct_mesh
+        # the f64 run from the f32 run's own values, which the f32 u check measures from
+        st64_32 = model64.to_struct(mt.PrognosticVars(
+            *(torch.from_numpy(x.astype(np.float64)) for x in f32)))
+        for fb in (False, True):
+            plan = fe_step.nl_plan(sm32.ny2, sm32.nx, LEVELS, 4, fb)
+            tile, ks64 = plan[:2], fe_step.nl_slice(plan[:2], LEVELS, 8, fb)
+            what = (f"{n}x{n}x{LEVELS} {name} random, {n_plan} nonlinear {scheme[fb]} steps at "
+                    f"the f32 main path's plan {plan}")
+            out, again = (plan_run(st64, sm64, fb, tile, ks64) for _ in range(2))
+            ref = structured_run_loop(st64, sm64, DT, n_plan, nonlinear=True, fb=fb)
+            errs = field_errors(out, ref, sm64.resting_thickness_sum)
+            hold(f"f64 {what} (slice {ks64}) vs plain", errs, 1e-12)
+            if not all(torch.equal(getattr(out, f), getattr(again, f)) for f in FIELDS):
+                raise AssertionError(f"f64 {what}: rerun differs")
+            lin = field_errors(structured_run_loop(st64, sm64, DT, n_plan, fb=fb), ref,
+                               sm64.resting_thickness_sum)
+            miss = max(r for _, r in lin.values())
+            if not miss >= 100 * 1e-12:
+                raise AssertionError(f"f64 {what}: the linear run is only {miss:.3e} off")
+            key = ("tiled_step FB" if fb else "fe_step FE") + (
+                " masked" if name == "channel" else " periodic")
+            worst[key] = max(worst.get(key, 0.0), max(r for _, r in errs.values()))
+            out32 = plan_run(st32, sm32, fb, tile, plan[2])
+            ref32 = structured_run_loop(st32, sm32, DT, n_plan, nonlinear=True, fb=fb)
+            lin32 = structured_run_loop(st32, sm32, DT, n_plan, fb=fb)
+            ref64 = structured_run_loop(st64_32, sm64, DT, n_plan, nonlinear=True, fb=fb)
+            e32 = field_errors(out32, ref32, sm32.resting_thickness_sum)
+            l32 = field_errors(lin32, ref32, sm32.resting_thickness_sum)
+            hold(f"f32 {what} vs plain (ssh, h)", {f: e32[f] for f in FIELDS[:2]}, 1e-5)
+            gap = {k: float((x.normal_velocity.double() - ref64.normal_velocity).abs().max())
+                   for k, x in (("kernel", out32), ("plain", ref32), ("linear", lin32))}
+            limit = U_GAP_FACTOR * gap["plain"]
+            lin_h = max(l32[f][1] for f in FIELDS[:2])
+            log(f"[12] f32 {what}: max|u - u_f64| kernel {gap['kernel']:.3e}, plain "
+                f"{gap['plain']:.3e}, linear {gap['linear']:.3e} m/s (limit {limit:.3e}: the "
+                f"linear run x{gap['linear'] / limit:.1f} of it; its ssh, h x{lin_h / 1e-5:.1f} "
+                f"of 1e-5)")
+            if not gap["kernel"] <= limit:
+                raise AssertionError(f"f32 {what}: u {gap['kernel']:.3e} from f64, limit "
+                                     f"{limit:.3e}")
+            if not gap["linear"] >= 100 * limit:
+                raise AssertionError(f"f32 {what}: the linear run misses u by only "
+                                     f"{gap['linear'] / limit:.1f}x")
+            if name == "channel":
+                check_walls(out, sm64, f"f64 {what}")
+                check_walls(out32, sm32, f"f32 {what}")
+        log(f"[12] {n}x{n}x{LEVELS} {name}: the main path's plans hold in f64 and f32; "
+            f"the linear run misses the nonlinear by {miss:.3e} of scale in f64 (control)")
+        del st64, st32, st64_32
+    return worst
+
+
+def nonlinear_phase(gpu: str, log_text: str, linear: dict) -> dict:
+    """Phase 12, the nonlinear (vector-invariant) forward: the nonlinear arms
+    of fe_step (FE; the tiled route's nonlinear FE too) and tiled_step (FB,
+    q = 1) against the plain nonlinear steps (f64 16^2 and 64^2 random
+    states with u of 0.5 m/s, periodic and channel, to 1e-12 with bitwise
+    reruns, the linear run shown to miss; the main paths' own f32 plans on
+    random states of the main paths' lattices, 64^2 and 256^2 periodic and
+    the 64^2 channel, in f64 to 1e-12 and in f32 by the distance from an f64
+    run, the linear run shown to miss both by 100x; f32 64^2 and 256^2 IGW
+    and the 64^2 Kelvin channel after 100 steps, to the tolerances of
+    PERF.md section 2, with controls that must miss them), the timed main
+    paths (64x64x100 IGW FE over 8000 steps,
+    256x256x100 FE and FB over 1000, the 64^2 Kelvin channel FE over 8000)
+    with exact launch counts, bounds, shares and the ratio to the linear arm
+    (``linear``: phases 4, 7 and 10's seconds per step in this call), the
+    nonlinear IGW's ssh error (f64 kernel against an f64 host run), the
+    walls. Returns the ``nonlinear_*`` keys of the two kernels' entries."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        structured_auto_run_loop,
+        structured_fb_step,
+        structured_run_loop,
+        structured_step,
+        tiled_run_loop,
+    )
+    from mpas_ocean_tpu_torch.utils import error_measures
+
+    for line in ptxas_report(log_text, ("nl_step_kernel",)):
+        log(f"[12] ptxas {line}")
+    scheme = {False: "FE", True: "FB"}
+
+    def f32_plan(sm, fb):
+        return fe_step.nl_plan(sm.ny2, sm.nx, LEVELS, 4, fb)
+
+    def hold(what, errs, tol):
+        log(f"[12] {what}: max|diff| (/scale) = {format_errors(errs)}")
+        for f, (_, r) in errs.items():
+            if not r <= (tol[f] if isinstance(tol, dict) else tol):
+                raise AssertionError(f"{what}: {f} {r:.3e}")
+
+    # f64: every arm against the plain nonlinear steps, 20 steps, on random
+    # states whose u of 0.5 m/s makes the relative vorticity outweigh f, over
+    # a 40 m column (FE's gravity-wave CFL 0.2 at dt = 10 s)
+    worst = {}
+    for n in (16, HEADLINE_N):
+        for channel in (False, True):
+            levels = 4 if n == 16 else LEVELS
+            model, prog = (random_channel if channel else random_case)(
+                n, levels, seed=5, u_amp=0.5, layer=40.0 / levels)
+            st, sm = model.to_struct(prog), model.struct_mesh
+            runs = {
+                "fe_step FE": lambda: structured_auto_run_loop(st, sm, 10.0, 20, nonlinear=True),
+                "tiled_step FB": lambda: tiled_run_loop(st, sm, 10.0, 20, nonlinear=True,
+                                                        fb=True),
+            }
+            for name, run in runs.items():
+                fb = name.endswith("FB")
+                out, again = run(), run()
+                ref = structured_run_loop(st, sm, 10.0, 20, nonlinear=True, fb=fb)
+                what = (f"f64 {n}x{n} {'channel' if channel else 'periodic'} random, 20 steps, "
+                        f"{name}")
+                errs = field_errors(out, ref, sm.resting_thickness_sum)
+                hold(what + " vs plain", errs, 1e-12)
+                if not all(torch.equal(getattr(out, f), getattr(again, f)) for f in FIELDS):
+                    raise AssertionError(f"{what}: rerun differs")
+                lin = field_errors(structured_run_loop(st, sm, 10.0, 20, fb=fb), ref,
+                                   sm.resting_thickness_sum)
+                miss = max(r for _, r in lin.values())
+                if not miss >= 100 * 1e-12:
+                    raise AssertionError(f"{what}: the linear run is only {miss:.3e} off")
+                if channel:
+                    check_walls(out, sm, what)
+                key = f"{name} {'masked' if channel else 'periodic'}"
+                worst[key] = max(worst.get(key, 0.0), max(r for _, r in errs.values()))
+            log(f"[12] f64 {n}x{n} {'channel' if channel else 'periodic'}: the linear run "
+                f"misses the nonlinear by {miss:.3e} of scale (control); reruns bitwise equal")
+            del model, st, sm
+
+    for key, err in nonlinear_plan_checks(scheme, hold).items():
+        worst[key] = max(worst[key], err)
+
+    # f32 after 100 steps: ssh and h to 1e-5 of scale (as the linear arms);
+    # on the periodic IGW u to 3e-4 (64^2) and 5e-3 (256^2) of max|u|, the
+    # linear arms' bounds (the kernel's first call on an H100 read 1.6e-4,
+    # 1.2e-4 FB; 1.1e-3, 6.6e-4 at 256^2), with a control that must miss
+    # them: the plain run with u stored in bf16 between steps; on the
+    # Kelvin channel u by its distance from an f64 plain run, at most
+    # U_GAP_FACTOR times the plain f32 run's, with the fp16 and bf16
+    # controls that must exceed it (phase 10's rule)
+    def rounded_u_run(st, sm, n, fb, dtype):
+        step = structured_fb_step if fb else structured_step
+        for _ in range(n):
+            st = step(st, sm, DT, True)
+            st = StructState(ssh=st.ssh, layer_thickness=st.layer_thickness,
+                             normal_velocity=st.normal_velocity.to(dtype).to(st.ssh.dtype))
+        return st
+
+    n_chk = TILED_CHECK_STEPS
+    max_abs_err = {}
+    # each f32 case built once (a 256^2 lattice takes ~10 s on the host)
+    cases = {("IGW", HEADLINE_N): igw_case(HEADLINE_N, LEVELS, np.float32),
+             ("IGW", LARGE_N): igw_case(LARGE_N, LEVELS, np.float32),
+             ("Kelvin", HEADLINE_N): kelvin_case(HEADLINE_N, LEVELS, np.float32)}
+    for name, n in cases:
+        *_, model, prog = cases[name, n]
+        st, sm = model.to_struct(prog), model.struct_mesh
+        if name == "Kelvin":
+            *_, model64, prog64 = kelvin_case(n, LEVELS, np.float64)
+            st64, sm64 = model64.to_struct(prog64), model64.struct_mesh
+        for fb in (False, True):
+            out = structured_auto_run_loop(st, sm, DT, n_chk, nonlinear=True, fb=fb)
+            ref = structured_run_loop(st, sm, DT, n_chk, nonlinear=True, fb=fb)
+            errs = field_errors(out, ref, sm.resting_thickness_sum)
+            what = f"f32 {n}x{n}x{LEVELS} {name}, {n_chk} nonlinear {scheme[fb]} steps"
+            max_abs_err[(name, n, fb)] = max(e for e, _ in errs.values())
+            ctrl = rounded_u_run(st, sm, n_chk, fb, torch.bfloat16)
+            if name == "IGW":
+                u_tol = 3e-4 if n == HEADLINE_N else 5e-3
+                c_err = field_errors(ctrl, ref, sm.resting_thickness_sum)["normal_velocity"][1]
+                log(f"[12] {what}: control (u in bf16) u {c_err:.3e} of scale, limit {u_tol}")
+                hold(f"{what}, kernel vs plain", errs,
+                     {"ssh": 1e-5, "layer_thickness": 1e-5, "normal_velocity": u_tol})
+                if not c_err > u_tol:
+                    raise AssertionError(f"{what}: the bf16 control passes the u limit")
+                continue
+            ref64 = structured_run_loop(st64, sm64, DT, n_chk, nonlinear=True, fb=fb)
+            runs = {"kernel": out, "plain": ref, "u in bf16": ctrl,
+                    "u in fp16": rounded_u_run(st, sm, n_chk, fb, torch.float16)}
+            gap = {k: float((x.normal_velocity.double() - ref64.normal_velocity).abs().max())
+                   for k, x in runs.items()}
+            hold(f"{what}, kernel vs plain (u: PERF.md section 2's channel rule)",
+                 {f: errs[f] for f in ("ssh", "layer_thickness")}, 1e-5)
+            log(f"[12] {what}: max|u - u_f64| " + ", ".join(
+                f"{k} {g:.3e} (x{g / gap['plain']:.3f} the plain f32 run's)"
+                for k, g in gap.items()) + f" m/s; limit x{U_GAP_FACTOR}")
+            if not gap["kernel"] <= U_GAP_FACTOR * gap["plain"]:
+                raise AssertionError(f"{what}: u {gap['kernel']:.3e} from f64, plain "
+                                     f"{gap['plain']:.3e}")
+            for k in ("u in fp16", "u in bf16"):
+                if not gap[k] > U_GAP_FACTOR * gap["plain"]:
+                    raise AssertionError(f"{what}: the control with {k} passes the u limit")
+            check_walls(out, sm, what)
+        del model, st, sm
+
+    # the timed main paths, f32, from to_struct: launches exact
+    def main_path(name, n, n_steps, fb, want):
+        horz, wave, model, prog = cases[name, n]
+        sm = model.struct_mesh
+        fe_step.launches = tiled_step.launches = 0
+        t0 = time.perf_counter()
+        out = structured_auto_run_loop(model.to_struct(prog), sm, DT, n_steps, nonlinear=True,
+                                       fb=fb)
+        final = model.from_struct(out)
+        wall = time.perf_counter() - t0
+        counts = (fe_step.launches, tiled_step.launches)
+        log(f"[12] main path {n}x{n}x{LEVELS} f32 {name} nonlinear {scheme[fb]}, {n_steps} "
+            f"steps: {wall:.3f} s wall (to_struct .. from_struct); launches fe_step "
+            f"{counts[0]}, tiled_step {counts[1]} (want {want})")
+        if counts != want:
+            raise AssertionError(f"nonlinear {name} {n}^2 {scheme[fb]} launches {counts}")
+        for f in FIELDS:
+            if not bool(torch.isfinite(getattr(final, f)).all()):
+                raise AssertionError(f"nonlinear {name} {n}^2 main path: {f} is not finite")
+        if sm.edge_mask is not None:
+            check_walls(out, sm, f"nonlinear {name} main path")
+        st = model.to_struct(prog)
+        _, t = timed_rollout(lambda k: structured_auto_run_loop(st, sm, DT, k, nonlinear=True,
+                                                                fb=fb), n_steps, REPS)
+        return horz, wave, model, prog, final, t, counts
+
+    out = {}
+    timed = {}
+    for key, name, n, steps, fb, kernel in (
+            ("fe 64", "IGW", HEADLINE_N, HEADLINE_STEPS, False, "fe_step"),
+            ("fe 256", "IGW", LARGE_N, LARGE_MAIN_STEPS, False, "fe_step"),
+            ("fb 256", "IGW", LARGE_N, LARGE_MAIN_STEPS, True, "tiled_step"),
+            ("channel fe 64", "Kelvin", HEADLINE_N, HEADLINE_STEPS, False, "fe_step")):
+        want = (0, steps) if fb else (steps, 0)
+        res = main_path(name, n, steps, fb, want)
+        timed[key] = res
+        t, sm = res[5], res[2].struct_mesh
+        dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+        masked = sm.edge_mask is not None
+        bound = nl_bound(*dims, masked)
+        alts = {"probe": nl_bound(*dims, masked, MEASURED)[0],
+                "datasheet": nl_bound(*dims, masked, DATASHEET)[0]}
+        med = statistics.median(t)
+        sites = 2 * sm.ny2 * sm.nx * LEVELS
+        live = ""
+        if masked:
+            live = f"; {res[0].n_cells * LEVELS / med:.4e} live gridpoints*steps/s"
+        plan = f32_plan(sm, fb)
+        log(f"[12] " + rate_line(f"nonlinear {name} {scheme[fb]} {n}^2 ({kernel}, plan (rows, "
+                                 f"columns, slice) {plan})", t, sites, gpu)
+            + f"{live}; the linear arm in this call {linear[key] * 1e6:.3f} us/step, "
+            f"nonlinear/linear {med / linear[key]:.4f}")
+        log(f"[12] " + share_line(f"nonlinear {kernel} {scheme[fb]} {n}^2", t, bound[0], alts)
+            + f", bound by {bound[1]}")
+        out[key] = {"ms": med * 1e3, "launches": res[6][1 if fb else 0],
+                    "bound_ms": bound[0] * 1e3, "bound_by": bound[1],
+                    **{f"bound_ms_{k}": v * 1e3 for k, v in alts.items()},
+                    "over_linear": med / linear[key]}
+
+    # the plain version's time (100 steps)
+    for key, fb in (("fe 64", False), ("fb 256", True), ("channel fe 64", False)):
+        model = timed[key][2]
+        st, sm = model.to_struct(timed[key][3]), model.struct_mesh
+        _, p = timed_rollout(lambda k: structured_run_loop(st, sm, DT, k, nonlinear=True, fb=fb),
+                             n_chk, REPS)
+        out[key]["plain_ms"] = statistics.median(p) * 1e3
+        log(f"[12] plain nonlinear {key}: {statistics.median(p) * 1e6:.3f} us/step "
+            f"({n_chk}-step runs)")
+    # the channel's FB through tiled_step's masked nonlinear arm, 64^2, 1000 steps
+    _, _, model_c, prog_c = cases["Kelvin", HEADLINE_N]
+    st, sm = model_c.to_struct(prog_c), model_c.struct_mesh
+    tiled_step.launches = 0
+    outc = structured_auto_run_loop(st, sm, DT, LARGE_MAIN_STEPS, nonlinear=True, fb=True)
+    check_walls(outc, sm, "nonlinear channel FB")
+    fb_launches = tiled_step.launches
+    if fb_launches != LARGE_MAIN_STEPS:
+        raise AssertionError(f"nonlinear channel FB launches {fb_launches}")
+    _, t = timed_rollout(lambda k: structured_auto_run_loop(st, sm, DT, k, nonlinear=True,
+                                                            fb=True), LARGE_MAIN_STEPS, REPS)
+    _, p = timed_rollout(lambda k: structured_run_loop(st, sm, DT, k, nonlinear=True, fb=True),
+                         n_chk, REPS)
+    out["channel fb 64"] = {"ms": statistics.median(t) * 1e3, "launches": fb_launches,
+                            "plain_ms": statistics.median(p) * 1e3,
+                            "bound_ms": nl_bound(sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms),
+                                                 4, True)[0] * 1e3}
+    log("[12] " + rate_line(f"nonlinear Kelvin FB 64^2 (tiled_step, masked, plan "
+                            f"{f32_plan(sm, True)}; launches {fb_launches})", t,
+                            2 * sm.ny2 * sm.nx * LEVELS, gpu)
+        + f"; plain {statistics.median(p) * 1e6:.3f} us/step")
+
+    # the nonlinear IGW at t = 240000 s: its ssh error beside the linear
+    # one (phase 4), and the f64 kernel against an f64 host run with one
+    # 1000 m layer (identical layers make the 100-layer nonlinear system
+    # the 1-layer one: q scales as 1/h and the flux as h)
+    horz, igw, *_ = timed["fe 64"][:2]
+    final = timed["fe 64"][4]
+    t_end = HEADLINE_STEPS * DT
+    exact = igw.exact_ssh(np.asarray(horz.cells.x, np.float64),
+                          np.asarray(horz.cells.y, np.float64), t_end)
+
+    def l2(ssh):
+        return error_measures(ssh.double().numpy(), exact, horz, "cell").L_two
+
+    _, _, model64, prog64 = igw_case(HEADLINE_N, LEVELS, np.float64)
+    k64 = model64.from_struct(structured_auto_run_loop(
+        model64.to_struct(prog64), model64.struct_mesh, DT, HEADLINE_STEPS, nonlinear=True))
+    _, _, model1, prog1 = igw_case(HEADLINE_N, 1, np.float64, device="cpu")
+    host = model1.from_struct(structured_run_loop(
+        model1.to_struct(prog1), model1.struct_mesh, DT, HEADLINE_STEPS, nonlinear=True))
+    l2_k, l2_k64, l2_host = l2(final.ssh), l2(k64.ssh), l2(host.ssh)
+    ssh_gap = float(np.abs(k64.ssh.numpy() - host.ssh.numpy()).max())
+    log(f"[12] nonlinear IGW ssh L2 error vs exact at t={t_end:.0f} s, {HEADLINE_N}x"
+        f"{HEADLINE_N}x{LEVELS} FE: f32 kernel {l2_k:.6e} (linear, phase 4: "
+        f"{linear['igw l2']:.6e}); f64 kernel {l2_k64:.6e}, f64 1-layer host run "
+        f"{l2_host:.6e}; f64 kernel vs host max|ssh diff| {ssh_gap:.3e} m")
+    if not (ssh_gap <= 1e-6 and abs(l2_k64 - l2_host) <= 1e-6):
+        raise AssertionError(f"nonlinear f64 IGW off the host run: {ssh_gap}")
+    if not (np.isfinite(l2_k) and l2_k < 2.0):
+        raise AssertionError(f"nonlinear f32 IGW error out of range: {l2_k}")
+
+    fe, fb, ch = out["fe 64"], out["fb 256"], out["channel fe 64"]
+    return {
+        "fe_step": {
+            "nonlinear_ms": fe["ms"], "nonlinear_launches": fe["launches"],
+            "nonlinear_plain_ms": fe["plain_ms"], "nonlinear_bound_ms": fe["bound_ms"],
+            "nonlinear_bound_by": fe["bound_by"],
+            "nonlinear_max_abs_err": max_abs_err[("IGW", HEADLINE_N, False)],
+            "nonlinear_max_rel_err_f64": worst["fe_step FE periodic"],
+            "nonlinear_over_linear": fe["over_linear"],
+            "nonlinear_ms_256": out["fe 256"]["ms"],
+            "nonlinear_launches_256": out["fe 256"]["launches"],
+            "nonlinear_bound_ms_256": out["fe 256"]["bound_ms"],
+            "nonlinear_over_linear_256": out["fe 256"]["over_linear"],
+            "nonlinear_masked_ms": ch["ms"], "nonlinear_masked_launches": ch["launches"],
+            "nonlinear_masked_plain_ms": ch["plain_ms"],
+            "nonlinear_masked_bound_ms": ch["bound_ms"],
+            "nonlinear_masked_max_abs_err": max_abs_err[("Kelvin", HEADLINE_N, False)],
+            "nonlinear_masked_max_rel_err_f64": worst["fe_step FE masked"],
+            "nonlinear_masked_over_linear": ch["over_linear"],
+            "nonlinear_igw_ssh_l2_f32": l2_k, "nonlinear_igw_ssh_l2_f64": l2_k64,
+            "nonlinear_plan": list(fe_step.nl_plan(HEADLINE_N // 2, HEADLINE_N, LEVELS, 4)),
+            "nonlinear_plan_256": list(fe_step.nl_plan(LARGE_N // 2, LARGE_N, LEVELS, 4)),
+        },
+        "tiled_step": {
+            "nonlinear_ms": fb["ms"], "nonlinear_launches": fb["launches"],
+            "nonlinear_plain_ms": fb["plain_ms"], "nonlinear_bound_ms": fb["bound_ms"],
+            "nonlinear_bound_by": fb["bound_by"],
+            "nonlinear_max_abs_err": max_abs_err[("IGW", LARGE_N, True)],
+            "nonlinear_max_rel_err_f64": worst["tiled_step FB periodic"],
+            "nonlinear_over_linear": fb["over_linear"],
+            "nonlinear_masked_ms": out["channel fb 64"]["ms"],
+            "nonlinear_masked_launches": out["channel fb 64"]["launches"],
+            "nonlinear_masked_plain_ms": out["channel fb 64"]["plain_ms"],
+            "nonlinear_masked_bound_ms": out["channel fb 64"]["bound_ms"],
+            "nonlinear_masked_max_abs_err": max_abs_err[("Kelvin", HEADLINE_N, True)],
+            "nonlinear_masked_max_rel_err_f64": worst["tiled_step FB masked"],
+            "nonlinear_plan": list(f32_plan(timed["fb 256"][2].struct_mesh, True)),
+        },
+    }
+
+
 def ptxas_report(log_text: str, kernels: tuple) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``."""
@@ -1927,8 +2377,12 @@ def main() -> int:
     # fe_step timed directly, whichever kernel the size rule picks for FE
     k_out, k_times = timed_rollout(
         lambda n: fused_run_loop(st, sm, DT, n), HEADLINE_STEPS, REPS)
-    p_out, p_times = timed_rollout(
-        lambda n: structured_run_loop(st, sm, DT, n), HEADLINE_STEPS, REPS)
+    # the plain version is timed over 100-step runs (its time per step does
+    # not depend on the depth; 8000-step runs took ~48 s of this script) and
+    # runs the 8000 steps once for the f32 error below
+    _, p_times = timed_rollout(
+        lambda n: structured_run_loop(st, sm, DT, n), TILED_CHECK_STEPS, REPS)
+    p_out = structured_run_loop(st, sm, DT, HEADLINE_STEPS)
     log("[4] " + rate_line("kernel", k_times, sites, gpu, "fe_step 64"))
     log("[4] " + rate_line("plain ", p_times, sites, gpu))
     dims_h = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
@@ -1966,6 +2420,7 @@ def main() -> int:
     ref = model1.from_struct(structured_run_loop(
         model1.to_struct(prog1), model1.struct_mesh, DT, HEADLINE_STEPS))
     l2_k64, l2_ref = l2(k64.ssh), l2(ref.ssh)
+    igw_l2 = l2_k
     log(f"[4] IGW ssh L2 error vs exact at t={t_end:.0f} s: f32 kernel {l2_k:.6e}, "
         f"f32 plain {l2_p:.6e}; f64 kernel {l2_k64:.6e}, f64 1-layer host "
         f"reference {l2_ref:.6e}")
@@ -2225,6 +2680,12 @@ def main() -> int:
         "grad 256": tiled_adj_entry["grad_s_256"],
     }))
 
+    # -- 12. the nonlinear forward -----------------------------------------------
+    nonlinear = nonlinear_phase(gpu, log_file.read_text(), {
+        "fe 64": statistics.median(k_times), **periodic_fwd,
+        "channel fe 64": masked["fe_step"]["masked_ms"] / 1e3, "igw l2": igw_l2,
+    })
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
@@ -2264,6 +2725,7 @@ def main() -> int:
     kernels.append(tiled_adj_entry)
     for entry in kernels:
         entry.update(masked[entry["name"]])
+        entry.update(nonlinear.get(entry["name"], {}))
     kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -69,7 +69,7 @@
 #include <algorithm>
 #include <cstdlib>
 
-#include "step_window.cuh"
+#include "nl_step.cuh"
 
 namespace {
 
@@ -414,6 +414,35 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const int* table,
 
 MOT_FE_ENTRIES(float, f32)
 MOT_FE_ENTRIES(double, f64)
+
+// The nonlinear arm (nl_step.cuh): n_steps nonlinear FE steps from `in` into
+// `out` through `tmp`, over rt x ct tiles (they need not divide the
+// lattice) in level slices of ks. `fv` holds the vertex constants (n_fv = 4
+// planes periodic, 20 with live bits), `vc` / `vc_w` / `ev` the vertex
+// tables (host copies, kernels/fe_step.vertex_tables). Returns 0,
+// kNotHexTable for a table that is not the hex lattice's, or the CUDA error.
+#define MOT_FE_NL_ENTRY(T, SUFFIX)                                                          \
+  extern "C" int mot_fe_nl_steps_##SUFFIX(                                                  \
+      const T* rts, const T* fv, int n_fv, const int* live, const int* table,               \
+      const double* weights, const int* vc, const double* vc_w, const int* ev,              \
+      const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,        \
+      T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, double s_ke,  \
+      double s_curl, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,      \
+      int ks, void* stream) {                                                               \
+    return nl_steps<T, false>(rts, fv, n_fv, live, table, weights, vc, vc_w, ev, ssh_in,    \
+                       h_in, u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, \
+                       s_div, s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks,       \
+                       static_cast<cudaStream_t>(stream));                                  \
+  }
+
+MOT_FE_NL_ENTRY(float, f32)
+MOT_FE_NL_ENTRY(double, f64)
+
+// The f32 nonlinear plan's launch: out[0] clusters, out[1] blocks per SM,
+// out[2] one block's shared memory in bytes.
+extern "C" int mot_fe_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
+  return nl_plan_query<false>(ny2, nx, k, rt, ct, ks, out);
+}
 
 // The launch fe_step makes for an rt x ct tile of an ny2 x nx x k f32
 // lattice with the stencil `table` (a host copy): out[0] the clusters (one

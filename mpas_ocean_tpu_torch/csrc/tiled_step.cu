@@ -72,7 +72,7 @@
 // old u, then u with the fresh ssh, and the mask last (pallas_model.py:
 // 148-153, 257-259).
 
-#include "step_window.cuh"
+#include "nl_step.cuh"
 
 namespace {
 
@@ -413,6 +413,33 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const int* table
 
 MOT_TILED_ENTRY(float, f32)
 MOT_TILED_ENTRY(double, f64)
+
+// The nonlinear FB arm (nl_step.cuh, reach 3), q = 1: n_steps launches over
+// rt x ct tiles (they need not divide the lattice) in level slices of ks;
+// arguments as mot_fe_nl_steps_* (fe_step.cu), whose FE arm the tiled
+// route's nonlinear FE runs. Returns 0, kNotHexTable or the CUDA error.
+#define MOT_TILED_NL_ENTRY(T, SUFFIX)                                                       \
+  extern "C" int mot_tiled_nl_steps_##SUFFIX(                                               \
+      const T* rts, const T* fv, int n_fv, const int* live, const int* table,               \
+      const double* weights, const int* vc, const double* vc_w, const int* ev,              \
+      const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,        \
+      T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, double s_ke,  \
+      double s_curl, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,      \
+      int ks, void* stream) {                                                               \
+    return nl_steps<T, true>(rts, fv, n_fv, live, table, weights, vc, vc_w, ev, ssh_in,     \
+                       h_in, u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, \
+                       s_div, s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks,       \
+                       static_cast<cudaStream_t>(stream));                                  \
+  }
+
+MOT_TILED_NL_ENTRY(float, f32)
+MOT_TILED_NL_ENTRY(double, f64)
+
+// The f32 nonlinear FB plan's launch: out[0] clusters, out[1] blocks per SM,
+// out[2] one block's shared memory in bytes.
+extern "C" int mot_tiled_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
+  return nl_plan_query<true>(ny2, nx, k, rt, ct, ks, out);
+}
 
 // The launch of an f32 plan (FE or FB) with a window of `sites` sites and k
 // levels: out[0] the clusters the card holds at once, out[1] the blocks per

@@ -25,6 +25,7 @@ from . import build
 from .fe_step import (
     LIVE_BYTES,
     SMEM_BYTES,
+    SMS,
     TWO_BLOCK_BYTES,
     best_tile,
     check_error,
@@ -52,9 +53,8 @@ _RED_BYTES = 8 * 16  # kRedDoubles doubles in csrc/adjoint_window.cuh
 # columns, cut to the lattice (tools/tile_sweep.py sweeps the same set)
 TILE_ROWS = (1, 2, 3, 4, 6, 8, 16)
 TILE_COLS = (2, 4, 6, 8, 12, 16, 24, 32)
-# An H100's SMs, and the waves of clusters (two blocks per SM) from which a
-# launch takes a larger tile than the power-of-two rule's
-SMS = 132
+# The waves of clusters (two blocks per SM) from which a launch takes a
+# larger tile than the power-of-two rule's
 MIN_WAVES = 4
 
 

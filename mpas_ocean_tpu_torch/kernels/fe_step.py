@@ -1,8 +1,10 @@
 """Wrapper of the hand-written forward-Euler step kernel (csrc/fe_step.cu),
 which replaces the TPU kernel ``_rollout_kernel``
-(mpas_ocean_tpu/structured/pallas_model.py:320) for the linear core, on a
-periodic lattice and, with the wall mask's ``live`` bits (``live_bits`` of
-``StructMesh.edge_mask``), on a coastal channel culled from one.
+(mpas_ocean_tpu/structured/pallas_model.py:320) for the linear core and, in
+its nonlinear arm (csrc/nl_step.cuh, ``fe_nl_rollout``), for the
+vector-invariant one, on a periodic lattice and, with the wall mask's
+``live`` bits (``live_bits`` of ``StructMesh.edge_mask``), on a coastal
+channel culled from one.
 
 The entries take tensors on a CUDA device and the stencil on the host
 (``StructMesh.host_stencil``), and launch one kernel per step on the
@@ -11,7 +13,8 @@ anything else, a stencil that is not the hex lattice's included:
 
 * ``fe_rollout`` returns new state tensors;
 * ``fe_rollout_into`` writes the result into tensors the caller gives;
-* ``fe_fill_stack`` fills a stack of states, slot j + 1 = step(slot j).
+* ``fe_fill_stack`` fills a stack of states, slot j + 1 = step(slot j);
+* ``fe_nl_rollout`` returns new state tensors after nonlinear steps.
 
 Their plain PyTorch version is ``structured.model.structured_run_loop``,
 which ``structured.fused_model`` runs for tensors on the CPU. ``launches``
@@ -42,8 +45,14 @@ __all__ = [
     "launch_plan",
     "launches",
     "level_split",
+    "fe_nl_rollout",
+    "nl_launch_plan",
+    "nl_plan",
+    "nl_slice",
+    "nl_smem_bytes",
     "pack_stencil",
     "smem_bytes",
+    "vertex_tables",
 ]
 
 MAX_TERMS = 128  # kMaxTerms in csrc/lattice.cuh
@@ -70,6 +79,21 @@ LIVE_BYTES = 4
 # The reach of one FE step, (rows, columns) per side: slab.stencil_reach of
 # the hex lattice's tables; csrc/fe_step.cu derives it from the table.
 FE_REACH = (1, 2)
+# The nonlinear step's (csrc/nl_step.cuh, make_nl_plan), FE and FB: its
+# reach, and the ring around the tile on which it computes the derived
+# planes (slab.stencil_reach with the vertex taps, slab.derived_ring)
+NL_REACH = {False: (2, 4), True: (3, 4)}
+NL_RING = {False: (1, 2), True: (2, 2)}
+# The nonlinear step's values per window site and level (two slices of the
+# 8 state planes), per derived site and level (F, F q_e, q_e, KE), per
+# window site (ssh, rts, 20 vertex constant planes reserved); ints per
+# window site (site, live bits)
+_NL_STATE, _NL_DERIVED, _NL_SITE, _NL_INTS = 16, 20, 24, 2
+# Levels per slice of the nonlinear step (csrc/nl_step.cuh) at which its
+# planner (nl_plan) sizes the tile; the slice then grows while it fits
+NL_SLICE = 4
+# The SMs of an H100 SXM (the planners' count of a launch's waves)
+SMS = 132
 
 # kernel launches made by this module's entries (one per step)
 launches = 0
@@ -153,6 +177,79 @@ def fe_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
                      f"fe_step ({k} levels of {itemsize}-byte values)")
 
 
+def nl_smem_bytes(tile, k: int, itemsize: int, fb: bool, ks: int) -> int:
+    """Dynamic shared memory of one block of the nonlinear step for a tile
+    (rows, columns) at k levels in slices of ks (``nl_smem_bytes`` in
+    csrc/nl_step.cuh): two state slices of the window, the derived planes on
+    the tile plus its ring, the window's ssh, rts and vertex constants, the
+    partial column sums (on the tile, FB: plus one ring), for FB the fresh
+    ssh and the chunk's momentum on the tile, and the window's site indices
+    and live bits."""
+    rt, ct = tile
+    (hm, hi), (dr, dc) = NL_REACH[fb], NL_RING[fb]
+    _, kc = level_split(k)
+    w = (rt + 2 * hm) * (ct + 2 * hi)
+    d = (rt + 2 * dr) * (ct + 2 * dc)
+    f, core = (rt + 2) * (ct + 2), rt * ct
+    vals = _NL_STATE * w * ks + _NL_DERIVED * d * ks + _NL_SITE * w + 2 * (f if fb else core)
+    if fb:
+        vals += 2 * f + 6 * core * kc
+    return itemsize * vals + 4 * _NL_INTS * w
+
+
+def nl_plan(ny2: int, nx: int, k: int, itemsize: int, fb: bool = False, tiles=None):
+    """The nonlinear step's plan (rows, columns, levels per slice) on a
+    ny2 x nx lattice at k levels: among ``tiles`` (by default the powers of
+    two up to 64 a side, cut to the lattice; both arms run ragged
+    tiles), the tile of largest area that fits one block's shared memory
+    at NL_SLICE levels per slice and makes at least one block for each of
+    the card's SMS SMs (else the largest that fits), then the smallest
+    window, then the widest; then the largest slice that still fits
+    (``nl_slice``). The kernel holds one block per SM by its registers, so
+    the budget is one block's. On an H100 at 64x64x100 and 256x256x100 f32
+    (PERF.md section 6, tools/tile_sweep.py --kernels nonlinear) that is FE
+    (4, 16, 8) and (8, 16, 4), FB (8, 8, 4) at both."""
+    kc = level_split(k)[1]
+    base = min(NL_SLICE, kc)
+    hm, hi = NL_REACH[fb]
+    if tiles is None:
+        tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
+    ok = [t for t in tiles if nl_smem_bytes(t, k, itemsize, fb, base) <= SMEM_BYTES]
+    if not ok:
+        raise ValueError(f"no tile of the nonlinear step fits ({k} levels of {itemsize}-byte "
+                         f"values)")
+    ranks = level_split(k)[0]
+    full = [t for t in ok if -(-ny2 // t[0]) * -(-nx // t[1]) * ranks >= SMS] or ok
+    *_, ct, rt = max((t[0] * t[1], -(t[0] + 2 * hm) * (t[1] + 2 * hi), t[1], t[0])
+                     for t in full)
+    return rt, ct, nl_slice((rt, ct), k, itemsize, fb)
+
+
+def nl_slice(tile, k: int, itemsize: int, fb: bool = False) -> int:
+    """The largest slice (levels, a power of two up to 16 and the level
+    chunk) at which the nonlinear step's ``tile`` fits one block; at least
+    one level."""
+    kc = level_split(k)[1]
+    ks = 1
+    while ks * 2 <= min(16, kc) and nl_smem_bytes(tile, k, itemsize, fb, ks * 2) <= SMEM_BYTES:
+        ks *= 2
+    return ks
+
+
+def vertex_tables(vertex_cell_terms, edge_vertex_terms):
+    """The vertex stencils as the nonlinear arms take them (host copies,
+    checked against csrc/nl_step.cuh's hex_vert:: by the entries): the kite
+    taps' (kind, p_out, p_in, dm, di) int32 (12 x 5) and weights float64,
+    the endpoint taps int32 (12 x 6)."""
+    vc = np.ascontiguousarray([t[:5] for t in vertex_cell_terms], dtype=np.int32)
+    vc_w = np.ascontiguousarray([t[5] for t in vertex_cell_terms], dtype=np.float64)
+    ev = np.ascontiguousarray(edge_vertex_terms, dtype=np.int32)
+    if vc.shape != (12, 5) or ev.shape != (12, 6):
+        raise ValueError(f"the nonlinear arms take the hex lattice's 12 kite and 12 endpoint "
+                         f"taps, got {vc.shape[0]} and {ev.shape[0]}")
+    return vc, vc_w, ev
+
+
 def host_stencil(table, weights) -> tuple[np.ndarray, np.ndarray, int]:
     """(int32 table, float64 weights, number of terms) of a stencil given on
     the host (``pack_stencil``'s arrays, or ``StructMesh.host_stencil`` and
@@ -198,10 +295,26 @@ def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile) -> dict:
     return {"clusters": out[0], "blocks_per_sm": out[1]}
 
 
+def nl_launch_plan(ny2: int, nx: int, k: int, tile, ks: int, fb: bool = False) -> dict:
+    """The launch of the nonlinear step for ``tile`` at ks levels per slice
+    on an f32 ny2 x nx x k lattice: its clusters (one per tile), the blocks
+    one SM holds (CUDA's occupancy calculator) and one block's shared
+    memory in bytes. FB asks tiled_step.cu's instantiation."""
+    lib = build.load()
+    fn = lib.mot_tiled_nl_plan if fb else lib.mot_fe_nl_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(ny2, nx, k, *tile, ks, ctypes.addressof(out))
+    check_error("the nonlinear step's plan query", err)
+    return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
+
+
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
     "steps": [_P] * 14 + [_D] * 3 + [_I] * 7 + [_P],
     "stack": [_P] * 8 + [_D] * 3 + [_I] * 7 + [_P],
+    "nl_steps": [_P, _P, _I] + [_P] * 15 + [_D] * 5 + [_I] * 8 + [_P],
 }
 
 
@@ -369,3 +482,70 @@ def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     return _rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                     (dt, inv_dc, s_div), n_steps, None, live)
 
+
+
+def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
+           edge_vertex_terms, scal, n_steps, tile, ks, live, fb=False):
+    """n_steps >= 0 nonlinear steps through ``entry``, fe_step.cu's FE
+    entry or (``fb``) tiled_step.cu's FB one, which take the same arguments;
+    returns new (ssh, h, u) and raises as ``check_error`` for a failed
+    launch. The checks both nonlinear wrappers make: the state's and
+    constants' device, dtype, shape and contiguity, the vertex constants' 4
+    planes (periodic) or 20 (with ``live``), the plan's shared memory."""
+    ny2, nx, k = lattice_dims(h, name)
+    dtype, device = h.dtype, h.device
+    if n_steps < 0:
+        raise ValueError("n_steps must be >= 0")
+    check_tensor("rts", rts, (2, ny2, nx), dtype, device)
+    check_live(live, ny2, nx, device)
+    n_fv = 4 if live is None else 20
+    check_tensor("fv", fv, (n_fv, ny2, nx), dtype, device)
+    table, weights, n_terms = host_stencil(table, weights)
+    vc, vc_w, ev = vertex_tables(vertex_cell_terms, edge_vertex_terms)
+    kc = level_split(k)[1]
+    if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
+        raise ValueError(f"the nonlinear step's slices are a power of two of levels up to "
+                         f"{min(16, kc)} (its level chunk at {k} levels), got {ks}")
+    need = nl_smem_bytes(tile, k, h.element_size(), fb, ks)
+    if need > SMEM_BYTES:
+        raise ValueError(f"a nonlinear tile {tile} at {k} levels in slices of {ks} needs "
+                         f"{need} bytes of shared memory per block, more than {SMEM_BYTES}")
+    src = tuple(x.contiguous() for x in (ssh, h, u))
+    for x, shape, f in zip(src, state_shapes(ny2, nx, k), ("ssh", "h", "u")):
+        check_tensor(f, x, shape, dtype, device)
+    if n_steps == 0:
+        return tuple(x.clone() for x in src)
+    out = tuple(torch.empty_like(x) for x in src)
+    tmp = out if n_steps == 1 else tuple(torch.empty_like(x) for x in src)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = entry(rts.data_ptr(), fv.data_ptr(), n_fv,
+                    None if live is None else live.data_ptr(), table.ctypes.data,
+                    weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data, ev.ctypes.data,
+                    *[x.data_ptr() for x in (*src, *out, *tmp)], *(float(x) for x in scal),
+                    ny2, nx, k, n_steps, n_terms, *tile, ks, stream)
+    check_error(name, err, f" (tile {tile}, slice {ks})")
+    return out
+
+
+def fe_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
+                  edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
+                  s_curl: float, n_steps: int, live=None, tile=None, ks=None):
+    """n_steps forward-Euler steps of the nonlinear core on the card, one
+    launch of fe_step's nonlinear arm each (csrc/nl_step.cuh). ssh, h, u and
+    rts as for ``fe_rollout``; ``fv`` the vertex constants
+    (``fused_model.nl_setup``: (4, ny2, nx), or (20, ny2, nx) with ``live``);
+    the vertex stencils as ``StructMesh`` holds them; the scalars rounded to
+    the state dtype (``fused_model._scal``, ``fused_model.nl_scal``). The
+    tile (rows, columns) defaults to ``nl_plan``'s and the slice ks to the
+    largest that fits the tile (``nl_slice``). Returns new (ssh, h, u);
+    raises ValueError for a stencil that is not the hex lattice's."""
+    global launches
+    ny2, nx, k = lattice_dims(h)
+    tile = nl_plan(ny2, nx, k, h.element_size())[:2] if tile is None else tuple(tile)
+    ks = nl_slice(tile, k, h.element_size()) if ks is None else ks
+    out = nl_run("fe_step (nonlinear)", _entry("nl_steps", h.dtype), ssh, h, u, rts,
+                 stencil_table, coriolis_weight, fv, vertex_cell_terms, edge_vertex_terms,
+                 (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live)
+    launches += n_steps
+    return out

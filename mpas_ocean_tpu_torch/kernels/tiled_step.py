@@ -1,9 +1,11 @@
 """Wrapper of the hand-written tiled q-step kernel (csrc/tiled_step.cu),
 which replaces the TPU kernel ``_tiled_step_kernel``
-(mpas_ocean_tpu/structured/pallas_model.py:852) for the linear core,
-forward Euler and forward-backward, on a periodic lattice and, with the wall
-mask's ``live`` bits (``fe_step.live_bits``), on a coastal channel culled
-from one.
+(mpas_ocean_tpu/structured/pallas_model.py:852) for the linear core, forward
+Euler and forward-backward, and, in its nonlinear FB arm
+(csrc/nl_step.cuh, ``tiled_nl_rollout``, q = 1), for the vector-invariant
+one (its FE arm is fe_step's, ``fe_step.fe_nl_rollout``), on a periodic
+lattice and, with the wall mask's ``live`` bits (``fe_step.live_bits``), on
+a coastal channel culled from one.
 
 ``tiled_rollout`` takes tensors on a CUDA device and the stencil on the
 host (``StructMesh.host_stencil``), and launches one kernel per q steps on
@@ -12,7 +14,7 @@ window does not fit the card's shared memory and a stencil that is not the
 hex lattice's. Its plain PyTorch
 version is ``structured.tiled_model.plain_tiled_rollout``, which
 ``structured.tiled_model.tiled_run_loop`` runs for tensors on the CPU.
-``launches`` counts kernel launches (one per q steps).
+``launches`` counts kernel launches (one per q steps), of both cores.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from . import build
 from .fe_step import (
+    _ARGTYPES as _FE_ARGTYPES,
     LIVE_BYTES,
     MAX_CLUSTER,
     SMEM_BYTES,
@@ -33,11 +36,16 @@ from .fe_step import (
     host_stencil,
     lattice_dims,
     level_split,
+    nl_plan,
+    nl_run,
+    nl_slice,
+    nl_smem_bytes,
     state_shapes,
 )
 
 __all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "launches", "level_split",
-           "occupancy", "smem_bytes", "tiled_rollout"]
+           "nl_plan", "nl_slice", "nl_smem_bytes", "occupancy", "smem_bytes",
+           "tiled_nl_rollout", "tiled_rollout"]
 
 _PLANES = 16  # kPlanes in csrc/tiled_step.cu
 
@@ -131,4 +139,30 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
         )
     check_error("tiled_step", err)
     launches += n_steps // q
+    return out
+
+
+def tiled_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
+                     edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
+                     s_curl: float, n_steps: int, live=None, tile=None, ks=None):
+    """n_steps forward-backward steps of the nonlinear core on the card, one
+    launch of the tiled kernel's nonlinear FB arm (reach 3, q = 1) each.
+    Arguments as for ``fe_step.fe_nl_rollout``, whose FE arm is the tiled
+    route's nonlinear FE; the tile (rows, columns) defaults to
+    ``nl_plan``'s FB plan and the slice ks to the largest that fits it.
+    Returns new (ssh, h, u)."""
+    global launches
+    ny2, nx, k = lattice_dims(h, "tiled_step")
+    size = h.element_size()
+    tile = nl_plan(ny2, nx, k, size, True)[:2] if tile is None else tuple(tile)
+    ks = nl_slice(tile, k, size, True) if ks is None else ks
+    lib = build.load()
+    fn = {torch.float32: lib.mot_tiled_nl_steps_f32,
+          torch.float64: lib.mot_tiled_nl_steps_f64}[h.dtype]
+    fn.argtypes = _FE_ARGTYPES["nl_steps"]
+    fn.restype = ctypes.c_int
+    out = nl_run("tiled_step (nonlinear FB)", fn, ssh, h, u, rts, stencil_table,
+                 coriolis_weight, fv, vertex_cell_terms, edge_vertex_terms,
+                 (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live, fb=True)
+    launches += n_steps
     return out

@@ -2,15 +2,17 @@
 
 Counterpart of mpas_ocean_tpu/structured/hex_layout.py: the bijection
 between the unstructured mesh and the parity-plane lattice, including the
-edge-orientation sign flips, plus the machine-extracted Coriolis stencil.
-Host-side numpy, with the same numpy body as the JAX package so both build
-identical layouts. The vertex stencils of the nonlinear core are not part of
-this port yet.
+edge-orientation sign flips, plus the machine-extracted Coriolis stencil
+and the two vertex stencils of the nonlinear core (kite cell->vertex
+average, edge endpoints). Host-side numpy, with the same numpy body as the
+JAX package so both build identical layouts.
 
 Structured layout ("parity planes"):
   cells    (2, ny2, nx, ...)      plane p = row j % 2, unit m = j // 2
   edges    (3, 2, ny2, nx, ...)   family E / NE / NW owned by their cell,
                                   canonical normals at 0 / 60 / 120 degrees
+  vertices (2, 2, ny2, nx, ...)   A = vertex between NE and NW edges,
+                                  B = vertex between E and NE edges
 
 Neighbor algebra (periodic):
   E(c)  = same plane, i+1                W = i-1
@@ -27,8 +29,9 @@ from dataclasses import dataclass
 import numpy as np
 
 E, NE, NW = 0, 1, 2  # edge families
+A, B = 0, 1  # vertex kinds
 
-__all__ = ["CoriolisTerm", "HexLayout", "E", "NE", "NW"]
+__all__ = ["CoriolisTerm", "HexLayout", "A", "B", "E", "NE", "NW"]
 
 
 def _neighbor(j: np.ndarray, i: np.ndarray, fam: int, nx: int, ny: int):
@@ -118,7 +121,28 @@ class HexLayout:
         self.edge_owner[edge_of.ravel()] = np.repeat(cid, 3)
         self.edge_family[edge_of.ravel()] = np.tile(np.arange(3), n_cells)
 
+        # vertex_of[cell, kind]: A between NE and NW edges, B between NE
+        # and E edges
+        voe = np.asarray(horz.edges.vertices_on_edge)
+        vertex_of = np.empty((n_cells, 2), dtype=np.int64)
+        for kind, (f1, f2) in ((A, (NE, NW)), (B, (NE, E))):
+            v1 = voe[edge_of[:, f1]]  # (n, 2)
+            v2 = voe[edge_of[:, f2]]
+            shared = np.where(
+                (v1[:, 0:1] == v2).any(1, keepdims=True), v1[:, 0:1], v1[:, 1:2]
+            )[:, 0]
+            vertex_of[:, kind] = shared
+        self.vertex_of = vertex_of
+
+        # owner cell + kind of every vertex (inverse map)
+        self.vertex_owner = np.empty(horz.n_vertices, dtype=np.int64)
+        self.vertex_kind = np.empty(horz.n_vertices, dtype=np.int64)
+        self.vertex_owner[vertex_of.ravel()] = np.repeat(cid, 2)
+        self.vertex_kind[vertex_of.ravel()] = np.tile(np.arange(2), n_cells)
+
         self.coriolis_terms = self._extract_coriolis_stencil()
+        self.vertex_cell_terms = self._extract_vertex_cell_stencil()
+        self.edge_vertex_terms = self._extract_edge_vertex_stencil()
 
     # ---- field conversion ------------------------------------------------
     def cells_to_struct(self, field: np.ndarray) -> np.ndarray:
@@ -159,6 +183,73 @@ class HexLayout:
                 ).astype(field.dtype, copy=False)
             out[self.edge_of[:, fam]] = flat
         return out
+
+    def vertices_to_struct(self, field: np.ndarray) -> np.ndarray:
+        """(nVertices, ...) -> (2, 2, ny2, nx, ...), kind first."""
+        field = np.asarray(field)
+        per_cell = np.moveaxis(field[self.vertex_of], 1, 0)  # (2, nCells, ...)
+        return np.stack([self.cells_to_struct(pf) for pf in per_cell])
+
+    def vertices_from_struct(self, field: np.ndarray) -> np.ndarray:
+        field = np.asarray(field)
+        n_vertices = self.horz.n_vertices
+        out = np.empty((n_vertices,) + field.shape[4:], dtype=field.dtype)
+        for kind in range(2):
+            out[self.vertex_of[:, kind]] = self.cells_from_struct(field[kind])
+        return out
+
+    def _cell_offset(self, c0: int, cg: int):
+        """(p_in, dm, di) of cell cg relative to representative cell c0
+        (both interior, no periodic wrap)."""
+        nx = self.nx
+        j0, i0 = c0 // nx, c0 % nx
+        jg, ig = cg // nx, cg % nx
+        dj, di_ = jg - j0, ig - i0
+        p_in = (j0 + dj) % 2
+        dm = (j0 + dj) // 2 - j0 // 2
+        return int(p_in), int(dm), int(di_)
+
+    # ---- vertex stencils (nonlinear dynamics) ----------------------------
+    def _extract_vertex_cell_stencil(self) -> tuple:
+        """Kite-area cell->vertex average as static rolls: terms
+        (kind, p_out, p_in, dm, di, w) with w the normalized kite weight
+        (1/3 each on a uniform lattice; checked to sum to 1)."""
+        cov = np.asarray(self.horz.duals.cells_on_vertex)
+        kite = np.asarray(self.horz.duals.kite_areas_on_vertex, dtype=np.float64)
+        terms = []
+        for kind in (A, B):
+            for parity in (0, 1):
+                c0 = (2 + parity) * self.nx + 2
+                v0 = self.vertex_of[c0, kind]
+                w = kite[v0]
+                wsum = w.sum()
+                if not wsum > 0:
+                    raise ValueError("a vertex of the lattice has no kite area")
+                total = 0.0
+                for s in range(cov.shape[1]):
+                    if w[s] == 0.0:
+                        continue
+                    p_in, dm, di_ = self._cell_offset(c0, cov[v0, s])
+                    terms.append((kind, parity, p_in, dm, di_, float(w[s] / wsum)))
+                    total += w[s] / wsum
+                if abs(total - 1.0) >= 1e-12:
+                    raise ValueError("the kite weights are not a partition of unity")
+        return tuple(terms)
+
+    def _extract_edge_vertex_stencil(self) -> tuple:
+        """The edge's two vertex endpoints as static rolls: terms
+        (f_out, p_out, kind, p_in, dm, di), two per (family, parity)."""
+        voe = np.asarray(self.horz.edges.vertices_on_edge)
+        terms = []
+        for fam in (E, NE, NW):
+            for parity in (0, 1):
+                c0 = (2 + parity) * self.nx + 2
+                e0 = self.edge_of[c0, fam]
+                for vg in voe[e0]:
+                    kind = int(self.vertex_kind[vg])
+                    p_in, dm, di_ = self._cell_offset(c0, int(self.vertex_owner[vg]))
+                    terms.append((fam, parity, kind, p_in, dm, di_))
+        return tuple(terms)
 
     # ---- Coriolis stencil extraction ------------------------------------
     def _extract_coriolis_stencil(self) -> list[CoriolisTerm]:

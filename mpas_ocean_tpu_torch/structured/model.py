@@ -1,14 +1,16 @@
-"""Linear shallow-water core on the structured hex lattice, on torch.roll.
+"""Shallow-water core on the structured hex lattice, on torch.roll.
 
 Counterpart of mpas_ocean_tpu/structured/model.py for the linear core
-(pressure gradient + TRiSK Coriolis) with forward Euler and
+(pressure gradient + TRiSK Coriolis) and the nonlinear vector-invariant one
+(KE gradient + symmetrised PV flux), with forward Euler and
 forward-backward, on periodic lattices and on coastal channels culled from
 them (wall masks). This is the plain PyTorch version of the step kernels
 (kernels/fe_step.py, kernels/tiled_step.py): the CPU tests hold it against
 the JAX package, and on the card the kernels are held against it.
 
 Layout (see hex_layout.py): cell fields (2, ny2, nx, K), edge fields
-(3, 2, ny2, nx, K) with canonical family normals at 0/60/120 degrees.
+(3, 2, ny2, nx, K) with canonical family normals at 0/60/120 degrees,
+vertex fields (2, 2, ny2, nx, K).
 """
 
 from __future__ import annotations
@@ -29,7 +31,12 @@ __all__ = [
     "StructState",
     "StructuredModel",
     "apply_stencil",
+    "cell_to_vertex_kite",
+    "check_nl_mesh",
+    "curl_on_vertex",
+    "kinetic_energy_cell",
     "packed_stencils",
+    "pv_on_vertex_struct",
     "struct_mesh_from_numpy",
     "struct_mesh_to_numpy",
     "struct_state_from_numpy",
@@ -37,6 +44,8 @@ __all__ = [
     "structured_fb_step",
     "structured_run_loop",
     "structured_step",
+    "tangential_weights_only",
+    "vertex_to_edge_mean",
 ]
 
 
@@ -87,6 +96,20 @@ class StructMesh:
     edge_mask: torch.Tensor | None = None  # (3, 2, ny2, nx)
     # 1 on live cells, 0 on culled ones; None on a periodic lattice
     cell_mask: torch.Tensor | None = None  # (2, ny2, nx)
+    # The nonlinear core's constants (StructuredModel builds them; () and
+    # None on a hand-built mesh, which then runs the linear core only): the
+    # machine-extracted vertex stencils of hex_layout.py, kite taps
+    # (kind, p_out, p_in, dm, di, w) and endpoint taps
+    # (f_out, p_out, kind, p_in, dm, di), and f at the vertices.
+    vertex_cell_terms: tuple = ()
+    edge_vertex_terms: tuple = ()
+    f_vertex: torch.Tensor | None = None  # (2, 2, ny2, nx)
+    # On a channel: the kite weights renormalised over live cells, one plane
+    # per vertex_cell_terms entry, and 1 on live vertices (one live cell or
+    # more), 0 on dead ones, where the PV division is guarded. None on a
+    # periodic lattice, whose static 1/3 weights stay as they are.
+    vertex_kite_planes: torch.Tensor | None = None  # (12, ny2, nx)
+    vertex_mask: torch.Tensor | None = None  # (2, 2, ny2, nx)
 
     def to(self, device) -> "StructMesh":
         return StructMesh(
@@ -107,12 +130,20 @@ class StructMesh:
             host_adjoint_stencil=self.host_adjoint_stencil,
             edge_mask=None if self.edge_mask is None else self.edge_mask.to(device),
             cell_mask=None if self.cell_mask is None else self.cell_mask.to(device),
+            vertex_cell_terms=self.vertex_cell_terms,
+            edge_vertex_terms=self.edge_vertex_terms,
+            **{k: None if getattr(self, k) is None else getattr(self, k).to(device)
+               for k in _VERTEX_ARRAYS},
         )
 
 
 # ---- carrying the JAX package's lattice inputs across, as numpy ----------
 _MESH_ARRAYS = ("dc", "dv", "area_cell", "f_edge", "resting_thickness_sum")
 _MASK_ARRAYS = ("edge_mask", "cell_mask")  # None on a periodic lattice
+# the nonlinear core's vertex constants: f_vertex (None on a hand-built
+# mesh), and on a channel the kite planes and the vertex mask
+_VERTEX_ARRAYS = ("f_vertex", "vertex_kite_planes", "vertex_mask")
+_VERTEX_TERMS = ("vertex_cell_terms", "edge_vertex_terms")
 _STATE_ARRAYS = ("ssh", "layer_thickness", "normal_velocity")
 
 
@@ -142,9 +173,9 @@ def _host_stencil(packed: dict, kind: str = "") -> tuple:
 def struct_mesh_from_numpy(d: dict) -> StructMesh:
     """StructMesh from a dict of the JAX StructMesh's fields (arrays as
     numpy, the rest as given), bit for bit; the kernels' stencil tables are
-    packed from ``coriolis_terms``. ``edge_mask`` and ``cell_mask`` are
-    carried where the dict holds them and they are not None; the nonlinear
-    arm's vertex constants are not read."""
+    packed from ``coriolis_terms``. ``edge_mask`` and ``cell_mask``, and the
+    nonlinear core's vertex stencils and constants, are carried where the
+    dict holds them and they are not None."""
     terms = tuple(tuple(t) for t in d["coriolis_terms"])
     packed = packed_stencils(terms, np.asarray(d["f_edge"]).dtype)
     for k in _MASK_ARRAYS:
@@ -159,8 +190,9 @@ def struct_mesh_from_numpy(d: dict) -> StructMesh:
         **{k: torch.from_numpy(np.array(d[k])) for k in _MESH_ARRAYS},
         host_stencil=_host_stencil(packed),
         host_adjoint_stencil=_host_stencil(packed, "adjoint_"),
-        **{k: torch.from_numpy(np.array(d[k])) for k in _MASK_ARRAYS
+        **{k: torch.from_numpy(np.array(d[k])) for k in _MASK_ARRAYS + _VERTEX_ARRAYS
            if d.get(k) is not None},
+        **{k: tuple(tuple(t) for t in d[k]) for k in _VERTEX_TERMS if d.get(k)},
     )
 
 
@@ -173,7 +205,8 @@ def struct_mesh_to_numpy(mesh: StructMesh) -> dict:
     }
     d.update({k: getattr(mesh, k).cpu().numpy() for k in _MESH_ARRAYS})
     d.update({k: None if getattr(mesh, k) is None else getattr(mesh, k).cpu().numpy()
-              for k in _MASK_ARRAYS})
+              for k in _MASK_ARRAYS + _VERTEX_ARRAYS})
+    d.update({k: getattr(mesh, k) for k in _VERTEX_TERMS})
     return d
 
 
@@ -258,24 +291,123 @@ def tangential_times_f(u, mesh: StructMesh):
     return apply_stencil(u * mesh.f_edge[..., None], mesh.coriolis_terms)
 
 
+def kinetic_energy_cell(u, mesh: StructMesh):
+    """KE_c = (dc dv / 4 A_c) sum over the cell's 6 edges of u_e^2 (JAX
+    model.py:131-138; dc, dv and A are uniform scalars here)."""
+    sq = u * u
+    inc_E, inc_NE, inc_NW = _incoming_edge_fields(sq)
+    total = sq[0] + sq[1] + sq[2] + inc_E + inc_NE + inc_NW
+    return total * (0.25 * mesh.dc * mesh.dv / mesh.area_cell)
+
+
+def cell_to_vertex_kite(h, mesh: StructMesh):
+    """Kite-area cell->vertex average -> (2, 2, ny2, nx, ...) from the
+    machine-extracted stencil (JAX model.py:141-157). On a channel the
+    static 1/3 weights are replaced by the kite planes renormalised over
+    live cells (partial kites at boundary vertices, zero at dead ones)."""
+    kw = mesh.vertex_kite_planes
+    out = [[None, None], [None, None]]
+    for t, (kind, p_out, p_in, dm, di, w) in enumerate(mesh.vertex_cell_terms):
+        wgt = w if kw is None else kw[t].reshape(kw[t].shape + (1,) * (h.ndim - 3))
+        contrib = wgt * _shift(h[p_in], dm, di)
+        cur = out[kind][p_out]
+        out[kind][p_out] = contrib if cur is None else cur + contrib
+    return torch.stack([torch.stack(planes) for planes in out])
+
+
+def curl_on_vertex(u, mesh: StructMesh):
+    """Relative vorticity at vertices -> (2, 2, ny2, nx, ...) (JAX
+    model.py:222-235):
+
+    curl_A(c) = dc/A_tri * (u_NE(c) - u_E(NW(c)) - u_NW(c))
+    curl_B(c) = dc/A_tri * (u_E(c) + u_NW(E(c)) - u_NE(c))
+    """
+    uE, uNE, uNW = u[0], u[1], u[2]
+    e_of_nw = torch.stack([_shift(uE[1], 0, -1), _shift(uE[0], 1, 0)])
+    nw_of_e = torch.stack([_shift(uNW[0], 0, 1), _shift(uNW[1], 0, 1)])
+    area_tri = mesh.area_cell * 0.5
+    curl_a = (uNE - e_of_nw - uNW) * (mesh.dc / area_tri)
+    curl_b = (uE + nw_of_e - uNE) * (mesh.dc / area_tri)
+    return torch.stack([curl_a, curl_b])
+
+
+def pv_on_vertex_struct(u, h, mesh: StructMesh):
+    """q_v = (f_v + zeta_v) / h_v (JAX model.py:160-172). On a channel the
+    division is guarded at dead vertices (vertex_mask = 0), whose PV is 0."""
+    zeta = curl_on_vertex(u, mesh)
+    h_v = cell_to_vertex_kite(h, mesh)
+    if mesh.vertex_mask is None:
+        return (mesh.f_vertex[..., None] + zeta) / h_v
+    vm = mesh.vertex_mask.reshape(mesh.vertex_mask.shape + (1,) * (h_v.ndim - 4))
+    safe = torch.where(vm > 0, h_v, torch.ones_like(h_v))
+    return (mesh.f_vertex[..., None] + zeta) / safe * vm
+
+
+def check_nl_mesh(mesh: StructMesh) -> None:
+    """Raise unless the mesh carries what the nonlinear core reads (JAX
+    model.py:175-186): the vertex stencils and f_vertex, and on a channel
+    the masked vertex constants."""
+    if not mesh.vertex_cell_terms or mesh.f_vertex is None:
+        raise ValueError("StructMesh lacks the vertex stencils of the nonlinear core; "
+                         "build it through StructuredModel, whose HexLayout extracts them")
+    if mesh.edge_mask is not None and (mesh.vertex_kite_planes is None
+                                       or mesh.vertex_mask is None):
+        raise NotImplementedError(
+            "wall-masked nonlinear dynamics need the masked vertex constants "
+            "(vertex_kite_planes, vertex_mask): build the StructMesh through "
+            "StructuredModel(parent_horz=..., keep_cells=...)")
+
+
+def vertex_to_edge_mean(v, mesh: StructMesh):
+    """Endpoint mean of a vertex field -> (3, 2, ny2, nx, ...) (JAX
+    model.py:189-197)."""
+    out = [[None, None] for _ in range(3)]
+    for (f_out, p_out, kind, p_in, dm, di) in mesh.edge_vertex_terms:
+        contrib = _shift(v[kind, p_in], dm, di)
+        cur = out[f_out][p_out]
+        out[f_out][p_out] = contrib if cur is None else cur + contrib
+    return 0.5 * torch.stack([torch.stack(planes) for planes in out])
+
+
+def tangential_weights_only(x, mesh: StructMesh):
+    """sum_j w_j x[eoe_j]: the Coriolis stencil without f (JAX
+    model.py:200-209), which the PV flux applies to the thickness flux."""
+    return apply_stencil(x, mesh.coriolis_terms)
+
+
 def _wall(u, mesh: StructMesh):
     """u with the wall mask applied: u = 0 on wall and culled edges (JAX
     model.py:328-329, 473-474); u itself on a periodic lattice."""
     return u if mesh.edge_mask is None else u * mesh.edge_mask[..., None]
 
 
-def structured_step(state: StructState, mesh: StructMesh, dt) -> StructState:
-    """One forward-Euler step of the linear core, all rolls + elementwise
-    (the ``nonlinear=False``, unforced, tracer-free, unstratified arm of
-    mpas_ocean_tpu/structured/model.py:272-341), with the wall mask where
-    the mesh has one."""
+def _tend_u(state: StructState, flux, grad_ssh, mesh: StructMesh, nonlinear: bool):
+    """The momentum tendency, in the JAX package's order (model.py:290-313):
+    -g grad ssh (``grad_ssh`` of the old or the fresh ssh), plus the TRiSK
+    Coriolis term of u f, or with ``nonlinear`` minus grad KE plus the
+    symmetrised PV flux (q_e T(F) + T(F q_e)) / 2 of the thickness flux F."""
+    tend_u = -GRAVITY * grad_ssh[..., None]
+    u = state.normal_velocity
+    if not nonlinear:
+        return tend_u + tangential_times_f(u, mesh)
+    check_nl_mesh(mesh)
+    q_e = vertex_to_edge_mean(pv_on_vertex_struct(u, state.layer_thickness, mesh), mesh)
+    tend_u = tend_u - grad_on_edge(kinetic_energy_cell(u, mesh), mesh)
+    return tend_u + 0.5 * (q_e * tangential_weights_only(flux, mesh)
+                           + tangential_weights_only(flux * q_e, mesh))
+
+
+def structured_step(state: StructState, mesh: StructMesh, dt,
+                    nonlinear: bool = False) -> StructState:
+    """One forward-Euler step, all rolls + elementwise (the unforced,
+    tracer-free, unstratified arms of mpas_ocean_tpu/structured/model.py:
+    272-341): the linear core, or with ``nonlinear`` the vector-invariant
+    momentum equation; the wall mask where the mesh has one."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     tend_h = -div_on_cell(flux, mesh)
 
-    grad_ssh = grad_on_edge(state.ssh, mesh)  # (3, 2, ny2, nx)
-    tend_u = -GRAVITY * grad_ssh[..., None]
-    tend_u = tend_u + tangential_times_f(state.normal_velocity, mesh)
+    tend_u = _tend_u(state, flux, grad_on_edge(state.ssh, mesh), mesh, nonlinear)
 
     h = state.layer_thickness + dt * tend_h
     u = _wall(state.normal_velocity + dt * tend_u, mesh)
@@ -283,34 +415,57 @@ def structured_step(state: StructState, mesh: StructMesh, dt) -> StructState:
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
-def structured_fb_step(state: StructState, mesh: StructMesh, dt) -> StructState:
-    """One forward-backward step of the linear core (the linear, unforced,
-    tracer-free, unstratified arm of mpas_ocean_tpu/structured/model.py:
-    433-485): the continuity update first, then the pressure gradient of
-    the fresh ssh and the Coriolis term of the old u; the wall mask last."""
+def structured_fb_step(state: StructState, mesh: StructMesh, dt,
+                       nonlinear: bool = False) -> StructState:
+    """One forward-backward step (the unforced, tracer-free, unstratified
+    arms of mpas_ocean_tpu/structured/model.py:433-485): the continuity
+    update first, then the pressure gradient of the fresh ssh and the other
+    momentum terms (Coriolis, or with ``nonlinear`` the vector-invariant
+    ones) of the old state; the wall mask last."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     h = state.layer_thickness + dt * (-div_on_cell(flux, mesh))
     ssh = h.sum(-1) - mesh.resting_thickness_sum
 
-    tend_u = -GRAVITY * grad_on_edge(ssh, mesh)[..., None]
-    tend_u = tend_u + tangential_times_f(state.normal_velocity, mesh)
+    tend_u = _tend_u(state, flux, grad_on_edge(ssh, mesh), mesh, nonlinear)
     u = _wall(state.normal_velocity + dt * tend_u, mesh)
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
 def structured_run_loop(
-    state: StructState, mesh: StructMesh, dt, n_steps: int, fb: bool = False,
+    state: StructState, mesh: StructMesh, dt, n_steps: int,
+    nonlinear: bool = False, fb: bool = False,
 ) -> StructState:
     """n_steps steps of ``structured_step`` (forward Euler) or, with
-    ``fb=True``, of ``structured_fb_step`` (forward-backward). Only the
-    linear core is ported: there is no ``nonlinear`` option, and on a
-    channel no masked vertex constants (``vertex_mask``,
-    ``vertex_kite_planes``)."""
+    ``fb=True``, of ``structured_fb_step`` (forward-backward); ``nonlinear``
+    runs the vector-invariant momentum equation (JAX model.py:488-507). A
+    mesh without the vertex constants, asked for nonlinear, raises."""
     step = structured_fb_step if fb else structured_step
+    if nonlinear:
+        check_nl_mesh(mesh)
     for _ in range(n_steps):
-        state = step(state, mesh, dt)
+        state = step(state, mesh, dt, nonlinear)
     return state
+
+
+def _masked_vertex_constants(lay: HexLayout, keep: np.ndarray, dtype):
+    """The nonlinear core's constants on a channel (JAX model.py:566-590):
+    each kite tap's weight times its cell's liveness, renormalised over the
+    vertex's live taps (uniform kites, so the weight is proportional to the
+    periodic stencil's), one plane per tap (12, ny2, nx); and the vertex
+    mask (2, 2, ny2, nx), 1 where a vertex has a live cell."""
+    keep_struct = lay.cells_to_struct(keep.astype(np.float64))
+    vt = lay.vertex_cell_terms
+    live = np.stack([
+        w * np.roll(np.roll(keep_struct[p_in], -dm, axis=0), -di, axis=1)
+        for (_, _, p_in, dm, di, w) in vt
+    ])  # (n_terms, ny2, nx)
+    sums = np.zeros((2, 2) + keep_struct.shape[1:])
+    for t, (kind, p_out, *_) in enumerate(vt):
+        sums[kind, p_out] += live[t]
+    safe = np.where(sums > 0, sums, 1.0)
+    planes = np.stack([live[t] / safe[vt[t][0], vt[t][1]] for t in range(len(vt))])
+    return planes.astype(dtype), (sums > 0).astype(dtype)
 
 
 class StructuredModel(nn.Module):
@@ -319,8 +474,9 @@ class StructuredModel(nn.Module):
 
     Built from an unstructured Mesh; converts state in and out of the
     lattice layout on the host and holds the lattice constants (``f_edge``,
-    ``rts``, the metric scalars, the Coriolis term tables and, on a channel,
-    the wall masks) as buffers on ``device``. ``device=None`` means the card
+    ``rts``, the metric scalars, the Coriolis term tables, the nonlinear
+    core's ``f_vertex`` and, on a channel, the wall masks and the masked
+    vertex constants) as buffers on ``device``. ``device=None`` means the card
     ("cuda"), and raises where there is none; the plain version runs on the
     host only for ``device="cpu"``.
 
@@ -369,7 +525,9 @@ class StructuredModel(nn.Module):
 
         self._n_parent_cells = lattice_horz.n_cells
         self._n_parent_edges = lattice_horz.n_edges
-        edge_mask = cell_mask = None
+        self.vertex_cell_terms = lay.vertex_cell_terms
+        self.edge_vertex_terms = lay.edge_vertex_terms
+        edge_mask = cell_mask = kite_planes = vertex_mask = None
         rts_cells = np.asarray(vert.resting_thickness_sum)
         if parent_horz is None:
             self.cell_gids = self.edge_gids = None
@@ -391,6 +549,7 @@ class StructuredModel(nn.Module):
             edge_mask = lay.edges_to_struct(keep[coe].all(axis=1).astype(dtype))
             cell_mask = lay.cells_to_struct(keep.astype(dtype))
             rts_cells = self._cells_to_parent(rts_cells.astype(dtype))
+            kite_planes, vertex_mask = _masked_vertex_constants(lay, keep, dtype)
 
         buf("dc", dtype.type(lay.dc))
         buf("dv", dtype.type(dv_edge[0]))
@@ -399,6 +558,9 @@ class StructuredModel(nn.Module):
         buf("rts", lay.cells_to_struct(rts_cells))
         buf("edge_mask", edge_mask)
         buf("cell_mask", cell_mask)
+        buf("f_vertex", lay.vertices_to_struct(np.asarray(lattice_horz.duals.f)))
+        buf("vertex_kite_planes", kite_planes)
+        buf("vertex_mask", vertex_mask)
         # the Coriolis stencil and its transpose, packed: on the buffers'
         # device, and the host copies the kernels take
         packed = packed_stencils(self.coriolis_terms, dtype)
@@ -428,6 +590,11 @@ class StructuredModel(nn.Module):
             host_adjoint_stencil=self.host_adjoint_stencil,
             edge_mask=self.edge_mask,
             cell_mask=self.cell_mask,
+            vertex_cell_terms=self.vertex_cell_terms,
+            edge_vertex_terms=self.edge_vertex_terms,
+            f_vertex=self.f_vertex,
+            vertex_kite_planes=self.vertex_kite_planes,
+            vertex_mask=self.vertex_mask,
         )
 
     # -- culled <-> parent embedding (identity on a periodic lattice) -----

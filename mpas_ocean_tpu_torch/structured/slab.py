@@ -1,10 +1,13 @@
-"""The linear core's step on halo-padded windows, and its q-step superstep.
+"""The core's step on halo-padded windows, and its q-step superstep.
 
 Counterpart of mpas_ocean_tpu/structured/sharded.py:44-62,156-342
 (``_sh``, ``_interior``, ``_flux_thickness``, ``_step_slab`` with the wall
-masks, and with forcing, tracers, cell masks and stratification off) and of
-pallas_model.py:791-849 (``_reach``, ``_window_steps`` with ``masks_full``),
-for the forward Euler (FE) and forward-backward (FB) steppers.
+masks, and with forcing, tracers, cell masks and stratification off), of
+sharded.py:345-597 for the nonlinear core (``_derived_slab``,
+``_nl_continuity``, ``_apply_slab_nonlinear``, ``_step_slab_nl``) and of
+pallas_model.py:791-849 (``_reach``, ``_window_steps`` with ``masks_full``
+and ``fv_full``), for the forward Euler (FE) and forward-backward (FB)
+steppers.
 
 The JAX windows are whole rows, padded in m and wrapped periodically in i
 (``_roll_nx``). The port's windows are tiles padded in both m and i, so the
@@ -12,10 +15,12 @@ wrap becomes an i-halo: a window that spans all nx columns and is padded
 periodically in i gives the JAX interior.
 
 Fields carry a channel axis and any leading batch axes, with ssh, f_edge,
-the wall mask and rts kept as trailing singletons as in the JAX slabs: ssh
-and rts (..., 2, R, C, 1), h (..., 2, R, C, K), u, f_edge and the mask
-(..., 6, R, C, K or 1), edge channel ``family * 2 + parity``. The mask is
-windowed as f_edge is.
+the wall mask, rts and the vertex constants kept as trailing singletons as
+in the JAX slabs: ssh and rts (..., 2, R, C, 1), h (..., 2, R, C, K), u,
+f_edge and the mask (..., 6, R, C, K or 1), the vertex constants (..., 4 or
+20, R, C, 1) (``fused_model.nl_setup``), edge channel ``family * 2 +
+parity``, vertex channel ``kind * 2 + parity``. The mask and the vertex
+constants are windowed as f_edge is.
 """
 
 from __future__ import annotations
@@ -26,13 +31,18 @@ from ..constants import GRAVITY
 from .hex_layout import E, NE, NW
 from .stencils import INCOMING, NEIGHBOR, transpose_coriolis_terms
 
-__all__ = ["adjoint_stencil_reach", "reach", "stencil_reach", "step_slab", "window_steps"]
+__all__ = ["adjoint_stencil_reach", "derived_ring", "reach", "stencil_reach", "step_slab",
+           "step_slab_nl", "window_steps"]
 
 
-def reach(fb: bool) -> int:
-    """Halo rows a step consumes per side (pallas_model._reach, linear
-    arms): 1 for FE; 2 for FB, whose pressure gradient reads the fresh ssh
-    one ring out."""
+def reach(fb: bool, nonlinear: bool = False) -> int:
+    """Halo rows a step consumes per side (pallas_model._reach): 1 for the
+    linear FE; 2 for the linear FB, whose pressure gradient reads the fresh
+    ssh one ring out, and for the nonlinear FE, whose derived fields (flux,
+    KE, edge PV) are computed on a 1-padded window; 3 for the nonlinear FB,
+    whose fresh thickness needs that flux one ring further out."""
+    if nonlinear:
+        return 3 if fb else 2
     return 2 if fb else 1
 
 
@@ -47,17 +57,62 @@ def _continuity_taps():
     return taps
 
 
-def stencil_reach(terms, fb: bool) -> tuple[int, int]:
+def _max_reach(taps) -> tuple[int, int]:
+    return max(abs(dm) for dm, _ in taps), max(abs(di) for _, di in taps)
+
+
+def _sums(a, b):
+    return [(x + z, y + w) for x, y in a for z, w in b]
+
+
+def _grad_taps():
+    return [(0, 0)] + [(dm, di) for (_, dm, di) in NEIGHBOR.values()]
+
+
+def _derived_taps(nl_terms):
+    """(dm, di) of every state value that a site's derived fields read: the
+    flux's neighbour cells, KE's incoming edges, and for the edge PV each
+    endpoint vertex's curl edges and kite cells."""
+    vc_terms, ev_terms = nl_terms
+    vertex = [(0, 0), (0, -1), (1, 0), (0, 1)] + [(t[3], t[4]) for t in vc_terms]
+    return (_continuity_taps() + [(0, 0)]
+            + _sums([(t[4], t[5]) for t in ev_terms], vertex))
+
+
+def derived_ring(terms, fb: bool) -> tuple[int, int]:
+    """(rows, columns) per side of the ring around a window's interior on
+    which the nonlinear step computes its derived fields (flux, F q_e, q_e,
+    KE): what the interior's momentum and continuity read of them (the flux
+    at the incoming edges, KE across the owned ones, the Coriolis taps of
+    the two tangential passes), and under FB the flux that the fresh
+    thickness reads on the interior plus the ring of the pressure gradient.
+    Each stage computes on a region padded alike on every side, so the
+    stages' reaches add: (1, 2) for FE, (2, 2) for FB on the hex lattice."""
+    inc = [(0, 0)] + [(dm, di) for p in (0, 1) for (_, dm, di) in INCOMING[p]]
+    rm, rc = _max_reach(inc + _grad_taps() + [(t[4], t[5]) for t in terms])
+    if fb:
+        (gm, gc), (im, ic) = _max_reach(_grad_taps()), _max_reach(inc)
+        rm, rc = max(rm, gm + im), max(rc, gc + ic)
+    return rm, rc
+
+
+def stencil_reach(terms, fb: bool, nl_terms=None) -> tuple[int, int]:
     """(rows, columns) a step consumes per side, from the neighbour,
     incoming-edge and Coriolis tables: the halo a window needs per step.
     FB chains the pressure gradient (the neighbour table) onto the
-    continuity update of the fresh ssh."""
+    continuity update of the fresh ssh. With ``nl_terms`` = (vertex_cell_terms,
+    edge_vertex_terms) the nonlinear step's: the derived fields' reach added
+    to their ring's (``derived_ring``; (2, 4) for FE, (3, 4) for FB on the hex
+    lattice, the rows of pallas_model._reach)."""
+    if nl_terms is not None:
+        (rm, rc), (am, ac) = derived_ring(terms, fb), _max_reach(_derived_taps(nl_terms))
+        return rm + am, rc + ac
     grad = [(dm, di) for (_, dm, di) in NEIGHBOR.values()]
     cont = _continuity_taps()
     taps = cont + grad + [(t[4], t[5]) for t in terms]
     if fb:
         taps += [(a + c, b + d) for a, b in grad for c, d in cont]
-    return max(abs(dm) for dm, _ in taps), max(abs(di) for _, di in taps)
+    return _max_reach(taps)
 
 
 def adjoint_stencil_reach(terms) -> tuple[int, int]:
@@ -148,22 +203,178 @@ def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo
     return tuple(torch.stack(x, dim=-4) for x in (ssh_new, h_new, u_new))
 
 
+def _grow(reg, rows: int, cols: int):
+    r0, r1, c0, c1 = reg
+    return (r0 - rows, r1 + rows, c0 - cols, c1 + cols)
+
+
+def _extent(reg):
+    r0, r1, c0, c1 = reg
+    return r1 - r0, c1 - c0
+
+
+def derived_slab(h, u, fv, s_ke, s_curl, vc_terms, ev_terms, reg):
+    """Stage A of the nonlinear step (sharded._derived_slab): from padded
+    state planes, the thickness flux F (6 channels), the cell kinetic energy
+    (2 planes) and the edge PV q_e (6 channels) over the region ``reg`` =
+    (r0, r1, c0, c1). The vertex PV is computed on ``reg`` grown by the
+    endpoint taps' reach, from the curl of u and the kite average of h,
+    with the static kite weights, or on a channel (``fv`` of 20 planes:
+    f_vertex, vertex_mask, kite planes) the live-renormalised ones and the
+    guarded division. Returns (F, KE, q_e) as lists of planes over ``reg``."""
+    flux = []
+    for fam in (E, NE, NW):
+        for p in (0, 1):
+            pin, dm, di = NEIGHBOR[(fam, p)]
+            he = 0.5 * (_sh(h[..., pin, :, :, :], dm, di, reg) + _interior(h[..., p, :, :, :], reg))
+            flux.append(_interior(u[..., fam * 2 + p, :, :, :], reg) * he)
+    sq = u * u
+    ke = []
+    for p in (0, 1):
+        total = (_interior(sq[..., E * 2 + p, :, :, :], reg)
+                 + _interior(sq[..., NE * 2 + p, :, :, :], reg)
+                 + _interior(sq[..., NW * 2 + p, :, :, :], reg))
+        for ch, dm, di in INCOMING[p]:
+            total = total + _sh(sq[..., ch, :, :, :], dm, di, reg)
+        ke.append(total * s_ke)
+
+    # vertex PV on reg grown by the endpoint taps (rows dm_lo..dm_hi, columns
+    # di_lo..di_hi of a site)
+    lo_m = max(0, -min(t[4] for t in ev_terms))
+    lo_i = max(0, -min(t[5] for t in ev_terms))
+    r0, r1, c0, c1 = reg
+    vreg = (r0 - lo_m, r1 + max(0, max(t[4] for t in ev_terms)),
+            c0 - lo_i, c1 + max(0, max(t[5] for t in ev_terms)))
+    uc = lambda ch, dm=0, di=0: _sh(u[..., ch, :, :, :], dm, di, vreg)  # noqa: E731
+    # curl_A = (u_NE - u_E(NW) - u_NW) dc / A_tri, curl_B = (u_E + u_NW(E) -
+    # u_NE) dc / A_tri (model.curl_on_vertex, slab form)
+    zeta = [
+        (uc(NE * 2) - uc(E * 2 + 1, 0, -1) - uc(NW * 2)) * s_curl,
+        (uc(NE * 2 + 1) - uc(E * 2, 1, 0) - uc(NW * 2 + 1)) * s_curl,
+        (uc(E * 2) + uc(NW * 2, 0, 1) - uc(NE * 2)) * s_curl,
+        (uc(E * 2 + 1) + uc(NW * 2 + 1, 0, 1) - uc(NE * 2 + 1)) * s_curl,
+    ]
+    masked = fv.shape[-4] > 4
+    h_v = [None] * 4
+    for t, (kind, p_out, p_in, dm, di, w) in enumerate(vc_terms):
+        wgt = _interior(fv[..., 8 + t, :, :, :], vreg) if masked else w
+        contrib = wgt * _sh(h[..., p_in, :, :, :], dm, di, vreg)
+        c = kind * 2 + p_out
+        h_v[c] = contrib if h_v[c] is None else h_v[c] + contrib
+    q_v = []
+    for c in range(4):
+        num = _interior(fv[..., c, :, :, :], vreg) + zeta[c]
+        if masked:
+            vm = _interior(fv[..., 4 + c, :, :, :], vreg)
+            q_v.append(num / torch.where(vm > 0, h_v[c], torch.ones_like(h_v[c])) * vm)
+        else:
+            q_v.append(num / h_v[c])
+    nrows, ncols = _extent(reg)
+    local = (lo_m, lo_m + nrows, lo_i, lo_i + ncols)
+    q_e = [None] * 6
+    for f_out, p_out, kind, p_in, dm, di in ev_terms:
+        contrib = _sh(q_v[kind * 2 + p_in], dm, di, local)
+        c = f_out * 2 + p_out
+        q_e[c] = contrib if q_e[c] is None else q_e[c] + contrib
+    return flux, ke, [0.5 * x for x in q_e]
+
+
+def nl_continuity(h, flux, rts, dt, s_div, reg, dreg):
+    """h' and ssh' = sum_k h' - rts over ``reg`` (sharded._nl_continuity):
+    the flux out through the owned edges and in through the incoming ones,
+    read from planes over ``dreg`` (a region around ``reg``); h and rts
+    are padded planes. Returns (h', ssh') lists over parity."""
+    r0, r1, c0, c1 = reg
+    local = (r0 - dreg[0], r1 - dreg[0], c0 - dreg[2], c1 - dreg[2])
+    h_new, ssh_new = [], []
+    for p in (0, 1):
+        total = (_interior(flux[E * 2 + p], local) + _interior(flux[NE * 2 + p], local)
+                 + _interior(flux[NW * 2 + p], local))
+        for ch, dm, di in INCOMING[p]:
+            total = total - _sh(flux[ch], dm, di, local)
+        hp = _interior(h[..., p, :, :, :], reg) - (dt * s_div) * total
+        h_new.append(hp)
+        ssh_new.append(hp.sum(-1, keepdim=True) - _interior(rts[..., p, :, :, :], reg))
+    return h_new, ssh_new
+
+
+def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_terms,
+                 ev_terms, rows, cols, halo, fb=False, mask=None):
+    """One nonlinear FE or FB step on windows padded by ``halo`` = (rows,
+    columns) per side (``stencil_reach`` with the vertex taps); returns the
+    (rows, cols) interiors (ssh, h, u). Mirrors sharded._step_slab_nl:
+    stage A (``derived_slab``) on the interior plus ``derived_ring``'s ring,
+    then for FB the fresh h and ssh one ring out (``nl_continuity``), then
+    u' = u + dt (q_e T(F) / 2 + T(F q_e) / 2 - grad KE) + pg_scale grad ssh,
+    the pressure from the old ssh (FE) or the fresh one (FB), every other
+    term from the old state; the wall ``mask`` (padded as f_edge, or None)
+    multiplies u' last."""
+    hm, hi = halo
+    rm, rc = derived_ring(terms, fb)
+    inner = (hm, hm + rows, hi, hi + cols)
+    dreg = _grow(inner, rm, rc)
+    flux, ke, q_e = derived_slab(h, u, fv, s_ke, s_curl, vc_terms, ev_terms, dreg)
+    local = (rm, rm + rows, rc, rc + cols)  # the interior in dreg's planes
+    if fb:
+        h_pad, pg = nl_continuity(h, flux, rts, dt, s_div, _grow(inner, 1, 1), dreg)
+        pg_reg = (1, rows + 1, 1, cols + 1)
+        h_new = [_interior(x, pg_reg) for x in h_pad]
+        ssh_new = [_interior(x, pg_reg) for x in pg]
+    else:
+        h_new, ssh_new = nl_continuity(h, flux, rts, dt, s_div, inner, dreg)
+        pg = [ssh[..., p, :, :, :] for p in (0, 1)]
+        pg_reg = inner
+    pg_scale = -GRAVITY * dt
+
+    def tangential(x):
+        acc = [None] * 6
+        for f_out, p_out, f_in, p_in, dm, di, w in terms:
+            contrib = w * _sh(x[f_in * 2 + p_in], dm, di, local)
+            c = f_out * 2 + p_out
+            acc[c] = contrib if acc[c] is None else acc[c] + contrib
+        return acc
+
+    w_flux = tangential(flux)
+    w_fq = tangential([flux[c] * q_e[c] for c in range(6)])
+    u_new = []
+    for fam in (E, NE, NW):
+        for p in (0, 1):
+            c = fam * 2 + p
+            pin, dm, di = NEIGHBOR[(fam, p)]
+            grad_ke = (_sh(ke[pin], dm, di, local) - _interior(ke[p], local)) * inv_dc
+            grad = (_sh(pg[pin], dm, di, pg_reg) - _interior(pg[p], pg_reg)) * inv_dc
+            pv = 0.5 * (_interior(q_e[c], local) * w_flux[c] + w_fq[c])
+            un = _interior(u[..., c, :, :, :], inner) + dt * (pv - grad_ke) + pg_scale * grad
+            if mask is not None:
+                un = un * _interior(mask[..., c, :, :, :], inner)
+            u_new.append(un)
+    return tuple(torch.stack(x, dim=-4) for x in (ssh_new, h_new, u_new))
+
+
 def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows, cols,
-                 q, halo, fb=False, mask_full=None):
-    """Advance windows by q steps (pallas_model._window_steps, linear arm):
-    the state arrives padded by q halos per side and shrinks by one halo
-    per side per step; the constant fields, the wall mask ``mask_full``
-    (None on a periodic lattice) among them, are cut to each step's window.
+                 q, halo, fb=False, mask_full=None, fv_full=None, nl=None):
+    """Advance windows by q steps (pallas_model._window_steps): the state
+    arrives padded by q halos per side and shrinks by one halo per side per
+    step; the constant fields, the wall mask ``mask_full`` (None on a
+    periodic lattice) and the vertex constants ``fv_full`` among them, are
+    cut to each step's window. ``nl`` = (s_ke, s_curl, vertex_cell_terms,
+    edge_vertex_terms) runs the nonlinear step (``step_slab_nl``, on a halo
+    from ``stencil_reach`` with the vertex taps), None the linear one.
     Returns the (rows, cols) interiors."""
     hm, hi = halo
     full_m, full_i = rows + 2 * hm * q, cols + 2 * hi * q
     for j in range(q):
         om, oi = hm * j, hi * j
         win = (om, full_m - om, oi, full_i - oi)
-        ssh, h, u = step_slab(
-            ssh, h, u, _interior(f_full, win), _interior(rts_full, win),
-            dt, inv_dc, s_div, terms,
-            rows + 2 * hm * (q - 1 - j), cols + 2 * hi * (q - 1 - j), halo, fb,
-            None if mask_full is None else _interior(mask_full, win),
-        )
+        r_j, c_j = rows + 2 * hm * (q - 1 - j), cols + 2 * hi * (q - 1 - j)
+        mask_j = None if mask_full is None else _interior(mask_full, win)
+        if nl is not None:
+            s_ke, s_curl, vc_terms, ev_terms = nl
+            ssh, h, u = step_slab_nl(
+                ssh, h, u, _interior(fv_full, win), _interior(rts_full, win), dt, inv_dc,
+                s_div, s_ke, s_curl, terms, vc_terms, ev_terms, r_j, c_j, halo, fb, mask_j)
+        else:
+            ssh, h, u = step_slab(
+                ssh, h, u, _interior(f_full, win), _interior(rts_full, win),
+                dt, inv_dc, s_div, terms, r_j, c_j, halo, fb, mask_j)
     return ssh, h, u

@@ -1,12 +1,13 @@
-"""Tiled, temporally blocked rollout of the structured linear core, for
-lattices of any size: one hand-written kernel launch per q steps on the card
+"""Tiled, temporally blocked rollout of the structured core, for lattices
+of any size: one hand-written kernel launch per q steps on the card
 (kernels/tiled_step.py, csrc/tiled_step.cu).
 
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
 ``pallas_tiled_run_loop`` (:1332) and ``_pallas_tiled_rollout`` (:1221) for
-the linear core with forward Euler (FE) or forward-backward (FB), on
-periodic lattices and on coastal channels (the wall mask windowed as
-f_edge, :1287-1288, 1391-1394).
+the linear and the nonlinear core with forward Euler (FE) or
+forward-backward (FB), on periodic lattices and on coastal channels (the
+wall mask and the vertex constants windowed as f_edge, :1287-1288,
+1391-1394).
 The lattice is cut into row_tile x col_tile tiles; each tile reads its core
 and q halos of ``slab.stencil_reach`` rows and columns per side, advances q
 steps on the shrinking window (``slab.window_steps``) and writes its core.
@@ -22,7 +23,12 @@ fits when one block's share of the window, ``window_bytes``, fits the
 card's shared memory (csrc/tiled_step.cu reckons it the same way; the
 registers are fixed by the kernel's 512-thread blocks); among the plans
 that fit it takes q = 1 and the largest tile, the rule read off the
-measurements in PERF.md.
+measurements in PERF.md. The nonlinear core runs q = 1 only, FE through
+fe_step's nonlinear arm and FB through the tiled kernel's (one template,
+csrc/nl_step.cuh), planned by ``fe_step.nl_plan`` over the tiles that divide
+the lattice. A nonlinear q > 1 window is not planned: no such plan was
+timed; the linear q = 2 plans lost to q = 1 by 47-139% on an H100, and the
+nonlinear halos are 2-3 times as deep (PERF.md section 7).
 """
 
 from __future__ import annotations
@@ -30,9 +36,9 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import tiled_step
+from ..kernels import fe_step, tiled_step
 from . import fused_model
-from .model import StructMesh, StructState
+from .model import StructMesh, StructState, check_nl_mesh
 from .slab import stencil_reach, window_steps
 
 __all__ = [
@@ -187,32 +193,47 @@ def _untile(w):
     return w.permute(2, 0, 3, 1, 4, 5).reshape(ch, n_tm * rt, n_ti * ct, k)
 
 
+def _nl_args(mesh: StructMesh, dtype, nonlinear: bool):
+    """(halo's vertex taps, the step's nl tuple) for ``slab.window_steps``,
+    or (None, None) for the linear core."""
+    if not nonlinear:
+        return None, None
+    nl_terms = (mesh.vertex_cell_terms, mesh.edge_vertex_terms)
+    return nl_terms, (*fused_model.nl_scal(mesh, dtype), *nl_terms)
+
+
 def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
-                        row_tile: int, col_tile: int, q: int, fb: bool = False
-                        ) -> StructState:
+                        row_tile: int, col_tile: int, q: int, fb: bool = False, *,
+                        nonlinear: bool = False) -> StructState:
     """The tiled kernel's plain version: n_steps / q times, cut the
     periodic state into halo-padded tile windows, run ``window_steps`` on
-    all of them as one batch (the mesh's wall mask windowed with them),
-    and put the interiors back together."""
+    all of them as one batch (the mesh's wall mask and, for ``nonlinear``,
+    its vertex constants windowed with them), and put the interiors back
+    together."""
     if n_steps % q:
         raise ValueError(f"q={q} must divide n_steps={n_steps}")
     ny2, nx = mesh.ny2, mesh.nx
     k = state.layer_thickness.shape[-1]
     dtype = state.layer_thickness.dtype
-    halo = stencil_reach(mesh.coriolis_terms, fb)
+    nl_terms, nl = _nl_args(mesh, dtype, nonlinear)
+    halo = stencil_reach(mesh.coriolis_terms, fb, nl_terms)
     hm, hi = halo[0] * q, halo[1] * q
     dt_, inv_dc, s_div = fused_model._scal(mesh, dt, dtype)
     win = lambda x: _windows(x, row_tile, col_tile, hm, hi)
     f_w = win(mesh.f_edge.to(dtype).reshape(6, ny2, nx, 1))
     rts_w = win(mesh.resting_thickness_sum.to(dtype).reshape(2, ny2, nx, 1))
     mask_w = mask_windows(mesh, dtype, win)
+    fv_w = None
+    if nonlinear:
+        fv = fused_model.nl_setup(mesh, dtype)
+        fv_w = win(fv.reshape(fv.shape[0], ny2, nx, 1))
     ssh = state.ssh[..., None]
     h = state.layer_thickness
     u = state.normal_velocity.reshape(6, ny2, nx, k)
     for _ in range(n_steps // q):
         out = window_steps(win(ssh), win(h), win(u), f_w, rts_w, dt_, inv_dc, s_div,
                            mesh.coriolis_terms, rows=row_tile, cols=col_tile, q=q,
-                           halo=halo, fb=fb, mask_full=mask_w)
+                           halo=halo, fb=fb, mask_full=mask_w, fv_full=fv_w, nl=nl)
         ssh, h, u = (_untile(x) for x in out)
     return StructState(ssh=ssh[..., 0], layer_thickness=h,
                        normal_velocity=u.reshape(3, 2, ny2, nx, k))
@@ -220,12 +241,16 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
 
 def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                    row_tile: int | None = None, col_tile: int | None = None,
-                   q: int | None = None, fb: bool = False) -> StructState:
-    """n_steps FE (or, with ``fb=True``, FB) steps of the linear core, on
-    a periodic lattice or a masked channel, q per kernel launch over
-    row_tile x col_tile tiles; the plan is completed by ``resolve_plan``. A
-    CUDA state runs the kernel (its masked arm where the mesh has a wall
-    mask), a CPU state its plain version with the same plan."""
+                   q: int | None = None, nonlinear: bool = False,
+                   fb: bool = False) -> StructState:
+    """n_steps FE (or, with ``fb=True``, FB) steps of the linear core or,
+    with ``nonlinear``, of the vector-invariant one, on a periodic lattice
+    or a masked channel, q per kernel launch over row_tile x col_tile
+    tiles; the plan is completed by ``resolve_plan``. A CUDA state runs the
+    kernel (its masked arm where the mesh has a wall mask; for the
+    nonlinear core at q = 1 only, and a nonlinear q > 1 raises: FE through
+    fe_step's nonlinear arm, FB through the tiled kernel's), a CPU state its
+    plain version with the same plan."""
     device = state.layer_thickness.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rollout for state on {device}")
@@ -233,20 +258,38 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
         raise ValueError("n_steps must be >= 0")
     k = state.layer_thickness.shape[-1]
     dtype = state.layer_thickness.dtype
-    halo = stencil_reach(mesh.coriolis_terms, fb)
+    if nonlinear:
+        check_nl_mesh(mesh)
+    nl_terms, _ = _nl_args(mesh, dtype, nonlinear)
+    halo = stencil_reach(mesh.coriolis_terms, fb, nl_terms)
+    if nonlinear and (row_tile is None or col_tile is None):
+        tiles = [(r, c) for r in _divisors(mesh.ny2) for c in _divisors(mesh.nx)]
+        rt, ct, _ = fe_step.nl_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, fb, tiles)
+        row_tile = rt if row_tile is None else row_tile
+        col_tile = ct if col_tile is None else col_tile
     rt, ct, q = resolve_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, halo, n_steps,
                              row_tile, col_tile, q)
     if device.type == "cpu":
         if n_steps == 0:
             return StructState(*(x.clone() for x in (
                 state.ssh, state.layer_thickness, state.normal_velocity)))
-        return plain_tiled_rollout(state, mesh, dt, n_steps, rt, ct, q, fb)
-    ssh, h, u = tiled_step.tiled_rollout(
-        state.ssh, state.layer_thickness, state.normal_velocity,
-        mesh.f_edge.to(dtype).contiguous(),
-        mesh.resting_thickness_sum.to(dtype).contiguous(),
-        *mesh.host_stencil, *fused_model._scal(mesh, dt, dtype), n_steps,
-        row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb,
-        live=fused_model.kernel_live(mesh),
-    )
+        return plain_tiled_rollout(state, mesh, dt, n_steps, rt, ct, q, fb,
+                                   nonlinear=nonlinear)
+    consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
+    scal = fused_model._scal(mesh, dt, dtype)
+    if nonlinear:
+        if q != 1:
+            raise ValueError(f"the tiled kernel's nonlinear arms run q = 1, not q = {q}")
+        run = tiled_step.tiled_nl_rollout if fb else fe_step.fe_nl_rollout
+        ssh, h, u = run(state.ssh, state.layer_thickness, state.normal_velocity, *consts,
+                        fused_model.nl_setup(mesh, dtype), *nl_terms, *scal,
+                        *fused_model.nl_scal(mesh, dtype), n_steps,
+                        live=fused_model.kernel_live(mesh), tile=(rt, ct))
+    else:
+        ssh, h, u = tiled_step.tiled_rollout(
+            state.ssh, state.layer_thickness, state.normal_velocity,
+            mesh.f_edge.to(dtype).contiguous(), *consts, *scal, n_steps,
+            row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb,
+            live=fused_model.kernel_live(mesh),
+        )
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)

@@ -1,7 +1,7 @@
 """Time the window kernels' plans and tiles on the card.
 
     python -m mpas_ocean_tpu_torch.tools.tile_sweep [--sizes 256 64] [--steps 40]
-        [--kernels forward reverse] [--out tile_sweep.json]
+        [--kernels forward reverse nonlinear] [--out tile_sweep.json]
 
 For each lattice size (n x n cells, 100 levels, f32, the inertial-gravity
 wave at dt = 30 s):
@@ -16,11 +16,17 @@ wave at dt = 30 s):
   columns 2-32, ragged tiles too) that fits, and ``tiled_adjoint_rollout``
   for each plan of at least 8 sites that divides the lattice and fits (q = 1
   and 2), each per launch by ``reverse_timing.held_us`` (median of 3 after
-  a warm-up).
+  a warm-up);
+* nonlinear: the nonlinear arms (csrc/nl_step.cuh) at q = 1, by CUDA events
+  as forward: fe_step's FE arm through ``fe_step.fe_nl_rollout`` and
+  tiled_step's FB arm through ``tiled_step.tiled_nl_rollout``, for each
+  tile of powers of two up to 16 x 32 of at least 8 sites, cut to the
+  lattice, and each slice of 1-16 levels that fits.
 
 Prints one line per plan, fastest first, with the blocks per SM (CUDA's
 occupancy calculator), the plan the planner (``tile_plan``, ``fe_tile``,
-``adjoint_tile``, ``tiled_adjoint_plan``) picks and its rank (from 0), and
+``adjoint_tile``, ``tiled_adjoint_plan``, ``nl_plan``)
+picks and its rank (from 0), and
 writes all the numbers as JSON to ``--out``; a line on stderr names each
 plan before it is timed. The planners' rules and the FE size rule of
 ``fused_model`` are read off this output (PERF.md). Needs a CUDA device.
@@ -42,7 +48,7 @@ import torch
 import mpas_ocean_tpu_torch as mt
 from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint, tiled_step
 from mpas_ocean_tpu_torch.structured import tile_plan, tiled_adjoint_plan, tiled_run_loop
-from mpas_ocean_tpu_torch.structured.fused_model import _scal
+from mpas_ocean_tpu_torch.structured.fused_model import _scal, nl_scal, nl_setup
 from mpas_ocean_tpu_torch.structured.slab import stencil_reach
 from mpas_ocean_tpu_torch.structured.tiled_diff import adjoint_window_bytes, reverse_halo
 from mpas_ocean_tpu_torch.structured.tiled_model import resolve_plan, window_bytes
@@ -203,6 +209,44 @@ def reverse_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
     return entry
 
 
+def nonlinear_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
+    """Per-step device times of the nonlinear arms over every tile and slice
+    that fits: fe_step's FE arm, tiled_step's FB arm (q = 1)."""
+    sm = model.struct_mesh
+    consts = (sm.resting_thickness_sum, *sm.host_stencil, nl_setup(sm, torch.float32),
+              sm.vertex_cell_terms, sm.edge_vertex_terms, *_scal(sm, DT, torch.float32),
+              *nl_scal(sm, torch.float32))
+    kc = fe_step.level_split(LEVELS)[1]
+    tiles = dict.fromkeys((min(rt, sm.ny2), min(ct, sm.nx)) for rt in (1, 2, 4, 8, 16)
+                          for ct in (1, 2, 4, 8, 16, 32) if rt * ct >= 8)
+    entry = {}
+    for name, fb in (("fe_step FE", False), ("tiled_step FB", True)):
+        rows = []
+        wrapper = tiled_step.tiled_nl_rollout if fb else fe_step.fe_nl_rollout
+        for tile in tiles:
+            for ks in (1, 2, 4, 8, 16):
+                if ks > kc or fe_step.nl_smem_bytes(tile, LEVELS, 4, fb, ks) > fe_step.SMEM_BYTES:
+                    continue
+                progress(f"{n}: {name} {tile} slice {ks}")
+                run = lambda s: wrapper(st.ssh, st.layer_thickness, st.normal_velocity, *consts,
+                                        s, tile=tile, ks=ks)
+                t = per_step_us(run, n_steps)
+                rows.append(((*tile, ks), t, fe_step.nl_launch_plan(sm.ny2, sm.nx, LEVELS, tile,
+                                                                    ks, fb)))
+        rows.sort(key=lambda r: statistics.median(r[1]))
+        chosen = fe_step.nl_plan(sm.ny2, sm.nx, LEVELS, 4, fb)
+        rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
+        print(f"{n}x{n}x{LEVELS} f32: nonlinear {name}, {len(rows)} (tile, slice) plans; the "
+              f"planner picks {chosen}, rank {rank} [{gpu}]", flush=True)
+        for plan, t, lp in rows:
+            print(f"    {name} {plan}: {statistics.median(t):.3f} us/step (min {min(t):.3f}, "
+                  f"max {max(t):.3f}); {lp['smem_bytes']} bytes, {lp['blocks_per_sm']} blocks "
+                  f"per SM, {lp['clusters']} clusters", flush=True)
+        entry[name] = [{"plan": p, "us_per_step": t, **lp} for p, t, lp in rows]
+        entry[name + " chosen"] = chosen
+    return entry
+
+
 def sweep(sizes, n_steps: int, kernels=("forward", "reverse")) -> dict:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -212,6 +256,9 @@ def sweep(sizes, n_steps: int, kernels=("forward", "reverse")) -> dict:
         model, st = igw_lattice(n)
         if "reverse" in kernels:
             result.setdefault("reverse", {})[str(n)] = reverse_sweep(n, model, st, n_steps, gpu)
+        if "nonlinear" in kernels:
+            result.setdefault("nonlinear", {})[str(n)] = nonlinear_sweep(n, model, st, n_steps,
+                                                                         gpu)
         if "forward" not in kernels:
             continue
         sm = model.struct_mesh
@@ -269,7 +316,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[256, 64])
     ap.add_argument("--steps", type=int, default=40)
-    ap.add_argument("--kernels", nargs="+", choices=("forward", "reverse"),
+    ap.add_argument("--kernels", nargs="+", choices=("forward", "reverse", "nonlinear"),
                     default=["forward", "reverse"])
     ap.add_argument("--out", type=Path, default=Path("tile_sweep.json"))
     args = ap.parse_args()

@@ -7,6 +7,8 @@ numpy with the masks, and the channel's physics (walls, volume, the wave's
 propagation, as tests/test_kelvin.py holds the JAX package's gather path).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -193,14 +195,15 @@ def test_parent_and_keep_cells_go_together(channel16):
 
 
 def test_masked_nonlinear_raises(channel16):
-    """Only the linear core is ported (the nonlinear arm's masked vertex
-    constants neither): asked for nonlinear dynamics, a masked lattice
-    raises and nothing falls back to the linear core."""
+    """A masked lattice built by hand, without the masked vertex constants
+    (vertex_kite_planes, vertex_mask), refuses nonlinear dynamics (JAX
+    tests/test_nonlinear.py:348), through every entry point, and nothing
+    falls back to the linear core or to the periodic kite weights."""
     _, smp, _, _, _, st_p = channel16
-    with pytest.raises(TypeError, match="nonlinear"):
-        structured_run_loop(st_p, smp.struct_mesh, DT, 2, nonlinear=True)
-    with pytest.raises(TypeError, match="nonlinear"):
-        structured_auto_run_loop(st_p, smp.struct_mesh, DT, 2, nonlinear=True)
+    bare = dataclasses.replace(smp.struct_mesh, vertex_kite_planes=None, vertex_mask=None)
+    for run in (structured_run_loop, structured_auto_run_loop, tiled_run_loop):
+        with pytest.raises(NotImplementedError, match="masked vertex"):
+            run(st_p, bare, DT, 2, nonlinear=True)
 
 
 def test_live_bits_pack_the_mask(channel16):

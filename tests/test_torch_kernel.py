@@ -18,8 +18,11 @@ from torch_gpu_cases import (  # noqa: F401 (fixture)
     assert_walls_closed,
     channel_lattice,
     cuda,
+    assert_nonlinear_f32,
+    assert_plan_f32,
     random_lattice,
     reversed_terms_mesh,
+    wave_lattice,
 )
 
 pytestmark = pytest.mark.gpu
@@ -200,3 +203,125 @@ def test_masked_kernel_f32_kelvin_channel(cuda):
     assert_walls_closed(out.normal_velocity, sm)
     dead = (sm.cell_mask == 0)[..., None].expand_as(out.layer_thickness)
     assert bool((out.layer_thickness.masked_select(dead) == 0).all())
+
+
+# ---- the nonlinear arm (csrc/nl_step.cuh) -----------------------------------
+
+def _nl_args(sm, dt, dtype=torch.float64):
+    """fe_nl_rollout's constants after the state: rts, the host stencil, the
+    vertex constants, the vertex stencils, the scalars."""
+    return (sm.resting_thickness_sum.to(dtype).contiguous(), *sm.host_stencil,
+            fused_model.nl_setup(sm, dtype), sm.vertex_cell_terms, sm.edge_vertex_terms,
+            *fused_model._scal(sm, dt, dtype), *fused_model.nl_scal(sm, dtype))
+
+
+def _rel(out, ref, sm):
+    column = (ref.ssh + sm.resting_thickness_sum).abs().max()
+    errs = {}
+    for a, f in zip(out, FIELDS):
+        b = getattr(ref, f)
+        scale = column if f == "ssh" else b.abs().max()
+        errs[f] = float((a.reshape(b.shape).double() - b.double()).abs().max() / scale)
+    return errs
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape, tile, ks", [
+    ((16, 16, 4), None, None),     # the planner's tile and slice
+    ((16, 16, 4), (3, 5), 1),      # ragged tiles in both directions; chunks of one level
+    ((8, 8, 4), (4, 8), 1),        # one tile: its 8 x 16 window wraps over the 4 x 8 lattice
+    ((10, 12, 33), (4, 4), 2),     # chunks of 8 levels in 4 slices, one value per copy
+    ((16, 16, 20), (2, 8), 4),     # chunks of 4 levels, 16-byte copies of f64 pairs
+    ((16, 16, 100), (4, 16), 4),   # the main path's chunk of 16 levels in 4 slices
+    ((16, 16, 100), (2, 8), 8),    # ... in 2 slices
+    ((32, 32, 100), (8, 16), 2),   # the 256^2 f32 main path's tile, in f64's largest slice
+])
+def test_nonlinear_kernel_matches_plain_f64(cuda, shape, tile, ks, masked):
+    """fe_step's nonlinear arm, 7 steps, f64, on a random state whose u
+    (0.5 m/s) makes the relative vorticity outweigh f: 1e-12 of each field's
+    scale against the plain nonlinear steps, a rerun bitwise equal, one
+    launch a step; the linear steps miss by 100x the tolerance; on a
+    channel u +0.0 bit for bit on every wall and culled edge."""
+    lattice = channel_lattice if masked else random_lattice
+    model, st = lattice(*shape, cuda, seed=5, u_amp=0.5)
+    sm = model.struct_mesh
+    args = (st.ssh, st.layer_thickness, st.normal_velocity, *_nl_args(sm, 10.0), 7)
+    live = fused_model.kernel_live(sm)
+    fe_step.launches = 0
+    out = fe_step.fe_nl_rollout(*args, live=live, tile=tile, ks=ks)
+    again = fe_step.fe_nl_rollout(*args, live=live, tile=tile, ks=ks)
+    assert fe_step.launches == 14
+    ref = structured_run_loop(st, sm, 10.0, 7, nonlinear=True)
+    torch.cuda.synchronize()
+    for f, err in _rel(out, ref, sm).items():
+        assert err <= 1e-12, (f, err)
+    assert max(_rel(out, structured_run_loop(st, sm, 10.0, 7), sm).values()) >= 1e-10
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    if masked:
+        assert_walls_closed(out[2].reshape(st.normal_velocity.shape), sm)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_nonlinear_route_runs_the_kernel(cuda, masked, monkeypatch):
+    """structured_auto_run_loop(nonlinear=True) on a CUDA state, FE: one
+    fe_step launch a step and never the plain steps."""
+    lattice = channel_lattice if masked else random_lattice
+    model, st = lattice(16, 16, 4, cuda, seed=5, u_amp=0.5)
+    sm = model.struct_mesh
+    ref = structured_run_loop(st, sm, 10.0, 5, nonlinear=True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA state reached the plain version")
+
+    monkeypatch.setattr(fused_model, "structured_run_loop", refuse)
+    fe_step.launches = 0
+    out = mt.structured_auto_run_loop(st, sm, 10.0, 5, nonlinear=True)
+    assert fe_step.launches == 5
+    for f, err in _rel([getattr(out, f) for f in FIELDS], ref, sm).items():
+        assert err <= 1e-12, (f, err)
+
+
+def test_nonlinear_kernel_refuses_tables_that_are_not_the_hex_lattices(cuda):
+    """The nonlinear arm takes the hex lattice's vertex and Coriolis tables
+    only; a mesh without the vertex constants raises before any launch."""
+    import dataclasses
+
+    model, st = random_lattice(16, 16, 4, cuda, u_amp=0.5)
+    sm = model.struct_mesh
+    ev = list(sm.edge_vertex_terms)
+    ev[0], ev[1] = ev[1], ev[0]
+    for bad in (dataclasses.replace(sm, edge_vertex_terms=tuple(ev)), reversed_terms_mesh(sm)):
+        with pytest.raises(ValueError, match="hex lattice"):
+            fused_run_loop(st, bad, 10.0, 2, nonlinear=True)
+    bare = dataclasses.replace(sm, vertex_cell_terms=(), edge_vertex_terms=(), f_vertex=None)
+    fe_step.launches = 0
+    with pytest.raises(ValueError, match="vertex stencils"):
+        mt.structured_auto_run_loop(st, bare, 10.0, 2, nonlinear=True)
+    assert fe_step.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["igw", "kelvin"])
+def test_nonlinear_kernel_f32_at_full_depth(cuda, kind):
+    """fe_step's nonlinear arm at bench.py's 64x64x100 f32 (the IGW, and
+    the Kelvin channel through the masked arm), 100 steps of dt = 30 s:
+    chip_smoke.py phase 12's f32 tolerances against the plain nonlinear
+    steps (torch_gpu_cases.assert_nonlinear_f32)."""
+    model, st = wave_lattice(kind, 64, 100, cuda)
+    sm = model.struct_mesh
+    model64, st64 = wave_lattice(kind, 64, 100, cuda, np.float64)
+    out = fused_run_loop(st, sm, 30.0, 100, nonlinear=True)
+    ref = structured_run_loop(st, sm, 30.0, 100, nonlinear=True)
+    ref64 = structured_run_loop(st64, model64.struct_mesh, 30.0, 100, nonlinear=True)
+    torch.cuda.synchronize()
+    assert_nonlinear_f32(out, ref, ref64, sm)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("tile, ks", [((4, 16), 8), ((8, 16), 4)])
+def test_nonlinear_kernel_f32_at_the_main_path_plans(cuda, tile, ks, masked):
+    """fe_step's nonlinear arm at the f32 main paths' own plans, (4, 16, 8)
+    at 64^2 and (8, 16, 4) at 256^2, which do not fit f64: chip_smoke.py
+    phase 12's check, where dropping the nonlinear terms misses by 100x
+    (torch_gpu_cases.assert_plan_f32)."""
+    assert_plan_f32(fe_step.fe_nl_rollout, False, tile, ks, masked, cuda)

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from mpas_ocean_tpu_torch.kernels import tiled_step
+from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
 from mpas_ocean_tpu_torch.structured import (
     fused_model,
     structured_auto_run_loop,
@@ -24,8 +24,11 @@ from torch_gpu_cases import (  # noqa: F401 (fixture)
     assert_walls_closed,
     channel_lattice,
     cuda,
+    assert_nonlinear_f32,
+    assert_plan_f32,
     random_lattice,
     reversed_terms_mesh,
+    wave_lattice,
 )
 
 pytestmark = pytest.mark.gpu
@@ -212,3 +215,97 @@ def test_masked_kernel_f32_at_full_depth(cuda, fb):
     for f, err in _rel_errors(out, ref, sm.resting_thickness_sum).items():
         assert err <= tol[f], (f, err)
     assert_walls_closed(out.normal_velocity, sm)
+
+
+# ---- the nonlinear arms (csrc/nl_step.cuh), q = 1 --------------------------------
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("fb, shape, tile", [
+    (False, (16, 16, 4), None),      # the planner's plan
+    (True, (16, 16, 4), None),
+    (False, (16, 16, 20), (2, 8)),   # chunks of 4 levels
+    (True, (16, 16, 33), (4, 4)),    # one value per copy
+    (True, (16, 16, 100), (4, 8)),   # the main path's chunk of 16 levels
+    (True, (32, 32, 4), (8, 16)),
+    (True, (32, 32, 100), (8, 8)),   # the f32 main path's FB tile, in f64's largest slice
+    (False, (32, 32, 4), (1, 32)),   # one-row tiles the lattice's width
+])
+def test_nonlinear_kernel_matches_plain_f64(cuda, fb, shape, tile, masked):
+    """The tiled route's nonlinear arms, FE (reach 2, fe_step's arm) and FB
+    (reach 3, tiled_step's), 6 steps at q = 1, f64, on a random state with
+    u of 0.5 m/s: 1e-12 of each field's scale against the plain windows of
+    the same plan and the plain nonlinear steps, a rerun bitwise equal, one
+    launch a step of the arm's kernel and none of the other's; on a channel
+    u +0.0 bit for bit on every wall and culled edge."""
+    lattice = channel_lattice if masked else random_lattice
+    model, st = lattice(*shape, cuda, seed=5, u_amp=0.5)
+    sm = model.struct_mesh
+    rt, ct = tile or (None, None)
+    run = lambda: tiled_run_loop(st, sm, 10.0, 6, row_tile=rt, col_tile=ct, nonlinear=True,
+                                 fb=fb)
+    fe_step.launches = tiled_step.launches = 0
+    out, again = run(), run()
+    assert (fe_step.launches, tiled_step.launches) == ((0, 12) if fb else (12, 0))
+    if tile is None:
+        rt, ct, _ = fe_step.nl_plan(sm.ny2, sm.nx, shape[2], 8, fb)
+    plan = (rt, ct, 1)
+    for ref in (tiled_model.plain_tiled_rollout(st, sm, 10.0, 6, *plan, fb, nonlinear=True),
+                structured_run_loop(st, sm, 10.0, 6, nonlinear=True, fb=fb)):
+        for f, err in _rel_errors(out, ref, sm.resting_thickness_sum).items():
+            assert err <= 1e-12, (f, err)
+    for f in FIELDS:
+        assert torch.equal(getattr(out, f), getattr(again, f)), f
+    if masked:
+        assert_walls_closed(out.normal_velocity, sm)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_nonlinear_fb_route_runs_the_kernel(cuda, masked, monkeypatch):
+    """structured_auto_run_loop(nonlinear=True, fb=True) on a CUDA state:
+    one tiled_step launch a step, never the plain steps; a nonlinear q > 1
+    on the card raises (not planned)."""
+    lattice = channel_lattice if masked else random_lattice
+    model, st = lattice(16, 16, 4, cuda, seed=5, u_amp=0.5)
+    sm = model.struct_mesh
+    ref = structured_run_loop(st, sm, 10.0, 4, nonlinear=True, fb=True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA state reached the plain version")
+
+    monkeypatch.setattr(tiled_model, "plain_tiled_rollout", refuse)
+    monkeypatch.setattr(fused_model, "structured_run_loop", refuse)
+    tiled_step.launches = 0
+    out = structured_auto_run_loop(st, sm, 10.0, 4, nonlinear=True, fb=True)
+    assert tiled_step.launches == 4
+    for f, err in _rel_errors(out, ref, sm.resting_thickness_sum).items():
+        assert err <= 1e-12, (f, err)
+    big, st_b = lattice(32, 32, 4, cuda, seed=5, u_amp=0.5)  # room for q = 2 windows
+    with pytest.raises(ValueError, match="q = 1"):
+        tiled_run_loop(st_b, big.struct_mesh, 10.0, 4, row_tile=2, col_tile=4, q=2,
+                       nonlinear=True, fb=True)
+
+
+@pytest.mark.parametrize("kind", ["igw", "kelvin"])
+@pytest.mark.parametrize("fb", [False, True])
+def test_nonlinear_kernel_f32_at_full_depth(cuda, kind, fb):
+    """tiled_step's nonlinear arms at bench.py's 64x64x100 f32 (the IGW,
+    and the Kelvin channel through the masked arms), 100 steps of dt = 30 s
+    at the planner's plan: chip_smoke.py phase 12's f32 tolerances against
+    the plain nonlinear steps (torch_gpu_cases.assert_nonlinear_f32)."""
+    model, st = wave_lattice(kind, 64, 100, cuda)
+    sm = model.struct_mesh
+    model64, st64 = wave_lattice(kind, 64, 100, cuda, np.float64)
+    out = tiled_run_loop(st, sm, 30.0, 100, nonlinear=True, fb=fb)
+    ref = structured_run_loop(st, sm, 30.0, 100, nonlinear=True, fb=fb)
+    ref64 = structured_run_loop(st64, model64.struct_mesh, 30.0, 100, nonlinear=True, fb=fb)
+    torch.cuda.synchronize()
+    assert_nonlinear_f32(out, ref, ref64, sm)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_nonlinear_fb_kernel_f32_at_the_main_path_plan(cuda, masked):
+    """tiled_step's nonlinear FB arm at the f32 main paths' own plan
+    (8, 8, 4), which does not fit f64: chip_smoke.py phase 12's check, where
+    dropping the nonlinear terms misses by 100x
+    (torch_gpu_cases.assert_plan_f32)."""
+    assert_plan_f32(tiled_step.tiled_nl_rollout, True, (8, 8), 4, masked, cuda)

@@ -20,16 +20,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def random_lattice(nx, ny, k, device, seed=7, dc=1000.0, dtype=np.float64):
+def random_lattice(nx, ny, k, device, seed=7, dc=1000.0, dtype=np.float64, u_amp=0.01):
     """(StructuredModel, random lattice state) on ``device``, in ``dtype``
-    (the random values are drawn in f64)."""
+    (the random values are drawn in f64; u of standard deviation u_amp, at
+    0.5 m/s the relative vorticity outweighs f and the nonlinear terms
+    matter)."""
     horz = mt.planar_hex_mesh(nx, ny, dc, f0=1e-4, beta=1e-11, dtype=dtype)
     vert = mt.make_vertical_mesh(
         horz, k, resting_thickness=np.full((horz.n_cells, k), 10.0, dtype=dtype), dtype=dtype
     )
     rng = np.random.default_rng(seed)
     h = 10.0 + 0.01 * rng.normal(size=(horz.n_cells, k))
-    u = 0.01 * rng.normal(size=(horz.n_edges, k))
+    u = u_amp * rng.normal(size=(horz.n_edges, k))
     prog = mt.PrognosticVars(
         ssh=torch.from_numpy((h.sum(1) - vert.resting_thickness_sum).astype(dtype)),
         layer_thickness=torch.from_numpy(h.astype(dtype)),
@@ -39,7 +41,7 @@ def random_lattice(nx, ny, k, device, seed=7, dc=1000.0, dtype=np.float64):
     return model, model.to_struct(prog)
 
 
-def channel_lattice(nx, ny, k, device, seed=7, dc=1000.0, dtype=np.float64):
+def channel_lattice(nx, ny, k, device, seed=7, dc=1000.0, dtype=np.float64, u_amp=0.01):
     """(StructuredModel, random lattice state) of a coastal channel on
     ``device``, in ``dtype``: the nx x ny periodic hex lattice with its first
     and last cell rows culled (bench.py's build_kelvin), so walls run north
@@ -54,7 +56,7 @@ def channel_lattice(nx, ny, k, device, seed=7, dc=1000.0, dtype=np.float64):
     )
     rng = np.random.default_rng(seed)
     h = 10.0 + 0.01 * rng.normal(size=(chan.n_cells, k))
-    u = 0.01 * rng.normal(size=(chan.n_edges, k))
+    u = u_amp * rng.normal(size=(chan.n_edges, k))
     prog = mt.PrognosticVars(
         ssh=torch.from_numpy((h.sum(1) - vert.resting_thickness_sum).astype(dtype)),
         layer_thickness=torch.from_numpy(h.astype(dtype)),
@@ -82,3 +84,86 @@ def reversed_terms_mesh(mesh):
     d = mt.structured.struct_mesh_to_numpy(mesh)
     d["coriolis_terms"] = tuple(reversed(mesh.coriolis_terms))
     return mt.structured.struct_mesh_from_numpy(d).to(mesh.f_edge.device)
+
+
+def wave_lattice(kind, n, k, device, dtype=np.float32):
+    """(StructuredModel, lattice state) of bench.py's cases on ``device``:
+    ``kind`` "igw", the inertial-gravity wave on the periodic n x n lattice
+    over a 10000 km box (build()), or "kelvin", the Kelvin wave on that
+    lattice with its first and last cell rows culled (build_kelvin); k
+    levels of 1000 m / k, in ``dtype``."""
+    dc = 10000.0e3 / n
+    horz = mt.planar_hex_mesh(n, n, dc, f0=1e-4, dtype=dtype)
+    mesh, kw = horz, {}
+    if kind == "kelvin":
+        y = np.asarray(horz.cells.y)
+        keep = (y > 0.5 * dc) & (y < y.max() - 0.5 * dc)
+        mesh = mt.cull_cells(horz, keep)
+        kw = {"parent_horz": horz, "keep_cells": keep}
+        wave = mt.KelvinWave(lx=n * dc / 1e3)
+    else:
+        wave = mt.InertialGravityWave(lx=n * dc / 1e3)
+    vert = mt.make_vertical_mesh(
+        mesh, k, resting_thickness=np.full((mesh.n_cells, k), 1000.0 / k, dtype=dtype),
+        dtype=dtype)
+    arrays = wave.initial_state(mesh, k)
+    model = mt.StructuredModel(mt.Mesh(horz=mesh, vert=vert), n, n, device=device, **kw)
+    return model, model.to_struct(mt.PrognosticVars(*(torch.from_numpy(a.astype(dtype))
+                                                       for a in arrays)))
+
+
+def assert_nonlinear_f32(out, ref, ref64, mesh):
+    """chip_smoke.py phase 12's f32 check after 100 steps (PERF.md section
+    2): ssh and h within 1e-5 of scale of the plain f32 run ``ref``; u
+    within 3e-4 of max|u| on a periodic lattice, and on a channel its
+    distance from the f64 plain run ``ref64`` at most 3x the plain f32
+    run's."""
+    column = (ref.ssh + mesh.resting_thickness_sum).abs().max()
+    for f in ("ssh", "layer_thickness"):
+        a, b = getattr(out, f), getattr(ref, f)
+        scale = column if f == "ssh" else b.abs().max()
+        assert float((a - b).abs().max() / scale) <= 1e-5, f
+    if mesh.edge_mask is None:
+        u, v = out.normal_velocity, ref.normal_velocity
+        assert float((u - v).abs().max() / v.abs().max()) <= 3e-4
+    else:
+        gap = lambda x: float((x.normal_velocity.double() - ref64.normal_velocity).abs().max())
+        assert gap(out) <= 3 * gap(ref), (gap(out), gap(ref))
+        assert_walls_closed(out.normal_velocity, mesh)
+
+
+def assert_plan_f32(wrapper, fb, tile, ks, masked, device):
+    """chip_smoke.py phase 12's check of a main path's own f32 plan (tile,
+    slice ks) through its wrapper (``fe_step.fe_nl_rollout`` or
+    ``tiled_step.tiled_nl_rollout``), 20 steps of dt = 10 s on a random
+    32 x 32 x 100 f32 lattice (or channel) at 10 km spacing with u of 0.5
+    m/s: ssh and h within 1e-5 of scale of the plain f32 steps, u no farther
+    from an f64 plain run from the same values than 3x the plain f32 run,
+    and the linear run 100x farther than that."""
+    from mpas_ocean_tpu_torch.structured import StructState, fused_model, structured_run_loop
+
+    lattice = channel_lattice if masked else random_lattice
+    model, st = lattice(32, 32, 100, device, seed=5, dc=1e4, dtype=np.float32, u_amp=0.5)
+    model64, _ = lattice(32, 32, 100, device, seed=5, dc=1e4, u_amp=0.5)
+    sm, sm64 = model.struct_mesh, model64.struct_mesh
+    st64 = StructState(*(x.double() for x in (st.ssh, st.layer_thickness, st.normal_velocity)))
+    out = StructState(*wrapper(
+        st.ssh, st.layer_thickness, st.normal_velocity, sm.resting_thickness_sum.contiguous(),
+        *sm.host_stencil, fused_model.nl_setup(sm, torch.float32), sm.vertex_cell_terms,
+        sm.edge_vertex_terms, *fused_model._scal(sm, 10.0, torch.float32),
+        *fused_model.nl_scal(sm, torch.float32), 20, live=fused_model.kernel_live(sm),
+        tile=tile, ks=ks))
+    ref = structured_run_loop(st, sm, 10.0, 20, nonlinear=True, fb=fb)
+    lin = structured_run_loop(st, sm, 10.0, 20, fb=fb)
+    ref64 = structured_run_loop(st64, sm64, 10.0, 20, nonlinear=True, fb=fb)
+    torch.cuda.synchronize()
+    column = (ref.ssh + sm.resting_thickness_sum).abs().max()
+    for f in ("ssh", "layer_thickness"):
+        a, b = getattr(out, f), getattr(ref, f)
+        scale = column if f == "ssh" else b.abs().max()
+        assert float((a - b).abs().max() / scale) <= 1e-5, f
+    gap = lambda x: float((x.normal_velocity.double() - ref64.normal_velocity).abs().max())
+    assert gap(out) <= 3 * gap(ref), (gap(out), gap(ref))
+    assert gap(lin) >= 100 * 3 * gap(ref), (gap(lin), gap(ref))
+    if masked:
+        assert_walls_closed(out.normal_velocity, sm)
