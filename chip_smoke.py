@@ -65,7 +65,17 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      paths (64x64x100 IGW FE over 8000 steps, 256x256x100 FE and FB over
      1000, the 64^2 Kelvin channel FE over 8000) with launch counts, times,
      bounds and the ratio to the linear arm, the nonlinear IGW error against
-     an f64 host run, the walls.
+     an f64 host run, the walls;
+ 13. the nonlinear reverse (csrc/nl_adjoint.cuh, the nonlinear arms of
+     kernels 3 and 4): the kernel against the plain nonlinear reverse step
+     (f64 16^2, 64^2 and 256^2, periodic and channel, at its own and the f32
+     main paths' plans, with the linear reverse as a control; f32 at the
+     main paths' own plans over 100 reverse steps by the distance from an f64
+     reverse), the dot-product identity, the gradients from to_struct (64^2
+     IGW and Kelvin channel over 4000 steps, 256^2 over 100 through
+     auto_rollout_diff and tiled_rollout_diff) with exact launch counts,
+     times and a profiler breakdown, and the kernel per launch beside its
+     bound.
 The line before the last prints the GPU's name and power limit as nvidia-smi
 gives them, the one before it the kernels' JSON summary, and the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
@@ -746,10 +756,11 @@ def cot_errors(a, b, ddt_a, ddt_b) -> dict:
     return out
 
 
-def grad_sum_ssh2(route, st, sm, n_steps: int, plan=None):
+def grad_sum_ssh2(route, st, sm, n_steps: int, plan=None, **kw):
     """torch.autograd.grad of sum(ssh_final^2) in the state and dt through
-    ``route`` (fused_rollout_diff, tiled_rollout_diff, auto_rollout_diff).
-    Returns (final state, (d_ssh, d_h, d_u, d_dt))."""
+    ``route`` (fused_rollout_diff, tiled_rollout_diff, auto_rollout_diff;
+    ``kw`` its options, ``nonlinear``). Returns (final state, (d_ssh, d_h,
+    d_u, d_dt))."""
     import torch
 
     from mpas_ocean_tpu_torch.structured import StructState
@@ -757,7 +768,7 @@ def grad_sum_ssh2(route, st, sm, n_steps: int, plan=None):
     leaves = [x.clone().requires_grad_(True) for x in state_fields(st)]
     x = st.layer_thickness
     dt = torch.tensor(DT, dtype=x.dtype, device=x.device, requires_grad=True)
-    out = route(StructState(*leaves), sm, dt, n_steps, plan=plan)
+    out = route(StructState(*leaves), sm, dt, n_steps, plan=plan, **kw)
     return out, torch.autograd.grad((out.ssh ** 2).sum(), leaves + [dt])
 
 
@@ -2264,6 +2275,371 @@ def nonlinear_phase(gpu: str, log_text: str, linear: dict) -> dict:
     }
 
 
+# Floating-point operations per (m, i, k) site of one nonlinear reverse
+# step, counted from csrc/nl_adjoint.cuh with each intermediate once (not
+# its recompute on the rings): stage A 70 (F 18, q_v of the site's 4 vertices
+# 40, q_e 12), stage B 424 (T(F), T^T(gu) 96 each, T^T(gu q_e) 144, dq_e 24,
+# dF 42, a and dt T^T(gu) 12, Sg 10), stage C 32, stage D 124 (du 72, dh 50,
+# ds 2), the step's d(dt) 92.
+NL_ADJOINT_FLOPS = 742
+
+
+def nl_adjoint_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int,
+                     masked: bool = False, peaks: dict | None = None):
+    """(bound seconds, "bytes" or "operations") of one launch of the
+    nonlinear reverse: a primal state, a cotangent, the vertex constants (4
+    planes, 20 on a channel) and the tables read, a cotangent and the d(dt)
+    share written, over the byte rate; NL_ADJOINT_FLOPS per (m, i, k) site
+    over the dtype's FMA rate. ``peaks`` as for ``step_bound``."""
+    cells = 2 * ny2 * nx
+    state = cells * (1 + 4 * k)
+    consts = (20 if masked else 4) * ny2 * nx
+    tables = 4 * (2 * (44 + 3 * n_terms) + 12 * 11) + 8 * (2 * n_terms + 12)
+    nbytes = itemsize * (3 * state + consts) + 8 + tables
+    ops = ny2 * nx * k * NL_ADJOINT_FLOPS
+    peaks = CEILING if peaks is None else peaks
+    rate = byte_rate(peaks, itemsize * state)
+    t_bytes, t_ops = nbytes / rate, ops / peaks["flops"][itemsize]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nl_reverse_phase(gpu: str, log_text: str) -> dict:
+    """Phase 13, the nonlinear reverse (csrc/nl_adjoint.cuh, the nonlinear
+    arms of kernels 3 and 4): the kernel against the plain
+    structured_nl_adjoint_step in f64 (16^2 and 64^2 random states with u of
+    0.5 m/s, periodic and channel, 6 reverse steps, at the wrapper's own plan
+    and the f32 main paths' tiles; 256^2 for 5), to 1e-12 of scale with
+    bitwise reruns and the linear adjoint_step 100x off; f32 at the main
+    paths' own plans on random states of their lattices (64^2 and 256^2
+    periodic, the 64^2 channel), 100 reverse steps, each cotangent no farther
+    from an f64 reverse than 3x the plain f32 reverse, the linear reverse
+    100x past that; the dot-product identity through fused_rollout_diff; the
+    gradients from StructuredModel.to_struct with exact launch counts and
+    times (64^2 IGW and the 64^2 channel over 4000 steps through
+    auto_rollout_diff, 256^2 over 100 through auto_rollout_diff and
+    tiled_rollout_diff), a profiler breakdown of the 256^2 grad, and the
+    kernel per launch by held_us beside its bound. Returns the kernels
+    line's entry."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        auto_rollout_diff,
+        diff_model,
+        fused_rollout_diff,
+        fused_run_loop,
+        structured_nl_adjoint_step,
+        structured_run_loop,
+        tiled_rollout_diff,
+    )
+    from mpas_ocean_tpu_torch.structured.fused_model import (
+        _scal,
+        kernel_live,
+        nl_adjoint_scal,
+        nl_scal,
+        nl_setup,
+    )
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    for line in ptxas_report(log_text, ("nl_adjoint_kernel",)):
+        log(f"[13] ptxas {line}")
+
+    def stack_of(st, sm, dt, n):
+        """n primal states of fe_step's nonlinear arm from st, filled by
+        fe_nl_fill_stack (the rebuild of the gradient's reverse)."""
+        dtype = st.layer_thickness.dtype
+        stack = tuple(torch.empty((n, *x.shape), dtype=dtype, device=x.device)
+                      for x in state_fields(st))
+        for dst, x in zip(stack, state_fields(st)):
+            dst[0].copy_(x)
+        fe_step.fe_nl_fill_stack(stack, sm.resting_thickness_sum.to(dtype).contiguous(),
+                                 *sm.host_stencil, nl_setup(sm, dtype), sm.vertex_cell_terms,
+                                 sm.edge_vertex_terms, *_scal(sm, dt, dtype),
+                                 *nl_scal(sm, dtype), n - 1, live=kernel_live(sm))
+        return stack
+
+    def kernel_args(sm, dt, dtype):
+        """The nonlinear reverse wrapper's constants, made once."""
+        return ((nl_setup(sm, dtype), *sm.host_stencil, *sm.host_adjoint_stencil,
+                 sm.vertex_cell_terms, sm.edge_vertex_terms, *_scal(sm, dt, dtype),
+                 *nl_scal(sm, dtype), *nl_adjoint_scal(sm, dt, dtype)), kernel_live(sm))
+
+    def kernel(stack, g, sm, dt, n, tile=None, ks=None):
+        dtype = stack[1].dtype
+        ddt = torch.zeros(1, dtype=torch.float64, device=stack[1].device)
+        args, live = kernel_args(sm, dt, dtype)
+        out = adjoint_step.nl_adjoint_rollout(
+            stack, tuple(x.to(dtype).contiguous() for x in state_fields(g)), *args, n, ddt,
+            live=live, tile=tile, ks=ks)
+        return StructState(*out), ddt
+
+    def linear(stack, g, sm, dt, n):
+        dtype = stack[1].dtype
+        ddt = torch.zeros(1, dtype=torch.float64, device=stack[1].device)
+        out = adjoint_step.adjoint_rollout(
+            stack, tuple(x.to(dtype).contiguous() for x in state_fields(g)),
+            sm.f_edge.to(dtype).contiguous(), *sm.host_adjoint_stencil, *_scal(sm, dt, dtype), n,
+            ddt, live=kernel_live(sm))
+        return StructState(*out), ddt
+
+    def plain(stack, g, sm, dt, n, dtype=None):
+        """The plain reverse step back through the stack's slots, in dtype
+        (the slots and g cast to it, ``sm`` in it), by default the stack's."""
+        dtype = stack[1].dtype if dtype is None else dtype
+        ddt = torch.zeros((), dtype=torch.float64, device=stack[1].device)
+        g = StructState(*(x.to(dtype) for x in state_fields(g)))
+        for j in reversed(range(n)):
+            g, dd = structured_nl_adjoint_step(StructState(*(x[j].to(dtype) for x in stack)),
+                                               g, sm, dt)
+            ddt = ddt + dd.double()
+        return g, ddt
+
+    def hold(what, errs, tol):
+        log(f"[13] {what}: max|diff| (/scale) = {format_errors(errs)}")
+        for f, (_, r) in errs.items():
+            if not r <= tol:
+                raise AssertionError(f"{what}: {f} {r:.3e} > {tol}")
+
+    # f64 against the plain reverse, at the wrapper's own plan and the f32
+    # main paths' tiles ((8, 8) at 64^2 and 256^2) with f64's largest
+    # slice; the linear reverse on the same inputs must miss
+    f32_tiles = sorted({adjoint_step.nl_adjoint_plan(n // 2, n, LEVELS, 4)[:2]
+                        for n in (HEADLINE_N, LARGE_N)})
+    worst, n6 = {}, 6
+    for n, levels in ((16, 4), (HEADLINE_N, LEVELS)):
+        for channel in (False, True):
+            model, prog = (random_channel if channel else random_case)(
+                n, levels, seed=5, u_amp=0.5, layer=40.0 / levels)
+            st, sm = model.to_struct(prog), model.struct_mesh
+            g = random_cot(st, 21)
+            stk = stack_of(st, sm, 10.0, n6)
+            ref, ref_dt = plain(stk, g, sm, 10.0, n6)
+            lin, lin_dt = linear(stk, g, sm, 10.0, n6)
+            miss = max(r for _, r in cot_errors(lin, ref, lin_dt, ref_dt).values())
+            name = "channel" if channel else "periodic"
+            for tile in (None, *f32_tiles):
+                tile = None if tile is None else (min(tile[0], sm.ny2), min(tile[1], sm.nx))
+                (out, ddt), (again, ddt_again) = (kernel(stk, g, sm, 10.0, n6, tile)
+                                                  for _ in range(2))
+                what = (f"f64 {n}x{n}x{levels} {name} random, {n6} reverse steps, "
+                        f"tile {tile or 'own plan'}")
+                errs = cot_errors(out, ref, ddt, ref_dt)
+                hold(what + " vs plain", errs, 1e-12)
+                if not (torch.equal(ddt, ddt_again) and all(
+                        torch.equal(x, y) for x, y in zip(state_fields(out),
+                                                          state_fields(again)))):
+                    raise AssertionError(f"{what}: rerun differs")
+                worst[name] = max(worst.get(name, 0.0), max(r for _, r in errs.values()))
+            if not miss >= 100 * 1e-12:
+                raise AssertionError(f"f64 {n}^2 {name}: the linear reverse is only {miss:.3e} off")
+            log(f"[13] f64 {n}x{n} {name}: the linear reverse misses by {miss:.3e} of scale "
+                f"(control); reruns bitwise equal")
+            del model, st, sm, stk
+
+    # f64 256x256x100, 5 reverse steps, random state on the IGW lattice
+    def random_on(case, n, dtype, seed=17):
+        mesh_h, *_ = case(n, LEVELS, np.float64)
+        model = case(n, LEVELS, dtype)[2]
+        rng = np.random.default_rng(seed)
+        h = 10.0 + 0.01 * rng.normal(size=(mesh_h.n_cells, LEVELS))
+        u = 0.5 * rng.normal(size=(mesh_h.n_edges, LEVELS))
+        fields = [x.astype(dtype) for x in (h.sum(1) - 1000.0, h, u)]
+        return model, model.to_struct(mt.PrognosticVars(*(torch.from_numpy(x) for x in fields)))
+
+    model, st = random_on(igw_case, LARGE_N, np.float64)
+    sm = model.struct_mesh
+    g = random_cot(st, 22)
+    stk = stack_of(st, sm, DT, 5)
+    ref, ref_dt = plain(stk, g, sm, DT, 5)
+    for tile in (None, *f32_tiles):
+        out, ddt = kernel(stk, g, sm, DT, 5, tile)
+        errs = cot_errors(out, ref, ddt, ref_dt)
+        hold(f"f64 {LARGE_N}x{LARGE_N}x{LEVELS} random, 5 reverse steps, tile "
+             f"{tile or adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 8)[:2]} vs plain",
+             errs, 1e-12)
+        worst["periodic"] = max(worst["periodic"], max(r for _, r in errs.values()))
+    del model, st, sm, stk, ref, out
+
+    # f32 at the main paths' own plans, 100 reverse steps from a random
+    # cotangent: each cotangent's distance from an f64 reverse from the same
+    # f32 values at most 3x the plain f32 reverse's; the linear reverse at
+    # least 100x that limit in the cotangent it misses most
+    n_chk, max_abs_err = TILED_CHECK_STEPS, {}
+    for name, case, n in (("periodic", igw_case, HEADLINE_N), ("periodic", igw_case, LARGE_N),
+                          ("channel", kelvin_case, HEADLINE_N)):
+        model, st = random_on(case, n, np.float32)
+        sm, sm64 = model.struct_mesh, case(n, LEVELS, np.float64)[2].struct_mesh
+        plan = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)
+        g = random_cot(st, 23)
+        stk = stack_of(st, sm, DT, n_chk)
+        runs = {"kernel": kernel(stk, g, sm, DT, n_chk, plan[:2], plan[2]),
+                "plain": plain(stk, g, sm, DT, n_chk),
+                "linear": linear(stk, g, sm, DT, n_chk)}
+        ref64, ref64_dt = plain(stk, g, sm64, DT, n_chk, torch.float64)
+        gaps = {k: cot_errors(x, ref64, dd, ref64_dt) for k, (x, dd) in runs.items()}
+        what = f"f32 {n}x{n}x{LEVELS} {name} random, {n_chk} reverse steps, plan {plan}"
+        log(f"[13] {what}: distance from the f64 reverse " + "; ".join(
+            f"{k} {format_errors(v)}" for k, v in gaps.items()))
+        for f, (e, _) in gaps["plain"].items():
+            if not gaps["kernel"][f][0] <= 3 * e:
+                raise AssertionError(f"{what}: {f} {gaps['kernel'][f][0]:.3e} from f64, plain "
+                                     f"{e:.3e}")
+        ctrl = max(gaps["linear"][f][0] / (3 * e) for f, (e, _) in gaps["plain"].items())
+        log(f"[13] {what}: the linear reverse is x{ctrl:.1f} the 3x limit (control)")
+        if not ctrl >= 100:
+            raise AssertionError(f"{what}: the linear reverse misses by only x{ctrl:.1f}")
+        max_abs_err[name, n] = max(e for f, (e, _) in cot_errors(
+            runs["kernel"][0], runs["plain"][0], runs["kernel"][1], runs["plain"][1]).items()
+            if f != "d_dt")
+        if name == "channel":
+            if not all(bool(torch.isfinite(x).all()) for x in state_fields(runs["kernel"][0])):
+                raise AssertionError(f"{what}: not finite")
+        del model, st, sm, sm64, stk, runs, ref64
+        torch.cuda.empty_cache()
+
+    # the dot-product identity through fused_rollout_diff, 7 steps, f64
+    for channel in (False, True):
+        model, prog = (random_channel if channel else random_case)(16, 4, seed=5, u_amp=0.5,
+                                                                   layer=10.0)
+        st, sm = model.to_struct(prog), model.struct_mesh
+        v, g = random_cot(st, 12), random_cot(st, 14)
+        _, jv = torch.func.jvp(
+            lambda *xs: tuple(state_fields(structured_run_loop(StructState(*xs), sm, 10.0, 7,
+                                                               nonlinear=True))),
+            tuple(state_fields(st)), tuple(state_fields(v)))
+        lhs = sum(float((x * y).sum()) for x, y in zip(jv, state_fields(g)))
+        leaves = [x.clone().requires_grad_(True) for x in state_fields(st)]
+        out = fused_rollout_diff(StructState(*leaves), sm, 10.0, 7, plan=3, nonlinear=True)
+        jtg = torch.autograd.grad(state_fields(out), leaves, state_fields(g))
+        rhs = sum(float((x * y).sum()) for x, y in zip(state_fields(v), jtg))
+        gap = abs(lhs - rhs) / abs(rhs)
+        log(f"[13] f64 dot-product identity, {'channel' if channel else 'periodic'} 16^2, 7 "
+            f"nonlinear steps: <Jv, g> {lhs:.17g}, <v, J^T g> {rhs:.17g}, relative gap "
+            f"{gap:.3e}")
+        if not gap <= 1e-12:
+            raise AssertionError(f"nonlinear dot-product identity off by {gap:.3e}")
+
+    # the gradients from StructuredModel.to_struct, f32, launches exact
+    def grad_path(name, case, n, n_steps, route, **kw):
+        horz, wave, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        fe_step.launches = adjoint_step.launches = adjoint_step.nl_launches = 0
+        tiled_adjoint.launches = 0
+        t0 = time.perf_counter()
+        out, grads = grad_sum_ssh2(route, model.to_struct(prog), sm, n_steps, nonlinear=True,
+                                   **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (fe_step.launches, adjoint_step.nl_launches, adjoint_step.launches,
+                  tiled_adjoint.launches)
+        group = diff_model.adjoint_plan(n_steps, 1, math.inf)
+        want = (2 * n_steps - -(-n_steps // group), n_steps, 0, 0)
+        what = (f"grad of sum(ssh^2) through {route.__name__}(nonlinear=True), {name} {n}x{n}x"
+                f"{LEVELS} f32, {n_steps} steps")
+        log(f"[13] main path: {what}: {wall:.3f} s wall (to_struct .. grad) [{gpu}]; launches "
+            f"fe_step {counts[0]}, nonlinear reverse {counts[1]}, adjoint_step {counts[2]}, "
+            f"tiled_adjoint {counts[3]} (want {want})")
+        if counts != want:
+            raise AssertionError(f"{what}: launch counts {counts} != {want}")
+        for label, x in zip(("d_ssh", "d_h", "d_u", "d_dt"), grads):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{what}: {label} is not finite")
+        log(f"[13] |d_ssh|max {float(grads[0].abs().max()):.6e}, |d_h|max "
+            f"{float(grads[1].abs().max()):.6e}, |d_u|max {float(grads[2].abs().max()):.6e}, "
+            f"d_dt {float(grads[3]):.6e}")
+        st = model.to_struct(prog)
+        ref = fused_run_loop(st, sm, DT, n_steps, nonlinear=True)
+        if not all(torch.equal(x, y) for x, y in zip(state_fields(out), state_fields(ref))):
+            raise AssertionError(f"{what}: the forward differs from fused_run_loop's")
+        times = cuda_times(lambda: grad_sum_ssh2(route, st, sm, n_steps, nonlinear=True, **kw),
+                           REPS)
+        log(f"[13] {what}: {spread(times)} per grad, "
+            f"{spread([t / n_steps for t in times], 1e6, 'us')} per rollout step [{gpu}]")
+        return st, sm, counts, times
+
+    st_h, sm_h, counts_64, grad_64 = grad_path("IGW", igw_case, HEADLINE_N, GRAD_STEPS,
+                                               auto_rollout_diff)
+    st_c, sm_c, _, grad_c = grad_path("Kelvin channel", kelvin_case, HEADLINE_N, GRAD_STEPS,
+                                      auto_rollout_diff)
+    st_l, sm_l, _, grad_256 = grad_path("IGW", igw_case, LARGE_N, LARGE_ADJ_STEPS,
+                                        auto_rollout_diff)
+    _, _, _, grad_256_t = grad_path("IGW", igw_case, LARGE_N, LARGE_ADJ_STEPS,
+                                    tiled_rollout_diff)
+    by_kernel, window_us = profile_by_kernel(
+        lambda: grad_sum_ssh2(auto_rollout_diff, st_l, sm_l, LARGE_ADJ_STEPS, nonlinear=True),
+        ("nl_step_kernel", "nl_adjoint_kernel", "ddt_reduce"))
+    log(f"[13] profiler, one {LARGE_N}^2 nonlinear grad ({window_us:.0f} us by events): "
+        + profile_line(by_kernel, window_us, gpu))
+
+    # the kernel per launch by held_us (40-step calls, its d(dt) sum
+    # included) beside its bound; the plain reverse step's time
+    def per_launch(st, sm, group=40):
+        stk = stack_of(st, sm, DT, group)
+        g_in = tuple(x.contiguous() for x in state_fields(random_cot(st, 15)))
+        args, live = kernel_args(sm, DT, torch.float32)
+        acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
+        return [t / 1e6 for t in held_us(lambda: adjoint_step.nl_adjoint_rollout(
+            stk, g_in, *args, group, acc, live=live), group, REPS)]
+
+    launch_s = {key: per_launch(st, sm) for key, st, sm in (
+        ("64", st_h, sm_h), ("channel 64", st_c, sm_c), ("256", st_l, sm_l))}
+    g_l = random_cot(st_l, 16)
+    plain_s = cuda_times(lambda: structured_nl_adjoint_step(st_l, g_l, sm_l, DT), REPS)
+    bounds = {}
+    for key, sm in (("64", sm_h), ("channel 64", sm_c), ("256", sm_l)):
+        dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4, sm.edge_mask is not None)
+        bounds[key] = (nl_adjoint_bound(*dims), nl_adjoint_bound(*dims, MEASURED)[0],
+                       nl_adjoint_bound(*dims, DATASHEET)[0])
+        (b, by), probe, sheet = bounds[key]
+        ops_s = sm.ny2 * sm.nx * LEVELS * NL_ADJOINT_FLOPS / CEILING["flops"][4]
+        plan = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)
+        lp = adjoint_step.nl_adjoint_launch_plan(sm.ny2, sm.nx, LEVELS, plan[:2], plan[2])
+        med = statistics.median(launch_s[key])
+        log(f"[13] nonlinear reverse {key}^2 f32, plan {plan} ({lp['clusters']} clusters, "
+            f"{lp['blocks_per_sm']} block per SM, {lp['smem_bytes']} bytes): "
+            f"{spread(launch_s[key], 1e6, 'us')} per launch; bound {b * 1e6:.3f} us ({by}; "
+            f"bytes at the probes' rates {probe * 1e6:.3f}, at the data sheet's "
+            f"{sheet * 1e6:.3f}; operations {ops_s * 1e6:.3f} us at "
+            f"{CEILING['flops'][4] / 1e12:.2f} TFLOP/s, {NL_ADJOINT_FLOPS} per site): "
+            f"{b / med:.4f} of the bound [{gpu}]")
+    log(f"[13] plain nonlinear reverse step {LARGE_N}^2 f32: "
+        f"{spread(plain_s, 1e3, 'ms')} [{gpu}]")
+    (b256, by256), probe256, sheet256 = bounds["256"]
+    return {
+        "name": "nl_adjoint",
+        "route": "cuda",
+        "source": "mpas_ocean_tpu_torch/csrc/nl_adjoint.cuh",
+        "replaces": "mpas_ocean_tpu/structured/pallas_model.py:1480",
+        "also_replaces": "mpas_ocean_tpu/structured/pallas_model.py:1979 (q = 1)",
+        "launches": counts_64[1],
+        "max_abs_err": max_abs_err["periodic", LARGE_N],
+        "ms": statistics.median(launch_s["256"]) * 1e3,
+        "plain_ms": statistics.median(plain_s) * 1e3,
+        "bound_ms": b256 * 1e3,
+        "bound_by": by256,
+        "library_ms": None,
+        "bound_ms_probe": probe256 * 1e3,
+        "bound_ms_datasheet": sheet256 * 1e3,
+        "plan_256": list(adjoint_step.nl_adjoint_plan(LARGE_N // 2, LARGE_N, LEVELS, 4)),
+        "plan_64": list(adjoint_step.nl_adjoint_plan(HEADLINE_N // 2, HEADLINE_N, LEVELS, 4)),
+        "ms_64": statistics.median(launch_s["64"]) * 1e3,
+        "bound_ms_64": bounds["64"][0][0] * 1e3,
+        "masked_ms_64": statistics.median(launch_s["channel 64"]) * 1e3,
+        "masked_bound_ms_64": bounds["channel 64"][0][0] * 1e3,
+        "max_abs_err_64": max_abs_err["periodic", HEADLINE_N],
+        "masked_max_abs_err_64": max_abs_err["channel", HEADLINE_N],
+        "max_rel_err_f64": worst["periodic"],
+        "masked_max_rel_err_f64": worst["channel"],
+        "grad_s_64": statistics.median(grad_64),
+        "grad_s_64_channel": statistics.median(grad_c),
+        "grad_s_256": statistics.median(grad_256),
+        "grad_s_256_tiled": statistics.median(grad_256_t),
+    }
+
+
 def ptxas_report(log_text: str, kernels: tuple) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``."""
@@ -2686,6 +3062,9 @@ def main() -> int:
         "channel fe 64": masked["fe_step"]["masked_ms"] / 1e3, "igw l2": igw_l2,
     })
 
+    # -- 13. the nonlinear reverse -----------------------------------------------
+    nl_adjoint_entry = nl_reverse_phase(gpu, log_file.read_text())
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
@@ -2726,6 +3105,7 @@ def main() -> int:
     for entry in kernels:
         entry.update(masked[entry["name"]])
         entry.update(nonlinear.get(entry["name"], {}))
+    kernels.append(nl_adjoint_entry)
     kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -438,6 +438,24 @@ MOT_FE_ENTRIES(double, f64)
 MOT_FE_NL_ENTRY(float, f32)
 MOT_FE_NL_ENTRY(double, f64)
 
+// The nonlinear arm through a stack of states (nl_stack): slot s + 1 =
+// step(slot s) for s < n_steps, the launches of mot_fe_nl_steps_*. The rest
+// as for mot_fe_nl_steps_*.
+#define MOT_FE_NL_STACK_ENTRY(T, SUFFIX)                                                    \
+  extern "C" int mot_fe_nl_stack_##SUFFIX(                                                  \
+      const T* rts, const T* fv, int n_fv, const int* live, const int* table,               \
+      const double* weights, const int* vc, const double* vc_w, const int* ev, T* ssh,      \
+      T* h, T* u, double dt, double inv_dc, double s_div, double s_ke, double s_curl,       \
+      int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, int ks,             \
+      void* stream) {                                                                       \
+    return nl_stack<T, false>(rts, fv, n_fv, live, table, weights, vc, vc_w, ev, ssh, h, u, \
+                              dt, inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps,         \
+                              n_terms, rt, ct, ks, static_cast<cudaStream_t>(stream));      \
+  }
+
+MOT_FE_NL_STACK_ENTRY(float, f32)
+MOT_FE_NL_STACK_ENTRY(double, f64)
+
 // The f32 nonlinear plan's launch: out[0] clusters, out[1] blocks per SM,
 // out[2] one block's shared memory in bytes.
 extern "C" int mot_fe_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {

@@ -641,6 +641,30 @@ int nl_steps(const T* rts, const T* fv, int n_fv, const int* live, const int* ta
   return 0;
 }
 
+// n_steps nonlinear steps through a stack of states: slot s + 1 = step(slot
+// s), the launches nl_steps makes (the same kernel and plan), so a stack
+// refilled from a state holds nl_steps' states bit for bit.
+template <typename T, bool FB>
+int nl_stack(const T* rts, const T* fv, int n_fv, const int* live, const int* table,
+             const double* weights, const int* vc, const double* vc_w, const int* ev, T* ssh,
+             T* h, T* u, double dt, double inv_dc, double s_div, double s_ke, double s_curl,
+             int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, int ks,
+             cudaStream_t stream) {
+  NlPlan<T> pl;
+  int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, table, weights, vc, vc_w, ev, dt,
+                            inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct,
+                            ks, vector_loads(k, step_chunk(k), sizeof(T), h, u));
+  if (err != 0) return err;
+  const size_t cells = 2ULL * ny2 * nx;
+  const size_t hs = cells * k, us = 3 * cells * k;
+  for (int s = 0; s < n_steps; ++s) {
+    err = nl_launch<T, FB>(&pl, ssh + s * cells, h + s * hs, u + s * us, ssh + (s + 1) * cells,
+                           h + (s + 1) * hs, u + (s + 1) * us, stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 // The launch of an f32 nonlinear plan: out[0] the clusters (one per tile),
 // out[1] the blocks per SM, out[2] one block's shared memory in bytes.
 template <bool FB>

@@ -1,7 +1,8 @@
-"""Wrapper of the hand-written adjoint-step kernel (csrc/adjoint_step.cu),
-which replaces the TPU kernel ``_adjoint_segment_kernel``
-(mpas_ocean_tpu/structured/pallas_model.py:1480) for the linear
-forward-Euler core, on a periodic lattice and, with the wall mask's
+"""Wrappers of the hand-written reverse-step kernels, which replace the TPU
+kernel ``_adjoint_segment_kernel``
+(mpas_ocean_tpu/structured/pallas_model.py:1480): csrc/adjoint_step.cu for
+the linear forward-Euler core and csrc/nl_adjoint.cuh for the nonlinear
+(vector-invariant) one, each on a periodic lattice and, with the wall mask's
 ``live`` bits (``fe_step.live_bits``), on a coastal channel culled from one.
 
 ``adjoint_rollout`` takes tensors on a CUDA device and the transposed
@@ -12,6 +13,13 @@ an accumulator; it raises on anything else, a table that is not the hex
 lattice's transpose included. Its plain PyTorch version is
 ``structured.adjoint.structured_adjoint_step``. ``launches`` counts
 adjoint-step launches (one per reverse step).
+
+``nl_adjoint_rollout`` does the same for the nonlinear core, one launch of
+the nonlinear reverse kernel per reverse step over tiles of
+``nl_adjoint_plan``'s; it also serves the tiled route's nonlinear reverse at
+q = 1 (the JAX package's kernel 4 at its only q). Its plain PyTorch version
+is ``structured.adjoint.structured_nl_adjoint_step``; ``nl_launches`` counts
+its launches.
 """
 
 from __future__ import annotations
@@ -35,13 +43,18 @@ from .fe_step import (
     lattice_dims,
     level_split,
     state_shapes,
+    vertex_tables,
 )
 
-__all__ = ["REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout", "adjoint_tile", "launch_plan",
-           "launches", "smem_bytes"]
+__all__ = ["NL_ADJ_RINGS", "NL_ADJ_SLICE", "REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout",
+           "adjoint_tile", "launch_plan", "launches", "nl_adjoint_launch_plan",
+           "nl_adjoint_plan", "nl_adjoint_rollout", "nl_adjoint_slice", "nl_adjoint_smem_bytes",
+           "nl_launches", "smem_bytes"]
 
 # adjoint-step kernel launches made by adjoint_rollout (one per step)
 launches = 0
+# nonlinear reverse kernel launches made by nl_adjoint_rollout (one per step)
+nl_launches = 0
 
 # The reach of one reverse step, (rows, columns) per side:
 # slab.adjoint_stencil_reach of the hex lattice's tables; csrc/adjoint_step.cu
@@ -56,6 +69,17 @@ TILE_COLS = (2, 4, 6, 8, 12, 16, 24, 32)
 # The waves of clusters (two blocks per SM) from which a launch takes a
 # larger tile than the power-of-two rule's
 MIN_WAVES = 4
+# The nonlinear reverse's rings (rows, columns) per side around its tile, of
+# stages C, B, A and of the window (csrc/nl_adjoint.cuh; slab.nl_adjoint_rings
+# derives them from the hex lattice's tables)
+NL_ADJ_RINGS = ((1, 1), (2, 2), (3, 4), (4, 6))
+# ... its values per window site and level (primal and cotangent), per ring
+# A, B and C site and level, per window site (ssh, gs, 20 vertex constant
+# planes reserved); ints per window site (site, live bits)
+_NLA_WIN, _NLA_A, _NLA_B, _NLA_C, _NLA_SITE, _NLA_INTS = 16, 12, 14, 8, 24, 2
+# Levels per slice of the nonlinear reverse at which nl_adjoint_plan sizes the
+# tile; the slice then grows while it fits
+NL_ADJ_SLICE = 4
 
 
 def smem_bytes(tile, k: int, itemsize: int) -> int:
@@ -110,6 +134,78 @@ def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile) -> dict:
     table = np.ascontiguousarray(table, dtype=np.int32)
     check_error("adjoint_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile,
                                                 ctypes.addressof(out)))
+    return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
+
+
+def nl_adjoint_smem_bytes(tile, k: int, itemsize: int, ks: int) -> int:
+    """Dynamic shared memory of one block of the nonlinear reverse for a tile
+    (rows, columns) at k levels in slices of ks (``nl_adjoint_smem_bytes`` in
+    csrc/nl_adjoint.cuh): the warps' d(dt) sums; a slice of the window's
+    primal state and cotangent and of the rings' planes; the window's ssh, gs
+    and vertex constants; the partial sums of the tile's sites; the window's
+    site indices and live bits."""
+    rt, ct = tile
+    (cm, ci), (bm, bi), (am, ai), (wm, wi) = NL_ADJ_RINGS
+    ring = lambda m, i: (rt + 2 * m) * (ct + 2 * i)  # noqa: E731
+    w = ring(wm, wi)
+    vals = ((_NLA_WIN * w + _NLA_A * ring(am, ai) + _NLA_B * ring(bm, bi)
+             + _NLA_C * ring(cm, ci)) * ks + _NLA_SITE * w + 2 * rt * ct)
+    return _RED_BYTES + itemsize * vals + 4 * _NLA_INTS * w
+
+
+def nl_adjoint_slice(tile, k: int, itemsize: int) -> int:
+    """The largest slice (levels, a power of two up to 16 and the level
+    chunk) at which the nonlinear reverse's ``tile`` fits one block; at least
+    one level."""
+    kc = level_split(k)[1]
+    ks = 1
+    while ks * 2 <= min(16, kc) and nl_adjoint_smem_bytes(tile, k, itemsize, ks * 2) <= SMEM_BYTES:
+        ks *= 2
+    return ks
+
+
+def nl_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, tiles=None):
+    """The nonlinear reverse's plan (rows, columns, levels per slice) on a
+    ny2 x nx lattice at k levels, reckoned as ``fe_step.nl_plan``: among
+    ``tiles`` (by default the powers of two up to 64 a side, cut to the
+    lattice; the kernel runs ragged tiles), the tile of largest area that
+    fits one block's shared memory at NL_ADJ_SLICE levels per slice and
+    makes at least one block for each of the card's SMS SMs (else the
+    largest that fits), then the smallest window, then the widest; then the
+    largest slice that still fits (``nl_adjoint_slice``). One block per SM:
+    the budget is one block's. On an H100 at 64x64x100 and 256x256x100 f32
+    (PERF.md section 6, tools/tile_sweep.py --kernels nonlinear-reverse)
+    that is (8, 8, 4) at both, the fastest of the 65 plans swept at each:
+    sized at 2-level slices the rule took (8, 16, 2), 1.29x as long at
+    256^2 (a deeper slice halves the barriers and window loads per level
+    more than a larger tile saves in rings)."""
+    kc = level_split(k)[1]
+    base = min(NL_ADJ_SLICE, kc)
+    wm, wi = NL_ADJ_RINGS[-1]
+    if tiles is None:
+        tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
+    ok = [t for t in tiles if nl_adjoint_smem_bytes(t, k, itemsize, base) <= SMEM_BYTES]
+    if not ok:
+        raise ValueError(f"no tile of the nonlinear reverse fits ({k} levels of {itemsize}-byte "
+                         f"values)")
+    ranks = level_split(k)[0]
+    full = [t for t in ok if -(-ny2 // t[0]) * -(-nx // t[1]) * ranks >= SMS] or ok
+    *_, ct, rt = max((t[0] * t[1], -(t[0] + 2 * wm) * (t[1] + 2 * wi), t[1], t[0])
+                     for t in full)
+    return rt, ct, nl_adjoint_slice((rt, ct), k, itemsize)
+
+
+def nl_adjoint_launch_plan(ny2: int, nx: int, k: int, tile, ks: int) -> dict:
+    """The launch of the nonlinear reverse for ``tile`` at ks levels per
+    slice on an f32 ny2 x nx x k lattice: its clusters (one per tile), the
+    blocks one SM holds (CUDA's occupancy calculator) and one block's shared
+    memory in bytes."""
+    fn = build.load().mot_nl_adjoint_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    check_error("the nonlinear reverse's plan query",
+                fn(ny2, nx, k, *tile, ks, ctypes.addressof(out)))
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
@@ -200,3 +296,90 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
     reverse of the masked forward step."""
     return _rollout(stack, g_in, f_edge, stencil_table, coriolis_weight, (dt, inv_dc, s_div),
                     n_steps, ddt, out, scratch, None, live)
+
+
+_NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_double] * 7
+                + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_table,
+                       adjoint_weight, vertex_cell_terms, edge_vertex_terms, dt: float,
+                       inv_dc: float, s_div: float, s_ke: float, s_curl: float,
+                       ds_scale: float, dke_scale: float, n_steps: int, ddt: torch.Tensor,
+                       out=None, scratch=None, *, live=None, tile=None, ks=None):
+    """n_steps >= 1 reverse forward-Euler steps of the nonlinear core on the
+    card, one launch of the nonlinear reverse kernel (csrc/nl_adjoint.cuh)
+    each, over tiles of ``tile`` (rows, columns; ragged ones too) in slices
+    of ks levels, by default ``nl_adjoint_plan``'s tile and the largest slice
+    that fits it.
+
+    ``stack``, ``g_in``, ``ddt``, ``out``, ``scratch`` and ``live`` as for
+    ``adjoint_rollout``; ``fv`` the vertex constants
+    (``fused_model.nl_setup``: 4 planes, or 20 with ``live``); the Coriolis
+    stencil and its transpose on the host (``StructMesh.host_stencil``,
+    ``host_adjoint_stencil``), the vertex stencils as ``StructMesh`` holds
+    them; the scalars rounded to the state dtype (``fused_model._scal``,
+    ``fused_model.nl_scal``, and ds_scale = g dt / dc, dke_scale = dt / dc
+    from ``fused_model.nl_adjoint_scal``). Returns the cotangent at step 0. A stencil or
+    vertex table that is not the hex lattice's raises ValueError."""
+    global nl_launches
+    ssh_st, h_st, u_st = stack
+    if h_st.dim() != 5:
+        raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
+    ny2, nx, k = lattice_dims(h_st[0], "the nonlinear reverse")
+    dtype, device, itemsize = h_st.dtype, h_st.device, h_st.element_size()
+    if n_steps < 1:
+        raise ValueError("nl_adjoint_rollout takes n_steps >= 1")
+    slots = h_st.shape[0]
+    if n_steps > slots:
+        raise ValueError(f"{n_steps} steps need {n_steps} primal slots, got {slots}")
+    shapes = state_shapes(ny2, nx, k)
+    check_live(live, ny2, nx, device)
+    n_fv = 4 if live is None else 20
+    check_tensor("fv", fv, (n_fv, ny2, nx), dtype, device)
+    check_tensor("ddt", ddt, (1,), torch.float64, device)
+    if out is None:
+        out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
+    if scratch is None:
+        scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
+    for x, shape, f in zip(stack, shapes, ("ssh", "h", "u")):
+        check_tensor(f"stack {f}", x, (slots, *shape), dtype, device)
+    for group, name in ((g_in, "g_in"), (out, "out"), (scratch, "scratch")):
+        for x, shape, f in zip(group, shapes, ("ssh", "h", "u")):
+            check_tensor(f"{name} {f}", x, shape, dtype, device)
+    table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
+    adj_table, adj_weights, n_adj = host_stencil(adjoint_table, adjoint_weight)
+    if n_adj != n_terms:
+        raise ValueError("the adjoint table must be the transpose of the stencil table")
+    vc, vc_w, ev = vertex_tables(vertex_cell_terms, edge_vertex_terms)
+    tile = nl_adjoint_plan(ny2, nx, k, itemsize)[:2] if tile is None else tuple(tile)
+    ks = nl_adjoint_slice(tile, k, itemsize) if ks is None else ks
+    kc = level_split(k)[1]
+    if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
+        raise ValueError(f"the nonlinear reverse's slices are a power of two of levels up to "
+                         f"{min(16, kc)} (its level chunk at {k} levels), got {ks}")
+    need = nl_adjoint_smem_bytes(tile, k, itemsize, ks)
+    if need > SMEM_BYTES:
+        raise ValueError(f"a nonlinear reverse tile {tile} at {k} levels in slices of {ks} "
+                         f"needs {need} bytes of shared memory per block, more than "
+                         f"{SMEM_BYTES}")
+    ranks, _ = level_split(k)
+    tiles = -(-ny2 // tile[0]) * -(-nx // tile[1])
+    part = torch.empty(n_steps * tiles * ranks, dtype=torch.float64, device=device)
+    lib = build.load()
+    fn = {torch.float32: lib.mot_nl_adjoint_f32, torch.float64: lib.mot_nl_adjoint_f64}[dtype]
+    fn.argtypes = _NL_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            fv.data_ptr(), n_fv, None if live is None else live.data_ptr(),
+            table.ctypes.data, weights.ctypes.data, adj_table.ctypes.data,
+            adj_weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data, ev.ctypes.data,
+            *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
+            *(float(x) for x in (dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale)), ny2, nx, k,
+            n_steps, n_terms, *tile, ks, stream,
+        )
+    check_error("the nonlinear reverse", err, f" (tile {tile}, slice {ks})")
+    nl_launches += n_steps
+    return out

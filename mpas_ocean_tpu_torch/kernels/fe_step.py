@@ -14,7 +14,9 @@ anything else, a stencil that is not the hex lattice's included:
 * ``fe_rollout`` returns new state tensors;
 * ``fe_rollout_into`` writes the result into tensors the caller gives;
 * ``fe_fill_stack`` fills a stack of states, slot j + 1 = step(slot j);
-* ``fe_nl_rollout`` returns new state tensors after nonlinear steps.
+* ``fe_nl_rollout`` returns new state tensors after nonlinear steps (or
+  writes them into tensors the caller gives);
+* ``fe_nl_fill_stack`` fills a stack of states with nonlinear steps.
 
 Their plain PyTorch version is ``structured.model.structured_run_loop``,
 which ``structured.fused_model`` runs for tensors on the CPU. ``launches``
@@ -45,6 +47,7 @@ __all__ = [
     "launch_plan",
     "launches",
     "level_split",
+    "fe_nl_fill_stack",
     "fe_nl_rollout",
     "nl_launch_plan",
     "nl_plan",
@@ -315,6 +318,7 @@ _ARGTYPES = {
     "steps": [_P] * 14 + [_D] * 3 + [_I] * 7 + [_P],
     "stack": [_P] * 8 + [_D] * 3 + [_I] * 7 + [_P],
     "nl_steps": [_P, _P, _I] + [_P] * 15 + [_D] * 5 + [_I] * 8 + [_P],
+    "nl_stack": [_P, _P, _I] + [_P] * 9 + [_D] * 5 + [_I] * 8 + [_P],
 }
 
 
@@ -484,24 +488,20 @@ def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
 
 
 
-def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
-           edge_vertex_terms, scal, n_steps, tile, ks, live, fb=False):
-    """n_steps >= 0 nonlinear steps through ``entry``, fe_step.cu's FE
-    entry or (``fb``) tiled_step.cu's FB one, which take the same arguments;
-    returns new (ssh, h, u) and raises as ``check_error`` for a failed
-    launch. The checks both nonlinear wrappers make: the state's and
-    constants' device, dtype, shape and contiguity, the vertex constants' 4
-    planes (periodic) or 20 (with ``live``), the plan's shared memory."""
+def _nl_checks(name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile,
+               ks, live, fb):
+    """The checks both nonlinear wrappers make (the state's device and
+    dtype, the constants' device, dtype, shape and contiguity, the vertex
+    constants' 4 planes (periodic) or 20 (with ``live``), the plan's shared
+    memory); returns ((ny2, nx, k), the stencil, the vertex tables, n_fv)."""
     ny2, nx, k = lattice_dims(h, name)
     dtype, device = h.dtype, h.device
-    if n_steps < 0:
-        raise ValueError("n_steps must be >= 0")
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
     check_live(live, ny2, nx, device)
     n_fv = 4 if live is None else 20
     check_tensor("fv", fv, (n_fv, ny2, nx), dtype, device)
-    table, weights, n_terms = host_stencil(table, weights)
-    vc, vc_w, ev = vertex_tables(vertex_cell_terms, edge_vertex_terms)
+    stencil = host_stencil(table, weights)
+    tables = vertex_tables(vertex_cell_terms, edge_vertex_terms)
     kc = level_split(k)[1]
     if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
         raise ValueError(f"the nonlinear step's slices are a power of two of levels up to "
@@ -510,27 +510,55 @@ def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
     if need > SMEM_BYTES:
         raise ValueError(f"a nonlinear tile {tile} at {k} levels in slices of {ks} needs "
                          f"{need} bytes of shared memory per block, more than {SMEM_BYTES}")
+    return (ny2, nx, k), stencil, tables, n_fv
+
+
+def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
+           edge_vertex_terms, scal, n_steps, tile, ks, live, fb=False, out=None, tmp=None):
+    """n_steps >= 0 nonlinear steps through ``entry``, fe_step.cu's FE
+    entry or (``fb``) tiled_step.cu's FB one, which take the same arguments;
+    returns (ssh, h, u), new or written into ``out`` (through ``tmp``,
+    allocated when None and n_steps > 1), and raises as ``check_error`` for a
+    failed launch, after ``_nl_checks``."""
+    dims, (table, weights, n_terms), (vc, vc_w, ev), n_fv = _nl_checks(
+        name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile, ks, live,
+        fb)
+    if n_steps < 0:
+        raise ValueError("n_steps must be >= 0")
+    device = h.device
     src = tuple(x.contiguous() for x in (ssh, h, u))
-    for x, shape, f in zip(src, state_shapes(ny2, nx, k), ("ssh", "h", "u")):
-        check_tensor(f, x, shape, dtype, device)
+    for x, shape, f in zip(src, state_shapes(*dims), ("ssh", "h", "u")):
+        check_tensor(f, x, shape, h.dtype, device)
     if n_steps == 0:
         return tuple(x.clone() for x in src)
-    out = tuple(torch.empty_like(x) for x in src)
-    tmp = out if n_steps == 1 else tuple(torch.empty_like(x) for x in src)
+    if out is None:
+        out = tuple(torch.empty_like(x) for x in src)
+    if tmp is None:
+        tmp = out if n_steps == 1 else tuple(torch.empty_like(x) for x in src)
+    for group, what in ((out, "out"), (tmp, "scratch")):
+        for x, y, f in zip(group, src, ("ssh", "h", "u")):
+            check_tensor(f"{what} {f}", x, y.shape, h.dtype, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(rts.data_ptr(), fv.data_ptr(), n_fv,
                     None if live is None else live.data_ptr(), table.ctypes.data,
                     weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data, ev.ctypes.data,
                     *[x.data_ptr() for x in (*src, *out, *tmp)], *(float(x) for x in scal),
-                    ny2, nx, k, n_steps, n_terms, *tile, ks, stream)
+                    *dims, n_steps, n_terms, *tile, ks, stream)
     check_error(name, err, f" (tile {tile}, slice {ks})")
     return out
 
 
+def _fe_nl_plan(h, tile, ks):
+    ny2, nx, k = lattice_dims(h)
+    tile = nl_plan(ny2, nx, k, h.element_size())[:2] if tile is None else tuple(tile)
+    return tile, nl_slice(tile, k, h.element_size()) if ks is None else ks
+
+
 def fe_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
                   edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
-                  s_curl: float, n_steps: int, live=None, tile=None, ks=None):
+                  s_curl: float, n_steps: int, live=None, tile=None, ks=None, out=None,
+                  scratch=None):
     """n_steps forward-Euler steps of the nonlinear core on the card, one
     launch of fe_step's nonlinear arm each (csrc/nl_step.cuh). ssh, h, u and
     rts as for ``fe_rollout``; ``fv`` the vertex constants
@@ -538,14 +566,45 @@ def fe_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cel
     the vertex stencils as ``StructMesh`` holds them; the scalars rounded to
     the state dtype (``fused_model._scal``, ``fused_model.nl_scal``). The
     tile (rows, columns) defaults to ``nl_plan``'s and the slice ks to the
-    largest that fits the tile (``nl_slice``). Returns new (ssh, h, u);
-    raises ValueError for a stencil that is not the hex lattice's."""
+    largest that fits the tile (``nl_slice``). Returns (ssh, h, u): new, or
+    written into ``out`` through ``scratch`` (as ``fe_rollout_into``); raises
+    ValueError for a stencil that is not the hex lattice's."""
     global launches
-    ny2, nx, k = lattice_dims(h)
-    tile = nl_plan(ny2, nx, k, h.element_size())[:2] if tile is None else tuple(tile)
-    ks = nl_slice(tile, k, h.element_size()) if ks is None else ks
+    tile, ks = _fe_nl_plan(h, tile, ks)
     out = nl_run("fe_step (nonlinear)", _entry("nl_steps", h.dtype), ssh, h, u, rts,
                  stencil_table, coriolis_weight, fv, vertex_cell_terms, edge_vertex_terms,
-                 (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live)
+                 (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live, out=out,
+                 tmp=scratch)
     launches += n_steps
     return out
+
+
+def fe_nl_fill_stack(stack, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
+                     edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
+                     s_curl: float, n_steps: int, live=None, tile=None, ks=None):
+    """Fill a stack of states on the card with nonlinear steps: slot j + 1
+    = one step of slot j for j < n_steps, the launches ``fe_nl_rollout``
+    makes with the same plan, so the slots are its states bit for bit.
+    ``stack`` as for ``fe_fill_stack``, the rest as for ``fe_nl_rollout``."""
+    global launches
+    ssh, h, u = stack
+    if h.dim() != 5:
+        raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h.shape)}")
+    tile, ks = _fe_nl_plan(h[0], tile, ks)
+    dims, (table, weights, n_terms), (vc, vc_w, ev), n_fv = _nl_checks(
+        "fe_step (nonlinear)", h[0], rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
+        edge_vertex_terms, tile, ks, live, False)
+    slots = h.shape[0]
+    if not 0 <= n_steps < slots:
+        raise ValueError(f"{n_steps} steps do not fit a stack of {slots} slots")
+    for x, shape, f in zip(stack, state_shapes(*dims), ("ssh", "h", "u")):
+        check_tensor(f"stack {f}", x, (slots, *shape), h.dtype, h.device)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _entry("nl_stack", h.dtype)(
+            rts.data_ptr(), fv.data_ptr(), n_fv, None if live is None else live.data_ptr(),
+            table.ctypes.data, weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data,
+            ev.ctypes.data, *[x.data_ptr() for x in stack], float(dt), float(inv_dc),
+            float(s_div), float(s_ke), float(s_curl), *dims, n_steps, n_terms, *tile, ks, stream)
+    check_error("fe_step (nonlinear)", err, f" (tile {tile}, slice {ks})")
+    launches += n_steps

@@ -1,5 +1,5 @@
-"""Reverse of the linear forward-Euler step, written out by hand on
-``torch.roll``.
+"""Reverse of the forward-Euler step, linear and nonlinear, written out by
+hand on ``torch.roll``.
 
 ``structured_adjoint_step`` is the VJP of ``model.structured_step``: the
 plain PyTorch version of the adjoint-step kernel (csrc/adjoint_step.cu) and
@@ -20,6 +20,30 @@ the CPU route of ``diff_model``. It is the counterpart of the in-kernel
 On a masked lattice (a coastal channel) the step ends u' = m * (u + dt *
 tend_u), so the output cotangent gu enters as m * gu wherever it appears:
 in C^T gu, in du's first term, in dssh's level sums and in d(dt).
+
+``structured_nl_adjoint_step`` is the VJP of ``structured_step(nonlinear=True)``
+(the vector-invariant arm of ``_step_planes``, pallas_model.py:172-242), the
+plain version of the nonlinear reverse kernel (csrc/nl_adjoint.cuh). With
+a = dt * gu (gu already m * gu on a channel), F = u * h_edge, q_v = (f_v +
+zeta) / h_v, q_e the endpoint mean of q_v and T the Coriolis stencil without
+f:
+
+* the PV flux (q_e T(F) + T(F q_e)) / 2 gives dq_e = (a T(F) + F T^T(a)) / 2
+  and dF = (T^T(a q_e) + q_e T^T(a)) / 2, plus the continuity's
+  dt * s_div * (G[nbr] - G[owner]);
+* dq_v = the endpoint mean's transpose of dq_e (1/2 per tap); then
+  dzeta = dq_v / h_v and dh_v = -dq_v q_v / h_v, which reach u through the
+  curl's transpose and h through the kite average's (on a channel the
+  division guarded where the vertex mask is 0, both cotangents 0 there,
+  and the kite weights the live-renormalised planes);
+* -grad KE gives dKE_c = (sum_owned a - sum_incoming a) / dc, and
+  du_e += 2 s_ke u_e (dKE_owner + dKE_nbr);
+* dF reaches u as h_edge * dF and h as 1/2 sum over the cell's 6 edges of
+  u * dF; dssh and d(dt) as in the linear step, d(dt) with the nonlinear
+  tend_u.
+
+The transposed vertex tables are stencils.transpose_curl_terms,
+transpose_kite_terms and transpose_endpoint_terms.
 """
 
 from __future__ import annotations
@@ -33,16 +57,29 @@ from .model import (
     StructState,
     _incoming_edge_fields,
     _neighbor_cell_field,
+    _shift,
+    _tend_u,
     apply_stencil,
+    cell_to_vertex_kite,
+    check_nl_mesh,
+    curl_on_vertex,
     div_on_cell,
     grad_on_edge,
     interp_cell_to_edge,
     structured_step,
     tangential_times_f,
+    tangential_weights_only,
+    vertex_to_edge_mean,
 )
-from .stencils import transpose_coriolis_terms
+from .stencils import (
+    transpose_coriolis_terms,
+    transpose_curl_terms,
+    transpose_endpoint_terms,
+    transpose_kite_terms,
+)
 
-__all__ = ["structured_adjoint_run_loop", "structured_adjoint_step"]
+__all__ = ["structured_adjoint_run_loop", "structured_adjoint_step",
+           "structured_nl_adjoint_step"]
 
 
 def structured_adjoint_step(
@@ -78,20 +115,116 @@ def structured_adjoint_step(
     return StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u), d_dt
 
 
-def structured_adjoint_run_loop(
-    state: StructState, mesh: StructMesh, dt, n_steps: int, g: StructState
+def _gather(y, terms, n_out: int, weight=lambda x, v: v):
+    """out[o] = sum over the transposed terms (o, a, b, dm, di, x) of
+    weight(x, y[a, b]) at (m + dm, i + di), in the terms' order: y a vertex
+    field (2, 2, ny2, nx, ...) or an edge field (3, 2, ny2, nx, ...)."""
+    out = [None] * n_out
+    for (o, ia, ib, dm, di, x) in terms:
+        contrib = _shift(weight(x, y[ia, ib]), dm, di)
+        out[o] = contrib if out[o] is None else out[o] + contrib
+    return torch.stack(out)
+
+
+def _own_minus_incoming(x):
+    """sum over a cell's owned edges of x minus sum over its incoming ones."""
+    inc_E, inc_NE, inc_NW = _incoming_edge_fields(x)
+    return x[0] + x[1] + x[2] - inc_E - inc_NE - inc_NW
+
+
+def _own_plus_incoming(x):
+    inc_E, inc_NE, inc_NW = _incoming_edge_fields(x)
+    return x[0] + x[1] + x[2] + inc_E + inc_NE + inc_NW
+
+
+def structured_nl_adjoint_step(
+    state: StructState, g: StructState, mesh: StructMesh, dt
 ) -> tuple[StructState, torch.Tensor]:
-    """VJP of ``structured_run_loop(state, mesh, dt, n_steps)`` for the
-    output cotangent ``g``, keeping all n_steps primal states: the plain
-    version of the whole kernel reverse, on any device."""
+    """VJP of ``structured_step(state, mesh, dt, nonlinear=True)`` for the
+    output cotangent ``g``: (cotangent of the input state, d(dt) as a 0-d
+    tensor), written out by hand (module docstring). With the mesh's wall
+    mask m, gu is m * gu throughout. A mesh without the vertex constants
+    raises (``model.check_nl_mesh``)."""
+    check_nl_mesh(mesh)
+    h, u = state.layer_thickness, state.normal_velocity
+    gu = g.normal_velocity
+    if mesh.edge_mask is not None:
+        gu = gu * mesh.edge_mask[..., None]
+    G = g.layer_thickness + g.ssh[..., None]
+    a = dt * gu
+    s_ke = 0.25 * mesh.dc * mesh.dv / mesh.area_cell
+    s_curl = mesh.dc / (mesh.area_cell * 0.5)
+    terms_t = transpose_coriolis_terms(mesh.coriolis_terms)
+
+    h_edge = interp_cell_to_edge(h, mesh)
+    flux = u * h_edge
+    tend_h = -div_on_cell(flux, mesh)
+    tend_u = _tend_u(state, flux, grad_on_edge(state.ssh, mesh), mesh, True)
+    d_dt = (G * tend_h).sum() + (gu * tend_u).sum()
+
+    # the primal PV, as model.pv_on_vertex_struct computes it
+    num = mesh.f_vertex[..., None] + curl_on_vertex(u, mesh)
+    h_v = cell_to_vertex_kite(h, mesh)
+    vm = mesh.vertex_mask
+    if vm is None:
+        safe = h_v
+        q_v = num / safe
+    else:
+        vm = vm.reshape(vm.shape + (1,) * (h_v.ndim - 4))
+        safe = torch.where(vm > 0, h_v, torch.ones_like(h_v))
+        q_v = num / safe * vm
+    q_e = vertex_to_edge_mean(q_v, mesh)
+
+    # the PV flux's transpose, and the continuity's
+    t_a = apply_stencil(a, terms_t)
+    dq_e = 0.5 * (a * tangential_weights_only(flux, mesh) + flux * t_a)
+    g_flux = torch.stack([_neighbor_cell_field(G, f) - G for f in (E, NE, NW)])
+    d_flux = g_flux * (dt * (mesh.dv / mesh.area_cell)) + 0.5 * (
+        apply_stencil(a * q_e, terms_t) + q_e * t_a)
+
+    # the endpoint mean's, the PV division's, the curl's and the kite's
+    ev_t = transpose_endpoint_terms(mesh.edge_vertex_terms)
+    dq_v = 0.5 * _gather(dq_e, ((kind * 2 + p, f, po, dm, di, None)
+                                for (kind, p, f, po, dm, di) in ev_t), 4).unflatten(0, (2, 2))
+    d_zeta = dq_v / safe if vm is None else dq_v * vm / safe
+    d_hv = -(dq_v * q_v) / safe
+    kw = mesh.vertex_kite_planes
+    if kw is None:
+        w_kite = [t[5] for t in mesh.vertex_cell_terms]
+        kite = lambda t, v: w_kite[t] * v  # noqa: E731
+    else:
+        kite = lambda t, v: kw[t].reshape(kw[t].shape + (1,) * (v.ndim - 2)) * v  # noqa: E731
+    d_curl = _gather(d_zeta * s_curl, transpose_curl_terms(), 6,
+                     lambda sign, v: v if sign > 0 else -v)
+
+    # kinetic energy
+    d_ke = _own_minus_incoming(a) * (1.0 / mesh.dc)
+    ke_sum = torch.stack([_neighbor_cell_field(d_ke, f) + d_ke for f in (E, NE, NW)])
+
+    d_u = (gu + h_edge * d_flux + (2.0 * s_ke) * u * ke_sum
+           + d_curl.reshape(d_flux.shape))
+    d_h = (G + 0.5 * _own_plus_incoming(u * d_flux)
+           + _gather(d_hv, transpose_kite_terms(mesh.vertex_cell_terms), 2, kite))
+    d_ssh = (GRAVITY * dt / mesh.dc) * _own_minus_incoming(gu.sum(-1))
+    return StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u), d_dt
+
+
+def structured_adjoint_run_loop(
+    state: StructState, mesh: StructMesh, dt, n_steps: int, g: StructState,
+    nonlinear: bool = False,
+) -> tuple[StructState, torch.Tensor]:
+    """VJP of ``structured_run_loop(state, mesh, dt, n_steps, nonlinear)``
+    for the output cotangent ``g``, keeping all n_steps primal states: the
+    plain version of the whole kernel reverse, on any device."""
+    step = structured_nl_adjoint_step if nonlinear else structured_adjoint_step
     states = [state]
     for _ in range(n_steps - 1):
-        states.append(structured_step(states[-1], mesh, dt))
+        states.append(structured_step(states[-1], mesh, dt, nonlinear))
     d_dt = torch.zeros((), dtype=state.layer_thickness.dtype,
                        device=state.layer_thickness.device)
     if n_steps == 0:
         return g, d_dt
     for s in reversed(states):
-        g, dd = structured_adjoint_step(s, g, mesh, dt)
+        g, dd = step(s, g, mesh, dt)
         d_dt = d_dt + dd
     return g, d_dt

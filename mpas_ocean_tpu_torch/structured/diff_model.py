@@ -1,14 +1,16 @@
-"""Differentiable rollout of the structured linear core: the forward-Euler
-step kernel (kernels/fe_step.py) forward, and a reverse sweep through the
-hand-written adjoint-step kernel (kernels/adjoint_step.py).
+"""Differentiable rollout of the structured core, linear or nonlinear: the
+forward-Euler step kernel (kernels/fe_step.py) forward, and a reverse sweep
+through a hand-written reverse-step kernel (kernels/adjoint_step.py: the
+linear adjoint_step, or for ``nonlinear`` the nonlinear reverse,
+csrc/nl_adjoint.cuh).
 
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py:1460-1960 (the fused
 adjoint segments: ``_adjoint_plan``, ``_pallas_forward_ckpts``,
 ``_adjoint_segment``, ``_pallas_adjoint_from_ckpts``,
 ``pallas_adjoint_rollout``) and :2587-3034 (``pallas_rollout_diff``,
-``pallas_step``), for the linear core with forward Euler, on periodic
-lattices and on coastal channels (a mesh with a wall mask runs the masked
-arms of both kernels, and the plain masked steps on the CPU).
+``pallas_step``), for the linear and the nonlinear core with forward Euler,
+on periodic lattices and on coastal channels (a mesh with a wall mask runs
+the masked arms of the kernels, and the plain masked steps on the CPU).
 
 Plan. The forward runs in groups of ``group`` steps and keeps each group's
 start state (the outer checkpoints). The reverse takes the groups last to
@@ -22,8 +24,10 @@ level of groups and no recompute inside a kernel.
 State on a CUDA device runs the kernels, and a failed build or launch
 raises. State on the CPU runs the same plan with the plain step
 (``model.structured_step``) and the plain adjoint step
-(``adjoint.structured_adjoint_step``). Nothing falls back from one to the
-other.
+(``adjoint.structured_adjoint_step``, or ``structured_nl_adjoint_step`` for
+the nonlinear core). Nothing falls back from one to the other. A mesh
+without the vertex constants, asked for the nonlinear core, raises
+(``model.check_nl_mesh``).
 """
 
 from __future__ import annotations
@@ -34,9 +38,15 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..kernels import adjoint_step, fe_step
-from .adjoint import structured_adjoint_step
-from .fused_model import _scal, fused_run_loop, kernel_live
-from .model import StructMesh, StructState, structured_run_loop, structured_step
+from .adjoint import structured_adjoint_step, structured_nl_adjoint_step
+from .fused_model import _scal, fused_run_loop, kernel_live, nl_adjoint_scal, nl_scal, nl_setup
+from .model import (
+    StructMesh,
+    StructState,
+    check_nl_mesh,
+    structured_run_loop,
+    structured_step,
+)
 
 __all__ = [
     "MEMORY_SHARE",
@@ -94,41 +104,60 @@ def adjoint_plan(n_steps: int, state_bytes: int, budget: float) -> int:
 class _Steps:
     """The forward and reverse steps one device runs: the kernels for a
     CUDA state, the plain versions for a CPU state; both forward and
-    reverse take the mesh's wall mask where it has one. States are
-    StructStates of preallocated tensors; stacks carry a leading slot
-    axis."""
+    reverse take the mesh's wall mask where it has one, and with
+    ``nonlinear`` the vector-invariant core (forward: fe_step's nonlinear
+    arm at ``fe_step.nl_plan``'s plan, the forward path's own; reverse: the
+    nonlinear reverse kernel over ``nl_tile`` tiles, by default
+    ``adjoint_step.nl_adjoint_plan``'s). States are StructStates of
+    preallocated tensors; stacks carry a leading slot axis."""
 
-    def __init__(self, mesh: StructMesh, dt, like: torch.Tensor):
-        self.mesh, self.dt = mesh, dt
+    def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, nonlinear: bool = False,
+                 nl_tile=None):
+        self.mesh, self.dt, self.nonlinear = mesh, dt, nonlinear
         self.cuda = like.device.type == "cuda"
         if not self.cuda and like.device.type != "cpu":
             raise ValueError(f"no rollout for state on {like.device}")
+        if nonlinear:
+            check_nl_mesh(mesh)
         if self.cuda:
             dtype = like.dtype
             self.scal = _scal(mesh, dt, dtype)
             f_edge = mesh.f_edge.to(dtype).contiguous()
-            self.fwd = (f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
-                        *mesh.host_stencil)
+            rts = mesh.resting_thickness_sum.to(dtype).contiguous()
+            self.fwd = (f_edge, rts, *mesh.host_stencil)
             self.adj = (f_edge, *mesh.host_adjoint_stencil)
             self.live = kernel_live(mesh)
+            if nonlinear:
+                nl = (nl_setup(mesh, dtype), mesh.vertex_cell_terms, mesh.edge_vertex_terms)
+                self.nl_fwd = (rts, *mesh.host_stencil, *nl)
+                self.nl_adj = (nl[0], *mesh.host_stencil, *mesh.host_adjoint_stencil, *nl[1:])
+                self.nl_scal = (*self.scal, *nl_scal(mesh, dtype))
+                self.nl_adj_scal = (*self.nl_scal, *nl_adjoint_scal(mesh, dt, dtype))
+                self.nl_tile = nl_tile
 
     def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
         """n >= 1 steps from src into out."""
-        if self.cuda:
+        if self.cuda and self.nonlinear:
+            fe_step.fe_nl_rollout(*_fields(src), *self.nl_fwd, *self.nl_scal, n,
+                                  live=self.live, out=_fields(out), scratch=_fields(scratch))
+        elif self.cuda:
             fe_step.fe_rollout_into(_fields(src), _fields(out), *self.fwd, *self.scal,
                                     n, _fields(scratch), live=self.live)
         else:
             for dst, x in zip(_fields(out), _fields(structured_run_loop(
-                    src, self.mesh, self.dt, n))):
+                    src, self.mesh, self.dt, n, nonlinear=self.nonlinear))):
                 dst.copy_(x)
 
     def fill(self, stack: StructState, n: int):
         """Slot j + 1 = one step of slot j, for j < n."""
-        if self.cuda:
+        if self.cuda and self.nonlinear:
+            fe_step.fe_nl_fill_stack(_fields(stack), *self.nl_fwd, *self.nl_scal, n,
+                                     live=self.live)
+        elif self.cuda:
             fe_step.fe_fill_stack(_fields(stack), *self.fwd, *self.scal, n, live=self.live)
         else:
             for j in range(n):
-                nxt = structured_step(_slot(stack, j), self.mesh, self.dt)
+                nxt = structured_step(_slot(stack, j), self.mesh, self.dt, self.nonlinear)
                 for dst, x in zip(_fields(_slot(stack, j + 1)), _fields(nxt)):
                     dst.copy_(x)
 
@@ -136,13 +165,20 @@ class _Steps:
                 out: StructState, scratch: StructState):
         """n >= 1 reverse steps through the stack's slots n - 1 .. 0, from
         the cotangent g at step n into out; d(dt) is added to ddt."""
+        if self.cuda and self.nonlinear:
+            adjoint_step.nl_adjoint_rollout(_fields(stack), _fields(g), *self.nl_adj,
+                                            *self.nl_adj_scal, n, ddt, _fields(out),
+                                            _fields(scratch), live=self.live,
+                                            tile=self.nl_tile)
+            return
         if self.cuda:
             adjoint_step.adjoint_rollout(_fields(stack), _fields(g), *self.adj,
                                          *self.scal, n, ddt, _fields(out),
                                          _fields(scratch), live=self.live)
             return
+        step = structured_nl_adjoint_step if self.nonlinear else structured_adjoint_step
         for j in reversed(range(n)):
-            g, dd = structured_adjoint_step(_slot(stack, j), g, self.mesh, self.dt)
+            g, dd = step(_slot(stack, j), g, self.mesh, self.dt)
             ddt += dd
         for dst, x in zip(_fields(out), _fields(g)):
             dst.copy_(x)
@@ -164,17 +200,20 @@ def _copy(state: StructState) -> StructState:
 
 
 def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
-                  group: int) -> tuple[StructState, StructState]:
+                  group: int, nonlinear: bool = False) -> tuple[StructState, StructState]:
     """The forward in groups of ``group`` steps (the last takes the
     remainder), keeping each group's start state. Returns (final state,
     checkpoints as a StructState of stacks with one slot per group). The
-    per-step arithmetic is that of one ``fused_run_loop`` call, so the final
-    state is bitwise the same. Counterpart of ``_pallas_forward_ckpts``."""
+    per-step arithmetic is that of one ``fused_run_loop`` call (with
+    ``nonlinear``, of the vector-invariant core), so the final state is
+    bitwise the same. Counterpart of ``_pallas_forward_ckpts``."""
     starts = range(0, n_steps, group)
     ckpts = _empty(state, len(starts))
+    if nonlinear:
+        check_nl_mesh(mesh)
     if n_steps == 0:
         return _copy(state), ckpts
-    steps = _Steps(mesh, dt, state.layer_thickness)
+    steps = _Steps(mesh, dt, state.layer_thickness, nonlinear)
     for dst, x in zip(_fields(_slot(ckpts, 0)), _fields(state)):
         dst.copy_(x)
     final, scratch = _empty(state), _empty(state)
@@ -216,14 +255,15 @@ def _plan(state: StructState, n_steps: int, plan) -> int:
 
 
 def adjoint_segment(ckpt: StructState, cot: StructState, mesh: StructMesh, dt,
-                    n_steps: int) -> tuple[StructState, torch.Tensor]:
-    """Reverse of one n-step segment: rebuild its states from its start
-    state ``ckpt``, then step the cotangent ``cot`` at its end back to its
-    start. Returns (cotangent at the start, d(dt) as a 0-d float64 tensor).
-    Counterpart of ``_adjoint_segment``."""
+                    n_steps: int, nonlinear: bool = False) -> tuple[StructState, torch.Tensor]:
+    """Reverse of one n-step segment (of the nonlinear core with
+    ``nonlinear``): rebuild its states from its start state ``ckpt``, then
+    step the cotangent ``cot`` at its end back to its start. Returns
+    (cotangent at the start, d(dt) as a 0-d float64 tensor). Counterpart of
+    ``_adjoint_segment``."""
     if n_steps < 1:
         raise ValueError("a segment has n_steps >= 1")
-    steps = _Steps(mesh, dt, ckpt.layer_thickness)
+    steps = _Steps(mesh, dt, ckpt.layer_thickness, nonlinear)
     ddt = torch.zeros(1, dtype=torch.float64, device=ckpt.layer_thickness.device)
     out = _empty(ckpt)
     _segment(steps, ckpt, _cotangent(cot, ckpt), n_steps, _empty(ckpt, n_steps), ddt,
@@ -256,26 +296,29 @@ def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int,
 
 
 def adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
-                       group: int, g: StructState) -> tuple[StructState, torch.Tensor]:
-    """The reverse sweep from the checkpoints of ``forward_ckpts``: per
-    group, last to first, rebuild its states and step the cotangent back
-    through them. Returns (cotangent of the rollout's input, d(dt) as a
-    0-d float64 tensor). Counterpart of ``_pallas_adjoint_from_ckpts``."""
-    return _sweep(_Steps(mesh, dt, ckpts.layer_thickness), ckpts, n_steps, group, g)
+                       group: int, g: StructState, nonlinear: bool = False
+                       ) -> tuple[StructState, torch.Tensor]:
+    """The reverse sweep from the checkpoints of ``forward_ckpts`` (of the
+    nonlinear core with ``nonlinear``): per group, last to first, rebuild
+    its states and step the cotangent back through them. Returns (cotangent
+    of the rollout's input, d(dt) as a 0-d float64 tensor). Counterpart of
+    ``_pallas_adjoint_from_ckpts``."""
+    return _sweep(_Steps(mesh, dt, ckpts.layer_thickness, nonlinear), ckpts, n_steps, group,
+                  g)
 
 
 def fused_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
-                          g: StructState, *, plan: int | None = None):
-    """VJP of an n-step rollout: given its input ``state`` and an output
-    cotangent ``g``, returns (d_state, d_dt), d_dt as a 0-d tensor in dt's
-    dtype (float64 for a Python dt). ``plan`` (steps per group) overrides
-    ``adjoint_plan``, whose budget is MEMORY_SHARE of the card's free
-    memory (unbounded on the CPU). Counterpart of
-    ``pallas_adjoint_rollout``."""
+                          g: StructState, *, plan: int | None = None, nonlinear: bool = False):
+    """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``):
+    given its input ``state`` and an output cotangent ``g``, returns
+    (d_state, d_dt), d_dt as a 0-d tensor in dt's dtype (float64 for a
+    Python dt). ``plan`` (steps per group) overrides ``adjoint_plan``, whose
+    budget is MEMORY_SHARE of the card's free memory (unbounded on the CPU).
+    Counterpart of ``pallas_adjoint_rollout``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
     group = _plan(state, n_steps, plan)
-    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, group)
-    d_state, ddt = adjoint_from_ckpts(ckpts, mesh, dt, n_steps, group, g)
+    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, group, nonlinear)
+    d_state, ddt = adjoint_from_ckpts(ckpts, mesh, dt, n_steps, group, g, nonlinear)
     return d_state, ddt.to(dtype=dtype, device=device)
 
 
@@ -303,64 +346,70 @@ def _output_cotangent(like: StructState, grads) -> StructState:
 class FusedRolloutDiff(torch.autograd.Function):
     """n-step rollout whose backward is the checkpointed reverse sweep
     (``forward_ckpts`` forward, ``adjoint_from_ckpts`` backward). Inputs:
-    ssh, h, u, dt (float or tensor), mesh, n_steps, plan. The mesh gets no
-    cotangent (None; the JAX package returns zeros for it)."""
+    ssh, h, u, dt (float or tensor), mesh, n_steps, plan, nonlinear. The
+    mesh gets no cotangent (None; the JAX package returns zeros for it)."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, dt, mesh, n_steps, plan=None):
+    def forward(ctx, ssh, h, u, dt, mesh, n_steps, plan=None, nonlinear=False):
         state = StructState(ssh, h, u)
         _save_dt(ctx, dt, h.device)
         group = _plan(state, n_steps, plan)
-        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, group)
+        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, group, nonlinear)
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.group = ckpts, mesh, n_steps, group
+        ctx.nonlinear = nonlinear
         return _fields(final)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gs, gh, gu):
         if ctx.n_steps == 0:
-            return gs, gh, gu, None, None, None, None
+            return gs, gh, gu, None, None, None, None, None
         g = _output_cotangent(_slot(ctx.ckpts, 0), (gs, gh, gu))
         d_state, ddt = adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps,
-                                          ctx.group, g)
-        return (*_grads(ctx, d_state, ddt), None, None, None)
+                                          ctx.group, g, ctx.nonlinear)
+        return (*_grads(ctx, d_state, ddt), None, None, None, None)
 
 
 def fused_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
-                       plan: int | None = None) -> StructState:
-    """n-step rollout of the linear core (periodic, or masked where the mesh
-    has a wall mask), differentiable with respect to the state and a tensor
-    ``dt``: the reverse-mode pass through the whole loop, which the
-    reference validates with Enzyme against finite differences. Forward
-    through ``fe_step`` on the card, backward through ``adjoint_step``.
-    Counterpart of ``pallas_rollout_diff``."""
-    return StructState(*FusedRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan))
+                       plan: int | None = None, nonlinear: bool = False) -> StructState:
+    """n-step rollout of the linear core, or with ``nonlinear`` of the
+    vector-invariant one (periodic, or masked where the mesh has a wall
+    mask), differentiable with respect to the state and a tensor ``dt``: the
+    reverse-mode pass through the whole loop, which the reference validates
+    with Enzyme against finite differences. Forward through ``fe_step`` on
+    the card, backward through ``adjoint_step`` (the nonlinear core: the
+    nonlinear reverse kernel). Counterpart of ``pallas_rollout_diff``."""
+    return StructState(*FusedRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan,
+                                               nonlinear))
 
 
 class FusedStep(torch.autograd.Function):
-    """One differentiable step: the forward kernel forward, the adjoint
-    kernel backward. Inputs: ssh, h, u, dt, mesh."""
+    """One differentiable step: the forward kernel forward, the reverse
+    kernel backward. Inputs: ssh, h, u, dt, mesh, nonlinear."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, dt, mesh):
+    def forward(ctx, ssh, h, u, dt, mesh, nonlinear=False):
         ctx.save_for_backward(ssh, h, u)
-        ctx.mesh = mesh
+        ctx.mesh, ctx.nonlinear = mesh, nonlinear
         _save_dt(ctx, dt, h.device)
-        return _fields(fused_run_loop(StructState(ssh, h, u), mesh, ctx.dt_v, 1))
+        return _fields(fused_run_loop(StructState(ssh, h, u), mesh, ctx.dt_v, 1,
+                                      nonlinear=nonlinear))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gs, gh, gu):
         state = StructState(*ctx.saved_tensors)
         d_state, ddt = adjoint_segment(
-            state, _output_cotangent(state, (gs, gh, gu)), ctx.mesh, ctx.dt_v, 1)
-        return (*_grads(ctx, d_state, ddt), None)
+            state, _output_cotangent(state, (gs, gh, gu)), ctx.mesh, ctx.dt_v, 1,
+            ctx.nonlinear)
+        return (*_grads(ctx, d_state, ddt), None, None)
 
 
-def fused_step(state: StructState, mesh: StructMesh, dt) -> StructState:
-    """One differentiable forward-Euler step. Counterpart of
-    ``pallas_step``."""
-    return StructState(*FusedStep.apply(*_fields(state), dt, mesh))
+def fused_step(state: StructState, mesh: StructMesh, dt, *,
+               nonlinear: bool = False) -> StructState:
+    """One differentiable forward-Euler step (of the nonlinear core with
+    ``nonlinear``). Counterpart of ``pallas_step``."""
+    return StructState(*FusedStep.apply(*_fields(state), dt, mesh, nonlinear))
 
 
 # The size rule of auto_rollout_diff on the card: lattices of at least this
@@ -376,19 +425,20 @@ TILED_REVERSE_SITES = math.inf
 
 
 def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
-                      plan=None) -> StructState:
+                      plan=None, nonlinear: bool = False) -> StructState:
     """The differentiable lattice rollout's entry point, the routing half of
     ``pallas_rollout_diff``'s forward (pallas_model.py:2779-2823). A CPU
     state takes ``fused_rollout_diff``, whose plain route runs the plain
     step and adjoint step. On the card the forward runs ``fe_step`` either
     way, and the reverse is ``adjoint_step`` (``fused_rollout_diff``) on
     lattices of fewer than TILED_REVERSE_SITES sites and ``tiled_adjoint``
-    (``tiled_diff.tiled_rollout_diff``) on larger ones. ``plan`` is the
-    chosen route's: steps per group for the fused reverse, (row_tile,
-    col_tile, q, group) for the tiled one."""
+    (``tiled_diff.tiled_rollout_diff``) on larger ones. ``nonlinear`` runs
+    the vector-invariant core through the same routes (the kernels'
+    nonlinear arms). ``plan`` is the chosen route's: steps per group for the
+    fused reverse, (row_tile, col_tile, q, group) for the tiled one."""
     sites = 2 * mesh.ny2 * mesh.nx
     if state.layer_thickness.device.type == "cuda" and sites >= TILED_REVERSE_SITES:
         from .tiled_diff import tiled_rollout_diff
 
-        return tiled_rollout_diff(state, mesh, dt, n_steps, plan=plan)
-    return fused_rollout_diff(state, mesh, dt, n_steps, plan=plan)
+        return tiled_rollout_diff(state, mesh, dt, n_steps, plan=plan, nonlinear=nonlinear)
+    return fused_rollout_diff(state, mesh, dt, n_steps, plan=plan, nonlinear=nonlinear)

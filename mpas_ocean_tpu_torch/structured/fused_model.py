@@ -17,11 +17,12 @@ from __future__ import annotations
 
 import torch
 
+from ..constants import GRAVITY
 from ..kernels import fe_step
 from . import tiled_model
 from .model import StructMesh, StructState, check_nl_mesh, structured_run_loop
 
-__all__ = ["fused_run_loop", "kernel_live", "nl_scal", "nl_setup",
+__all__ = ["fused_run_loop", "kernel_live", "nl_adjoint_scal", "nl_scal", "nl_setup",
            "structured_auto_run_loop"]
 
 
@@ -41,6 +42,17 @@ def nl_scal(mesh: StructMesh, dtype: torch.dtype) -> tuple[float, float]:
     and rounded to the state dtype, as pallas_model._scal's slots 3 and 4."""
     dc, dv, area = (x.cpu() for x in (mesh.dc, mesh.dv, mesh.area_cell))
     return float((0.25 * dc * dv / area).to(dtype)), float((dc / (area * 0.5)).to(dtype))
+
+
+def nl_adjoint_scal(mesh: StructMesh, dt, dtype: torch.dtype) -> tuple[float, float]:
+    """The nonlinear reverse kernel's ds and dKE scales, g dt / dc and
+    dt / dc, each computed in double from the mesh's dc and rounded once to
+    the state dtype: a product of already rounded f32 factors, applied at
+    every site of every step, would carry its rounding into ds and dKE as a
+    bias."""
+    dc, dt = float(mesh.dc), float(dt)
+    return tuple(float(torch.tensor(x, dtype=torch.float64).to(dtype))
+                 for x in (GRAVITY * dt / dc, dt / dc))
 
 
 def nl_setup(mesh: StructMesh, dtype: torch.dtype) -> torch.Tensor:

@@ -29,10 +29,17 @@ import torch
 
 from ..constants import GRAVITY
 from .hex_layout import E, NE, NW
-from .stencils import INCOMING, NEIGHBOR, transpose_coriolis_terms
+from .stencils import (
+    INCOMING,
+    NEIGHBOR,
+    transpose_coriolis_terms,
+    transpose_curl_terms,
+    transpose_endpoint_terms,
+    transpose_kite_terms,
+)
 
-__all__ = ["adjoint_stencil_reach", "derived_ring", "reach", "stencil_reach", "step_slab",
-           "step_slab_nl", "window_steps"]
+__all__ = ["adjoint_stencil_reach", "derived_ring", "nl_adjoint_rings", "reach",
+           "stencil_reach", "step_slab", "step_slab_nl", "window_steps"]
 
 
 def reach(fb: bool, nonlinear: bool = False) -> int:
@@ -115,14 +122,55 @@ def stencil_reach(terms, fb: bool, nl_terms=None) -> tuple[int, int]:
     return _max_reach(taps)
 
 
-def adjoint_stencil_reach(terms) -> tuple[int, int]:
+def adjoint_stencil_reach(terms, nl_terms=None) -> tuple[int, int]:
     """(rows, columns) one reverse step reads per side, from the same tables
     (structured/adjoint.py): G = gh + gs at the neighbours across the owned
     edges and at the incoming edges' own cells, u and gu at the incoming
     edges (u * dG and S_e = sum_k gu_e), both of which ``_continuity_taps``
-    lists, and the transposed Coriolis taps."""
+    lists, and the transposed Coriolis taps. With ``nl_terms`` =
+    (vertex_cell_terms, edge_vertex_terms) the nonlinear reverse's primal
+    window (``nl_adjoint_rings``)."""
+    if nl_terms is not None:
+        return nl_adjoint_rings(terms, nl_terms)[-1]
     taps = _continuity_taps() + [(t[4], t[5]) for t in transpose_coriolis_terms(terms)]
     return max(abs(dm) for dm, _ in taps), max(abs(di) for _, di in taps)
+
+
+def _grown(*reaches) -> tuple[int, int]:
+    return sum(r[0] for r in reaches), sum(r[1] for r in reaches)
+
+
+def _widest(*reaches) -> tuple[int, int]:
+    return max(r[0] for r in reaches), max(r[1] for r in reaches)
+
+
+def nl_adjoint_rings(terms, nl_terms):
+    """The rings (rows, columns) per side around a tile on which the
+    nonlinear reverse step (structured/adjoint.structured_nl_adjoint_step,
+    in gather form: each site computes its own cotangent) computes its
+    stages, from the tables: (C, B, A, window). D, on the tile, reads dF at
+    the own and incoming edges, dKE across the owned ones, the curl's and
+    the kite's transposes of the vertex cotangents (C's ring); C, the vertex
+    cotangents from dq_e through the endpoint mean's transpose (B's ring);
+    B, dq_e, dF and dKE from F and q_e through the Coriolis taps and their
+    transposes (A's ring); A, F and q_e from the state through the derived
+    taps (the window). The cotangent reaches B's ring grown by the
+    transposed taps and the continuity taps, inside the window. (1, 1),
+    (2, 2), (3, 4), (4, 6) on the hex lattice (csrc/nl_adjoint.cuh)."""
+    vc_terms, ev_terms = nl_terms
+    own = [(0, 0)] + _grad_taps() + [(dm, di) for p in (0, 1) for (_, dm, di) in INCOMING[p]]
+    vert = [(t[3], t[4]) for t in transpose_curl_terms()] + [
+        (t[3], t[4]) for t in transpose_kite_terms(vc_terms)]
+    ring_c = _max_reach([(0, 0)] + vert)
+    ring_b = _widest(_max_reach(own), _grown(ring_c, _max_reach(
+        [(t[4], t[5]) for t in transpose_endpoint_terms(ev_terms)])))
+    tangential = [(t[4], t[5]) for t in terms] + [
+        (t[4], t[5]) for t in transpose_coriolis_terms(terms)]
+    ring_a = _grown(ring_b, _max_reach(tangential))
+    cot = _grown(ring_b, _max_reach(tangential + own))
+    window = _widest(_grown(ring_a, _max_reach(_derived_taps(nl_terms))), cot,
+                     _grown(ring_c, _max_reach(vert)))
+    return ring_c, ring_b, ring_a, window
 
 
 def _sh(x, dm: int, di: int, reg):

@@ -1,15 +1,18 @@
-"""Differentiable rollout of the structured linear core with a tiled reverse:
-the forward-Euler step kernel (kernels/fe_step.py) forward, and a reverse
-sweep through the hand-written tiled adjoint kernel
-(kernels/tiled_adjoint.py, csrc/tiled_adjoint.cu), q steps per launch over
-row x column tiles.
+"""Differentiable rollout of the structured core with a tiled reverse: the
+forward-Euler step kernel (kernels/fe_step.py) forward, and a reverse sweep
+through the hand-written tiled adjoint kernel (kernels/tiled_adjoint.py,
+csrc/tiled_adjoint.cu), q steps per launch over row x column tiles; for the
+nonlinear core, through the nonlinear reverse kernel at q = 1
+(kernels/adjoint_step.nl_adjoint_rollout, csrc/nl_adjoint.cuh), over tiles
+that divide the lattice.
 
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py's tiled reverse
 (:1960-2584: ``_tiled_adjoint_plan``, ``_halo_unscatter``,
 ``_pallas_tiled_adjoint``, ``_tiled_adjoint_from_ckpts``) and of the tiled
-arms of ``_rollout_fwd`` / ``_rollout_bwd`` (:2779-2944), for the linear
-core with forward Euler, on periodic lattices and on coastal channels (the
-wall mask windowed as f_edge, ``masks_full``). It mirrors ``tiled_model``.
+arms of ``_rollout_fwd`` / ``_rollout_bwd`` (:2779-2944), for the linear and
+the nonlinear core with forward Euler, on periodic lattices and on coastal
+channels (the wall mask windowed as f_edge, ``masks_full``; the vertex
+constants as ``fv_full``). It mirrors ``tiled_model``.
 
 The forward is ``diff_model.forward_ckpts`` in groups of ``group * q``
 steps, which runs ``fe_step`` on the card: that is the counterpart of
@@ -31,6 +34,13 @@ blocks per SM (else the largest that fits one), with
 ``tiled_model.resolve_plan``'s clamp, and ``group`` from
 ``diff_model.adjoint_plan`` over the n / q supersteps.
 
+The nonlinear tiled reverse is kernel 4's nonlinear arm at q = 1, the only
+q the JAX router takes (``_ADJ_Q_ORDER``, pallas_model.py:2673): the VJP of
+one nonlinear FE step per tile, which is the nonlinear reverse kernel's
+launch, so it runs that kernel (planned by ``adjoint_step.nl_adjoint_plan``
+over the tiles that divide the lattice). A nonlinear q > 1 raises on the
+card, as the nonlinear forward's does; the plain superstep runs any q.
+
 A CUDA state runs the kernels, and a failed build, a failed launch or a
 plan that does not fit raises; a CPU state runs the same plan with the plain
 step and ``plain_tiled_adjoint_superstep``, the kernel's plain version.
@@ -44,7 +54,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..kernels import tiled_adjoint
+from ..kernels import adjoint_step, tiled_adjoint
 from . import fused_model
 from .diff_model import (
     _default_budget,
@@ -60,9 +70,9 @@ from .diff_model import (
     adjoint_plan,
     forward_ckpts,
 )
-from .model import StructMesh, StructState
+from .model import StructMesh, StructState, check_nl_mesh
 from .slab import adjoint_stencil_reach, stencil_reach, window_steps
-from .tiled_model import _windows, halo_unscatter, mask_windows, resolve_plan
+from .tiled_model import _divisors, _nl_args, _windows, halo_unscatter, mask_windows, resolve_plan
 
 __all__ = [
     "TiledRolloutDiff",
@@ -81,10 +91,16 @@ __all__ = [
 ADJOINT_BUDGETS = (tiled_adjoint.TWO_BLOCK_BYTES, tiled_adjoint.SMEM_BYTES)
 
 
-def reverse_halo(terms) -> tuple[int, int]:
+def reverse_halo(terms, nl_terms=None) -> tuple[int, int]:
     """(rows, columns) per side that one step of the reverse reads: the
     larger of the forward step's reach (the recompute, q > 1) and the
-    transposed step's, both (1, 2) for the hex lattice's tables."""
+    transposed step's, both (1, 2) for the hex lattice's tables. With
+    ``nl_terms`` the nonlinear step's reach, (2, 4), the halo of the plain
+    superstep's windows (the VJP of ``slab.window_steps``, JAX's scatter
+    form); the nonlinear reverse kernel reads its own window
+    (``slab.nl_adjoint_rings``)."""
+    if nl_terms is not None:
+        return stencil_reach(terms, False, nl_terms)
     fwd, adj = stencil_reach(terms, False), adjoint_stencil_reach(terms)
     return max(fwd[0], adj[0]), max(fwd[1], adj[1])
 
@@ -100,14 +116,23 @@ def adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
 
 
 def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *, halo,
-                       budget: float = math.inf, row_tile=None, col_tile=None, q=None):
+                       budget: float = math.inf, row_tile=None, col_tile=None, q=None,
+                       nonlinear: bool = False):
     """(row_tile, col_tile, q, group) for the gradient of an n-step rollout
     on ny2 x nx sites and k levels, ``halo`` from ``reverse_halo``: the
     caller's choices completed by ``tiled_model.resolve_plan`` with the
     adjoint's window (by default q = 1 and the largest tile whose window
-    leaves room for two blocks per SM, else the largest that fits one), and
-    ``group`` supersteps per checkpoint group from ``diff_model.adjoint_plan``
-    over n / q supersteps within ``budget`` bytes."""
+    leaves room for two blocks per SM, else the largest that fits one; for
+    ``nonlinear``, q = 1 and ``adjoint_step.nl_adjoint_plan``'s tile among
+    those that divide the lattice), and ``group`` supersteps per checkpoint
+    group from ``diff_model.adjoint_plan`` over n / q supersteps within
+    ``budget`` bytes."""
+    if nonlinear and (row_tile is None or col_tile is None):
+        tiles = [(r, c) for r in _divisors(ny2) for c in _divisors(nx)]
+        rt, ct, _ = adjoint_step.nl_adjoint_plan(ny2, nx, k, itemsize, tiles)
+        row_tile = rt if row_tile is None else row_tile
+        col_tile = ct if col_tile is None else col_tile
+        q = 1 if q is None else q
     rt, ct, q = resolve_plan(ny2, nx, k, itemsize, halo, n_steps, row_tile, col_tile, q,
                              window=adjoint_window_bytes, budgets=ADJOINT_BUDGETS)
     state_bytes = itemsize * 2 * ny2 * nx * (1 + 4 * k)
@@ -116,22 +141,26 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
 
 
 def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: StructMesh,
-                                  dt, row_tile: int, col_tile: int, q: int
-                                  ) -> tuple[StructState, torch.Tensor]:
+                                  dt, row_tile: int, col_tile: int, q: int,
+                                  nonlinear: bool = False) -> tuple[StructState, torch.Tensor]:
     """The tiled adjoint kernel's plain version, one reverse superstep of q
-    forward-Euler steps: cut the primal ``state`` at the superstep start into
-    halo-padded windows and the cotangent ``cot`` at its end into the tiles'
-    cores, take ``torch.func.vjp`` of ``slab.window_steps`` over all windows
-    as one batch (dt a 0-d tensor), and overlap-add the windows' cotangents
-    onto the lattice (``tiled_model.halo_unscatter``). Returns (cotangent at
-    the superstep start, d(dt) as a 0-d tensor in the state dtype). It is
-    what the TPU kernel and its caller compute together
-    (pallas_model.py:2528-2553), by autograd rather than by the hand-written
-    transpose the kernel runs."""
+    forward-Euler steps (of the nonlinear core with ``nonlinear``): cut the
+    primal ``state`` at the superstep start into halo-padded windows and the
+    cotangent ``cot`` at its end into the tiles' cores, take
+    ``torch.func.vjp`` of ``slab.window_steps`` over all windows as one batch
+    (dt a 0-d tensor; the vertex constants windowed as f_edge), and
+    overlap-add the windows' cotangents onto the lattice
+    (``tiled_model.halo_unscatter``). Returns (cotangent at the superstep
+    start, d(dt) as a 0-d tensor in the state dtype). It is what the TPU
+    kernel and its caller compute together (pallas_model.py:2528-2553), by
+    autograd rather than by the hand-written transpose the kernels run."""
     ny2, nx = mesh.ny2, mesh.nx
     h = state.layer_thickness
     k, dtype = h.shape[-1], h.dtype
-    halo = stencil_reach(mesh.coriolis_terms, False)
+    if nonlinear:
+        check_nl_mesh(mesh)
+    nl_terms, nl = _nl_args(mesh, dtype, nonlinear)
+    halo = stencil_reach(mesh.coriolis_terms, False, nl_terms)
     hm, hi = halo[0] * q, halo[1] * q
     dt_, inv_dc, s_div = fused_model._scal(mesh, dt, dtype)
     win = lambda x: _windows(x, row_tile, col_tile, hm, hi)
@@ -139,10 +168,15 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
     f_w = win(mesh.f_edge.to(dtype).reshape(6, ny2, nx, 1))
     rts_w = win(mesh.resting_thickness_sum.to(dtype).reshape(2, ny2, nx, 1))
     mask_w = mask_windows(mesh, dtype, win)
+    fv_w = None
+    if nonlinear:
+        fv = fused_model.nl_setup(mesh, dtype)
+        fv_w = win(fv.reshape(fv.shape[0], ny2, nx, 1))
 
     def steps(ssh, h, u, d):
         return window_steps(ssh, h, u, f_w, rts_w, d, inv_dc, s_div, mesh.coriolis_terms,
-                            rows=row_tile, cols=col_tile, q=q, halo=halo, mask_full=mask_w)
+                            rows=row_tile, cols=col_tile, q=q, halo=halo, mask_full=mask_w,
+                            fv_full=fv_w, nl=nl)
 
     _, vjp = torch.func.vjp(
         steps, win(state.ssh[..., None]), win(h),
@@ -156,15 +190,26 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
                        normal_velocity=back(d_u).reshape(3, 2, ny2, nx, k)), d_dt
 
 
+def _check_nl_q(plan, nonlinear: bool, device) -> None:
+    """The card's nonlinear tiled reverse runs q = 1 only."""
+    if nonlinear and device.type == "cuda" and plan[2] != 1:
+        raise ValueError(f"the nonlinear tiled reverse runs q = 1 on the card, not q = "
+                         f"{plan[2]}")
+
+
 class _TiledSteps(_Steps):
     """diff_model's steps with a slot per superstep of q steps: the
     forward kernel fills the slots, the tiled adjoint kernel (or its plain
-    version, for a CPU state) reverses them."""
+    version, for a CPU state) reverses them; for ``nonlinear`` on the card,
+    the nonlinear reverse kernel at q = 1 over the plan's tiles (diff_model's
+    reverse)."""
 
-    def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, plan):
-        super().__init__(mesh, dt, like)
+    def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, plan, nonlinear: bool = False):
+        _check_nl_q(plan, nonlinear, like.device)
+        super().__init__(mesh, dt, like, nonlinear, nl_tile=tuple(plan[:2]))
         self.rt, self.ct, self.q, _ = plan
-        self.halo = reverse_halo(mesh.coriolis_terms)
+        nl_terms, _ = _nl_args(mesh, like.dtype, nonlinear)
+        self.halo = reverse_halo(mesh.coriolis_terms, nl_terms)
         if self.cuda:  # f_edge, rts, the stencil and its transpose
             self.tiled_adj = (*self.fwd, *self.adj[1:])
 
@@ -181,6 +226,9 @@ class _TiledSteps(_Steps):
                 out: StructState, scratch: StructState):
         """n >= 1 reverse supersteps through the stack's slots n - 1 .. 0,
         from the cotangent g at the end into out; d(dt) is added to ddt."""
+        if self.cuda and self.nonlinear:
+            super().reverse(stack, g, n, ddt, out, scratch)
+            return
         if self.cuda:
             tiled_adjoint.tiled_adjoint_rollout(
                 _fields(stack), _fields(g), *self.tiled_adj, *self.scal, n, ddt,
@@ -189,84 +237,94 @@ class _TiledSteps(_Steps):
             return
         for j in reversed(range(n)):
             g, dd = plain_tiled_adjoint_superstep(_slot(stack, j), g, self.mesh, self.dt,
-                                                  self.rt, self.ct, self.q)
+                                                  self.rt, self.ct, self.q, self.nonlinear)
             ddt += dd
         for dst, x in zip(_fields(out), _fields(g)):
             dst.copy_(x)
 
 
-def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan):
+def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan, nonlinear: bool):
     if plan:
         return tuple(plan)
     h = state.layer_thickness
+    nl_terms, _ = _nl_args(mesh, h.dtype, nonlinear)
     return tiled_adjoint_plan(mesh.ny2, mesh.nx, h.shape[-1], h.element_size(), n_steps,
-                              halo=reverse_halo(mesh.coriolis_terms),
-                              budget=_default_budget(h.device))
+                              halo=reverse_halo(mesh.coriolis_terms, nl_terms),
+                              budget=_default_budget(h.device), nonlinear=nonlinear)
 
 
 def tiled_adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
-                             plan, g: StructState) -> tuple[StructState, torch.Tensor]:
+                             plan, g: StructState, nonlinear: bool = False
+                             ) -> tuple[StructState, torch.Tensor]:
     """The tiled reverse sweep from the checkpoints that
-    ``forward_ckpts(state, mesh, dt, n_steps, group * q)`` kept, for
-    ``plan`` = (row_tile, col_tile, q, group): per group, last to first,
+    ``forward_ckpts(state, mesh, dt, n_steps, group * q, nonlinear)`` kept,
+    for ``plan`` = (row_tile, col_tile, q, group): per group, last to first,
     rebuild its superstep-start states and reverse them one superstep per
     launch. Returns (cotangent of the rollout's input, d(dt) as a 0-d
     float64 tensor). Counterpart of ``_tiled_adjoint_from_ckpts``."""
     _, _, q, group = plan
     if n_steps % q:
         raise ValueError(f"q={q} must divide n_steps={n_steps}")
-    steps = _TiledSteps(mesh, dt, ckpts.layer_thickness, plan)
+    steps = _TiledSteps(mesh, dt, ckpts.layer_thickness, plan, nonlinear)
     return _sweep(steps, ckpts, n_steps // q, group, g)
 
 
 def tiled_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
-                          g: StructState, *, plan=None):
-    """VJP of an n-step rollout through the tiled reverse: given its input
-    ``state`` and an output cotangent ``g``, returns (d_state, d_dt), d_dt
-    as a 0-d tensor in dt's dtype (float64 for a Python dt). ``plan`` =
-    (row_tile, col_tile, q, group) overrides ``tiled_adjoint_plan``.
-    Counterpart of ``_pallas_tiled_adjoint``."""
+                          g: StructState, *, plan=None, nonlinear: bool = False):
+    """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``)
+    through the tiled reverse: given its input ``state`` and an output
+    cotangent ``g``, returns (d_state, d_dt), d_dt as a 0-d tensor in dt's
+    dtype (float64 for a Python dt). ``plan`` = (row_tile, col_tile, q,
+    group) overrides ``tiled_adjoint_plan``. Counterpart of
+    ``_pallas_tiled_adjoint``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
-    plan = _plan(state, mesh, n_steps, plan)
-    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, plan[2] * plan[3])
-    d_state, ddt = tiled_adjoint_from_ckpts(ckpts, mesh, dt, n_steps, plan, g)
+    plan = _plan(state, mesh, n_steps, plan, nonlinear)
+    _check_nl_q(plan, nonlinear, state.layer_thickness.device)
+    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, plan[2] * plan[3], nonlinear)
+    d_state, ddt = tiled_adjoint_from_ckpts(ckpts, mesh, dt, n_steps, plan, g, nonlinear)
     return d_state, ddt.to(dtype=dtype, device=device)
 
 
 class TiledRolloutDiff(torch.autograd.Function):
     """n-step rollout whose backward is the tiled reverse sweep
     (``forward_ckpts`` forward, ``tiled_adjoint_from_ckpts`` backward).
-    Inputs: ssh, h, u, dt (float or tensor), mesh, n_steps, plan. The mesh
-    gets no cotangent."""
+    Inputs: ssh, h, u, dt (float or tensor), mesh, n_steps, plan, nonlinear.
+    The mesh gets no cotangent."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, dt, mesh, n_steps, plan=None):
+    def forward(ctx, ssh, h, u, dt, mesh, n_steps, plan=None, nonlinear=False):
         state = StructState(ssh, h, u)
         _save_dt(ctx, dt, h.device)
-        plan = _plan(state, mesh, n_steps, plan)
+        plan = _plan(state, mesh, n_steps, plan, nonlinear)
         if n_steps % plan[2]:
             raise ValueError(f"q={plan[2]} must divide n_steps={n_steps}")
-        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, plan[2] * plan[3])
+        _check_nl_q(plan, nonlinear, h.device)
+        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, plan[2] * plan[3],
+                                     nonlinear)
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.plan = ckpts, mesh, n_steps, plan
+        ctx.nonlinear = nonlinear
         return _fields(final)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gs, gh, gu):
         if ctx.n_steps == 0:
-            return gs, gh, gu, None, None, None, None
+            return gs, gh, gu, None, None, None, None, None
         g = _output_cotangent(_slot(ctx.ckpts, 0), (gs, gh, gu))
         d_state, ddt = tiled_adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps,
-                                                ctx.plan, g)
-        return (*_grads(ctx, d_state, ddt), None, None, None)
+                                                ctx.plan, g, ctx.nonlinear)
+        return (*_grads(ctx, d_state, ddt), None, None, None, None)
 
 
 def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
-                       plan=None) -> StructState:
-    """n-step rollout of the linear core (periodic, or masked where the mesh
-    has a wall mask), differentiable with respect to the state and a tensor
-    ``dt``, with the tiled reverse: forward through ``fe_step`` on the card,
-    backward through ``tiled_adjoint``.
-    ``plan`` = (row_tile, col_tile, q, group) overrides
-    ``tiled_adjoint_plan``. The tiled arm of ``pallas_rollout_diff``."""
-    return StructState(*TiledRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan))
+                       plan=None, nonlinear: bool = False) -> StructState:
+    """n-step rollout of the linear core, or with ``nonlinear`` of the
+    vector-invariant one (periodic, or masked where the mesh has a wall
+    mask), differentiable with respect to the state and a tensor ``dt``,
+    with the tiled reverse: forward through ``fe_step`` on the card,
+    backward through ``tiled_adjoint`` (nonlinear: the nonlinear reverse
+    kernel, q = 1; a nonlinear q > 1 raises on the card). ``plan`` =
+    (row_tile, col_tile, q, group) overrides ``tiled_adjoint_plan``. The
+    tiled arm of ``pallas_rollout_diff``."""
+    return StructState(*TiledRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan,
+                                               nonlinear))

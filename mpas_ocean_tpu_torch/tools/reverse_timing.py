@@ -1,4 +1,4 @@
-"""Time the two reverse kernels per launch on the card, by device time, to
+"""Time the reverse kernels per launch on the card, by device time, to
 compare two checkouts of the package.
 
     python -m mpas_ocean_tpu_torch.tools.reverse_timing [--sizes 64 256] [--group 40]
@@ -8,7 +8,11 @@ wave at dt = 30 s) it fills a stack of ``group`` primal states through
 ``structured_auto_run_loop`` (an entry whose arguments every checkout
 shares), then times one call of ``adjoint_step.adjoint_rollout`` and one of
 ``tiled_adjoint.tiled_adjoint_rollout`` (the planner's plan) over that
-stack by ``held_us``, the timer chip_smoke.py's phase 8 uses too. Prints
+stack by ``held_us``, the timer chip_smoke.py's phase 8 uses too, and, where
+the checkout has it, one of the nonlinear reverse
+(``adjoint_step.nl_adjoint_rollout``, its planner's plan) over a stack of
+nonlinear states filled through ``structured_auto_run_loop(nonlinear=True)``
+(phase 13's timer). Prints
 one JSON line with the µs per launch of every rep, the card and the
 package's path. To compare two checkouts of the package on one card, run
 this file against each in turn:
@@ -88,8 +92,28 @@ def time_size(n: int, group: int) -> dict:
     tiled = held_us(lambda: tiled_adjoint.tiled_adjoint_rollout(
         stack, g_in, sm.f_edge, sm.resting_thickness_sum, *fwd, *adj, *scal, group // q, acc,
         row_tile=rt, col_tile=ct, q=q, halo=halo), group // q)
-    return {"n": n, "group": group, "tiled_plan": [rt, ct, q], "adjoint_step_us": fused,
-            "tiled_adjoint_us": tiled}
+    out = {"n": n, "group": group, "tiled_plan": [rt, ct, q], "adjoint_step_us": fused,
+           "tiled_adjoint_us": tiled}
+    if hasattr(adjoint_step, "nl_adjoint_rollout"):
+        from mpas_ocean_tpu_torch.structured.fused_model import (
+            kernel_live,
+            nl_adjoint_scal,
+            nl_scal,
+            nl_setup,
+        )
+
+        state = st
+        for j in range(group):
+            for dst, x in zip(stack, (state.ssh, state.layer_thickness, state.normal_velocity)):
+                dst[j].copy_(x)
+            state = structured_auto_run_loop(state, sm, DT, 1, nonlinear=True)
+        args = (nl_setup(sm, torch.float32), *fwd, *adj, sm.vertex_cell_terms,
+                sm.edge_vertex_terms, *scal, *nl_scal(sm, torch.float32),
+                *nl_adjoint_scal(sm, DT, torch.float32))
+        out["nl_adjoint_plan"] = list(adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4))
+        out["nl_adjoint_us"] = held_us(lambda: adjoint_step.nl_adjoint_rollout(
+            stack, g_in, *args, group, acc, live=kernel_live(sm)), group)
+    return out
 
 
 def main() -> None:

@@ -1,7 +1,7 @@
 """Time the window kernels' plans and tiles on the card.
 
     python -m mpas_ocean_tpu_torch.tools.tile_sweep [--sizes 256 64] [--steps 40]
-        [--kernels forward reverse nonlinear] [--out tile_sweep.json]
+        [--kernels forward reverse nonlinear nonlinear-reverse] [--out tile_sweep.json]
 
 For each lattice size (n x n cells, 100 levels, f32, the inertial-gravity
 wave at dt = 30 s):
@@ -21,11 +21,15 @@ wave at dt = 30 s):
   as forward: fe_step's FE arm through ``fe_step.fe_nl_rollout`` and
   tiled_step's FB arm through ``tiled_step.tiled_nl_rollout``, for each
   tile of powers of two up to 16 x 32 of at least 8 sites, cut to the
-  lattice, and each slice of 1-16 levels that fits.
+  lattice, and each slice of 1-16 levels that fits;
+* nonlinear-reverse: the nonlinear reverse (csrc/nl_adjoint.cuh) through
+  ``adjoint_step.nl_adjoint_rollout`` over a stack of ``--steps`` primal
+  states of fe_step's nonlinear arm, for the same tiles and slices, per
+  launch by ``reverse_timing.held_us``.
 
 Prints one line per plan, fastest first, with the blocks per SM (CUDA's
 occupancy calculator), the plan the planner (``tile_plan``, ``fe_tile``,
-``adjoint_tile``, ``tiled_adjoint_plan``, ``nl_plan``)
+``adjoint_tile``, ``tiled_adjoint_plan``, ``nl_plan``, ``nl_adjoint_plan``)
 picks and its rank (from 0), and
 writes all the numbers as JSON to ``--out``; a line on stderr names each
 plan before it is timed. The planners' rules and the FE size rule of
@@ -48,7 +52,7 @@ import torch
 import mpas_ocean_tpu_torch as mt
 from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint, tiled_step
 from mpas_ocean_tpu_torch.structured import tile_plan, tiled_adjoint_plan, tiled_run_loop
-from mpas_ocean_tpu_torch.structured.fused_model import _scal, nl_scal, nl_setup
+from mpas_ocean_tpu_torch.structured.fused_model import _scal, nl_adjoint_scal, nl_scal, nl_setup
 from mpas_ocean_tpu_torch.structured.slab import stencil_reach
 from mpas_ocean_tpu_torch.structured.tiled_diff import adjoint_window_bytes, reverse_halo
 from mpas_ocean_tpu_torch.structured.tiled_model import resolve_plan, window_bytes
@@ -247,6 +251,56 @@ def nonlinear_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
     return entry
 
 
+def nonlinear_reverse_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
+    """Per-launch device times of the nonlinear reverse over every tile and
+    slice that fits, from a stack of n_steps primal states of fe_step's
+    nonlinear arm."""
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    sm = model.struct_mesh
+    dtype = torch.float32
+    scal = (*_scal(sm, DT, dtype), *nl_scal(sm, dtype))
+    fv = nl_setup(sm, dtype)
+    fields = (st.ssh, st.layer_thickness, st.normal_velocity)
+    stack = tuple(torch.empty((n_steps, *x.shape), dtype=x.dtype, device=x.device)
+                  for x in fields)
+    for dst, x in zip(stack, fields):
+        dst[0].copy_(x)
+    fe_step.fe_nl_fill_stack(stack, sm.resting_thickness_sum, *sm.host_stencil, fv,
+                             sm.vertex_cell_terms, sm.edge_vertex_terms, *scal, n_steps - 1)
+    gen = torch.Generator(device=st.ssh.device).manual_seed(15)
+    g_in = tuple(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+                 for x in fields)
+    acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
+    args = (fv, *sm.host_stencil, *sm.host_adjoint_stencil, sm.vertex_cell_terms,
+            sm.edge_vertex_terms, *scal, *nl_adjoint_scal(sm, DT, dtype))
+    kc = fe_step.level_split(LEVELS)[1]
+    tiles = dict.fromkeys((min(rt, sm.ny2), min(ct, sm.nx)) for rt in (1, 2, 4, 8, 16)
+                          for ct in (1, 2, 4, 8, 16, 32) if rt * ct >= 8)
+    rows = []
+    for tile in tiles:
+        for ks in (1, 2, 4, 8, 16):
+            if ks > kc or (adjoint_step.nl_adjoint_smem_bytes(tile, LEVELS, 4, ks)
+                           > fe_step.SMEM_BYTES):
+                continue
+            progress(f"{n}: nonlinear reverse {tile} slice {ks}")
+            t = held_us(lambda: adjoint_step.nl_adjoint_rollout(
+                stack, g_in, *args, n_steps, acc, tile=tile, ks=ks), n_steps, REPS)
+            rows.append(((*tile, ks), t, adjoint_step.nl_adjoint_launch_plan(
+                sm.ny2, sm.nx, LEVELS, tile, ks)))
+    rows.sort(key=lambda r: statistics.median(r[1]))
+    chosen = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)
+    rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
+    print(f"{n}x{n}x{LEVELS} f32: nonlinear reverse, {len(rows)} (tile, slice) plans; "
+          f"nl_adjoint_plan picks {chosen}, rank {rank} [{gpu}]", flush=True)
+    for plan, t, lp in rows:
+        print(f"    nonlinear reverse {plan}: {statistics.median(t):.3f} us/launch (min "
+              f"{min(t):.3f}, max {max(t):.3f}); {lp['smem_bytes']} bytes, "
+              f"{lp['blocks_per_sm']} blocks per SM, {lp['clusters']} clusters", flush=True)
+    return {"nl_adjoint": [{"plan": p, "us_per_launch": t, **lp} for p, t, lp in rows],
+            "nl_adjoint_chosen": chosen}
+
+
 def sweep(sizes, n_steps: int, kernels=("forward", "reverse")) -> dict:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -259,6 +313,9 @@ def sweep(sizes, n_steps: int, kernels=("forward", "reverse")) -> dict:
         if "nonlinear" in kernels:
             result.setdefault("nonlinear", {})[str(n)] = nonlinear_sweep(n, model, st, n_steps,
                                                                          gpu)
+        if "nonlinear-reverse" in kernels:
+            result.setdefault("nonlinear-reverse", {})[str(n)] = nonlinear_reverse_sweep(
+                n, model, st, n_steps, gpu)
         if "forward" not in kernels:
             continue
         sm = model.struct_mesh
@@ -316,7 +373,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[256, 64])
     ap.add_argument("--steps", type=int, default=40)
-    ap.add_argument("--kernels", nargs="+", choices=("forward", "reverse", "nonlinear"),
+    ap.add_argument("--kernels", nargs="+",
+                    choices=("forward", "reverse", "nonlinear", "nonlinear-reverse"),
                     default=["forward", "reverse"])
     ap.add_argument("--out", type=Path, default=Path("tile_sweep.json"))
     args = ap.parse_args()

@@ -1,6 +1,8 @@
-"""The hand-written CUDA adjoint-step kernel against its plain PyTorch
-version, on a CUDA card. These tests skip on machines without one. They
-import no JAX, so on a GPU machine without JAX they run with
+"""The hand-written CUDA reverse-step kernels against their plain PyTorch
+versions, on a CUDA card: adjoint_step (linear) and the nonlinear reverse
+(csrc/nl_adjoint.cuh; ``-k nonlinear``). These tests skip on machines
+without one. They import no JAX, so on a GPU machine without JAX they run
+with
 
     python -m pytest --noconftest -m gpu tests/test_torch_adjoint_kernel.py
 """
@@ -23,9 +25,15 @@ from mpas_ocean_tpu_torch.structured.fused_model import _scal
 
 from torch_gpu_cases import (  # noqa: F401 (fixture)
     FIELDS,
+    assert_nl_reverse_f32,
     channel_lattice,
     cuda,
+    linear_reverse,
+    nl_reverse,
+    nl_stack,
+    plain_nl_reverse,
     random_lattice,
+    reverse_gaps,
     reversed_terms_mesh,
 )
 
@@ -277,3 +285,154 @@ def test_masked_adjoint_kernel_passes_the_dot_product_identity(cuda):
     jtg = torch.autograd.grad(fields(out), leaves, fields(g))
     rhs = sum(float((x * y).sum()) for x, y in zip(fields(v), jtg))
     assert abs(lhs - rhs) <= 1e-12 * abs(rhs)
+
+
+# ---- the nonlinear reverse (csrc/nl_adjoint.cuh) ---------------------------------
+
+def _nl_lattice(case, shape, device, dtype=np.float64, seed=7, dc=1000.0):
+    lattice = random_lattice if case == "periodic" else channel_lattice
+    return lattice(*shape, device, seed=seed, dc=dc, dtype=dtype, u_amp=0.5)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("case", ["periodic", "channel"])
+@pytest.mark.parametrize("shape, tile", [
+    ((16, 16, 4), (8, 16)),    # one tile, its window wraps onto itself
+    ((16, 16, 4), (2, 4)),     # 16 tiles whose windows do not wrap onto themselves
+    ((16, 16, 4), (3, 5)),     # ragged tiles in both directions
+    ((12, 16, 33), (2, 8)),    # 33 levels in chunks of 8, the last of 1
+    ((32, 32, 100), (4, 4)),   # the f64 plan's tile: 7 chunks of 16, the last of 4
+])
+def test_nonlinear_reverse_matches_plain_f64(cuda, case, shape, tile):
+    """f64, 5 reverse steps through the nonlinear forward kernel's states
+    (u of 0.5 m/s, where the nonlinear terms matter): the kernel at the
+    given tile (the largest slice that fits) against the plain
+    structured_nl_adjoint_step back through the same states, 1e-12 of each
+    field's magnitude and of d(dt); a rerun gives the same bits; the linear
+    adjoint_step on the same inputs misses by >= 100x; one launch per step."""
+    model, st = _nl_lattice(case, shape, cuda)
+    sm = model.struct_mesh
+    g = _cotangent(st, 8)
+    n = 5
+    stack = nl_stack(st, sm, DT, n)
+    adjoint_step.nl_launches = 0
+    (out, ddt), (again, ddt_again) = (nl_reverse(stack, g, sm, DT, n, tile=tile)
+                                      for _ in range(2))
+    assert adjoint_step.nl_launches == 2 * n
+    ref, ref_dt = plain_nl_reverse(stack, g, sm, DT, n)
+    lin, _ = linear_reverse(stack, g, sm, DT, n)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        a, b = getattr(out, f), getattr(ref, f)
+        assert _rel(a, b) <= 1e-12, (f, _rel(a, b))
+        assert torch.equal(a, getattr(again, f)), f
+    assert abs(float(ddt) - float(ref_dt)) <= 1e-12 * abs(float(ref_dt))
+    assert torch.equal(ddt, ddt_again)
+    assert max(_rel(getattr(lin, f), getattr(ref, f)) for f in FIELDS) >= 100 * 1e-12
+
+
+@pytest.mark.parametrize("case", ["periodic", "channel"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_nonlinear_fill_stack_is_the_rollouts_bitwise(cuda, case, dtype):
+    """fe_step.fe_nl_fill_stack's slot j is fe_nl_rollout's state after j
+    steps, bit for bit (the same kernel and plan), periodic and masked."""
+    model, st = _nl_lattice(case, (16, 16, 8), cuda, dtype)
+    sm = model.struct_mesh
+    stack = nl_stack(st, sm, DT, 5)
+    for j in range(5):
+        ref = fused_run_loop(st, sm, DT, j, nonlinear=True)
+        for x, f in zip(stack, FIELDS):
+            assert torch.equal(x[j], getattr(ref, f)), (j, f)
+
+
+@pytest.mark.parametrize("case", ["periodic", "channel"])
+def test_nonlinear_reverse_route_counts_launches_and_passes_the_dot_product(cuda, case):
+    """fused_adjoint_rollout(nonlinear=True), 7 steps in groups of 3: 7
+    forward launches and 2 + 2 + 0 rebuilds of fe_step's nonlinear arm, 7
+    nonlinear reverse launches and no linear one; an f64 rerun bitwise equal;
+    fused_rollout_diff's forward is fused_run_loop's bit for bit; <J v, g> =
+    <v, J^T g> to 1e-12 relative, J v by torch.func.jvp of the plain
+    nonlinear rollout."""
+    model, st = _nl_lattice(case, (16, 16, 4), cuda)
+    sm = model.struct_mesh
+    v, g = _cotangent(st, 12), _cotangent(st, 14)
+    if sm.edge_mask is not None:
+        v = StructState(v.ssh, v.layer_thickness, v.normal_velocity * sm.edge_mask[..., None])
+    fe_step.launches = adjoint_step.launches = adjoint_step.nl_launches = 0
+    a, a_dt = fused_adjoint_rollout(st, sm, DT, 7, g, plan=3, nonlinear=True)
+    assert (fe_step.launches, adjoint_step.nl_launches, adjoint_step.launches) == (11, 7, 0)
+    b, b_dt = fused_adjoint_rollout(st, sm, DT, 7, g, plan=3, nonlinear=True)
+    assert torch.equal(a_dt, b_dt) and all(torch.equal(getattr(a, f), getattr(b, f))
+                                           for f in FIELDS)
+    fields = lambda s: tuple(getattr(s, f) for f in FIELDS)  # noqa: E731
+    _, jv = torch.func.jvp(
+        lambda *xs: fields(structured_run_loop(StructState(*xs), sm, DT, 7, nonlinear=True)),
+        fields(st), fields(v))
+    lhs = sum(float((x * y).sum()) for x, y in zip(jv, fields(g)))
+    rhs = sum(float((x * y).sum()) for x, y in zip(fields(v), fields(a)))
+    assert abs(lhs - rhs) <= 1e-12 * abs(rhs)
+    out = fused_rollout_diff(st, sm, DT, 9, plan=4, nonlinear=True)
+    ref = fused_run_loop(st, sm, DT, 9, nonlinear=True)
+    assert all(torch.equal(getattr(out, f), getattr(ref, f)) for f in FIELDS)
+
+
+@pytest.mark.parametrize("case", ["periodic", "channel"])
+@pytest.mark.parametrize("tile, ks", [((8, 8), 4), ((8, 16), 2)])  # the plan; a 2-level one
+def test_nonlinear_reverse_main_path_plans_f32(cuda, case, tile, ks):
+    """The f32 main paths' own plan ((8, 8, 4) at 64^2 and 256^2) and a plan
+    of 2-level slices, (8, 16, 2), on a random 32 x 32 x 100 f32 lattice (or
+    channel) at 10 km spacing with
+    u of 0.5 m/s, 20 reverse steps of dt = 10 s from a random cotangent:
+    each cotangent's distance from an f64 reverse from the same f32 values
+    at most 3x the plain f32 reverse's, the linear reverse 100x past that
+    limit (PERF.md section 2); and in f64 at the same tile (the largest
+    slice that fits f64), within 1e-12 of the plain reverse."""
+    model, st = _nl_lattice(case, (32, 32, 100), cuda, np.float32, seed=5, dc=1e4)
+    model64, st64 = _nl_lattice(case, (32, 32, 100), cuda, np.float64, seed=5, dc=1e4)
+    sm, sm64 = model.struct_mesh, model64.struct_mesh
+    n = 20
+    g = _cotangent(st, 3)
+    stack = nl_stack(st, sm, DT, n)
+    out = nl_reverse(stack, g, sm, DT, n, tile=tile, ks=ks)
+    runs = {"kernel": out, "plain": plain_nl_reverse(stack, g, sm, DT, n),
+            "linear": linear_reverse(stack, g, sm, DT, n)}
+    ref64 = plain_nl_reverse(stack, g, sm64, DT, n, dtype=torch.float64)
+    assert_nl_reverse_f32(reverse_gaps(runs, *ref64))
+    if case == "channel":
+        assert bool(torch.isfinite(out[0].normal_velocity).all())
+    stack64 = nl_stack(st64, sm64, DT, 4)
+    g64 = _cotangent(st64, 4)
+    got, ddt = nl_reverse(stack64, g64, sm64, DT, 4, tile=tile)
+    ref, ref_dt = plain_nl_reverse(stack64, g64, sm64, DT, 4)
+    for f in FIELDS:
+        assert _rel(getattr(got, f), getattr(ref, f)) <= 1e-12, f
+    assert abs(float(ddt) - float(ref_dt)) <= 1e-12 * abs(float(ref_dt))
+
+
+def test_nonlinear_reverse_plan_matches_the_wrappers_reckoning(cuda):
+    """The kernel's shared memory per block for the planner's plans is what
+    adjoint_step.nl_adjoint_smem_bytes reckons, one block per SM: f32
+    (8, 8, 4) at 64x64x100 and 256x256x100."""
+    for ny2, nx in ((32, 64), (128, 256)):
+        rt, ct, ks = adjoint_step.nl_adjoint_plan(ny2, nx, 100, 4)
+        plan = adjoint_step.nl_adjoint_launch_plan(ny2, nx, 100, (rt, ct), ks)
+        assert plan["smem_bytes"] == adjoint_step.nl_adjoint_smem_bytes((rt, ct), 100, 4, ks)
+        assert plan["clusters"] == -(-ny2 // rt) * -(-nx // ct)
+        assert plan["blocks_per_sm"] == 1
+
+
+def test_nonlinear_reverse_refuses_what_it_does_not_take(cuda):
+    """A Coriolis table that does not map as hex:: / hex_adj:: list it, and a
+    slice that is not a power of two, raise ValueError."""
+    model, st = _nl_lattice("periodic", (16, 16, 4), cuda)
+    sm = model.struct_mesh
+    stack = nl_stack(st, sm, DT, 1)
+    g = _cotangent(st, 9)
+    nl_reverse(stack, g, sm, DT, 1)
+    with pytest.raises(ValueError, match="hex lattice"):
+        nl_reverse(stack, g, reversed_terms_mesh(sm), DT, 1)
+    with pytest.raises(ValueError, match="power of two"):
+        nl_reverse(stack, g, sm, DT, 1, ks=3)

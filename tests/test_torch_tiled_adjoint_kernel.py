@@ -25,6 +25,7 @@ from torch_gpu_cases import (  # noqa: F401 (fixture)
     FIELDS,
     channel_lattice,
     cuda,
+    plain_nl_reverse,
     random_lattice,
     reversed_terms_mesh,
 )
@@ -260,3 +261,48 @@ def test_masked_kernel_matches_plain_f64(cuda, shape, tile, q):
         assert torch.equal(a, getattr(again, f)), f
     assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
     assert torch.equal(ddt, ddt_again)
+
+
+# ---- the nonlinear tiled reverse: the nonlinear reverse kernel at q = 1 -------
+
+@pytest.mark.parametrize("case", ["periodic", "channel"])
+@pytest.mark.parametrize("plan", [(8, 16, 1, 2), (2, 4, 1, 3), (4, 8, 1, 2)])
+def test_nonlinear_tiled_reverse_matches_plain_f64(cuda, case, plan):
+    """tiled_adjoint_rollout(nonlinear=True) at q = 1 over tiles that divide
+    the lattice (one tile whose window wraps onto itself; 16 and 8 tiles),
+    f64, 6 steps: against the plain superstep (the VJP of slab.window_steps
+    with the vertex constants) back through the forward kernel's states,
+    and against the plain nonlinear reverse step, 1e-12 of scale and of
+    d(dt); tiled_rollout_diff's forward is fused_run_loop's bit for bit; a
+    nonlinear q = 2 raises on the card."""
+    from mpas_ocean_tpu_torch.kernels import adjoint_step
+
+    lattice = random_lattice if case == "periodic" else channel_lattice
+    model, st = lattice(16, 16, 4, cuda, u_amp=0.5)
+    sm = model.struct_mesh
+    g = _cotangent(st, 6)
+    n = 6
+    adjoint_step.nl_launches = tiled_adjoint.launches = 0
+    out, ddt = tiled_adjoint_rollout(st, sm, DT, n, g, plan=plan, nonlinear=True)
+    assert (adjoint_step.nl_launches, tiled_adjoint.launches) == (n, 0)
+    states = [st]
+    for _ in range(n - 1):
+        states.append(fused_run_loop(states[-1], sm, DT, 1, nonlinear=True))
+    ref, ref_dt = g, 0.0
+    for s in reversed(states):
+        ref, dd = plain_tiled_adjoint_superstep(s, ref, sm, DT, *plan[:3], nonlinear=True)
+        ref_dt += float(dd)
+    stack = tuple(torch.stack([getattr(s, f) for s in states]) for f in FIELDS)
+    step_ref, step_dt = plain_nl_reverse(stack, g, sm, DT, n)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        for want in (ref, step_ref):
+            a, b = getattr(out, f), getattr(want, f)
+            assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, f
+    assert abs(float(ddt) - ref_dt) <= 1e-12 * abs(ref_dt)
+    assert abs(float(ddt) - float(step_dt)) <= 1e-12 * abs(float(step_dt))
+    fwd = tiled_rollout_diff(st, sm, DT, n, plan=plan, nonlinear=True)
+    want = fused_run_loop(st, sm, DT, n, nonlinear=True)
+    assert all(torch.equal(getattr(fwd, f), getattr(want, f)) for f in FIELDS)
+    with pytest.raises(ValueError, match="q = 1"):
+        tiled_adjoint_rollout(st, sm, DT, n, g, plan=(plan[0], plan[1], 2, 1), nonlinear=True)

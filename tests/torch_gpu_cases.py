@@ -167,3 +167,99 @@ def assert_plan_f32(wrapper, fb, tile, ks, masked, device):
     assert gap(lin) >= 100 * 3 * gap(ref), (gap(lin), gap(ref))
     if masked:
         assert_walls_closed(out.normal_velocity, sm)
+
+
+# ---- the nonlinear reverse (tests/test_torch_adjoint_kernel.py,
+# tests/test_torch_tiled_adjoint_kernel.py, chip_smoke.py phase 13) ---------
+
+def nl_stack(st, mesh, dt, n):
+    """A stack of n primal states of the nonlinear forward kernel from ``st``
+    (slot j: j steps), filled by ``fe_step.fe_nl_fill_stack``."""
+    from mpas_ocean_tpu_torch.kernels import fe_step
+    from mpas_ocean_tpu_torch.structured import fused_model
+
+    dtype = st.layer_thickness.dtype
+    stack = tuple(torch.empty((n, *getattr(st, f).shape), dtype=dtype, device=st.ssh.device)
+                  for f in FIELDS)
+    for dst, f in zip(stack, FIELDS):
+        dst[0].copy_(getattr(st, f))
+    fe_step.fe_nl_fill_stack(stack, mesh.resting_thickness_sum.to(dtype).contiguous(),
+                             *mesh.host_stencil, fused_model.nl_setup(mesh, dtype),
+                             mesh.vertex_cell_terms, mesh.edge_vertex_terms,
+                             *fused_model._scal(mesh, dt, dtype),
+                             *fused_model.nl_scal(mesh, dtype), n - 1,
+                             live=fused_model.kernel_live(mesh))
+    return stack
+
+
+def nl_reverse(stack, g, mesh, dt, n, tile=None, ks=None):
+    """n reverse steps of the nonlinear reverse kernel through the stack's
+    slots n - 1 .. 0 from the cotangent g: (cotangent, d(dt) (1,) f64)."""
+    from mpas_ocean_tpu_torch.kernels import adjoint_step
+    from mpas_ocean_tpu_torch.structured import StructState, fused_model
+
+    dtype = stack[1].dtype
+    ddt = torch.zeros(1, dtype=torch.float64, device=stack[1].device)
+    out = adjoint_step.nl_adjoint_rollout(
+        stack, tuple(getattr(g, f).to(dtype).contiguous() for f in FIELDS),
+        fused_model.nl_setup(mesh, dtype), *mesh.host_stencil, *mesh.host_adjoint_stencil,
+        mesh.vertex_cell_terms, mesh.edge_vertex_terms, *fused_model._scal(mesh, dt, dtype),
+        *fused_model.nl_scal(mesh, dtype), *fused_model.nl_adjoint_scal(mesh, dt, dtype), n, ddt,
+        live=fused_model.kernel_live(mesh),
+        tile=tile, ks=ks)
+    return StructState(*out), ddt
+
+
+def linear_reverse(stack, g, mesh, dt, n):
+    """The linear reverse kernel (adjoint_step) through the same slots: the
+    control that must miss the nonlinear reverse's limits."""
+    from mpas_ocean_tpu_torch.kernels import adjoint_step
+    from mpas_ocean_tpu_torch.structured import StructState, fused_model
+
+    dtype = stack[1].dtype
+    ddt = torch.zeros(1, dtype=torch.float64, device=stack[1].device)
+    out = adjoint_step.adjoint_rollout(
+        stack, tuple(getattr(g, f).to(dtype).contiguous() for f in FIELDS),
+        mesh.f_edge.to(dtype).contiguous(), *mesh.host_adjoint_stencil,
+        *fused_model._scal(mesh, dt, dtype), n, ddt, live=fused_model.kernel_live(mesh))
+    return StructState(*out), ddt
+
+
+def plain_nl_reverse(stack, g, mesh, dt, n, dtype=None):
+    """The plain nonlinear reverse step (structured_nl_adjoint_step) back
+    through the stack's slots n - 1 .. 0 from g, in ``dtype`` (the slots and
+    g cast to it; ``mesh`` in it), by default the stack's: (cotangent, d(dt)
+    as a 0-d f64 tensor)."""
+    from mpas_ocean_tpu_torch.structured import StructState, structured_nl_adjoint_step
+
+    dtype = stack[1].dtype if dtype is None else dtype
+    cast = lambda x: x.to(dtype)  # noqa: E731
+    ddt = torch.zeros((), dtype=torch.float64, device=stack[1].device)
+    g = StructState(*(cast(getattr(g, f)) for f in FIELDS))
+    for j in reversed(range(n)):
+        g, dd = structured_nl_adjoint_step(StructState(*(cast(x[j]) for x in stack)), g,
+                                           mesh, dt)
+        ddt = ddt + dd.double()
+    return g, ddt
+
+
+def reverse_gaps(runs: dict, ref64, ref64_dt) -> dict:
+    """{run: {field or "d_dt": max |x - ref64|}} for runs = {name: (state,
+    d(dt))}."""
+    out = {}
+    for name, (x, dd) in runs.items():
+        out[name] = {f: float((getattr(x, f).double() - getattr(ref64, f)).abs().max())
+                     for f in FIELDS}
+        out[name]["d_dt"] = abs(float(dd) - float(ref64_dt))
+    return out
+
+
+def assert_nl_reverse_f32(gaps: dict, factor: float = 3.0) -> None:
+    """chip_smoke.py phase 13's f32 rule (PERF.md section 2): each
+    cotangent's distance from an f64 reverse taken from the same f32 values
+    (d_ssh, d_h, d_u, d(dt)) at most ``factor`` times the plain f32
+    reverse's, and the linear reverse at least 100 times that limit in the
+    cotangent it misses most."""
+    for key, plain in gaps["plain"].items():
+        assert gaps["kernel"][key] <= factor * plain, (key, gaps["kernel"][key], plain)
+    assert max(gaps["linear"][k] / (factor * v) for k, v in gaps["plain"].items()) >= 100, gaps

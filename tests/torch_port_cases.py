@@ -12,6 +12,7 @@ import torch
 
 import mpas_ocean_tpu as mo
 import mpas_ocean_tpu_torch as mt
+from mpas_ocean_tpu.mesh.cull import cull_cells as jax_cull_cells
 from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh as jax_make_vertical_mesh
 from mpas_ocean_tpu.structured.model import StructuredModel as JaxStructuredModel
 
@@ -96,3 +97,58 @@ def dataclass_arrays(obj, prefix=""):
 def max_rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+# ---- the nonlinear core's lattices (tests/test_torch_nonlinear.py,
+# tests/test_torch_nl_adjoint.py) ----------------------------------------
+
+def wavy_state(mesh, amp=0.5, seed=None):
+    """tests/test_nonlinear.py:42's _wavy_state as numpy (ssh, h, u): h a
+    wave on the resting thickness, u = 0.1 amp sin(2 pi x / lx) on every
+    level, so that the nonlinear terms matter; with a seed, random u on
+    top (0 on a culled mesh's walls)."""
+    horz = mesh.horz
+    x, y = np.asarray(horz.cells.x), np.asarray(horz.cells.y)
+    lx = float(x.max() - x.min()) + float(np.asarray(horz.edges.dc_edge)[0])
+    k = mesh.vert.n_vert_levels
+    wave = amp * np.cos(2 * np.pi * x / lx) * np.sin(2 * np.pi * y / lx)
+    rts = np.asarray(mesh.vert.resting_thickness_sum)
+    h = np.broadcast_to((rts / k + wave / k)[:, None], (horz.n_cells, k)).copy()
+    u = np.broadcast_to((0.1 * amp * np.sin(2 * np.pi * np.asarray(horz.edges.x) / lx))[:, None],
+                        (horz.n_edges, k)).copy()
+    if seed is not None:
+        u = u + 0.05 * np.random.default_rng(seed).normal(size=u.shape)
+    u = u * np.asarray(horz.edges.edge_mask)[:, None]
+    return h.sum(1) - rts, h, u
+
+
+def to_both(smj, smp, arrays):
+    ssh, h, u = arrays
+    st_j = smj.to_struct(mo.PrognosticVars(ssh=jnp.asarray(ssh), layer_thickness=jnp.asarray(h),
+                                            normal_velocity=jnp.asarray(u)))
+    st_p = smp.to_struct(mt.PrognosticVars(*(torch.from_numpy(np.array(x)) for x in arrays)))
+    return st_j, st_p
+
+
+def nl_periodic(n, k, seed=5):
+    """(JAX model, port model, JAX state, port state) on an n x n periodic
+    lattice of k 50 m levels, f = 1e-4 + beta y."""
+    mj, mp = both_meshes(n, n, k, thickness=50.0)
+    smj, smp = JaxStructuredModel(mj, n, n), mt.StructuredModel(mp, n, n, device="cpu")
+    return (smj, smp, *to_both(smj, smp, wavy_state(mp, seed=seed)), mj, mp)
+
+
+def nl_channel(n, k, seed=3):
+    """The same on tests/test_nonlinear.py:242's channel: the n x n lattice
+    with its first and last cell rows culled."""
+    dc = 1000.0
+    hj, hp = (pkg.planar_hex_mesh(n, n, dc, f0=1e-4) for pkg in (mo, mt))
+    y = np.asarray(hp.cells.y)
+    keep = (y > 0.5 * dc) & (y < y.max() - 0.5 * dc)
+    cj, cp = jax_cull_cells(hj, keep), mt.cull_cells(hp, keep)
+    rt = np.full((cp.n_cells, k), 50.0)
+    mj = mo.Mesh(horz=cj, vert=jax_make_vertical_mesh(cj, k, resting_thickness=rt))
+    mp = mt.Mesh(horz=cp, vert=mt.make_vertical_mesh(cp, k, resting_thickness=rt))
+    smj = JaxStructuredModel(mj, n, n, parent_horz=hj, keep_cells=keep)
+    smp = mt.StructuredModel(mp, n, n, device="cpu", parent_horz=hp, keep_cells=keep)
+    return (smj, smp, *to_both(smj, smp, wavy_state(mp, seed=seed)), mj, mp)
