@@ -75,7 +75,19 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      IGW and Kelvin channel over 4000 steps, 256^2 over 100 through
      auto_rollout_diff and tiled_rollout_diff) with exact launch counts,
      times and a profiler breakdown, and the kernel per launch beside its
-     bound.
+     bound;
+ 14. momentum forcing (the forced arms of kernels 1-4): the forced
+     instantiations' ptxas lines; f64 each forced arm against its plain
+     version (16^2 and 64^2 random, periodic and channel, random winds,
+     coefficients and levels; d(wind) and d(r_lin, Cd, lambda)) with bitwise
+     reruns and the unforced arm as a control; the dot-product identity with
+     directions in the wind and the coefficients; the Rayleigh recurrence
+     and the wind-drag steady state on the card; f32 after 100 forward and
+     reverse steps with controls; the forced main paths and gradients from
+     to_struct beside the unforced ones (bench.py's forced 256^2 100-step
+     tiled gradient among them) with exact launch counts, a profiler
+     breakdown and the forced reverse arms per launch. ``python3
+     chip_smoke.py --forcing-only`` runs phases 1, 2, 9 and 14 alone.
 The line before the last prints the GPU's name and power limit as nvidia-smi
 gives them, the one before it the kernels' JSON summary, and the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
@@ -2640,13 +2652,683 @@ def nl_reverse_phase(gpu: str, log_text: str) -> dict:
     }
 
 
-def ptxas_report(log_text: str, kernels: tuple) -> list:
+# ---- phase 14: momentum forcing ----------------------------------------------
+
+# bench.py's "large-mesh FORCED tiled adjoint" forcing (bench.py:846-849)
+BENCH_FORCING = dict(wind_stress_zonal=0.1, bottom_drag_linear=1e-4, rayleigh=1e-5)
+# The f32 checks' forcing, on layers of 10 m: a random wind per cell of 1 Pa,
+# Cd 2.5e-3 and lambda 1e-4, which move u well past the f32 bounds in 100
+# steps (the control of each check must miss by 100x)
+F32_FORCING = dict(bottom_drag_quadratic=2.5e-3, rayleigh=1e-4)
+# How far the unforced arm must miss each f32 forward bound (the control):
+# the forcing moves u itself, and h through the flux of the moved u, but in
+# 100 steps moves ssh by only ~1e-4 of the 1000 m column at 64^2 (x10.5 its
+# 1e-5 bound on an H100, PERF.md section 2), so ssh's control asks that the
+# unforced arm fail its bound threefold, and u's and h's a hundredfold
+F32_CONTROL = {"normal_velocity": 100, "layer_thickness": 100, "ssh": 3}
+# The f32 reverse's scalar cotangents (one sum each over every edge-level
+# and step): their distance from an f64 reverse is held to 3x the plain f32
+# reverse's or to 3x SCALAR_FLOOR of their magnitude, whichever is larger.
+# Two f32 sums of the same terms miss an f64 one by independent rounding
+# noise of one size, and one of them is 3x the other's about one time in
+# five (|X| > 3|Y| for two normal draws); the fields' distances are maxima
+# over millions of values and do not scatter so. On an H100 (PERF.md section
+# 2) the kernel's scalars were 0.4-5 f32 epsilons of their magnitude from
+# f64, the plain reverse's 0.2-3.
+SCALARS = ("d_dt", "d_r_lin", "d_cd", "d_lambda")
+SCALAR_FLOOR = 1e-6
+# Operations per cell-level the forced arm adds: forward, per edge the
+# Rayleigh term and dt F (2); reverse, per edge a = dt gu, its Rayleigh
+# term, gu F and the lambda share (5); three edges per cell
+FORCED_FWD_OPS, FORCED_REV_OPS = 6, 15
+
+
+def forced_step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int,
+                      peaks: dict | None = None):
+    """(bound seconds, "bytes" or "operations") of one forced step of
+    ``kind`` ("fe_step" for the forward kernels, "adjoint_step" for the
+    reverse ones), step_bound's count plus the forced arm's: the winds and
+    the packed levels read (6 values and 6 ints per site), the reverse's
+    d(wind) read and written, and FORCED_FWD_OPS or FORCED_REV_OPS per
+    cell-level."""
+    cells = 2 * ny2 * nx
+    state = cells * (1 + 4 * k)
+    table = 4 * (44 + 3 * n_terms) + itemsize * n_terms
+    forcing = ny2 * nx * (6 * itemsize + 24) + 24
+    if kind == "fe_step":
+        nbytes = itemsize * (2 * state + 4 * cells) + table + forcing
+        ops = cells * k * (36 + 1.5 * n_terms + FORCED_FWD_OPS)
+    else:
+        nbytes = (itemsize * (3 * state + 3 * cells) + 8 + table + forcing
+                  + 2 * 6 * itemsize * ny2 * nx + 24)
+        ops = cells * k * (81 + n_terms + FORCED_REV_OPS)
+    peaks = CEILING if peaks is None else peaks
+    rate = byte_rate(peaks, itemsize * state)
+    t_bytes, t_ops = nbytes / rate, ops / peaks["flops"][itemsize]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lattice_forcing(model, seed=11, wind=1e-4, coefs=(1e-3, 2.5e-3, 1e-4)):
+    """A random lattice Forcing on the model's device, in its dtype: winds of
+    std ``wind`` m^2/s^2, (r_lin, Cd, lambda) = ``coefs`` and random top and
+    bottom levels per edge in -1 .. K - 1 (none on a channel's closed
+    edges)."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.models.forcing import Forcing
+
+    sm = model.struct_mesh
+    rng = np.random.default_rng(seed)
+    shape, k = tuple(sm.f_edge.shape), sm.n_vert_levels
+    w = wind * rng.normal(size=shape)
+    top, bot = (rng.integers(-1, k, size=shape) for _ in range(2))
+    if sm.edge_mask is not None:
+        closed = sm.edge_mask.cpu().numpy() == 0
+        w[closed], top[closed], bot[closed] = 0.0, -1, -1
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float64)).to(  # noqa: E731
+        dtype=sm.f_edge.dtype, device=sm.f_edge.device)
+    onehot = lambda i: t(np.arange(k) == i[..., None])  # noqa: E731
+    return Forcing(t(w), onehot(top), onehot(bot), *(t(c) for c in coefs))
+
+
+def forcing_phase(gpu: str, log_text: str) -> list:
+    """Phase 14, momentum forcing (the forced arms of kernels 1-4): the
+    forced instantiations' ptxas lines; f64, each forced arm against its
+    plain version on 16^2 and 64^2 random states, periodic and channel, with
+    random winds, all three coefficients and random top and bottom levels
+    (-1 among them): fe_step FE, tiled_step FE and FB (q = 1, 2),
+    adjoint_step and tiled_adjoint (q = 1, 2) with d(wind) and d(r_lin, Cd,
+    lambda), to 1e-12 of scale, reruns bitwise, the unforced arm 100x off;
+    the dot-product identity with directions in the wind and the
+    coefficients; the Rayleigh recurrence and the wind-drag steady state
+    (tests/test_forcing.py:93-153) on the card; f32 after 100 steps on the
+    main paths' lattices with controls; the forced main paths and gradients
+    from to_struct beside the unforced ones, timed, with exact launch
+    counts, bench.py's forced 256^2 100-step gradient among them; a
+    profiler breakdown; the forced reverse arms per launch. Returns the
+    forced arms' entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint, tiled_step
+    from mpas_ocean_tpu_torch.models.forcing import Forcing, make_forcing
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        auto_rollout_diff,
+        diff_model,
+        fused_model,
+        fused_rollout_diff,
+        fused_run_loop,
+        plain_tiled_adjoint_superstep,
+        structured_adjoint_step,
+        structured_auto_run_loop,
+        structured_run_loop,
+        tiled_rollout_diff,
+        tiled_run_loop,
+    )
+    from mpas_ocean_tpu_torch.structured.adjoint import ForcingCot
+    from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    # the forced instantiations: their last template argument (kForced) true
+    for line in ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel",
+                                        "adjoint_step_kernel", "tiled_adjoint_kernel"),
+                             forced=True):
+        log(f"[14] ptxas {line}")
+    counters = (fe_step, tiled_step, adjoint_step, tiled_adjoint)
+
+    def zero_counts():
+        for m in counters:
+            m.launches = m.forced_launches = 0
+
+    def counts():
+        return {m.__name__.rsplit(".", 1)[-1]: (m.launches, m.forced_launches)
+                for m in counters}
+
+    def stack_of(st, sm, dt, n, forcing, q=1):
+        """n superstep starts of q forced steps from st (slot j: j q steps),
+        by fe_step's forced arm."""
+        dtype = st.layer_thickness.dtype
+        stack = tuple(torch.empty((n, *x.shape), dtype=dtype, device=x.device)
+                      for x in state_fields(st))
+        for dst, x in zip(stack, state_fields(st)):
+            dst[0].copy_(x)
+        kf = fused_model.kernel_forcing(forcing, sm, dtype, st.ssh.device)
+        scal, live = fused_model._scal(sm, dt, dtype), fused_model.kernel_live(sm)
+        consts = (sm.f_edge.to(dtype).contiguous(), sm.resting_thickness_sum.to(dtype).contiguous(),
+                  *sm.host_stencil)
+        if q == 1:
+            fe_step.fe_fill_stack(stack, *consts, *scal, n - 1, live=live, forcing=kf)
+        else:
+            for j in range(n - 1):
+                fe_step.fe_rollout_into(tuple(x[j] for x in stack), tuple(x[j + 1] for x in stack),
+                                        *consts, *scal, q, live=live, forcing=kf)
+        return stack
+
+    def reverse_call(stack, g, sm, dt, n, forcing, plan=None):
+        """A call of the forced reverse arm (adjoint_step, or tiled_adjoint
+        at plan = (rt, ct, q)), or of the unforced one for forcing None, with
+        its operands and accumulators made here: (the call, its result as
+        (cotangent, d(dt), d(wind) (3, 2, ny2, nx), d(r_lin, Cd, lambda)))."""
+        dtype, dev = stack[1].dtype, stack[1].device
+        ddt = torch.zeros(1, dtype=torch.float64, device=dev)
+        kf = fused_model.kernel_forcing(forcing, sm, dtype, dev)
+        dforc = ForcingCot(torch.zeros((6, sm.ny2, sm.nx), dtype=dtype, device=dev),
+                           torch.zeros(3, dtype=torch.float64, device=dev))
+        g = tuple(x.to(dtype).contiguous() for x in state_fields(g))
+        out = tuple(torch.empty_like(x) for x in g)
+        scal, live = fused_model._scal(sm, dt, dtype), fused_model.kernel_live(sm)
+        f_edge = sm.f_edge.to(dtype).contiguous()
+        rts = sm.resting_thickness_sum.to(dtype).contiguous()
+        df = None if forcing is None else dforc
+        if plan is None:
+            call = lambda: adjoint_step.adjoint_rollout(  # noqa: E731
+                stack, g, f_edge, *sm.host_adjoint_stencil, *scal, n, ddt, out, live=live,
+                forcing=kf, dforc=df)
+        else:
+            call = lambda: tiled_adjoint.tiled_adjoint_rollout(  # noqa: E731
+                stack, g, f_edge, rts, *sm.host_stencil, *sm.host_adjoint_stencil, *scal, n, ddt,
+                out, row_tile=plan[0], col_tile=plan[1], q=plan[2],
+                halo=reverse_halo(sm.coriolis_terms), live=live, forcing=kf, dforc=df)
+        shape = (3, 2, sm.ny2, sm.nx)
+        return call, (StructState(*out), ddt[0], dforc.wind.reshape(shape), dforc.coefs)
+
+    def kernel_reverse(stack, g, sm, dt, n, forcing, plan=None):
+        """One call of ``reverse_call``: its result."""
+        call, result = reverse_call(stack, g, sm, dt, n, forcing, plan)
+        call()
+        return result
+
+    def plain_reverse(stack, g, sm, dt, n, forcing, plan=None, dtype=None):
+        """The plain forced reverse (structured_adjoint_step with forcing,
+        or plain_tiled_adjoint_superstep at plan = (rt, ct, q)) back through
+        the stack in ``dtype`` (the stack and g cast to it; sm and forcing in
+        it), by default the stack's."""
+        dtype = stack[1].dtype if dtype is None else dtype
+        dev = stack[1].device
+        g = StructState(*(x.to(dtype) for x in state_fields(g)))
+        ddt = torch.zeros((), dtype=torch.float64, device=dev)
+        dw = torch.zeros(forcing.wind_edge.shape, dtype=dtype, device=dev)
+        dc = torch.zeros(3, dtype=torch.float64, device=dev)
+        for j in reversed(range(n)):
+            s = StructState(*(x[j].to(dtype) for x in stack))
+            if plan is None:
+                g, dd, d = structured_adjoint_step(s, g, sm, dt, forcing)
+            else:
+                g, dd, d = plain_tiled_adjoint_superstep(s, g, sm, dt, *plan, forcing=forcing)
+            ddt, dw, dc = ddt + dd.double(), dw + d.wind, dc + d.coefs.double()
+        return g, ddt, dw, dc
+
+    def rev_errors(a, b) -> dict:
+        """(max |a - b|, over max |b|) of each part of two reverses."""
+        out = {}
+        parts = [*zip(FIELDS, state_fields(a[0]), state_fields(b[0])), ("d_dt", a[1], b[1]),
+                 ("d_wind", a[2], b[2])]
+        parts += [(n, a[3][i], b[3][i]) for i, n in enumerate(("d_r_lin", "d_cd", "d_lambda"))]
+        for name, x, y in parts:
+            x, y = x.double(), y.double()
+            err = float((x - y).abs().max())
+            out[name] = (err, err / max(float(y.abs().max()), 1e-300))
+        return out
+
+    def hold(what, errs, tol):
+        log(f"[14] {what}: max|diff| (/scale) = {format_errors(errs)}")
+        for f, (_, r) in errs.items():
+            if not r <= tol:
+                raise AssertionError(f"{what}: {f} {r:.3e} > {tol}")
+
+    def control(what, errs, limit):
+        miss = max(r for _, r in errs.values())
+        log(f"[14] {what}: the unforced arm misses by {miss:.3e} of scale (control, limit "
+            f"{limit:.0e})")
+        if not miss >= 100 * limit:
+            raise AssertionError(f"{what}: the unforced arm misses by only {miss:.3e}")
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # f64 kernel against plain, 16^2 and 64^2 random, periodic and channel
+    worst = {}
+    for n, levels in ((16, 4), (HEADLINE_N, 6)):
+        for channel in (False, True):
+            model, prog = (random_channel if channel else random_case)(n, levels, seed=5)
+            st, sm = model.to_struct(prog), model.struct_mesh
+            forcing = lattice_forcing(model)
+            name = f"f64 {n}x{n}x{levels} {'channel' if channel else 'periodic'}"
+            refs = {fb: structured_run_loop(st, sm, 10.0, 20, fb=fb, forcing=forcing)
+                    for fb in (False, True)}
+            runs = [("fe_step FE", False, lambda f: fused_run_loop(st, sm, 10.0, 20, forcing=f))]
+            runs += [(f"tiled_step {'FB' if fb else 'FE'} q={q}", fb,
+                      lambda f, fb=fb, q=q: tiled_run_loop(st, sm, 10.0, 20, row_tile=4,
+                                                           col_tile=8, q=q, fb=fb, forcing=f))
+                     for fb in (False, True) for q in (1, 2)]
+            for label, fb, run in runs:
+                want = refs[fb]
+                out, again = run(forcing), run(forcing)
+                errs = field_errors(out, want, sm.resting_thickness_sum)
+                hold(f"{name}, 20 forced steps, {label} vs plain", errs, 1e-12)
+                if not same(state_fields(out), state_fields(again)):
+                    raise AssertionError(f"{name} {label}: rerun differs")
+                control(f"{name} {label}", field_errors(run(None), want,
+                                                        sm.resting_thickness_sum), 1e-12)
+                worst[label.split()[0]] = max(worst.get(label.split()[0], 0.0),
+                                              max(r for _, r in errs.values()))
+            g = random_cot(st, 21)
+            for label, plan, q in (("adjoint_step", None, 1), ("tiled_adjoint q=1", (4, 8, 1), 1),
+                                   ("tiled_adjoint q=2", (4, 8, 2), 2)):
+                nn = 6 // q
+                stk = stack_of(st, sm, 10.0, nn, forcing, q)
+                ref = plain_reverse(stk, g, sm, 10.0, nn, forcing, plan)
+                out = kernel_reverse(stk, g, sm, 10.0, nn, forcing, plan)
+                again = kernel_reverse(stk, g, sm, 10.0, nn, forcing, plan)
+                errs = rev_errors(out, ref)
+                hold(f"{name}, 6 reverse steps, {label} vs plain", errs, 1e-12)
+                if not (same(state_fields(out[0]), state_fields(again[0]))
+                        and same(out[1:], again[1:])):
+                    raise AssertionError(f"{name} {label}: rerun differs")
+                control(f"{name} {label}", rev_errors(kernel_reverse(stk, g, sm, 10.0, nn, None,
+                                                                     plan), ref), 1e-12)
+                key = label.split()[0]
+                worst[key] = max(worst.get(key, 0.0), max(r for _, r in errs.values()))
+            del model, st, sm
+    log("[14] reruns bitwise equal; worst f64 relative errors: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # the dot-product identity, 7 forced steps, directions in the state, the
+    # wind and the three coefficients, f64
+    for channel in (False, True):
+        model, prog = (random_channel if channel else random_case)(16, 4, seed=5)
+        st, sm = model.to_struct(prog), model.struct_mesh
+        forcing = lattice_forcing(model)
+        parts = (forcing.wind_edge, forcing.drag_linear, forcing.drag_quadratic,
+                 forcing.rayleigh)
+        rng = np.random.default_rng(31)
+        v_parts = tuple(torch.from_numpy(np.asarray(rng.normal(size=tuple(x.shape)))).to(x)
+                        * x.abs().max() for x in parts)
+        v, g = random_cot(st, 12), random_cot(st, 14)
+
+        def run(*xs):
+            f = Forcing(xs[3], forcing.top_mask, forcing.bottom_mask, *xs[4:])
+            return tuple(state_fields(structured_run_loop(StructState(*xs[:3]), sm, 10.0, 7,
+                                                          forcing=f)))
+
+        _, jv = torch.func.jvp(run, (*state_fields(st), *parts), (*state_fields(v), *v_parts))
+        lhs = sum(float((x * y).sum()) for x, y in zip(jv, state_fields(g)))
+        leaves = [x.clone().requires_grad_(True) for x in (*state_fields(st), *parts)]
+        f = Forcing(leaves[3], forcing.top_mask, forcing.bottom_mask, *leaves[4:])
+        out = fused_rollout_diff(StructState(*leaves[:3]), sm, 10.0, 7, plan=3, forcing=f)
+        jtg = torch.autograd.grad(state_fields(out), leaves, state_fields(g))
+        rhs = sum(float((x * y).sum()) for x, y in zip((*state_fields(v), *v_parts), jtg))
+        gap = abs(lhs - rhs) / abs(rhs)
+        log(f"[14] f64 dot-product identity, {'channel' if channel else 'periodic'} 16^2, 7 "
+            f"forced steps, directions in the state, the wind and r_lin, Cd, lambda: <Jv, g> "
+            f"{lhs:.17g}, <v, J^T g> {rhs:.17g}, relative gap {gap:.3e}")
+        if not gap <= 1e-12:
+            raise AssertionError(f"forced dot-product identity off by {gap:.3e}")
+
+    # physics on the card, f64 (tests/test_forcing.py:93-153)
+    def flat_case(u0=None):
+        horz = mt.planar_hex_mesh(8, 8, 5000.0, f0=0.0)
+        vert = mt.make_vertical_mesh(horz, 1, resting_thickness=np.full((horz.n_cells, 1), 50.0))
+        mesh = mt.Mesh(horz=horz, vert=vert)
+        model = mt.StructuredModel(mesh, 8, 8)
+        u = np.zeros(horz.n_edges) if u0 is None else u0(horz)
+        prog = mt.PrognosticVars(torch.zeros(horz.n_cells, dtype=torch.float64),
+                                 torch.full((horz.n_cells, 1), 50.0, dtype=torch.float64),
+                                 torch.from_numpy(u[:, None].copy()))
+        return horz, mesh, model, prog
+
+    r, n_r = 1e-4, 50
+    horz, mesh, model, prog = flat_case(lambda hz: 0.3 * np.cos(np.asarray(hz.edges.angle_edge))
+                                        + 0.1 * np.sin(np.asarray(hz.edges.angle_edge)))
+    u0 = prog.normal_velocity[:, 0].numpy()
+    out = structured_auto_run_loop(model.to_struct(prog), model.struct_mesh, 100.0, n_r,
+                                   forcing=model.to_struct_forcing(make_forcing(mesh, rayleigh=r)))
+    got = model.from_struct(out).normal_velocity[:, 0].numpy()
+    want = u0 * (1.0 - r * 100.0) ** n_r
+    gap = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-300)))
+    log(f"[14] Rayleigh recurrence, 8^2 f = 0, {n_r} FE steps through fe_step's forced arm: "
+        f"max relative error {gap:.3e} against (1 - r dt)^n u0")
+    if not np.allclose(got, want, rtol=1e-12, atol=1e-15):
+        raise AssertionError(f"Rayleigh recurrence off by {gap:.3e}")
+    tau, cd, n_wd = 0.1, 2e-3, 16000
+    horz, mesh, model, prog = flat_case()
+    f_u = make_forcing(mesh, wind_stress_zonal=tau, bottom_drag_quadratic=cd)
+    t0 = time.perf_counter()
+    out = model.from_struct(structured_auto_run_loop(
+        model.to_struct(prog), model.struct_mesh, 200.0, n_wd,
+        forcing=model.to_struct_forcing(f_u)))
+    wind_n = f_u.wind_edge.numpy()
+    u_star = np.sign(wind_n) * np.sqrt(np.abs(wind_n) / cd)
+    u_gap = float(np.max(np.abs(out.normal_velocity[:, 0].numpy() - u_star)
+                         / np.maximum(np.abs(u_star), 1e-9)))
+    h_gap = float((out.layer_thickness - 50.0).abs().max())
+    log(f"[14] wind-drag steady state, 8^2 K = 1 f = 0, {n_wd} FE steps of 200 s through "
+        f"fe_step's forced arm ({time.perf_counter() - t0:.2f} s): u against sign(w) "
+        f"sqrt(|w| / Cd) max relative error {u_gap:.3e}, h flat to {h_gap:.3e} m")
+    if not (np.allclose(out.normal_velocity[:, 0].numpy(), u_star, rtol=1e-6, atol=1e-9)
+            and h_gap <= 1e-8):
+        raise AssertionError("wind-drag steady state missed")
+
+    # f32 after 100 steps on the main paths' lattices (layers of 10 m), the
+    # forcing moving u well past the bounds; f64 runs from the same values
+    def f32_forcing(mesh, model, seed):
+        rng = np.random.default_rng(seed)
+        n_c = mesh.horz.n_cells
+        f = make_forcing(mesh, wind_stress_zonal=rng.normal(size=n_c),
+                         wind_stress_meridional=rng.normal(size=n_c), **F32_FORCING)
+        return model.to_struct_forcing(f)
+
+    max_abs_err, fwd_ok = {}, {}
+    for name, case, n in (("periodic", igw_case, HEADLINE_N), ("periodic", igw_case, LARGE_N),
+                          ("channel", kelvin_case, HEADLINE_N)):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        _, _, model64, _ = case(n, LEVELS, np.float64)
+        mesh = mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
+            horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0)))
+        forcing, forcing64 = f32_forcing(mesh, model, 41), f32_forcing(mesh, model64, 41)
+        forcing = Forcing(*(x.float() for x in (
+            forcing.wind_edge, forcing.top_mask, forcing.bottom_mask, forcing.drag_linear,
+            forcing.drag_quadratic, forcing.rayleigh)))
+        st, sm, sm64 = model.to_struct(prog), model.struct_mesh, model64.struct_mesh
+        st64 = StructState(*(x.double() for x in state_fields(st)))
+        n_chk = TILED_CHECK_STEPS
+        for fb in (False, True):
+            arm = "tiled_step FB" if fb else "fe_step FE"
+            kern = lambda f: structured_auto_run_loop(st, sm, DT, n_chk, fb=fb, forcing=f)  # noqa
+            out, unforced = kern(forcing), kern(None)
+            ref = structured_run_loop(st, sm, DT, n_chk, fb=fb, forcing=forcing)
+            ref64 = structured_run_loop(st64, sm64, DT, n_chk, fb=fb, forcing=forcing64)
+            what = f"f32 {n}x{n}x{LEVELS} {name}, {n_chk} forced steps, {arm}"
+            errs = field_errors(out, ref, sm.resting_thickness_sum)
+            miss = field_errors(unforced, ref, sm.resting_thickness_sum)
+            log(f"[14] {what} vs plain f32: {format_errors(errs)}; the unforced arm "
+                f"{format_errors(miss)}")
+            limits = {"ssh": 1e-5, "layer_thickness": 1e-5,
+                      "normal_velocity": 3e-4 if n == HEADLINE_N else 5e-3}
+            gap = lambda x: float((x.normal_velocity.double()  # noqa: E731
+                                   - ref64.normal_velocity).abs().max())
+            for f in ("ssh", "layer_thickness") + (("normal_velocity",) if name == "periodic"
+                                                   else ()):
+                if not errs[f][1] <= limits[f]:
+                    raise AssertionError(f"{what}: {f} {errs[f][1]:.3e} > {limits[f]}")
+            if name == "channel":
+                log(f"[14] {what}: u's distance from the f64 run: kernel {gap(out):.3e}, plain "
+                    f"f32 {gap(ref):.3e}, unforced {gap(unforced):.3e}")
+                if not gap(out) <= U_GAP_FACTOR * gap(ref):
+                    raise AssertionError(f"{what}: u {gap(out):.3e} from f64, plain {gap(ref):.3e}")
+                ratios = {"normal_velocity": gap(unforced) / (U_GAP_FACTOR * gap(ref))}
+                check_walls(out, sm, what)
+            else:
+                ratios = {"normal_velocity": miss["normal_velocity"][1] / limits["normal_velocity"]}
+            ratios.update({f: miss[f][1] / limits[f] for f in ("ssh", "layer_thickness")})
+            log(f"[14] {what}: the unforced arm is " + ", ".join(
+                f"{f} x{v:.1f}" for f, v in ratios.items()) + " the limit (control: "
+                f"x{F32_CONTROL['normal_velocity']} for u and h, x{F32_CONTROL['ssh']} for ssh)")
+            for f, v in ratios.items():
+                if not v >= F32_CONTROL[f]:
+                    raise AssertionError(f"{what}: the unforced arm misses {f} by only x{v:.1f}")
+            max_abs_err[arm, name, n] = max(e for e, _ in errs.values())
+        # the reverse, 100 steps from a random cotangent
+        g = random_cot(st, 23)
+        stk = stack_of(st, sm, DT, n_chk, forcing)
+        ref64 = plain_reverse(stk, g, sm64, DT, n_chk, forcing64, dtype=torch.float64)
+        arms = [("adjoint_step", None)]
+        if n == LARGE_N:
+            arms.append(("tiled_adjoint", (4, 8, 1)))
+        for arm, plan in arms:
+            runs = {"kernel": kernel_reverse(stk, g, sm, DT, n_chk, forcing, plan),
+                    "plain": plain_reverse(stk, g, sm, DT, n_chk, forcing, plan),
+                    "unforced": kernel_reverse(stk, g, sm, DT, n_chk, None, plan)}
+            gaps = {k: rev_errors(x, ref64) for k, x in runs.items()}
+            what = f"f32 {n}x{n}x{LEVELS} {name}, {n_chk} forced reverse steps, {arm}"
+            log(f"[14] {what}: distance from the f64 reverse " + "; ".join(
+                f"{k} {format_errors(v)}" for k, v in gaps.items()))
+            # the fields by the plain f32 reverse's distance; the scalar sums
+            # (SCALAR_FLOOR) by it or their f32 floor, whichever is larger
+            limit = {f: 3 * (max(e, SCALAR_FLOOR * e / max(r, 1e-300)) if f in SCALARS else e)
+                     for f, (e, r) in gaps["plain"].items()}
+            log(f"[14] {what}: kernel over the 3x limit " + ", ".join(
+                f"{f} {gaps['kernel'][f][0] / v:.3f}" for f, v in limit.items()))
+            for f, v in limit.items():
+                if not gaps["kernel"][f][0] <= v:
+                    raise AssertionError(f"{what}: {f} {gaps['kernel'][f][0]:.3e} from f64, "
+                                         f"limit {v:.3e}")
+            ratios = {f: gaps["unforced"][f][0] / v for f, v in limit.items()}
+            log(f"[14] {what}: the unforced arm is " + ", ".join(
+                f"{f} x{v:.3g}" for f, v in ratios.items()) + " the 3x limit (control)")
+            if not min(ratios[f] for f in ("normal_velocity", "d_wind", "d_r_lin", "d_cd",
+                                           "d_lambda")) >= 100:
+                raise AssertionError(f"{what}: the unforced arm misses by too little")
+            max_abs_err[arm, name, n] = max(e for f, (e, _) in rev_errors(
+                runs["kernel"], runs["plain"]).items() if f != "d_dt")
+        del stk, runs, ref64
+        torch.cuda.empty_cache()
+
+    # timed: forced beside unforced in this call, median of REPS
+    times = {}
+
+    def both(key, run, n_steps):
+        times[key] = {arm: timed_rollout(lambda n, f=f: run(n, f), n_steps, REPS)[1]
+                      for arm, f in (("unforced", False), ("forced", True))}
+        u_med, f_med = (statistics.median(times[key][a]) for a in ("unforced", "forced"))
+        log(f"[14] {key}: forced {spread(times[key]['forced'], 1e6, 'us')} per step, unforced "
+            f"{spread(times[key]['unforced'], 1e6, 'us')}: forced/unforced x{f_med / u_med:.4f} "
+            f"[{gpu}]")
+
+    forced_of = {}
+    for label, case, n in (("64", igw_case, HEADLINE_N), ("256", igw_case, LARGE_N),
+                           ("channel 64", kelvin_case, HEADLINE_N)):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        forced_of[label] = model.to_struct_forcing(make_forcing(
+            mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
+                horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0),
+                dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
+    fwd = {}
+    for label, case, n, fb, n_steps in (("64", igw_case, HEADLINE_N, False, HEADLINE_STEPS),
+                                        ("256", igw_case, LARGE_N, False, LARGE_MAIN_STEPS),
+                                        ("256", igw_case, LARGE_N, True, LARGE_MAIN_STEPS),
+                                        ("channel 64", kelvin_case, HEADLINE_N, False,
+                                         HEADLINE_STEPS)):
+        _, _, model, prog = case(n, LEVELS, np.float32)
+        sm, forcing = model.struct_mesh, forced_of[label]
+        key = f"{'FB' if fb else 'FE'} {label}"
+        zero_counts()
+        final = model.from_struct(structured_auto_run_loop(
+            model.to_struct(prog), sm, DT, n_steps, fb=fb, forcing=forcing))
+        c = counts()
+        arm = "tiled_step" if fb else "fe_step"
+        log(f"[14] main path: forced {key}^2x{LEVELS} f32 from to_struct, {n_steps} steps: "
+            f"launches {c} (want {arm} {n_steps} forced)")
+        if c[arm] != (n_steps, n_steps) or sum(a for a, _ in c.values()) != n_steps:
+            raise AssertionError(f"forced {key}: launch counts {c}")
+        if not all(bool(torch.isfinite(x).all()) for x in state_fields(final)):
+            raise AssertionError(f"forced {key}: not finite")
+        st = model.to_struct(prog)
+        both(f"{arm} {key}", lambda k, f, st=st, sm=sm, fb=fb, forcing=forcing:
+             structured_auto_run_loop(st, sm, DT, k, fb=fb,
+                                      forcing=forcing if f else None), n_steps)
+        fwd[key] = c[arm][1]
+    # the plain forced step's time, 64^2
+    _, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    _, plain_fe = timed_rollout(lambda k: structured_run_loop(st, sm, DT, k,
+                                                              forcing=forced_of["64"]),
+                                TILED_CHECK_STEPS, REPS)
+    _, _, model, prog = igw_case(LARGE_N, LEVELS, np.float32)
+    st_l, sm_l = model.to_struct(prog), model.struct_mesh
+    _, plain_fb = timed_rollout(lambda k: structured_run_loop(st_l, sm_l, DT, k, fb=True,
+                                                              forcing=forced_of["256"]),
+                                10, REPS)
+
+    # the forced gradients from to_struct, launch counts exact and equal to
+    # the unforced ones
+    grads = {}
+
+    def grad_path(label, case, n, n_steps, route):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        sm, forcing = model.struct_mesh, forced_of[label]
+        parts = [x.clone().requires_grad_(True) for x in (
+            forcing.wind_edge, forcing.drag_linear, forcing.drag_quadratic, forcing.rayleigh)]
+        f = Forcing(parts[0], forcing.top_mask, forcing.bottom_mask, *parts[1:])
+        zero_counts()
+        t0 = time.perf_counter()
+        st = model.to_struct(prog)
+        leaves = [x.clone().requires_grad_(True) for x in state_fields(st)]
+        out = route(StructState(*leaves), sm, DT, n_steps, forcing=f)
+        g = torch.autograd.grad((out.ssh ** 2).sum(), leaves + parts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        tiled = route is tiled_rollout_diff
+        group = diff_model.adjoint_plan(n_steps, 1, math.inf) if not tiled else 10
+        n_fwd = 2 * n_steps - -(-n_steps // group)
+        rev = "tiled_adjoint" if tiled else "adjoint_step"
+        what = (f"forced grad of sum(ssh^2) through {route.__name__}, {label}^2x{LEVELS} f32, "
+                f"{n_steps} steps")
+        log(f"[14] main path: {what}: {wall:.3f} s wall (to_struct .. grad) [{gpu}]; launches "
+            f"{c} (want fe_step {n_fwd} and {rev} {n_steps}, all forced)")
+        if c["fe_step"] != (n_fwd, n_fwd) or c[rev] != (n_steps, n_steps) or c["tiled_step"] != (
+                0, 0) or c["tiled_adjoint" if not tiled else "adjoint_step"] != (0, 0):
+            raise AssertionError(f"{what}: launch counts {c}")
+        for name, x in zip(("d_ssh", "d_h", "d_u", "d_wind", "d_r_lin", "d_cd", "d_lambda"), g):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{what}: {name} is not finite")
+        log(f"[14] |d_h|max {float(g[1].abs().max()):.6e}, |d_u|max {float(g[2].abs().max()):.6e}, "
+            f"|d_wind|max {float(g[3].abs().max()):.6e}, d_r_lin {float(g[4]):.6e}, d_cd "
+            f"{float(g[5]):.6e}, d_lambda {float(g[6]):.6e}")
+        ref = fused_run_loop(st, sm, DT, n_steps, forcing=forcing)
+        if not same(state_fields(out), state_fields(ref)):
+            raise AssertionError(f"{what}: the forward differs from fused_run_loop's")
+
+        def one(forced):
+            leaves = [x.clone().requires_grad_(True) for x in state_fields(st)]
+            ps = [x.clone().requires_grad_(True) for x in parts] if forced else []
+            fo = Forcing(ps[0], forcing.top_mask, forcing.bottom_mask, *ps[1:]) if forced else None
+            o = route(StructState(*leaves), sm, DT, n_steps, forcing=fo)
+            return torch.autograd.grad((o.ssh ** 2).sum(), leaves + ps)
+
+        grads[what] = {"unforced": cuda_times(lambda: one(False), REPS),
+                       "forced": cuda_times(lambda: one(True), REPS)}
+        u_med, f_med = (statistics.median(grads[what][a]) for a in ("unforced", "forced"))
+        log(f"[14] {what}: forced {spread(grads[what]['forced'])}, unforced "
+            f"{spread(grads[what]['unforced'])} per grad: forced/unforced x{f_med / u_med:.4f} "
+            f"[{gpu}]")
+        return st, sm, c, f_med
+
+    _, _, c64, g64 = grad_path("64", igw_case, HEADLINE_N, GRAD_STEPS, auto_rollout_diff)
+    st_c, sm_c, _, g64c = grad_path("channel 64", kelvin_case, HEADLINE_N, GRAD_STEPS,
+                                    auto_rollout_diff)
+    st_l, sm_l, c256, g256 = grad_path("256", igw_case, LARGE_N, LARGE_ADJ_STEPS,
+                                       tiled_rollout_diff)
+    _, _, _, g256f = grad_path("256", igw_case, LARGE_N, LARGE_ADJ_STEPS, fused_rollout_diff)
+
+    def traced():
+        leaves = [x.clone().requires_grad_(True) for x in state_fields(st_l)]
+        o = tiled_rollout_diff(StructState(*leaves), sm_l, DT, LARGE_ADJ_STEPS,
+                               forcing=forced_of["256"])
+        return torch.autograd.grad((o.ssh ** 2).sum(), leaves)
+
+    by_kernel, window_us = profile_by_kernel(traced, ("fe_step_kernel", "tiled_adjoint_kernel",
+                                                      "ddt_reduce"))
+    log(f"[14] profiler, bench.py's forced {LARGE_N}^2 tiled grad ({window_us:.0f} us by "
+        f"events): " + profile_line(by_kernel, window_us, gpu))
+
+    # the forced reverse arms per launch (held_us, 40-step calls), beside the
+    # unforced arms on the same stack
+    per = {}
+    _, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
+    st_h, sm_h = model.to_struct(prog), model.struct_mesh
+    for label, st, sm, arm in (("64", st_h, sm_h, "adjoint_step"),
+                               ("256", st_l, sm_l, "adjoint_step"),
+                               ("256", st_l, sm_l, "tiled_adjoint"),
+                               ("channel 64", st_c, sm_c, "adjoint_step")):
+        forcing, group = forced_of[label], 40
+        stk = stack_of(st, sm, DT, group, forcing)
+        g_in = random_cot(st, 15)
+        plan = None if arm == "adjoint_step" else (4, 8, 1)
+        per[arm, label] = {
+            k: [t / 1e6 for t in held_us(reverse_call(stk, g_in, sm, DT, group, f, plan)[0],
+                                         group, REPS)]
+            for k, f in (("unforced", None), ("forced", forcing))}
+        u_med, f_med = (statistics.median(per[arm, label][k]) for k in ("unforced", "forced"))
+        dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+        b, by = forced_step_bound("adjoint_step", *dims)
+        log(f"[14] {arm} {label}^2 f32 per launch: forced {spread(per[arm, label]['forced'], 1e6, 'us')}"
+            f", unforced {spread(per[arm, label]['unforced'], 1e6, 'us')}: x{f_med / u_med:.4f}; "
+            f"forced bound {b * 1e6:.3f} us ({by}): {b / f_med:.4f} of it [{gpu}]")
+        del stk
+    g_l, g_h = random_cot(st_l, 16), random_cot(st_h, 16)
+    plain_rev = cuda_times(lambda: structured_adjoint_step(st_l, g_l, sm_l, DT, forced_of["256"]),
+                           REPS)
+    plain_rev_64 = cuda_times(lambda: structured_adjoint_step(st_h, g_h, sm_h, DT,
+                                                              forced_of["64"]), REPS)
+    log(f"[14] plain forced reverse step f32: {HEADLINE_N}^2 {spread(plain_rev_64, 1e3, 'ms')}, "
+        f"{LARGE_N}^2 {spread(plain_rev, 1e3, 'ms')}; plain forced FE step {HEADLINE_N}^2 "
+        f"{spread(plain_fe, 1e3, 'ms')}, FB {LARGE_N}^2 {spread(plain_fb, 1e3, 'ms')} [{gpu}]")
+
+    # the kernels line's entries
+    def entry(name, src, replaces, launches_n, err, ms, plain_ms, bound, extra):
+        (b, by) = bound
+        return {"name": name, "route": "cuda", "source": f"mpas_ocean_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches_n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b * 1e3, "bound_by": by, "library_ms": None,
+                **extra}
+
+    d64 = (sm_h.ny2, sm_h.nx, LEVELS, len(sm_h.coriolis_terms), 4)
+    d256 = (sm_l.ny2, sm_l.nx, LEVELS, len(sm_l.coriolis_terms), 4)
+    med = statistics.median
+    return [
+        entry("fe_step (forced arm)", "fe_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:320 (forcing operands, :248-256)",
+              c256["fe_step"][1], max_abs_err["fe_step FE", "periodic", HEADLINE_N],
+              med(times["fe_step FE 64"]["forced"]) * 1e3, med(plain_fe) * 1e3,
+              forced_step_bound("fe_step", *d64),
+              {"unforced_ms": med(times["fe_step FE 64"]["unforced"]) * 1e3,
+               "ms_256": med(times["fe_step FE 256"]["forced"]) * 1e3,
+               "unforced_ms_256": med(times["fe_step FE 256"]["unforced"]) * 1e3,
+               "masked_ms_64": med(times["fe_step FE channel 64"]["forced"]) * 1e3,
+               "launches_forward_64": fwd["FE 64"], "max_rel_err_f64": worst["fe_step"]}),
+        entry("tiled_step (forced arm)", "tiled_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:852 (forcing operands)",
+              fwd["FB 256"], max_abs_err["tiled_step FB", "periodic", LARGE_N],
+              med(times["tiled_step FB 256"]["forced"]) * 1e3, med(plain_fb) * 1e3,
+              forced_step_bound("fe_step", *d256),
+              {"unforced_ms": med(times["tiled_step FB 256"]["unforced"]) * 1e3,
+               "max_rel_err_f64": worst["tiled_step"]}),
+        entry("adjoint_step (forced arm)", "adjoint_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:1480 (forced operands, :1514-1520)",
+              c64["adjoint_step"][1], max_abs_err["adjoint_step", "periodic", HEADLINE_N],
+              med(per["adjoint_step", "64"]["forced"]) * 1e3, med(plain_rev_64) * 1e3,
+              forced_step_bound("adjoint_step", *d64),
+              {"unforced_ms": med(per["adjoint_step", "64"]["unforced"]) * 1e3,
+               "ms_256": med(per["adjoint_step", "256"]["forced"]) * 1e3,
+               "unforced_ms_256": med(per["adjoint_step", "256"]["unforced"]) * 1e3,
+               "bound_ms_256": forced_step_bound("adjoint_step", *d256)[0] * 1e3,
+               "masked_ms_64": med(per["adjoint_step", "channel 64"]["forced"]) * 1e3,
+               "plain_ms_256": med(plain_rev) * 1e3,
+               "grad_s_64": g64, "grad_s_64_channel": g64c, "grad_s_256_fused": g256f,
+               "max_rel_err_f64": worst["adjoint_step"]}),
+        entry("tiled_adjoint (forced arm)", "tiled_adjoint.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:1979 (d(wind), dscal[3:6], :2938-2941)",
+              c256["tiled_adjoint"][1], max_abs_err["tiled_adjoint", "periodic", LARGE_N],
+              med(per["tiled_adjoint", "256"]["forced"]) * 1e3, med(plain_rev) * 1e3,
+              forced_step_bound("adjoint_step", *d256),
+              {"unforced_ms": med(per["tiled_adjoint", "256"]["unforced"]) * 1e3,
+               "grad_s_256": g256, "max_rel_err_f64": worst["tiled_adjoint"]}),
+    ]
+
+
+def ptxas_report(log_text: str, kernels: tuple, forced: bool = False) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
-    mangled names contain one of ``kernels``."""
+    mangled names contain one of ``kernels``; with ``forced``, only their
+    forced arms (the last template argument, kForced, true: "Lb1EEEv")."""
     out, keep = [], False
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            keep = any(k in line for k in kernels)
+            keep = any(k in line for k in kernels) and (not forced or "Lb1EEEv" in line)
         if keep and ("Compiling" in line or "registers" in line or "spill" in line):
             out.append(line.strip())
     return out
@@ -2697,6 +3379,11 @@ def main() -> int:
     # -- 9. the card's measured peaks (kernel 5), the divisor of every bound
     # printed from here on ------------------------------------------------------
     probe_entries = peaks_phase(gpu, log_file.read_text())
+    if "--forcing-only" in sys.argv[1:]:
+        # phase 14 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": forcing_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
 
     # -- 3. kernel against its plain version on the card ---------------------
     model, prog = random_case(16, 4)
@@ -3065,6 +3752,9 @@ def main() -> int:
     # -- 13. the nonlinear reverse -----------------------------------------------
     nl_adjoint_entry = nl_reverse_phase(gpu, log_file.read_text())
 
+    # -- 14. momentum forcing -----------------------------------------------------
+    forced_entries = forcing_phase(gpu, log_file.read_text())
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
@@ -3106,6 +3796,7 @@ def main() -> int:
         entry.update(masked[entry["name"]])
         entry.update(nonlinear.get(entry["name"], {}))
     kernels.append(nl_adjoint_entry)
+    kernels.extend(forced_entries)
     kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -20,6 +20,8 @@ builds on the card unless given ``device="cpu"``; the state's device picks
 the kernels (CUDA) or the plain versions (CPU). A coastal channel runs
 the same entry points from ``StructuredModel(mesh, nx, ny,
 parent_horz=parent, keep_cells=keep)``, through the kernels' masked arms.
+Momentum forcing (``make_forcing``, ``StructuredModel.to_struct_forcing``)
+rides every entry point as ``forcing=``, through the kernels' forced arms.
 """
 
 from .constants import GRAVITY
@@ -34,7 +36,7 @@ from .mesh import (
     make_vertical_mesh,
     planar_hex_mesh,
 )
-from .models import PrognosticVars
+from .models import Forcing, PrognosticVars, make_forcing
 from .structured import (
     StructuredModel,
     auto_rollout_diff,
@@ -56,6 +58,7 @@ __all__ = [
     "GRAVITY",
     "DualCells",
     "Edges",
+    "Forcing",
     "HorzMesh",
     "InertialGravityWave",
     "KelvinWave",
@@ -71,6 +74,7 @@ __all__ = [
     "fused_rollout_diff",
     "fused_run_loop",
     "fused_step",
+    "make_forcing",
     "make_vertical_mesh",
     "planar_hex_mesh",
     "structured_auto_run_loop",

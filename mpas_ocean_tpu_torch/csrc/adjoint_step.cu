@@ -4,9 +4,10 @@
 //
 // Replaces: _adjoint_segment_kernel
 // (mpas_ocean_tpu/structured/pallas_model.py:1480), the arms with
-// nl_terms=None, n_tracers=0, stratified=False and forced=False, periodic
-// (masks=None) and masked (a coastal channel: the vjp of _step_planes with
-// masks, :1497-1501, 1545-1552). The TPU
+// nl_terms=None, n_tracers=0 and stratified=False, periodic (masks=None)
+// and masked (a coastal channel: the vjp of _step_planes with masks,
+// :1497-1501, 1545-1552), unforced and forced (the `forced` operands,
+// :1514-1520, 1545-1590: d(wind) and d(coefs) beside d(dt)). The TPU
 // kernel recomputes a b-step segment in VMEM and runs an in-kernel jax.vjp of
 // _step_planes per step. CUDA has no vjp, so the transpose is written out by
 // hand here, and the recompute is the forward kernel's (fe_step.cu) filling
@@ -69,6 +70,26 @@
 // design staged the mask's six planes and folded them value by value: 20-22%
 // more time per launch at 64x64x100 f32 (PERF.md has the designs tried).
 //
+// The forced arm (kForced, chosen by a non-null wind; the unforced arm keeps
+// its code) adds the transpose of dt F (structured/adjoint.py,
+// forcing_transpose), a = dt gu: Rayleigh's du -= dt lambda gu at every
+// level, and its sum of gu u, from which each block's shares of d(lambda)
+// and of d(dt)'s Rayleigh part come; at an edge's top and bottom level the
+// wind and drag terms (adjoint_window.cuh, wind_drag_adjoint), among them
+// the h_edge cotangent a (top w - bot Cd |u| u) (-inv_h^2), which joins the
+// flux transpose's u dF, half to each of the edge's cells, so a site takes it
+// on its 3 owned and its 3 incoming edges. Those terms run only in the
+// ranks whose chunk holds some edge's top or bottom level, which stage the
+// window's winds and packed levels (step_window.cuh, ForcingArgs), in two
+// passes after the body, a thread an edge or a cell, not a level: over the
+// tile's owned edges (the terms added to the stored du, d(wind), the
+// shares; adjoint_window.cuh, wind_drag_adjoint_pass) and over its cells
+// (at their edges' top and bottom levels, the h cotangent formed again with
+// the h_edge cotangents in the flux transpose's sum; dh_pass). Each site adds a inv_h at its owned edges' top levels to
+// d(wind) in place (one block owns each edge's top level: no atomics), and
+// each block writes three more shares in double beside d(dt): d(r_lin),
+// d(Cd) and d(lambda), summed in the same fixed order.
+//
 // What bounds it: about 3 state passes per step (read the primal h and u,
 // read the cotangent, write the new one), 19.7 MB at 64x64x100 in f32, 5.9
 // us at 3.35 TB/s. Measured (f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
@@ -98,12 +119,16 @@ struct AdjArgs {
   T* ds;  // cotangent j
   T* dh;
   T* du;
-  double* ddt_part;  // one share per block: (tile, rank)
+  double* ddt_part;  // one share per block: (tile, rank); the forced arm's
+                     // three more kinds n_shares apart
+  ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
+  T* dwind;           // the forced arm's d(wind) (6, ny2, nx), added to
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
+  long long n_shares;
 };
 
-template <typename T, bool kMasked>
+template <typename T, bool kMasked, bool kForced>
 __global__ void __launch_bounds__(kStepThreads, 2)
     adjoint_step_kernel(const AdjArgs<T> a, const AdjTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -128,6 +153,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* recv = f_s + 6 * W;  // [n_ranks][2][core]: rank 0's are read
   int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gsite + W;  // [W]: the masked arm's live bits
+  const ForcingSmem<T> fsm(live_s + W, W, 0);  // the forced arm's winds and levels
 
   // The partial sums below go straight into rank 0's shared memory, which
   // only a cluster barrier guarantees to exist: its arrival here and its
@@ -145,6 +171,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   load_chunk(cot, gs_s, gsite, a.gs, a.gh, a.gu, W, kc, a.kc_log2, a.vec_log2, k0, kr, K,
              plane);
   if (kMasked) load_live(live_s, gsite, a.live, W);
+  if (kForced) load_forcing(fsm, gsite, a.fc, W, plane, rank);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -163,6 +190,12 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   const int site_stride = static_cast<int>(blockDim.x >> 5) * warp_sites;
   const FastDiv by_ct(a.ct);
   double share = 0.0;
+  // the forced arm: dt lambda; its threads' sums, in double, of gu u
+  // (Rayleigh, each product in double) and of the d(r_lin) and d(Cd)
+  // shares; its d(dt) terms summed in double too (each term rounds in T, the
+  // sums do not)
+  const T dt_rayl = a.dt * a.fc.rayl;
+  double s_rayl = 0.0, s_lin = 0.0, s_quad = 0.0;
   for (int base = static_cast<int>(threadIdx.x >> 5) * warp_sites; base < core;
        base += site_stride) {
     const int t = base + sub;
@@ -196,7 +229,9 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 #pragma unroll
       for (int x = 0; x < hex_adj::kU; ++x) u[x] = P[tp.us[x]];
       T dh[2], du[6], S[2];
-      T part = T(0);
+      // d(dt)'s terms: in T, or in double for the forced arm
+      std::conditional_t<kForced, double, T> part = 0;
+      double rayl = 0.0;
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         const T Gc = Gv[hex::self_h(p)], hc = h[hex::self_h(p)];
@@ -217,6 +252,10 @@ __global__ void __launch_bounds__(kStepThreads, 2)
           const T fct = fo[ch] * ct;
           const T gue = gu[hex::self_u(ch)], ue = u[hex::self_u(ch)];
           du[ch] = gue + he * gflux + a.dt * fct;
+          if (kForced) {
+            du[ch] = du[ch] - dt_rayl * gue;
+            rayl = fma(static_cast<double>(gue), static_cast<double>(ue), rayl);
+          }
           flux += ue * gflux;
           part += ue * (a.s_div * dG * he + fct) - grav * grad[ch] * gue;
         }
@@ -236,6 +275,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       acc0 += S[0];
       acc1 += S[1];
       share += static_cast<double>(part);
+      if (kForced) s_rayl += rayl;
     }
     acc0 = group_sum(acc0, G);
     acc1 = group_sum(acc1, G);
@@ -244,14 +284,46 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       sums[core + t] = acc1;
     }
   }
+  if (kForced && ((a.fc.lvl_ranks >> rank) & 1u)) {
+    // the wind and drag at the tile's owned edges' top and bottom levels in
+    // this block's chunk (a rank that holds some edge's top or bottom
+    // level): added to the stored du, d(wind) and the shares; then the h
+    // cotangent at the tile's cells' top and bottom levels
+    const auto core_site = [&](int t) {  // the tile's site t in the window, or -1
+      const int r = by_ct.div(t), c = by_ct.mod(t, r);
+      return tm * a.rt + r < a.ny2 && ti * a.ct + c < a.nx ? (a.hm + r) * Wi + a.hi + c : -1;
+    };
+    wind_drag_adjoint_pass(
+        prim, cot, tp, fsm, core, core_site, [](int) { return true; },
+        [&](int ch, int t, int, int kl) -> T& {
+          const int r = by_ct.div(t), c = by_ct.mod(t, r);
+          return a.du[(ch * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl];
+        },
+        [&](int ch, int t) {
+          const int r = by_ct.div(t), c = by_ct.mod(t, r);
+          return a.dwind + ch * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c;
+        },
+        W, kc, k0, kr, a.dt, a.fc, &share, &s_lin, &s_quad);
+    dh_pass(prim, cot, tp, fsm, core, core_site,
+            [&](int p, int t, int, int kl) -> T& {
+              const int r = by_ct.div(t), c = by_ct.mod(t, r);
+              return a.dh[(p * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl];
+            },
+            W, kc, k0, kr, a.dt, dt_div, a.fc);
+  }
+  // the forced arm's Rayleigh part of d(dt), -lambda sum gu u
+  if (kForced) share -= static_cast<double>(a.fc.rayl) * s_rayl;
   share_warps(share, red);
 
   // ds = (g dt / dc) * the ranks' partial sums, added by rank 0 in rank
   // order (the barrier orders the remote stores above before rank 0's
   // reads; no block reads another's shared memory after it, so none waits
-  // to leave); each block's d(dt) share
+  // to leave); each block's d(dt) share, and the forced arm's three more
   cluster.sync();
   if (threadIdx.x == 0) a.ddt_part[blockIdx.x] = share_total(red);
+  if (kForced)
+    write_forcing_shares(red, a.ddt_part + blockIdx.x, a.n_shares, s_lin, s_quad, s_rayl,
+                         static_cast<double>(a.dt));
   if (rank != 0) return;
   const T ds_scale = grav * a.dt * a.inv_dc;
   for (int e = threadIdx.x; e < 2 * core; e += blockDim.x) {
@@ -265,24 +337,28 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   }
 }
 
-template <typename T, bool kMasked>
+template <typename T, bool kMasked, bool kForced>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      adjoint_step_kernel<T, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  const cudaError_t e = cudaFuncSetAttribute(adjoint_step_kernel<T, kMasked, kForced>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
 // The warps' d(dt) sums, a window's primal and cotangent chunks, its ssh,
 // gs and f_edge and sites, the ranks' partial sums, and the masked arm's
-// live bits, reserved by the periodic arm too so that one plan serves both
-// (kernels/adjoint_step.smem_bytes mirrors this).
-size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize) {
+// live bits, reserved by the periodic arm too so that one plan serves both;
+// the forced arm's winds and packed levels beyond (kernels/adjoint_step.
+// smem_bytes mirrors this).
+size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize,
+                  bool forced) {
   return sizeof(double) * kRedDoubles + step_smem_bytes(sites, kc, 2, kPlanes, itemsize) +
          itemsize * static_cast<size_t>(n_ranks) * 2 * core +
-         sizeof(int) * static_cast<size_t>(sites);
+         sizeof(int) * static_cast<size_t>(sites) +
+         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0);
 }
 
 // One call's launch set-up: the plan, the resolved stencil, the shared memory.
@@ -295,8 +371,8 @@ struct AdjPlan {
 };
 
 template <typename T>
-int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const int* table,
-              const double* weights,
+int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const ForcingArgs<T>& fc,
+              T* dwind, const int* table, const double* weights,
               double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,
               int n_terms, int rt, int ct, bool vec) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
@@ -310,26 +386,38 @@ int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const int* table
   if (!resolve_adjoint_taps<T>(&pl->tp, table, weights, Wi, W, kc)) return kNotHexTable;
   int e = opt_in_smem(&pl->max_smem);
   if (e != 0) return e;
-  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T));
+  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T), fc.wind != nullptr);
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
   pl->a = AdjArgs<T>{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, f_edge, live,
-                     nullptr, nullptr, nullptr, nullptr, T(dt), T(inv_dc), T(s_div),
+                     nullptr, nullptr, nullptr, nullptr, fc, dwind, T(dt), T(inv_dc), T(s_div),
                      ny2, nx, k, rt, ct, hm, hi, log2_exact(kc),
-                     vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
+                     vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti,
+                     static_cast<long long>(n_steps) * pl->n_tiles * pl->n_ranks};
   return 0;
+}
+
+template <typename T, bool kMasked, bool kForced>
+int launch_arm(const AdjPlan<T>& pl, cudaStream_t stream) {
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = step_config(pl.n_ranks, pl.n_tiles, pl.smem, stream, attr);
+  cudaError_t le = cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T, kMasked, kForced>, pl.a, pl.tp);
+  if (le == cudaSuccess) le = cudaGetLastError();
+  return static_cast<int>(le);
 }
 
 // n_steps reverse steps. The primal state of step j lies in slot j of the
 // stacks (ssh (n, 2, ny2, nx), h (n, 2, ny2, nx, K), u (n, 6, ny2, nx, K));
 // the cotangent at step n_steps comes in `g_in` and the one at step 0 goes
 // out in `g_out`, through `g_tmp` as in fe_step.cu's fe_steps; `g_in` is left
-// as it is. `part` holds n_steps * tiles * ranks doubles; d(dt) of the
-// n_steps steps is added to ddt[0].
+// as it is. `part` holds n_steps * tiles * ranks doubles (kShares times as
+// many for the forced arm); d(dt) of the n_steps steps is added to ddt[0],
+// and the forced arm's d(wind) to dwind and d(r_lin, Cd, lambda) to
+// dcoef[0 .. 2].
 template <typename T>
-int adjoint_rollout(const T* f_edge, const int* live, const int* table, const double* weights,
-                    const T* ssh_st,
+int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, T* dwind,
+                    double* dcoef, const int* table, const double* weights, const T* ssh_st,
                     const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                     const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
                     T* gu_tmp, double* part, double* ddt, double dt, double inv_dc,
@@ -341,12 +429,17 @@ int adjoint_rollout(const T* f_edge, const int* live, const int* table, const do
                    vector_loads(k, kc, sizeof(T), gh_out, gu_out) &&
                    vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp);
   AdjPlan<T> pl;
-  int err = make_plan(&pl, f_edge, live, table, weights, dt, inv_dc, s_div, ny2, nx, k,
-                      n_steps, n_terms, rt, ct, vec);
+  int err = make_plan(&pl, f_edge, live, fc, dwind, table, weights, dt, inv_dc, s_div, ny2,
+                      nx, k, n_steps, n_terms, rt, ct, vec);
   if (err != 0) return err;
-  const bool masked = live != nullptr;
-  if ((err = masked ? prepare<T, true>(pl.max_smem) : prepare<T, false>(pl.max_smem)) != 0)
-    return err;
+  const bool masked = live != nullptr, forced = fc.wind != nullptr;
+  err = masked ? (forced ? prepare<T, true, true>(pl.max_smem)
+                         : prepare<T, true, false>(pl.max_smem))
+               : (forced ? prepare<T, false, true>(pl.max_smem)
+                         : prepare<T, false, false>(pl.max_smem));
+  if (err != 0) return err;
+  const auto launch = masked ? (forced ? launch_arm<T, true, true> : launch_arm<T, true, false>)
+                             : (forced ? launch_arm<T, false, true> : launch_arm<T, false, false>);
   const size_t cells = 2ULL * ny2 * nx;
   const size_t hs = cells * k, us = 3 * cells * k;
   const size_t shares = static_cast<size_t>(pl.n_tiles) * pl.n_ranks;
@@ -361,17 +454,11 @@ int adjoint_rollout(const T* f_edge, const int* live, const int* table, const do
     a.dh = to_out ? gh_out : gh_tmp;
     a.du = to_out ? gu_out : gu_tmp;
     a.ddt_part = part + s * shares;
-    cudaLaunchAttribute attr[2];
-    const cudaLaunchConfig_t cfg = step_config(pl.n_ranks, pl.n_tiles, pl.smem, stream, attr);
-    cudaError_t le = masked ? cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T, true>, pl.a, pl.tp)
-                            : cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T, false>, pl.a, pl.tp);
-    if (le == cudaSuccess) le = cudaGetLastError();
-    if (le != cudaSuccess) return static_cast<int>(le);
+    if ((err = launch(pl, stream)) != 0) return err;
     gs = a.ds, gh = a.dh, gu = a.du;
   }
   if (n_steps == 0) return 0;
-  return reduce_ddt(part, static_cast<long long>(n_steps) * static_cast<long long>(shares), ddt,
-                    stream);
+  return reduce_shares(part, pl.a.n_shares, ddt, forced ? dcoef : nullptr, stream);
 }
 
 }  // namespace
@@ -381,18 +468,24 @@ int adjoint_rollout(const T* f_edge, const int* live, const int* table, const do
 // (cudaErrorInvalidValue for a tile the card does not take). `table` and
 // `weights` are host copies of the TRANSPOSED stencil; rt x ct is the tile;
 // a null `live` (the wall mask's live bits, one int per site) runs the
-// periodic arm, any other the masked one.
+// periodic arm, any other the masked one; a null `wind` the unforced arm,
+// any other the forced one with `lvl`, the coefficients, and the
+// accumulators `dwind` (6, ny2, nx) and `dcoef` (3 doubles).
 #define MOT_ADJOINT_ENTRY(T, SUFFIX)                                                          \
   extern "C" int mot_adjoint_rollout_##SUFFIX(                                                \
-      const T* f_edge, const int* live, const int* table, const double* weights,                \
-      const T* ssh_st, const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,          \
-      const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp,       \
-      double* part, double* ddt, double dt, double inv_dc, double s_div, int ny2, int nx,     \
-      int k, int n_steps, int n_terms, int rt, int ct, void* stream) {                        \
-    return adjoint_rollout<T>(f_edge, live, table, weights, ssh_st, h_st, u_st, gs_in, gh_in, \
-                              gu_in, gs_out, gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part,    \
-                              ddt, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct,   \
-                              static_cast<cudaStream_t>(stream));                             \
+      const T* f_edge, const int* live, const T* wind, const int* lvl, T* dwind,              \
+      double* dcoef, const int* table, const double* weights, const T* ssh_st,                \
+      const T* h_st, const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in,           \
+      T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part,         \
+      double* ddt, double dt, double inv_dc, double s_div, double dlin, double dquad,         \
+      double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps,        \
+      int n_terms, int rt, int ct, void* stream) {                                            \
+    const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
+                            static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
+    return adjoint_rollout<T>(f_edge, live, fc, dwind, dcoef, table, weights, ssh_st, h_st,   \
+                              u_st, gs_in, gh_in, gu_in, gs_out, gh_out, gu_out, gs_tmp,      \
+                              gh_tmp, gu_tmp, part, ddt, dt, inv_dc, s_div, ny2, nx, k,       \
+                              n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));   \
   }
 
 MOT_ADJOINT_ENTRY(float, f32)
@@ -406,12 +499,12 @@ extern "C" int mot_adjoint_plan(const int* table, int ny2, int nx, int k, int rt
                                 int* out) {
   double weights[kMaxTerms] = {};
   AdjPlan<float> pl;
-  int e = make_plan<float>(&pl, nullptr, nullptr, table, weights, 1.0, 1.0, 1.0, ny2, nx, k, 1,
-                           table[0], rt, ct, true);
+  int e = make_plan<float>(&pl, nullptr, nullptr, ForcingArgs<float>{}, nullptr, table, weights,
+                           1.0, 1.0, 1.0, ny2, nx, k, 1, table[0], rt, ct, true);
   if (e != 0) return e;
-  if ((e = prepare<float, false>(pl.max_smem)) != 0) return e;
+  if ((e = prepare<float, false, false>(pl.max_smem)) != 0) return e;
   out[0] = pl.n_tiles;
   out[2] = static_cast<int>(pl.smem);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], adjoint_step_kernel<float, false>, kStepThreads, pl.smem));
+      &out[1], adjoint_step_kernel<float, false, false>, kStepThreads, pl.smem));
 }

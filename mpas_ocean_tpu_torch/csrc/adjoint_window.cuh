@@ -14,6 +14,7 @@
 
 #include <algorithm>
 #include <cstdlib>
+#include <type_traits>
 
 #include "step_window.cuh"
 
@@ -54,6 +55,8 @@ struct AdjTaps {
   int nb[6];               // per channel: neighbour cell across the owned edge, site units
   int us[hex_adj::kGu];    // the gu (and, for the first 11, u) sources, state units
   int hs[hex_adj::kG];     // the G (and, for the first 7, h) sources, state units
+  int inc_ch[6];           // incoming edge x = 3p + j: its channel,
+  int inc_off[6];          //   and its owner's window site, from the site's (site units)
 };
 
 // The transposed table (host copy) resolved into *s for a window of width
@@ -85,6 +88,8 @@ inline bool resolve_adjoint_taps(AdjTaps<T>* s, const int* table, const double* 
   }
   for (int x = 0; x < 6; ++x) {  // x = 3p + j
     const int* tc = table + kInc + 3 * x;
+    s->inc_ch[x] = tc[0];
+    s->inc_off[x] = tc[1] * Wi + tc[2];
     ok = ok && u_of((2 + tc[0]) * W + tc[1] * Wi + tc[2]) == hex::inc_u(x);
   }
   for (int t = 0; t < hex_adj::kTaps; ++t) {
@@ -121,6 +126,161 @@ inline void adjoint_reach(const int* table, int* hm, int* hi) {
 // Doubles at the start of a reverse kernel's dynamic shared memory: the
 // warps' d(dt) sums (a multiple of 16 bytes, so what follows stays aligned).
 constexpr int kRedDoubles = kStepThreads / 32;
+// The shares a block of a forced reverse arm writes, each summed by
+// ddt_reduce in a fixed order: d(dt), then d(r_lin), d(Cd) and d(lambda).
+constexpr int kShares = 4;
+
+// The wind and drag part of the transpose of dt F (step_window.cuh,
+// wind_drag) at one owned edge-level, for the output cotangent gu (m gu on a
+// channel), a = dt gu (structured/adjoint.py, forcing_transpose): nothing
+// away from the edge's top and bottom level; there, adds to *du the drag's
+// a (-(r + 2 Cd |u| inv_h)) (Rayleigh's -dt lambda gu the body adds at every
+// level), to *dd gu times the wind and drag part of F (d(dt)), at the top
+// level a inv_h to *dwind (none where dwind is null), and at the bottom level
+// -a u and -a |u| u inv_h to the d(r_lin) and d(Cd) shares. lv is the edge's
+// packed levels, w its staged wind, he its old h_edge. The shares are
+// doubles: each term rounds in T, the sums do not.
+template <typename T>
+__device__ __forceinline__ void wind_drag_adjoint(T gu, T u, T he, int lv, int k, const T* w,
+                                                  T* dwind, const ForcingArgs<T>& fc, T dt,
+                                                  T* du, double* dd, double* d_lin,
+                                                  double* d_quad) {
+  const bool top = top_level(lv, k), bot = bottom_level(lv, k);
+  if (!(top || bot)) return;
+  const T a = dt * gu;
+  const T inv_h = inv_edge(he);
+  const T au = fabs(u);
+  T f = T(0);
+  if (top) {
+    f = *w * inv_h;
+    if (dwind) *dwind += a * inv_h;
+  }
+  if (bot) {
+    f = f - (fc.dlin * u + fc.dquad * au * u * inv_h);
+    *du += a * (-(fc.dlin + T(2) * fc.dquad * au * inv_h));
+    *d_lin -= static_cast<double>(a * u);
+    *d_quad -= static_cast<double>(a * au * u * inv_h);
+  }
+  *dd += static_cast<double>(gu * f);
+}
+
+// The h_edge cotangent of dt F at one edge-level (owned or incoming):
+// a (top w - bot Cd |u| u) (-inv_h^2), 0 where h_edge <= 0 and away from the
+// edge's top and bottom level; it joins the flux transpose's u dF, half to
+// each of the edge's cells.
+template <typename T>
+__device__ __forceinline__ T wind_drag_dhe(T gu, T u, T he, int lv, int k, const T* w,
+                                           const ForcingArgs<T>& fc, T dt) {
+  const bool top = top_level(lv, k), bot = bottom_level(lv, k);
+  if (!(top || bot) || !(he > T(0))) return T(0);
+  const T inv_h = T(1) / he;
+  T x = top ? *w : T(0);
+  if (bot) x = x - fc.dquad * fabs(u) * u;
+  return dt * gu * x * (-inv_h * inv_h);
+}
+
+// The reverse forced arms' pass over the cells of a region of n window
+// sites, after the body has stored its h cotangent: a thread takes a cell
+// (region site t, parity p) and, at each level of the block's chunk that is
+// the top or bottom level of one of its 6 edges (3 owned, 3 incoming), forms
+// its h cotangent again, G + 1/2 (the flux transpose's sum over the 6 edges
+// + their h_edge cotangents there, wind_drag_dhe), and stores it through
+// `out(p, t, s, kl)`: the body's sum and this one in one order, so that no
+// cotangent of G's size rounds the forcing's terms twice. `prim` and `cot`
+// are the window's primal and (folded) cotangent chunks; `site(t)` the
+// window site of t, or -1 off the lattice.
+template <typename T, typename Site, typename Out>
+__device__ __forceinline__ void dh_pass(const T* prim, const T* cot, const AdjTaps<T>& tp,
+                                        const ForcingSmem<T>& fs, int n, Site site, Out out,
+                                        int W, int kc, int k0, int kr, T dt, T dt_div,
+                                        const ForcingArgs<T>& fc) {
+  for (int e = threadIdx.x; e < 2 * n; e += blockDim.x) {
+    const int p = e >= n ? 1 : 0, t = e - p * n;
+    const int s = site(t);
+    if (s < 0) continue;
+    // the 6 edges: owned i = f (channel 2f + p), incoming x = 3p + i - 3
+    int es[6], lv[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      es[i] = i < 3 ? (2 * i + p) * W + s : tp.inc_ch[3 * p + i - 3] * W + s + tp.inc_off[3 * p + i - 3];
+      lv[i] = fs.lvl[es[i]];
+    }
+    for (int m = 0; m < 12; ++m) {
+      int lev[2];
+      chunk_levels(lv[m >> 1], k0, kr, &lev[0], &lev[1]);
+      const int kl = lev[m & 1];
+      if (kl < 0) continue;
+      bool seen = false;  // the level of an earlier (edge, end)
+      for (int m2 = 0; m2 < m; ++m2) {
+        int l2[2];
+        chunk_levels(lv[m2 >> 1], k0, kr, &l2[0], &l2[1]);
+        seen = seen || l2[m2 & 1] == kl;
+      }
+      if (seen) continue;
+      const T* v = prim + s * kc + kl;
+      const T* g = cot + s * kc + kl;
+      const T Gc = g[tp.hs[hex::self_h(p)]], hc = v[tp.hs[hex::self_h(p)]];
+      T flux = T(0), dhe = T(0);
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        const int ch = 2 * f + p, us = tp.us[hex::self_u(ch)];
+        flux += v[us] * (dt_div * (g[tp.hs[hex::nb_h(ch)]] - Gc));
+        dhe += wind_drag_dhe(g[us], v[us], T(0.5) * (v[tp.hs[hex::nb_h(ch)]] + hc), lv[f],
+                             k0 + kl, fs.wind + es[f], fc, dt);
+      }
+#pragma unroll
+      for (int x = 3 * p; x < 3 * p + 3; ++x) {
+        const int us = tp.us[hex::inc_u(x)];
+        flux += v[us] * (dt_div * (Gc - g[tp.hs[hex::inc_self_h(x)]]));
+        dhe += wind_drag_dhe(g[us], v[us],
+                             T(0.5) * (v[tp.hs[hex::inc_nb_h(x)]] + v[tp.hs[hex::inc_self_h(x)]]),
+                             lv[x - 3 * p + 3], k0 + kl, fs.wind + es[x - 3 * p + 3], fc, dt);
+      }
+      out(p, t, s, kl) = Gc + T(0.5) * (flux + dhe);
+    }
+  }
+}
+
+// The reverse forced arms' last pass, after the body has stored the
+// cotangent on a region of n window sites: a thread takes an owned edge
+// (channel ch of region site t) and, at its top and bottom level in the
+// block's chunk, adds the wind and drag terms (wind_drag_adjoint) to the
+// stored du that `out(ch, t, s, kl)` returns, and, where `own(t)` (the
+// site's edges are the tile's: its shares and d(wind) are this tile's to
+// add), a inv_h to d(wind) at `dwind(ch, t)` and the d(dt), d(r_lin) and
+// d(Cd) terms to the shares.
+template <typename T, typename Site, typename Own, typename Out, typename Dwind>
+__device__ __forceinline__ void wind_drag_adjoint_pass(
+    const T* prim, const T* cot, const AdjTaps<T>& tp, const ForcingSmem<T>& fs, int n,
+    Site site, Own own, Out out, Dwind dwind, int W, int kc, int k0, int kr, T dt,
+    const ForcingArgs<T>& fc, double* dd, double* d_lin, double* d_quad) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < 6 * n; e += blockDim.x) {
+    const int ch = e / n, t = e - ch * n;
+    const int s = site(t);
+    if (s < 0) continue;
+    const int lv = fs.lvl[ch * W + s];
+    int lev[2];
+    chunk_levels(lv, k0, kr, &lev[0], &lev[1]);
+    const bool mine = own(t);
+    for (int j = 0; j < 2; ++j) {
+      const int kl = lev[j];
+      if (kl < 0) continue;
+      const T* v = prim + s * kc + kl;
+      const T* g = cot + s * kc + kl;
+      const int us = tp.us[hex::self_u(ch)];
+      const T he = T(0.5) * (v[tp.hs[hex::nb_h(ch)]] + v[tp.hs[hex::self_h(ch & 1)]]);
+      T du = T(0);
+      double x_dd = 0.0, x_lin = 0.0, x_quad = 0.0;
+      wind_drag_adjoint(g[us], v[us], he, lv, k0 + kl, fs.wind + ch * W + s,
+                        mine ? dwind(ch, t) : static_cast<T*>(nullptr), fc, dt, &du, &x_dd,
+                        &x_lin, &x_quad);
+      T& o = out(ch, t, s, kl);
+      o = o + du;
+      if (mine) *dd += x_dd, *d_lin += x_lin, *d_quad += x_quad;
+    }
+  }
+}
 
 // This block's level chunk of (h, u) into buf [8][W][kc] and of ssh into
 // ssh_s [2][W], by async copies. Chunks are kc values apart; a copy's index
@@ -217,6 +377,34 @@ __device__ __forceinline__ double share_total(const double* red) {
   double v = red[0];
   for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) v += red[w];
   return v;
+}
+
+// The forced arms' extra shares of a block, each in the warps' sums `red`
+// (one kind at a time, behind block barriers) and written by thread 0 at
+// part[i * n_shares] for i = 1, 2, 3: d(r_lin), d(Cd), and -dt times the
+// Rayleigh sum, d(lambda). Every thread of the block calls it.
+__device__ __forceinline__ void write_forcing_shares(double* red, double* part, long long n_shares,
+                                                     double d_lin, double d_quad, double rayl,
+                                                     double dt) {
+  const double v[3] = {d_lin, d_quad, -dt * rayl};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    __syncthreads();
+    share_warps(v[i], red);
+    __syncthreads();
+    if (threadIdx.x == 0) part[(i + 1) * n_shares] = share_total(red);
+  }
+}
+
+// Adds the call's kShares * n shares, [kShares][n], to acc[0] (d(dt)) and
+// the last three to coef[0 .. 2] (d(r_lin), d(Cd), d(lambda)), each in a
+// fixed order; coef null: the unforced arm's one share per block.
+static inline int reduce_shares(const double* part, long long n, double* acc, double* coef,
+                                cudaStream_t stream) {
+  int err = reduce_ddt(part, n, acc, stream);
+  for (int i = 1; coef != nullptr && err == 0 && i < kShares; ++i)
+    err = reduce_ddt(part + i * n, n, coef + i - 1, stream);
+  return err;
 }
 
 }  // namespace lattice

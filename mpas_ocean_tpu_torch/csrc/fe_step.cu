@@ -2,9 +2,10 @@
 // parity-plane hex lattice, for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _rollout_kernel (mpas_ocean_tpu/structured/pallas_model.py:320),
-// the arms with nl=None, tr=None, strat_w=None, fb=False and forc=None,
-// periodic (masks=None) and masked (a coastal channel culled from a periodic
-// lattice: u_new *= masks[c], :257-259). One launch is one step of
+// the arms with nl=None, tr=None, strat_w=None and fb=False, periodic
+// (masks=None) and masked (a coastal channel culled from a periodic
+// lattice: u_new *= masks[c], :257-259), unforced (forc=None) and forced
+// (momentum forcing, :248-256). One launch is one step of
 // _step_planes (:91-299); the exported entries loop n_steps launches on the
 // caller's stream.
 //
@@ -64,6 +65,14 @@
 // cells hold h = 0 and rts = 0, and every edge of theirs is masked, so they
 // stay so; nothing divides by h.
 //
+// The forced arm (kForced, chosen by a non-null wind; the unforced arm keeps
+// its code) adds dt F of the old state to u' after the base update and
+// before the wall mask, the JAX kernel's order: Rayleigh, -dt lambda u, at
+// every edge-level in the body, then the wind and drag at an edge's top and
+// bottom level only, where alone 1 / h_edge is formed from the window's old
+// h, in a pass of the ranks whose chunk holds such levels, over the tile's
+// edges (step_window.cuh, ForcingArgs, wind_drag_pass).
+//
 // The stencil table's layout is in lattice.cuh.
 
 #include <algorithm>
@@ -88,13 +97,14 @@ struct FeArgs {
   T* ssh_out;
   T* h_out;
   T* u_out;
+  ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
 };
 
 // Each distinct u and h value of a (site, level) is loaded once and each
 // u * f product formed once (step_window.cuh, hex::).
-template <typename T, bool kMasked>
+template <typename T, bool kMasked, bool kForced>
 __global__ void __launch_bounds__(kStepThreads, 2)
     fe_step_kernel(const FeArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -117,6 +127,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* recv = rts_s + 2 * W;                  // [n_ranks][2][core]: rank 0's are read
   int* gs = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gs + W;                     // [W]: the masked arm's live bits
+  const ForcingSmem<T> fsm(live_s + W, W, 0);  // the forced arm's winds and levels
 
   // The partial column sums below go straight into rank 0's shared memory,
   // which only a cluster barrier guarantees to exist: its arrival here and
@@ -129,6 +140,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   load_consts(f_s, rts_s, gs, a.f_edge, a.rts, W, plane);
   load_state(buf, ssh_s, gs, a.ssh, a.h, a.u, W, a.kc_log2, a.vec_log2, k0, kr, K, plane);
   if (kMasked) load_live(live_s, gs, a.live, W);
+  if (kForced) load_forcing(fsm, gs, a.fc, W, plane, rank);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -136,6 +148,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 
   const T dt_div = a.dt * a.s_div;
   const T pg_scale = T(-kGravity) * a.dt;
+  const T dt_rayl = a.dt * a.fc.rayl;  // the forced arm's Rayleigh factor
   T* const sums = cluster.map_shared_rank(recv, 0) + rank * 2 * core;
   // groups of G = min(16, kc) lanes, one site each, 32 / G sites per warp
   const int g_log2 = min(a.kc_log2, kLanesLog2), G = 1 << g_log2;
@@ -204,6 +217,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
           acc = (x == 0) ? contrib : acc + contrib;
         }
         unew[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
+        if (kForced) unew[ch] = unew[ch] - dt_rayl * u[hex::self_u(ch)];
       }
       if (kMasked && live != kAllLive) {
 #pragma unroll
@@ -225,6 +239,23 @@ __global__ void __launch_bounds__(kStepThreads, 2)
     }
   }
 
+  // the forced arm: the wind and drag at the tile's edges' top and bottom
+  // levels in this block's chunk, added to the stored u'
+  if (kForced && ((a.fc.lvl_ranks >> rank) & 1u)) {
+    __syncthreads();
+    wind_drag_pass<T, kMasked>(
+        buf, tp, fsm, live_s, core,
+        [&](int t) {
+          const int r = by_ct.div(t), c = by_ct.mod(t, r);
+          return tm * a.rt + r < a.ny2 && ti * a.ct + c < a.nx ? (a.hm + r) * Wi + a.hi + c : -1;
+        },
+        [&](int ch, int t, int, int kl) -> T& {
+          const int r = by_ct.div(t), c = by_ct.mod(t, r);
+          return a.u_out[(ch * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl];
+        },
+        W, kc, k0, kr, a.dt, a.fc);
+  }
+
   // ssh' = sum_k h' - rts: rank 0 adds the ranks' partial sums in rank order
   // (the barrier orders the remote stores above before rank 0's reads; no
   // block reads another's shared memory after it, so none waits to leave)
@@ -241,23 +272,27 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   }
 }
 
-template <typename T, bool kMasked>
+template <typename T, bool kMasked, bool kForced>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      fe_step_kernel<T, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  const cudaError_t e = cudaFuncSetAttribute(fe_step_kernel<T, kMasked, kForced>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
 // A window's state chunk, ssh, f_edge, rts and sites, the ranks' partial
 // sums, and the masked arm's live bits, reserved by the periodic arm too so
-// that one plan serves both (kernels/fe_step.smem_bytes mirrors this).
-size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize) {
+// that one plan serves both; the forced arm's winds and packed levels
+// beyond (kernels/fe_step.smem_bytes mirrors this).
+size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize,
+                  bool forced) {
   return step_smem_bytes(sites, kc, 1, kPlanes, itemsize) +
          itemsize * static_cast<size_t>(n_ranks) * 2 * core +
-         sizeof(int) * static_cast<size_t>(sites);
+         sizeof(int) * static_cast<size_t>(sites) +
+         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0);
 }
 
 // The rows and columns one FE step reads per side, from the table (host
@@ -289,9 +324,10 @@ struct FePlan {
 };
 
 template <typename T>
-int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live, const int* table,
-              const double* weights, double dt, double inv_dc, double s_div, int ny2, int nx,
-              int k, int n_steps, int n_terms, int rt, int ct, bool vec) {
+int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live,
+              const ForcingArgs<T>& fc, const int* table, const double* weights, double dt,
+              double inv_dc, double s_div, int ny2, int nx, int k, int n_steps, int n_terms,
+              int rt, int ct, bool vec) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || rt > ny2 || ct > nx) return cudaErrorInvalidValue;
@@ -304,15 +340,28 @@ int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live, con
   if (!resolve_taps<T>(&pl->tp, table, weights, Wi, W, kc)) return kNotHexTable;
   int e = opt_in_smem(&pl->max_smem);
   if (e != 0) return e;
-  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T));
+  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T), fc.wind != nullptr);
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
   pl->a = FeArgs<T>{nullptr, nullptr, nullptr, f_edge, rts, live, nullptr, nullptr, nullptr,
-                    T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, hm, hi,
+                    fc, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, hm, hi,
                     log2_exact(kc),
                     vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
   return 0;
+}
+
+template <typename T, bool kMasked, bool kForced>
+int launch_arm(const FePlan<T>* pl, cudaStream_t stream) {
+  const int err = prepare<T, kMasked, kForced>(pl->max_smem);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg =
+      step_config(pl->n_ranks, pl->n_tiles, pl->smem, stream, attr);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, fe_step_kernel<T, kMasked, kForced>, pl->a, pl->tp);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -320,25 +369,19 @@ int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out,
                 T* u_out, cudaStream_t stream) {
   pl->a.ssh = ssh, pl->a.h = h, pl->a.u = u;
   pl->a.ssh_out = ssh_out, pl->a.h_out = h_out, pl->a.u_out = u_out;
-  const bool masked = pl->a.live != nullptr;
-  const int err = masked ? prepare<T, true>(pl->max_smem) : prepare<T, false>(pl->max_smem);
-  if (err != 0) return err;
-  cudaLaunchAttribute attr[2];
-  const cudaLaunchConfig_t cfg =
-      step_config(pl->n_ranks, pl->n_tiles, pl->smem, stream, attr);
-  const cudaError_t e =
-      masked ? cudaLaunchKernelEx(&cfg, fe_step_kernel<T, true>, pl->a, pl->tp)
-             : cudaLaunchKernelEx(&cfg, fe_step_kernel<T, false>, pl->a, pl->tp);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const bool masked = pl->a.live != nullptr, forced = pl->a.fc.wind != nullptr;
+  return masked ? (forced ? launch_arm<T, true, true>(pl, stream)
+                          : launch_arm<T, true, false>(pl, stream))
+                : (forced ? launch_arm<T, false, true>(pl, stream)
+                          : launch_arm<T, false, false>(pl, stream));
 }
 
 // n_steps steps from `in` into `out`. Step s writes `out` when
 // n_steps - 1 - s is even and `tmp` otherwise, so the last step lands in
 // `out`, no step writes the buffer it reads, and `in` is left as it is.
 template <typename T>
-int fe_steps(const T* f_edge, const T* rts, const int* live, const int* table,
-             const double* weights,
+int fe_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
+             const int* table, const double* weights,
              const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,
              T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,
              int nx, int k, int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
@@ -347,7 +390,7 @@ int fe_steps(const T* f_edge, const T* rts, const int* live, const int* table,
                    vector_loads(k, kc, sizeof(T), h_out, u_out) &&
                    vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, live, table, weights, dt, inv_dc, s_div, ny2, nx,
+  int err = make_plan(&pl, f_edge, rts, live, fc, table, weights, dt, inv_dc, s_div, ny2, nx,
                       k, n_steps, n_terms, rt, ct, vec);
   if (err != 0) return err;
   const T *ssh = ssh_in, *h = h_in, *u = u_in;
@@ -365,12 +408,12 @@ int fe_steps(const T* f_edge, const T* rts, const int* live, const int* table,
 
 // n_steps steps through a stack of states: slot s + 1 = step(slot s).
 template <typename T>
-int fe_stack(const T* f_edge, const T* rts, const int* live, const int* table,
-             const double* weights, T* ssh, T* h, T* u, double dt, double inv_dc,
-             double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,
-             cudaStream_t stream) {
+int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
+             const int* table, const double* weights, T* ssh, T* h, T* u, double dt,
+             double inv_dc, double s_div, int ny2, int nx, int k, int n_steps, int n_terms,
+             int rt, int ct, cudaStream_t stream) {
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, live, table, weights, dt, inv_dc, s_div, ny2, nx,
+  int err = make_plan(&pl, f_edge, rts, live, fc, table, weights, dt, inv_dc, s_div, ny2, nx,
                       k, n_steps, n_terms, rt, ct,
                       vector_loads(k, step_chunk(k), sizeof(T), h, u));
   if (err != 0) return err;
@@ -391,25 +434,33 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const int* table,
 // (cudaErrorInvalidValue for a tile the card does not take). `table` and
 // `weights` are host copies of the stencil; rt x ct is the tile; a null
 // `live` (the wall mask's live bits, one int per site) runs the periodic
-// arm, any other the masked one.
-#define MOT_FE_ENTRIES(T, SUFFIX)                                                           \
-  extern "C" int mot_fe_steps_##SUFFIX(                                                     \
-      const T* f_edge, const T* rts, const int* live, const int* table,                       \
-      const double* weights, const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out,     \
-      T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,         \
-      double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,       \
-      void* stream) {                                                                       \
-    return fe_steps<T>(f_edge, rts, live, table, weights, ssh_in, h_in, u_in, ssh_out,      \
-                       h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,  \
-                       n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));        \
-  }                                                                                         \
-  extern "C" int mot_fe_stack_##SUFFIX(                                                     \
-      const T* f_edge, const T* rts, const int* live, const int* table,                       \
-      const double* weights, T* ssh, T* h, T* u, double dt, double inv_dc, double s_div,    \
-      int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, void* stream) {     \
-    return fe_stack<T>(f_edge, rts, live, table, weights, ssh, h, u, dt, inv_dc, s_div,     \
-                       ny2, nx, k, n_steps, n_terms, rt, ct,                                \
-                       static_cast<cudaStream_t>(stream));                                  \
+// arm, any other the masked one; a null `wind` runs the unforced arm, any
+// other the forced one with `lvl` (the packed levels) and the coefficients.
+#define MOT_FE_ENTRIES(T, SUFFIX)                                                             \
+  extern "C" int mot_fe_steps_##SUFFIX(                                                       \
+      const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
+      const int* table, const double* weights, const T* ssh_in, const T* h_in,                \
+      const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,          \
+      double dt, double inv_dc, double s_div, double dlin, double dquad, double rayl,         \
+      int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms,        \
+      int rt, int ct, void* stream) {                                                         \
+    const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
+                            static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
+    return fe_steps<T>(f_edge, rts, live, fc, table, weights, ssh_in, h_in, u_in, ssh_out,    \
+                       h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,    \
+                       n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));          \
+  }                                                                                           \
+  extern "C" int mot_fe_stack_##SUFFIX(                                                       \
+      const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
+      const int* table, const double* weights, T* ssh, T* h, T* u, double dt,                 \
+      double inv_dc, double s_div, double dlin, double dquad, double rayl, int lvl_ranks,     \
+      int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,       \
+      void* stream) {                                                                         \
+    const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
+                            static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
+    return fe_stack<T>(f_edge, rts, live, fc, table, weights, ssh, h, u, dt, inv_dc, s_div,   \
+                       ny2, nx, k, n_steps, n_terms, rt, ct,                                  \
+                       static_cast<cudaStream_t>(stream));                                    \
   }
 
 MOT_FE_ENTRIES(float, f32)
@@ -469,11 +520,11 @@ extern "C" int mot_fe_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks, in
 extern "C" int mot_fe_plan(const int* table, int ny2, int nx, int k, int rt, int ct, int* out) {
   double weights[kMaxTerms] = {};
   FePlan<float> pl;
-  int e = make_plan<float>(&pl, nullptr, nullptr, nullptr, table, weights, 1.0, 1.0, 1.0, ny2,
-                           nx, k, 1, table[0], rt, ct, true);
+  int e = make_plan<float>(&pl, nullptr, nullptr, nullptr, ForcingArgs<float>{}, table, weights,
+                           1.0, 1.0, 1.0, ny2, nx, k, 1, table[0], rt, ct, true);
   if (e != 0) return e;
-  if ((e = prepare<float, false>(pl.max_smem)) != 0) return e;
+  if ((e = prepare<float, false, false>(pl.max_smem)) != 0) return e;
   out[0] = pl.n_tiles;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], fe_step_kernel<float, false>, kStepThreads, pl.smem));
+      &out[1], fe_step_kernel<float, false, false>, kStepThreads, pl.smem));
 }

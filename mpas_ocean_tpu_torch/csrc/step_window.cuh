@@ -224,6 +224,147 @@ __device__ __forceinline__ void load_live(int* live_s, const int* gs, const int*
   for (int s = threadIdx.x; s < W; s += blockDim.x) copy_async(live_s + s, live + gs[s]);
 }
 
+// The forced arms' operands (kForced, chosen by a non-null wind pointer;
+// structured/fused_model.kernel_forcing): per lattice site and edge channel
+// (6, ny2, nx) the kinematic normal wind stress w = tau.n / rho0 and the
+// edge's packed levels, bits 0-15 the top level + 1 and bits 16-31 the
+// bottom level + 1, 0 for an edge with no active level (fused_model.
+// pack_levels); the drag and Rayleigh coefficients rounded once to T; and
+// two masks of a cluster's ranks (kernels/fe_step.forcing_ranks): bit r of
+// lvl_ranks set where rank r's level chunk holds the top or the bottom level
+// of some edge, of wind_ranks where it holds some edge's top level. The
+// one-hot level masks of the plain version are never staged: two of them per
+// edge would cost twice the bytes of u.
+//
+// How the forced arms use them. Rayleigh, -lambda u, acts at every
+// edge-level and needs no operand: one FMA in the unforced body. The wind
+// and the drag act at an edge's top and bottom level, two levels of K, which
+// one configuration's forcing puts in few chunks (make_forcing's uniform
+// levels: the first and the last). Only a rank in lvl_ranks stages the
+// window's packed levels (and in wind_ranks its winds) by cp.async with the
+// state, and it adds the wind and drag in a pass of its own over the edges,
+// a thread an edge (wind_drag_pass), not in the body, whose threads are
+// levels: most levels are no edge's top or bottom, yet every warp of the
+// body would have tested its 6 (or, reversed, 12) edges at every level. The
+// forced arms take their shared memory beyond the unforced layout's.
+// Measured designs (PERF.md, section 6): staging every rank and testing every
+// level in the body cost fe_step x1.17-1.18 and the reverse arms x1.8-2.2;
+// reading the operands from device memory, x1.32-1.59 and x1.72-2.32.
+template <typename T>
+struct ForcingArgs {
+  const T* wind;   // null: the unforced arm
+  const int* lvl;
+  T dlin, dquad, rayl;
+  unsigned lvl_ranks, wind_ranks;
+};
+
+// The forced arm's shared memory beyond the unforced layout, which starts
+// at `end`: 16-byte aligned, the winds [6][W] and `extra` more values of T,
+// then the packed levels [6][W]; what forcing_smem_bytes reckons.
+template <typename T>
+struct ForcingSmem {
+  T* wind;
+  T* extra;
+  int* lvl;
+  __device__ ForcingSmem(void* end, int W, int extra_values) {
+    const uintptr_t at = (reinterpret_cast<uintptr_t>(end) + 15) & ~static_cast<uintptr_t>(15);
+    wind = reinterpret_cast<T*>(at);
+    extra = wind + 6 * W;
+    lvl = reinterpret_cast<int*>(extra + extra_values);
+  }
+};
+inline size_t forcing_smem_bytes(long long sites, long long extra_values, size_t itemsize) {
+  return 16 + itemsize * static_cast<size_t>(6 * sites + extra_values) +
+         sizeof(int) * static_cast<size_t>(6 * sites);
+}
+
+// The staged planes of a forced block: its window's packed levels [6][W] if
+// its rank is in lvl_ranks, its winds [6][W] if in wind_ranks, by async
+// copies with the window (needs gs[]).
+template <typename T>
+__device__ __forceinline__ void load_forcing(const ForcingSmem<T>& fs, const int* gs,
+                                             const ForcingArgs<T>& fc, int W, int plane,
+                                             int rank) {
+  const bool lvl = (fc.lvl_ranks >> rank) & 1u, wind = (fc.wind_ranks >> rank) & 1u;
+  if (!lvl) return;
+  for (int s = threadIdx.x; s < W; s += blockDim.x) {
+    const int g = gs[s];
+    for (int c6 = 0; c6 < 6; ++c6) {
+      copy_async(fs.lvl + c6 * W + s, fc.lvl + c6 * plane + g);
+      if (wind) copy_async(fs.wind + c6 * W + s, fc.wind + c6 * plane + g);
+    }
+  }
+}
+
+// Whether level k is the top (wind) or the bottom (drag) level of an edge
+// whose packed levels are lv.
+__device__ __forceinline__ bool top_level(int lv, int k) { return (lv & 0xffff) == k + 1; }
+__device__ __forceinline__ bool bottom_level(int lv, int k) { return (lv >> 16) == k + 1; }
+
+// The chunk levels (from k0, kr of them) of an edge's top and bottom level,
+// -1 where outside the chunk; the bottom's -1 too where it is the top.
+__device__ __forceinline__ void chunk_levels(int lv, int k0, int kr, int* top, int* bot) {
+  const int t = (lv & 0xffff) - 1 - k0, b = (lv >> 16) - 1 - k0;  // -1 - k0: none
+  *top = t >= 0 && t < kr ? t : -1;
+  *bot = b >= 0 && b < kr && b != t ? b : -1;
+}
+
+// 1 / h_edge, 1 where h_edge <= 0 (a dead slot; its masks are 0 there):
+// the one reciprocal the wind and the quadratic drag share.
+template <typename T>
+__device__ __forceinline__ T inv_edge(T he) {
+  return T(1) / (he > T(0) ? he : T(1));
+}
+
+// The wind and drag part of the forcing tendency F of one edge-level
+// (models/forcing.py: forcing_tendency, term by term, without Rayleigh):
+// top w / he - bot (r u + Cd |u| u / he), of the old u and the old state's
+// h_edge; 0 away from the edge's top and bottom level. lv is the edge's
+// packed levels, w its staged wind.
+template <typename T>
+__device__ __forceinline__ T wind_drag(T u, T he, int lv, int k, const T* w,
+                                       const ForcingArgs<T>& fc) {
+  T t = T(0);
+  const bool top = top_level(lv, k), bot = bottom_level(lv, k);
+  if (top || bot) {
+    const T inv_h = inv_edge(he);
+    if (top) t = *w * inv_h;
+    if (bot) t = t - (fc.dlin * u + fc.dquad * fabs(u) * u * inv_h);
+  }
+  return t;
+}
+
+// The forward forced arms' wind and drag pass, after the body has stored u'
+// (with Rayleigh, masked) on a region of n window sites: a thread takes an
+// (edge channel, site) and, at the edge's top and bottom level where they lie
+// in the block's chunk, adds dt times the wind and drag of the old state
+// (`old`, [8][W][kc], read through the taps `tp`) to the stored u', which
+// `out(ch, t, s, kl)` returns (a reference). `site(t)` gives the window site
+// of region site t, or -1 off the lattice; masked channels keep their 0.
+template <typename T, bool kMasked, typename Site, typename Out>
+__device__ __forceinline__ void wind_drag_pass(const T* old, const StepTaps<T>& tp,
+                                               const ForcingSmem<T>& fs, const int* live_s,
+                                               int n, Site site, Out out, int W, int kc,
+                                               int k0, int kr, T dt, const ForcingArgs<T>& fc) {
+  for (int e = threadIdx.x; e < 6 * n; e += blockDim.x) {
+    const int ch = e / n, t = e - ch * n;
+    const int s = site(t);
+    if (s < 0 || (kMasked && !((live_s[s] >> ch) & 1u))) continue;
+    const int lv = fs.lvl[ch * W + s];
+    int lev[2];
+    chunk_levels(lv, k0, kr, &lev[0], &lev[1]);
+    for (int i = 0; i < 2; ++i) {
+      const int kl = lev[i];
+      if (kl < 0) continue;
+      const T* v = old + s * kc + kl;
+      const T he = T(0.5) * (v[tp.hs[hex::nb_h(ch)]] + v[tp.hs[hex::self_h(ch & 1)]]);
+      T& o = out(ch, t, s, kl);
+      o = o + dt * wind_drag(v[tp.us[hex::self_u(ch)]], he, lv, k0 + kl, fs.wind + ch * W + s,
+                             fc);
+    }
+  }
+}
+
 // This block's level chunk of h and u over the window, and ssh. With
 // vec_log2 >= 0 (K * itemsize, the chunk and the pointers 16-byte aligned) each
 // (site, plane) chunk moves as 2^vec_log2 16-byte vectors, neighbouring

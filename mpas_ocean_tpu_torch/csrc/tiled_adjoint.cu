@@ -3,10 +3,11 @@
 // NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_adjoint_kernel (mpas_ocean_tpu/structured/pallas_model.py:
-// 1979), the arms with nl_terms, tracers, cell masks, stratification and
-// forcing off (fb=False is fixed there), periodic (masks off) and masked (a
-// coastal channel: the vjp of _window_steps with masks_full, :2001-2006,
-// 2063). The TPU kernel traces jax.vjp of
+// 1979), the arms with nl_terms, tracers, cell masks and stratification off
+// (fb=False is fixed there), periodic (masks off) and masked (a coastal
+// channel: the vjp of _window_steps with masks_full, :2001-2006, 2063),
+// unforced and forced (the wind and level-index windows, whose cotangents
+// d(wind) and dscal[3:6] it returns, :2938-2941). The TPU kernel traces jax.vjp of
 // _window_steps in-kernel and emits the cotangent of the whole padded window,
 // which its caller overlap-adds (_halo_unscatter). CUDA has no vjp, so the
 // transpose is written out by hand, as in adjoint_step.cu; and it is taken in
@@ -66,6 +67,18 @@
 // u' = 0 on masked channels as tiled_step.cu does, and each reverse step
 // stores its cotangent's gu so folded for the next step to read.
 //
+// The forced arm (kForced, chosen by a non-null wind; the unforced arm keeps
+// its code) forces the recompute's steps as tiled_step.cu does and
+// transposes dt F in every reverse step as adjoint_step.cu does, on R_j's
+// sites; the ranks whose chunk holds some edge's top or bottom level stage
+// the window's winds and packed levels and run the wind and drag terms in
+// passes over the edges and cells (step_window.cuh, wind_drag_pass;
+// adjoint_window.cuh, wind_drag_adjoint_pass and dh_pass). Of the cotangents of the forcing's
+// inputs a tile adds its core's only: d(wind) at its core edges' top levels,
+// in place over its q steps (one block owns each edge's top level; the
+// steps are apart by barriers), and its blocks' shares of d(r_lin), d(Cd)
+// and d(lambda) in double beside d(dt).
+//
 // What bounds it: a reverse step reads the primal state and the end
 // cotangent and writes the start cotangent, three state passes, 94 us at
 // 256x256x100 f32 at 3.35 TB/s, plus the halo re-reads. Measured (f32,
@@ -93,9 +106,13 @@ struct TiledArgs {
   T* ds;  // cotangent at its start
   T* dh;
   T* du;
-  double* ddt_part;  // one share per block: (tile, rank)
+  double* ddt_part;  // one share per block: (tile, rank); the forced arm's
+                     // three more kinds n_shares apart
+  ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
+  T* dwind;           // the forced arm's d(wind) (6, ny2, nx), added to
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc, kp_log2, vec_log2, n_tiles_i;
+  long long n_shares;
 };
 
 // Per-window-site planes besides the level chunks: f_edge [6], gs [2], and
@@ -108,13 +125,15 @@ inline int site_planes(int q) { return 8 + 2 * q + (q > 1 ? 6 : 0); }
 // chunk (two at q > 1) [8][sites][kc]; the per-site planes; the ranks'
 // partial sums of the core for rank 0 [n_ranks][2][core]; the sites and
 // the masked arm's live bits, reserved by the periodic arm too so that one
-// plan serves both.
-size_t smem_bytes(long long sites, int core, int kc, int q, int n_ranks, size_t itemsize) {
+// plan serves both; the forced arm's winds and packed levels beyond.
+size_t smem_bytes(long long sites, int core, int kc, int q, int n_ranks, size_t itemsize,
+                  bool forced) {
   const size_t chunks = 8 * static_cast<size_t>(q + (q > 1 ? 2 : 1)) * kc;
   return sizeof(double) * kRedDoubles +
          itemsize * (static_cast<size_t>(sites) * (chunks + site_planes(q)) +
                      static_cast<size_t>(n_ranks) * 2 * core) +
-         sizeof(int) * static_cast<size_t>(sites) * 2;  // sites, live bits
+         sizeof(int) * static_cast<size_t>(sites) * 2 +  // sites, live bits
+         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0);
 }
 
 // Sum over the `width` lanes of a group (a power of two <= 32) in lane
@@ -163,8 +182,8 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster, T* part, T* d
 
 // kMulti: q > 1. The q = 1 instantiation compiles without the recompute and
 // the exchanges between steps, which cost one body for all q 11% at q = 1
-// (PERF.md). kMasked: the masked arm.
-template <typename T, bool kMulti, bool kMasked>
+// (PERF.md). kMasked: the masked arm. kForced: the forced arm.
+template <typename T, bool kMulti, bool kMasked, bool kForced>
 __global__ void __launch_bounds__(kStepThreads, 2)
     tiled_adjoint_kernel(const TiledArgs<T> a, const AdjTaps<T> tp, const StepTaps<T> fw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -193,6 +212,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* recv = part + (kMulti ? 4 * W : 0);              // [n_ranks][2][core]: rank 0's
   int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gsite + W;                            // [W]: the masked arm's live bits
+  const ForcingSmem<T> fsm(live_s + W, W, 0);        // the forced arm's winds and levels
 
   cluster_arrive_relaxed();
   allow_next_grid();
@@ -210,6 +230,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   load_chunk(cot, gs_s, gsite, a.gs, a.gh, a.gu, W, kc, a.kp_log2, a.vec_log2, k0, kr, K,
              plane);
   if (kMasked) load_live(live_s, gsite, a.live, W);
+  if (kForced) load_forcing(fsm, gsite, a.fc, W, plane, rank);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -222,6 +243,10 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   const T grav = T(kGravity);
   const T pg_scale = -grav * a.dt;
   const T ds_scale = grav * a.dt * a.inv_dc;
+  const T dt_rayl = a.dt * a.fc.rayl;  // the forced arm's Rayleigh factor
+  // the forced arm: whether this block's chunk holds some edge's top or
+  // bottom level (then its window's levels are staged and its passes run)
+  const bool wd = kForced && ((a.fc.lvl_ranks >> rank) & 1u);
   // groups of G = min(16, 2^kp_log2) lanes, one site each, 32 / G sites per warp
   const int g_log2 = min(a.kp_log2, kLanesLog2), G = 1 << g_log2;
   const int lane = threadIdx.x & (G - 1), sub = (threadIdx.x & 31) >> g_log2;
@@ -289,6 +314,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
             acc = (x == 0) ? contrib : acc + contrib;
           }
           unew[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
+          if (kForced) unew[ch] = unew[ch] - dt_rayl * u[hex::self_u(ch)];
         }
         if (kMasked && live != kAllLive) {
 #pragma unroll
@@ -310,12 +336,28 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       }
     }
     gather(cluster, sums, ssh_s + (j + 1) * 2 * W, rts_s, T(1), rg, W, Wi, n_ranks);
+    if (kForced && wd) {
+      // the wind and drag at the step's edges' top and bottom levels in this
+      // block's chunk, added to the stored u'
+      wind_drag_pass<T, kMasked>(
+          cur, fw, fsm, live_s, rg.n,
+          [&](int t) {
+            const int r = by_nc.div(t);
+            return (rg.r0 + r) * Wi + rg.c0 + by_nc.mod(t, r);
+          },
+          [&](int ch, int, int s, int kl) -> T& { return nxt[(2 + ch) * pk + s * kc + kl]; },
+          W, kc, k0, kr, a.dt, a.fc);
+      __syncthreads();
+    }
   }
 
   // the reverse steps j = q - 1 .. 0: the cotangent on R_j from the one on
   // R_{j+1}; step 0 writes the core (R_0) into the output buffers
   const int core_r = a.hm * span, core_c = a.hi * span;
   double share = 0.0;
+  // the forced arm's sums over the core's edges, in double, of gu u
+  // (Rayleigh) and of the d(r_lin) and d(Cd) shares
+  double s_rayl = 0.0, s_lin = 0.0, s_quad = 0.0;
   for (int j = q - 1; j >= 0; --j, ++xchg) {
     const T* P = prim + j * 8 * pk;  // primal state j
     const T* ssh_p = ssh_s + j * 2 * W;
@@ -325,6 +367,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
     const FastDiv by_nc(rg.nc);
     T* sums = j > 0 ? part + (xchg & 1) * 2 * W
                     : cluster.map_shared_rank(recv, 0) + rank * 2 * core;
+
     for (int b = warp_base; b < rg.n; b += site_stride) {
       const int t = b + sub;
       const int tt = t < rg.n ? t : b;
@@ -357,7 +400,9 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 #pragma unroll
         for (int x = 0; x < hex_adj::kU; ++x) u[x] = Pl[tp.us[x]];
         T dh[2], du[6], S[2];
-        T dd = T(0);
+        // d(dt)'s terms: in T, or in double for the forced arm
+        std::conditional_t<kForced, double, T> dd = 0;
+        double rayl = 0.0;
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
           const T Gc = Gv[hex::self_h(p)], hc = h[hex::self_h(p)];
@@ -378,6 +423,10 @@ __global__ void __launch_bounds__(kStepThreads, 2)
             const T fct = fo[ch] * ctr;
             const T gue = gu[hex::self_u(ch)], ue = u[hex::self_u(ch)];
             du[ch] = gue + he * gflux + a.dt * fct;
+            if (kForced) {
+              du[ch] = du[ch] - dt_rayl * gue;
+              rayl = fma(static_cast<double>(gue), static_cast<double>(ue), rayl);
+            }
             flux += ue * gflux;
             dd += ue * (a.s_div * dG * he + fct) - grav * grad[ch] * gue;
           }
@@ -410,7 +459,12 @@ __global__ void __launch_bounds__(kStepThreads, 2)
         }
         acc0 += S[0];
         acc1 += S[1];
-        if (in_core) share += static_cast<double>(dd);
+        if (in_core) {
+          share += static_cast<double>(dd);
+          if (kForced) {
+            s_rayl += rayl;
+          }
+        }
       }
       acc0 = group_sum(acc0, G);
       acc1 = group_sum(acc1, G);
@@ -421,6 +475,40 @@ __global__ void __launch_bounds__(kStepThreads, 2)
         sums[off + x] = acc1;
       }
     }
+    if (kForced && wd) {
+      // the wind and drag at R_j's owned edges' top and bottom levels in this
+      // block's chunk: added to the stored du and, on the core, d(wind) and
+      // the shares; then the h cotangent at R_j's cells' top and bottom levels
+      // R_j's window sites, and a core site's lattice site
+      const auto region_site = [&](int t) {
+        const int r = by_nc.div(t);
+        return (rg.r0 + r) * Wi + rg.c0 + by_nc.mod(t, r);
+      };
+      const auto core_site = [&](int t) {
+        const int r = by_nc.div(t), c = by_nc.mod(t, r);
+        return (tm * a.rt + rg.r0 + r - core_r) * a.nx + ti * a.ct + rg.c0 + c - core_c;
+      };
+      wind_drag_adjoint_pass(
+          P, Cb, tp, fsm, rg.n, region_site,
+          [&](int t) {
+            const int r = by_nc.div(t), c = by_nc.mod(t, r);
+            const int wr = rg.r0 + r, wc = rg.c0 + c;
+            return wr >= core_r && wr < core_r + a.rt && wc >= core_c && wc < core_c + a.ct;
+          },
+          [&](int ch, int t, int s, int kl) -> T& {
+            return j > 0 ? Cn[(2 + ch) * pk + s * kc + kl]
+                         : a.du[(ch * plane + core_site(t)) * K + k0 + kl];
+          },
+          [&](int ch, int t) { return a.dwind + ch * plane + core_site(t); },
+          W, kc, k0, kr, a.dt, a.fc, &share, &s_lin, &s_quad);
+      dh_pass(P, Cb, tp, fsm, rg.n, region_site,
+              [&](int p, int t, int s, int kl) -> T& {
+                return j > 0 ? Cn[p * pk + s * kc + kl]
+                             : a.dh[(p * plane + core_site(t)) * K + k0 + kl];
+              },
+              W, kc, k0, kr, a.dt, dt_div, a.fc);
+      __syncthreads();
+    }
     if (kMulti && j > 0) {
       // gs of cotangent j on R_j, then folded into its gh (G)
       gather(cluster, sums, gs_s, static_cast<const T*>(nullptr), ds_scale, rg, W, Wi,
@@ -429,14 +517,19 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       __syncthreads();
     }
   }
+  // the forced arm's Rayleigh part of d(dt), -lambda sum gu u
+  if (kForced) share -= static_cast<double>(a.fc.rayl) * s_rayl;
   share_warps(share, red);
 
   // ds on the core: rank 0 adds the ranks' partial sums in rank order (the
   // barrier orders the remote stores above, and every block's gathers,
   // before it; no block reads another's shared memory after it, so none
-  // waits to leave); each block's d(dt) share
+  // waits to leave); each block's d(dt) share, and the forced arm's three more
   cluster.sync();
   if (threadIdx.x == 0) a.ddt_part[blockIdx.x] = share_total(red);
+  if (kForced)
+    write_forcing_shares(red, a.ddt_part + blockIdx.x, a.n_shares, s_lin, s_quad, s_rayl,
+                         static_cast<double>(a.dt));
   if (rank != 0) return;
   const FastDiv by_ct(a.ct);
   for (int e = threadIdx.x; e < 2 * core; e += blockDim.x) {
@@ -450,43 +543,50 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 
 // The kernel's attribute, set once per instantiation: dynamic shared memory
 // up to the device's opt-in limit.
-template <typename T, bool kMulti, bool kMasked>
+template <typename T, bool kMulti, bool kMasked, bool kForced>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
   const cudaError_t e =
-      cudaFuncSetAttribute(tiled_adjoint_kernel<T, kMulti, kMasked>,
+      cudaFuncSetAttribute(tiled_adjoint_kernel<T, kMulti, kMasked, kForced>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
-// The kernel of a plan: q > 1 or not, masked or not.
+// The kernel of a plan, and its attribute: q > 1 or not, masked or not,
+// forced or not.
 template <typename T>
 using TiledKernel = void (*)(TiledArgs<T>, AdjTaps<T>, StepTaps<T>);
 template <typename T>
-TiledKernel<T> kernel_of(bool multi, bool masked) {
-  return multi ? (masked ? tiled_adjoint_kernel<T, true, true>
-                         : tiled_adjoint_kernel<T, true, false>)
-               : (masked ? tiled_adjoint_kernel<T, false, true>
-                         : tiled_adjoint_kernel<T, false, false>);
+struct TiledArm {
+  TiledKernel<T> kernel;
+  int (*prepare)(int);
+};
+template <typename T, bool kMulti, bool kMasked, bool kForced>
+constexpr TiledArm<T> arm() {
+  return {tiled_adjoint_kernel<T, kMulti, kMasked, kForced>, prepare<T, kMulti, kMasked, kForced>};
 }
 template <typename T>
-int prepare_of(bool multi, bool masked, int max_smem) {
-  return multi ? (masked ? prepare<T, true, true>(max_smem) : prepare<T, true, false>(max_smem))
-               : (masked ? prepare<T, false, true>(max_smem)
-                         : prepare<T, false, false>(max_smem));
+TiledArm<T> arm_of(bool multi, bool masked, bool forced) {
+  if (multi)
+    return masked ? (forced ? arm<T, true, true, true>() : arm<T, true, true, false>())
+                  : (forced ? arm<T, true, false, true>() : arm<T, true, false, false>());
+  return masked ? (forced ? arm<T, false, true, true>() : arm<T, false, true, false>())
+                : (forced ? arm<T, false, false, true>() : arm<T, false, false, false>());
 }
 
 // n_ss reverse supersteps through the stack's slots n_ss - 1 .. 0, from the
 // cotangent `g_in` at the end into `g_out`, through `g_tmp` as in
 // tiled_step.cu (`g_in` is left as it is). `part` holds
-// n_ss * n_tiles * n_ranks doubles; d(dt) is added to ddt[0]. The stencils
-// (`table`, `weights` and their transposes) are host copies; kc is the
-// chunk of levels per block (kernels/tiled_adjoint.level_split).
+// n_ss * n_tiles * n_ranks doubles (kShares times as many for the forced
+// arm); d(dt) is added to ddt[0], and the forced arm's d(wind) to dwind and
+// d(r_lin, Cd, lambda) to dcoef[0 .. 2]. The stencils (`table`, `weights`
+// and their transposes) are host copies; kc is the chunk of levels per
+// block (kernels/tiled_adjoint.level_split).
 template <typename T>
-int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const int* table,
-                  const double* weights,
+int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
+                  T* dwind, double* dcoef, const int* table, const double* weights,
                   const int* adj_table, const double* adj_weights, const T* ssh_st,
                   const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                   const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
@@ -507,14 +607,14 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const int* tab
   if (!resolve_taps<T>(&fw, table, weights, Wi, W, kc) ||
       !resolve_adjoint_taps<T>(&tp, adj_table, adj_weights, Wi, W, kc))
     return kNotHexTable;
-  const bool masked = live != nullptr;
-  const size_t smem = smem_bytes(W, rt * ct, kc, q, n_ranks, sizeof(T));
+  const bool forced = fc.wind != nullptr;
+  const size_t smem = smem_bytes(W, rt * ct, kc, q, n_ranks, sizeof(T), forced);
   int max_smem = 0;
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  if ((err = prepare_of<T>(q > 1, masked, max_smem)) != 0) return err;
-  const TiledKernel<T> kernel = kernel_of<T>(q > 1, masked);
+  const TiledArm<T> arm = arm_of<T>(q > 1, live != nullptr, forced);
+  if ((err = arm.prepare(max_smem)) != 0) return err;
   const int kp_log2 = log2_exact(kc);
   const bool vec = (1 << kp_log2) == kc && vector_loads(k, kc, sizeof(T), h_st, u_st) &&
                    vector_loads(k, kc, sizeof(T), gh_in, gu_in) &&
@@ -523,10 +623,12 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const int* tab
   const int n_tiles = (ny2 / rt) * (nx / ct);
   const size_t cells = 2ULL * ny2 * nx;
   const size_t hs = cells * k, us = 3 * cells * k;
+  const long long n_shares = static_cast<long long>(n_ss) * n_tiles * n_ranks;
   TiledArgs<T> a{nullptr, nullptr, nullptr, gs_in, gh_in, gu_in, f_edge, rts, live, nullptr,
-                 nullptr, nullptr, nullptr, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct,
-                 q, hm, hi, kc, kp_log2,
-                 vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct};
+                 nullptr, nullptr, nullptr, fc, dwind, T(dt), T(inv_dc), T(s_div), ny2, nx, k,
+                 rt, ct, q, hm, hi, kc, kp_log2,
+                 vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct,
+                 n_shares};
   for (int s = 0; s < n_ss; ++s) {
     const size_t j = n_ss - 1 - s;
     const bool to_out = ((n_ss - 1 - s) & 1) == 0;
@@ -537,12 +639,12 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const int* tab
     a.ddt_part = part + static_cast<size_t>(s) * n_tiles * n_ranks;
     cudaLaunchAttribute attr[2];
     const cudaLaunchConfig_t cfg = step_config(n_ranks, n_tiles, smem, stream, attr);
-    cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, a, tp, fw);
+    cudaError_t le = cudaLaunchKernelEx(&cfg, arm.kernel, a, tp, fw);
     if (le == cudaSuccess) le = cudaGetLastError();
     if (le != cudaSuccess) return static_cast<int>(le);
     a.gs = a.ds, a.gh = a.dh, a.gu = a.du;
   }
-  return reduce_ddt(part, static_cast<long long>(n_ss) * n_tiles * n_ranks, ddt, stream);
+  return reduce_shares(part, n_shares, ddt, forced ? dcoef : nullptr, stream);
 }
 
 }  // namespace
@@ -551,20 +653,26 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const int* tab
 // the CUDA error of the first launch that failed (cudaErrorInvalidValue for
 // a plan the lattice or the card does not take). A null `live` (the wall
 // mask's live bits, one int per site) runs the periodic arm, any other the
-// masked one.
-#define MOT_TILED_ADJOINT_ENTRY(T, SUFFIX)                                                  \
-  extern "C" int mot_tiled_adjoint_##SUFFIX(                                                \
-      const T* f_edge, const T* rts, const int* live, const int* table, const double* weights,\
-      const int* adj_table, const double* adj_weights, const T* ssh_st, const T* h_st,      \
-      const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in, T* gs_out, T* gh_out,  \
-      T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part, double* ddt, double dt,     \
-      double inv_dc, double s_div, int ny2, int nx, int k, int n_ss, int n_terms, int rt,   \
-      int ct, int q, int hm, int hi, int kc, void* stream) {                                \
-    return tiled_adjoint<T>(f_edge, rts, live, table, weights, adj_table, adj_weights,      \
-                            ssh_st, h_st, u_st, gs_in, gh_in, gu_in, gs_out, gh_out, gu_out, \
-                            gs_tmp, gh_tmp, gu_tmp, part, ddt, dt, inv_dc, s_div, ny2, nx,  \
-                            k, n_ss, n_terms, rt, ct, q, hm, hi, kc,                        \
-                            static_cast<cudaStream_t>(stream));                             \
+// masked one; a null `wind` the unforced arm, any other the forced one with
+// `lvl`, the coefficients, and the accumulators `dwind` (6, ny2, nx) and
+// `dcoef` (3 doubles).
+#define MOT_TILED_ADJOINT_ENTRY(T, SUFFIX)                                                    \
+  extern "C" int mot_tiled_adjoint_##SUFFIX(                                                  \
+      const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
+      T* dwind, double* dcoef, const int* table, const double* weights,                       \
+      const int* adj_table, const double* adj_weights, const T* ssh_st, const T* h_st,        \
+      const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in, T* gs_out, T* gh_out,    \
+      T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part, double* ddt, double dt,       \
+      double inv_dc, double s_div, double dlin, double dquad, double rayl, int lvl_ranks,     \
+      int wind_ranks, int ny2, int nx, int k, int n_ss, int n_terms, int rt, int ct, int q,   \
+      int hm, int hi, int kc, void* stream) {                                                 \
+    const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
+                            static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
+    return tiled_adjoint<T>(f_edge, rts, live, fc, dwind, dcoef, table, weights, adj_table,   \
+                            adj_weights, ssh_st, h_st, u_st, gs_in, gh_in, gu_in, gs_out,     \
+                            gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part, ddt, dt, inv_dc,    \
+                            s_div, ny2, nx, k, n_ss, n_terms, rt, ct, q, hm, hi, kc,          \
+                            static_cast<cudaStream_t>(stream));                               \
   }
 
 MOT_TILED_ADJOINT_ENTRY(float, f32)
@@ -577,12 +685,13 @@ extern "C" int mot_tiled_adjoint_occupancy(int rt, int ct, int q, int hm, int hi
                                            int n_ranks, int* out) {
   const int span = 2 * q - 1;
   const long long sites = static_cast<long long>(rt + 2 * hm * span) * (ct + 2 * hi * span);
-  const size_t smem = smem_bytes(sites, rt * ct, kc, q, n_ranks, sizeof(float));
+  const size_t smem = smem_bytes(sites, rt * ct, kc, q, n_ranks, sizeof(float), false);
   int max_smem = 0;
+  const TiledArm<float> arm = arm_of<float>(q > 1, false, false);
   int e = opt_in_smem(&max_smem);
-  if (e == 0) e = prepare_of<float>(q > 1, false, max_smem);
+  if (e == 0) e = arm.prepare(max_smem);
   if (e != 0) return e;
   out[0] = static_cast<int>(smem);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], kernel_of<float>(q > 1, false), kStepThreads, smem));
+      &out[1], arm.kernel, kStepThreads, smem));
 }

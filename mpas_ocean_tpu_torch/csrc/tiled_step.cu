@@ -3,10 +3,11 @@
 // for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_step_kernel (mpas_ocean_tpu/structured/pallas_model.py:852),
-// the arms with forcing, tracers, cell masks, stratification and the
-// nonlinear terms off, halos read from the state, periodic (masks off) and
-// masked (a coastal channel culled from a periodic lattice: the mask operands
-// of :875-877, 1287-1288, windowed as f_edge). One launch advances the whole
+// the arms with tracers, cell masks, stratification and the nonlinear terms
+// off, halos read from the state, periodic (masks off) and masked (a coastal
+// channel culled from a periodic lattice: the mask operands of :875-877,
+// 1287-1288, windowed as f_edge), unforced and forced (the wind and the
+// level-index operands). One launch advances the whole
 // lattice by q steps of _window_steps (:802); the exported entry loops
 // n_steps / q launches on the caller's stream.
 //
@@ -71,6 +72,16 @@
 // on masked channels, at every step of the window: FB takes h first with the
 // old u, then u with the fresh ssh, and the mask last (pallas_model.py:
 // 148-153, 257-259).
+//
+// The forced arm (kForced, chosen by a non-null wind; the unforced arm keeps
+// its code), at every step of the window, adds dt F of the old u and the old
+// h_edge to u' after the base update and before the wall mask (_step_slab's
+// order, FE and FB alike: the forcing reads the old state even where FB's
+// pressure gradient reads the fresh ssh): Rayleigh at every edge-level in the
+// body, then the wind and drag at an edge's top and bottom level only, where
+// alone the old h of the step's window copy is read and 1 / h_edge formed,
+// in a pass of the ranks whose chunk holds such levels over the step's edges
+// (step_window.cuh, ForcingArgs, wind_drag_pass).
 
 #include "nl_step.cuh"
 
@@ -91,13 +102,14 @@ struct StepArgs {
   T* ssh_out;
   T* h_out;
   T* u_out;
+  ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc_log2, vec_log2, n_tiles_i;
 };
 
 // Each distinct u and h value of a (site, level) is loaded once and each
 // u * f product formed once (step_window.cuh, hex::).
-template <typename T, bool FB, bool kMasked>
+template <typename T, bool FB, bool kMasked, bool kForced>
 __global__ void __launch_bounds__(kStepThreads, 2)
     tiled_step_kernel(const StepArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -119,6 +131,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* rts_s = f_s + 6 * W;                    // [2][W]
   int* gs = reinterpret_cast<int*>(rts_s + 2 * W);  // [W]: lattice site
   int* live_s = gs + W;                              // [W]: the masked arm's live bits
+  const ForcingSmem<T> fsm(live_s + W, W, 0);        // the forced arm's winds and levels
 
   allow_next_grid();
   const int m_base = tm * a.rt - a.hm * a.q, i_base = ti * a.ct - a.hi * a.q;
@@ -128,12 +141,17 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   load_consts(f_s, rts_s, gs, a.f_edge, a.rts, W, plane);
   load_state(buf, ssh_s, gs, a.ssh, a.h, a.u, W, a.kc_log2, a.vec_log2, k0, kr, K, plane);
   if (kMasked) load_live(live_s, gs, a.live, W);
+  if (kForced) load_forcing(fsm, gs, a.fc, W, plane, rank);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
 
   const T dt_div = a.dt * a.s_div;
   const T pg_scale = T(-kGravity) * a.dt;
+  const T dt_rayl = a.dt * a.fc.rayl;  // the forced arm's Rayleigh factor
+  // the forced arm: whether this block's chunk holds some edge's top or
+  // bottom level (then its window's levels are staged and its pass runs)
+  const bool wd = kForced && ((a.fc.lvl_ranks >> rank) & 1u);
   // groups of G = min(16, kc) lanes, one site each, 32 / G sites per warp
   const int g_log2 = min(a.kc_log2, kLanesLog2), G = 1 << g_log2;
   const int lane = threadIdx.x & (G - 1), sub = (threadIdx.x & 31) >> g_log2;
@@ -270,6 +288,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
             acc = (x == 0) ? contrib : acc + contrib;
           }
           v[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
+          if (kForced) v[ch] = v[ch] - dt_rayl * u[hex::self_u(ch)];
         }
         if (kMasked && live != kAllLive) {
 #pragma unroll
@@ -286,6 +305,23 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       }
     }
     __syncthreads();
+    if (kForced && wd) {
+      // the wind and drag at the step's edges' top and bottom levels in this
+      // block's chunk, added to the stored u'
+      wind_drag_pass<T, kMasked>(
+          cur, tp, fsm, live_s, un,
+          [&](int t) {
+            const int r = by_unc.div(t);
+            return (ur0 + r) * Wi + uc0 + by_unc.mod(t, r);
+          },
+          [&](int ch, int t, int s, int kl) -> T& {
+            if (!last) return nxt[(2 + ch) * pk + s * kc + kl];
+            const int r = by_unc.div(t), c = by_unc.mod(t, r);
+            return a.u_out[(ch * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl];
+          },
+          W, kc, k0, kr, a.dt, a.fc);
+      __syncthreads();
+    }
   }
 
   // the tile's ssh, from rank 0
@@ -304,36 +340,38 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   cluster.sync();
 }
 
-template <typename T, bool FB, bool kMasked>
+template <typename T, bool FB, bool kMasked, bool kForced>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(tiled_step_kernel<T, FB, kMasked>,
+  const cudaError_t e = cudaFuncSetAttribute(tiled_step_kernel<T, FB, kMasked, kForced>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
-template <typename T, bool FB, bool kMasked>
+template <typename T, bool FB, bool kMasked, bool kForced>
 int launch(const StepArgs<T>& a, const StepTaps<T>& tp, int n_ranks, int n_tiles, size_t smem,
            cudaStream_t stream) {
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = step_config(n_ranks, n_tiles, smem, stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB, kMasked>, a, tp);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB, kMasked, kForced>, a, tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The window and, reserved by the periodic arm too so that one plan serves
-// both, the masked arm's live bits (kernels/tiled_step.smem_bytes mirrors
-// this).
-size_t smem_bytes(long long sites, int kc, int q, size_t itemsize) {
+// both, the masked arm's live bits; the forced arm's winds and packed levels
+// beyond (kernels/tiled_step.smem_bytes mirrors this).
+size_t smem_bytes(long long sites, int kc, int q, size_t itemsize, bool forced) {
   return step_smem_bytes(sites, kc, q > 1 ? 2 : 1, kPlanes, itemsize) +
-         sizeof(int) * static_cast<size_t>(sites);
+         sizeof(int) * static_cast<size_t>(sites) +
+         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0);
 }
 
-template <typename T, bool FB, bool kMasked>
+template <typename T, bool FB, bool kMasked, bool kForced>
 int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_tiles,
         int n_steps, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,
         cudaStream_t stream) {
@@ -341,14 +379,15 @@ int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_ti
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  if ((err = prepare<T, FB, kMasked>(max_smem)) != 0) return err;
+  if ((err = prepare<T, FB, kMasked, kForced>(max_smem)) != 0) return err;
   const int n_launches = n_steps / a.q;
   for (int l = 0; l < n_launches; ++l) {
     const bool to_out = ((n_launches - 1 - l) & 1) == 0;
     a.ssh_out = to_out ? ssh_out : ssh_tmp;
     a.h_out = to_out ? h_out : h_tmp;
     a.u_out = to_out ? u_out : u_tmp;
-    if ((err = launch<T, FB, kMasked>(a, tp, n_ranks, n_tiles, smem, stream)) != 0) return err;
+    if ((err = launch<T, FB, kMasked, kForced>(a, tp, n_ranks, n_tiles, smem, stream)) != 0)
+      return err;
     a.ssh = a.ssh_out, a.h = a.h_out, a.u = a.u_out;
   }
   return 0;
@@ -359,8 +398,22 @@ int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_ti
 // lands in `out`, no launch writes the buffers it reads, and `in` is left
 // as it is. `table` and `weights` are host copies of the stencil.
 template <typename T>
-int tiled_steps(const T* f_edge, const T* rts, const int* live, const int* table,
-                const double* weights,
+using RunFn = int (*)(StepArgs<T>, const StepTaps<T>&, size_t, int, int, int, T*, T*, T*, T*,
+                      T*, T*, cudaStream_t);
+
+// The instantiation of an arm: FE or FB, periodic or masked, unforced or forced.
+template <typename T>
+RunFn<T> run_of(bool fb, bool masked, bool forced) {
+  if (fb)
+    return masked ? (forced ? run<T, true, true, true> : run<T, true, true, false>)
+                  : (forced ? run<T, true, false, true> : run<T, true, false, false>);
+  return masked ? (forced ? run<T, false, true, true> : run<T, false, true, false>)
+                : (forced ? run<T, false, false, true> : run<T, false, false, false>);
+}
+
+template <typename T>
+int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
+                const int* table, const double* weights,
                 const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out,
                 T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,
                 double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
@@ -380,15 +433,14 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const int* table
                    vector_loads(k, kc, sizeof(T), h_out, u_out) &&
                    vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
   const StepArgs<T> a{ssh_in, h_in, u_in, f_edge, rts, live, nullptr, nullptr, nullptr,
-                      T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, q, hm, hi,
+                      fc, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, q, hm, hi,
                       log2_exact(kc),
                       vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct};
-  const size_t smem = smem_bytes(sites, kc, q, sizeof(T));
+  const size_t smem = smem_bytes(sites, kc, q, sizeof(T), fc.wind != nullptr);
   const int n_tiles = (ny2 / rt) * (nx / ct);
-  auto go = live ? (fb ? run<T, true, true> : run<T, false, true>)
-                 : (fb ? run<T, true, false> : run<T, false, false>);
-  return go(a, tp, smem, n_ranks, n_tiles, n_steps, ssh_out, h_out, u_out, ssh_tmp, h_tmp,
-            u_tmp, stream);
+  return run_of<T>(fb, live != nullptr, fc.wind != nullptr)(
+      a, tp, smem, n_ranks, n_tiles, n_steps, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp,
+      stream);
 }
 
 }  // namespace
@@ -397,18 +449,22 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const int* table
 // the CUDA error of the first launch that failed (cudaErrorInvalidValue for
 // a plan the lattice or the card does not take). A null `live` (the wall
 // mask's live bits, one int per site) runs the periodic arm, any other the
-// masked one.
-#define MOT_TILED_ENTRY(T, SUFFIX)                                                          \
-  extern "C" int mot_tiled_steps_##SUFFIX(                                                  \
-      const T* f_edge, const T* rts, const int* live, const int* table,                       \
-      const double* weights, const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out,     \
-      T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,         \
-      double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,       \
-      int q, int hm, int hi, int fb, void* stream) {                                        \
-    return tiled_steps<T>(f_edge, rts, live, table, weights, ssh_in, h_in, u_in, ssh_out,   \
-                          h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx,  \
-                          k, n_steps, n_terms, rt, ct, q, hm, hi, fb,                       \
-                          static_cast<cudaStream_t>(stream));                               \
+// masked one; a null `wind` the unforced arm, any other the forced one with
+// `lvl` (the packed levels) and the coefficients.
+#define MOT_TILED_ENTRY(T, SUFFIX)                                                            \
+  extern "C" int mot_tiled_steps_##SUFFIX(                                                    \
+      const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
+      const int* table, const double* weights, const T* ssh_in, const T* h_in,                \
+      const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,          \
+      double dt, double inv_dc, double s_div, double dlin, double dquad, double rayl,         \
+      int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms,        \
+      int rt, int ct, int q, int hm, int hi, int fb, void* stream) {                          \
+    const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
+                            static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
+    return tiled_steps<T>(f_edge, rts, live, fc, table, weights, ssh_in, h_in, u_in,          \
+                          ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div,    \
+                          ny2, nx, k, n_steps, n_terms, rt, ct, q, hm, hi, fb,                \
+                          static_cast<cudaStream_t>(stream));                                 \
   }
 
 MOT_TILED_ENTRY(float, f32)
@@ -449,10 +505,11 @@ extern "C" int mot_tiled_occupancy(int sites, int k, int q, int fb, int* out) {
   int e = opt_in_smem(&max_smem);
   if (e != 0) return e;
   const int kc = step_chunk(k);
-  const size_t smem = smem_bytes(sites, kc, q, sizeof(float));
+  const size_t smem = smem_bytes(sites, kc, q, sizeof(float), false);
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  auto kernel = fb ? tiled_step_kernel<float, true, false> : tiled_step_kernel<float, false, false>;
-  e = fb ? prepare<float, true, false>(max_smem) : prepare<float, false, false>(max_smem);
+  auto kernel = fb ? tiled_step_kernel<float, true, false, false>
+                   : tiled_step_kernel<float, false, false, false>;
+  e = fb ? prepare<float, true, false, false>(max_smem) : prepare<float, false, false, false>(max_smem);
   if (e != 0) return e;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = step_config((k + kc - 1) / kc, 1, smem, nullptr, attr);

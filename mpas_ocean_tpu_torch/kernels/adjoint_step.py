@@ -10,9 +10,12 @@ stencil on the host (``StructMesh.host_adjoint_stencil``), launches one
 adjoint kernel per reverse step on the current stream, each over tiles of
 ``adjoint_tile`` sites, then one small kernel that adds the call's d(dt) to
 an accumulator; it raises on anything else, a table that is not the hex
-lattice's transpose included. Its plain PyTorch version is
-``structured.adjoint.structured_adjoint_step``. ``launches`` counts
-adjoint-step launches (one per reverse step).
+lattice's transpose included. With ``forcing=`` (the forward's operands,
+``structured.fused_model.kernel_forcing``) it runs the kernel's forced arm,
+which adds d(wind) and d(r_lin, Cd, lambda) to ``dforc``. Its plain PyTorch
+version is ``structured.adjoint.structured_adjoint_step``. ``launches``
+counts adjoint-step launches (one per reverse step), ``forced_launches``
+those of the forced arm.
 
 ``nl_adjoint_rollout`` does the same for the nonlinear core, one launch of
 the nonlinear reverse kernel per reverse step over tiles of
@@ -37,7 +40,10 @@ from .fe_step import (
     TWO_BLOCK_BYTES,
     best_tile,
     check_error,
+    check_forcing,
     check_live,
+    forcing_args,
+    forcing_smem_bytes,
     check_tensor,
     host_stencil,
     lattice_dims,
@@ -47,12 +53,14 @@ from .fe_step import (
 )
 
 __all__ = ["NL_ADJ_RINGS", "NL_ADJ_SLICE", "REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout",
-           "adjoint_tile", "launch_plan", "launches", "nl_adjoint_launch_plan",
+           "adjoint_tile", "forced_launches", "launch_plan", "launches", "nl_adjoint_launch_plan",
            "nl_adjoint_plan", "nl_adjoint_rollout", "nl_adjoint_slice", "nl_adjoint_smem_bytes",
            "nl_launches", "smem_bytes"]
 
-# adjoint-step kernel launches made by adjoint_rollout (one per step)
+# adjoint-step kernel launches made by adjoint_rollout (one per step), and
+# those of them that ran the forced arm
 launches = 0
+forced_launches = 0
 # nonlinear reverse kernel launches made by nl_adjoint_rollout (one per step)
 nl_launches = 0
 
@@ -62,6 +70,9 @@ nl_launches = 0
 REACH = (1, 2)
 _PLANES = 10  # kPlanes in csrc/adjoint_step.cu
 _RED_BYTES = 8 * 16  # kRedDoubles doubles in csrc/adjoint_window.cuh
+# The shares a block of a forced reverse arm writes (kShares in
+# csrc/adjoint_window.cuh): d(dt), d(r_lin), d(Cd), d(lambda)
+SHARES = 4
 # adjoint_tile's tiles besides the powers of two: these rows by these
 # columns, cut to the lattice (tools/tile_sweep.py sweeps the same set)
 TILE_ROWS = (1, 2, 3, 4, 6, 8, 16)
@@ -82,19 +93,19 @@ _NLA_WIN, _NLA_A, _NLA_B, _NLA_C, _NLA_SITE, _NLA_INTS = 16, 12, 14, 8, 24, 2
 NL_ADJ_SLICE = 4
 
 
-def smem_bytes(tile, k: int, itemsize: int) -> int:
+def smem_bytes(tile, k: int, itemsize: int, forced: bool = False) -> int:
     """Dynamic shared memory of one adjoint_step block for a tile (rows,
     columns) at k levels (``smem_bytes`` in csrc/adjoint_step.cu): the warps'
     d(dt) sums, its level chunk of the window's primal state and cotangent
     [2][8][sites][kc], the window's ssh, gs, f_edge, site indices and live
     bits (the masked arm's, reserved either way, as in
     ``fe_step.smem_bytes``), and the ranks' partial sums of the tile's
-    sites."""
+    sites; with ``forced``, the forced arm's (``fe_step.forcing_smem_bytes``)."""
     ranks, kc = level_split(k)
     hm, hi = REACH
     sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
     return (_RED_BYTES + itemsize * (sites * (16 * kc + _PLANES) + ranks * 2 * tile[0] * tile[1])
-            + (4 + LIVE_BYTES) * sites)
+            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
 
 
 def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
@@ -107,7 +118,7 @@ def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
     tiles of the sweep there (PERF.md section 5, tools/tile_sweep.py): a
     larger tile re-reads less halo, but on a small lattice its few
     clusters leave the card's last wave part empty."""
-    smem = lambda t: smem_bytes(t, k, itemsize)
+    smem = lambda t: smem_bytes(t, k, itemsize, forced=True)
     tile = best_tile(ny2, nx, REACH, smem, f"adjoint_step ({k} levels of {itemsize}-byte values)")
     hm, hi = REACH
     two = [(rt * ct, -(rt + 2 * hm) * (ct + 2 * hi), ct, rt)
@@ -209,8 +220,24 @@ def nl_adjoint_launch_plan(ny2: int, nx: int, k: int, tile, ks: int) -> dict:
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_double] * 3 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_double] * 6 + [ctypes.c_int] * 9
              + [ctypes.c_void_p])
+
+
+def check_dforc(dforc, forcing, ny2: int, nx: int, dtype, device) -> None:
+    """The forced reverse arms' accumulators (``structured.adjoint.ForcingCot``:
+    d(wind) (6, ny2, nx) in the state dtype, d(r_lin, Cd, lambda) float64
+    (3,)), given exactly with ``forcing``."""
+    if (dforc is None) != (forcing is None):
+        raise ValueError("the forced reverse takes forcing and dforc together")
+    if dforc is not None:
+        check_tensor("dforc wind", dforc.wind, (6, ny2, nx), dtype, device)
+        check_tensor("dforc coefs", dforc.coefs, (3,), torch.float64, device)
+
+
+def dforc_args(dforc) -> tuple:
+    """The (d(wind), d(coefs)) pointers of a reverse entry, or nulls."""
+    return (None, None) if dforc is None else (dforc.wind.data_ptr(), dforc.coefs.data_ptr())
 
 
 def _entry(dtype: torch.dtype):
@@ -223,11 +250,11 @@ def _entry(dtype: torch.dtype):
 
 
 def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scratch, tile,
-             live=None):
+             live=None, forcing=None, dforc=None):
     """``adjoint_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
     ``tile`` (rows, columns) sites, or ``adjoint_tile``'s for None (the tile
     sweep and the tests give their own)."""
-    global launches
+    global launches, forced_launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
@@ -241,6 +268,8 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     shapes = state_shapes(ny2, nx, k)
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_live(live, ny2, nx, device)
+    check_forcing(forcing, ny2, nx, dtype, device)
+    check_dforc(dforc, forcing, ny2, nx, dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
     if out is None:
         out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
@@ -254,30 +283,35 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     table, weights, n_terms = host_stencil(table, weights)
     itemsize, masked = h_st.element_size(), live is not None
     tile = adjoint_tile(ny2, nx, k, itemsize) if tile is None else tuple(tile)
-    need = smem_bytes(tile, k, itemsize)
+    need = smem_bytes(tile, k, itemsize, forcing is not None)
     if need > SMEM_BYTES:
         raise ValueError(f"an adjoint_step tile {tile} at {k} levels needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
     ranks, _ = level_split(k)
     tiles = -(-ny2 // tile[0]) * -(-nx // tile[1])
-    part = torch.empty(n_steps * tiles * ranks, dtype=torch.float64, device=device)
+    shares = 1 if forcing is None else SHARES
+    part = torch.empty(shares * n_steps * tiles * ranks, dtype=torch.float64, device=device)
     fn = _entry(dtype)
+    ptrs, coefs = forcing_args(forcing, level_split(k)[1])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            f_edge.data_ptr(), live.data_ptr() if masked else None,
+            f_edge.data_ptr(), live.data_ptr() if masked else None, *ptrs, *dforc_args(dforc),
             table.ctypes.data, weights.ctypes.data,
             *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
-            *(float(x) for x in scal), ny2, nx, k, n_steps, n_terms, *tile, stream,
+            *(float(x) for x in scal), *coefs, ny2, nx, k, n_steps, n_terms, *tile, stream,
         )
     check_error("adjoint_step", err, f" (tile {tile})")
     launches += n_steps
+    if forcing is not None:
+        forced_launches += n_steps
     return out
 
 
 def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
                     dt: float, inv_dc: float, s_div: float, n_steps: int,
-                    ddt: torch.Tensor, out=None, scratch=None, live=None):
+                    ddt: torch.Tensor, out=None, scratch=None, live=None, forcing=None,
+                    dforc=None):
     """n_steps >= 1 reverse forward-Euler steps of the linear core on the
     card.
 
@@ -293,9 +327,13 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
     (allocated when None and n_steps > 1). The scalars are rounded to the
     state dtype as for the forward kernel. ``live`` (the wall mask's live
     bits, as for ``fe_step.fe_rollout``, or None) runs the masked arm, the
-    reverse of the masked forward step."""
+    reverse of the masked forward step. ``forcing`` (as for
+    ``fe_step.fe_rollout``) runs the forced arm, the reverse of the forced
+    step, which adds d(wind) and d(r_lin, Cd, lambda) to ``dforc`` (a
+    ``structured.adjoint.ForcingCot`` of a (6, ny2, nx) tensor in the state
+    dtype and a float64 (3,) tensor, on the card)."""
     return _rollout(stack, g_in, f_edge, stencil_table, coriolis_weight, (dt, inv_dc, s_div),
-                    n_steps, ddt, out, scratch, None, live)
+                    n_steps, ddt, out, scratch, None, live, forcing, dforc)
 
 
 _NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_double] * 7

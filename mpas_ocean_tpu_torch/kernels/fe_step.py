@@ -4,7 +4,9 @@ which replaces the TPU kernel ``_rollout_kernel``
 its nonlinear arm (csrc/nl_step.cuh, ``fe_nl_rollout``), for the
 vector-invariant one, on a periodic lattice and, with the wall mask's
 ``live`` bits (``live_bits`` of ``StructMesh.edge_mask``), on a coastal
-channel culled from one.
+channel culled from one; the linear entries take momentum forcing
+(``forcing=``, ``structured.fused_model.kernel_forcing``'s operands), which
+runs the kernel's forced arm.
 
 The entries take tensors on a CUDA device and the stencil on the host
 (``StructMesh.host_stencil``), and launch one kernel per step on the
@@ -20,7 +22,7 @@ anything else, a stencil that is not the hex lattice's included:
 
 Their plain PyTorch version is ``structured.model.structured_run_loop``,
 which ``structured.fused_model`` runs for tensors on the CPU. ``launches``
-counts kernel launches.
+counts kernel launches, ``forced_launches`` those of the forced arm.
 """
 
 from __future__ import annotations
@@ -37,12 +39,16 @@ __all__ = [
     "LIVE_BYTES",
     "MAX_TERMS",
     "best_tile",
+    "check_forcing",
     "check_live",
+    "forcing_smem_bytes",
+    "forcing_ranks",
     "live_bits",
     "fe_fill_stack",
     "fe_rollout",
     "fe_rollout_into",
     "fe_tile",
+    "forced_launches",
     "host_stencil",
     "launch_plan",
     "launches",
@@ -98,8 +104,10 @@ NL_SLICE = 4
 # The SMs of an H100 SXM (the planners' count of a launch's waves)
 SMS = 132
 
-# kernel launches made by this module's entries (one per step)
+# kernel launches made by this module's entries (one per step), and those
+# of them that ran the forced arm
 launches = 0
+forced_launches = 0
 
 
 def pack_stencil(terms) -> tuple[np.ndarray, np.ndarray]:
@@ -137,18 +145,27 @@ def level_split(k: int) -> tuple[int, int]:
     return -(-k // kc), kc
 
 
-def smem_bytes(tile, k: int, itemsize: int) -> int:
+def forcing_smem_bytes(sites: int, extra: int, itemsize: int) -> int:
+    """Shared memory the forced arms take beyond the unforced layout
+    (``forcing_smem_bytes`` in csrc/step_window.cuh): 16 bytes of
+    alignment, the window's six winds and ``extra`` more values per block in
+    the state dtype, and its six packed levels per site."""
+    return 16 + itemsize * (6 * sites + extra) + 4 * 6 * sites
+
+
+def smem_bytes(tile, k: int, itemsize: int, forced: bool = False) -> int:
     """Dynamic shared memory of one fe_step block for a tile (rows, columns)
     at k levels (``smem_bytes`` in csrc/fe_step.cu): its level chunk of the
     window's state [8][sites][kc], the window's ssh, f_edge, rts, site
     indices and live bits (the masked arm's, which the periodic arm
     reserves too, so that one plan serves both), and the ranks' partial
-    column sums of the tile's sites."""
+    column sums of the tile's sites; with ``forced``, the forced arm's
+    (``forcing_smem_bytes``)."""
     ranks, kc = level_split(k)
     hm, hi = FE_REACH
     sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
     return (itemsize * (sites * (8 * kc + _FE_PLANES) + ranks * 2 * tile[0] * tile[1])
-            + (4 + LIVE_BYTES) * sites)
+            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
 
 
 def best_tile(ny2: int, nx: int, reach, smem, name: str) -> tuple[int, int]:
@@ -171,12 +188,13 @@ def best_tile(ny2: int, nx: int, reach, smem, name: str) -> tuple[int, int]:
 
 def fe_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
     """fe_step's tile (rows, columns) on a ny2 x nx lattice, by
-    ``best_tile``'s rule.
+    ``best_tile``'s rule, sized for the forced arm so that one tile serves
+    both arms.
     On an H100 at 64x64x100 and 256x256x100 f32 that is (4, 16), periodic
     or masked: the fastest tile at 64^2 and within 2.5% of the fastest at
     256^2, where the best one-block tile took 1.12x as long (PERF.md
     section 5, tools/tile_sweep.py)."""
-    return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize),
+    return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize, forced=True),
                      f"fe_step ({k} levels of {itemsize}-byte values)")
 
 
@@ -315,8 +333,8 @@ def nl_launch_plan(ny2: int, nx: int, k: int, tile, ks: int, fb: bool = False) -
 
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
-    "steps": [_P] * 14 + [_D] * 3 + [_I] * 7 + [_P],
-    "stack": [_P] * 8 + [_D] * 3 + [_I] * 7 + [_P],
+    "steps": [_P] * 16 + [_D] * 6 + [_I] * 9 + [_P],
+    "stack": [_P] * 10 + [_D] * 6 + [_I] * 9 + [_P],
     "nl_steps": [_P, _P, _I] + [_P] * 15 + [_D] * 5 + [_I] * 8 + [_P],
     "nl_stack": [_P, _P, _I] + [_P] * 9 + [_D] * 5 + [_I] * 8 + [_P],
 }
@@ -380,52 +398,91 @@ def check_live(live, ny2: int, nx: int, device) -> None:
         check_tensor("live", live, (ny2, nx), torch.int32, device)
 
 
-def _consts(h, f_edge, rts, table, weights, live):
+def check_forcing(forcing, ny2: int, nx: int, dtype, device) -> None:
+    """The forced arms' operands (``fused_model.KernelForcing``: wind
+    (6, ny2, nx) in the state dtype, packed levels int32 (6, ny2, nx), three
+    coefficients), contiguous, on the state's device; None unforced."""
+    if forcing is not None:
+        check_tensor("forcing wind", forcing.wind, (6, ny2, nx), dtype, device)
+        check_tensor("forcing levels", forcing.levels, (6, ny2, nx), torch.int32, device)
+        if len(forcing.coefs) != 3:
+            raise ValueError("the forcing takes three coefficients (r_lin, Cd, lambda)")
+
+
+def forcing_ranks(forcing, kc: int) -> tuple[int, int]:
+    """(lvl_ranks, wind_ranks) of a launch whose blocks take chunks of kc
+    levels (csrc/step_window.cuh, ForcingArgs): bit r set where rank r's
+    chunk holds some edge's top or bottom level, and some edge's top level."""
+    wind = 0
+    for t in forcing.top_levels:
+        wind |= 1 << (t // kc)
+    lvl = wind
+    for b in forcing.bottom_levels:
+        lvl |= 1 << (b // kc)
+    return lvl, wind
+
+
+def forcing_args(forcing, kc: int) -> tuple:
+    """(wind, levels) pointers, (r_lin, Cd, lambda) and the rank masks
+    (``forcing_ranks``) of an entry's forced arm for chunks of kc levels, or
+    nulls and zeros for the unforced one."""
+    if forcing is None:
+        return (None, None), (0.0, 0.0, 0.0, 0, 0)
+    return ((forcing.wind.data_ptr(), forcing.levels.data_ptr()),
+            (*(float(c) for c in forcing.coefs), *forcing_ranks(forcing, kc)))
+
+
+def _consts(h, f_edge, rts, table, weights, live, forcing=None):
     ny2, nx, k = lattice_dims(h)
     dtype, device = h.dtype, h.device
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
     check_live(live, ny2, nx, device)
+    check_forcing(forcing, ny2, nx, dtype, device)
     return (ny2, nx, k), host_stencil(table, weights)
 
 
-def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile):
-    global launches
+def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile,
+         forcing=None):
+    global launches, forced_launches
     table, weights, n_terms = stencil
     tile = fe_tile(*dims, h.element_size()) if tile is None else tuple(tile)
-    need = smem_bytes(tile, dims[2], h.element_size())
+    need = smem_bytes(tile, dims[2], h.element_size(), forcing is not None)
     if need > SMEM_BYTES:
         raise ValueError(f"an fe_step tile {tile} at {dims[2]} levels needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
     fn = _entry(kind, h.dtype)
+    ptrs, coefs = forcing_args(forcing, level_split(dims[2])[1])
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
-                 table.ctypes.data, weights.ctypes.data,
-                 *[x.data_ptr() for x in tensors], *(float(x) for x in scal), *dims,
+                 *ptrs, table.ctypes.data, weights.ctypes.data,
+                 *[x.data_ptr() for x in tensors], *(float(x) for x in scal), *coefs, *dims,
                  n_steps, n_terms, *tile, stream)
     check_error("fe_step", err, f" (tile {tile})")
     launches += n_steps
+    if forcing is not None:
+        forced_launches += n_steps
 
 
 def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch, tile,
-                  live):
+                  live, forcing=None):
     if n_steps < 1:
         raise ValueError("fe_rollout_into takes n_steps >= 1")
     h = src[1]
-    dims, stencil = _consts(h, f_edge, rts, table, weights, live)
+    dims, stencil = _consts(h, f_edge, rts, table, weights, live, forcing)
     if scratch is None:
         scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
     for group, name in ((src, "src"), (out, "out"), (scratch, "scratch")):
         for x, shape, f in zip(group, state_shapes(*dims), ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, h.dtype, h.device)
     _run("steps", h, (*src, *out, *scratch), f_edge, rts, live, stencil, scal, dims,
-         n_steps, tile)
+         n_steps, tile, forcing)
 
 
 def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
                     dt: float, inv_dc: float, s_div: float, n_steps: int, scratch=None,
-                    live=None):
+                    live=None, forcing=None):
     """n_steps >= 1 forward-Euler steps of the linear core on the card, from
     ``src`` = (ssh, h, u) into ``out`` (same shapes, another buffer), through
     ``scratch`` (allocated here when None and n_steps > 1). ``src`` is left as
@@ -438,14 +495,18 @@ def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
     (n_terms,), rounded to the state dtype in the kernel; the scalars
     already rounded to the state dtype. ``live`` is the wall mask of a
     culled channel as ``live_bits`` packs it (int32 (ny2, nx), on the card),
-    which runs the masked arm, or None. Raises ValueError for a stencil
-    that is not the hex lattice's."""
+    which runs the masked arm, or None. ``forcing`` is the momentum forcing
+    as ``structured.fused_model.kernel_forcing`` gives it (wind, packed
+    levels, (r_lin, Cd, lambda) rounded to the state dtype), which runs the
+    forced arm, or None. Raises ValueError for a stencil that is not the
+    hex lattice's."""
     _rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
-                  (dt, inv_dc, s_div), n_steps, scratch, None, live)
+                  (dt, inv_dc, s_div), n_steps, scratch, None, live, forcing)
 
 
 def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
-                  dt: float, inv_dc: float, s_div: float, n_steps: int, live=None):
+                  dt: float, inv_dc: float, s_div: float, n_steps: int, live=None,
+                  forcing=None):
     """Fill a stack of states on the card: slot j + 1 = one step of slot j
     for j < n_steps. ``stack`` = (ssh (S, 2, ny2, nx), h (S, 2, ny2, nx, K),
     u (S, 3, 2, ny2, nx, K)) with S > n_steps; slot 0 holds the start. The
@@ -453,20 +514,22 @@ def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
     ssh, h, u = stack
     if h.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h.shape)}")
-    dims, stencil = _consts(h[0], f_edge, rts, stencil_table, coriolis_weight, live)
+    dims, stencil = _consts(h[0], f_edge, rts, stencil_table, coriolis_weight, live, forcing)
     slots = h.shape[0]
     if not 0 <= n_steps < slots:
         raise ValueError(f"{n_steps} steps do not fit a stack of {slots} slots")
     for x, shape, f in zip(stack, state_shapes(*dims), ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), h.dtype, h.device)
     _run("stack", h, stack, f_edge, rts, live, stencil, (dt, inv_dc, s_div), dims, n_steps,
-         None)
+         None, forcing)
 
 
-def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=None):
+def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=None,
+             forcing=None):
     """``fe_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
     ``tile`` (rows, columns) sites, or ``fe_tile``'s for None (the tile
-    sweep and the tests give their own)."""
+    sweep and the tests give their own); ``forcing`` as for
+    ``fe_rollout_into``."""
     lattice_dims(h)
     if n_steps < 0:
         raise ValueError("n_steps must be >= 0")
@@ -474,17 +537,19 @@ def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=N
     if n_steps == 0:
         return tuple(x.clone() for x in src)
     out = tuple(torch.empty_like(x) for x in src)
-    _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, None, tile, live)
+    _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, None, tile, live,
+                  forcing)
     return out
 
 
 def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
-               dt: float, inv_dc: float, s_div: float, n_steps: int, live=None):
+               dt: float, inv_dc: float, s_div: float, n_steps: int, live=None,
+               forcing=None):
     """n_steps forward-Euler steps of the linear core on the card (arguments
     as for ``fe_rollout_into``). Returns new (ssh, h, u) tensors; the inputs
     are left as they are."""
     return _rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
-                    (dt, inv_dc, s_div), n_steps, None, live)
+                    (dt, inv_dc, s_div), n_steps, None, live, forcing)
 
 
 

@@ -2,7 +2,9 @@
 which replaces the TPU kernel ``_tiled_adjoint_kernel``
 (mpas_ocean_tpu/structured/pallas_model.py:1979) for the linear
 forward-Euler core, on a periodic lattice and, with the wall mask's
-``live`` bits (``fe_step.live_bits``), on a coastal channel culled from one.
+``live`` bits (``fe_step.live_bits``), on a coastal channel culled from one;
+with ``forcing=`` its forced arm, which adds d(wind) and d(r_lin, Cd,
+lambda) to ``dforc`` (as ``adjoint_step.adjoint_rollout``).
 
 ``tiled_adjoint_rollout`` takes tensors on a CUDA device and the stencils on
 the host (``StructMesh.host_stencil``, ``StructMesh.host_adjoint_stencil``),
@@ -12,7 +14,8 @@ it raises on anything else, including a plan whose window does not fit the
 card's shared memory and a stencil that is not the hex lattice's. Its plain
 PyTorch version is ``structured.tiled_diff.plain_tiled_adjoint_superstep``,
 which ``structured.tiled_diff`` runs for tensors on the CPU. ``launches``
-counts kernel launches (one per superstep).
+counts kernel launches (one per superstep), ``forced_launches`` those of
+the forced arm.
 """
 
 from __future__ import annotations
@@ -22,26 +25,33 @@ import ctypes
 import torch
 
 from . import build, fe_step
+from .adjoint_step import SHARES, check_dforc, dforc_args
 from .fe_step import (
     LIVE_BYTES,
     MAX_CLUSTER,
     SMEM_BYTES,
     TWO_BLOCK_BYTES,
     check_error,
+    check_forcing,
     check_live,
+    forcing_args,
+    forcing_smem_bytes,
     check_tensor,
     host_stencil,
     lattice_dims,
     state_shapes,
 )
 
-__all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "launches", "level_split",
+__all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "forced_launches", "launches",
+           "level_split",
            "occupancy", "smem_bytes", "tiled_adjoint_rollout", "window_sites"]
 
 _RED_BYTES = 8 * 16  # kRedDoubles doubles in csrc/adjoint_window.cuh
 
-# kernel launches made by tiled_adjoint_rollout (one per superstep)
+# kernel launches made by tiled_adjoint_rollout (one per superstep), and
+# those of them that ran the forced arm
 launches = 0
+forced_launches = 0
 
 
 def level_split(k: int, q: int) -> tuple[int, int]:
@@ -65,7 +75,8 @@ def window_sites(row_tile: int, col_tile: int, q: int, halo) -> int:
     return (row_tile + 2 * hm * span) * (col_tile + 2 * hi * span)
 
 
-def smem_bytes(sites: int, core: int, k: int, q: int, itemsize: int) -> int:
+def smem_bytes(sites: int, core: int, k: int, q: int, itemsize: int,
+               forced: bool = False) -> int:
     """Dynamic shared memory of one block for a window of ``sites`` lattice
     sites around a core of ``core`` sites, k levels and q steps
     (``smem_bytes`` in csrc/tiled_adjoint.cu): the warps' d(dt) sums; q
@@ -73,12 +84,13 @@ def smem_bytes(sites: int, core: int, k: int, q: int, itemsize: int) -> int:
     site f_edge, gs and q ssh planes, at q > 1 also rts and two pairs of
     partial sums; the ranks' partial sums of the core; the site indices and
     live bits (the masked arm's, reserved either way, as in
-    ``fe_step.smem_bytes``)."""
+    ``fe_step.smem_bytes``); with ``forced``, the forced arm's
+    (``fe_step.forcing_smem_bytes``)."""
     ranks, kc = level_split(k, q)
     chunks = 8 * (q + (2 if q > 1 else 1)) * kc
     planes = 8 + 2 * q + (6 if q > 1 else 0)
     return (_RED_BYTES + itemsize * (sites * (chunks + planes) + ranks * 2 * core)
-            + (4 + LIVE_BYTES) * sites)
+            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
 
 
 def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int) -> tuple[int, int]:
@@ -94,7 +106,7 @@ def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int) -> tuple[int, 
     return out[0], out[1]
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_double] * 3 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 25 + [ctypes.c_double] * 6 + [ctypes.c_int] * 13
              + [ctypes.c_void_p])
 
 
@@ -111,7 +123,7 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
                           adjoint_table, adjoint_weight, dt: float, inv_dc: float,
                           s_div: float, n_supersteps: int, ddt: torch.Tensor, out=None,
                           scratch=None, *, row_tile: int, col_tile: int, q: int, halo,
-                          live=None):
+                          live=None, forcing=None, dforc=None):
     """n_supersteps >= 1 reverse supersteps of q forward-Euler steps of the
     linear core on the card, over row_tile x col_tile tiles.
 
@@ -129,8 +141,9 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     None and n_supersteps > 1). The scalars are rounded to the state dtype
     as for the forward kernel. ``live`` (the wall mask's live bits, as
     for ``fe_step.fe_rollout``, or None) runs the masked arm, the reverse of
-    the masked forward steps."""
-    global launches
+    the masked forward steps; ``forcing`` and ``dforc`` (as for
+    ``adjoint_step.adjoint_rollout``) the forced arm."""
+    global launches, forced_launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
@@ -149,7 +162,7 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     hm, hi = halo
     cluster, kc = level_split(k, q)
     need = smem_bytes(window_sites(row_tile, col_tile, q, halo), row_tile * col_tile, k, q,
-                      h_st.element_size())
+                      h_st.element_size(), forcing is not None)
     if need > SMEM_BYTES:
         raise ValueError(f"a {row_tile}x{col_tile} tile at q={q} needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
@@ -157,6 +170,8 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
     check_live(live, ny2, nx, device)
+    check_forcing(forcing, ny2, nx, dtype, device)
+    check_dforc(dforc, forcing, ny2, nx, dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
     if out is None:
         out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
@@ -172,17 +187,23 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     if n_adj != n_terms:
         raise ValueError("the adjoint table must be the transpose of the stencil table")
     n_tiles = (ny2 // row_tile) * (nx // col_tile)
-    part = torch.empty(n_supersteps * n_tiles * cluster, dtype=torch.float64, device=device)
+    shares = 1 if forcing is None else SHARES
+    part = torch.empty(shares * n_supersteps * n_tiles * cluster, dtype=torch.float64,
+                       device=device)
     fn = _entry(dtype)
+    ptrs, coefs = forcing_args(forcing, kc)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
+            *ptrs, *dforc_args(dforc),
             table.ctypes.data, weights.ctypes.data, adj_table.ctypes.data, adj_weights.ctypes.data,
             *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
-            float(dt), float(inv_dc), float(s_div), ny2, nx, k, n_supersteps, n_terms,
+            float(dt), float(inv_dc), float(s_div), *coefs, ny2, nx, k, n_supersteps, n_terms,
             row_tile, col_tile, q, hm, hi, kc, stream,
         )
     check_error("tiled_adjoint", err, f" (plan {(row_tile, col_tile, q)})")
     launches += n_supersteps
+    if forcing is not None:
+        forced_launches += n_supersteps
     return out

@@ -5,7 +5,8 @@ Euler and forward-backward, and, in its nonlinear FB arm
 (csrc/nl_step.cuh, ``tiled_nl_rollout``, q = 1), for the vector-invariant
 one (its FE arm is fe_step's, ``fe_step.fe_nl_rollout``), on a periodic
 lattice and, with the wall mask's ``live`` bits (``fe_step.live_bits``), on
-a coastal channel culled from one.
+a coastal channel culled from one; ``tiled_rollout`` takes momentum forcing
+(``forcing=``), which runs the kernel's forced arm.
 
 ``tiled_rollout`` takes tensors on a CUDA device and the stencil on the
 host (``StructMesh.host_stencil``), and launches one kernel per q steps on
@@ -14,7 +15,8 @@ window does not fit the card's shared memory and a stencil that is not the
 hex lattice's. Its plain PyTorch
 version is ``structured.tiled_model.plain_tiled_rollout``, which
 ``structured.tiled_model.tiled_run_loop`` runs for tensors on the CPU.
-``launches`` counts kernel launches (one per q steps), of both cores.
+``launches`` counts kernel launches (one per q steps), of both cores, and
+``forced_launches`` those of the forced arm.
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ from .fe_step import (
     SMEM_BYTES,
     TWO_BLOCK_BYTES,
     check_error,
+    check_forcing,
     check_live,
+    forcing_args,
+    forcing_smem_bytes,
     check_tensor,
     host_stencil,
     lattice_dims,
@@ -43,27 +48,32 @@ from .fe_step import (
     state_shapes,
 )
 
-__all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "launches", "level_split",
+__all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "forced_launches", "launches",
+           "level_split",
            "nl_plan", "nl_slice", "nl_smem_bytes", "occupancy", "smem_bytes",
            "tiled_nl_rollout", "tiled_rollout"]
 
 _PLANES = 16  # kPlanes in csrc/tiled_step.cu
 
-# kernel launches made by tiled_rollout (one per q steps)
+# kernel launches made by tiled_rollout (one per q steps), and those of them
+# that ran the forced arm
 launches = 0
+forced_launches = 0
 
 
-def smem_bytes(sites: int, kc: int, q: int, itemsize: int) -> int:
+def smem_bytes(sites: int, kc: int, q: int, itemsize: int, forced: bool = False) -> int:
     """Dynamic shared memory of one block for a window of ``sites`` lattice
     sites, ``kc`` levels and q steps (``smem_bytes`` in csrc/tiled_step.cu):
     one state copy [8][sites][kc] at q = 1, two at q > 1; ssh, partial sums,
     f_edge and rts; the sites' indices and live bits (the masked arm's,
-    reserved either way, as in ``fe_step.smem_bytes``)."""
+    reserved either way, as in ``fe_step.smem_bytes``); with ``forced``, the
+    forced arm's (``fe_step.forcing_smem_bytes``)."""
     return (itemsize * sites * (8 * (2 if q > 1 else 1) * kc + _PLANES)
-            + (4 + LIVE_BYTES) * sites)
+            + (4 + LIVE_BYTES) * sites
+            + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_double] * 3 + [ctypes.c_int] * 11
+_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_double] * 6 + [ctypes.c_int] * 13
              + [ctypes.c_void_p])
 
 
@@ -94,13 +104,15 @@ def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int, fb: bool = Fal
 
 def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                   dt: float, inv_dc: float, s_div: float, n_steps: int, *,
-                  row_tile: int, col_tile: int, q: int, halo, fb: bool = False, live=None):
+                  row_tile: int, col_tile: int, q: int, halo, fb: bool = False, live=None,
+                  forcing=None):
     """n_steps FE (or FB) steps of the linear core on the card, q per launch
     over row_tile x col_tile tiles whose windows carry q ``halo`` = (rows,
     columns) per side. Arguments as for ``fe_step.fe_rollout``; ``live``
-    (the wall mask's live bits, or None) runs the masked arm.
+    (the wall mask's live bits, or None) runs the masked arm, ``forcing``
+    (``fused_model.kernel_forcing``'s operands, or None) the forced arm.
     Returns new (ssh, h, u) tensors; the inputs are left as they are."""
-    global launches
+    global launches, forced_launches
     ny2, nx, k = lattice_dims(h, "tiled_step")
     dtype, device = h.dtype, h.device
     if n_steps < 0:
@@ -112,13 +124,14 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     hm, hi = halo
     _, kc = level_split(k)
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
-    need = smem_bytes(sites, kc, q, h.element_size())
+    need = smem_bytes(sites, kc, q, h.element_size(), forcing is not None)
     if need > SMEM_BYTES:
         raise ValueError(f"a {row_tile}x{col_tile} tile at q={q} needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
     check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
     check_live(live, ny2, nx, device)
+    check_forcing(forcing, ny2, nx, dtype, device)
     table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
     src = tuple(x.contiguous() for x in (ssh, h, u))
     for x, shape, f in zip(src, state_shapes(ny2, nx, k), ("ssh", "h", "u")):
@@ -128,17 +141,20 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     out = tuple(torch.empty_like(x) for x in src)
     tmp = out if n_steps == q else tuple(torch.empty_like(x) for x in src)
     fn = _entry(dtype)
+    ptrs, coefs = forcing_args(forcing, kc)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
-            table.ctypes.data, weights.ctypes.data,
+            *ptrs, table.ctypes.data, weights.ctypes.data,
             *[x.data_ptr() for x in (*src, *out, *tmp)],
-            float(dt), float(inv_dc), float(s_div), ny2, nx, k, n_steps, n_terms,
+            float(dt), float(inv_dc), float(s_div), *coefs, ny2, nx, k, n_steps, n_terms,
             row_tile, col_tile, q, hm, hi, int(fb), stream,
         )
     check_error("tiled_step", err)
     launches += n_steps // q
+    if forcing is not None:
+        forced_launches += n_steps // q
     return out
 
 

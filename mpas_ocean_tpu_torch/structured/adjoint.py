@@ -44,17 +44,36 @@ f:
 
 The transposed vertex tables are stencils.transpose_curl_terms,
 transpose_kite_terms and transpose_endpoint_terms.
+
+With momentum forcing (``forcing=``, struct layout), u' gains dt F(u, h_e),
+F = top w / h_e - bot (r u + Cd |u| u / h_e) - lambda u (models/forcing.py),
+whose transpose is written out by hand as sharded._forcing_term_bwd
+(sharded.py:108-128) does, with a = dt * gu and inv_h = 1 / h_e (1 where
+h_e <= 0):
+
+* du += a (-bot (r + 2 Cd |u| inv_h) - lambda);
+* the h_edge cotangent gains a (top w - bot Cd |u| u) (-inv_h^2), 0 where
+  h_e <= 0; it goes where the flux transpose's u * dF goes, half to each of
+  the edge's two cells;
+* d(dt) gains <gu, F>;
+* d(wind) = sum over the levels of a top inv_h, per edge;
+* d(r, Cd, lambda) = (-sum a bot u, -sum a bot |u| u inv_h, -sum a u).
+The level masks get no cotangent (the JAX kernels return zeros for them).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..constants import GRAVITY
+from ..models.forcing import Forcing, forcing_tendency
 from .hex_layout import E, NE, NW
 from .model import (
     StructMesh,
     StructState,
+    _forced,
     _incoming_edge_fields,
     _neighbor_cell_field,
     _shift,
@@ -78,15 +97,52 @@ from .stencils import (
     transpose_kite_terms,
 )
 
-__all__ = ["structured_adjoint_run_loop", "structured_adjoint_step",
-           "structured_nl_adjoint_step"]
+__all__ = ["ForcingCot", "forcing_transpose", "structured_adjoint_run_loop",
+           "structured_adjoint_step", "structured_nl_adjoint_step"]
+
+
+class ForcingCot(NamedTuple):
+    """The cotangent of a Forcing's differentiable parts: the wind (edges...)
+    and (r_lin, Cd, lambda) as a (3,) tensor."""
+
+    wind: torch.Tensor
+    coefs: torch.Tensor
+
+    def __add__(self, other: "ForcingCot") -> "ForcingCot":
+        return ForcingCot(self.wind + other.wind, self.coefs + other.coefs)
+
+
+def forcing_transpose(u, h_edge, gu, dt, forcing: Forcing):
+    """The transpose of the forcing term dt F(u, h_edge) for its output
+    cotangent gu (module docstring): (du, the h_edge cotangent, <gu, F>,
+    ForcingCot)."""
+    a = dt * gu
+    top, bot = forcing.top_mask, forcing.bottom_mask
+    wind = forcing.wind_edge[..., None]
+    dlin, dquad, rayl = forcing.drag_linear, forcing.drag_quadratic, forcing.rayleigh
+    pos = h_edge > 0
+    one = torch.ones_like(h_edge)
+    inv_h = one / torch.where(pos, h_edge, one)
+    au = torch.abs(u)
+    d_u = a * (-bot * (dlin + 2.0 * dquad * au * inv_h) - rayl)
+    d_he = a * (top * wind - bot * (dquad * au * u)) * torch.where(
+        pos, -inv_h * inv_h, torch.zeros_like(inv_h))
+    coefs = torch.stack([-(a * bot * u).sum(), -(a * bot * au * u * inv_h).sum(),
+                         -(a * u).sum()])
+    d_dt = (gu * forcing_tendency(u, h_edge, forcing)).sum()
+    return d_u, d_he, d_dt, ForcingCot((a * top * inv_h).sum(-1), coefs)
+
+
+def _result(d_state: StructState, d_dt, d_forc):
+    return (d_state, d_dt) if d_forc is None else (d_state, d_dt, d_forc)
 
 
 def structured_adjoint_step(
-    state: StructState, g: StructState, mesh: StructMesh, dt
-) -> tuple[StructState, torch.Tensor]:
-    """VJP of ``structured_step(state, mesh, dt)`` for the output cotangent
-    ``g``: (cotangent of the input state, d(dt) as a 0-d tensor). With the
+    state: StructState, g: StructState, mesh: StructMesh, dt, forcing: Forcing | None = None
+):
+    """VJP of ``structured_step(state, mesh, dt, forcing=forcing)`` for the
+    output cotangent ``g``: (cotangent of the input state, d(dt) as a 0-d
+    tensor), and with ``forcing`` a third item, the ForcingCot. With the
     mesh's wall mask m, gu is m * gu throughout."""
     h, u = state.layer_thickness, state.normal_velocity
     gu = g.normal_velocity
@@ -103,16 +159,24 @@ def structured_adjoint_step(
     g_flux = torch.stack([_neighbor_cell_field(G, f) - G for f in (E, NE, NW)])
     g_flux = g_flux * (dt * (mesh.dv / mesh.area_cell))
     ug = u * g_flux
+    d_forc = None
+    if forcing is not None:
+        du_f, dhe_f, dd_f, d_forc = forcing_transpose(u, h_edge, gu, dt, forcing)
+        ug = ug + dhe_f
+        d_dt = d_dt + dd_f
     inc_E, inc_NE, inc_NW = _incoming_edge_fields(ug)
     d_h = G + 0.5 * (ug[0] + ug[1] + ug[2] + inc_E + inc_NE + inc_NW)
 
     ct = apply_stencil(gu, transpose_coriolis_terms(mesh.coriolis_terms))
     d_u = gu + h_edge * g_flux + dt * (mesh.f_edge[..., None] * ct)
+    if forcing is not None:
+        d_u = d_u + du_f
 
     s = gu.sum(-1)
     inc_E, inc_NE, inc_NW = _incoming_edge_fields(s)
     d_ssh = (GRAVITY * dt / mesh.dc) * (s[0] + s[1] + s[2] - inc_E - inc_NE - inc_NW)
-    return StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u), d_dt
+    return _result(StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u), d_dt,
+                   d_forc)
 
 
 def _gather(y, terms, n_out: int, weight=lambda x, v: v):
@@ -138,13 +202,14 @@ def _own_plus_incoming(x):
 
 
 def structured_nl_adjoint_step(
-    state: StructState, g: StructState, mesh: StructMesh, dt
-) -> tuple[StructState, torch.Tensor]:
-    """VJP of ``structured_step(state, mesh, dt, nonlinear=True)`` for the
-    output cotangent ``g``: (cotangent of the input state, d(dt) as a 0-d
-    tensor), written out by hand (module docstring). With the mesh's wall
-    mask m, gu is m * gu throughout. A mesh without the vertex constants
-    raises (``model.check_nl_mesh``)."""
+    state: StructState, g: StructState, mesh: StructMesh, dt, forcing: Forcing | None = None
+):
+    """VJP of ``structured_step(state, mesh, dt, nonlinear=True,
+    forcing=forcing)`` for the output cotangent ``g``: (cotangent of the
+    input state, d(dt) as a 0-d tensor), and with ``forcing`` a third item,
+    the ForcingCot, written out by hand (module docstring). With the mesh's
+    wall mask m, gu is m * gu throughout. A mesh without the vertex
+    constants raises (``model.check_nl_mesh``)."""
     check_nl_mesh(mesh)
     h, u = state.layer_thickness, state.normal_velocity
     gu = g.normal_velocity
@@ -159,7 +224,8 @@ def structured_nl_adjoint_step(
     h_edge = interp_cell_to_edge(h, mesh)
     flux = u * h_edge
     tend_h = -div_on_cell(flux, mesh)
-    tend_u = _tend_u(state, flux, grad_on_edge(state.ssh, mesh), mesh, True)
+    tend_u = _forced(_tend_u(state, flux, grad_on_edge(state.ssh, mesh), mesh, True), state,
+                     h_edge, forcing)
     d_dt = (G * tend_h).sum() + (gu * tend_u).sum()
 
     # the primal PV, as model.pv_on_vertex_struct computes it
@@ -203,28 +269,41 @@ def structured_nl_adjoint_step(
 
     d_u = (gu + h_edge * d_flux + (2.0 * s_ke) * u * ke_sum
            + d_curl.reshape(d_flux.shape))
-    d_h = (G + 0.5 * _own_plus_incoming(u * d_flux)
+    d_he = u * d_flux
+    d_forc = None
+    if forcing is not None:
+        du_f, dhe_f, _, d_forc = forcing_transpose(u, h_edge, gu, dt, forcing)
+        d_u = d_u + du_f
+        d_he = d_he + dhe_f
+    d_h = (G + 0.5 * _own_plus_incoming(d_he)
            + _gather(d_hv, transpose_kite_terms(mesh.vertex_cell_terms), 2, kite))
     d_ssh = (GRAVITY * dt / mesh.dc) * _own_minus_incoming(gu.sum(-1))
-    return StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u), d_dt
+    return _result(StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u), d_dt,
+                   d_forc)
 
 
 def structured_adjoint_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, g: StructState,
-    nonlinear: bool = False,
-) -> tuple[StructState, torch.Tensor]:
-    """VJP of ``structured_run_loop(state, mesh, dt, n_steps, nonlinear)``
-    for the output cotangent ``g``, keeping all n_steps primal states: the
-    plain version of the whole kernel reverse, on any device."""
+    nonlinear: bool = False, forcing: Forcing | None = None,
+):
+    """VJP of ``structured_run_loop(state, mesh, dt, n_steps, nonlinear,
+    forcing=forcing)`` for the output cotangent ``g``, keeping all n_steps
+    primal states: the plain version of the whole kernel reverse, on any
+    device. Returns (d_state, d_dt), and with ``forcing`` the ForcingCot
+    third."""
     step = structured_nl_adjoint_step if nonlinear else structured_adjoint_step
     states = [state]
     for _ in range(n_steps - 1):
-        states.append(structured_step(states[-1], mesh, dt, nonlinear))
+        states.append(structured_step(states[-1], mesh, dt, nonlinear, forcing))
     d_dt = torch.zeros((), dtype=state.layer_thickness.dtype,
                        device=state.layer_thickness.device)
-    if n_steps == 0:
-        return g, d_dt
-    for s in reversed(states):
-        g, dd = step(s, g, mesh, dt)
-        d_dt = d_dt + dd
-    return g, d_dt
+    d_forc = None
+    if forcing is not None:
+        d_forc = ForcingCot(torch.zeros_like(forcing.wind_edge),
+                            torch.zeros(3, dtype=d_dt.dtype, device=d_dt.device))
+    for s in reversed(states[:n_steps]):
+        out = step(s, g, mesh, dt, forcing)
+        g, d_dt = out[0], d_dt + out[1]
+        if forcing is not None:
+            d_forc = d_forc + out[2]
+    return _result(g, d_dt, d_forc)

@@ -21,6 +21,13 @@ runs about twice. The TPU kernel rebuilt b-step segments inside VMEM under a
 fitted VMEM model; on the card the limit is device memory, so there is one
 level of groups and no recompute inside a kernel.
 
+Momentum forcing (``forcing=``, struct layout) is a differentiated input:
+its wind and its three coefficients get cotangents (the level masks none,
+as in the JAX package's ``_forcing_cotangent``, :1939-1955). On the card the
+forced arms of the kernels run, linear core only (``nonlinear`` with
+``forcing`` raises there); the reverse kernels accumulate d(wind) per edge
+and d(r_lin, Cd, lambda) in double beside d(dt).
+
 State on a CUDA device runs the kernels, and a failed build or launch
 raises. State on the CPU runs the same plan with the plain step
 (``model.structured_step``) and the plain adjoint step
@@ -38,8 +45,18 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..kernels import adjoint_step, fe_step
-from .adjoint import structured_adjoint_step, structured_nl_adjoint_step
-from .fused_model import _scal, fused_run_loop, kernel_live, nl_adjoint_scal, nl_scal, nl_setup
+from ..models.forcing import Forcing
+from .adjoint import ForcingCot, structured_adjoint_step, structured_nl_adjoint_step
+from .fused_model import (
+    _scal,
+    check_forced_core,
+    fused_run_loop,
+    kernel_forcing,
+    kernel_live,
+    nl_adjoint_scal,
+    nl_scal,
+    nl_setup,
+)
 from .model import (
     StructMesh,
     StructState,
@@ -104,21 +121,30 @@ def adjoint_plan(n_steps: int, state_bytes: int, budget: float) -> int:
 class _Steps:
     """The forward and reverse steps one device runs: the kernels for a
     CUDA state, the plain versions for a CPU state; both forward and
-    reverse take the mesh's wall mask where it has one, and with
-    ``nonlinear`` the vector-invariant core (forward: fe_step's nonlinear
-    arm at ``fe_step.nl_plan``'s plan, the forward path's own; reverse: the
+    reverse take the mesh's wall mask where it has one, the ``forcing``
+    (the kernels' forced arms on the card), and with ``nonlinear`` the
+    vector-invariant core (forward: fe_step's nonlinear arm at
+    ``fe_step.nl_plan``'s plan, the forward path's own; reverse: the
     nonlinear reverse kernel over ``nl_tile`` tiles, by default
     ``adjoint_step.nl_adjoint_plan``'s). States are StructStates of
-    preallocated tensors; stacks carry a leading slot axis."""
+    preallocated tensors; stacks carry a leading slot axis. With forcing,
+    the reverse adds d(wind) and d(r_lin, Cd, lambda) to ``dforc``."""
 
     def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, nonlinear: bool = False,
-                 nl_tile=None):
-        self.mesh, self.dt, self.nonlinear = mesh, dt, nonlinear
+                 nl_tile=None, forcing: Forcing | None = None):
+        self.mesh, self.dt, self.nonlinear, self.forcing = mesh, dt, nonlinear, forcing
         self.cuda = like.device.type == "cuda"
         if not self.cuda and like.device.type != "cpu":
             raise ValueError(f"no rollout for state on {like.device}")
         if nonlinear:
             check_nl_mesh(mesh)
+        check_forced_core(forcing, nonlinear, like.device)
+        self.dforc = None
+        if forcing is not None:
+            # d(wind) in the state dtype, per edge channel; the coefficients' in double
+            self.dforc = ForcingCot(
+                torch.zeros((6, mesh.ny2, mesh.nx), dtype=like.dtype, device=like.device),
+                torch.zeros(3, dtype=torch.float64, device=like.device))
         if self.cuda:
             dtype = like.dtype
             self.scal = _scal(mesh, dt, dtype)
@@ -127,6 +153,7 @@ class _Steps:
             self.fwd = (f_edge, rts, *mesh.host_stencil)
             self.adj = (f_edge, *mesh.host_adjoint_stencil)
             self.live = kernel_live(mesh)
+            self.kf = kernel_forcing(forcing, mesh, dtype, like.device)
             if nonlinear:
                 nl = (nl_setup(mesh, dtype), mesh.vertex_cell_terms, mesh.edge_vertex_terms)
                 self.nl_fwd = (rts, *mesh.host_stencil, *nl)
@@ -135,6 +162,19 @@ class _Steps:
                 self.nl_adj_scal = (*self.nl_scal, *nl_adjoint_scal(mesh, dt, dtype))
                 self.nl_tile = nl_tile
 
+    def forcing_cot(self) -> ForcingCot | None:
+        """The accumulated forcing cotangent: d(wind) (3, 2, ny2, nx) and
+        d(r_lin, Cd, lambda) (3,), or None unforced."""
+        if self.dforc is None:
+            return None
+        m = self.mesh
+        return ForcingCot(self.dforc.wind.reshape(3, 2, m.ny2, m.nx), self.dforc.coefs)
+
+    def add_forcing_cot(self, d: ForcingCot) -> None:
+        """Add a plain reverse's ForcingCot (d(wind) (3, 2, ny2, nx)) to ``dforc``."""
+        self.dforc.wind.add_(d.wind.reshape(self.dforc.wind.shape))
+        self.dforc.coefs.add_(d.coefs.to(self.dforc.coefs.dtype))
+
     def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
         """n >= 1 steps from src into out."""
         if self.cuda and self.nonlinear:
@@ -142,10 +182,11 @@ class _Steps:
                                   live=self.live, out=_fields(out), scratch=_fields(scratch))
         elif self.cuda:
             fe_step.fe_rollout_into(_fields(src), _fields(out), *self.fwd, *self.scal,
-                                    n, _fields(scratch), live=self.live)
+                                    n, _fields(scratch), live=self.live, forcing=self.kf)
         else:
             for dst, x in zip(_fields(out), _fields(structured_run_loop(
-                    src, self.mesh, self.dt, n, nonlinear=self.nonlinear))):
+                    src, self.mesh, self.dt, n, nonlinear=self.nonlinear,
+                    forcing=self.forcing))):
                 dst.copy_(x)
 
     def fill(self, stack: StructState, n: int):
@@ -154,17 +195,20 @@ class _Steps:
             fe_step.fe_nl_fill_stack(_fields(stack), *self.nl_fwd, *self.nl_scal, n,
                                      live=self.live)
         elif self.cuda:
-            fe_step.fe_fill_stack(_fields(stack), *self.fwd, *self.scal, n, live=self.live)
+            fe_step.fe_fill_stack(_fields(stack), *self.fwd, *self.scal, n, live=self.live,
+                                  forcing=self.kf)
         else:
             for j in range(n):
-                nxt = structured_step(_slot(stack, j), self.mesh, self.dt, self.nonlinear)
+                nxt = structured_step(_slot(stack, j), self.mesh, self.dt, self.nonlinear,
+                                      self.forcing)
                 for dst, x in zip(_fields(_slot(stack, j + 1)), _fields(nxt)):
                     dst.copy_(x)
 
     def reverse(self, stack: StructState, g: StructState, n: int, ddt: torch.Tensor,
                 out: StructState, scratch: StructState):
         """n >= 1 reverse steps through the stack's slots n - 1 .. 0, from
-        the cotangent g at step n into out; d(dt) is added to ddt."""
+        the cotangent g at step n into out; d(dt) is added to ddt, and with
+        forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``."""
         if self.cuda and self.nonlinear:
             adjoint_step.nl_adjoint_rollout(_fields(stack), _fields(g), *self.nl_adj,
                                             *self.nl_adj_scal, n, ddt, _fields(out),
@@ -174,12 +218,16 @@ class _Steps:
         if self.cuda:
             adjoint_step.adjoint_rollout(_fields(stack), _fields(g), *self.adj,
                                          *self.scal, n, ddt, _fields(out),
-                                         _fields(scratch), live=self.live)
+                                         _fields(scratch), live=self.live, forcing=self.kf,
+                                         dforc=self.dforc)
             return
         step = structured_nl_adjoint_step if self.nonlinear else structured_adjoint_step
         for j in reversed(range(n)):
-            g, dd = step(_slot(stack, j), g, self.mesh, self.dt)
-            ddt += dd
+            res = step(_slot(stack, j), g, self.mesh, self.dt, self.forcing)
+            g = res[0]
+            ddt += res[1]
+            if self.forcing is not None:
+                self.add_forcing_cot(res[2])
         for dst, x in zip(_fields(out), _fields(g)):
             dst.copy_(x)
 
@@ -200,20 +248,23 @@ def _copy(state: StructState) -> StructState:
 
 
 def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
-                  group: int, nonlinear: bool = False) -> tuple[StructState, StructState]:
+                  group: int, nonlinear: bool = False, forcing: Forcing | None = None
+                  ) -> tuple[StructState, StructState]:
     """The forward in groups of ``group`` steps (the last takes the
     remainder), keeping each group's start state. Returns (final state,
     checkpoints as a StructState of stacks with one slot per group). The
     per-step arithmetic is that of one ``fused_run_loop`` call (with
-    ``nonlinear``, of the vector-invariant core), so the final state is
-    bitwise the same. Counterpart of ``_pallas_forward_ckpts``."""
+    ``nonlinear``, of the vector-invariant core; with ``forcing``, forced),
+    so the final state is bitwise the same. Counterpart of
+    ``_pallas_forward_ckpts``."""
     starts = range(0, n_steps, group)
     ckpts = _empty(state, len(starts))
     if nonlinear:
         check_nl_mesh(mesh)
+    check_forced_core(forcing, nonlinear, state.layer_thickness.device)
     if n_steps == 0:
         return _copy(state), ckpts
-    steps = _Steps(mesh, dt, state.layer_thickness, nonlinear)
+    steps = _Steps(mesh, dt, state.layer_thickness, nonlinear, forcing=forcing)
     for dst, x in zip(_fields(_slot(ckpts, 0)), _fields(state)):
         dst.copy_(x)
     final, scratch = _empty(state), _empty(state)
@@ -254,35 +305,41 @@ def _plan(state: StructState, n_steps: int, plan) -> int:
                         _default_budget(state.layer_thickness.device))
 
 
+def _with_forcing(result: tuple, steps: _Steps) -> tuple:
+    """(d_state, d_dt), and the ForcingCot third where the steps are forced."""
+    d = steps.forcing_cot()
+    return result if d is None else (*result, d)
+
+
 def adjoint_segment(ckpt: StructState, cot: StructState, mesh: StructMesh, dt,
-                    n_steps: int, nonlinear: bool = False) -> tuple[StructState, torch.Tensor]:
+                    n_steps: int, nonlinear: bool = False, forcing: Forcing | None = None):
     """Reverse of one n-step segment (of the nonlinear core with
-    ``nonlinear``): rebuild its states from its start state ``ckpt``, then
-    step the cotangent ``cot`` at its end back to its start. Returns
-    (cotangent at the start, d(dt) as a 0-d float64 tensor). Counterpart of
+    ``nonlinear``, forced with ``forcing``): rebuild its states from its
+    start state ``ckpt``, then step the cotangent ``cot`` at its end back to
+    its start. Returns (cotangent at the start, d(dt) as a 0-d float64
+    tensor), and with forcing the ForcingCot third. Counterpart of
     ``_adjoint_segment``."""
     if n_steps < 1:
         raise ValueError("a segment has n_steps >= 1")
-    steps = _Steps(mesh, dt, ckpt.layer_thickness, nonlinear)
+    steps = _Steps(mesh, dt, ckpt.layer_thickness, nonlinear, forcing=forcing)
     ddt = torch.zeros(1, dtype=torch.float64, device=ckpt.layer_thickness.device)
     out = _empty(ckpt)
     _segment(steps, ckpt, _cotangent(cot, ckpt), n_steps, _empty(ckpt, n_steps), ddt,
              out, _empty(ckpt))
-    return out, ddt.reshape(())
+    return _with_forcing((out, ddt.reshape(())), steps)
 
 
-def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int,
-          g: StructState) -> tuple[StructState, torch.Tensor]:
+def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructState) -> tuple:
     """The reverse sweep over n slots from the checkpoints, one per group of
     ``group`` slots (the last takes the remainder): per group, last to
     first, rebuild its slots with ``steps.fill`` and step the cotangent back
     through them with ``steps.reverse``. A slot is a step here and a
     superstep in tiled_diff. Returns (cotangent of the rollout's input,
-    d(dt) as a 0-d float64 tensor)."""
+    d(dt) as a 0-d float64 tensor), and with forcing the ForcingCot third."""
     x = ckpts.layer_thickness
     ddt = torch.zeros(1, dtype=torch.float64, device=x.device)
     if n == 0:
-        return g, ddt.reshape(())
+        return _with_forcing((g, ddt.reshape(())), steps)
     like = _slot(ckpts, 0)
     stack = _empty(like, min(group, n))
     bufs, scratch = (_empty(like), _empty(like)), _empty(like)
@@ -292,34 +349,37 @@ def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int,
         _segment(steps, _slot(ckpts, gi), cot, min(group, n - gi * group), stack,
                  ddt, out, scratch)
         cot = out
-    return cot, ddt.reshape(())
+    return _with_forcing((cot, ddt.reshape(())), steps)
 
 
 def adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
-                       group: int, g: StructState, nonlinear: bool = False
-                       ) -> tuple[StructState, torch.Tensor]:
+                       group: int, g: StructState, nonlinear: bool = False,
+                       forcing: Forcing | None = None) -> tuple:
     """The reverse sweep from the checkpoints of ``forward_ckpts`` (of the
-    nonlinear core with ``nonlinear``): per group, last to first, rebuild
-    its states and step the cotangent back through them. Returns (cotangent
-    of the rollout's input, d(dt) as a 0-d float64 tensor). Counterpart of
+    nonlinear core with ``nonlinear``, forced with ``forcing``): per group,
+    last to first, rebuild its states and step the cotangent back through
+    them. Returns (cotangent of the rollout's input, d(dt) as a 0-d float64
+    tensor), and with forcing the ForcingCot third. Counterpart of
     ``_pallas_adjoint_from_ckpts``."""
-    return _sweep(_Steps(mesh, dt, ckpts.layer_thickness, nonlinear), ckpts, n_steps, group,
-                  g)
+    return _sweep(_Steps(mesh, dt, ckpts.layer_thickness, nonlinear, forcing=forcing), ckpts,
+                  n_steps, group, g)
 
 
 def fused_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
-                          g: StructState, *, plan: int | None = None, nonlinear: bool = False):
-    """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``):
-    given its input ``state`` and an output cotangent ``g``, returns
-    (d_state, d_dt), d_dt as a 0-d tensor in dt's dtype (float64 for a
-    Python dt). ``plan`` (steps per group) overrides ``adjoint_plan``, whose
-    budget is MEMORY_SHARE of the card's free memory (unbounded on the CPU).
+                          g: StructState, *, plan: int | None = None, nonlinear: bool = False,
+                          forcing: Forcing | None = None):
+    """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``,
+    forced with ``forcing``): given its input ``state`` and an output
+    cotangent ``g``, returns (d_state, d_dt), d_dt as a 0-d tensor in dt's
+    dtype (float64 for a Python dt), and with forcing the ForcingCot third.
+    ``plan`` (steps per group) overrides ``adjoint_plan``, whose budget is
+    MEMORY_SHARE of the card's free memory (unbounded on the CPU).
     Counterpart of ``pallas_adjoint_rollout``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
     group = _plan(state, n_steps, plan)
-    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, group, nonlinear)
-    d_state, ddt = adjoint_from_ckpts(ckpts, mesh, dt, n_steps, group, g, nonlinear)
-    return d_state, ddt.to(dtype=dtype, device=device)
+    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, group, nonlinear, forcing)
+    res = adjoint_from_ckpts(ckpts, mesh, dt, n_steps, group, g, nonlinear, forcing)
+    return (res[0], res[1].to(dtype=dtype, device=device), *res[2:])
 
 
 def _dt_value(dt) -> float:
@@ -330,12 +390,43 @@ def _save_dt(ctx, dt, device):
     ctx.dt_v, ctx.dt_meta = _dt_value(dt), _dt_meta(dt, device)
 
 
-def _grads(ctx, d_state: StructState, ddt: torch.Tensor):
+# The inputs of the autograd Functions below: the state, dt, the forcing's
+# differentiable parts (wind and the three coefficients, None unforced),
+# then the rest, which get no cotangent.
+_DIFF_INPUTS = 8
+
+
+def _forcing_inputs(forcing: Forcing | None) -> tuple:
+    if forcing is None:
+        return (None,) * 4
+    return (forcing.wind_edge, forcing.drag_linear, forcing.drag_quadratic, forcing.rayleigh)
+
+
+def _save_forcing(ctx, forcing: Forcing | None, wind, dlin, dquad, rayl) -> Forcing | None:
+    """The forcing with its differentiable parts as given (detached), kept on
+    ctx with the inputs' dtypes for the cotangents."""
+    if forcing is not None:
+        forcing = Forcing(wind.detach(), forcing.top_mask, forcing.bottom_mask,
+                          *(x.detach() for x in (dlin, dquad, rayl)))
+        ctx.forc_meta = [(x.dtype, x.device) for x in (wind, dlin, dquad, rayl)]
+    ctx.forcing = forcing
+    return forcing
+
+
+def _grads(ctx, res) -> tuple:
+    """The cotangents of the first _DIFF_INPUTS inputs from a reverse's
+    (d_state, ddt[, ForcingCot])."""
+    d_state, ddt = res[:2]
     d_dt = None
     if ctx.needs_input_grad[3]:
         dtype, device = ctx.dt_meta
         d_dt = ddt.to(dtype=dtype, device=device)
-    return (*_fields(d_state), d_dt)
+    d_forc = [None] * 4
+    if ctx.forcing is not None:
+        d = res[2]
+        d_forc = [x.to(dtype=t, device=v)
+                  for x, (t, v) in zip((d.wind, *d.coefs), ctx.forc_meta)]
+    return (*_fields(d_state), d_dt, *d_forc)
 
 
 def _output_cotangent(like: StructState, grads) -> StructState:
@@ -346,15 +437,19 @@ def _output_cotangent(like: StructState, grads) -> StructState:
 class FusedRolloutDiff(torch.autograd.Function):
     """n-step rollout whose backward is the checkpointed reverse sweep
     (``forward_ckpts`` forward, ``adjoint_from_ckpts`` backward). Inputs:
-    ssh, h, u, dt (float or tensor), mesh, n_steps, plan, nonlinear. The
-    mesh gets no cotangent (None; the JAX package returns zeros for it)."""
+    ssh, h, u, dt (float or tensor), the forcing's wind and r_lin, Cd,
+    lambda (None unforced), mesh, n_steps, plan, nonlinear, forcing (its
+    level masks). The mesh and the masks get no cotangent (None; the JAX
+    package returns zeros for them)."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, dt, mesh, n_steps, plan=None, nonlinear=False):
+    def forward(ctx, ssh, h, u, dt, wind, dlin, dquad, rayl, mesh, n_steps, plan=None,
+                nonlinear=False, forcing=None):
         state = StructState(ssh, h, u)
         _save_dt(ctx, dt, h.device)
+        forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
         group = _plan(state, n_steps, plan)
-        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, group, nonlinear)
+        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, group, nonlinear, forcing)
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.group = ckpts, mesh, n_steps, group
         ctx.nonlinear = nonlinear
         return _fields(final)
@@ -362,54 +457,62 @@ class FusedRolloutDiff(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gs, gh, gu):
+        rest = (None,) * 5
         if ctx.n_steps == 0:
-            return gs, gh, gu, None, None, None, None, None
+            return gs, gh, gu, *(None,) * (_DIFF_INPUTS - 3), *rest
         g = _output_cotangent(_slot(ctx.ckpts, 0), (gs, gh, gu))
-        d_state, ddt = adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps,
-                                          ctx.group, g, ctx.nonlinear)
-        return (*_grads(ctx, d_state, ddt), None, None, None, None)
+        res = adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps, ctx.group, g,
+                                 ctx.nonlinear, ctx.forcing)
+        return (*_grads(ctx, res), *rest)
 
 
 def fused_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
-                       plan: int | None = None, nonlinear: bool = False) -> StructState:
+                       plan: int | None = None, nonlinear: bool = False,
+                       forcing: Forcing | None = None) -> StructState:
     """n-step rollout of the linear core, or with ``nonlinear`` of the
     vector-invariant one (periodic, or masked where the mesh has a wall
-    mask), differentiable with respect to the state and a tensor ``dt``: the
-    reverse-mode pass through the whole loop, which the reference validates
-    with Enzyme against finite differences. Forward through ``fe_step`` on
-    the card, backward through ``adjoint_step`` (the nonlinear core: the
-    nonlinear reverse kernel). Counterpart of ``pallas_rollout_diff``."""
-    return StructState(*FusedRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan,
-                                               nonlinear))
+    mask), forced with ``forcing`` (struct layout), differentiable with
+    respect to the state, a tensor ``dt`` and the forcing's wind and
+    coefficients: the reverse-mode pass through the whole loop, which the
+    reference validates with Enzyme against finite differences. Forward
+    through ``fe_step`` on the card, backward through ``adjoint_step`` (the
+    nonlinear core: the nonlinear reverse kernel; forcing with the
+    nonlinear core raises there). Counterpart of ``pallas_rollout_diff``."""
+    return StructState(*FusedRolloutDiff.apply(*_fields(state), dt, *_forcing_inputs(forcing),
+                                               mesh, n_steps, plan, nonlinear, forcing))
 
 
 class FusedStep(torch.autograd.Function):
     """One differentiable step: the forward kernel forward, the reverse
-    kernel backward. Inputs: ssh, h, u, dt, mesh, nonlinear."""
+    kernel backward. Inputs: ssh, h, u, dt, the forcing's wind and
+    coefficients (None unforced), mesh, nonlinear, forcing."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, dt, mesh, nonlinear=False):
+    def forward(ctx, ssh, h, u, dt, wind, dlin, dquad, rayl, mesh, nonlinear=False,
+                forcing=None):
         ctx.save_for_backward(ssh, h, u)
         ctx.mesh, ctx.nonlinear = mesh, nonlinear
         _save_dt(ctx, dt, h.device)
+        forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
         return _fields(fused_run_loop(StructState(ssh, h, u), mesh, ctx.dt_v, 1,
-                                      nonlinear=nonlinear))
+                                      nonlinear=nonlinear, forcing=forcing))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gs, gh, gu):
         state = StructState(*ctx.saved_tensors)
-        d_state, ddt = adjoint_segment(
-            state, _output_cotangent(state, (gs, gh, gu)), ctx.mesh, ctx.dt_v, 1,
-            ctx.nonlinear)
-        return (*_grads(ctx, d_state, ddt), None, None)
+        res = adjoint_segment(state, _output_cotangent(state, (gs, gh, gu)), ctx.mesh,
+                              ctx.dt_v, 1, ctx.nonlinear, ctx.forcing)
+        return (*_grads(ctx, res), None, None, None)
 
 
-def fused_step(state: StructState, mesh: StructMesh, dt, *,
-               nonlinear: bool = False) -> StructState:
+def fused_step(state: StructState, mesh: StructMesh, dt, *, nonlinear: bool = False,
+               forcing: Forcing | None = None) -> StructState:
     """One differentiable forward-Euler step (of the nonlinear core with
-    ``nonlinear``). Counterpart of ``pallas_step``."""
-    return StructState(*FusedStep.apply(*_fields(state), dt, mesh, nonlinear))
+    ``nonlinear``, forced with ``forcing``). Counterpart of
+    ``pallas_step``."""
+    return StructState(*FusedStep.apply(*_fields(state), dt, *_forcing_inputs(forcing), mesh,
+                                        nonlinear, forcing))
 
 
 # The size rule of auto_rollout_diff on the card: lattices of at least this
@@ -425,7 +528,8 @@ TILED_REVERSE_SITES = math.inf
 
 
 def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
-                      plan=None, nonlinear: bool = False) -> StructState:
+                      plan=None, nonlinear: bool = False,
+                      forcing: Forcing | None = None) -> StructState:
     """The differentiable lattice rollout's entry point, the routing half of
     ``pallas_rollout_diff``'s forward (pallas_model.py:2779-2823). A CPU
     state takes ``fused_rollout_diff``, whose plain route runs the plain
@@ -434,11 +538,15 @@ def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     lattices of fewer than TILED_REVERSE_SITES sites and ``tiled_adjoint``
     (``tiled_diff.tiled_rollout_diff``) on larger ones. ``nonlinear`` runs
     the vector-invariant core through the same routes (the kernels'
-    nonlinear arms). ``plan`` is the chosen route's: steps per group for the
-    fused reverse, (row_tile, col_tile, q, group) for the tiled one."""
+    nonlinear arms), and ``forcing`` (struct layout, a differentiated input)
+    through their forced arms. ``plan`` is the chosen route's: steps per
+    group for the fused reverse, (row_tile, col_tile, q, group) for the
+    tiled one."""
     sites = 2 * mesh.ny2 * mesh.nx
     if state.layer_thickness.device.type == "cuda" and sites >= TILED_REVERSE_SITES:
         from .tiled_diff import tiled_rollout_diff
 
-        return tiled_rollout_diff(state, mesh, dt, n_steps, plan=plan, nonlinear=nonlinear)
-    return fused_rollout_diff(state, mesh, dt, n_steps, plan=plan, nonlinear=nonlinear)
+        return tiled_rollout_diff(state, mesh, dt, n_steps, plan=plan, nonlinear=nonlinear,
+                                  forcing=forcing)
+    return fused_rollout_diff(state, mesh, dt, n_steps, plan=plan, nonlinear=nonlinear,
+                              forcing=forcing)

@@ -4,7 +4,9 @@ that routes between them.
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
 ``pallas_run_loop`` (:712) and ``structured_auto_run_loop`` (:1419) for the
 linear and the nonlinear core, on periodic lattices and on coastal channels
-(a mesh with a wall mask runs the kernels' masked arms). ``fused_run_loop`` runs forward
+(a mesh with a wall mask runs the kernels' masked arms), with momentum
+forcing (``forcing=``, the kernels' forced arms; ``forcing_setup`` is the
+counterpart of ``_forcing_setup``, :646-709). ``fused_run_loop`` runs forward
 Euler (FE) one hand-written kernel step per launch (kernels/fe_step.py,
 csrc/fe_step.cu); ``tiled_model.tiled_run_loop`` runs FE or
 forward-backward (FB) q steps per launch (kernels/tiled_step.py). State on
@@ -15,15 +17,19 @@ falls back from one to the other.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..constants import GRAVITY
 from ..kernels import fe_step
+from ..models.forcing import Forcing
 from . import tiled_model
 from .model import StructMesh, StructState, check_nl_mesh, structured_run_loop
 
-__all__ = ["fused_run_loop", "kernel_live", "nl_adjoint_scal", "nl_scal", "nl_setup",
-           "structured_auto_run_loop"]
+__all__ = ["KernelForcing", "check_forced_core", "forcing_scal", "forcing_setup",
+           "fused_run_loop", "kernel_forcing", "kernel_live", "nl_adjoint_scal", "nl_scal",
+           "nl_setup", "pack_levels", "structured_auto_run_loop"]
 
 
 def _scal(mesh: StructMesh, dt, dtype: torch.dtype) -> tuple[float, float, float]:
@@ -69,6 +75,82 @@ def nl_setup(mesh: StructMesh, dtype: torch.dtype) -> torch.Tensor:
     return torch.cat(planes).to(dtype).contiguous()
 
 
+def forcing_setup(forcing: Forcing, ny2: int, nx: int, dtype: torch.dtype):
+    """A lattice Forcing (``StructuredModel.to_struct_forcing``) as the
+    kernels take it (pallas_model._forcing_setup's concrete branch): the wind
+    planes (6, ny2, nx) in ``dtype`` and the one-hot level masks compressed
+    to per-edge level indices, int32 (12, ny2, nx) = [top x 6; bottom x 6],
+    -1 on an edge with no active level, computed on the forcing's device. A
+    mask that is not one-hot {0, 1} raises NotImplementedError. The JAX
+    package also has a traced branch, which cannot check its masks and
+    poisons the wind with NaN instead; eager torch always holds concrete
+    masks, so the check runs on every call."""
+    wind = forcing.wind_edge.reshape(6, ny2, nx).to(dtype).contiguous()
+    idx = []
+    for m in (forcing.top_mask, forcing.bottom_mask):
+        m = m.detach().reshape(6, ny2, nx, -1)
+        on = m != 0
+        ii = torch.where(on.sum(-1) == 1, on.to(torch.int32).argmax(-1), -1).to(torch.int32)
+        recon = torch.arange(m.shape[-1], device=m.device) == ii[..., None]
+        if not torch.equal(recon.to(m.dtype), m):
+            raise NotImplementedError(
+                "the kernels take one-hot {0, 1} forcing level masks only (make_forcing "
+                "builds these); run the plain steps for general level masks")
+        idx.append(ii)
+    return wind, torch.cat(idx)
+
+
+def pack_levels(idx: torch.Tensor) -> torch.Tensor:
+    """``forcing_setup``'s level indices (12, ny2, nx) packed into one int32
+    per edge (6, ny2, nx), as the forced arms take them: bits 0-15 hold
+    top + 1 and bits 16-31 bottom + 1, 0 for no active level (csrc/
+    step_window.cuh, load_forcing)."""
+    if int(idx.max()) >= (1 << 15) - 1:
+        raise ValueError("the forced arms take fewer than 32767 levels")
+    return ((idx[:6] + 1) | ((idx[6:] + 1) << 16)).to(torch.int32).contiguous()
+
+
+def forcing_scal(forcing: Forcing, dtype: torch.dtype) -> tuple[float, float, float]:
+    """(r_lin, Cd, lambda) rounded once from the forcing's dtype to the state
+    dtype, as pallas_model._scal's slots 6-8."""
+    return tuple(float(x.detach().cpu().to(dtype))
+                 for x in (forcing.drag_linear, forcing.drag_quadratic, forcing.rayleigh))
+
+
+class KernelForcing(NamedTuple):
+    """The forced arms' operands: the wind (6, ny2, nx) in the state dtype,
+    the packed levels (``pack_levels``), (r_lin, Cd, lambda), and the levels
+    that are some edge's top and some edge's bottom level (the host's copy,
+    from which each launch tells its ranks which stage the operands:
+    ``kernels.fe_step.forcing_ranks``)."""
+
+    wind: torch.Tensor
+    levels: torch.Tensor
+    coefs: tuple
+    top_levels: tuple
+    bottom_levels: tuple
+
+
+def kernel_forcing(forcing: Forcing | None, mesh: StructMesh, dtype: torch.dtype,
+                   device) -> KernelForcing | None:
+    """``forcing`` as the forced arms take it, on ``device``, or None."""
+    if forcing is None:
+        return None
+    wind, idx = forcing_setup(forcing, mesh.ny2, mesh.nx, dtype)
+    used = [tuple(int(x) for x in torch.unique(part).cpu() if x >= 0)
+            for part in (idx[:6], idx[6:])]
+    return KernelForcing(wind.to(device).contiguous(), pack_levels(idx).to(device),
+                         forcing_scal(forcing, dtype), *used)
+
+
+def check_forced_core(forcing, nonlinear: bool, device) -> None:
+    """The nonlinear kernels have no forced arm: on the card, forcing with
+    ``nonlinear`` raises (the plain steps on the CPU run it)."""
+    if forcing is not None and nonlinear and device.type == "cuda":
+        raise NotImplementedError("the nonlinear kernels have no forced arm; run forcing "
+                                  "with the linear core, or on the CPU")
+
+
 def kernel_live(mesh: StructMesh):
     """The wall mask as the kernels take it, packed into live bits
     (``fe_step.live_bits``), or None on a periodic lattice, which runs the
@@ -80,15 +162,19 @@ def kernel_live(mesh: StructMesh):
 
 def fused_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, *, nonlinear: bool = False,
+    forcing: Forcing | None = None,
 ) -> StructState:
     """n_steps forward-Euler steps of the linear core, or with ``nonlinear``
     of the vector-invariant one (periodic, or masked where the mesh has a
-    wall mask)."""
+    wall mask); ``forcing`` (struct layout) runs the forced arm, linear core
+    only on the card."""
     device = state.layer_thickness.device
     if device.type == "cpu":
-        return structured_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear)
+        return structured_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear,
+                                   forcing=forcing)
     if device.type != "cuda":
         raise ValueError(f"no rollout for state on {device}")
+    check_forced_core(forcing, nonlinear, device)
     dtype = state.layer_thickness.dtype
     consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
     if nonlinear:
@@ -100,14 +186,14 @@ def fused_run_loop(
         ssh, h, u = fe_step.fe_rollout(
             state.ssh, state.layer_thickness, state.normal_velocity,
             mesh.f_edge.to(dtype).contiguous(), *consts, *_scal(mesh, dt, dtype), n_steps,
-            live=kernel_live(mesh),
+            live=kernel_live(mesh), forcing=kernel_forcing(forcing, mesh, dtype, device),
         )
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
 def structured_auto_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, *, nonlinear: bool = False,
-    fb: bool = False,
+    fb: bool = False, forcing: Forcing | None = None,
 ) -> StructState:
     """The lattice rollout entry point. A CPU state runs the plain
     ``structured_run_loop`` (as the JAX package does off the TPU). On the
@@ -118,11 +204,14 @@ def structured_auto_run_loop(
     vector-invariant momentum equation through the same routes (the
     kernels' nonlinear arms). A mesh with a wall mask (a coastal channel)
     runs the same routes through the kernels' masked arms, or the plain
-    masked steps on the CPU."""
+    masked steps on the CPU. ``forcing`` (struct layout,
+    ``StructuredModel.to_struct_forcing``) runs the kernels' forced arms;
+    with ``nonlinear`` it raises on the card."""
     device = state.layer_thickness.device
     if device.type == "cpu":
-        return structured_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear, fb=fb)
+        return structured_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear, fb=fb,
+                                   forcing=forcing)
     if fb:
         return tiled_model.tiled_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear,
-                                          fb=True)
-    return fused_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear)
+                                          fb=True, forcing=forcing)
+    return fused_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear, forcing=forcing)

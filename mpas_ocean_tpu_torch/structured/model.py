@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..constants import GRAVITY
+from ..models.forcing import Forcing, forcing_tendency
 from ..models.state import PrognosticVars
 from .hex_layout import E, NE, NW, HexLayout
 from .stencils import transpose_coriolis_terms
@@ -397,17 +398,28 @@ def _tend_u(state: StructState, flux, grad_ssh, mesh: StructMesh, nonlinear: boo
                            + tangential_weights_only(flux * q_e, mesh))
 
 
-def structured_step(state: StructState, mesh: StructMesh, dt,
-                    nonlinear: bool = False) -> StructState:
-    """One forward-Euler step, all rolls + elementwise (the unforced,
-    tracer-free, unstratified arms of mpas_ocean_tpu/structured/model.py:
-    272-341): the linear core, or with ``nonlinear`` the vector-invariant
-    momentum equation; the wall mask where the mesh has one."""
+def _forced(tend_u, state: StructState, h_edge, forcing):
+    """tend_u plus the momentum forcing of the old u on the old state's
+    h_edge (JAX model.py:315-323, 476-480), or tend_u unforced."""
+    if forcing is None:
+        return tend_u
+    return tend_u + forcing_tendency(state.normal_velocity, h_edge, forcing)
+
+
+def structured_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool = False,
+                    forcing: Forcing | None = None) -> StructState:
+    """One forward-Euler step, all rolls + elementwise (the tracer-free,
+    unstratified arms of mpas_ocean_tpu/structured/model.py:272-341): the
+    linear core, or with ``nonlinear`` the vector-invariant momentum
+    equation; ``forcing`` (struct layout, ``StructuredModel.to_struct_forcing``)
+    adds wind stress, bottom drag and Rayleigh damping to the momentum
+    tendency; the wall mask where the mesh has one."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     tend_h = -div_on_cell(flux, mesh)
 
     tend_u = _tend_u(state, flux, grad_on_edge(state.ssh, mesh), mesh, nonlinear)
+    tend_u = _forced(tend_u, state, h_edge, forcing)
 
     h = state.layer_thickness + dt * tend_h
     u = _wall(state.normal_velocity + dt * tend_u, mesh)
@@ -415,36 +427,38 @@ def structured_step(state: StructState, mesh: StructMesh, dt,
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
-def structured_fb_step(state: StructState, mesh: StructMesh, dt,
-                       nonlinear: bool = False) -> StructState:
-    """One forward-backward step (the unforced, tracer-free, unstratified
-    arms of mpas_ocean_tpu/structured/model.py:433-485): the continuity
-    update first, then the pressure gradient of the fresh ssh and the other
+def structured_fb_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool = False,
+                       forcing: Forcing | None = None) -> StructState:
+    """One forward-backward step (the tracer-free, unstratified arms of
+    mpas_ocean_tpu/structured/model.py:433-485): the continuity update
+    first, then the pressure gradient of the fresh ssh and the other
     momentum terms (Coriolis, or with ``nonlinear`` the vector-invariant
-    ones) of the old state; the wall mask last."""
+    ones, and the ``forcing``) of the old state; the wall mask last."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     h = state.layer_thickness + dt * (-div_on_cell(flux, mesh))
     ssh = h.sum(-1) - mesh.resting_thickness_sum
 
     tend_u = _tend_u(state, flux, grad_on_edge(ssh, mesh), mesh, nonlinear)
+    tend_u = _forced(tend_u, state, h_edge, forcing)
     u = _wall(state.normal_velocity + dt * tend_u, mesh)
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
 def structured_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int,
-    nonlinear: bool = False, fb: bool = False,
+    nonlinear: bool = False, fb: bool = False, forcing: Forcing | None = None,
 ) -> StructState:
     """n_steps steps of ``structured_step`` (forward Euler) or, with
     ``fb=True``, of ``structured_fb_step`` (forward-backward); ``nonlinear``
-    runs the vector-invariant momentum equation (JAX model.py:488-507). A
-    mesh without the vertex constants, asked for nonlinear, raises."""
+    runs the vector-invariant momentum equation and ``forcing`` adds the
+    momentum forcing (JAX model.py:488-507). A mesh without the vertex
+    constants, asked for nonlinear, raises."""
     step = structured_fb_step if fb else structured_step
     if nonlinear:
         check_nl_mesh(mesh)
     for _ in range(n_steps):
-        state = step(state, mesh, dt, nonlinear)
+        state = step(state, mesh, dt, nonlinear, forcing)
     return state
 
 
@@ -635,6 +649,28 @@ class StructuredModel(nn.Module):
             ssh=put(cells(prog.ssh)),
             layer_thickness=put(cells(prog.layer_thickness)),
             normal_velocity=put(u),
+        )
+
+    def to_struct_forcing(self, forcing: Forcing) -> Forcing:
+        """Unstructured Forcing -> lattice Forcing on the buffers' device (JAX
+        model.py:695-720): the wind stress is a signed edge quantity
+        (``sign=True``, as the velocity), the level masks are not. On a
+        channel the culled edges are embedded as zeros, so dead slots are
+        forced by nothing."""
+        lay = self.layout
+        dev = self.f_edge.device
+
+        def edges(x, sign=False):
+            a = lay.edges_to_struct(self._edges_to_parent(x.detach().cpu().numpy()), sign=sign)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        return Forcing(
+            wind_edge=edges(forcing.wind_edge, sign=True),
+            top_mask=edges(forcing.top_mask),
+            bottom_mask=edges(forcing.bottom_mask),
+            drag_linear=forcing.drag_linear.to(dev),
+            drag_quadratic=forcing.drag_quadratic.to(dev),
+            rayleigh=forcing.rayleigh.to(dev),
         )
 
     def from_struct(self, state: StructState) -> PrognosticVars:

@@ -2,7 +2,8 @@
 
 Counterpart of mpas_ocean_tpu/structured/sharded.py:44-62,156-342
 (``_sh``, ``_interior``, ``_flux_thickness``, ``_step_slab`` with the wall
-masks, and with forcing, tracers, cell masks and stratification off), of
+masks and the momentum forcing (``_apply_forcing``, :134-153), and with
+tracers, cell masks and stratification off), of
 sharded.py:345-597 for the nonlinear core (``_derived_slab``,
 ``_nl_continuity``, ``_apply_slab_nonlinear``, ``_step_slab_nl``) and of
 pallas_model.py:791-849 (``_reach``, ``_window_steps`` with ``masks_full``
@@ -20,7 +21,9 @@ in the JAX slabs: ssh and rts (..., 2, R, C, 1), h (..., 2, R, C, K), u,
 f_edge and the mask (..., 6, R, C, K or 1), the vertex constants (..., 4 or
 20, R, C, 1) (``fused_model.nl_setup``), edge channel ``family * 2 +
 parity``, vertex channel ``kind * 2 + parity``. The mask and the vertex
-constants are windowed as f_edge is.
+constants are windowed as f_edge is, and so is the forcing: ``forc`` =
+(wind (..., 6, R, C, 1), level indices (..., 12, R, C, 1) int = [top x 6;
+bottom x 6] of ``fused_model.forcing_setup``, r_lin, Cd, lambda).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import GRAVITY
+from ..models.forcing import forcing_core, level_onehot
 from .hex_layout import E, NE, NW
 from .stencils import (
     INCOMING,
@@ -38,8 +42,8 @@ from .stencils import (
     transpose_kite_terms,
 )
 
-__all__ = ["adjoint_stencil_reach", "derived_ring", "nl_adjoint_rings", "reach",
-           "stencil_reach", "step_slab", "step_slab_nl", "window_steps"]
+__all__ = ["adjoint_stencil_reach", "apply_forcing", "derived_ring", "nl_adjoint_rings",
+           "reach", "stencil_reach", "step_slab", "step_slab_nl", "window_steps"]
 
 
 def reach(fb: bool, nonlinear: bool = False) -> int:
@@ -209,14 +213,32 @@ def _flux_thickness(h, u, rts, dt, s_div, reg):
     return h_new, ssh_new
 
 
+def apply_forcing(un, u, h, forc, dt, c, reg):
+    """un + dt F for edge channel c on the region ``reg``: the forcing
+    ``forc`` (module docstring; sharded._apply_forcing) of the old u on the
+    old h_edge, the level indices expanded to one-hot masks
+    (``level_onehot``)."""
+    wind, idx, dlin, dquad, rayl = forc
+    fam, p = divmod(c, 2)
+    pin, dm, di = NEIGHBOR[(fam, p)]
+    he = 0.5 * (_sh(h[..., pin, :, :, :], dm, di, reg) + _interior(h[..., p, :, :, :], reg))
+    u_i = _interior(u[..., c, :, :, :], reg)
+    top = level_onehot(_interior(idx[..., c, :, :, :], reg), u_i)
+    bot = level_onehot(_interior(idx[..., 6 + c, :, :, :], reg), u_i)
+    return un + dt * forcing_core(u_i, he, _interior(wind[..., c, :, :, :], reg), top, bot,
+                                  dlin, dquad, rayl)
+
+
 def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo,
-              fb=False, mask=None):
+              fb=False, mask=None, forc=None):
     """One FE or FB step of the linear core on windows padded by
     ``halo`` = (rows, columns) per side (``stencil_reach``); returns the
     (rows, cols) interiors (ssh, h, u). Mirrors sharded._step_slab: FB runs
     the continuity update on the 1-padded interior and takes the pressure
-    gradient of that fresh ssh; the Coriolis term reads the old u. The wall
-    ``mask`` (padded as f_edge, or None) multiplies u' last."""
+    gradient of that fresh ssh; the Coriolis term reads the old u. The
+    forcing ``forc`` (module docstring, or None) adds dt F of the old u and
+    h_edge to u'; the wall ``mask`` (padded as f_edge, or None) multiplies
+    u' last."""
     hm, hi = halo
     inner = (hm, hm + rows, hi, hi + cols)
     if fb:
@@ -245,6 +267,8 @@ def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo
             pin, dm, di = NEIGHBOR[(fam, p)]
             grad = (_sh(pg[pin], dm, di, pg_reg) - _interior(pg[p], pg_reg)) * inv_dc
             un = _interior(u[..., c, :, :, :], inner) + dt * acc[c] + pg_scale * grad
+            if forc is not None:
+                un = apply_forcing(un, u, h, forc, dt, c, inner)
             if mask is not None:
                 un = un * _interior(mask[..., c, :, :, :], inner)
             u_new.append(un)
@@ -347,7 +371,7 @@ def nl_continuity(h, flux, rts, dt, s_div, reg, dreg):
 
 
 def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_terms,
-                 ev_terms, rows, cols, halo, fb=False, mask=None):
+                 ev_terms, rows, cols, halo, fb=False, mask=None, forc=None):
     """One nonlinear FE or FB step on windows padded by ``halo`` = (rows,
     columns) per side (``stencil_reach`` with the vertex taps); returns the
     (rows, cols) interiors (ssh, h, u). Mirrors sharded._step_slab_nl:
@@ -355,8 +379,9 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
     then for FB the fresh h and ssh one ring out (``nl_continuity``), then
     u' = u + dt (q_e T(F) / 2 + T(F q_e) / 2 - grad KE) + pg_scale grad ssh,
     the pressure from the old ssh (FE) or the fresh one (FB), every other
-    term from the old state; the wall ``mask`` (padded as f_edge, or None)
-    multiplies u' last."""
+    term from the old state; the forcing ``forc`` (as for ``step_slab``) adds
+    dt F of the old u and h_edge; the wall ``mask`` (padded as f_edge, or
+    None) multiplies u' last."""
     hm, hi = halo
     rm, rc = derived_ring(terms, fb)
     inner = (hm, hm + rows, hi, hi + cols)
@@ -393,6 +418,8 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
             grad = (_sh(pg[pin], dm, di, pg_reg) - _interior(pg[p], pg_reg)) * inv_dc
             pv = 0.5 * (_interior(q_e[c], local) * w_flux[c] + w_fq[c])
             un = _interior(u[..., c, :, :, :], inner) + dt * (pv - grad_ke) + pg_scale * grad
+            if forc is not None:
+                un = apply_forcing(un, u, h, forc, dt, c, inner)
             if mask is not None:
                 un = un * _interior(mask[..., c, :, :, :], inner)
             u_new.append(un)
@@ -400,7 +427,7 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
 
 
 def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows, cols,
-                 q, halo, fb=False, mask_full=None, fv_full=None, nl=None):
+                 q, halo, fb=False, mask_full=None, fv_full=None, nl=None, forc_full=None):
     """Advance windows by q steps (pallas_model._window_steps): the state
     arrives padded by q halos per side and shrinks by one halo per side per
     step; the constant fields, the wall mask ``mask_full`` (None on a
@@ -408,7 +435,9 @@ def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows,
     cut to each step's window. ``nl`` = (s_ke, s_curl, vertex_cell_terms,
     edge_vertex_terms) runs the nonlinear step (``step_slab_nl``, on a halo
     from ``stencil_reach`` with the vertex taps), None the linear one.
-    Returns the (rows, cols) interiors."""
+    ``forc_full`` (module docstring; its wind and level planes padded as
+    f_edge) forces the steps, linear or nonlinear. Returns the (rows, cols)
+    interiors."""
     hm, hi = halo
     full_m, full_i = rows + 2 * hm * q, cols + 2 * hi * q
     for j in range(q):
@@ -416,13 +445,16 @@ def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows,
         win = (om, full_m - om, oi, full_i - oi)
         r_j, c_j = rows + 2 * hm * (q - 1 - j), cols + 2 * hi * (q - 1 - j)
         mask_j = None if mask_full is None else _interior(mask_full, win)
+        forc_j = None if forc_full is None else (
+            _interior(forc_full[0], win), _interior(forc_full[1], win), *forc_full[2:])
         if nl is not None:
             s_ke, s_curl, vc_terms, ev_terms = nl
             ssh, h, u = step_slab_nl(
                 ssh, h, u, _interior(fv_full, win), _interior(rts_full, win), dt, inv_dc,
-                s_div, s_ke, s_curl, terms, vc_terms, ev_terms, r_j, c_j, halo, fb, mask_j)
+                s_div, s_ke, s_curl, terms, vc_terms, ev_terms, r_j, c_j, halo, fb, mask_j,
+                forc_j)
         else:
             ssh, h, u = step_slab(
                 ssh, h, u, _interior(f_full, win), _interior(rts_full, win),
-                dt, inv_dc, s_div, terms, r_j, c_j, halo, fb, mask_j)
+                dt, inv_dc, s_div, terms, r_j, c_j, halo, fb, mask_j, forc_j)
     return ssh, h, u

@@ -41,6 +41,10 @@ launch, so it runs that kernel (planned by ``adjoint_step.nl_adjoint_plan``
 over the tiles that divide the lattice). A nonlinear q > 1 raises on the
 card, as the nonlinear forward's does; the plain superstep runs any q.
 
+Momentum forcing (``forcing=``) runs the forced arms, linear core only on
+the card: the tiled reverse accumulates d(wind) per edge (each tile its
+core's, over its q steps) and d(r_lin, Cd, lambda) in double beside d(dt).
+
 A CUDA state runs the kernels, and a failed build, a failed launch or a
 plan that does not fit raises; a CPU state runs the same plan with the plain
 step and ``plain_tiled_adjoint_superstep``, the kernel's plain version.
@@ -55,15 +59,20 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..kernels import adjoint_step, tiled_adjoint
+from ..models.forcing import Forcing
 from . import fused_model
+from .adjoint import ForcingCot
 from .diff_model import (
+    _DIFF_INPUTS,
     _default_budget,
     _dt_meta,
     _empty,
     _fields,
+    _forcing_inputs,
     _grads,
     _output_cotangent,
     _save_dt,
+    _save_forcing,
     _slot,
     _Steps,
     _sweep,
@@ -72,7 +81,15 @@ from .diff_model import (
 )
 from .model import StructMesh, StructState, check_nl_mesh
 from .slab import adjoint_stencil_reach, stencil_reach, window_steps
-from .tiled_model import _divisors, _nl_args, _windows, halo_unscatter, mask_windows, resolve_plan
+from .tiled_model import (
+    _divisors,
+    _nl_args,
+    _windows,
+    forcing_windows,
+    halo_unscatter,
+    mask_windows,
+    resolve_plan,
+)
 
 __all__ = [
     "TiledRolloutDiff",
@@ -106,13 +123,20 @@ def reverse_halo(terms, nl_terms=None) -> tuple[int, int]:
 
 
 def adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
-                         itemsize: int) -> int:
+                         itemsize: int, forced: bool = False) -> int:
     """Shared memory of one block of the tiled adjoint kernel: its level
     chunk of q primal states and one cotangent (two at q > 1) over the
     window of 2q - 1 halos per side, and the window's planes without levels
     and live bits (csrc/tiled_adjoint.cu: ``smem_bytes``)."""
     sites = tiled_adjoint.window_sites(row_tile, col_tile, q, halo)
-    return tiled_adjoint.smem_bytes(sites, row_tile * col_tile, k, q, itemsize)
+    return tiled_adjoint.smem_bytes(sites, row_tile * col_tile, k, q, itemsize, forced)
+
+
+def forced_adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
+                                itemsize: int) -> int:
+    """``adjoint_window_bytes`` of the forced arm: what the planner sizes a
+    tile by, so that one plan serves both arms."""
+    return adjoint_window_bytes(row_tile, col_tile, q, halo, k, itemsize, forced=True)
 
 
 def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *, halo,
@@ -134,7 +158,7 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
         col_tile = ct if col_tile is None else col_tile
         q = 1 if q is None else q
     rt, ct, q = resolve_plan(ny2, nx, k, itemsize, halo, n_steps, row_tile, col_tile, q,
-                             window=adjoint_window_bytes, budgets=ADJOINT_BUDGETS)
+                             window=forced_adjoint_window_bytes, budgets=ADJOINT_BUDGETS)
     state_bytes = itemsize * 2 * ny2 * nx * (1 + 4 * k)
     group = adjoint_plan(n_steps // q, state_bytes, budget) if n_steps else 1
     return rt, ct, q, group
@@ -142,18 +166,20 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
 
 def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: StructMesh,
                                   dt, row_tile: int, col_tile: int, q: int,
-                                  nonlinear: bool = False) -> tuple[StructState, torch.Tensor]:
+                                  nonlinear: bool = False, forcing: Forcing | None = None):
     """The tiled adjoint kernel's plain version, one reverse superstep of q
-    forward-Euler steps (of the nonlinear core with ``nonlinear``): cut the
-    primal ``state`` at the superstep start into halo-padded windows and the
-    cotangent ``cot`` at its end into the tiles' cores, take
-    ``torch.func.vjp`` of ``slab.window_steps`` over all windows as one batch
-    (dt a 0-d tensor; the vertex constants windowed as f_edge), and
-    overlap-add the windows' cotangents onto the lattice
-    (``tiled_model.halo_unscatter``). Returns (cotangent at the superstep
-    start, d(dt) as a 0-d tensor in the state dtype). It is what the TPU
-    kernel and its caller compute together (pallas_model.py:2528-2553), by
-    autograd rather than by the hand-written transpose the kernels run."""
+    forward-Euler steps (of the nonlinear core with ``nonlinear``, forced
+    with ``forcing``): cut the primal ``state`` at the superstep start into
+    halo-padded windows and the cotangent ``cot`` at its end into the tiles'
+    cores, take ``torch.func.vjp`` of ``slab.window_steps`` over all windows
+    as one batch (dt a 0-d tensor; the vertex constants and the forcing
+    windowed as f_edge), and overlap-add the windows' cotangents onto the
+    lattice (``tiled_model.halo_unscatter``). Returns (cotangent at the
+    superstep start, d(dt) as a 0-d tensor in the state dtype), and with
+    forcing a ForcingCot third (d(wind) (3, 2, ny2, nx) overlap-added the
+    same way, d(r_lin, Cd, lambda)). It is what the TPU kernel and its
+    caller compute together (pallas_model.py:2528-2553), by autograd rather
+    than by the hand-written transpose the kernels run."""
     ny2, nx = mesh.ny2, mesh.nx
     h = state.layer_thickness
     k, dtype = h.shape[-1], h.dtype
@@ -172,22 +198,32 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
     if nonlinear:
         fv = fused_model.nl_setup(mesh, dtype)
         fv_w = win(fv.reshape(fv.shape[0], ny2, nx, 1))
+    forc_w = forcing_windows(forcing, mesh, dtype, win)
+    # the forcing's differentiable parts (wind windows, coefficients) ride
+    # the vjp as inputs; its level windows as constants
+    diff_forc = () if forc_w is None else (forc_w[0], *forc_w[2:])
 
-    def steps(ssh, h, u, d):
+    def steps(ssh, h, u, d, *fz):
+        forc = None if forc_w is None else (fz[0], forc_w[1], *fz[1:])
         return window_steps(ssh, h, u, f_w, rts_w, d, inv_dc, s_div, mesh.coriolis_terms,
                             rows=row_tile, cols=col_tile, q=q, halo=halo, mask_full=mask_w,
-                            fv_full=fv_w, nl=nl)
+                            fv_full=fv_w, nl=nl, forc_full=forc)
 
     _, vjp = torch.func.vjp(
         steps, win(state.ssh[..., None]), win(h),
         win(state.normal_velocity.reshape(6, ny2, nx, k)),
-        torch.tensor(dt_, dtype=dtype, device=h.device))
-    d_ssh, d_h, d_u, d_dt = vjp((core(cot.ssh[..., None].to(dtype)),
-                                 core(cot.layer_thickness.to(dtype)),
-                                 core(cot.normal_velocity.to(dtype).reshape(6, ny2, nx, k))))
+        torch.tensor(dt_, dtype=dtype, device=h.device), *diff_forc)
+    d_ssh, d_h, d_u, d_dt, *d_forc = vjp((core(cot.ssh[..., None].to(dtype)),
+                                          core(cot.layer_thickness.to(dtype)),
+                                          core(cot.normal_velocity.to(dtype).reshape(
+                                              6, ny2, nx, k))))
     back = lambda w: halo_unscatter(w, ny2, nx, hm, hi)
-    return StructState(ssh=back(d_ssh)[..., 0], layer_thickness=back(d_h),
-                       normal_velocity=back(d_u).reshape(3, 2, ny2, nx, k)), d_dt
+    d_state = StructState(ssh=back(d_ssh)[..., 0], layer_thickness=back(d_h),
+                          normal_velocity=back(d_u).reshape(3, 2, ny2, nx, k))
+    if forcing is None:
+        return d_state, d_dt
+    return d_state, d_dt, ForcingCot(back(d_forc[0]).reshape(3, 2, ny2, nx),
+                                     torch.stack(d_forc[1:]))
 
 
 def _check_nl_q(plan, nonlinear: bool, device) -> None:
@@ -204,9 +240,10 @@ class _TiledSteps(_Steps):
     the nonlinear reverse kernel at q = 1 over the plan's tiles (diff_model's
     reverse)."""
 
-    def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, plan, nonlinear: bool = False):
+    def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, plan, nonlinear: bool = False,
+                 forcing: Forcing | None = None):
         _check_nl_q(plan, nonlinear, like.device)
-        super().__init__(mesh, dt, like, nonlinear, nl_tile=tuple(plan[:2]))
+        super().__init__(mesh, dt, like, nonlinear, nl_tile=tuple(plan[:2]), forcing=forcing)
         self.rt, self.ct, self.q, _ = plan
         nl_terms, _ = _nl_args(mesh, like.dtype, nonlinear)
         self.halo = reverse_halo(mesh.coriolis_terms, nl_terms)
@@ -225,7 +262,8 @@ class _TiledSteps(_Steps):
     def reverse(self, stack: StructState, g: StructState, n: int, ddt: torch.Tensor,
                 out: StructState, scratch: StructState):
         """n >= 1 reverse supersteps through the stack's slots n - 1 .. 0,
-        from the cotangent g at the end into out; d(dt) is added to ddt."""
+        from the cotangent g at the end into out; d(dt) is added to ddt, and
+        with forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``."""
         if self.cuda and self.nonlinear:
             super().reverse(stack, g, n, ddt, out, scratch)
             return
@@ -233,12 +271,16 @@ class _TiledSteps(_Steps):
             tiled_adjoint.tiled_adjoint_rollout(
                 _fields(stack), _fields(g), *self.tiled_adj, *self.scal, n, ddt,
                 _fields(out), _fields(scratch), row_tile=self.rt, col_tile=self.ct,
-                q=self.q, halo=self.halo, live=self.live)
+                q=self.q, halo=self.halo, live=self.live, forcing=self.kf, dforc=self.dforc)
             return
         for j in reversed(range(n)):
-            g, dd = plain_tiled_adjoint_superstep(_slot(stack, j), g, self.mesh, self.dt,
-                                                  self.rt, self.ct, self.q, self.nonlinear)
-            ddt += dd
+            res = plain_tiled_adjoint_superstep(_slot(stack, j), g, self.mesh, self.dt,
+                                                self.rt, self.ct, self.q, self.nonlinear,
+                                                self.forcing)
+            g = res[0]
+            ddt += res[1]
+            if self.forcing is not None:
+                self.add_forcing_cot(res[2])
         for dst, x in zip(_fields(out), _fields(g)):
             dst.copy_(x)
 
@@ -254,53 +296,58 @@ def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan, nonlinear: b
 
 
 def tiled_adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
-                             plan, g: StructState, nonlinear: bool = False
-                             ) -> tuple[StructState, torch.Tensor]:
+                             plan, g: StructState, nonlinear: bool = False,
+                             forcing: Forcing | None = None) -> tuple:
     """The tiled reverse sweep from the checkpoints that
-    ``forward_ckpts(state, mesh, dt, n_steps, group * q, nonlinear)`` kept,
-    for ``plan`` = (row_tile, col_tile, q, group): per group, last to first,
-    rebuild its superstep-start states and reverse them one superstep per
-    launch. Returns (cotangent of the rollout's input, d(dt) as a 0-d
-    float64 tensor). Counterpart of ``_tiled_adjoint_from_ckpts``."""
+    ``forward_ckpts(state, mesh, dt, n_steps, group * q, nonlinear, forcing)``
+    kept, for ``plan`` = (row_tile, col_tile, q, group): per group, last to
+    first, rebuild its superstep-start states and reverse them one superstep
+    per launch. Returns (cotangent of the rollout's input, d(dt) as a 0-d
+    float64 tensor), and with forcing the ForcingCot third. Counterpart of
+    ``_tiled_adjoint_from_ckpts``."""
     _, _, q, group = plan
     if n_steps % q:
         raise ValueError(f"q={q} must divide n_steps={n_steps}")
-    steps = _TiledSteps(mesh, dt, ckpts.layer_thickness, plan, nonlinear)
+    steps = _TiledSteps(mesh, dt, ckpts.layer_thickness, plan, nonlinear, forcing)
     return _sweep(steps, ckpts, n_steps // q, group, g)
 
 
 def tiled_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
-                          g: StructState, *, plan=None, nonlinear: bool = False):
-    """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``)
-    through the tiled reverse: given its input ``state`` and an output
-    cotangent ``g``, returns (d_state, d_dt), d_dt as a 0-d tensor in dt's
-    dtype (float64 for a Python dt). ``plan`` = (row_tile, col_tile, q,
-    group) overrides ``tiled_adjoint_plan``. Counterpart of
-    ``_pallas_tiled_adjoint``."""
+                          g: StructState, *, plan=None, nonlinear: bool = False,
+                          forcing: Forcing | None = None):
+    """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``,
+    forced with ``forcing``) through the tiled reverse: given its input
+    ``state`` and an output cotangent ``g``, returns (d_state, d_dt), d_dt as
+    a 0-d tensor in dt's dtype (float64 for a Python dt), and with forcing
+    the ForcingCot third. ``plan`` = (row_tile, col_tile, q, group) overrides
+    ``tiled_adjoint_plan``. Counterpart of ``_pallas_tiled_adjoint``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
     plan = _plan(state, mesh, n_steps, plan, nonlinear)
     _check_nl_q(plan, nonlinear, state.layer_thickness.device)
-    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, plan[2] * plan[3], nonlinear)
-    d_state, ddt = tiled_adjoint_from_ckpts(ckpts, mesh, dt, n_steps, plan, g, nonlinear)
-    return d_state, ddt.to(dtype=dtype, device=device)
+    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, plan[2] * plan[3], nonlinear, forcing)
+    res = tiled_adjoint_from_ckpts(ckpts, mesh, dt, n_steps, plan, g, nonlinear, forcing)
+    return (res[0], res[1].to(dtype=dtype, device=device), *res[2:])
 
 
 class TiledRolloutDiff(torch.autograd.Function):
     """n-step rollout whose backward is the tiled reverse sweep
     (``forward_ckpts`` forward, ``tiled_adjoint_from_ckpts`` backward).
-    Inputs: ssh, h, u, dt (float or tensor), mesh, n_steps, plan, nonlinear.
-    The mesh gets no cotangent."""
+    Inputs: ssh, h, u, dt (float or tensor), the forcing's wind and r_lin,
+    Cd, lambda (None unforced), mesh, n_steps, plan, nonlinear, forcing (its
+    level masks). The mesh and the masks get no cotangent."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, dt, mesh, n_steps, plan=None, nonlinear=False):
+    def forward(ctx, ssh, h, u, dt, wind, dlin, dquad, rayl, mesh, n_steps, plan=None,
+                nonlinear=False, forcing=None):
         state = StructState(ssh, h, u)
         _save_dt(ctx, dt, h.device)
+        forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
         plan = _plan(state, mesh, n_steps, plan, nonlinear)
         if n_steps % plan[2]:
             raise ValueError(f"q={plan[2]} must divide n_steps={n_steps}")
         _check_nl_q(plan, nonlinear, h.device)
         final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, plan[2] * plan[3],
-                                     nonlinear)
+                                     nonlinear, forcing)
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.plan = ckpts, mesh, n_steps, plan
         ctx.nonlinear = nonlinear
         return _fields(final)
@@ -308,23 +355,27 @@ class TiledRolloutDiff(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gs, gh, gu):
+        rest = (None,) * 5
         if ctx.n_steps == 0:
-            return gs, gh, gu, None, None, None, None, None
+            return gs, gh, gu, *(None,) * (_DIFF_INPUTS - 3), *rest
         g = _output_cotangent(_slot(ctx.ckpts, 0), (gs, gh, gu))
-        d_state, ddt = tiled_adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps,
-                                                ctx.plan, g, ctx.nonlinear)
-        return (*_grads(ctx, d_state, ddt), None, None, None, None)
+        res = tiled_adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps, ctx.plan,
+                                       g, ctx.nonlinear, ctx.forcing)
+        return (*_grads(ctx, res), *rest)
 
 
 def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
-                       plan=None, nonlinear: bool = False) -> StructState:
+                       plan=None, nonlinear: bool = False,
+                       forcing: Forcing | None = None) -> StructState:
     """n-step rollout of the linear core, or with ``nonlinear`` of the
     vector-invariant one (periodic, or masked where the mesh has a wall
-    mask), differentiable with respect to the state and a tensor ``dt``,
-    with the tiled reverse: forward through ``fe_step`` on the card,
-    backward through ``tiled_adjoint`` (nonlinear: the nonlinear reverse
-    kernel, q = 1; a nonlinear q > 1 raises on the card). ``plan`` =
-    (row_tile, col_tile, q, group) overrides ``tiled_adjoint_plan``. The
-    tiled arm of ``pallas_rollout_diff``."""
-    return StructState(*TiledRolloutDiff.apply(*_fields(state), dt, mesh, n_steps, plan,
-                                               nonlinear))
+    mask), forced with ``forcing`` (struct layout), differentiable with
+    respect to the state, a tensor ``dt`` and the forcing's wind and
+    coefficients, with the tiled reverse: forward through ``fe_step`` on the
+    card, backward through ``tiled_adjoint`` (nonlinear: the nonlinear
+    reverse kernel, q = 1; a nonlinear q > 1, or forcing with the nonlinear
+    core, raises on the card). ``plan`` = (row_tile, col_tile, q, group)
+    overrides ``tiled_adjoint_plan``. The tiled arm of
+    ``pallas_rollout_diff``."""
+    return StructState(*TiledRolloutDiff.apply(*_fields(state), dt, *_forcing_inputs(forcing),
+                                               mesh, n_steps, plan, nonlinear, forcing))

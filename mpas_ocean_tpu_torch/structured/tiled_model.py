@@ -7,7 +7,8 @@ Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
 the linear and the nonlinear core with forward Euler (FE) or
 forward-backward (FB), on periodic lattices and on coastal channels (the
 wall mask and the vertex constants windowed as f_edge, :1287-1288,
-1391-1394).
+1391-1394), with momentum forcing (the wind and level-index planes windowed
+as f_edge).
 The lattice is cut into row_tile x col_tile tiles; each tile reads its core
 and q halos of ``slab.stencil_reach`` rows and columns per side, advances q
 steps on the shrinking window (``slab.window_steps``) and writes its core.
@@ -37,11 +38,13 @@ from __future__ import annotations
 import torch
 
 from ..kernels import fe_step, tiled_step
+from ..models.forcing import Forcing
 from . import fused_model
 from .model import StructMesh, StructState, check_nl_mesh
 from .slab import stencil_reach, window_steps
 
 __all__ = [
+    "forcing_windows",
     "halo_unscatter",
     "mask_windows",
     "plain_tiled_rollout",
@@ -52,16 +55,25 @@ __all__ = [
 ]
 
 
-def window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int, itemsize: int) -> int:
+def window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int, itemsize: int,
+                 forced: bool = False) -> int:
     """Shared memory of one block of the tiled kernel: its level chunk of
     the window (2 h planes + 6 u channels), one copy at q = 1 and two at
     q > 1, the window's ssh (two copies), column partial sums (two), f_edge,
     rts, and its lattice sites with their live bits (the masked arm's,
-    reserved either way; csrc/tiled_step.cu: ``smem_bytes``)."""
+    reserved either way; csrc/tiled_step.cu: ``smem_bytes``); with
+    ``forced``, the forced arm's too."""
     hm, hi = halo
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
     _, kc = tiled_step.level_split(k)
-    return tiled_step.smem_bytes(sites, kc, q, itemsize)
+    return tiled_step.smem_bytes(sites, kc, q, itemsize, forced)
+
+
+def forced_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
+                        itemsize: int) -> int:
+    """``window_bytes`` of the forced arm: what the planners size a tile by,
+    so that one plan serves both arms."""
+    return window_bytes(row_tile, col_tile, q, halo, k, itemsize, forced=True)
 
 
 def _divisors(n: int) -> list[int]:
@@ -79,7 +91,7 @@ def _fits(rt, ct, q, halo, ny2, nx, k, itemsize, window, budget) -> bool:
             and window(rt, ct, q, halo, k, itemsize) <= budget)
 
 
-def _best_tile(ny2, nx, k, itemsize, halo, q, window=window_bytes,
+def _best_tile(ny2, nx, k, itemsize, halo, q, window=forced_window_bytes,
                budgets=FORWARD_BUDGETS):
     """The tile of largest area whose ``window`` (one block's shared memory)
     fits the first of ``budgets`` that any tile fits at this q; among
@@ -114,7 +126,7 @@ def tile_plan(ny2: int, nx: int, k: int, itemsize: int, reach, n_steps: int):
 
 
 def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
-                 row_tile=None, col_tile=None, q=None, window=window_bytes,
+                 row_tile=None, col_tile=None, q=None, window=forced_window_bytes,
                  budgets=FORWARD_BUDGETS):
     """The plan ``tiled_run_loop`` runs: the caller's choices completed by
     ``tile_plan``, q lowered until it divides n_steps, and the reach*q clamp
@@ -187,6 +199,23 @@ def mask_windows(mesh: StructMesh, dtype, win):
     return win(mesh.edge_mask.to(dtype).reshape(6, mesh.ny2, mesh.nx, 1))
 
 
+def forcing_windows(forcing: Forcing | None, mesh: StructMesh, dtype, win):
+    """The forcing as ``slab.window_steps`` takes it, ``forc_full``: the wind
+    planes (6, ny2, nx, 1) and the level indices (12, ny2, nx, 1) of
+    ``fused_model.forcing_setup`` cut by ``win`` into tile windows as f_edge
+    is, and (r_lin, Cd, lambda) as 0-d tensors rounded to ``dtype``; None
+    unforced."""
+    if forcing is None:
+        return None
+    ny2, nx = mesh.ny2, mesh.nx
+    wind, idx = fused_model.forcing_setup(forcing, ny2, nx, dtype)
+    device = mesh.f_edge.device
+    coefs = (torch.tensor(c, dtype=dtype, device=device)
+             for c in fused_model.forcing_scal(forcing, dtype))
+    return (win(wind.reshape(6, ny2, nx, 1).to(device)),
+            win(idx.reshape(12, ny2, nx, 1).to(device)), *coefs)
+
+
 def _untile(w):
     """(n_row_tiles, n_col_tiles, ch, rt, ct, K) interiors -> (ch, ny2, nx, K)."""
     n_tm, n_ti, ch, rt, ct, k = w.shape
@@ -204,12 +233,13 @@ def _nl_args(mesh: StructMesh, dtype, nonlinear: bool):
 
 def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
                         row_tile: int, col_tile: int, q: int, fb: bool = False, *,
-                        nonlinear: bool = False) -> StructState:
+                        nonlinear: bool = False, forcing: Forcing | None = None
+                        ) -> StructState:
     """The tiled kernel's plain version: n_steps / q times, cut the
     periodic state into halo-padded tile windows, run ``window_steps`` on
-    all of them as one batch (the mesh's wall mask and, for ``nonlinear``,
-    its vertex constants windowed with them), and put the interiors back
-    together."""
+    all of them as one batch (the mesh's wall mask, the ``forcing`` and, for
+    ``nonlinear``, the vertex constants windowed with them), and put the
+    interiors back together."""
     if n_steps % q:
         raise ValueError(f"q={q} must divide n_steps={n_steps}")
     ny2, nx = mesh.ny2, mesh.nx
@@ -227,13 +257,15 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
     if nonlinear:
         fv = fused_model.nl_setup(mesh, dtype)
         fv_w = win(fv.reshape(fv.shape[0], ny2, nx, 1))
+    forc_w = forcing_windows(forcing, mesh, dtype, win)
     ssh = state.ssh[..., None]
     h = state.layer_thickness
     u = state.normal_velocity.reshape(6, ny2, nx, k)
     for _ in range(n_steps // q):
         out = window_steps(win(ssh), win(h), win(u), f_w, rts_w, dt_, inv_dc, s_div,
                            mesh.coriolis_terms, rows=row_tile, cols=col_tile, q=q,
-                           halo=halo, fb=fb, mask_full=mask_w, fv_full=fv_w, nl=nl)
+                           halo=halo, fb=fb, mask_full=mask_w, fv_full=fv_w, nl=nl,
+                           forc_full=forc_w)
         ssh, h, u = (_untile(x) for x in out)
     return StructState(ssh=ssh[..., 0], layer_thickness=h,
                        normal_velocity=u.reshape(3, 2, ny2, nx, k))
@@ -242,13 +274,14 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
 def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                    row_tile: int | None = None, col_tile: int | None = None,
                    q: int | None = None, nonlinear: bool = False,
-                   fb: bool = False) -> StructState:
+                   fb: bool = False, forcing: Forcing | None = None) -> StructState:
     """n_steps FE (or, with ``fb=True``, FB) steps of the linear core or,
     with ``nonlinear``, of the vector-invariant one, on a periodic lattice
     or a masked channel, q per kernel launch over row_tile x col_tile
     tiles; the plan is completed by ``resolve_plan``. A CUDA state runs the
-    kernel (its masked arm where the mesh has a wall mask; for the
-    nonlinear core at q = 1 only, and a nonlinear q > 1 raises: FE through
+    kernel (its masked arm where the mesh has a wall mask, its forced arm
+    with ``forcing``; for the nonlinear core at q = 1 only, and a nonlinear
+    q > 1 raises, as does forcing with the nonlinear core: FE through
     fe_step's nonlinear arm, FB through the tiled kernel's), a CPU state its
     plain version with the same plan."""
     device = state.layer_thickness.device
@@ -274,7 +307,8 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
             return StructState(*(x.clone() for x in (
                 state.ssh, state.layer_thickness, state.normal_velocity)))
         return plain_tiled_rollout(state, mesh, dt, n_steps, rt, ct, q, fb,
-                                   nonlinear=nonlinear)
+                                   nonlinear=nonlinear, forcing=forcing)
+    fused_model.check_forced_core(forcing, nonlinear, device)
     consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
     scal = fused_model._scal(mesh, dt, dtype)
     if nonlinear:
@@ -291,5 +325,6 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
             mesh.f_edge.to(dtype).contiguous(), *consts, *scal, n_steps,
             row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb,
             live=fused_model.kernel_live(mesh),
+            forcing=fused_model.kernel_forcing(forcing, mesh, dtype, device),
         )
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)

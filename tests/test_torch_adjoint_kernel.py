@@ -28,10 +28,15 @@ from torch_gpu_cases import (  # noqa: F401 (fixture)
     assert_nl_reverse_f32,
     channel_lattice,
     cuda,
+    forced_reverse,
+    forced_reverse_errors,
+    forced_stack,
     linear_reverse,
     nl_reverse,
     nl_stack,
+    plain_forced_reverse,
     plain_nl_reverse,
+    random_forcing,
     random_lattice,
     reverse_gaps,
     reversed_terms_mesh,
@@ -436,3 +441,61 @@ def test_nonlinear_reverse_refuses_what_it_does_not_take(cuda):
         nl_reverse(stack, g, reversed_terms_mesh(sm), DT, 1)
     with pytest.raises(ValueError, match="power of two"):
         nl_reverse(stack, g, sm, DT, 1, ks=3)
+
+
+# ---- the forced arm (momentum forcing) --------------------------------------
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", [(16, 16, 4), (64, 64, 6)])
+def test_forced_kernel_matches_plain_f64(cuda, shape, masked):
+    """adjoint_step's forced arm against the plain forced reverse (the
+    hand-written transpose of structured/adjoint.py) back through the same
+    forced primal states, 7 steps, f64: d_ssh, d_h, d_u, d(dt), d(wind) and
+    d(r_lin, Cd, lambda) within 1e-12 of their scales; a rerun bitwise
+    equal; the unforced arm's cotangent at least 100x that limit away."""
+    model, st = (channel_lattice if masked else random_lattice)(*shape, cuda)
+    sm = model.struct_mesh
+    forcing = random_forcing(model)
+    n = 7
+    stack = forced_stack(st, sm, DT, n, forcing)
+    g = _cotangent(st, 3)
+    out = forced_reverse(stack, g, sm, DT, n, forcing)
+    again = forced_reverse(stack, g, sm, DT, n, forcing)
+    ref = plain_forced_reverse(stack, g, sm, DT, n, forcing)
+    control = forced_reverse(stack, g, sm, DT, n, None)
+    torch.cuda.synchronize()
+    errs = forced_reverse_errors(out, ref)
+    assert max(errs.values()) <= 1e-12, errs
+    miss = forced_reverse_errors(control, ref)
+    assert max(miss[f] for f in FIELDS) >= 100 * 1e-12, miss
+    for a, b in zip(out[0:1], again[0:1]):
+        for f in FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for a, b in zip(out[1:], again[1:]):
+        assert torch.equal(a, b)
+
+
+def test_forced_gradient_matches_plain_f64(cuda):
+    """fused_rollout_diff with forcing on the card against the same on the
+    CPU (the plain forced steps and reverse), 6 steps in groups of 4, f64:
+    the gradients of sum(ssh^2) with respect to the state, dt, the wind and
+    the three coefficients within 1e-11 of their scales."""
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.models.forcing import Forcing
+
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    forcing = random_forcing(model)
+
+    def grads(device):
+        xs = [getattr(st, f).to(device).clone().requires_grad_(True) for f in FIELDS]
+        dt = torch.tensor(DT, dtype=torch.float64, device=device, requires_grad=True)
+        parts = [x.to(device).clone().requires_grad_(True) for x in (
+            forcing.wind_edge, forcing.drag_linear, forcing.drag_quadratic, forcing.rayleigh)]
+        f = Forcing(parts[0], forcing.top_mask.to(device), forcing.bottom_mask.to(device),
+                    *parts[1:])
+        out = mt.fused_rollout_diff(StructState(*xs), sm.to(device), dt, 6, plan=4, forcing=f)
+        return [g.cpu() for g in torch.autograd.grad((out.ssh ** 2).sum(), xs + [dt] + parts)]
+
+    for a, b in zip(grads("cuda"), grads("cpu")):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-11

@@ -20,6 +20,9 @@ from torch_gpu_cases import (  # noqa: F401 (fixture)
     cuda,
     assert_nonlinear_f32,
     assert_plan_f32,
+    forced_stack,
+    forward_errors,
+    random_forcing,
     random_lattice,
     reversed_terms_mesh,
     wave_lattice,
@@ -325,3 +328,57 @@ def test_nonlinear_kernel_f32_at_the_main_path_plans(cuda, tile, ks, masked):
     phase 12's check, where dropping the nonlinear terms misses by 100x
     (torch_gpu_cases.assert_plan_f32)."""
     assert_plan_f32(fe_step.fe_nl_rollout, False, tile, ks, masked, cuda)
+
+
+# ---- the forced arm (momentum forcing) --------------------------------------
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", [(16, 16, 4), (64, 64, 6)])
+def test_forced_kernel_matches_plain_f64(cuda, shape, masked):
+    """fe_step's forced arm against the plain forced steps, 20 steps, f64:
+    1e-12 of each field's scale, with random winds, all three coefficients
+    non-zero and random top and bottom levels (-1 among them); a rerun
+    bitwise equal, the walls +0.0; and the unforced arm at least 100x that
+    limit away."""
+    model, st = (channel_lattice if masked else random_lattice)(*shape, cuda)
+    sm = model.struct_mesh
+    forcing = random_forcing(model)
+    out = fused_run_loop(st, sm, 10.0, 20, forcing=forcing)
+    again = fused_run_loop(st, sm, 10.0, 20, forcing=forcing)
+    ref = structured_run_loop(st, sm, 10.0, 20, forcing=forcing)
+    control = fused_run_loop(st, sm, 10.0, 20)
+    torch.cuda.synchronize()
+    errs = forward_errors(out, ref, sm)
+    assert max(errs.values()) <= 1e-12, errs
+    assert max(forward_errors(control, ref, sm).values()) >= 100 * 1e-12
+    for f in FIELDS:
+        assert torch.equal(getattr(out, f), getattr(again, f)), f
+    if masked:
+        assert_walls_closed(out.normal_velocity, sm)
+
+
+def test_forced_stack_is_the_rollout_bitwise(cuda):
+    """fe_fill_stack's forced arm (the gradient's rebuild) gives the forced
+    rollout's states bit for bit."""
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    forcing = random_forcing(model)
+    stack = forced_stack(st, sm, 10.0, 4, forcing)
+    out = fused_run_loop(st, sm, 10.0, 3, forcing=forcing)
+    for x, f in zip(stack, FIELDS):
+        assert torch.equal(x[3], getattr(out, f)), f
+
+
+def test_forced_nonlinear_raises_on_the_card(cuda):
+    """The nonlinear kernels have no forced arm: forcing with nonlinear=True
+    on a CUDA state raises, on every forward route, and runs nothing."""
+    model, st = random_lattice(16, 16, 4, cuda)
+    sm = model.struct_mesh
+    forcing = random_forcing(model)
+    before = fe_step.launches
+    for fb in (False, True):
+        with pytest.raises(NotImplementedError):
+            mt.structured_auto_run_loop(st, sm, 10.0, 2, nonlinear=True, fb=fb, forcing=forcing)
+    with pytest.raises(NotImplementedError):
+        mt.auto_rollout_diff(st, sm, 10.0, 2, nonlinear=True, forcing=forcing)
+    assert fe_step.launches == before

@@ -25,7 +25,11 @@ from torch_gpu_cases import (  # noqa: F401 (fixture)
     FIELDS,
     channel_lattice,
     cuda,
+    forced_reverse,
+    forced_reverse_errors,
+    plain_forced_reverse,
     plain_nl_reverse,
+    random_forcing,
     random_lattice,
     reversed_terms_mesh,
 )
@@ -306,3 +310,39 @@ def test_nonlinear_tiled_reverse_matches_plain_f64(cuda, case, plan):
     assert all(torch.equal(getattr(fwd, f), getattr(want, f)) for f in FIELDS)
     with pytest.raises(ValueError, match="q = 1"):
         tiled_adjoint_rollout(st, sm, DT, n, g, plan=(plan[0], plan[1], 2, 1), nonlinear=True)
+
+
+# ---- the forced arm (momentum forcing) --------------------------------------
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("q, tile", [(1, (4, 8)), (2, (4, 8)), (2, (2, 16)), (1, (8, 16))])
+def test_forced_kernel_matches_plain_f64(cuda, masked, q, tile):
+    """tiled_adjoint's forced arm at q = 1 and 2 against its plain version
+    with forcing (plain_tiled_adjoint_superstep, the vjp of the forced
+    windows) through the same superstep starts, 3 supersteps on 64 x 64 x 4,
+    f64: d_ssh, d_h, d_u, d(dt), d(wind) and d(r_lin, Cd, lambda) within
+    1e-12 of their scales; a rerun bitwise equal; the unforced arm at least
+    100x that limit away."""
+    model, st = (channel_lattice if masked else random_lattice)(64, 64, 4, cuda)
+    sm = model.struct_mesh
+    forcing = random_forcing(model)
+    n = 3
+    starts = [st]
+    for _ in range(n - 1):
+        starts.append(fused_run_loop(starts[-1], sm, DT, q, forcing=forcing))
+    stack = tuple(torch.stack([getattr(s, f) for s in starts]) for f in FIELDS)
+    g = _cotangent(st, 5)
+    plan = (*tile, q)
+    out = forced_reverse(stack, g, sm, DT, n, forcing, plan)
+    again = forced_reverse(stack, g, sm, DT, n, forcing, plan)
+    ref = plain_forced_reverse(stack, g, sm, DT, n, forcing, plan)
+    control = forced_reverse(stack, g, sm, DT, n, None, plan)
+    torch.cuda.synchronize()
+    errs = forced_reverse_errors(out, ref)
+    assert max(errs.values()) <= 1e-12, errs
+    miss = forced_reverse_errors(control, ref)
+    assert max(miss[f] for f in FIELDS) >= 100 * 1e-12, miss
+    for f in FIELDS:
+        assert torch.equal(getattr(out[0], f), getattr(again[0], f)), f
+    for a, b in zip(out[1:], again[1:]):
+        assert torch.equal(a, b)

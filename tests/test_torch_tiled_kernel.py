@@ -26,6 +26,8 @@ from torch_gpu_cases import (  # noqa: F401 (fixture)
     cuda,
     assert_nonlinear_f32,
     assert_plan_f32,
+    forward_errors,
+    random_forcing,
     random_lattice,
     reversed_terms_mesh,
     wave_lattice,
@@ -309,3 +311,30 @@ def test_nonlinear_fb_kernel_f32_at_the_main_path_plan(cuda, masked):
     dropping the nonlinear terms misses by 100x
     (torch_gpu_cases.assert_plan_f32)."""
     assert_plan_f32(tiled_step.tiled_nl_rollout, True, (8, 8), 4, masked, cuda)
+
+
+# ---- the forced arm (momentum forcing) --------------------------------------
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("fb", [False, True])
+@pytest.mark.parametrize("q, tile", [(1, (4, 8)), (2, (4, 8)), (1, (2, 16))])
+def test_forced_kernel_matches_plain_f64(cuda, masked, fb, q, tile):
+    """tiled_step's forced arm, FE and FB, q = 1 and 2, against the plain
+    forced steps on 64 x 64 x 4, 8 steps, f64: 1e-12 of each field's scale;
+    a rerun bitwise equal; the walls +0.0; the unforced arm at least 100x
+    that limit away."""
+    model, st = (channel_lattice if masked else random_lattice)(64, 64, 4, cuda)
+    sm = model.struct_mesh
+    forcing = random_forcing(model)
+    run = lambda f: tiled_run_loop(st, sm, 10.0, 8, row_tile=tile[0], col_tile=tile[1],  # noqa: E731
+                                   q=q, fb=fb, forcing=f)
+    out, again, control = run(forcing), run(forcing), run(None)
+    ref = structured_run_loop(st, sm, 10.0, 8, fb=fb, forcing=forcing)
+    torch.cuda.synchronize()
+    errs = forward_errors(out, ref, sm)
+    assert max(errs.values()) <= 1e-12, errs
+    assert max(forward_errors(control, ref, sm).values()) >= 100 * 1e-12
+    for f in FIELDS:
+        assert torch.equal(getattr(out, f), getattr(again, f)), f
+    if masked:
+        assert_walls_closed(out.normal_velocity, sm)

@@ -263,3 +263,136 @@ def assert_nl_reverse_f32(gaps: dict, factor: float = 3.0) -> None:
     for key, plain in gaps["plain"].items():
         assert gaps["kernel"][key] <= factor * plain, (key, gaps["kernel"][key], plain)
     assert max(gaps["linear"][k] / (factor * v) for k, v in gaps["plain"].items()) >= 100, gaps
+
+
+# ---- momentum forcing: the forced arms of the four linear kernels
+# (tests/test_torch_kernel.py, tests/test_torch_tiled_kernel.py,
+# tests/test_torch_adjoint_kernel.py, tests/test_torch_tiled_adjoint_kernel.py,
+# chip_smoke.py phase 14) -----------------------------------------------------
+
+def forward_errors(out, ref, mesh) -> dict:
+    """{field: max |out - ref| / scale}: ssh against the column thickness
+    sum_k h (a small difference of large sums), h and u against their own
+    magnitude."""
+    column = (ref.ssh + mesh.resting_thickness_sum).abs().max()
+    return {f: float((getattr(out, f) - getattr(ref, f)).abs().max()
+                     / (column if f == "ssh" else getattr(ref, f).abs().max()))
+            for f in FIELDS}
+
+
+def random_forcing(model, seed=11, wind=1e-4, coefs=(1e-3, 2.5e-3, 1e-4)):
+    """A lattice Forcing on the model's device, in its dtype: random winds
+    (std ``wind`` m^2/s^2, the kinematic stress of ~0.1 Pa), (r_lin, Cd,
+    lambda) = ``coefs``, all non-zero, and random top and bottom levels per
+    edge in -1 .. K - 1 (-1: no active level; also on a channel's closed
+    edges, whose wind is 0)."""
+    from mpas_ocean_tpu_torch.models.forcing import Forcing
+
+    sm = model.struct_mesh
+    rng = np.random.default_rng(seed)
+    shape, k = tuple(sm.f_edge.shape), sm.n_vert_levels
+    dtype, device = sm.f_edge.dtype, sm.f_edge.device
+    w = wind * rng.normal(size=shape)
+    top, bot = (rng.integers(-1, k, size=shape) for _ in range(2))
+    if sm.edge_mask is not None:
+        closed = sm.edge_mask.cpu().numpy() == 0
+        w[closed], top[closed], bot[closed] = 0.0, -1, -1
+    onehot = lambda i: (np.arange(k) == i[..., None]).astype(np.float64)  # noqa: E731
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dtype=dtype, device=device)  # noqa: E731
+    return Forcing(t(w), t(onehot(top)), t(onehot(bot)), *(t(c) for c in coefs))
+
+
+def forced_stack(st, mesh, dt, n, forcing):
+    """A stack of n primal states of the forced forward kernel from ``st``
+    (slot j: j steps), filled by ``fe_step.fe_fill_stack``'s forced arm."""
+    from mpas_ocean_tpu_torch.kernels import fe_step
+    from mpas_ocean_tpu_torch.structured import fused_model
+
+    dtype = st.layer_thickness.dtype
+    stack = tuple(torch.empty((n, *getattr(st, f).shape), dtype=dtype, device=st.ssh.device)
+                  for f in FIELDS)
+    for dst, f in zip(stack, FIELDS):
+        dst[0].copy_(getattr(st, f))
+    fe_step.fe_fill_stack(stack, mesh.f_edge.to(dtype).contiguous(),
+                          mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil,
+                          *fused_model._scal(mesh, dt, dtype), n - 1,
+                          live=fused_model.kernel_live(mesh),
+                          forcing=fused_model.kernel_forcing(forcing, mesh, dtype, st.ssh.device))
+    return stack
+
+
+def forced_reverse(stack, g, mesh, dt, n, forcing, plan=None):
+    """n reverse steps of the forced arm of adjoint_step (``plan`` None) or
+    of tiled_adjoint (``plan`` = (row_tile, col_tile, q): n supersteps of q
+    steps, slot j the start of superstep j) through the stack from g, with
+    ``forcing`` None the unforced arm: (cotangent, d(dt), d(wind) (3, 2,
+    ny2, nx), d(r_lin, Cd, lambda)) as f64 tensors."""
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.structured import StructState, fused_model
+    from mpas_ocean_tpu_torch.structured.adjoint import ForcingCot
+    from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
+
+    dtype, device = stack[1].dtype, stack[1].device
+    ddt = torch.zeros(1, dtype=torch.float64, device=device)
+    kf = fused_model.kernel_forcing(forcing, mesh, dtype, device)
+    dforc = None if forcing is None else ForcingCot(
+        torch.zeros((6, mesh.ny2, mesh.nx), dtype=dtype, device=device),
+        torch.zeros(3, dtype=torch.float64, device=device))
+    g = tuple(getattr(g, f).to(dtype).contiguous() for f in FIELDS)
+    scal, live = fused_model._scal(mesh, dt, dtype), fused_model.kernel_live(mesh)
+    f_edge = mesh.f_edge.to(dtype).contiguous()
+    if plan is None:
+        out = adjoint_step.adjoint_rollout(stack, g, f_edge, *mesh.host_adjoint_stencil, *scal,
+                                           n, ddt, live=live, forcing=kf, dforc=dforc)
+    else:
+        out = tiled_adjoint.tiled_adjoint_rollout(
+            stack, g, f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
+            *mesh.host_stencil, *mesh.host_adjoint_stencil, *scal, n, ddt,
+            row_tile=plan[0], col_tile=plan[1], q=plan[2],
+            halo=reverse_halo(mesh.coriolis_terms), live=live, forcing=kf, dforc=dforc)
+    zero = torch.zeros((3, 2, mesh.ny2, mesh.nx), dtype=torch.float64, device=device)
+    dw, dc = (zero, torch.zeros(3, dtype=torch.float64, device=device)) if dforc is None else (
+        dforc.wind.double().reshape(zero.shape), dforc.coefs)
+    return StructState(*(x.double() for x in out)), ddt[0], dw, dc
+
+
+def plain_forced_reverse(stack, g, mesh, dt, n, forcing, plan=None):
+    """The plain forced reverse back through the stack's slots n - 1 .. 0
+    from g, in the stack's dtype: the hand-written ``structured_adjoint_step``
+    with forcing (``plan`` None), or the tiled kernel's plain version
+    ``plain_tiled_adjoint_superstep`` with forcing (``plan`` = (row_tile,
+    col_tile, q), slot j the start of superstep j): (cotangent, d(dt),
+    d(wind), d(r_lin, Cd, lambda)) as f64 tensors."""
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        plain_tiled_adjoint_superstep,
+        structured_adjoint_step,
+    )
+
+    dtype = stack[1].dtype
+    g = StructState(*(getattr(g, f).to(dtype) for f in FIELDS))
+    ddt = torch.zeros((), dtype=torch.float64, device=stack[1].device)
+    dw = torch.zeros_like(forcing.wind_edge, dtype=torch.float64)
+    dc = torch.zeros(3, dtype=torch.float64, device=stack[1].device)
+    for j in reversed(range(n)):
+        s = StructState(*(x[j] for x in stack))
+        if plan is None:
+            g, dd, d = structured_adjoint_step(s, g, mesh, dt, forcing)
+        else:
+            g, dd, d = plain_tiled_adjoint_superstep(s, g, mesh, dt, *plan, forcing=forcing)
+        ddt, dw, dc = ddt + dd.double(), dw + d.wind.double(), dc + d.coefs.double()
+    return StructState(*(x.double() for x in (g.ssh, g.layer_thickness, g.normal_velocity))), \
+        ddt, dw, dc
+
+
+def forced_reverse_errors(a, b) -> dict:
+    """{name: max |a - b| / max |b|} over the four parts of two forced
+    reverses (``forced_reverse``' tuples): d_ssh, d_h, d_u, d(dt), d(wind)
+    and each coefficient's cotangent."""
+    rel = lambda x, y: float((x - y).abs().max() / y.abs().max())  # noqa: E731
+    out = {f: rel(getattr(a[0], f), getattr(b[0], f)) for f in FIELDS}
+    out["d_dt"] = rel(a[1], b[1])
+    out["d_wind"] = rel(a[2], b[2])
+    for i, name in enumerate(("d_r_lin", "d_cd", "d_lambda")):
+        out[name] = rel(a[3][i], b[3][i])
+    return out

@@ -152,3 +152,28 @@ def nl_channel(n, k, seed=3):
     smj = JaxStructuredModel(mj, n, n, parent_horz=hj, keep_cells=keep)
     smp = mt.StructuredModel(mp, n, n, device="cpu", parent_horz=hp, keep_cells=keep)
     return (smj, smp, *to_both(smj, smp, wavy_state(mp, seed=seed)), mj, mp)
+
+
+# ---- momentum forcing (tests/test_torch_forcing.py,
+# tests/test_torch_forcing_adjoint.py) ---------------------------------------
+
+# tests/test_forcing.py:55-63's _full_forcing: wind, both drags and Rayleigh
+FULL_FORCING = dict(wind_stress_zonal=0.1, wind_stress_meridional=-0.05,
+                    bottom_drag_linear=1e-5, bottom_drag_quadratic=2e-3, rayleigh=1e-6)
+
+
+def forced_lattice(n, k, channel=False, seed=5, **forcing_kw):
+    """(JAX model, port model, JAX state, port state, JAX struct Forcing,
+    port struct Forcing) on ``nl_periodic``'s or ``nl_channel``'s lattice,
+    with ``make_forcing``'s forcing (FULL_FORCING by default) of each
+    package."""
+    from mpas_ocean_tpu.models.forcing import make_forcing as jax_make_forcing
+
+    smj, smp, stj, stp, mj, mp = (nl_channel if channel else nl_periodic)(n, k, seed)
+    kw = forcing_kw or FULL_FORCING
+    fj, fp = jax_make_forcing(mj, **kw), mt.models.make_forcing(mp, **kw)
+    return smj, smp, stj, stp, smj.to_struct_forcing(fj), smp.to_struct_forcing(fp)
+
+
+def jax_forcing_dict(forcing) -> dict:
+    return {f.name: np.asarray(getattr(forcing, f.name)) for f in dataclasses.fields(forcing)}
