@@ -87,7 +87,20 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      to_struct beside the unforced ones (bench.py's forced 256^2 100-step
      tiled gradient among them) with exact launch counts, a profiler
      breakdown and the forced reverse arms per launch. ``python3
-     chip_smoke.py --forcing-only`` runs phases 1, 2, 9 and 14 alone.
+     chip_smoke.py --forcing-only`` runs phases 1, 2, 9 and 14 alone;
+ 15. tracer transport (the tracer arms of kernels 1 and 2): the tracer
+     instantiations' ptxas lines; f64 fe_step FE and tiled_step FE and FB
+     (q = 1, 2) with two tracers against the plain steps (16^2 and 64^2
+     random, periodic and channel, kappa in {0, 5}, upwind in {1, 0.5, 0})
+     with bitwise reruns and controls; uniform T, conserved content,
+     monotone upwinding and culled cells on the card; f32 100-step checks
+     on bench.py's tracers at 64^2 and 256^2 with a bf16 control; the
+     refusals (nonlinear or forced with tracers, gradients of a state with
+     tracers); the main paths from to_struct (bench.py's two-tracer
+     64x64x100 FE rollout over 8000 steps, 256x256x100 FE and FB, the 64^2
+     channel FE with kappa 5) with exact launch counts, timed beside the
+     tracer-free arm with their bounds. ``python3 chip_smoke.py
+     --tracers-only`` runs phases 1, 2, 9 and 15 alone.
 The line before the last prints the GPU's name and power limit as nvidia-smi
 gives them, the one before it the kernels' JSON summary, and the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
@@ -409,8 +422,15 @@ def spread(times: list, scale: float = 1.0, unit: str = "s") -> str:
             f"max {max(t):.6g})")
 
 
+# Floating-point operations per cell-level and tracer the tracer arm needs
+# (pallas_model.step_flop_count's 92 per lattice site of two cells): per
+# cell its three owned edges' T_e, upwind term, flux and diffusive term, the
+# divergence, the content and the division
+TRACER_OPS = 46
+
+
 def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int,
-               peaks: dict | None = None):
+               peaks: dict | None = None, n_tracers: int = 0, masked: bool = False):
     """(bound seconds, "bytes" or "operations") of one step of a kernel:
     each input read once and each output written once, over the byte rate
     (``byte_rate``: L2's or device memory's); the arithmetic counted from
@@ -418,21 +438,27 @@ def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int
     CEILING (phase 9) by default, MEASURED or DATASHEET.
     fe_step reads a state (ssh, h, u), f_edge, rts and the table and writes
     a state; per cell-level it does 24 flux/update operations, 4 per owned
-    edge for u and 3 per Coriolis tap (1.5 n_terms). adjoint_step reads a
-    primal state, a cotangent, f_edge and the table and writes a cotangent
-    and d(dt); per cell-level it does 20 operations per owned edge plus 2
-    per transposed tap (n_terms), 6 per incoming edge and 3 for dh."""
+    edge for u and 3 per Coriolis tap (1.5 n_terms). With ``n_tracers`` it
+    also reads and writes 2 nT tracer planes and does TRACER_OPS per
+    cell-level and tracer; ``masked`` adds the live bits read, and with
+    tracers the cell mask. adjoint_step reads a primal state, a cotangent,
+    f_edge and the table and writes a cotangent and d(dt); per cell-level it
+    does 20 operations per owned edge plus 2 per transposed tap (n_terms), 6
+    per incoming edge and 3 for dh."""
     cells = 2 * ny2 * nx
     state = cells * (1 + 4 * k)
+    tr = cells * k * n_tracers
     table = 4 * (44 + 3 * n_terms) + itemsize * n_terms
     if kind == "fe_step":
-        nbytes = itemsize * (2 * state + 4 * cells) + table
-        ops = cells * k * (36 + 1.5 * n_terms)
+        nbytes = itemsize * (2 * (state + tr) + 4 * cells) + table
+        ops = cells * k * (36 + 1.5 * n_terms + TRACER_OPS * n_tracers)
     else:
         nbytes = itemsize * (3 * state + 3 * cells) + 8 + table
         ops = cells * k * (81 + n_terms)
+    if masked:
+        nbytes += 4 * ny2 * nx + (itemsize * cells if n_tracers else 0)
     peaks = CEILING if peaks is None else peaks
-    rate = byte_rate(peaks, itemsize * state)
+    rate = byte_rate(peaks, itemsize * (state + tr))
     t_bytes, t_ops = nbytes / rate, ops / peaks["flops"][itemsize]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -2772,11 +2798,12 @@ def forcing_phase(gpu: str, log_text: str) -> list:
     from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
     from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
-    # the forced instantiations: their last template argument (kForced) true
-    for line in ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel",
-                                        "adjoint_step_kernel", "tiled_adjoint_kernel"),
-                             forced=True):
-        log(f"[14] ptxas {line}")
+    # the forced instantiations: kForced true (the reverse kernels' last
+    # template argument; the forward kernels' second last, kTracers false)
+    for kernels, arm in ((("fe_step_kernel", "tiled_step_kernel"), "Lb1ELb0EEEv"),
+                         (("adjoint_step_kernel", "tiled_adjoint_kernel"), "Lb1EEEv")):
+        for line in ptxas_report(log_text, kernels, arm):
+            log(f"[14] ptxas {line}")
     counters = (fe_step, tiled_step, adjoint_step, tiled_adjoint)
 
     def zero_counts():
@@ -3321,14 +3348,445 @@ def forcing_phase(gpu: str, log_text: str) -> list:
     ]
 
 
-def ptxas_report(log_text: str, kernels: tuple, forced: bool = False) -> list:
+# ---- phase 15: tracer transport ---------------------------------------------
+
+# Tracer steps of the f64 kernel-against-plain checks and of the physics
+# checks; the main paths' lengths are the tracer-free ones' (HEADLINE_STEPS at
+# 64^2 FE, LARGE_MAIN_STEPS at 256^2 and on the channel)
+TRACER_CHECK_STEPS = 10
+# bench.py's two tracers (measure_pallas_tracers, bench.py:147-170): T = 10 +
+# 2 sin(2 pi x / (x_max + 1)), S = 35, donor-cell upwinding, no diffusion
+BENCH_TRACER_UPWIND, BENCH_TRACER_KAPPA = 1.0, 0.0
+# The f32 tracer check's floor, in f32 epsilons of the tracer's max |T|: a
+# tracer that the flow barely moves (bench.py's S = 35 is uniform) ends a few
+# roundings from the f64 run in both f32 runs, and one of those distances may
+# be 0, so each tracer's limit is U_GAP_FACTOR x the larger of the plain f32
+# run's distance and this floor.
+TRACER_F32_FLOOR = 4
+def bench_tracers(horz, levels: int, np_dtype):
+    """bench.py's two tracers on ``horz`` (T = 10 + 2 sin(2 pi x / (x_max +
+    1)), S = 35), made by the port's make_tracers as a user would, (nCells, 2,
+    K) in ``np_dtype``."""
+    import numpy as np
+
+    import mpas_ocean_tpu_torch as mt
+
+    vert = mt.make_vertical_mesh(horz, levels, resting_thickness=np.full(
+        (horz.n_cells, levels), 1.0, dtype=np_dtype), dtype=np_dtype)
+    x = np.asarray(horz.cells.x)
+    return mt.make_tracers(mt.Mesh(horz=horz, vert=vert),
+                           [10.0 + 2.0 * np.sin(2 * np.pi * x / (x.max() + 1)),
+                            np.full(horz.n_cells, 35.0)], dtype=np_dtype)
+
+
+def tracer_phase(gpu: str, log_text: str) -> list:
+    """Phase 15, tracer transport (the tracer arms of kernels 1 and 2): the
+    tracer instantiations' ptxas lines; f64, fe_step FE and tiled_step FE and
+    FB at q = 1, 2 with two tracers against the plain steps on 16^2 and 64^2
+    random states, periodic and channel, at 4, 6 and 36 levels and on the
+    channel at 100 (the main path's level chunks), kappa in {0, 5}, upwind
+    in {1, 0.5, 0}, to 1e-12 of scale, reruns bitwise, the tracers left
+    where they started (a rollout that drops them) 100x off; f32 on
+    bench.py's tracers, 100 steps, on the IGW at 64^2 and 256^2 x 100 and on
+    the 64^2 x 100 Kelvin channel with kappa 5, each tracer's distance from
+    an f64 plain run within U_GAP_FACTOR x the plain f32 run's, with a bf16
+    control; uniform T, conserved content, monotone upwinding and culled
+    cells on the card (tests/test_tracers.py); the main paths from to_struct
+    (bench.py's 64^2 x 100 two-tracer FE rollout over HEADLINE_STEPS, 256^2
+    FE and FB, the 64^2 channel FE with kappa 5) timed beside the tracer-free
+    arm with exact launch counts and their bounds; the refusals. Returns the
+    tracer arms' entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
+    from mpas_ocean_tpu_torch.models import total_tracer_content
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        auto_rollout_diff,
+        fused_run_loop,
+        structured_auto_run_loop,
+        structured_run_loop,
+        tiled_rollout_diff,
+        tiled_run_loop,
+    )
+
+    for line in ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel"), "Lb1EEEv"):
+        log(f"[15] ptxas {line}")
+    counters = (fe_step, tiled_step)
+
+    def zero_counts():
+        for m in counters:
+            m.launches = m.tracer_launches = 0
+
+    def counts():
+        return {m.__name__.rsplit(".", 1)[-1]: (m.launches, m.tracer_launches) for m in counters}
+
+    def with_tracers(model, st, seed=3):
+        """st with two random tracers (a wave in x plus noise, 35 plus noise),
+        0 on culled cells."""
+        ny2, nx, k = st.layer_thickness.shape[1:]
+        rng = np.random.default_rng(seed)
+        x = np.arange(nx)[None, None, :, None] / nx
+        tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
+                       35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
+        if model.cell_mask is not None:
+            tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
+        return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
+                           torch.from_numpy(tr).to(st.layer_thickness))
+
+    def errors(out, ref, mesh) -> dict:
+        errs = field_errors(out, ref, mesh.resting_thickness_sum)
+        e = float((out.tracers - ref.tracers).abs().max())
+        errs["tracers"] = (e, e / float(ref.tracers.abs().max()))
+        return errs
+
+    def same(a, b) -> bool:
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS + ("tracers",))
+
+    # f64 kernel against plain, 16^2 and 64^2 random, periodic and channel:
+    # (n, levels, channel or not, tiled_step's tile, FB's q). At 4 and 6
+    # levels each block of a cluster takes one level; at 36, chunks of 8 over
+    # 5 blocks, the last of 4; at 100, the main path's chunks of 16 over 7,
+    # the last of 4. The deep cases run the planners' tiles (None); no f64
+    # FB window fits a tile at q = 2 and 100 levels. Their column is the
+    # 6-level case's 60 m (at 100 layers of 10 m the gravity wave's Courant
+    # number at dt = 10 s and 1 km cells is ~1, and the state blows up), and
+    # they take u of 0.5 m/s (phase 13's): the step moves u through ssh, a
+    # column sum that the kernel adds in chunk order, and with u of 0.01 m/s
+    # that rounding alone is ~1e-12 of max|u| at 36 levels, with or without
+    # tracers (PERF.md section 6, PR 11).
+    worst, n_checks = {}, 0
+    opts = [(kappa, upwind) for kappa in (0.0, 5.0) for upwind in (1.0, 0.5, 0.0)]
+    f64_cases = [(n, levels, channel, (4, 8), (1, 2), 0.01, 10.0)
+                 for n, levels in ((16, 4), (HEADLINE_N, 6)) for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, 36, channel, None, (1, 2), 0.5, 60.0 / 36)
+                  for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, LEVELS, True, None, (1,), 0.5, 60.0 / LEVELS)]
+    for n, levels, channel, tile, fb_qs, u_amp, layer in f64_cases:
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=5,
+                                                                   u_amp=u_amp, layer=layer)
+        sm = model.struct_mesh
+        st = with_tracers(model, model.to_struct(prog))
+        name = (f"f64 {n}x{n}x{levels} {'channel' if channel else 'periodic'}, layers of "
+                f"{layer:.4g} m, u {u_amp} m/s")
+        tk = {} if tile is None else dict(row_tile=tile[0], col_tile=tile[1])
+        for kappa, upwind in opts:
+            kw = dict(tracer_kappa=kappa, tracer_upwind=upwind)
+            refs = {fb: structured_run_loop(st, sm, 10.0, TRACER_CHECK_STEPS, fb=fb, **kw)
+                    for fb in (False, True)}
+            runs = [("fe_step FE", False,
+                     lambda: fused_run_loop(st, sm, 10.0, TRACER_CHECK_STEPS, **kw))]
+            runs += [(f"tiled_step {'FB' if fb else 'FE'} q={q}", fb,
+                      lambda fb=fb, q=q: tiled_run_loop(st, sm, 10.0, TRACER_CHECK_STEPS,
+                                                        q=q, fb=fb, **tk, **kw))
+                     for fb in (False, True) for q in (fb_qs if fb else (1, 2))]
+            errs_all = []
+            for label, fb, run in runs:
+                zero_counts()
+                out, again = run(), run()
+                c = counts()
+                if sum(t for _, t in c.values()) != sum(a for a, _ in c.values()) or not any(
+                        t for _, t in c.values()):
+                    raise AssertionError(f"{name} {label}: launch counts {c}")
+                errs = errors(out, refs[fb], sm)
+                if not max(r for _, r in errs.values()) <= 1e-12:
+                    raise AssertionError(f"{name} kappa {kappa} upwind {upwind} {label}: "
+                                         f"{format_errors(errs)}")
+                if not same(out, again):
+                    raise AssertionError(f"{name} {label}: rerun differs")
+                miss = float((st.tracers - refs[fb].tracers).abs().max()
+                             / refs[fb].tracers.abs().max())
+                if not miss >= 100 * 1e-12:
+                    raise AssertionError(f"{name} {label}: the control misses by only {miss}")
+                if channel:
+                    dead = (sm.cell_mask == 0)[..., None, None].expand_as(out.tracers)
+                    if not bool((out.tracers.masked_select(dead) == 0).all()):
+                        raise AssertionError(f"{name} {label}: T is not 0 on culled cells")
+                key = label.split()[0]
+                worst[key] = max(worst.get(key, 0.0), max(r for _, r in errs.values()))
+                errs_all.append((label, errs["tracers"][1], miss))
+                n_checks += 1
+            log(f"[15] {name}, {TRACER_CHECK_STEPS} steps, kappa {kappa} upwind {upwind}: "
+                "tracers' error over scale (control's miss) " + ", ".join(
+                    f"{lbl} {e:.3e} ({m:.2e})" for lbl, e, m in errs_all))
+        del model, st, sm
+    log(f"[15] {n_checks} f64 tracer checks, reruns bitwise equal, T = 0 on culled cells; "
+        "worst relative errors over every field and the tracers: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # physics on the card, f64 (tests/test_tracers.py:53-110, 192-201)
+    def physics_case(channel):
+        horz = mt.planar_hex_mesh(16, 16, 1000.0, f0=1e-4)
+        keep, mh = None, horz
+        if channel:
+            y = np.asarray(horz.cells.y)
+            keep = (y > y.min() + 1) & (y < y.max() - 1)
+            mh = mt.cull_cells(horz, keep)
+        vert = mt.make_vertical_mesh(mh, 2)
+        mesh = mt.Mesh(horz=mh, vert=vert)
+        rng = np.random.default_rng(5 if channel else 7)
+        h0 = np.asarray(vert.resting_thickness) + 0.1 * rng.standard_normal((mh.n_cells, 2))
+        u0 = 0.1 * rng.standard_normal((mh.n_edges, 2)) * np.asarray(mh.edges.edge_mask)[:, None]
+        x = np.asarray(mh.cells.x)
+        prog = mt.PrognosticVars(
+            torch.from_numpy(h0.sum(1) - np.asarray(vert.resting_thickness_sum)),
+            torch.from_numpy(h0), torch.from_numpy(u0),
+            tracers=mt.make_tracers(mesh, [10.0 + np.sin(2 * np.pi * x / (x.max() + 1)),
+                                           35.0 + 0.0 * x]))
+        kw = dict(parent_horz=horz, keep_cells=keep) if channel else {}
+        model = mt.StructuredModel(mesh, 16, 16, **kw)
+        return model, mesh, prog
+
+    for channel in (False, True):
+        model, mesh, prog = physics_case(channel)
+        st, sm = model.to_struct(prog), model.struct_mesh
+        c0 = total_tracer_content(prog.tracers, prog.layer_thickness, mesh).numpy()
+        where = "channel" if channel else "periodic"
+        for fb in (False, True):
+            arm = "tiled_step FB" if fb else "fe_step FE"
+            out = model.from_struct(structured_auto_run_loop(st, sm, 50.0, 20, fb=fb,
+                                                             tracer_kappa=5.0))
+            sal = out.tracers[:, 1].numpy()
+            gap = float(np.abs(sal / 35.0 - 1.0).max())
+            c1 = total_tracer_content(out.tracers, out.layer_thickness, mesh).numpy()
+            drift = float(np.abs(c1 / c0 - 1.0).max())
+            log(f"[15] physics f64 16^2 {where}, {arm}, 20 steps of 50 s, kappa 5: uniform S = 35 "
+                f"kept to {gap:.3e} (rtol 1e-10), total content drift {drift:.3e} (rtol 1e-12)")
+            if not (gap <= 1e-10 and drift <= 1e-12):
+                raise AssertionError(f"physics {where} {arm}: S {gap:.3e}, content {drift:.3e}")
+            if channel:
+                lat = structured_auto_run_loop(st, sm, 50.0, 20, fb=fb, tracer_kappa=5.0)
+                dead = (sm.cell_mask == 0)[..., None, None].expand_as(lat.tracers)
+                if not bool((lat.tracers.masked_select(dead) == 0).all()):
+                    raise AssertionError(f"physics {where} {arm}: T is not 0 on culled cells")
+        if not channel:
+            t0 = prog.tracers[:, 0].numpy()
+            for kw in (dict(), dict(tracer_upwind=0.0), dict(fb=True, tracer_kappa=5.0)):
+                out = model.from_struct(structured_auto_run_loop(st, sm, 50.0, 10, **kw))
+                c1 = total_tracer_content(out.tracers, out.layer_thickness, mesh).numpy()
+                if not np.allclose(c1, c0, rtol=1e-12, atol=0):
+                    raise AssertionError(f"content not conserved with {kw}")
+            out = structured_auto_run_loop(st, sm, 20.0, 30, tracer_upwind=1.0)
+            t1 = model.from_struct(out).tracers[:, 0].numpy()
+            log(f"[15] physics f64 16^2 periodic, upwind 1, 30 FE steps of 20 s: T in "
+                f"[{t1.min():.12f}, {t1.max():.12f}], started in [{t0.min():.12f}, "
+                f"{t0.max():.12f}]; h min {float(out.layer_thickness.min()):.6f}")
+            if not (float(out.layer_thickness.min()) > 0 and t1.max() <= t0.max() + 1e-9
+                    and t1.min() >= t0.min() - 1e-9):
+                raise AssertionError("upwinding made a new extremum")
+    log("[15] physics: T = 35 kept, content conserved (periodic: upwind 1, centered, FB with "
+        "kappa 5; channel: kappa 5, walls leak nothing), upwind 1 monotone, T = 0 on culled "
+        "cells")
+
+    # f32 on bench.py's tracers, 100 steps: each tracer's distance from an
+    # f64 plain run within U_GAP_FACTOR x the plain f32 run's; the plain run
+    # with its tracers stored in bf16 after each step must miss that bound.
+    # The IGW at 64^2 and 256^2 with kappa 0 (bench.py's cell), and the
+    # Kelvin channel at 64^2 with kappa 5 (the masked arm's main path); all
+    # through structured_auto_run_loop, so at the main paths' tiles.
+    max_abs_err, gaps = {}, {}
+    for key, case, n, kappa in (("64", igw_case, HEADLINE_N, BENCH_TRACER_KAPPA),
+                                ("256", igw_case, LARGE_N, BENCH_TRACER_KAPPA),
+                                ("channel 64", kelvin_case, HEADLINE_N, 5.0)):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        _, _, model64, _ = case(n, LEVELS, np.float64)
+        tr = bench_tracers(horz, LEVELS, np.float32)
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity, tracers=tr))
+        sm, sm64 = model.struct_mesh, model64.struct_mesh
+        st64 = StructState(*(getattr(st, f).double() for f in FIELDS + ("tracers",)))
+        kw = dict(tracer_kappa=kappa, tracer_upwind=BENCH_TRACER_UPWIND)
+        flow = "Kelvin channel" if case is kelvin_case else "IGW"
+        for fb in (False, True):
+            arm = "tiled_step FB" if fb else "fe_step FE"
+            out = structured_auto_run_loop(st, sm, DT, TILED_CHECK_STEPS, fb=fb, **kw)
+            ref = structured_run_loop(st, sm, DT, TILED_CHECK_STEPS, fb=fb, **kw)
+            ref64 = structured_run_loop(st64, sm64, DT, TILED_CHECK_STEPS, fb=fb, **kw)
+            bf = st
+            for _ in range(TILED_CHECK_STEPS):
+                bf = structured_run_loop(bf, sm, DT, 1, fb=fb, **kw)
+                bf = StructState(bf.ssh, bf.layer_thickness, bf.normal_velocity,
+                                 bf.tracers.bfloat16().float())
+            what = (f"f32 {n}x{n}x{LEVELS} {flow} with bench.py's tracers, kappa {kappa}, "
+                    f"{TILED_CHECK_STEPS} steps, {arm}")
+            ratios, control_fails = [], False
+            for t, tname in enumerate(("T", "S")):
+                d = lambda x: float((x.tracers[..., t, :].double()  # noqa: E731
+                                     - ref64.tracers[..., t, :]).abs().max())
+                g_k, g_p, g_b = d(out), d(ref), d(bf)
+                floor = TRACER_F32_FLOOR * float(np.finfo(np.float32).eps) * float(
+                    ref64.tracers[..., t, :].abs().max())
+                limit = U_GAP_FACTOR * max(g_p, floor)
+                log(f"[15] {what}: {tname}'s distance from the f64 plain run: kernel {g_k:.3e}, "
+                    f"plain f32 {g_p:.3e}, floor {floor:.3e}: kernel x{g_k / limit:.3f} of the "
+                    f"limit {limit:.3e}; bf16 control {g_b:.3e} (x{g_b / limit:.1f})")
+                if not g_k <= limit:
+                    raise AssertionError(f"{what}: {tname} {g_k:.3e} from f64, limit {limit:.3e}")
+                control_fails = control_fails or g_b > limit
+                ratios.append(g_k / limit)
+            if not control_fails:
+                raise AssertionError(f"{what}: the bf16 control passes")
+            if sm.cell_mask is not None:
+                check_walls(out, sm, what)
+                dead = (sm.cell_mask == 0)[..., None, None].expand_as(out.tracers)
+                if not bool((out.tracers.masked_select(dead) == 0).all()):
+                    raise AssertionError(f"{what}: T is not 0 on culled cells")
+            errs = errors(out, ref, sm)
+            log(f"[15] {what}, kernel vs plain f32: {format_errors(errs)}")
+            gaps[arm, key] = ratios
+            max_abs_err[arm, key] = max(e for e, _ in errs.values())
+        del st, st64, out, ref, ref64, bf
+        torch.cuda.empty_cache()
+
+    # refusals on the card
+    horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
+    st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                             prog.normal_velocity,
+                                             tracers=bench_tracers(horz, LEVELS, np.float32)))
+    sm = model.struct_mesh
+    forcing = model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
+        horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0, dtype=np.float32),
+        dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
+    refused = []
+    for label, call in (
+            ("nonlinear FE", lambda: structured_auto_run_loop(st_t, sm, DT, 2, nonlinear=True)),
+            ("nonlinear FB", lambda: structured_auto_run_loop(st_t, sm, DT, 2, nonlinear=True,
+                                                              fb=True)),
+            ("forced FE", lambda: structured_auto_run_loop(st_t, sm, DT, 2, forcing=forcing)),
+            ("forced FB", lambda: structured_auto_run_loop(st_t, sm, DT, 2, forcing=forcing,
+                                                           fb=True)),
+            ("auto_rollout_diff", lambda: auto_rollout_diff(st_t, sm, DT, 2)),
+            ("tiled_rollout_diff", lambda: tiled_rollout_diff(st_t, sm, DT, 2))):
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(label)
+            continue
+        raise AssertionError(f"{label} with tracers ran on the card")
+    log(f"[15] refused on the card with tracers (NotImplementedError): {', '.join(refused)}")
+
+    # the main paths from to_struct, timed beside the tracer-free arm
+    times, launches = {}, {}
+    tracer_states = {}
+    for label, case, n, fb, n_steps, kappa in (
+            ("FE 64", igw_case, HEADLINE_N, False, HEADLINE_STEPS, BENCH_TRACER_KAPPA),
+            ("FE 256", igw_case, LARGE_N, False, LARGE_MAIN_STEPS, BENCH_TRACER_KAPPA),
+            ("FB 256", igw_case, LARGE_N, True, LARGE_MAIN_STEPS, BENCH_TRACER_KAPPA),
+            ("FE channel 64", kelvin_case, HEADLINE_N, False, LARGE_MAIN_STEPS, 5.0)):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        if horz.n_cells not in tracer_states:
+            tracer_states[horz.n_cells] = bench_tracers(horz, LEVELS, np.float32)
+        ptr = mt.PrognosticVars(prog.ssh, prog.layer_thickness, prog.normal_velocity,
+                                tracers=tracer_states[horz.n_cells])
+        kw = dict(tracer_kappa=kappa, tracer_upwind=BENCH_TRACER_UPWIND)
+        arm = "tiled_step" if fb else "fe_step"
+        zero_counts()
+        t0 = time.perf_counter()
+        final = model.from_struct(structured_auto_run_loop(model.to_struct(ptr), sm, DT, n_steps,
+                                                           fb=fb, **kw))
+        wall = time.perf_counter() - t0
+        c = counts()
+        want = n_steps  # q = 1 on both routes
+        log(f"[15] main path: {label}^2x{LEVELS} f32 with bench.py's two tracers (kappa {kappa}, "
+            f"upwind 1), from to_struct, {n_steps} steps: {wall:.3f} s wall (to_struct .. "
+            f"from_struct); launches {c} (want {arm} {want}, all with tracers)")
+        if c[arm] != (want, want) or sum(a for a, _ in c.values()) != want:
+            raise AssertionError(f"tracers {label}: launch counts {c}")
+        if not (all(bool(torch.isfinite(getattr(final, f)).all()) for f in FIELDS + ("tracers",))
+                and tuple(final.tracers.shape) == (horz.n_cells, 2, LEVELS)):
+            raise AssertionError(f"tracers {label}: output not finite or of the wrong shape")
+        launches[label] = c[arm][1]
+        st_w = model.to_struct(ptr)
+        bare = StructState(st_w.ssh, st_w.layer_thickness, st_w.normal_velocity)
+        times[label] = {
+            k: timed_rollout(lambda m, s=s: structured_auto_run_loop(s, sm, DT, m, fb=fb, **kw),
+                             n_steps, REPS)[1]
+            for k, s in (("tracer-free", bare), ("tracers", st_w), ("tracer-free again", bare))}
+        times[label]["tracer-free"] += times[label].pop("tracer-free again")
+        cells = 2 * sm.ny2 * sm.nx
+        live = cells if sm.cell_mask is None else int(sm.cell_mask.sum())
+        dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+        masked = sm.cell_mask is not None
+        b, by = step_bound("fe_step", *dims, n_tracers=2, masked=masked)
+        b0 = step_bound("fe_step", *dims, masked=masked)[0]
+        med_t, med_0 = (statistics.median(times[label][k]) for k in ("tracers", "tracer-free"))
+        log(f"[15] {arm} {label} f32: with tracers {spread(times[label]['tracers'], 1e6, 'us')} "
+            f"per step, {live * LEVELS / med_t:.4e} cells*levels*steps/s (bench.py's n_cells * "
+            f"LEVELS * steps / s); tracer-free {spread(times[label]['tracer-free'], 1e6, 'us')} "
+            f": x{med_t / med_0:.4f}; bound with "
+            f"tracers {b * 1e6:.3f} us ({by}): {b / med_t:.4f} of it; tracer-free bound "
+            f"{b0 * 1e6:.3f} us: {b0 / med_0:.4f} [{gpu}]")
+    # the plain versions' times, 64^2 FE and 256^2 FB, with tracers
+    plain = {}
+    for label, n, fb in (("FE 64", HEADLINE_N, False), ("FB 256", LARGE_N, True)):
+        horz, _, model, prog = igw_case(n, LEVELS, np.float32)
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=tracer_states[horz.n_cells]))
+        plain[label] = timed_rollout(lambda m, st=st, sm=model.struct_mesh, fb=fb:
+                                     structured_run_loop(st, sm, DT, m, fb=fb,
+                                                         tracer_upwind=BENCH_TRACER_UPWIND),
+                                     10, REPS)[1]
+        log(f"[15] plain {label} f32 with tracers: {spread(plain[label], 1e3, 'ms')} per step "
+            f"[{gpu}]")
+    tile = fe_step.fe_tile(HEADLINE_N // 2, HEADLINE_N, LEVELS, 4, 2)
+    plan = fe_step.launch_plan(igw_case(HEADLINE_N, LEVELS, np.float32)[2].struct_mesh.host_stencil[0],
+                               HEADLINE_N // 2, HEADLINE_N, LEVELS, tile, 2)
+    log(f"[15] fe_step's tracer arm at 64^2 x 100 f32, 2 tracers: tile {tile}, "
+        f"{fe_step.smem_bytes(tile, LEVELS, 4, n_tracers=2)} bytes of shared memory per block, "
+        f"{plan['clusters']} clusters, {plan['blocks_per_sm']} blocks of 512 threads per SM")
+
+    med = statistics.median
+    d64 = (HEADLINE_N // 2, HEADLINE_N, LEVELS, 48, 4)
+    d256 = (LARGE_N // 2, LARGE_N, LEVELS, 48, 4)
+
+    def entry(name, src, replaces, launches_n, err, ms, plain_ms, bound, extra):
+        b, by = bound
+        return {"name": name, "route": "cuda", "source": f"mpas_ocean_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches_n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b * 1e3, "bound_by": by, "library_ms": None,
+                **extra}
+
+    return [
+        entry("fe_step (tracer arm)", "fe_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:320 (tracer planes :362-400, operand "
+              ":446-451)", launches["FE 64"], max_abs_err["fe_step FE", "64"],
+              med(times["FE 64"]["tracers"]) * 1e3, med(plain["FE 64"]) * 1e3,
+              step_bound("fe_step", *d64, n_tracers=2),
+              {"tracer_free_ms": med(times["FE 64"]["tracer-free"]) * 1e3,
+               "ms_256": med(times["FE 256"]["tracers"]) * 1e3,
+               "tracer_free_ms_256": med(times["FE 256"]["tracer-free"]) * 1e3,
+               "bound_ms_256": step_bound("fe_step", *d256, n_tracers=2)[0] * 1e3,
+               "masked_ms_64_kappa5": med(times["FE channel 64"]["tracers"]) * 1e3,
+               "cells_levels_steps_per_s_64": HEADLINE_N ** 2 * LEVELS
+               / med(times["FE 64"]["tracers"]),
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "fe_step FE"},
+               "max_rel_err_f64": worst["fe_step"], "tile": list(tile)}),
+        entry("tiled_step (tracer arm)", "tiled_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:852 (tracer operands :892-946, "
+              "1180-1190)", launches["FB 256"], max_abs_err["tiled_step FB", "256"],
+              med(times["FB 256"]["tracers"]) * 1e3, med(plain["FB 256"]) * 1e3,
+              step_bound("fe_step", *d256, n_tracers=2),
+              {"tracer_free_ms": med(times["FB 256"]["tracer-free"]) * 1e3,
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "tiled_step FB"},
+               "max_rel_err_f64": worst["tiled_step"]}),
+    ]
+
+
+def ptxas_report(log_text: str, kernels: tuple, arm: str | None = None) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
-    mangled names contain one of ``kernels``; with ``forced``, only their
-    forced arms (the last template argument, kForced, true: "Lb1EEEv")."""
+    mangled names contain one of ``kernels``; with ``arm``, only those whose
+    mangled template arguments end so: "Lb1EEEv" for the last one true (the
+    reverse kernels' kForced, the forward kernels' kTracers), "Lb1ELb0EEEv"
+    for the second last true and the last false (the forward kernels'
+    forced arms)."""
     out, keep = [], False
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            keep = any(k in line for k in kernels) and (not forced or "Lb1EEEv" in line)
+            keep = any(k in line for k in kernels) and (arm is None or arm in line)
         if keep and ("Compiling" in line or "registers" in line or "spill" in line):
             out.append(line.strip())
     return out
@@ -3379,6 +3837,11 @@ def main() -> int:
     # -- 9. the card's measured peaks (kernel 5), the divisor of every bound
     # printed from here on ------------------------------------------------------
     probe_entries = peaks_phase(gpu, log_file.read_text())
+    if "--tracers-only" in sys.argv[1:]:
+        # phase 15 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": tracer_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
     if "--forcing-only" in sys.argv[1:]:
         # phase 14 alone (after the build and the peaks its bounds divide by)
         print(json.dumps({"kernels": forcing_phase(gpu, log_file.read_text())}))
@@ -3755,6 +4218,9 @@ def main() -> int:
     # -- 14. momentum forcing -----------------------------------------------------
     forced_entries = forcing_phase(gpu, log_file.read_text())
 
+    # -- 15. tracer transport -----------------------------------------------------
+    tracer_entries = tracer_phase(gpu, log_file.read_text())
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
@@ -3797,6 +4263,7 @@ def main() -> int:
         entry.update(nonlinear.get(entry["name"], {}))
     kernels.append(nl_adjoint_entry)
     kernels.extend(forced_entries)
+    kernels.extend(tracer_entries)
     kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -22,6 +22,9 @@ the same entry points from ``StructuredModel(mesh, nx, ny,
 parent_horz=parent, keep_cells=keep)``, through the kernels' masked arms.
 Momentum forcing (``make_forcing``, ``StructuredModel.to_struct_forcing``)
 rides every entry point as ``forcing=``, through the kernels' forced arms.
+Tracers (``make_tracers``, a state's ``tracers``) ride the forward entry
+points with ``tracer_kappa=`` and ``tracer_upwind=``, through the kernels'
+tracer arms.
 """
 
 from .constants import GRAVITY
@@ -36,7 +39,7 @@ from .mesh import (
     make_vertical_mesh,
     planar_hex_mesh,
 )
-from .models import Forcing, PrognosticVars, make_forcing
+from .models import Forcing, PrognosticVars, make_forcing, make_tracers, total_tracer_content
 from .structured import (
     StructuredModel,
     auto_rollout_diff,
@@ -75,6 +78,7 @@ __all__ = [
     "fused_run_loop",
     "fused_step",
     "make_forcing",
+    "make_tracers",
     "make_vertical_mesh",
     "planar_hex_mesh",
     "structured_auto_run_loop",
@@ -82,5 +86,6 @@ __all__ = [
     "structured_run_loop",
     "tiled_rollout_diff",
     "tiled_run_loop",
+    "total_tracer_content",
     "window_steps",
 ]

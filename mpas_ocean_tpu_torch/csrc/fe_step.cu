@@ -2,10 +2,12 @@
 // parity-plane hex lattice, for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _rollout_kernel (mpas_ocean_tpu/structured/pallas_model.py:320),
-// the arms with nl=None, tr=None, strat_w=None and fb=False, periodic
+// the arms with nl=None, strat_w=None and fb=False, periodic
 // (masks=None) and masked (a coastal channel culled from a periodic
 // lattice: u_new *= masks[c], :257-259), unforced (forc=None) and forced
-// (momentum forcing, :248-256). One launch is one step of
+// (momentum forcing, :248-256), without tracers (tr=None) and with them
+// (:261-298, unforced; the tracer planes :362-400, operand :446-451). One
+// launch is one step of
 // _step_planes (:91-299); the exported entries loop n_steps launches on the
 // caller's stream.
 //
@@ -73,6 +75,19 @@
 // h, in a pass of the ranks whose chunk holds such levels, over the tile's
 // edges (step_window.cuh, ForcingArgs, wind_drag_pass).
 //
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; unforced;
+// the tracer-free arms keep their code) stages the block's chunk of the
+// window's 2 nT tracer planes after the 8 state planes and, in the lane
+// group that forms a site's h', carries every tracer by the old state's six
+// edge fluxes and divides its new content by h' (step_window.cuh,
+// TracerArgs, tracer_step); on a channel the live-cell mask, read per site
+// from device memory, guards the division. A tracer level needs only its
+// own level, so the arm adds no column sum and no cluster traffic, only the
+// 2 nT tracer planes beside the state's 8. Measured (f32, two tracers,
+// NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5): 21.8 us/step at
+// 64x64x100, x1.52 the tracer-free step, and 290.4 at 256x256x100, x1.57,
+// 14% and 32% of the byte bound.
+//
 // The stencil table's layout is in lattice.cuh.
 
 #include <algorithm>
@@ -98,13 +113,14 @@ struct FeArgs {
   T* h_out;
   T* u_out;
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
+  TracerArgs<T> tr;   // the tracer arm's operands; tr null otherwise
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
 };
 
 // Each distinct u and h value of a (site, level) is loaded once and each
 // u * f product formed once (step_window.cuh, hex::).
-template <typename T, bool kMasked, bool kForced>
+template <typename T, bool kMasked, bool kForced, bool kTracers>
 __global__ void __launch_bounds__(kStepThreads, 2)
     fe_step_kernel(const FeArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -120,8 +136,10 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   const int K = a.K;
   const int core = a.rt * a.ct;
 
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [8][W][kc]: h p0, h p1, u c0..c5
-  T* ssh_s = buf + 8 * pk;                  // [2][W]
+  // the tracer arm's planes follow the state's
+  const int n_pl = kTracers ? 8 + 2 * a.tr.n : 8;
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [n_pl][W][kc]: h p0, h p1, u c0..c5, tracers
+  T* ssh_s = buf + n_pl * pk;               // [2][W]
   T* f_s = ssh_s + 2 * W;                   // [6][W]
   T* rts_s = f_s + 6 * W;                   // [2][W]
   T* recv = rts_s + 2 * W;                  // [n_ranks][2][core]: rank 0's are read
@@ -141,6 +159,9 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   load_state(buf, ssh_s, gs, a.ssh, a.h, a.u, W, a.kc_log2, a.vec_log2, k0, kr, K, plane);
   if (kMasked) load_live(live_s, gs, a.live, W);
   if (kForced) load_forcing(fsm, gs, a.fc, W, plane, rank);
+  if (kTracers)
+    load_tracers(buf + 8 * pk, gs, a.tr.tr, 2 * a.tr.n, W, a.kc_log2, a.vec_log2, k0, kr, K,
+                 plane);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -171,6 +192,13 @@ __global__ void __launch_bounds__(kStepThreads, 2)
     for (int ch = 0; ch < 6; ++ch)
       grad[ch] = (ssh_s[s + tp.nb[ch]] - ssh_s[(ch & 1) * W + s]) * a.inv_dc;
     const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
+    // the tracer arm's live-cell mask of the site's two cells (a channel's)
+    T cm[2] = {T(1), T(1)};
+    unsigned inc_live = 0u;
+    if (kTracers && kMasked && valid) {
+      cm[0] = a.tr.cmask[g], cm[1] = a.tr.cmask[plane + g];
+      inc_live = incoming_live(live_s, s, a.tr);
+    }
     T acc0 = T(0), acc1 = T(0);
     for (int kl = lane; kl < kc; kl += G) {
       if (!valid || kl >= kr) continue;
@@ -228,6 +256,11 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       for (int p = 0; p < 2; ++p) h_o[p * plane * K] = hnew[p];
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) u_o[ch * plane * K] = unew[ch];
+      if (kTracers)
+        tracer_step<T, kMasked>(lv, pk, tp, u, h, hnew, cm, live, inc_live, a.tr, dt_div,
+                                a.inv_dc, [&](int i, T v) {
+                                  a.tr.tr_out[(i * plane + g) * K + k0 + kl] = v;
+                                });
       acc0 += hnew[0];
       acc1 += hnew[1];
     }
@@ -272,11 +305,11 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   }
 }
 
-template <typename T, bool kMasked, bool kForced>
+template <typename T, bool kMasked, bool kForced, bool kTracers>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(fe_step_kernel<T, kMasked, kForced>,
+  const cudaError_t e = cudaFuncSetAttribute(fe_step_kernel<T, kMasked, kForced, kTracers>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              max_smem);
   done = e == cudaSuccess;
@@ -286,13 +319,15 @@ int prepare(int max_smem) {
 // A window's state chunk, ssh, f_edge, rts and sites, the ranks' partial
 // sums, and the masked arm's live bits, reserved by the periodic arm too so
 // that one plan serves both; the forced arm's winds and packed levels
-// beyond (kernels/fe_step.smem_bytes mirrors this).
+// beyond; the tracer arm's chunk of n_tr tracers' planes
+// (kernels/fe_step.smem_bytes mirrors this).
 size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize,
-                  bool forced) {
+                  bool forced, int n_tr) {
   return step_smem_bytes(sites, kc, 1, kPlanes, itemsize) +
          itemsize * static_cast<size_t>(n_ranks) * 2 * core +
          sizeof(int) * static_cast<size_t>(sites) +
-         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0);
+         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0) +
+         itemsize * static_cast<size_t>(sites) * 2 * n_tr * kc;
 }
 
 // The rows and columns one FE step reads per side, from the table (host
@@ -325,12 +360,16 @@ struct FePlan {
 
 template <typename T>
 int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live,
-              const ForcingArgs<T>& fc, const int* table, const double* weights, double dt,
-              double inv_dc, double s_div, int ny2, int nx, int k, int n_steps, int n_terms,
-              int rt, int ct, bool vec) {
+              const ForcingArgs<T>& fc, TracerArgs<T> tr, const int* table,
+              const double* weights, double dt, double inv_dc, double s_div, int ny2, int nx,
+              int k, int n_steps, int n_terms, int rt, int ct, bool vec) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || rt > ny2 || ct > nx) return cudaErrorInvalidValue;
+  // the tracer arm: unforced, at least one tracer, the cell mask with the live bits
+  if (tr.tr != nullptr &&
+      (fc.wind != nullptr || tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
+    return cudaErrorInvalidValue;
   int hm = 0, hi = 0;
   fe_reach(table, &hm, &hi);
   hm = std::max(hm, 1), hi = std::max(hi, 1);
@@ -338,38 +377,45 @@ int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live,
   const int Wi = ct + 2 * hi, W = (rt + 2 * hm) * Wi;
   pl->n_ranks = (k + kc - 1) / kc;
   if (!resolve_taps<T>(&pl->tp, table, weights, Wi, W, kc)) return kNotHexTable;
+  resolve_tracer_taps(&tr, table, Wi);
   int e = opt_in_smem(&pl->max_smem);
   if (e != 0) return e;
-  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T), fc.wind != nullptr);
+  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T), fc.wind != nullptr,
+                        tr.tr != nullptr ? tr.n : 0);
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
   pl->a = FeArgs<T>{nullptr, nullptr, nullptr, f_edge, rts, live, nullptr, nullptr, nullptr,
-                    fc, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, hm, hi,
+                    fc, tr, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, hm, hi,
                     log2_exact(kc),
                     vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
   return 0;
 }
 
-template <typename T, bool kMasked, bool kForced>
+template <typename T, bool kMasked, bool kForced, bool kTracers = false>
 int launch_arm(const FePlan<T>* pl, cudaStream_t stream) {
-  const int err = prepare<T, kMasked, kForced>(pl->max_smem);
+  const int err = prepare<T, kMasked, kForced, kTracers>(pl->max_smem);
   if (err != 0) return err;
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg =
       step_config(pl->n_ranks, pl->n_tiles, pl->smem, stream, attr);
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, fe_step_kernel<T, kMasked, kForced>, pl->a, pl->tp);
+      cudaLaunchKernelEx(&cfg, fe_step_kernel<T, kMasked, kForced, kTracers>, pl->a, pl->tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out, T* h_out,
-                T* u_out, cudaStream_t stream) {
+                T* u_out, cudaStream_t stream, const T* tr = nullptr, T* tr_out = nullptr) {
   pl->a.ssh = ssh, pl->a.h = h, pl->a.u = u;
   pl->a.ssh_out = ssh_out, pl->a.h_out = h_out, pl->a.u_out = u_out;
   const bool masked = pl->a.live != nullptr, forced = pl->a.fc.wind != nullptr;
+  if (pl->a.tr.tr != nullptr) {  // the tracer arm (unforced: make_plan checked)
+    pl->a.tr.tr = tr, pl->a.tr.tr_out = tr_out;
+    return masked ? launch_arm<T, true, false, true>(pl, stream)
+                  : launch_arm<T, false, false, true>(pl, stream);
+  }
   return masked ? (forced ? launch_arm<T, true, true>(pl, stream)
                           : launch_arm<T, true, false>(pl, stream))
                 : (forced ? launch_arm<T, false, true>(pl, stream)
@@ -378,30 +424,34 @@ int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out,
 
 // n_steps steps from `in` into `out`. Step s writes `out` when
 // n_steps - 1 - s is even and `tmp` otherwise, so the last step lands in
-// `out`, no step writes the buffer it reads, and `in` is left as it is.
+// `out`, no step writes the buffer it reads, and `in` is left as it is; the
+// tracer arm's planes (tr.tr non-null) alike.
 template <typename T>
 int fe_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
-             const int* table, const double* weights,
+             const TracerArgs<T>& tr, T* tr_tmp, const int* table, const double* weights,
              const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,
              T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,
              int nx, int k, int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
   const int kc = step_chunk(k);
   const bool vec = vector_loads(k, kc, sizeof(T), h_in, u_in) &&
                    vector_loads(k, kc, sizeof(T), h_out, u_out) &&
-                   vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
+                   vector_loads(k, kc, sizeof(T), h_tmp, u_tmp) &&
+                   (tr.tr == nullptr || (vector_loads(k, kc, sizeof(T), tr.tr, tr.tr_out) &&
+                                             vector_loads(k, kc, sizeof(T), tr_tmp, tr_tmp)));
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, live, fc, table, weights, dt, inv_dc, s_div, ny2, nx,
-                      k, n_steps, n_terms, rt, ct, vec);
+  int err = make_plan(&pl, f_edge, rts, live, fc, tr, table, weights, dt, inv_dc, s_div, ny2,
+                      nx, k, n_steps, n_terms, rt, ct, vec);
   if (err != 0) return err;
-  const T *ssh = ssh_in, *h = h_in, *u = u_in;
+  const T *ssh = ssh_in, *h = h_in, *u = u_in, *t = tr.tr;
   for (int s = 0; s < n_steps; ++s) {
     const bool to_out = ((n_steps - 1 - s) & 1) == 0;
     T* ssh_d = to_out ? ssh_out : ssh_tmp;
     T* h_d = to_out ? h_out : h_tmp;
     T* u_d = to_out ? u_out : u_tmp;
-    err = launch_step<T>(&pl, ssh, h, u, ssh_d, h_d, u_d, stream);
+    T* t_d = to_out ? tr.tr_out : tr_tmp;
+    err = launch_step<T>(&pl, ssh, h, u, ssh_d, h_d, u_d, stream, t, t_d);
     if (err != 0) return err;
-    ssh = ssh_d, h = h_d, u = u_d;
+    ssh = ssh_d, h = h_d, u = u_d, t = t_d;
   }
   return 0;
 }
@@ -413,8 +463,8 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
              double inv_dc, double s_div, int ny2, int nx, int k, int n_steps, int n_terms,
              int rt, int ct, cudaStream_t stream) {
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, live, fc, table, weights, dt, inv_dc, s_div, ny2, nx,
-                      k, n_steps, n_terms, rt, ct,
+  int err = make_plan(&pl, f_edge, rts, live, fc, TracerArgs<T>{}, table, weights, dt, inv_dc,
+                      s_div, ny2, nx, k, n_steps, n_terms, rt, ct,
                       vector_loads(k, step_chunk(k), sizeof(T), h, u));
   if (err != 0) return err;
   const size_t cells = 2ULL * ny2 * nx;
@@ -435,20 +485,26 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
 // `weights` are host copies of the stencil; rt x ct is the tile; a null
 // `live` (the wall mask's live bits, one int per site) runs the periodic
 // arm, any other the masked one; a null `wind` runs the unforced arm, any
-// other the forced one with `lvl` (the packed levels) and the coefficients.
+// other the forced one with `lvl` (the packed levels) and the coefficients;
+// a null `tr_in` runs the tracer-free arm, any other the tracer arm with
+// n_tr tracers (planes (2 n_tr, ny2, nx, k) in `tr_in`, `tr_out`,
+// `tr_tmp`), the live-cell mask `cmask` (non-null exactly when `live` is),
+// kappa and upwind.
 #define MOT_FE_ENTRIES(T, SUFFIX)                                                             \
   extern "C" int mot_fe_steps_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
       const int* table, const double* weights, const T* ssh_in, const T* h_in,                \
       const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,          \
-      double dt, double inv_dc, double s_div, double dlin, double dquad, double rayl,         \
+      const T* tr_in, T* tr_out, T* tr_tmp, const T* cmask, double dt, double inv_dc,         \
+      double s_div, double kappa, double upwind, double dlin, double dquad, double rayl,      \
       int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms,        \
-      int rt, int ct, void* stream) {                                                         \
+      int rt, int ct, int n_tr, void* stream) {                                               \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
-    return fe_steps<T>(f_edge, rts, live, fc, table, weights, ssh_in, h_in, u_in, ssh_out,    \
-                       h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2, nx, k,    \
-                       n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));          \
+    const TracerArgs<T> tr{tr_in, tr_out, cmask, T(kappa), T(0.5 * upwind), n_tr, {}, {}};   \
+    return fe_steps<T>(f_edge, rts, live, fc, tr, tr_tmp, table, weights, ssh_in, h_in, u_in, \
+                       ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2,  \
+                       nx, k, n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));   \
   }                                                                                           \
   extern "C" int mot_fe_stack_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -514,17 +570,25 @@ extern "C" int mot_fe_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks, in
 }
 
 // The launch fe_step makes for an rt x ct tile of an ny2 x nx x k f32
-// lattice with the stencil `table` (a host copy): out[0] the clusters (one
-// per tile), out[1] the blocks per SM. Returns 0, kNotHexTable or the CUDA
-// error.
-extern "C" int mot_fe_plan(const int* table, int ny2, int nx, int k, int rt, int ct, int* out) {
+// lattice with the stencil `table` (a host copy), with n_tr tracers (the
+// periodic tracer arm) or none: out[0] the clusters (one per tile), out[1]
+// the blocks per SM. Returns 0, kNotHexTable or the CUDA error.
+extern "C" int mot_fe_plan(const int* table, int ny2, int nx, int k, int rt, int ct, int n_tr,
+                           int* out) {
   double weights[kMaxTerms] = {};
   FePlan<float> pl;
-  int e = make_plan<float>(&pl, nullptr, nullptr, nullptr, ForcingArgs<float>{}, table, weights,
-                           1.0, 1.0, 1.0, ny2, nx, k, 1, table[0], rt, ct, true);
+  static const float dummy = 0.0f;
+  TracerArgs<float> tr{};
+  if (n_tr > 0) tr.tr = &dummy, tr.n = n_tr;
+  int e = make_plan<float>(&pl, nullptr, nullptr, nullptr, ForcingArgs<float>{}, tr, table,
+                           weights, 1.0, 1.0, 1.0, ny2, nx, k, 1, table[0], rt, ct, true);
   if (e != 0) return e;
-  if ((e = prepare<float, false, false>(pl.max_smem)) != 0) return e;
+  auto kernel = n_tr > 0 ? fe_step_kernel<float, false, false, true>
+                         : fe_step_kernel<float, false, false, false>;
+  e = n_tr > 0 ? prepare<float, false, false, true>(pl.max_smem)
+               : prepare<float, false, false, false>(pl.max_smem);
+  if (e != 0) return e;
   out[0] = pl.n_tiles;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], fe_step_kernel<float, false, false>, kStepThreads, pl.smem));
+      &out[1], kernel, kStepThreads, pl.smem));
 }

@@ -365,6 +365,150 @@ __device__ __forceinline__ void wind_drag_pass(const T* old, const StepTaps<T>& 
   }
 }
 
+// The tracer arms' operands (kTracers, chosen by a non-null tracer pointer;
+// structured/fused_model.kernel_tracers): the tracers as planes t * 2 + p
+// (2 nT, ny2, nx, K), each laid out as h; on a channel the live-cell mask
+// (2, ny2, nx) in T, which guards the division by h'; kappa and upwind / 2,
+// rounded once to T on the host (fused_model.tracer_opts); and, resolved on
+// the host from the stencil table, each incoming edge's channel and the
+// window offset of the site that owns it, whose live bit masks its
+// diffusive flux.
+//
+// How the arms use them. A tracer at level k needs only level k, so the arm
+// adds no column sum and no cluster traffic: each block stages its level
+// chunk of the window's 2 nT tracer planes after its 8 state planes, with
+// the same async copies, and the lane group that forms a site's h' then
+// loops over the tracers. T is read at the h sources (hex::self_h, nb_h,
+// inc_self_h, inc_nb_h), and the six edge fluxes F = u h_e of the old state,
+// those continuity has just formed, carry each tracer (tracer_edge_flux).
+template <typename T>
+struct TracerArgs {
+  const T* tr;      // null: the tracer-free arm
+  T* tr_out;
+  const T* cmask;   // the masked arm's live-cell mask; null otherwise
+  T kappa, half_up;
+  int n;            // tracers
+  int inc_ch[6];    // incoming edge x = 3p + j: its channel
+  int inc_site[6];  //   and its owner's window offset, in sites
+};
+
+// The incoming edges' channels and owners' window offsets (window rows of
+// Wi sites) from the table (host copy; layout in lattice.cuh).
+template <typename T>
+inline void resolve_tracer_taps(TracerArgs<T>* tr, const int* table, int Wi) {
+  for (int x = 0; x < 6; ++x) {
+    const int* tc = table + kInc + 3 * x;
+    tr->inc_ch[x] = tc[0];
+    tr->inc_site[x] = tc[1] * Wi + tc[2];
+  }
+}
+
+// The tracer flux G = F T_e - kappa h_e (T_n - T_p) / dc of one edge-level
+// (pallas_model.py:362-383, term by term): T_e = (T_n + T_p) / 2 minus
+// (upwind / 2) sign(F) (T_n - T_p), sign(0) = 0 as jnp.sign's; the
+// diffusive term only on a live edge. A zero kappa or upwind skips its term,
+// as the JAX kernel's static ones do.
+template <typename T>
+__device__ __forceinline__ T tracer_edge_flux(T flux, T he, T tn, T tp, bool live,
+                                              const TracerArgs<T>& tr, T inv_dc) {
+  T te = T(0.5) * (tn + tp);
+  if (tr.half_up != T(0)) {
+    const T sg = static_cast<T>((flux > T(0)) - (flux < T(0)));
+    te = te - tr.half_up * sg * (tn - tp);
+  }
+  T g = flux * te;
+  if (tr.kappa != T(0) && live) g = g - tr.kappa * he * ((tn - tp) * inv_dc);
+  return g;
+}
+
+// The block's level chunk of the 2 nT tracer planes over the window, into
+// `dst` ([2 nT][W][kc], after the state's 8 planes), as load_state copies h.
+template <typename T>
+__device__ __forceinline__ void load_tracers(T* dst, const int* gs, const T* tr, int n_planes,
+                                             int W, int kc_log2, int vec_log2, int k0, int kr,
+                                             int K, int plane) {
+  const int kc = 1 << kc_log2;
+  if (vec_log2 >= 0) {
+    constexpr int per = 16 / sizeof(T);
+    const int vr = kr / per;
+    const int n = (W * n_planes) << vec_log2;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int v = e & ((1 << vec_log2) - 1);
+      const int q = e >> vec_log2;
+      const int ch = q % n_planes, s = q / n_planes;
+      if (v >= vr) continue;
+      copy_async16(dst + (ch * W + s) * kc + v * per,
+                   tr + (ch * plane + gs[s]) * K + k0 + v * per);
+    }
+  } else {
+    const int n = (W * n_planes) << kc_log2;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int kl = e & (kc - 1);
+      const int q = e >> kc_log2;
+      const int ch = q % n_planes, s = q / n_planes;
+      if (kl >= kr) continue;
+      copy_async(dst + (ch * W + s) * kc + kl, tr + (ch * plane + gs[s]) * K + k0 + kl);
+    }
+  }
+}
+
+// The live bits of a site's six incoming edges (bit x = 3p + j), each its
+// owner's bit of its channel, from the window's live bits `live_s`: read once
+// per site, outside the level loop.
+template <typename T>
+__device__ __forceinline__ unsigned incoming_live(const int* live_s, int s,
+                                                  const TracerArgs<T>& tr) {
+  unsigned bits = 0u;
+#pragma unroll
+  for (int x = 0; x < 6; ++x)
+    bits |= ((static_cast<unsigned>(live_s[s + tr.inc_site[x]]) >> tr.inc_ch[x]) & 1u) << x;
+  return bits;
+}
+
+// The new concentrations of one (site, level) for every tracer
+// (pallas_model.py:384-399): per parity p, the content h T - dt (dv / A) (the
+// owned edges' G - the incoming edges' G) over h', or 0 on a culled cell of a
+// channel (cm[p] = 0). `lv` is the site's level in the window copy of the
+// state ([8 + 2 nT][W][kc] from its planes), `pk` one plane, `u` and `h` the
+// site's u and h sources as the step loaded them (u indexed as hex::),
+// `hnew` its h', `live` its live bits and `inc_live` its incoming edges'
+// (incoming_live; masked arm); `store(i, v)` writes plane i's new value.
+template <typename T, bool kMasked, typename Store>
+__device__ __forceinline__ void tracer_step(const T* lv, int pk, const StepTaps<T>& tp,
+                                            const T* u, const T* h, const T* hnew,
+                                            const T* cm, unsigned live, unsigned inc_live,
+                                            const TracerArgs<T>& tr, T dt_div, T inv_dc,
+                                            Store store) {
+  for (int t = 0; t < tr.n; ++t) {
+    const T* tv = lv + (8 + 2 * t) * pk;
+    T c[hex::kH];
+#pragma unroll
+    for (int x = 0; x < hex::kH; ++x) c[x] = tv[tp.hs[x]];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      T total = T(0);
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        const int ch = f * 2 + p;
+        const T he = T(0.5) * (h[hex::nb_h(ch)] + h[hex::self_h(p)]);
+        const bool on = !kMasked || ((live >> ch) & 1u);
+        const T g = tracer_edge_flux(u[hex::self_u(ch)] * he, he, c[hex::nb_h(ch)],
+                                     c[hex::self_h(p)], on, tr, inv_dc);
+        total = (f == 0) ? g : total + g;
+      }
+#pragma unroll
+      for (int x = 3 * p; x < 3 * p + 3; ++x) {
+        const T he = T(0.5) * (h[hex::inc_nb_h(x)] + h[hex::inc_self_h(x)]);
+        const bool on = !kMasked || ((inc_live >> x) & 1u);
+        total = total - tracer_edge_flux(u[hex::inc_u(x)] * he, he, c[hex::inc_nb_h(x)],
+                                         c[hex::inc_self_h(x)], on, tr, inv_dc);
+      }
+      const T content = h[hex::self_h(p)] * c[hex::self_h(p)] - dt_div * total;
+      store(2 * t + p, kMasked && !(cm[p] > T(0)) ? T(0) : content / hnew[p]);
+    }
+  }
+}
+
 // This block's level chunk of h and u over the window, and ssh. With
 // vec_log2 >= 0 (K * itemsize, the chunk and the pointers 16-byte aligned) each
 // (site, plane) chunk moves as 2^vec_log2 16-byte vectors, neighbouring

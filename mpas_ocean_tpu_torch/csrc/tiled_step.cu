@@ -3,11 +3,12 @@
 // for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_step_kernel (mpas_ocean_tpu/structured/pallas_model.py:852),
-// the arms with tracers, cell masks, stratification and the nonlinear terms
-// off, halos read from the state, periodic (masks off) and masked (a coastal
-// channel culled from a periodic lattice: the mask operands of :875-877,
-// 1287-1288, windowed as f_edge), unforced and forced (the wind and the
-// level-index operands). One launch advances the whole
+// the arms with stratification and the nonlinear terms off, halos read from
+// the state, periodic (masks off) and masked (a coastal channel culled from
+// a periodic lattice: the mask operands of :875-877, 1287-1288, windowed as
+// f_edge), unforced and forced (the wind and the level-index operands),
+// without tracers and with them (unforced; the tracer and cell-mask
+// operands of :892-946, 1180-1190). One launch advances the whole
 // lattice by q steps of _window_steps (:802); the exported entry loops
 // n_steps / q launches on the caller's stream.
 //
@@ -82,6 +83,18 @@
 // alone the old h of the step's window copy is read and 1 / h_edge formed,
 // in a pass of the ranks whose chunk holds such levels over the step's edges
 // (step_window.cuh, ForcingArgs, wind_drag_pass).
+//
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; unforced;
+// the tracer-free arms keep their code) carries the block's chunk of the 2 nT
+// tracer planes in each window copy after the 8 state planes, and at every
+// step updates them where continuity updates h, on the same shrinking
+// rings, in the lane group that forms the site's h': the tracer flux of
+// the old state's six edge fluxes, FE and FB alike (FB's fresh ssh feeds
+// only the momentum), over the fresh h' (step_window.cuh, tracer_step). On a
+// channel the live-cell mask is read per window site from device memory.
+// Measured (f32 FB, two tracers, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+// section 5): 526.9 us/step at 256x256x100, x1.88 the tracer-free step: the
+// tracer planes halve the two-block tile to (4, 8).
 
 #include "nl_step.cuh"
 
@@ -103,13 +116,14 @@ struct StepArgs {
   T* h_out;
   T* u_out;
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
+  TracerArgs<T> tr;   // the tracer arm's operands; tr null otherwise
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc_log2, vec_log2, n_tiles_i;
 };
 
 // Each distinct u and h value of a (site, level) is loaded once and each
 // u * f product formed once (step_window.cuh, hex::).
-template <typename T, bool FB, bool kMasked, bool kForced>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers>
 __global__ void __launch_bounds__(kStepThreads, 2)
     tiled_step_kernel(const StepArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -124,8 +138,10 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   const int pk = W * kc;  // one plane of a level chunk
   const int K = a.K;
 
-  T* buf = reinterpret_cast<T*>(smem_raw);  // [copies][8][W][kc]: h p0, h p1, u c0..c5
-  T* ssh_s = buf + (a.q > 1 ? 16 : 8) * pk;  // [2][2][W], by step parity
+  // planes per window copy: the state's 8, and the tracer arm's after them
+  const int n_pl = kTracers ? 8 + 2 * a.tr.n : 8;
+  T* buf = reinterpret_cast<T*>(smem_raw);  // [copies][n_pl][W][kc]: h p0, h p1, u c0..c5, tracers
+  T* ssh_s = buf + (a.q > 1 ? 2 : 1) * n_pl * pk;  // [2][2][W], by step parity
   T* part = ssh_s + 4 * W;                   // [2][2][W], by step parity
   T* f_s = part + 4 * W;                     // [6][W]
   T* rts_s = f_s + 6 * W;                    // [2][W]
@@ -142,6 +158,9 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   load_state(buf, ssh_s, gs, a.ssh, a.h, a.u, W, a.kc_log2, a.vec_log2, k0, kr, K, plane);
   if (kMasked) load_live(live_s, gs, a.live, W);
   if (kForced) load_forcing(fsm, gs, a.fc, W, plane, rank);
+  if (kTracers)
+    load_tracers(buf + 8 * pk, gs, a.tr.tr, 2 * a.tr.n, W, a.kc_log2, a.vec_log2, k0, kr, K,
+                 plane);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -160,8 +179,8 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   const int r_core = a.hm * a.q, c_core = a.hi * a.q;
   for (int j = 0; j < a.q; ++j) {
     const bool last = j == a.q - 1;
-    const T* cur = buf + (j & 1) * 8 * pk;
-    T* nxt = buf + ((j + 1) & 1) * 8 * pk;  // read only when q > 1
+    const T* cur = buf + (j & 1) * n_pl * pk;
+    T* nxt = buf + ((j + 1) & 1) * n_pl * pk;  // read only when q > 1
     const T* ssh_cur = ssh_s + (j & 1) * 2 * W;
     T* ssh_nxt = ssh_s + ((j + 1) & 1) * 2 * W;
     // A rank writes this parity's partial sums again two steps on, past the
@@ -186,6 +205,14 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       const int cr = hr0 + r - r_core, cc = hc0 + c - c_core;
       const bool out = last && cr >= 0 && cr < a.rt && cc >= 0 && cc < a.ct;
       const int g = (tm * a.rt + cr) * a.nx + ti * a.ct + cc;
+      // the tracer arm's live bits and live-cell mask of the site (a channel's)
+      T cm[2] = {T(1), T(1)};
+      unsigned live = 0u, inc_live = 0u;
+      if (kTracers && kMasked && valid) {
+        live = static_cast<unsigned>(live_s[s]);
+        inc_live = incoming_live(live_s, s, a.tr);
+        cm[0] = a.tr.cmask[gs[s]], cm[1] = a.tr.cmask[plane + gs[s]];
+      }
       T acc0 = T(0), acc1 = T(0);
       for (int kl = lane; kl < kc; kl += G) {
         if (!valid || kl >= kr) continue;
@@ -224,6 +251,14 @@ __global__ void __launch_bounds__(kStepThreads, 2)
           a.h_out[g * K + k0 + kl] = hnew[0];
           a.h_out[(plane + g) * K + k0 + kl] = hnew[1];
         }
+        if (kTracers && (!last || out))
+          tracer_step<T, kMasked>(lv, pk, tp, u, h, hnew, cm, live, inc_live, a.tr, dt_div,
+                                  a.inv_dc, [&](int i, T v) {
+                                    if (!last)
+                                      nxt[(8 + i) * pk + b] = v;
+                                    else
+                                      a.tr.tr_out[(i * plane + g) * K + k0 + kl] = v;
+                                  });
       }
       acc0 = group_sum(acc0, G);
       acc1 = group_sum(acc1, G);
@@ -340,55 +375,60 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   cluster.sync();
 }
 
-template <typename T, bool FB, bool kMasked, bool kForced>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(tiled_step_kernel<T, FB, kMasked, kForced>,
+  const cudaError_t e = cudaFuncSetAttribute(tiled_step_kernel<T, FB, kMasked, kForced, kTracers>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
-template <typename T, bool FB, bool kMasked, bool kForced>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers>
 int launch(const StepArgs<T>& a, const StepTaps<T>& tp, int n_ranks, int n_tiles, size_t smem,
            cudaStream_t stream) {
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = step_config(n_ranks, n_tiles, smem, stream, attr);
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB, kMasked, kForced>, a, tp);
+      cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB, kMasked, kForced, kTracers>, a, tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The window and, reserved by the periodic arm too so that one plan serves
 // both, the masked arm's live bits; the forced arm's winds and packed levels
-// beyond (kernels/tiled_step.smem_bytes mirrors this).
-size_t smem_bytes(long long sites, int kc, int q, size_t itemsize, bool forced) {
+// beyond; the tracer arm's 2 n_tr planes in each window copy
+// (kernels/tiled_step.smem_bytes mirrors this).
+size_t smem_bytes(long long sites, int kc, int q, size_t itemsize, bool forced, int n_tr) {
   return step_smem_bytes(sites, kc, q > 1 ? 2 : 1, kPlanes, itemsize) +
          sizeof(int) * static_cast<size_t>(sites) +
-         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0);
+         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0) +
+         itemsize * static_cast<size_t>(sites) * 2 * n_tr * kc * (q > 1 ? 2 : 1);
 }
 
-template <typename T, bool FB, bool kMasked, bool kForced>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers>
 int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_tiles,
         int n_steps, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,
-        cudaStream_t stream) {
+        T* tr_out, T* tr_tmp, cudaStream_t stream) {
   int max_smem = 0;
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  if ((err = prepare<T, FB, kMasked, kForced>(max_smem)) != 0) return err;
+  if ((err = prepare<T, FB, kMasked, kForced, kTracers>(max_smem)) != 0) return err;
   const int n_launches = n_steps / a.q;
   for (int l = 0; l < n_launches; ++l) {
     const bool to_out = ((n_launches - 1 - l) & 1) == 0;
     a.ssh_out = to_out ? ssh_out : ssh_tmp;
     a.h_out = to_out ? h_out : h_tmp;
     a.u_out = to_out ? u_out : u_tmp;
-    if ((err = launch<T, FB, kMasked, kForced>(a, tp, n_ranks, n_tiles, smem, stream)) != 0)
+    if (kTracers) a.tr.tr_out = to_out ? tr_out : tr_tmp;
+    if ((err = launch<T, FB, kMasked, kForced, kTracers>(a, tp, n_ranks, n_tiles, smem,
+                                                         stream)) != 0)
       return err;
     a.ssh = a.ssh_out, a.h = a.h_out, a.u = a.u_out;
+    if (kTracers) a.tr.tr = a.tr.tr_out;
   }
   return 0;
 }
@@ -399,21 +439,25 @@ int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_ti
 // as it is. `table` and `weights` are host copies of the stencil.
 template <typename T>
 using RunFn = int (*)(StepArgs<T>, const StepTaps<T>&, size_t, int, int, int, T*, T*, T*, T*,
-                      T*, T*, cudaStream_t);
+                      T*, T*, T*, T*, cudaStream_t);
 
-// The instantiation of an arm: FE or FB, periodic or masked, unforced or forced.
+// The instantiation of an arm: FE or FB, periodic or masked, unforced or
+// forced, or (unforced) with tracers.
 template <typename T>
-RunFn<T> run_of(bool fb, bool masked, bool forced) {
+RunFn<T> run_of(bool fb, bool masked, bool forced, bool tracers) {
+  if (tracers)
+    return fb ? (masked ? run<T, true, true, false, true> : run<T, true, false, false, true>)
+              : (masked ? run<T, false, true, false, true> : run<T, false, false, false, true>);
   if (fb)
-    return masked ? (forced ? run<T, true, true, true> : run<T, true, true, false>)
-                  : (forced ? run<T, true, false, true> : run<T, true, false, false>);
-  return masked ? (forced ? run<T, false, true, true> : run<T, false, true, false>)
-                : (forced ? run<T, false, false, true> : run<T, false, false, false>);
+    return masked ? (forced ? run<T, true, true, true, false> : run<T, true, true, false, false>)
+                  : (forced ? run<T, true, false, true, false> : run<T, true, false, false, false>);
+  return masked ? (forced ? run<T, false, true, true, false> : run<T, false, true, false, false>)
+                : (forced ? run<T, false, false, true, false> : run<T, false, false, false, false>);
 }
 
 template <typename T>
 int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
-                const int* table, const double* weights,
+                TracerArgs<T> tr, T* tr_tmp, const int* table, const double* weights,
                 const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out,
                 T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,
                 double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
@@ -421,6 +465,10 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || ny2 % rt || nx % ct || n_steps % q)
+    return cudaErrorInvalidValue;
+  const bool tracers = tr.tr != nullptr;
+  // the tracer arm: unforced, at least one tracer, the cell mask with the live bits
+  if (tracers && (fc.wind != nullptr || tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
     return cudaErrorInvalidValue;
   const int kc = step_chunk(k);
   const int n_ranks = (k + kc - 1) / kc;
@@ -431,16 +479,21 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
     return kNotHexTable;
   const bool vec = vector_loads(k, kc, sizeof(T), h_in, u_in) &&
                    vector_loads(k, kc, sizeof(T), h_out, u_out) &&
-                   vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
+                   vector_loads(k, kc, sizeof(T), h_tmp, u_tmp) &&
+                   (!tracers || (vector_loads(k, kc, sizeof(T), tr.tr, tr.tr_out) &&
+                                 vector_loads(k, kc, sizeof(T), tr_tmp, tr_tmp)));
+  T* tr_out = tr.tr_out;
+  if (tracers) resolve_tracer_taps(&tr, table, Wi);
   const StepArgs<T> a{ssh_in, h_in, u_in, f_edge, rts, live, nullptr, nullptr, nullptr,
-                      fc, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, q, hm, hi,
+                      fc, tr, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, q, hm, hi,
                       log2_exact(kc),
                       vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct};
-  const size_t smem = smem_bytes(sites, kc, q, sizeof(T), fc.wind != nullptr);
+  const size_t smem = smem_bytes(sites, kc, q, sizeof(T), fc.wind != nullptr,
+                                 tracers ? tr.n : 0);
   const int n_tiles = (ny2 / rt) * (nx / ct);
-  return run_of<T>(fb, live != nullptr, fc.wind != nullptr)(
+  return run_of<T>(fb, live != nullptr, fc.wind != nullptr, tracers)(
       a, tp, smem, n_ranks, n_tiles, n_steps, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp,
-      stream);
+      tr_out, tr_tmp, stream);
 }
 
 }  // namespace
@@ -450,20 +503,25 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
 // a plan the lattice or the card does not take). A null `live` (the wall
 // mask's live bits, one int per site) runs the periodic arm, any other the
 // masked one; a null `wind` the unforced arm, any other the forced one with
-// `lvl` (the packed levels) and the coefficients.
+// `lvl` (the packed levels) and the coefficients; a null `tr_in` the
+// tracer-free arm, any other the tracer arm with n_tr tracers (planes
+// (2 n_tr, ny2, nx, k) in `tr_in`, `tr_out`, `tr_tmp`), the live-cell mask
+// `cmask` (non-null exactly when `live` is), kappa and upwind.
 #define MOT_TILED_ENTRY(T, SUFFIX)                                                            \
   extern "C" int mot_tiled_steps_##SUFFIX(                                                    \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
       const int* table, const double* weights, const T* ssh_in, const T* h_in,                \
       const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,          \
-      double dt, double inv_dc, double s_div, double dlin, double dquad, double rayl,         \
+      const T* tr_in, T* tr_out, T* tr_tmp, const T* cmask, double dt, double inv_dc,         \
+      double s_div, double kappa, double upwind, double dlin, double dquad, double rayl,      \
       int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms,        \
-      int rt, int ct, int q, int hm, int hi, int fb, void* stream) {                          \
+      int rt, int ct, int q, int hm, int hi, int fb, int n_tr, void* stream) {                \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
-    return tiled_steps<T>(f_edge, rts, live, fc, table, weights, ssh_in, h_in, u_in,          \
-                          ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div,    \
-                          ny2, nx, k, n_steps, n_terms, rt, ct, q, hm, hi, fb,                \
+    const TracerArgs<T> tr{tr_in, tr_out, cmask, T(kappa), T(0.5 * upwind), n_tr, {}, {}};   \
+    return tiled_steps<T>(f_edge, rts, live, fc, tr, tr_tmp, table, weights, ssh_in, h_in,    \
+                          u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc,     \
+                          s_div, ny2, nx, k, n_steps, n_terms, rt, ct, q, hm, hi, fb,         \
                           static_cast<cudaStream_t>(stream));                                 \
   }
 
@@ -505,11 +563,12 @@ extern "C" int mot_tiled_occupancy(int sites, int k, int q, int fb, int* out) {
   int e = opt_in_smem(&max_smem);
   if (e != 0) return e;
   const int kc = step_chunk(k);
-  const size_t smem = smem_bytes(sites, kc, q, sizeof(float), false);
+  const size_t smem = smem_bytes(sites, kc, q, sizeof(float), false, 0);
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  auto kernel = fb ? tiled_step_kernel<float, true, false, false>
-                   : tiled_step_kernel<float, false, false, false>;
-  e = fb ? prepare<float, true, false, false>(max_smem) : prepare<float, false, false, false>(max_smem);
+  auto kernel = fb ? tiled_step_kernel<float, true, false, false, false>
+                   : tiled_step_kernel<float, false, false, false, false>;
+  e = fb ? prepare<float, true, false, false, false>(max_smem)
+         : prepare<float, false, false, false, false>(max_smem);
   if (e != 0) return e;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = step_config((k + kc - 1) / kc, 1, smem, nullptr, attr);

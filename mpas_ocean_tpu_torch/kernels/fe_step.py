@@ -6,14 +6,16 @@ vector-invariant one, on a periodic lattice and, with the wall mask's
 ``live`` bits (``live_bits`` of ``StructMesh.edge_mask``), on a coastal
 channel culled from one; the linear entries take momentum forcing
 (``forcing=``, ``structured.fused_model.kernel_forcing``'s operands), which
-runs the kernel's forced arm.
+runs the kernel's forced arm, and ``fe_rollout`` takes tracers
+(``tracers=``, ``structured.fused_model.kernel_tracers``' operands), which
+run its tracer arm.
 
 The entries take tensors on a CUDA device and the stencil on the host
 (``StructMesh.host_stencil``), and launch one kernel per step on the
 current stream, each over tiles of ``fe_tile`` sites; they raise on
 anything else, a stencil that is not the hex lattice's included:
 
-* ``fe_rollout`` returns new state tensors;
+* ``fe_rollout`` returns new state tensors (and new tracer planes);
 * ``fe_rollout_into`` writes the result into tensors the caller gives;
 * ``fe_fill_stack`` fills a stack of states, slot j + 1 = step(slot j);
 * ``fe_nl_rollout`` returns new state tensors after nonlinear steps (or
@@ -22,7 +24,8 @@ anything else, a stencil that is not the hex lattice's included:
 
 Their plain PyTorch version is ``structured.model.structured_run_loop``,
 which ``structured.fused_model`` runs for tensors on the CPU. ``launches``
-counts kernel launches, ``forced_launches`` those of the forced arm.
+counts kernel launches, ``forced_launches`` those of the forced arm and
+``tracer_launches`` those of the tracer arm.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ __all__ = [
     "best_tile",
     "check_forcing",
     "check_live",
+    "check_tracers",
     "forcing_smem_bytes",
     "forcing_ranks",
     "live_bits",
@@ -61,6 +65,8 @@ __all__ = [
     "nl_smem_bytes",
     "pack_stencil",
     "smem_bytes",
+    "tracer_args",
+    "tracer_launches",
     "vertex_tables",
 ]
 
@@ -105,9 +111,10 @@ NL_SLICE = 4
 SMS = 132
 
 # kernel launches made by this module's entries (one per step), and those
-# of them that ran the forced arm
+# of them that ran the forced arm and the tracer arm
 launches = 0
 forced_launches = 0
+tracer_launches = 0
 
 
 def pack_stencil(terms) -> tuple[np.ndarray, np.ndarray]:
@@ -153,18 +160,20 @@ def forcing_smem_bytes(sites: int, extra: int, itemsize: int) -> int:
     return 16 + itemsize * (6 * sites + extra) + 4 * 6 * sites
 
 
-def smem_bytes(tile, k: int, itemsize: int, forced: bool = False) -> int:
+def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int = 0) -> int:
     """Dynamic shared memory of one fe_step block for a tile (rows, columns)
     at k levels (``smem_bytes`` in csrc/fe_step.cu): its level chunk of the
     window's state [8][sites][kc], the window's ssh, f_edge, rts, site
     indices and live bits (the masked arm's, which the periodic arm
     reserves too, so that one plan serves both), and the ranks' partial
     column sums of the tile's sites; with ``forced``, the forced arm's
-    (``forcing_smem_bytes``)."""
+    (``forcing_smem_bytes``); with ``n_tracers``, the tracer arm's chunk of
+    the window's 2 n_tracers tracer planes."""
     ranks, kc = level_split(k)
     hm, hi = FE_REACH
     sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
-    return (itemsize * (sites * (8 * kc + _FE_PLANES) + ranks * 2 * tile[0] * tile[1])
+    return (itemsize * (sites * ((8 + 2 * n_tracers) * kc + _FE_PLANES)
+                        + ranks * 2 * tile[0] * tile[1])
             + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
 
 
@@ -186,14 +195,18 @@ def best_tile(ny2: int, nx: int, reach, smem, name: str) -> tuple[int, int]:
     raise ValueError(f"no {name} tile fits")
 
 
-def fe_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
+def fe_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0) -> tuple[int, int]:
     """fe_step's tile (rows, columns) on a ny2 x nx lattice, by
     ``best_tile``'s rule, sized for the forced arm so that one tile serves
-    both arms.
+    both arms, or with ``n_tracers`` for the (unforced) tracer arm's window.
     On an H100 at 64x64x100 and 256x256x100 f32 that is (4, 16), periodic
     or masked: the fastest tile at 64^2 and within 2.5% of the fastest at
     256^2, where the best one-block tile took 1.12x as long (PERF.md
-    section 5, tools/tile_sweep.py)."""
+    section 5, tools/tile_sweep.py). A tracer count whose window fits no
+    tile raises ValueError."""
+    if n_tracers:
+        return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize, False, n_tracers),
+                         f"fe_step ({k} levels of {itemsize}-byte values, {n_tracers} tracers)")
     return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize, forced=True),
                      f"fe_step ({k} levels of {itemsize}-byte values)")
 
@@ -302,16 +315,17 @@ def check_error(name: str, err: int, what: str = "") -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}{what}")
 
 
-def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile) -> dict:
+def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: int = 0) -> dict:
     """The launch fe_step makes for ``tile`` on an f32 ny2 x nx x k lattice
-    with the stencil ``table`` (host copy): its clusters (one per tile) and
-    the blocks one SM holds (CUDA's occupancy calculator)."""
+    with the stencil ``table`` (host copy), with ``n_tracers`` tracers (its
+    periodic tracer arm) or none: its clusters (one per tile) and the blocks
+    one SM holds (CUDA's occupancy calculator)."""
     fn = build.load().mot_fe_plan
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
     table = np.ascontiguousarray(table, dtype=np.int32)
-    check_error("fe_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile,
+    check_error("fe_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile, n_tracers,
                                            ctypes.addressof(out)))
     return {"clusters": out[0], "blocks_per_sm": out[1]}
 
@@ -333,7 +347,7 @@ def nl_launch_plan(ny2: int, nx: int, k: int, tile, ks: int, fb: bool = False) -
 
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
-    "steps": [_P] * 16 + [_D] * 6 + [_I] * 9 + [_P],
+    "steps": [_P] * 20 + [_D] * 8 + [_I] * 10 + [_P],
     "stack": [_P] * 10 + [_D] * 6 + [_I] * 9 + [_P],
     "nl_steps": [_P, _P, _I] + [_P] * 15 + [_D] * 5 + [_I] * 8 + [_P],
     "nl_stack": [_P, _P, _I] + [_P] * 9 + [_D] * 5 + [_I] * 8 + [_P],
@@ -409,6 +423,37 @@ def check_forcing(forcing, ny2: int, nx: int, dtype, device) -> None:
             raise ValueError("the forcing takes three coefficients (r_lin, Cd, lambda)")
 
 
+def check_tracers(tracers, live, ny2: int, nx: int, k: int, dtype, device) -> None:
+    """The tracer arms' operands (``fused_model.KernelTracers``: planes
+    (2 nT, ny2, nx, K) with nT >= 1, the cell mask (2, ny2, nx) exactly where
+    the live bits are given, both in the state dtype), contiguous, on the
+    state's device; None without tracers."""
+    if tracers is None:
+        return
+    n = tracers.planes.shape[0] if tracers.planes.dim() == 4 else 0
+    if n < 2 or n % 2:
+        raise ValueError(f"tracer planes must be (2 nT, ny2, nx, K) with nT >= 1, got "
+                         f"{tuple(tracers.planes.shape)}")
+    check_tensor("tracer planes", tracers.planes, (n, ny2, nx, k), dtype, device)
+    if (tracers.cell_mask is None) != (live is None):
+        raise ValueError("the tracer arms take the cell mask exactly on a channel (with the "
+                         "live bits)")
+    if tracers.cell_mask is not None:
+        check_tensor("cell mask", tracers.cell_mask, (2, ny2, nx), dtype, device)
+
+
+def tracer_args(tracers, out, tmp) -> tuple:
+    """(tracer in, out and scratch planes, cell mask) pointers, (kappa,
+    upwind) and the tracer count of an entry's tracer arm, or nulls and
+    zeros for the tracer-free one."""
+    if tracers is None:
+        return (None,) * 4, (0.0, 0.0), 0
+    mask = tracers.cell_mask
+    return ((tracers.planes.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+             None if mask is None else mask.data_ptr()),
+            (float(tracers.kappa), float(tracers.upwind)), tracers.planes.shape[0] // 2)
+
+
 def forcing_ranks(forcing, kc: int) -> tuple[int, int]:
     """(lvl_ranks, wind_ranks) of a launch whose blocks take chunks of kc
     levels (csrc/step_window.cuh, ForcingArgs): bit r set where rank r's
@@ -443,41 +488,57 @@ def _consts(h, f_edge, rts, table, weights, live, forcing=None):
 
 
 def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile,
-         forcing=None):
-    global launches, forced_launches
+         forcing=None, tracers=None, tr_bufs=None):
+    global launches, forced_launches, tracer_launches
     table, weights, n_terms = stencil
-    tile = fe_tile(*dims, h.element_size()) if tile is None else tuple(tile)
-    need = smem_bytes(tile, dims[2], h.element_size(), forcing is not None)
+    n_tr = 0 if tracers is None else tracers.planes.shape[0] // 2
+    if tile is None:
+        tile = fe_tile(*dims, h.element_size(), n_tr)
+    tile = tuple(tile)
+    need = smem_bytes(tile, dims[2], h.element_size(), forcing is not None, n_tr)
     if need > SMEM_BYTES:
         raise ValueError(f"an fe_step tile {tile} at {dims[2]} levels needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
     fn = _entry(kind, h.dtype)
     ptrs, coefs = forcing_args(forcing, level_split(dims[2])[1])
+    state_ptrs = [x.data_ptr() for x in tensors]
+    scal = tuple(float(x) for x in scal)
+    extra = ()
+    if kind == "steps":  # the stack entry has no tracer arm
+        tr_ptrs, tr_opts, n_tr = tracer_args(tracers, *(tr_bufs or (None, None)))
+        state_ptrs += tr_ptrs
+        scal, extra = (*scal, *tr_opts), (n_tr,)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
-                 *ptrs, table.ctypes.data, weights.ctypes.data,
-                 *[x.data_ptr() for x in tensors], *(float(x) for x in scal), *coefs, *dims,
-                 n_steps, n_terms, *tile, stream)
+                 *ptrs, table.ctypes.data, weights.ctypes.data, *state_ptrs,
+                 *scal, *coefs, *dims, n_steps, n_terms, *tile, *extra, stream)
     check_error("fe_step", err, f" (tile {tile})")
     launches += n_steps
     if forcing is not None:
         forced_launches += n_steps
+    if tracers is not None:
+        tracer_launches += n_steps
 
 
 def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch, tile,
-                  live, forcing=None):
+                  live, forcing=None, tracers=None, tr_out=None):
     if n_steps < 1:
         raise ValueError("fe_rollout_into takes n_steps >= 1")
     h = src[1]
     dims, stencil = _consts(h, f_edge, rts, table, weights, live, forcing)
+    check_tracers(tracers, live, *dims, h.dtype, h.device)
     if scratch is None:
         scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
     for group, name in ((src, "src"), (out, "out"), (scratch, "scratch")):
         for x, shape, f in zip(group, state_shapes(*dims), ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, h.dtype, h.device)
+    tr_bufs = None
+    if tracers is not None:
+        check_tensor("tracer out", tr_out, tracers.planes.shape, h.dtype, h.device)
+        tr_bufs = (tr_out, tr_out if n_steps == 1 else torch.empty_like(tr_out))
     _run("steps", h, (*src, *out, *scratch), f_edge, rts, live, stencil, scal, dims,
-         n_steps, tile, forcing)
+         n_steps, tile, forcing, tracers, tr_bufs)
 
 
 def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
@@ -525,31 +586,36 @@ def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
 
 
 def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=None,
-             forcing=None):
+             forcing=None, tracers=None):
     """``fe_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
     ``tile`` (rows, columns) sites, or ``fe_tile``'s for None (the tile
     sweep and the tests give their own); ``forcing`` as for
-    ``fe_rollout_into``."""
+    ``fe_rollout_into``, ``tracers`` as for ``fe_rollout``."""
     lattice_dims(h)
     if n_steps < 0:
         raise ValueError("n_steps must be >= 0")
     src = tuple(x.contiguous() for x in (ssh, h, u))
     if n_steps == 0:
-        return tuple(x.clone() for x in src)
+        out = tuple(x.clone() for x in src)
+        return out if tracers is None else (*out, tracers.planes.clone())
     out = tuple(torch.empty_like(x) for x in src)
+    tr_out = None if tracers is None else torch.empty_like(tracers.planes)
     _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, None, tile, live,
-                  forcing)
-    return out
+                  forcing, tracers, tr_out)
+    return out if tracers is None else (*out, tr_out)
 
 
 def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                dt: float, inv_dc: float, s_div: float, n_steps: int, live=None,
-               forcing=None):
+               forcing=None, tracers=None):
     """n_steps forward-Euler steps of the linear core on the card (arguments
     as for ``fe_rollout_into``). Returns new (ssh, h, u) tensors; the inputs
-    are left as they are."""
+    are left as they are. ``tracers`` (``structured.fused_model.
+    kernel_tracers``' operands: tracer planes (2 nT, ny2, nx, K), on a
+    channel the cell mask, kappa and upwind rounded to the state dtype) runs
+    the tracer arm, unforced, and the new tracer planes come fourth."""
     return _rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
-                    (dt, inv_dc, s_div), n_steps, None, live, forcing)
+                    (dt, inv_dc, s_div), n_steps, None, live, forcing, tracers)
 
 
 

@@ -6,7 +6,8 @@ Euler and forward-backward, and, in its nonlinear FB arm
 one (its FE arm is fe_step's, ``fe_step.fe_nl_rollout``), on a periodic
 lattice and, with the wall mask's ``live`` bits (``fe_step.live_bits``), on
 a coastal channel culled from one; ``tiled_rollout`` takes momentum forcing
-(``forcing=``), which runs the kernel's forced arm.
+(``forcing=``), which runs the kernel's forced arm, and tracers
+(``tracers=``), which run its tracer arm.
 
 ``tiled_rollout`` takes tensors on a CUDA device and the stencil on the
 host (``StructMesh.host_stencil``), and launches one kernel per q steps on
@@ -15,8 +16,9 @@ window does not fit the card's shared memory and a stencil that is not the
 hex lattice's. Its plain PyTorch
 version is ``structured.tiled_model.plain_tiled_rollout``, which
 ``structured.tiled_model.tiled_run_loop`` runs for tensors on the CPU.
-``launches`` counts kernel launches (one per q steps), of both cores, and
-``forced_launches`` those of the forced arm.
+``launches`` counts kernel launches (one per q steps), of both cores,
+``forced_launches`` those of the forced arm and ``tracer_launches`` those
+of the tracer arm.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .fe_step import (
     check_error,
     check_forcing,
     check_live,
+    check_tracers,
     forcing_args,
     forcing_smem_bytes,
     check_tensor,
@@ -46,34 +49,37 @@ from .fe_step import (
     nl_slice,
     nl_smem_bytes,
     state_shapes,
+    tracer_args,
 )
 
 __all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "forced_launches", "launches",
            "level_split",
            "nl_plan", "nl_slice", "nl_smem_bytes", "occupancy", "smem_bytes",
-           "tiled_nl_rollout", "tiled_rollout"]
+           "tiled_nl_rollout", "tiled_rollout", "tracer_launches"]
 
 _PLANES = 16  # kPlanes in csrc/tiled_step.cu
 
 # kernel launches made by tiled_rollout (one per q steps), and those of them
-# that ran the forced arm
+# that ran the forced arm and the tracer arm
 launches = 0
 forced_launches = 0
+tracer_launches = 0
 
 
-def smem_bytes(sites: int, kc: int, q: int, itemsize: int, forced: bool = False) -> int:
+def smem_bytes(sites: int, kc: int, q: int, itemsize: int, forced: bool = False,
+               n_tracers: int = 0) -> int:
     """Dynamic shared memory of one block for a window of ``sites`` lattice
     sites, ``kc`` levels and q steps (``smem_bytes`` in csrc/tiled_step.cu):
-    one state copy [8][sites][kc] at q = 1, two at q > 1; ssh, partial sums,
-    f_edge and rts; the sites' indices and live bits (the masked arm's,
-    reserved either way, as in ``fe_step.smem_bytes``); with ``forced``, the
-    forced arm's (``fe_step.forcing_smem_bytes``)."""
-    return (itemsize * sites * (8 * (2 if q > 1 else 1) * kc + _PLANES)
+    one state copy [8 + 2 n_tracers][sites][kc] at q = 1, two at q > 1; ssh,
+    partial sums, f_edge and rts; the sites' indices and live bits (the
+    masked arm's, reserved either way, as in ``fe_step.smem_bytes``); with
+    ``forced``, the forced arm's (``fe_step.forcing_smem_bytes``)."""
+    return (itemsize * sites * ((8 + 2 * n_tracers) * (2 if q > 1 else 1) * kc + _PLANES)
             + (4 + LIVE_BYTES) * sites
             + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_double] * 6 + [ctypes.c_int] * 13
+_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_double] * 8 + [ctypes.c_int] * 14
              + [ctypes.c_void_p])
 
 
@@ -105,14 +111,16 @@ def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int, fb: bool = Fal
 def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                   dt: float, inv_dc: float, s_div: float, n_steps: int, *,
                   row_tile: int, col_tile: int, q: int, halo, fb: bool = False, live=None,
-                  forcing=None):
+                  forcing=None, tracers=None):
     """n_steps FE (or FB) steps of the linear core on the card, q per launch
     over row_tile x col_tile tiles whose windows carry q ``halo`` = (rows,
     columns) per side. Arguments as for ``fe_step.fe_rollout``; ``live``
     (the wall mask's live bits, or None) runs the masked arm, ``forcing``
-    (``fused_model.kernel_forcing``'s operands, or None) the forced arm.
-    Returns new (ssh, h, u) tensors; the inputs are left as they are."""
-    global launches, forced_launches
+    (``fused_model.kernel_forcing``'s operands, or None) the forced arm,
+    ``tracers`` (``fused_model.kernel_tracers``' operands, or None) the
+    (unforced) tracer arm. Returns new (ssh, h, u) tensors, and new tracer
+    planes fourth with tracers; the inputs are left as they are."""
+    global launches, forced_launches, tracer_launches
     ny2, nx, k = lattice_dims(h, "tiled_step")
     dtype, device = h.dtype, h.device
     if n_steps < 0:
@@ -124,7 +132,8 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     hm, hi = halo
     _, kc = level_split(k)
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
-    need = smem_bytes(sites, kc, q, h.element_size(), forcing is not None)
+    n_tr = 0 if tracers is None else tracers.planes.shape[0] // 2
+    need = smem_bytes(sites, kc, q, h.element_size(), forcing is not None, n_tr)
     if need > SMEM_BYTES:
         raise ValueError(f"a {row_tile}x{col_tile} tile at q={q} needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
@@ -132,14 +141,21 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
     check_live(live, ny2, nx, device)
     check_forcing(forcing, ny2, nx, dtype, device)
+    check_tracers(tracers, live, ny2, nx, k, dtype, device)
     table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
     src = tuple(x.contiguous() for x in (ssh, h, u))
     for x, shape, f in zip(src, state_shapes(ny2, nx, k), ("ssh", "h", "u")):
         check_tensor(f, x, shape, dtype, device)
     if n_steps == 0:
-        return tuple(x.clone() for x in src)
+        out = tuple(x.clone() for x in src)
+        return out if tracers is None else (*out, tracers.planes.clone())
     out = tuple(torch.empty_like(x) for x in src)
     tmp = out if n_steps == q else tuple(torch.empty_like(x) for x in src)
+    tr_out = tr_tmp = None
+    if tracers is not None:
+        tr_out = torch.empty_like(tracers.planes)
+        tr_tmp = tr_out if n_steps == q else torch.empty_like(tr_out)
+    tr_ptrs, tr_opts, n_tr = tracer_args(tracers, tr_out, tr_tmp)
     fn = _entry(dtype)
     ptrs, coefs = forcing_args(forcing, kc)
     with torch.cuda.device(device):
@@ -147,14 +163,17 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
         err = fn(
             f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
             *ptrs, table.ctypes.data, weights.ctypes.data,
-            *[x.data_ptr() for x in (*src, *out, *tmp)],
-            float(dt), float(inv_dc), float(s_div), *coefs, ny2, nx, k, n_steps, n_terms,
-            row_tile, col_tile, q, hm, hi, int(fb), stream,
+            *[x.data_ptr() for x in (*src, *out, *tmp)], *tr_ptrs,
+            float(dt), float(inv_dc), float(s_div), *tr_opts, *coefs, ny2, nx, k, n_steps,
+            n_terms, row_tile, col_tile, q, hm, hi, int(fb), n_tr, stream,
         )
     check_error("tiled_step", err)
     launches += n_steps // q
     if forcing is not None:
         forced_launches += n_steps // q
+    if tracers is not None:
+        tracer_launches += n_steps // q
+        return (*out, tr_out)
     return out
 
 

@@ -73,6 +73,7 @@ __all__ = [
     "adjoint_plan",
     "adjoint_segment",
     "auto_rollout_diff",
+    "check_no_tracers",
     "forward_ckpts",
     "fused_adjoint_rollout",
     "fused_rollout_diff",
@@ -247,6 +248,15 @@ def _copy(state: StructState) -> StructState:
                          for x in _fields(state)))
 
 
+def check_no_tracers(state: StructState) -> None:
+    """The gradients carry no tracers yet (the tracer arms of the reverse
+    kernels are still to port): a state with tracers raises rather than
+    losing them."""
+    if state.tracers is not None:
+        raise NotImplementedError("the gradient entry points carry no tracers yet; run a "
+                                  "state with tracers forward (structured_auto_run_loop)")
+
+
 def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
                   group: int, nonlinear: bool = False, forcing: Forcing | None = None
                   ) -> tuple[StructState, StructState]:
@@ -257,6 +267,7 @@ def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
     ``nonlinear``, of the vector-invariant core; with ``forcing``, forced),
     so the final state is bitwise the same. Counterpart of
     ``_pallas_forward_ckpts``."""
+    check_no_tracers(state)
     starts = range(0, n_steps, group)
     ckpts = _empty(state, len(starts))
     if nonlinear:
@@ -321,6 +332,7 @@ def adjoint_segment(ckpt: StructState, cot: StructState, mesh: StructMesh, dt,
     ``_adjoint_segment``."""
     if n_steps < 1:
         raise ValueError("a segment has n_steps >= 1")
+    check_no_tracers(ckpt)
     steps = _Steps(mesh, dt, ckpt.layer_thickness, nonlinear, forcing=forcing)
     ddt = torch.zeros(1, dtype=torch.float64, device=ckpt.layer_thickness.device)
     out = _empty(ckpt)
@@ -477,7 +489,9 @@ def fused_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *
     reference validates with Enzyme against finite differences. Forward
     through ``fe_step`` on the card, backward through ``adjoint_step`` (the
     nonlinear core: the nonlinear reverse kernel; forcing with the
-    nonlinear core raises there). Counterpart of ``pallas_rollout_diff``."""
+    nonlinear core raises there). A state with tracers raises
+    NotImplementedError. Counterpart of ``pallas_rollout_diff``."""
+    check_no_tracers(state)
     return StructState(*FusedRolloutDiff.apply(*_fields(state), dt, *_forcing_inputs(forcing),
                                                mesh, n_steps, plan, nonlinear, forcing))
 
@@ -509,8 +523,9 @@ class FusedStep(torch.autograd.Function):
 def fused_step(state: StructState, mesh: StructMesh, dt, *, nonlinear: bool = False,
                forcing: Forcing | None = None) -> StructState:
     """One differentiable forward-Euler step (of the nonlinear core with
-    ``nonlinear``, forced with ``forcing``). Counterpart of
-    ``pallas_step``."""
+    ``nonlinear``, forced with ``forcing``); a state with tracers raises.
+    Counterpart of ``pallas_step``."""
+    check_no_tracers(state)
     return StructState(*FusedStep.apply(*_fields(state), dt, *_forcing_inputs(forcing), mesh,
                                         nonlinear, forcing))
 
@@ -541,7 +556,8 @@ def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     nonlinear arms), and ``forcing`` (struct layout, a differentiated input)
     through their forced arms. ``plan`` is the chosen route's: steps per
     group for the fused reverse, (row_tile, col_tile, q, group) for the
-    tiled one."""
+    tiled one. A state with tracers raises NotImplementedError (from either
+    route), on the CPU and on the card."""
     sites = 2 * mesh.ny2 * mesh.nx
     if state.layer_thickness.device.type == "cuda" and sites >= TILED_REVERSE_SITES:
         from .tiled_diff import tiled_rollout_diff

@@ -6,7 +6,9 @@ Counterpart of mpas_ocean_tpu/structured/pallas_model.py's
 linear and the nonlinear core, on periodic lattices and on coastal channels
 (a mesh with a wall mask runs the kernels' masked arms), with momentum
 forcing (``forcing=``, the kernels' forced arms; ``forcing_setup`` is the
-counterpart of ``_forcing_setup``, :646-709). ``fused_run_loop`` runs forward
+counterpart of ``_forcing_setup``, :646-709) and with tracers (a state's
+``tracers``, the kernels' tracer arms; ``kernel_tracers`` is the counterpart
+of ``_tracer_setup``, :610-639). ``fused_run_loop`` runs forward
 Euler (FE) one hand-written kernel step per launch (kernels/fe_step.py,
 csrc/fe_step.cu); ``tiled_model.tiled_run_loop`` runs FE or
 forward-backward (FB) q steps per launch (kernels/tiled_step.py). State on
@@ -27,9 +29,10 @@ from ..models.forcing import Forcing
 from . import tiled_model
 from .model import StructMesh, StructState, check_nl_mesh, structured_run_loop
 
-__all__ = ["KernelForcing", "check_forced_core", "forcing_scal", "forcing_setup",
-           "fused_run_loop", "kernel_forcing", "kernel_live", "nl_adjoint_scal", "nl_scal",
-           "nl_setup", "pack_levels", "structured_auto_run_loop"]
+__all__ = ["KernelForcing", "KernelTracers", "check_forced_core", "check_tracer_core",
+           "forcing_scal", "forcing_setup", "fused_run_loop", "kernel_forcing", "kernel_live",
+           "kernel_tracers", "nl_adjoint_scal", "nl_scal", "nl_setup", "pack_levels",
+           "structured_auto_run_loop", "tracer_opts", "tracer_planes", "tracer_unplanes"]
 
 
 def _scal(mesh: StructMesh, dt, dtype: torch.dtype) -> tuple[float, float, float]:
@@ -151,6 +154,62 @@ def check_forced_core(forcing, nonlinear: bool, device) -> None:
                                   "with the linear core, or on the CPU")
 
 
+def tracer_planes(tracers: torch.Tensor) -> torch.Tensor:
+    """Lattice tracers (2, ny2, nx, nT, K) as the kernels take them
+    (pallas_model._tr_planes, :610-613): planes (2 nT, ny2, nx, K), plane
+    t * 2 + parity, contiguous."""
+    _, ny2, nx, _, k = tracers.shape
+    return tracers.permute(3, 0, 1, 2, 4).reshape(-1, ny2, nx, k).contiguous()
+
+
+def tracer_unplanes(planes: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``tracer_planes``: (2 nT, ny2, nx, K) -> (2, ny2, nx,
+    nT, K), contiguous."""
+    _, ny2, nx, k = planes.shape
+    return planes.reshape(-1, 2, ny2, nx, k).permute(1, 2, 3, 0, 4).contiguous()
+
+
+def tracer_opts(kappa, upwind, dtype: torch.dtype) -> tuple[float, float]:
+    """(kappa, upwind) rounded once to the state dtype, as
+    pallas_model._tracer_setup rounds them (:633-638), so that the kernels'
+    products with them round as the plain version's do."""
+    return tuple(float(torch.tensor(float(x), dtype=torch.float64).to(dtype))
+                 for x in (kappa, upwind))
+
+
+class KernelTracers(NamedTuple):
+    """The tracer arms' operands: the tracer planes (``tracer_planes``), the
+    cell mask (2, ny2, nx) in the state dtype on a channel (the guard of the
+    division by h'; None on a periodic lattice), and (kappa, upwind) rounded
+    to the state dtype (``tracer_opts``)."""
+
+    planes: torch.Tensor
+    cell_mask: torch.Tensor | None
+    kappa: float
+    upwind: float
+
+
+def kernel_tracers(state: StructState, mesh: StructMesh, kappa, upwind) -> KernelTracers | None:
+    """The state's tracers as the tracer arms take them, on the state's
+    device and in its dtype, built once per call; None without tracers."""
+    if state.tracers is None:
+        return None
+    dtype = state.layer_thickness.dtype
+    cmask = None if mesh.cell_mask is None else mesh.cell_mask.to(dtype).contiguous()
+    return KernelTracers(tracer_planes(state.tracers.to(dtype)), cmask,
+                         *tracer_opts(kappa, upwind, dtype))
+
+
+def check_tracer_core(tracers, nonlinear: bool, forcing, device) -> None:
+    """The kernels' tracer arms run the linear, unforced core: on the card,
+    tracers with ``nonlinear`` or with ``forcing`` raise (the plain steps on
+    the CPU run them)."""
+    if tracers is not None and device.type == "cuda" and (nonlinear or forcing is not None):
+        raise NotImplementedError("the kernels' tracer arms run the linear, unforced core; "
+                                  "run tracers with the nonlinear core or with forcing on "
+                                  "the CPU")
+
+
 def kernel_live(mesh: StructMesh):
     """The wall mask as the kernels take it, packed into live bits
     (``fe_step.live_bits``), or None on a periodic lattice, which runs the
@@ -162,19 +221,23 @@ def kernel_live(mesh: StructMesh):
 
 def fused_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, *, nonlinear: bool = False,
-    forcing: Forcing | None = None,
+    forcing: Forcing | None = None, tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
 ) -> StructState:
     """n_steps forward-Euler steps of the linear core, or with ``nonlinear``
     of the vector-invariant one (periodic, or masked where the mesh has a
     wall mask); ``forcing`` (struct layout) runs the forced arm, linear core
-    only on the card."""
+    only on the card; the state's tracers, if any, run the tracer arm with
+    ``tracer_kappa`` and ``tracer_upwind`` (pallas_run_loop's arguments),
+    linear and unforced only on the card."""
     device = state.layer_thickness.device
     if device.type == "cpu":
         return structured_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear,
-                                   forcing=forcing)
+                                   forcing=forcing, tracer_kappa=tracer_kappa,
+                                   tracer_upwind=tracer_upwind)
     if device.type != "cuda":
         raise ValueError(f"no rollout for state on {device}")
     check_forced_core(forcing, nonlinear, device)
+    check_tracer_core(state.tracers, nonlinear, forcing, device)
     dtype = state.layer_thickness.dtype
     consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
     if nonlinear:
@@ -183,17 +246,21 @@ def fused_run_loop(
             nl_setup(mesh, dtype), mesh.vertex_cell_terms, mesh.edge_vertex_terms,
             *_scal(mesh, dt, dtype), *nl_scal(mesh, dtype), n_steps, live=kernel_live(mesh))
     else:
-        ssh, h, u = fe_step.fe_rollout(
+        ssh, h, u, *tr = fe_step.fe_rollout(
             state.ssh, state.layer_thickness, state.normal_velocity,
             mesh.f_edge.to(dtype).contiguous(), *consts, *_scal(mesh, dt, dtype), n_steps,
             live=kernel_live(mesh), forcing=kernel_forcing(forcing, mesh, dtype, device),
+            tracers=kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
         )
+        if tr:
+            return StructState(ssh, h, u, tracer_unplanes(tr[0]))
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
 
 
 def structured_auto_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, *, nonlinear: bool = False,
-    fb: bool = False, forcing: Forcing | None = None,
+    fb: bool = False, forcing: Forcing | None = None, tracer_kappa: float = 0.0,
+    tracer_upwind: float = 1.0,
 ) -> StructState:
     """The lattice rollout entry point. A CPU state runs the plain
     ``structured_run_loop`` (as the JAX package does off the TPU). On the
@@ -206,12 +273,15 @@ def structured_auto_run_loop(
     runs the same routes through the kernels' masked arms, or the plain
     masked steps on the CPU. ``forcing`` (struct layout,
     ``StructuredModel.to_struct_forcing``) runs the kernels' forced arms;
-    with ``nonlinear`` it raises on the card."""
+    with ``nonlinear`` it raises on the card. A state with tracers runs the
+    kernels' tracer arms with ``tracer_kappa`` and ``tracer_upwind`` (the
+    linear, unforced core on the card; the plain steps take every
+    combination)."""
     device = state.layer_thickness.device
+    kw = dict(nonlinear=nonlinear, forcing=forcing, tracer_kappa=tracer_kappa,
+              tracer_upwind=tracer_upwind)
     if device.type == "cpu":
-        return structured_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear, fb=fb,
-                                   forcing=forcing)
+        return structured_run_loop(state, mesh, dt, n_steps, fb=fb, **kw)
     if fb:
-        return tiled_model.tiled_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear,
-                                          fb=True, forcing=forcing)
-    return fused_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear, forcing=forcing)
+        return tiled_model.tiled_run_loop(state, mesh, dt, n_steps, fb=True, **kw)
+    return fused_run_loop(state, mesh, dt, n_steps, **kw)

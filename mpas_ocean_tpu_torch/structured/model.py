@@ -4,7 +4,8 @@ Counterpart of mpas_ocean_tpu/structured/model.py for the linear core
 (pressure gradient + TRiSK Coriolis) and the nonlinear vector-invariant one
 (KE gradient + symmetrised PV flux), with forward Euler and
 forward-backward, on periodic lattices and on coastal channels culled from
-them (wall masks). This is the plain PyTorch version of the step kernels
+them (wall masks), with momentum forcing and tracer transport
+(``tracer_tendency_struct``). This is the plain PyTorch version of the step kernels
 (kernels/fe_step.py, kernels/tiled_step.py): the CPU tests hold it against
 the JAX package, and on the card the kernels are held against it.
 
@@ -46,6 +47,8 @@ __all__ = [
     "structured_run_loop",
     "structured_step",
     "tangential_weights_only",
+    "tracer_concentration_struct",
+    "tracer_tendency_struct",
     "vertex_to_edge_mean",
 ]
 
@@ -55,12 +58,15 @@ class StructState:
     ssh: torch.Tensor  # (2, ny2, nx)
     layer_thickness: torch.Tensor  # (2, ny2, nx, K)
     normal_velocity: torch.Tensor  # (3, 2, ny2, nx, K)
+    # tracer concentrations (models/tracers.py), or None for a run without
+    tracers: torch.Tensor | None = None  # (2, ny2, nx, nT, K)
 
     def to(self, device) -> "StructState":
         return StructState(
             ssh=self.ssh.to(device),
             layer_thickness=self.layer_thickness.to(device),
             normal_velocity=self.normal_velocity.to(device),
+            tracers=None if self.tracers is None else self.tracers.to(device),
         )
 
 
@@ -213,12 +219,18 @@ def struct_mesh_to_numpy(mesh: StructMesh) -> dict:
 
 def struct_state_from_numpy(d: dict) -> StructState:
     """StructState from a dict of numpy arrays (the JAX StructState's
-    fields), bit for bit."""
-    return StructState(**{k: torch.from_numpy(np.array(d[k])) for k in _STATE_ARRAYS})
+    fields), bit for bit; ``tracers`` where the dict holds them and they are
+    not None."""
+    tr = d.get("tracers")
+    return StructState(**{k: torch.from_numpy(np.array(d[k])) for k in _STATE_ARRAYS},
+                       tracers=None if tr is None else torch.from_numpy(np.array(tr)))
 
 
 def struct_state_to_numpy(state: StructState) -> dict:
-    return {k: getattr(state, k).cpu().numpy() for k in _STATE_ARRAYS}
+    d = {k: getattr(state, k).cpu().numpy() for k in _STATE_ARRAYS}
+    if state.tracers is not None:
+        d["tracers"] = state.tracers.cpu().numpy()
+    return d
 
 
 # ---- stencils --------------------------------------------------------------
@@ -398,6 +410,52 @@ def _tend_u(state: StructState, flux, grad_ssh, mesh: StructMesh, nonlinear: boo
                            + tangential_weights_only(flux * q_e, mesh))
 
 
+def tracer_tendency_struct(tracers, flux, mesh: StructMesh, kappa: float, upwind: float,
+                           h_edge):
+    """d(hT)/dt on the lattice (JAX model.py:236-259, models/tracers.py's
+    tracer_tendency as rolls): -div(F T_e) + div(kappa h_e grad T), T_e =
+    mean(T) - (upwind / 2) dc sign(F) grad T. ``tracers`` (2, ny2, nx, nT,
+    K), ``flux`` and ``h_edge`` (3, 2, ny2, nx, K). Wall edges carry no
+    advective flux (u = 0 there) and the diffusive flux is masked by the
+    wall mask. kappa = 0 and upwind = 0 skip their terms."""
+    t_e = interp_cell_to_edge(tracers, mesh)  # (3, 2, ny2, nx, nT, K)
+    g = None
+    if upwind or kappa:
+        g = grad_on_edge(tracers, mesh)
+    if upwind:
+        t_e = t_e - (0.5 * upwind * mesh.dc) * torch.sign(flux[..., None, :]) * g
+    fl = flux[..., None, :] * t_e
+    if kappa:
+        diff = kappa * h_edge
+        if mesh.edge_mask is not None:
+            diff = diff * mesh.edge_mask[..., None]
+        fl = fl - diff[..., None, :] * g
+    return -div_on_cell(fl, mesh)
+
+
+def tracer_concentration_struct(content, h, cell_mask):
+    """T = content / h on live cells (JAX model.py:262-270): on a channel
+    the division is guarded on culled cells (``cell_mask`` 0), where T is
+    0."""
+    if cell_mask is None:
+        return content / h[..., None, :]
+    mask = cell_mask[..., None, None]
+    safe_h = torch.where(mask > 0, h[..., None, :], torch.ones_like(h)[..., None, :])
+    return content / safe_h * mask
+
+
+def _tracers(state: StructState, flux, h_edge, h, mesh: StructMesh, dt, kappa, upwind):
+    """The new tracer concentrations of a step whose continuity update took
+    h to ``h`` (JAX model.py:331-341, 475-485): the content h T of the old
+    state plus dt times the tendency of the old flux, over the fresh h; None
+    without tracers."""
+    if state.tracers is None:
+        return None
+    tend_t = tracer_tendency_struct(state.tracers, flux, mesh, kappa, upwind, h_edge)
+    content = state.layer_thickness[..., None, :] * state.tracers + dt * tend_t
+    return tracer_concentration_struct(content, h, mesh.cell_mask)
+
+
 def _forced(tend_u, state: StructState, h_edge, forcing):
     """tend_u plus the momentum forcing of the old u on the old state's
     h_edge (JAX model.py:315-323, 476-480), or tend_u unforced."""
@@ -407,13 +465,16 @@ def _forced(tend_u, state: StructState, h_edge, forcing):
 
 
 def structured_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool = False,
-                    forcing: Forcing | None = None) -> StructState:
-    """One forward-Euler step, all rolls + elementwise (the tracer-free,
-    unstratified arms of mpas_ocean_tpu/structured/model.py:272-341): the
-    linear core, or with ``nonlinear`` the vector-invariant momentum
-    equation; ``forcing`` (struct layout, ``StructuredModel.to_struct_forcing``)
-    adds wind stress, bottom drag and Rayleigh damping to the momentum
-    tendency; the wall mask where the mesh has one."""
+                    forcing: Forcing | None = None, tracer_kappa: float = 0.0,
+                    tracer_upwind: float = 1.0) -> StructState:
+    """One forward-Euler step, all rolls + elementwise (the unstratified
+    arms of mpas_ocean_tpu/structured/model.py:272-341): the linear core, or
+    with ``nonlinear`` the vector-invariant momentum equation; ``forcing``
+    (struct layout, ``StructuredModel.to_struct_forcing``) adds wind stress,
+    bottom drag and Rayleigh damping to the momentum tendency; the wall mask
+    where the mesh has one. The state's tracers, if any, are advected by the
+    step's thickness flux with ``tracer_upwind`` and mixed with diffusivity
+    ``tracer_kappa`` (m^2/s)."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     tend_h = -div_on_cell(flux, mesh)
@@ -424,16 +485,20 @@ def structured_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool = 
     h = state.layer_thickness + dt * tend_h
     u = _wall(state.normal_velocity + dt * tend_u, mesh)
     ssh = h.sum(-1) - mesh.resting_thickness_sum
-    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
+    tracers = _tracers(state, flux, h_edge, h, mesh, dt, tracer_kappa, tracer_upwind)
+    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u, tracers=tracers)
 
 
 def structured_fb_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool = False,
-                       forcing: Forcing | None = None) -> StructState:
-    """One forward-backward step (the tracer-free, unstratified arms of
+                       forcing: Forcing | None = None, tracer_kappa: float = 0.0,
+                       tracer_upwind: float = 1.0) -> StructState:
+    """One forward-backward step (the unstratified arms of
     mpas_ocean_tpu/structured/model.py:433-485): the continuity update
     first, then the pressure gradient of the fresh ssh and the other
     momentum terms (Coriolis, or with ``nonlinear`` the vector-invariant
-    ones, and the ``forcing``) of the old state; the wall mask last."""
+    ones, and the ``forcing``) of the old state; the wall mask last. The
+    tracers, as in ``structured_step``, take the old state's flux and the
+    fresh h."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     h = state.layer_thickness + dt * (-div_on_cell(flux, mesh))
@@ -442,23 +507,26 @@ def structured_fb_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool
     tend_u = _tend_u(state, flux, grad_on_edge(ssh, mesh), mesh, nonlinear)
     tend_u = _forced(tend_u, state, h_edge, forcing)
     u = _wall(state.normal_velocity + dt * tend_u, mesh)
-    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
+    tracers = _tracers(state, flux, h_edge, h, mesh, dt, tracer_kappa, tracer_upwind)
+    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u, tracers=tracers)
 
 
 def structured_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int,
     nonlinear: bool = False, fb: bool = False, forcing: Forcing | None = None,
+    tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
 ) -> StructState:
     """n_steps steps of ``structured_step`` (forward Euler) or, with
     ``fb=True``, of ``structured_fb_step`` (forward-backward); ``nonlinear``
-    runs the vector-invariant momentum equation and ``forcing`` adds the
-    momentum forcing (JAX model.py:488-507). A mesh without the vertex
-    constants, asked for nonlinear, raises."""
+    runs the vector-invariant momentum equation, ``forcing`` adds the
+    momentum forcing and the state's tracers, if any, are carried with
+    ``tracer_kappa`` and ``tracer_upwind`` (JAX model.py:488-507). A mesh
+    without the vertex constants, asked for nonlinear, raises."""
     step = structured_fb_step if fb else structured_step
     if nonlinear:
         check_nl_mesh(mesh)
     for _ in range(n_steps):
-        state = step(state, mesh, dt, nonlinear, forcing)
+        state = step(state, mesh, dt, nonlinear, forcing, tracer_kappa, tracer_upwind)
     return state
 
 
@@ -631,7 +699,8 @@ class StructuredModel(nn.Module):
         permutation runs on the host). On a channel the culled cells and
         edges are embedded as zeros, and u is pinned to 0 on masked edges,
         the wall condition the culled mesh's state carries (JAX
-        model.py:652-655)."""
+        model.py:652-655). Tracers (nCells, nT, K), where the state has
+        them, become (2, ny2, nx, nT, K), zero on culled cells."""
         lay = self.layout
         dev = self.f_edge.device
 
@@ -649,6 +718,7 @@ class StructuredModel(nn.Module):
             ssh=put(cells(prog.ssh)),
             layer_thickness=put(cells(prog.layer_thickness)),
             normal_velocity=put(u),
+            tracers=None if prog.tracers is None else put(cells(prog.tracers)),
         )
 
     def to_struct_forcing(self, forcing: Forcing) -> Forcing:
@@ -675,15 +745,19 @@ class StructuredModel(nn.Module):
 
     def from_struct(self, state: StructState) -> PrognosticVars:
         """Lattice state -> unstructured state, as CPU tensors; on a channel,
-        the culled mesh's cells and edges only."""
+        the culled mesh's cells and edges only; tracers where the state has
+        them."""
         lay = self.layout
         ssh = lay.cells_from_struct(state.ssh.cpu().numpy())
         h = lay.cells_from_struct(state.layer_thickness.cpu().numpy())
         u = lay.edges_from_struct(state.normal_velocity.cpu().numpy(), sign=True)
+        tr = None if state.tracers is None else lay.cells_from_struct(state.tracers.cpu().numpy())
         if self.cell_gids is not None:
             ssh, h, u = ssh[self.cell_gids], h[self.cell_gids], u[self.edge_gids]
+            tr = None if tr is None else tr[self.cell_gids]
         return PrognosticVars(
             ssh=torch.from_numpy(np.ascontiguousarray(ssh)),
             layer_thickness=torch.from_numpy(np.ascontiguousarray(h)),
             normal_velocity=torch.from_numpy(np.ascontiguousarray(u)),
+            tracers=None if tr is None else torch.from_numpy(np.ascontiguousarray(tr)),
         )

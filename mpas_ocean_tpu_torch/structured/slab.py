@@ -2,8 +2,8 @@
 
 Counterpart of mpas_ocean_tpu/structured/sharded.py:44-62,156-342
 (``_sh``, ``_interior``, ``_flux_thickness``, ``_step_slab`` with the wall
-masks and the momentum forcing (``_apply_forcing``, :134-153), and with
-tracers, cell masks and stratification off), of
+masks, the momentum forcing (``_apply_forcing``, :134-153) and the tracers
+with their cell mask (:294-340), and with stratification off), of
 sharded.py:345-597 for the nonlinear core (``_derived_slab``,
 ``_nl_continuity``, ``_apply_slab_nonlinear``, ``_step_slab_nl``) and of
 pallas_model.py:791-849 (``_reach``, ``_window_steps`` with ``masks_full``
@@ -23,7 +23,10 @@ f_edge and the mask (..., 6, R, C, K or 1), the vertex constants (..., 4 or
 parity``, vertex channel ``kind * 2 + parity``. The mask and the vertex
 constants are windowed as f_edge is, and so is the forcing: ``forc`` =
 (wind (..., 6, R, C, 1), level indices (..., 12, R, C, 1) int = [top x 6;
-bottom x 6] of ``fused_model.forcing_setup``, r_lin, Cd, lambda).
+bottom x 6] of ``fused_model.forcing_setup``, r_lin, Cd, lambda). Tracers
+ride as planes [t * 2 + parity] (..., 2 nT, R, C, K), as the kernels take
+them (``fused_model.tracer_planes``), with the cell mask (..., 2, R, C, 1)
+of a channel windowed as rts.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from .stencils import (
 )
 
 __all__ = ["adjoint_stencil_reach", "apply_forcing", "derived_ring", "nl_adjoint_rings",
-           "reach", "stencil_reach", "step_slab", "step_slab_nl", "window_steps"]
+           "reach", "stencil_reach", "step_slab", "step_slab_nl", "tracer_update",
+           "window_steps"]
 
 
 def reach(fb: bool, nonlinear: bool = False) -> int:
@@ -229,16 +233,73 @@ def apply_forcing(un, u, h, forc, dt, c, reg):
                                   dlin, dquad, rayl)
 
 
+def tracer_update(h, u, tr, h_new, dt, inv_dc, s_div, kappa, upwind, reg, mask=None,
+                  cmask=None):
+    """The tracers' new concentrations over the region ``reg`` (sharded.
+    _step_slab, :294-340): per tracer t and parity p, the tracer edge flux
+    G = F T_e - kappa h_e m (T_n - T_p) / dc of the old state on the cell's
+    three owned edges and its three incoming ones, T_e = (T_n + T_p) / 2 -
+    (upwind / 2) sign(F) (T_n - T_p), F = u h_e; the content h T - dt
+    (dv / A) (sum of the owned G - sum of the incoming G); divided by the
+    fresh h' (``h_new``, a list of two planes over ``reg``), or on a channel
+    (``cmask``, padded as rts) by 1 on culled cells, times the mask. ``tr``
+    holds planes [t * 2 + p]; kappa = 0 and upwind = 0 skip their terms.
+    Returns the planes over ``reg`` as a list."""
+    def plane(x, c):
+        return x[..., c, :, :, :]
+
+    out = []
+    for t in range(tr.shape[-4] // 2):
+        def g_edge(ch, dm, di):
+            """G of edge channel ch at the region shifted by (dm, di)."""
+            pn, dmn, din = NEIGHBOR[divmod(ch, 2)]
+            p = ch % 2
+            he = 0.5 * (_sh(plane(h, pn), dm + dmn, di + din, reg) + _sh(plane(h, p), dm, di, reg))
+            flux = _sh(plane(u, ch), dm, di, reg) * he
+            tn = _sh(plane(tr, 2 * t + pn), dm + dmn, di + din, reg)
+            tp = _sh(plane(tr, 2 * t + p), dm, di, reg)
+            te = 0.5 * (tn + tp)
+            if upwind:
+                te = te - (0.5 * upwind) * torch.sign(flux) * (tn - tp)
+            g = flux * te
+            if kappa:
+                diff = kappa * he
+                if mask is not None:
+                    diff = diff * _sh(plane(mask, ch), dm, di, reg)
+                g = g - diff * ((tn - tp) * inv_dc)
+            return g
+
+        for p in (0, 1):
+            total = None
+            for fam in (E, NE, NW):
+                g = g_edge(fam * 2 + p, 0, 0)
+                total = g if total is None else total + g
+            for ch, dm, di in INCOMING[p]:
+                total = total - g_edge(ch, dm, di)
+            content = (_interior(plane(h, p), reg) * _interior(plane(tr, 2 * t + p), reg)
+                       - (dt * s_div) * total)
+            if cmask is None:
+                out.append(content / h_new[p])
+            else:
+                cm = _interior(plane(cmask, p), reg)
+                out.append(content / torch.where(cm > 0, h_new[p], torch.ones_like(h_new[p]))
+                           * cm)
+    return out
+
+
 def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo,
-              fb=False, mask=None, forc=None):
+              fb=False, mask=None, forc=None, tr=None, tropts=(0.0, 1.0), cmask=None):
     """One FE or FB step of the linear core on windows padded by
     ``halo`` = (rows, columns) per side (``stencil_reach``); returns the
-    (rows, cols) interiors (ssh, h, u). Mirrors sharded._step_slab: FB runs
-    the continuity update on the 1-padded interior and takes the pressure
-    gradient of that fresh ssh; the Coriolis term reads the old u. The
-    forcing ``forc`` (module docstring, or None) adds dt F of the old u and
-    h_edge to u'; the wall ``mask`` (padded as f_edge, or None) multiplies
-    u' last."""
+    (rows, cols) interiors (ssh, h, u), and the tracers' fourth where ``tr``
+    (planes [t * 2 + p], padded as h) is given. Mirrors sharded._step_slab:
+    FB runs the continuity update on the 1-padded interior and takes the
+    pressure gradient of that fresh ssh; the Coriolis term reads the old u.
+    The forcing ``forc`` (module docstring, or None) adds dt F of the old u
+    and h_edge to u'; the wall ``mask`` (padded as f_edge, or None)
+    multiplies u' last. The tracers (``tracer_update``, ``tropts`` = (kappa,
+    upwind), ``cmask`` the cell mask padded as rts or None) take the old
+    state's flux, FE and FB alike, and the fresh h'."""
     hm, hi = halo
     inner = (hm, hm + rows, hi, hi + cols)
     if fb:
@@ -272,7 +333,11 @@ def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo
             if mask is not None:
                 un = un * _interior(mask[..., c, :, :, :], inner)
             u_new.append(un)
-    return tuple(torch.stack(x, dim=-4) for x in (ssh_new, h_new, u_new))
+    new = [ssh_new, h_new, u_new]
+    if tr is not None:
+        new.append(tracer_update(h, u, tr, h_new, dt, inv_dc, s_div, *tropts, inner, mask,
+                                 cmask))
+    return tuple(torch.stack(x, dim=-4) for x in new)
 
 
 def _grow(reg, rows: int, cols: int):
@@ -371,7 +436,8 @@ def nl_continuity(h, flux, rts, dt, s_div, reg, dreg):
 
 
 def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_terms,
-                 ev_terms, rows, cols, halo, fb=False, mask=None, forc=None):
+                 ev_terms, rows, cols, halo, fb=False, mask=None, forc=None, tr=None,
+                 tropts=(0.0, 1.0), cmask=None):
     """One nonlinear FE or FB step on windows padded by ``halo`` = (rows,
     columns) per side (``stencil_reach`` with the vertex taps); returns the
     (rows, cols) interiors (ssh, h, u). Mirrors sharded._step_slab_nl:
@@ -381,7 +447,8 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
     the pressure from the old ssh (FE) or the fresh one (FB), every other
     term from the old state; the forcing ``forc`` (as for ``step_slab``) adds
     dt F of the old u and h_edge; the wall ``mask`` (padded as f_edge, or
-    None) multiplies u' last."""
+    None) multiplies u' last; the tracers ``tr`` as for ``step_slab`` (a
+    fourth item returned)."""
     hm, hi = halo
     rm, rc = derived_ring(terms, fb)
     inner = (hm, hm + rows, hi, hi + cols)
@@ -423,11 +490,16 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
             if mask is not None:
                 un = un * _interior(mask[..., c, :, :, :], inner)
             u_new.append(un)
-    return tuple(torch.stack(x, dim=-4) for x in (ssh_new, h_new, u_new))
+    new = [ssh_new, h_new, u_new]
+    if tr is not None:
+        new.append(tracer_update(h, u, tr, h_new, dt, inv_dc, s_div, *tropts, inner, mask,
+                                 cmask))
+    return tuple(torch.stack(x, dim=-4) for x in new)
 
 
 def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows, cols,
-                 q, halo, fb=False, mask_full=None, fv_full=None, nl=None, forc_full=None):
+                 q, halo, fb=False, mask_full=None, fv_full=None, nl=None, forc_full=None,
+                 tr=None, tropts=(0.0, 1.0), cmask_full=None):
     """Advance windows by q steps (pallas_model._window_steps): the state
     arrives padded by q halos per side and shrinks by one halo per side per
     step; the constant fields, the wall mask ``mask_full`` (None on a
@@ -436,8 +508,10 @@ def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows,
     edge_vertex_terms) runs the nonlinear step (``step_slab_nl``, on a halo
     from ``stencil_reach`` with the vertex taps), None the linear one.
     ``forc_full`` (module docstring; its wind and level planes padded as
-    f_edge) forces the steps, linear or nonlinear. Returns the (rows, cols)
-    interiors."""
+    f_edge) forces the steps, linear or nonlinear. ``tr`` (tracer planes
+    padded as h) is carried with ``tropts`` = (kappa, upwind) and the cell
+    mask ``cmask_full`` (padded as rts, or None). Returns the (rows, cols)
+    interiors (ssh, h, u), and the tracers' fourth where ``tr`` is given."""
     hm, hi = halo
     full_m, full_i = rows + 2 * hm * q, cols + 2 * hi * q
     for j in range(q):
@@ -445,16 +519,19 @@ def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows,
         win = (om, full_m - om, oi, full_i - oi)
         r_j, c_j = rows + 2 * hm * (q - 1 - j), cols + 2 * hi * (q - 1 - j)
         mask_j = None if mask_full is None else _interior(mask_full, win)
+        cmask_j = None if cmask_full is None else _interior(cmask_full, win)
         forc_j = None if forc_full is None else (
             _interior(forc_full[0], win), _interior(forc_full[1], win), *forc_full[2:])
         if nl is not None:
             s_ke, s_curl, vc_terms, ev_terms = nl
-            ssh, h, u = step_slab_nl(
+            ssh, h, u, *rest = step_slab_nl(
                 ssh, h, u, _interior(fv_full, win), _interior(rts_full, win), dt, inv_dc,
                 s_div, s_ke, s_curl, terms, vc_terms, ev_terms, r_j, c_j, halo, fb, mask_j,
-                forc_j)
+                forc_j, tr, tropts, cmask_j)
         else:
-            ssh, h, u = step_slab(
+            ssh, h, u, *rest = step_slab(
                 ssh, h, u, _interior(f_full, win), _interior(rts_full, win),
-                dt, inv_dc, s_div, terms, r_j, c_j, halo, fb, mask_j, forc_j)
-    return ssh, h, u
+                dt, inv_dc, s_div, terms, r_j, c_j, halo, fb, mask_j, forc_j, tr, tropts,
+                cmask_j)
+        tr = rest[0] if rest else None
+    return (ssh, h, u) if tr is None else (ssh, h, u, tr)

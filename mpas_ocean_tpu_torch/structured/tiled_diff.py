@@ -77,6 +77,7 @@ from .diff_model import (
     _Steps,
     _sweep,
     adjoint_plan,
+    check_no_tracers,
     forward_ckpts,
 )
 from .model import StructMesh, StructState, check_nl_mesh
@@ -375,7 +376,8 @@ def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *
     card, backward through ``tiled_adjoint`` (nonlinear: the nonlinear
     reverse kernel, q = 1; a nonlinear q > 1, or forcing with the nonlinear
     core, raises on the card). ``plan`` = (row_tile, col_tile, q, group)
-    overrides ``tiled_adjoint_plan``. The tiled arm of
-    ``pallas_rollout_diff``."""
+    overrides ``tiled_adjoint_plan``. A state with tracers raises
+    NotImplementedError. The tiled arm of ``pallas_rollout_diff``."""
+    check_no_tracers(state)
     return StructState(*TiledRolloutDiff.apply(*_fields(state), dt, *_forcing_inputs(forcing),
                                                mesh, n_steps, plan, nonlinear, forcing))

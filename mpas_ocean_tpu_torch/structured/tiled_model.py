@@ -8,7 +8,8 @@ the linear and the nonlinear core with forward Euler (FE) or
 forward-backward (FB), on periodic lattices and on coastal channels (the
 wall mask and the vertex constants windowed as f_edge, :1287-1288,
 1391-1394), with momentum forcing (the wind and level-index planes windowed
-as f_edge).
+as f_edge) and with tracers (their planes windowed as h, the cell mask as
+rts; the tracer operands of :892-946, 1180-1190).
 The lattice is cut into row_tile x col_tile tiles; each tile reads its core
 and q halos of ``slab.stencil_reach`` rows and columns per side, advances q
 steps on the shrinking window (``slab.window_steps``) and writes its core.
@@ -34,6 +35,7 @@ nonlinear halos are 2-3 times as deep (PERF.md section 7).
 
 from __future__ import annotations
 
+import functools
 
 import torch
 
@@ -56,17 +58,17 @@ __all__ = [
 
 
 def window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int, itemsize: int,
-                 forced: bool = False) -> int:
+                 forced: bool = False, n_tracers: int = 0) -> int:
     """Shared memory of one block of the tiled kernel: its level chunk of
-    the window (2 h planes + 6 u channels), one copy at q = 1 and two at
-    q > 1, the window's ssh (two copies), column partial sums (two), f_edge,
-    rts, and its lattice sites with their live bits (the masked arm's,
-    reserved either way; csrc/tiled_step.cu: ``smem_bytes``); with
-    ``forced``, the forced arm's too."""
+    the window (2 h planes + 6 u channels, and 2 planes per tracer), one
+    copy at q = 1 and two at q > 1, the window's ssh (two copies), column
+    partial sums (two), f_edge, rts, and its lattice sites with their live
+    bits (the masked arm's, reserved either way; csrc/tiled_step.cu:
+    ``smem_bytes``); with ``forced``, the forced arm's too."""
     hm, hi = halo
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
     _, kc = tiled_step.level_split(k)
-    return tiled_step.smem_bytes(sites, kc, q, itemsize, forced)
+    return tiled_step.smem_bytes(sites, kc, q, itemsize, forced, n_tracers)
 
 
 def forced_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
@@ -132,9 +134,10 @@ def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
     ``tile_plan``, q lowered until it divides n_steps, and the reach*q clamp
     of pallas_tiled_run_loop (pallas_model.py:1372-1384) applied to rows
     against ny2 and to columns against nx. ``window`` gives one block's
-    shared memory for a plan, and ``budgets`` the budgets ``_best_tile`` tries (the tiled adjoint
-    passes its own). Raises ValueError for a tile that does not divide the
-    lattice."""
+    shared memory for a plan (``window_bytes`` with ``n_tracers`` for a
+    state with tracers), and ``budgets`` the budgets ``_best_tile`` tries (the tiled
+    adjoint passes its own). Raises ValueError for a tile that does not
+    divide the lattice, and for a window that fits no tile."""
     hm, hi = halo
     if q is None:
         _, _, q = tile_plan(ny2, nx, k, itemsize, halo, n_steps)
@@ -142,7 +145,11 @@ def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
     while n_steps % q:
         q -= 1
     if row_tile is None or col_tile is None:
-        rt, ct = _best_tile(ny2, nx, k, itemsize, halo, q, window, budgets) or (1, 1)
+        best = _best_tile(ny2, nx, k, itemsize, halo, q, window, budgets)
+        if best is None and window(1, 1, q, halo, k, itemsize) > budgets[-1]:
+            raise ValueError(f"no tile of the tiled kernel fits its window at q={q} ({k} "
+                             f"levels of {itemsize}-byte values)")
+        rt, ct = best or (1, 1)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
     if ny2 % row_tile:
@@ -233,13 +240,16 @@ def _nl_args(mesh: StructMesh, dtype, nonlinear: bool):
 
 def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
                         row_tile: int, col_tile: int, q: int, fb: bool = False, *,
-                        nonlinear: bool = False, forcing: Forcing | None = None
+                        nonlinear: bool = False, forcing: Forcing | None = None,
+                        tracer_kappa: float = 0.0, tracer_upwind: float = 1.0
                         ) -> StructState:
     """The tiled kernel's plain version: n_steps / q times, cut the
     periodic state into halo-padded tile windows, run ``window_steps`` on
-    all of them as one batch (the mesh's wall mask, the ``forcing`` and, for
-    ``nonlinear``, the vertex constants windowed with them), and put the
-    interiors back together."""
+    all of them as one batch (the mesh's wall mask, the ``forcing``, for
+    ``nonlinear`` the vertex constants, and the state's tracers with the
+    cell mask windowed with them; kappa and upwind rounded to the state
+    dtype, as the kernel takes them), and put the interiors back
+    together."""
     if n_steps % q:
         raise ValueError(f"q={q} must divide n_steps={n_steps}")
     ny2, nx = mesh.ny2, mesh.nx
@@ -261,20 +271,30 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
     ssh = state.ssh[..., None]
     h = state.layer_thickness
     u = state.normal_velocity.reshape(6, ny2, nx, k)
+    tr = tropts = cmask_w = None
+    if state.tracers is not None:
+        tr = fused_model.tracer_planes(state.tracers)
+        tropts = fused_model.tracer_opts(tracer_kappa, tracer_upwind, dtype)
+        if mesh.cell_mask is not None:
+            cmask_w = win(mesh.cell_mask.to(dtype).reshape(2, ny2, nx, 1))
     for _ in range(n_steps // q):
         out = window_steps(win(ssh), win(h), win(u), f_w, rts_w, dt_, inv_dc, s_div,
                            mesh.coriolis_terms, rows=row_tile, cols=col_tile, q=q,
                            halo=halo, fb=fb, mask_full=mask_w, fv_full=fv_w, nl=nl,
-                           forc_full=forc_w)
-        ssh, h, u = (_untile(x) for x in out)
+                           forc_full=forc_w, tr=None if tr is None else win(tr),
+                           tropts=tropts, cmask_full=cmask_w)
+        ssh, h, u, *tr = (_untile(x) for x in out)
+        tr = tr[0] if tr else None
     return StructState(ssh=ssh[..., 0], layer_thickness=h,
-                       normal_velocity=u.reshape(3, 2, ny2, nx, k))
+                       normal_velocity=u.reshape(3, 2, ny2, nx, k),
+                       tracers=None if tr is None else fused_model.tracer_unplanes(tr))
 
 
 def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                    row_tile: int | None = None, col_tile: int | None = None,
                    q: int | None = None, nonlinear: bool = False,
-                   fb: bool = False, forcing: Forcing | None = None) -> StructState:
+                   fb: bool = False, forcing: Forcing | None = None,
+                   tracer_kappa: float = 0.0, tracer_upwind: float = 1.0) -> StructState:
     """n_steps FE (or, with ``fb=True``, FB) steps of the linear core or,
     with ``nonlinear``, of the vector-invariant one, on a periodic lattice
     or a masked channel, q per kernel launch over row_tile x col_tile
@@ -282,8 +302,10 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     kernel (its masked arm where the mesh has a wall mask, its forced arm
     with ``forcing``; for the nonlinear core at q = 1 only, and a nonlinear
     q > 1 raises, as does forcing with the nonlinear core: FE through
-    fe_step's nonlinear arm, FB through the tiled kernel's), a CPU state its
-    plain version with the same plan."""
+    fe_step's nonlinear arm, FB through the tiled kernel's; the state's
+    tracers run the tracer arm with ``tracer_kappa`` and ``tracer_upwind``,
+    linear and unforced only, its plan sized with the tracer planes), a CPU
+    state its plain version with the same plan."""
     device = state.layer_thickness.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rollout for state on {device}")
@@ -300,15 +322,19 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
         rt, ct, _ = fe_step.nl_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, fb, tiles)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
+    n_tr = 0 if state.tracers is None else state.tracers.shape[3]
+    window = functools.partial(window_bytes, n_tracers=n_tr) if n_tr else forced_window_bytes
     rt, ct, q = resolve_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, halo, n_steps,
-                             row_tile, col_tile, q)
+                             row_tile, col_tile, q, window=window)
     if device.type == "cpu":
         if n_steps == 0:
-            return StructState(*(x.clone() for x in (
-                state.ssh, state.layer_thickness, state.normal_velocity)))
+            return StructState(*(None if x is None else x.clone() for x in (
+                state.ssh, state.layer_thickness, state.normal_velocity, state.tracers)))
         return plain_tiled_rollout(state, mesh, dt, n_steps, rt, ct, q, fb,
-                                   nonlinear=nonlinear, forcing=forcing)
+                                   nonlinear=nonlinear, forcing=forcing,
+                                   tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
     fused_model.check_forced_core(forcing, nonlinear, device)
+    fused_model.check_tracer_core(state.tracers, nonlinear, forcing, device)
     consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
     scal = fused_model._scal(mesh, dt, dtype)
     if nonlinear:
@@ -320,11 +346,14 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                         *fused_model.nl_scal(mesh, dtype), n_steps,
                         live=fused_model.kernel_live(mesh), tile=(rt, ct))
     else:
-        ssh, h, u = tiled_step.tiled_rollout(
+        ssh, h, u, *tr = tiled_step.tiled_rollout(
             state.ssh, state.layer_thickness, state.normal_velocity,
             mesh.f_edge.to(dtype).contiguous(), *consts, *scal, n_steps,
             row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb,
             live=fused_model.kernel_live(mesh),
             forcing=fused_model.kernel_forcing(forcing, mesh, dtype, device),
+            tracers=fused_model.kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
         )
+        if tr:
+            return StructState(ssh, h, u, fused_model.tracer_unplanes(tr[0]))
     return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)

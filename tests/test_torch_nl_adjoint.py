@@ -285,14 +285,14 @@ def test_reverse_rings_derived_from_the_tables():
     sums = {3: (0,), 4: (0, 3), 5: (0, 1, 4)}  # ssh, h, u -> (ny2, nx)
     cm, ci = 4, 8
     for which in ("primal", "cotangent"):
-        src = [x.clone() for x in (st if which == "primal" else g).__dict__.values()]
+        src = [getattr(st if which == "primal" else g, f).clone() for f in FIELDS]
         src[0][:, cm, ci] += 1e-3
         src[1][:, cm, ci] += 1e-3
         src[2][:, :, cm, ci] += 1e-3
         s2, g2 = (StructState(*src), g) if which == "primal" else (st, StructState(*src))
         out, _ = structured_nl_adjoint_step(s2, g2, mesh, DT)
-        moved = sum((a - b).abs().sum(sums[a.dim()]) for a, b in zip(
-            out.__dict__.values(), base.__dict__.values())) > 1e-14
+        moved = sum((a - b).abs().sum(sums[a.dim()]) for a, b in (
+            (getattr(out, f), getattr(base, f)) for f in FIELDS)) > 1e-14
         rows, cols = np.nonzero(moved.numpy())
         assert (np.abs(rows - cm).max(), np.abs(cols - ci).max()) == (1, 2), which
 

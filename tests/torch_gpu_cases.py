@@ -1,8 +1,8 @@
 """Shared inputs for the port's tests on a CUDA card
 (tests/test_torch_kernel.py, tests/test_torch_adjoint_kernel.py,
 tests/test_torch_tiled_kernel.py, tests/test_torch_tiled_adjoint_kernel.py,
-tests/test_torch_peaks.py). They import no JAX, so they run on a GPU machine
-without it."""
+tests/test_torch_peaks.py, tests/test_torch_tracer_kernel.py). They import
+no JAX, so they run on a GPU machine without it."""
 
 import numpy as np
 import pytest
@@ -396,3 +396,34 @@ def forced_reverse_errors(a, b) -> dict:
     for i, name in enumerate(("d_r_lin", "d_cd", "d_lambda")):
         out[name] = rel(a[3][i], b[3][i])
     return out
+
+
+# ---- tracers (tests/test_torch_tracer_kernel.py) ---------------------------
+
+TRACER_FIELDS = FIELDS + ("tracers",)
+
+
+def with_tracers(model, st, n_tracers=2, seed=3):
+    """``st`` with ``n_tracers`` random tracers made on the host from a numpy
+    seed (a wave in x plus noise per level for the first, 35 plus noise for
+    the others), 0 on a channel's culled cells, in the state's dtype and on
+    its device."""
+    from mpas_ocean_tpu_torch.structured import StructState
+
+    ny2, nx, k = st.layer_thickness.shape[1:]
+    rng = np.random.default_rng(seed)
+    x = np.arange(nx)[None, None, :, None] / nx
+    tr = np.stack([(10.0 + 2.0 * np.sin(2 * np.pi * x) if t == 0 else 35.0)
+                   + 0.3 * rng.normal(size=(2, ny2, nx, k)) for t in range(n_tracers)], axis=3)
+    if model.cell_mask is not None:
+        tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
+    tr = torch.from_numpy(tr).to(dtype=st.layer_thickness.dtype, device=st.layer_thickness.device)
+    return StructState(st.ssh, st.layer_thickness, st.normal_velocity, tr)
+
+
+def tracer_errors(out, ref, mesh) -> dict:
+    """``forward_errors`` of the state's fields and, for the tracers, max
+    |a - b| over max |b| (the tracer's scale)."""
+    errs = forward_errors(out, ref, mesh)
+    errs["tracers"] = float((out.tracers - ref.tracers).abs().max() / ref.tracers.abs().max())
+    return errs
