@@ -95,12 +95,31 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      with bitwise reruns and controls; uniform T, conserved content,
      monotone upwinding and culled cells on the card; f32 100-step checks
      on bench.py's tracers at 64^2 and 256^2 with a bf16 control; the
-     refusals (nonlinear or forced with tracers, gradients of a state with
-     tracers); the main paths from to_struct (bench.py's two-tracer
-     64x64x100 FE rollout over 8000 steps, 256x256x100 FE and FB, the 64^2
-     channel FE with kappa 5) with exact launch counts, timed beside the
-     tracer-free arm with their bounds. ``python3 chip_smoke.py
-     --tracers-only`` runs phases 1, 2, 9 and 15 alone.
+     refusals (nonlinear or forced with tracers, forward and reverse; the
+     tiled reverse with tracers at q > 1); the main paths from to_struct
+     (bench.py's two-tracer 64x64x100 FE rollout over 8000 steps,
+     256x256x100 FE and FB, the 64^2 channel FE with kappa 5) with exact
+     launch counts, timed beside the tracer-free arm with their bounds.
+     ``python3 chip_smoke.py --tracers-only`` runs phases 1, 2, 9 and 15
+     alone;
+ 16. the tracer reverse (the tracer arms of kernels 3 and 4 and of kernel
+     1's stack entry): the tracer instantiations' ptxas lines; f64
+     adjoint_step and tiled_adjoint (q = 1) with two tracers against the
+     plain tracer reverse (16^2 and 64^2, periodic and channel, 4 to 100
+     levels, kappa in {0, 5}, upwind in {1, 0.5, 0}) with bitwise reruns and
+     the tracer-free arm as a control; the stack rebuild bitwise the
+     forward's; the dot-product identity with directions in the tracers;
+     f32 100 reverse steps on bench.py's tracers by the distance from an f64
+     reverse with a bf16 control; the two-tracer gradients of sum ssh^2 +
+     sum T^2 from to_struct (64^2 IGW and channel over 4000 steps, 256^2
+     over 100 through both routes) with exact launch counts, timed beside
+     the tracer-free gradients, a profiler breakdown, and the tracer arms
+     per launch beside their bounds. ``python3 chip_smoke.py
+     --tracer-reverse-only`` runs phases 1, 2, 9 and 16 alone.
+After phase 8 the tracer-free 256x256x100 100-step gradients through
+fused_rollout_diff and tiled_rollout_diff are timed again in a fresh process
+(``python3 chip_smoke.py --grad-256``, which prints one JSON line), with
+their profiler breakdowns, against EARLIER_GRAD_S.
 The line before the last prints the GPU's name and power limit as nvidia-smi
 gives them, the one before it the kernels' JSON summary, and the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
@@ -145,7 +164,7 @@ EARLIER_US = {
     "adjoint_step 64": 24.747, "adjoint_step 128": 80.112, "adjoint_step 256": 288.599,
     "tiled_adjoint 64": 25.067, "tiled_adjoint 128": 89.002, "tiled_adjoint 256": 333.534,
 }
-EARLIER_GRAD_S = {64: 0.213139, 256: 0.0732726}
+EARLIER_GRAD_S = {64: 0.213139, 256: 0.0732726, "256 fused": 0.067325}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM
 # bytes/s, and non-tensor-core FLOP/s per dtype itemsize. The data sheet
@@ -444,7 +463,10 @@ def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int
     tracers the cell mask. adjoint_step reads a primal state, a cotangent,
     f_edge and the table and writes a cotangent and d(dt); per cell-level it
     does 20 operations per owned edge plus 2 per transposed tap (n_terms), 6
-    per incoming edge and 3 for dh."""
+    per incoming edge and 3 for dh. With ``n_tracers`` its tracer arm also
+    reads the primal tracers and their cotangent and writes the new one
+    (3 x 2 nT planes), reads h' and T' of the next state (2 + 2 nT planes),
+    and does TRACER_ADJ_OPS per cell-level and tracer."""
     cells = 2 * ny2 * nx
     state = cells * (1 + 4 * k)
     tr = cells * k * n_tracers
@@ -453,8 +475,9 @@ def step_bound(kind: str, ny2: int, nx: int, k: int, n_terms: int, itemsize: int
         nbytes = itemsize * (2 * (state + tr) + 4 * cells) + table
         ops = cells * k * (36 + 1.5 * n_terms + TRACER_OPS * n_tracers)
     else:
-        nbytes = itemsize * (3 * state + 3 * cells) + 8 + table
-        ops = cells * k * (81 + n_terms)
+        nbytes = itemsize * (3 * (state + tr) + 3 * cells + (cells * k + tr if tr else 0)) + 8 \
+            + table
+        ops = cells * k * (81 + n_terms + TRACER_ADJ_OPS * n_tracers)
     if masked:
         nbytes += 4 * ny2 * nx + (itemsize * cells if n_tracers else 0)
     peaks = CEILING if peaks is None else peaks
@@ -2798,12 +2821,12 @@ def forcing_phase(gpu: str, log_text: str) -> list:
     from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
     from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
-    # the forced instantiations: kForced true (the reverse kernels' last
-    # template argument; the forward kernels' second last, kTracers false)
-    for kernels, arm in ((("fe_step_kernel", "tiled_step_kernel"), "Lb1ELb0EEEv"),
-                         (("adjoint_step_kernel", "tiled_adjoint_kernel"), "Lb1EEEv")):
-        for line in ptxas_report(log_text, kernels, arm):
-            log(f"[14] ptxas {line}")
+    # the forced instantiations: kForced true, the second last template
+    # argument, and kTracers false, the last
+    for line in ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel",
+                                        "adjoint_step_kernel", "tiled_adjoint_kernel"),
+                             "Lb1ELb0EEEv"):
+        log(f"[14] ptxas {line}")
     counters = (fe_step, tiled_step, adjoint_step, tiled_adjoint)
 
     def zero_counts():
@@ -3391,7 +3414,9 @@ def tracer_phase(gpu: str, log_text: str) -> list:
     the 64^2 x 100 Kelvin channel with kappa 5, each tracer's distance from
     an f64 plain run within U_GAP_FACTOR x the plain f32 run's, with a bf16
     control; uniform T, conserved content, monotone upwinding and culled
-    cells on the card (tests/test_tracers.py); the main paths from to_struct
+    cells on the card (tests/test_tracers.py); the refusals (tracers with the
+    nonlinear core or forcing, forward and reverse; the tiled reverse with
+    tracers at q > 1); the main paths from to_struct
     (bench.py's 64^2 x 100 two-tracer FE rollout over HEADLINE_STEPS, 256^2
     FE and FB, the 64^2 channel FE with kappa 5) timed beside the tracer-free
     arm with exact launch counts and their bounds; the refusals. Returns the
@@ -3657,8 +3682,12 @@ def tracer_phase(gpu: str, log_text: str) -> list:
             ("forced FE", lambda: structured_auto_run_loop(st_t, sm, DT, 2, forcing=forcing)),
             ("forced FB", lambda: structured_auto_run_loop(st_t, sm, DT, 2, forcing=forcing,
                                                            fb=True)),
-            ("auto_rollout_diff", lambda: auto_rollout_diff(st_t, sm, DT, 2)),
-            ("tiled_rollout_diff", lambda: tiled_rollout_diff(st_t, sm, DT, 2))):
+            ("auto_rollout_diff nonlinear", lambda: auto_rollout_diff(st_t, sm, DT, 2,
+                                                                       nonlinear=True)),
+            ("tiled_rollout_diff forced", lambda: tiled_rollout_diff(st_t, sm, DT, 2,
+                                                                     forcing=forcing)),
+            ("tiled_rollout_diff q = 2", lambda: tiled_rollout_diff(st_t, sm, DT, 4,
+                                                                    plan=(4, 8, 2, 1)))):
         try:
             call()
         except NotImplementedError:
@@ -3776,6 +3805,525 @@ def tracer_phase(gpu: str, log_text: str) -> list:
     ]
 
 
+# The reverse tracer arms' arithmetic per cell-level and tracer, counted
+# from csrc/adjoint_window.cuh: fold_tracers' division and product (3), the
+# body's a h and a T (2) and per edge, 3 owned and 3 incoming, h_e and F
+# (3), dg (2), T_e with its upwind term (7), dT_n and dT_o (6), dF (1), the
+# kappa term's 9, and on an owned edge the flux g and d(dt)'s share (5):
+# 3 + 2 + 3 * 33 + 3 * 28
+TRACER_ADJ_OPS = 188
+# The f32 tracer reverse check's floor, in f32 epsilons of a cotangent's
+# scale (as TRACER_F32_FLOOR for the forward): a cotangent that both f32
+# reverses carry within a few roundings of the f64 one (the salinity's, of a
+# uniform S = 35) may sit nearer it in one of them by chance. d(dt)'s scale
+# is its Cauchy-Schwarz bound (``ddt_scale``), as in the f64 checks: with
+# tracers d(dt) is a sum whose terms cancel to some 1e-2 of them (the h'
+# feedback against the tracers' tendency), and at 256^2 the kernels' f32
+# d(dt) sat 8-10x the plain f32 reverse's distance from f64, 3e-4 of 8.06,
+# with the terms formed in f32 or in double alike (PERF.md section 2).
+TRACER_REV_F32_FLOOR = 4
+
+
+def tracer_reverse_phase(gpu: str, log_text: str) -> list:
+    """Phase 16, the tracer reverse (the tracer arms of kernels 3 and 4 and
+    of kernel 1's stack entry): the tracer instantiations' ptxas lines; f64,
+    adjoint_step and tiled_adjoint (q = 1) with two tracers against the plain
+    tracer reverse (structured_adjoint_step with tracers) on the kernel's
+    own primal states, 6 reverse steps, 16^2 and 64^2 random states,
+    periodic and channel, at 4, 6 and 36 levels and on the channel at 100,
+    at the planners' tiles (or (4, 8) where shallow), kappa in {0, 5},
+    upwind in {1, 0.5, 0}: every cotangent, the tracers' and d(dt) among
+    them, within 1e-12 of its scale, reruns bitwise, and the tracer-free arm
+    on the same states and cotangents of ssh, h and u at least 100x off in
+    d_h (the h' feedback); fe_fill_stack with tracers bitwise
+    fe_rollout_into's; the dot-product identity at f64 over 7 steps through
+    fused_rollout_diff and tiled_rollout_diff with directions in the
+    tracers; f32, 100 reverse steps on bench.py's tracers (IGW 64^2 and
+    256^2 x 100, the 64^2 channel with kappa 5): each cotangent's distance
+    from an f64 reverse of the same f32 states within U_GAP_FACTOR x the
+    plain f32 reverse's (or the floor), a bf16 control failing it; the
+    two-tracer gradients of sum ssh^2 + sum T^2 from to_struct (64^2 IGW and
+    channel over GRAD_STEPS through auto_rollout_diff, 256^2 over
+    LARGE_ADJ_STEPS through tiled_rollout_diff and fused_rollout_diff) with
+    exact tracer launch counts, timed beside the tracer-free gradients, a
+    profiler breakdown; each tracer arm per launch by held_us beside its
+    bound and the plain step. Returns the kernels line's entries."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        adjoint_plan,
+        auto_rollout_diff,
+        fused_model,
+        fused_rollout_diff,
+        structured_adjoint_step,
+        structured_run_loop,
+        tiled_rollout_diff,
+    )
+    from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo, tiled_adjoint_plan
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    for line in ptxas_report(log_text, ("adjoint_step_kernel", "tiled_adjoint_kernel"),
+                             "Lb1EEEv"):
+        log(f"[16] ptxas {line}")
+    counters = (fe_step, adjoint_step, tiled_adjoint)
+    tfields = FIELDS + ("tracers",)
+
+    def zero_counts():
+        for m in counters:
+            m.launches = m.tracer_launches = 0
+
+    def counts():
+        return {m.__name__.rsplit(".", 1)[-1]: (m.launches, m.tracer_launches) for m in counters}
+
+    def with_tracers(model, st, seed=3):
+        ny2, nx, k = st.layer_thickness.shape[1:]
+        rng = np.random.default_rng(seed)
+        x = np.arange(nx)[None, None, :, None] / nx
+        tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
+                       35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
+        if model.cell_mask is not None:
+            tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
+        return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
+                           torch.from_numpy(tr).to(st.layer_thickness))
+
+    def random_g(st, seed):
+        rng = np.random.default_rng(seed)
+        return StructState(*(torch.from_numpy(rng.normal(size=tuple(getattr(st, f).shape))).to(
+            getattr(st, f)) for f in tfields))
+
+    def stack_of(st, sm, dt, n, kappa, upwind):
+        """n + 1 states of fe_step's tracer arm from st by fe_fill_stack, slot
+        j after j steps: (the (ssh, h, u) stack of slots 0 .. n - 1, the
+        tracer operands whose planes are their tracer stack, the end state
+        (slot n) as a StructState with tracers as planes)."""
+        dtype = st.layer_thickness.dtype
+        kt = fused_model.kernel_tracers(st, sm, kappa, upwind)
+        full = tuple(torch.empty((n + 1, *getattr(st, f).shape), dtype=dtype,
+                                 device=st.ssh.device) for f in FIELDS)
+        trs = torch.empty((n + 1, *kt.planes.shape), dtype=dtype, device=st.ssh.device)
+        for dst, f in zip(full, FIELDS):
+            dst[0].copy_(getattr(st, f))
+        trs[0].copy_(kt.planes)
+        fe_step.fe_fill_stack(full, sm.f_edge.to(dtype).contiguous(),
+                              sm.resting_thickness_sum.to(dtype).contiguous(), *sm.host_stencil,
+                              *fused_model._scal(sm, dt, dtype), n,
+                              live=fused_model.kernel_live(sm), tracers=kt._replace(planes=trs))
+        end = StructState(*(x[n] for x in full), trs[n])
+        return tuple(x[:n] for x in full), kt._replace(planes=trs[:n]), end
+
+    def rev_runner(stack, kt, end, g, sm, dt, n, tile=None, tracers=True):
+        """(run, ddt): run() launches n reverse steps of adjoint_step's
+        tracer arm (tile None) or tiled_adjoint's at q = 1 over ``tile``
+        (with ``tracers`` False the tracer-free arm on the same states and
+        g's ssh, h, u) with every operand made beforehand, so that a timer
+        holding the stream sees no host sync (the scalars come from the
+        card), adding d(dt) to ddt; it returns the cotangent planes."""
+        dtype, device = stack[1].dtype, stack[1].device
+        ddt = torch.zeros(1, dtype=torch.float64, device=device)
+        gk = tuple(getattr(g, f).to(dtype).contiguous() for f in FIELDS)
+        kw = dict(live=fused_model.kernel_live(sm))
+        if tracers:
+            gk += (fused_model.tracer_planes(g.tracers.to(dtype)),)
+            kw.update(tracers=kt, end=(end.layer_thickness, end.tracers))
+        scal = fused_model._scal(sm, dt, dtype)
+        f_edge = sm.f_edge.to(dtype).contiguous()
+        rts = sm.resting_thickness_sum.to(dtype).contiguous()
+        halo = reverse_halo(sm.coriolis_terms)
+        if tile is None:
+            return (lambda: adjoint_step.adjoint_rollout(
+                stack, gk, f_edge, *sm.host_adjoint_stencil, *scal, n, ddt, **kw)), ddt
+        return (lambda: tiled_adjoint.tiled_adjoint_rollout(
+            stack, gk, f_edge, rts, *sm.host_stencil, *sm.host_adjoint_stencil, *scal, n, ddt,
+            row_tile=tile[0], col_tile=tile[1], q=1, halo=halo, **kw)), ddt
+
+    def kernel_rev(stack, kt, end, g, sm, dt, n, tile=None, tracers=True):
+        """n reverse steps as ``rev_runner`` runs them: (cotangent with
+        tracers in the lattice layout, d(dt))."""
+        run, ddt = rev_runner(stack, kt, end, g, sm, dt, n, tile, tracers)
+        out = run()
+        tr = fused_model.tracer_unplanes(out[3]) if tracers else None
+        return StructState(*out[:3], tr), ddt[0]
+
+    def plain_rev(stack, kt, end, g, sm, dt, n, dtype=None, store=None):
+        """The plain tracer reverse back through the stack's slots in
+        ``dtype`` (the stack's), reading h' and T' from the next slot (or
+        ``end``) as the kernels do, each step's cotangent passed through
+        ``store`` (the bf16 control): (cotangent, d(dt) in f64). d(dt) is
+        as sensitive to the rounding of T' as to its own (a cancelling sum,
+        the h' feedback against the tracers' tendency): an f64 reverse that
+        forms T' again from f32 states sits as far from one that reads their
+        T' as an f32 reverse does (a 64^2 CPU run, PERF.md), so the f64
+        reference reads the f32 values the kernels read."""
+        dtype = dtype or stack[1].dtype
+        cast = lambda s: StructState(*(getattr(s, f).to(dtype) for f in tfields))  # noqa: E731
+        g = cast(g)
+        ddt = torch.zeros((), dtype=torch.float64, device=stack[1].device)
+        slot = lambda j: StructState(  # noqa: E731
+            *(x[j] for x in stack), fused_model.tracer_unplanes(kt.planes[j])) if j < n else \
+            StructState(end.ssh, end.layer_thickness, end.normal_velocity,
+                        fused_model.tracer_unplanes(end.tracers))
+        for j in reversed(range(n)):
+            g, dd = structured_adjoint_step(cast(slot(j)), g, sm, dt, tracer_kappa=kt.kappa,
+                                            tracer_upwind=kt.upwind,
+                                            next_state=cast(slot(j + 1)))
+            if store is not None:
+                g = StructState(*(store(getattr(g, f)) for f in tfields))
+            ddt = ddt + dd.double()
+        return g, ddt
+
+    def rev_errs(a, b, fields=tfields, ddt_scale=None) -> dict:
+        """(max |a - b|, over the scale) per cotangent field (scale max |b|)
+        and for d(dt) (scale ``ddt_scale``, by default |b|)."""
+        out = {}
+        for f in fields:
+            e = float((getattr(a[0], f).double() - getattr(b[0], f).double()).abs().max())
+            out[f] = (e, e / float(getattr(b[0], f).double().abs().max()))
+        e = abs(float(a[1]) - float(b[1]))
+        out["d_dt"] = (e, e / (ddt_scale or abs(float(b[1]))))
+        return out
+
+    def ddt_scale(st, sm, dt, n, g, **kw) -> float:
+        """The scale of d(dt) = <g, d(state_n)/d(dt)>, a sum whose terms
+        cancel (with a random g it may come out 1e-3 of them): the
+        Cauchy-Schwarz bound sum over the fields of |g| |d(state_n)/d(dt)|,
+        the tangent by forward-mode AD of the plain rollout."""
+        def rollout(d):
+            out = structured_run_loop(st, sm, d, n, **kw)
+            return tuple(getattr(out, f) for f in tfields)
+
+        one = torch.ones((), dtype=st.ssh.dtype, device=st.ssh.device)
+        _, tang = torch.func.jvp(rollout, (dt * one,), (one,))
+        return sum(float(torch.linalg.vector_norm(getattr(g, f).double())
+                         * torch.linalg.vector_norm(t.double())) for f, t in zip(tfields, tang))
+
+    def same(a, b) -> bool:
+        return torch.equal(a[1], b[1]) and all(torch.equal(getattr(a[0], f), getattr(b[0], f))
+                                               for f in tfields)
+
+    # f64, kernel against plain (phase 15's lattices: (n, levels, channel, the
+    # shallow cases' tile, u amplitude, layer); u of 0.5 m/s on the deep ones,
+    # 60 m columns)
+    n_rev = 6
+    worst, n_checks, rebuilt = {}, 0, 0
+    opts = [(kappa, upwind) for kappa in (0.0, 5.0) for upwind in (1.0, 0.5, 0.0)]
+    f64_cases = [(n, levels, channel, (4, 8), 0.01, 10.0)
+                 for n, levels in ((16, 4), (HEADLINE_N, 6)) for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, 36, channel, None, 0.5, 60.0 / 36) for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, LEVELS, True, None, 0.5, 60.0 / LEVELS)]
+    for n, levels, channel, tile, u_amp, layer in f64_cases:
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=5,
+                                                                   u_amp=u_amp, layer=layer)
+        sm = model.struct_mesh
+        st = with_tracers(model, model.to_struct(prog))
+        g = random_g(st, 17)
+        ny2, nx = sm.ny2, sm.nx
+        tiles = {"adjoint_step": adjoint_step.adjoint_tile(ny2, nx, levels, 8, 2),
+                 "tiled_adjoint": tile or tiled_adjoint_plan(
+                     ny2, nx, levels, 8, n_rev, halo=reverse_halo(sm.coriolis_terms),
+                     n_tracers=2)[:2]}
+        name = (f"f64 {n}x{n}x{levels} {'channel' if channel else 'periodic'}, layers of "
+                f"{layer:.4g} m, u {u_amp} m/s")
+        for kappa, upwind in opts:
+            stack, kt, end = stack_of(st, sm, 10.0, n_rev, kappa, upwind)
+            if (kappa, upwind) == (5.0, 0.5):
+                # the rebuild: slot j against j steps of fe_rollout_into, bitwise
+                consts = (sm.f_edge.to(torch.float64).contiguous(),
+                          sm.resting_thickness_sum.to(torch.float64).contiguous(),
+                          *sm.host_stencil, *fused_model._scal(sm, 10.0, torch.float64))
+                src = tuple(x[0] for x in stack)
+                for j in (1, n_rev - 1, n_rev):
+                    out = tuple(torch.empty_like(x) for x in src)
+                    tr_out = torch.empty_like(kt.planes[0])
+                    fe_step.fe_rollout_into(src, out, *consts, j,
+                                            live=fused_model.kernel_live(sm),
+                                            tracers=kt._replace(planes=kt.planes[0]),
+                                            tr_out=tr_out)
+                    want = (end.ssh, end.layer_thickness, end.normal_velocity, end.tracers) \
+                        if j == n_rev else (*(x[j] for x in stack), kt.planes[j])
+                    if not all(torch.equal(a, b) for a, b in zip((*out, tr_out), want)):
+                        raise AssertionError(f"{name}: fe_fill_stack slot {j} is not "
+                                             f"fe_rollout_into's {j} steps")
+                    rebuilt += 1
+            ref = plain_rev(stack, kt, end, g, sm, 10.0, n_rev)
+            scale = ddt_scale(st, sm, 10.0, n_rev, g, tracer_kappa=kappa, tracer_upwind=upwind)
+            line = [f"d(dt) {float(ref[1]):.6e}, its scale {scale:.6e}"]
+            for label, tl in (("adjoint_step", None), ("tiled_adjoint", tiles["tiled_adjoint"])):
+                mod = adjoint_step if tl is None else tiled_adjoint
+                zero_counts()
+                out = kernel_rev(stack, kt, end, g, sm, 10.0, n_rev, tl)
+                again = kernel_rev(stack, kt, end, g, sm, 10.0, n_rev, tl)
+                if (mod.launches, mod.tracer_launches) != (2 * n_rev, 2 * n_rev):
+                    raise AssertionError(f"{name} {label}: launch counts {counts()}")
+                errs = rev_errs(out, ref, ddt_scale=scale)
+                if not max(r for _, r in errs.values()) <= 1e-12:
+                    raise AssertionError(f"{name} kappa {kappa} upwind {upwind} {label}: "
+                                         f"{format_errors(errs)}")
+                if not same(out, again):
+                    raise AssertionError(f"{name} {label}: rerun differs")
+                bare = kernel_rev(stack, kt, end, g, sm, 10.0, n_rev, tl, tracers=False)
+                miss = rev_errs(bare, ref, FIELDS)["layer_thickness"][1]
+                if not miss >= 100 * 1e-12:
+                    raise AssertionError(f"{name} {label}: the tracer-free control misses d_h "
+                                         f"by only {miss}")
+                worst[label] = max(worst.get(label, 0.0), max(r for _, r in errs.values()))
+                line.append(f"{label} {max(r for _, r in errs.values()):.3e} (tracers "
+                            f"{errs['tracers'][1]:.3e}, d_dt {errs['d_dt'][1]:.3e}; control d_h "
+                            f"{miss:.2e})")
+                n_checks += 1
+            log(f"[16] {name}, {n_rev} reverse steps, kappa {kappa} upwind {upwind}, tiles "
+                f"{tiles}: worst error over scale " + ", ".join(line))
+            del stack, kt, end
+        del model, st, sm
+        torch.cuda.empty_cache()
+    log(f"[16] {n_checks} f64 tracer reverse checks, reruns bitwise equal, tracer-free controls "
+        f">= 100x off; {rebuilt} stack slots bitwise fe_rollout_into's; worst relative errors: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # the dot-product identity, f64, 7 steps, directions in the tracers too
+    model, prog = random_case(32, 6, seed=5, u_amp=0.5, layer=10.0)
+    sm = model.struct_mesh
+    st = with_tracers(model, model.to_struct(prog))
+    v, gbar = random_g(st, 18), random_g(st, 19)
+    kw = dict(tracer_kappa=5.0, tracer_upwind=0.5)
+
+    def rollout7(*xs):
+        out = structured_run_loop(StructState(*xs), sm, 10.0, 7, **kw)
+        return tuple(getattr(out, f) for f in tfields)
+
+    _, jv = torch.func.jvp(rollout7, tuple(getattr(st, f) for f in tfields),
+                           tuple(getattr(v, f) for f in tfields))
+    lhs = sum(float((x * getattr(gbar, f)).sum()) for x, f in zip(jv, tfields))
+    dots = {}
+    for label, route in (("fused_rollout_diff", lambda s: fused_rollout_diff(
+            s, sm, 10.0, 7, plan=3, **kw)),
+            ("tiled_rollout_diff", lambda s: tiled_rollout_diff(s, sm, 10.0, 7, plan=(4, 8, 1, 3),
+                                                                 **kw))):
+        x = [getattr(st, f).clone().requires_grad_(True) for f in tfields]
+        out = route(StructState(*x))
+        inner = sum((getattr(out, f) * getattr(gbar, f)).sum() for f in tfields)
+        jtg = torch.autograd.grad(inner, x)
+        rhs = sum(float((getattr(v, f) * d).sum()) for f, d in zip(tfields, jtg))
+        dots[label] = abs(lhs - rhs) / abs(rhs)
+        log(f"[16] f64 dot-product identity with tracers, 32x32x6, 7 steps, {label}: <Jv, g> "
+            f"{lhs:.17g}, <v, J^T g> {rhs:.17g}, relative gap {dots[label]:.3e}")
+        if not dots[label] <= 1e-12:
+            raise AssertionError(f"{label}: dot-product identity off by {dots[label]:.3e}")
+    del model, st, sm
+
+    # f32, 100 reverse steps on bench.py's tracers, from the cotangent of
+    # sum ssh^2 + sum T^2 at step 100: each cotangent's distance from an f64
+    # reverse of the same f32 primal states within U_GAP_FACTOR x the plain
+    # f32 reverse's (or the floor); the plain reverse with its cotangents
+    # stored in bf16 after each step must miss that for some cotangent
+    gaps, max_abs_err = {}, {}
+    n32 = TILED_CHECK_STEPS
+    for key, case, n, kappa, kernels in (
+            ("64", igw_case, HEADLINE_N, BENCH_TRACER_KAPPA, (("adjoint_step", None),)),
+            ("256", igw_case, LARGE_N, BENCH_TRACER_KAPPA, (("adjoint_step", None),
+                                                             ("tiled_adjoint", "plan"))),
+            ("channel 64", kelvin_case, HEADLINE_N, 5.0, (("adjoint_step", None),))):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=bench_tracers(horz, LEVELS, np.float32)))
+        stack, kt, end = stack_of(st, sm, DT, n32, kappa, BENCH_TRACER_UPWIND)
+        g = StructState(2 * end.ssh, torch.zeros_like(end.layer_thickness),
+                        torch.zeros_like(end.normal_velocity),
+                        2 * fused_model.tracer_unplanes(end.tracers))
+        ref64 = plain_rev(stack, kt, end, g, sm, DT, n32, dtype=torch.float64)
+        p32 = plain_rev(stack, kt, end, g, sm, DT, n32)
+        bf = plain_rev(stack, kt, end, g, sm, DT, n32, store=lambda x: x.bfloat16().float())
+        ddt_sc = ddt_scale(st, sm, DT, n32, g, tracer_kappa=kappa,
+                           tracer_upwind=BENCH_TRACER_UPWIND)
+        flow = "Kelvin channel" if case is kelvin_case else "IGW"
+        for label, tl in kernels:
+            if tl == "plan":
+                tl = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n32,
+                                        halo=reverse_halo(sm.coriolis_terms), n_tracers=2)[:2]
+            out = kernel_rev(stack, kt, end, g, sm, DT, n32, tl)
+            what = (f"f32 {n}x{n}x{LEVELS} {flow} with bench.py's tracers, kappa {kappa}, {n32} "
+                    f"reverse steps, {label}{'' if tl is None else f' tile {tuple(tl)}'}")
+            e_k, e_p, e_b = rev_errs(out, ref64), rev_errs(p32, ref64), rev_errs(bf, ref64)
+            ratios, control_fails, parts = {}, False, []
+            for f in e_k:
+                scale = e_k[f][0] / e_k[f][1] if e_k[f][1] else 0.0
+                floor = TRACER_REV_F32_FLOOR * float(np.finfo(np.float32).eps) * scale
+                if f == "d_dt":  # its scale: the Cauchy-Schwarz bound (TRACER_REV_F32_FLOOR)
+                    floor = TRACER_REV_F32_FLOOR * float(np.finfo(np.float32).eps) * ddt_sc
+                limit = U_GAP_FACTOR * max(e_p[f][0], floor)
+                ratios[f] = e_k[f][0] / limit
+                control_fails = control_fails or e_b[f][0] > limit
+                parts.append(f"{f} kernel {e_k[f][0]:.3e}, plain {e_p[f][0]:.3e}, floor "
+                             f"{floor:.3e}: x{ratios[f]:.3f} of the limit; bf16 {e_b[f][0]:.3e} "
+                             f"(x{e_b[f][0] / limit:.1f})")
+                if not e_k[f][0] <= limit:
+                    raise AssertionError(f"{what}: {f} {e_k[f][0]:.3e} from the f64 reverse, "
+                                         f"limit {limit:.3e}")
+            log(f"[16] {what}: distance from an f64 reverse of the same f32 states: "
+                + "; ".join(parts))
+            if not control_fails:
+                raise AssertionError(f"{what}: the bf16 control passes")
+            gaps[label, key] = ratios
+            max_abs_err[label, key] = max(e for e, _ in rev_errs(out, p32).values())
+        del stack, kt, end, ref64, p32, bf, st
+        torch.cuda.empty_cache()
+
+    # the two-tracer gradients from to_struct, timed beside the tracer-free
+    def grad_tr(route, s, sm, n_steps, **kw):
+        leaves = [getattr(s, f).clone().requires_grad_(True) for f in tfields]
+        dt = torch.tensor(DT, dtype=torch.float32, device=s.ssh.device, requires_grad=True)
+        out = route(StructState(*leaves), sm, dt, n_steps, **kw)
+        loss = (out.ssh ** 2).sum() + (out.tracers ** 2).sum()
+        return out, torch.autograd.grad(loss, leaves + [dt])
+
+    times, launches, tracer_states = {}, {}, {}
+    for label, case, n, route, n_steps, kappa, want_arm in (
+            ("64 auto", igw_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, BENCH_TRACER_KAPPA,
+             "adjoint_step"),
+            ("256 tiled", igw_case, LARGE_N, tiled_rollout_diff, LARGE_ADJ_STEPS,
+             BENCH_TRACER_KAPPA, "tiled_adjoint"),
+            ("256 fused", igw_case, LARGE_N, fused_rollout_diff, LARGE_ADJ_STEPS,
+             BENCH_TRACER_KAPPA, "adjoint_step"),
+            ("channel 64 auto", kelvin_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, 5.0,
+             "adjoint_step")):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        if horz.n_cells not in tracer_states:
+            tracer_states[horz.n_cells] = bench_tracers(horz, LEVELS, np.float32)
+        ptr = mt.PrognosticVars(prog.ssh, prog.layer_thickness, prog.normal_velocity,
+                                tracers=tracer_states[horz.n_cells])
+        kw = dict(tracer_kappa=kappa, tracer_upwind=BENCH_TRACER_UPWIND)
+        zero_counts()
+        t0 = time.perf_counter()
+        out, grads = grad_tr(route, model.to_struct(ptr), sm, n_steps, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        st_w = model.to_struct(ptr)
+        state_bytes = sum(getattr(st_w, f).numel() * 4 for f in tfields)
+        # q = 1 on both routes: groups of adjoint_plan's over n_steps slots
+        group = adjoint_plan(n_steps, state_bytes, math.inf)
+        n_groups = -(-n_steps // group)
+        want = {"fe_step": (2 * n_steps - n_groups,) * 2, want_arm: (n_steps, n_steps)}
+        log(f"[16] main path: grad of sum ssh^2 + sum T^2 through {route.__name__}, "
+            f"{n}^2x{LEVELS} f32 {'channel' if case is kelvin_case else 'IGW'} with bench.py's "
+            f"two tracers (kappa {kappa}, upwind 1), {n_steps} steps, groups of {group}, from "
+            f"to_struct: {wall:.3f} s wall [{gpu}]; launches {c} (want {want}, all tracer "
+            f"launches)")
+        if any(c[m] != want.get(m, (0, 0)) for m in c):
+            raise AssertionError(f"tracer grad {label}: launch counts {c} != {want}")
+        if not all(bool(torch.isfinite(x).all()) for x in grads) or tuple(
+                grads[3].shape) != tuple(st_w.tracers.shape):
+            raise AssertionError(f"tracer grad {label}: not finite or of the wrong shape")
+        launches[label] = c[want_arm][1], c["fe_step"][1]
+        bare = StructState(st_w.ssh, st_w.layer_thickness, st_w.normal_velocity)
+        times[label] = {
+            "tracer-free": cuda_times(lambda: grad_sum_ssh2(route, bare, sm, n_steps), REPS),
+            "tracers": cuda_times(lambda: grad_tr(route, st_w, sm, n_steps, **kw), REPS)}
+        med_t, med_0 = (statistics.median(times[label][k]) for k in ("tracers", "tracer-free"))
+        log(f"[16] grad {label}, {n_steps} steps: with tracers "
+            f"{spread(times[label]['tracers'])}, tracer-free {spread(times[label]['tracer-free'])}"
+            f" per grad: x{med_t / med_0:.4f} [{gpu}]")
+        if label == "64 auto":
+            by_kernel, window_us = profile_by_kernel(
+                lambda: grad_tr(route, st_w, sm, n_steps, **kw),
+                ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce"))
+            log(f"[16] profiler, one two-tracer grad at 64^2 ({window_us:.0f} us by events): "
+                + profile_line(by_kernel, window_us, gpu))
+        del out, grads, st_w, bare
+        torch.cuda.empty_cache()
+
+    # each tracer arm per launch (held_us over a 40-step call) beside the
+    # tracer-free arm, its bound and the plain tracer reverse step
+    per_launch, plain_ms, bounds = {}, {}, {}
+    for n in (HEADLINE_N, LARGE_N):
+        horz, _, model, prog = igw_case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=tracer_states[horz.n_cells]))
+        stack, kt, end = stack_of(st, sm, DT, 40, BENCH_TRACER_KAPPA, BENCH_TRACER_UPWIND)
+        g = random_g(st, 20)
+        halo = reverse_halo(sm.coriolis_terms)
+        plans = {n_tr: tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, 40, halo=halo,
+                                          n_tracers=n_tr)[:2] for n_tr in (0, 2)}
+        plan = plans[2]
+        for label in ("adjoint_step", "tiled_adjoint"):
+            for arm, tracers in (("tracers", True), ("tracer-free", False)):
+                tl = None if label == "adjoint_step" else plans[2 if tracers else 0]
+                run, _ = rev_runner(stack, kt, end, g, sm, DT, 40, tl, tracers)
+                per_launch[label, n, arm] = held_us(run, 40, REPS)
+        s1 = StructState(*(x[0] for x in stack), fused_model.tracer_unplanes(kt.planes[0]))
+        plain_ms[n] = [t * 1e3 for t in cuda_times(
+            lambda: structured_adjoint_step(s1, g, sm, DT, tracer_upwind=BENCH_TRACER_UPWIND),
+            REPS)]
+        dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+        bounds[n] = step_bound("adjoint_step", *dims, n_tracers=2)
+        b0 = step_bound("adjoint_step", *dims)[0]
+        for label in ("adjoint_step", "tiled_adjoint"):
+            t_tr = statistics.median(per_launch[label, n, "tracers"])
+            t_0 = statistics.median(per_launch[label, n, "tracer-free"])
+            log(f"[16] {label} per launch, {n}x{n}x{LEVELS} f32{'' if label == 'adjoint_step' else f' plans {plans}'}: "
+                f"tracer arm {spread(per_launch[label, n, 'tracers'], 1, 'us')}, tracer-free "
+                f"{spread(per_launch[label, n, 'tracer-free'], 1, 'us')}: x{t_tr / t_0:.4f}; bound "
+                f"with tracers {bounds[n][0] * 1e6:.3f} us ({bounds[n][1]}): {bounds[n][0] * 1e6 / t_tr:.4f} "
+                f"of it; tracer-free bound {b0 * 1e6:.3f} us: {b0 * 1e6 / t_0:.4f} [{gpu}]")
+        log(f"[16] plain tracer reverse step, {n}x{n}x{LEVELS} f32: "
+            f"{spread(plain_ms[n], 1, 'ms')} [{gpu}]")
+        tile_a = adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4, 2)
+        lp = adjoint_step.launch_plan(sm.host_adjoint_stencil[0], sm.ny2, sm.nx, LEVELS, tile_a, 2)
+        occ = tiled_adjoint.occupancy(*plan, 1, reverse_halo(sm.coriolis_terms), LEVELS, 2)
+        log(f"[16] {n}^2 tracer arms: adjoint_step tile {tile_a}, {lp['smem_bytes']} bytes of "
+            f"shared memory per block, {lp['clusters']} clusters, {lp['blocks_per_sm']} blocks of "
+            f"512 threads per SM; tiled_adjoint plan {plan}, {occ[0]} bytes, {occ[1]} blocks per SM")
+        del stack, kt, end, st
+        torch.cuda.empty_cache()
+
+    med = statistics.median
+
+    def entry(name, src, replaces, n_launch, err, n, extra):
+        b, by = bounds[n]
+        return {"name": name, "route": "cuda", "source": f"mpas_ocean_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": n_launch, "max_abs_err": err,
+                "ms": med(per_launch[name.split()[0], n, "tracers"]) / 1e3,
+                "plain_ms": med(plain_ms[n]), "bound_ms": b * 1e3, "bound_by": by,
+                "library_ms": None, **extra}
+
+    return [
+        entry("adjoint_step (tracer arm)", "adjoint_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:1480 (gt_ref / gt_out :1521-1528, "
+              "1561, 1573, 1599-1600)", launches["64 auto"][0],
+              max_abs_err["adjoint_step", "64"], HEADLINE_N,
+              {"fe_step_tracer_launches": launches["64 auto"][1],
+               "tracer_free_ms": med(per_launch["adjoint_step", HEADLINE_N, "tracer-free"]) / 1e3,
+               "ms_256": med(per_launch["adjoint_step", LARGE_N, "tracers"]) / 1e3,
+               "tracer_free_ms_256": med(per_launch["adjoint_step", LARGE_N, "tracer-free"])
+               / 1e3, "bound_ms_256": bounds[LARGE_N][0] * 1e3,
+               "plain_ms_256": med(plain_ms[LARGE_N]),
+               "grad_s_64": med(times["64 auto"]["tracers"]),
+               "grad_s_64_tracer_free": med(times["64 auto"]["tracer-free"]),
+               "grad_s_64_channel": med(times["channel 64 auto"]["tracers"]),
+               "grad_s_256_fused": med(times["256 fused"]["tracers"]),
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "adjoint_step"},
+               "max_rel_err_f64": worst["adjoint_step"], "dot_gap": dots["fused_rollout_diff"]}),
+        entry("tiled_adjoint (tracer arm)", "tiled_adjoint.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:1979 (tracer blocks :2017-2104)",
+              launches["256 tiled"][0], max_abs_err["tiled_adjoint", "256"], LARGE_N,
+              {"fe_step_tracer_launches": launches["256 tiled"][1],
+               "tracer_free_ms": med(per_launch["tiled_adjoint", LARGE_N, "tracer-free"]) / 1e3,
+               "ms_64": med(per_launch["tiled_adjoint", HEADLINE_N, "tracers"]) / 1e3,
+               "grad_s_256": med(times["256 tiled"]["tracers"]),
+               "grad_s_256_tracer_free": med(times["256 tiled"]["tracer-free"]),
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "tiled_adjoint"},
+               "max_rel_err_f64": worst["tiled_adjoint"], "dot_gap": dots["tiled_rollout_diff"]}),
+    ]
+
+
 def ptxas_report(log_text: str, kernels: tuple, arm: str | None = None) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``; with ``arm``, only those whose
@@ -3790,6 +4338,53 @@ def ptxas_report(log_text: str, kernels: tuple, arm: str | None = None) -> list:
         if keep and ("Compiling" in line or "registers" in line or "spill" in line):
             out.append(line.strip())
     return out
+
+
+def grad_256_child() -> dict:
+    """The tracer-free grad of sum(ssh_final^2) at 256x256x100 f32 over
+    LARGE_ADJ_STEPS steps through fused_rollout_diff and tiled_rollout_diff,
+    from the lattice state, in this process alone: (median, min, max)
+    seconds of REPS grads each, and each grad's profiler breakdown by
+    kernel."""
+    import numpy as np
+
+    from mpas_ocean_tpu_torch.structured import fused_rollout_diff, tiled_rollout_diff
+
+    _, _, model, prog = igw_case(LARGE_N, LEVELS, np.float32)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    out = {}
+    for route in (fused_rollout_diff, tiled_rollout_diff):
+        t = cuda_times(lambda: grad_sum_ssh2(route, st, sm, LARGE_ADJ_STEPS), REPS)
+        by_kernel, window_us = profile_by_kernel(
+            lambda: grad_sum_ssh2(route, st, sm, LARGE_ADJ_STEPS),
+            ("fe_step_kernel", "adjoint_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
+        out[route.__name__] = {"s": [statistics.median(t), min(t), max(t)],
+                               "by_kernel": by_kernel, "window_us": window_us}
+    return out
+
+
+def fresh_grad_256(gpu: str) -> dict:
+    """Runs ``grad_256_child`` in a fresh process of this script and logs
+    its times beside EARLIER_GRAD_S (the fused 256^2 grad read x1.158 of
+    its earlier time in one run, and x1.011 in the next) and its profiler
+    breakdowns. Returns the child's result."""
+    proc = subprocess.run([sys.executable, __file__, "--grad-256"], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh 256^2 grad process failed:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, key in (("fused_rollout_diff", "256 fused"), ("tiled_rollout_diff", LARGE_N)):
+        med, lo, hi = res[name]["s"]
+        log(f"[8] fresh process: grad of sum(ssh^2) through {name}, {LARGE_N}x{LARGE_N}x{LEVELS} "
+            f"f32, {LARGE_ADJ_STEPS} steps: {med:.6g} s (median of {REPS}, min {lo:.6g}, max "
+            f"{hi:.6g}); earlier {EARLIER_GRAD_S[key]} s, now x{med / EARLIER_GRAD_S[key]:.4f} "
+            f"[{gpu}]")
+        by_kernel = {k: tuple(v) for k, v in res[name]["by_kernel"].items()}
+        log(f"[8] fresh process, profiler, one grad through {name} "
+            f"({res[name]['window_us']:.0f} us by events): "
+            + profile_line(by_kernel, res[name]["window_us"], gpu))
+    return res
 
 
 def main() -> int:
@@ -3836,7 +4431,16 @@ def main() -> int:
 
     # -- 9. the card's measured peaks (kernel 5), the divisor of every bound
     # printed from here on ------------------------------------------------------
+    if "--grad-256" in sys.argv[1:]:
+        # the fresh process of fresh_grad_256: one JSON line, nothing else
+        print(json.dumps(grad_256_child()))
+        return 0
     probe_entries = peaks_phase(gpu, log_file.read_text())
+    if "--tracer-reverse-only" in sys.argv[1:]:
+        # phase 16 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": tracer_reverse_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
     if "--tracers-only" in sys.argv[1:]:
         # phase 15 alone (after the build and the peaks its bounds divide by)
         print(json.dumps({"kernels": tracer_phase(gpu, log_file.read_text())}))
@@ -4194,6 +4798,9 @@ def main() -> int:
 
     # -- 8. the tiled reverse ----------------------------------------------------
     tiled_adj_entry, adjoint_256 = tiled_adjoint_phase(gpu, log_file.read_text(), g_times)
+    fresh = fresh_grad_256(gpu)
+    tiled_adj_entry["grad_s_256_fresh_process"] = fresh["tiled_rollout_diff"]["s"][0]
+    tiled_adj_entry["grad_s_256_fused_fresh_process"] = fresh["fused_rollout_diff"]["s"][0]
 
     # -- 10. the coastal Kelvin channel forward -----------------------------------
     masked = channel_forward_phase(gpu, {"fe 64": statistics.median(k_times), **periodic_fwd})
@@ -4220,6 +4827,9 @@ def main() -> int:
 
     # -- 15. tracer transport -----------------------------------------------------
     tracer_entries = tracer_phase(gpu, log_file.read_text())
+
+    # -- 16. the tracer reverse ----------------------------------------------------
+    tracer_entries += tracer_reverse_phase(gpu, log_file.read_text())
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

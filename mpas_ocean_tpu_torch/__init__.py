@@ -22,9 +22,9 @@ the same entry points from ``StructuredModel(mesh, nx, ny,
 parent_horz=parent, keep_cells=keep)``, through the kernels' masked arms.
 Momentum forcing (``make_forcing``, ``StructuredModel.to_struct_forcing``)
 rides every entry point as ``forcing=``, through the kernels' forced arms.
-Tracers (``make_tracers``, a state's ``tracers``) ride the forward entry
-points with ``tracer_kappa=`` and ``tracer_upwind=``, through the kernels'
-tracer arms.
+Tracers (``make_tracers``, a state's ``tracers``) ride every entry point,
+the gradients among them (which return the tracers' cotangent), with
+``tracer_kappa=`` and ``tracer_upwind=``, through the kernels' tracer arms.
 """
 
 from .constants import GRAVITY

@@ -4,10 +4,12 @@
 //
 // Replaces: _adjoint_segment_kernel
 // (mpas_ocean_tpu/structured/pallas_model.py:1480), the arms with
-// nl_terms=None, n_tracers=0 and stratified=False, periodic (masks=None)
-// and masked (a coastal channel: the vjp of _step_planes with masks,
-// :1497-1501, 1545-1552), unforced and forced (the `forced` operands,
-// :1514-1520, 1545-1590: d(wind) and d(coefs) beside d(dt)). The TPU
+// nl_terms=None and stratified=False, periodic (masks=None) and masked (a
+// coastal channel: the vjp of _step_planes with masks, :1497-1501,
+// 1545-1552), unforced and forced (the `forced` operands, :1514-1520,
+// 1545-1590: d(wind) and d(coefs) beside d(dt)), without tracers and, unforced,
+// with them (the tracer cotangent gt_ref / gt_out, :1521-1528, 1561, 1573,
+// 1599-1600). The TPU
 // kernel recomputes a b-step segment in VMEM and runs an in-kernel jax.vjp of
 // _step_planes per step. CUDA has no vjp, so the transpose is written out by
 // hand here, and the recompute is the forward kernel's (fe_step.cu) filling
@@ -90,6 +92,25 @@
 // each block writes three more shares in double beside d(dt): d(r_lin),
 // d(Cd) and d(lambda), summed in the same fixed order.
 //
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; unforced;
+// the tracer-free arms keep their code) adds the transpose of the tracer
+// update (structured/adjoint.py, tracer_transpose). Each block stages its
+// level chunk of the window's 2 nT primal tracer planes after the primal
+// state's 8 and of their cotangent after the cotangent's 8, with the same
+// async copies; then, once per window, a = c gT' / h' replaces the staged
+// gT' and the h' feedback -sum_t a T' is folded into G beside the gs fold
+// (adjoint_window.cuh, fold_tracers), reading h' and T' of state j + 1 from
+// device memory (the stack's next slot, or the state after its last),
+// since recomputing them would widen the window by a ring. In the body a
+// site-level first forms the tracers' sums (tracer_adjoint: dT stored per
+// tracer, the flux cotangent per owned edge, the h cotangent's terms, the
+// share of d(dt)), which the linear transpose then adds where the JAX vjp
+// adds them; its d(dt) takes <G, tend_h> per cell, as the plain reverse
+// does, for the h' feedback makes those terms cancel. A tracer level needs
+// only its own level: no column sum and no cluster traffic more. It runs one
+// 512-thread block per SM (128 registers a thread), with the tile its
+// planner sizes for one block's shared memory.
+//
 // What bounds it: about 3 state passes per step (read the primal h and u,
 // read the cotangent, write the new one), 19.7 MB at 64x64x100 in f32, 5.9
 // us at 3.35 TB/s. Measured (f32, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
@@ -123,13 +144,17 @@ struct AdjArgs {
                      // three more kinds n_shares apart
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   T* dwind;           // the forced arm's d(wind) (6, ny2, nx), added to
+  AdjTracers<T> at;   // the tracer arm's operands; tr null otherwise
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
   long long n_shares;
 };
 
-template <typename T, bool kMasked, bool kForced>
-__global__ void __launch_bounds__(kStepThreads, 2)
+// One block per SM for the tracer arm: at two (64 registers a thread) its
+// f32 body spilled 388-408 bytes a thread, more than L1 holds beside two
+// windows, and took 5.3x the tracer-free arm per launch at 256^2 (PERF.md).
+template <typename T, bool kMasked, bool kForced, bool kTracers>
+__global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     adjoint_step_kernel(const AdjArgs<T> a, const AdjTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -144,10 +169,12 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   const int K = a.K;
   const int core = a.rt * a.ct;
 
+  // the tracer arm's planes follow the state's, in the primal and the cotangent
+  const int n_pl = kTracers ? 8 + 2 * a.at.n : 8;
   double* red = reinterpret_cast<double*>(smem_raw);  // [kRedDoubles]
-  T* prim = reinterpret_cast<T*>(red + kRedDoubles);  // [8][W][kc]: h p0, h p1, u c0..c5
-  T* cot = prim + 8 * pk;                             // [8][W][kc]: G p0, G p1, gu c0..c5
-  T* ssh_s = cot + 8 * pk;                            // [2][W]
+  T* prim = reinterpret_cast<T*>(red + kRedDoubles);  // [n_pl][W][kc]: h p0, h p1, u c0..c5, T
+  T* cot = prim + n_pl * pk;                          // [n_pl][W][kc]: G p0, G p1, gu c0..c5, a
+  T* ssh_s = cot + n_pl * pk;                         // [2][W]
   T* gs_s = ssh_s + 2 * W;                            // [2][W]
   T* f_s = gs_s + 2 * W;                              // [6][W]
   T* recv = f_s + 6 * W;  // [n_ranks][2][core]: rank 0's are read
@@ -172,12 +199,22 @@ __global__ void __launch_bounds__(kStepThreads, 2)
              plane);
   if (kMasked) load_live(live_s, gsite, a.live, W);
   if (kForced) load_forcing(fsm, gsite, a.fc, W, plane, rank);
+  if (kTracers) {
+    load_tracers(prim + 8 * pk, gsite, a.at.tr, 2 * a.at.n, W, a.kc_log2, a.vec_log2, k0, kr,
+                 K, plane);
+    load_tracers(cot + 8 * pk, gsite, a.at.gtr, 2 * a.at.n, W, a.kc_log2, a.vec_log2, k0, kr,
+                 K, plane);
+  }
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
   fold_ssh(cot, gs_s, W, Wi, 0, 0, a.rt + 2 * a.hm, Wi, kc, a.kc_log2, kr);
   if (kMasked) fold_live(cot + 2 * pk, live_s, W, kc, kr);
   __syncthreads();
+  if (kTracers) {
+    fold_tracers(cot, gsite, a.at, W, kc, a.kc_log2, k0, kr, K, plane);
+    __syncthreads();
+  }
   cluster_wait();
 
   const T dt_div = a.dt * a.s_div;
@@ -212,11 +249,24 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       grad[ch] = (ssh_s[s + tp.nb[ch]] - ssh_s[(ch & 1) * W + s]) * a.inv_dc;
       fo[ch] = f_s[ch * W + s];
     }
+    // the masked tracer arm's live bits of the site's edges and incoming edges
+    const unsigned live = kTracers && kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
+    const unsigned inc_live = kTracers && kMasked ? adj_incoming_live(live_s, s, tp) : 0u;
     T acc0 = T(0), acc1 = T(0);
     for (int kl = lane; kl < kc; kl += G) {
       if (!valid || kl >= kr) continue;
       const T* P = prim + s * kc + kl;
       const T* C = cot + s * kc + kl;
+      // the tracer arm's sums, which the transpose below adds, and its
+      // per-cell d(dt) terms, which replace the per-edge <G, tend_h>
+      T trF[6], trX[2], trY[2];
+      double trdd = 0.0;
+      if (kTracers)
+        tracer_adjoint<T, kMasked>(P, C, pk, tp, a.at, live, inc_live, dt_div, a.s_div,
+                                   a.inv_dc, trF, trX, trY, &trdd, [&](int i, T v) {
+                                     a.at.dtr[(static_cast<size_t>(i) * plane + g) * K + k0 +
+                                              kl] = v;
+                                   });
       // every source loaded once; the stores come last, so that no store
       // sits between two loads of a value
       T gu[hex_adj::kGu], Gv[hex_adj::kG], h[hex_adj::kH], u[hex_adj::kU];
@@ -240,7 +290,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
         for (int f = 0; f < 3; ++f) {
           const int ch = f * 2 + p;
           const T dG = Gv[hex::nb_h(ch)] - Gc;
-          const T gflux = dt_div * dG;
+          const T gflux = kTracers ? dt_div * dG + trF[ch] : dt_div * dG;
           const T he = T(0.5) * (h[hex::nb_h(ch)] + hc);
           T ct = T(0);
 #pragma unroll
@@ -257,12 +307,13 @@ __global__ void __launch_bounds__(kStepThreads, 2)
             rayl = fma(static_cast<double>(gue), static_cast<double>(ue), rayl);
           }
           flux += ue * gflux;
-          part += ue * (a.s_div * dG * he + fct) - grav * grad[ch] * gue;
+          part += kTracers ? ue * fct - grav * grad[ch] * gue
+                           : ue * (a.s_div * dG * he + fct) - grav * grad[ch] * gue;
         }
 #pragma unroll
         for (int x = 3 * p; x < 3 * p + 3; ++x)
           flux += u[hex::inc_u(x)] * (dt_div * (Gc - Gv[hex::inc_self_h(x)]));
-        dh[p] = Gc + T(0.5) * flux;
+        dh[p] = kTracers ? Gc + T(0.5) * (flux + trX[p]) + trY[p] : Gc + T(0.5) * flux;
         S[p] = (gu[hex::self_u(p)] + gu[hex::self_u(2 + p)] + gu[hex::self_u(4 + p)]) -
                (gu[hex::inc_u(3 * p)] + gu[hex::inc_u(3 * p + 1)] + gu[hex::inc_u(3 * p + 2)]);
       }
@@ -275,6 +326,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       acc0 += S[0];
       acc1 += S[1];
       share += static_cast<double>(part);
+      if (kTracers) share += trdd;
       if (kForced) s_rayl += rayl;
     }
     acc0 = group_sum(acc0, G);
@@ -337,11 +389,11 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   }
 }
 
-template <typename T, bool kMasked, bool kForced>
+template <typename T, bool kMasked, bool kForced, bool kTracers>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(adjoint_step_kernel<T, kMasked, kForced>,
+  const cudaError_t e = cudaFuncSetAttribute(adjoint_step_kernel<T, kMasked, kForced, kTracers>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              max_smem);
   done = e == cudaSuccess;
@@ -351,14 +403,16 @@ int prepare(int max_smem) {
 // The warps' d(dt) sums, a window's primal and cotangent chunks, its ssh,
 // gs and f_edge and sites, the ranks' partial sums, and the masked arm's
 // live bits, reserved by the periodic arm too so that one plan serves both;
-// the forced arm's winds and packed levels beyond (kernels/adjoint_step.
+// the forced arm's winds and packed levels beyond; the tracer arm's chunks
+// of n_tr tracers' primal and cotangent planes (kernels/adjoint_step.
 // smem_bytes mirrors this).
 size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize,
-                  bool forced) {
+                  bool forced, int n_tr) {
   return sizeof(double) * kRedDoubles + step_smem_bytes(sites, kc, 2, kPlanes, itemsize) +
          itemsize * static_cast<size_t>(n_ranks) * 2 * core +
          sizeof(int) * static_cast<size_t>(sites) +
-         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0);
+         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0) +
+         itemsize * static_cast<size_t>(sites) * 2 * 2 * n_tr * kc;
 }
 
 // One call's launch set-up: the plan, the resolved stencil, the shared memory.
@@ -372,12 +426,16 @@ struct AdjPlan {
 
 template <typename T>
 int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const ForcingArgs<T>& fc,
-              T* dwind, const int* table, const double* weights,
+              T* dwind, const AdjTracers<T>& at, const int* table, const double* weights,
               double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,
               int n_terms, int rt, int ct, bool vec) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || rt > ny2 || ct > nx) return cudaErrorInvalidValue;
+  // the tracer arm: unforced, at least one tracer, the cell mask with the live bits
+  if (at.tr != nullptr &&
+      (fc.wind != nullptr || at.n < 1 || (live == nullptr) != (at.cmask == nullptr)))
+    return cudaErrorInvalidValue;
   int hm = 0, hi = 0;
   adjoint_reach(table, &hm, &hi);
   const int kc = step_chunk(k);
@@ -386,23 +444,25 @@ int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const ForcingArg
   if (!resolve_adjoint_taps<T>(&pl->tp, table, weights, Wi, W, kc)) return kNotHexTable;
   int e = opt_in_smem(&pl->max_smem);
   if (e != 0) return e;
-  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T), fc.wind != nullptr);
+  pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T), fc.wind != nullptr,
+                        at.tr != nullptr ? at.n : 0);
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
   pl->a = AdjArgs<T>{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, f_edge, live,
-                     nullptr, nullptr, nullptr, nullptr, fc, dwind, T(dt), T(inv_dc), T(s_div),
+                     nullptr, nullptr, nullptr, nullptr, fc, dwind, at, T(dt), T(inv_dc), T(s_div),
                      ny2, nx, k, rt, ct, hm, hi, log2_exact(kc),
                      vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti,
                      static_cast<long long>(n_steps) * pl->n_tiles * pl->n_ranks};
   return 0;
 }
 
-template <typename T, bool kMasked, bool kForced>
+template <typename T, bool kMasked, bool kForced, bool kTracers = false>
 int launch_arm(const AdjPlan<T>& pl, cudaStream_t stream) {
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = step_config(pl.n_ranks, pl.n_tiles, pl.smem, stream, attr);
-  cudaError_t le = cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T, kMasked, kForced>, pl.a, pl.tp);
+  cudaError_t le = cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T, kMasked, kForced, kTracers>,
+                                      pl.a, pl.tp);
   if (le == cudaSuccess) le = cudaGetLastError();
   return static_cast<int>(le);
 }
@@ -414,36 +474,49 @@ int launch_arm(const AdjPlan<T>& pl, cudaStream_t stream) {
 // as it is. `part` holds n_steps * tiles * ranks doubles (kShares times as
 // many for the forced arm); d(dt) of the n_steps steps is added to ddt[0],
 // and the forced arm's d(wind) to dwind and d(r_lin, Cd, lambda) to
-// dcoef[0 .. 2].
+// dcoef[0 .. 2]. The tracer arm (at.tr the tracer stack (n, 2 nT, ny2, nx,
+// K)) takes its cotangent in at.gtr and out in gtr_out through gtr_tmp
+// alike, and reads h' and T' of step j from slot j + 1, and for the last
+// step from h_end and tr_end.
 template <typename T>
 int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, T* dwind,
-                    double* dcoef, const int* table, const double* weights, const T* ssh_st,
+                    double* dcoef, AdjTracers<T> at, T* gtr_out, T* gtr_tmp, const T* h_end,
+                    const T* tr_end, const int* table, const double* weights, const T* ssh_st,
                     const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                     const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
                     T* gu_tmp, double* part, double* ddt, double dt, double inv_dc,
                     double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
                     int ct, cudaStream_t stream) {
   const int kc = step_chunk(k);
+  const bool tracers = at.tr != nullptr;
   const bool vec = vector_loads(k, kc, sizeof(T), h_st, u_st) &&
                    vector_loads(k, kc, sizeof(T), gh_in, gu_in) &&
                    vector_loads(k, kc, sizeof(T), gh_out, gu_out) &&
-                   vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp);
+                   vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp) &&
+                   (!tracers || (vector_loads(k, kc, sizeof(T), at.tr, at.gtr) &&
+                                 vector_loads(k, kc, sizeof(T), gtr_out, gtr_tmp)));
   AdjPlan<T> pl;
-  int err = make_plan(&pl, f_edge, live, fc, dwind, table, weights, dt, inv_dc, s_div, ny2,
+  int err = make_plan(&pl, f_edge, live, fc, dwind, at, table, weights, dt, inv_dc, s_div, ny2,
                       nx, k, n_steps, n_terms, rt, ct, vec);
   if (err != 0) return err;
   const bool masked = live != nullptr, forced = fc.wind != nullptr;
-  err = masked ? (forced ? prepare<T, true, true>(pl.max_smem)
-                         : prepare<T, true, false>(pl.max_smem))
-               : (forced ? prepare<T, false, true>(pl.max_smem)
-                         : prepare<T, false, false>(pl.max_smem));
+  if (tracers)
+    err = masked ? prepare<T, true, false, true>(pl.max_smem)
+                 : prepare<T, false, false, true>(pl.max_smem);
+  else
+    err = masked ? (forced ? prepare<T, true, true, false>(pl.max_smem)
+                           : prepare<T, true, false, false>(pl.max_smem))
+                 : (forced ? prepare<T, false, true, false>(pl.max_smem)
+                           : prepare<T, false, false, false>(pl.max_smem));
   if (err != 0) return err;
-  const auto launch = masked ? (forced ? launch_arm<T, true, true> : launch_arm<T, true, false>)
-                             : (forced ? launch_arm<T, false, true> : launch_arm<T, false, false>);
+  const auto launch =
+      tracers ? (masked ? launch_arm<T, true, false, true> : launch_arm<T, false, false, true>)
+      : masked ? (forced ? launch_arm<T, true, true> : launch_arm<T, true, false>)
+               : (forced ? launch_arm<T, false, true> : launch_arm<T, false, false>);
   const size_t cells = 2ULL * ny2 * nx;
-  const size_t hs = cells * k, us = 3 * cells * k;
+  const size_t hs = cells * k, us = 3 * cells * k, trs = tracers ? at.n * hs : 0;
   const size_t shares = static_cast<size_t>(pl.n_tiles) * pl.n_ranks;
-  const T *gs = gs_in, *gh = gh_in, *gu = gu_in;
+  const T *gs = gs_in, *gh = gh_in, *gu = gu_in, *gt = at.gtr;
   for (int s = 0; s < n_steps; ++s) {
     const size_t j = n_steps - 1 - s;
     const bool to_out = ((n_steps - 1 - s) & 1) == 0;
@@ -454,6 +527,14 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
     a.dh = to_out ? gh_out : gh_tmp;
     a.du = to_out ? gu_out : gu_tmp;
     a.ddt_part = part + s * shares;
+    if (tracers) {
+      const bool last = static_cast<int>(j) + 1 == n_steps;
+      a.at.tr = at.tr + j * trs, a.at.gtr = gt;
+      a.at.h_next = last ? h_end : h_st + (j + 1) * hs;
+      a.at.tr_next = last ? tr_end : at.tr + (j + 1) * trs;
+      a.at.dtr = to_out ? gtr_out : gtr_tmp;
+      gt = a.at.dtr;
+    }
     if ((err = launch(pl, stream)) != 0) return err;
     gs = a.ds, gh = a.dh, gu = a.du;
   }
@@ -470,41 +551,59 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
 // a null `live` (the wall mask's live bits, one int per site) runs the
 // periodic arm, any other the masked one; a null `wind` the unforced arm,
 // any other the forced one with `lvl`, the coefficients, and the
-// accumulators `dwind` (6, ny2, nx) and `dcoef` (3 doubles).
+// accumulators `dwind` (6, ny2, nx) and `dcoef` (3 doubles); a null `tr_st`
+// the tracer-free arm, any other the tracer arm with n_tr tracers (the
+// tracer stack `tr_st` (n, 2 n_tr, ny2, nx, k), the cotangent planes
+// `gtr_in`, `gtr_out`, `gtr_tmp`, the state after the stack's last slot
+// `h_end`, `tr_end`, the live-cell mask `cmask` (non-null exactly when `live`
+// is), kappa and upwind).
 #define MOT_ADJOINT_ENTRY(T, SUFFIX)                                                          \
   extern "C" int mot_adjoint_rollout_##SUFFIX(                                                \
       const T* f_edge, const int* live, const T* wind, const int* lvl, T* dwind,              \
       double* dcoef, const int* table, const double* weights, const T* ssh_st,                \
       const T* h_st, const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in,           \
       T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part,         \
-      double* ddt, double dt, double inv_dc, double s_div, double dlin, double dquad,         \
-      double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps,        \
-      int n_terms, int rt, int ct, void* stream) {                                            \
+      double* ddt, const T* tr_st, const T* gtr_in, T* gtr_out, T* gtr_tmp, const T* h_end,  \
+      const T* tr_end, const T* cmask, double dt, double inv_dc, double s_div, double dlin,   \
+      double dquad, double rayl, double kappa, double upwind, int lvl_ranks, int wind_ranks,  \
+      int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, int n_tr,             \
+      void* stream) {                                                                         \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
-    return adjoint_rollout<T>(f_edge, live, fc, dwind, dcoef, table, weights, ssh_st, h_st,   \
-                              u_st, gs_in, gh_in, gu_in, gs_out, gh_out, gu_out, gs_tmp,      \
-                              gh_tmp, gu_tmp, part, ddt, dt, inv_dc, s_div, ny2, nx, k,       \
-                              n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));   \
+    const AdjTracers<T> at{tr_st, gtr_in, nullptr, nullptr, cmask, nullptr, T(kappa),         \
+                           T(0.5 * upwind), n_tr};                                            \
+    return adjoint_rollout<T>(f_edge, live, fc, dwind, dcoef, at, gtr_out, gtr_tmp, h_end,    \
+                              tr_end, table, weights, ssh_st, h_st, u_st, gs_in, gh_in,       \
+                              gu_in, gs_out, gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part,    \
+                              ddt, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct,   \
+                              static_cast<cudaStream_t>(stream));                             \
   }
 
 MOT_ADJOINT_ENTRY(float, f32)
 MOT_ADJOINT_ENTRY(double, f64)
 
 // The launch adjoint_step makes for an rt x ct tile of an ny2 x nx x k f32
-// lattice with the transposed stencil `table` (a host copy): out[0] the
-// clusters (one per tile), out[1] the blocks per SM, out[2] one block's
-// dynamic shared memory in bytes. Returns 0, kNotHexTable or the CUDA error.
+// lattice with the transposed stencil `table` (a host copy), with n_tr
+// tracers (the periodic tracer arm) or none: out[0] the clusters (one per
+// tile), out[1] the blocks per SM, out[2] one block's dynamic shared memory
+// in bytes. Returns 0, kNotHexTable or the CUDA error.
 extern "C" int mot_adjoint_plan(const int* table, int ny2, int nx, int k, int rt, int ct,
-                                int* out) {
+                                int n_tr, int* out) {
   double weights[kMaxTerms] = {};
   AdjPlan<float> pl;
-  int e = make_plan<float>(&pl, nullptr, nullptr, ForcingArgs<float>{}, nullptr, table, weights,
-                           1.0, 1.0, 1.0, ny2, nx, k, 1, table[0], rt, ct, true);
+  static const float dummy = 0.0f;
+  AdjTracers<float> at{};
+  if (n_tr > 0) at.tr = &dummy, at.n = n_tr;
+  int e = make_plan<float>(&pl, nullptr, nullptr, ForcingArgs<float>{}, nullptr, at, table,
+                           weights, 1.0, 1.0, 1.0, ny2, nx, k, 1, table[0], rt, ct, true);
   if (e != 0) return e;
-  if ((e = prepare<float, false, false>(pl.max_smem)) != 0) return e;
+  auto kernel = n_tr > 0 ? adjoint_step_kernel<float, false, false, true>
+                         : adjoint_step_kernel<float, false, false, false>;
+  e = n_tr > 0 ? prepare<float, false, false, true>(pl.max_smem)
+               : prepare<float, false, false, false>(pl.max_smem);
+  if (e != 0) return e;
   out[0] = pl.n_tiles;
   out[2] = static_cast<int>(pl.smem);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], adjoint_step_kernel<float, false, false>, kStepThreads, pl.smem));
+      &out[1], kernel, kStepThreads, pl.smem));
 }

@@ -282,6 +282,203 @@ __device__ __forceinline__ void wind_drag_adjoint_pass(
   }
 }
 
+// The reverse tracer arms' operands (kTracers, chosen by a non-null `tr`;
+// structured/fused_model.kernel_tracers' planes t * 2 + p, (2 nT, ny2, nx,
+// K), laid out as h): the primal tracers of state j, their cotangent at
+// j + 1, the h and tracers of state j + 1 (the stack's next slot, or the
+// state after the stack's last: what the forward kernel computed, bit for
+// bit), on a channel the live-cell mask (2, ny2, nx) in T, the cotangent at
+// j (out), and kappa and upwind / 2 rounded once to T on the host.
+//
+// Why h' and T' are read and not recomputed: the transpose at a site needs
+// a = c gT' / h' and T' at its 10 G sources (hex_adj::kG, one ring), and
+// recomputing h' and T' there reads h, u and T two rings out, a window one
+// row wider per side (8 rows for the (4, x) tiles, not 6) and a second
+// forward tracer pass. Reading them costs 2 + 2 nT K-planes per site pair
+// from device memory, 6 of 42 with two tracers (PERF.md).
+template <typename T>
+struct AdjTracers {
+  const T* tr;       // primal planes of state j; null: the tracer-free arm
+  const T* gtr;      // cotangent planes at j + 1
+  const T* h_next;   // h of state j + 1
+  const T* tr_next;  // tracer planes of state j + 1
+  const T* cmask;    // the masked arm's live-cell mask; null otherwise
+  T* dtr;            // cotangent planes at j
+  T kappa, half_up;
+  int n;             // tracers
+};
+
+// The tracer transpose's first half, once per window after the loads: for
+// each site, parity and level of the chunk, a = c gT' / h' (0 on a culled
+// cell) in place of each staged gT', and the h' feedback -sum_t a T' folded
+// into G = gh + gs (cot's planes 0 and 1), where the continuity transpose
+// reads it at the neighbours (structured/adjoint.py, tracer_transpose).
+// `cot` is the window's cotangent chunk, its tracer planes after the state's
+// 8; h' and T' are read from device memory, a level per thread, neighbouring
+// threads on neighbouring levels.
+template <typename T>
+__device__ __forceinline__ void fold_tracers(T* cot, const int* gsite, const AdjTracers<T>& at,
+                                             int W, int kc, int kc_log2, int k0, int kr, int K,
+                                             int plane) {
+  const int pk = W * kc;
+  const int n = (2 * W) << kc_log2;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int kl = e & (kc - 1);
+    const int q = e >> kc_log2;
+    if (kl >= kr) continue;
+    const int p = q >= W ? 1 : 0, s = q - p * W;
+    const int g = p * plane + gsite[s];
+    const T hn = at.h_next[static_cast<size_t>(g) * K + k0 + kl];
+    const bool live = at.cmask == nullptr || at.cmask[g] > T(0);
+    T corr = T(0);
+    for (int t = 0; t < at.n; ++t) {
+      T* ap = cot + (8 + 2 * t + p) * pk + s * kc + kl;
+      const T a = live ? *ap / hn : T(0);
+      *ap = a;
+      corr += a * at.tr_next[(static_cast<size_t>(2 * t * plane) + g) * K + k0 + kl];
+    }
+    cot[(p * W + s) * kc + kl] -= corr;
+  }
+}
+
+// The live bits of a site's six incoming edges (bit x = 3p + j), each its
+// owner's bit of its channel, from the window's live bits: the masked
+// tracer arm's, read once per site.
+template <typename T>
+__device__ __forceinline__ unsigned adj_incoming_live(const int* live_s, int s,
+                                                      const AdjTaps<T>& tp) {
+  unsigned bits = 0u;
+#pragma unroll
+  for (int x = 0; x < 6; ++x)
+    bits |= ((static_cast<unsigned>(live_s[s + tp.inc_off[x]]) >> tp.inc_ch[x]) & 1u) << x;
+  return bits;
+}
+
+// The transpose of one edge's tracer flux g = F te - kappa h_e (T_n - T_o) /
+// dc (step_window.cuh, tracer_edge_flux) for dg = dt s_div (a_n - a_o), the
+// sign of F held fixed: dF = dg te, the cotangents of T_n and T_o, the
+// h_edge cotangent of the kappa term (on a live edge), and g itself (for
+// d(dt)).
+template <typename T>
+__device__ __forceinline__ void tracer_edge_adjoint(T F, T he, T tn, T to, T dg, bool live,
+                                                    const AdjTracers<T>& at, T inv_dc, T* dF,
+                                                    T* dtn, T* dto, T* dhe, T* g) {
+  T te = T(0.5) * (tn + to), wn = T(0.5), wo = T(0.5);
+  if (at.half_up != T(0)) {
+    const T sg = static_cast<T>((F > T(0)) - (F < T(0)));
+    te = te - at.half_up * sg * (tn - to);
+    wn = wn - at.half_up * sg;
+    wo = wo + at.half_up * sg;
+  }
+  const T dte = dg * F;
+  *dF = dg * te;
+  *dtn = dte * wn;
+  *dto = dte * wo;
+  *g = F * te;
+  *dhe = T(0);
+  if (at.kappa != T(0) && live) {
+    const T grad = (tn - to) * inv_dc;
+    const T kd = at.kappa * he * inv_dc * dg;
+    *dtn = *dtn - kd;
+    *dto = *dto + kd;
+    *dhe = -dg * at.kappa * grad;
+    *g = *g - at.kappa * he * grad;
+  }
+}
+
+// The tracer transpose's second half at one (site, level), before the
+// linear transpose that reads its sums: P and C point at the site-level in
+// the window's primal and cotangent chunks (planes of pk values; the
+// tracers' after the state's 8, the cotangent's holding a from
+// fold_tracers and G with the h' feedback). For every tracer it stores dT =
+// a h plus the edge terms through `store(plane, v)`, and it returns per
+// owned channel the flux cotangent the tracers add (trF, joined to the
+// continuity's), per parity the incoming edges' u dF and every edge's
+// kappa h_edge cotangent (trX, joined to the flux sum of dh, halved there)
+// and sum_t a T (trY, added to dh), and in *dd the d(dt) terms that the
+// h' feedback makes cancel, <G, tend_h> and sum_t <a, tend_T>, per cell as
+// the plain reverse forms them (a cell's G or a times its divergence, in
+// the forward's order), each term in T and their sum in double. `live` and
+// `inc_live` are the site's and its incoming edges' live bits (masked
+// arm).
+template <typename T, bool kMasked, typename Store>
+__device__ __forceinline__ void tracer_adjoint(const T* P, const T* C, int pk,
+                                               const AdjTaps<T>& tp, const AdjTracers<T>& at,
+                                               unsigned live, unsigned inc_live, T dt_div,
+                                               T s_div, T inv_dc, T* trF, T* trX, T* trY,
+                                               double* dd, Store store) {
+  T h[hex_adj::kG], u[hex_adj::kU];
+#pragma unroll
+  for (int x = 0; x < hex_adj::kG; ++x) h[x] = P[tp.hs[x]];
+#pragma unroll
+  for (int x = 0; x < hex_adj::kU; ++x) u[x] = P[tp.us[x]];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) trF[i] = T(0);
+  trX[0] = trX[1] = trY[0] = trY[1] = T(0);
+  *dd = 0.0;
+  // <G, tend_h>: tend_h = -s_div (the owned edges' F - the incoming ones')
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int o = hex::self_h(p);
+    T total = T(0);
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      const int ch = f * 2 + p;
+      const T fl = u[hex::self_u(ch)] * (T(0.5) * (h[hex::nb_h(ch)] + h[o]));
+      total = (f == 0) ? fl : total + fl;
+    }
+#pragma unroll
+    for (int x = 3 * p; x < 3 * p + 3; ++x)
+      total = total - u[hex::inc_u(x)] * (T(0.5) * (h[hex::inc_nb_h(x)] + h[hex::inc_self_h(x)]));
+    *dd += static_cast<double>(C[tp.hs[o]] * -(total * s_div));
+  }
+  for (int t = 0; t < at.n; ++t) {
+    const T* tv = P + (8 + 2 * t) * pk;
+    const T* av = C + (8 + 2 * t) * pk;
+    T c[hex_adj::kG], a[hex_adj::kG];
+#pragma unroll
+    for (int x = 0; x < hex_adj::kG; ++x) c[x] = tv[tp.hs[x]], a[x] = av[tp.hs[x]];
+    T dT[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int o = hex::self_h(p);
+      T d = a[o] * h[o];
+      trY[p] += a[o] * c[o];
+      T total = T(0);  // the owned edges' tracer flux - the incoming ones'
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        const int ch = f * 2 + p, nb = hex::nb_h(ch);
+        const T he = T(0.5) * (h[nb] + h[o]);
+        const bool on = !kMasked || ((live >> ch) & 1u);
+        T dF, dtn, dto, dhe, g;
+        tracer_edge_adjoint(u[hex::self_u(ch)] * he, he, c[nb], c[o], dt_div * (a[nb] - a[o]),
+                            on, at, inv_dc, &dF, &dtn, &dto, &dhe, &g);
+        trF[ch] += dF;
+        trX[p] += dhe;
+        d += dto;
+        total = (f == 0) ? g : total + g;
+      }
+#pragma unroll
+      for (int x = 3 * p; x < 3 * p + 3; ++x) {
+        const int ow = hex::inc_self_h(x), nb = hex::inc_nb_h(x);
+        const T he = T(0.5) * (h[nb] + h[ow]);
+        const T ue = u[hex::inc_u(x)];
+        const bool on = !kMasked || ((inc_live >> x) & 1u);
+        T dF, dtn, dto, dhe, g;
+        tracer_edge_adjoint(ue * he, he, c[nb], c[ow], dt_div * (a[nb] - a[ow]), on, at,
+                            inv_dc, &dF, &dtn, &dto, &dhe, &g);
+        trX[p] += ue * dF + dhe;
+        d += dtn;
+        total = total - g;
+      }
+      *dd += static_cast<double>(a[o] * -(total * s_div));
+      dT[p] = d;
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) store(2 * t + p, dT[p]);
+  }
+}
+
 // This block's level chunk of (h, u) into buf [8][W][kc] and of ssh into
 // ssh_s [2][W], by async copies. Chunks are kc values apart; a copy's index
 // splits by 2^kp_log2 >= kc. With vec_log2 >= 0 (kc a power of two,

@@ -456,22 +456,29 @@ int fe_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
   return 0;
 }
 
-// n_steps steps through a stack of states: slot s + 1 = step(slot s).
+// n_steps steps through a stack of states: slot s + 1 = step(slot s); the
+// tracer arm's planes (tr.tr the tracer stack (S, 2 nT, ny2, nx, K)) alike,
+// by the launches of fe_steps, so that the rebuilt states are the forward
+// path's own bit for bit.
 template <typename T>
 int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
-             const int* table, const double* weights, T* ssh, T* h, T* u, double dt,
-             double inv_dc, double s_div, int ny2, int nx, int k, int n_steps, int n_terms,
-             int rt, int ct, cudaStream_t stream) {
+             const TracerArgs<T>& tr, const int* table, const double* weights, T* ssh, T* h,
+             T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k,
+             int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
+  const int kc = step_chunk(k);
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, live, fc, TracerArgs<T>{}, table, weights, dt, inv_dc,
-                      s_div, ny2, nx, k, n_steps, n_terms, rt, ct,
-                      vector_loads(k, step_chunk(k), sizeof(T), h, u));
+  int err = make_plan(&pl, f_edge, rts, live, fc, tr, table, weights, dt, inv_dc, s_div, ny2,
+                      nx, k, n_steps, n_terms, rt, ct,
+                      vector_loads(k, kc, sizeof(T), h, u) &&
+                          (tr.tr == nullptr || vector_loads(k, kc, sizeof(T), tr.tr, tr.tr)));
   if (err != 0) return err;
   const size_t cells = 2ULL * ny2 * nx;
-  const size_t hs = cells * k, us = 3 * cells * k;
+  const size_t hs = cells * k, us = 3 * cells * k, trs = tr.tr != nullptr ? tr.n * hs : 0;
+  T* t = const_cast<T*>(tr.tr);
   for (int s = 0; s < n_steps; ++s) {
     err = launch_step<T>(&pl, ssh + s * cells, h + s * hs, u + s * us, ssh + (s + 1) * cells,
-                         h + (s + 1) * hs, u + (s + 1) * us, stream);
+                         h + (s + 1) * hs, u + (s + 1) * us, stream,
+                         t ? t + s * trs : nullptr, t ? t + (s + 1) * trs : nullptr);
     if (err != 0) return err;
   }
   return 0;
@@ -489,7 +496,8 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
 // a null `tr_in` runs the tracer-free arm, any other the tracer arm with
 // n_tr tracers (planes (2 n_tr, ny2, nx, k) in `tr_in`, `tr_out`,
 // `tr_tmp`), the live-cell mask `cmask` (non-null exactly when `live` is),
-// kappa and upwind.
+// kappa and upwind; the stack entry's tracer arm takes the tracer stack
+// (S, 2 n_tr, ny2, nx, k) in `tr`.
 #define MOT_FE_ENTRIES(T, SUFFIX)                                                             \
   extern "C" int mot_fe_steps_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -508,14 +516,15 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
   }                                                                                           \
   extern "C" int mot_fe_stack_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
-      const int* table, const double* weights, T* ssh, T* h, T* u, double dt,                 \
-      double inv_dc, double s_div, double dlin, double dquad, double rayl, int lvl_ranks,     \
-      int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,       \
-      void* stream) {                                                                         \
+      const int* table, const double* weights, T* ssh, T* h, T* u, T* tr, const T* cmask,    \
+      double dt, double inv_dc, double s_div, double kappa, double upwind, double dlin,       \
+      double dquad, double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, int k,       \
+      int n_steps, int n_terms, int rt, int ct, int n_tr, void* stream) {                     \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
-    return fe_stack<T>(f_edge, rts, live, fc, table, weights, ssh, h, u, dt, inv_dc, s_div,   \
-                       ny2, nx, k, n_steps, n_terms, rt, ct,                                  \
+    const TracerArgs<T> trs{tr, nullptr, cmask, T(kappa), T(0.5 * upwind), n_tr, {}, {}};    \
+    return fe_stack<T>(f_edge, rts, live, fc, trs, table, weights, ssh, h, u, dt, inv_dc,     \
+                       s_div, ny2, nx, k, n_steps, n_terms, rt, ct,                           \
                        static_cast<cudaStream_t>(stream));                                    \
   }
 

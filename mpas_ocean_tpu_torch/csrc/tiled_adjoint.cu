@@ -3,11 +3,12 @@
 // NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_adjoint_kernel (mpas_ocean_tpu/structured/pallas_model.py:
-// 1979), the arms with nl_terms, tracers, cell masks and stratification off
-// (fb=False is fixed there), periodic (masks off) and masked (a coastal
-// channel: the vjp of _window_steps with masks_full, :2001-2006, 2063),
-// unforced and forced (the wind and level-index windows, whose cotangents
-// d(wind) and dscal[3:6] it returns, :2938-2941). The TPU kernel traces jax.vjp of
+// 1979), the arms with nl_terms and stratification off (fb=False is fixed
+// there), periodic (masks off) and masked (a coastal channel: the vjp of
+// _window_steps with masks_full, :2001-2006, 2063), unforced and forced (the
+// wind and level-index windows, whose cotangents d(wind) and dscal[3:6] it
+// returns, :2938-2941), without tracers and, unforced at q = 1, with them
+// (the tracer blocks and the cell mask, :2017-2104). The TPU kernel traces jax.vjp of
 // _window_steps in-kernel and emits the cotangent of the whole padded window,
 // which its caller overlap-adds (_halo_unscatter). CUDA has no vjp, so the
 // transpose is written out by hand, as in adjoint_step.cu; and it is taken in
@@ -79,6 +80,15 @@
 // steps are apart by barriers), and its blocks' shares of d(r_lin), d(Cd)
 // and d(lambda) in double beside d(dt).
 //
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; q = 1 and
+// unforced, the JAX router's only q; the tracer-free arms keep their code)
+// is adjoint_step.cu's: the tracer planes staged after the state's in the
+// primal and the cotangent chunks, a and the h' feedback folded once per
+// window from h' and T' of the superstep's end state (adjoint_window.cuh,
+// fold_tracers), and the tracer transpose's sums added in the body
+// (tracer_adjoint), one block per SM as there. A tracer state at q > 1 is
+// refused by the entry.
+//
 // What bounds it: a reverse step reads the primal state and the end
 // cotangent and writes the start cotangent, three state passes, 94 us at
 // 256x256x100 f32 at 3.35 TB/s, plus the halo re-reads. Measured (f32,
@@ -110,6 +120,7 @@ struct TiledArgs {
                      // three more kinds n_shares apart
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   T* dwind;           // the forced arm's d(wind) (6, ny2, nx), added to
+  AdjTracers<T> at;   // the tracer arm's operands (q = 1); tr null otherwise
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc, kp_log2, vec_log2, n_tiles_i;
   long long n_shares;
@@ -122,13 +133,14 @@ inline int site_planes(int q) { return 8 + 2 * q + (q > 1 ? 6 : 0); }
 
 // Dynamic shared memory of one block (kernels/tiled_adjoint.smem_bytes
 // mirrors this): the warps' d(dt) sums; q primal chunks and one cotangent
-// chunk (two at q > 1) [8][sites][kc]; the per-site planes; the ranks'
+// chunk (two at q > 1) [8][sites][kc], at q = 1 with the tracer arm's
+// 2 n_tr planes after each chunk's 8; the per-site planes; the ranks'
 // partial sums of the core for rank 0 [n_ranks][2][core]; the sites and
 // the masked arm's live bits, reserved by the periodic arm too so that one
 // plan serves both; the forced arm's winds and packed levels beyond.
 size_t smem_bytes(long long sites, int core, int kc, int q, int n_ranks, size_t itemsize,
-                  bool forced) {
-  const size_t chunks = 8 * static_cast<size_t>(q + (q > 1 ? 2 : 1)) * kc;
+                  bool forced, int n_tr) {
+  const size_t chunks = (8 * static_cast<size_t>(q + (q > 1 ? 2 : 1)) + 4 * n_tr) * kc;
   return sizeof(double) * kRedDoubles +
          itemsize * (static_cast<size_t>(sites) * (chunks + site_planes(q)) +
                      static_cast<size_t>(n_ranks) * 2 * core) +
@@ -182,10 +194,12 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster, T* part, T* d
 
 // kMulti: q > 1. The q = 1 instantiation compiles without the recompute and
 // the exchanges between steps, which cost one body for all q 11% at q = 1
-// (PERF.md). kMasked: the masked arm. kForced: the forced arm.
-template <typename T, bool kMulti, bool kMasked, bool kForced>
-__global__ void __launch_bounds__(kStepThreads, 2)
+// (PERF.md). kMasked: the masked arm. kForced: the forced arm. kTracers: the
+// tracer arm (q = 1, unforced).
+template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers>
+__global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     tiled_adjoint_kernel(const TiledArgs<T> a, const AdjTaps<T> tp, const StepTaps<T> fw) {
+  static_assert(!kTracers || (!kMulti && !kForced), "the tracer arm runs q = 1, unforced");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -200,11 +214,13 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   const int K = a.K;
   const int core = a.rt * a.ct;
   const int n_cot = kMulti ? 2 : 1;
+  // the tracer arm's planes follow the state's, in the primal and the cotangent
+  const int n_pl = kTracers ? 8 + 2 * a.at.n : 8;
 
   double* red = reinterpret_cast<double*>(smem_raw);  // [kRedDoubles]
-  T* prim = reinterpret_cast<T*>(red + kRedDoubles);  // [q][8][W][kc]
-  T* cot = prim + q * 8 * pk;                         // [n_cot][8][W][kc]: G, gu
-  T* ssh_s = cot + n_cot * 8 * pk;                    // [q][2][W]
+  T* prim = reinterpret_cast<T*>(red + kRedDoubles);  // [q][n_pl][W][kc]
+  T* cot = prim + q * n_pl * pk;                      // [n_cot][n_pl][W][kc]: G, gu, a
+  T* ssh_s = cot + n_cot * n_pl * pk;                 // [q][2][W]
   T* gs_s = ssh_s + q * 2 * W;                        // [2][W]
   T* f_s = gs_s + 2 * W;                              // [6][W]
   T* rts_s = f_s + 6 * W;                             // [2][W], q > 1
@@ -231,12 +247,22 @@ __global__ void __launch_bounds__(kStepThreads, 2)
              plane);
   if (kMasked) load_live(live_s, gsite, a.live, W);
   if (kForced) load_forcing(fsm, gsite, a.fc, W, plane, rank);
+  if (kTracers) {
+    load_tracers(prim + 8 * pk, gsite, a.at.tr, 2 * a.at.n, W, a.kp_log2, a.vec_log2, k0, kr,
+                 K, plane);
+    load_tracers(cot + 8 * pk, gsite, a.at.gtr, 2 * a.at.n, W, a.kp_log2, a.vec_log2, k0, kr,
+                 K, plane);
+  }
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
   fold_ssh(cot, gs_s, W, Wi, 0, 0, Wm, Wi, kc, a.kp_log2, kr);
   if (kMasked) fold_live(cot + 2 * pk, live_s, W, kc, kr);
   __syncthreads();
+  if (kTracers) {
+    fold_tracers(cot, gsite, a.at, W, kc, a.kp_log2, k0, kr, K, plane);
+    __syncthreads();
+  }
   cluster_wait();
 
   const T dt_div = a.dt * a.s_div;
@@ -379,6 +405,8 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       const int g = (tm * a.rt + r) * a.nx + ti * a.ct + c;  // for j = 0 (R_0 = core)
       // the cotangent j's gu is stored as m * gu for step j - 1 to read
       const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
+      // the masked tracer arm's live bits of the site's incoming edges
+      const unsigned inc_live = kTracers && kMasked ? adj_incoming_live(live_s, s, tp) : 0u;
       T grad[6], fo[6];
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) {
@@ -390,6 +418,17 @@ __global__ void __launch_bounds__(kStepThreads, 2)
         if (t >= rg.n || kl >= kr) continue;
         const T* Pl = P + s * kc + kl;
         const T* Cl = Cb + s * kc + kl;
+        // the tracer arm's sums (q = 1: j = 0, the core), which the
+        // transpose below adds, and its per-cell d(dt) terms, which replace
+        // the per-edge <G, tend_h>
+        T trF[6], trX[2], trY[2];
+        double trdd = 0.0;
+        if (kTracers)
+          tracer_adjoint<T, kMasked>(Pl, Cl, pk, tp, a.at, live, inc_live, dt_div, a.s_div,
+                                     a.inv_dc, trF, trX, trY, &trdd, [&](int i, T v) {
+                                       a.at.dtr[(static_cast<size_t>(i) * plane + g) * K + k0 +
+                                                kl] = v;
+                                     });
         T gu[hex_adj::kGu], Gv[hex_adj::kG], h[hex_adj::kH], u[hex_adj::kU];
 #pragma unroll
         for (int x = 0; x < hex_adj::kGu; ++x) gu[x] = Cl[tp.us[x]];
@@ -411,7 +450,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
           for (int f = 0; f < 3; ++f) {
             const int ch = f * 2 + p;
             const T dG = Gv[hex::nb_h(ch)] - Gc;
-            const T gflux = dt_div * dG;
+            const T gflux = kTracers ? dt_div * dG + trF[ch] : dt_div * dG;
             const T he = T(0.5) * (h[hex::nb_h(ch)] + hc);
             T ctr = T(0);
 #pragma unroll
@@ -428,12 +467,13 @@ __global__ void __launch_bounds__(kStepThreads, 2)
               rayl = fma(static_cast<double>(gue), static_cast<double>(ue), rayl);
             }
             flux += ue * gflux;
-            dd += ue * (a.s_div * dG * he + fct) - grav * grad[ch] * gue;
+            dd += kTracers ? ue * fct - grav * grad[ch] * gue
+                           : ue * (a.s_div * dG * he + fct) - grav * grad[ch] * gue;
           }
 #pragma unroll
           for (int x = 3 * p; x < 3 * p + 3; ++x)
             flux += u[hex::inc_u(x)] * (dt_div * (Gc - Gv[hex::inc_self_h(x)]));
-          dh[p] = Gc + T(0.5) * flux;
+          dh[p] = kTracers ? Gc + T(0.5) * (flux + trX[p]) + trY[p] : Gc + T(0.5) * flux;
           S[p] = (gu[hex::self_u(p)] + gu[hex::self_u(2 + p)] + gu[hex::self_u(4 + p)]) -
                  (gu[hex::inc_u(3 * p)] + gu[hex::inc_u(3 * p + 1)] + gu[hex::inc_u(3 * p + 2)]);
         }
@@ -461,6 +501,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
         acc1 += S[1];
         if (in_core) {
           share += static_cast<double>(dd);
+          if (kTracers) share += trdd;
           if (kForced) {
             s_rayl += rayl;
           }
@@ -543,19 +584,19 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 
 // The kernel's attribute, set once per instantiation: dynamic shared memory
 // up to the device's opt-in limit.
-template <typename T, bool kMulti, bool kMasked, bool kForced>
+template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
   const cudaError_t e =
-      cudaFuncSetAttribute(tiled_adjoint_kernel<T, kMulti, kMasked, kForced>,
+      cudaFuncSetAttribute(tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
 // The kernel of a plan, and its attribute: q > 1 or not, masked or not,
-// forced or not.
+// forced or not, with tracers (q = 1, unforced) or not.
 template <typename T>
 using TiledKernel = void (*)(TiledArgs<T>, AdjTaps<T>, StepTaps<T>);
 template <typename T>
@@ -563,12 +604,15 @@ struct TiledArm {
   TiledKernel<T> kernel;
   int (*prepare)(int);
 };
-template <typename T, bool kMulti, bool kMasked, bool kForced>
+template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers = false>
 constexpr TiledArm<T> arm() {
-  return {tiled_adjoint_kernel<T, kMulti, kMasked, kForced>, prepare<T, kMulti, kMasked, kForced>};
+  return {tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers>,
+          prepare<T, kMulti, kMasked, kForced, kTracers>};
 }
 template <typename T>
-TiledArm<T> arm_of(bool multi, bool masked, bool forced) {
+TiledArm<T> arm_of(bool multi, bool masked, bool forced, bool tracers) {
+  if (tracers)  // the entry checked q = 1 and unforced
+    return masked ? arm<T, false, true, false, true>() : arm<T, false, false, false, true>();
   if (multi)
     return masked ? (forced ? arm<T, true, true, true>() : arm<T, true, true, false>())
                   : (forced ? arm<T, true, false, true>() : arm<T, true, false, false>());
@@ -583,10 +627,12 @@ TiledArm<T> arm_of(bool multi, bool masked, bool forced) {
 // arm); d(dt) is added to ddt[0], and the forced arm's d(wind) to dwind and
 // d(r_lin, Cd, lambda) to dcoef[0 .. 2]. The stencils (`table`, `weights`
 // and their transposes) are host copies; kc is the chunk of levels per
-// block (kernels/tiled_adjoint.level_split).
+// block (kernels/tiled_adjoint.level_split). The tracer arm (at.tr the
+// tracer stack, q = 1) as adjoint_step.cu's adjoint_rollout.
 template <typename T>
 int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
-                  T* dwind, double* dcoef, const int* table, const double* weights,
+                  T* dwind, double* dcoef, AdjTracers<T> at, T* gtr_out, T* gtr_tmp,
+                  const T* h_end, const T* tr_end, const int* table, const double* weights,
                   const int* adj_table, const double* adj_weights, const T* ssh_st,
                   const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                   const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
@@ -598,6 +644,11 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || kc < 1 || ny2 % rt || nx % ct)
     return cudaErrorInvalidValue;
+  // the tracer arm: q = 1, unforced, at least one tracer, the cell mask with the live bits
+  const bool tracers = at.tr != nullptr;
+  if (tracers && (q != 1 || fc.wind != nullptr || at.n < 1 ||
+                  (live == nullptr) != (at.cmask == nullptr)))
+    return cudaErrorInvalidValue;
   const int n_ranks = (k + kc - 1) / kc;  // no block without levels
   if (n_ranks > kMaxCluster) return cudaErrorInvalidValue;
   const int span = 2 * q - 1;
@@ -608,25 +659,28 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
       !resolve_adjoint_taps<T>(&tp, adj_table, adj_weights, Wi, W, kc))
     return kNotHexTable;
   const bool forced = fc.wind != nullptr;
-  const size_t smem = smem_bytes(W, rt * ct, kc, q, n_ranks, sizeof(T), forced);
+  const size_t smem = smem_bytes(W, rt * ct, kc, q, n_ranks, sizeof(T), forced,
+                                 tracers ? at.n : 0);
   int max_smem = 0;
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  const TiledArm<T> arm = arm_of<T>(q > 1, live != nullptr, forced);
+  const TiledArm<T> arm = arm_of<T>(q > 1, live != nullptr, forced, tracers);
   if ((err = arm.prepare(max_smem)) != 0) return err;
   const int kp_log2 = log2_exact(kc);
   const bool vec = (1 << kp_log2) == kc && vector_loads(k, kc, sizeof(T), h_st, u_st) &&
                    vector_loads(k, kc, sizeof(T), gh_in, gu_in) &&
                    vector_loads(k, kc, sizeof(T), gh_out, gu_out) &&
-                   vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp);
+                   vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp) &&
+                   (!tracers || (vector_loads(k, kc, sizeof(T), at.tr, at.gtr) &&
+                                 vector_loads(k, kc, sizeof(T), gtr_out, gtr_tmp)));
   const int n_tiles = (ny2 / rt) * (nx / ct);
   const size_t cells = 2ULL * ny2 * nx;
-  const size_t hs = cells * k, us = 3 * cells * k;
+  const size_t hs = cells * k, us = 3 * cells * k, trs = tracers ? at.n * hs : 0;
   const long long n_shares = static_cast<long long>(n_ss) * n_tiles * n_ranks;
   TiledArgs<T> a{nullptr, nullptr, nullptr, gs_in, gh_in, gu_in, f_edge, rts, live, nullptr,
-                 nullptr, nullptr, nullptr, fc, dwind, T(dt), T(inv_dc), T(s_div), ny2, nx, k,
-                 rt, ct, q, hm, hi, kc, kp_log2,
+                 nullptr, nullptr, nullptr, fc, dwind, at, T(dt), T(inv_dc), T(s_div), ny2, nx,
+                 k, rt, ct, q, hm, hi, kc, kp_log2,
                  vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct,
                  n_shares};
   for (int s = 0; s < n_ss; ++s) {
@@ -637,12 +691,19 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
     a.dh = to_out ? gh_out : gh_tmp;
     a.du = to_out ? gu_out : gu_tmp;
     a.ddt_part = part + static_cast<size_t>(s) * n_tiles * n_ranks;
+    if (tracers) {
+      const bool last = static_cast<int>(j) + 1 == n_ss;
+      a.at.tr = at.tr + j * trs;
+      a.at.h_next = last ? h_end : h_st + (j + 1) * hs;
+      a.at.tr_next = last ? tr_end : at.tr + (j + 1) * trs;
+      a.at.dtr = to_out ? gtr_out : gtr_tmp;
+    }
     cudaLaunchAttribute attr[2];
     const cudaLaunchConfig_t cfg = step_config(n_ranks, n_tiles, smem, stream, attr);
     cudaError_t le = cudaLaunchKernelEx(&cfg, arm.kernel, a, tp, fw);
     if (le == cudaSuccess) le = cudaGetLastError();
     if (le != cudaSuccess) return static_cast<int>(le);
-    a.gs = a.ds, a.gh = a.dh, a.gu = a.du;
+    a.gs = a.ds, a.gh = a.dh, a.gu = a.du, a.at.gtr = a.at.dtr;
   }
   return reduce_shares(part, n_shares, ddt, forced ? dcoef : nullptr, stream);
 }
@@ -655,39 +716,47 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
 // mask's live bits, one int per site) runs the periodic arm, any other the
 // masked one; a null `wind` the unforced arm, any other the forced one with
 // `lvl`, the coefficients, and the accumulators `dwind` (6, ny2, nx) and
-// `dcoef` (3 doubles).
+// `dcoef` (3 doubles); a null `tr_st` the tracer-free arm, any other the
+// tracer arm (q = 1, unforced) with its operands as adjoint_step.cu's entry
+// takes them.
 #define MOT_TILED_ADJOINT_ENTRY(T, SUFFIX)                                                    \
   extern "C" int mot_tiled_adjoint_##SUFFIX(                                                  \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
       T* dwind, double* dcoef, const int* table, const double* weights,                       \
       const int* adj_table, const double* adj_weights, const T* ssh_st, const T* h_st,        \
       const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in, T* gs_out, T* gh_out,    \
-      T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part, double* ddt, double dt,       \
-      double inv_dc, double s_div, double dlin, double dquad, double rayl, int lvl_ranks,     \
-      int wind_ranks, int ny2, int nx, int k, int n_ss, int n_terms, int rt, int ct, int q,   \
-      int hm, int hi, int kc, void* stream) {                                                 \
+      T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part, double* ddt,                  \
+      const T* tr_st, const T* gtr_in, T* gtr_out, T* gtr_tmp, const T* h_end,               \
+      const T* tr_end, const T* cmask, double dt, double inv_dc, double s_div, double dlin,   \
+      double dquad, double rayl, double kappa, double upwind, int lvl_ranks, int wind_ranks,  \
+      int ny2, int nx, int k, int n_ss, int n_terms, int rt, int ct, int q, int hm, int hi,   \
+      int kc, int n_tr, void* stream) {                                                       \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
-    return tiled_adjoint<T>(f_edge, rts, live, fc, dwind, dcoef, table, weights, adj_table,   \
-                            adj_weights, ssh_st, h_st, u_st, gs_in, gh_in, gu_in, gs_out,     \
-                            gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part, ddt, dt, inv_dc,    \
-                            s_div, ny2, nx, k, n_ss, n_terms, rt, ct, q, hm, hi, kc,          \
-                            static_cast<cudaStream_t>(stream));                               \
+    const AdjTracers<T> at{tr_st, gtr_in, nullptr, nullptr, cmask, nullptr, T(kappa),         \
+                           T(0.5 * upwind), n_tr};                                            \
+    return tiled_adjoint<T>(f_edge, rts, live, fc, dwind, dcoef, at, gtr_out, gtr_tmp, h_end, \
+                            tr_end, table, weights, adj_table, adj_weights, ssh_st, h_st,     \
+                            u_st, gs_in, gh_in, gu_in, gs_out, gh_out, gu_out, gs_tmp,        \
+                            gh_tmp, gu_tmp, part, ddt, dt, inv_dc, s_div, ny2, nx, k, n_ss,   \
+                            n_terms, rt, ct, q, hm, hi, kc, static_cast<cudaStream_t>(stream)); \
   }
 
 MOT_TILED_ADJOINT_ENTRY(float, f32)
 MOT_TILED_ADJOINT_ENTRY(double, f64)
 
 // One block's dynamic shared memory (bytes) and the blocks one SM holds, for
-// an f32 plan with n_ranks blocks of kc levels per cluster; returns 0 or the
-// CUDA error.
+// an f32 plan with n_ranks blocks of kc levels per cluster, with n_tr
+// tracers (the periodic tracer arm, q = 1) or none; returns 0 or the CUDA
+// error.
 extern "C" int mot_tiled_adjoint_occupancy(int rt, int ct, int q, int hm, int hi, int kc,
-                                           int n_ranks, int* out) {
+                                           int n_ranks, int n_tr, int* out) {
+  if (n_tr > 0 && q != 1) return cudaErrorInvalidValue;
   const int span = 2 * q - 1;
   const long long sites = static_cast<long long>(rt + 2 * hm * span) * (ct + 2 * hi * span);
-  const size_t smem = smem_bytes(sites, rt * ct, kc, q, n_ranks, sizeof(float), false);
+  const size_t smem = smem_bytes(sites, rt * ct, kc, q, n_ranks, sizeof(float), false, n_tr);
   int max_smem = 0;
-  const TiledArm<float> arm = arm_of<float>(q > 1, false, false);
+  const TiledArm<float> arm = arm_of<float>(q > 1, false, false, n_tr > 0);
   int e = opt_in_smem(&max_smem);
   if (e == 0) e = arm.prepare(max_smem);
   if (e != 0) return e;

@@ -12,10 +12,14 @@ adjoint kernel per reverse step on the current stream, each over tiles of
 an accumulator; it raises on anything else, a table that is not the hex
 lattice's transpose included. With ``forcing=`` (the forward's operands,
 ``structured.fused_model.kernel_forcing``) it runs the kernel's forced arm,
-which adds d(wind) and d(r_lin, Cd, lambda) to ``dforc``. Its plain PyTorch
-version is ``structured.adjoint.structured_adjoint_step``. ``launches``
-counts adjoint-step launches (one per reverse step), ``forced_launches``
-those of the forced arm.
+which adds d(wind) and d(r_lin, Cd, lambda) to ``dforc``; with
+``tracers=`` (the forward's tracer operands, their planes the tracer stack)
+its tracer arm, which carries the tracers' cotangent and reads h' and T'
+from the stack's next slot, or from ``end`` after its last. Its plain
+PyTorch version is ``structured.adjoint.structured_adjoint_step``.
+``launches`` counts adjoint-step launches (one per reverse step),
+``forced_launches`` those of the forced arm and ``tracer_launches`` those of
+the tracer arm.
 
 ``nl_adjoint_rollout`` does the same for the nonlinear core, one launch of
 the nonlinear reverse kernel per reverse step over tiles of
@@ -42,6 +46,7 @@ from .fe_step import (
     check_error,
     check_forcing,
     check_live,
+    check_tracer_stack,
     forcing_args,
     forcing_smem_bytes,
     check_tensor,
@@ -55,12 +60,13 @@ from .fe_step import (
 __all__ = ["NL_ADJ_RINGS", "NL_ADJ_SLICE", "REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout",
            "adjoint_tile", "forced_launches", "launch_plan", "launches", "nl_adjoint_launch_plan",
            "nl_adjoint_plan", "nl_adjoint_rollout", "nl_adjoint_slice", "nl_adjoint_smem_bytes",
-           "nl_launches", "smem_bytes"]
+           "nl_launches", "reverse_tracer_args", "smem_bytes", "tracer_launches"]
 
 # adjoint-step kernel launches made by adjoint_rollout (one per step), and
-# those of them that ran the forced arm
+# those of them that ran the forced arm and the tracer arm
 launches = 0
 forced_launches = 0
+tracer_launches = 0
 # nonlinear reverse kernel launches made by nl_adjoint_rollout (one per step)
 nl_launches = 0
 
@@ -93,33 +99,46 @@ _NLA_WIN, _NLA_A, _NLA_B, _NLA_C, _NLA_SITE, _NLA_INTS = 16, 12, 14, 8, 24, 2
 NL_ADJ_SLICE = 4
 
 
-def smem_bytes(tile, k: int, itemsize: int, forced: bool = False) -> int:
+def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int = 0) -> int:
     """Dynamic shared memory of one adjoint_step block for a tile (rows,
     columns) at k levels (``smem_bytes`` in csrc/adjoint_step.cu): the warps'
     d(dt) sums, its level chunk of the window's primal state and cotangent
     [2][8][sites][kc], the window's ssh, gs, f_edge, site indices and live
     bits (the masked arm's, reserved either way, as in
     ``fe_step.smem_bytes``), and the ranks' partial sums of the tile's
-    sites; with ``forced``, the forced arm's (``fe_step.forcing_smem_bytes``)."""
+    sites; with ``forced``, the forced arm's (``fe_step.forcing_smem_bytes``);
+    with ``n_tracers``, the tracer arm's 2 n_tracers planes of the primal
+    and of the cotangent chunk."""
     ranks, kc = level_split(k)
     hm, hi = REACH
     sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
-    return (_RED_BYTES + itemsize * (sites * (16 * kc + _PLANES) + ranks * 2 * tile[0] * tile[1])
+    return (_RED_BYTES + itemsize * (sites * ((16 + 4 * n_tracers) * kc + _PLANES)
+                                     + ranks * 2 * tile[0] * tile[1])
             + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
 
 
-def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
+def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0) -> tuple[int, int]:
     """adjoint_step's tile (rows, columns) on a ny2 x nx lattice: the
     largest tile of TILE_ROWS x TILE_COLS (ragged ones too) whose window
     leaves room for two blocks per SM, then the smallest window, then the
     widest, where its launch makes at least MIN_WAVES waves of clusters on
-    the card; else ``fe_step.best_tile``'s power-of-two tile. At 100 f32
-    levels that is (4, 12) at 256x256 and (4, 8) at 64x64, the fastest
-    tiles of the sweep there (PERF.md section 5, tools/tile_sweep.py): a
-    larger tile re-reads less halo, but on a small lattice its few
-    clusters leave the card's last wave part empty."""
-    smem = lambda t: smem_bytes(t, k, itemsize, forced=True)
-    tile = best_tile(ny2, nx, REACH, smem, f"adjoint_step ({k} levels of {itemsize}-byte values)")
+    the card; else ``fe_step.best_tile``'s power-of-two tile. The window is
+    the forced arm's, so that one tile serves both arms; with ``n_tracers``
+    the (unforced) tracer arm's, which runs one block per SM (its launch
+    bounds), ``best_tile``'s largest tile that fits one block. At 100 f32
+    levels the tracer-free tile is
+    (4, 12) at 256x256 and (4, 8) at 64x64, the fastest tiles of the sweep
+    there (PERF.md section 5, tools/tile_sweep.py): a larger tile re-reads
+    less halo, but on a small lattice its few clusters leave the card's
+    last wave part empty. A tracer count that fits no tile raises
+    ValueError."""
+    name = f"adjoint_step ({k} levels of {itemsize}-byte values, {n_tracers} tracers)"
+    if n_tracers:
+        return best_tile(ny2, nx, REACH, lambda t: smem_bytes(t, k, itemsize,
+                                                             n_tracers=n_tracers),
+                         name, budgets=(SMEM_BYTES,))
+    smem = lambda t: smem_bytes(t, k, itemsize, forced=True)  # noqa: E731
+    tile = best_tile(ny2, nx, REACH, smem, name)
     hm, hi = REACH
     two = [(rt * ct, -(rt + 2 * hm) * (ct + 2 * hi), ct, rt)
            for rt, ct in {(min(r, ny2), min(c, nx)) for r in TILE_ROWS for c in TILE_COLS}
@@ -133,17 +152,18 @@ def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int) -> tuple[int, int]:
     return tile
 
 
-def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile) -> dict:
+def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: int = 0) -> dict:
     """The launch adjoint_step makes for ``tile`` on an f32 ny2 x nx x k
-    lattice with the transposed stencil ``table`` (host copy): its clusters
+    lattice with the transposed stencil ``table`` (host copy), with
+    ``n_tracers`` tracers (its periodic tracer arm) or none: its clusters
     (one per tile), the blocks one SM holds (CUDA's occupancy calculator)
     and one block's shared memory in bytes, as the kernel reckons it."""
     fn = build.load().mot_adjoint_plan
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 3)()
     table = np.ascontiguousarray(table, dtype=np.int32)
-    check_error("adjoint_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile,
+    check_error("adjoint_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile, n_tracers,
                                                 ctypes.addressof(out)))
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
@@ -220,7 +240,7 @@ def nl_adjoint_launch_plan(ny2: int, nx: int, k: int, tile, ks: int) -> dict:
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_double] * 6 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 29 + [ctypes.c_double] * 8 + [ctypes.c_int] * 10
              + [ctypes.c_void_p])
 
 
@@ -240,6 +260,47 @@ def dforc_args(dforc) -> tuple:
     return (None, None) if dforc is None else (dforc.wind.data_ptr(), dforc.coefs.data_ptr())
 
 
+def check_reverse_tracers(tracers, end, groups, live, slots: int, ny2: int, nx: int, k: int,
+                          dtype, device) -> int:
+    """The reverse tracer arms' operands: ``tracers`` as for
+    ``fe_step.fe_fill_stack`` (its planes the tracer stack of ``slots``
+    slots), ``end`` = (h (2, ny2, nx, K), tracer planes (2 nT, ny2, nx, K))
+    of the state after the last slot, and the cotangent groups (name,
+    tuple) each carrying the tracer planes fourth; or, without tracers,
+    groups of three. Returns the tracer count (0 without)."""
+    if tracers is None:
+        for name, group in groups:
+            if len(group) != 3:
+                raise ValueError(f"{name} carries tracers, but no tracers= were given")
+        if end is not None:
+            raise ValueError("end= is the tracer arm's")
+        return 0
+    check_tracer_stack(tracers, live, slots, ny2, nx, k, dtype, device)
+    planes = tracers.planes.shape[1:]
+    if end is None or len(end) != 2:
+        raise ValueError("the tracer arm reads end = (h, tracer planes) of the state after "
+                         "the stack's last slot")
+    check_tensor("end h", end[0], (2, ny2, nx, k), dtype, device)
+    check_tensor("end tracers", end[1], planes, dtype, device)
+    for name, group in groups:
+        if len(group) != 4:
+            raise ValueError(f"{name} must carry the tracer planes fourth")
+        check_tensor(f"{name} tracers", group[3], planes, dtype, device)
+    return planes[0] // 2
+
+
+def reverse_tracer_args(tracers, end, g_in, out, scratch) -> tuple:
+    """The reverse entries' tracer pointers (tracer stack, cotangent in,
+    out and scratch, end h and tracers, cell mask), (kappa, upwind) and the
+    tracer count, or nulls and zeros for the tracer-free arm."""
+    if tracers is None:
+        return (None,) * 7, (0.0, 0.0), 0
+    mask = tracers.cell_mask
+    ptrs = (tracers.planes, g_in[3], out[3], scratch[3], *end)
+    return ((*(x.data_ptr() for x in ptrs), None if mask is None else mask.data_ptr()),
+            (float(tracers.kappa), float(tracers.upwind)), tracers.planes.shape[1] // 2)
+
+
 def _entry(dtype: torch.dtype):
     lib = build.load()
     fn = {torch.float32: lib.mot_adjoint_rollout_f32,
@@ -250,11 +311,11 @@ def _entry(dtype: torch.dtype):
 
 
 def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scratch, tile,
-             live=None, forcing=None, dforc=None):
+             live=None, forcing=None, dforc=None, tracers=None, end=None):
     """``adjoint_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
     ``tile`` (rows, columns) sites, or ``adjoint_tile``'s for None (the tile
     sweep and the tests give their own)."""
-    global launches, forced_launches
+    global launches, forced_launches, tracer_launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
@@ -271,19 +332,24 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     check_forcing(forcing, ny2, nx, dtype, device)
     check_dforc(dforc, forcing, ny2, nx, dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
+    if tracers is not None:
+        shapes = (*shapes, tracers.planes.shape[1:])
     if out is None:
         out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
     if scratch is None:
         scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
-    for x, shape, f in zip(stack, shapes, ("ssh", "h", "u")):
+    for x, shape, f in zip(stack, shapes[:3], ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), dtype, device)
+    n_tr = check_reverse_tracers(tracers, end, (("g_in", g_in), ("out", out),
+                                                ("scratch", scratch)),
+                                 live, slots, ny2, nx, k, dtype, device)
     for group, name in ((g_in, "g_in"), (out, "out"), (scratch, "scratch")):
-        for x, shape, f in zip(group, shapes, ("ssh", "h", "u")):
+        for x, shape, f in zip(group, shapes[:3], ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, dtype, device)
     table, weights, n_terms = host_stencil(table, weights)
     itemsize, masked = h_st.element_size(), live is not None
-    tile = adjoint_tile(ny2, nx, k, itemsize) if tile is None else tuple(tile)
-    need = smem_bytes(tile, k, itemsize, forcing is not None)
+    tile = adjoint_tile(ny2, nx, k, itemsize, n_tr) if tile is None else tuple(tile)
+    need = smem_bytes(tile, k, itemsize, forcing is not None, n_tr)
     if need > SMEM_BYTES:
         raise ValueError(f"an adjoint_step tile {tile} at {k} levels needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
@@ -293,25 +359,29 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     part = torch.empty(shares * n_steps * tiles * ranks, dtype=torch.float64, device=device)
     fn = _entry(dtype)
     ptrs, coefs = forcing_args(forcing, level_split(k)[1])
+    tr_ptrs, tr_opts, n_tr = reverse_tracer_args(tracers, end, g_in, out, scratch)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             f_edge.data_ptr(), live.data_ptr() if masked else None, *ptrs, *dforc_args(dforc),
             table.ctypes.data, weights.ctypes.data,
-            *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
-            *(float(x) for x in scal), *coefs, ny2, nx, k, n_steps, n_terms, *tile, stream,
+            *[x.data_ptr() for x in (*stack[:3], *g_in[:3], *out[:3], *scratch[:3], part, ddt)],
+            *tr_ptrs, *(float(x) for x in scal), *coefs[:3], *tr_opts, *coefs[3:], ny2, nx, k,
+            n_steps, n_terms, *tile, n_tr, stream,
         )
     check_error("adjoint_step", err, f" (tile {tile})")
     launches += n_steps
     if forcing is not None:
         forced_launches += n_steps
+    if tracers is not None:
+        tracer_launches += n_steps
     return out
 
 
 def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
                     dt: float, inv_dc: float, s_div: float, n_steps: int,
                     ddt: torch.Tensor, out=None, scratch=None, live=None, forcing=None,
-                    dforc=None):
+                    dforc=None, tracers=None, end=None):
     """n_steps >= 1 reverse forward-Euler steps of the linear core on the
     card.
 
@@ -331,9 +401,16 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
     ``fe_step.fe_rollout``) runs the forced arm, the reverse of the forced
     step, which adds d(wind) and d(r_lin, Cd, lambda) to ``dforc`` (a
     ``structured.adjoint.ForcingCot`` of a (6, ny2, nx) tensor in the state
-    dtype and a float64 (3,) tensor, on the card)."""
+    dtype and a float64 (3,) tensor, on the card). ``tracers`` (as for
+    ``fe_step.fe_fill_stack``: ``fused_model.kernel_tracers``' operands whose
+    planes are the tracer stack (S, 2 nT, ny2, nx, K) of the primal
+    tracers) runs the tracer arm, unforced: ``g_in``, ``out`` and
+    ``scratch`` then carry the tracer cotangent planes (2 nT, ny2, nx, K)
+    fourth, and ``end`` = (h, tracer planes) is the state after slot
+    n_steps - 1 (the next checkpoint, or the rollout's final state), whose
+    h' and T' the last step reads."""
     return _rollout(stack, g_in, f_edge, stencil_table, coriolis_weight, (dt, inv_dc, s_div),
-                    n_steps, ddt, out, scratch, None, live, forcing, dforc)
+                    n_steps, ddt, out, scratch, None, live, forcing, dforc, tracers, end)
 
 
 _NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_double] * 7

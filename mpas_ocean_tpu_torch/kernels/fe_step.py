@@ -44,6 +44,7 @@ __all__ = [
     "best_tile",
     "check_forcing",
     "check_live",
+    "check_tracer_stack",
     "check_tracers",
     "forcing_smem_bytes",
     "forcing_ranks",
@@ -177,16 +178,18 @@ def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int
             + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
 
 
-def best_tile(ny2: int, nx: int, reach, smem, name: str) -> tuple[int, int]:
+def best_tile(ny2: int, nx: int, reach, smem, name: str,
+              budgets=(TWO_BLOCK_BYTES, SMEM_BYTES)) -> tuple[int, int]:
     """The tile (rows, columns) of a one-step window kernel on a ny2 x nx
     lattice: among the powers of two up to 64 a side, cut to the lattice,
     the tile of largest area whose window (``smem(tile)`` bytes of shared
     memory per block, ``reach`` = (rows, columns) per side) lets two blocks
-    share an SM (TWO_BLOCK_BYTES), or else fits one block; then the
-    smallest window; then the widest. Tiles need not divide the lattice."""
+    share an SM (TWO_BLOCK_BYTES), or else fits one block (``budgets``, in
+    order of preference); then the smallest window; then the widest. Tiles
+    need not divide the lattice."""
     hm, hi = reach
     tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
-    for budget in (TWO_BLOCK_BYTES, SMEM_BYTES):
+    for budget in budgets:
         fit = [(rt * ct, -(rt + 2 * hm) * (ct + 2 * hi), ct, rt) for rt, ct in tiles
                if smem((rt, ct)) <= budget]
         if fit:
@@ -348,7 +351,7 @@ def nl_launch_plan(ny2: int, nx: int, k: int, tile, ks: int, fb: bool = False) -
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
     "steps": [_P] * 20 + [_D] * 8 + [_I] * 10 + [_P],
-    "stack": [_P] * 10 + [_D] * 6 + [_I] * 9 + [_P],
+    "stack": [_P] * 12 + [_D] * 8 + [_I] * 10 + [_P],
     "nl_steps": [_P, _P, _I] + [_P] * 15 + [_D] * 5 + [_I] * 8 + [_P],
     "nl_stack": [_P, _P, _I] + [_P] * 9 + [_D] * 5 + [_I] * 8 + [_P],
 }
@@ -454,6 +457,33 @@ def tracer_args(tracers, out, tmp) -> tuple:
             (float(tracers.kappa), float(tracers.upwind)), tracers.planes.shape[0] // 2)
 
 
+def check_tracer_stack(tracers, live, slots: int, ny2: int, nx: int, k: int, dtype,
+                       device) -> None:
+    """The operands of a tracer arm that runs through a stack of states
+    (``fused_model.KernelTracers`` whose planes are the tracer stack
+    (slots, 2 nT, ny2, nx, K)), as ``check_tracers`` holds them; None
+    without tracers."""
+    if tracers is None:
+        return
+    planes = tracers.planes
+    if planes.dim() != 5 or planes.shape[0] != slots:
+        raise ValueError(f"the tracer stack must be ({slots}, 2 nT, ny2, nx, K), got "
+                         f"{tuple(planes.shape)}")
+    check_tracers(tracers._replace(planes=planes[0]), live, ny2, nx, k, dtype, device)
+    if not planes.is_contiguous():
+        raise ValueError("the tracer stack is not contiguous")
+
+
+def stack_tracer_args(tracers) -> tuple:
+    """(tracer stack, cell mask) pointers, (kappa, upwind) and the tracer
+    count of a stack entry's tracer arm, or nulls and zeros."""
+    if tracers is None:
+        return (None, None), (0.0, 0.0), 0
+    mask = tracers.cell_mask
+    return ((tracers.planes.data_ptr(), None if mask is None else mask.data_ptr()),
+            (float(tracers.kappa), float(tracers.upwind)), tracers.planes.shape[1] // 2)
+
+
 def forcing_ranks(forcing, kc: int) -> tuple[int, int]:
     """(lvl_ranks, wind_ranks) of a launch whose blocks take chunks of kc
     levels (csrc/step_window.cuh, ForcingArgs): bit r set where rank r's
@@ -491,7 +521,7 @@ def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile
          forcing=None, tracers=None, tr_bufs=None):
     global launches, forced_launches, tracer_launches
     table, weights, n_terms = stencil
-    n_tr = 0 if tracers is None else tracers.planes.shape[0] // 2
+    n_tr = 0 if tracers is None else tracers.planes.shape[-4] // 2
     if tile is None:
         tile = fe_tile(*dims, h.element_size(), n_tr)
     tile = tuple(tile)
@@ -503,11 +533,12 @@ def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile
     ptrs, coefs = forcing_args(forcing, level_split(dims[2])[1])
     state_ptrs = [x.data_ptr() for x in tensors]
     scal = tuple(float(x) for x in scal)
-    extra = ()
-    if kind == "steps":  # the stack entry has no tracer arm
+    if kind == "steps":
         tr_ptrs, tr_opts, n_tr = tracer_args(tracers, *(tr_bufs or (None, None)))
-        state_ptrs += tr_ptrs
-        scal, extra = (*scal, *tr_opts), (n_tr,)
+    else:  # the stack entry: the tracer stack in place
+        tr_ptrs, tr_opts, n_tr = stack_tracer_args(tracers)
+    state_ptrs += tr_ptrs
+    scal, extra = (*scal, *tr_opts), (n_tr,)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
@@ -522,7 +553,7 @@ def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile
 
 
 def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch, tile,
-                  live, forcing=None, tracers=None, tr_out=None):
+                  live, forcing=None, tracers=None, tr_out=None, tr_scratch=None):
     if n_steps < 1:
         raise ValueError("fe_rollout_into takes n_steps >= 1")
     h = src[1]
@@ -536,14 +567,17 @@ def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch,
     tr_bufs = None
     if tracers is not None:
         check_tensor("tracer out", tr_out, tracers.planes.shape, h.dtype, h.device)
-        tr_bufs = (tr_out, tr_out if n_steps == 1 else torch.empty_like(tr_out))
+        if tr_scratch is None:
+            tr_scratch = tr_out if n_steps == 1 else torch.empty_like(tr_out)
+        check_tensor("tracer scratch", tr_scratch, tracers.planes.shape, h.dtype, h.device)
+        tr_bufs = (tr_out, tr_scratch)
     _run("steps", h, (*src, *out, *scratch), f_edge, rts, live, stencil, scal, dims,
          n_steps, tile, forcing, tracers, tr_bufs)
 
 
 def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
                     dt: float, inv_dc: float, s_div: float, n_steps: int, scratch=None,
-                    live=None, forcing=None):
+                    live=None, forcing=None, tracers=None, tr_out=None, tr_scratch=None):
     """n_steps >= 1 forward-Euler steps of the linear core on the card, from
     ``src`` = (ssh, h, u) into ``out`` (same shapes, another buffer), through
     ``scratch`` (allocated here when None and n_steps > 1). ``src`` is left as
@@ -559,19 +593,27 @@ def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
     which runs the masked arm, or None. ``forcing`` is the momentum forcing
     as ``structured.fused_model.kernel_forcing`` gives it (wind, packed
     levels, (r_lin, Cd, lambda) rounded to the state dtype), which runs the
-    forced arm, or None. Raises ValueError for a stencil that is not the
-    hex lattice's."""
+    forced arm, or None. ``tracers`` (``structured.fused_model.
+    kernel_tracers``' operands, as for ``fe_rollout``: the source planes, the
+    cell mask, kappa and upwind) runs the tracer arm, unforced, into
+    ``tr_out`` through ``tr_scratch`` (allocated here when None and
+    n_steps > 1). Raises ValueError for a stencil that is not the hex
+    lattice's."""
     _rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
-                  (dt, inv_dc, s_div), n_steps, scratch, None, live, forcing)
+                  (dt, inv_dc, s_div), n_steps, scratch, None, live, forcing, tracers, tr_out,
+                  tr_scratch)
 
 
 def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
                   dt: float, inv_dc: float, s_div: float, n_steps: int, live=None,
-                  forcing=None):
+                  forcing=None, tracers=None):
     """Fill a stack of states on the card: slot j + 1 = one step of slot j
     for j < n_steps. ``stack`` = (ssh (S, 2, ny2, nx), h (S, 2, ny2, nx, K),
-    u (S, 3, 2, ny2, nx, K)) with S > n_steps; slot 0 holds the start. The
-    rest as for ``fe_rollout_into``."""
+    u (S, 3, 2, ny2, nx, K)) with S > n_steps; slot 0 holds the start.
+    ``tracers`` (as for ``fe_rollout``, its planes the tracer stack
+    (S, 2 nT, ny2, nx, K)) runs the tracer arm, the same launches as
+    ``fe_rollout_into``'s, so that the slots are that path's states bit for
+    bit. The rest as for ``fe_rollout_into``."""
     ssh, h, u = stack
     if h.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h.shape)}")
@@ -581,8 +623,9 @@ def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
         raise ValueError(f"{n_steps} steps do not fit a stack of {slots} slots")
     for x, shape, f in zip(stack, state_shapes(*dims), ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), h.dtype, h.device)
+    check_tracer_stack(tracers, live, slots, *dims, h.dtype, h.device)
     _run("stack", h, stack, f_edge, rts, live, stencil, (dt, inv_dc, s_div), dims, n_steps,
-         None, forcing)
+         None, forcing, tracers)
 
 
 def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=None,

@@ -59,10 +59,33 @@ h_e <= 0):
 * d(wind) = sum over the levels of a top inv_h, per edge;
 * d(r, Cd, lambda) = (-sum a bot u, -sum a bot |u| u inv_h, -sum a u).
 The level masks get no cotangent (the JAX kernels return zeros for them).
+
+With tracers (a state's ``tracers``, ``tracer_kappa=`` and ``tracer_upwind=``
+as on the forward steps), the step also carries T' = c C / safe, C = h T -
+dt s_div (sum_owned g - sum_incoming g), g_e = F_e te_e - kappa m_e he_e
+(T_n - T_o) / dc, te_e = (T_n + T_o) / 2 - (upwind / 2) s_e (T_n - T_o), F_e =
+u_e he_e, s_e = sign(F_e), c the cell mask (1 on a periodic lattice) and
+safe = h' where c > 0, 1 elsewhere. Its transpose (``tracer_transpose``) for
+the output cotangent gT' holds s_e fixed (as jax.vjp holds jnp.sign) and adds
+to the linear or nonlinear transpose above, with a = c gT' / safe (the
+content's cotangent):
+
+* h' feeds back: G += -sum_t a T' (T' = C / safe where c > 0), before the
+  continuity transpose reads G (its flux cotangent, dh, du and d(dt)'s
+  <G, tend_h>);
+* dh += sum_t a T and dT = a h, plus the edge terms;
+* dg_e = dt s_div (a_n - a_o) joins the flux cotangent as sum_t dg_e te_e;
+  dte_e = dg_e F_e gives dT_n += dte_e (1/2 - (upwind / 2) s_e) and dT_o +=
+  dte_e (1/2 + (upwind / 2) s_e);
+* the kappa term gives dT_n -= dg_e kappa m_e he_e / dc, dT_o += the same,
+  and an h_edge cotangent -dg_e kappa m_e (T_n - T_o) / dc, half to each of the
+  edge's cells, where the forcing's goes;
+* d(dt) += sum_t <a, tend_T>, tend_T = -s_div (sum_owned g - sum_incoming g).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -88,6 +111,7 @@ from .model import (
     structured_step,
     tangential_times_f,
     tangential_weights_only,
+    tracer_tendency_struct,
     vertex_to_edge_mean,
 )
 from .stencils import (
@@ -97,8 +121,8 @@ from .stencils import (
     transpose_kite_terms,
 )
 
-__all__ = ["ForcingCot", "forcing_transpose", "structured_adjoint_run_loop",
-           "structured_adjoint_step", "structured_nl_adjoint_step"]
+__all__ = ["ForcingCot", "TracerCot", "forcing_transpose", "structured_adjoint_run_loop",
+           "structured_adjoint_step", "structured_nl_adjoint_step", "tracer_transpose"]
 
 
 class ForcingCot(NamedTuple):
@@ -133,17 +157,103 @@ def forcing_transpose(u, h_edge, gu, dt, forcing: Forcing):
     return d_u, d_he, d_dt, ForcingCot((a * top * inv_h).sum(-1), coefs)
 
 
+class TracerCot(NamedTuple):
+    """What the tracer transpose adds to a step's reverse (module
+    docstring): to G (the h' feedback), to the thickness flux's cotangent
+    (3, 2, ny2, nx, K), to the h_edge cotangent, to dh (the content's
+    h T), and the tracers' cotangent and d(dt)'s share."""
+
+    g: torch.Tensor
+    d_flux: torch.Tensor
+    d_he: torch.Tensor
+    d_h: torch.Tensor
+    d_tracers: torch.Tensor
+    d_dt: torch.Tensor
+
+
+def tracer_transpose(state: StructState, h_new, g_tr, h_edge, mesh: StructMesh, dt,
+                     kappa: float, upwind: float, tr_new=None) -> TracerCot:
+    """The transpose of one step's tracer update (module docstring) for the
+    output cotangent ``g_tr`` (2, ny2, nx, nT, K) of the new tracers, given
+    the old state (with its tracers), the step's h' ``h_new`` and the old
+    state's ``h_edge``; the h' feedback takes T' = ``tr_new`` where given
+    (the kernels read it from the step's result), else C / safe. The sign of
+    the flux is held fixed."""
+    tr, h = state.tracers, state.layer_thickness
+    flux = state.normal_velocity * h_edge
+    tend_t = tracer_tendency_struct(tr, flux, mesh, kappa, upwind, h_edge)
+    content = h[..., None, :] * tr + dt * tend_t
+    hn = h_new[..., None, :]
+    if mesh.cell_mask is None:
+        safe = hn
+        a = g_tr / safe
+    else:
+        mask = mesh.cell_mask[..., None, None]
+        safe = torch.where(mask > 0, hn, torch.ones_like(hn))
+        a = g_tr * mask / safe
+    g = -(a * (content / safe if tr_new is None else tr_new)).sum(-2)
+    d_dt = (a * tend_t).sum()
+    # the edge flux g_e's cotangent, and the forward's edge values
+    s_div = mesh.dv / mesh.area_cell
+    d_g = torch.stack([_neighbor_cell_field(a, f) - a for f in (E, NE, NW)]) * (dt * s_div)
+    t_nb = torch.stack([_neighbor_cell_field(tr, f) for f in (E, NE, NW)])
+    t_e = 0.5 * (t_nb + tr)
+    grad = (t_nb - tr) / mesh.dc
+    fl = flux[..., None, :]
+    if upwind:
+        sg = torch.sign(fl)
+        t_e = t_e - (0.5 * upwind * mesh.dc) * sg * grad
+    d_te = d_g * fl
+    d_flux = (d_g * t_e).sum(-2)
+    d_grad = torch.zeros_like(d_te)
+    if upwind:
+        d_grad = d_grad - (0.5 * upwind * mesh.dc) * sg * d_te
+    d_he = torch.zeros_like(h_edge)
+    if kappa:
+        m = 1.0 if mesh.edge_mask is None else mesh.edge_mask[..., None]
+        diff = kappa * h_edge * m
+        d_grad = d_grad - diff[..., None, :] * d_g
+        d_he = -kappa * m * (d_g * grad).sum(-2)
+    # te's and grad's cotangents onto the edge's owner (o) and neighbour (n)
+    d_nb = 0.5 * d_te + d_grad / mesh.dc
+    d_own = 0.5 * d_te - d_grad / mesh.dc
+    inc_E, inc_NE, inc_NW = _incoming_edge_fields(d_nb)
+    d_tr = a * h[..., None, :] + d_own[0] + d_own[1] + d_own[2] + inc_E + inc_NE + inc_NW
+    return TracerCot(g, d_flux, d_he, (a * tr).sum(-2), d_tr, d_dt)
+
+
+def _tracer_cot(state: StructState, g: StructState, h_edge, tend_h, mesh: StructMesh, dt,
+                kappa, upwind, next_state: StructState | None) -> TracerCot | None:
+    """The tracer transpose of a step from ``state`` for the output
+    cotangent ``g`` (its tracers' None read as zeros), h' and T' formed again
+    or read from ``next_state``; None without tracers."""
+    if state.tracers is None:
+        return None
+    g_tr = g.tracers if g.tracers is not None else torch.zeros_like(state.tracers)
+    if next_state is not None:
+        return tracer_transpose(state, next_state.layer_thickness, g_tr, h_edge, mesh, dt,
+                                kappa, upwind, next_state.tracers)
+    h_new = state.layer_thickness + dt * tend_h
+    return tracer_transpose(state, h_new, g_tr, h_edge, mesh, dt, kappa, upwind)
+
+
 def _result(d_state: StructState, d_dt, d_forc):
     return (d_state, d_dt) if d_forc is None else (d_state, d_dt, d_forc)
 
 
 def structured_adjoint_step(
-    state: StructState, g: StructState, mesh: StructMesh, dt, forcing: Forcing | None = None
+    state: StructState, g: StructState, mesh: StructMesh, dt, forcing: Forcing | None = None,
+    *, tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+    next_state: StructState | None = None,
 ):
-    """VJP of ``structured_step(state, mesh, dt, forcing=forcing)`` for the
-    output cotangent ``g``: (cotangent of the input state, d(dt) as a 0-d
-    tensor), and with ``forcing`` a third item, the ForcingCot. With the
-    mesh's wall mask m, gu is m * gu throughout."""
+    """VJP of ``structured_step(state, mesh, dt, forcing=forcing,
+    tracer_kappa=, tracer_upwind=)`` for the output cotangent ``g``:
+    (cotangent of the input state, d(dt) as a 0-d tensor), and with
+    ``forcing`` a third item, the ForcingCot. With the mesh's wall mask m, gu
+    is m * gu throughout. A state with tracers gets their cotangent
+    (``tracer_transpose``); ``next_state``, the step's result as the forward
+    computed it, gives h' and T' to the tracer transpose, as the reverse
+    kernels read them, instead of their forming them again."""
     h, u = state.layer_thickness, state.normal_velocity
     gu = g.normal_velocity
     if mesh.edge_mask is not None:
@@ -152,20 +262,31 @@ def structured_adjoint_step(
 
     h_edge = interp_cell_to_edge(h, mesh)
     tend_h = -div_on_cell(u * h_edge, mesh)
+    tr = _tracer_cot(state, g, h_edge, tend_h, mesh, dt, tracer_kappa, tracer_upwind,
+                     next_state)
+    if tr is not None:
+        G = G + tr.g
     tend_u = -GRAVITY * grad_on_edge(state.ssh, mesh)[..., None]
     tend_u = tend_u + tangential_times_f(u, mesh)
     d_dt = (G * tend_h).sum() + (gu * tend_u).sum()
 
     g_flux = torch.stack([_neighbor_cell_field(G, f) - G for f in (E, NE, NW)])
     g_flux = g_flux * (dt * (mesh.dv / mesh.area_cell))
+    if tr is not None:
+        g_flux = g_flux + tr.d_flux
     ug = u * g_flux
     d_forc = None
     if forcing is not None:
         du_f, dhe_f, dd_f, d_forc = forcing_transpose(u, h_edge, gu, dt, forcing)
         ug = ug + dhe_f
         d_dt = d_dt + dd_f
+    if tr is not None:
+        ug = ug + tr.d_he
+        d_dt = d_dt + tr.d_dt
     inc_E, inc_NE, inc_NW = _incoming_edge_fields(ug)
     d_h = G + 0.5 * (ug[0] + ug[1] + ug[2] + inc_E + inc_NE + inc_NW)
+    if tr is not None:
+        d_h = d_h + tr.d_h
 
     ct = apply_stencil(gu, transpose_coriolis_terms(mesh.coriolis_terms))
     d_u = gu + h_edge * g_flux + dt * (mesh.f_edge[..., None] * ct)
@@ -175,8 +296,8 @@ def structured_adjoint_step(
     s = gu.sum(-1)
     inc_E, inc_NE, inc_NW = _incoming_edge_fields(s)
     d_ssh = (GRAVITY * dt / mesh.dc) * (s[0] + s[1] + s[2] - inc_E - inc_NE - inc_NW)
-    return _result(StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u), d_dt,
-                   d_forc)
+    return _result(StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u,
+                               tracers=None if tr is None else tr.d_tracers), d_dt, d_forc)
 
 
 def _gather(y, terms, n_out: int, weight=lambda x, v: v):
@@ -202,14 +323,18 @@ def _own_plus_incoming(x):
 
 
 def structured_nl_adjoint_step(
-    state: StructState, g: StructState, mesh: StructMesh, dt, forcing: Forcing | None = None
+    state: StructState, g: StructState, mesh: StructMesh, dt, forcing: Forcing | None = None,
+    *, tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+    next_state: StructState | None = None,
 ):
     """VJP of ``structured_step(state, mesh, dt, nonlinear=True,
-    forcing=forcing)`` for the output cotangent ``g``: (cotangent of the
-    input state, d(dt) as a 0-d tensor), and with ``forcing`` a third item,
-    the ForcingCot, written out by hand (module docstring). With the mesh's
-    wall mask m, gu is m * gu throughout. A mesh without the vertex
-    constants raises (``model.check_nl_mesh``)."""
+    forcing=forcing, tracer_kappa=, tracer_upwind=)`` for the output
+    cotangent ``g``: (cotangent of the input state, d(dt) as a 0-d tensor),
+    and with ``forcing`` a third item, the ForcingCot, written out by hand
+    (module docstring). With the mesh's wall mask m, gu is m * gu
+    throughout. A state with tracers gets their cotangent
+    (``tracer_transpose``; ``next_state`` as for ``structured_adjoint_step``).
+    A mesh without the vertex constants raises (``model.check_nl_mesh``)."""
     check_nl_mesh(mesh)
     h, u = state.layer_thickness, state.normal_velocity
     gu = g.normal_velocity
@@ -224,9 +349,15 @@ def structured_nl_adjoint_step(
     h_edge = interp_cell_to_edge(h, mesh)
     flux = u * h_edge
     tend_h = -div_on_cell(flux, mesh)
+    tr = _tracer_cot(state, g, h_edge, tend_h, mesh, dt, tracer_kappa, tracer_upwind,
+                     next_state)
+    if tr is not None:
+        G = G + tr.g
     tend_u = _forced(_tend_u(state, flux, grad_on_edge(state.ssh, mesh), mesh, True), state,
                      h_edge, forcing)
     d_dt = (G * tend_h).sum() + (gu * tend_u).sum()
+    if tr is not None:
+        d_dt = d_dt + tr.d_dt
 
     # the primal PV, as model.pv_on_vertex_struct computes it
     num = mesh.f_vertex[..., None] + curl_on_vertex(u, mesh)
@@ -247,6 +378,8 @@ def structured_nl_adjoint_step(
     g_flux = torch.stack([_neighbor_cell_field(G, f) - G for f in (E, NE, NW)])
     d_flux = g_flux * (dt * (mesh.dv / mesh.area_cell)) + 0.5 * (
         apply_stencil(a * q_e, terms_t) + q_e * t_a)
+    if tr is not None:
+        d_flux = d_flux + tr.d_flux
 
     # the endpoint mean's, the PV division's, the curl's and the kite's
     ev_t = transpose_endpoint_terms(mesh.edge_vertex_terms)
@@ -275,26 +408,34 @@ def structured_nl_adjoint_step(
         du_f, dhe_f, _, d_forc = forcing_transpose(u, h_edge, gu, dt, forcing)
         d_u = d_u + du_f
         d_he = d_he + dhe_f
+    if tr is not None:
+        d_he = d_he + tr.d_he
     d_h = (G + 0.5 * _own_plus_incoming(d_he)
            + _gather(d_hv, transpose_kite_terms(mesh.vertex_cell_terms), 2, kite))
+    if tr is not None:
+        d_h = d_h + tr.d_h
     d_ssh = (GRAVITY * dt / mesh.dc) * _own_minus_incoming(gu.sum(-1))
-    return _result(StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u), d_dt,
-                   d_forc)
+    return _result(StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u,
+                               tracers=None if tr is None else tr.d_tracers), d_dt, d_forc)
 
 
 def structured_adjoint_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, g: StructState,
-    nonlinear: bool = False, forcing: Forcing | None = None,
+    nonlinear: bool = False, forcing: Forcing | None = None, *,
+    tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
 ):
     """VJP of ``structured_run_loop(state, mesh, dt, n_steps, nonlinear,
-    forcing=forcing)`` for the output cotangent ``g``, keeping all n_steps
-    primal states: the plain version of the whole kernel reverse, on any
-    device. Returns (d_state, d_dt), and with ``forcing`` the ForcingCot
-    third."""
-    step = structured_nl_adjoint_step if nonlinear else structured_adjoint_step
+    forcing=forcing, tracer_kappa=, tracer_upwind=)`` for the output
+    cotangent ``g``, keeping all n_steps primal states: the plain version of
+    the whole kernel reverse, on any device. Returns (d_state, d_dt), and
+    with ``forcing`` the ForcingCot third."""
+    step = functools.partial(
+        structured_nl_adjoint_step if nonlinear else structured_adjoint_step,
+        tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
     states = [state]
     for _ in range(n_steps - 1):
-        states.append(structured_step(states[-1], mesh, dt, nonlinear, forcing))
+        states.append(structured_step(states[-1], mesh, dt, nonlinear, forcing, tracer_kappa,
+                                      tracer_upwind))
     d_dt = torch.zeros((), dtype=state.layer_thickness.dtype,
                        device=state.layer_thickness.device)
     d_forc = None

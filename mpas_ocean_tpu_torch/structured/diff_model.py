@@ -21,6 +21,19 @@ runs about twice. The TPU kernel rebuilt b-step segments inside VMEM under a
 fitted VMEM model; on the card the limit is device memory, so there is one
 level of groups and no recompute inside a kernel.
 
+Tracers (a state's ``tracers``, with ``tracer_kappa=`` and
+``tracer_upwind=`` as on the forward entry points) are a fourth field,
+differentiated (the JAX ``custom_vjp`` keeps kappa and upwind
+nondifferentiable, :2619). Inside the sweep they are held as the kernels'
+planes (``fused_model.tracer_planes``: (2 nT, ny2, nx, K), a stack
+(S, 2 nT, ny2, nx, K)), on the CPU as on the card; the entry points take and
+return the lattice layout (2, ny2, nx, nT, K). On the card the kernels'
+tracer arms run them, linear and unforced only (``fused_model.
+check_tracer_core``; the CPU runs every combination). The reverse kernels
+read the step's h' and T' from the next slot of the stack, and for a
+group's last step from the state after it: the next checkpoint, or the
+rollout's final state, which the forward keeps for that.
+
 Momentum forcing (``forcing=``, struct layout) is a differentiated input:
 its wind and its three coefficients get cotangents (the level masks none,
 as in the JAX package's ``_forcing_cotangent``, :1939-1955). On the card the
@@ -48,14 +61,19 @@ from ..kernels import adjoint_step, fe_step
 from ..models.forcing import Forcing
 from .adjoint import ForcingCot, structured_adjoint_step, structured_nl_adjoint_step
 from .fused_model import (
+    KernelTracers,
     _scal,
     check_forced_core,
+    check_tracer_core,
     fused_run_loop,
     kernel_forcing,
     kernel_live,
     nl_adjoint_scal,
     nl_scal,
     nl_setup,
+    tracer_opts,
+    tracer_planes,
+    tracer_unplanes,
 )
 from .model import (
     StructMesh,
@@ -73,7 +91,6 @@ __all__ = [
     "adjoint_plan",
     "adjoint_segment",
     "auto_rollout_diff",
-    "check_no_tracers",
     "forward_ckpts",
     "fused_adjoint_rollout",
     "fused_rollout_diff",
@@ -87,7 +104,25 @@ _FIELDS = ("ssh", "layer_thickness", "normal_velocity")
 
 
 def _fields(state: StructState) -> tuple:
-    return tuple(getattr(state, f) for f in _FIELDS)
+    """(ssh, h, u), and the tracers fourth where the state has them."""
+    out = tuple(getattr(state, f) for f in _FIELDS)
+    return out if state.tracers is None else (*out, state.tracers)
+
+
+def _planes_state(state: StructState) -> StructState:
+    """The state with its tracers as the kernels' planes (2 nT, ny2, nx, K)."""
+    if state.tracers is None:
+        return state
+    return StructState(state.ssh, state.layer_thickness, state.normal_velocity,
+                       tracer_planes(state.tracers))
+
+
+def _lattice_state(state: StructState) -> StructState:
+    """The inverse of ``_planes_state``: tracers (2, ny2, nx, nT, K)."""
+    if state.tracers is None:
+        return state
+    return StructState(state.ssh, state.layer_thickness, state.normal_velocity,
+                       tracer_unplanes(state.tracers))
 
 
 def _state_bytes(state: StructState) -> int:
@@ -128,18 +163,24 @@ class _Steps:
     ``fe_step.nl_plan``'s plan, the forward path's own; reverse: the
     nonlinear reverse kernel over ``nl_tile`` tiles, by default
     ``adjoint_step.nl_adjoint_plan``'s). States are StructStates of
-    preallocated tensors; stacks carry a leading slot axis. With forcing,
-    the reverse adds d(wind) and d(r_lin, Cd, lambda) to ``dforc``."""
+    preallocated tensors, their tracers (with ``tracers``) as planes;
+    stacks carry a leading slot axis. With forcing, the reverse adds d(wind)
+    and d(r_lin, Cd, lambda) to ``dforc``. ``tracers`` (the states carry
+    tracers) runs the tracer arms with ``tracer_kappa`` and
+    ``tracer_upwind``."""
 
     def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, nonlinear: bool = False,
-                 nl_tile=None, forcing: Forcing | None = None):
+                 nl_tile=None, forcing: Forcing | None = None, tracers: bool = False,
+                 tracer_kappa: float = 0.0, tracer_upwind: float = 1.0):
         self.mesh, self.dt, self.nonlinear, self.forcing = mesh, dt, nonlinear, forcing
+        self.tracers, self.kappa, self.upwind = tracers, tracer_kappa, tracer_upwind
         self.cuda = like.device.type == "cuda"
         if not self.cuda and like.device.type != "cpu":
             raise ValueError(f"no rollout for state on {like.device}")
         if nonlinear:
             check_nl_mesh(mesh)
         check_forced_core(forcing, nonlinear, like.device)
+        check_tracer_core(True if tracers else None, nonlinear, forcing, like.device)
         self.dforc = None
         if forcing is not None:
             # d(wind) in the state dtype, per edge channel; the coefficients' in double
@@ -155,6 +196,8 @@ class _Steps:
             self.adj = (f_edge, *mesh.host_adjoint_stencil)
             self.live = kernel_live(mesh)
             self.kf = kernel_forcing(forcing, mesh, dtype, like.device)
+            cmask = None if mesh.cell_mask is None else mesh.cell_mask.to(dtype).contiguous()
+            self.topts = (cmask, *tracer_opts(tracer_kappa, tracer_upwind, dtype))
             if nonlinear:
                 nl = (nl_setup(mesh, dtype), mesh.vertex_cell_terms, mesh.edge_vertex_terms)
                 self.nl_fwd = (rts, *mesh.host_stencil, *nl)
@@ -176,18 +219,33 @@ class _Steps:
         self.dforc.wind.add_(d.wind.reshape(self.dforc.wind.shape))
         self.dforc.coefs.add_(d.coefs.to(self.dforc.coefs.dtype))
 
+    def kernel_tracers(self, planes: torch.Tensor | None) -> KernelTracers | None:
+        """The tracer arms' operands for ``planes`` (a state's or a
+        stack's), or None without tracers."""
+        return None if planes is None else KernelTracers(planes, *self.topts)
+
+    def plain_step(self, state: StructState) -> StructState:
+        """One plain step of a state whose tracers are planes, the tracers
+        of the result planes too."""
+        return _planes_state(structured_step(_lattice_state(state), self.mesh, self.dt,
+                                             self.nonlinear, self.forcing, self.kappa,
+                                             self.upwind))
+
     def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
         """n >= 1 steps from src into out."""
         if self.cuda and self.nonlinear:
             fe_step.fe_nl_rollout(*_fields(src), *self.nl_fwd, *self.nl_scal, n,
                                   live=self.live, out=_fields(out), scratch=_fields(scratch))
         elif self.cuda:
-            fe_step.fe_rollout_into(_fields(src), _fields(out), *self.fwd, *self.scal,
-                                    n, _fields(scratch), live=self.live, forcing=self.kf)
+            fe_step.fe_rollout_into(_fields(src)[:3], _fields(out)[:3], *self.fwd, *self.scal,
+                                    n, _fields(scratch)[:3], live=self.live, forcing=self.kf,
+                                    tracers=self.kernel_tracers(src.tracers),
+                                    tr_out=out.tracers, tr_scratch=scratch.tracers)
         else:
-            for dst, x in zip(_fields(out), _fields(structured_run_loop(
-                    src, self.mesh, self.dt, n, nonlinear=self.nonlinear,
-                    forcing=self.forcing))):
+            res = _planes_state(structured_run_loop(
+                _lattice_state(src), self.mesh, self.dt, n, nonlinear=self.nonlinear,
+                forcing=self.forcing, tracer_kappa=self.kappa, tracer_upwind=self.upwind))
+            for dst, x in zip(_fields(out), _fields(res)):
                 dst.copy_(x)
 
     def fill(self, stack: StructState, n: int):
@@ -196,20 +254,30 @@ class _Steps:
             fe_step.fe_nl_fill_stack(_fields(stack), *self.nl_fwd, *self.nl_scal, n,
                                      live=self.live)
         elif self.cuda:
-            fe_step.fe_fill_stack(_fields(stack), *self.fwd, *self.scal, n, live=self.live,
-                                  forcing=self.kf)
+            fe_step.fe_fill_stack(_fields(stack)[:3], *self.fwd, *self.scal, n, live=self.live,
+                                  forcing=self.kf, tracers=self.kernel_tracers(stack.tracers))
         else:
             for j in range(n):
-                nxt = structured_step(_slot(stack, j), self.mesh, self.dt, self.nonlinear,
-                                      self.forcing)
+                nxt = self.plain_step(_slot(stack, j))
                 for dst, x in zip(_fields(_slot(stack, j + 1)), _fields(nxt)):
                     dst.copy_(x)
 
+    def plain_reverse(self, state: StructState, g: StructState):
+        """One plain reverse step through ``state`` for the cotangent ``g``,
+        both with tracers as planes: (d_state with its tracers as planes,
+        d(dt)[, ForcingCot])."""
+        step = structured_nl_adjoint_step if self.nonlinear else structured_adjoint_step
+        res = step(_lattice_state(state), _lattice_state(g), self.mesh, self.dt, self.forcing,
+                   tracer_kappa=self.kappa, tracer_upwind=self.upwind)
+        return (_planes_state(res[0]), *res[1:])
+
     def reverse(self, stack: StructState, g: StructState, n: int, ddt: torch.Tensor,
-                out: StructState, scratch: StructState):
+                out: StructState, scratch: StructState, end: StructState | None = None):
         """n >= 1 reverse steps through the stack's slots n - 1 .. 0, from
         the cotangent g at step n into out; d(dt) is added to ddt, and with
-        forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``."""
+        forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``. With tracers
+        on the card, ``end`` is the state after slot n - 1 (its h and
+        tracers are read)."""
         if self.cuda and self.nonlinear:
             adjoint_step.nl_adjoint_rollout(_fields(stack), _fields(g), *self.nl_adj,
                                             *self.nl_adj_scal, n, ddt, _fields(out),
@@ -217,20 +285,32 @@ class _Steps:
                                             tile=self.nl_tile)
             return
         if self.cuda:
-            adjoint_step.adjoint_rollout(_fields(stack), _fields(g), *self.adj,
+            adjoint_step.adjoint_rollout(_fields(stack)[:3], _fields(g), *self.adj,
                                          *self.scal, n, ddt, _fields(out),
                                          _fields(scratch), live=self.live, forcing=self.kf,
-                                         dforc=self.dforc)
+                                         dforc=self.dforc, tracers=self.kernel_tracers(
+                                             stack.tracers), end=_end(end, self.tracers))
             return
-        step = structured_nl_adjoint_step if self.nonlinear else structured_adjoint_step
         for j in reversed(range(n)):
-            res = step(_slot(stack, j), g, self.mesh, self.dt, self.forcing)
+            res = self.plain_reverse(_slot(stack, j), g)
             g = res[0]
             ddt += res[1]
             if self.forcing is not None:
                 self.add_forcing_cot(res[2])
         for dst, x in zip(_fields(out), _fields(g)):
             dst.copy_(x)
+
+
+def _end(end: StructState | None, tracers: bool):
+    """(h, tracer planes) of the state after a stack's last slot, which a
+    tracer reverse reads; None without tracers."""
+    if not tracers:
+        return None
+    if end is None:
+        raise ValueError("a reverse with tracers on the card reads the state after the "
+                         "last step it reverses (the segment's or the rollout's final "
+                         "state: end= or final=)")
+    return end.layer_thickness, end.tracers
 
 
 def _slot(stack: StructState, j: int) -> StructState:
@@ -248,26 +328,19 @@ def _copy(state: StructState) -> StructState:
                          for x in _fields(state)))
 
 
-def check_no_tracers(state: StructState) -> None:
-    """The gradients carry no tracers yet (the tracer arms of the reverse
-    kernels are still to port): a state with tracers raises rather than
-    losing them."""
-    if state.tracers is not None:
-        raise NotImplementedError("the gradient entry points carry no tracers yet; run a "
-                                  "state with tracers forward (structured_auto_run_loop)")
+def _steps(mesh: StructMesh, dt, state: StructState, nonlinear: bool, forcing, tropts,
+           **kw) -> "_Steps":
+    """The steps for ``state`` (its tracers, if any, with ``tropts`` =
+    (kappa, upwind))."""
+    return _Steps(mesh, dt, state.layer_thickness, nonlinear, forcing=forcing,
+                  tracers=state.tracers is not None, tracer_kappa=tropts[0],
+                  tracer_upwind=tropts[1], **kw)
 
 
-def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
-                  group: int, nonlinear: bool = False, forcing: Forcing | None = None
-                  ) -> tuple[StructState, StructState]:
-    """The forward in groups of ``group`` steps (the last takes the
-    remainder), keeping each group's start state. Returns (final state,
-    checkpoints as a StructState of stacks with one slot per group). The
-    per-step arithmetic is that of one ``fused_run_loop`` call (with
-    ``nonlinear``, of the vector-invariant core; with ``forcing``, forced),
-    so the final state is bitwise the same. Counterpart of
-    ``_pallas_forward_ckpts``."""
-    check_no_tracers(state)
+def _forward(state: StructState, mesh: StructMesh, dt, n_steps: int, group: int,
+             nonlinear: bool, forcing, tropts, steps=None) -> tuple[StructState, StructState]:
+    """``forward_ckpts`` on a state whose tracers are planes: (final state,
+    checkpoints), both with tracers as planes."""
     starts = range(0, n_steps, group)
     ckpts = _empty(state, len(starts))
     if nonlinear:
@@ -275,7 +348,7 @@ def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
     check_forced_core(forcing, nonlinear, state.layer_thickness.device)
     if n_steps == 0:
         return _copy(state), ckpts
-    steps = _Steps(mesh, dt, state.layer_thickness, nonlinear, forcing=forcing)
+    steps = steps or _steps(mesh, dt, state, nonlinear, forcing, tropts)
     for dst, x in zip(_fields(_slot(ckpts, 0)), _fields(state)):
         dst.copy_(x)
     final, scratch = _empty(state), _empty(state)
@@ -285,16 +358,38 @@ def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
     return final, ckpts
 
 
+def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
+                  group: int, nonlinear: bool = False, forcing: Forcing | None = None, *,
+                  tracer_kappa: float = 0.0, tracer_upwind: float = 1.0
+                  ) -> tuple[StructState, StructState]:
+    """The forward in groups of ``group`` steps (the last takes the
+    remainder), keeping each group's start state. Returns (final state,
+    checkpoints as a StructState of stacks with one slot per group; their
+    tracers, if any, as planes (slots, 2 nT, ny2, nx, K)). The per-step
+    arithmetic is that of one ``fused_run_loop`` call (with ``nonlinear``,
+    of the vector-invariant core; with ``forcing``, forced; the state's
+    tracers with ``tracer_kappa`` and ``tracer_upwind``), so the final state
+    is bitwise the same. Counterpart of ``_pallas_forward_ckpts``."""
+    final, ckpts = _forward(_planes_state(state), mesh, dt, n_steps, group, nonlinear,
+                            forcing, (tracer_kappa, tracer_upwind))
+    return _lattice_state(final), ckpts
+
+
 def _segment(steps: _Steps, ckpt: StructState, cot: StructState, n: int,
              stack: StructState, ddt: torch.Tensor, out: StructState,
-             scratch: StructState):
+             scratch: StructState, end: StructState | None = None):
     for dst, x in zip(_fields(_slot(stack, 0)), _fields(ckpt)):
         dst.copy_(x)
     steps.fill(stack, n - 1)
-    steps.reverse(stack, cot, n, ddt, out, scratch)
+    steps.reverse(stack, cot, n, ddt, out, scratch, end)
 
 
 def _cotangent(g: StructState, like: StructState) -> StructState:
+    """The output cotangent ``g`` (tracers as planes) in ``like``'s dtype,
+    contiguous; tracers that ``g`` lacks are zeros."""
+    if like.tracers is not None and g.tracers is None:
+        g = StructState(g.ssh, g.layer_thickness, g.normal_velocity,
+                        torch.zeros_like(like.tracers))
     return StructState(*(x.to(y.dtype).contiguous()
                          for x, y in zip(_fields(g), _fields(like))))
 
@@ -308,6 +403,8 @@ def _dt_meta(dt, device) -> tuple:
 
 
 def _plan(state: StructState, n_steps: int, plan) -> int:
+    """Steps per group: ``plan``, or ``adjoint_plan``'s within the default
+    budget."""
     if plan:
         return plan
     if n_steps == 0:
@@ -323,31 +420,39 @@ def _with_forcing(result: tuple, steps: _Steps) -> tuple:
 
 
 def adjoint_segment(ckpt: StructState, cot: StructState, mesh: StructMesh, dt,
-                    n_steps: int, nonlinear: bool = False, forcing: Forcing | None = None):
+                    n_steps: int, nonlinear: bool = False, forcing: Forcing | None = None, *,
+                    end: StructState | None = None, tracer_kappa: float = 0.0,
+                    tracer_upwind: float = 1.0):
     """Reverse of one n-step segment (of the nonlinear core with
-    ``nonlinear``, forced with ``forcing``): rebuild its states from its
+    ``nonlinear``, forced with ``forcing``, the state's tracers with
+    ``tracer_kappa`` and ``tracer_upwind``): rebuild its states from its
     start state ``ckpt``, then step the cotangent ``cot`` at its end back to
-    its start. Returns (cotangent at the start, d(dt) as a 0-d float64
-    tensor), and with forcing the ForcingCot third. Counterpart of
-    ``_adjoint_segment``."""
+    its start. ``end``, the segment's final state, is what a tracer reverse
+    on the card reads after its last step (it raises ValueError without).
+    Returns (cotangent at the start, d(dt) as a 0-d float64 tensor), and
+    with forcing the ForcingCot third. Counterpart of ``_adjoint_segment``."""
     if n_steps < 1:
         raise ValueError("a segment has n_steps >= 1")
-    check_no_tracers(ckpt)
-    steps = _Steps(mesh, dt, ckpt.layer_thickness, nonlinear, forcing=forcing)
+    ckpt = _planes_state(ckpt)
+    steps = _steps(mesh, dt, ckpt, nonlinear, forcing, (tracer_kappa, tracer_upwind))
     ddt = torch.zeros(1, dtype=torch.float64, device=ckpt.layer_thickness.device)
     out = _empty(ckpt)
-    _segment(steps, ckpt, _cotangent(cot, ckpt), n_steps, _empty(ckpt, n_steps), ddt,
-             out, _empty(ckpt))
-    return _with_forcing((out, ddt.reshape(())), steps)
+    _segment(steps, ckpt, _cotangent(_planes_state(cot), ckpt), n_steps,
+             _empty(ckpt, n_steps), ddt, out, _empty(ckpt),
+             None if end is None else _planes_state(end))
+    return _with_forcing((_lattice_state(out), ddt.reshape(())), steps)
 
 
-def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructState) -> tuple:
+def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructState,
+           final: StructState | None = None) -> tuple:
     """The reverse sweep over n slots from the checkpoints, one per group of
     ``group`` slots (the last takes the remainder): per group, last to
     first, rebuild its slots with ``steps.fill`` and step the cotangent back
-    through them with ``steps.reverse``. A slot is a step here and a
-    superstep in tiled_diff. Returns (cotangent of the rollout's input,
-    d(dt) as a 0-d float64 tensor), and with forcing the ForcingCot third."""
+    through them with ``steps.reverse``, whose end state is the next
+    checkpoint or, for the last group, ``final``. A slot is a step here and
+    a superstep in tiled_diff. States with tracers as planes. Returns
+    (cotangent of the rollout's input, d(dt) as a 0-d float64 tensor), and
+    with forcing the ForcingCot third."""
     x = ckpts.layer_thickness
     ddt = torch.zeros(1, dtype=torch.float64, device=x.device)
     if n == 0:
@@ -356,41 +461,61 @@ def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructState
     stack = _empty(like, min(group, n))
     bufs, scratch = (_empty(like), _empty(like)), _empty(like)
     cot = _cotangent(g, like)
-    for gi in reversed(range(len(range(0, n, group)))):
+    n_groups = len(range(0, n, group))
+    for gi in reversed(range(n_groups)):
         out = bufs[gi % 2]
+        end = _slot(ckpts, gi + 1) if gi + 1 < n_groups else final
         _segment(steps, _slot(ckpts, gi), cot, min(group, n - gi * group), stack,
-                 ddt, out, scratch)
+                 ddt, out, scratch, end)
         cot = out
     return _with_forcing((cot, ddt.reshape(())), steps)
 
 
 def adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
                        group: int, g: StructState, nonlinear: bool = False,
-                       forcing: Forcing | None = None) -> tuple:
+                       forcing: Forcing | None = None, *, final: StructState | None = None,
+                       tracer_kappa: float = 0.0, tracer_upwind: float = 1.0) -> tuple:
     """The reverse sweep from the checkpoints of ``forward_ckpts`` (of the
-    nonlinear core with ``nonlinear``, forced with ``forcing``): per group,
-    last to first, rebuild its states and step the cotangent back through
-    them. Returns (cotangent of the rollout's input, d(dt) as a 0-d float64
-    tensor), and with forcing the ForcingCot third. Counterpart of
-    ``_pallas_adjoint_from_ckpts``."""
-    return _sweep(_Steps(mesh, dt, ckpts.layer_thickness, nonlinear, forcing=forcing), ckpts,
-                  n_steps, group, g)
+    nonlinear core with ``nonlinear``, forced with ``forcing``, the tracers
+    with ``tracer_kappa`` and ``tracer_upwind``): per group, last to first,
+    rebuild its states and step the cotangent back through them. ``final``,
+    the rollout's final state (``forward_ckpts``' first item), is what the
+    last group's tracer reverse on the card reads after its last step (it
+    raises ValueError without). Returns (cotangent of the rollout's input,
+    d(dt) as a 0-d float64 tensor), and with forcing the ForcingCot third.
+    Counterpart of ``_pallas_adjoint_from_ckpts``."""
+    steps = _steps(mesh, dt, ckpts, nonlinear, forcing, (tracer_kappa, tracer_upwind))
+    return _reverse(steps, ckpts, n_steps, group, g,
+                    None if final is None else _planes_state(final))
+
+
+def _reverse(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructState,
+             final: StructState | None) -> tuple:
+    """``_sweep`` for the output cotangent ``g`` (tracers in the lattice
+    layout) and the rollout's ``final`` state with its tracers as planes;
+    the input cotangent's tracers in the lattice layout."""
+    res = _sweep(steps, ckpts, n, group, _planes_state(g), final)
+    return (_lattice_state(res[0]), *res[1:])
 
 
 def fused_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
                           g: StructState, *, plan: int | None = None, nonlinear: bool = False,
-                          forcing: Forcing | None = None):
+                          forcing: Forcing | None = None, tracer_kappa: float = 0.0,
+                          tracer_upwind: float = 1.0):
     """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``,
-    forced with ``forcing``): given its input ``state`` and an output
-    cotangent ``g``, returns (d_state, d_dt), d_dt as a 0-d tensor in dt's
-    dtype (float64 for a Python dt), and with forcing the ForcingCot third.
+    forced with ``forcing``, the state's tracers with ``tracer_kappa`` and
+    ``tracer_upwind``): given its input ``state`` and an output cotangent
+    ``g``, returns (d_state, d_dt), d_dt as a 0-d tensor in dt's dtype
+    (float64 for a Python dt), and with forcing the ForcingCot third.
     ``plan`` (steps per group) overrides ``adjoint_plan``, whose budget is
     MEMORY_SHARE of the card's free memory (unbounded on the CPU).
     Counterpart of ``pallas_adjoint_rollout``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
     group = _plan(state, n_steps, plan)
-    _, ckpts = forward_ckpts(state, mesh, dt, n_steps, group, nonlinear, forcing)
-    res = adjoint_from_ckpts(ckpts, mesh, dt, n_steps, group, g, nonlinear, forcing)
+    tr = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
+    final, ckpts = forward_ckpts(state, mesh, dt, n_steps, group, nonlinear, forcing, **tr)
+    res = adjoint_from_ckpts(ckpts, mesh, dt, n_steps, group, g, nonlinear, forcing,
+                             final=final, **tr)
     return (res[0], res[1].to(dtype=dtype, device=device), *res[2:])
 
 
@@ -402,16 +527,23 @@ def _save_dt(ctx, dt, device):
     ctx.dt_v, ctx.dt_meta = _dt_value(dt), _dt_meta(dt, device)
 
 
-# The inputs of the autograd Functions below: the state, dt, the forcing's
-# differentiable parts (wind and the three coefficients, None unforced),
-# then the rest, which get no cotangent.
-_DIFF_INPUTS = 8
+# The inputs of the autograd Functions below: the state (ssh, h, u and the
+# tracers, None without), dt, the forcing's differentiable parts (wind and
+# the three coefficients, None unforced), then the rest, which get no
+# cotangent.
+_DIFF_INPUTS = 9
+_DT_INPUT = 4
 
 
 def _forcing_inputs(forcing: Forcing | None) -> tuple:
     if forcing is None:
         return (None,) * 4
     return (forcing.wind_edge, forcing.drag_linear, forcing.drag_quadratic, forcing.rayleigh)
+
+
+def _state_inputs(state: StructState) -> tuple:
+    """(ssh, h, u, tracers) of a state, tracers None without."""
+    return (state.ssh, state.layer_thickness, state.normal_velocity, state.tracers)
 
 
 def _save_forcing(ctx, forcing: Forcing | None, wind, dlin, dquad, rayl) -> Forcing | None:
@@ -427,10 +559,11 @@ def _save_forcing(ctx, forcing: Forcing | None, wind, dlin, dquad, rayl) -> Forc
 
 def _grads(ctx, res) -> tuple:
     """The cotangents of the first _DIFF_INPUTS inputs from a reverse's
-    (d_state, ddt[, ForcingCot])."""
+    (d_state, ddt[, ForcingCot]), d_state's tracers (None without) in the
+    lattice layout."""
     d_state, ddt = res[:2]
     d_dt = None
-    if ctx.needs_input_grad[3]:
+    if ctx.needs_input_grad[_DT_INPUT]:
         dtype, device = ctx.dt_meta
         d_dt = ddt.to(dtype=dtype, device=device)
     d_forc = [None] * 4
@@ -438,10 +571,13 @@ def _grads(ctx, res) -> tuple:
         d = res[2]
         d_forc = [x.to(dtype=t, device=v)
                   for x, (t, v) in zip((d.wind, *d.coefs), ctx.forc_meta)]
-    return (*_fields(d_state), d_dt, *d_forc)
+    return (*_state_inputs(d_state), d_dt, *d_forc)
 
 
 def _output_cotangent(like: StructState, grads) -> StructState:
+    """The outputs' cotangents as a state like ``like`` (tracers in the
+    lattice layout where ``like`` has them): zeros where autograd gave
+    None."""
     return StructState(*(torch.zeros_like(x) if gx is None else gx
                          for x, gx in zip(_fields(like), grads)))
 
@@ -449,85 +585,101 @@ def _output_cotangent(like: StructState, grads) -> StructState:
 class FusedRolloutDiff(torch.autograd.Function):
     """n-step rollout whose backward is the checkpointed reverse sweep
     (``forward_ckpts`` forward, ``adjoint_from_ckpts`` backward). Inputs:
-    ssh, h, u, dt (float or tensor), the forcing's wind and r_lin, Cd,
-    lambda (None unforced), mesh, n_steps, plan, nonlinear, forcing (its
-    level masks). The mesh and the masks get no cotangent (None; the JAX
-    package returns zeros for them)."""
+    ssh, h, u, the tracers (lattice layout, or None), dt (float or tensor),
+    the forcing's wind and r_lin, Cd, lambda (None unforced), mesh, n_steps,
+    plan, nonlinear, forcing (its level masks), tracer_kappa,
+    tracer_upwind. The mesh, the masks, kappa and upwind get no cotangent
+    (None; the JAX package returns zeros for the mesh and keeps kappa and
+    upwind nondifferentiable)."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, dt, wind, dlin, dquad, rayl, mesh, n_steps, plan=None,
-                nonlinear=False, forcing=None):
-        state = StructState(ssh, h, u)
+    def forward(ctx, ssh, h, u, tracers, dt, wind, dlin, dquad, rayl, mesh, n_steps, plan=None,
+                nonlinear=False, forcing=None, tracer_kappa=0.0, tracer_upwind=1.0):
+        state = _planes_state(StructState(ssh, h, u, tracers))
         _save_dt(ctx, dt, h.device)
         forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
         group = _plan(state, n_steps, plan)
-        final, ckpts = forward_ckpts(state, mesh, ctx.dt_v, n_steps, group, nonlinear, forcing)
+        ctx.tropts = (tracer_kappa, tracer_upwind)
+        final, ckpts = _forward(state, mesh, ctx.dt_v, n_steps, group, nonlinear, forcing,
+                                ctx.tropts)
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.group = ckpts, mesh, n_steps, group
         ctx.nonlinear = nonlinear
-        return _fields(final)
+        # the end state of the last group, which a tracer reverse reads
+        ctx.final = final if tracers is not None else None
+        return _state_inputs(_lattice_state(final))
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, gs, gh, gu):
-        rest = (None,) * 5
+    def backward(ctx, gs, gh, gu, gtr):
+        rest = (None,) * 7
         if ctx.n_steps == 0:
-            return gs, gh, gu, *(None,) * (_DIFF_INPUTS - 3), *rest
-        g = _output_cotangent(_slot(ctx.ckpts, 0), (gs, gh, gu))
-        res = adjoint_from_ckpts(ctx.ckpts, ctx.mesh, ctx.dt_v, ctx.n_steps, ctx.group, g,
-                                 ctx.nonlinear, ctx.forcing)
+            return gs, gh, gu, gtr, *(None,) * (_DIFF_INPUTS - 4), *rest
+        like = _lattice_state(_slot(ctx.ckpts, 0))
+        g = _output_cotangent(like, (gs, gh, gu, gtr))
+        steps = _steps(ctx.mesh, ctx.dt_v, ctx.ckpts, ctx.nonlinear, ctx.forcing, ctx.tropts)
+        res = _reverse(steps, ctx.ckpts, ctx.n_steps, ctx.group, g, ctx.final)
         return (*_grads(ctx, res), *rest)
 
 
 def fused_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                        plan: int | None = None, nonlinear: bool = False,
-                       forcing: Forcing | None = None) -> StructState:
+                       forcing: Forcing | None = None, tracer_kappa: float = 0.0,
+                       tracer_upwind: float = 1.0) -> StructState:
     """n-step rollout of the linear core, or with ``nonlinear`` of the
     vector-invariant one (periodic, or masked where the mesh has a wall
-    mask), forced with ``forcing`` (struct layout), differentiable with
-    respect to the state, a tensor ``dt`` and the forcing's wind and
-    coefficients: the reverse-mode pass through the whole loop, which the
-    reference validates with Enzyme against finite differences. Forward
-    through ``fe_step`` on the card, backward through ``adjoint_step`` (the
-    nonlinear core: the nonlinear reverse kernel; forcing with the
-    nonlinear core raises there). A state with tracers raises
-    NotImplementedError. Counterpart of ``pallas_rollout_diff``."""
-    check_no_tracers(state)
-    return StructState(*FusedRolloutDiff.apply(*_fields(state), dt, *_forcing_inputs(forcing),
-                                               mesh, n_steps, plan, nonlinear, forcing))
+    mask), forced with ``forcing`` (struct layout), the state's tracers
+    carried with ``tracer_kappa`` and ``tracer_upwind``, differentiable with
+    respect to the state (its tracers among it), a tensor ``dt`` and the
+    forcing's wind and coefficients: the reverse-mode pass through the
+    whole loop, which the reference validates with Enzyme against finite
+    differences. Forward through ``fe_step`` on the card, backward through
+    ``adjoint_step`` (the nonlinear core: the nonlinear reverse kernel;
+    forcing with the nonlinear core, and tracers with the nonlinear core or
+    forcing, raise there). Counterpart of ``pallas_rollout_diff``."""
+    return StructState(*FusedRolloutDiff.apply(*_state_inputs(state), dt,
+                                               *_forcing_inputs(forcing), mesh, n_steps, plan,
+                                               nonlinear, forcing, tracer_kappa,
+                                               tracer_upwind))
 
 
 class FusedStep(torch.autograd.Function):
     """One differentiable step: the forward kernel forward, the reverse
-    kernel backward. Inputs: ssh, h, u, dt, the forcing's wind and
-    coefficients (None unforced), mesh, nonlinear, forcing."""
+    kernel backward. Inputs: ssh, h, u, the tracers (or None), dt, the
+    forcing's wind and coefficients (None unforced), mesh, nonlinear,
+    forcing, tracer_kappa, tracer_upwind."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, dt, wind, dlin, dquad, rayl, mesh, nonlinear=False,
-                forcing=None):
-        ctx.save_for_backward(ssh, h, u)
+    def forward(ctx, ssh, h, u, tracers, dt, wind, dlin, dquad, rayl, mesh, nonlinear=False,
+                forcing=None, tracer_kappa=0.0, tracer_upwind=1.0):
+        ctx.save_for_backward(ssh, h, u, tracers)
         ctx.mesh, ctx.nonlinear = mesh, nonlinear
+        ctx.tropts = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
         _save_dt(ctx, dt, h.device)
         forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
-        return _fields(fused_run_loop(StructState(ssh, h, u), mesh, ctx.dt_v, 1,
-                                      nonlinear=nonlinear, forcing=forcing))
+        final = fused_run_loop(StructState(ssh, h, u, tracers), mesh, ctx.dt_v, 1,
+                               nonlinear=nonlinear, forcing=forcing, **ctx.tropts)
+        # the step's end state, which a tracer reverse reads
+        ctx.final = final if tracers is not None else None
+        return _state_inputs(final)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, gs, gh, gu):
+    def backward(ctx, gs, gh, gu, gtr):
         state = StructState(*ctx.saved_tensors)
-        res = adjoint_segment(state, _output_cotangent(state, (gs, gh, gu)), ctx.mesh,
-                              ctx.dt_v, 1, ctx.nonlinear, ctx.forcing)
-        return (*_grads(ctx, res), None, None, None)
+        res = adjoint_segment(state, _output_cotangent(state, (gs, gh, gu, gtr)), ctx.mesh,
+                              ctx.dt_v, 1, ctx.nonlinear, ctx.forcing, end=ctx.final,
+                              **ctx.tropts)
+        return (*_grads(ctx, res), *(None,) * 5)
 
 
 def fused_step(state: StructState, mesh: StructMesh, dt, *, nonlinear: bool = False,
-               forcing: Forcing | None = None) -> StructState:
+               forcing: Forcing | None = None, tracer_kappa: float = 0.0,
+               tracer_upwind: float = 1.0) -> StructState:
     """One differentiable forward-Euler step (of the nonlinear core with
-    ``nonlinear``, forced with ``forcing``); a state with tracers raises.
-    Counterpart of ``pallas_step``."""
-    check_no_tracers(state)
-    return StructState(*FusedStep.apply(*_fields(state), dt, *_forcing_inputs(forcing), mesh,
-                                        nonlinear, forcing))
+    ``nonlinear``, forced with ``forcing``, the state's tracers with
+    ``tracer_kappa`` and ``tracer_upwind``). Counterpart of ``pallas_step``."""
+    return StructState(*FusedStep.apply(*_state_inputs(state), dt, *_forcing_inputs(forcing),
+                                        mesh, nonlinear, forcing, tracer_kappa, tracer_upwind))
 
 
 # The size rule of auto_rollout_diff on the card: lattices of at least this
@@ -544,7 +696,8 @@ TILED_REVERSE_SITES = math.inf
 
 def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                       plan=None, nonlinear: bool = False,
-                      forcing: Forcing | None = None) -> StructState:
+                      forcing: Forcing | None = None, tracer_kappa: float = 0.0,
+                      tracer_upwind: float = 1.0) -> StructState:
     """The differentiable lattice rollout's entry point, the routing half of
     ``pallas_rollout_diff``'s forward (pallas_model.py:2779-2823). A CPU
     state takes ``fused_rollout_diff``, whose plain route runs the plain
@@ -553,16 +706,16 @@ def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     lattices of fewer than TILED_REVERSE_SITES sites and ``tiled_adjoint``
     (``tiled_diff.tiled_rollout_diff``) on larger ones. ``nonlinear`` runs
     the vector-invariant core through the same routes (the kernels'
-    nonlinear arms), and ``forcing`` (struct layout, a differentiated input)
-    through their forced arms. ``plan`` is the chosen route's: steps per
-    group for the fused reverse, (row_tile, col_tile, q, group) for the
-    tiled one. A state with tracers raises NotImplementedError (from either
-    route), on the CPU and on the card."""
+    nonlinear arms), ``forcing`` (struct layout, a differentiated input)
+    through their forced arms, and the state's tracers (differentiated, with
+    ``tracer_kappa`` and ``tracer_upwind``) through their tracer arms.
+    ``plan`` is the chosen route's: steps per group for the fused reverse,
+    (row_tile, col_tile, q, group) for the tiled one."""
     sites = 2 * mesh.ny2 * mesh.nx
+    kw = dict(plan=plan, nonlinear=nonlinear, forcing=forcing, tracer_kappa=tracer_kappa,
+              tracer_upwind=tracer_upwind)
     if state.layer_thickness.device.type == "cuda" and sites >= TILED_REVERSE_SITES:
         from .tiled_diff import tiled_rollout_diff
 
-        return tiled_rollout_diff(state, mesh, dt, n_steps, plan=plan, nonlinear=nonlinear,
-                                  forcing=forcing)
-    return fused_rollout_diff(state, mesh, dt, n_steps, plan=plan, nonlinear=nonlinear,
-                              forcing=forcing)
+        return tiled_rollout_diff(state, mesh, dt, n_steps, **kw)
+    return fused_rollout_diff(state, mesh, dt, n_steps, **kw)

@@ -2,6 +2,7 @@
 compare two checkouts of the package.
 
     python -m mpas_ocean_tpu_torch.tools.reverse_timing [--sizes 64 256] [--group 40]
+        [--tracers 0]
 
 For each lattice size (n x n cells, 100 levels, f32, the inertial-gravity
 wave at dt = 30 s) it fills a stack of ``group`` primal states through
@@ -12,7 +13,10 @@ stack by ``held_us``, the timer chip_smoke.py's phase 8 uses too, and, where
 the checkout has it, one of the nonlinear reverse
 (``adjoint_step.nl_adjoint_rollout``, its planner's plan) over a stack of
 nonlinear states filled through ``structured_auto_run_loop(nonlinear=True)``
-(phase 13's timer). Prints
+(phase 13's timer). With ``--tracers N`` (N > 0) it times the tracer arms of
+adjoint_step and tiled_adjoint (q = 1, the planners' tracer tiles) over a
+stack of states carrying N tracers (``tile_sweep.tracer_stack``) instead,
+and no nonlinear reverse. Prints
 one JSON line with the µs per launch of every rep, the card and the
 package's path. To compare two checkouts of the package on one card, run
 this file against each in turn:
@@ -61,6 +65,36 @@ def held_us(run, n_launches: int, reps: int = REPS) -> list[float]:
         end.synchronize()
         out.append(start.elapsed_time(end) * 1e3 / n_launches)
     return out
+
+
+def time_tracer_arms(n: int, group: int, n_tracers: int) -> dict:
+    """Per-launch device µs of the tracer arms of adjoint_step and
+    tiled_adjoint (q = 1) over a stack of ``group`` states of the n x n
+    lattice carrying ``n_tracers`` tracers."""
+    from mpas_ocean_tpu_torch.tools.tile_sweep import tracer_stack
+
+    model, st = igw_lattice(n)
+    sm = model.struct_mesh
+    scal = _scal(sm, DT, torch.float32)
+    stack, kt, end = tracer_stack(st, sm, group, n_tracers)
+    gen = torch.Generator(device=st.ssh.device).manual_seed(15)
+    g_in = tuple(torch.randn(x.shape[1:], generator=gen, dtype=x.dtype, device=x.device)
+                 for x in (*stack, kt.planes))
+    acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
+    halo = reverse_halo(sm.coriolis_terms)
+    rt, ct, q, _ = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, group, halo=halo,
+                                      n_tracers=n_tracers)
+    kw = dict(tracers=kt, end=end)
+    fused = held_us(lambda: adjoint_step.adjoint_rollout(
+        stack, g_in, sm.f_edge, *sm.host_adjoint_stencil, *scal, group, acc, **kw), group)
+    tiled = held_us(lambda: tiled_adjoint.tiled_adjoint_rollout(
+        stack, g_in, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+        *sm.host_adjoint_stencil, *scal, group, acc, row_tile=rt, col_tile=ct, q=q, halo=halo,
+        **kw), group)
+    return {"n": n, "group": group, "tracers": n_tracers, "tiled_plan": [rt, ct, q],
+            "adjoint_step_tile": list(adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4,
+                                                                n_tracers)),
+            "adjoint_step_us": fused, "tiled_adjoint_us": tiled}
 
 
 def time_size(n: int, group: int) -> dict:
@@ -120,13 +154,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[64, 256])
     ap.add_argument("--group", type=int, default=40)
+    ap.add_argument("--tracers", type=int, default=0,
+                    help="time the tracer arms with this many tracers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("reverse_timing needs a CUDA device")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=False).stdout.strip()
-    sizes = [time_size(n, args.group) for n in args.sizes]
+    sizes = [time_tracer_arms(n, args.group, args.tracers) if args.tracers
+             else time_size(n, args.group) for n in args.sizes]
     print(json.dumps({"package": mpas_ocean_tpu_torch.__file__, "gpu": gpu, "sizes": sizes}),
           flush=True)
 

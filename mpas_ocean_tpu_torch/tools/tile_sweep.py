@@ -1,7 +1,8 @@
 """Time the window kernels' plans and tiles on the card.
 
     python -m mpas_ocean_tpu_torch.tools.tile_sweep [--sizes 256 64] [--steps 40]
-        [--kernels forward reverse nonlinear nonlinear-reverse] [--out tile_sweep.json]
+        [--kernels forward reverse nonlinear nonlinear-reverse] [--tracers 0]
+        [--out tile_sweep.json]
 
 For each lattice size (n x n cells, 100 levels, f32, the inertial-gravity
 wave at dt = 30 s):
@@ -16,7 +17,11 @@ wave at dt = 30 s):
   columns 2-32, ragged tiles too) that fits, and ``tiled_adjoint_rollout``
   for each plan of at least 8 sites that divides the lattice and fits (q = 1
   and 2), each per launch by ``reverse_timing.held_us`` (median of 3 after
-  a warm-up);
+  a warm-up); with ``--tracers N`` (N > 0) the tracer arms of both, q = 1
+  only, over a stack of states carrying N tracers (bench.py's temperature
+  wave and uniform salinity, repeated), their tiles and plans sized with
+  the tracer planes (``adjoint_tile``'s and ``tiled_adjoint_plan``'s
+  ``n_tracers``);
 * nonlinear: the nonlinear arms (csrc/nl_step.cuh) at q = 1, by CUDA events
   as forward: fe_step's FE arm through ``fe_step.fe_nl_rollout`` and
   tiled_step's FB arm through ``tiled_step.tiled_nl_rollout``, for each
@@ -125,20 +130,24 @@ def fe_tiles(ny2: int, nx: int, k: int, itemsize: int):
     return [t for t in tiles if fe_step.smem_bytes(t, k, itemsize) <= fe_step.SMEM_BYTES]
 
 
-def reverse_tiles(ny2: int, nx: int, k: int, itemsize: int):
+def reverse_tiles(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0):
     """adjoint_step's candidate tiles: rows 1-16 and columns 2-32 of at least
-    8 sites, cut to the lattice (ragged tiles included), whose window fits
-    one block's shared memory."""
+    8 sites, cut to the lattice (ragged tiles included), whose window (with
+    ``n_tracers`` the tracer arm's) fits one block's shared memory."""
     tiles = dict.fromkeys((min(rt, ny2), min(ct, nx)) for rt in adjoint_step.TILE_ROWS
                           for ct in adjoint_step.TILE_COLS if rt * ct >= 8)
-    return [t for t in tiles if adjoint_step.smem_bytes(t, k, itemsize) <= fe_step.SMEM_BYTES]
+    return [t for t in tiles if adjoint_step.smem_bytes(t, k, itemsize, n_tracers=n_tracers)
+            <= fe_step.SMEM_BYTES]
 
 
-def reverse_plans(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int):
+def reverse_plans(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
+                  n_tracers: int = 0):
     """The tiled adjoint's candidate plans: tiles up to 32 sites a side of
     at least 8 sites that divide the lattice, q = 1 and 2 (dividing
-    n_steps), kept by the clamp and fitting one block's shared memory."""
-    for q in (1, 2):
+    n_steps; q = 1 only with ``n_tracers``), kept by the clamp and fitting
+    one block's shared memory (the tracer arm's window with
+    ``n_tracers``)."""
+    for q in ((1,) if n_tracers else (1, 2)):
         if n_steps % q:
             continue
         for rt in (d for d in range(1, min(ny2, 32) + 1) if ny2 % d == 0):
@@ -146,39 +155,76 @@ def reverse_plans(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int):
                 if (rt * ct >= 8
                         and resolve_plan(ny2, nx, k, itemsize, halo, n_steps, rt, ct, q)
                         == (rt, ct, q)
-                        and adjoint_window_bytes(rt, ct, q, halo, k, itemsize)
+                        and adjoint_window_bytes(rt, ct, q, halo, k, itemsize,
+                                                 n_tracers=n_tracers)
                         <= fe_step.SMEM_BYTES):
                     yield rt, ct, q
 
 
-def reverse_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
+def tracer_stack(st, sm, n_steps: int, n_tracers: int):
+    """The tracer arms' operands for a stack of n_steps states of ``st``
+    carrying ``n_tracers`` tracers (bench.py's T = 10 + 2 sin(2 pi x / nx)
+    and S = 35, alternating), filled by fe_fill_stack's tracer arm, and the
+    state after its last slot: (stack (ssh, h, u), kernel tracers whose
+    planes are the tracer stack, (h, tracer planes) of the end state)."""
+    from mpas_ocean_tpu_torch.structured import StructState, fused_model
+
+    ny2, nx, k = st.layer_thickness.shape[1:]
+    x = torch.arange(nx, device=st.ssh.device, dtype=torch.float32)[None, None, :, None] / nx
+    wave = (10.0 + 2.0 * torch.sin(2 * torch.pi * x)).expand(2, ny2, nx, k)
+    tr = torch.stack([wave if t % 2 == 0 else torch.full_like(wave, 35.0)
+                      for t in range(n_tracers)], dim=3)
+    kt = fused_model.kernel_tracers(StructState(st.ssh, st.layer_thickness,
+                                                st.normal_velocity, tr), sm, 0.0, 1.0)
+    fields = (st.ssh, st.layer_thickness, st.normal_velocity)
+    full = tuple(torch.empty((n_steps + 1, *x.shape), dtype=x.dtype, device=x.device)
+                 for x in fields)
+    trs = torch.empty((n_steps + 1, *kt.planes.shape), dtype=tr.dtype, device=tr.device)
+    for dst, x in zip(full, fields):
+        dst[0].copy_(x)
+    trs[0].copy_(kt.planes)
+    fe_step.fe_fill_stack(full, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+                          *_scal(sm, DT, torch.float32), n_steps, tracers=kt._replace(planes=trs))
+    return (tuple(x[:n_steps] for x in full), kt._replace(planes=trs[:n_steps]),
+            (full[1][n_steps], trs[n_steps]))
+
+
+def reverse_sweep(n: int, model, st, n_steps: int, gpu: str, n_tracers: int = 0) -> dict:
     """Per-launch device times of both reverse kernels over every tile and
-    plan that fits, from a stack of n_steps primal states of the lattice."""
+    plan that fits, from a stack of n_steps primal states of the lattice
+    (with ``n_tracers``, carrying that many tracers: the tracer arms)."""
     from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
     sm = model.struct_mesh
     scal = _scal(sm, DT, torch.float32)
     fields = (st.ssh, st.layer_thickness, st.normal_velocity)
-    stack = tuple(torch.empty((n_steps, *x.shape), dtype=x.dtype, device=x.device)
-                  for x in fields)
-    for dst, x in zip(stack, fields):
-        dst[0].copy_(x)
-    fe_step.fe_fill_stack(stack, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
-                          *scal, n_steps - 1)
     gen = torch.Generator(device=st.ssh.device).manual_seed(15)
     g_in = tuple(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
                  for x in fields)
+    kw = {}
+    if n_tracers:
+        stack, kt, end = tracer_stack(st, sm, n_steps, n_tracers)
+        g_in += (torch.randn(kt.planes.shape[1:], generator=gen, device=st.ssh.device),)
+        kw = dict(tracers=kt, end=end)
+    else:
+        stack = tuple(torch.empty((n_steps, *x.shape), dtype=x.dtype, device=x.device)
+                      for x in fields)
+        for dst, x in zip(stack, fields):
+            dst[0].copy_(x)
+        fe_step.fe_fill_stack(stack, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+                              *scal, n_steps - 1)
     acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
     table = sm.host_adjoint_stencil[0]
     rows = []
-    for tile in reverse_tiles(sm.ny2, sm.nx, LEVELS, 4):
+    for tile in reverse_tiles(sm.ny2, sm.nx, LEVELS, 4, n_tracers):
         progress(f"{n}: adjoint_step {tile}")
         t = held_us(lambda: adjoint_step._rollout(
             stack, g_in, sm.f_edge, *sm.host_adjoint_stencil, scal, n_steps, acc, None, None,
-            tile), n_steps, REPS)
-        rows.append((tile, t, adjoint_step.launch_plan(table, sm.ny2, sm.nx, LEVELS, tile)))
+            tile, **kw), n_steps, REPS)
+        rows.append((tile, t, adjoint_step.launch_plan(table, sm.ny2, sm.nx, LEVELS, tile,
+                                                       n_tracers)))
     rows.sort(key=lambda r: statistics.median(r[1]))
-    chosen = adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4)
+    chosen = adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4, n_tracers)
     rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
     print(f"{n}x{n}x{LEVELS} f32: adjoint_step, {len(rows)} tiles; adjoint_tile picks "
           f"{chosen}, rank {rank} [{gpu}]", flush=True)
@@ -190,16 +236,17 @@ def reverse_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
              "adjoint_step_chosen": chosen}
     halo = reverse_halo(sm.coriolis_terms)
     rows = []
-    for rt, ct, q in reverse_plans(sm.ny2, sm.nx, LEVELS, 4, halo, n_steps):
+    for rt, ct, q in reverse_plans(sm.ny2, sm.nx, LEVELS, 4, halo, n_steps, n_tracers):
         progress(f"{n}: tiled_adjoint {(rt, ct, q)}")
         t = held_us(lambda: tiled_adjoint.tiled_adjoint_rollout(
             stack, g_in, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
             *sm.host_adjoint_stencil, *scal, n_steps // q, acc, row_tile=rt, col_tile=ct, q=q,
-            halo=halo), n_steps // q, REPS)
+            halo=halo, **kw), n_steps // q, REPS)
         rows.append(((rt, ct, q), [x / q for x in t],
-                     tiled_adjoint.occupancy(rt, ct, q, halo, LEVELS)))
+                     tiled_adjoint.occupancy(rt, ct, q, halo, LEVELS, n_tracers)))
     rows.sort(key=lambda r: statistics.median(r[1]))
-    chosen = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n_steps, halo=halo)[:3]
+    chosen = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n_steps, halo=halo,
+                                n_tracers=n_tracers)[:3]
     rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
     print(f"  tiled_adjoint: {len(rows)} plans; tiled_adjoint_plan picks {chosen}, rank "
           f"{rank}", flush=True)
@@ -301,15 +348,16 @@ def nonlinear_reverse_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
             "nl_adjoint_chosen": chosen}
 
 
-def sweep(sizes, n_steps: int, kernels=("forward", "reverse")) -> dict:
+def sweep(sizes, n_steps: int, kernels=("forward", "reverse"), n_tracers: int = 0) -> dict:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    result = {"gpu": gpu, "levels": LEVELS, "steps": n_steps, "sizes": {}}
+    result = {"gpu": gpu, "levels": LEVELS, "steps": n_steps, "tracers": n_tracers, "sizes": {}}
     for n in sizes:
         model, st = igw_lattice(n)
         if "reverse" in kernels:
-            result.setdefault("reverse", {})[str(n)] = reverse_sweep(n, model, st, n_steps, gpu)
+            result.setdefault("reverse", {})[str(n)] = reverse_sweep(n, model, st, n_steps, gpu,
+                                                                     n_tracers)
         if "nonlinear" in kernels:
             result.setdefault("nonlinear", {})[str(n)] = nonlinear_sweep(n, model, st, n_steps,
                                                                          gpu)
@@ -376,11 +424,13 @@ def main() -> int:
     ap.add_argument("--kernels", nargs="+",
                     choices=("forward", "reverse", "nonlinear", "nonlinear-reverse"),
                     default=["forward", "reverse"])
+    ap.add_argument("--tracers", type=int, default=0,
+                    help="tracers carried by the reverse sweep's states (its tracer arms)")
     ap.add_argument("--out", type=Path, default=Path("tile_sweep.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep needs a CUDA device")
-    result = sweep(args.sizes, args.steps, args.kernels)
+    result = sweep(args.sizes, args.steps, args.kernels, args.tracers)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     return 0

@@ -247,30 +247,42 @@ def test_a_mesh_without_vertex_constants_raises(periodic8):
     structured_run_loop(st_p, bare, DT, 2)  # the linear core needs none
 
 
-@pytest.mark.parametrize("nonlinear", [False, True])
-def test_fb_gradient_matches_jax_grad(nonlinear, periodic8):
+@pytest.mark.parametrize("nonlinear, tracers", [pytest.param(False, False, id="False"),
+                                                pytest.param(True, False, id="True"),
+                                                pytest.param(False, True, id="tracers")])
+def test_fb_gradient_matches_jax_grad(nonlinear, tracers, periodic8):
     """The forward-backward gradient: torch.autograd through the plain
     structured_run_loop(fb=True) against jax.grad of the JAX package's, the
-    objective sum ssh^2 over 6 steps, w.r.t. the state and dt, to 1e-12."""
+    objective sum ssh^2 over 6 steps (with ``tracers``, two tracers carried
+    with kappa 5 and upwind 0.5 and sum T^2 added), w.r.t. the state (its
+    tracers among it) and dt, to 1e-12."""
     smj, smp, st_j, st_p = periodic8[:4]
+    fields, kw = FIELDS, {}
+    if tracers:
+        from test_torch_tracers import tracer_lattice
+
+        smj, smp, st_j, st_p = tracer_lattice(8, 2)[:4]
+        fields, kw = FIELDS + ("tracers",), dict(tracer_kappa=5.0, tracer_upwind=0.5)
+
+    def objective(out, total):
+        return total(out.ssh ** 2) + (total(out.tracers ** 2) if tracers else 0.0)
 
     def jax_obj(s, t):
-        return jnp.sum(jax_run_loop(s, smj.struct_mesh, t, 6, nonlinear=nonlinear,
-                                    fb=True).ssh ** 2)
+        return objective(jax_run_loop(s, smj.struct_mesh, t, 6, nonlinear=nonlinear, fb=True,
+                                      **kw), jnp.sum)
 
     g_j, gdt_j = jax.grad(jax_obj, argnums=(0, 1))(st_j, jnp.float64(DT))
-    leaves = [x.clone().requires_grad_(True) for x in (st_p.ssh, st_p.layer_thickness,
-                                                       st_p.normal_velocity)]
+    leaves = [getattr(st_p, f).clone().requires_grad_(True) for f in fields]
     t = torch.tensor(DT, dtype=torch.float64, requires_grad=True)
-    obj = (structured_run_loop(StructState(*leaves), smp.struct_mesh, t, 6,
-                               nonlinear=nonlinear, fb=True).ssh ** 2).sum()
+    obj = objective(structured_run_loop(StructState(*leaves), smp.struct_mesh, t, 6,
+                                        nonlinear=nonlinear, fb=True, **kw), torch.sum)
     # FB reads no ssh (it takes the pressure of the fresh one): its gradient is 0
     grads = torch.autograd.grad(obj, [*leaves, t], allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, [*leaves, t])]
-    for got, f in zip(grads, FIELDS):
+    for got, f in zip(grads, fields):
         want = np.asarray(getattr(g_j, f))
         assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max(), f
-    assert abs(float(grads[3]) - float(gdt_j)) <= 1e-12 * abs(float(gdt_j))
+    assert abs(float(grads[-1]) - float(gdt_j)) <= 1e-12 * abs(float(gdt_j))
 
 
 # ---- windows and planners ------------------------------------------------------

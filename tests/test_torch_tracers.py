@@ -7,14 +7,17 @@ against the JAX roll model, the slab step's tracer arm against
 ``sharded._step_slab``, the tiled kernel's plain windows and the fused
 route's plain version against the JAX Pallas kernels in interpret mode, the
 physics of tests/test_tracers.py on the port's lattice, the planners'
-tracer planes, and the refusals: every gradient entry point with a state
-that carries tracers, and tracers with the nonlinear core or with forcing on
-the card. The CUDA tracer arms are held against these plain versions on the
-card (tests/test_torch_tracer_kernel.py, chip_smoke.py phase 15).
+tracer planes, every gradient entry point carrying a state's tracers
+against jax.vjp of the JAX roll model, and the refusals: tracers with the
+nonlinear core or with forcing on the card, forward and reverse. The CUDA
+tracer arms are held against these plain versions on the card
+(tests/test_torch_tracer_kernel.py, chip_smoke.py phase 15; the reverse's
+in tests/test_torch_tracer_adjoint_kernel.py, phase 16).
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -468,29 +471,89 @@ def test_planners_reckon_the_tracer_planes():
                      window=functools.partial(window_bytes, n_tracers=100))
 
 
-# ---- refusals -------------------------------------------------------------
+# ---- the gradients ---------------------------------------------------------
 
+TR_KW = dict(tracer_kappa=5.0, tracer_upwind=0.5)
+
+
+def _autograd_vjp(run):
+    """The VJP of a differentiable entry point ``run(state)`` for the output
+    cotangent g: the gradient of <run(state), g> w.r.t. the state."""
+    def vjp(st, g):
+        x = [getattr(st, f).clone().requires_grad_(True) for f in FIELDS]
+        out = run(StructState(*x))
+        inner = sum((getattr(out, f) * getattr(g, f)).sum() for f in FIELDS)
+        return StructState(*torch.autograd.grad(inner, x))
+    return vjp
+
+
+# name: (steps, the VJP of that many steps for (state, mesh, cotangent))
 GRADIENTS = {
-    "auto_rollout_diff": lambda st, sm: auto_rollout_diff(st, sm, DT, 3),
-    "fused_rollout_diff": lambda st, sm: fused_rollout_diff(st, sm, DT, 3),
-    "tiled_rollout_diff": lambda st, sm: tiled_rollout_diff(st, sm, DT, 2, plan=(4, 8, 1, 2)),
-    "fused_step": lambda st, sm: fused_step(st, sm, DT),
-    "fused_adjoint_rollout": lambda st, sm: fused_adjoint_rollout(st, sm, DT, 3, st),
-    "tiled_adjoint_rollout": lambda st, sm: tiled_adjoint_rollout(st, sm, DT, 2, st,
-                                                                  plan=(4, 8, 1, 2)),
+    "auto_rollout_diff": (3, lambda st, sm, g: _autograd_vjp(
+        lambda s: auto_rollout_diff(s, sm, DT, 3, plan=2, **TR_KW))(st, g)),
+    "fused_rollout_diff": (3, lambda st, sm, g: _autograd_vjp(
+        lambda s: fused_rollout_diff(s, sm, DT, 3, **TR_KW))(st, g)),
+    "tiled_rollout_diff": (2, lambda st, sm, g: _autograd_vjp(
+        lambda s: tiled_rollout_diff(s, sm, DT, 2, plan=(4, 8, 1, 2), **TR_KW))(st, g)),
+    "fused_step": (1, lambda st, sm, g: _autograd_vjp(
+        lambda s: fused_step(s, sm, DT, **TR_KW))(st, g)),
+    "fused_adjoint_rollout": (3, lambda st, sm, g: fused_adjoint_rollout(
+        st, sm, DT, 3, g, **TR_KW)[0]),
+    "tiled_adjoint_rollout": (2, lambda st, sm, g: tiled_adjoint_rollout(
+        st, sm, DT, 2, g, plan=(4, 8, 1, 2), **TR_KW)[0]),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(GRADIENTS))
-def test_gradients_refuse_a_state_with_tracers(entry):
-    """Every gradient entry point raises NotImplementedError for a state
-    with tracers (the reverse kernels' tracer arms are still to port),
-    rather than losing them; the same state without tracers runs."""
-    _, smp, _, stp, _, _ = tracer_lattice(16, 2)
+def test_gradients_carry_tracers_as_jax_does(entry):
+    """Every gradient entry point carries a state's tracers (kappa 5,
+    upwind 0.5) and returns their cotangent: its VJP for a random output
+    cotangent against jax.vjp of the JAX roll model over the same steps,
+    each field (the tracers among them) within 1e-12 of its scale."""
+    smj, smp, stj, stp, _, _ = tracer_lattice(16, 2)
+    n, vjp = GRADIENTS[entry]
+    rng = np.random.default_rng(31)
+    g = {f: rng.normal(size=tuple(getattr(stp, f).shape)) for f in FIELDS}
+    _, jvjp = jax.vjp(lambda s: jax_run_loop(s, smj.struct_mesh, DT, n, **TR_KW), stj)
+    (ref,) = jvjp(stj.replace(**{f: jnp.asarray(v) for f, v in g.items()}))
+    d = vjp(stp, smp.struct_mesh, struct_state_from_numpy(g))
+    for f, e in _errs(d, ref).items():
+        assert e <= 1e-12, (f, e)
+
+
+def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card():
+    """The reverse's steps refuse, on a CUDA device, tracers with the
+    nonlinear core or with forcing (NotImplementedError, before any kernel
+    runs) and a tracer state at q > 1 on the tiled route; on the CPU the
+    gradients run those combinations, here against jax.vjp of the JAX roll
+    model within 1e-12 of scale."""
+    from types import SimpleNamespace
+
+    from mpas_ocean_tpu.models.forcing import make_forcing as jax_make_forcing
+    from mpas_ocean_tpu_torch.structured import diff_model, tiled_diff
+
+    smj, smp, stj, stp, mj, mp = tracer_lattice(16, 2)
+    sm = smp.struct_mesh
+    fp = smp.to_struct_forcing(mt.make_forcing(mp, **FULL_FORCING))
+    like = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
+    for nonlinear, f in ((True, None), (False, fp), (True, fp)):
+        with pytest.raises(NotImplementedError):
+            diff_model._Steps(sm, DT, like, nonlinear, forcing=f, tracers=True)
     with pytest.raises(NotImplementedError):
-        GRADIENTS[entry](stp, smp.struct_mesh)
-    GRADIENTS[entry](StructState(stp.ssh, stp.layer_thickness, stp.normal_velocity),
-                     smp.struct_mesh)
+        tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cuda"), True)
+    tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cpu"), True)
+    fj = smj.to_struct_forcing(jax_make_forcing(mj, **FULL_FORCING))
+    rng = np.random.default_rng(32)
+    g = {f: rng.normal(size=tuple(getattr(stp, f).shape)) for f in FIELDS}
+    for nonlinear, forced in ((True, False), (False, True)):
+        _, jvjp = jax.vjp(lambda s: jax_run_loop(s, smj.struct_mesh, DT, 2, nonlinear,
+                                                 fj if forced else None, **TR_KW), stj)
+        (ref,) = jvjp(stj.replace(**{f: jnp.asarray(v) for f, v in g.items()}))
+        d = fused_adjoint_rollout(stp, sm, DT, 2, struct_state_from_numpy(g),
+                                  nonlinear=nonlinear, forcing=fp if forced else None,
+                                  **TR_KW)[0]
+        for f, e in _errs(d, ref).items():
+            assert e <= 1e-12, (nonlinear, forced, f, e)
 
 
 def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing():

@@ -427,3 +427,111 @@ def tracer_errors(out, ref, mesh) -> dict:
     errs = forward_errors(out, ref, mesh)
     errs["tracers"] = float((out.tracers - ref.tracers).abs().max() / ref.tracers.abs().max())
     return errs
+
+
+# ---- the tracer reverse (tests/test_torch_tracer_adjoint_kernel.py) -------
+
+def tracer_stack(st, mesh, dt, n, kappa, upwind):
+    """n + 1 primal states of ``st`` (with tracers) by fe_fill_stack's tracer
+    arm, slot j after j steps: (the (ssh, h, u) stack of slots 0 .. n - 1,
+    the kernels' tracer operands whose planes are those slots' tracer stack
+    (n, 2 nT, ny2, nx, K), end = (h, tracer planes) of slot n)."""
+    from mpas_ocean_tpu_torch.kernels import fe_step
+    from mpas_ocean_tpu_torch.structured import fused_model
+
+    dtype = st.layer_thickness.dtype
+    kt = fused_model.kernel_tracers(st, mesh, kappa, upwind)
+    full = tuple(torch.empty((n + 1, *getattr(st, f).shape), dtype=dtype, device=st.ssh.device)
+                 for f in FIELDS)
+    trs = torch.empty((n + 1, *kt.planes.shape), dtype=dtype, device=st.ssh.device)
+    for dst, f in zip(full, FIELDS):
+        dst[0].copy_(getattr(st, f))
+    trs[0].copy_(kt.planes)
+    fe_step.fe_fill_stack(full, mesh.f_edge.to(dtype).contiguous(),
+                          mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil,
+                          *fused_model._scal(mesh, dt, dtype), n,
+                          live=fused_model.kernel_live(mesh), tracers=kt._replace(planes=trs))
+    return tuple(x[:n] for x in full), kt._replace(planes=trs[:n]), (full[1][n], trs[n])
+
+
+def tracer_reverse(stack, kt, end, g, mesh, dt, n, tile=None, tracers=True):
+    """n reverse steps through the stack (``tracer_stack``'s) from the
+    cotangent g (its tracers in the lattice layout): adjoint_step's tracer
+    arm for ``tile`` None, tiled_adjoint's at q = 1 over ``tile`` = (rows,
+    columns) otherwise; with ``tracers`` False the tracer-free arm on the
+    same primal states and g's ssh, h and u. Returns (cotangent, d(dt)) as
+    f64, the cotangent's tracers in the lattice layout."""
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.structured import StructState, fused_model
+    from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
+
+    dtype, device = stack[1].dtype, stack[1].device
+    ddt = torch.zeros(1, dtype=torch.float64, device=device)
+    gk = tuple(getattr(g, f).to(dtype).contiguous() for f in FIELDS)
+    kw = dict(live=fused_model.kernel_live(mesh))
+    if tracers:
+        gk += (fused_model.tracer_planes(g.tracers.to(dtype)),)
+        kw.update(tracers=kt, end=end)
+    scal = fused_model._scal(mesh, dt, dtype)
+    f_edge = mesh.f_edge.to(dtype).contiguous()
+    if tile is None:
+        out = adjoint_step.adjoint_rollout(stack, gk, f_edge, *mesh.host_adjoint_stencil, *scal,
+                                           n, ddt, **kw)
+    else:
+        out = tiled_adjoint.tiled_adjoint_rollout(
+            stack, gk, f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
+            *mesh.host_stencil, *mesh.host_adjoint_stencil, *scal, n, ddt, row_tile=tile[0],
+            col_tile=tile[1], q=1, halo=reverse_halo(mesh.coriolis_terms), **kw)
+    tr = fused_model.tracer_unplanes(out[3]).double() if tracers else None
+    return StructState(*(x.double() for x in out[:3]), tr), ddt[0]
+
+
+def plain_tracer_reverse(stack, kt, end, g, mesh, dt, n, dtype=None):
+    """The plain tracer reverse (``structured_adjoint_step`` with tracers,
+    kappa and upwind as the kernels take them, h' and T' read from the next
+    slot or from ``end`` = (h, tracer planes), as the kernels read them)
+    back through the stack's slots n - 1 .. 0 from g, in ``dtype`` (the
+    stack's by default): (cotangent, d(dt)) as f64, the tracers in the
+    lattice layout."""
+    from mpas_ocean_tpu_torch.structured import StructState, fused_model, structured_adjoint_step
+
+    dtype = dtype or stack[1].dtype
+    cast = lambda s: StructState(*(getattr(s, f).to(dtype) for f in TRACER_FIELDS))  # noqa: E731
+    g = cast(g)
+    ddt = torch.zeros((), dtype=torch.float64, device=stack[1].device)
+    for j in reversed(range(n)):
+        s = StructState(*(x[j] for x in stack), fused_model.tracer_unplanes(kt.planes[j]))
+        h_next, tr_next = (stack[1][j + 1], kt.planes[j + 1]) if j + 1 < n else end
+        nxt = StructState(s.ssh, h_next, s.normal_velocity, fused_model.tracer_unplanes(tr_next))
+        g, dd = structured_adjoint_step(cast(s), g, mesh, dt, tracer_kappa=kt.kappa,
+                                        tracer_upwind=kt.upwind, next_state=cast(nxt))
+        ddt = ddt + dd.double()
+    return StructState(*(getattr(g, f).double() for f in TRACER_FIELDS)), ddt
+
+
+def reverse_errors(a, b, ddt_scale=None) -> dict:
+    """{field: max |a - b| / max |b|} of two (cotangent, d(dt)) pairs, over
+    the fields b has, and d(dt)'s error over ``ddt_scale`` (|b's d(dt)| by
+    default)."""
+    out = {f: float((getattr(a[0], f) - getattr(b[0], f)).abs().max()
+                    / getattr(b[0], f).abs().max())
+           for f in TRACER_FIELDS if getattr(a[0], f) is not None and getattr(b[0], f) is not None}
+    out["d_dt"] = abs(float(a[1]) - float(b[1])) / (ddt_scale or abs(float(b[1])))
+    return out
+
+
+def ddt_scale(st, mesh, dt, n, g, **kw) -> float:
+    """The scale of d(dt) = <g, d(state_n)/d(dt)> after n steps from ``st``
+    (kw the tracers' options): sum over the fields of |g| |d(state_n)/d(dt)|,
+    the Cauchy-Schwarz bound of a sum whose terms may cancel, the tangent by
+    forward-mode AD of the plain rollout."""
+    from mpas_ocean_tpu_torch.structured import structured_run_loop
+
+    def rollout(d):
+        out = structured_run_loop(st, mesh, d, n, **kw)
+        return tuple(getattr(out, f) for f in TRACER_FIELDS)
+
+    one = torch.ones((), dtype=st.ssh.dtype, device=st.ssh.device)
+    _, tang = torch.func.jvp(rollout, (dt * one,), (one,))
+    return sum(float(torch.linalg.vector_norm(getattr(g, f).double())
+                     * torch.linalg.vector_norm(t.double())) for f, t in zip(TRACER_FIELDS, tang))
