@@ -115,7 +115,22 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      over 100 through both routes) with exact launch counts, timed beside
      the tracer-free gradients, a profiler breakdown, and the tracer arms
      per launch beside their bounds. ``python3 chip_smoke.py
-     --tracer-reverse-only`` runs phases 1, 2, 9 and 16 alone.
+     --tracer-reverse-only`` runs phases 1, 2, 9 and 16 alone;
+ 17. layered stratification (the stratified arms of kernels 1 and 2): the
+     stratified instantiations' ptxas lines; f64 fe_step FE and tiled_step
+     FE and FB (q = 1, 2) against the plain steps with strat= (16^2 and 64^2
+     random, periodic and channel, 4, 36 and 100 levels, make_
+     stratification's W of random densities and a dense random W) with
+     bitwise reruns and the unstratified arm as a control; equal densities
+     against the unstratified arm and the two-layer internal wave (FB over
+     half a period) on the card; f32 100-step checks on bench.py's cell and
+     the 64^2 channel with a bf16 control; the refusals (stratification with
+     the nonlinear core, forcing or tracers); the main path, bench.py's
+     baroclinic 64x64x100 FE rollout over 8000 steps from to_struct with
+     exact launch counts, and FB 64^2, FE and FB 256^2 and the 64^2 channel
+     FE over 1000, timed beside the unstratified arm with their bounds.
+     ``python3 chip_smoke.py --strat-only`` runs phases 1, 2, 9 and 17
+     alone.
 After phase 8 the tracer-free 256x256x100 100-step gradients through
 fused_rollout_diff and tiled_rollout_diff are timed again in a fresh process
 (``python3 chip_smoke.py --grad-256``, which prints one JSON line), with
@@ -2821,11 +2836,13 @@ def forcing_phase(gpu: str, log_text: str) -> list:
     from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
     from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
-    # the forced instantiations: kForced true, the second last template
-    # argument, and kTracers false, the last
-    for line in ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel",
-                                        "adjoint_step_kernel", "tiled_adjoint_kernel"),
-                             "Lb1ELb0EEEv"):
+    # the forced instantiations: kForced true and kTracers false, the last
+    # two template arguments of the reverse kernels; the forward kernels'
+    # third and second last, kStrat false last
+    for line in ptxas_report(log_text, ("adjoint_step_kernel", "tiled_adjoint_kernel"),
+                             "Lb1ELb0EEEv") + ptxas_report(
+                                 log_text, ("fe_step_kernel", "tiled_step_kernel"),
+                                 "Lb1ELb0ELb0EEEv"):
         log(f"[14] ptxas {line}")
     counters = (fe_step, tiled_step, adjoint_step, tiled_adjoint)
 
@@ -3437,7 +3454,8 @@ def tracer_phase(gpu: str, log_text: str) -> list:
         tiled_run_loop,
     )
 
-    for line in ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel"), "Lb1EEEv"):
+    # kTracers true, kStrat false
+    for line in ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel"), "Lb1ELb0EEEv"):
         log(f"[15] ptxas {line}")
     counters = (fe_step, tiled_step)
 
@@ -4324,17 +4342,417 @@ def tracer_reverse_phase(gpu: str, log_text: str) -> list:
     ]
 
 
-def ptxas_report(log_text: str, kernels: tuple, arm: str | None = None) -> list:
+# ---- phase 17: layered stratification ---------------------------------------
+
+# bench.py's baroclinic cell (measure_pallas_strat, bench.py:173-194): densities
+# 1025 + linspace(0, 1, LEVELS), top first, the W made in the state dtype
+BENCH_RHO_SPAN = 1.0
+# Stratified steps of the f64 kernel-against-plain checks
+STRAT_CHECK_STEPS = 10
+# Floating-point operations per cell-level the stratified arm adds: Phi_k =
+# g ssh + sum_l h_l W[l][k], K multiply-adds and g ssh's multiply and add
+# (the gradient of Phi replaces that of ssh)
+def strat_ops(k: int) -> int:
+    return 2 * k + 2
+
+
+def strat_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int,
+                peaks: dict | None = None, masked: bool = False):
+    """(bound seconds, "bytes" or "operations") of one stratified step:
+    ``step_bound``'s fe_step step plus W (K x K values) read once and
+    ``strat_ops`` per cell-level; and W's FLOPs (2 K per cell-level) alone."""
+    peaks = CEILING if peaks is None else peaks
+    cells = 2 * ny2 * nx
+    state = cells * (1 + 4 * k)
+    table = 4 * (44 + 3 * n_terms) + itemsize * n_terms
+    nbytes = itemsize * (2 * state + 4 * cells + k * k) + table + (4 * ny2 * nx if masked else 0)
+    ops = cells * k * (36 + 1.5 * n_terms + strat_ops(k))
+    t_bytes = nbytes / byte_rate(peaks, itemsize * state)
+    t_ops = ops / peaks["flops"][itemsize]
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (*bound, cells * k * 2 * k)
+
+
+def strat_phase(gpu: str, log_text: str) -> list:
+    """Phase 17, layered stratification (the stratified arms of kernels 1
+    and 2): the stratified instantiations' ptxas lines; f64, fe_step FE and
+    tiled_step FE and FB at q = 1, 2 against the plain steps on 16^2 and
+    64^2 random states, periodic and channel, at 4, 36 and 100 levels (the
+    main path's level chunks), W from make_stratification with random
+    non-decreasing densities and a dense random W, to 1e-12 of scale,
+    reruns bitwise, the unstratified arm 100x off in u; f32 on bench.py's
+    cell (the 64^2 x 100 IGW) and the 64^2 x 100 Kelvin channel, 100 FE and
+    FB steps through structured_auto_run_loop, each field's distance from an
+    f64 plain run within U_GAP_FACTOR x the plain f32 run's, with a bf16
+    control; equal densities against the unstratified arm and the two-layer
+    internal wave (FB, half a period) on the card; the refusals
+    (stratification with the nonlinear core, forcing or tracers); the main
+    paths from to_struct (bench.py's 64^2 x 100 FE rollout over
+    HEADLINE_STEPS with exact launch counts; FB 64^2, FE and FB 256^2 and
+    the 64^2 channel FE over LARGE_MAIN_STEPS), timed beside the
+    unstratified arm with their bounds. Returns the stratified arms' entries
+    of the kernels line."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
+    from mpas_ocean_tpu_torch.models import stratification_from_numpy
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        fused_run_loop,
+        structured_auto_run_loop,
+        structured_run_loop,
+        tiled_run_loop,
+    )
+    from mpas_ocean_tpu_torch.structured.tiled_model import resolve_plan, window_bytes
+    from mpas_ocean_tpu_torch.structured.slab import stencil_reach
+
+    for line in ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel"), "Lb1EEEv"):
+        log(f"[17] ptxas {line}")
+    counters = (fe_step, tiled_step)
+
+    def zero_counts():
+        for m in counters:
+            m.launches = m.strat_launches = 0
+
+    def counts():
+        return {m.__name__.rsplit(".", 1)[-1]: (m.launches, m.strat_launches) for m in counters}
+
+    def same(a, b) -> bool:
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS)
+
+    def strats(k, seed):
+        """make_stratification of random non-decreasing densities (1025 plus a
+        random walk of up to 2 kg/m^3), and a dense random W (std 0.05)."""
+        rng = np.random.default_rng(seed)
+        rho = 1025.0 + np.cumsum(rng.random(k)) * (2.0 / k)
+        dense = stratification_from_numpy({"phi_weights": 0.05 * rng.normal(size=(k, k)),
+                                           "densities": np.full(k, 1025.0)})
+        return {"rho": mt.make_stratification(rho), "dense": dense}
+
+    # f64 kernel against plain: (n, levels, channel, tiled_step's tile, FB's
+    # q); the deep cases' columns and u as phase 15's (60 m, 0.5 m/s), their
+    # tiles the planners' (no f64 FB window at q = 2 fits 100 levels)
+    worst, n_checks = {}, 0
+    f64_cases = [(16, 4, channel, (4, 8), (1, 2), 0.01, 10.0) for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, 36, channel, None, (1, 2), 0.5, 60.0 / 36)
+                  for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, LEVELS, channel, None, (1,), 0.5, 60.0 / LEVELS)
+                  for channel in (False, True)]
+    for n, levels, channel, tile, fb_qs, u_amp, layer in f64_cases:
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=5,
+                                                                   u_amp=u_amp, layer=layer)
+        sm = model.struct_mesh
+        st = model.to_struct(prog)
+        name = (f"f64 {n}x{n}x{levels} {'channel' if channel else 'periodic'}, layers of "
+                f"{layer:.4g} m, u {u_amp} m/s")
+        tk = {} if tile is None else dict(row_tile=tile[0], col_tile=tile[1])
+        for kind, strat in strats(levels, 17 + levels).items():
+            refs = {fb: structured_run_loop(st, sm, 10.0, STRAT_CHECK_STEPS, fb=fb, strat=strat)
+                    for fb in (False, True)}
+            runs = [("fe_step FE", False,
+                     lambda s: fused_run_loop(st, sm, 10.0, STRAT_CHECK_STEPS, strat=s))]
+            runs += [(f"tiled_step {'FB' if fb else 'FE'} q={q}", fb,
+                      lambda s, fb=fb, q=q: tiled_run_loop(st, sm, 10.0, STRAT_CHECK_STEPS, q=q,
+                                                           fb=fb, strat=s, **tk))
+                     for fb in (False, True) for q in (fb_qs if fb else (1, 2))]
+            line = []
+            for label, fb, run in runs:
+                zero_counts()
+                out, again = run(strat), run(strat)
+                c = counts()
+                if sum(s for _, s in c.values()) != sum(a for a, _ in c.values()) or not any(
+                        s for _, s in c.values()):
+                    raise AssertionError(f"{name} {label}: launch counts {c}")
+                errs = field_errors(out, refs[fb], sm.resting_thickness_sum)
+                if not max(r for _, r in errs.values()) <= 1e-12:
+                    raise AssertionError(f"{name} W {kind} {label}: {format_errors(errs)}")
+                if not same(out, again):
+                    raise AssertionError(f"{name} W {kind} {label}: rerun differs")
+                bare = field_errors(run(None), refs[fb], sm.resting_thickness_sum)
+                miss = bare["normal_velocity"][1]
+                if not miss >= 100 * 1e-12:
+                    raise AssertionError(f"{name} W {kind} {label}: the unstratified control "
+                                         f"misses by only {miss}")
+                if channel:
+                    check_walls(out, sm, f"{name} {label}")
+                key = label.split()[0]
+                worst[key] = max(worst.get(key, 0.0), max(r for _, r in errs.values()))
+                line.append((label, max(r for _, r in errs.values()), miss))
+                n_checks += 1
+            log(f"[17] {name}, W {kind}, {STRAT_CHECK_STEPS} steps: worst error over scale "
+                "(unstratified control's miss in u) " + ", ".join(
+                    f"{lbl} {e:.3e} ({m:.2e})" for lbl, e, m in line))
+        del model, st, sm
+    log(f"[17] {n_checks} f64 stratified checks, reruns bitwise equal, walls +0 on the "
+        "channel; worst relative errors over every field: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # physics on the card, f64: equal densities reproduce the unstratified
+    # arms (tests/test_stratification.py:48-58); the two-layer internal wave
+    # (tests/test_stratification.py:276-322) through tiled_step's FB arm
+    model, prog = random_channel(HEADLINE_N, 36, seed=5, u_amp=0.5, layer=60.0 / 36)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    eq = mt.make_stratification([1026.0] * 36)
+    for fb in (False, True):
+        a = structured_auto_run_loop(st, sm, 10.0, STRAT_CHECK_STEPS, fb=fb, strat=eq)
+        b = structured_auto_run_loop(st, sm, 10.0, STRAT_CHECK_STEPS, fb=fb)
+        errs = field_errors(a, b, sm.resting_thickness_sum)
+        log(f"[17] f64 64x64x36 channel, equal densities against the unstratified arm, "
+            f"{'FB' if fb else 'FE'}: {format_errors(errs)}")
+        if not max(r for _, r in errs.values()) <= 1e-12:
+            raise AssertionError(f"equal densities {'FB' if fb else 'FE'}: {format_errors(errs)}")
+    n, dc, dt_iw = 32, 10000.0, 100.0
+    iw = mt.InternalWave(lx=n * dc / 1e3, amplitude=1.0)
+    horz = mt.planar_hex_mesh(n, n, dc, f0=0.0)
+    vert = mt.make_vertical_mesh(horz, 2, resting_thickness=np.tile(
+        np.array([iw.h1, iw.h2]), (horz.n_cells, 1)))
+    model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n)
+    ssh, h, u = iw.initial_state(horz)
+    st = model.to_struct(mt.PrognosticVars(*(torch.from_numpy(a) for a in (ssh, h, u))))
+    n_half = int(round(iw.period / 2 / dt_iw))
+    zero_counts()
+    out = model.from_struct(structured_auto_run_loop(
+        st, model.struct_mesh, dt_iw, n_half, fb=True,
+        strat=mt.make_stratification(iw.densities())))
+    c = counts()
+    x = np.asarray(horz.cells.x)
+    basis = np.sin(iw.k * x)
+    proj = lambda f: float(np.vdot(basis, f - iw.h1) / np.vdot(basis, basis))  # noqa: E731
+    a0, a1 = proj(h[:, 0]), proj(out.layer_thickness[:, 0].numpy())
+    exact = iw.exact_thickness(x, n_half * dt_iw)
+    rmse = float(np.sqrt(np.mean((out.layer_thickness.numpy() - exact) ** 2)))
+    log(f"[17] f64 two-layer internal wave, 32x32, f0 = 0, c1 {iw.c1:.6f} m/s, FB (tiled_step) "
+        f"over half a period, {n_half} steps of {dt_iw} s: mode amplitude {a0:.6f} -> {a1:.6f} "
+        f"(ratio {-a1 / a0:.6f}, limit 1 +- 0.05), RMSE {rmse:.4e} m (limit 0.05); launches {c}")
+    if not (abs(-a1 / a0 - 1.0) <= 0.05 and rmse < 0.05 * iw.amplitude
+            and c["tiled_step"] == (n_half, n_half)):
+        raise AssertionError("the internal wave on the card")
+
+    # f32, 100 steps, bench.py's cell and the 64^2 channel: each field's
+    # distance from an f64 plain run within U_GAP_FACTOR x the plain f32
+    # run's; the plain run with its state stored in bf16 after each step must
+    # miss that bound in some field
+    bench_rho = 1025.0 + np.linspace(0.0, BENCH_RHO_SPAN, LEVELS)
+    strat32 = mt.make_stratification(bench_rho, dtype=np.float32)
+    max_abs_err, gaps = {}, {}
+    for key, case in (("64", igw_case), ("channel 64", kelvin_case)):
+        _, _, model, prog = case(HEADLINE_N, LEVELS, np.float32)
+        _, _, model64, _ = case(HEADLINE_N, LEVELS, np.float64)
+        st = model.to_struct(prog)
+        sm, sm64 = model.struct_mesh, model64.struct_mesh
+        st64 = StructState(*(getattr(st, f).double() for f in FIELDS))
+        flow = "Kelvin channel" if case is kelvin_case else "IGW"
+        for fb in (False, True):
+            arm = "tiled_step FB" if fb else "fe_step FE"
+            out = structured_auto_run_loop(st, sm, DT, TILED_CHECK_STEPS, fb=fb, strat=strat32)
+            ref = structured_run_loop(st, sm, DT, TILED_CHECK_STEPS, fb=fb, strat=strat32)
+            ref64 = structured_run_loop(st64, sm64, DT, TILED_CHECK_STEPS, fb=fb, strat=strat32)
+            bf = st
+            for _ in range(TILED_CHECK_STEPS):
+                bf = structured_run_loop(bf, sm, DT, 1, fb=fb, strat=strat32)
+                bf = StructState(*(getattr(bf, f).bfloat16().float() for f in FIELDS))
+            what = f"f32 {HEADLINE_N}^2x{LEVELS} {flow}, {TILED_CHECK_STEPS} steps, {arm}"
+            ratios, control_fails = [], False
+            for f in FIELDS:
+                d = lambda x: float((getattr(x, f).double()  # noqa: E731
+                                     - getattr(ref64, f)).abs().max())
+                g_k, g_p, g_b = d(out), d(ref), d(bf)
+                limit = U_GAP_FACTOR * g_p
+                log(f"[17] {what}: {f}'s distance from the f64 plain run: kernel {g_k:.3e}, "
+                    f"plain f32 {g_p:.3e}: kernel x{g_k / limit:.3f} of the limit {limit:.3e}; "
+                    f"bf16 control {g_b:.3e} (x{g_b / limit:.1f})")
+                if not g_k <= limit:
+                    raise AssertionError(f"{what}: {f} {g_k:.3e} from f64, limit {limit:.3e}")
+                control_fails = control_fails or g_b > limit
+                ratios.append(g_k / limit)
+            if not control_fails:
+                raise AssertionError(f"{what}: the bf16 control passes")
+            if sm.cell_mask is not None:
+                check_walls(out, sm, what)
+            errs = field_errors(out, ref, sm.resting_thickness_sum)
+            log(f"[17] {what}, kernel vs plain f32: {format_errors(errs)}")
+            gaps[arm, key] = ratios
+            max_abs_err[arm, key] = max(e for e, _ in errs.values())
+        del st, st64, out, ref, ref64, bf
+        torch.cuda.empty_cache()
+
+    # refusals on the card
+    horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                             prog.normal_velocity,
+                                             tracers=bench_tracers(horz, LEVELS, np.float32)))
+    forcing = model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
+        horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0, dtype=np.float32),
+        dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
+    refused = []
+    for label, call in (
+            ("nonlinear FE", lambda: structured_auto_run_loop(st, sm, DT, 2, nonlinear=True,
+                                                              strat=strat32)),
+            ("nonlinear FB", lambda: structured_auto_run_loop(st, sm, DT, 2, nonlinear=True,
+                                                              fb=True, strat=strat32)),
+            ("forced FE", lambda: structured_auto_run_loop(st, sm, DT, 2, forcing=forcing,
+                                                           strat=strat32)),
+            ("forced FB", lambda: structured_auto_run_loop(st, sm, DT, 2, forcing=forcing,
+                                                           fb=True, strat=strat32)),
+            ("tracers FE", lambda: structured_auto_run_loop(st_t, sm, DT, 2, strat=strat32)),
+            ("tracers FB", lambda: structured_auto_run_loop(st_t, sm, DT, 2, fb=True,
+                                                            strat=strat32)),
+            ("tiled_run_loop nonlinear", lambda: tiled_run_loop(st, sm, DT, 2, nonlinear=True,
+                                                                strat=strat32))):
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(label)
+            continue
+        raise AssertionError(f"{label} with stratification ran on the card")
+    log(f"[17] refused on the card with stratification (NotImplementedError): "
+        f"{', '.join(refused)}")
+
+    # the main path: bench.py's cell from to_struct, HEADLINE_STEPS FE steps
+    zero_counts()
+    t0 = time.perf_counter()
+    final = model.from_struct(structured_auto_run_loop(model.to_struct(prog), sm, DT,
+                                                       HEADLINE_STEPS, strat=strat32))
+    wall = time.perf_counter() - t0
+    c = counts()
+    log(f"[17] main path: bench.py's baroclinic {HEADLINE_N}^2x{LEVELS} f32, densities 1025 + "
+        f"linspace(0, {BENCH_RHO_SPAN}, {LEVELS}), from to_struct, {HEADLINE_STEPS} FE steps: "
+        f"{wall:.3f} s wall (to_struct .. from_struct); launches {c} (want fe_step "
+        f"{HEADLINE_STEPS}, all stratified)")
+    if c != {"fe_step": (HEADLINE_STEPS, HEADLINE_STEPS), "tiled_step": (0, 0)}:
+        raise AssertionError(f"the stratified main path: launch counts {c}")
+    if not (all(bool(torch.isfinite(getattr(final, f)).all()) for f in FIELDS)
+            and tuple(final.layer_thickness.shape) == (horz.n_cells, LEVELS)):
+        raise AssertionError("the stratified main path: output not finite or of the wrong shape")
+    main_launches = c["fe_step"][1]
+    del final
+
+    # each path from its own zeroed counts, then timed beside the
+    # unstratified arm in the same call (unstratified, stratified,
+    # unstratified), by CUDA events
+    times, launches = {}, {}
+    for label, case, n, fb, n_steps in (
+            ("FE 64", igw_case, HEADLINE_N, False, HEADLINE_STEPS),
+            ("FB 64", igw_case, HEADLINE_N, True, LARGE_MAIN_STEPS),
+            ("FE 256", igw_case, LARGE_N, False, LARGE_MAIN_STEPS),
+            ("FB 256", igw_case, LARGE_N, True, LARGE_MAIN_STEPS),
+            ("FE channel 64", kelvin_case, HEADLINE_N, False, LARGE_MAIN_STEPS)):
+        _, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(prog)
+        arm = "tiled_step" if fb else "fe_step"
+        zero_counts()
+        structured_auto_run_loop(st, sm, DT, n_steps, fb=fb, strat=strat32)
+        c = counts()
+        if c[arm] != (n_steps, n_steps) or sum(a for a, _ in c.values()) != n_steps:
+            raise AssertionError(f"stratified {label}: launch counts {c}")
+        launches[label] = c[arm][1]
+        times[label] = {
+            k: timed_rollout(lambda m, s=s: structured_auto_run_loop(st, sm, DT, m, fb=fb,
+                                                                     strat=s),
+                             n_steps, REPS)[1]
+            for k, s in (("unstratified", None), ("stratified", strat32),
+                         ("unstratified again", None))}
+        times[label]["unstratified"] += times[label].pop("unstratified again")
+        masked = sm.cell_mask is not None
+        live = 2 * sm.ny2 * sm.nx if not masked else int(sm.cell_mask.sum())
+        dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+        b, by, w_flops = strat_bound(*dims, masked=masked)
+        b0 = step_bound("fe_step", *dims, masked=masked)[0]
+        med_s, med_0 = (statistics.median(times[label][k])
+                        for k in ("stratified", "unstratified"))
+        log(f"[17] {arm} {label}^2x{LEVELS} f32 stratified: "
+            f"{spread(times[label]['stratified'], 1e6, 'us')} per step, "
+            f"{live * LEVELS / med_s:.4e} cells*levels*steps/s; unstratified "
+            f"{spread(times[label]['unstratified'], 1e6, 'us')}: x{med_s / med_0:.4f}; bound "
+            f"{b * 1e6:.3f} us ({by}; W's {w_flops:.4e} FLOPs per step, "
+            f"{w_flops / CEILING['flops'][4] * 1e6:.3f} us at the f32 ceiling): "
+            f"{b / med_s:.4f} of it; unstratified bound {b0 * 1e6:.3f} us: {b0 / med_0:.4f} "
+            f"[{gpu}]")
+    # the plain versions' times with stratification, 64^2 FE and 256^2 FB
+    plain = {}
+    for label, n, fb in (("FE 64", HEADLINE_N, False), ("FB 256", LARGE_N, True)):
+        _, _, model, prog = igw_case(n, LEVELS, np.float32)
+        st = model.to_struct(prog)
+        plain[label] = timed_rollout(lambda m, st=st, sm=model.struct_mesh, fb=fb:
+                                     structured_run_loop(st, sm, DT, m, fb=fb, strat=strat32),
+                                     10, REPS)[1]
+        log(f"[17] plain {label} f32 stratified: {spread(plain[label], 1e3, 'ms')} per step "
+            f"[{gpu}]")
+    ny2 = HEADLINE_N // 2
+    tile = fe_step.fe_tile(ny2, HEADLINE_N, LEVELS, 4, strat=True)
+    plan = fe_step.launch_plan(igw_case(HEADLINE_N, LEVELS, np.float32)[2].struct_mesh
+                               .host_stencil[0], ny2, HEADLINE_N, LEVELS, tile, strat=True)
+    log(f"[17] fe_step's stratified arm at 64^2 x 100 f32: tile {tile}, "
+        f"{fe_step.smem_bytes(tile, LEVELS, 4, strat=True)} bytes of shared memory per block, "
+        f"{plan['clusters']} clusters, {plan['blocks_per_sm']} blocks of 512 threads per SM")
+    sm256 = igw_case(LARGE_N, LEVELS, np.float32)[2].struct_mesh
+    halo = stencil_reach(sm256.coriolis_terms, True)
+    window = functools.partial(window_bytes, strat=True, fb=True)
+    rt, ct, q = resolve_plan(sm256.ny2, sm256.nx, LEVELS, 4, halo, LARGE_MAIN_STEPS,
+                             window=window)
+    occ = tiled_step.occupancy(rt, ct, q, halo, LEVELS, True, strat=True)
+    log(f"[17] tiled_step's stratified FB arm at 256^2 x 100 f32: plan ({rt}, {ct}, {q}), "
+        f"{window(rt, ct, q, halo, LEVELS, 4)} bytes of shared memory per block, {occ[0]} "
+        f"clusters at once, {occ[1]} blocks of 512 threads per SM")
+
+    med = statistics.median
+    d64 = (HEADLINE_N // 2, HEADLINE_N, LEVELS, 48, 4)
+    d256 = (LARGE_N // 2, LARGE_N, LEVELS, 48, 4)
+
+    def entry(name, src, replaces, launches_n, err, ms, plain_ms, bound, extra):
+        b, by, _ = bound
+        return {"name": name, "route": "cuda", "source": f"mpas_ocean_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches_n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b * 1e3, "bound_by": by, "library_ms": None,
+                **extra}
+
+    return [
+        entry("fe_step (stratified arm)", "fe_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:320 (strat_w :154-165, operand "
+              ":436-437)", main_launches, max_abs_err["fe_step FE", "64"],
+              med(times["FE 64"]["stratified"]) * 1e3, med(plain["FE 64"]) * 1e3,
+              strat_bound(*d64),
+              {"unstratified_ms": med(times["FE 64"]["unstratified"]) * 1e3,
+               "ms_256": med(times["FE 256"]["stratified"]) * 1e3,
+               "unstratified_ms_256": med(times["FE 256"]["unstratified"]) * 1e3,
+               "bound_ms_256": strat_bound(*d256)[0] * 1e3,
+               "masked_ms_64": med(times["FE channel 64"]["stratified"]) * 1e3,
+               "cells_levels_steps_per_s_64": HEADLINE_N ** 2 * LEVELS
+               / med(times["FE 64"]["stratified"]),
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "fe_step FE"},
+               "max_rel_err_f64": worst["fe_step"], "tile": list(tile)}),
+        entry("tiled_step (stratified arm)", "tiled_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:852 (strat_w :904-908, 1193-1194)",
+              launches["FB 256"], max_abs_err["tiled_step FB", "64"],
+              med(times["FB 256"]["stratified"]) * 1e3, med(plain["FB 256"]) * 1e3,
+              strat_bound(*d256),
+              {"unstratified_ms": med(times["FB 256"]["unstratified"]) * 1e3,
+               "ms_64": med(times["FB 64"]["stratified"]) * 1e3,
+               "unstratified_ms_64": med(times["FB 64"]["unstratified"]) * 1e3,
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "tiled_step FB"},
+               "max_rel_err_f64": worst["tiled_step"], "plan_256": [rt, ct, q]}),
+    ]
+
+
+def ptxas_report(log_text: str, kernels: tuple, arm=None) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
-    mangled names contain one of ``kernels``; with ``arm``, only those whose
-    mangled template arguments end so: "Lb1EEEv" for the last one true (the
-    reverse kernels' kForced, the forward kernels' kTracers), "Lb1ELb0EEEv"
-    for the second last true and the last false (the forward kernels'
+    mangled names contain one of ``kernels``; with ``arm`` (a string, or a
+    tuple of alternatives), only those whose mangled template arguments end
+    so: "Lb1EEEv" for the last one true (the forward kernels' kStrat),
+    "Lb1ELb0EEEv" for the second last true and the last false (the forward
+    kernels' kTracers, the reverse kernels' kForced), "Lb1ELb0ELb0EEEv" for
+    the third last true and the last two false (the forward kernels'
     forced arms)."""
+    arms = (arm,) if isinstance(arm, str) else arm
     out, keep = [], False
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            keep = any(k in line for k in kernels) and (arm is None or arm in line)
+            keep = any(k in line for k in kernels) and (
+                arms is None or any(a in line for a in arms))
         if keep and ("Compiling" in line or "registers" in line or "spill" in line):
             out.append(line.strip())
     return out
@@ -4439,6 +4857,11 @@ def main() -> int:
     if "--tracer-reverse-only" in sys.argv[1:]:
         # phase 16 alone (after the build and the peaks its bounds divide by)
         print(json.dumps({"kernels": tracer_reverse_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
+    if "--strat-only" in sys.argv[1:]:
+        # phase 17 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": strat_phase(gpu, log_file.read_text())}))
         print(gpu)
         return 0
     if "--tracers-only" in sys.argv[1:]:
@@ -4831,6 +5254,9 @@ def main() -> int:
     # -- 16. the tracer reverse ----------------------------------------------------
     tracer_entries += tracer_reverse_phase(gpu, log_file.read_text())
 
+    # -- 17. layered stratification -------------------------------------------------
+    strat_entries = strat_phase(gpu, log_file.read_text())
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
@@ -4874,6 +5300,7 @@ def main() -> int:
     kernels.append(nl_adjoint_entry)
     kernels.extend(forced_entries)
     kernels.extend(tracer_entries)
+    kernels.extend(strat_entries)
     kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

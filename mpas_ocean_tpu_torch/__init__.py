@@ -25,6 +25,8 @@ rides every entry point as ``forcing=``, through the kernels' forced arms.
 Tracers (``make_tracers``, a state's ``tracers``) ride every entry point,
 the gradients among them (which return the tracers' cotangent), with
 ``tracer_kappa=`` and ``tracer_upwind=``, through the kernels' tracer arms.
+Layered stratification (``make_stratification``) rides the forward entry
+points as ``strat=``, through the forward kernels' stratified arms.
 """
 
 from .constants import GRAVITY
@@ -39,7 +41,16 @@ from .mesh import (
     make_vertical_mesh,
     planar_hex_mesh,
 )
-from .models import Forcing, PrognosticVars, make_forcing, make_tracers, total_tracer_content
+from .models import (
+    Forcing,
+    PrognosticVars,
+    Stratification,
+    make_forcing,
+    make_stratification,
+    make_tracers,
+    montgomery_potential,
+    total_tracer_content,
+)
 from .structured import (
     StructuredModel,
     auto_rollout_diff,
@@ -55,7 +66,7 @@ from .structured import (
     window_steps,
 )
 from .utils import error_measures
-from .verification import InertialGravityWave, KelvinWave
+from .verification import InertialGravityWave, InternalWave, KelvinWave
 
 __all__ = [
     "GRAVITY",
@@ -64,10 +75,12 @@ __all__ = [
     "Forcing",
     "HorzMesh",
     "InertialGravityWave",
+    "InternalWave",
     "KelvinWave",
     "Mesh",
     "PrimaryCells",
     "PrognosticVars",
+    "Stratification",
     "StructuredModel",
     "VerticalMesh",
     "auto_rollout_diff",
@@ -78,8 +91,10 @@ __all__ = [
     "fused_run_loop",
     "fused_step",
     "make_forcing",
+    "make_stratification",
     "make_tracers",
     "make_vertical_mesh",
+    "montgomery_potential",
     "planar_hex_mesh",
     "structured_auto_run_loop",
     "structured_fb_step",

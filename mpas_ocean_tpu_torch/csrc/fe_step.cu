@@ -2,11 +2,13 @@
 // parity-plane hex lattice, for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _rollout_kernel (mpas_ocean_tpu/structured/pallas_model.py:320),
-// the arms with nl=None, strat_w=None and fb=False, periodic
+// the arms with nl=None and fb=False, periodic
 // (masks=None) and masked (a coastal channel culled from a periodic
 // lattice: u_new *= masks[c], :257-259), unforced (forc=None) and forced
 // (momentum forcing, :248-256), without tracers (tr=None) and with them
-// (:261-298, unforced; the tracer planes :362-400, operand :446-451). One
+// (:261-298, unforced; the tracer planes :362-400, operand :446-451),
+// unstratified (strat_w=None) and stratified (the Montgomery potential,
+// :154-165, unforced and tracer-free; operand :436-437). One
 // launch is one step of
 // _step_planes (:91-299); the exported entries loop n_steps launches on the
 // caller's stream.
@@ -88,6 +90,17 @@
 // 64x64x100, x1.52 the tracer-free step, and 290.4 at 256x256x100, x1.57,
 // 14% and 32% of the byte bound.
 //
+// The stratified arm (kStrat, chosen by a non-null W; unforced and
+// tracer-free; the unstratified arms keep their code) forms the Montgomery
+// potential Phi = g ssh + h @ W of the old state at the block's levels on
+// the tile grown by the gradient's reach (5 x 18 sites for a (4, 16) tile)
+// before the body (step_window.cuh, StratSmem, montgomery: the other ranks'
+// h chunks gathered through distributed shared memory, in rank order), and
+// the body takes each level's pressure
+// gradient from Phi with scale -dt. The ranks meet at a full cluster
+// barrier after their loads, in place of the split one, because each reads
+// the others' h.
+//
 // The stencil table's layout is in lattice.cuh.
 
 #include <algorithm>
@@ -114,13 +127,15 @@ struct FeArgs {
   T* u_out;
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   TracerArgs<T> tr;   // the tracer arm's operands; tr null otherwise
+  const T* strat_w;   // the stratified arm's W (K, K); null otherwise
+  NbrReach nr;        // the gradient's reach, which grows the core to Phi's region
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
 };
 
 // Each distinct u and h value of a (site, level) is loaded once and each
 // u * f product formed once (step_window.cuh, hex::).
-template <typename T, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 __global__ void __launch_bounds__(kStepThreads, 2)
     fe_step_kernel(const FeArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -146,11 +161,13 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   int* gs = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gs + W;                     // [W]: the masked arm's live bits
   const ForcingSmem<T> fsm(live_s + W, W, 0);  // the forced arm's winds and levels
+  const StratSmem<T> ssm(live_s + W, W, kc, K);  // the stratified arm's
 
   // The partial column sums below go straight into rank 0's shared memory,
   // which only a cluster barrier guarantees to exist: its arrival here and
-  // its wait after the loads, so that the loads hide it.
-  cluster_arrive_relaxed();
+  // its wait after the loads, so that the loads hide it. The stratified arm
+  // reads the other ranks' h, so it waits for their loads at a full barrier.
+  if (!kStrat) cluster_arrive_relaxed();
   allow_next_grid();
   window_sites(gs, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx);
   __syncthreads();
@@ -162,13 +179,21 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   if (kTracers)
     load_tracers(buf + 8 * pk, gs, a.tr.tr, 2 * a.tr.n, W, a.kc_log2, a.vec_log2, k0, kr, K,
                  plane);
+  if (kStrat) load_strat_w(ssm.wsl, a.strat_w, K, k0, kr, a.kc_log2);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
-  cluster_wait();
+  if (kStrat) {
+    cluster.sync();
+    // Phi of the old state on the core grown by the gradient's reach (FE)
+    montgomery(ssm, cluster, buf, ssh_s, a.hm + a.nr.m0, a.hm + a.rt + a.nr.m1, a.hi + a.nr.i0,
+               a.hi + a.ct + a.nr.i1, Wi, W, a.kc_log2, kr, K, rank, n_ranks);
+  } else {
+    cluster_wait();
+  }
 
   const T dt_div = a.dt * a.s_div;
-  const T pg_scale = T(-kGravity) * a.dt;
+  const T pg_scale = kStrat ? -a.dt : T(-kGravity) * a.dt;
   const T dt_rayl = a.dt * a.fc.rayl;  // the forced arm's Rayleigh factor
   T* const sums = cluster.map_shared_rank(recv, 0) + rank * 2 * core;
   // groups of G = min(16, kc) lanes, one site each, 32 / G sites per warp
@@ -186,11 +211,14 @@ __global__ void __launch_bounds__(kStepThreads, 2)
     const bool valid = t < core && gm < a.ny2 && gi < a.nx;  // a ragged tile's edge
     const int g = gm * a.nx + gi;
     const int s = (a.hm + r) * Wi + a.hi + c;
-    // FE: the pressure gradient of the old ssh
+    // FE: the pressure gradient of the old ssh (the stratified arm's, of
+    // each level's Phi, below)
     T grad[6];
+    if (!kStrat) {
 #pragma unroll
-    for (int ch = 0; ch < 6; ++ch)
-      grad[ch] = (ssh_s[s + tp.nb[ch]] - ssh_s[(ch & 1) * W + s]) * a.inv_dc;
+      for (int ch = 0; ch < 6; ++ch)
+        grad[ch] = (ssh_s[s + tp.nb[ch]] - ssh_s[(ch & 1) * W + s]) * a.inv_dc;
+    }
     const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
     // the tracer arm's live-cell mask of the site's two cells (a channel's)
     T cm[2] = {T(1), T(1)};
@@ -231,6 +259,12 @@ __global__ void __launch_bounds__(kStepThreads, 2)
           total = total - u[hex::inc_u(x)] * he;
         }
         hnew[p] = hc - dt_div * total;
+      }
+      if (kStrat) {
+        const T* ph = ssm.phi + s * kc + kl;
+#pragma unroll
+        for (int ch = 0; ch < 6; ++ch)
+          grad[ch] = (ph[tp.nb[ch] << a.kc_log2] - ph[(ch & 1) * pk]) * a.inv_dc;
       }
       T uf[hex::kU];
 #pragma unroll
@@ -305,13 +339,13 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   }
 }
 
-template <typename T, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(fe_step_kernel<T, kMasked, kForced, kTracers>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             max_smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(fe_step_kernel<T, kMasked, kForced, kTracers, kStrat>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
@@ -319,14 +353,16 @@ int prepare(int max_smem) {
 // A window's state chunk, ssh, f_edge, rts and sites, the ranks' partial
 // sums, and the masked arm's live bits, reserved by the periodic arm too so
 // that one plan serves both; the forced arm's winds and packed levels
-// beyond; the tracer arm's chunk of n_tr tracers' planes
+// beyond, or the stratified arm's Phi, staged h and W slice at k levels
+// (strat_k > 0); the tracer arm's chunk of n_tr tracers' planes
 // (kernels/fe_step.smem_bytes mirrors this).
 size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize,
-                  bool forced, int n_tr) {
+                  bool forced, int n_tr, int strat_k) {
   return step_smem_bytes(sites, kc, 1, kPlanes, itemsize) +
          itemsize * static_cast<size_t>(n_ranks) * 2 * core +
          sizeof(int) * static_cast<size_t>(sites) +
          (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0) +
+         (strat_k > 0 ? strat_smem_bytes(sites, kc, strat_k, itemsize, false) : 0) +
          itemsize * static_cast<size_t>(sites) * 2 * n_tr * kc;
 }
 
@@ -360,7 +396,7 @@ struct FePlan {
 
 template <typename T>
 int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live,
-              const ForcingArgs<T>& fc, TracerArgs<T> tr, const int* table,
+              const ForcingArgs<T>& fc, TracerArgs<T> tr, const T* strat_w, const int* table,
               const double* weights, double dt, double inv_dc, double s_div, int ny2, int nx,
               int k, int n_steps, int n_terms, int rt, int ct, bool vec) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
@@ -369,6 +405,9 @@ int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live,
   // the tracer arm: unforced, at least one tracer, the cell mask with the live bits
   if (tr.tr != nullptr &&
       (fc.wind != nullptr || tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
+    return cudaErrorInvalidValue;
+  // the stratified arm: unforced and tracer-free
+  if (strat_w != nullptr && (fc.wind != nullptr || tr.tr != nullptr))
     return cudaErrorInvalidValue;
   int hm = 0, hi = 0;
   fe_reach(table, &hm, &hi);
@@ -381,26 +420,27 @@ int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live,
   int e = opt_in_smem(&pl->max_smem);
   if (e != 0) return e;
   pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T), fc.wind != nullptr,
-                        tr.tr != nullptr ? tr.n : 0);
+                        tr.tr != nullptr ? tr.n : 0, strat_w != nullptr ? k : 0);
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
   pl->a = FeArgs<T>{nullptr, nullptr, nullptr, f_edge, rts, live, nullptr, nullptr, nullptr,
-                    fc, tr, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, hm, hi,
+                    fc, tr, strat_w, nbr_reach(table), T(dt), T(inv_dc), T(s_div), ny2, nx, k,
+                    rt, ct, hm, hi,
                     log2_exact(kc),
                     vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
   return 0;
 }
 
-template <typename T, bool kMasked, bool kForced, bool kTracers = false>
+template <typename T, bool kMasked, bool kForced, bool kTracers = false, bool kStrat = false>
 int launch_arm(const FePlan<T>* pl, cudaStream_t stream) {
-  const int err = prepare<T, kMasked, kForced, kTracers>(pl->max_smem);
+  const int err = prepare<T, kMasked, kForced, kTracers, kStrat>(pl->max_smem);
   if (err != 0) return err;
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg =
       step_config(pl->n_ranks, pl->n_tiles, pl->smem, stream, attr);
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, fe_step_kernel<T, kMasked, kForced, kTracers>, pl->a, pl->tp);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, fe_step_kernel<T, kMasked, kForced, kTracers, kStrat>, pl->a, pl->tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -411,6 +451,9 @@ int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out,
   pl->a.ssh = ssh, pl->a.h = h, pl->a.u = u;
   pl->a.ssh_out = ssh_out, pl->a.h_out = h_out, pl->a.u_out = u_out;
   const bool masked = pl->a.live != nullptr, forced = pl->a.fc.wind != nullptr;
+  if (pl->a.strat_w != nullptr)  // the stratified arm (unforced, tracer-free: make_plan checked)
+    return masked ? launch_arm<T, true, false, false, true>(pl, stream)
+                  : launch_arm<T, false, false, false, true>(pl, stream);
   if (pl->a.tr.tr != nullptr) {  // the tracer arm (unforced: make_plan checked)
     pl->a.tr.tr = tr, pl->a.tr.tr_out = tr_out;
     return masked ? launch_arm<T, true, false, true>(pl, stream)
@@ -428,7 +471,8 @@ int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out,
 // tracer arm's planes (tr.tr non-null) alike.
 template <typename T>
 int fe_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
-             const TracerArgs<T>& tr, T* tr_tmp, const int* table, const double* weights,
+             const TracerArgs<T>& tr, T* tr_tmp, const T* strat_w, const int* table,
+             const double* weights,
              const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,
              T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, int ny2,
              int nx, int k, int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
@@ -439,8 +483,8 @@ int fe_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
                    (tr.tr == nullptr || (vector_loads(k, kc, sizeof(T), tr.tr, tr.tr_out) &&
                                              vector_loads(k, kc, sizeof(T), tr_tmp, tr_tmp)));
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, live, fc, tr, table, weights, dt, inv_dc, s_div, ny2,
-                      nx, k, n_steps, n_terms, rt, ct, vec);
+  int err = make_plan(&pl, f_edge, rts, live, fc, tr, strat_w, table, weights, dt, inv_dc,
+                      s_div, ny2, nx, k, n_steps, n_terms, rt, ct, vec);
   if (err != 0) return err;
   const T *ssh = ssh_in, *h = h_in, *u = u_in, *t = tr.tr;
   for (int s = 0; s < n_steps; ++s) {
@@ -467,8 +511,8 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
              int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
   const int kc = step_chunk(k);
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, live, fc, tr, table, weights, dt, inv_dc, s_div, ny2,
-                      nx, k, n_steps, n_terms, rt, ct,
+  int err = make_plan(&pl, f_edge, rts, live, fc, tr, static_cast<const T*>(nullptr), table,
+                      weights, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct,
                       vector_loads(k, kc, sizeof(T), h, u) &&
                           (tr.tr == nullptr || vector_loads(k, kc, sizeof(T), tr.tr, tr.tr)));
   if (err != 0) return err;
@@ -497,22 +541,25 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
 // n_tr tracers (planes (2 n_tr, ny2, nx, k) in `tr_in`, `tr_out`,
 // `tr_tmp`), the live-cell mask `cmask` (non-null exactly when `live` is),
 // kappa and upwind; the stack entry's tracer arm takes the tracer stack
-// (S, 2 n_tr, ny2, nx, k) in `tr`.
+// (S, 2 n_tr, ny2, nx, k) in `tr`; a null `strat_w` runs the unstratified
+// arm, any other (W, (k, k) row-major, with `wind` and `tr_in` null) the
+// stratified one.
 #define MOT_FE_ENTRIES(T, SUFFIX)                                                             \
   extern "C" int mot_fe_steps_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
       const int* table, const double* weights, const T* ssh_in, const T* h_in,                \
       const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,          \
-      const T* tr_in, T* tr_out, T* tr_tmp, const T* cmask, double dt, double inv_dc,         \
-      double s_div, double kappa, double upwind, double dlin, double dquad, double rayl,      \
-      int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms,        \
-      int rt, int ct, int n_tr, void* stream) {                                               \
+      const T* tr_in, T* tr_out, T* tr_tmp, const T* cmask, const T* strat_w, double dt,      \
+      double inv_dc, double s_div, double kappa, double upwind, double dlin, double dquad,    \
+      double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps,        \
+      int n_terms, int rt, int ct, int n_tr, void* stream) {                                  \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
     const TracerArgs<T> tr{tr_in, tr_out, cmask, T(kappa), T(0.5 * upwind), n_tr, {}, {}};   \
-    return fe_steps<T>(f_edge, rts, live, fc, tr, tr_tmp, table, weights, ssh_in, h_in, u_in, \
-                       ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div, ny2,  \
-                       nx, k, n_steps, n_terms, rt, ct, static_cast<cudaStream_t>(stream));   \
+    return fe_steps<T>(f_edge, rts, live, fc, tr, tr_tmp, strat_w, table, weights, ssh_in,    \
+                       h_in, u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc,  \
+                       s_div, ny2, nx, k, n_steps, n_terms, rt, ct,                           \
+                       static_cast<cudaStream_t>(stream));                                    \
   }                                                                                           \
   extern "C" int mot_fe_stack_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -580,22 +627,26 @@ extern "C" int mot_fe_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks, in
 
 // The launch fe_step makes for an rt x ct tile of an ny2 x nx x k f32
 // lattice with the stencil `table` (a host copy), with n_tr tracers (the
-// periodic tracer arm) or none: out[0] the clusters (one per tile), out[1]
-// the blocks per SM. Returns 0, kNotHexTable or the CUDA error.
+// periodic tracer arm), stratified (strat nonzero: the periodic stratified
+// arm) or neither: out[0] the clusters (one per tile), out[1] the blocks per
+// SM. Returns 0, kNotHexTable or the CUDA error.
 extern "C" int mot_fe_plan(const int* table, int ny2, int nx, int k, int rt, int ct, int n_tr,
-                           int* out) {
+                           int strat, int* out) {
   double weights[kMaxTerms] = {};
   FePlan<float> pl;
   static const float dummy = 0.0f;
   TracerArgs<float> tr{};
   if (n_tr > 0) tr.tr = &dummy, tr.n = n_tr;
-  int e = make_plan<float>(&pl, nullptr, nullptr, nullptr, ForcingArgs<float>{}, tr, table,
-                           weights, 1.0, 1.0, 1.0, ny2, nx, k, 1, table[0], rt, ct, true);
+  int e = make_plan<float>(&pl, nullptr, nullptr, nullptr, ForcingArgs<float>{}, tr,
+                           strat ? &dummy : nullptr, table, weights, 1.0, 1.0, 1.0, ny2, nx, k,
+                           1, table[0], rt, ct, true);
   if (e != 0) return e;
-  auto kernel = n_tr > 0 ? fe_step_kernel<float, false, false, true>
-                         : fe_step_kernel<float, false, false, false>;
-  e = n_tr > 0 ? prepare<float, false, false, true>(pl.max_smem)
-               : prepare<float, false, false, false>(pl.max_smem);
+  auto kernel = strat      ? fe_step_kernel<float, false, false, false, true>
+                : n_tr > 0 ? fe_step_kernel<float, false, false, true, false>
+                           : fe_step_kernel<float, false, false, false, false>;
+  e = strat      ? prepare<float, false, false, false, true>(pl.max_smem)
+      : n_tr > 0 ? prepare<float, false, false, true, false>(pl.max_smem)
+                 : prepare<float, false, false, false, false>(pl.max_smem);
   if (e != 0) return e;
   out[0] = pl.n_tiles;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -509,6 +509,192 @@ __device__ __forceinline__ void tracer_step(const T* lv, int pk, const StepTaps<
   }
 }
 
+// The stratified arms' operand (kStrat, chosen by a non-null W; structured/
+// fused_model.kernel_strat): W (K, K) row-major in T, any dense matrix (the
+// JAX kernel takes it as a dense operand, pallas_model.py:159-163), so that
+// each layer's pressure is the gradient of its Montgomery potential
+// Phi_k = g ssh + sum_l h_l W[l][k] (models/stratification.py), with scale
+// -dt in place of -g dt.
+//
+// How the arms form Phi. Phi_k of a site needs h at every level of that
+// site, and the cluster's ranks hold the levels in chunks. Each rank keeps
+// its chunk's columns of W ([K][kc], by async copies with the window) and
+// gathers the other ranks' h chunks through distributed shared memory, one
+// rank at a time, in rank order: a chunk of 2 planes [2][W][kc] is copied
+// from the owner's shared memory into a staging buffer by 16-byte loads,
+// then every (site, level) of the block's chunk adds that chunk's levels'
+// products in level order (the block's own chunk is read in place). The
+// sum over l is then in level order 0 .. K-1, with no atomics: f64 reruns
+// are bitwise equal. A gather was chosen over scattering partial products
+// to the owning ranks: a scatter sends K values per site and rank (the
+// partial products of every destination level), a gather 2 kc per site
+// and rank, and it needs no receive buffer per source rank. Staging was
+// chosen over reading the other ranks' h in place with each thread's sums
+// in registers across ranks (no staging buffer, one block barrier): that
+// took x1.00-1.10 this design's time on an H100 (tools/strat_timing.py,
+// PERF.md section 6).
+//
+// The hazards: a rank reads another's h only after a full cluster barrier
+// that follows every rank's loads (fe_step) or writes (tiled_step), and no
+// rank writes h planes that another may be reading, or leaves, before a
+// cluster barrier that follows every rank's last read.
+template <typename T>
+struct StratSmem {
+  T* phi;    // [2][W][kc]: Phi at this block's levels
+  T* stage;  // [2][W][kc]: another rank's h chunk
+  T* wsl;    // [K][kc]: W[l][k0 + kl]
+  T* fresh;  // [2][W][kc]: FB's fresh h' (tiled_step's FB arm only)
+  __device__ StratSmem(void* end, int W, int kc, int K) {
+    const uintptr_t at = (reinterpret_cast<uintptr_t>(end) + 15) & ~static_cast<uintptr_t>(15);
+    phi = reinterpret_cast<T*>(at);
+    stage = phi + 2 * W * kc;
+    wsl = stage + 2 * W * kc;
+    fresh = wsl + K * kc;
+  }
+};
+// The stratified arm's shared memory beyond the unstratified layout: what
+// StratSmem takes, with (fresh) or without FB's fresh h'.
+inline size_t strat_smem_bytes(long long sites, int kc, int k, size_t itemsize, bool fresh) {
+  return 16 + itemsize * (static_cast<size_t>((fresh ? 6 : 4) * sites * kc) +
+                          static_cast<size_t>(k) * kc);
+}
+
+// The block's columns of W, wsl[l][kl] = W[l][k0 + kl] for kl < kr, by
+// async copies.
+template <typename T>
+__device__ __forceinline__ void load_strat_w(T* wsl, const T* w, int K, int k0, int kr,
+                                             int kc_log2) {
+  const int kc = 1 << kc_log2;
+  for (int e = threadIdx.x; e < (K << kc_log2); e += blockDim.x) {
+    const int kl = e & (kc - 1);
+    if (kl < kr) copy_async(wsl + e, w + (e >> kc_log2) * K + k0 + kl);
+  }
+}
+
+// The rows and columns the pressure gradient reads around a site, from the
+// table (host copy): the neighbour taps' least and greatest (dm, di), the
+// site's own (0, 0) among them. The stratified arms form Phi on the region
+// they grow the momentum update's region by.
+struct NbrReach {
+  int m0, m1, i0, i1;
+};
+inline NbrReach nbr_reach(const int* table) {
+  NbrReach r{0, 0, 0, 0};
+  for (int c = 0; c < 6; ++c) {
+    const int dm = table[kNbr + 3 * c + 1], di = table[kNbr + 3 * c + 2];
+    r.m0 = dm < r.m0 ? dm : r.m0, r.m1 = dm > r.m1 ? dm : r.m1;
+    r.i0 = di < r.i0 ? di : r.i0, r.i1 = di > r.i1 ? di : r.i1;
+  }
+  return r;
+}
+
+// 16 bytes of shared memory as values of T (the address 16-byte aligned).
+__device__ __forceinline__ void load16(float (&d)[4], const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  d[0] = q.x, d[1] = q.y, d[2] = q.z, d[3] = q.w;
+}
+__device__ __forceinline__ void load16(double (&d)[2], const double* p) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  d[0] = q.x, d[1] = q.y;
+}
+
+// Phi = g ssh + h @ W at this block's kr levels of the window rows [r0, r1)
+// and columns [c0, c1) (window rows of Wi sites), into sm.phi [2][W][kc].
+// `h` points at the h planes [2][W][kc] of a window copy, at the same offset
+// in every rank's shared memory; `ssh` at the matching ssh planes [2][W].
+// A thread takes one level and kSites sites (8 sums, both parities) at a
+// time, reads W once per level for all of them and h by 16-byte vectors
+// where a chunk is whole vectors (each h value read once per thread, 16
+// lanes reading it at once). Ends with a block barrier; the caller provides
+// the cluster barriers (the hazards above).
+template <typename T>
+__device__ __forceinline__ void montgomery(const StratSmem<T>& sm, cg::cluster_group& cluster,
+                                           const T* h, const T* ssh, int r0, int r1, int c0,
+                                           int c1, int Wi, int W, int kc_log2, int kr, int K,
+                                           int rank, int n_ranks) {
+  constexpr int kSites = 4;
+  constexpr int V = 16 / sizeof(T);  // values per 16-byte vector
+  const int kc = 1 << kc_log2, pk = W << kc_log2;
+  const T g = T(kGravity);
+  const int kl = threadIdx.x & (kc - 1);
+  const int slot = threadIdx.x >> kc_log2, slots = blockDim.x >> kc_log2;
+  const int nc = c1 - c0, n = (r1 - r0) * nc;
+  const FastDiv by_nc(nc);
+  const bool vec = (kc * sizeof(T)) % 16 == 0;  // every h row whole vectors, aligned
+  for (int rr = 0; rr < n_ranks; ++rr) {
+    const T* src = h;
+    if (rr != rank) {
+      const T* far = cluster.map_shared_rank(const_cast<T*>(h), rr);
+      const bool v16 = (2 * pk * sizeof(T)) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(far) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(sm.stage) % 16 == 0;
+      if (v16) {
+        const int n16 = static_cast<int>(2 * pk * sizeof(T) / 16);
+        for (int e = threadIdx.x; e < n16; e += blockDim.x)
+          reinterpret_cast<uint4*>(sm.stage)[e] = reinterpret_cast<const uint4*>(far)[e];
+      } else {
+        for (int e = threadIdx.x; e < 2 * pk; e += blockDim.x) sm.stage[e] = far[e];
+      }
+      __syncthreads();
+      src = sm.stage;
+    }
+    const int kr2 = min(kc, K - rr * kc);  // the source chunk's real levels
+    const int kv = vec ? kr2 / V * V : 0;  // of them read by vectors
+    const T* w = sm.wsl + (rr * kc << kc_log2) + kl;  // W[rr kc + l][k0 + kl] at l << kc_log2
+    const bool first = rr == 0, last = rr == n_ranks - 1;
+    for (int base = slot; kl < kr && base < n; base += kSites * slots) {
+      int s[kSites];
+      bool on[kSites];
+      T a0[kSites], a1[kSites];
+#pragma unroll
+      for (int j = 0; j < kSites; ++j) {
+        const int t = base + j * slots;
+        on[j] = t < n;
+        const int tt = on[j] ? t : base;
+        const int r = by_nc.div(tt);
+        s[j] = (r0 + r) * Wi + c0 + by_nc.mod(tt, r);
+        a0[j] = first ? T(0) : sm.phi[(s[j] << kc_log2) + kl];
+        a1[j] = first ? T(0) : sm.phi[(s[j] << kc_log2) + kl + pk];
+      }
+      for (int l = 0; l < kv; l += V) {
+        T wv[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) wv[v] = w[(l + v) << kc_log2];
+#pragma unroll
+        for (int j = 0; j < kSites; ++j) {
+          T x0[V], x1[V];
+          load16(x0, src + (s[j] << kc_log2) + l);
+          load16(x1, src + (s[j] << kc_log2) + l + pk);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            a0[j] += x0[v] * wv[v];
+            a1[j] += x1[v] * wv[v];
+          }
+        }
+      }
+      for (int l = kv; l < kr2; ++l) {
+        const T wv = w[l << kc_log2];
+#pragma unroll
+        for (int j = 0; j < kSites; ++j) {
+          a0[j] += src[(s[j] << kc_log2) + l] * wv;
+          a1[j] += src[(s[j] << kc_log2) + l + pk] * wv;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kSites; ++j) {
+        if (!on[j]) continue;
+        if (last) {  // the JAX order: g * ssh + hw
+          a0[j] = g * ssh[s[j]] + a0[j];
+          a1[j] = g * ssh[W + s[j]] + a1[j];
+        }
+        sm.phi[(s[j] << kc_log2) + kl] = a0[j];
+        sm.phi[(s[j] << kc_log2) + kl + pk] = a1[j];
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // This block's level chunk of h and u over the window, and ssh. With
 // vec_log2 >= 0 (K * itemsize, the chunk and the pointers 16-byte aligned) each
 // (site, plane) chunk moves as 2^vec_log2 16-byte vectors, neighbouring

@@ -3,12 +3,14 @@
 // for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_step_kernel (mpas_ocean_tpu/structured/pallas_model.py:852),
-// the arms with stratification and the nonlinear terms off, halos read from
+// the arms with the nonlinear terms off, halos read from
 // the state, periodic (masks off) and masked (a coastal channel culled from
 // a periodic lattice: the mask operands of :875-877, 1287-1288, windowed as
 // f_edge), unforced and forced (the wind and the level-index operands),
 // without tracers and with them (unforced; the tracer and cell-mask
-// operands of :892-946, 1180-1190). One launch advances the whole
+// operands of :892-946, 1180-1190), unstratified and stratified (unforced
+// and tracer-free; the strat_w operand of :904-908, 1193-1194). One launch
+// advances the whole
 // lattice by q steps of _window_steps (:802); the exported entry loops
 // n_steps / q launches on the caller's stream.
 //
@@ -95,6 +97,22 @@
 // Measured (f32 FB, two tracers, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
 // section 5): 526.9 us/step at 256x256x100, x1.88 the tracer-free step: the
 // tracer planes halve the two-block tile to (4, 8).
+//
+// The stratified arm (kStrat, chosen by a non-null W; unforced and
+// tracer-free; the unstratified arms keep their code), at every step of the
+// window, forms the Montgomery potential Phi = g ssh + h @ W at the block's
+// levels on the momentum update's region grown by the gradient's reach
+// (step_window.cuh, StratSmem, montgomery), after the column sums' barrier,
+// and takes each level's pressure gradient from it with scale -dt. FE reads
+// the window copy's old h and ssh. FB reads the fresh h' and ssh' of the
+// continuity update: continuity also writes h'
+// into a buffer of its own (StratSmem::fresh), because at the last step,
+// and always at q = 1, h' goes only to the output, and there is no second
+// window copy at q = 1. The ranks read each other's h, so a cluster barrier
+// follows each step's Phi: without it, step j + 1's continuity could write
+// the ping-pong copy (FE) or the fresh h' (FB) that a slower rank is still
+// reading for step j's Phi. A barrier was chosen over a third buffer: it
+// costs one cluster barrier per step and no shared memory.
 
 #include "nl_step.cuh"
 
@@ -117,13 +135,15 @@ struct StepArgs {
   T* u_out;
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   TracerArgs<T> tr;   // the tracer arm's operands; tr null otherwise
+  const T* strat_w;   // the stratified arm's W (K, K); null otherwise
+  NbrReach nr;        // the gradient's reach, which grows the momentum region to Phi's
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc_log2, vec_log2, n_tiles_i;
 };
 
 // Each distinct u and h value of a (site, level) is loaded once and each
 // u * f product formed once (step_window.cuh, hex::).
-template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 __global__ void __launch_bounds__(kStepThreads, 2)
     tiled_step_kernel(const StepArgs<T> a, const StepTaps<T> tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -148,6 +168,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   int* gs = reinterpret_cast<int*>(rts_s + 2 * W);  // [W]: lattice site
   int* live_s = gs + W;                              // [W]: the masked arm's live bits
   const ForcingSmem<T> fsm(live_s + W, W, 0);        // the forced arm's winds and levels
+  const StratSmem<T> ssm(live_s + W, W, kc, K);      // the stratified arm's
 
   allow_next_grid();
   const int m_base = tm * a.rt - a.hm * a.q, i_base = ti * a.ct - a.hi * a.q;
@@ -161,12 +182,13 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   if (kTracers)
     load_tracers(buf + 8 * pk, gs, a.tr.tr, 2 * a.tr.n, W, a.kc_log2, a.vec_log2, k0, kr, K,
                  plane);
+  if (kStrat) load_strat_w(ssm.wsl, a.strat_w, K, k0, kr, a.kc_log2);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
 
   const T dt_div = a.dt * a.s_div;
-  const T pg_scale = T(-kGravity) * a.dt;
+  const T pg_scale = kStrat ? -a.dt : T(-kGravity) * a.dt;
   const T dt_rayl = a.dt * a.fc.rayl;  // the forced arm's Rayleigh factor
   // the forced arm: whether this block's chunk holds some edge's top or
   // bottom level (then its window's levels are staged and its pass runs)
@@ -244,6 +266,10 @@ __global__ void __launch_bounds__(kStepThreads, 2)
         }
         acc0 += hnew[0];
         acc1 += hnew[1];
+        if (kStrat && FB) {  // the fresh h' that Phi reads
+          ssm.fresh[b] = hnew[0];
+          ssm.fresh[pk + b] = hnew[1];
+        }
         if (!last) {
           nxt[b] = hnew[0];
           nxt[pk + b] = hnew[1];
@@ -288,11 +314,24 @@ __global__ void __launch_bounds__(kStepThreads, 2)
     }
     __syncthreads();
 
+    // the momentum update's region: the window less j + 1 halos
+    const int ur0 = a.hm * (j + 1), uc0 = a.hi * (j + 1);
+    if (kStrat) {
+      // Phi of the old state (FE) or of the fresh one (FB) on the momentum
+      // region grown by the gradient's reach (inside the window less j
+      // halos, FE, and the continuity region, FB), then the barrier that
+      // keeps the next step's writes from the h being read here
+      montgomery(ssm, cluster, FB ? ssm.fresh : cur, FB ? ssh_nxt : ssh_cur, ur0 + a.nr.m0,
+                 Wm - ur0 + a.nr.m1, uc0 + a.nr.i0, Wi - uc0 + a.nr.i1, Wi, W, a.kc_log2, kr, K,
+                 rank, n_ranks);
+      cluster.sync();
+    }
+
     // momentum: u' = u + dt * (TRiSK Coriolis of u * f) + pg_scale * grad,
     // grad of the old ssh (FE) or the fresh one (FB), on the window less
-    // j + 1 halos (the core at the last step)
+    // j + 1 halos (the core at the last step); the stratified arm's grad of
+    // each level's Phi
     const T* pg = FB ? ssh_nxt : ssh_cur;
-    const int ur0 = a.hm * (j + 1), uc0 = a.hi * (j + 1);
     const int unc = Wi - 2 * uc0, un = (Wm - 2 * ur0) * unc;
     const FastDiv by_unc(unc);
     for (int t = threadIdx.x >> g_log2; t < un; t += blockDim.x >> g_log2) {
@@ -300,12 +339,20 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       const int s = (ur0 + r) * Wi + uc0 + c;
       const int g = (tm * a.rt + r) * a.nx + ti * a.ct + c;  // the core's site (last step)
       T grad[6];
+      if (!kStrat) {
 #pragma unroll
-      for (int ch = 0; ch < 6; ++ch)
-        grad[ch] = (pg[s + tp.nb[ch]] - pg[(ch & 1) * W + s]) * a.inv_dc;
+        for (int ch = 0; ch < 6; ++ch)
+          grad[ch] = (pg[s + tp.nb[ch]] - pg[(ch & 1) * W + s]) * a.inv_dc;
+      }
       const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
       for (int kl = lane; kl < kr; kl += G) {
         const int b = s * kc + kl;
+        if (kStrat) {
+          const T* ph = ssm.phi + b;
+#pragma unroll
+          for (int ch = 0; ch < 6; ++ch)
+            grad[ch] = (ph[tp.nb[ch] << a.kc_log2] - ph[(ch & 1) * pk]) * a.inv_dc;
+        }
         T v[6];
         T u[hex::kU];
 #pragma unroll
@@ -375,40 +422,43 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   cluster.sync();
 }
 
-template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(tiled_step_kernel<T, FB, kMasked, kForced, kTracers>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             max_smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(tiled_step_kernel<T, FB, kMasked, kForced, kTracers, kStrat>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
-template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 int launch(const StepArgs<T>& a, const StepTaps<T>& tp, int n_ranks, int n_tiles, size_t smem,
            cudaStream_t stream) {
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = step_config(n_ranks, n_tiles, smem, stream, attr);
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, tiled_step_kernel<T, FB, kMasked, kForced, kTracers>, a, tp);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, tiled_step_kernel<T, FB, kMasked, kForced, kTracers, kStrat>, a, tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The window and, reserved by the periodic arm too so that one plan serves
 // both, the masked arm's live bits; the forced arm's winds and packed levels
-// beyond; the tracer arm's 2 n_tr planes in each window copy
-// (kernels/tiled_step.smem_bytes mirrors this).
-size_t smem_bytes(long long sites, int kc, int q, size_t itemsize, bool forced, int n_tr) {
+// beyond, or the stratified arm's Phi, staged h, W slice at k levels
+// (strat_k > 0) and, for FB, the fresh h'; the tracer arm's 2 n_tr planes in
+// each window copy (kernels/tiled_step.smem_bytes mirrors this).
+size_t smem_bytes(long long sites, int kc, int q, size_t itemsize, bool forced, int n_tr,
+                  int strat_k, bool fb) {
   return step_smem_bytes(sites, kc, q > 1 ? 2 : 1, kPlanes, itemsize) +
          sizeof(int) * static_cast<size_t>(sites) +
          (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0) +
+         (strat_k > 0 ? strat_smem_bytes(sites, kc, strat_k, itemsize, fb) : 0) +
          itemsize * static_cast<size_t>(sites) * 2 * n_tr * kc * (q > 1 ? 2 : 1);
 }
 
-template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_tiles,
         int n_steps, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,
         T* tr_out, T* tr_tmp, cudaStream_t stream) {
@@ -416,7 +466,7 @@ int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_ti
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  if ((err = prepare<T, FB, kMasked, kForced, kTracers>(max_smem)) != 0) return err;
+  if ((err = prepare<T, FB, kMasked, kForced, kTracers, kStrat>(max_smem)) != 0) return err;
   const int n_launches = n_steps / a.q;
   for (int l = 0; l < n_launches; ++l) {
     const bool to_out = ((n_launches - 1 - l) & 1) == 0;
@@ -424,8 +474,8 @@ int run(StepArgs<T> a, const StepTaps<T>& tp, size_t smem, int n_ranks, int n_ti
     a.h_out = to_out ? h_out : h_tmp;
     a.u_out = to_out ? u_out : u_tmp;
     if (kTracers) a.tr.tr_out = to_out ? tr_out : tr_tmp;
-    if ((err = launch<T, FB, kMasked, kForced, kTracers>(a, tp, n_ranks, n_tiles, smem,
-                                                         stream)) != 0)
+    if ((err = launch<T, FB, kMasked, kForced, kTracers, kStrat>(a, tp, n_ranks, n_tiles,
+                                                                 smem, stream)) != 0)
       return err;
     a.ssh = a.ssh_out, a.h = a.h_out, a.u = a.u_out;
     if (kTracers) a.tr.tr = a.tr.tr_out;
@@ -442,26 +492,37 @@ using RunFn = int (*)(StepArgs<T>, const StepTaps<T>&, size_t, int, int, int, T*
                       T*, T*, T*, T*, cudaStream_t);
 
 // The instantiation of an arm: FE or FB, periodic or masked, unforced or
-// forced, or (unforced) with tracers.
+// forced, or (unforced) with tracers, or (unforced, tracer-free) stratified.
 template <typename T>
-RunFn<T> run_of(bool fb, bool masked, bool forced, bool tracers) {
+RunFn<T> run_of(bool fb, bool masked, bool forced, bool tracers, bool strat) {
+  if (strat)
+    return fb ? (masked ? run<T, true, true, false, false, true>
+                        : run<T, true, false, false, false, true>)
+              : (masked ? run<T, false, true, false, false, true>
+                        : run<T, false, false, false, false, true>);
   if (tracers)
-    return fb ? (masked ? run<T, true, true, false, true> : run<T, true, false, false, true>)
-              : (masked ? run<T, false, true, false, true> : run<T, false, false, false, true>);
+    return fb ? (masked ? run<T, true, true, false, true, false>
+                        : run<T, true, false, false, true, false>)
+              : (masked ? run<T, false, true, false, true, false>
+                        : run<T, false, false, false, true, false>);
   if (fb)
-    return masked ? (forced ? run<T, true, true, true, false> : run<T, true, true, false, false>)
-                  : (forced ? run<T, true, false, true, false> : run<T, true, false, false, false>);
-  return masked ? (forced ? run<T, false, true, true, false> : run<T, false, true, false, false>)
-                : (forced ? run<T, false, false, true, false> : run<T, false, false, false, false>);
+    return masked ? (forced ? run<T, true, true, true, false, false>
+                            : run<T, true, true, false, false, false>)
+                  : (forced ? run<T, true, false, true, false, false>
+                            : run<T, true, false, false, false, false>);
+  return masked ? (forced ? run<T, false, true, true, false, false>
+                          : run<T, false, true, false, false, false>)
+                : (forced ? run<T, false, false, true, false, false>
+                          : run<T, false, false, false, false, false>);
 }
 
 template <typename T>
 int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
-                TracerArgs<T> tr, T* tr_tmp, const int* table, const double* weights,
-                const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out,
-                T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc,
-                double s_div, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
-                int ct, int q, int hm, int hi, int fb, cudaStream_t stream) {
+                TracerArgs<T> tr, T* tr_tmp, const T* strat_w, const int* table,
+                const double* weights, const T* ssh_in, const T* h_in, const T* u_in,
+                T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt,
+                double inv_dc, double s_div, int ny2, int nx, int k, int n_steps, int n_terms,
+                int rt, int ct, int q, int hm, int hi, int fb, cudaStream_t stream) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || ny2 % rt || nx % ct || n_steps % q)
@@ -470,6 +531,9 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
   // the tracer arm: unforced, at least one tracer, the cell mask with the live bits
   if (tracers && (fc.wind != nullptr || tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
     return cudaErrorInvalidValue;
+  // the stratified arm: unforced and tracer-free
+  const bool strat = strat_w != nullptr;
+  if (strat && (fc.wind != nullptr || tracers)) return cudaErrorInvalidValue;
   const int kc = step_chunk(k);
   const int n_ranks = (k + kc - 1) / kc;
   const int Wm = rt + 2 * hm * q, Wi = ct + 2 * hi * q;
@@ -485,13 +549,13 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
   T* tr_out = tr.tr_out;
   if (tracers) resolve_tracer_taps(&tr, table, Wi);
   const StepArgs<T> a{ssh_in, h_in, u_in, f_edge, rts, live, nullptr, nullptr, nullptr,
-                      fc, tr, T(dt), T(inv_dc), T(s_div), ny2, nx, k, rt, ct, q, hm, hi,
-                      log2_exact(kc),
+                      fc, tr, strat_w, nbr_reach(table), T(dt), T(inv_dc), T(s_div), ny2, nx,
+                      k, rt, ct, q, hm, hi, log2_exact(kc),
                       vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct};
   const size_t smem = smem_bytes(sites, kc, q, sizeof(T), fc.wind != nullptr,
-                                 tracers ? tr.n : 0);
+                                 tracers ? tr.n : 0, strat ? k : 0, fb != 0);
   const int n_tiles = (ny2 / rt) * (nx / ct);
-  return run_of<T>(fb, live != nullptr, fc.wind != nullptr, tracers)(
+  return run_of<T>(fb, live != nullptr, fc.wind != nullptr, tracers, strat)(
       a, tp, smem, n_ranks, n_tiles, n_steps, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp,
       tr_out, tr_tmp, stream);
 }
@@ -506,23 +570,25 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
 // `lvl` (the packed levels) and the coefficients; a null `tr_in` the
 // tracer-free arm, any other the tracer arm with n_tr tracers (planes
 // (2 n_tr, ny2, nx, k) in `tr_in`, `tr_out`, `tr_tmp`), the live-cell mask
-// `cmask` (non-null exactly when `live` is), kappa and upwind.
+// `cmask` (non-null exactly when `live` is), kappa and upwind; a null
+// `strat_w` the unstratified arm, any other (W, (k, k) row-major, with
+// `wind` and `tr_in` null) the stratified one.
 #define MOT_TILED_ENTRY(T, SUFFIX)                                                            \
   extern "C" int mot_tiled_steps_##SUFFIX(                                                    \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
       const int* table, const double* weights, const T* ssh_in, const T* h_in,                \
       const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp,          \
-      const T* tr_in, T* tr_out, T* tr_tmp, const T* cmask, double dt, double inv_dc,         \
-      double s_div, double kappa, double upwind, double dlin, double dquad, double rayl,      \
-      int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms,        \
-      int rt, int ct, int q, int hm, int hi, int fb, int n_tr, void* stream) {                \
+      const T* tr_in, T* tr_out, T* tr_tmp, const T* cmask, const T* strat_w, double dt,      \
+      double inv_dc, double s_div, double kappa, double upwind, double dlin, double dquad,    \
+      double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps,        \
+      int n_terms, int rt, int ct, int q, int hm, int hi, int fb, int n_tr, void* stream) {    \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
     const TracerArgs<T> tr{tr_in, tr_out, cmask, T(kappa), T(0.5 * upwind), n_tr, {}, {}};   \
-    return tiled_steps<T>(f_edge, rts, live, fc, tr, tr_tmp, table, weights, ssh_in, h_in,    \
-                          u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc,     \
-                          s_div, ny2, nx, k, n_steps, n_terms, rt, ct, q, hm, hi, fb,         \
-                          static_cast<cudaStream_t>(stream));                                 \
+    return tiled_steps<T>(f_edge, rts, live, fc, tr, tr_tmp, strat_w, table, weights,        \
+                          ssh_in, h_in, u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp,   \
+                          dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct, q, hm, hi, \
+                          fb, static_cast<cudaStream_t>(stream));                             \
   }
 
 MOT_TILED_ENTRY(float, f32)
@@ -556,19 +622,24 @@ extern "C" int mot_tiled_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks,
 }
 
 // The launch of an f32 plan (FE or FB) with a window of `sites` sites and k
-// levels: out[0] the clusters the card holds at once, out[1] the blocks per
-// SM. Returns 0 or the CUDA error.
-extern "C" int mot_tiled_occupancy(int sites, int k, int q, int fb, int* out) {
+// levels, of the unstratified arm or (strat nonzero) the stratified one:
+// out[0] the clusters the card holds at once, out[1] the blocks per SM.
+// Returns 0 or the CUDA error.
+extern "C" int mot_tiled_occupancy(int sites, int k, int q, int fb, int strat, int* out) {
   int max_smem = 0;
   int e = opt_in_smem(&max_smem);
   if (e != 0) return e;
   const int kc = step_chunk(k);
-  const size_t smem = smem_bytes(sites, kc, q, sizeof(float), false, 0);
+  const size_t smem = smem_bytes(sites, kc, q, sizeof(float), false, 0, strat ? k : 0, fb != 0);
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  auto kernel = fb ? tiled_step_kernel<float, true, false, false, false>
-                   : tiled_step_kernel<float, false, false, false, false>;
-  e = fb ? prepare<float, true, false, false, false>(max_smem)
-         : prepare<float, false, false, false, false>(max_smem);
+  auto kernel = strat ? (fb ? tiled_step_kernel<float, true, false, false, false, true>
+                            : tiled_step_kernel<float, false, false, false, false, true>)
+                      : (fb ? tiled_step_kernel<float, true, false, false, false, false>
+                            : tiled_step_kernel<float, false, false, false, false, false>);
+  e = strat ? (fb ? prepare<float, true, false, false, false, true>(max_smem)
+                  : prepare<float, false, false, false, false, true>(max_smem))
+            : (fb ? prepare<float, true, false, false, false, false>(max_smem)
+                  : prepare<float, false, false, false, false, false>(max_smem));
   if (e != 0) return e;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = step_config((k + kc - 1) / kc, 1, smem, nullptr, attr);

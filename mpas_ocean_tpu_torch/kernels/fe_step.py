@@ -8,7 +8,8 @@ channel culled from one; the linear entries take momentum forcing
 (``forcing=``, ``structured.fused_model.kernel_forcing``'s operands), which
 runs the kernel's forced arm, and ``fe_rollout`` takes tracers
 (``tracers=``, ``structured.fused_model.kernel_tracers``' operands), which
-run its tracer arm.
+run its tracer arm, and a stratification's W (``strat_w=``,
+``structured.fused_model.kernel_strat``), which runs its stratified arm.
 
 The entries take tensors on a CUDA device and the stencil on the host
 (``StructMesh.host_stencil``), and launch one kernel per step on the
@@ -24,8 +25,9 @@ anything else, a stencil that is not the hex lattice's included:
 
 Their plain PyTorch version is ``structured.model.structured_run_loop``,
 which ``structured.fused_model`` runs for tensors on the CPU. ``launches``
-counts kernel launches, ``forced_launches`` those of the forced arm and
-``tracer_launches`` those of the tracer arm.
+counts kernel launches, ``forced_launches`` those of the forced arm,
+``tracer_launches`` those of the tracer arm and ``strat_launches`` those of
+the stratified arm.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ __all__ = [
     "best_tile",
     "check_forcing",
     "check_live",
+    "check_strat",
     "check_tracer_stack",
     "check_tracers",
     "forcing_smem_bytes",
@@ -66,6 +69,8 @@ __all__ = [
     "nl_smem_bytes",
     "pack_stencil",
     "smem_bytes",
+    "strat_launches",
+    "strat_smem_bytes",
     "tracer_args",
     "tracer_launches",
     "vertex_tables",
@@ -112,10 +117,11 @@ NL_SLICE = 4
 SMS = 132
 
 # kernel launches made by this module's entries (one per step), and those
-# of them that ran the forced arm and the tracer arm
+# of them that ran the forced arm, the tracer arm and the stratified arm
 launches = 0
 forced_launches = 0
 tracer_launches = 0
+strat_launches = 0
 
 
 def pack_stencil(terms) -> tuple[np.ndarray, np.ndarray]:
@@ -161,7 +167,17 @@ def forcing_smem_bytes(sites: int, extra: int, itemsize: int) -> int:
     return 16 + itemsize * (6 * sites + extra) + 4 * 6 * sites
 
 
-def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int = 0) -> int:
+def strat_smem_bytes(sites: int, kc: int, k: int, itemsize: int, fresh: bool = False) -> int:
+    """Shared memory the stratified arms take beyond the unstratified
+    layout (``strat_smem_bytes`` in csrc/step_window.cuh): 16 bytes of
+    alignment, Phi and another rank's staged h [2][sites][kc] each, the
+    block's columns of W [k][kc], and with ``fresh`` (tiled_step's FB arm)
+    the fresh h' [2][sites][kc]."""
+    return 16 + itemsize * ((6 if fresh else 4) * sites * kc + k * kc)
+
+
+def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int = 0,
+               strat: bool = False) -> int:
     """Dynamic shared memory of one fe_step block for a tile (rows, columns)
     at k levels (``smem_bytes`` in csrc/fe_step.cu): its level chunk of the
     window's state [8][sites][kc], the window's ssh, f_edge, rts, site
@@ -169,13 +185,15 @@ def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int
     reserves too, so that one plan serves both), and the ranks' partial
     column sums of the tile's sites; with ``forced``, the forced arm's
     (``forcing_smem_bytes``); with ``n_tracers``, the tracer arm's chunk of
-    the window's 2 n_tracers tracer planes."""
+    the window's 2 n_tracers tracer planes; with ``strat``, the stratified
+    arm's (``strat_smem_bytes``)."""
     ranks, kc = level_split(k)
     hm, hi = FE_REACH
     sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
     return (itemsize * (sites * ((8 + 2 * n_tracers) * kc + _FE_PLANES)
                         + ranks * 2 * tile[0] * tile[1])
-            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
+            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0)
+            + (strat_smem_bytes(sites, kc, k, itemsize) if strat else 0))
 
 
 def best_tile(ny2: int, nx: int, reach, smem, name: str,
@@ -198,15 +216,20 @@ def best_tile(ny2: int, nx: int, reach, smem, name: str,
     raise ValueError(f"no {name} tile fits")
 
 
-def fe_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0) -> tuple[int, int]:
+def fe_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0,
+            strat: bool = False) -> tuple[int, int]:
     """fe_step's tile (rows, columns) on a ny2 x nx lattice, by
     ``best_tile``'s rule, sized for the forced arm so that one tile serves
-    both arms, or with ``n_tracers`` for the (unforced) tracer arm's window.
+    both arms, or with ``n_tracers`` for the (unforced) tracer arm's window,
+    or with ``strat`` for the (unforced, tracer-free) stratified arm's.
     On an H100 at 64x64x100 and 256x256x100 f32 that is (4, 16), periodic
     or masked: the fastest tile at 64^2 and within 2.5% of the fastest at
     256^2, where the best one-block tile took 1.12x as long (PERF.md
     section 5, tools/tile_sweep.py). A tracer count whose window fits no
     tile raises ValueError."""
+    if strat:
+        return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize, strat=True),
+                         f"fe_step ({k} stratified levels of {itemsize}-byte values)")
     if n_tracers:
         return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize, False, n_tracers),
                          f"fe_step ({k} levels of {itemsize}-byte values, {n_tracers} tracers)")
@@ -318,18 +341,20 @@ def check_error(name: str, err: int, what: str = "") -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}{what}")
 
 
-def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: int = 0) -> dict:
+def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: int = 0,
+                strat: bool = False) -> dict:
     """The launch fe_step makes for ``tile`` on an f32 ny2 x nx x k lattice
     with the stencil ``table`` (host copy), with ``n_tracers`` tracers (its
-    periodic tracer arm) or none: its clusters (one per tile) and the blocks
-    one SM holds (CUDA's occupancy calculator)."""
+    periodic tracer arm), ``strat`` (its periodic stratified arm) or
+    neither: its clusters (one per tile) and the blocks one SM holds (CUDA's
+    occupancy calculator)."""
     fn = build.load().mot_fe_plan
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
     table = np.ascontiguousarray(table, dtype=np.int32)
     check_error("fe_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile, n_tracers,
-                                           ctypes.addressof(out)))
+                                           int(strat), ctypes.addressof(out)))
     return {"clusters": out[0], "blocks_per_sm": out[1]}
 
 
@@ -350,7 +375,7 @@ def nl_launch_plan(ny2: int, nx: int, k: int, tile, ks: int, fb: bool = False) -
 
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
-    "steps": [_P] * 20 + [_D] * 8 + [_I] * 10 + [_P],
+    "steps": [_P] * 21 + [_D] * 8 + [_I] * 10 + [_P],
     "stack": [_P] * 12 + [_D] * 8 + [_I] * 10 + [_P],
     "nl_steps": [_P, _P, _I] + [_P] * 15 + [_D] * 5 + [_I] * 8 + [_P],
     "nl_stack": [_P, _P, _I] + [_P] * 9 + [_D] * 5 + [_I] * 8 + [_P],
@@ -484,6 +509,17 @@ def stack_tracer_args(tracers) -> tuple:
             (float(tracers.kappa), float(tracers.upwind)), tracers.planes.shape[1] // 2)
 
 
+def check_strat(strat_w, k: int, dtype, device, forcing=None, tracers=None) -> None:
+    """The stratified arms' operand (``fused_model.kernel_strat``: W (K, K)
+    in the state dtype), contiguous, on the state's device; the arms run
+    unforced and tracer-free. None unstratified."""
+    if strat_w is None:
+        return
+    check_tensor("strat_w", strat_w, (k, k), dtype, device)
+    if forcing is not None or tracers is not None:
+        raise ValueError("the stratified arms run unforced and without tracers")
+
+
 def forcing_ranks(forcing, kc: int) -> tuple[int, int]:
     """(lvl_ranks, wind_ranks) of a launch whose blocks take chunks of kc
     levels (csrc/step_window.cuh, ForcingArgs): bit r set where rank r's
@@ -518,14 +554,15 @@ def _consts(h, f_edge, rts, table, weights, live, forcing=None):
 
 
 def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile,
-         forcing=None, tracers=None, tr_bufs=None):
-    global launches, forced_launches, tracer_launches
+         forcing=None, tracers=None, tr_bufs=None, strat_w=None):
+    global launches, forced_launches, tracer_launches, strat_launches
     table, weights, n_terms = stencil
     n_tr = 0 if tracers is None else tracers.planes.shape[-4] // 2
+    strat = strat_w is not None
     if tile is None:
-        tile = fe_tile(*dims, h.element_size(), n_tr)
+        tile = fe_tile(*dims, h.element_size(), n_tr, strat)
     tile = tuple(tile)
-    need = smem_bytes(tile, dims[2], h.element_size(), forcing is not None, n_tr)
+    need = smem_bytes(tile, dims[2], h.element_size(), forcing is not None, n_tr, strat)
     if need > SMEM_BYTES:
         raise ValueError(f"an fe_step tile {tile} at {dims[2]} levels needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
@@ -533,11 +570,12 @@ def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile
     ptrs, coefs = forcing_args(forcing, level_split(dims[2])[1])
     state_ptrs = [x.data_ptr() for x in tensors]
     scal = tuple(float(x) for x in scal)
-    if kind == "steps":
+    if kind == "steps":  # W follows the tracer pointers
         tr_ptrs, tr_opts, n_tr = tracer_args(tracers, *(tr_bufs or (None, None)))
+        state_ptrs += [*tr_ptrs, None if strat_w is None else strat_w.data_ptr()]
     else:  # the stack entry: the tracer stack in place
         tr_ptrs, tr_opts, n_tr = stack_tracer_args(tracers)
-    state_ptrs += tr_ptrs
+        state_ptrs += tr_ptrs
     scal, extra = (*scal, *tr_opts), (n_tr,)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -550,15 +588,19 @@ def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile
         forced_launches += n_steps
     if tracers is not None:
         tracer_launches += n_steps
+    if strat:
+        strat_launches += n_steps
 
 
 def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch, tile,
-                  live, forcing=None, tracers=None, tr_out=None, tr_scratch=None):
+                  live, forcing=None, tracers=None, tr_out=None, tr_scratch=None,
+                  strat_w=None):
     if n_steps < 1:
         raise ValueError("fe_rollout_into takes n_steps >= 1")
     h = src[1]
     dims, stencil = _consts(h, f_edge, rts, table, weights, live, forcing)
     check_tracers(tracers, live, *dims, h.dtype, h.device)
+    check_strat(strat_w, dims[2], h.dtype, h.device, forcing, tracers)
     if scratch is None:
         scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
     for group, name in ((src, "src"), (out, "out"), (scratch, "scratch")):
@@ -572,12 +614,13 @@ def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch,
         check_tensor("tracer scratch", tr_scratch, tracers.planes.shape, h.dtype, h.device)
         tr_bufs = (tr_out, tr_scratch)
     _run("steps", h, (*src, *out, *scratch), f_edge, rts, live, stencil, scal, dims,
-         n_steps, tile, forcing, tracers, tr_bufs)
+         n_steps, tile, forcing, tracers, tr_bufs, strat_w)
 
 
 def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
                     dt: float, inv_dc: float, s_div: float, n_steps: int, scratch=None,
-                    live=None, forcing=None, tracers=None, tr_out=None, tr_scratch=None):
+                    live=None, forcing=None, tracers=None, tr_out=None, tr_scratch=None,
+                    strat_w=None):
     """n_steps >= 1 forward-Euler steps of the linear core on the card, from
     ``src`` = (ssh, h, u) into ``out`` (same shapes, another buffer), through
     ``scratch`` (allocated here when None and n_steps > 1). ``src`` is left as
@@ -597,11 +640,13 @@ def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
     kernel_tracers``' operands, as for ``fe_rollout``: the source planes, the
     cell mask, kappa and upwind) runs the tracer arm, unforced, into
     ``tr_out`` through ``tr_scratch`` (allocated here when None and
-    n_steps > 1). Raises ValueError for a stencil that is not the hex
-    lattice's."""
+    n_steps > 1). ``strat_w`` (W (K, K) in the state dtype, on the card:
+    ``structured.fused_model.kernel_strat``) runs the stratified arm,
+    unforced and tracer-free. Raises ValueError for a stencil that is not
+    the hex lattice's."""
     _rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
                   (dt, inv_dc, s_div), n_steps, scratch, None, live, forcing, tracers, tr_out,
-                  tr_scratch)
+                  tr_scratch, strat_w)
 
 
 def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
@@ -629,10 +674,10 @@ def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
 
 
 def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=None,
-             forcing=None, tracers=None):
+             forcing=None, tracers=None, strat_w=None):
     """``fe_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
     ``tile`` (rows, columns) sites, or ``fe_tile``'s for None (the tile
-    sweep and the tests give their own); ``forcing`` as for
+    sweep and the tests give their own); ``forcing`` and ``strat_w`` as for
     ``fe_rollout_into``, ``tracers`` as for ``fe_rollout``."""
     lattice_dims(h)
     if n_steps < 0:
@@ -644,21 +689,22 @@ def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=N
     out = tuple(torch.empty_like(x) for x in src)
     tr_out = None if tracers is None else torch.empty_like(tracers.planes)
     _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, None, tile, live,
-                  forcing, tracers, tr_out)
+                  forcing, tracers, tr_out, None, strat_w)
     return out if tracers is None else (*out, tr_out)
 
 
 def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                dt: float, inv_dc: float, s_div: float, n_steps: int, live=None,
-               forcing=None, tracers=None):
+               forcing=None, tracers=None, strat_w=None):
     """n_steps forward-Euler steps of the linear core on the card (arguments
     as for ``fe_rollout_into``). Returns new (ssh, h, u) tensors; the inputs
     are left as they are. ``tracers`` (``structured.fused_model.
     kernel_tracers``' operands: tracer planes (2 nT, ny2, nx, K), on a
     channel the cell mask, kappa and upwind rounded to the state dtype) runs
-    the tracer arm, unforced, and the new tracer planes come fourth."""
+    the tracer arm, unforced, and the new tracer planes come fourth.
+    ``strat_w`` (as for ``fe_rollout_into``) runs the stratified arm."""
     return _rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
-                    (dt, inv_dc, s_div), n_steps, None, live, forcing, tracers)
+                    (dt, inv_dc, s_div), n_steps, None, live, forcing, tracers, strat_w)
 
 
 

@@ -6,8 +6,9 @@ Euler and forward-backward, and, in its nonlinear FB arm
 one (its FE arm is fe_step's, ``fe_step.fe_nl_rollout``), on a periodic
 lattice and, with the wall mask's ``live`` bits (``fe_step.live_bits``), on
 a coastal channel culled from one; ``tiled_rollout`` takes momentum forcing
-(``forcing=``), which runs the kernel's forced arm, and tracers
-(``tracers=``), which run its tracer arm.
+(``forcing=``), which runs the kernel's forced arm, tracers
+(``tracers=``), which run its tracer arm, and a stratification's W
+(``strat_w=``), which runs its stratified arm.
 
 ``tiled_rollout`` takes tensors on a CUDA device and the stencil on the
 host (``StructMesh.host_stencil``), and launches one kernel per q steps on
@@ -17,8 +18,8 @@ hex lattice's. Its plain PyTorch
 version is ``structured.tiled_model.plain_tiled_rollout``, which
 ``structured.tiled_model.tiled_run_loop`` runs for tensors on the CPU.
 ``launches`` counts kernel launches (one per q steps), of both cores,
-``forced_launches`` those of the forced arm and ``tracer_launches`` those
-of the tracer arm.
+``forced_launches`` those of the forced arm, ``tracer_launches`` those of
+the tracer arm and ``strat_launches`` those of the stratified arm.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from .fe_step import (
     check_error,
     check_forcing,
     check_live,
+    check_strat,
     check_tracers,
     forcing_args,
     forcing_smem_bytes,
@@ -49,37 +51,42 @@ from .fe_step import (
     nl_slice,
     nl_smem_bytes,
     state_shapes,
+    strat_smem_bytes,
     tracer_args,
 )
 
 __all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "forced_launches", "launches",
            "level_split",
            "nl_plan", "nl_slice", "nl_smem_bytes", "occupancy", "smem_bytes",
-           "tiled_nl_rollout", "tiled_rollout", "tracer_launches"]
+           "strat_launches", "tiled_nl_rollout", "tiled_rollout", "tracer_launches"]
 
 _PLANES = 16  # kPlanes in csrc/tiled_step.cu
 
 # kernel launches made by tiled_rollout (one per q steps), and those of them
-# that ran the forced arm and the tracer arm
+# that ran the forced arm, the tracer arm and the stratified arm
 launches = 0
 forced_launches = 0
 tracer_launches = 0
+strat_launches = 0
 
 
 def smem_bytes(sites: int, kc: int, q: int, itemsize: int, forced: bool = False,
-               n_tracers: int = 0) -> int:
+               n_tracers: int = 0, strat_levels: int = 0, fb: bool = False) -> int:
     """Dynamic shared memory of one block for a window of ``sites`` lattice
     sites, ``kc`` levels and q steps (``smem_bytes`` in csrc/tiled_step.cu):
     one state copy [8 + 2 n_tracers][sites][kc] at q = 1, two at q > 1; ssh,
     partial sums, f_edge and rts; the sites' indices and live bits (the
     masked arm's, reserved either way, as in ``fe_step.smem_bytes``); with
-    ``forced``, the forced arm's (``fe_step.forcing_smem_bytes``)."""
+    ``forced``, the forced arm's (``fe_step.forcing_smem_bytes``); with
+    ``strat_levels`` = K > 0, the stratified arm's at K levels, with FB's
+    fresh h' for ``fb`` (``fe_step.strat_smem_bytes``)."""
     return (itemsize * sites * ((8 + 2 * n_tracers) * (2 if q > 1 else 1) * kc + _PLANES)
             + (4 + LIVE_BYTES) * sites
-            + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
+            + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0)
+            + (strat_smem_bytes(sites, kc, strat_levels, itemsize, fb) if strat_levels else 0))
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_double] * 8 + [ctypes.c_int] * 14
+_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_double] * 8 + [ctypes.c_int] * 14
              + [ctypes.c_void_p])
 
 
@@ -92,17 +99,19 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
-def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int, fb: bool = False):
-    """(clusters the card holds at once, blocks per SM) of an f32 plan
-    (CUDA's occupancy calculator): with the grid's clusters, one per tile,
-    the number of waves."""
+def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int, fb: bool = False,
+              strat: bool = False):
+    """(clusters the card holds at once, blocks per SM) of an f32 plan of
+    the unstratified arm or (``strat``) the stratified one (CUDA's occupancy
+    calculator): with the grid's clusters, one per tile, the number of
+    waves."""
     hm, hi = halo
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
     fn = build.load().mot_tiled_occupancy
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
-    err = fn(sites, k, q, int(fb), ctypes.addressof(out))
+    err = fn(sites, k, q, int(fb), int(strat), ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"the occupancy query failed with CUDA error {err}")
     return out[0], out[1]
@@ -111,16 +120,18 @@ def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int, fb: bool = Fal
 def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                   dt: float, inv_dc: float, s_div: float, n_steps: int, *,
                   row_tile: int, col_tile: int, q: int, halo, fb: bool = False, live=None,
-                  forcing=None, tracers=None):
+                  forcing=None, tracers=None, strat_w=None):
     """n_steps FE (or FB) steps of the linear core on the card, q per launch
     over row_tile x col_tile tiles whose windows carry q ``halo`` = (rows,
     columns) per side. Arguments as for ``fe_step.fe_rollout``; ``live``
     (the wall mask's live bits, or None) runs the masked arm, ``forcing``
     (``fused_model.kernel_forcing``'s operands, or None) the forced arm,
     ``tracers`` (``fused_model.kernel_tracers``' operands, or None) the
-    (unforced) tracer arm. Returns new (ssh, h, u) tensors, and new tracer
-    planes fourth with tracers; the inputs are left as they are."""
-    global launches, forced_launches, tracer_launches
+    (unforced) tracer arm, ``strat_w`` (``fused_model.kernel_strat``'s W, or
+    None) the (unforced, tracer-free) stratified arm. Returns new (ssh, h,
+    u) tensors, and new tracer planes fourth with tracers; the inputs are
+    left as they are."""
+    global launches, forced_launches, tracer_launches, strat_launches
     ny2, nx, k = lattice_dims(h, "tiled_step")
     dtype, device = h.dtype, h.device
     if n_steps < 0:
@@ -133,7 +144,8 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     _, kc = level_split(k)
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
     n_tr = 0 if tracers is None else tracers.planes.shape[0] // 2
-    need = smem_bytes(sites, kc, q, h.element_size(), forcing is not None, n_tr)
+    need = smem_bytes(sites, kc, q, h.element_size(), forcing is not None, n_tr,
+                      0 if strat_w is None else k, fb)
     if need > SMEM_BYTES:
         raise ValueError(f"a {row_tile}x{col_tile} tile at q={q} needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
@@ -142,6 +154,7 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     check_live(live, ny2, nx, device)
     check_forcing(forcing, ny2, nx, dtype, device)
     check_tracers(tracers, live, ny2, nx, k, dtype, device)
+    check_strat(strat_w, k, dtype, device, forcing, tracers)
     table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
     src = tuple(x.contiguous() for x in (ssh, h, u))
     for x, shape, f in zip(src, state_shapes(ny2, nx, k), ("ssh", "h", "u")):
@@ -164,13 +177,16 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
             f_edge.data_ptr(), rts.data_ptr(), None if live is None else live.data_ptr(),
             *ptrs, table.ctypes.data, weights.ctypes.data,
             *[x.data_ptr() for x in (*src, *out, *tmp)], *tr_ptrs,
-            float(dt), float(inv_dc), float(s_div), *tr_opts, *coefs, ny2, nx, k, n_steps,
-            n_terms, row_tile, col_tile, q, hm, hi, int(fb), n_tr, stream,
+            None if strat_w is None else strat_w.data_ptr(), float(dt), float(inv_dc),
+            float(s_div), *tr_opts, *coefs, ny2, nx, k, n_steps, n_terms, row_tile, col_tile, q,
+            hm, hi, int(fb), n_tr, stream,
         )
     check_error("tiled_step", err)
     launches += n_steps // q
     if forcing is not None:
         forced_launches += n_steps // q
+    if strat_w is not None:
+        strat_launches += n_steps // q
     if tracers is not None:
         tracer_launches += n_steps // q
         return (*out, tr_out)

@@ -7,6 +7,14 @@ from .forcing import (
     make_forcing,
 )
 from .state import PrognosticVars
+from .stratification import (
+    Stratification,
+    baroclinic_wave_speeds,
+    make_stratification,
+    montgomery_potential,
+    stratification_from_numpy,
+    stratification_to_numpy,
+)
 from .tracers import (
     apply_tracer_update,
     make_tracers,
@@ -14,6 +22,8 @@ from .tracers import (
     tracer_concentration,
 )
 
-__all__ = ["RHO0", "Forcing", "PrognosticVars", "apply_tracer_update", "forcing_from_numpy",
-           "forcing_tendency", "forcing_to_numpy", "make_forcing", "make_tracers",
-           "total_tracer_content", "tracer_concentration"]
+__all__ = ["RHO0", "Forcing", "PrognosticVars", "Stratification", "apply_tracer_update",
+           "baroclinic_wave_speeds", "forcing_from_numpy", "forcing_tendency", "forcing_to_numpy",
+           "make_forcing", "make_stratification", "make_tracers", "montgomery_potential",
+           "stratification_from_numpy", "stratification_to_numpy", "total_tracer_content",
+           "tracer_concentration"]

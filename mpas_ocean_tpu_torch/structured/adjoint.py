@@ -108,6 +108,7 @@ from .model import (
     div_on_cell,
     grad_on_edge,
     interp_cell_to_edge,
+    pressure_tendency,
     structured_step,
     tangential_times_f,
     tangential_weights_only,
@@ -353,8 +354,8 @@ def structured_nl_adjoint_step(
                      next_state)
     if tr is not None:
         G = G + tr.g
-    tend_u = _forced(_tend_u(state, flux, grad_on_edge(state.ssh, mesh), mesh, True), state,
-                     h_edge, forcing)
+    tend_u = _forced(_tend_u(state, flux, pressure_tendency(state.ssh, None, mesh), mesh, True),
+                     state, h_edge, forcing)
     d_dt = (G * tend_h).sum() + (gu * tend_u).sum()
     if tr is not None:
         d_dt = d_dt + tr.d_dt

@@ -8,7 +8,9 @@ linear and the nonlinear core, on periodic lattices and on coastal channels
 forcing (``forcing=``, the kernels' forced arms; ``forcing_setup`` is the
 counterpart of ``_forcing_setup``, :646-709) and with tracers (a state's
 ``tracers``, the kernels' tracer arms; ``kernel_tracers`` is the counterpart
-of ``_tracer_setup``, :610-639). ``fused_run_loop`` runs forward
+of ``_tracer_setup``, :610-639) and with layered stratification
+(``strat=``, the forward kernels' stratified arms; ``kernel_strat`` is the
+counterpart of ``_strat_w``, :642-643). ``fused_run_loop`` runs forward
 Euler (FE) one hand-written kernel step per launch (kernels/fe_step.py,
 csrc/fe_step.cu); ``tiled_model.tiled_run_loop`` runs FE or
 forward-backward (FB) q steps per launch (kernels/tiled_step.py). State on
@@ -26,12 +28,14 @@ import torch
 from ..constants import GRAVITY
 from ..kernels import fe_step
 from ..models.forcing import Forcing
+from ..models.stratification import Stratification
 from . import tiled_model
 from .model import StructMesh, StructState, check_nl_mesh, structured_run_loop
 
-__all__ = ["KernelForcing", "KernelTracers", "check_forced_core", "check_tracer_core",
-           "forcing_scal", "forcing_setup", "fused_run_loop", "kernel_forcing", "kernel_live",
-           "kernel_tracers", "nl_adjoint_scal", "nl_scal", "nl_setup", "pack_levels",
+__all__ = ["KernelForcing", "KernelTracers", "check_forced_core", "check_strat_core",
+           "check_tracer_core", "forcing_scal", "forcing_setup", "fused_run_loop",
+           "kernel_forcing", "kernel_live", "kernel_strat", "kernel_tracers",
+           "nl_adjoint_scal", "nl_scal", "nl_setup", "pack_levels",
            "structured_auto_run_loop", "tracer_opts", "tracer_planes", "tracer_unplanes"]
 
 
@@ -210,6 +214,26 @@ def check_tracer_core(tracers, nonlinear: bool, forcing, device) -> None:
                                   "the CPU")
 
 
+def kernel_strat(strat: Stratification | None, dtype: torch.dtype, device):
+    """The stratification's W (K, K) as the stratified arms take it: cast
+    once per call to the state dtype (pallas_model._strat_w, :642-643), on
+    ``device``, contiguous; None unstratified."""
+    if strat is None:
+        return None
+    return strat.phi_weights.to(dtype=dtype, device=device).contiguous()
+
+
+def check_strat_core(strat, nonlinear: bool, forcing, tracers, device) -> None:
+    """The kernels' stratified arms run the linear, unforced, tracer-free
+    core: on the card, ``strat`` with ``nonlinear``, with ``forcing`` or with
+    tracers raises (the plain steps on the CPU run every combination)."""
+    if strat is not None and device.type == "cuda" and (
+            nonlinear or forcing is not None or tracers is not None):
+        raise NotImplementedError("the kernels' stratified arms run the linear, unforced, "
+                                  "tracer-free core; run stratification with the nonlinear "
+                                  "core, forcing or tracers on the CPU")
+
+
 def kernel_live(mesh: StructMesh):
     """The wall mask as the kernels take it, packed into live bits
     (``fe_step.live_bits``), or None on a periodic lattice, which runs the
@@ -222,22 +246,25 @@ def kernel_live(mesh: StructMesh):
 def fused_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, *, nonlinear: bool = False,
     forcing: Forcing | None = None, tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+    strat: Stratification | None = None,
 ) -> StructState:
     """n_steps forward-Euler steps of the linear core, or with ``nonlinear``
     of the vector-invariant one (periodic, or masked where the mesh has a
     wall mask); ``forcing`` (struct layout) runs the forced arm, linear core
     only on the card; the state's tracers, if any, run the tracer arm with
     ``tracer_kappa`` and ``tracer_upwind`` (pallas_run_loop's arguments),
-    linear and unforced only on the card."""
+    linear and unforced only on the card; ``strat`` runs the stratified
+    arm, linear, unforced and tracer-free only on the card."""
     device = state.layer_thickness.device
     if device.type == "cpu":
         return structured_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear,
                                    forcing=forcing, tracer_kappa=tracer_kappa,
-                                   tracer_upwind=tracer_upwind)
+                                   tracer_upwind=tracer_upwind, strat=strat)
     if device.type != "cuda":
         raise ValueError(f"no rollout for state on {device}")
     check_forced_core(forcing, nonlinear, device)
     check_tracer_core(state.tracers, nonlinear, forcing, device)
+    check_strat_core(strat, nonlinear, forcing, state.tracers, device)
     dtype = state.layer_thickness.dtype
     consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
     if nonlinear:
@@ -251,6 +278,7 @@ def fused_run_loop(
             mesh.f_edge.to(dtype).contiguous(), *consts, *_scal(mesh, dt, dtype), n_steps,
             live=kernel_live(mesh), forcing=kernel_forcing(forcing, mesh, dtype, device),
             tracers=kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
+            strat_w=kernel_strat(strat, dtype, device),
         )
         if tr:
             return StructState(ssh, h, u, tracer_unplanes(tr[0]))
@@ -260,7 +288,7 @@ def fused_run_loop(
 def structured_auto_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, *, nonlinear: bool = False,
     fb: bool = False, forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-    tracer_upwind: float = 1.0,
+    tracer_upwind: float = 1.0, strat: Stratification | None = None,
 ) -> StructState:
     """The lattice rollout entry point. A CPU state runs the plain
     ``structured_run_loop`` (as the JAX package does off the TPU). On the
@@ -276,10 +304,13 @@ def structured_auto_run_loop(
     with ``nonlinear`` it raises on the card. A state with tracers runs the
     kernels' tracer arms with ``tracer_kappa`` and ``tracer_upwind`` (the
     linear, unforced core on the card; the plain steps take every
-    combination)."""
+    combination). ``strat`` (``make_stratification``) takes each layer's
+    pressure gradient from its Montgomery potential, through the kernels'
+    stratified arms (the linear, unforced, tracer-free core on the card:
+    with the nonlinear core, forcing or tracers it raises there)."""
     device = state.layer_thickness.device
     kw = dict(nonlinear=nonlinear, forcing=forcing, tracer_kappa=tracer_kappa,
-              tracer_upwind=tracer_upwind)
+              tracer_upwind=tracer_upwind, strat=strat)
     if device.type == "cpu":
         return structured_run_loop(state, mesh, dt, n_steps, fb=fb, **kw)
     if fb:

@@ -4,8 +4,9 @@ Counterpart of mpas_ocean_tpu/structured/model.py for the linear core
 (pressure gradient + TRiSK Coriolis) and the nonlinear vector-invariant one
 (KE gradient + symmetrised PV flux), with forward Euler and
 forward-backward, on periodic lattices and on coastal channels culled from
-them (wall masks), with momentum forcing and tracer transport
-(``tracer_tendency_struct``). This is the plain PyTorch version of the step kernels
+them (wall masks), with momentum forcing, tracer transport
+(``tracer_tendency_struct``) and layered stratification
+(``pressure_tendency``). This is the plain PyTorch version of the step kernels
 (kernels/fe_step.py, kernels/tiled_step.py): the CPU tests hold it against
 the JAX package, and on the card the kernels are held against it.
 
@@ -24,6 +25,7 @@ from torch import nn
 
 from ..constants import GRAVITY
 from ..models.forcing import Forcing, forcing_tendency
+from ..models.stratification import Stratification, montgomery_potential
 from ..models.state import PrognosticVars
 from .hex_layout import E, NE, NW, HexLayout
 from .stencils import transpose_coriolis_terms
@@ -38,6 +40,7 @@ __all__ = [
     "curl_on_vertex",
     "kinetic_energy_cell",
     "packed_stencils",
+    "pressure_tendency",
     "pv_on_vertex_struct",
     "struct_mesh_from_numpy",
     "struct_mesh_to_numpy",
@@ -394,12 +397,23 @@ def _wall(u, mesh: StructMesh):
     return u if mesh.edge_mask is None else u * mesh.edge_mask[..., None]
 
 
-def _tend_u(state: StructState, flux, grad_ssh, mesh: StructMesh, nonlinear: bool):
-    """The momentum tendency, in the JAX package's order (model.py:290-313):
-    -g grad ssh (``grad_ssh`` of the old or the fresh ssh), plus the TRiSK
-    Coriolis term of u f, or with ``nonlinear`` minus grad KE plus the
-    symmetrised PV flux (q_e T(F) + T(F q_e)) / 2 of the thickness flux F."""
-    tend_u = -GRAVITY * grad_ssh[..., None]
+def pressure_tendency(ssh, h, mesh: StructMesh, strat: Stratification | None = None):
+    """The momentum equation's pressure term of ``ssh`` and ``h`` (the old
+    state's for FE, the fresh ones for FB): -g grad ssh, broadcast over the
+    levels, or with ``strat`` -grad Phi of the layers' Montgomery potential
+    Phi = g ssh + h @ W (JAX model.py:289-298, 445-450)."""
+    if strat is None:
+        return -GRAVITY * grad_on_edge(ssh, mesh)[..., None]
+    return -grad_on_edge(montgomery_potential(ssh, h, strat), mesh)
+
+
+def _tend_u(state: StructState, flux, tend_p, mesh: StructMesh, nonlinear: bool):
+    """The momentum tendency, in the JAX package's order (model.py:289-313):
+    the pressure term ``tend_p`` (``pressure_tendency`` of the old or the
+    fresh state), plus the TRiSK Coriolis term of u f, or with ``nonlinear``
+    minus grad KE plus the symmetrised PV flux (q_e T(F) + T(F q_e)) / 2 of
+    the thickness flux F."""
+    tend_u = tend_p
     u = state.normal_velocity
     if not nonlinear:
         return tend_u + tangential_times_f(u, mesh)
@@ -466,20 +480,24 @@ def _forced(tend_u, state: StructState, h_edge, forcing):
 
 def structured_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool = False,
                     forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-                    tracer_upwind: float = 1.0) -> StructState:
-    """One forward-Euler step, all rolls + elementwise (the unstratified
-    arms of mpas_ocean_tpu/structured/model.py:272-341): the linear core, or
+                    tracer_upwind: float = 1.0,
+                    strat: Stratification | None = None) -> StructState:
+    """One forward-Euler step, all rolls + elementwise
+    (mpas_ocean_tpu/structured/model.py:272-341): the linear core, or
     with ``nonlinear`` the vector-invariant momentum equation; ``forcing``
     (struct layout, ``StructuredModel.to_struct_forcing``) adds wind stress,
-    bottom drag and Rayleigh damping to the momentum tendency; the wall mask
-    where the mesh has one. The state's tracers, if any, are advected by the
-    step's thickness flux with ``tracer_upwind`` and mixed with diffusivity
-    ``tracer_kappa`` (m^2/s)."""
+    bottom drag and Rayleigh damping to the momentum tendency; ``strat``
+    takes each layer's pressure gradient from its Montgomery potential of
+    the old state (``pressure_tendency``); the wall mask where the mesh has
+    one. The state's tracers, if any, are advected by the step's thickness
+    flux with ``tracer_upwind`` and mixed with diffusivity ``tracer_kappa``
+    (m^2/s)."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     tend_h = -div_on_cell(flux, mesh)
 
-    tend_u = _tend_u(state, flux, grad_on_edge(state.ssh, mesh), mesh, nonlinear)
+    tend_p = pressure_tendency(state.ssh, state.layer_thickness, mesh, strat)
+    tend_u = _tend_u(state, flux, tend_p, mesh, nonlinear)
     tend_u = _forced(tend_u, state, h_edge, forcing)
 
     h = state.layer_thickness + dt * tend_h
@@ -491,20 +509,21 @@ def structured_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool = 
 
 def structured_fb_step(state: StructState, mesh: StructMesh, dt, nonlinear: bool = False,
                        forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-                       tracer_upwind: float = 1.0) -> StructState:
-    """One forward-backward step (the unstratified arms of
-    mpas_ocean_tpu/structured/model.py:433-485): the continuity update
-    first, then the pressure gradient of the fresh ssh and the other
-    momentum terms (Coriolis, or with ``nonlinear`` the vector-invariant
-    ones, and the ``forcing``) of the old state; the wall mask last. The
-    tracers, as in ``structured_step``, take the old state's flux and the
-    fresh h."""
+                       tracer_upwind: float = 1.0,
+                       strat: Stratification | None = None) -> StructState:
+    """One forward-backward step (mpas_ocean_tpu/structured/model.py:
+    433-485): the continuity update first, then the pressure gradient of
+    the fresh ssh (with ``strat``, of the fresh ssh and h's Montgomery
+    potential) and the other momentum terms (Coriolis, or with
+    ``nonlinear`` the vector-invariant ones, and the ``forcing``) of the old
+    state; the wall mask last. The tracers, as in ``structured_step``, take
+    the old state's flux and the fresh h."""
     h_edge = interp_cell_to_edge(state.layer_thickness, mesh)
     flux = state.normal_velocity * h_edge
     h = state.layer_thickness + dt * (-div_on_cell(flux, mesh))
     ssh = h.sum(-1) - mesh.resting_thickness_sum
 
-    tend_u = _tend_u(state, flux, grad_on_edge(ssh, mesh), mesh, nonlinear)
+    tend_u = _tend_u(state, flux, pressure_tendency(ssh, h, mesh, strat), mesh, nonlinear)
     tend_u = _forced(tend_u, state, h_edge, forcing)
     u = _wall(state.normal_velocity + dt * tend_u, mesh)
     tracers = _tracers(state, flux, h_edge, h, mesh, dt, tracer_kappa, tracer_upwind)
@@ -515,18 +534,20 @@ def structured_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int,
     nonlinear: bool = False, fb: bool = False, forcing: Forcing | None = None,
     tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+    strat: Stratification | None = None,
 ) -> StructState:
     """n_steps steps of ``structured_step`` (forward Euler) or, with
     ``fb=True``, of ``structured_fb_step`` (forward-backward); ``nonlinear``
     runs the vector-invariant momentum equation, ``forcing`` adds the
-    momentum forcing and the state's tracers, if any, are carried with
-    ``tracer_kappa`` and ``tracer_upwind`` (JAX model.py:488-507). A mesh
-    without the vertex constants, asked for nonlinear, raises."""
+    momentum forcing, ``strat`` the layered stratification's pressure, and
+    the state's tracers, if any, are carried with ``tracer_kappa`` and
+    ``tracer_upwind`` (JAX model.py:488-507). A mesh without the vertex
+    constants, asked for nonlinear, raises."""
     step = structured_fb_step if fb else structured_step
     if nonlinear:
         check_nl_mesh(mesh)
     for _ in range(n_steps):
-        state = step(state, mesh, dt, nonlinear, forcing, tracer_kappa, tracer_upwind)
+        state = step(state, mesh, dt, nonlinear, forcing, tracer_kappa, tracer_upwind, strat)
     return state
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of mpas_ocean_tpu/structured/sharded.py:44-62,156-342
 (``_sh``, ``_interior``, ``_flux_thickness``, ``_step_slab`` with the wall
-masks, the momentum forcing (``_apply_forcing``, :134-153) and the tracers
-with their cell mask (:294-340), and with stratification off), of
+masks, the momentum forcing (``_apply_forcing``, :134-153), the tracers
+with their cell mask (:294-340) and the layered stratification (``strat_w``,
+:242-257)), of
 sharded.py:345-597 for the nonlinear core (``_derived_slab``,
 ``_nl_continuity``, ``_apply_slab_nonlinear``, ``_step_slab_nl``) and of
 pallas_model.py:791-849 (``_reach``, ``_window_steps`` with ``masks_full``
@@ -287,8 +288,20 @@ def tracer_update(h, u, tr, h_new, dt, inv_dc, s_div, kappa, upwind, reg, mask=N
     return out
 
 
+def _pressure(pg_ssh, pg_h, dt, strat_w):
+    """(planes, scale) of the pressure gradient (sharded._step_slab,
+    :242-257): the ssh planes and -g dt, or with ``strat_w`` (K, K) each
+    parity's Montgomery potential g ssh + h @ W on the same padded planes
+    and -dt. ``pg_ssh`` and ``pg_h`` are lists of the two parities'
+    planes."""
+    if strat_w is None:
+        return pg_ssh, -GRAVITY * dt
+    return [GRAVITY * pg_ssh[p] + torch.matmul(pg_h[p], strat_w) for p in (0, 1)], -dt
+
+
 def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo,
-              fb=False, mask=None, forc=None, tr=None, tropts=(0.0, 1.0), cmask=None):
+              fb=False, mask=None, forc=None, tr=None, tropts=(0.0, 1.0), cmask=None,
+              strat_w=None):
     """One FE or FB step of the linear core on windows padded by
     ``halo`` = (rows, columns) per side (``stencil_reach``); returns the
     (rows, cols) interiors (ssh, h, u), and the tracers' fourth where ``tr``
@@ -299,7 +312,10 @@ def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo
     and h_edge to u'; the wall ``mask`` (padded as f_edge, or None)
     multiplies u' last. The tracers (``tracer_update``, ``tropts`` = (kappa,
     upwind), ``cmask`` the cell mask padded as rts or None) take the old
-    state's flux, FE and FB alike, and the fresh h'."""
+    state's flux, FE and FB alike, and the fresh h'. ``strat_w`` (K, K, in
+    the state dtype, or None) takes the pressure gradient from the layers'
+    Montgomery potential of the old planes (FE) or the fresh 1-padded ones
+    (FB) with scale -dt (sharded.py:242-257)."""
     hm, hi = halo
     inner = (hm, hm + rows, hi, hi + cols)
     if fb:
@@ -308,12 +324,12 @@ def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo
         pg_reg = (1, rows + 1, 1, cols + 1)
         h_new = [_interior(x, pg_reg) for x in h_pad]
         ssh_new = [_interior(x, pg_reg) for x in ssh_pad]
-        pg = ssh_pad
+        pg, pg_scale = _pressure(ssh_pad, h_pad, dt, strat_w)
     else:
         h_new, ssh_new = _flux_thickness(h, u, rts, dt, s_div, inner)
-        pg = [ssh[..., p, :, :, :] for p in (0, 1)]
+        pg, pg_scale = _pressure([ssh[..., p, :, :, :] for p in (0, 1)],
+                                 [h[..., p, :, :, :] for p in (0, 1)], dt, strat_w)
         pg_reg = inner
-    pg_scale = -GRAVITY * dt
 
     uf = u * f_edge
     acc = [None] * 6
@@ -437,7 +453,7 @@ def nl_continuity(h, flux, rts, dt, s_div, reg, dreg):
 
 def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_terms,
                  ev_terms, rows, cols, halo, fb=False, mask=None, forc=None, tr=None,
-                 tropts=(0.0, 1.0), cmask=None):
+                 tropts=(0.0, 1.0), cmask=None, strat_w=None):
     """One nonlinear FE or FB step on windows padded by ``halo`` = (rows,
     columns) per side (``stencil_reach`` with the vertex taps); returns the
     (rows, cols) interiors (ssh, h, u). Mirrors sharded._step_slab_nl:
@@ -447,8 +463,8 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
     the pressure from the old ssh (FE) or the fresh one (FB), every other
     term from the old state; the forcing ``forc`` (as for ``step_slab``) adds
     dt F of the old u and h_edge; the wall ``mask`` (padded as f_edge, or
-    None) multiplies u' last; the tracers ``tr`` as for ``step_slab`` (a
-    fourth item returned)."""
+    None) multiplies u' last; the tracers ``tr`` and ``strat_w`` as for
+    ``step_slab`` (the tracers a fourth item returned)."""
     hm, hi = halo
     rm, rc = derived_ring(terms, fb)
     inner = (hm, hm + rows, hi, hi + cols)
@@ -456,15 +472,16 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
     flux, ke, q_e = derived_slab(h, u, fv, s_ke, s_curl, vc_terms, ev_terms, dreg)
     local = (rm, rm + rows, rc, rc + cols)  # the interior in dreg's planes
     if fb:
-        h_pad, pg = nl_continuity(h, flux, rts, dt, s_div, _grow(inner, 1, 1), dreg)
+        h_pad, ssh_pad = nl_continuity(h, flux, rts, dt, s_div, _grow(inner, 1, 1), dreg)
         pg_reg = (1, rows + 1, 1, cols + 1)
         h_new = [_interior(x, pg_reg) for x in h_pad]
-        ssh_new = [_interior(x, pg_reg) for x in pg]
+        ssh_new = [_interior(x, pg_reg) for x in ssh_pad]
+        pg, pg_scale = _pressure(ssh_pad, h_pad, dt, strat_w)
     else:
         h_new, ssh_new = nl_continuity(h, flux, rts, dt, s_div, inner, dreg)
-        pg = [ssh[..., p, :, :, :] for p in (0, 1)]
+        pg, pg_scale = _pressure([ssh[..., p, :, :, :] for p in (0, 1)],
+                                 [h[..., p, :, :, :] for p in (0, 1)], dt, strat_w)
         pg_reg = inner
-    pg_scale = -GRAVITY * dt
 
     def tangential(x):
         acc = [None] * 6
@@ -499,7 +516,7 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
 
 def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows, cols,
                  q, halo, fb=False, mask_full=None, fv_full=None, nl=None, forc_full=None,
-                 tr=None, tropts=(0.0, 1.0), cmask_full=None):
+                 tr=None, tropts=(0.0, 1.0), cmask_full=None, strat_w=None):
     """Advance windows by q steps (pallas_model._window_steps): the state
     arrives padded by q halos per side and shrinks by one halo per side per
     step; the constant fields, the wall mask ``mask_full`` (None on a
@@ -510,8 +527,10 @@ def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows,
     ``forc_full`` (module docstring; its wind and level planes padded as
     f_edge) forces the steps, linear or nonlinear. ``tr`` (tracer planes
     padded as h) is carried with ``tropts`` = (kappa, upwind) and the cell
-    mask ``cmask_full`` (padded as rts, or None). Returns the (rows, cols)
-    interiors (ssh, h, u), and the tracers' fourth where ``tr`` is given."""
+    mask ``cmask_full`` (padded as rts, or None). ``strat_w`` (K, K) takes
+    each step's pressure from the layers' Montgomery potential (sharded.py:
+    242-257). Returns the (rows, cols) interiors (ssh, h, u), and the
+    tracers' fourth where ``tr`` is given."""
     hm, hi = halo
     full_m, full_i = rows + 2 * hm * q, cols + 2 * hi * q
     for j in range(q):
@@ -527,11 +546,11 @@ def window_steps(ssh, h, u, f_full, rts_full, dt, inv_dc, s_div, terms, *, rows,
             ssh, h, u, *rest = step_slab_nl(
                 ssh, h, u, _interior(fv_full, win), _interior(rts_full, win), dt, inv_dc,
                 s_div, s_ke, s_curl, terms, vc_terms, ev_terms, r_j, c_j, halo, fb, mask_j,
-                forc_j, tr, tropts, cmask_j)
+                forc_j, tr, tropts, cmask_j, strat_w)
         else:
             ssh, h, u, *rest = step_slab(
                 ssh, h, u, _interior(f_full, win), _interior(rts_full, win),
                 dt, inv_dc, s_div, terms, r_j, c_j, halo, fb, mask_j, forc_j, tr, tropts,
-                cmask_j)
+                cmask_j, strat_w)
         tr = rest[0] if rest else None
     return (ssh, h, u) if tr is None else (ssh, h, u, tr)

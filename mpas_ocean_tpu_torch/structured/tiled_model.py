@@ -8,8 +8,9 @@ the linear and the nonlinear core with forward Euler (FE) or
 forward-backward (FB), on periodic lattices and on coastal channels (the
 wall mask and the vertex constants windowed as f_edge, :1287-1288,
 1391-1394), with momentum forcing (the wind and level-index planes windowed
-as f_edge) and with tracers (their planes windowed as h, the cell mask as
-rts; the tracer operands of :892-946, 1180-1190).
+as f_edge), with tracers (their planes windowed as h, the cell mask as
+rts; the tracer operands of :892-946, 1180-1190) and with layered
+stratification (W as a whole operand, :904-908, 1193-1194).
 The lattice is cut into row_tile x col_tile tiles; each tile reads its core
 and q halos of ``slab.stencil_reach`` rows and columns per side, advances q
 steps on the shrinking window (``slab.window_steps``) and writes its core.
@@ -41,6 +42,7 @@ import torch
 
 from ..kernels import fe_step, tiled_step
 from ..models.forcing import Forcing
+from ..models.stratification import Stratification
 from . import fused_model
 from .model import StructMesh, StructState, check_nl_mesh
 from .slab import stencil_reach, window_steps
@@ -58,17 +60,21 @@ __all__ = [
 
 
 def window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int, itemsize: int,
-                 forced: bool = False, n_tracers: int = 0) -> int:
+                 forced: bool = False, n_tracers: int = 0, strat: bool = False,
+                 fb: bool = False) -> int:
     """Shared memory of one block of the tiled kernel: its level chunk of
     the window (2 h planes + 6 u channels, and 2 planes per tracer), one
     copy at q = 1 and two at q > 1, the window's ssh (two copies), column
     partial sums (two), f_edge, rts, and its lattice sites with their live
     bits (the masked arm's, reserved either way; csrc/tiled_step.cu:
-    ``smem_bytes``); with ``forced``, the forced arm's too."""
+    ``smem_bytes``); with ``forced``, the forced arm's too; with ``strat``,
+    the stratified arm's Phi planes, staged h planes and W slice, and for
+    ``fb`` the kept fresh h' (``tiled_step.strat_smem_bytes``)."""
     hm, hi = halo
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
     _, kc = tiled_step.level_split(k)
-    return tiled_step.smem_bytes(sites, kc, q, itemsize, forced, n_tracers)
+    return tiled_step.smem_bytes(sites, kc, q, itemsize, forced, n_tracers,
+                                 k if strat else 0, fb)
 
 
 def forced_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
@@ -241,15 +247,15 @@ def _nl_args(mesh: StructMesh, dtype, nonlinear: bool):
 def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
                         row_tile: int, col_tile: int, q: int, fb: bool = False, *,
                         nonlinear: bool = False, forcing: Forcing | None = None,
-                        tracer_kappa: float = 0.0, tracer_upwind: float = 1.0
-                        ) -> StructState:
+                        tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+                        strat: Stratification | None = None) -> StructState:
     """The tiled kernel's plain version: n_steps / q times, cut the
     periodic state into halo-padded tile windows, run ``window_steps`` on
     all of them as one batch (the mesh's wall mask, the ``forcing``, for
     ``nonlinear`` the vertex constants, and the state's tracers with the
     cell mask windowed with them; kappa and upwind rounded to the state
-    dtype, as the kernel takes them), and put the interiors back
-    together."""
+    dtype, as the kernel takes them; ``strat``'s W cast to the state dtype,
+    ``fused_model.kernel_strat``), and put the interiors back together."""
     if n_steps % q:
         raise ValueError(f"q={q} must divide n_steps={n_steps}")
     ny2, nx = mesh.ny2, mesh.nx
@@ -268,6 +274,7 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
         fv = fused_model.nl_setup(mesh, dtype)
         fv_w = win(fv.reshape(fv.shape[0], ny2, nx, 1))
     forc_w = forcing_windows(forcing, mesh, dtype, win)
+    strat_w = fused_model.kernel_strat(strat, dtype, state.layer_thickness.device)
     ssh = state.ssh[..., None]
     h = state.layer_thickness
     u = state.normal_velocity.reshape(6, ny2, nx, k)
@@ -282,7 +289,7 @@ def plain_tiled_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
                            mesh.coriolis_terms, rows=row_tile, cols=col_tile, q=q,
                            halo=halo, fb=fb, mask_full=mask_w, fv_full=fv_w, nl=nl,
                            forc_full=forc_w, tr=None if tr is None else win(tr),
-                           tropts=tropts, cmask_full=cmask_w)
+                           tropts=tropts, cmask_full=cmask_w, strat_w=strat_w)
         ssh, h, u, *tr = (_untile(x) for x in out)
         tr = tr[0] if tr else None
     return StructState(ssh=ssh[..., 0], layer_thickness=h,
@@ -294,7 +301,8 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                    row_tile: int | None = None, col_tile: int | None = None,
                    q: int | None = None, nonlinear: bool = False,
                    fb: bool = False, forcing: Forcing | None = None,
-                   tracer_kappa: float = 0.0, tracer_upwind: float = 1.0) -> StructState:
+                   tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+                   strat: Stratification | None = None) -> StructState:
     """n_steps FE (or, with ``fb=True``, FB) steps of the linear core or,
     with ``nonlinear``, of the vector-invariant one, on a periodic lattice
     or a masked channel, q per kernel launch over row_tile x col_tile
@@ -304,8 +312,10 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     q > 1 raises, as does forcing with the nonlinear core: FE through
     fe_step's nonlinear arm, FB through the tiled kernel's; the state's
     tracers run the tracer arm with ``tracer_kappa`` and ``tracer_upwind``,
-    linear and unforced only, its plan sized with the tracer planes), a CPU
-    state its plain version with the same plan."""
+    linear and unforced only, its plan sized with the tracer planes;
+    ``strat`` the stratified arm, linear, unforced and tracer-free only, its
+    plan sized with the arm's shared memory), a CPU state its plain version
+    with the same plan."""
     device = state.layer_thickness.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rollout for state on {device}")
@@ -323,7 +333,10 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
     n_tr = 0 if state.tracers is None else state.tracers.shape[3]
-    window = functools.partial(window_bytes, n_tracers=n_tr) if n_tr else forced_window_bytes
+    window = forced_window_bytes
+    if n_tr or strat is not None:
+        window = functools.partial(window_bytes, n_tracers=n_tr, strat=strat is not None,
+                                   fb=fb)
     rt, ct, q = resolve_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, halo, n_steps,
                              row_tile, col_tile, q, window=window)
     if device.type == "cpu":
@@ -332,9 +345,11 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                 state.ssh, state.layer_thickness, state.normal_velocity, state.tracers)))
         return plain_tiled_rollout(state, mesh, dt, n_steps, rt, ct, q, fb,
                                    nonlinear=nonlinear, forcing=forcing,
-                                   tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
+                                   tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind,
+                                   strat=strat)
     fused_model.check_forced_core(forcing, nonlinear, device)
     fused_model.check_tracer_core(state.tracers, nonlinear, forcing, device)
+    fused_model.check_strat_core(strat, nonlinear, forcing, state.tracers, device)
     consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
     scal = fused_model._scal(mesh, dt, dtype)
     if nonlinear:
@@ -353,6 +368,7 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
             live=fused_model.kernel_live(mesh),
             forcing=fused_model.kernel_forcing(forcing, mesh, dtype, device),
             tracers=fused_model.kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
+            strat_w=fused_model.kernel_strat(strat, dtype, device),
         )
         if tr:
             return StructState(ssh, h, u, fused_model.tracer_unplanes(tr[0]))

@@ -1,4 +1,5 @@
 from .inertial_gravity_wave import InertialGravityWave
+from .internal_wave import InternalWave
 from .kelvin_wave import KelvinWave
 
-__all__ = ["InertialGravityWave", "KelvinWave"]
+__all__ = ["InertialGravityWave", "InternalWave", "KelvinWave"]

@@ -535,3 +535,17 @@ def ddt_scale(st, mesh, dt, n, g, **kw) -> float:
     _, tang = torch.func.jvp(rollout, (dt * one,), (one,))
     return sum(float(torch.linalg.vector_norm(getattr(g, f).double())
                      * torch.linalg.vector_norm(t.double())) for f, t in zip(TRACER_FIELDS, tang))
+
+
+# ---- layered stratification (tests/test_torch_strat_kernel.py) -------------
+
+def stratification(k, kind="rho", dtype=np.float64, seed=13):
+    """A Stratification of k layers: ``kind`` "rho", make_stratification's W
+    of densities 1025 + linspace(0, 2, k) (bench.py's column spans 1 kg/m^3
+    over 100 layers); "dense", a dense random W of standard deviation 0.05
+    (the stratified arms take any W)."""
+    if kind == "rho":
+        return mt.make_stratification(1025.0 + np.linspace(0.0, 2.0, k), dtype=dtype)
+    w = 0.05 * np.random.default_rng(seed).normal(size=(k, k))
+    return mt.models.stratification_from_numpy(
+        {"phi_weights": w.astype(dtype), "densities": np.full(k, 1025.0, dtype=dtype)})
