@@ -130,7 +130,24 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      exact launch counts, and FB 64^2, FE and FB 256^2 and the 64^2 channel
      FE over 1000, timed beside the unstratified arm with their bounds.
      ``python3 chip_smoke.py --strat-only`` runs phases 1, 2, 9 and 17
-     alone.
+     alone;
+ 18. the stratified reverse (the stratified arms of kernels 3 and 4 and of
+     kernel 1's stack entry): the stratified reverse instantiations' ptxas
+     lines; f64 adjoint_step and tiled_adjoint (q = 1) against the plain
+     stratified reverse (16^2 and 64^2, periodic and channel, 4, 36 and 100
+     levels, make_stratification's W of random densities and a dense random
+     W; d(dt) and d(W) over their Cauchy-Schwarz scales) with bitwise reruns
+     and the unstratified arm as a control; the stack rebuild bitwise the
+     forward's; the dot-product identity with a direction in W; f32 100
+     reverse steps with bench.py's densities by the distance from an f64
+     reverse with a bf16 control; the refusals; the slice's gradients of
+     sum ssh^2 w.r.t. the state, dt and W from to_struct (64^2 IGW and
+     channel over 4000 steps through auto_rollout_diff, 256^2 over 100
+     through both routes) with exact stratified launch counts (7937
+     fe_step and 4000 adjoint_step at 64^2, 190 and 100 at 256^2), timed
+     beside the unstratified gradients, a profiler breakdown, and the
+     stratified arms per launch beside their bounds. ``python3
+     chip_smoke.py --strat-reverse-only`` runs phases 1, 2, 9 and 18 alone.
 After phase 8 the tracer-free 256x256x100 100-step gradients through
 fused_rollout_diff and tiled_rollout_diff are timed again in a fresh process
 (``python3 chip_smoke.py --grad-256``, which prints one JSON line), with
@@ -182,10 +199,11 @@ EARLIER_US = {
 EARLIER_GRAD_S = {64: 0.213139, 256: 0.0732726, "256 fused": 0.067325}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM
-# bytes/s, and non-tensor-core FLOP/s per dtype itemsize. The data sheet
-# gives no L2 rate; the bounds before the probes divided every lattice's
-# bytes by the HBM rate, so "l2" repeats it.
-DATASHEET = {"hbm": 3.35e12, "l2": 3.35e12, "flops": {4: 67e12, 8: 34e12}}
+# bytes/s, non-tensor-core FLOP/s per dtype itemsize, and the FP64 tensor
+# cores' FLOP/s ("mma64"), the rate of a double matrix product. The data
+# sheet gives no L2 rate; the bounds before the probes divided every
+# lattice's bytes by the HBM rate, so "l2" repeats it.
+DATASHEET = {"hbm": 3.35e12, "l2": 3.35e12, "flops": {4: 67e12, 8: 34e12}, "mma64": 67e12}
 # The same rates as phase 9's probes measure them on this card
 # (tools/peaks.py).
 MEASURED: dict = {}
@@ -2836,13 +2854,11 @@ def forcing_phase(gpu: str, log_text: str) -> list:
     from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
     from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
-    # the forced instantiations: kForced true and kTracers false, the last
-    # two template arguments of the reverse kernels; the forward kernels'
-    # third and second last, kStrat false last
-    for line in ptxas_report(log_text, ("adjoint_step_kernel", "tiled_adjoint_kernel"),
-                             "Lb1ELb0EEEv") + ptxas_report(
-                                 log_text, ("fe_step_kernel", "tiled_step_kernel"),
-                                 "Lb1ELb0ELb0EEEv"):
+    # the forced instantiations: kForced true, kTracers and kStrat false, the
+    # last three template arguments of every kernel
+    for line in ptxas_report(log_text, ("adjoint_step_kernel", "tiled_adjoint_kernel",
+                                        "fe_step_kernel", "tiled_step_kernel"),
+                             "Lb1ELb0ELb0EEEv"):
         log(f"[14] ptxas {line}")
     counters = (fe_step, tiled_step, adjoint_step, tiled_adjoint)
 
@@ -3885,7 +3901,7 @@ def tracer_reverse_phase(gpu: str, log_text: str) -> list:
     from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
     for line in ptxas_report(log_text, ("adjoint_step_kernel", "tiled_adjoint_kernel"),
-                             "Lb1EEEv"):
+                             "Lb1ELb0EEEv"):
         log(f"[16] ptxas {line}")
     counters = (fe_step, adjoint_step, tiled_adjoint)
     tfields = FIELDS + ("tracers",)
@@ -4738,15 +4754,608 @@ def strat_phase(gpu: str, log_text: str) -> list:
     ]
 
 
+# ---- phase 18: the stratified reverse -----------------------------------------
+
+# Floating-point operations per cell-level the stratified reverse arms add,
+# in the state dtype: W dPhi at the block's levels (K multiply-adds) and
+# dPhi's scale; and in double: d(W)'s row sums (K multiply-adds), a matrix
+# product h^T dPhi over the cells
+def strat_adj_ops(k: int) -> tuple[int, int]:
+    return 2 * k + 1, 2 * k
+
+
+def strat_adj_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int,
+                    peaks: dict | None = None, masked: bool = False):
+    """(bound seconds, "bytes" or "operations") of one stratified reverse
+    step: ``step_bound``'s adjoint_step step (a primal state and a cotangent
+    read, a cotangent and d(dt) written) plus W read once and d(W) (K x K
+    doubles) written once, and ``strat_adj_ops`` more per cell-level: those
+    in the state dtype at its rate (at f32 the tensor cores' TF32 would
+    compute another function), those in double, d(W)'s matrix product, at
+    the FP64 tensor cores' rate or the f64 rate the card is shown to reach,
+    whichever is higher."""
+    peaks = CEILING if peaks is None else peaks
+    cells = 2 * ny2 * nx
+    state = cells * (1 + 4 * k)
+    table = 4 * (44 + 3 * n_terms) + itemsize * n_terms
+    nbytes = (itemsize * (3 * state + 3 * cells + k * k) + 8 + 8 * k * k + table
+              + (4 * ny2 * nx if masked else 0))
+    ops_t, ops_d = strat_adj_ops(k)
+    t_bytes = nbytes / byte_rate(peaks, itemsize * state)
+    t_ops = (cells * k * (81 + n_terms + ops_t) / peaks["flops"][itemsize]
+             + cells * k * ops_d / max(DATASHEET["mma64"], peaks["flops"][8]))
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def strat_reverse_phase(gpu: str, log_text: str) -> list:
+    """Phase 18, the stratified reverse (the stratified arms of kernels 3
+    and 4 and of kernel 1's stack entry): the stratified reverse
+    instantiations' ptxas lines; f64, adjoint_step and tiled_adjoint (q = 1)
+    against the plain stratified reverse (structured_adjoint_step(strat=))
+    on the kernel's own primal states, 6 reverse steps, 16^2 and 64^2
+    random states, periodic and channel, at 4, 36 and 100 levels (the main
+    path's level chunks), make_stratification's W of random densities and
+    a dense random W: the cotangent within 1e-12 of each field's scale, d(dt)
+    and d(W) within 1e-12 of their Cauchy-Schwarz scales, reruns bitwise,
+    the unstratified arm on the same states at least 100x off in d_h;
+    fe_fill_stack's stratified arm bitwise fe_rollout_into's; the
+    dot-product identity at f64 over 7 steps through fused_rollout_diff and
+    tiled_rollout_diff with directions in the state and W; f32, 100 reverse
+    steps with bench.py's densities (IGW 64^2 and 256^2 x 100, the 64^2
+    channel): each cotangent's distance from an f64 reverse of the same f32
+    states within U_GAP_FACTOR x the plain f32 reverse's, a bf16 control
+    failing it; one f32 reverse step on integer data whose sums in double
+    are exact: both arms' d(W) bitwise the exact sums, the sums in float
+    not; the refusals;
+    the slice's gradients of sum ssh^2 w.r.t. the state, dt and W from
+    to_struct (64^2 IGW and channel over GRAD_STEPS through
+    auto_rollout_diff, 256^2 over LARGE_ADJ_STEPS through tiled_rollout_diff
+    and fused_rollout_diff) with exact stratified launch counts, timed
+    beside the unstratified gradients, a profiler breakdown; each
+    stratified arm per launch by held_us beside the unstratified arm, its
+    bound and the plain step. Returns the kernels line's entries."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.models import Stratification, stratification_from_numpy
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        adjoint_plan,
+        auto_rollout_diff,
+        fused_model,
+        fused_rollout_diff,
+        pressure_transpose,
+        structured_adjoint_step,
+        structured_run_loop,
+        tiled_rollout_diff,
+    )
+    from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo, tiled_adjoint_plan
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    for line in ptxas_report(log_text, ("adjoint_step_kernel", "tiled_adjoint_kernel"),
+                             "Lb1EEEv"):
+        log(f"[18] ptxas {line}")
+    counters = (fe_step, adjoint_step, tiled_adjoint)
+
+    def zero_counts():
+        for m in counters:
+            m.launches = m.strat_launches = 0
+
+    def counts():
+        return {m.__name__.rsplit(".", 1)[-1]: (m.launches, m.strat_launches) for m in counters}
+
+    def strats(k, seed):
+        """make_stratification of random non-decreasing densities, and a
+        dense random W (std 0.05), as phase 17's."""
+        rng = np.random.default_rng(seed)
+        rho = 1025.0 + np.cumsum(rng.random(k)) * (2.0 / k)
+        dense = stratification_from_numpy({"phi_weights": 0.05 * rng.normal(size=(k, k)),
+                                           "densities": np.full(k, 1025.0)})
+        return {"rho": mt.make_stratification(rho), "dense": dense}
+
+    def random_g(st, seed):
+        rng = np.random.default_rng(seed)
+        return StructState(*(torch.from_numpy(rng.normal(size=tuple(getattr(st, f).shape))).to(
+            getattr(st, f)) for f in FIELDS))
+
+    def stack_of(st, sm, dt, n, strat):
+        """n + 1 states of fe_step's stratified arm from st by fe_fill_stack,
+        slot j after j steps: (the stack of slots 0 .. n - 1, W as the
+        kernels take it, slot n)."""
+        dtype = st.layer_thickness.dtype
+        w = fused_model.kernel_strat(strat, dtype, st.ssh.device)
+        full = tuple(torch.empty((n + 1, *getattr(st, f).shape), dtype=dtype,
+                                 device=st.ssh.device) for f in FIELDS)
+        for dst, f in zip(full, FIELDS):
+            dst[0].copy_(getattr(st, f))
+        fe_step.fe_fill_stack(full, sm.f_edge.to(dtype).contiguous(),
+                              sm.resting_thickness_sum.to(dtype).contiguous(), *sm.host_stencil,
+                              *fused_model._scal(sm, dt, dtype), n,
+                              live=fused_model.kernel_live(sm), strat_w=w)
+        return tuple(x[:n] for x in full), w, StructState(*(x[n] for x in full))
+
+    def rev_runner(stack, w, g, sm, dt, n, tile=None, strat=True):
+        """(run, ddt, dw): run() launches n reverse steps of adjoint_step's
+        stratified arm (tile None) or tiled_adjoint's at q = 1 over
+        ``tile`` (with ``strat`` False the unstratified arm on the same
+        states) with every operand made beforehand, adding d(dt) to ddt
+        and d(W) to dw; it returns the cotangent."""
+        dtype, device = stack[1].dtype, stack[1].device
+        k = stack[1].shape[-1]
+        ddt = torch.zeros(1, dtype=torch.float64, device=device)
+        dw = torch.zeros((k, k), dtype=torch.float64, device=device) if strat else None
+        gk = tuple(getattr(g, f).to(dtype).contiguous() for f in FIELDS)
+        kw = dict(live=fused_model.kernel_live(sm), strat_w=w if strat else None, dstrat=dw)
+        scal = fused_model._scal(sm, dt, dtype)
+        f_edge = sm.f_edge.to(dtype).contiguous()
+        rts = sm.resting_thickness_sum.to(dtype).contiguous()
+        if tile is None:
+            return (lambda: adjoint_step.adjoint_rollout(
+                stack, gk, f_edge, *sm.host_adjoint_stencil, *scal, n, ddt, **kw)), ddt, dw
+        return (lambda: tiled_adjoint.tiled_adjoint_rollout(
+            stack, gk, f_edge, rts, *sm.host_stencil, *sm.host_adjoint_stencil, *scal, n, ddt,
+            row_tile=tile[0], col_tile=tile[1], q=1, halo=reverse_halo(sm.coriolis_terms),
+            **kw)), ddt, dw
+
+    def kernel_rev(stack, w, g, sm, dt, n, tile=None, strat=True):
+        run, ddt, dw = rev_runner(stack, w, g, sm, dt, n, tile, strat)
+        out = run()
+        return StructState(*out[:3]), ddt[0], dw
+
+    def plain_rev(stack, w, g, sm, dt, n, dtype=None, store=None):
+        """The plain stratified reverse through the stack's slots in
+        ``dtype`` (the stack's), W as the kernels take it, each step's
+        cotangent passed through ``store`` (the bf16 control): ((cotangent,
+        d(dt), d(W)), d(W)'s Cauchy-Schwarz scale, max over (l, k) of the
+        sum over steps and cells of |h[c, l]| |dPhi[c, k]|, and the float
+        accumulator control: d(W) with each step's sum over the cells in
+        ``dtype`` where the plain reverse sums it in double)."""
+        dtype = dtype or stack[1].dtype
+        k = stack[1].shape[-1]
+        strat = Stratification(w.to(dtype), torch.zeros(k, dtype=dtype, device=w.device))
+        eye = {t: Stratification(torch.eye(k, dtype=t, device=w.device), strat.densities)
+               for t in (torch.float64, dtype)}
+        g = StructState(*(getattr(g, f).to(dtype) for f in FIELDS))
+        ddt = torch.zeros((), dtype=torch.float64, device=w.device)
+        dw, dw_float, w_scale = (torch.zeros((k, k), dtype=torch.float64, device=w.device)
+                                 for _ in range(3))
+        for j in reversed(range(n)):
+            s = StructState(*(x[j].to(dtype) for x in stack))
+            gu = g.normal_velocity
+            if sm.edge_mask is not None:
+                gu = gu * sm.edge_mask[..., None].to(dtype)
+            h = s.layer_thickness.reshape(-1, k)
+            d_phi, _ = pressure_transpose(s.layer_thickness.double(), gu.double(), dt, sm,
+                                          eye[torch.float64])
+            w_scale += h.double().abs().T @ d_phi.abs().reshape(-1, k)
+            d_phi, _ = pressure_transpose(s.layer_thickness, gu, dt, sm, eye[dtype])
+            dw_float += (h.T @ d_phi.reshape(-1, k)).double()
+            g, dd, d = structured_adjoint_step(s, g, sm, dt, strat=strat)
+            if store is not None:
+                g = StructState(*(store(getattr(g, f)) for f in FIELDS))
+            ddt, dw = ddt + dd.double(), dw + d.double()
+        return (g, ddt, dw), float(w_scale.max()), dw_float
+
+    def ddt_scale(st, sm, dt, n, g, strat) -> float:
+        """d(dt)'s Cauchy-Schwarz scale: sum over the fields of |g|
+        |d(state_n)/d(dt)|, the tangent by forward-mode AD of the plain
+        stratified rollout."""
+        def rollout(d):
+            out = structured_run_loop(st, sm, d, n, strat=strat)
+            return tuple(getattr(out, f) for f in FIELDS)
+
+        one = torch.ones((), dtype=st.ssh.dtype, device=st.ssh.device)
+        _, tang = torch.func.jvp(rollout, (dt * one,), (one,))
+        return sum(float(torch.linalg.vector_norm(getattr(g, f).double())
+                         * torch.linalg.vector_norm(t.double())) for f, t in zip(FIELDS, tang))
+
+    def rev_errs(a, b, dd_scale, w_scale, fields=FIELDS) -> dict:
+        """(max |a - b|, over the scale) per cotangent field (scale max |b|),
+        for d(dt) and d(W) (their Cauchy-Schwarz scales)."""
+        out = {}
+        for f in fields:
+            e = float((getattr(a[0], f).double() - getattr(b[0], f).double()).abs().max())
+            out[f] = (e, e / float(getattr(b[0], f).double().abs().max()))
+        if a[2] is not None:
+            e = abs(float(a[1]) - float(b[1]))
+            out["d_dt"] = (e, e / dd_scale)
+            e = float((a[2] - b[2]).abs().max())
+            out["d_w"] = (e, e / w_scale)
+        return out
+
+    def same(a, b) -> bool:
+        return torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]) and all(
+            torch.equal(getattr(a[0], f), getattr(b[0], f)) for f in FIELDS)
+
+    # f64, kernel against plain: (n, levels, channel, the shallow cases'
+    # tile, u amplitude, layer); phase 17's lattices
+    n_rev = 6
+    worst, n_checks, rebuilt = {}, 0, 0
+    f64_cases = [(16, 4, channel, (4, 8), 0.01, 10.0) for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, levels, channel, None, 0.5, 60.0 / levels)
+                  for levels in (36, LEVELS) for channel in (False, True)]
+    for n, levels, channel, tile, u_amp, layer in f64_cases:
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=5,
+                                                                   u_amp=u_amp, layer=layer)
+        sm = model.struct_mesh
+        st = model.to_struct(prog)
+        g = random_g(st, 17)
+        tiles = {"adjoint_step": adjoint_step.adjoint_tile(sm.ny2, sm.nx, levels, 8, strat=True),
+                 "tiled_adjoint": tile or tiled_adjoint_plan(
+                     sm.ny2, sm.nx, levels, 8, n_rev, halo=reverse_halo(sm.coriolis_terms),
+                     strat=True)[:2]}
+        name = (f"f64 {n}x{n}x{levels} {'channel' if channel else 'periodic'}, layers of "
+                f"{layer:.4g} m, u {u_amp} m/s")
+        for kind, strat in strats(levels, 29 + levels).items():
+            stack, w, end = stack_of(st, sm, 10.0, n_rev, strat)
+            if kind == "dense":
+                # the rebuild: slot j against j steps of fe_rollout_into, bitwise
+                consts = (sm.f_edge.to(torch.float64).contiguous(),
+                          sm.resting_thickness_sum.to(torch.float64).contiguous(),
+                          *sm.host_stencil, *fused_model._scal(sm, 10.0, torch.float64))
+                src = tuple(x[0] for x in stack)
+                for j in (1, n_rev - 1, n_rev):
+                    out = tuple(torch.empty_like(x) for x in src)
+                    fe_step.fe_rollout_into(src, out, *consts, j,
+                                            live=fused_model.kernel_live(sm), strat_w=w)
+                    want = state_fields(end) if j == n_rev else tuple(x[j] for x in stack)
+                    if not all(torch.equal(a, b) for a, b in zip(out, want)):
+                        raise AssertionError(f"{name}: fe_fill_stack slot {j} is not "
+                                             f"fe_rollout_into's {j} stratified steps")
+                    rebuilt += 1
+            ref, w_scale, _ = plain_rev(stack, w, g, sm, 10.0, n_rev)
+            dd_scale = ddt_scale(st, sm, 10.0, n_rev, g, strat)
+            line = [f"d(dt) {float(ref[1]):.6e} (scale {dd_scale:.6e}), max|d(W)| "
+                    f"{float(ref[2].abs().max()):.6e} (scale {w_scale:.6e})"]
+            for label, tl in (("adjoint_step", None), ("tiled_adjoint", tiles["tiled_adjoint"])):
+                mod = adjoint_step if tl is None else tiled_adjoint
+                zero_counts()
+                out = kernel_rev(stack, w, g, sm, 10.0, n_rev, tl)
+                again = kernel_rev(stack, w, g, sm, 10.0, n_rev, tl)
+                if (mod.launches, mod.strat_launches) != (2 * n_rev, 2 * n_rev):
+                    raise AssertionError(f"{name} {label}: launch counts {counts()}")
+                errs = rev_errs(out, ref, dd_scale, w_scale)
+                if not max(r for _, r in errs.values()) <= 1e-12:
+                    raise AssertionError(f"{name} W {kind} {label}: {format_errors(errs)}")
+                if not same(out, again):
+                    raise AssertionError(f"{name} W {kind} {label}: rerun differs")
+                bare = kernel_rev(stack, w, g, sm, 10.0, n_rev, tl, strat=False)
+                miss = rev_errs(bare, ref, dd_scale, w_scale)["layer_thickness"][1]
+                if not miss >= 100 * 1e-12:
+                    raise AssertionError(f"{name} W {kind} {label}: the unstratified control "
+                                         f"misses d_h by only {miss}")
+                worst[label] = max(worst.get(label, 0.0), max(r for _, r in errs.values()))
+                line.append(f"{label} {max(r for _, r in errs.values()):.3e} (d_dt "
+                            f"{errs['d_dt'][1]:.3e}, d_w {errs['d_w'][1]:.3e}; control d_h "
+                            f"{miss:.2e})")
+                n_checks += 1
+            log(f"[18] {name}, W {kind}, {n_rev} reverse steps, tiles {tiles}: worst error over "
+                "scale " + ", ".join(line))
+            del stack, w, end
+        del model, st, sm
+        torch.cuda.empty_cache()
+    log(f"[18] {n_checks} f64 stratified reverse checks, reruns bitwise equal, unstratified "
+        f"controls >= 100x off; {rebuilt} stack slots bitwise fe_rollout_into's; worst relative "
+        "errors: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # the dot-product identity, f64, 7 steps, directions in the state and W
+    model, prog = random_case(32, 6, seed=5, u_amp=0.5, layer=10.0)
+    sm = model.struct_mesh
+    st = model.to_struct(prog)
+    base = strats(6, 41)["dense"]
+    w0 = base.phi_weights.to(st.ssh.device)
+    v, gbar = random_g(st, 18), random_g(st, 19)
+    v_w = torch.from_numpy(0.05 * np.random.default_rng(20).normal(size=(6, 6))).to(w0)
+
+    def rollout7(*xs):
+        out = structured_run_loop(StructState(*xs[:3]), sm, 10.0, 7,
+                                  strat=Stratification(xs[3], base.densities))
+        return tuple(getattr(out, f) for f in FIELDS)
+
+    _, jv = torch.func.jvp(rollout7, (*state_fields(st), w0), (*state_fields(v), v_w))
+    lhs = sum(float((x * getattr(gbar, f)).sum()) for x, f in zip(jv, FIELDS))
+    dots = {}
+    for label, route, kw in (("fused_rollout_diff", fused_rollout_diff, dict(plan=3)),
+                             ("tiled_rollout_diff", tiled_rollout_diff, dict(plan=(4, 8, 1, 3)))):
+        x = [f.clone().requires_grad_(True) for f in state_fields(st)]
+        w = w0.clone().requires_grad_(True)
+        out = route(StructState(*x), sm, 10.0, 7, strat=Stratification(w, base.densities), **kw)
+        inner = sum((getattr(out, f) * getattr(gbar, f)).sum() for f in FIELDS)
+        jtg = torch.autograd.grad(inner, x + [w])
+        rhs = sum(float((getattr(v, f) * d).sum()) for f, d in zip(FIELDS, jtg))
+        rhs += float((v_w * jtg[3]).sum())
+        dots[label] = abs(lhs - rhs) / abs(rhs)
+        log(f"[18] f64 dot-product identity with a direction in W, 32x32x6, 7 steps, {label}: "
+            f"<Jv, g> {lhs:.17g}, <v, J^T g> {rhs:.17g}, relative gap {dots[label]:.3e}")
+        if not dots[label] <= 1e-12:
+            raise AssertionError(f"{label}: dot-product identity off by {dots[label]:.3e}")
+    del model, st, sm
+
+    # f32, 100 reverse steps with bench.py's densities, from the cotangent of
+    # sum ssh^2 at step 100: each cotangent's distance from an f64 reverse of
+    # the same f32 primal states within U_GAP_FACTOR x the plain f32
+    # reverse's; the plain reverse with its cotangents stored in bf16 after
+    # each step must miss that for some cotangent
+    strat32 = mt.make_stratification(1025.0 + np.linspace(0.0, BENCH_RHO_SPAN, LEVELS),
+                                     dtype=np.float32)
+    gaps, max_abs_err = {}, {}
+    n32 = TILED_CHECK_STEPS
+    for key, case, n, kernels in (
+            ("64", igw_case, HEADLINE_N, (("adjoint_step", None),)),
+            ("256", igw_case, LARGE_N, (("adjoint_step", None), ("tiled_adjoint", "plan"))),
+            ("channel 64", kelvin_case, HEADLINE_N, (("adjoint_step", None),))):
+        _, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(prog)
+        stack, w, end = stack_of(st, sm, DT, n32, strat32)
+        g = StructState(2 * end.ssh, torch.zeros_like(end.layer_thickness),
+                        torch.zeros_like(end.normal_velocity))
+        ref64, w_scale, _ = plain_rev(stack, w, g, sm, DT, n32, dtype=torch.float64)
+        p32, _, _ = plain_rev(stack, w, g, sm, DT, n32)
+        bf, _, _ = plain_rev(stack, w, g, sm, DT, n32, store=lambda x: x.bfloat16().float())
+        scales = {f: float(getattr(ref64[0], f).abs().max()) for f in FIELDS}
+        scales["d_dt"] = ddt_scale(st, sm, DT, n32, g, strat32)
+        scales["d_w"] = w_scale
+        flow = "Kelvin channel" if case is kelvin_case else "IGW"
+        for label, tl in kernels:
+            if tl == "plan":
+                tl = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n32,
+                                        halo=reverse_halo(sm.coriolis_terms), strat=True)[:2]
+            out = kernel_rev(stack, w, g, sm, DT, n32, tl)
+            what = (f"f32 {n}x{n}x{LEVELS} {flow} with bench.py's densities, {n32} reverse "
+                    f"steps, {label}{'' if tl is None else f' tile {tuple(tl)}'}")
+            e_k, e_p, e_b = (rev_errs(x, ref64, scales["d_dt"], w_scale) for x in (out, p32, bf))
+            ratios, control_fails, parts = {}, False, []
+            for f in e_k:
+                limit = U_GAP_FACTOR * e_p[f][0]
+                ratios[f] = e_k[f][0] / limit
+                control_fails = control_fails or e_b[f][0] > limit
+                parts.append(f"{f} kernel {e_k[f][0]:.3e}, plain {e_p[f][0]:.3e}: "
+                             f"x{ratios[f]:.3f} of the limit; bf16 {e_b[f][0]:.3e} "
+                             f"(x{e_b[f][0] / limit:.1f})")
+                if not e_k[f][0] <= limit:
+                    raise AssertionError(f"{what}: {f} {e_k[f][0]:.3e} from the f64 reverse, "
+                                         f"limit {limit:.3e}")
+            log(f"[18] {what}: distance from an f64 reverse of the same f32 states: "
+                + "; ".join(parts))
+            if not control_fails:
+                raise AssertionError(f"{what}: the bf16 control passes")
+            gaps[label, key] = ratios
+            max_abs_err[label, key] = max(e for e, _ in rev_errs(out, p32, 1.0, 1.0).values())
+        del stack, w, end, ref64, p32, bf, st
+        torch.cuda.empty_cache()
+
+    # f32 d(W) summed in double: one reverse step on a lattice of spacing
+    # 1024 m with h = 2^20 + integers 0 .. 1023, a u-cotangent of integers
+    # -7 .. 7 and dt = 1 s, where every product h dPhi and every sum of them
+    # in double is exact: both arms' d(W) bitwise the plain f64 reverse's;
+    # the same sums over the cells in float (an f32 matrix product) are not
+    for n in (HEADLINE_N, LARGE_N):
+        horz = mt.planar_hex_mesh(n, n, 1024.0, f0=1e-4, dtype=np.float32)
+        vert = mt.make_vertical_mesh(horz, LEVELS, resting_thickness=np.full(
+            (horz.n_cells, LEVELS), 2.0 ** 20, dtype=np.float32), dtype=np.float32)
+        model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n)
+        sm = model.struct_mesh
+        rng = np.random.default_rng(31)
+        h = (2.0 ** 20 + rng.integers(0, 1024, size=(horz.n_cells, LEVELS))).astype(np.float32)
+        st = model.to_struct(mt.PrognosticVars(
+            ssh=torch.zeros(horz.n_cells), layer_thickness=torch.from_numpy(h),
+            normal_velocity=torch.zeros(horz.n_edges, LEVELS)))
+        stack = tuple(getattr(st, f)[None].contiguous() for f in FIELDS)
+        gu = rng.integers(-7, 8, size=tuple(st.normal_velocity.shape)).astype(np.float32)
+        g = StructState(torch.zeros_like(st.ssh), torch.zeros_like(st.layer_thickness),
+                        torch.from_numpy(gu).to(st.normal_velocity))
+        w = fused_model.kernel_strat(strat32, torch.float32, st.ssh.device)
+        (_, _, exact), _, _ = plain_rev(stack, w, g, sm, 1.0, 1, dtype=torch.float64)
+        _, _, dw_float = plain_rev(stack, w, g, sm, 1.0, 1)
+        if torch.equal(dw_float, exact):
+            raise AssertionError(f"{n}^2: d(W) summed in float is exact; the check cannot "
+                                 "tell a float accumulator")
+        for label in ("adjoint_step", "tiled_adjoint"):
+            tl = None if label == "adjoint_step" else tiled_adjoint_plan(
+                sm.ny2, sm.nx, LEVELS, 4, 1, halo=reverse_halo(sm.coriolis_terms),
+                strat=True)[:2]
+            _, _, dw = kernel_rev(stack, w, g, sm, 1.0, 1, tl)
+            if not torch.equal(dw, exact):
+                off = float((dw - exact).abs().max())
+                raise AssertionError(f"f32 {n}^2 {label}: d(W) {off:.3e} from the exact sums: "
+                                     "not summed in double")
+        log(f"[18] f32 {n}x{n}x{LEVELS}, one reverse step on integer data (h = 2^20 + 0 .. 1023, "
+            f"gu -7 .. 7, dt 1 s, dc 1024 m): adjoint_step's and tiled_adjoint's d(W) bitwise "
+            f"the exact sums (max |d(W)| {float(exact.abs().max()):.6e}); summed over the cells "
+            f"in float {float((dw_float - exact).abs().max()):.3e} off")
+        del stack, st, g, model, sm
+        torch.cuda.empty_cache()
+
+    # refusals on the card: the gradients with stratification and the
+    # nonlinear core, forcing or tracers, and the tiled route at q > 1
+    horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
+    st, sm = model.to_struct(prog), model.struct_mesh
+    st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                             prog.normal_velocity,
+                                             tracers=bench_tracers(horz, LEVELS, np.float32)))
+    forcing = model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
+        horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0, dtype=np.float32),
+        dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
+    refused = []
+    for label, call in (
+            ("nonlinear", lambda: auto_rollout_diff(st, sm, DT, 2, nonlinear=True,
+                                                    strat=strat32)),
+            ("forced", lambda: auto_rollout_diff(st, sm, DT, 2, forcing=forcing, strat=strat32)),
+            ("tracers", lambda: auto_rollout_diff(st_t, sm, DT, 2, strat=strat32)),
+            ("tiled q = 2", lambda: tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1),
+                                                       strat=strat32))):
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(label)
+            continue
+        raise AssertionError(f"the stratified gradient {label} ran on the card")
+    log(f"[18] refused on the card, the stratified gradient (NotImplementedError): "
+        f"{', '.join(refused)}")
+    del st, st_t
+
+    # the slice's gradients from to_struct, w.r.t. the state, dt and W, each
+    # path from its own zeroed counts, then timed beside the unstratified
+    # gradient in the same call
+    def grad_w(route, s, sm, n_steps, strat):
+        leaves = [f.clone().requires_grad_(True) for f in state_fields(s)]
+        dt = torch.tensor(DT, dtype=torch.float32, device=s.ssh.device, requires_grad=True)
+        w = strat.phi_weights.to(s.ssh.device).clone().requires_grad_(True)
+        out = route(StructState(*leaves), sm, dt, n_steps,
+                    strat=Stratification(w, strat.densities))
+        return out, torch.autograd.grad((out.ssh ** 2).sum(), leaves + [dt, w])
+
+    times, launches, walls = {}, {}, {}
+    for label, case, n, route, n_steps, want_arm in (
+            ("64 auto", igw_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, "adjoint_step"),
+            ("channel 64 auto", kelvin_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS,
+             "adjoint_step"),
+            ("256 tiled", igw_case, LARGE_N, tiled_rollout_diff, LARGE_ADJ_STEPS,
+             "tiled_adjoint"),
+            ("256 fused", igw_case, LARGE_N, fused_rollout_diff, LARGE_ADJ_STEPS,
+             "adjoint_step")):
+        _, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        zero_counts()
+        t0 = time.perf_counter()
+        out, grads = grad_w(route, model.to_struct(prog), sm, n_steps, strat32)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        c = counts()
+        st_w = model.to_struct(prog)
+        state_bytes = sum(f.numel() * 4 for f in state_fields(st_w))
+        group = adjoint_plan(n_steps, state_bytes, math.inf)
+        want = {"fe_step": (2 * n_steps - -(-n_steps // group),) * 2,
+                want_arm: (n_steps, n_steps)}
+        log(f"[18] main path: grad of sum ssh^2 w.r.t. the state, dt and W through "
+            f"{route.__name__}, {n}^2x{LEVELS} f32 {'channel' if case is kelvin_case else 'IGW'} "
+            f"with bench.py's densities, {n_steps} steps, groups of {group}, from to_struct: "
+            f"{walls[label]:.3f} s wall [{gpu}]; launches {c} (want {want}, all stratified)")
+        if any(c[m] != want.get(m, (0, 0)) for m in c):
+            raise AssertionError(f"stratified grad {label}: launch counts {c} != {want}")
+        if not all(bool(torch.isfinite(x).all()) for x in grads) or tuple(
+                grads[4].shape) != (LEVELS, LEVELS) or not float(grads[4].abs().max()) > 0:
+            raise AssertionError(f"stratified grad {label}: not finite, of the wrong shape, "
+                                 f"or d(W) zero")
+        launches[label] = c[want_arm][1], c["fe_step"][1]
+        times[label] = {
+            "unstratified": cuda_times(lambda: grad_sum_ssh2(route, st_w, sm, n_steps), REPS),
+            "stratified": cuda_times(lambda: grad_w(route, st_w, sm, n_steps, strat32), REPS)}
+        med_s, med_0 = (statistics.median(times[label][k]) for k in ("stratified", "unstratified"))
+        log(f"[18] grad {label}, {n_steps} steps: stratified {spread(times[label]['stratified'])}"
+            f", unstratified {spread(times[label]['unstratified'])} per grad: x{med_s / med_0:.4f} "
+            f"[{gpu}]")
+        if label == "64 auto":
+            by_kernel, window_us = profile_by_kernel(
+                lambda: grad_w(route, st_w, sm, n_steps, strat32),
+                ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce", "strat_reduce"))
+            log(f"[18] profiler, one stratified grad at 64^2 ({window_us:.0f} us by events): "
+                + profile_line(by_kernel, window_us, gpu))
+        del out, grads, st_w
+        torch.cuda.empty_cache()
+
+    # each stratified arm per launch (held_us over a 40-step call) beside the
+    # unstratified arm, its bound and the plain stratified reverse step
+    per_launch, plain_ms, bounds, plans = {}, {}, {}, {}
+    for n in (HEADLINE_N, LARGE_N):
+        _, _, model, prog = igw_case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(prog)
+        stack, w, _ = stack_of(st, sm, DT, 40, strat32)
+        g = random_g(st, 20)
+        halo = reverse_halo(sm.coriolis_terms)
+        plans[n] = {s: tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, 40, halo=halo,
+                                          strat=s)[:2] for s in (False, True)}
+        for label in ("adjoint_step", "tiled_adjoint"):
+            for arm, strat in (("stratified", True), ("unstratified", False)):
+                tl = None if label == "adjoint_step" else plans[n][strat]
+                run, _, _ = rev_runner(stack, w, g, sm, DT, 40, tl, strat)
+                per_launch[label, n, arm] = held_us(run, 40, REPS)
+        s1 = StructState(*(x[0] for x in stack))
+        strat_k = Stratification(w, strat32.densities)
+        plain_ms[n] = [t * 1e3 for t in cuda_times(
+            lambda: structured_adjoint_step(s1, g, sm, DT, strat=strat_k), REPS)]
+        dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+        bounds[n] = strat_adj_bound(*dims)
+        b0 = step_bound("adjoint_step", *dims)[0]
+        for label in ("adjoint_step", "tiled_adjoint"):
+            t_s = statistics.median(per_launch[label, n, "stratified"])
+            t_0 = statistics.median(per_launch[label, n, "unstratified"])
+            log(f"[18] {label} per launch, {n}x{n}x{LEVELS} f32"
+                f"{'' if label == 'adjoint_step' else f' plans {plans[n]}'}: stratified arm "
+                f"{spread(per_launch[label, n, 'stratified'], 1, 'us')}, unstratified "
+                f"{spread(per_launch[label, n, 'unstratified'], 1, 'us')}: x{t_s / t_0:.4f}; "
+                f"bound {bounds[n][0] * 1e6:.3f} us ({bounds[n][1]}): "
+                f"{bounds[n][0] * 1e6 / t_s:.4f} of it; unstratified bound {b0 * 1e6:.3f} us: "
+                f"{b0 * 1e6 / t_0:.4f} [{gpu}]")
+        log(f"[18] plain stratified reverse step, {n}x{n}x{LEVELS} f32: "
+            f"{spread(plain_ms[n], 1, 'ms')} [{gpu}]")
+        tile_a = adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4, strat=True)
+        lp = adjoint_step.launch_plan(sm.host_adjoint_stencil[0], sm.ny2, sm.nx, LEVELS, tile_a,
+                                      strat=True)
+        occ = tiled_adjoint.occupancy(*plans[n][True], 1, halo, LEVELS, strat=True)
+        n_tiles = lp["clusters"]
+        log(f"[18] {n}^2 stratified arms: adjoint_step tile {tile_a}, {lp['smem_bytes']} bytes "
+            f"of shared memory per block, {n_tiles} clusters, {lp['blocks_per_sm']} blocks of "
+            f"512 threads per SM, d(W) accumulators {n_tiles * LEVELS ** 2 * 8 / 1e6:.3f} MB; "
+            f"tiled_adjoint plan {plans[n][True]}, {occ[0]} bytes, {occ[1]} blocks per SM")
+        del stack, w, st
+        torch.cuda.empty_cache()
+
+    med = statistics.median
+
+    def entry(name, src, replaces, n_launch, err, n, extra):
+        b, by = bounds[n]
+        return {"name": name, "route": "cuda", "source": f"mpas_ocean_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": n_launch, "max_abs_err": err,
+                "ms": med(per_launch[name.split()[0], n, "stratified"]) / 1e3,
+                "plain_ms": med(plain_ms[n]), "bound_ms": b * 1e3, "bound_by": by,
+                "library_ms": None, **extra}
+
+    return [
+        entry("adjoint_step (stratified arm)", "adjoint_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:1480 (sw_ref :1506-1510, dsw "
+              ":1576-1601)", launches["64 auto"][0], max_abs_err["adjoint_step", "64"],
+              HEADLINE_N,
+              {"fe_step_strat_launches": launches["64 auto"][1],
+               "unstratified_ms": med(per_launch["adjoint_step", HEADLINE_N, "unstratified"])
+               / 1e3,
+               "ms_256": med(per_launch["adjoint_step", LARGE_N, "stratified"]) / 1e3,
+               "unstratified_ms_256": med(per_launch["adjoint_step", LARGE_N, "unstratified"])
+               / 1e3, "bound_ms_256": bounds[LARGE_N][0] * 1e3,
+               "plain_ms_256": med(plain_ms[LARGE_N]),
+               "grad_s_64": med(times["64 auto"]["stratified"]),
+               "grad_s_64_unstratified": med(times["64 auto"]["unstratified"]),
+               "grad_s_64_channel": med(times["channel 64 auto"]["stratified"]),
+               "grad_s_256_fused": med(times["256 fused"]["stratified"]),
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "adjoint_step"},
+               "max_rel_err_f64": worst["adjoint_step"], "dot_gap": dots["fused_rollout_diff"]}),
+        entry("tiled_adjoint (stratified arm)", "tiled_adjoint.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:1979 (sw_ref :2022-2035, per-tile "
+              "d(W) :2113-2118)", launches["256 tiled"][0], max_abs_err["tiled_adjoint", "256"],
+              LARGE_N,
+              {"fe_step_strat_launches": launches["256 tiled"][1],
+               "unstratified_ms": med(per_launch["tiled_adjoint", LARGE_N, "unstratified"]) / 1e3,
+               "ms_64": med(per_launch["tiled_adjoint", HEADLINE_N, "stratified"]) / 1e3,
+               "grad_s_256": med(times["256 tiled"]["stratified"]),
+               "grad_s_256_unstratified": med(times["256 tiled"]["unstratified"]),
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "tiled_adjoint"},
+               "max_rel_err_f64": worst["tiled_adjoint"], "dot_gap": dots["tiled_rollout_diff"],
+               "plan_256": list(plans[LARGE_N][True])}),
+    ]
+
+
 def ptxas_report(log_text: str, kernels: tuple, arm=None) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``; with ``arm`` (a string, or a
     tuple of alternatives), only those whose mangled template arguments end
-    so: "Lb1EEEv" for the last one true (the forward kernels' kStrat),
-    "Lb1ELb0EEEv" for the second last true and the last false (the forward
-    kernels' kTracers, the reverse kernels' kForced), "Lb1ELb0ELb0EEEv" for
-    the third last true and the last two false (the forward kernels'
-    forced arms)."""
+    so: "Lb1EEEv" for the last one true (every lattice kernel's kStrat),
+    "Lb1ELb0EEEv" for the second last true and the last false (their
+    kTracers), "Lb1ELb0ELb0EEEv" for the third last true and the last two
+    false (their forced arms)."""
     arms = (arm,) if isinstance(arm, str) else arm
     out, keep = [], False
     for line in log_text.splitlines():
@@ -4862,6 +5471,11 @@ def main() -> int:
     if "--strat-only" in sys.argv[1:]:
         # phase 17 alone (after the build and the peaks its bounds divide by)
         print(json.dumps({"kernels": strat_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
+    if "--strat-reverse-only" in sys.argv[1:]:
+        # phase 18 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": strat_reverse_phase(gpu, log_file.read_text())}))
         print(gpu)
         return 0
     if "--tracers-only" in sys.argv[1:]:
@@ -5256,6 +5870,9 @@ def main() -> int:
 
     # -- 17. layered stratification -------------------------------------------------
     strat_entries = strat_phase(gpu, log_file.read_text())
+
+    # -- 18. the stratified reverse ---------------------------------------------------
+    strat_entries += strat_reverse_phase(gpu, log_file.read_text())
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -4,12 +4,13 @@
 //
 // Replaces: _adjoint_segment_kernel
 // (mpas_ocean_tpu/structured/pallas_model.py:1480), the arms with
-// nl_terms=None and stratified=False, periodic (masks=None) and masked (a
-// coastal channel: the vjp of _step_planes with masks, :1497-1501,
-// 1545-1552), unforced and forced (the `forced` operands, :1514-1520,
-// 1545-1590: d(wind) and d(coefs) beside d(dt)), without tracers and, unforced,
-// with them (the tracer cotangent gt_ref / gt_out, :1521-1528, 1561, 1573,
-// 1599-1600). The TPU
+// nl_terms=None, periodic (masks=None) and masked (a coastal channel: the
+// vjp of _step_planes with masks, :1497-1501, 1545-1552), unforced and
+// forced (the `forced` operands, :1514-1520, 1545-1590: d(wind) and
+// d(coefs) beside d(dt)), without tracers and, unforced, with them (the
+// tracer cotangent gt_ref / gt_out, :1521-1528, 1561, 1573, 1599-1600),
+// unstratified and, unforced and tracer-free, stratified (W in sw_ref,
+// :1506-1510, its cotangent dsw, :1576-1601). The TPU
 // kernel recomputes a b-step segment in VMEM and runs an in-kernel jax.vjp of
 // _step_planes per step. CUDA has no vjp, so the transpose is written out by
 // hand here, and the recompute is the forward kernel's (fe_step.cu) filling
@@ -92,6 +93,16 @@
 // each block writes three more shares in double beside d(dt): d(r_lin),
 // d(Cd) and d(lambda), summed in the same fixed order.
 //
+// The stratified arm (kStrat, chosen by a non-null W; unforced and
+// tracer-free; the unstratified arms keep their code) adds the transpose of
+// the Montgomery pressure's h @ W part (adjoint_window.cuh,
+// strat_adjoint_pass): the body stores its chunk of S_c,k at the tile's
+// cells in shared memory; after a cluster barrier each rank reads the
+// others' chunks in place, adds (dt / dc) W dPhi at its levels to the
+// stored dh, and forms its rows of d(W) in double into the tile's
+// accumulator and d(dt)'s h @ W part into its share. Each rank stages its
+// rows of W with the window.
+//
 // The tracer arm (kTracers, chosen by a non-null tracer pointer; unforced;
 // the tracer-free arms keep their code) adds the transpose of the tracer
 // update (structured/adjoint.py, tracer_transpose). Each block stages its
@@ -145,6 +156,7 @@ struct AdjArgs {
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   T* dwind;           // the forced arm's d(wind) (6, ny2, nx), added to
   AdjTracers<T> at;   // the tracer arm's operands; tr null otherwise
+  AdjStrat<T> st;     // the stratified arm's operands; w null otherwise
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, hm, hi, kc_log2, vec_log2, n_tiles_i;
   long long n_shares;
@@ -153,9 +165,10 @@ struct AdjArgs {
 // One block per SM for the tracer arm: at two (64 registers a thread) its
 // f32 body spilled 388-408 bytes a thread, more than L1 holds beside two
 // windows, and took 5.3x the tracer-free arm per launch at 256^2 (PERF.md).
-template <typename T, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     adjoint_step_kernel(const AdjArgs<T> a, const AdjTaps<T> tp) {
+  static_assert(!kStrat || (!kForced && !kTracers), "the stratified arm: unforced, tracer-free");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -181,6 +194,7 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gsite + W;  // [W]: the masked arm's live bits
   const ForcingSmem<T> fsm(live_s + W, W, 0);  // the forced arm's winds and levels
+  const StratAdjSmem<T> ssm(live_s + W, core, kc);  // the stratified arm's S and W rows
 
   // The partial sums below go straight into rank 0's shared memory, which
   // only a cluster barrier guarantees to exist: its arrival here and its
@@ -205,6 +219,7 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     load_tracers(cot + 8 * pk, gsite, a.at.gtr, 2 * a.at.n, W, a.kc_log2, a.vec_log2, k0, kr,
                  K, plane);
   }
+  if (kStrat) load_strat_rows(ssm, a.st.w, core, K, k0, kr, a.kc_log2);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -317,6 +332,10 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
         S[p] = (gu[hex::self_u(p)] + gu[hex::self_u(2 + p)] + gu[hex::self_u(4 + p)]) -
                (gu[hex::inc_u(3 * p)] + gu[hex::inc_u(3 * p + 1)] + gu[hex::inc_u(3 * p + 2)]);
       }
+      if (kStrat) {  // the tile's S chunk, for the stratified pass
+        ssm.sl[(t << a.kc_log2) + kl] = S[0];
+        ssm.sl[((core + t) << a.kc_log2) + kl] = S[1];
+      }
       T* h_o = a.dh + g * K + k0 + kl;
       T* u_o = a.du + g * K + k0 + kl;
 #pragma unroll
@@ -363,6 +382,20 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
             },
             W, kc, k0, kr, a.dt, dt_div, a.fc);
   }
+  if (kStrat) {
+    // W dPhi into the stored dh, the tile's d(W) rows and d(dt)'s h @ W
+    // part, once every rank's S chunk is visible
+    cluster.sync();
+    strat_adjoint_pass(
+        ssm, cluster, prim, a.st.acc + static_cast<size_t>(tile) * K * K, a.st.first != 0,
+        [&](int p, int t, int kl) -> T* {
+          const int r = by_ct.div(t), c = by_ct.mod(t, r);
+          const int gm = tm * a.rt + r, gi = ti * a.ct + c;
+          return gm < a.ny2 && gi < a.nx ? a.dh + (p * plane + gm * a.nx + gi) * K + k0 + kl
+                                         : nullptr;
+        },
+        core, a.ct, a.hm, a.hi, Wi, W, a.kc_log2, k0, kr, K, n_ranks, a.dt, a.inv_dc, &share);
+  }
   // the forced arm's Rayleigh part of d(dt), -lambda sum gu u
   if (kForced) share -= static_cast<double>(a.fc.rayl) * s_rayl;
   share_warps(share, red);
@@ -389,13 +422,13 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   }
 }
 
-template <typename T, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(adjoint_step_kernel<T, kMasked, kForced, kTracers>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             max_smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(adjoint_step_kernel<T, kMasked, kForced, kTracers, kStrat>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
@@ -403,15 +436,17 @@ int prepare(int max_smem) {
 // The warps' d(dt) sums, a window's primal and cotangent chunks, its ssh,
 // gs and f_edge and sites, the ranks' partial sums, and the masked arm's
 // live bits, reserved by the periodic arm too so that one plan serves both;
-// the forced arm's winds and packed levels beyond; the tracer arm's chunks
-// of n_tr tracers' primal and cotangent planes (kernels/adjoint_step.
+// the forced arm's winds and packed levels beyond, or the stratified arm's
+// S chunk and W rows at k levels (strat_k > 0); the tracer arm's chunks of
+// n_tr tracers' primal and cotangent planes (kernels/adjoint_step.
 // smem_bytes mirrors this).
 size_t smem_bytes(long long sites, int core, int kc, int n_ranks, size_t itemsize,
-                  bool forced, int n_tr) {
+                  bool forced, int n_tr, int strat_k) {
   return sizeof(double) * kRedDoubles + step_smem_bytes(sites, kc, 2, kPlanes, itemsize) +
          itemsize * static_cast<size_t>(n_ranks) * 2 * core +
          sizeof(int) * static_cast<size_t>(sites) +
          (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0) +
+         (strat_k > 0 ? strat_adj_smem_bytes(core, kc, strat_k, itemsize) : 0) +
          itemsize * static_cast<size_t>(sites) * 2 * 2 * n_tr * kc;
 }
 
@@ -426,9 +461,9 @@ struct AdjPlan {
 
 template <typename T>
 int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const ForcingArgs<T>& fc,
-              T* dwind, const AdjTracers<T>& at, const int* table, const double* weights,
-              double dt, double inv_dc, double s_div, int ny2, int nx, int k, int n_steps,
-              int n_terms, int rt, int ct, bool vec) {
+              T* dwind, const AdjTracers<T>& at, const AdjStrat<T>& st, const int* table,
+              const double* weights, double dt, double inv_dc, double s_div, int ny2, int nx,
+              int k, int n_steps, int n_terms, int rt, int ct, bool vec) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || rt > ny2 || ct > nx) return cudaErrorInvalidValue;
@@ -436,6 +471,8 @@ int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const ForcingArg
   if (at.tr != nullptr &&
       (fc.wind != nullptr || at.n < 1 || (live == nullptr) != (at.cmask == nullptr)))
     return cudaErrorInvalidValue;
+  // the stratified arm: unforced and tracer-free
+  if (st.w != nullptr && (fc.wind != nullptr || at.tr != nullptr)) return cudaErrorInvalidValue;
   int hm = 0, hi = 0;
   adjoint_reach(table, &hm, &hi);
   const int kc = step_chunk(k);
@@ -445,24 +482,48 @@ int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const ForcingArg
   int e = opt_in_smem(&pl->max_smem);
   if (e != 0) return e;
   pl->smem = smem_bytes(W, rt * ct, kc, pl->n_ranks, sizeof(T), fc.wind != nullptr,
-                        at.tr != nullptr ? at.n : 0);
+                        at.tr != nullptr ? at.n : 0, st.w != nullptr ? k : 0);
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
   pl->a = AdjArgs<T>{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, f_edge, live,
-                     nullptr, nullptr, nullptr, nullptr, fc, dwind, at, T(dt), T(inv_dc), T(s_div),
+                     nullptr, nullptr, nullptr, nullptr, fc, dwind, at, st, T(dt), T(inv_dc),
+                     T(s_div),
                      ny2, nx, k, rt, ct, hm, hi, log2_exact(kc),
                      vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, n_ti,
                      static_cast<long long>(n_steps) * pl->n_tiles * pl->n_ranks};
   return 0;
 }
 
-template <typename T, bool kMasked, bool kForced, bool kTracers = false>
-int launch_arm(const AdjPlan<T>& pl, cudaStream_t stream) {
+// The kernel of a plan, and its attribute: masked or not, forced or not,
+// with tracers (unforced) or not, stratified (unforced, tracer-free) or not.
+template <typename T>
+using AdjKernel = void (*)(AdjArgs<T>, AdjTaps<T>);
+template <typename T>
+struct AdjArm {
+  AdjKernel<T> kernel;
+  int (*prepare)(int);
+};
+template <typename T, bool kMasked, bool kForced, bool kTracers = false, bool kStrat = false>
+constexpr AdjArm<T> arm() {
+  return {adjoint_step_kernel<T, kMasked, kForced, kTracers, kStrat>,
+          prepare<T, kMasked, kForced, kTracers, kStrat>};
+}
+template <typename T>
+AdjArm<T> arm_of(bool masked, bool forced, bool tracers, bool strat) {
+  if (tracers)  // the entry passes no wind with tracers
+    return masked ? arm<T, true, false, true>() : arm<T, false, false, true>();
+  if (strat)  // nor with W, and no tracers
+    return masked ? arm<T, true, false, false, true>() : arm<T, false, false, false, true>();
+  return masked ? (forced ? arm<T, true, true>() : arm<T, true, false>())
+                : (forced ? arm<T, false, true>() : arm<T, false, false>());
+}
+
+template <typename T>
+int launch_arm(AdjKernel<T> kernel, const AdjPlan<T>& pl, cudaStream_t stream) {
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = step_config(pl.n_ranks, pl.n_tiles, pl.smem, stream, attr);
-  cudaError_t le = cudaLaunchKernelEx(&cfg, adjoint_step_kernel<T, kMasked, kForced, kTracers>,
-                                      pl.a, pl.tp);
+  cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, pl.a, pl.tp);
   if (le == cudaSuccess) le = cudaGetLastError();
   return static_cast<int>(le);
 }
@@ -477,11 +538,14 @@ int launch_arm(const AdjPlan<T>& pl, cudaStream_t stream) {
 // dcoef[0 .. 2]. The tracer arm (at.tr the tracer stack (n, 2 nT, ny2, nx,
 // K)) takes its cotangent in at.gtr and out in gtr_out through gtr_tmp
 // alike, and reads h' and T' of step j from slot j + 1, and for the last
-// step from h_end and tr_end.
+// step from h_end and tr_end. The stratified arm (st.w the W) keeps the
+// tiles' d(W) in st.acc (tiles * K * K doubles) and adds their sum to
+// dstrat (K, K).
 template <typename T>
 int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, T* dwind,
                     double* dcoef, AdjTracers<T> at, T* gtr_out, T* gtr_tmp, const T* h_end,
-                    const T* tr_end, const int* table, const double* weights, const T* ssh_st,
+                    const T* tr_end, AdjStrat<T> st, double* dstrat, const int* table,
+                    const double* weights, const T* ssh_st,
                     const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                     const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
                     T* gu_tmp, double* part, double* ddt, double dt, double inv_dc,
@@ -496,23 +560,12 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
                    (!tracers || (vector_loads(k, kc, sizeof(T), at.tr, at.gtr) &&
                                  vector_loads(k, kc, sizeof(T), gtr_out, gtr_tmp)));
   AdjPlan<T> pl;
-  int err = make_plan(&pl, f_edge, live, fc, dwind, at, table, weights, dt, inv_dc, s_div, ny2,
-                      nx, k, n_steps, n_terms, rt, ct, vec);
+  int err = make_plan(&pl, f_edge, live, fc, dwind, at, st, table, weights, dt, inv_dc, s_div,
+                      ny2, nx, k, n_steps, n_terms, rt, ct, vec);
   if (err != 0) return err;
-  const bool masked = live != nullptr, forced = fc.wind != nullptr;
-  if (tracers)
-    err = masked ? prepare<T, true, false, true>(pl.max_smem)
-                 : prepare<T, false, false, true>(pl.max_smem);
-  else
-    err = masked ? (forced ? prepare<T, true, true, false>(pl.max_smem)
-                           : prepare<T, true, false, false>(pl.max_smem))
-                 : (forced ? prepare<T, false, true, false>(pl.max_smem)
-                           : prepare<T, false, false, false>(pl.max_smem));
-  if (err != 0) return err;
-  const auto launch =
-      tracers ? (masked ? launch_arm<T, true, false, true> : launch_arm<T, false, false, true>)
-      : masked ? (forced ? launch_arm<T, true, true> : launch_arm<T, true, false>)
-               : (forced ? launch_arm<T, false, true> : launch_arm<T, false, false>);
+  const bool masked = live != nullptr, forced = fc.wind != nullptr, strat = st.w != nullptr;
+  const AdjArm<T> arm = arm_of<T>(masked, forced, tracers, strat);
+  if ((err = arm.prepare(pl.max_smem)) != 0) return err;
   const size_t cells = 2ULL * ny2 * nx;
   const size_t hs = cells * k, us = 3 * cells * k, trs = tracers ? at.n * hs : 0;
   const size_t shares = static_cast<size_t>(pl.n_tiles) * pl.n_ranks;
@@ -527,6 +580,7 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
     a.dh = to_out ? gh_out : gh_tmp;
     a.du = to_out ? gu_out : gu_tmp;
     a.ddt_part = part + s * shares;
+    a.st.first = s == 0;
     if (tracers) {
       const bool last = static_cast<int>(j) + 1 == n_steps;
       a.at.tr = at.tr + j * trs, a.at.gtr = gt;
@@ -535,11 +589,13 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
       a.at.dtr = to_out ? gtr_out : gtr_tmp;
       gt = a.at.dtr;
     }
-    if ((err = launch(pl, stream)) != 0) return err;
+    if ((err = launch_arm(arm.kernel, pl, stream)) != 0) return err;
     gs = a.ds, gh = a.dh, gu = a.du;
   }
   if (n_steps == 0) return 0;
-  return reduce_shares(part, pl.a.n_shares, ddt, forced ? dcoef : nullptr, stream);
+  err = reduce_shares(part, pl.a.n_shares, ddt, forced ? dcoef : nullptr, stream);
+  if (err == 0 && strat) err = strat_reduce(st.acc, pl.n_tiles, k, dstrat, stream);
+  return err;
 }
 
 }  // namespace
@@ -556,7 +612,10 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
 // tracer stack `tr_st` (n, 2 n_tr, ny2, nx, k), the cotangent planes
 // `gtr_in`, `gtr_out`, `gtr_tmp`, the state after the stack's last slot
 // `h_end`, `tr_end`, the live-cell mask `cmask` (non-null exactly when `live`
-// is), kappa and upwind).
+// is), kappa and upwind); a null `strat_w` the unstratified arm, any other
+// (W, (k, k) row-major, with `wind` and `tr_st` null) the stratified one with
+// the tiles' accumulators `dw_acc` (tiles * k * k doubles) and d(W) `dstrat`
+// (k * k doubles, added to).
 #define MOT_ADJOINT_ENTRY(T, SUFFIX)                                                          \
   extern "C" int mot_adjoint_rollout_##SUFFIX(                                                \
       const T* f_edge, const int* live, const T* wind, const int* lvl, T* dwind,              \
@@ -564,18 +623,20 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
       const T* h_st, const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in,           \
       T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part,         \
       double* ddt, const T* tr_st, const T* gtr_in, T* gtr_out, T* gtr_tmp, const T* h_end,  \
-      const T* tr_end, const T* cmask, double dt, double inv_dc, double s_div, double dlin,   \
-      double dquad, double rayl, double kappa, double upwind, int lvl_ranks, int wind_ranks,  \
-      int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, int n_tr,             \
-      void* stream) {                                                                         \
+      const T* tr_end, const T* cmask, const T* strat_w, double* dw_acc, double* dstrat,     \
+      double dt, double inv_dc, double s_div, double dlin, double dquad, double rayl,         \
+      double kappa, double upwind, int lvl_ranks, int wind_ranks, int ny2, int nx, int k,     \
+      int n_steps, int n_terms, int rt, int ct, int n_tr, void* stream) {                     \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
     const AdjTracers<T> at{tr_st, gtr_in, nullptr, nullptr, cmask, nullptr, T(kappa),         \
                            T(0.5 * upwind), n_tr};                                            \
+    const AdjStrat<T> st{strat_w, dw_acc, 1};                                                 \
     return adjoint_rollout<T>(f_edge, live, fc, dwind, dcoef, at, gtr_out, gtr_tmp, h_end,    \
-                              tr_end, table, weights, ssh_st, h_st, u_st, gs_in, gh_in,       \
-                              gu_in, gs_out, gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part,    \
-                              ddt, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct,   \
+                              tr_end, st, dstrat, table, weights, ssh_st, h_st, u_st, gs_in,  \
+                              gh_in, gu_in, gs_out, gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp,   \
+                              part, ddt, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, \
+                              ct,                                                             \
                               static_cast<cudaStream_t>(stream));                             \
   }
 
@@ -584,26 +645,25 @@ MOT_ADJOINT_ENTRY(double, f64)
 
 // The launch adjoint_step makes for an rt x ct tile of an ny2 x nx x k f32
 // lattice with the transposed stencil `table` (a host copy), with n_tr
-// tracers (the periodic tracer arm) or none: out[0] the clusters (one per
-// tile), out[1] the blocks per SM, out[2] one block's dynamic shared memory
-// in bytes. Returns 0, kNotHexTable or the CUDA error.
+// tracers (the periodic tracer arm), stratified (strat nonzero: the periodic
+// stratified arm) or neither: out[0] the clusters (one per tile), out[1]
+// the blocks per SM, out[2] one block's dynamic shared memory in bytes.
+// Returns 0, kNotHexTable or the CUDA error.
 extern "C" int mot_adjoint_plan(const int* table, int ny2, int nx, int k, int rt, int ct,
-                                int n_tr, int* out) {
+                                int n_tr, int strat, int* out) {
   double weights[kMaxTerms] = {};
   AdjPlan<float> pl;
   static const float dummy = 0.0f;
   AdjTracers<float> at{};
   if (n_tr > 0) at.tr = &dummy, at.n = n_tr;
-  int e = make_plan<float>(&pl, nullptr, nullptr, ForcingArgs<float>{}, nullptr, at, table,
+  const AdjStrat<float> st{strat ? &dummy : nullptr, nullptr, 1};
+  int e = make_plan<float>(&pl, nullptr, nullptr, ForcingArgs<float>{}, nullptr, at, st, table,
                            weights, 1.0, 1.0, 1.0, ny2, nx, k, 1, table[0], rt, ct, true);
   if (e != 0) return e;
-  auto kernel = n_tr > 0 ? adjoint_step_kernel<float, false, false, true>
-                         : adjoint_step_kernel<float, false, false, false>;
-  e = n_tr > 0 ? prepare<float, false, false, true>(pl.max_smem)
-               : prepare<float, false, false, false>(pl.max_smem);
-  if (e != 0) return e;
+  const AdjArm<float> arm = arm_of<float>(false, false, n_tr > 0, strat != 0);
+  if ((e = arm.prepare(pl.max_smem)) != 0) return e;
   out[0] = pl.n_tiles;
   out[2] = static_cast<int>(pl.smem);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], kernel, kStepThreads, pl.smem));
+      &out[1], arm.kernel, kStepThreads, pl.smem));
 }

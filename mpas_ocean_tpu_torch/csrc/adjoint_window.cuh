@@ -604,4 +604,159 @@ static inline int reduce_shares(const double* part, long long n, double* acc, do
   return err;
 }
 
+
+// The stratified reverse arms (kStrat, chosen by a non-null W; unforced and
+// tracer-free; structured/adjoint.py, pressure_transpose). The forward's
+// pressure is -grad Phi, Phi = g ssh + h @ W of the old state, so with
+// S_c,k = sum_owned gu_k - sum_incoming gu_k (gu folded with the wall mask)
+// and dPhi = (dt / dc) S, the transpose adds dh[c, l] += sum_k W[l, k]
+// dPhi[c, k], d(W)[l, k] += sum_c h[c, l] dPhi[c, k], and to d(dt)
+// <gu, -grad(h @ W)> = (1 / dc) sum_{l, k} W[l, k] sum_c h[c, l] S[c, k]
+// (the g ssh part is the unstratified body's). ds is unchanged.
+//
+// Where the levels meet. Each rank holds a chunk of levels, so both sums
+// over k need every rank's S. The body stores its chunk of S at the tile's
+// cells in shared memory (StratAdjSmem::sl); after a cluster barrier every
+// rank reads the others' chunks in place through distributed shared
+// memory, in rank order, and owns the W rows and the d(W) rows of its own
+// levels (wt holds W[k0 + kl][k]): W dPhi at its levels needs S at all
+// levels and h only at its own, and so does d(W)'s row. One exchange, of
+// S (2 core kc values per rank), serves both: a rank owning d(W)'s columns
+// would need every rank's h as well.
+//
+// d(W) in double, with no atomics. A tile's d(W) is a full K x K matrix
+// (its cells' h against their S), so each tile keeps an accumulator of its
+// own in device memory, [n_tiles][K][K] (k-major: a rank's threads write a
+// row of its levels at consecutive addresses), written at a call's first
+// launch and added to at each later one (the launches of a call run in
+// order; a block reads its accumulator after wait_previous_grid); at the
+// call's end one small kernel adds the tiles' accumulators in tile order to
+// d(W) (strat_reduce). Every sum runs in a fixed order, so f64 reruns are
+// bitwise equal. The accumulators take 8 K^2 bytes a tile: 5.1 MB at
+// 64x64x100 on (4, 8) tiles, inside L2; 82 MB at 256x256x100 on (4, 8)
+// tiles, read and written once a launch from device memory (PERF.md).
+template <typename T>
+struct AdjStrat {
+  const T* w;      // W (K, K) row-major in T; null: the unstratified arm
+  double* acc;     // the tiles' d(W) accumulators [n_tiles][K][K], k-major
+  int first;       // nonzero at a call's first launch: acc is written, not added to
+};
+
+// The stratified arm's shared memory beyond the unstratified layout: S at
+// the tile's cells and this block's levels [2][core][kc] (zero off the
+// lattice and past the chunk's real levels), and W's rows of those levels,
+// wt[k][kl] = W[k0 + kl][k], [K][kc].
+template <typename T>
+struct StratAdjSmem {
+  T* sl;
+  T* wt;
+  __device__ StratAdjSmem(void* end, int core, int kc) {
+    const uintptr_t at = (reinterpret_cast<uintptr_t>(end) + 15) & ~static_cast<uintptr_t>(15);
+    sl = reinterpret_cast<T*>(at);
+    wt = sl + 2 * core * kc;
+  }
+};
+inline size_t strat_adj_smem_bytes(int core, int kc, int k, size_t itemsize) {
+  return 16 + itemsize * (static_cast<size_t>(2 * core * kc) + static_cast<size_t>(k) * kc);
+}
+
+// W's rows of the block's levels into wt by async copies, and S's chunk
+// zeroed (the body stores the tile's lattice sites' real levels).
+template <typename T>
+__device__ __forceinline__ void load_strat_rows(const StratAdjSmem<T>& sm, const T* w, int core,
+                                                int K, int k0, int kr, int kc_log2) {
+  const int kc = 1 << kc_log2;
+  for (int e = threadIdx.x; e < (K << kc_log2); e += blockDim.x) {
+    const int kl = e & (kc - 1);
+    if (kl < kr) copy_async(sm.wt + e, w + (k0 + kl) * K + (e >> kc_log2));
+  }
+  for (int e = threadIdx.x; e < 2 * core * kc; e += blockDim.x) sm.sl[e] = T(0);
+}
+
+// The stratified arm's pass, after the body has stored the tile's
+// cotangent and its S chunk, behind a cluster barrier (every rank's S
+// visible), and before a cluster barrier that keeps every rank's shared
+// memory alive until the last read. `h` is the window's primal h chunk
+// [2][W][kc]; the tile's site t (rt x ct, ct columns a row) sits at window
+// site (hm + t / ct) * Wi + hi + t % ct; `dh(p, t, kl)` returns the stored
+// h cotangent of cell (t, p) at level k0 + kl, or null off the lattice;
+// `acc` is the tile's accumulator. Adds the h @ W part of d(dt) to *share.
+template <typename T, typename Dh>
+__device__ __forceinline__ void strat_adjoint_pass(const StratAdjSmem<T>& sm,
+                                                   cg::cluster_group& cluster, const T* h,
+                                                   double* acc, bool first, Dh dh, int core,
+                                                   int ct, int hm, int hi, int Wi, int W,
+                                                   int kc_log2, int k0, int kr, int K,
+                                                   int n_ranks, T dt, T inv_dc, double* share) {
+  const int kc = 1 << kc_log2, pk = W << kc_log2;
+  const T dt_inv_dc = dt * inv_dc;
+  // dh += (dt / dc) sum_k W[k0 + kl][k] S[k], k in rank order: a thread per
+  // (cell, level), neighbouring threads on neighbouring levels
+  for (int e = threadIdx.x; e < (2 * core << kc_log2); e += blockDim.x) {
+    const int kl = e & (kc - 1), pt = e >> kc_log2;
+    if (kl >= kr) continue;
+    const int p = pt >= core ? 1 : 0;
+    T* d = dh(p, pt - p * core, kl);
+    if (d == nullptr) continue;
+    T sum = T(0);
+    for (int rr = 0; rr < n_ranks; ++rr) {
+      const T* src = cluster.map_shared_rank(sm.sl, rr) + (pt << kc_log2);
+      const T* wr = sm.wt + ((rr * kc) << kc_log2) + kl;
+      const int kr2 = min(kc, K - rr * kc);
+#pragma unroll 4
+      for (int kk = 0; kk < kr2; ++kk) sum += wr[kk << kc_log2] * src[kk];
+    }
+    *d = *d + dt_inv_dc * sum;
+  }
+  // d(W)[k0 + kl][k] = (dt / dc) sum over the tile's cells of h[kl] S[k], in
+  // double, and d(dt)'s (1 / dc) W[k0 + kl][k] times that sum: a thread per
+  // (k, kl), neighbouring threads on neighbouring levels of one k
+  const double s_dw = static_cast<double>(dt) * static_cast<double>(inv_dc);
+  const double s_dd = static_cast<double>(inv_dc);
+  for (int e = threadIdx.x; e < (K << kc_log2); e += blockDim.x) {
+    const int kl = e & (kc - 1), k = e >> kc_log2;
+    if (kl >= kr) continue;
+    const T* src = cluster.map_shared_rank(sm.sl, k >> kc_log2) + (k & (kc - 1));
+    double sum = 0.0;
+    for (int p = 0; p < 2; ++p) {
+      const T* hp = h + p * pk + kl;
+      const T* sp = src + ((p * core) << kc_log2);
+      int t = 0;
+      for (int r = 0; t < core; ++r) {
+        const T* hr = hp + (((hm + r) * Wi + hi) << kc_log2);
+        for (int c = 0; c < ct; ++c, ++t)
+          sum = fma(static_cast<double>(hr[c << kc_log2]), static_cast<double>(sp[t << kc_log2]),
+                    sum);
+      }
+    }
+    double* a = acc + static_cast<size_t>(k) * K + k0 + kl;
+    *a = first ? s_dw * sum : *a + s_dw * sum;
+    *share += s_dd * static_cast<double>(sm.wt[e]) * sum;
+  }
+}
+
+// d(W)[l][k] += the sum over the tiles of acc[tile][k][l], in tile order
+// (a thread per entry). A template, as ddt_reduce_kernel, so that a source
+// that does not launch it compiles none.
+template <typename T>
+static __global__ void strat_reduce_kernel(const T* __restrict__ acc, int n_tiles, int K,
+                                           T* __restrict__ dw) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int kk = K * K;
+  if (idx >= kk) return;
+  T v = 0;
+  for (int t = 0; t < n_tiles; ++t) v += acc[static_cast<size_t>(t) * kk + idx];
+  const int k = idx / K, l = idx - k * K;
+  dw[l * K + k] += v;
+}
+
+// Launches strat_reduce_kernel; returns 0 or the CUDA error of the launch.
+static inline int strat_reduce(const double* acc, int n_tiles, int K, double* dw,
+                               cudaStream_t stream) {
+  const int threads = 256;
+  strat_reduce_kernel<double>
+      <<<(K * K + threads - 1) / threads, threads, 0, stream>>>(acc, n_tiles, K, dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace lattice

@@ -502,16 +502,17 @@ int fe_steps(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
 
 // n_steps steps through a stack of states: slot s + 1 = step(slot s); the
 // tracer arm's planes (tr.tr the tracer stack (S, 2 nT, ny2, nx, K)) alike,
-// by the launches of fe_steps, so that the rebuilt states are the forward
-// path's own bit for bit.
+// and the stratified arm with strat_w, by the launches of fe_steps, so that
+// the rebuilt states are the forward path's own bit for bit.
 template <typename T>
 int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
-             const TracerArgs<T>& tr, const int* table, const double* weights, T* ssh, T* h,
-             T* u, double dt, double inv_dc, double s_div, int ny2, int nx, int k,
-             int n_steps, int n_terms, int rt, int ct, cudaStream_t stream) {
+             const TracerArgs<T>& tr, const T* strat_w, const int* table,
+             const double* weights, T* ssh, T* h, T* u, double dt, double inv_dc, double s_div,
+             int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,
+             cudaStream_t stream) {
   const int kc = step_chunk(k);
   FePlan<T> pl;
-  int err = make_plan(&pl, f_edge, rts, live, fc, tr, static_cast<const T*>(nullptr), table,
+  int err = make_plan(&pl, f_edge, rts, live, fc, tr, strat_w, table,
                       weights, dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct,
                       vector_loads(k, kc, sizeof(T), h, u) &&
                           (tr.tr == nullptr || vector_loads(k, kc, sizeof(T), tr.tr, tr.tr)));
@@ -542,8 +543,8 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
 // `tr_tmp`), the live-cell mask `cmask` (non-null exactly when `live` is),
 // kappa and upwind; the stack entry's tracer arm takes the tracer stack
 // (S, 2 n_tr, ny2, nx, k) in `tr`; a null `strat_w` runs the unstratified
-// arm, any other (W, (k, k) row-major, with `wind` and `tr_in` null) the
-// stratified one.
+// arm, any other (W, (k, k) row-major, with `wind` and `tr_in` or `tr`
+// null) the stratified one, in either entry.
 #define MOT_FE_ENTRIES(T, SUFFIX)                                                             \
   extern "C" int mot_fe_steps_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -564,14 +565,14 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
   extern "C" int mot_fe_stack_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
       const int* table, const double* weights, T* ssh, T* h, T* u, T* tr, const T* cmask,    \
-      double dt, double inv_dc, double s_div, double kappa, double upwind, double dlin,       \
-      double dquad, double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, int k,       \
-      int n_steps, int n_terms, int rt, int ct, int n_tr, void* stream) {                     \
+      const T* strat_w, double dt, double inv_dc, double s_div, double kappa, double upwind,  \
+      double dlin, double dquad, double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, \
+      int k, int n_steps, int n_terms, int rt, int ct, int n_tr, void* stream) {              \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
     const TracerArgs<T> trs{tr, nullptr, cmask, T(kappa), T(0.5 * upwind), n_tr, {}, {}};    \
-    return fe_stack<T>(f_edge, rts, live, fc, trs, table, weights, ssh, h, u, dt, inv_dc,     \
-                       s_div, ny2, nx, k, n_steps, n_terms, rt, ct,                           \
+    return fe_stack<T>(f_edge, rts, live, fc, trs, strat_w, table, weights, ssh, h, u, dt,    \
+                       inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct,                   \
                        static_cast<cudaStream_t>(stream));                                    \
   }
 

@@ -3,12 +3,14 @@
 // NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_adjoint_kernel (mpas_ocean_tpu/structured/pallas_model.py:
-// 1979), the arms with nl_terms and stratification off (fb=False is fixed
-// there), periodic (masks off) and masked (a coastal channel: the vjp of
-// _window_steps with masks_full, :2001-2006, 2063), unforced and forced (the
-// wind and level-index windows, whose cotangents d(wind) and dscal[3:6] it
-// returns, :2938-2941), without tracers and, unforced at q = 1, with them
-// (the tracer blocks and the cell mask, :2017-2104). The TPU kernel traces jax.vjp of
+// 1979), the arms with nl_terms off (fb=False is fixed there), periodic
+// (masks off) and masked (a coastal channel: the vjp of _window_steps with
+// masks_full, :2001-2006, 2063), unforced and forced (the wind and
+// level-index windows, whose cotangents d(wind) and dscal[3:6] it returns,
+// :2938-2941), without tracers and, unforced at q = 1, with them (the tracer
+// blocks and the cell mask, :2017-2104), unstratified and, unforced and
+// tracer-free at q = 1, stratified (W whole, :2022-2035, its per-tile
+// d(W), :2113-2118, 2143-2146, 2235-2238). The TPU kernel traces jax.vjp of
 // _window_steps in-kernel and emits the cotangent of the whole padded window,
 // which its caller overlap-adds (_halo_unscatter). CUDA has no vjp, so the
 // transpose is written out by hand, as in adjoint_step.cu; and it is taken in
@@ -89,6 +91,14 @@
 // (tracer_adjoint), one block per SM as there. A tracer state at q > 1 is
 // refused by the entry.
 //
+// The stratified arm (kStrat, chosen by a non-null W; q = 1, unforced and
+// tracer-free, the JAX router's only q; the unstratified arms keep their
+// code) is adjoint_step.cu's: the body stores its S chunk at the core's
+// cells, and after a cluster barrier the pass of adjoint_window.cuh
+// (strat_adjoint_pass) adds W dPhi to the stored dh, forms the tile's d(W)
+// rows in double into its accumulator and d(dt)'s h @ W part. A stratified
+// q > 1 is refused by the entry.
+//
 // What bounds it: a reverse step reads the primal state and the end
 // cotangent and writes the start cotangent, three state passes, 94 us at
 // 256x256x100 f32 at 3.35 TB/s, plus the halo re-reads. Measured (f32,
@@ -121,6 +131,7 @@ struct TiledArgs {
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   T* dwind;           // the forced arm's d(wind) (6, ny2, nx), added to
   AdjTracers<T> at;   // the tracer arm's operands (q = 1); tr null otherwise
+  AdjStrat<T> st;     // the stratified arm's operands (q = 1); w null otherwise
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc, kp_log2, vec_log2, n_tiles_i;
   long long n_shares;
@@ -137,15 +148,17 @@ inline int site_planes(int q) { return 8 + 2 * q + (q > 1 ? 6 : 0); }
 // 2 n_tr planes after each chunk's 8; the per-site planes; the ranks'
 // partial sums of the core for rank 0 [n_ranks][2][core]; the sites and
 // the masked arm's live bits, reserved by the periodic arm too so that one
-// plan serves both; the forced arm's winds and packed levels beyond.
+// plan serves both; the forced arm's winds and packed levels beyond, or the
+// stratified arm's S chunk and W rows at k levels (strat_k > 0, q = 1).
 size_t smem_bytes(long long sites, int core, int kc, int q, int n_ranks, size_t itemsize,
-                  bool forced, int n_tr) {
+                  bool forced, int n_tr, int strat_k) {
   const size_t chunks = (8 * static_cast<size_t>(q + (q > 1 ? 2 : 1)) + 4 * n_tr) * kc;
   return sizeof(double) * kRedDoubles +
          itemsize * (static_cast<size_t>(sites) * (chunks + site_planes(q)) +
                      static_cast<size_t>(n_ranks) * 2 * core) +
          sizeof(int) * static_cast<size_t>(sites) * 2 +  // sites, live bits
-         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0);
+         (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0) +
+         (strat_k > 0 ? strat_adj_smem_bytes(core, kc, strat_k, itemsize) : 0);
 }
 
 // Sum over the `width` lanes of a group (a power of two <= 32) in lane
@@ -195,11 +208,14 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster, T* part, T* d
 // kMulti: q > 1. The q = 1 instantiation compiles without the recompute and
 // the exchanges between steps, which cost one body for all q 11% at q = 1
 // (PERF.md). kMasked: the masked arm. kForced: the forced arm. kTracers: the
-// tracer arm (q = 1, unforced).
-template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers>
+// tracer arm (q = 1, unforced). kStrat: the stratified arm (q = 1, unforced,
+// tracer-free).
+template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     tiled_adjoint_kernel(const TiledArgs<T> a, const AdjTaps<T> tp, const StepTaps<T> fw) {
   static_assert(!kTracers || (!kMulti && !kForced), "the tracer arm runs q = 1, unforced");
+  static_assert(!kStrat || (!kMulti && !kForced && !kTracers),
+                "the stratified arm runs q = 1, unforced, tracer-free");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -229,6 +245,7 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gsite + W;                            // [W]: the masked arm's live bits
   const ForcingSmem<T> fsm(live_s + W, W, 0);        // the forced arm's winds and levels
+  const StratAdjSmem<T> ssm(live_s + W, core, kc);   // the stratified arm's S and W rows
 
   cluster_arrive_relaxed();
   allow_next_grid();
@@ -253,6 +270,7 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     load_tracers(cot + 8 * pk, gsite, a.at.gtr, 2 * a.at.n, W, a.kp_log2, a.vec_log2, k0, kr,
                  K, plane);
   }
+  if (kStrat) load_strat_rows(ssm, a.st.w, core, K, k0, kr, a.kp_log2);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -477,6 +495,10 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
           S[p] = (gu[hex::self_u(p)] + gu[hex::self_u(2 + p)] + gu[hex::self_u(4 + p)]) -
                  (gu[hex::inc_u(3 * p)] + gu[hex::inc_u(3 * p + 1)] + gu[hex::inc_u(3 * p + 2)]);
         }
+        if (kStrat) {  // q = 1: R_0 is the core; the S chunk for the stratified pass
+          ssm.sl[(t << a.kp_log2) + kl] = S[0];
+          ssm.sl[((core + t) << a.kp_log2) + kl] = S[1];
+        }
         if (j == 0) {
           T* h_o = a.dh + g * K + k0 + kl;
           T* u_o = a.du + g * K + k0 + kl;
@@ -558,6 +580,19 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
       __syncthreads();
     }
   }
+  if (kStrat) {
+    // W dPhi into the stored dh, the tile's d(W) rows and d(dt)'s h @ W
+    // part, once every rank's S chunk is visible
+    cluster.sync();
+    const FastDiv by_ct(a.ct);
+    strat_adjoint_pass(
+        ssm, cluster, prim, a.st.acc + static_cast<size_t>(tile) * K * K, a.st.first != 0,
+        [&](int p, int t, int kl) -> T* {
+          const int r = by_ct.div(t), c = by_ct.mod(t, r);
+          return a.dh + (p * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl;
+        },
+        core, a.ct, a.hm, a.hi, Wi, W, a.kp_log2, k0, kr, K, n_ranks, a.dt, a.inv_dc, &share);
+  }
   // the forced arm's Rayleigh part of d(dt), -lambda sum gu u
   if (kForced) share -= static_cast<double>(a.fc.rayl) * s_rayl;
   share_warps(share, red);
@@ -584,19 +619,20 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
 
 // The kernel's attribute, set once per instantiation: dynamic shared memory
 // up to the device's opt-in limit.
-template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers>
+template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
   const cudaError_t e =
-      cudaFuncSetAttribute(tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers>,
+      cudaFuncSetAttribute(tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers, kStrat>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
 // The kernel of a plan, and its attribute: q > 1 or not, masked or not,
-// forced or not, with tracers (q = 1, unforced) or not.
+// forced or not, with tracers (q = 1, unforced) or not, stratified (q = 1,
+// unforced, tracer-free) or not.
 template <typename T>
 using TiledKernel = void (*)(TiledArgs<T>, AdjTaps<T>, StepTaps<T>);
 template <typename T>
@@ -604,15 +640,19 @@ struct TiledArm {
   TiledKernel<T> kernel;
   int (*prepare)(int);
 };
-template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers = false>
+template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers = false,
+          bool kStrat = false>
 constexpr TiledArm<T> arm() {
-  return {tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers>,
-          prepare<T, kMulti, kMasked, kForced, kTracers>};
+  return {tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers, kStrat>,
+          prepare<T, kMulti, kMasked, kForced, kTracers, kStrat>};
 }
 template <typename T>
-TiledArm<T> arm_of(bool multi, bool masked, bool forced, bool tracers) {
+TiledArm<T> arm_of(bool multi, bool masked, bool forced, bool tracers, bool strat) {
   if (tracers)  // the entry checked q = 1 and unforced
     return masked ? arm<T, false, true, false, true>() : arm<T, false, false, false, true>();
+  if (strat)  // the entry checked q = 1, unforced and tracer-free
+    return masked ? arm<T, false, true, false, false, true>()
+                  : arm<T, false, false, false, false, true>();
   if (multi)
     return masked ? (forced ? arm<T, true, true, true>() : arm<T, true, true, false>())
                   : (forced ? arm<T, true, false, true>() : arm<T, true, false, false>());
@@ -628,11 +668,13 @@ TiledArm<T> arm_of(bool multi, bool masked, bool forced, bool tracers) {
 // d(r_lin, Cd, lambda) to dcoef[0 .. 2]. The stencils (`table`, `weights`
 // and their transposes) are host copies; kc is the chunk of levels per
 // block (kernels/tiled_adjoint.level_split). The tracer arm (at.tr the
-// tracer stack, q = 1) as adjoint_step.cu's adjoint_rollout.
+// tracer stack, q = 1) and the stratified arm (st.w the W, q = 1; d(W) added
+// to dstrat) as adjoint_step.cu's adjoint_rollout.
 template <typename T>
 int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
                   T* dwind, double* dcoef, AdjTracers<T> at, T* gtr_out, T* gtr_tmp,
-                  const T* h_end, const T* tr_end, const int* table, const double* weights,
+                  const T* h_end, const T* tr_end, AdjStrat<T> st, double* dstrat,
+                  const int* table, const double* weights,
                   const int* adj_table, const double* adj_weights, const T* ssh_st,
                   const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
                   const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
@@ -649,6 +691,9 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
   if (tracers && (q != 1 || fc.wind != nullptr || at.n < 1 ||
                   (live == nullptr) != (at.cmask == nullptr)))
     return cudaErrorInvalidValue;
+  // the stratified arm: q = 1, unforced and tracer-free
+  const bool strat = st.w != nullptr;
+  if (strat && (q != 1 || fc.wind != nullptr || tracers)) return cudaErrorInvalidValue;
   const int n_ranks = (k + kc - 1) / kc;  // no block without levels
   if (n_ranks > kMaxCluster) return cudaErrorInvalidValue;
   const int span = 2 * q - 1;
@@ -660,12 +705,12 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
     return kNotHexTable;
   const bool forced = fc.wind != nullptr;
   const size_t smem = smem_bytes(W, rt * ct, kc, q, n_ranks, sizeof(T), forced,
-                                 tracers ? at.n : 0);
+                                 tracers ? at.n : 0, strat ? k : 0);
   int max_smem = 0;
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  const TiledArm<T> arm = arm_of<T>(q > 1, live != nullptr, forced, tracers);
+  const TiledArm<T> arm = arm_of<T>(q > 1, live != nullptr, forced, tracers, strat);
   if ((err = arm.prepare(max_smem)) != 0) return err;
   const int kp_log2 = log2_exact(kc);
   const bool vec = (1 << kp_log2) == kc && vector_loads(k, kc, sizeof(T), h_st, u_st) &&
@@ -679,7 +724,7 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
   const size_t hs = cells * k, us = 3 * cells * k, trs = tracers ? at.n * hs : 0;
   const long long n_shares = static_cast<long long>(n_ss) * n_tiles * n_ranks;
   TiledArgs<T> a{nullptr, nullptr, nullptr, gs_in, gh_in, gu_in, f_edge, rts, live, nullptr,
-                 nullptr, nullptr, nullptr, fc, dwind, at, T(dt), T(inv_dc), T(s_div), ny2, nx,
+                 nullptr, nullptr, nullptr, fc, dwind, at, st, T(dt), T(inv_dc), T(s_div), ny2, nx,
                  k, rt, ct, q, hm, hi, kc, kp_log2,
                  vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct,
                  n_shares};
@@ -691,6 +736,7 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
     a.dh = to_out ? gh_out : gh_tmp;
     a.du = to_out ? gu_out : gu_tmp;
     a.ddt_part = part + static_cast<size_t>(s) * n_tiles * n_ranks;
+    a.st.first = s == 0;
     if (tracers) {
       const bool last = static_cast<int>(j) + 1 == n_ss;
       a.at.tr = at.tr + j * trs;
@@ -705,7 +751,9 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
     if (le != cudaSuccess) return static_cast<int>(le);
     a.gs = a.ds, a.gh = a.dh, a.gu = a.du, a.at.gtr = a.at.dtr;
   }
-  return reduce_shares(part, n_shares, ddt, forced ? dcoef : nullptr, stream);
+  err = reduce_shares(part, n_shares, ddt, forced ? dcoef : nullptr, stream);
+  if (err == 0 && strat) err = strat_reduce(st.acc, n_tiles, k, dstrat, stream);
+  return err;
 }
 
 }  // namespace
@@ -718,7 +766,9 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
 // `lvl`, the coefficients, and the accumulators `dwind` (6, ny2, nx) and
 // `dcoef` (3 doubles); a null `tr_st` the tracer-free arm, any other the
 // tracer arm (q = 1, unforced) with its operands as adjoint_step.cu's entry
-// takes them.
+// takes them; a null `strat_w` the unstratified arm, any other the
+// stratified one (q = 1, unforced, tracer-free) with `dw_acc` and `dstrat`
+// as adjoint_step.cu's entry takes them.
 #define MOT_TILED_ADJOINT_ENTRY(T, SUFFIX)                                                    \
   extern "C" int mot_tiled_adjoint_##SUFFIX(                                                  \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -727,18 +777,21 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
       const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in, T* gs_out, T* gh_out,    \
       T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part, double* ddt,                  \
       const T* tr_st, const T* gtr_in, T* gtr_out, T* gtr_tmp, const T* h_end,               \
-      const T* tr_end, const T* cmask, double dt, double inv_dc, double s_div, double dlin,   \
-      double dquad, double rayl, double kappa, double upwind, int lvl_ranks, int wind_ranks,  \
-      int ny2, int nx, int k, int n_ss, int n_terms, int rt, int ct, int q, int hm, int hi,   \
-      int kc, int n_tr, void* stream) {                                                       \
+      const T* tr_end, const T* cmask, const T* strat_w, double* dw_acc, double* dstrat,     \
+      double dt, double inv_dc, double s_div, double dlin, double dquad, double rayl,         \
+      double kappa, double upwind, int lvl_ranks, int wind_ranks, int ny2, int nx, int k,     \
+      int n_ss, int n_terms, int rt, int ct, int q, int hm, int hi, int kc, int n_tr,         \
+      void* stream) {                                                                         \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
     const AdjTracers<T> at{tr_st, gtr_in, nullptr, nullptr, cmask, nullptr, T(kappa),         \
                            T(0.5 * upwind), n_tr};                                            \
+    const AdjStrat<T> st{strat_w, dw_acc, 1};                                                 \
     return tiled_adjoint<T>(f_edge, rts, live, fc, dwind, dcoef, at, gtr_out, gtr_tmp, h_end, \
-                            tr_end, table, weights, adj_table, adj_weights, ssh_st, h_st,     \
-                            u_st, gs_in, gh_in, gu_in, gs_out, gh_out, gu_out, gs_tmp,        \
-                            gh_tmp, gu_tmp, part, ddt, dt, inv_dc, s_div, ny2, nx, k, n_ss,   \
+                            tr_end, st, dstrat, table, weights, adj_table, adj_weights,       \
+                            ssh_st, h_st, u_st, gs_in, gh_in, gu_in, gs_out, gh_out, gu_out,  \
+                            gs_tmp, gh_tmp, gu_tmp, part, ddt, dt, inv_dc, s_div, ny2, nx, k, \
+                            n_ss,                                                             \
                             n_terms, rt, ct, q, hm, hi, kc, static_cast<cudaStream_t>(stream)); \
   }
 
@@ -747,16 +800,18 @@ MOT_TILED_ADJOINT_ENTRY(double, f64)
 
 // One block's dynamic shared memory (bytes) and the blocks one SM holds, for
 // an f32 plan with n_ranks blocks of kc levels per cluster, with n_tr
-// tracers (the periodic tracer arm, q = 1) or none; returns 0 or the CUDA
-// error.
+// tracers (the periodic tracer arm, q = 1), stratified at k levels (strat_k
+// > 0: the periodic stratified arm, q = 1) or neither; returns 0 or the
+// CUDA error.
 extern "C" int mot_tiled_adjoint_occupancy(int rt, int ct, int q, int hm, int hi, int kc,
-                                           int n_ranks, int n_tr, int* out) {
-  if (n_tr > 0 && q != 1) return cudaErrorInvalidValue;
+                                           int n_ranks, int n_tr, int strat_k, int* out) {
+  if ((n_tr > 0 || strat_k > 0) && q != 1) return cudaErrorInvalidValue;
   const int span = 2 * q - 1;
   const long long sites = static_cast<long long>(rt + 2 * hm * span) * (ct + 2 * hi * span);
-  const size_t smem = smem_bytes(sites, rt * ct, kc, q, n_ranks, sizeof(float), false, n_tr);
+  const size_t smem =
+      smem_bytes(sites, rt * ct, kc, q, n_ranks, sizeof(float), false, n_tr, strat_k);
   int max_smem = 0;
-  const TiledArm<float> arm = arm_of<float>(q > 1, false, false, n_tr > 0);
+  const TiledArm<float> arm = arm_of<float>(q > 1, false, false, n_tr > 0, strat_k > 0);
   int e = opt_in_smem(&max_smem);
   if (e == 0) e = arm.prepare(max_smem);
   if (e != 0) return e;

@@ -15,11 +15,13 @@ lattice's transpose included. With ``forcing=`` (the forward's operands,
 which adds d(wind) and d(r_lin, Cd, lambda) to ``dforc``; with
 ``tracers=`` (the forward's tracer operands, their planes the tracer stack)
 its tracer arm, which carries the tracers' cotangent and reads h' and T'
-from the stack's next slot, or from ``end`` after its last. Its plain
-PyTorch version is ``structured.adjoint.structured_adjoint_step``.
-``launches`` counts adjoint-step launches (one per reverse step),
-``forced_launches`` those of the forced arm and ``tracer_launches`` those of
-the tracer arm.
+from the stack's next slot, or from ``end`` after its last; with
+``strat_w=`` (W, ``structured.fused_model.kernel_strat``) its stratified
+arm, which adds d(W) to ``dstrat``. Its plain PyTorch version is
+``structured.adjoint.structured_adjoint_step``. ``launches`` counts
+adjoint-step launches (one per reverse step), ``forced_launches`` those of
+the forced arm, ``tracer_launches`` those of the tracer arm and
+``strat_launches`` those of the stratified arm.
 
 ``nl_adjoint_rollout`` does the same for the nonlinear core, one launch of
 the nonlinear reverse kernel per reverse step over tiles of
@@ -46,6 +48,7 @@ from .fe_step import (
     check_error,
     check_forcing,
     check_live,
+    check_strat,
     check_tracer_stack,
     forcing_args,
     forcing_smem_bytes,
@@ -58,15 +61,17 @@ from .fe_step import (
 )
 
 __all__ = ["NL_ADJ_RINGS", "NL_ADJ_SLICE", "REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout",
-           "adjoint_tile", "forced_launches", "launch_plan", "launches", "nl_adjoint_launch_plan",
-           "nl_adjoint_plan", "nl_adjoint_rollout", "nl_adjoint_slice", "nl_adjoint_smem_bytes",
-           "nl_launches", "reverse_tracer_args", "smem_bytes", "tracer_launches"]
+           "adjoint_tile", "check_dstrat", "forced_launches", "launch_plan", "launches",
+           "nl_adjoint_launch_plan", "nl_adjoint_plan", "nl_adjoint_rollout", "nl_adjoint_slice",
+           "nl_adjoint_smem_bytes", "nl_launches", "reverse_tracer_args", "smem_bytes",
+           "strat_args", "strat_launches", "strat_smem_bytes", "tracer_launches"]
 
 # adjoint-step kernel launches made by adjoint_rollout (one per step), and
-# those of them that ran the forced arm and the tracer arm
+# those of them that ran the forced arm, the tracer arm and the stratified arm
 launches = 0
 forced_launches = 0
 tracer_launches = 0
+strat_launches = 0
 # nonlinear reverse kernel launches made by nl_adjoint_rollout (one per step)
 nl_launches = 0
 
@@ -99,7 +104,16 @@ _NLA_WIN, _NLA_A, _NLA_B, _NLA_C, _NLA_SITE, _NLA_INTS = 16, 12, 14, 8, 24, 2
 NL_ADJ_SLICE = 4
 
 
-def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int = 0) -> int:
+def strat_smem_bytes(core: int, kc: int, k: int, itemsize: int) -> int:
+    """Shared memory the stratified reverse arms take beyond the
+    unstratified layout (``strat_adj_smem_bytes`` in
+    csrc/adjoint_window.cuh): 16 bytes of alignment, the S chunk at the
+    tile's ``core`` sites [2][core][kc] and the block's rows of W [k][kc]."""
+    return 16 + itemsize * (2 * core * kc + k * kc)
+
+
+def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int = 0,
+               strat: bool = False) -> int:
     """Dynamic shared memory of one adjoint_step block for a tile (rows,
     columns) at k levels (``smem_bytes`` in csrc/adjoint_step.cu): the warps'
     d(dt) sums, its level chunk of the window's primal state and cotangent
@@ -108,22 +122,27 @@ def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int
     ``fe_step.smem_bytes``), and the ranks' partial sums of the tile's
     sites; with ``forced``, the forced arm's (``fe_step.forcing_smem_bytes``);
     with ``n_tracers``, the tracer arm's 2 n_tracers planes of the primal
-    and of the cotangent chunk."""
+    and of the cotangent chunk; with ``strat``, the stratified arm's
+    (``strat_smem_bytes``)."""
     ranks, kc = level_split(k)
     hm, hi = REACH
     sites = (tile[0] + 2 * hm) * (tile[1] + 2 * hi)
+    core = tile[0] * tile[1]
     return (_RED_BYTES + itemsize * (sites * ((16 + 4 * n_tracers) * kc + _PLANES)
-                                     + ranks * 2 * tile[0] * tile[1])
-            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
+                                     + ranks * 2 * core)
+            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0)
+            + (strat_smem_bytes(core, kc, k, itemsize) if strat else 0))
 
 
-def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0) -> tuple[int, int]:
+def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0,
+                 strat: bool = False) -> tuple[int, int]:
     """adjoint_step's tile (rows, columns) on a ny2 x nx lattice: the
     largest tile of TILE_ROWS x TILE_COLS (ragged ones too) whose window
     leaves room for two blocks per SM, then the smallest window, then the
     widest, where its launch makes at least MIN_WAVES waves of clusters on
     the card; else ``fe_step.best_tile``'s power-of-two tile. The window is
-    the forced arm's, so that one tile serves both arms; with ``n_tracers``
+    the forced arm's, so that one tile serves both arms, or with ``strat``
+    the (unforced, tracer-free) stratified arm's; with ``n_tracers``
     the (unforced) tracer arm's, which runs one block per SM (its launch
     bounds), ``best_tile``'s largest tile that fits one block. At 100 f32
     levels the tracer-free tile is
@@ -137,7 +156,7 @@ def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0) -
         return best_tile(ny2, nx, REACH, lambda t: smem_bytes(t, k, itemsize,
                                                              n_tracers=n_tracers),
                          name, budgets=(SMEM_BYTES,))
-    smem = lambda t: smem_bytes(t, k, itemsize, forced=True)  # noqa: E731
+    smem = lambda t: smem_bytes(t, k, itemsize, forced=not strat, strat=strat)  # noqa: E731
     tile = best_tile(ny2, nx, REACH, smem, name)
     hm, hi = REACH
     two = [(rt * ct, -(rt + 2 * hm) * (ct + 2 * hi), ct, rt)
@@ -152,19 +171,21 @@ def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0) -
     return tile
 
 
-def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: int = 0) -> dict:
+def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: int = 0,
+                strat: bool = False) -> dict:
     """The launch adjoint_step makes for ``tile`` on an f32 ny2 x nx x k
     lattice with the transposed stencil ``table`` (host copy), with
-    ``n_tracers`` tracers (its periodic tracer arm) or none: its clusters
-    (one per tile), the blocks one SM holds (CUDA's occupancy calculator)
-    and one block's shared memory in bytes, as the kernel reckons it."""
+    ``n_tracers`` tracers (its periodic tracer arm), ``strat`` (its periodic
+    stratified arm) or neither: its clusters (one per tile), the blocks one
+    SM holds (CUDA's occupancy calculator) and one block's shared memory in
+    bytes, as the kernel reckons it."""
     fn = build.load().mot_adjoint_plan
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 3)()
     table = np.ascontiguousarray(table, dtype=np.int32)
     check_error("adjoint_step's plan query", fn(table.ctypes.data, ny2, nx, k, *tile, n_tracers,
-                                                ctypes.addressof(out)))
+                                                int(strat), ctypes.addressof(out)))
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
@@ -240,7 +261,7 @@ def nl_adjoint_launch_plan(ny2: int, nx: int, k: int, tile, ks: int) -> dict:
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 29 + [ctypes.c_double] * 8 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 32 + [ctypes.c_double] * 8 + [ctypes.c_int] * 10
              + [ctypes.c_void_p])
 
 
@@ -289,6 +310,30 @@ def check_reverse_tracers(tracers, end, groups, live, slots: int, ny2: int, nx: 
     return planes[0] // 2
 
 
+def check_dstrat(strat_w, dstrat, k: int, dtype, device, forcing=None, tracers=None) -> None:
+    """The stratified reverse arms' operands: W (K, K) in the state dtype
+    (``fe_step.check_strat``) and its cotangent's accumulator ``dstrat``
+    (K, K) float64, given together; the arms run unforced and tracer-free."""
+    if (strat_w is None) != (dstrat is None):
+        raise ValueError("the stratified reverse takes strat_w and dstrat together")
+    check_strat(strat_w, k, dtype, device, forcing, tracers)
+    if dstrat is not None:
+        check_tensor("dstrat", dstrat, (k, k), torch.float64, device)
+
+
+def strat_args(strat_w, dstrat, tiles: int, k: int) -> tuple:
+    """The reverse entries' stratified pointers (W, the tiles' d(W)
+    accumulators, d(W)), with the accumulators allocated here (tiles * K * K
+    doubles, csrc/adjoint_window.cuh: AdjStrat), or nulls; and the
+    accumulators, which the caller keeps until the entry has returned (the
+    caching allocator then reuses them only for work queued after it on the
+    stream)."""
+    if strat_w is None:
+        return (None, None, None), None
+    acc = torch.empty(tiles * k * k, dtype=torch.float64, device=strat_w.device)
+    return (strat_w.data_ptr(), acc.data_ptr(), dstrat.data_ptr()), acc
+
+
 def reverse_tracer_args(tracers, end, g_in, out, scratch) -> tuple:
     """The reverse entries' tracer pointers (tracer stack, cotangent in,
     out and scratch, end h and tracers, cell mask), (kappa, upwind) and the
@@ -311,11 +356,12 @@ def _entry(dtype: torch.dtype):
 
 
 def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scratch, tile,
-             live=None, forcing=None, dforc=None, tracers=None, end=None):
+             live=None, forcing=None, dforc=None, tracers=None, end=None, strat_w=None,
+             dstrat=None):
     """``adjoint_rollout`` with scal = (dt, inv_dc, s_div), over tiles of
     ``tile`` (rows, columns) sites, or ``adjoint_tile``'s for None (the tile
     sweep and the tests give their own)."""
-    global launches, forced_launches, tracer_launches
+    global launches, forced_launches, tracer_launches, strat_launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
@@ -332,6 +378,7 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     check_forcing(forcing, ny2, nx, dtype, device)
     check_dforc(dforc, forcing, ny2, nx, dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
+    check_dstrat(strat_w, dstrat, k, dtype, device, forcing, tracers)
     if tracers is not None:
         shapes = (*shapes, tracers.planes.shape[1:])
     if out is None:
@@ -343,13 +390,14 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     n_tr = check_reverse_tracers(tracers, end, (("g_in", g_in), ("out", out),
                                                 ("scratch", scratch)),
                                  live, slots, ny2, nx, k, dtype, device)
+    strat = strat_w is not None
     for group, name in ((g_in, "g_in"), (out, "out"), (scratch, "scratch")):
         for x, shape, f in zip(group, shapes[:3], ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, dtype, device)
     table, weights, n_terms = host_stencil(table, weights)
     itemsize, masked = h_st.element_size(), live is not None
-    tile = adjoint_tile(ny2, nx, k, itemsize, n_tr) if tile is None else tuple(tile)
-    need = smem_bytes(tile, k, itemsize, forcing is not None, n_tr)
+    tile = adjoint_tile(ny2, nx, k, itemsize, n_tr, strat) if tile is None else tuple(tile)
+    need = smem_bytes(tile, k, itemsize, forcing is not None, n_tr, strat)
     if need > SMEM_BYTES:
         raise ValueError(f"an adjoint_step tile {tile} at {k} levels needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
@@ -360,14 +408,15 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     fn = _entry(dtype)
     ptrs, coefs = forcing_args(forcing, level_split(k)[1])
     tr_ptrs, tr_opts, n_tr = reverse_tracer_args(tracers, end, g_in, out, scratch)
+    st_ptrs, _acc = strat_args(strat_w, dstrat, tiles, k)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             f_edge.data_ptr(), live.data_ptr() if masked else None, *ptrs, *dforc_args(dforc),
             table.ctypes.data, weights.ctypes.data,
             *[x.data_ptr() for x in (*stack[:3], *g_in[:3], *out[:3], *scratch[:3], part, ddt)],
-            *tr_ptrs, *(float(x) for x in scal), *coefs[:3], *tr_opts, *coefs[3:], ny2, nx, k,
-            n_steps, n_terms, *tile, n_tr, stream,
+            *tr_ptrs, *st_ptrs, *(float(x) for x in scal), *coefs[:3], *tr_opts, *coefs[3:],
+            ny2, nx, k, n_steps, n_terms, *tile, n_tr, stream,
         )
     check_error("adjoint_step", err, f" (tile {tile})")
     launches += n_steps
@@ -375,13 +424,15 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
         forced_launches += n_steps
     if tracers is not None:
         tracer_launches += n_steps
+    if strat:
+        strat_launches += n_steps
     return out
 
 
 def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
                     dt: float, inv_dc: float, s_div: float, n_steps: int,
                     ddt: torch.Tensor, out=None, scratch=None, live=None, forcing=None,
-                    dforc=None, tracers=None, end=None):
+                    dforc=None, tracers=None, end=None, strat_w=None, dstrat=None):
     """n_steps >= 1 reverse forward-Euler steps of the linear core on the
     card.
 
@@ -408,9 +459,13 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
     ``scratch`` then carry the tracer cotangent planes (2 nT, ny2, nx, K)
     fourth, and ``end`` = (h, tracer planes) is the state after slot
     n_steps - 1 (the next checkpoint, or the rollout's final state), whose
-    h' and T' the last step reads."""
+    h' and T' the last step reads. ``strat_w`` (W (K, K) in the state dtype,
+    on the card: ``fused_model.kernel_strat``) runs the stratified arm,
+    unforced and tracer-free, which adds d(W) to ``dstrat``, a float64
+    (K, K) tensor on the card."""
     return _rollout(stack, g_in, f_edge, stencil_table, coriolis_weight, (dt, inv_dc, s_div),
-                    n_steps, ddt, out, scratch, None, live, forcing, dforc, tracers, end)
+                    n_steps, ddt, out, scratch, None, live, forcing, dforc, tracers, end,
+                    strat_w, dstrat)
 
 
 _NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_double] * 7

@@ -6,9 +6,9 @@ vector-invariant one, on a periodic lattice and, with the wall mask's
 ``live`` bits (``live_bits`` of ``StructMesh.edge_mask``), on a coastal
 channel culled from one; the linear entries take momentum forcing
 (``forcing=``, ``structured.fused_model.kernel_forcing``'s operands), which
-runs the kernel's forced arm, and ``fe_rollout`` takes tracers
-(``tracers=``, ``structured.fused_model.kernel_tracers``' operands), which
-run its tracer arm, and a stratification's W (``strat_w=``,
+runs the kernel's forced arm, tracers (``tracers=``,
+``structured.fused_model.kernel_tracers``' operands), which run its tracer
+arm, and a stratification's W (``strat_w=``,
 ``structured.fused_model.kernel_strat``), which runs its stratified arm.
 
 The entries take tensors on a CUDA device and the stencil on the host
@@ -376,7 +376,7 @@ def nl_launch_plan(ny2: int, nx: int, k: int, tile, ks: int, fb: bool = False) -
 _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
     "steps": [_P] * 21 + [_D] * 8 + [_I] * 10 + [_P],
-    "stack": [_P] * 12 + [_D] * 8 + [_I] * 10 + [_P],
+    "stack": [_P] * 13 + [_D] * 8 + [_I] * 10 + [_P],
     "nl_steps": [_P, _P, _I] + [_P] * 15 + [_D] * 5 + [_I] * 8 + [_P],
     "nl_stack": [_P, _P, _I] + [_P] * 9 + [_D] * 5 + [_I] * 8 + [_P],
 }
@@ -573,9 +573,9 @@ def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile
     if kind == "steps":  # W follows the tracer pointers
         tr_ptrs, tr_opts, n_tr = tracer_args(tracers, *(tr_bufs or (None, None)))
         state_ptrs += [*tr_ptrs, None if strat_w is None else strat_w.data_ptr()]
-    else:  # the stack entry: the tracer stack in place
+    else:  # the stack entry: the tracer stack in place, then W
         tr_ptrs, tr_opts, n_tr = stack_tracer_args(tracers)
-        state_ptrs += tr_ptrs
+        state_ptrs += [*tr_ptrs, None if strat_w is None else strat_w.data_ptr()]
     scal, extra = (*scal, *tr_opts), (n_tr,)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -651,14 +651,15 @@ def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
 
 def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
                   dt: float, inv_dc: float, s_div: float, n_steps: int, live=None,
-                  forcing=None, tracers=None):
+                  forcing=None, tracers=None, strat_w=None):
     """Fill a stack of states on the card: slot j + 1 = one step of slot j
     for j < n_steps. ``stack`` = (ssh (S, 2, ny2, nx), h (S, 2, ny2, nx, K),
     u (S, 3, 2, ny2, nx, K)) with S > n_steps; slot 0 holds the start.
     ``tracers`` (as for ``fe_rollout``, its planes the tracer stack
-    (S, 2 nT, ny2, nx, K)) runs the tracer arm, the same launches as
-    ``fe_rollout_into``'s, so that the slots are that path's states bit for
-    bit. The rest as for ``fe_rollout_into``."""
+    (S, 2 nT, ny2, nx, K)) runs the tracer arm and ``strat_w`` the
+    stratified arm, the same launches as ``fe_rollout_into``'s, so that the
+    slots are that path's states bit for bit. The rest as for
+    ``fe_rollout_into``."""
     ssh, h, u = stack
     if h.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h.shape)}")
@@ -669,8 +670,9 @@ def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
     for x, shape, f in zip(stack, state_shapes(*dims), ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), h.dtype, h.device)
     check_tracer_stack(tracers, live, slots, *dims, h.dtype, h.device)
+    check_strat(strat_w, dims[2], h.dtype, h.device, forcing, tracers)
     _run("stack", h, stack, f_edge, rts, live, stencil, (dt, inv_dc, s_div), dims, n_steps,
-         None, forcing, tracers)
+         None, forcing, tracers, strat_w=strat_w)
 
 
 def _rollout(ssh, h, u, f_edge, rts, table, weights, scal, n_steps, tile, live=None,

@@ -4,8 +4,9 @@ which replaces the TPU kernel ``_tiled_adjoint_kernel``
 forward-Euler core, on a periodic lattice and, with the wall mask's
 ``live`` bits (``fe_step.live_bits``), on a coastal channel culled from one;
 with ``forcing=`` its forced arm, which adds d(wind) and d(r_lin, Cd,
-lambda) to ``dforc``, and with ``tracers=`` its tracer arm at q = 1 (both as
-``adjoint_step.adjoint_rollout``).
+lambda) to ``dforc``, with ``tracers=`` its tracer arm at q = 1, and with
+``strat_w=`` its stratified arm at q = 1, which adds d(W) to ``dstrat`` (all
+as ``adjoint_step.adjoint_rollout``).
 
 ``tiled_adjoint_rollout`` takes tensors on a CUDA device and the stencils on
 the host (``StructMesh.host_stencil``, ``StructMesh.host_adjoint_stencil``),
@@ -16,7 +17,8 @@ card's shared memory and a stencil that is not the hex lattice's. Its plain
 PyTorch version is ``structured.tiled_diff.plain_tiled_adjoint_superstep``,
 which ``structured.tiled_diff`` runs for tensors on the CPU. ``launches``
 counts kernel launches (one per superstep), ``forced_launches`` those of
-the forced arm and ``tracer_launches`` those of the tracer arm.
+the forced arm, ``tracer_launches`` those of the tracer arm and
+``strat_launches`` those of the stratified arm.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import ctypes
 import torch
 
 from . import build, fe_step
-from .adjoint_step import SHARES, check_dforc, check_reverse_tracers, dforc_args, \
-    reverse_tracer_args
+from .adjoint_step import SHARES, check_dforc, check_dstrat, check_reverse_tracers, dforc_args, \
+    reverse_tracer_args, strat_args, strat_smem_bytes
 from .fe_step import (
     LIVE_BYTES,
     MAX_CLUSTER,
@@ -45,16 +47,17 @@ from .fe_step import (
 )
 
 __all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "forced_launches", "launches",
-           "level_split", "occupancy", "smem_bytes", "tiled_adjoint_rollout", "tracer_launches",
-           "window_sites"]
+           "level_split", "occupancy", "smem_bytes", "strat_launches", "tiled_adjoint_rollout",
+           "tracer_launches", "window_sites"]
 
 _RED_BYTES = 8 * 16  # kRedDoubles doubles in csrc/adjoint_window.cuh
 
 # kernel launches made by tiled_adjoint_rollout (one per superstep), and
-# those of them that ran the forced arm and the tracer arm
+# those of them that ran the forced arm, the tracer arm and the stratified arm
 launches = 0
 forced_launches = 0
 tracer_launches = 0
+strat_launches = 0
 
 
 def level_split(k: int, q: int) -> tuple[int, int]:
@@ -79,7 +82,7 @@ def window_sites(row_tile: int, col_tile: int, q: int, halo) -> int:
 
 
 def smem_bytes(sites: int, core: int, k: int, q: int, itemsize: int,
-               forced: bool = False, n_tracers: int = 0) -> int:
+               forced: bool = False, n_tracers: int = 0, strat: bool = False) -> int:
     """Dynamic shared memory of one block for a window of ``sites`` lattice
     sites around a core of ``core`` sites, k levels and q steps
     (``smem_bytes`` in csrc/tiled_adjoint.cu): the warps' d(dt) sums; q
@@ -89,30 +92,34 @@ def smem_bytes(sites: int, core: int, k: int, q: int, itemsize: int,
     partial sums; the ranks' partial sums of the core; the site indices and
     live bits (the masked arm's, reserved either way, as in
     ``fe_step.smem_bytes``); with ``forced``, the forced arm's
-    (``fe_step.forcing_smem_bytes``)."""
+    (``fe_step.forcing_smem_bytes``); with ``strat``, the stratified arm's
+    (q = 1: ``adjoint_step.strat_smem_bytes``)."""
     ranks, kc = level_split(k, q)
     chunks = (8 * (q + (2 if q > 1 else 1)) + 4 * n_tracers) * kc
     planes = 8 + 2 * q + (6 if q > 1 else 0)
     return (_RED_BYTES + itemsize * (sites * (chunks + planes) + ranks * 2 * core)
-            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0))
+            + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0)
+            + (strat_smem_bytes(core, kc, k, itemsize) if strat else 0))
 
 
 def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int,
-              n_tracers: int = 0) -> tuple[int, int]:
+              n_tracers: int = 0, strat: bool = False) -> tuple[int, int]:
     """(one block's shared memory in bytes as the kernel reckons it, blocks
     per SM by CUDA's occupancy calculator) of an f32 plan, with
-    ``n_tracers`` tracers (the periodic tracer arm, q = 1) or none."""
+    ``n_tracers`` tracers (the periodic tracer arm, q = 1), ``strat`` (the
+    periodic stratified arm, q = 1) or neither."""
     ranks, kc = level_split(k, q)
     fn = build.load().mot_tiled_adjoint_occupancy
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
     check_error("tiled_adjoint's occupancy query",
-                fn(row_tile, col_tile, q, *halo, kc, ranks, n_tracers, ctypes.addressof(out)))
+                fn(row_tile, col_tile, q, *halo, kc, ranks, n_tracers, k if strat else 0,
+                   ctypes.addressof(out)))
     return out[0], out[1]
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 32 + [ctypes.c_double] * 8 + [ctypes.c_int] * 14
+_ARGTYPES = ([ctypes.c_void_p] * 35 + [ctypes.c_double] * 8 + [ctypes.c_int] * 14
              + [ctypes.c_void_p])
 
 
@@ -129,7 +136,8 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
                           adjoint_table, adjoint_weight, dt: float, inv_dc: float,
                           s_div: float, n_supersteps: int, ddt: torch.Tensor, out=None,
                           scratch=None, *, row_tile: int, col_tile: int, q: int, halo,
-                          live=None, forcing=None, dforc=None, tracers=None, end=None):
+                          live=None, forcing=None, dforc=None, tracers=None, end=None,
+                          strat_w=None, dstrat=None):
     """n_supersteps >= 1 reverse supersteps of q forward-Euler steps of the
     linear core on the card, over row_tile x col_tile tiles.
 
@@ -151,8 +159,10 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     ``adjoint_step.adjoint_rollout``) the forced arm; ``tracers`` and ``end``
     (as for ``adjoint_step.adjoint_rollout``, the stack's slots being
     superstep starts) the tracer arm, which runs q = 1 only: a tracer
-    state at q > 1 raises NotImplementedError."""
-    global launches, forced_launches, tracer_launches
+    state at q > 1 raises NotImplementedError; ``strat_w`` and ``dstrat`` (as
+    for ``adjoint_step.adjoint_rollout``) the stratified arm, q = 1 only
+    likewise."""
+    global launches, forced_launches, tracer_launches, strat_launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
@@ -168,13 +178,15 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
         raise ValueError(f"q={q} must be >= 1")
     if tracers is not None and q != 1:
         raise NotImplementedError(f"the tiled reverse's tracer arm runs q = 1, not q = {q}")
+    if strat_w is not None and q != 1:
+        raise NotImplementedError(f"the tiled reverse's stratified arm runs q = 1, not q = {q}")
     if row_tile < 1 or col_tile < 1 or ny2 % row_tile or nx % col_tile:
         raise ValueError(f"tile {row_tile}x{col_tile} must divide the {ny2}x{nx} lattice")
     hm, hi = halo
     cluster, kc = level_split(k, q)
     n_tr = 0 if tracers is None else tracers.planes.shape[1] // 2
     need = smem_bytes(window_sites(row_tile, col_tile, q, halo), row_tile * col_tile, k, q,
-                      h_st.element_size(), forcing is not None, n_tr)
+                      h_st.element_size(), forcing is not None, n_tr, strat_w is not None)
     if need > SMEM_BYTES:
         raise ValueError(f"a {row_tile}x{col_tile} tile at q={q} needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
@@ -185,6 +197,7 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     check_forcing(forcing, ny2, nx, dtype, device)
     check_dforc(dforc, forcing, ny2, nx, dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
+    check_dstrat(strat_w, dstrat, k, dtype, device, forcing, tracers)
     if tracers is not None:
         shapes = (*shapes, tracers.planes.shape[1:])
     if out is None:
@@ -209,6 +222,7 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     fn = _entry(dtype)
     ptrs, coefs = forcing_args(forcing, kc)
     tr_ptrs, tr_opts, n_tr = reverse_tracer_args(tracers, end, g_in, out, scratch)
+    st_ptrs, _acc = strat_args(strat_w, dstrat, n_tiles, k)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
@@ -216,8 +230,9 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
             *ptrs, *dforc_args(dforc),
             table.ctypes.data, weights.ctypes.data, adj_table.ctypes.data, adj_weights.ctypes.data,
             *[x.data_ptr() for x in (*stack[:3], *g_in[:3], *out[:3], *scratch[:3], part, ddt)],
-            *tr_ptrs, float(dt), float(inv_dc), float(s_div), *coefs[:3], *tr_opts, *coefs[3:],
-            ny2, nx, k, n_supersteps, n_terms, row_tile, col_tile, q, hm, hi, kc, n_tr, stream,
+            *tr_ptrs, *st_ptrs, float(dt), float(inv_dc), float(s_div), *coefs[:3], *tr_opts,
+            *coefs[3:], ny2, nx, k, n_supersteps, n_terms, row_tile, col_tile, q, hm, hi, kc, n_tr,
+            stream,
         )
     check_error("tiled_adjoint", err, f" (plan {(row_tile, col_tile, q)})")
     launches += n_supersteps
@@ -225,4 +240,6 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
         forced_launches += n_supersteps
     if tracers is not None:
         tracer_launches += n_supersteps
+    if strat_w is not None:
+        strat_launches += n_supersteps
     return out

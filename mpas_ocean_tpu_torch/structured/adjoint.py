@@ -81,6 +81,18 @@ content's cotangent):
   and an h_edge cotangent -dg_e kappa m_e (T_n - T_o) / dc, half to each of the
   edge's cells, where the forcing's goes;
 * d(dt) += sum_t <a, tend_T>, tend_T = -s_div (sum_owned g - sum_incoming g).
+
+With layered stratification (``strat=``), the pressure term is -grad Phi,
+Phi = g ssh + h @ W (``model.pressure_tendency``), of the old state under
+either core. Its transpose (``pressure_transpose``), with a = dt * gu (m * gu
+on a channel), per level k:
+
+* dPhi_c,k = (sum_owned a_k - sum_incoming a_k) / dc;
+* dssh = g sum_k dPhi_k (the formula above, unchanged);
+* dh[c, l] += sum_k W[l, k] dPhi[c, k];
+* d(W)[l, k] = sum_c h[c, l] dPhi[c, k], summed in double;
+* d(dt) takes <gu, -grad Phi> in place of <gu, -g grad ssh>.
+The densities get no cotangent: they build W on the host only.
 """
 
 from __future__ import annotations
@@ -92,6 +104,7 @@ import torch
 
 from ..constants import GRAVITY
 from ..models.forcing import Forcing, forcing_tendency
+from ..models.stratification import Stratification
 from .hex_layout import E, NE, NW
 from .model import (
     StructMesh,
@@ -106,7 +119,6 @@ from .model import (
     check_nl_mesh,
     curl_on_vertex,
     div_on_cell,
-    grad_on_edge,
     interp_cell_to_edge,
     pressure_tendency,
     structured_step,
@@ -122,8 +134,9 @@ from .stencils import (
     transpose_kite_terms,
 )
 
-__all__ = ["ForcingCot", "TracerCot", "forcing_transpose", "structured_adjoint_run_loop",
-           "structured_adjoint_step", "structured_nl_adjoint_step", "tracer_transpose"]
+__all__ = ["ForcingCot", "TracerCot", "forcing_transpose", "pressure_transpose",
+           "structured_adjoint_run_loop", "structured_adjoint_step", "structured_nl_adjoint_step",
+           "tracer_transpose"]
 
 
 class ForcingCot(NamedTuple):
@@ -238,19 +251,34 @@ def _tracer_cot(state: StructState, g: StructState, h_edge, tend_h, mesh: Struct
     return tracer_transpose(state, h_new, g_tr, h_edge, mesh, dt, kappa, upwind)
 
 
-def _result(d_state: StructState, d_dt, d_forc):
-    return (d_state, d_dt) if d_forc is None else (d_state, d_dt, d_forc)
+def pressure_transpose(h, gu, dt, mesh: StructMesh, strat: Stratification):
+    """The transpose of the stratified pressure term's h @ W part for the
+    output cotangent gu (m * gu on a channel; module docstring): (its dh
+    term W dPhi in h's dtype, d(W) (K, K) summed over the cells in double,
+    as the kernels sum it). The g ssh part is the unstratified dssh."""
+    w = strat.phi_weights.to(dtype=h.dtype, device=h.device)
+    d_phi = _own_minus_incoming(dt * gu) * (1.0 / mesh.dc)
+    k = h.shape[-1]
+    return d_phi @ w.T, h.reshape(-1, k).double().T @ d_phi.reshape(-1, k).double()
+
+
+def _result(d_state: StructState, d_dt, d_forc, d_w=None):
+    """(d_state, d_dt), then the ForcingCot where forced, then d(W) where
+    stratified."""
+    return ((d_state, d_dt) + (() if d_forc is None else (d_forc,))
+            + (() if d_w is None else (d_w,)))
 
 
 def structured_adjoint_step(
     state: StructState, g: StructState, mesh: StructMesh, dt, forcing: Forcing | None = None,
     *, tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
-    next_state: StructState | None = None,
+    next_state: StructState | None = None, strat: Stratification | None = None,
 ):
     """VJP of ``structured_step(state, mesh, dt, forcing=forcing,
-    tracer_kappa=, tracer_upwind=)`` for the output cotangent ``g``:
-    (cotangent of the input state, d(dt) as a 0-d tensor), and with
-    ``forcing`` a third item, the ForcingCot. With the mesh's wall mask m, gu
+    tracer_kappa=, tracer_upwind=, strat=strat)`` for the output cotangent
+    ``g``: (cotangent of the input state, d(dt) as a 0-d tensor), and with
+    ``forcing`` a third item, the ForcingCot, and with ``strat`` a last one,
+    d(W) in double (``pressure_transpose``). With the mesh's wall mask m, gu
     is m * gu throughout. A state with tracers gets their cotangent
     (``tracer_transpose``); ``next_state``, the step's result as the forward
     computed it, gives h' and T' to the tracer transpose, as the reverse
@@ -267,8 +295,7 @@ def structured_adjoint_step(
                      next_state)
     if tr is not None:
         G = G + tr.g
-    tend_u = -GRAVITY * grad_on_edge(state.ssh, mesh)[..., None]
-    tend_u = tend_u + tangential_times_f(u, mesh)
+    tend_u = pressure_tendency(state.ssh, h, mesh, strat) + tangential_times_f(u, mesh)
     d_dt = (G * tend_h).sum() + (gu * tend_u).sum()
 
     g_flux = torch.stack([_neighbor_cell_field(G, f) - G for f in (E, NE, NW)])
@@ -288,6 +315,10 @@ def structured_adjoint_step(
     d_h = G + 0.5 * (ug[0] + ug[1] + ug[2] + inc_E + inc_NE + inc_NW)
     if tr is not None:
         d_h = d_h + tr.d_h
+    d_w = None
+    if strat is not None:
+        dh_w, d_w = pressure_transpose(h, gu, dt, mesh, strat)
+        d_h = d_h + dh_w
 
     ct = apply_stencil(gu, transpose_coriolis_terms(mesh.coriolis_terms))
     d_u = gu + h_edge * g_flux + dt * (mesh.f_edge[..., None] * ct)
@@ -298,7 +329,7 @@ def structured_adjoint_step(
     inc_E, inc_NE, inc_NW = _incoming_edge_fields(s)
     d_ssh = (GRAVITY * dt / mesh.dc) * (s[0] + s[1] + s[2] - inc_E - inc_NE - inc_NW)
     return _result(StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u,
-                               tracers=None if tr is None else tr.d_tracers), d_dt, d_forc)
+                               tracers=None if tr is None else tr.d_tracers), d_dt, d_forc, d_w)
 
 
 def _gather(y, terms, n_out: int, weight=lambda x, v: v):
@@ -326,14 +357,15 @@ def _own_plus_incoming(x):
 def structured_nl_adjoint_step(
     state: StructState, g: StructState, mesh: StructMesh, dt, forcing: Forcing | None = None,
     *, tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
-    next_state: StructState | None = None,
+    next_state: StructState | None = None, strat: Stratification | None = None,
 ):
     """VJP of ``structured_step(state, mesh, dt, nonlinear=True,
-    forcing=forcing, tracer_kappa=, tracer_upwind=)`` for the output
-    cotangent ``g``: (cotangent of the input state, d(dt) as a 0-d tensor),
-    and with ``forcing`` a third item, the ForcingCot, written out by hand
-    (module docstring). With the mesh's wall mask m, gu is m * gu
-    throughout. A state with tracers gets their cotangent
+    forcing=forcing, tracer_kappa=, tracer_upwind=, strat=strat)`` for the
+    output cotangent ``g``: (cotangent of the input state, d(dt) as a 0-d
+    tensor), and with ``forcing`` a third item, the ForcingCot, and with
+    ``strat`` a last one, d(W), written out by hand (module docstring).
+    With the mesh's wall mask m, gu is m * gu throughout. A state with
+    tracers gets their cotangent
     (``tracer_transpose``; ``next_state`` as for ``structured_adjoint_step``).
     A mesh without the vertex constants raises (``model.check_nl_mesh``)."""
     check_nl_mesh(mesh)
@@ -354,8 +386,8 @@ def structured_nl_adjoint_step(
                      next_state)
     if tr is not None:
         G = G + tr.g
-    tend_u = _forced(_tend_u(state, flux, pressure_tendency(state.ssh, None, mesh), mesh, True),
-                     state, h_edge, forcing)
+    tend_u = _forced(_tend_u(state, flux, pressure_tendency(state.ssh, h, mesh, strat), mesh,
+                             True), state, h_edge, forcing)
     d_dt = (G * tend_h).sum() + (gu * tend_u).sum()
     if tr is not None:
         d_dt = d_dt + tr.d_dt
@@ -415,37 +447,48 @@ def structured_nl_adjoint_step(
            + _gather(d_hv, transpose_kite_terms(mesh.vertex_cell_terms), 2, kite))
     if tr is not None:
         d_h = d_h + tr.d_h
+    d_w = None
+    if strat is not None:
+        dh_w, d_w = pressure_transpose(h, gu, dt, mesh, strat)
+        d_h = d_h + dh_w
     d_ssh = (GRAVITY * dt / mesh.dc) * _own_minus_incoming(gu.sum(-1))
     return _result(StructState(ssh=d_ssh, layer_thickness=d_h, normal_velocity=d_u,
-                               tracers=None if tr is None else tr.d_tracers), d_dt, d_forc)
+                               tracers=None if tr is None else tr.d_tracers), d_dt, d_forc, d_w)
 
 
 def structured_adjoint_run_loop(
     state: StructState, mesh: StructMesh, dt, n_steps: int, g: StructState,
     nonlinear: bool = False, forcing: Forcing | None = None, *,
     tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+    strat: Stratification | None = None,
 ):
     """VJP of ``structured_run_loop(state, mesh, dt, n_steps, nonlinear,
-    forcing=forcing, tracer_kappa=, tracer_upwind=)`` for the output
-    cotangent ``g``, keeping all n_steps primal states: the plain version of
-    the whole kernel reverse, on any device. Returns (d_state, d_dt), and
-    with ``forcing`` the ForcingCot third."""
+    forcing=forcing, tracer_kappa=, tracer_upwind=, strat=strat)`` for the
+    output cotangent ``g``, keeping all n_steps primal states: the plain
+    version of the whole kernel reverse, on any device. Returns (d_state,
+    d_dt), and with ``forcing`` the ForcingCot third, with ``strat`` d(W)
+    last (its steps summed in double)."""
     step = functools.partial(
         structured_nl_adjoint_step if nonlinear else structured_adjoint_step,
-        tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
+        tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind, strat=strat)
     states = [state]
     for _ in range(n_steps - 1):
         states.append(structured_step(states[-1], mesh, dt, nonlinear, forcing, tracer_kappa,
-                                      tracer_upwind))
+                                      tracer_upwind, strat))
     d_dt = torch.zeros((), dtype=state.layer_thickness.dtype,
                        device=state.layer_thickness.device)
-    d_forc = None
+    d_forc = d_w = None
     if forcing is not None:
         d_forc = ForcingCot(torch.zeros_like(forcing.wind_edge),
                             torch.zeros(3, dtype=d_dt.dtype, device=d_dt.device))
+    if strat is not None:
+        k = state.layer_thickness.shape[-1]
+        d_w = torch.zeros((k, k), dtype=torch.float64, device=d_dt.device)
     for s in reversed(states[:n_steps]):
         out = step(s, g, mesh, dt, forcing)
         g, d_dt = out[0], d_dt + out[1]
         if forcing is not None:
             d_forc = d_forc + out[2]
-    return _result(g, d_dt, d_forc)
+        if strat is not None:
+            d_w = d_w + out[-1]
+    return _result(g, d_dt, d_forc, None if d_w is None else d_w.to(d_dt.dtype))

@@ -34,6 +34,14 @@ read the step's h' and T' from the next slot of the stack, and for a
 group's last step from the state after it: the next checkpoint, or the
 rollout's final state, which the forward keeps for that.
 
+Layered stratification (``strat=``, ``make_stratification``): its W
+(``phi_weights``) is a differentiated input; the densities get none, since
+they build W on the host only (the JAX package returns zeros for them). On
+the card the stratified arms of the kernels run, linear, unforced and
+tracer-free only (``fused_model.check_strat_core``; the CPU runs every
+combination): fe_step's to rebuild each group's states, and the reverse
+kernels', which accumulate d(W) in double beside d(dt) (``dstrat``).
+
 Momentum forcing (``forcing=``, struct layout) is a differentiated input:
 its wind and its three coefficients get cotangents (the level masks none,
 as in the JAX package's ``_forcing_cotangent``, :1939-1955). On the card the
@@ -59,15 +67,18 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import adjoint_step, fe_step
 from ..models.forcing import Forcing
+from ..models.stratification import Stratification
 from .adjoint import ForcingCot, structured_adjoint_step, structured_nl_adjoint_step
 from .fused_model import (
     KernelTracers,
     _scal,
     check_forced_core,
+    check_strat_core,
     check_tracer_core,
     fused_run_loop,
     kernel_forcing,
     kernel_live,
+    kernel_strat,
     nl_adjoint_scal,
     nl_scal,
     nl_setup,
@@ -167,13 +178,17 @@ class _Steps:
     stacks carry a leading slot axis. With forcing, the reverse adds d(wind)
     and d(r_lin, Cd, lambda) to ``dforc``. ``tracers`` (the states carry
     tracers) runs the tracer arms with ``tracer_kappa`` and
-    ``tracer_upwind``."""
+    ``tracer_upwind``. ``strat`` runs the stratified arms (on the card, W
+    cast once to the state dtype: ``fused_model.kernel_strat``), and the
+    reverse adds d(W) to ``dstrat``, (K, K) in double."""
 
     def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, nonlinear: bool = False,
                  nl_tile=None, forcing: Forcing | None = None, tracers: bool = False,
-                 tracer_kappa: float = 0.0, tracer_upwind: float = 1.0):
+                 tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+                 strat: Stratification | None = None):
         self.mesh, self.dt, self.nonlinear, self.forcing = mesh, dt, nonlinear, forcing
         self.tracers, self.kappa, self.upwind = tracers, tracer_kappa, tracer_upwind
+        self.strat = strat
         self.cuda = like.device.type == "cuda"
         if not self.cuda and like.device.type != "cpu":
             raise ValueError(f"no rollout for state on {like.device}")
@@ -181,13 +196,19 @@ class _Steps:
             check_nl_mesh(mesh)
         check_forced_core(forcing, nonlinear, like.device)
         check_tracer_core(True if tracers else None, nonlinear, forcing, like.device)
+        check_strat_core(strat, nonlinear, forcing, True if tracers else None, like.device)
         self.dforc = None
         if forcing is not None:
             # d(wind) in the state dtype, per edge channel; the coefficients' in double
             self.dforc = ForcingCot(
                 torch.zeros((6, mesh.ny2, mesh.nx), dtype=like.dtype, device=like.device),
                 torch.zeros(3, dtype=torch.float64, device=like.device))
+        self.dstrat = self.sw = None
+        if strat is not None:
+            self.dstrat = torch.zeros(tuple(strat.phi_weights.shape), dtype=torch.float64,
+                                      device=like.device)
         if self.cuda:
+            self.sw = kernel_strat(strat, like.dtype, like.device)
             dtype = like.dtype
             self.scal = _scal(mesh, dt, dtype)
             f_edge = mesh.f_edge.to(dtype).contiguous()
@@ -219,6 +240,14 @@ class _Steps:
         self.dforc.wind.add_(d.wind.reshape(self.dforc.wind.shape))
         self.dforc.coefs.add_(d.coefs.to(self.dforc.coefs.dtype))
 
+    def cots(self, result: tuple) -> tuple:
+        """A reverse's (d_state, d_dt), then the accumulated ForcingCot
+        (d(wind) (3, 2, ny2, nx)) where forced, then d(W) where
+        stratified."""
+        d = self.forcing_cot()
+        return ((*result, *(() if d is None else (d,)))
+                + (() if self.dstrat is None else (self.dstrat,)))
+
     def kernel_tracers(self, planes: torch.Tensor | None) -> KernelTracers | None:
         """The tracer arms' operands for ``planes`` (a state's or a
         stack's), or None without tracers."""
@@ -229,7 +258,7 @@ class _Steps:
         of the result planes too."""
         return _planes_state(structured_step(_lattice_state(state), self.mesh, self.dt,
                                              self.nonlinear, self.forcing, self.kappa,
-                                             self.upwind))
+                                             self.upwind, self.strat))
 
     def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
         """n >= 1 steps from src into out."""
@@ -240,11 +269,13 @@ class _Steps:
             fe_step.fe_rollout_into(_fields(src)[:3], _fields(out)[:3], *self.fwd, *self.scal,
                                     n, _fields(scratch)[:3], live=self.live, forcing=self.kf,
                                     tracers=self.kernel_tracers(src.tracers),
-                                    tr_out=out.tracers, tr_scratch=scratch.tracers)
+                                    tr_out=out.tracers, tr_scratch=scratch.tracers,
+                                    strat_w=self.sw)
         else:
             res = _planes_state(structured_run_loop(
                 _lattice_state(src), self.mesh, self.dt, n, nonlinear=self.nonlinear,
-                forcing=self.forcing, tracer_kappa=self.kappa, tracer_upwind=self.upwind))
+                forcing=self.forcing, tracer_kappa=self.kappa, tracer_upwind=self.upwind,
+                strat=self.strat))
             for dst, x in zip(_fields(out), _fields(res)):
                 dst.copy_(x)
 
@@ -255,7 +286,8 @@ class _Steps:
                                      live=self.live)
         elif self.cuda:
             fe_step.fe_fill_stack(_fields(stack)[:3], *self.fwd, *self.scal, n, live=self.live,
-                                  forcing=self.kf, tracers=self.kernel_tracers(stack.tracers))
+                                  forcing=self.kf, tracers=self.kernel_tracers(stack.tracers),
+                                  strat_w=self.sw)
         else:
             for j in range(n):
                 nxt = self.plain_step(_slot(stack, j))
@@ -265,19 +297,26 @@ class _Steps:
     def plain_reverse(self, state: StructState, g: StructState):
         """One plain reverse step through ``state`` for the cotangent ``g``,
         both with tracers as planes: (d_state with its tracers as planes,
-        d(dt)[, ForcingCot])."""
+        d(dt)[, ForcingCot][, d(W)])."""
         step = structured_nl_adjoint_step if self.nonlinear else structured_adjoint_step
         res = step(_lattice_state(state), _lattice_state(g), self.mesh, self.dt, self.forcing,
-                   tracer_kappa=self.kappa, tracer_upwind=self.upwind)
+                   tracer_kappa=self.kappa, tracer_upwind=self.upwind, strat=self.strat)
         return (_planes_state(res[0]), *res[1:])
+
+    def add_plain_cots(self, res: tuple) -> None:
+        """Add a plain reverse's ForcingCot and d(W) to the accumulators."""
+        if self.forcing is not None:
+            self.add_forcing_cot(res[2])
+        if self.strat is not None:
+            self.dstrat.add_(res[-1].to(self.dstrat.dtype))
 
     def reverse(self, stack: StructState, g: StructState, n: int, ddt: torch.Tensor,
                 out: StructState, scratch: StructState, end: StructState | None = None):
         """n >= 1 reverse steps through the stack's slots n - 1 .. 0, from
-        the cotangent g at step n into out; d(dt) is added to ddt, and with
-        forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``. With tracers
-        on the card, ``end`` is the state after slot n - 1 (its h and
-        tracers are read)."""
+        the cotangent g at step n into out; d(dt) is added to ddt, with
+        forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``, with
+        stratification d(W) to ``dstrat``. With tracers on the card, ``end``
+        is the state after slot n - 1 (its h and tracers are read)."""
         if self.cuda and self.nonlinear:
             adjoint_step.nl_adjoint_rollout(_fields(stack), _fields(g), *self.nl_adj,
                                             *self.nl_adj_scal, n, ddt, _fields(out),
@@ -289,14 +328,14 @@ class _Steps:
                                          *self.scal, n, ddt, _fields(out),
                                          _fields(scratch), live=self.live, forcing=self.kf,
                                          dforc=self.dforc, tracers=self.kernel_tracers(
-                                             stack.tracers), end=_end(end, self.tracers))
+                                             stack.tracers), end=_end(end, self.tracers),
+                                         strat_w=self.sw, dstrat=self.dstrat)
             return
         for j in reversed(range(n)):
             res = self.plain_reverse(_slot(stack, j), g)
             g = res[0]
             ddt += res[1]
-            if self.forcing is not None:
-                self.add_forcing_cot(res[2])
+            self.add_plain_cots(res)
         for dst, x in zip(_fields(out), _fields(g)):
             dst.copy_(x)
 
@@ -329,16 +368,17 @@ def _copy(state: StructState) -> StructState:
 
 
 def _steps(mesh: StructMesh, dt, state: StructState, nonlinear: bool, forcing, tropts,
-           **kw) -> "_Steps":
+           strat=None, **kw) -> "_Steps":
     """The steps for ``state`` (its tracers, if any, with ``tropts`` =
     (kappa, upwind))."""
     return _Steps(mesh, dt, state.layer_thickness, nonlinear, forcing=forcing,
                   tracers=state.tracers is not None, tracer_kappa=tropts[0],
-                  tracer_upwind=tropts[1], **kw)
+                  tracer_upwind=tropts[1], strat=strat, **kw)
 
 
 def _forward(state: StructState, mesh: StructMesh, dt, n_steps: int, group: int,
-             nonlinear: bool, forcing, tropts, steps=None) -> tuple[StructState, StructState]:
+             nonlinear: bool, forcing, tropts, steps=None,
+             strat=None) -> tuple[StructState, StructState]:
     """``forward_ckpts`` on a state whose tracers are planes: (final state,
     checkpoints), both with tracers as planes."""
     starts = range(0, n_steps, group)
@@ -348,7 +388,7 @@ def _forward(state: StructState, mesh: StructMesh, dt, n_steps: int, group: int,
     check_forced_core(forcing, nonlinear, state.layer_thickness.device)
     if n_steps == 0:
         return _copy(state), ckpts
-    steps = steps or _steps(mesh, dt, state, nonlinear, forcing, tropts)
+    steps = steps or _steps(mesh, dt, state, nonlinear, forcing, tropts, strat)
     for dst, x in zip(_fields(_slot(ckpts, 0)), _fields(state)):
         dst.copy_(x)
     final, scratch = _empty(state), _empty(state)
@@ -360,18 +400,19 @@ def _forward(state: StructState, mesh: StructMesh, dt, n_steps: int, group: int,
 
 def forward_ckpts(state: StructState, mesh: StructMesh, dt, n_steps: int,
                   group: int, nonlinear: bool = False, forcing: Forcing | None = None, *,
-                  tracer_kappa: float = 0.0, tracer_upwind: float = 1.0
-                  ) -> tuple[StructState, StructState]:
+                  tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+                  strat: Stratification | None = None) -> tuple[StructState, StructState]:
     """The forward in groups of ``group`` steps (the last takes the
     remainder), keeping each group's start state. Returns (final state,
     checkpoints as a StructState of stacks with one slot per group; their
     tracers, if any, as planes (slots, 2 nT, ny2, nx, K)). The per-step
     arithmetic is that of one ``fused_run_loop`` call (with ``nonlinear``,
     of the vector-invariant core; with ``forcing``, forced; the state's
-    tracers with ``tracer_kappa`` and ``tracer_upwind``), so the final state
-    is bitwise the same. Counterpart of ``_pallas_forward_ckpts``."""
+    tracers with ``tracer_kappa`` and ``tracer_upwind``; with ``strat``,
+    stratified), so the final state is bitwise the same. Counterpart of
+    ``_pallas_forward_ckpts``."""
     final, ckpts = _forward(_planes_state(state), mesh, dt, n_steps, group, nonlinear,
-                            forcing, (tracer_kappa, tracer_upwind))
+                            forcing, (tracer_kappa, tracer_upwind), strat=strat)
     return _lattice_state(final), ckpts
 
 
@@ -413,34 +454,30 @@ def _plan(state: StructState, n_steps: int, plan) -> int:
                         _default_budget(state.layer_thickness.device))
 
 
-def _with_forcing(result: tuple, steps: _Steps) -> tuple:
-    """(d_state, d_dt), and the ForcingCot third where the steps are forced."""
-    d = steps.forcing_cot()
-    return result if d is None else (*result, d)
-
-
 def adjoint_segment(ckpt: StructState, cot: StructState, mesh: StructMesh, dt,
                     n_steps: int, nonlinear: bool = False, forcing: Forcing | None = None, *,
                     end: StructState | None = None, tracer_kappa: float = 0.0,
-                    tracer_upwind: float = 1.0):
+                    tracer_upwind: float = 1.0, strat: Stratification | None = None):
     """Reverse of one n-step segment (of the nonlinear core with
     ``nonlinear``, forced with ``forcing``, the state's tracers with
-    ``tracer_kappa`` and ``tracer_upwind``): rebuild its states from its
-    start state ``ckpt``, then step the cotangent ``cot`` at its end back to
-    its start. ``end``, the segment's final state, is what a tracer reverse
-    on the card reads after its last step (it raises ValueError without).
-    Returns (cotangent at the start, d(dt) as a 0-d float64 tensor), and
-    with forcing the ForcingCot third. Counterpart of ``_adjoint_segment``."""
+    ``tracer_kappa`` and ``tracer_upwind``, stratified with ``strat``):
+    rebuild its states from its start state ``ckpt``, then step the
+    cotangent ``cot`` at its end back to its start. ``end``, the segment's
+    final state, is what a tracer reverse on the card reads after its last
+    step (it raises ValueError without). Returns (cotangent at the start,
+    d(dt) as a 0-d float64 tensor), with forcing the ForcingCot third, with
+    ``strat`` d(W) (K, K) in float64 last. Counterpart of
+    ``_adjoint_segment``."""
     if n_steps < 1:
         raise ValueError("a segment has n_steps >= 1")
     ckpt = _planes_state(ckpt)
-    steps = _steps(mesh, dt, ckpt, nonlinear, forcing, (tracer_kappa, tracer_upwind))
+    steps = _steps(mesh, dt, ckpt, nonlinear, forcing, (tracer_kappa, tracer_upwind), strat)
     ddt = torch.zeros(1, dtype=torch.float64, device=ckpt.layer_thickness.device)
     out = _empty(ckpt)
     _segment(steps, ckpt, _cotangent(_planes_state(cot), ckpt), n_steps,
              _empty(ckpt, n_steps), ddt, out, _empty(ckpt),
              None if end is None else _planes_state(end))
-    return _with_forcing((_lattice_state(out), ddt.reshape(())), steps)
+    return steps.cots((_lattice_state(out), ddt.reshape(())))
 
 
 def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructState,
@@ -451,12 +488,12 @@ def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructState
     through them with ``steps.reverse``, whose end state is the next
     checkpoint or, for the last group, ``final``. A slot is a step here and
     a superstep in tiled_diff. States with tracers as planes. Returns
-    (cotangent of the rollout's input, d(dt) as a 0-d float64 tensor), and
-    with forcing the ForcingCot third."""
+    (cotangent of the rollout's input, d(dt) as a 0-d float64 tensor), with
+    forcing the ForcingCot third, with stratification d(W) last."""
     x = ckpts.layer_thickness
     ddt = torch.zeros(1, dtype=torch.float64, device=x.device)
     if n == 0:
-        return _with_forcing((g, ddt.reshape(())), steps)
+        return steps.cots((g, ddt.reshape(())))
     like = _slot(ckpts, 0)
     stack = _empty(like, min(group, n))
     bufs, scratch = (_empty(like), _empty(like)), _empty(like)
@@ -468,23 +505,26 @@ def _sweep(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructState
         _segment(steps, _slot(ckpts, gi), cot, min(group, n - gi * group), stack,
                  ddt, out, scratch, end)
         cot = out
-    return _with_forcing((cot, ddt.reshape(())), steps)
+    return steps.cots((cot, ddt.reshape(())))
 
 
 def adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
                        group: int, g: StructState, nonlinear: bool = False,
                        forcing: Forcing | None = None, *, final: StructState | None = None,
-                       tracer_kappa: float = 0.0, tracer_upwind: float = 1.0) -> tuple:
+                       tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+                       strat: Stratification | None = None) -> tuple:
     """The reverse sweep from the checkpoints of ``forward_ckpts`` (of the
     nonlinear core with ``nonlinear``, forced with ``forcing``, the tracers
-    with ``tracer_kappa`` and ``tracer_upwind``): per group, last to first,
-    rebuild its states and step the cotangent back through them. ``final``,
-    the rollout's final state (``forward_ckpts``' first item), is what the
-    last group's tracer reverse on the card reads after its last step (it
-    raises ValueError without). Returns (cotangent of the rollout's input,
-    d(dt) as a 0-d float64 tensor), and with forcing the ForcingCot third.
-    Counterpart of ``_pallas_adjoint_from_ckpts``."""
-    steps = _steps(mesh, dt, ckpts, nonlinear, forcing, (tracer_kappa, tracer_upwind))
+    with ``tracer_kappa`` and ``tracer_upwind``, stratified with ``strat``):
+    per group, last to first, rebuild its states and step the cotangent back
+    through them. ``final``, the rollout's final state (``forward_ckpts``'
+    first item), is what the last group's tracer reverse on the card reads
+    after its last step (it raises ValueError without). Returns (cotangent
+    of the rollout's input, d(dt) as a 0-d float64 tensor), with forcing the
+    ForcingCot third, with ``strat`` d(W) (K, K) in float64 last, as
+    ``_pallas_adjoint_from_ckpts`` returns dsw. Counterpart of
+    ``_pallas_adjoint_from_ckpts``."""
+    steps = _steps(mesh, dt, ckpts, nonlinear, forcing, (tracer_kappa, tracer_upwind), strat)
     return _reverse(steps, ckpts, n_steps, group, g,
                     None if final is None else _planes_state(final))
 
@@ -501,22 +541,24 @@ def _reverse(steps: _Steps, ckpts: StructState, n: int, group: int, g: StructSta
 def fused_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
                           g: StructState, *, plan: int | None = None, nonlinear: bool = False,
                           forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-                          tracer_upwind: float = 1.0):
+                          tracer_upwind: float = 1.0, strat: Stratification | None = None):
     """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``,
     forced with ``forcing``, the state's tracers with ``tracer_kappa`` and
-    ``tracer_upwind``): given its input ``state`` and an output cotangent
-    ``g``, returns (d_state, d_dt), d_dt as a 0-d tensor in dt's dtype
-    (float64 for a Python dt), and with forcing the ForcingCot third.
-    ``plan`` (steps per group) overrides ``adjoint_plan``, whose budget is
-    MEMORY_SHARE of the card's free memory (unbounded on the CPU).
-    Counterpart of ``pallas_adjoint_rollout``."""
+    ``tracer_upwind``, stratified with ``strat``): given its input ``state``
+    and an output cotangent ``g``, returns (d_state, d_dt), d_dt as a 0-d
+    tensor in dt's dtype (float64 for a Python dt), and with forcing the
+    ForcingCot third; d(W) is dropped, as ``pallas_adjoint_rollout`` drops
+    it (``adjoint_from_ckpts`` returns it). ``plan`` (steps per group)
+    overrides ``adjoint_plan``, whose budget is MEMORY_SHARE of the card's
+    free memory (unbounded on the CPU). Counterpart of
+    ``pallas_adjoint_rollout``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
     group = _plan(state, n_steps, plan)
-    tr = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
-    final, ckpts = forward_ckpts(state, mesh, dt, n_steps, group, nonlinear, forcing, **tr)
+    kw = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind, strat=strat)
+    final, ckpts = forward_ckpts(state, mesh, dt, n_steps, group, nonlinear, forcing, **kw)
     res = adjoint_from_ckpts(ckpts, mesh, dt, n_steps, group, g, nonlinear, forcing,
-                             final=final, **tr)
-    return (res[0], res[1].to(dtype=dtype, device=device), *res[2:])
+                             final=final, **kw)
+    return (res[0], res[1].to(dtype=dtype, device=device), *res[2:3 if forcing is not None else 2])
 
 
 def _dt_value(dt) -> float:
@@ -529,9 +571,9 @@ def _save_dt(ctx, dt, device):
 
 # The inputs of the autograd Functions below: the state (ssh, h, u and the
 # tracers, None without), dt, the forcing's differentiable parts (wind and
-# the three coefficients, None unforced), then the rest, which get no
-# cotangent.
-_DIFF_INPUTS = 9
+# the three coefficients, None unforced), the stratification's W (None
+# unstratified), then the rest, which get no cotangent.
+_DIFF_INPUTS = 10
 _DT_INPUT = 4
 
 
@@ -539,6 +581,20 @@ def _forcing_inputs(forcing: Forcing | None) -> tuple:
     if forcing is None:
         return (None,) * 4
     return (forcing.wind_edge, forcing.drag_linear, forcing.drag_quadratic, forcing.rayleigh)
+
+
+def _strat_input(strat: Stratification | None):
+    return None if strat is None else strat.phi_weights
+
+
+def _save_strat(ctx, strat: Stratification | None, w) -> Stratification | None:
+    """The stratification with its W as given (detached), kept on ctx with
+    W's dtype and device for its cotangent."""
+    if strat is not None:
+        strat = Stratification(w.detach(), strat.densities)
+        ctx.strat_meta = (w.dtype, w.device)
+    ctx.strat = strat
+    return strat
 
 
 def _state_inputs(state: StructState) -> tuple:
@@ -559,8 +615,8 @@ def _save_forcing(ctx, forcing: Forcing | None, wind, dlin, dquad, rayl) -> Forc
 
 def _grads(ctx, res) -> tuple:
     """The cotangents of the first _DIFF_INPUTS inputs from a reverse's
-    (d_state, ddt[, ForcingCot]), d_state's tracers (None without) in the
-    lattice layout."""
+    (d_state, ddt[, ForcingCot][, d(W)]), d_state's tracers (None without)
+    in the lattice layout."""
     d_state, ddt = res[:2]
     d_dt = None
     if ctx.needs_input_grad[_DT_INPUT]:
@@ -571,7 +627,11 @@ def _grads(ctx, res) -> tuple:
         d = res[2]
         d_forc = [x.to(dtype=t, device=v)
                   for x, (t, v) in zip((d.wind, *d.coefs), ctx.forc_meta)]
-    return (*_state_inputs(d_state), d_dt, *d_forc)
+    d_w = None
+    if ctx.strat is not None:
+        dtype, device = ctx.strat_meta
+        d_w = res[-1].to(dtype=dtype, device=device)
+    return (*_state_inputs(d_state), d_dt, *d_forc, d_w)
 
 
 def _output_cotangent(like: StructState, grads) -> StructState:
@@ -586,22 +646,25 @@ class FusedRolloutDiff(torch.autograd.Function):
     """n-step rollout whose backward is the checkpointed reverse sweep
     (``forward_ckpts`` forward, ``adjoint_from_ckpts`` backward). Inputs:
     ssh, h, u, the tracers (lattice layout, or None), dt (float or tensor),
-    the forcing's wind and r_lin, Cd, lambda (None unforced), mesh, n_steps,
-    plan, nonlinear, forcing (its level masks), tracer_kappa,
-    tracer_upwind. The mesh, the masks, kappa and upwind get no cotangent
-    (None; the JAX package returns zeros for the mesh and keeps kappa and
-    upwind nondifferentiable)."""
+    the forcing's wind and r_lin, Cd, lambda (None unforced), the
+    stratification's W (None unstratified), mesh, n_steps, plan, nonlinear,
+    forcing (its level masks), tracer_kappa, tracer_upwind, strat (its
+    densities). The mesh, the masks, kappa, upwind and the densities get no
+    cotangent (None; the JAX package returns zeros for the mesh and the
+    densities and keeps kappa and upwind nondifferentiable)."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, tracers, dt, wind, dlin, dquad, rayl, mesh, n_steps, plan=None,
-                nonlinear=False, forcing=None, tracer_kappa=0.0, tracer_upwind=1.0):
+    def forward(ctx, ssh, h, u, tracers, dt, wind, dlin, dquad, rayl, w, mesh, n_steps,
+                plan=None, nonlinear=False, forcing=None, tracer_kappa=0.0, tracer_upwind=1.0,
+                strat=None):
         state = _planes_state(StructState(ssh, h, u, tracers))
         _save_dt(ctx, dt, h.device)
         forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
+        strat = _save_strat(ctx, strat, w)
         group = _plan(state, n_steps, plan)
         ctx.tropts = (tracer_kappa, tracer_upwind)
         final, ckpts = _forward(state, mesh, ctx.dt_v, n_steps, group, nonlinear, forcing,
-                                ctx.tropts)
+                                ctx.tropts, strat=strat)
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.group = ckpts, mesh, n_steps, group
         ctx.nonlinear = nonlinear
         # the end state of the last group, which a tracer reverse reads
@@ -611,12 +674,13 @@ class FusedRolloutDiff(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gs, gh, gu, gtr):
-        rest = (None,) * 7
+        rest = (None,) * 8
         if ctx.n_steps == 0:
             return gs, gh, gu, gtr, *(None,) * (_DIFF_INPUTS - 4), *rest
         like = _lattice_state(_slot(ctx.ckpts, 0))
         g = _output_cotangent(like, (gs, gh, gu, gtr))
-        steps = _steps(ctx.mesh, ctx.dt_v, ctx.ckpts, ctx.nonlinear, ctx.forcing, ctx.tropts)
+        steps = _steps(ctx.mesh, ctx.dt_v, ctx.ckpts, ctx.nonlinear, ctx.forcing, ctx.tropts,
+                       ctx.strat)
         res = _reverse(steps, ctx.ckpts, ctx.n_steps, ctx.group, g, ctx.final)
         return (*_grads(ctx, res), *rest)
 
@@ -624,40 +688,45 @@ class FusedRolloutDiff(torch.autograd.Function):
 def fused_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                        plan: int | None = None, nonlinear: bool = False,
                        forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-                       tracer_upwind: float = 1.0) -> StructState:
+                       tracer_upwind: float = 1.0,
+                       strat: Stratification | None = None) -> StructState:
     """n-step rollout of the linear core, or with ``nonlinear`` of the
     vector-invariant one (periodic, or masked where the mesh has a wall
     mask), forced with ``forcing`` (struct layout), the state's tracers
-    carried with ``tracer_kappa`` and ``tracer_upwind``, differentiable with
-    respect to the state (its tracers among it), a tensor ``dt`` and the
-    forcing's wind and coefficients: the reverse-mode pass through the
-    whole loop, which the reference validates with Enzyme against finite
-    differences. Forward through ``fe_step`` on the card, backward through
-    ``adjoint_step`` (the nonlinear core: the nonlinear reverse kernel;
-    forcing with the nonlinear core, and tracers with the nonlinear core or
-    forcing, raise there). Counterpart of ``pallas_rollout_diff``."""
+    carried with ``tracer_kappa`` and ``tracer_upwind``, stratified with
+    ``strat``, differentiable with respect to the state (its tracers among
+    it), a tensor ``dt``, the forcing's wind and coefficients and the
+    stratification's W: the reverse-mode pass through the whole loop, which
+    the reference validates with Enzyme against finite differences. Forward
+    through ``fe_step`` on the card, backward through ``adjoint_step`` (the
+    nonlinear core: the nonlinear reverse kernel; forcing with the
+    nonlinear core, tracers with the nonlinear core or forcing, and
+    stratification with the nonlinear core, forcing or tracers raise there).
+    Counterpart of ``pallas_rollout_diff``."""
     return StructState(*FusedRolloutDiff.apply(*_state_inputs(state), dt,
-                                               *_forcing_inputs(forcing), mesh, n_steps, plan,
-                                               nonlinear, forcing, tracer_kappa,
-                                               tracer_upwind))
+                                               *_forcing_inputs(forcing), _strat_input(strat),
+                                               mesh, n_steps, plan, nonlinear, forcing,
+                                               tracer_kappa, tracer_upwind, strat))
 
 
 class FusedStep(torch.autograd.Function):
     """One differentiable step: the forward kernel forward, the reverse
     kernel backward. Inputs: ssh, h, u, the tracers (or None), dt, the
-    forcing's wind and coefficients (None unforced), mesh, nonlinear,
-    forcing, tracer_kappa, tracer_upwind."""
+    forcing's wind and coefficients (None unforced), the stratification's W
+    (or None), mesh, nonlinear, forcing, tracer_kappa, tracer_upwind,
+    strat."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, tracers, dt, wind, dlin, dquad, rayl, mesh, nonlinear=False,
-                forcing=None, tracer_kappa=0.0, tracer_upwind=1.0):
+    def forward(ctx, ssh, h, u, tracers, dt, wind, dlin, dquad, rayl, w, mesh, nonlinear=False,
+                forcing=None, tracer_kappa=0.0, tracer_upwind=1.0, strat=None):
         ctx.save_for_backward(ssh, h, u, tracers)
         ctx.mesh, ctx.nonlinear = mesh, nonlinear
         ctx.tropts = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
         _save_dt(ctx, dt, h.device)
         forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
+        strat = _save_strat(ctx, strat, w)
         final = fused_run_loop(StructState(ssh, h, u, tracers), mesh, ctx.dt_v, 1,
-                               nonlinear=nonlinear, forcing=forcing, **ctx.tropts)
+                               nonlinear=nonlinear, forcing=forcing, strat=strat, **ctx.tropts)
         # the step's end state, which a tracer reverse reads
         ctx.final = final if tracers is not None else None
         return _state_inputs(final)
@@ -668,18 +737,20 @@ class FusedStep(torch.autograd.Function):
         state = StructState(*ctx.saved_tensors)
         res = adjoint_segment(state, _output_cotangent(state, (gs, gh, gu, gtr)), ctx.mesh,
                               ctx.dt_v, 1, ctx.nonlinear, ctx.forcing, end=ctx.final,
-                              **ctx.tropts)
-        return (*_grads(ctx, res), *(None,) * 5)
+                              strat=ctx.strat, **ctx.tropts)
+        return (*_grads(ctx, res), *(None,) * 6)
 
 
 def fused_step(state: StructState, mesh: StructMesh, dt, *, nonlinear: bool = False,
                forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-               tracer_upwind: float = 1.0) -> StructState:
+               tracer_upwind: float = 1.0, strat: Stratification | None = None) -> StructState:
     """One differentiable forward-Euler step (of the nonlinear core with
     ``nonlinear``, forced with ``forcing``, the state's tracers with
-    ``tracer_kappa`` and ``tracer_upwind``). Counterpart of ``pallas_step``."""
+    ``tracer_kappa`` and ``tracer_upwind``, stratified with ``strat``, its W
+    differentiated). Counterpart of ``pallas_step``."""
     return StructState(*FusedStep.apply(*_state_inputs(state), dt, *_forcing_inputs(forcing),
-                                        mesh, nonlinear, forcing, tracer_kappa, tracer_upwind))
+                                        _strat_input(strat), mesh, nonlinear, forcing,
+                                        tracer_kappa, tracer_upwind, strat))
 
 
 # The size rule of auto_rollout_diff on the card: lattices of at least this
@@ -697,7 +768,8 @@ TILED_REVERSE_SITES = math.inf
 def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                       plan=None, nonlinear: bool = False,
                       forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-                      tracer_upwind: float = 1.0) -> StructState:
+                      tracer_upwind: float = 1.0,
+                      strat: Stratification | None = None) -> StructState:
     """The differentiable lattice rollout's entry point, the routing half of
     ``pallas_rollout_diff``'s forward (pallas_model.py:2779-2823). A CPU
     state takes ``fused_rollout_diff``, whose plain route runs the plain
@@ -708,12 +780,13 @@ def auto_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     the vector-invariant core through the same routes (the kernels'
     nonlinear arms), ``forcing`` (struct layout, a differentiated input)
     through their forced arms, and the state's tracers (differentiated, with
-    ``tracer_kappa`` and ``tracer_upwind``) through their tracer arms.
+    ``tracer_kappa`` and ``tracer_upwind``) through their tracer arms, and
+    ``strat`` (its W a differentiated input) through their stratified arms.
     ``plan`` is the chosen route's: steps per group for the fused reverse,
     (row_tile, col_tile, q, group) for the tiled one."""
     sites = 2 * mesh.ny2 * mesh.nx
     kw = dict(plan=plan, nonlinear=nonlinear, forcing=forcing, tracer_kappa=tracer_kappa,
-              tracer_upwind=tracer_upwind)
+              tracer_upwind=tracer_upwind, strat=strat)
     if state.layer_thickness.device.type == "cuda" and sites >= TILED_REVERSE_SITES:
         from .tiled_diff import tiled_rollout_diff
 

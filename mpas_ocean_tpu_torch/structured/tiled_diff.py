@@ -47,6 +47,12 @@ the card the tiled adjoint kernel's tracer arm runs them at q = 1, the linear
 unforced core only (a tracer state at q > 1 raises NotImplementedError
 there, as the JAX router takes q = 1 only; the plain superstep runs any q).
 
+Layered stratification (``strat=``, its W a differentiated input, as in
+diff_model) runs the stratified arms on the card at q = 1, the linear,
+unforced, tracer-free core only (a stratified q > 1 raises
+NotImplementedError there; the plain superstep runs any q); the tiled
+reverse accumulates d(W) in double beside d(dt).
+
 Momentum forcing (``forcing=``) runs the forced arms, linear core only on
 the card: the tiled reverse accumulates d(wind) per edge (each tile its
 core's, over its q steps) and d(r_lin, Cd, lambda) in double beside d(dt).
@@ -67,6 +73,7 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import adjoint_step, tiled_adjoint
 from ..models.forcing import Forcing
+from ..models.stratification import Stratification
 from . import fused_model
 from .adjoint import ForcingCot
 from .diff_model import (
@@ -85,9 +92,11 @@ from .diff_model import (
     _reverse,
     _save_dt,
     _save_forcing,
+    _save_strat,
     _slot,
     _state_inputs,
     _Steps,
+    _strat_input,
     adjoint_plan,
     forward_ckpts,
 )
@@ -135,15 +144,18 @@ def reverse_halo(terms, nl_terms=None) -> tuple[int, int]:
 
 
 def adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
-                         itemsize: int, forced: bool = False, n_tracers: int = 0) -> int:
+                         itemsize: int, forced: bool = False, n_tracers: int = 0,
+                         strat: bool = False) -> int:
     """Shared memory of one block of the tiled adjoint kernel: its level
     chunk of q primal states and one cotangent (two at q > 1) over the
     window of 2q - 1 halos per side, with ``n_tracers`` the tracer arm's
     2 n_tracers planes of each (q = 1), and the window's planes without
-    levels and live bits (csrc/tiled_adjoint.cu: ``smem_bytes``)."""
+    levels and live bits, with ``strat`` the stratified arm's (q = 1:
+    ``adjoint_step.strat_smem_bytes``) (csrc/tiled_adjoint.cu:
+    ``smem_bytes``)."""
     sites = tiled_adjoint.window_sites(row_tile, col_tile, q, halo)
     return tiled_adjoint.smem_bytes(sites, row_tile * col_tile, k, q, itemsize, forced,
-                                    n_tracers)
+                                    n_tracers, strat)
 
 
 def forced_adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
@@ -155,7 +167,7 @@ def forced_adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: i
 
 def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *, halo,
                        budget: float = math.inf, row_tile=None, col_tile=None, q=None,
-                       nonlinear: bool = False, n_tracers: int = 0):
+                       nonlinear: bool = False, n_tracers: int = 0, strat: bool = False):
     """(row_tile, col_tile, q, group) for the gradient of an n-step rollout
     on ny2 x nx sites and k levels, ``halo`` from ``reverse_halo``: the
     caller's choices completed by ``tiled_model.resolve_plan`` with the
@@ -164,7 +176,8 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
     ``nonlinear``, q = 1 and ``adjoint_step.nl_adjoint_plan``'s tile among
     those that divide the lattice; with ``n_tracers``, the tracer arm's
     window at q = 1 by default, sized for one block per SM, the arm's launch
-    bounds), and ``group`` supersteps per checkpoint
+    bounds; with ``strat``, the stratified arm's window at q = 1 by
+    default), and ``group`` supersteps per checkpoint
     group from ``diff_model.adjoint_plan`` over n / q supersteps within
     ``budget`` bytes, a state counting its tracer planes."""
     if nonlinear and (row_tile is None or col_tile is None):
@@ -178,6 +191,9 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
         q = 1 if q is None else q
         window = functools.partial(adjoint_window_bytes, n_tracers=n_tracers)
         budgets = (tiled_adjoint.SMEM_BYTES,)
+    elif strat:  # the stratified arm runs q = 1
+        q = 1 if q is None else q
+        window = functools.partial(adjoint_window_bytes, strat=True)
     rt, ct, q = resolve_plan(ny2, nx, k, itemsize, halo, n_steps, row_tile, col_tile, q,
                              window=window, budgets=budgets)
     state_bytes = itemsize * 2 * ny2 * nx * (1 + 4 * k + n_tracers * k)
@@ -188,11 +204,13 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
 def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: StructMesh,
                                   dt, row_tile: int, col_tile: int, q: int,
                                   nonlinear: bool = False, forcing: Forcing | None = None, *,
-                                  tracer_kappa: float = 0.0, tracer_upwind: float = 1.0):
+                                  tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+                                  strat: Stratification | None = None):
     """The tiled adjoint kernel's plain version, one reverse superstep of q
     forward-Euler steps (of the nonlinear core with ``nonlinear``, forced
     with ``forcing``, the state's tracers with ``tracer_kappa`` and
-    ``tracer_upwind`` rounded to the state dtype): cut the primal ``state``
+    ``tracer_upwind`` rounded to the state dtype, stratified with ``strat``,
+    W cast to the state dtype): cut the primal ``state``
     at the superstep start into halo-padded windows and the cotangent
     ``cot`` at its end into the tiles' cores, take ``torch.func.vjp`` of
     ``slab.window_steps`` over all windows as one batch (dt a 0-d tensor;
@@ -200,9 +218,11 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
     planes as h, the cell mask as rts), and overlap-add the windows'
     cotangents onto the lattice (``tiled_model.halo_unscatter``). Returns
     (cotangent at the superstep start, its tracers' in the lattice layout,
-    d(dt) as a 0-d tensor in the state dtype), and with forcing a
-    ForcingCot third (d(wind) (3, 2, ny2, nx) overlap-added the same way,
-    d(r_lin, Cd, lambda)). It is what the TPU kernel and its caller compute
+    d(dt) as a 0-d tensor in the state dtype), with forcing a ForcingCot
+    third (d(wind) (3, 2, ny2, nx) overlap-added the same way, d(r_lin, Cd,
+    lambda)), with ``strat`` d(W) (K, K) in the state dtype last (W, one
+    input of every window, gathers all their cotangents, as the TPU's
+    per-tile d(W) summed). It is what the TPU kernel and its caller compute
     together (pallas_model.py:2528-2553), by autograd rather than by the
     hand-written transpose the kernels run."""
     ny2, nx = mesh.ny2, mesh.nx
@@ -227,7 +247,8 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
     # the forcing's differentiable parts (wind windows, coefficients) ride
     # the vjp as inputs; its level windows as constants
     diff_forc = () if forc_w is None else (forc_w[0], *forc_w[2:])
-    with_tr = state.tracers is not None
+    with_tr, with_w = state.tracers is not None, strat is not None
+    w_in = (fused_model.kernel_strat(strat, dtype, h.device),) if with_w else ()
     tr_kw = {}
     if with_tr:
         cm = mesh.cell_mask
@@ -235,44 +256,49 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
                      cmask_full=None if cm is None else win(cm.to(dtype).reshape(2, ny2, nx, 1)))
 
     def steps(ssh, h, u, d, *rest):
-        tr, fz = (rest[0], rest[1:]) if with_tr else (None, rest)
+        tr, rest = (rest[0], rest[1:]) if with_tr else (None, rest)
+        w, fz = (rest[0], rest[1:]) if with_w else (None, rest)
         forc = None if forc_w is None else (fz[0], forc_w[1], *fz[1:])
         return window_steps(ssh, h, u, f_w, rts_w, d, inv_dc, s_div, mesh.coriolis_terms,
                             rows=row_tile, cols=col_tile, q=q, halo=halo, mask_full=mask_w,
-                            fv_full=fv_w, nl=nl, forc_full=forc, tr=tr, **tr_kw)
+                            fv_full=fv_w, nl=nl, forc_full=forc, tr=tr, strat_w=w, **tr_kw)
 
     tr_in = (win(fused_model.tracer_planes(state.tracers)),) if with_tr else ()
     _, vjp = torch.func.vjp(
         steps, win(state.ssh[..., None]), win(h),
         win(state.normal_velocity.reshape(6, ny2, nx, k)),
-        torch.tensor(dt_, dtype=dtype, device=h.device), *tr_in, *diff_forc)
+        torch.tensor(dt_, dtype=dtype, device=h.device), *tr_in, *w_in, *diff_forc)
     g_out = (core(cot.ssh[..., None].to(dtype)), core(cot.layer_thickness.to(dtype)),
              core(cot.normal_velocity.to(dtype).reshape(6, ny2, nx, k)))
     if with_tr:
         g_tr = cot.tracers if cot.tracers is not None else torch.zeros_like(state.tracers)
         g_out += (core(fused_model.tracer_planes(g_tr.to(dtype))),)
     d_ssh, d_h, d_u, d_dt, *rest = vjp(g_out)
-    d_tr, d_forc = (rest[0], rest[1:]) if with_tr else (None, rest)
+    d_tr, rest = (rest[0], rest[1:]) if with_tr else (None, rest)
+    d_w, d_forc = ((rest[0],), rest[1:]) if with_w else ((), rest)
     back = lambda w: halo_unscatter(w, ny2, nx, hm, hi)
     d_state = StructState(ssh=back(d_ssh)[..., 0], layer_thickness=back(d_h),
                           normal_velocity=back(d_u).reshape(3, 2, ny2, nx, k),
                           tracers=None if d_tr is None
                           else fused_model.tracer_unplanes(back(d_tr)))
     if forcing is None:
-        return d_state, d_dt
-    return d_state, d_dt, ForcingCot(back(d_forc[0]).reshape(3, 2, ny2, nx),
-                                     torch.stack(d_forc[1:]))
+        return (d_state, d_dt, *d_w)
+    return (d_state, d_dt, ForcingCot(back(d_forc[0]).reshape(3, 2, ny2, nx),
+                                      torch.stack(d_forc[1:])), *d_w)
 
 
-def _check_nl_q(plan, nonlinear: bool, device, tracers: bool = False) -> None:
+def _check_nl_q(plan, nonlinear: bool, device, tracers: bool = False,
+                strat: bool = False) -> None:
     """The card's nonlinear tiled reverse runs q = 1 only (ValueError), and
-    so does its tracer arm (NotImplementedError: q > 1 is still to port)."""
+    so do its tracer and stratified arms (NotImplementedError: q > 1 is
+    still to port)."""
     if nonlinear and device.type == "cuda" and plan[2] != 1:
         raise ValueError(f"the nonlinear tiled reverse runs q = 1 on the card, not q = "
                          f"{plan[2]}")
-    if tracers and device.type == "cuda" and plan[2] != 1:
-        raise NotImplementedError(f"the tiled reverse's tracer arm runs q = 1 on the card, "
-                                  f"not q = {plan[2]}; run q = 1, or on the CPU")
+    for arm, on in (("tracer", tracers), ("stratified", strat)):
+        if on and device.type == "cuda" and plan[2] != 1:
+            raise NotImplementedError(f"the tiled reverse's {arm} arm runs q = 1 on the card, "
+                                      f"not q = {plan[2]}; run q = 1, or on the CPU")
 
 
 class _TiledSteps(_Steps):
@@ -283,10 +309,12 @@ class _TiledSteps(_Steps):
     reverse)."""
 
     def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, plan, nonlinear: bool = False,
-                 forcing: Forcing | None = None, **tracer_kw):
-        _check_nl_q(plan, nonlinear, like.device, tracer_kw.get("tracers", False))
+                 forcing: Forcing | None = None, strat: Stratification | None = None,
+                 **tracer_kw):
+        _check_nl_q(plan, nonlinear, like.device, tracer_kw.get("tracers", False),
+                    strat is not None)
         super().__init__(mesh, dt, like, nonlinear, nl_tile=tuple(plan[:2]), forcing=forcing,
-                         **tracer_kw)
+                         strat=strat, **tracer_kw)
         self.rt, self.ct, self.q, _ = plan
         nl_terms, _ = _nl_args(mesh, like.dtype, nonlinear)
         self.halo = reverse_halo(mesh.coriolis_terms, nl_terms)
@@ -305,9 +333,10 @@ class _TiledSteps(_Steps):
     def reverse(self, stack: StructState, g: StructState, n: int, ddt: torch.Tensor,
                 out: StructState, scratch: StructState, end: StructState | None = None):
         """n >= 1 reverse supersteps through the stack's slots n - 1 .. 0,
-        from the cotangent g at the end into out; d(dt) is added to ddt, and
-        with forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``. With
-        tracers on the card, ``end`` is the state after slot n - 1."""
+        from the cotangent g at the end into out; d(dt) is added to ddt, with
+        forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``, with
+        stratification d(W) to ``dstrat``. With tracers on the card, ``end``
+        is the state after slot n - 1."""
         if self.cuda and self.nonlinear:
             super().reverse(stack, g, n, ddt, out, scratch, end)
             return
@@ -316,22 +345,23 @@ class _TiledSteps(_Steps):
                 _fields(stack)[:3], _fields(g), *self.tiled_adj, *self.scal, n, ddt,
                 _fields(out), _fields(scratch), row_tile=self.rt, col_tile=self.ct,
                 q=self.q, halo=self.halo, live=self.live, forcing=self.kf, dforc=self.dforc,
-                tracers=self.kernel_tracers(stack.tracers), end=_end(end, self.tracers))
+                tracers=self.kernel_tracers(stack.tracers), end=_end(end, self.tracers),
+                strat_w=self.sw, dstrat=self.dstrat)
             return
         for j in reversed(range(n)):
             res = plain_tiled_adjoint_superstep(
                 _lattice_state(_slot(stack, j)), _lattice_state(g), self.mesh, self.dt,
                 self.rt, self.ct, self.q, self.nonlinear, self.forcing,
-                tracer_kappa=self.kappa, tracer_upwind=self.upwind)
+                tracer_kappa=self.kappa, tracer_upwind=self.upwind, strat=self.strat)
             g = _planes_state(res[0])
             ddt += res[1]
-            if self.forcing is not None:
-                self.add_forcing_cot(res[2])
+            self.add_plain_cots(res)
         for dst, x in zip(_fields(out), _fields(g)):
             dst.copy_(x)
 
 
-def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan, nonlinear: bool):
+def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan, nonlinear: bool,
+          strat: bool = False):
     if plan:
         return tuple(plan)
     h = state.layer_thickness
@@ -340,11 +370,12 @@ def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan, nonlinear: b
     return tiled_adjoint_plan(mesh.ny2, mesh.nx, h.shape[-1], h.element_size(), n_steps,
                               halo=reverse_halo(mesh.coriolis_terms, nl_terms),
                               budget=_default_budget(h.device), nonlinear=nonlinear,
-                              n_tracers=n_tr)
+                              n_tracers=n_tr, strat=strat)
 
 
-def _tiled_steps(mesh, dt, state: StructState, plan, nonlinear, forcing, tropts) -> _TiledSteps:
-    return _TiledSteps(mesh, dt, state.layer_thickness, plan, nonlinear, forcing,
+def _tiled_steps(mesh, dt, state: StructState, plan, nonlinear, forcing, tropts,
+                 strat=None) -> _TiledSteps:
+    return _TiledSteps(mesh, dt, state.layer_thickness, plan, nonlinear, forcing, strat,
                        tracers=state.tracers is not None, tracer_kappa=tropts[0],
                        tracer_upwind=tropts[1])
 
@@ -352,20 +383,23 @@ def _tiled_steps(mesh, dt, state: StructState, plan, nonlinear, forcing, tropts)
 def tiled_adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: int,
                              plan, g: StructState, nonlinear: bool = False,
                              forcing: Forcing | None = None, *, final: StructState | None = None,
-                             tracer_kappa: float = 0.0, tracer_upwind: float = 1.0) -> tuple:
+                             tracer_kappa: float = 0.0, tracer_upwind: float = 1.0,
+                             strat: Stratification | None = None) -> tuple:
     """The tiled reverse sweep from the checkpoints that
     ``forward_ckpts(state, mesh, dt, n_steps, group * q, nonlinear, forcing)``
     kept, for ``plan`` = (row_tile, col_tile, q, group): per group, last to
     first, rebuild its superstep-start states and reverse them one superstep
-    per launch (the tracers with ``tracer_kappa`` and ``tracer_upwind``;
-    ``final`` as for ``diff_model.adjoint_from_ckpts``). Returns (cotangent
-    of the rollout's input, d(dt) as a 0-d float64 tensor), and with forcing
-    the ForcingCot third. Counterpart of ``_tiled_adjoint_from_ckpts``."""
+    per launch (the tracers with ``tracer_kappa`` and ``tracer_upwind``,
+    stratified with ``strat``; ``final`` as for
+    ``diff_model.adjoint_from_ckpts``). Returns (cotangent of the rollout's
+    input, d(dt) as a 0-d float64 tensor), with forcing the ForcingCot
+    third, with ``strat`` d(W) (K, K) in float64 last. Counterpart of
+    ``_tiled_adjoint_from_ckpts``."""
     _, _, q, group = plan
     if n_steps % q:
         raise ValueError(f"q={q} must divide n_steps={n_steps}")
     steps = _tiled_steps(mesh, dt, ckpts, plan, nonlinear, forcing,
-                         (tracer_kappa, tracer_upwind))
+                         (tracer_kappa, tracer_upwind), strat)
     return _reverse(steps, ckpts, n_steps // q, group, g,
                     None if final is None else _planes_state(final))
 
@@ -373,22 +407,25 @@ def tiled_adjoint_from_ckpts(ckpts: StructState, mesh: StructMesh, dt, n_steps: 
 def tiled_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int,
                           g: StructState, *, plan=None, nonlinear: bool = False,
                           forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-                          tracer_upwind: float = 1.0):
+                          tracer_upwind: float = 1.0, strat: Stratification | None = None):
     """VJP of an n-step rollout (of the nonlinear core with ``nonlinear``,
     forced with ``forcing``, the state's tracers with ``tracer_kappa`` and
-    ``tracer_upwind``) through the tiled reverse: given its input ``state``
-    and an output cotangent ``g``, returns (d_state, d_dt), d_dt as a 0-d
-    tensor in dt's dtype (float64 for a Python dt), and with forcing the
-    ForcingCot third. ``plan`` = (row_tile, col_tile, q, group) overrides
+    ``tracer_upwind``, stratified with ``strat``) through the tiled reverse:
+    given its input ``state`` and an output cotangent ``g``, returns
+    (d_state, d_dt), d_dt as a 0-d tensor in dt's dtype (float64 for a
+    Python dt), with forcing the ForcingCot third, and with ``strat`` d(W)
+    (K, K) in float64 last, as ``_pallas_tiled_adjoint`` returns
+    d_strat_w. ``plan`` = (row_tile, col_tile, q, group) overrides
     ``tiled_adjoint_plan``. Counterpart of ``_pallas_tiled_adjoint``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
-    plan = _plan(state, mesh, n_steps, plan, nonlinear)
-    _check_nl_q(plan, nonlinear, state.layer_thickness.device, state.tracers is not None)
-    tr = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind)
+    plan = _plan(state, mesh, n_steps, plan, nonlinear, strat is not None)
+    _check_nl_q(plan, nonlinear, state.layer_thickness.device, state.tracers is not None,
+                strat is not None)
+    kw = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind, strat=strat)
     final, ckpts = forward_ckpts(state, mesh, dt, n_steps, plan[2] * plan[3], nonlinear,
-                                 forcing, **tr)
+                                 forcing, **kw)
     res = tiled_adjoint_from_ckpts(ckpts, mesh, dt, n_steps, plan, g, nonlinear, forcing,
-                                   final=final, **tr)
+                                   final=final, **kw)
     return (res[0], res[1].to(dtype=dtype, device=device), *res[2:])
 
 
@@ -396,24 +433,28 @@ class TiledRolloutDiff(torch.autograd.Function):
     """n-step rollout whose backward is the tiled reverse sweep
     (``forward_ckpts`` forward, ``tiled_adjoint_from_ckpts`` backward).
     Inputs: ssh, h, u, the tracers (or None), dt (float or tensor), the
-    forcing's wind and r_lin, Cd, lambda (None unforced), mesh, n_steps,
-    plan, nonlinear, forcing (its level masks), tracer_kappa,
-    tracer_upwind. The mesh, the masks, kappa and upwind get no
+    forcing's wind and r_lin, Cd, lambda (None unforced), the
+    stratification's W (or None), mesh, n_steps, plan, nonlinear, forcing
+    (its level masks), tracer_kappa, tracer_upwind, strat (its densities).
+    The mesh, the masks, kappa, upwind and the densities get no
     cotangent."""
 
     @staticmethod
-    def forward(ctx, ssh, h, u, tracers, dt, wind, dlin, dquad, rayl, mesh, n_steps, plan=None,
-                nonlinear=False, forcing=None, tracer_kappa=0.0, tracer_upwind=1.0):
+    def forward(ctx, ssh, h, u, tracers, dt, wind, dlin, dquad, rayl, w, mesh, n_steps,
+                plan=None, nonlinear=False, forcing=None, tracer_kappa=0.0, tracer_upwind=1.0,
+                strat=None):
         state = _planes_state(StructState(ssh, h, u, tracers))
         _save_dt(ctx, dt, h.device)
         forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
-        plan = _plan(StructState(ssh, h, u, tracers), mesh, n_steps, plan, nonlinear)
+        strat = _save_strat(ctx, strat, w)
+        plan = _plan(StructState(ssh, h, u, tracers), mesh, n_steps, plan, nonlinear,
+                     strat is not None)
         if n_steps % plan[2]:
             raise ValueError(f"q={plan[2]} must divide n_steps={n_steps}")
-        _check_nl_q(plan, nonlinear, h.device, tracers is not None)
+        _check_nl_q(plan, nonlinear, h.device, tracers is not None, strat is not None)
         ctx.tropts = (tracer_kappa, tracer_upwind)
         final, ckpts = _forward(state, mesh, ctx.dt_v, n_steps, plan[2] * plan[3], nonlinear,
-                                forcing, ctx.tropts)
+                                forcing, ctx.tropts, strat=strat)
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.plan = ckpts, mesh, n_steps, plan
         ctx.nonlinear = nonlinear
         ctx.final = final if tracers is not None else None
@@ -422,13 +463,13 @@ class TiledRolloutDiff(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gs, gh, gu, gtr):
-        rest = (None,) * 7
+        rest = (None,) * 8
         if ctx.n_steps == 0:
             return gs, gh, gu, gtr, *(None,) * (_DIFF_INPUTS - 4), *rest
         like = _lattice_state(_slot(ctx.ckpts, 0))
         g = _output_cotangent(like, (gs, gh, gu, gtr))
         steps = _tiled_steps(ctx.mesh, ctx.dt_v, ctx.ckpts, ctx.plan, ctx.nonlinear, ctx.forcing,
-                             ctx.tropts)
+                             ctx.tropts, ctx.strat)
         res = _reverse(steps, ctx.ckpts, ctx.n_steps // ctx.plan[2], ctx.plan[3], g, ctx.final)
         return (*_grads(ctx, res), *rest)
 
@@ -436,20 +477,23 @@ class TiledRolloutDiff(torch.autograd.Function):
 def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                        plan=None, nonlinear: bool = False,
                        forcing: Forcing | None = None, tracer_kappa: float = 0.0,
-                       tracer_upwind: float = 1.0) -> StructState:
+                       tracer_upwind: float = 1.0,
+                       strat: Stratification | None = None) -> StructState:
     """n-step rollout of the linear core, or with ``nonlinear`` of the
     vector-invariant one (periodic, or masked where the mesh has a wall
     mask), forced with ``forcing`` (struct layout), the state's tracers
-    carried with ``tracer_kappa`` and ``tracer_upwind``, differentiable with
-    respect to the state (its tracers among it), a tensor ``dt`` and the
-    forcing's wind and coefficients, with the tiled reverse: forward through
-    ``fe_step`` on the card, backward through ``tiled_adjoint`` (nonlinear:
-    the nonlinear reverse kernel, q = 1; a nonlinear q > 1 or a tracer
-    state at q > 1, forcing with the nonlinear core, and tracers with the
-    nonlinear core or forcing raise on the card). ``plan`` = (row_tile,
+    carried with ``tracer_kappa`` and ``tracer_upwind``, stratified with
+    ``strat``, differentiable with respect to the state (its tracers among
+    it), a tensor ``dt``, the forcing's wind and coefficients and the
+    stratification's W, with the tiled reverse: forward through ``fe_step``
+    on the card, backward through ``tiled_adjoint`` (nonlinear: the
+    nonlinear reverse kernel, q = 1; a nonlinear q > 1, a tracer state or
+    stratification at q > 1, forcing with the nonlinear core, tracers with
+    the nonlinear core or forcing, and stratification with the nonlinear
+    core, forcing or tracers raise on the card). ``plan`` = (row_tile,
     col_tile, q, group) overrides ``tiled_adjoint_plan``. The tiled arm of
     ``pallas_rollout_diff``."""
     return StructState(*TiledRolloutDiff.apply(*_state_inputs(state), dt,
-                                               *_forcing_inputs(forcing), mesh, n_steps, plan,
-                                               nonlinear, forcing, tracer_kappa,
-                                               tracer_upwind))
+                                               *_forcing_inputs(forcing), _strat_input(strat),
+                                               mesh, n_steps, plan, nonlinear, forcing,
+                                               tracer_kappa, tracer_upwind, strat))

@@ -247,15 +247,20 @@ def test_a_mesh_without_vertex_constants_raises(periodic8):
     structured_run_loop(st_p, bare, DT, 2)  # the linear core needs none
 
 
-@pytest.mark.parametrize("nonlinear, tracers", [pytest.param(False, False, id="False"),
-                                                pytest.param(True, False, id="True"),
-                                                pytest.param(False, True, id="tracers")])
-def test_fb_gradient_matches_jax_grad(nonlinear, tracers, periodic8):
+@pytest.mark.parametrize("nonlinear, tracers, strat",
+                         [pytest.param(False, False, False, id="False"),
+                          pytest.param(True, False, False, id="True"),
+                          pytest.param(False, True, False, id="tracers"),
+                          pytest.param(False, False, True, id="strat")])
+def test_fb_gradient_matches_jax_grad(nonlinear, tracers, strat, periodic8):
     """The forward-backward gradient: torch.autograd through the plain
     structured_run_loop(fb=True) against jax.grad of the JAX package's, the
     objective sum ssh^2 over 6 steps (with ``tracers``, two tracers carried
-    with kappa 5 and upwind 0.5 and sum T^2 added), w.r.t. the state (its
-    tracers among it) and dt, to 1e-12."""
+    with kappa 5 and upwind 0.5 and sum T^2 added; with ``strat``, a dense
+    random W of the layered stratification), w.r.t. the state (its tracers
+    among it), dt and W, to 1e-12."""
+    from mpas_ocean_tpu.models.stratification import Stratification as JaxStratification
+
     smj, smp, st_j, st_p = periodic8[:4]
     fields, kw = FIELDS, {}
     if tracers:
@@ -263,26 +268,37 @@ def test_fb_gradient_matches_jax_grad(nonlinear, tracers, periodic8):
 
         smj, smp, st_j, st_p = tracer_lattice(8, 2)[:4]
         fields, kw = FIELDS + ("tracers",), dict(tracer_kappa=5.0, tracer_upwind=0.5)
+    k = st_p.layer_thickness.shape[-1]
+    w0 = 0.05 * np.random.default_rng(13).normal(size=(k, k))
+    rho = np.full(k, 1025.0)
 
     def objective(out, total):
         return total(out.ssh ** 2) + (total(out.tracers ** 2) if tracers else 0.0)
 
-    def jax_obj(s, t):
+    def jax_obj(s, t, w):
+        sw = JaxStratification(phi_weights=w, densities=jnp.asarray(rho)) if strat else None
         return objective(jax_run_loop(s, smj.struct_mesh, t, 6, nonlinear=nonlinear, fb=True,
-                                      **kw), jnp.sum)
+                                      strat=sw, **kw), jnp.sum)
 
-    g_j, gdt_j = jax.grad(jax_obj, argnums=(0, 1))(st_j, jnp.float64(DT))
+    g_j, gdt_j, gw_j = jax.grad(jax_obj, argnums=(0, 1, 2))(st_j, jnp.float64(DT),
+                                                            jnp.asarray(w0))
     leaves = [getattr(st_p, f).clone().requires_grad_(True) for f in fields]
     t = torch.tensor(DT, dtype=torch.float64, requires_grad=True)
+    w = torch.tensor(w0, requires_grad=True)
+    sp = mt.models.Stratification(w, torch.from_numpy(rho)) if strat else None
     obj = objective(structured_run_loop(StructState(*leaves), smp.struct_mesh, t, 6,
-                                        nonlinear=nonlinear, fb=True, **kw), torch.sum)
+                                        nonlinear=nonlinear, fb=True, strat=sp, **kw), torch.sum)
     # FB reads no ssh (it takes the pressure of the fresh one): its gradient is 0
-    grads = torch.autograd.grad(obj, [*leaves, t], allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, [*leaves, t])]
+    grads = torch.autograd.grad(obj, [*leaves, t, w], allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, [*leaves, t, w])]
     for got, f in zip(grads, fields):
         want = np.asarray(getattr(g_j, f))
         assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max(), f
-    assert abs(float(grads[-1]) - float(gdt_j)) <= 1e-12 * abs(float(gdt_j))
+    assert abs(float(grads[-2]) - float(gdt_j)) <= 1e-12 * abs(float(gdt_j))
+    if strat:
+        want = np.asarray(gw_j)
+        assert np.abs(want).max() > 0
+        assert np.abs(grads[-1].numpy() - want).max() <= 1e-12 * np.abs(want).max()
 
 
 # ---- windows and planners ------------------------------------------------------

@@ -1,8 +1,9 @@
 """Shared inputs for the port's tests on a CUDA card
 (tests/test_torch_kernel.py, tests/test_torch_adjoint_kernel.py,
 tests/test_torch_tiled_kernel.py, tests/test_torch_tiled_adjoint_kernel.py,
-tests/test_torch_peaks.py, tests/test_torch_tracer_kernel.py). They import
-no JAX, so they run on a GPU machine without it."""
+tests/test_torch_peaks.py, tests/test_torch_tracer_kernel.py,
+tests/test_torch_strat_adjoint_kernel.py and the others of the kernels'
+arms). They import no JAX, so they run on a GPU machine without it."""
 
 import numpy as np
 import pytest
@@ -549,3 +550,150 @@ def stratification(k, kind="rho", dtype=np.float64, seed=13):
     w = 0.05 * np.random.default_rng(seed).normal(size=(k, k))
     return mt.models.stratification_from_numpy(
         {"phi_weights": w.astype(dtype), "densities": np.full(k, 1025.0, dtype=dtype)})
+
+
+# ---- the stratified reverse (tests/test_torch_strat_adjoint_kernel.py) -----
+
+def strat_stack(st, mesh, dt, n, strat):
+    """n + 1 primal states of ``st`` by fe_fill_stack's stratified arm, slot
+    j after j steps: (the (ssh, h, u) stack of slots 0 .. n - 1, W as the
+    kernels take it (``fused_model.kernel_strat``), the state of slot n)."""
+    from mpas_ocean_tpu_torch.kernels import fe_step
+    from mpas_ocean_tpu_torch.structured import fused_model
+
+    dtype, device = st.layer_thickness.dtype, st.ssh.device
+    w = fused_model.kernel_strat(strat, dtype, device)
+    full = tuple(torch.empty((n + 1, *getattr(st, f).shape), dtype=dtype, device=device)
+                 for f in FIELDS)
+    for dst, f in zip(full, FIELDS):
+        dst[0].copy_(getattr(st, f))
+    fe_step.fe_fill_stack(full, mesh.f_edge.to(dtype).contiguous(),
+                          mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil,
+                          *fused_model._scal(mesh, dt, dtype), n,
+                          live=fused_model.kernel_live(mesh), strat_w=w)
+    return tuple(x[:n] for x in full), w, tuple(x[n] for x in full)
+
+
+def strat_reverse(stack, w, g, mesh, dt, n, tile=None, strat=True):
+    """n reverse steps through the stack (``strat_stack``'s) from the
+    cotangent g (ssh, h, u): adjoint_step's stratified arm for ``tile`` None,
+    tiled_adjoint's at q = 1 over ``tile`` = (rows, columns) otherwise; with
+    ``strat`` False the unstratified arm on the same states. Returns
+    (cotangent, d(dt), d(W) or None) as f64."""
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.structured import StructState, fused_model
+    from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
+
+    dtype, device = stack[1].dtype, stack[1].device
+    k = stack[1].shape[-1]
+    ddt = torch.zeros(1, dtype=torch.float64, device=device)
+    dw = torch.zeros((k, k), dtype=torch.float64, device=device) if strat else None
+    gk = tuple(getattr(g, f).to(dtype).contiguous() for f in FIELDS)
+    kw = dict(live=fused_model.kernel_live(mesh), strat_w=w if strat else None, dstrat=dw)
+    scal = fused_model._scal(mesh, dt, dtype)
+    f_edge = mesh.f_edge.to(dtype).contiguous()
+    if tile is None:
+        out = adjoint_step.adjoint_rollout(stack, gk, f_edge, *mesh.host_adjoint_stencil, *scal,
+                                           n, ddt, **kw)
+    else:
+        out = tiled_adjoint.tiled_adjoint_rollout(
+            stack, gk, f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
+            *mesh.host_stencil, *mesh.host_adjoint_stencil, *scal, n, ddt, row_tile=tile[0],
+            col_tile=tile[1], q=1, halo=reverse_halo(mesh.coriolis_terms), **kw)
+    return StructState(*(x.double() for x in out[:3])), ddt[0], dw
+
+
+def plain_strat_reverse(stack, w, g, mesh, dt, n, dtype=None, store=None):
+    """The plain stratified reverse (``structured_adjoint_step(strat=)``, W
+    as the kernels take it) back through the stack's slots n - 1 .. 0 from
+    g, in ``dtype`` (the stack's by default), each step's cotangent passed
+    through ``store`` (the bf16 control): ((cotangent, d(dt), d(W)) as f64,
+    d(W)'s Cauchy-Schwarz scale max over (l, k) of sum over the steps and
+    cells of |h[c, l]| |dPhi[c, k]|, a sum whose terms cancel, and the float
+    accumulator control: d(W) with each step's sum over the cells in
+    ``dtype`` where the plain reverse sums it in double)."""
+    from mpas_ocean_tpu_torch.models import Stratification
+    from mpas_ocean_tpu_torch.structured import StructState, pressure_transpose
+    from mpas_ocean_tpu_torch.structured import structured_adjoint_step
+
+    dtype = dtype or stack[1].dtype
+    k = stack[1].shape[-1]
+    strat = Stratification(w.to(dtype), torch.zeros(k, dtype=dtype, device=w.device))
+    eye = {t: Stratification(torch.eye(k, dtype=t, device=w.device), strat.densities)
+           for t in (torch.float64, dtype)}
+    g = StructState(*(getattr(g, f).to(dtype) for f in FIELDS))
+    ddt = torch.zeros((), dtype=torch.float64, device=w.device)
+    dw, dw_float, w_scale = (torch.zeros((k, k), dtype=torch.float64, device=w.device)
+                             for _ in range(3))
+    for j in reversed(range(n)):
+        s = StructState(*(x[j].to(dtype) for x in stack))
+        gu = g.normal_velocity
+        if mesh.edge_mask is not None:
+            gu = gu * mesh.edge_mask[..., None].to(dtype)
+        h = s.layer_thickness.reshape(-1, k)
+        d_phi, _ = pressure_transpose(s.layer_thickness.double(), gu.double(), dt, mesh,
+                                      eye[torch.float64])
+        w_scale += h.double().abs().T @ d_phi.abs().reshape(-1, k)
+        d_phi, _ = pressure_transpose(s.layer_thickness, gu, dt, mesh, eye[dtype])
+        dw_float += (h.T @ d_phi.reshape(-1, k)).double()
+        g, dd, d = structured_adjoint_step(s, g, mesh, dt, strat=strat)
+        if store is not None:
+            g = StructState(*(store(getattr(g, f)) for f in FIELDS))
+        ddt, dw = ddt + dd.double(), dw + d.double()
+    return ((StructState(*(getattr(g, f).double() for f in FIELDS)), ddt, dw),
+            float(w_scale.max()), dw_float)
+
+
+def integer_strat_case(n, k, device, seed=31):
+    """One f32 reverse step whose d(W) sums are exact in double: the
+    periodic n x n lattice at 1024 m spacing, h = 2^20 + integers 0 .. 1023,
+    u and ssh 0, the cotangent of u integers -7 .. 7 (the others 0); with
+    dt = 1 s every product h dPhi and every sum of them in double is exact,
+    and the same sums in float are not. Returns (StructMesh, the one-slot
+    (ssh, h, u) stack, the cotangent)."""
+    from mpas_ocean_tpu_torch.structured import StructState
+
+    horz = mt.planar_hex_mesh(n, n, 1024.0, f0=1e-4, dtype=np.float32)
+    vert = mt.make_vertical_mesh(horz, k, resting_thickness=np.full(
+        (horz.n_cells, k), 2.0 ** 20, dtype=np.float32), dtype=np.float32)
+    model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n, device=device)
+    rng = np.random.default_rng(seed)
+    h = (2.0 ** 20 + rng.integers(0, 1024, size=(horz.n_cells, k))).astype(np.float32)
+    st = model.to_struct(mt.PrognosticVars(
+        ssh=torch.zeros(horz.n_cells), layer_thickness=torch.from_numpy(h),
+        normal_velocity=torch.zeros(horz.n_edges, k)))
+    gu = rng.integers(-7, 8, size=tuple(st.normal_velocity.shape)).astype(np.float32)
+    g = StructState(torch.zeros_like(st.ssh), torch.zeros_like(st.layer_thickness),
+                    torch.from_numpy(gu).to(st.normal_velocity))
+    return model.struct_mesh, tuple(getattr(st, f)[None].contiguous() for f in FIELDS), g
+
+
+def strat_ddt_scale(st, mesh, dt, n, g, strat) -> float:
+    """The Cauchy-Schwarz scale of d(dt) = <g, d(state_n)/d(dt)> after n
+    stratified steps from ``st``: sum over the fields of |g| |d(state_n)/d(dt)|,
+    the tangent by forward-mode AD of the plain rollout."""
+    from mpas_ocean_tpu_torch.structured import structured_run_loop
+
+    def rollout(d):
+        out = structured_run_loop(st, mesh, d, n, strat=strat)
+        return tuple(getattr(out, f) for f in FIELDS)
+
+    one = torch.ones((), dtype=st.ssh.dtype, device=st.ssh.device)
+    _, tang = torch.func.jvp(rollout, (dt * one,), (one,))
+    return sum(float(torch.linalg.vector_norm(getattr(g, f).double())
+                     * torch.linalg.vector_norm(t.double())) for f, t in zip(FIELDS, tang))
+
+
+def strat_reverse_errors(a, b, ddt_scale, w_scale) -> dict:
+    """{cotangent: (max |a - b|, over its scale)} of two (cotangent, d(dt),
+    d(W)) results: the fields' scale max |b|, d(dt)'s and d(W)'s the
+    Cauchy-Schwarz scales given."""
+    out = {}
+    for f in FIELDS:
+        e = float((getattr(a[0], f) - getattr(b[0], f)).abs().max())
+        out[f] = (e, e / float(getattr(b[0], f).abs().max()))
+    e = abs(float(a[1]) - float(b[1]))
+    out["d_dt"] = (e, e / ddt_scale)
+    e = float((a[2] - b[2]).abs().max())
+    out["d_w"] = (e, e / w_scale)
+    return out
