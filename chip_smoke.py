@@ -95,8 +95,9 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      with bitwise reruns and controls; uniform T, conserved content,
      monotone upwinding and culled cells on the card; f32 100-step checks
      on bench.py's tracers at 64^2 and 256^2 with a bf16 control; the
-     refusals (nonlinear or forced with tracers, forward and reverse; the
-     tiled reverse with tracers at q > 1); the main paths from to_struct
+     refusals (nonlinear or forced with tracers in the gradient, which the
+     forward runs since phase 19; the tiled reverse with tracers at q > 1);
+     the main paths from to_struct
      (bench.py's two-tracer 64x64x100 FE rollout over 8000 steps,
      256x256x100 FE and FB, the 64^2 channel FE with kappa 5) with exact
      launch counts, timed beside the tracer-free arm with their bounds.
@@ -124,8 +125,9 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      bitwise reruns and the unstratified arm as a control; equal densities
      against the unstratified arm and the two-layer internal wave (FB over
      half a period) on the card; f32 100-step checks on bench.py's cell and
-     the 64^2 channel with a bf16 control; the refusals (stratification with
-     the nonlinear core, forcing or tracers); the main path, bench.py's
+     the 64^2 channel with a bf16 control; the refusals (the gradient with
+     stratification and the nonlinear core, forcing or tracers, which the
+     forward runs since phase 19); the main path, bench.py's
      baroclinic 64x64x100 FE rollout over 8000 steps from to_struct with
      exact launch counts, and FB 64^2, FE and FB 256^2 and the 64^2 channel
      FE over 1000, timed beside the unstratified arm with their bounds.
@@ -147,7 +149,23 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      fe_step and 4000 adjoint_step at 64^2, 190 and 100 at 256^2), timed
      beside the unstratified gradients, a profiler breakdown, and the
      stratified arms per launch beside their bounds. ``python3
-     chip_smoke.py --strat-reverse-only`` runs phases 1, 2, 9 and 18 alone.
+     chip_smoke.py --strat-reverse-only`` runs phases 1, 2, 9 and 18 alone;
+ 19. composed physics (the composed arms of kernels 1 and 2: forcing,
+     tracers and stratification together, and with the nonlinear core):
+     the composed instantiations' ptxas lines; f64, every combination of
+     two or more of {nonlinear, forcing, tracers, stratification} against
+     the plain steps (16^2 and 64^2 random, periodic and channel, 4, 36 and
+     100 levels; FE and FB, and the linear core's tiled_step at q = 1, 2)
+     with bitwise reruns, each run with one option dropped as a control;
+     physics on the card (equal densities, uniform S, conserved content);
+     f32 100-step checks of bench.py's full-physics cell (IGW and Kelvin
+     channel, FE and FB) with a bf16 control; the gradient's refusal of
+     every combination; the main paths from to_struct (bench.py's
+     full-physics 64x64x100 FE rollout over 8000 steps, every fe_step
+     launch forced, tracer and stratified; FB 64^2, FE and FB 256^2 and the
+     64^2 channel FE with kappa 5 over 1000) with exact launch counts, timed
+     beside each option alone with their bounds. ``python3 chip_smoke.py
+     --physics-only`` runs phases 1, 2, 9 and 19 alone.
 After phase 8 the tracer-free 256x256x100 100-step gradients through
 fused_rollout_diff and tiled_rollout_diff are timed again in a fresh process
 (``python3 chip_smoke.py --grad-256``, which prints one JSON line), with
@@ -3447,9 +3465,10 @@ def tracer_phase(gpu: str, log_text: str) -> list:
     the 64^2 x 100 Kelvin channel with kappa 5, each tracer's distance from
     an f64 plain run within U_GAP_FACTOR x the plain f32 run's, with a bf16
     control; uniform T, conserved content, monotone upwinding and culled
-    cells on the card (tests/test_tracers.py); the refusals (tracers with the
-    nonlinear core or forcing, forward and reverse; the tiled reverse with
-    tracers at q > 1); the main paths from to_struct
+    cells on the card (tests/test_tracers.py); the refusals (the gradient
+    of tracers with the nonlinear core or forcing, which the forward runs
+    since phase 19; the tiled reverse with tracers at q > 1); the main paths
+    from to_struct
     (bench.py's 64^2 x 100 two-tracer FE rollout over HEADLINE_STEPS, 256^2
     FE and FB, the 64^2 channel FE with kappa 5) timed beside the tracer-free
     arm with exact launch counts and their bounds; the refusals. Returns the
@@ -3710,12 +3729,6 @@ def tracer_phase(gpu: str, log_text: str) -> list:
         dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
     refused = []
     for label, call in (
-            ("nonlinear FE", lambda: structured_auto_run_loop(st_t, sm, DT, 2, nonlinear=True)),
-            ("nonlinear FB", lambda: structured_auto_run_loop(st_t, sm, DT, 2, nonlinear=True,
-                                                              fb=True)),
-            ("forced FE", lambda: structured_auto_run_loop(st_t, sm, DT, 2, forcing=forcing)),
-            ("forced FB", lambda: structured_auto_run_loop(st_t, sm, DT, 2, forcing=forcing,
-                                                           fb=True)),
             ("auto_rollout_diff nonlinear", lambda: auto_rollout_diff(st_t, sm, DT, 2,
                                                                        nonlinear=True)),
             ("tiled_rollout_diff forced", lambda: tiled_rollout_diff(st_t, sm, DT, 2,
@@ -4401,8 +4414,9 @@ def strat_phase(gpu: str, log_text: str) -> list:
     FB steps through structured_auto_run_loop, each field's distance from an
     f64 plain run within U_GAP_FACTOR x the plain f32 run's, with a bf16
     control; equal densities against the unstratified arm and the two-layer
-    internal wave (FB, half a period) on the card; the refusals
-    (stratification with the nonlinear core, forcing or tracers); the main
+    internal wave (FB, half a period) on the card; the refusals (the
+    gradient with stratification and the nonlinear core, forcing or tracers,
+    which the forward runs since phase 19); the main
     paths from to_struct (bench.py's 64^2 x 100 FE rollout over
     HEADLINE_STEPS with exact launch counts; FB 64^2, FE and FB 256^2 and
     the 64^2 channel FE over LARGE_MAIN_STEPS), timed beside the
@@ -4603,28 +4617,25 @@ def strat_phase(gpu: str, log_text: str) -> list:
     forcing = model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
         horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0, dtype=np.float32),
         dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
+    # (the forward runs every combination, phase 19; the gradient's
+    # refusals remain)
+    from mpas_ocean_tpu_torch.structured import auto_rollout_diff, tiled_rollout_diff
+
     refused = []
     for label, call in (
-            ("nonlinear FE", lambda: structured_auto_run_loop(st, sm, DT, 2, nonlinear=True,
-                                                              strat=strat32)),
-            ("nonlinear FB", lambda: structured_auto_run_loop(st, sm, DT, 2, nonlinear=True,
-                                                              fb=True, strat=strat32)),
-            ("forced FE", lambda: structured_auto_run_loop(st, sm, DT, 2, forcing=forcing,
-                                                           strat=strat32)),
-            ("forced FB", lambda: structured_auto_run_loop(st, sm, DT, 2, forcing=forcing,
-                                                           fb=True, strat=strat32)),
-            ("tracers FE", lambda: structured_auto_run_loop(st_t, sm, DT, 2, strat=strat32)),
-            ("tracers FB", lambda: structured_auto_run_loop(st_t, sm, DT, 2, fb=True,
-                                                            strat=strat32)),
-            ("tiled_run_loop nonlinear", lambda: tiled_run_loop(st, sm, DT, 2, nonlinear=True,
-                                                                strat=strat32))):
+            ("nonlinear", lambda: auto_rollout_diff(st, sm, DT, 2, nonlinear=True,
+                                                    strat=strat32)),
+            ("forced", lambda: auto_rollout_diff(st, sm, DT, 2, forcing=forcing, strat=strat32)),
+            ("tracers", lambda: auto_rollout_diff(st_t, sm, DT, 2, strat=strat32)),
+            ("tiled_rollout_diff nonlinear", lambda: tiled_rollout_diff(
+                st, sm, DT, 2, nonlinear=True, strat=strat32))):
         try:
             call()
         except NotImplementedError:
             refused.append(label)
             continue
-        raise AssertionError(f"{label} with stratification ran on the card")
-    log(f"[17] refused on the card with stratification (NotImplementedError): "
+        raise AssertionError(f"the gradient {label} with stratification ran on the card")
+    log(f"[17] refused on the card, the gradient with stratification (NotImplementedError): "
         f"{', '.join(refused)}")
 
     # the main path: bench.py's cell from to_struct, HEADLINE_STEPS FE steps
@@ -5348,6 +5359,514 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
     ]
 
 
+# ---- phase 19: composed physics ---------------------------------------------
+
+# The composed options: the nonlinear core, bench.py's momentum forcing,
+# tracers and layered stratification (the forward kernels' composed arms)
+COMPOSED_OPTIONS = ("nonlinear", "forced", "tracers", "strat")
+# Composed steps of the f64 kernel-against-plain checks and of the physics
+# checks
+COMPOSED_CHECK_STEPS = 10
+
+
+def composed_combos() -> list:
+    """Every combination of two or more of COMPOSED_OPTIONS (11)."""
+    import itertools
+
+    return [frozenset(c) for r in (2, 3, 4)
+            for c in itertools.combinations(COMPOSED_OPTIONS, r)]
+
+
+def composed_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts,
+                   n_tracers: int = 2, masked: bool = False, peaks: dict | None = None):
+    """(bound seconds, "bytes" or "operations") of one composed step with
+    the options ``opts``: a state read and written, with tracers their 2 nT
+    planes too; the core's constants and tables (``step_bound``'s linear
+    ones, ``nl_bound``'s nonlinear ones), with forcing its winds and packed
+    levels, stratified W (K x K); the core's arithmetic (36 + 1.5 n_terms
+    per cell-level, or step_flop_count's 184 + 4 n_terms (+ 6 masked) per
+    site of two cells) plus TRACER_OPS per cell-level and tracer,
+    FORCED_FWD_OPS and strat_ops(K) per cell-level. ``peaks`` as for
+    ``step_bound``."""
+    cells = 2 * ny2 * nx
+    state = cells * (1 + 4 * k)
+    tr = cells * k * n_tracers if "tracers" in opts else 0
+    if "nonlinear" in opts:
+        consts = cells + (20 if masked else 4) * ny2 * nx
+        tables = 4 * (44 + 3 * n_terms + 12 * 11) + 8 * (n_terms + 12)
+        ops = ny2 * nx * k * (184 + 4 * n_terms + (6 if masked else 0))
+    else:
+        consts = 4 * cells
+        tables = 4 * (44 + 3 * n_terms) + itemsize * n_terms
+        ops = cells * k * (36 + 1.5 * n_terms)
+    nbytes = itemsize * (2 * (state + tr) + consts) + tables
+    if masked:
+        nbytes += 4 * ny2 * nx + (itemsize * cells if tr else 0)
+    if "forced" in opts:
+        nbytes += ny2 * nx * (6 * itemsize + 24) + 24
+        ops += cells * k * FORCED_FWD_OPS
+    if "strat" in opts:
+        nbytes += itemsize * k * k
+        ops += cells * k * strat_ops(k)
+    if tr:
+        ops += cells * k * TRACER_OPS * n_tracers
+    peaks = CEILING if peaks is None else peaks
+    rate = byte_rate(peaks, itemsize * (state + tr))
+    t_bytes, t_ops = nbytes / rate, ops / peaks["flops"][itemsize]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def composed_phase(gpu: str, log_text: str) -> list:
+    """Phase 19, composed physics (the composed arms of kernels 1 and 2:
+    forcing, tracers and stratification together, and with the nonlinear
+    core): the composed instantiations' ptxas lines; f64, every combination
+    of two or more options against the plain steps, fe_step FE and
+    tiled_step FB (q = 1, the nonlinear core's arms), and for the linear
+    core tiled_step FE and FB at q = 1, 2 too, on 16^2 and 64^2 random
+    states, periodic and channel, at 4, 36 and 100 levels, to 1e-12 of
+    scale, reruns bitwise, each run with one of its options dropped 100x
+    off (the tracers: the tracers left where they started); f32, 100 steps
+    of bench.py's full-physics cell (the 64^2 x 100 IGW and the Kelvin
+    channel, FE and FB), each field's distance from an f64 plain run within
+    U_GAP_FACTOR x the plain f32 run's, with a bf16 control; physics on the
+    card (equal densities against the unstratified composed arm, S = 35
+    kept, tracer content conserved, periodic and channel); the refusals
+    that remain (the gradient with each combination); the main paths from
+    to_struct with exact launch counts (bench.py's full-physics 64^2 x 100
+    FE rollout over HEADLINE_STEPS; FB 64^2, FE and FB 256^2 and the 64^2
+    channel FE with kappa 5 over LARGE_MAIN_STEPS), timed beside each arm
+    alone with their bounds. Returns the composed arms' entries of the
+    kernels line."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        auto_rollout_diff,
+        structured_auto_run_loop,
+        structured_run_loop,
+        tiled_rollout_diff,
+        tiled_run_loop,
+    )
+
+    t_phase = time.perf_counter()
+    # the composed instantiations: the nonlinear kernel with any of (kForced,
+    # kTracers, kStrat), the linear ones with two or more of them
+    for line in (ptxas_report(log_text, ("nl_step_kernel",),
+                              ("Lb1EEEv", "Lb1ELb0EEEv", "Lb1ELb0ELb0EEEv"))
+                 + ptxas_report(log_text, ("fe_step_kernel", "tiled_step_kernel"),
+                                ("Lb1ELb1ELb0EEEv", "Lb1ELb0ELb1EEEv", "Lb1ELb1EEEv"))):
+        log(f"[19] ptxas {line}")
+    counters = (fe_step, tiled_step)
+    arm_counters = ("forced_launches", "tracer_launches", "strat_launches")
+    combos = composed_combos()
+
+    def zero_counts():
+        for m in counters:
+            m.launches = 0
+            for c in arm_counters:
+                setattr(m, c, 0)
+
+    def counts():
+        return {m.__name__.rsplit(".", 1)[-1]: (m.launches, *(getattr(m, c) for c in arm_counters))
+                for m in counters}
+
+    def with_tracers(model, st, seed=3):
+        """st with two random tracers (a wave in x plus noise, 35 plus noise),
+        0 on culled cells."""
+        ny2, nx, k = st.layer_thickness.shape[1:]
+        rng = np.random.default_rng(seed)
+        x = np.arange(nx)[None, None, :, None] / nx
+        tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
+                       35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
+        if model.cell_mask is not None:
+            tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
+        return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
+                           torch.from_numpy(tr).to(st.layer_thickness))
+
+    def bare(st):
+        return StructState(st.ssh, st.layer_thickness, st.normal_velocity)
+
+    def errors(out, ref, mesh) -> dict:
+        errs = field_errors(out, ref, mesh.resting_thickness_sum)
+        if ref.tracers is not None:
+            e = float((out.tracers - ref.tracers).abs().max())
+            errs["tracers"] = (e, e / float(ref.tracers.abs().max()))
+        return errs
+
+    def same(a, b) -> bool:
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS) and (
+            a.tracers is None or torch.equal(a.tracers, b.tracers))
+
+    def run_kw(opts, forcing, strat, kappa=5.0, upwind=0.5):
+        return dict(nonlinear="nonlinear" in opts, forcing=forcing if "forced" in opts else None,
+                    strat=strat if "strat" in opts else None, tracer_kappa=kappa,
+                    tracer_upwind=upwind)
+
+    # f64 kernel against plain: (n, levels, channel, tiled_step's tile for
+    # the linear core, FB's q's); the deep cases' columns and u as phases
+    # 15 and 17 (60 m, 0.5 m/s), their tiles the planners'
+    worst, n_checks = {}, 0
+    f64_cases = [(16, 4, channel, (4, 8), (1, 2), 0.01, 10.0) for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, 36, channel, None, (1, 2), 0.5, 60.0 / 36)
+                  for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, LEVELS, channel, None, (1,), 0.5, 60.0 / LEVELS)
+                  for channel in (False, True)]
+    for n, levels, channel, tile, fb_qs, u_amp, layer in f64_cases:
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=5,
+                                                                   u_amp=u_amp, layer=layer)
+        sm = model.struct_mesh
+        st_t = with_tracers(model, model.to_struct(prog))
+        forcing = lattice_forcing(model, seed=11 + levels)
+        rng = np.random.default_rng(19 + levels)
+        strat = mt.make_stratification(1025.0 + np.cumsum(rng.random(levels)) * (2.0 / levels))
+        name = (f"f64 {n}x{n}x{levels} {'channel' if channel else 'periodic'}, layers of "
+                f"{layer:.4g} m, u {u_amp} m/s")
+        tk = {} if tile is None else dict(row_tile=tile[0], col_tile=tile[1])
+        for opts in combos:
+            st = st_t if "tracers" in opts else bare(st_t)
+            refs = {fb: structured_run_loop(st, sm, 10.0, COMPOSED_CHECK_STEPS, fb=fb,
+                                            **run_kw(opts, forcing, strat))
+                    for fb in (False, True)}
+            runs = [(f"auto {'FB' if fb else 'FE'}", fb,
+                     lambda o, fb=fb: structured_auto_run_loop(
+                         st_t if "tracers" in o else bare(st_t), sm, 10.0, COMPOSED_CHECK_STEPS,
+                         fb=fb, **run_kw(o, forcing, strat)))
+                    for fb in (False, True)]
+            if "nonlinear" not in opts:
+                runs += [(f"tiled {'FB' if fb else 'FE'} q={q}", fb,
+                          lambda o, fb=fb, q=q: tiled_run_loop(
+                              st_t if "tracers" in o else bare(st_t), sm, 10.0,
+                              COMPOSED_CHECK_STEPS, q=q, fb=fb, **tk,
+                              **run_kw(o, forcing, strat)))
+                         for fb in (False, True) for q in (fb_qs if fb else (1, 2))]
+            line = []
+            for label, fb, run in runs:
+                zero_counts()
+                out, again = run(opts), run(opts)
+                c = counts()
+                total = sum(v[0] for v in c.values())
+                for i, opt in enumerate(("forced", "tracers", "strat")):
+                    got = sum(v[1 + i] for v in c.values())
+                    if got != (total if opt in opts else 0) or not total:
+                        raise AssertionError(f"{name} {sorted(opts)} {label}: launch counts {c}")
+                errs = errors(out, refs[fb], sm)
+                err = max(r for _, r in errs.values())
+                if not err <= 1e-12:
+                    raise AssertionError(f"{name} {sorted(opts)} {label}: {format_errors(errs)}")
+                if not same(out, again):
+                    raise AssertionError(f"{name} {sorted(opts)} {label}: rerun differs")
+                misses = {}
+                for drop in sorted(opts):
+                    if drop == "tracers":  # the tracers left where they started
+                        misses[drop] = float((st_t.tracers - refs[fb].tracers).abs().max()
+                                             / refs[fb].tracers.abs().max())
+                    else:
+                        bare_errs = field_errors(run(opts - {drop}), refs[fb],
+                                                 sm.resting_thickness_sum)
+                        misses[drop] = max(r for _, r in bare_errs.values())
+                if not min(misses.values()) >= 100 * 1e-12:
+                    raise AssertionError(f"{name} {sorted(opts)} {label}: a control misses by "
+                                         f"only {misses}")
+                if channel:
+                    check_walls(out, sm, f"{name} {sorted(opts)} {label}")
+                key = label.split()[0] + (" nonlinear" if "nonlinear" in opts else "")
+                worst[key] = max(worst.get(key, 0.0), err)
+                line.append((label, err, min(misses.values())))
+                n_checks += 1
+            log(f"[19] {name}, {'+'.join(o for o in COMPOSED_OPTIONS if o in opts)}, "
+                f"{COMPOSED_CHECK_STEPS} steps: worst error over scale (smallest control miss) "
+                + ", ".join(f"{lbl} {e:.3e} ({m:.2e})" for lbl, e, m in line))
+        del model, st_t, sm
+        torch.cuda.empty_cache()
+    log(f"[19] {n_checks} f64 composed checks, reruns bitwise equal, walls +0 on the channel; "
+        "worst relative errors over every field and the tracers: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()) + f" ({time.perf_counter() - t_phase:.1f} "
+        "s into the phase)")
+
+    # physics on the card, f64, all four options through both routes: equal
+    # densities against the unstratified composed arm; S = 35 kept and each
+    # tracer's content sum(h T) conserved (the lattice's cells share one
+    # area; culled cells hold h = 0)
+    def content(x):
+        return (x.layer_thickness[:, :, :, None] * x.tracers).sum((0, 1, 2, 4))
+
+    for channel in (False, True):
+        model, prog = (random_channel if channel else random_case)(HEADLINE_N, 36, seed=5,
+                                                                   u_amp=0.5, layer=60.0 / 36)
+        sm = model.struct_mesh
+        st = with_tracers(model, model.to_struct(prog))
+        live = torch.ones_like(st.tracers[:, :, :, 1]) if sm.cell_mask is None else \
+            sm.cell_mask.to(st.tracers.dtype)[..., None].expand_as(st.tracers[:, :, :, 1])
+        tr = st.tracers.clone()
+        tr[:, :, :, 1] = 35.0 * live
+        st = StructState(st.ssh, st.layer_thickness, st.normal_velocity, tr)
+        forcing = lattice_forcing(model, seed=23)
+        eq = mt.make_stratification([1026.0] * 36)
+        strat = mt.make_stratification(1025.0 + np.linspace(0.0, 2.0, 36))
+        where = "channel" if channel else "periodic"
+        for fb in (False, True):
+            kw = dict(nonlinear=True, fb=fb, forcing=forcing, tracer_kappa=5.0, tracer_upwind=0.5)
+            a = structured_auto_run_loop(st, sm, 10.0, COMPOSED_CHECK_STEPS, strat=eq, **kw)
+            b = structured_auto_run_loop(st, sm, 10.0, COMPOSED_CHECK_STEPS, **kw)
+            eq_err = max(r for _, r in errors(a, b, sm).values())
+            out = structured_auto_run_loop(st, sm, 10.0, COMPOSED_CHECK_STEPS, strat=strat, **kw)
+            s_gap = float(((out.tracers[:, :, :, 1] - 35.0) * live).abs().max() / 35.0)
+            drift = float(((content(out) - content(st)) / content(st)).abs().max())
+            log(f"[19] physics f64 64x64x36 {where}, all four options, {'FB' if fb else 'FE'}, "
+                f"{COMPOSED_CHECK_STEPS} steps: equal densities vs the unstratified composed arm "
+                f"{eq_err:.3e} (limit 1e-12), uniform S = 35 kept to {s_gap:.3e} (limit 1e-12), "
+                f"tracer content drift {drift:.3e} (limit 1e-12)")
+            if not (eq_err <= 1e-12 and s_gap <= 1e-12 and drift <= 1e-12):
+                raise AssertionError(f"composed physics {where} {'FB' if fb else 'FE'}")
+        del model, st, sm
+
+    # f32, 100 steps of bench.py's full-physics cell: the IGW (and the
+    # Kelvin channel, kappa 5) with the nonlinear core, bench.py's forcing,
+    # its two tracers and densities 1025 + linspace(0, 1, LEVELS); each
+    # field's distance from an f64 plain run within U_GAP_FACTOR x the plain
+    # f32 run's (the tracers' within that of the larger of it and
+    # TRACER_F32_FLOOR f32 epsilons of their scale); the plain run with its
+    # state stored in bf16 after each step must miss that bound in some field
+    bench_rho = 1025.0 + np.linspace(0.0, BENCH_RHO_SPAN, LEVELS)
+    strat32 = mt.make_stratification(bench_rho, dtype=np.float32)
+    strat64 = mt.make_stratification(bench_rho)
+    all_opts = frozenset(COMPOSED_OPTIONS)
+
+    def bench_forcing(horz, model, np_dtype):
+        vert = mt.make_vertical_mesh(horz, LEVELS, resting_thickness=np.full(
+            (horz.n_cells, LEVELS), 10.0, dtype=np_dtype), dtype=np_dtype)
+        return model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=vert),
+                                                       dtype=np_dtype, **BENCH_FORCING))
+
+    max_abs_err, gaps = {}, {}
+    tfields = FIELDS + ("tracers",)
+    for key, case, kappa in (("64", igw_case, BENCH_TRACER_KAPPA),
+                             ("channel 64", kelvin_case, 5.0)):
+        horz, _, model, prog = case(HEADLINE_N, LEVELS, np.float32)
+        horz64, _, model64, _ = case(HEADLINE_N, LEVELS, np.float64)
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=bench_tracers(horz, LEVELS, np.float32)))
+        sm, sm64 = model.struct_mesh, model64.struct_mesh
+        st64 = StructState(*(getattr(st, f).double() for f in tfields))
+        f32, f64 = bench_forcing(horz, model, np.float32), bench_forcing(horz64, model64,
+                                                                         np.float64)
+        flow = "Kelvin channel" if case is kelvin_case else "IGW"
+        for fb in (False, True):
+            arm = "tiled_step FB" if fb else "fe_step FE"
+            kw = dict(nonlinear=True, fb=fb, tracer_kappa=kappa, tracer_upwind=BENCH_TRACER_UPWIND)
+            out = structured_auto_run_loop(st, sm, DT, TILED_CHECK_STEPS, forcing=f32,
+                                           strat=strat32, **kw)
+            ref = structured_run_loop(st, sm, DT, TILED_CHECK_STEPS, forcing=f32, strat=strat32,
+                                      **kw)
+            ref64 = structured_run_loop(st64, sm64, DT, TILED_CHECK_STEPS, forcing=f64,
+                                        strat=strat64, **kw)
+            bf = st
+            for _ in range(TILED_CHECK_STEPS):
+                bf = structured_run_loop(bf, sm, DT, 1, forcing=f32, strat=strat32, **kw)
+                bf = StructState(*(getattr(bf, f).bfloat16().float() for f in tfields))
+            what = (f"f32 {HEADLINE_N}^2x{LEVELS} {flow}, all four options, kappa {kappa}, "
+                    f"{TILED_CHECK_STEPS} steps, {arm}")
+            ratios, control_fails = [], False
+            for f in tfields:
+                d = lambda x: float((getattr(x, f).double()  # noqa: E731
+                                     - getattr(ref64, f)).abs().max())
+                g_k, g_p, g_b = d(out), d(ref), d(bf)
+                floor = (TRACER_F32_FLOOR * float(np.finfo(np.float32).eps)
+                         * float(ref64.tracers.abs().max()) if f == "tracers" else 0.0)
+                limit = U_GAP_FACTOR * max(g_p, floor)
+                log(f"[19] {what}: {f}'s distance from the f64 plain run: kernel {g_k:.3e}, "
+                    f"plain f32 {g_p:.3e}: kernel x{g_k / limit:.3f} of the limit {limit:.3e}; "
+                    f"bf16 control {g_b:.3e} (x{g_b / limit:.1f})")
+                if not g_k <= limit:
+                    raise AssertionError(f"{what}: {f} {g_k:.3e} from f64, limit {limit:.3e}")
+                control_fails = control_fails or g_b > limit
+                ratios.append(g_k / limit)
+            if not control_fails:
+                raise AssertionError(f"{what}: the bf16 control passes")
+            if sm.cell_mask is not None:
+                check_walls(out, sm, what)
+            errs = errors(out, ref, sm)
+            log(f"[19] {what}, kernel vs plain f32: {format_errors(errs)}")
+            gaps[arm, key] = ratios
+            max_abs_err[arm, key] = max(e for e, _ in errs.values())
+        del st, st64, out, ref, ref64, bf
+        torch.cuda.empty_cache()
+
+    # the refusals that remain: the gradient with each combination
+    horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
+    sm = model.struct_mesh
+    st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                             prog.normal_velocity,
+                                             tracers=bench_tracers(horz, LEVELS, np.float32)))
+    forcing = bench_forcing(horz, model, np.float32)
+    refused = []
+    for opts in combos:
+        st = st_t if "tracers" in opts else bare(st_t)
+        kw = run_kw(opts, forcing, strat32, 0.0, 1.0)
+        for label, call in (("auto_rollout_diff", lambda: auto_rollout_diff(st, sm, DT, 2, **kw)),
+                            ("tiled_rollout_diff", lambda: tiled_rollout_diff(st, sm, DT, 2,
+                                                                              **kw))):
+            try:
+                call()
+            except NotImplementedError:
+                refused.append(f"{label} {'+'.join(o for o in COMPOSED_OPTIONS if o in opts)}")
+                continue
+            raise AssertionError(f"the gradient {label} with {sorted(opts)} ran on the card")
+    log(f"[19] refused on the card, the gradient of every combination (NotImplementedError): "
+        f"{len(refused)} calls: {', '.join(refused)}")
+
+    # the main paths from to_struct: bench.py's full-physics cell, each path
+    # from its own zeroed counts, then timed (CUDA events, REPS each) beside
+    # each option alone in the same call: composed, nonlinear, forced,
+    # tracers, stratified
+    times, launches, walls = {}, {}, {}
+    tracer_states = {}
+    alone = [("composed", all_opts)] + [(o, frozenset([o])) for o in COMPOSED_OPTIONS]
+    for label, case, n, fb, n_steps, kappa in (
+            ("FE 64", igw_case, HEADLINE_N, False, HEADLINE_STEPS, BENCH_TRACER_KAPPA),
+            ("FB 64", igw_case, HEADLINE_N, True, LARGE_MAIN_STEPS, BENCH_TRACER_KAPPA),
+            ("FE 256", igw_case, LARGE_N, False, LARGE_MAIN_STEPS, BENCH_TRACER_KAPPA),
+            ("FB 256", igw_case, LARGE_N, True, LARGE_MAIN_STEPS, BENCH_TRACER_KAPPA),
+            ("FE channel 64", kelvin_case, HEADLINE_N, False, LARGE_MAIN_STEPS, 5.0)):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        if horz.n_cells not in tracer_states:
+            tracer_states[horz.n_cells] = bench_tracers(horz, LEVELS, np.float32)
+        ptr = mt.PrognosticVars(prog.ssh, prog.layer_thickness, prog.normal_velocity,
+                                tracers=tracer_states[horz.n_cells])
+        forcing = bench_forcing(horz, model, np.float32)
+        arm = "tiled_step" if fb else "fe_step"
+        zero_counts()
+        t0 = time.perf_counter()
+        final = model.from_struct(structured_auto_run_loop(
+            model.to_struct(ptr), sm, DT, n_steps, fb=fb,
+            **run_kw(all_opts, forcing, strat32, kappa, BENCH_TRACER_UPWIND)))
+        walls[label] = time.perf_counter() - t0
+        c = counts()
+        log(f"[19] main path: {label}^2x{LEVELS} f32, bench.py's full physics (nonlinear, forcing "
+            f"wind 0.1 Pa r_lin 1e-4 lambda 1e-5, two tracers kappa {kappa} upwind 1, densities "
+            f"1025 + linspace(0, {BENCH_RHO_SPAN}, {LEVELS})), from to_struct, {n_steps} steps: "
+            f"{walls[label]:.3f} s wall (to_struct .. from_struct); launches (all, forced, "
+            f"tracers, stratified) {c} (want {arm} {n_steps}, every one of every arm)")
+        other = "fe_step" if fb else "tiled_step"
+        if c[arm] != (n_steps,) * 4 or c[other][0] != 0:
+            raise AssertionError(f"composed {label}: launch counts {c}")
+        if not (all(bool(torch.isfinite(getattr(final, f)).all()) for f in tfields)
+                and tuple(final.tracers.shape) == (horz.n_cells, 2, LEVELS)
+                and tuple(final.layer_thickness.shape) == (horz.n_cells, LEVELS)):
+            raise AssertionError(f"composed {label}: output not finite or of the wrong shape")
+        launches[label] = c[arm][0]
+        st_w = model.to_struct(ptr)
+        times[label] = {}
+        # at the headline, where the composed arm's time goes: the nonlinear
+        # core with each other option, and the linear core's composed arm
+        pairs = [(f"nonlinear+{o}", frozenset(["nonlinear", o]))
+                 for o in ("forced", "tracers", "strat")] + [
+            ("forced+tracers+strat", frozenset(["forced", "tracers", "strat"]))]
+        for name, opts in alone + (pairs if label == "FE 64" else []):
+            s = st_w if "tracers" in opts else bare(st_w)
+            kw = run_kw(opts, forcing, strat32, kappa, BENCH_TRACER_UPWIND)
+            times[label][name] = timed_rollout(
+                lambda m, s=s, kw=kw: structured_auto_run_loop(s, sm, DT, m, fb=fb, **kw),
+                n_steps, REPS)[1]
+        masked = sm.cell_mask is not None
+        dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+        live = 2 * sm.ny2 * sm.nx if not masked else int(sm.cell_mask.sum())
+        b, by = composed_bound(*dims, all_opts, masked=masked)
+        med = {k: statistics.median(v) for k, v in times[label].items()}
+        log(f"[19] {arm} {label}^2x{LEVELS} f32 composed (all four): "
+            f"{spread(times[label]['composed'], 1e6, 'us')} per step, "
+            f"{live * LEVELS / med['composed']:.4e} cells*levels*steps/s; bound {b * 1e6:.3f} us "
+            f"({by}): {b / med['composed']:.4f} of it; each option alone: " + ", ".join(
+                f"{o} {spread(times[label][o], 1e6, 'us')} (bound "
+                f"{composed_bound(*dims, {o}, masked=masked)[0] * 1e6:.3f} us)"
+                for o in COMPOSED_OPTIONS) + f"; composed / nonlinear alone "
+            f"x{med['composed'] / med['nonlinear']:.4f} [{gpu}]")
+        if label == "FE 64":
+            log(f"[19] {arm} {label}^2x{LEVELS} f32, two and three options: " + ", ".join(
+                f"{name} {spread(times[label][name], 1e6, 'us')} (bound "
+                f"{composed_bound(*dims, opts, masked=masked)[0] * 1e6:.3f} us)"
+                for name, opts in pairs) + f" [{gpu}]")
+    # the plain versions' times with all four options, 64^2 FE and 256^2 FB
+    plain = {}
+    for label, n, fb in (("FE 64", HEADLINE_N, False), ("FB 256", LARGE_N, True)):
+        horz, _, model, prog = igw_case(n, LEVELS, np.float32)
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=tracer_states[horz.n_cells]))
+        kw = run_kw(all_opts, bench_forcing(horz, model, np.float32), strat32, BENCH_TRACER_KAPPA,
+                    BENCH_TRACER_UPWIND)
+        plain[label] = timed_rollout(lambda m, st=st, sm=model.struct_mesh, fb=fb, kw=kw:
+                                     structured_run_loop(st, sm, DT, m, fb=fb, **kw),
+                                     10, REPS)[1]
+        log(f"[19] plain {label} f32, all four options: {spread(plain[label], 1e3, 'ms')} per "
+            f"step [{gpu}]")
+    plans = {}
+    for fb, n in ((False, HEADLINE_N), (True, LARGE_N)):
+        plan = fe_step.nl_plan(n // 2, n, LEVELS, 4, fb, forced=True, n_tracers=2, strat=True)
+        plans[fb] = list(plan)
+        log(f"[19] the nonlinear {'FB (tiled_step)' if fb else 'FE (fe_step)'} composed arm's "
+            f"plan at {n}^2 x {LEVELS} f32 (rows, columns, levels per slice): {plan}, "
+            f"{fe_step.nl_smem_bytes(plan[:2], LEVELS, 4, fb, plan[2], True, 2, True)} bytes of "
+            f"shared memory per block, one block per SM; plain nonlinear plan "
+            f"{fe_step.nl_plan(n // 2, n, LEVELS, 4, fb)}")
+    log(f"[19] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+    med = statistics.median
+    d64 = (HEADLINE_N // 2, HEADLINE_N, LEVELS, 48, 4)
+    d256 = (LARGE_N // 2, LARGE_N, LEVELS, 48, 4)
+
+    def entry(name, src, replaces, launches_n, err, ms, plain_ms, bound, extra):
+        b, by = bound
+        return {"name": name, "route": "cuda", "source": f"mpas_ocean_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches_n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b * 1e3, "bound_by": by, "library_ms": None,
+                **extra}
+
+    def alone_ms(label):
+        return {f"{o}_alone_ms": med(times[label][o]) * 1e3 for o in COMPOSED_OPTIONS}
+
+    pair_ms = {f"{name.replace('+', '_')}_ms": med(times["FE 64"][name]) * 1e3
+               for name, _ in pairs}
+
+    return [
+        entry("fe_step (composed arm: nonlinear, forced, tracers, stratified)",
+              "nl_step.cuh",
+              "mpas_ocean_tpu/structured/pallas_model.py:320 (_step_planes :91-299 with nl, "
+              "forc, tr and strat_w)", launches["FE 64"], max_abs_err["fe_step FE", "64"],
+              med(times["FE 64"]["composed"]) * 1e3, med(plain["FE 64"]) * 1e3,
+              composed_bound(*d64, all_opts),
+              {**alone_ms("FE 64"), **pair_ms,
+               "ms_256": med(times["FE 256"]["composed"]) * 1e3,
+               "bound_ms_256": composed_bound(*d256, all_opts)[0] * 1e3,
+               "masked_ms_64": med(times["FE channel 64"]["composed"]) * 1e3,
+               "cells_levels_steps_per_s_64": HEADLINE_N ** 2 * LEVELS
+               / med(times["FE 64"]["composed"]),
+               "main_path_wall_s": walls["FE 64"],
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "fe_step FE"},
+               "max_rel_err_f64": worst.get("auto nonlinear"), "plan_64": plans[False],
+               "sources": ["mpas_ocean_tpu_torch/csrc/nl_step.cuh",
+                           "mpas_ocean_tpu_torch/csrc/nl_step_fe_f32.cu",
+                           "mpas_ocean_tpu_torch/csrc/fe_step.cu"]}),
+        entry("tiled_step (composed arm: nonlinear FB, forced, tracers, stratified)",
+              "nl_step.cuh",
+              "mpas_ocean_tpu/structured/pallas_model.py:852 (_window_steps :802 with nl, forc, "
+              "tr and strat_w)", launches["FB 256"], max_abs_err["tiled_step FB", "64"],
+              med(times["FB 256"]["composed"]) * 1e3, med(plain["FB 256"]) * 1e3,
+              composed_bound(*d256, all_opts),
+              {**alone_ms("FB 256"), "ms_64": med(times["FB 64"]["composed"]) * 1e3,
+               "f32_gap_ratios": {k: v for (a, k), v in gaps.items() if a == "tiled_step FB"},
+               "max_rel_err_f64_linear_q12": worst.get("tiled"), "plan_256": plans[True],
+               "sources": ["mpas_ocean_tpu_torch/csrc/nl_step.cuh",
+                           "mpas_ocean_tpu_torch/csrc/nl_step_fb_f32.cu",
+                           "mpas_ocean_tpu_torch/csrc/tiled_step.cu"]}),
+    ]
+
+
 def ptxas_report(log_text: str, kernels: tuple, arm=None) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``; with ``arm`` (a string, or a
@@ -5453,7 +5972,9 @@ def main() -> int:
     log_file = lib_path.with_suffix(".log")
     if log_file.exists():
         for line in log_file.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if line.startswith("nvcc "):  # a source's compile seconds
+                log(f"[2] {line}")
+            elif "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[2] ptxas {line.strip()}")
 
     # -- 9. the card's measured peaks (kernel 5), the divisor of every bound
@@ -5486,6 +6007,11 @@ def main() -> int:
     if "--forcing-only" in sys.argv[1:]:
         # phase 14 alone (after the build and the peaks its bounds divide by)
         print(json.dumps({"kernels": forcing_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
+    if "--physics-only" in sys.argv[1:]:
+        # phase 19 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": composed_phase(gpu, log_file.read_text())}))
         print(gpu)
         return 0
 
@@ -5874,6 +6400,10 @@ def main() -> int:
     # -- 18. the stratified reverse ---------------------------------------------------
     strat_entries += strat_reverse_phase(gpu, log_file.read_text())
 
+    # -- 19. composed physics ------------------------------------------------------------
+    composed_entries = composed_phase(gpu, log_file.read_text())
+    log("phases 1-19 done")
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
@@ -5918,6 +6448,7 @@ def main() -> int:
     kernels.extend(forced_entries)
     kernels.extend(tracer_entries)
     kernels.extend(strat_entries)
+    kernels.extend(composed_entries)
     kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

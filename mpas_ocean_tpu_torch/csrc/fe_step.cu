@@ -6,9 +6,9 @@
 // (masks=None) and masked (a coastal channel culled from a periodic
 // lattice: u_new *= masks[c], :257-259), unforced (forc=None) and forced
 // (momentum forcing, :248-256), without tracers (tr=None) and with them
-// (:261-298, unforced; the tracer planes :362-400, operand :446-451),
-// unstratified (strat_w=None) and stratified (the Montgomery potential,
-// :154-165, unforced and tracer-free; operand :436-437). One
+// (:261-298; the tracer planes :362-400, operand :446-451), unstratified
+// (strat_w=None) and stratified (the Montgomery potential, :154-165; operand
+// :436-437), the three in any combination. One
 // launch is one step of
 // _step_planes (:91-299); the exported entries loop n_steps launches on the
 // caller's stream.
@@ -77,8 +77,8 @@
 // h, in a pass of the ranks whose chunk holds such levels, over the tile's
 // edges (step_window.cuh, ForcingArgs, wind_drag_pass).
 //
-// The tracer arm (kTracers, chosen by a non-null tracer pointer; unforced;
-// the tracer-free arms keep their code) stages the block's chunk of the
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; the
+// tracer-free arms keep their code) stages the block's chunk of the
 // window's 2 nT tracer planes after the 8 state planes and, in the lane
 // group that forms a site's h', carries every tracer by the old state's six
 // edge fluxes and divides its new content by h' (step_window.cuh,
@@ -90,8 +90,8 @@
 // 64x64x100, x1.52 the tracer-free step, and 290.4 at 256x256x100, x1.57,
 // 14% and 32% of the byte bound.
 //
-// The stratified arm (kStrat, chosen by a non-null W; unforced and
-// tracer-free; the unstratified arms keep their code) forms the Montgomery
+// The stratified arm (kStrat, chosen by a non-null W; the unstratified arms
+// keep their code) forms the Montgomery
 // potential Phi = g ssh + h @ W of the old state at the block's levels on
 // the tile grown by the gradient's reach (5 x 18 sites for a (4, 16) tile)
 // before the body (step_window.cuh, StratSmem, montgomery: the other ranks'
@@ -101,12 +101,19 @@
 // barrier after their loads, in place of the split one, because each reads
 // the others' h.
 //
+// The arms compose (every combination of kForced, kTracers and kStrat is an
+// instantiation): they touch disjoint parts of the step (Rayleigh and the
+// pass after the body add to u', the tracers follow h', Phi replaces the
+// gradient's ssh), all read the old state of the window, and each has its
+// own shared memory after the unforced layout, the stratified arm's first
+// and the forced arm's after it.
+//
 // The stencil table's layout is in lattice.cuh.
 
 #include <algorithm>
 #include <cstdlib>
 
-#include "nl_step.cuh"
+#include "step_window.cuh"
 
 namespace {
 
@@ -160,8 +167,10 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* recv = rts_s + 2 * W;                  // [n_ranks][2][core]: rank 0's are read
   int* gs = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gs + W;                     // [W]: the masked arm's live bits
-  const ForcingSmem<T> fsm(live_s + W, W, 0);  // the forced arm's winds and levels
   const StratSmem<T> ssm(live_s + W, W, kc, K);  // the stratified arm's
+  // the forced arm's winds and levels, after the stratified arm's
+  const ForcingSmem<T> fsm(kStrat ? ssm.end(W, kc, false) : static_cast<void*>(live_s + W), W,
+                           0);
 
   // The partial column sums below go straight into rank 0's shared memory,
   // which only a cluster barrier guarantees to exist: its arrival here and
@@ -402,12 +411,8 @@ int make_plan(FePlan<T>* pl, const T* f_edge, const T* rts, const int* live,
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || rt > ny2 || ct > nx) return cudaErrorInvalidValue;
-  // the tracer arm: unforced, at least one tracer, the cell mask with the live bits
-  if (tr.tr != nullptr &&
-      (fc.wind != nullptr || tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
-    return cudaErrorInvalidValue;
-  // the stratified arm: unforced and tracer-free
-  if (strat_w != nullptr && (fc.wind != nullptr || tr.tr != nullptr))
+  // the tracer arm: at least one tracer, the cell mask with the live bits
+  if (tr.tr != nullptr && (tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
     return cudaErrorInvalidValue;
   int hm = 0, hi = 0;
   fe_reach(table, &hm, &hi);
@@ -445,24 +450,32 @@ int launch_arm(const FePlan<T>* pl, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation of the plan's arm: periodic or masked, and any
+// combination of forced, tracers and stratified.
+template <typename T, bool kMasked, bool kForced, bool kTracers>
+int launch_strat(const FePlan<T>* pl, cudaStream_t stream) {
+  return pl->a.strat_w != nullptr ? launch_arm<T, kMasked, kForced, kTracers, true>(pl, stream)
+                                  : launch_arm<T, kMasked, kForced, kTracers, false>(pl, stream);
+}
+template <typename T, bool kMasked, bool kForced>
+int launch_tracers(const FePlan<T>* pl, cudaStream_t stream) {
+  return pl->a.tr.tr != nullptr ? launch_strat<T, kMasked, kForced, true>(pl, stream)
+                                : launch_strat<T, kMasked, kForced, false>(pl, stream);
+}
+template <typename T, bool kMasked>
+int launch_forced(const FePlan<T>* pl, cudaStream_t stream) {
+  return pl->a.fc.wind != nullptr ? launch_tracers<T, kMasked, true>(pl, stream)
+                                  : launch_tracers<T, kMasked, false>(pl, stream);
+}
+
 template <typename T>
 int launch_step(FePlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out, T* h_out,
                 T* u_out, cudaStream_t stream, const T* tr = nullptr, T* tr_out = nullptr) {
   pl->a.ssh = ssh, pl->a.h = h, pl->a.u = u;
   pl->a.ssh_out = ssh_out, pl->a.h_out = h_out, pl->a.u_out = u_out;
-  const bool masked = pl->a.live != nullptr, forced = pl->a.fc.wind != nullptr;
-  if (pl->a.strat_w != nullptr)  // the stratified arm (unforced, tracer-free: make_plan checked)
-    return masked ? launch_arm<T, true, false, false, true>(pl, stream)
-                  : launch_arm<T, false, false, false, true>(pl, stream);
-  if (pl->a.tr.tr != nullptr) {  // the tracer arm (unforced: make_plan checked)
-    pl->a.tr.tr = tr, pl->a.tr.tr_out = tr_out;
-    return masked ? launch_arm<T, true, false, true>(pl, stream)
-                  : launch_arm<T, false, false, true>(pl, stream);
-  }
-  return masked ? (forced ? launch_arm<T, true, true>(pl, stream)
-                          : launch_arm<T, true, false>(pl, stream))
-                : (forced ? launch_arm<T, false, true>(pl, stream)
-                          : launch_arm<T, false, false>(pl, stream));
+  if (pl->a.tr.tr != nullptr) pl->a.tr.tr = tr, pl->a.tr.tr_out = tr_out;
+  return pl->a.live != nullptr ? launch_forced<T, true>(pl, stream)
+                               : launch_forced<T, false>(pl, stream);
 }
 
 // n_steps steps from `in` into `out`. Step s writes `out` when
@@ -543,8 +556,8 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
 // `tr_tmp`), the live-cell mask `cmask` (non-null exactly when `live` is),
 // kappa and upwind; the stack entry's tracer arm takes the tracer stack
 // (S, 2 n_tr, ny2, nx, k) in `tr`; a null `strat_w` runs the unstratified
-// arm, any other (W, (k, k) row-major, with `wind` and `tr_in` or `tr`
-// null) the stratified one, in either entry.
+// arm, any other (W, (k, k) row-major) the stratified one, in either entry;
+// the forced, tracer and stratified arms in any combination.
 #define MOT_FE_ENTRIES(T, SUFFIX)                                                             \
   extern "C" int mot_fe_steps_##SUFFIX(                                                       \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -576,61 +589,27 @@ int fe_stack(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T
                        static_cast<cudaStream_t>(stream));                                    \
   }
 
-MOT_FE_ENTRIES(float, f32)
+// fe_step_f64.cu compiles this file with MOT_FE_STEP_F64 for the f64
+// entries, so that the two dtypes' instantiations compile in parallel.
+#ifdef MOT_FE_STEP_F64
 MOT_FE_ENTRIES(double, f64)
-
-// The nonlinear arm (nl_step.cuh): n_steps nonlinear FE steps from `in` into
-// `out` through `tmp`, over rt x ct tiles (they need not divide the
-// lattice) in level slices of ks. `fv` holds the vertex constants (n_fv = 4
-// planes periodic, 20 with live bits), `vc` / `vc_w` / `ev` the vertex
-// tables (host copies, kernels/fe_step.vertex_tables). Returns 0,
-// kNotHexTable for a table that is not the hex lattice's, or the CUDA error.
-#define MOT_FE_NL_ENTRY(T, SUFFIX)                                                          \
-  extern "C" int mot_fe_nl_steps_##SUFFIX(                                                  \
-      const T* rts, const T* fv, int n_fv, const int* live, const int* table,               \
-      const double* weights, const int* vc, const double* vc_w, const int* ev,              \
-      const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,        \
-      T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, double s_ke,  \
-      double s_curl, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,      \
-      int ks, void* stream) {                                                               \
-    return nl_steps<T, false>(rts, fv, n_fv, live, table, weights, vc, vc_w, ev, ssh_in,    \
-                       h_in, u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, \
-                       s_div, s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks,       \
-                       static_cast<cudaStream_t>(stream));                                  \
-  }
-
-MOT_FE_NL_ENTRY(float, f32)
-MOT_FE_NL_ENTRY(double, f64)
-
-// The nonlinear arm through a stack of states (nl_stack): slot s + 1 =
-// step(slot s) for s < n_steps, the launches of mot_fe_nl_steps_*. The rest
-// as for mot_fe_nl_steps_*.
-#define MOT_FE_NL_STACK_ENTRY(T, SUFFIX)                                                    \
-  extern "C" int mot_fe_nl_stack_##SUFFIX(                                                  \
-      const T* rts, const T* fv, int n_fv, const int* live, const int* table,               \
-      const double* weights, const int* vc, const double* vc_w, const int* ev, T* ssh,      \
-      T* h, T* u, double dt, double inv_dc, double s_div, double s_ke, double s_curl,       \
-      int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, int ks,             \
-      void* stream) {                                                                       \
-    return nl_stack<T, false>(rts, fv, n_fv, live, table, weights, vc, vc_w, ev, ssh, h, u, \
-                              dt, inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps,         \
-                              n_terms, rt, ct, ks, static_cast<cudaStream_t>(stream));      \
-  }
-
-MOT_FE_NL_STACK_ENTRY(float, f32)
-MOT_FE_NL_STACK_ENTRY(double, f64)
-
-// The f32 nonlinear plan's launch: out[0] clusters, out[1] blocks per SM,
-// out[2] one block's shared memory in bytes.
-extern "C" int mot_fe_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
-  return nl_plan_query<false>(ny2, nx, k, rt, ct, ks, out);
-}
+#else
+MOT_FE_ENTRIES(float, f32)
 
 // The launch fe_step makes for an rt x ct tile of an ny2 x nx x k f32
-// lattice with the stencil `table` (a host copy), with n_tr tracers (the
-// periodic tracer arm), stratified (strat nonzero: the periodic stratified
-// arm) or neither: out[0] the clusters (one per tile), out[1] the blocks per
-// SM. Returns 0, kNotHexTable or the CUDA error.
+// lattice with the stencil `table` (a host copy), of the periodic arm with
+// n_tr tracers (none: 0), stratified (strat nonzero) or not: out[0] the
+// clusters (one per tile), out[1] the blocks per SM. Returns 0,
+// kNotHexTable or the CUDA error.
+template <bool kTracers, bool kStrat>
+int plan_query(const FePlan<float>& pl, int* out) {
+  const int e = prepare<float, false, false, kTracers, kStrat>(pl.max_smem);
+  if (e != 0) return e;
+  out[0] = pl.n_tiles;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], fe_step_kernel<float, false, false, kTracers, kStrat>, kStepThreads, pl.smem));
+}
+
 extern "C" int mot_fe_plan(const int* table, int ny2, int nx, int k, int rt, int ct, int n_tr,
                            int strat, int* out) {
   double weights[kMaxTerms] = {};
@@ -642,14 +621,7 @@ extern "C" int mot_fe_plan(const int* table, int ny2, int nx, int k, int rt, int
                            strat ? &dummy : nullptr, table, weights, 1.0, 1.0, 1.0, ny2, nx, k,
                            1, table[0], rt, ct, true);
   if (e != 0) return e;
-  auto kernel = strat      ? fe_step_kernel<float, false, false, false, true>
-                : n_tr > 0 ? fe_step_kernel<float, false, false, true, false>
-                           : fe_step_kernel<float, false, false, false, false>;
-  e = strat      ? prepare<float, false, false, false, true>(pl.max_smem)
-      : n_tr > 0 ? prepare<float, false, false, true, false>(pl.max_smem)
-                 : prepare<float, false, false, false, false>(pl.max_smem);
-  if (e != 0) return e;
-  out[0] = pl.n_tiles;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], kernel, kStepThreads, pl.smem));
+  return n_tr > 0 ? (strat ? plan_query<true, true>(pl, out) : plan_query<true, false>(pl, out))
+                  : (strat ? plan_query<false, true>(pl, out) : plan_query<false, false>(pl, out));
 }
+#endif  // MOT_FE_STEP_F64

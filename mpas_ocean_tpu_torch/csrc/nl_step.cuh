@@ -1,13 +1,17 @@
 // One step of the nonlinear (vector-invariant) TRiSK shallow-water core on the
 // parity-plane hex lattice, forward Euler (FE) or forward-backward (FB), for
-// NVIDIA Hopper (sm_90a): the nonlinear arms of fe_step.cu (FE) and
-// tiled_step.cu (FB, q = 1), which each instantiate this kernel once.
+// NVIDIA Hopper (sm_90a): the nonlinear arms of fe_step (FE) and tiled_step
+// (FB, q = 1), instantiated per arm and dtype by nl_step_{fe,fb}_{f32,f64}.cu.
 //
 // Replaces: the nonlinear branch of _step_planes (nl, pallas_model.py:172-242)
 // in _rollout_kernel (:320, FE) and _step_slab_nl (sharded.py:597) in
 // _tiled_step_kernel (:852, FE reach 2 and FB reach 3), periodic (4 f_vertex
 // planes) and wall-masked (20 planes: f_vertex, vertex mask, 12 live kite
-// weights; _nl_setup, :586-607), forcing, tracers and stratification off.
+// weights; _nl_setup, :586-607), with momentum forcing (:244-256), tracers
+// (:258-298) and layered stratification (Phi = g ssh + h @ W, :150-165) in
+// any combination, in _step_planes' order: the base update plus dt F of the
+// old u and h_edge, then the wall mask; the tracers by the old thickness
+// flux over h'; Phi of the old state (FE) or of the fresh h' and ssh' (FB).
 //
 // Per site and level, from the old state: the thickness flux
 // F = u (h + h_nbr) / 2, KE = s_ke (sum of the cell's 6 u^2), the curl at the
@@ -145,6 +149,10 @@ struct NlArgs {
   T* ssh_out;
   T* h_out;
   T* u_out;
+  ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
+  TracerArgs<T> tr;   // the tracer arm's operands; tr null otherwise
+  const T* strat_w;   // the stratified arm's W (K, K); null otherwise
+  NbrReach nr;        // the gradient's reach, which grows the tile to Phi's region
   T dt, inv_dc, s_div, s_ke, s_curl;
   int ny2, nx, K, rt, ct, hm, hi, dr, dc, n_fv, kc_log2, ks_log2, vec_log2, n_tiles_i;
 };
@@ -152,7 +160,9 @@ struct NlArgs {
 // The stencils as offsets, resolved once per call on the host (kernel
 // parameters, in the constant bank): stage A's sources in the state slice
 // [8][W][ks], the endpoint vertices' window sites, and stage B's reads of
-// the derived planes [20][D][ks] (D: the tile plus the ring).
+// the derived planes [20][D][ks] (D: the tile plus the ring); for the
+// tracer and forced arms, the linear step's own and incoming u and its h
+// sources in the state slice (hex::, as resolve_taps numbers them).
 template <typename T>
 struct NlTaps {
   T w[hex::kTaps];        // Coriolis weights, 8 per output channel
@@ -163,12 +173,15 @@ struct NlTaps {
   int b_f[hex::kU];       // F at the hex:: u sources, derived units
   int b_ke[6];            // KE across channel c's owned edge, derived units
   int nb_p[6];            // the pressure's neighbour across channel c, its planes' sites
+  int us[hex::kEdgeU];    // hex:: u sources 0 .. 10, state units
+  int hs[hex::kH];        // hex:: h sources, state units
 };
 
 // The hex tables resolved for a window of Wm x Wi = W sites, a derived ring
 // (dr, dc) and slices of ks levels; false for a Coriolis or vertex table that
 // is not the hex lattice's. ``pw``, ``pi`` are the pressure planes' sites per
-// plane and per row (FE: the window's; FB: the tile plus one ring).
+// plane and per row (FE: the window's; FB and the stratified arms: the tile
+// plus one ring).
 template <typename T>
 inline bool resolve_nl_taps(NlTaps<T>* s, const int* table, const double* weights,
                             const int* vc, const double* vc_w, const int* ev, int Wi, int W,
@@ -198,6 +211,10 @@ inline bool resolve_nl_taps(NlTaps<T>* s, const int* table, const double* weight
                  hex_vert::h_src(i, 2)) * ks;
   for (int i = 0; i < hex_vert::kV; ++i)
     s->a_v[i] = hex_vert::v_src(i, 1) * Wi + hex_vert::v_src(i, 2);
+  StepTaps<T> ws;  // the same table on the state slice's geometry
+  if (!resolve_taps<T>(&ws, table, weights, Wi, W, ks)) return false;
+  for (int i = 0; i < hex::kEdgeU; ++i) s->us[i] = ws.us[i];
+  for (int i = 0; i < hex::kH; ++i) s->hs[i] = ws.hs[i];
   return true;
 }
 
@@ -237,12 +254,55 @@ __device__ __forceinline__ void load_slice(T* buf, const int* gs, const T* h, co
   }
 }
 
+// The forced arm's staged planes of a nonlinear block, on the tile only
+// (its wind and drag act at the tile's edges): the packed levels [6][core]
+// if its rank is in lvl_ranks, the winds [6][core] if in wind_ranks, by
+// async copies with the first slice (needs gs[]).
+template <typename T>
+__device__ __forceinline__ void load_tile_forcing(const ForcingSmem<T>& fs, const int* gs,
+                                                  const ForcingArgs<T>& fc, int rt, int ct,
+                                                  int hm, int hi, int Wi, int plane, int rank) {
+  const bool lvl = (fc.lvl_ranks >> rank) & 1u, wind = (fc.wind_ranks >> rank) & 1u;
+  if (!lvl) return;
+  const int core = rt * ct;
+  for (int t = threadIdx.x; t < core; t += blockDim.x) {
+    const int r = t / ct;
+    const int g = gs[(hm + r) * Wi + hi + t - r * ct];
+    for (int c6 = 0; c6 < 6; ++c6) {
+      copy_async(fs.lvl + c6 * core + t, fc.lvl + c6 * plane + g);
+      if (wind) copy_async(fs.wind + c6 * core + t, fc.wind + c6 * plane + g);
+    }
+  }
+}
+
 // One nonlinear step; a cluster of n_ranks blocks per tile, blocks of
-// kStepThreads threads, groups of ks lanes on one site's slice levels.
-template <typename T, bool FB, bool kMasked>
+// kStepThreads threads, groups of ks lanes on one site's slice levels. The
+// forced, tracer and stratified arms (kForced, kTracers, kStrat, in any
+// combination; the plain arm keeps its code):
+// - forced: Rayleigh in stage B's momentum; the wind and drag, which act at
+//   an edge's top and bottom level only, in a pass after each slice over the
+//   tile's edges whose levels the slice holds (the slice's old state is in
+//   shared memory then), by the ranks whose chunk holds such levels, from
+//   the tile's winds and packed levels staged once;
+// - tracers: the slice's 2 nT tracer planes ride with its 8 state planes,
+//   and continuity's lane group carries them at the tile's sites with the
+//   old state's edge fluxes (the F of stage A, formed again from the same
+//   values) over h' (step_window.cuh, tracer_step);
+// - stratified: Phi at a level needs every level's h at the site and its
+//   ring, and a rank holds one slice of its chunk at a time. So each rank
+//   keeps its chunk of h on the tile plus one ring (the old h in FE, the
+//   fresh h' in FB, as continuity forms it), FE defers its pressure as FB
+//   does, and after the cluster barrier of the column sums every rank forms
+//   Phi = g ssh + h @ W at its levels through distributed shared memory in
+//   rank order (step_window.cuh, montgomery) and applies its gradient with
+//   scale -dt.
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 __global__ void __launch_bounds__(kStepThreads, 1)
     nl_step_kernel(const NlArgs<T> a, const NlTaps<T> tp) {
   using namespace hex_vert;
+  // the pressure waits for the cluster's column sums: FB's for the fresh
+  // ssh, the stratified arm's for every rank's h
+  constexpr bool kDefer = FB || kStrat;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -251,7 +311,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int tm = tile / a.n_tiles_i, ti = tile % a.n_tiles_i;
   const int Wi = a.ct + 2 * a.hi, W = (a.rt + 2 * a.hm) * Wi;
   const int Di = a.ct + 2 * a.dc, D = (a.rt + 2 * a.dr) * Di;
-  const int Fi = a.ct + 2, Fs = (a.rt + 2) * Fi;  // FB: the tile plus one ring
+  const int Fi = a.ct + 2, Fs = (a.rt + 2) * Fi;  // the tile plus one ring
   const int core = a.rt * a.ct;
   const int P = FB ? Fs : core;  // the sites of the partial column sums
   const int kc = 1 << a.kc_log2, ks = 1 << a.ks_log2;
@@ -260,17 +320,25 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int plane = a.ny2 * a.nx;
   const int K = a.K;
   const int WK = W * ks, DK = D * ks;
+  // one state slice: the state's 8 planes, and the tracer arm's after them
+  const int SK = (kTracers ? 8 + 2 * a.tr.n : 8) * WK;
 
-  T* st = reinterpret_cast<T*>(smem_raw);  // [2][8][W][ks]: h p0, h p1, u c0..c5
-  T* dsm = st + 2 * 8 * WK;                // [20][D][ks]: F, F q_e, q_e, KE
+  T* st = reinterpret_cast<T*>(smem_raw);  // [2][8 (+ 2 nT)][W][ks]: h p0, h p1, u c0..c5, tracers
+  T* dsm = st + 2 * SK;                    // [20][D][ks]: F, F q_e, q_e, KE
   T* ssh_s = dsm + hex_vert::kPlanes * DK;           // [2][W]: the old ssh (FE)
   T* rts_s = ssh_s + 2 * W;                // [2][W]
   T* fv_s = rts_s + 2 * W;                 // [kFv][W]
   T* part = fv_s + kFv * W;                // [2][P]
-  T* sshf = part + 2 * P;                  // FB: [2][Fs], the fresh ssh
-  T* upart = sshf + (FB ? 2 * Fs : 0);     // FB: [6][core][kc]
-  int* gs = reinterpret_cast<int*>(upart + (FB ? 6 * core * kc : 0));  // [W]
-  int* live_s = gs + W;                                                  // [W]
+  T* sshf = part + 2 * P;                  // deferred: [2][Fs], the pressure's ssh
+  T* upart = sshf + (kDefer ? 2 * Fs : 0);  // deferred: [6][core][kc]
+  int* gs = reinterpret_cast<int*>(upart + (kDefer ? 6 * core * kc : 0));  // [W]
+  int* live_s = gs + W;                                                     // [W]
+  // the stratified arm's Phi, staging and W slice, and (`fresh`) its chunk of
+  // h on the tile plus one ring
+  const StratSmem<T> ssm(live_s + W, Fs, kc, K);
+  // the forced arm's winds and levels on the tile, after the stratified arm's
+  const ForcingSmem<T> fsm(kStrat ? ssm.end(Fs, kc, true) : static_cast<void*>(live_s + W),
+                           core, 0);
 
   allow_next_grid();
   window_sites(gs, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx);
@@ -285,12 +353,22 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     for (int x = 0; x < a.n_fv; ++x) copy_async(fv_s + x * W + s, a.fv + x * plane + g);
   }
   if (kMasked) load_live(live_s, gs, a.live, W);
-  if (n_slices > 0)
+  if (kForced) load_tile_forcing(fsm, gs, a.fc, a.rt, a.ct, a.hm, a.hi, Wi, plane, rank);
+  if (kStrat) load_strat_w(ssm.wsl, a.strat_w, K, k0, kr, a.kc_log2);
+  if (n_slices > 0) {
     load_slice(st, gs, a.h, a.u, W, a.ks_log2, a.vec_log2, k0, min(ks, kr), K, plane);
+    if (kTracers)
+      load_tracers(st + 8 * WK, gs, a.tr.tr, 2 * a.tr.n, W, a.ks_log2, a.vec_log2, k0,
+                   min(ks, kr), K, plane);
+  }
   __pipeline_commit();
 
   const T dt_div = a.dt * a.s_div;
-  const T pg_scale = T(-kGravity) * a.dt;
+  const T pg_scale = kStrat ? -a.dt : T(-kGravity) * a.dt;
+  const T dt_rayl = a.dt * a.fc.rayl;  // the forced arm's Rayleigh factor
+  // the forced arm: whether this block's chunk holds some edge's top or
+  // bottom level (then its tile's levels are staged and its pass runs)
+  const bool wd = kForced && ((a.fc.lvl_ranks >> rank) & 1u);
   const FastDiv by_di(Di), by_ct(a.ct), by_fi(Fi);
   const int lane_mask = ks - 1;
   const int g_width = min(ks, 32);
@@ -300,15 +378,31 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     const int kn = min(ks, kr - kb);  // its real levels
     if (sl + 1 < n_slices) {
       const int kb2 = kb + ks;
-      load_slice(st + ((sl + 1) & 1) * 8 * WK, gs, a.h, a.u, W, a.ks_log2, a.vec_log2,
-                 k0 + kb2, min(ks, kr - kb2), K, plane);
+      T* nxt = st + ((sl + 1) & 1) * SK;
+      load_slice(nxt, gs, a.h, a.u, W, a.ks_log2, a.vec_log2, k0 + kb2, min(ks, kr - kb2), K,
+                 plane);
+      if (kTracers)
+        load_tracers(nxt + 8 * WK, gs, a.tr.tr, 2 * a.tr.n, W, a.ks_log2, a.vec_log2, k0 + kb2,
+                     min(ks, kr - kb2), K, plane);
       __pipeline_commit();
       __pipeline_wait_prior(1);
     } else {
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    const T* cur = st + (sl & 1) * 8 * WK;
+    const T* cur = st + (sl & 1) * SK;
+
+    if (kStrat && !FB) {
+      // the stratified arm's chunk of the old h on the tile plus one ring
+      for (int e = threadIdx.x; e < Fs * ks; e += blockDim.x) {
+        const int t = e >> a.ks_log2, kl = e & lane_mask;
+        if (kl >= kn) continue;
+        const int r = by_fi.div(t), c = by_fi.mod(t, r);
+        const int sw = (a.hm - 1 + r) * Wi + a.hi - 1 + c;
+        ssm.fresh[t * kc + kb + kl] = cur[sw * ks + kl];
+        ssm.fresh[(Fs + t) * kc + kb + kl] = cur[WK + sw * ks + kl];
+      }
+    }
 
     // stage A: the derived planes on the tile plus the ring
     for (int e = threadIdx.x; e < D * ks; e += blockDim.x) {
@@ -370,6 +464,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
 
     // stage B, continuity: h' on the tile (FE) or on the tile plus one ring
     // (FB), each slice's column sums added in order; the tile's h' stored
+    // (and its tracers carried), FB's stratified arm keeping its chunk of h'
     const int cn = FB ? Fs : core;
     for (int e0 = 0; e0 < cn * ks; e0 += blockDim.x) {
       const int e = e0 + threadIdx.x;
@@ -399,10 +494,35 @@ __global__ void __launch_bounds__(kStepThreads, 1)
           hnew[p] = cur[sw * ks + kl + p * WK] - dt_div * total;
         }
         const int gm = tm * a.rt + r, gi = ti * a.ct + c;
-        if (r >= 0 && r < a.rt && c >= 0 && c < a.ct && gm < a.ny2 && gi < a.nx) {
+        const bool own = r >= 0 && r < a.rt && c >= 0 && c < a.ct && gm < a.ny2 && gi < a.nx;
+        if (own) {
           T* h_o = a.h_out + (gm * a.nx + gi) * K + k0 + kb + kl;
           h_o[0] = hnew[0];
           h_o[plane * K] = hnew[1];
+        }
+        if (kStrat && FB) {  // the fresh h' that Phi reads
+          ssm.fresh[t * kc + kb + kl] = hnew[0];
+          ssm.fresh[(Fs + t) * kc + kb + kl] = hnew[1];
+        }
+        if (kTracers && own) {
+          const T* lv = cur + sw * ks + kl;
+          const int g = gm * a.nx + gi;
+          T u[hex::kEdgeU], h[hex::kH];
+#pragma unroll
+          for (int i = 0; i < hex::kEdgeU; ++i) u[i] = lv[tp.us[i]];
+#pragma unroll
+          for (int i = 0; i < hex::kH; ++i) h[i] = lv[tp.hs[i]];
+          T cm[2] = {T(1), T(1)};
+          unsigned live = 0u, inc_live = 0u;
+          if (kMasked) {  // the live bits and live-cell mask of the site (a channel's)
+            live = static_cast<unsigned>(live_s[sw]);
+            inc_live = incoming_live(live_s, sw, a.tr);
+            cm[0] = a.tr.cmask[g], cm[1] = a.tr.cmask[plane + g];
+          }
+          tracer_step<T, kMasked>(lv, WK, tp, u, h, hnew, cm, live, inc_live, a.tr, dt_div,
+                                  a.inv_dc, [&](int i, T v) {
+                                    a.tr.tr_out[(i * plane + g) * K + k0 + kb + kl] = v;
+                                  });
         }
       }
       const T s0 = group_sum(hnew[0], g_width), s1 = group_sum(hnew[1], g_width);
@@ -413,8 +533,8 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     }
 
     // stage B, momentum on the tile: u + dt ((q_e T(F) + T(F q_e)) / 2 -
-    // grad KE), then (FE) the old ssh's pressure and the mask, stored; FB
-    // keeps it for the fresh pressure
+    // grad KE) (forced: - dt lambda u), then (FE) the old ssh's pressure and
+    // the mask, stored; deferred, kept for the pressure
     for (int e = threadIdx.x; e < core * ks; e += blockDim.x) {
       const int t = e >> a.ks_log2, kl = e & lane_mask;
       if (kl >= kn) continue;
@@ -444,8 +564,9 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         const T pv = T(0.5) * (fl[(12 + ch) * DK] * tf + tfq);
         const T gke = (fl[tp.b_ke[ch]] - ((ch & 1) ? ke1 : ke0)) * a.inv_dc;
         unew[ch] = cur[sw * ks + kl + (2 + ch) * WK] + a.dt * (pv - gke);
+        if (kForced && kDefer) unew[ch] = unew[ch] - dt_rayl * cur[sw * ks + kl + (2 + ch) * WK];
       }
-      if (FB) {
+      if (kDefer) {
 #pragma unroll
         for (int ch = 0; ch < 6; ++ch) upart[(ch * core + t) * kc + kb + kl] = unew[ch];
       } else {
@@ -456,12 +577,40 @@ __global__ void __launch_bounds__(kStepThreads, 1)
 #pragma unroll
         for (int ch = 0; ch < 6; ++ch) {
           const T grad = (ssh_s[sw + tp.nb_p[ch]] - ssh_s[(ch & 1) * W + sw]) * a.inv_dc;
-          const T v = unew[ch] + pg_scale * grad;
+          T v = unew[ch] + pg_scale * grad;
+          if (kForced) v = v - dt_rayl * cur[sw * ks + kl + (2 + ch) * WK];
           u_o[ch * plane * K] = (kMasked && !((lb >> ch) & 1u)) ? T(0) : v;
         }
       }
     }
     __syncthreads();
+
+    if (wd) {
+      // the forced arm: the wind and drag at the tile's edges' top and bottom
+      // levels in this slice, of the slice's old state, added to the stored
+      // u' (deferred: to the kept momentum); masked channels keep their 0
+      for (int e = threadIdx.x; e < 6 * core; e += blockDim.x) {
+        const int ch = e / core, t = e - ch * core;
+        const int r = by_ct.div(t), c = by_ct.mod(t, r);
+        const int gm = tm * a.rt + r, gi = ti * a.ct + c;
+        const int sw = (a.hm + r) * Wi + a.hi + c;
+        if (gm >= a.ny2 || gi >= a.nx || (kMasked && !((live_s[sw] >> ch) & 1u))) continue;
+        const int lv = fsm.lvl[ch * core + t];
+        int lev[2];
+        chunk_levels(lv, k0 + kb, kn, &lev[0], &lev[1]);
+        for (int i = 0; i < 2; ++i) {
+          const int kl = lev[i];
+          if (kl < 0) continue;
+          const T* v = cur + sw * ks + kl;
+          const T he = T(0.5) * (v[tp.hs[hex::nb_h(ch)]] + v[tp.hs[hex::self_h(ch & 1)]]);
+          T& o = kDefer ? upart[(ch * core + t) * kc + kb + kl]
+                        : a.u_out[(ch * plane + gm * a.nx + gi) * K + k0 + kb + kl];
+          o = o + a.dt * wind_drag(v[tp.us[hex::self_u(ch)]], he, lv, k0 + kb + kl,
+                                   fsm.wind + ch * core + t, a.fc);
+        }
+      }
+      __syncthreads();
+    }
   }
 
   // ssh' = sum_k h' - rts over the ranks' partial sums, in rank order (FB:
@@ -493,9 +642,24 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         a.ssh_out[p * plane + gm * a.nx + gi] = ssh;
     }
   }
-  if (FB) {
-    // the fresh ssh's pressure on this rank's chunk of the tile
+  if (kStrat && !FB) {
+    // FE's Phi takes the old ssh, on the tile plus one ring
+    for (int e = threadIdx.x; e < 2 * Fs; e += blockDim.x) {
+      const int p = e >= Fs ? 1 : 0, x = e - p * Fs;
+      const int r = by_fi.div(x), c = by_fi.mod(x, r);
+      sshf[e] = ssh_s[p * W + (a.hm - 1 + r) * Wi + a.hi - 1 + c];
+    }
+  }
+  if (kDefer) {
     __syncthreads();
+    // the stratified arm: Phi at this block's levels on the tile grown by
+    // the gradient's reach, from every rank's chunk of h (each written before
+    // the barrier above, none written after it)
+    if (kStrat)
+      montgomery(ssm, cluster, ssm.fresh, sshf, 1 + a.nr.m0, 1 + a.rt + a.nr.m1, 1 + a.nr.i0,
+                 1 + a.ct + a.nr.i1, Fi, Fs, a.kc_log2, kr, K, rank, n_ranks);
+    // the pressure (of the fresh ssh, FB; of each level's Phi, stratified)
+    // on this rank's chunk of the tile
     for (int e = threadIdx.x; e < core * kc; e += blockDim.x) {
       const int t = e >> a.kc_log2, kl = e & (kc - 1);
       if (kl >= kr) continue;
@@ -508,32 +672,46 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       T* u_o = a.u_out + (gm * a.nx + gi) * K + k0 + kl;
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) {
-        const T grad = (sshf[sf + tp.nb_p[ch]] - sshf[(ch & 1) * Fs + sf]) * a.inv_dc;
+        T grad;
+        if (kStrat) {
+          const T* ph = ssm.phi + (sf << a.kc_log2) + kl;
+          grad = (ph[tp.nb_p[ch] << a.kc_log2] - ph[(ch & 1) * (Fs << a.kc_log2)]) * a.inv_dc;
+        } else {
+          grad = (sshf[sf + tp.nb_p[ch]] - sshf[(ch & 1) * Fs + sf]) * a.inv_dc;
+        }
         const T v = upart[(ch * core + t) * kc + kl] + pg_scale * grad;
         u_o[ch * plane * K] = (kMasked && !((lb >> ch) & 1u)) ? T(0) : v;
       }
     }
   }
-  // no block may leave while another can still read its partial sums
+  // no block may leave while another can still read its partial sums (and
+  // the stratified arm's h chunk)
   cluster.sync();
 }
 
 // Dynamic shared memory of one block (kernels/fe_step.nl_smem_bytes mirrors
-// this): two state slices, the derived planes, the window's ssh, rts and
-// vertex constants (20 planes, the masked arm's, reserved by the periodic
-// one too), the partial column sums, for FB the fresh ssh and the chunk's
-// u + dt (PV flux - grad KE) on the tile, and the window's sites with their
-// live bits.
+// this): two state slices (with the tracer arm's 2 n_tr planes each), the
+// derived planes, the window's ssh, rts and vertex constants (20 planes, the
+// masked arm's, reserved by the periodic one too), the partial column sums,
+// for FB and the stratified arm the pressure's ssh and the chunk's u + dt
+// (PV flux - grad KE) on the tile, and the window's sites with their live
+// bits; the stratified arm's (strat_k = K > 0: Phi, staging, W slice and h
+// chunk on the tile plus one ring) and the forced arm's (the tile's winds
+// and packed levels) beyond.
 inline size_t nl_smem_bytes(int rt, int ct, int hm, int hi, int dr, int dc, int kc, int ks,
-                            bool fb, size_t itemsize) {
+                            bool fb, size_t itemsize, bool forced = false, int n_tr = 0,
+                            int strat_k = 0) {
   const long long W = static_cast<long long>(rt + 2 * hm) * (ct + 2 * hi);
   const long long D = static_cast<long long>(rt + 2 * dr) * (ct + 2 * dc);
   const long long F = static_cast<long long>(rt + 2) * (ct + 2);
   const long long core = static_cast<long long>(rt) * ct;
   const long long P = fb ? F : core;
-  long long vals = 16 * W * ks + hex_vert::kPlanes * D * ks + (4 + hex_vert::kFv) * W + 2 * P;
-  if (fb) vals += 2 * F + 6 * core * kc;
-  return itemsize * static_cast<size_t>(vals) + 2 * sizeof(int) * static_cast<size_t>(W);
+  long long vals = 2 * (8 + 2 * n_tr) * W * ks + hex_vert::kPlanes * D * ks +
+                   (4 + hex_vert::kFv) * W + 2 * P;
+  if (fb || strat_k > 0) vals += 2 * F + 6 * core * kc;
+  return itemsize * static_cast<size_t>(vals) + 2 * sizeof(int) * static_cast<size_t>(W) +
+         (strat_k > 0 ? strat_smem_bytes(F, kc, strat_k, itemsize, true) : 0) +
+         (forced ? forcing_smem_bytes(core, 0, itemsize) : 0);
 }
 
 // One call's launch set-up.
@@ -550,6 +728,7 @@ struct NlPlan {
 // tables, which resolve_nl_taps checks).
 template <typename T>
 int make_nl_plan(NlPlan<T>* pl, bool fb, const T* rts, const T* fv, int n_fv, const int* live,
+                 const ForcingArgs<T>& fc, TracerArgs<T> tr, const T* strat_w,
                  const int* table, const double* weights, const int* vc, const double* vc_w,
                  const int* ev, double dt, double inv_dc, double s_div, double s_ke,
                  double s_curl, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,
@@ -559,61 +738,95 @@ int make_nl_plan(NlPlan<T>* pl, bool fb, const T* rts, const T* fv, int n_fv, co
   if (rt < 1 || ct < 1 || rt > ny2 || ct > nx || (n_fv != 4 && n_fv != 20) ||
       (live != nullptr) != (n_fv == 20))
     return cudaErrorInvalidValue;
+  // the tracer arm: at least one tracer, the cell mask with the live bits
+  if (tr.tr != nullptr && (tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
+    return cudaErrorInvalidValue;
+  const bool strat = strat_w != nullptr;
   const int hm = fb ? 3 : 2, hi = 4, dr = fb ? 2 : 1, dc = 2;
   const int kc = step_chunk(k);
   if (ks < 1 || ks > kc || (ks & (ks - 1)) || ks > 16) return cudaErrorInvalidValue;
   const int Wi = ct + 2 * hi, W = (rt + 2 * hm) * Wi;
   const int Di = ct + 2 * dc, D = (rt + 2 * dr) * Di;
-  const int pw = fb ? (rt + 2) * (ct + 2) : W, pi = fb ? ct + 2 : Wi;
+  const bool ring = fb || strat;  // the pressure on the tile plus one ring
+  const int pw = ring ? (rt + 2) * (ct + 2) : W, pi = ring ? ct + 2 : Wi;
   pl->n_ranks = (k + kc - 1) / kc;
   if (!resolve_nl_taps<T>(&pl->tp, table, weights, vc, vc_w, ev, Wi, W, Di, D, ks, pw, pi))
     return kNotHexTable;
+  resolve_tracer_taps(&tr, table, Wi);
   int e = opt_in_smem(&pl->max_smem);
   if (e != 0) return e;
-  pl->smem = nl_smem_bytes(rt, ct, hm, hi, dr, dc, kc, ks, fb, sizeof(T));
+  pl->smem = nl_smem_bytes(rt, ct, hm, hi, dr, dc, kc, ks, fb, sizeof(T), fc.wind != nullptr,
+                           tr.tr != nullptr ? tr.n : 0, strat ? k : 0);
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
   const bool vec_ok = vec && (ks * static_cast<int>(sizeof(T))) % 16 == 0;
-  pl->a = NlArgs<T>{nullptr, nullptr, nullptr, rts, fv, live, nullptr, nullptr, nullptr,
-                    T(dt), T(inv_dc), T(s_div), T(s_ke), T(s_curl), ny2, nx, k, rt, ct, hm, hi,
-                    dr, dc, n_fv, log2_exact(kc), log2_exact(ks),
+  pl->a = NlArgs<T>{nullptr, nullptr, nullptr, rts, fv, live, nullptr, nullptr, nullptr, fc,
+                    tr, strat_w, nbr_reach(table), T(dt), T(inv_dc), T(s_div), T(s_ke),
+                    T(s_curl), ny2, nx, k, rt, ct, hm, hi, dr, dc, n_fv, log2_exact(kc),
+                    log2_exact(ks),
                     vec_ok ? log2_exact(ks * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
   return 0;
 }
 
-template <typename T, bool FB, bool kMasked>
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 int nl_prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      nl_step_kernel<T, FB, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(nl_step_kernel<T, FB, kMasked, kForced, kTracers, kStrat>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
-template <typename T, bool FB>
-int nl_launch(NlPlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out, T* h_out,
-              T* u_out, cudaStream_t stream) {
-  pl->a.ssh = ssh, pl->a.h = h, pl->a.u = u;
-  pl->a.ssh_out = ssh_out, pl->a.h_out = h_out, pl->a.u_out = u_out;
-  const bool masked = pl->a.live != nullptr;
-  const int err = masked ? nl_prepare<T, FB, true>(pl->max_smem)
-                         : nl_prepare<T, FB, false>(pl->max_smem);
+template <typename T, bool FB, bool kMasked, bool kForced, bool kTracers, bool kStrat>
+int nl_launch_arm(const NlPlan<T>* pl, cudaStream_t stream) {
+  const int err = nl_prepare<T, FB, kMasked, kForced, kTracers, kStrat>(pl->max_smem);
   if (err != 0) return err;
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = step_config(pl->n_ranks, pl->n_tiles, pl->smem, stream, attr);
-  const cudaError_t e = masked ? cudaLaunchKernelEx(&cfg, nl_step_kernel<T, FB, true>, pl->a, pl->tp)
-                               : cudaLaunchKernelEx(&cfg, nl_step_kernel<T, FB, false>, pl->a, pl->tp);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, nl_step_kernel<T, FB, kMasked, kForced, kTracers, kStrat>, pl->a, pl->tp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation of the plan's arm: any combination of forced, tracers
+// and stratified.
+template <typename T, bool FB, bool kMasked>
+int nl_launch_masked(const NlPlan<T>* pl, cudaStream_t stream) {
+  using Launch = int (*)(const NlPlan<T>*, cudaStream_t);
+  static const Launch arms[8] = {
+      nl_launch_arm<T, FB, kMasked, false, false, false>,
+      nl_launch_arm<T, FB, kMasked, false, false, true>,
+      nl_launch_arm<T, FB, kMasked, false, true, false>,
+      nl_launch_arm<T, FB, kMasked, false, true, true>,
+      nl_launch_arm<T, FB, kMasked, true, false, false>,
+      nl_launch_arm<T, FB, kMasked, true, false, true>,
+      nl_launch_arm<T, FB, kMasked, true, true, false>,
+      nl_launch_arm<T, FB, kMasked, true, true, true>};
+  return arms[(pl->a.fc.wind != nullptr ? 4 : 0) + (pl->a.tr.tr != nullptr ? 2 : 0) +
+              (pl->a.strat_w != nullptr ? 1 : 0)](pl, stream);
+}
+
+template <typename T, bool FB>
+int nl_launch(NlPlan<T>* pl, const T* ssh, const T* h, const T* u, T* ssh_out, T* h_out,
+              T* u_out, cudaStream_t stream, const T* tr = nullptr, T* tr_out = nullptr) {
+  pl->a.ssh = ssh, pl->a.h = h, pl->a.u = u;
+  pl->a.ssh_out = ssh_out, pl->a.h_out = h_out, pl->a.u_out = u_out;
+  if (pl->a.tr.tr != nullptr) pl->a.tr.tr = tr, pl->a.tr.tr_out = tr_out;
+  return pl->a.live != nullptr ? nl_launch_masked<T, FB, true>(pl, stream)
+                               : nl_launch_masked<T, FB, false>(pl, stream);
+}
+
 // n_steps nonlinear FE or FB steps from `in` into `out` through `tmp`, as fe_steps in
 // fe_step.cu: step s writes `out` when n_steps - 1 - s is even, so the last
-// lands in `out` and no step writes the buffers it reads.
+// lands in `out` and no step writes the buffers it reads; the tracer arm's
+// planes (tr.tr non-null) alike.
 template <typename T, bool FB>
-int nl_steps(const T* rts, const T* fv, int n_fv, const int* live, const int* table,
+int nl_steps(const T* rts, const T* fv, int n_fv, const int* live, const ForcingArgs<T>& fc,
+             const TracerArgs<T>& tr, T* tr_tmp, const T* strat_w, const int* table,
              const double* weights, const int* vc, const double* vc_w, const int* ev,
              const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,
              T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div,
@@ -622,28 +835,32 @@ int nl_steps(const T* rts, const T* fv, int n_fv, const int* live, const int* ta
   const int kc = step_chunk(k);
   const bool vec = vector_loads(k, kc, sizeof(T), h_in, u_in) &&
                    vector_loads(k, kc, sizeof(T), h_out, u_out) &&
-                   vector_loads(k, kc, sizeof(T), h_tmp, u_tmp);
+                   vector_loads(k, kc, sizeof(T), h_tmp, u_tmp) &&
+                   (tr.tr == nullptr || (vector_loads(k, kc, sizeof(T), tr.tr, tr.tr_out) &&
+                                         vector_loads(k, kc, sizeof(T), tr_tmp, tr_tmp)));
   NlPlan<T> pl;
-  int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, table, weights, vc, vc_w, ev, dt,
-                            inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct,
-                            ks, vec);
+  int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, fc, tr, strat_w, table, weights, vc,
+                            vc_w, ev, dt, inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps,
+                            n_terms, rt, ct, ks, vec);
   if (err != 0) return err;
-  const T *ssh = ssh_in, *h = h_in, *u = u_in;
+  const T *ssh = ssh_in, *h = h_in, *u = u_in, *t = tr.tr;
   for (int s = 0; s < n_steps; ++s) {
     const bool to_out = ((n_steps - 1 - s) & 1) == 0;
     T* ssh_d = to_out ? ssh_out : ssh_tmp;
     T* h_d = to_out ? h_out : h_tmp;
     T* u_d = to_out ? u_out : u_tmp;
-    err = nl_launch<T, FB>(&pl, ssh, h, u, ssh_d, h_d, u_d, stream);
+    T* t_d = to_out ? tr.tr_out : tr_tmp;
+    err = nl_launch<T, FB>(&pl, ssh, h, u, ssh_d, h_d, u_d, stream, t, t_d);
     if (err != 0) return err;
-    ssh = ssh_d, h = h_d, u = u_d;
+    ssh = ssh_d, h = h_d, u = u_d, t = t_d;
   }
   return 0;
 }
 
 // n_steps nonlinear steps through a stack of states: slot s + 1 = step(slot
-// s), the launches nl_steps makes (the same kernel and plan), so a stack
-// refilled from a state holds nl_steps' states bit for bit.
+// s), the launches nl_steps makes (the same kernel and plan, unforced,
+// tracer-free and unstratified), so a stack refilled from a state holds
+// nl_steps' states bit for bit.
 template <typename T, bool FB>
 int nl_stack(const T* rts, const T* fv, int n_fv, const int* live, const int* table,
              const double* weights, const int* vc, const double* vc_w, const int* ev, T* ssh,
@@ -651,9 +868,10 @@ int nl_stack(const T* rts, const T* fv, int n_fv, const int* live, const int* ta
              int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, int ks,
              cudaStream_t stream) {
   NlPlan<T> pl;
-  int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, table, weights, vc, vc_w, ev, dt,
-                            inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct,
-                            ks, vector_loads(k, step_chunk(k), sizeof(T), h, u));
+  int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, ForcingArgs<T>{}, TracerArgs<T>{},
+                            nullptr, table, weights, vc, vc_w, ev, dt, inv_dc, s_div, s_ke,
+                            s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks,
+                            vector_loads(k, step_chunk(k), sizeof(T), h, u));
   if (err != 0) return err;
   const size_t cells = 2ULL * ny2 * nx;
   const size_t hs = cells * k, us = 3 * cells * k;
@@ -665,8 +883,9 @@ int nl_stack(const T* rts, const T* fv, int n_fv, const int* live, const int* ta
   return 0;
 }
 
-// The launch of an f32 nonlinear plan: out[0] the clusters (one per tile),
-// out[1] the blocks per SM, out[2] one block's shared memory in bytes.
+// The launch of an f32 nonlinear plan of the plain arm: out[0] the clusters
+// (one per tile), out[1] the blocks per SM, out[2] one block's shared memory
+// in bytes.
 template <bool FB>
 int nl_plan_query(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
   int max_smem = 0;
@@ -676,11 +895,63 @@ int nl_plan_query(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
   const size_t smem = nl_smem_bytes(rt, ct, FB ? 3 : 2, 4, FB ? 2 : 1, 2, kc, ks, FB,
                                     sizeof(float));
   if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  if ((e = nl_prepare<float, FB, false>(max_smem)) != 0) return e;
+  if ((e = nl_prepare<float, FB, false, false, false, false>(max_smem)) != 0) return e;
   out[0] = ((ny2 + rt - 1) / rt) * ((nx + ct - 1) / ct);
   out[2] = static_cast<int>(smem);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], nl_step_kernel<float, FB, false>, kStepThreads, smem));
+      &out[1], nl_step_kernel<float, FB, false, false, false, false>, kStepThreads, smem));
 }
 
 }  // namespace lattice
+
+// The C entries of one arm (FB false: fe_step's FE arm, entries mot_fe_nl_*;
+// FB true: tiled_step's FB arm, q = 1, mot_tiled_nl_*) in one dtype; each
+// nl_step_*.cu translation unit expands those of one arm and dtype, so that
+// the instantiations compile in parallel.
+//
+// The steps entry: n_steps nonlinear steps from `in` into `out` through
+// `tmp`, over rt x ct tiles (they need not divide the lattice) in level
+// slices of ks. `fv` holds the vertex constants (n_fv = 4 planes periodic,
+// 20 with live bits), `vc` / `vc_w` / `ev` the vertex tables (host copies,
+// kernels/fe_step.vertex_tables); a null `wind` runs the unforced arm, any
+// other the forced one with `lvl` and the coefficients; a null `tr_in` the
+// tracer-free arm, any other the tracer arm with n_tr tracers (planes
+// (2 n_tr, ny2, nx, k) in `tr_in`, `tr_out`, `tr_tmp`), the live-cell mask
+// `cmask` (non-null exactly when `live` is), kappa and upwind; a null
+// `strat_w` the unstratified arm, any other (W, (k, k) row-major) the
+// stratified one; the three in any combination. The stack entry (the
+// gradient's rebuild, nl_stack): slot s + 1 = step(slot s) for s < n_steps,
+// the plain arm. Each returns 0, kNotHexTable for a table that is not the
+// hex lattice's, or the CUDA error.
+#define MOT_NL_ENTRIES(T, SUFFIX, ARM, FB)                                                    \
+  extern "C" int mot_##ARM##_nl_steps_##SUFFIX(                                               \
+      const T* rts, const T* fv, int n_fv, const int* live, const T* wind, const int* lvl,    \
+      const int* table, const double* weights, const int* vc, const double* vc_w,             \
+      const int* ev, const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out,     \
+      T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, const T* tr_in, T* tr_out, T* tr_tmp,         \
+      const T* cmask, const T* strat_w, double dt, double inv_dc, double s_div, double s_ke,  \
+      double s_curl, double kappa, double upwind, double dlin, double dquad, double rayl,     \
+      int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms,        \
+      int rt, int ct, int ks, int n_tr, void* stream) {                                       \
+    const lattice::ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                   \
+                                     static_cast<unsigned>(lvl_ranks),                        \
+                                     static_cast<unsigned>(wind_ranks)};                      \
+    const lattice::TracerArgs<T> tr{tr_in, tr_out, cmask, T(kappa), T(0.5 * upwind), n_tr,   \
+                                    {}, {}};                                                  \
+    return lattice::nl_steps<T, FB>(rts, fv, n_fv, live, fc, tr, tr_tmp, strat_w, table,      \
+                                    weights, vc, vc_w, ev, ssh_in, h_in, u_in, ssh_out,       \
+                                    h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div,   \
+                                    s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks,   \
+                                    static_cast<cudaStream_t>(stream));                       \
+  }
+#define MOT_NL_STACK_ENTRY(T, SUFFIX, ARM, FB)                                                \
+  extern "C" int mot_##ARM##_nl_stack_##SUFFIX(                                               \
+      const T* rts, const T* fv, int n_fv, const int* live, const int* table,                 \
+      const double* weights, const int* vc, const double* vc_w, const int* ev, T* ssh, T* h,  \
+      T* u, double dt, double inv_dc, double s_div, double s_ke, double s_curl, int ny2,      \
+      int nx, int k, int n_steps, int n_terms, int rt, int ct, int ks, void* stream) {        \
+    return lattice::nl_stack<T, FB>(rts, fv, n_fv, live, table, weights, vc, vc_w, ev, ssh,   \
+                                    h, u, dt, inv_dc, s_div, s_ke, s_curl, ny2, nx, k,        \
+                                    n_steps, n_terms, rt, ct, ks,                             \
+                                    static_cast<cudaStream_t>(stream));                       \
+  }

@@ -35,6 +35,7 @@ constexpr int kLanesLog2 = 4;  // at most 16 lanes (a half-warp) per site
 namespace hex {
 constexpr int kTaps = 48;  // Coriolis taps, 8 per output channel
 constexpr int kU = 25;     // u sources
+constexpr int kEdgeU = 11; // of them, the site's own and incoming edges' (continuity's)
 constexpr int kH = 10;     // h sources
 // u source of: the site's channel c; incoming edge x = 3p + j; Coriolis tap t
 __host__ __device__ constexpr int self_u(int c) { return c; }
@@ -469,12 +470,13 @@ __device__ __forceinline__ unsigned incoming_live(const int* live_s, int s,
 // (pallas_model.py:384-399): per parity p, the content h T - dt (dv / A) (the
 // owned edges' G - the incoming edges' G) over h', or 0 on a culled cell of a
 // channel (cm[p] = 0). `lv` is the site's level in the window copy of the
-// state ([8 + 2 nT][W][kc] from its planes), `pk` one plane, `u` and `h` the
+// state ([8 + 2 nT][W][kc] from its planes), `pk` one plane, `tp.hs` the h
+// sources' offsets in it (StepTaps, or the nonlinear arms' NlTaps), `u` and `h` the
 // site's u and h sources as the step loaded them (u indexed as hex::),
 // `hnew` its h', `live` its live bits and `inc_live` its incoming edges'
 // (incoming_live; masked arm); `store(i, v)` writes plane i's new value.
-template <typename T, bool kMasked, typename Store>
-__device__ __forceinline__ void tracer_step(const T* lv, int pk, const StepTaps<T>& tp,
+template <typename T, bool kMasked, typename Taps, typename Store>
+__device__ __forceinline__ void tracer_step(const T* lv, int pk, const Taps& tp,
                                             const T* u, const T* h, const T* hnew,
                                             const T* cm, unsigned live, unsigned inc_live,
                                             const TracerArgs<T>& tr, T dt_div, T inv_dc,
@@ -543,13 +545,18 @@ struct StratSmem {
   T* phi;    // [2][W][kc]: Phi at this block's levels
   T* stage;  // [2][W][kc]: another rank's h chunk
   T* wsl;    // [K][kc]: W[l][k0 + kl]
-  T* fresh;  // [2][W][kc]: FB's fresh h' (tiled_step's FB arm only)
+  T* fresh;  // [2][W][kc]: FB's fresh h' (tiled_step's FB arm), the nonlinear arms' h chunk
   __device__ StratSmem(void* end, int W, int kc, int K) {
     const uintptr_t at = (reinterpret_cast<uintptr_t>(end) + 15) & ~static_cast<uintptr_t>(15);
     phi = reinterpret_cast<T*>(at);
     stage = phi + 2 * W * kc;
     wsl = stage + 2 * W * kc;
     fresh = wsl + K * kc;
+  }
+  // the end of the arm's layout, with or without the fresh h' (whose
+  // planes follow the W slice), where another arm's may start
+  __device__ void* end(int W, int kc, bool with_fresh) const {
+    return fresh + (with_fresh ? 2 * W * kc : 0);
   }
 };
 // The stratified arm's shared memory beyond the unstratified layout: what

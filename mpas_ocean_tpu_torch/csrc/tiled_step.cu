@@ -7,9 +7,9 @@
 // the state, periodic (masks off) and masked (a coastal channel culled from
 // a periodic lattice: the mask operands of :875-877, 1287-1288, windowed as
 // f_edge), unforced and forced (the wind and the level-index operands),
-// without tracers and with them (unforced; the tracer and cell-mask
-// operands of :892-946, 1180-1190), unstratified and stratified (unforced
-// and tracer-free; the strat_w operand of :904-908, 1193-1194). One launch
+// without tracers and with them (the tracer and cell-mask operands of
+// :892-946, 1180-1190), unstratified and stratified (the strat_w operand of
+// :904-908, 1193-1194), the three in any combination. One launch
 // advances the whole
 // lattice by q steps of _window_steps (:802); the exported entry loops
 // n_steps / q launches on the caller's stream.
@@ -86,8 +86,8 @@
 // in a pass of the ranks whose chunk holds such levels over the step's edges
 // (step_window.cuh, ForcingArgs, wind_drag_pass).
 //
-// The tracer arm (kTracers, chosen by a non-null tracer pointer; unforced;
-// the tracer-free arms keep their code) carries the block's chunk of the 2 nT
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; the
+// tracer-free arms keep their code) carries the block's chunk of the 2 nT
 // tracer planes in each window copy after the 8 state planes, and at every
 // step updates them where continuity updates h, on the same shrinking
 // rings, in the lane group that forms the site's h': the tracer flux of
@@ -98,8 +98,8 @@
 // section 5): 526.9 us/step at 256x256x100, x1.88 the tracer-free step: the
 // tracer planes halve the two-block tile to (4, 8).
 //
-// The stratified arm (kStrat, chosen by a non-null W; unforced and
-// tracer-free; the unstratified arms keep their code), at every step of the
+// The stratified arm (kStrat, chosen by a non-null W; the unstratified arms
+// keep their code), at every step of the
 // window, forms the Montgomery potential Phi = g ssh + h @ W at the block's
 // levels on the momentum update's region grown by the gradient's reach
 // (step_window.cuh, StratSmem, montgomery), after the column sums' barrier,
@@ -113,8 +113,15 @@
 // the ping-pong copy (FE) or the fresh h' (FB) that a slower rank is still
 // reading for step j's Phi. A barrier was chosen over a third buffer: it
 // costs one cluster barrier per step and no shared memory.
+//
+// The arms compose (every combination of kForced, kTracers and kStrat is an
+// instantiation), as in fe_step.cu: each window copy carries the tracer
+// planes beside the state's, the stratified arm keeps its Phi, staging, W
+// slice and (FB) fresh h' after the unforced layout, and the forced arm its
+// winds and levels after those; the forcing and the tracers read the step's
+// old window copy, which neither Phi nor the fresh h' overwrites.
 
-#include "nl_step.cuh"
+#include "step_window.cuh"
 
 namespace {
 
@@ -167,8 +174,9 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   T* rts_s = f_s + 6 * W;                    // [2][W]
   int* gs = reinterpret_cast<int*>(rts_s + 2 * W);  // [W]: lattice site
   int* live_s = gs + W;                              // [W]: the masked arm's live bits
-  const ForcingSmem<T> fsm(live_s + W, W, 0);        // the forced arm's winds and levels
   const StratSmem<T> ssm(live_s + W, W, kc, K);      // the stratified arm's
+  // the forced arm's winds and levels, after the stratified arm's
+  const ForcingSmem<T> fsm(kStrat ? ssm.end(W, kc, FB) : static_cast<void*>(live_s + W), W, 0);
 
   allow_next_grid();
   const int m_base = tm * a.rt - a.hm * a.q, i_base = ti * a.ct - a.hi * a.q;
@@ -491,29 +499,23 @@ template <typename T>
 using RunFn = int (*)(StepArgs<T>, const StepTaps<T>&, size_t, int, int, int, T*, T*, T*, T*,
                       T*, T*, T*, T*, cudaStream_t);
 
-// The instantiation of an arm: FE or FB, periodic or masked, unforced or
-// forced, or (unforced) with tracers, or (unforced, tracer-free) stratified.
+// The instantiation of an arm: FE or FB, periodic or masked, and any
+// combination of forced, tracers and stratified.
+template <typename T, bool FB, bool kMasked>
+RunFn<T> run_of_arm(bool forced, bool tracers, bool strat) {
+  static const RunFn<T> runs[8] = {
+      run<T, FB, kMasked, false, false, false>, run<T, FB, kMasked, false, false, true>,
+      run<T, FB, kMasked, false, true, false>,  run<T, FB, kMasked, false, true, true>,
+      run<T, FB, kMasked, true, false, false>,  run<T, FB, kMasked, true, false, true>,
+      run<T, FB, kMasked, true, true, false>,   run<T, FB, kMasked, true, true, true>};
+  return runs[(forced ? 4 : 0) + (tracers ? 2 : 0) + (strat ? 1 : 0)];
+}
 template <typename T>
 RunFn<T> run_of(bool fb, bool masked, bool forced, bool tracers, bool strat) {
-  if (strat)
-    return fb ? (masked ? run<T, true, true, false, false, true>
-                        : run<T, true, false, false, false, true>)
-              : (masked ? run<T, false, true, false, false, true>
-                        : run<T, false, false, false, false, true>);
-  if (tracers)
-    return fb ? (masked ? run<T, true, true, false, true, false>
-                        : run<T, true, false, false, true, false>)
-              : (masked ? run<T, false, true, false, true, false>
-                        : run<T, false, false, false, true, false>);
-  if (fb)
-    return masked ? (forced ? run<T, true, true, true, false, false>
-                            : run<T, true, true, false, false, false>)
-                  : (forced ? run<T, true, false, true, false, false>
-                            : run<T, true, false, false, false, false>);
-  return masked ? (forced ? run<T, false, true, true, false, false>
-                          : run<T, false, true, false, false, false>)
-                : (forced ? run<T, false, false, true, false, false>
-                          : run<T, false, false, false, false, false>);
+  return fb ? (masked ? run_of_arm<T, true, true>(forced, tracers, strat)
+                      : run_of_arm<T, true, false>(forced, tracers, strat))
+            : (masked ? run_of_arm<T, false, true>(forced, tracers, strat)
+                      : run_of_arm<T, false, false>(forced, tracers, strat));
 }
 
 template <typename T>
@@ -528,12 +530,10 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
   if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || ny2 % rt || nx % ct || n_steps % q)
     return cudaErrorInvalidValue;
   const bool tracers = tr.tr != nullptr;
-  // the tracer arm: unforced, at least one tracer, the cell mask with the live bits
-  if (tracers && (fc.wind != nullptr || tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
+  // the tracer arm: at least one tracer, the cell mask with the live bits
+  if (tracers && (tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
     return cudaErrorInvalidValue;
-  // the stratified arm: unforced and tracer-free
   const bool strat = strat_w != nullptr;
-  if (strat && (fc.wind != nullptr || tracers)) return cudaErrorInvalidValue;
   const int kc = step_chunk(k);
   const int n_ranks = (k + kc - 1) / kc;
   const int Wm = rt + 2 * hm * q, Wi = ct + 2 * hi * q;
@@ -571,8 +571,9 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
 // tracer-free arm, any other the tracer arm with n_tr tracers (planes
 // (2 n_tr, ny2, nx, k) in `tr_in`, `tr_out`, `tr_tmp`), the live-cell mask
 // `cmask` (non-null exactly when `live` is), kappa and upwind; a null
-// `strat_w` the unstratified arm, any other (W, (k, k) row-major, with
-// `wind` and `tr_in` null) the stratified one.
+// `strat_w` the unstratified arm, any other (W, (k, k) row-major) the
+// stratified one; the forced, tracer and stratified arms in any
+// combination.
 #define MOT_TILED_ENTRY(T, SUFFIX)                                                            \
   extern "C" int mot_tiled_steps_##SUFFIX(                                                    \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -591,35 +592,12 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
                           fb, static_cast<cudaStream_t>(stream));                             \
   }
 
-MOT_TILED_ENTRY(float, f32)
+// tiled_step_f64.cu compiles this file with MOT_TILED_STEP_F64 for the f64
+// entry, so that the two dtypes' instantiations compile in parallel.
+#ifdef MOT_TILED_STEP_F64
 MOT_TILED_ENTRY(double, f64)
-
-// The nonlinear FB arm (nl_step.cuh, reach 3), q = 1: n_steps launches over
-// rt x ct tiles (they need not divide the lattice) in level slices of ks;
-// arguments as mot_fe_nl_steps_* (fe_step.cu), whose FE arm the tiled
-// route's nonlinear FE runs. Returns 0, kNotHexTable or the CUDA error.
-#define MOT_TILED_NL_ENTRY(T, SUFFIX)                                                       \
-  extern "C" int mot_tiled_nl_steps_##SUFFIX(                                               \
-      const T* rts, const T* fv, int n_fv, const int* live, const int* table,               \
-      const double* weights, const int* vc, const double* vc_w, const int* ev,              \
-      const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,        \
-      T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, double s_ke,  \
-      double s_curl, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,      \
-      int ks, void* stream) {                                                               \
-    return nl_steps<T, true>(rts, fv, n_fv, live, table, weights, vc, vc_w, ev, ssh_in,     \
-                       h_in, u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, \
-                       s_div, s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks,       \
-                       static_cast<cudaStream_t>(stream));                                  \
-  }
-
-MOT_TILED_NL_ENTRY(float, f32)
-MOT_TILED_NL_ENTRY(double, f64)
-
-// The f32 nonlinear FB plan's launch: out[0] clusters, out[1] blocks per SM,
-// out[2] one block's shared memory in bytes.
-extern "C" int mot_tiled_nl_plan(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
-  return nl_plan_query<true>(ny2, nx, k, rt, ct, ks, out);
-}
+#else
+MOT_TILED_ENTRY(float, f32)
 
 // The launch of an f32 plan (FE or FB) with a window of `sites` sites and k
 // levels, of the unstratified arm or (strat nonzero) the stratified one:
@@ -649,3 +627,4 @@ extern "C" int mot_tiled_occupancy(int sites, int k, int q, int fb, int strat, i
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, kStepThreads, smem);
   return static_cast<int>(err);
 }
+#endif  // MOT_TILED_STEP_F64

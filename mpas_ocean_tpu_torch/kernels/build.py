@@ -17,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -55,10 +57,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmot_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile(cmd: list) -> tuple:
+    """Run one compiler command: (the finished process, its output, its
+    wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, proc.stdout, time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists.
     The compilers' output (register and shared-memory use per kernel) is
-    kept beside the library as ``.log``."""
+    kept beside the library as ``.log``, with one line per source of its
+    compile's wall seconds ("nvcc <source>: <s> s")."""
     out = library_path()
     if out.exists():
         return out
@@ -69,9 +80,10 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
             for s, o in zip(sources, objs)]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for c in cmds]
-    logs = [p.communicate()[0] for p in procs]
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        runs = list(pool.map(_compile, cmds))
+    procs, logs = [r[0] for r in runs], [r[1] for r in runs]
+    logs.append("".join(f"nvcc {s.name}: {r[2]:.2f} s\n" for s, r in zip(sources, runs)))
     tmp = out.with_name(f"{tag}.tmp.so")
     link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
             str(tmp), *map(str, objs)]

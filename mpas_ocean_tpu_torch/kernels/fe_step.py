@@ -4,12 +4,13 @@ which replaces the TPU kernel ``_rollout_kernel``
 its nonlinear arm (csrc/nl_step.cuh, ``fe_nl_rollout``), for the
 vector-invariant one, on a periodic lattice and, with the wall mask's
 ``live`` bits (``live_bits`` of ``StructMesh.edge_mask``), on a coastal
-channel culled from one; the linear entries take momentum forcing
-(``forcing=``, ``structured.fused_model.kernel_forcing``'s operands), which
-runs the kernel's forced arm, tracers (``tracers=``,
+channel culled from one; the forward entries of both cores take momentum
+forcing (``forcing=``, ``structured.fused_model.kernel_forcing``'s
+operands), which runs the kernel's forced arm, tracers (``tracers=``,
 ``structured.fused_model.kernel_tracers``' operands), which run its tracer
 arm, and a stratification's W (``strat_w=``,
-``structured.fused_model.kernel_strat``), which runs its stratified arm.
+``structured.fused_model.kernel_strat``), which runs its stratified arm, in
+any combination.
 
 The entries take tensors on a CUDA device and the stencil on the host
 (``StructMesh.host_stencil``), and launch one kernel per step on the
@@ -217,47 +218,56 @@ def best_tile(ny2: int, nx: int, reach, smem, name: str,
 
 
 def fe_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0,
-            strat: bool = False) -> tuple[int, int]:
+            strat: bool = False, forced: bool = False) -> tuple[int, int]:
     """fe_step's tile (rows, columns) on a ny2 x nx lattice, by
     ``best_tile``'s rule, sized for the forced arm so that one tile serves
-    both arms, or with ``n_tracers`` for the (unforced) tracer arm's window,
-    or with ``strat`` for the (unforced, tracer-free) stratified arm's.
-    On an H100 at 64x64x100 and 256x256x100 f32 that is (4, 16), periodic
-    or masked: the fastest tile at 64^2 and within 2.5% of the fastest at
-    256^2, where the best one-block tile took 1.12x as long (PERF.md
-    section 5, tools/tile_sweep.py). A tracer count whose window fits no
-    tile raises ValueError."""
-    if strat:
-        return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize, strat=True),
-                         f"fe_step ({k} stratified levels of {itemsize}-byte values)")
-    if n_tracers:
-        return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize, False, n_tracers),
-                         f"fe_step ({k} levels of {itemsize}-byte values, {n_tracers} tracers)")
+    both arms, or with ``n_tracers`` for the tracer arm's window and with
+    ``strat`` for the stratified arm's, each with the forced arm's shared
+    memory too where ``forced``. On an H100 at 64x64x100 and 256x256x100 f32
+    that is (4, 16), periodic or masked: the fastest tile at 64^2 and within
+    2.5% of the fastest at 256^2, where the best one-block tile took 1.12x
+    as long (PERF.md section 5, tools/tile_sweep.py). A tracer count whose
+    window fits no tile raises ValueError."""
+    if n_tracers or strat:
+        arms = ", ".join(x for x, on in ((f"{n_tracers} tracers", n_tracers),
+                                         ("stratified", strat), ("forced", forced)) if on)
+        return best_tile(ny2, nx, FE_REACH,
+                         lambda t: smem_bytes(t, k, itemsize, forced, n_tracers, strat),
+                         f"fe_step ({k} levels of {itemsize}-byte values, {arms})")
     return best_tile(ny2, nx, FE_REACH, lambda t: smem_bytes(t, k, itemsize, forced=True),
                      f"fe_step ({k} levels of {itemsize}-byte values)")
 
 
-def nl_smem_bytes(tile, k: int, itemsize: int, fb: bool, ks: int) -> int:
+def nl_smem_bytes(tile, k: int, itemsize: int, fb: bool, ks: int, forced: bool = False,
+                  n_tracers: int = 0, strat: bool = False) -> int:
     """Dynamic shared memory of one block of the nonlinear step for a tile
     (rows, columns) at k levels in slices of ks (``nl_smem_bytes`` in
-    csrc/nl_step.cuh): two state slices of the window, the derived planes on
-    the tile plus its ring, the window's ssh, rts and vertex constants, the
-    partial column sums (on the tile, FB: plus one ring), for FB the fresh
-    ssh and the chunk's momentum on the tile, and the window's site indices
-    and live bits."""
+    csrc/nl_step.cuh): two state slices of the window (with ``n_tracers``,
+    the tracer arm's 2 n_tracers planes each), the derived planes on the
+    tile plus its ring, the window's ssh, rts and vertex constants, the
+    partial column sums (on the tile, FB: plus one ring), for FB and with
+    ``strat`` the pressure's ssh and the chunk's momentum on the tile, and
+    the window's site indices and live bits; with ``strat``, the stratified
+    arm's Phi, staging, W slice and chunk of h on the tile plus one ring
+    (``strat_smem_bytes`` with ``fresh``); with ``forced``, the tile's winds
+    and packed levels (``forcing_smem_bytes``)."""
     rt, ct = tile
     (hm, hi), (dr, dc) = NL_REACH[fb], NL_RING[fb]
     _, kc = level_split(k)
     w = (rt + 2 * hm) * (ct + 2 * hi)
     d = (rt + 2 * dr) * (ct + 2 * dc)
     f, core = (rt + 2) * (ct + 2), rt * ct
-    vals = _NL_STATE * w * ks + _NL_DERIVED * d * ks + _NL_SITE * w + 2 * (f if fb else core)
-    if fb:
+    vals = (_NL_STATE + 4 * n_tracers) * w * ks + _NL_DERIVED * d * ks + _NL_SITE * w \
+        + 2 * (f if fb else core)
+    if fb or strat:
         vals += 2 * f + 6 * core * kc
-    return itemsize * vals + 4 * _NL_INTS * w
+    return (itemsize * vals + 4 * _NL_INTS * w
+            + (strat_smem_bytes(f, kc, k, itemsize, fresh=True) if strat else 0)
+            + (forcing_smem_bytes(core, 0, itemsize) if forced else 0))
 
 
-def nl_plan(ny2: int, nx: int, k: int, itemsize: int, fb: bool = False, tiles=None):
+def nl_plan(ny2: int, nx: int, k: int, itemsize: int, fb: bool = False, tiles=None,
+            forced: bool = False, n_tracers: int = 0, strat: bool = False):
     """The nonlinear step's plan (rows, columns, levels per slice) on a
     ny2 x nx lattice at k levels: among ``tiles`` (by default the powers of
     two up to 64 a side, cut to the lattice; both arms run ragged
@@ -268,30 +278,39 @@ def nl_plan(ny2: int, nx: int, k: int, itemsize: int, fb: bool = False, tiles=No
     (``nl_slice``). The kernel holds one block per SM by its registers, so
     the budget is one block's. On an H100 at 64x64x100 and 256x256x100 f32
     (PERF.md section 6, tools/tile_sweep.py --kernels nonlinear) that is FE
-    (4, 16, 8) and (8, 16, 4), FB (8, 8, 4) at both."""
+    (4, 16, 8) and (8, 16, 4), FB (8, 8, 4) at both. ``forced``,
+    ``n_tracers`` and ``strat`` size the plan for the composed arms' shared
+    memory (``nl_smem_bytes``), which may leave fewer levels per slice, or
+    none at NL_SLICE: then the tile is sized at one level per slice. A
+    composition that fits no tile raises ValueError."""
     kc = level_split(k)[1]
-    base = min(NL_SLICE, kc)
     hm, hi = NL_REACH[fb]
+    arms = dict(forced=forced, n_tracers=n_tracers, strat=strat)
     if tiles is None:
         tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
-    ok = [t for t in tiles if nl_smem_bytes(t, k, itemsize, fb, base) <= SMEM_BYTES]
-    if not ok:
+    for base in dict.fromkeys((min(NL_SLICE, kc), 1)):
+        ok = [t for t in tiles if nl_smem_bytes(t, k, itemsize, fb, base, **arms) <= SMEM_BYTES]
+        if ok:
+            break
+    else:
         raise ValueError(f"no tile of the nonlinear step fits ({k} levels of {itemsize}-byte "
-                         f"values)")
+                         f"values{''.join(f', {a}' for a, on in arms.items() if on)})")
     ranks = level_split(k)[0]
     full = [t for t in ok if -(-ny2 // t[0]) * -(-nx // t[1]) * ranks >= SMS] or ok
     *_, ct, rt = max((t[0] * t[1], -(t[0] + 2 * hm) * (t[1] + 2 * hi), t[1], t[0])
                      for t in full)
-    return rt, ct, nl_slice((rt, ct), k, itemsize, fb)
+    return rt, ct, nl_slice((rt, ct), k, itemsize, fb, **arms)
 
 
-def nl_slice(tile, k: int, itemsize: int, fb: bool = False) -> int:
+def nl_slice(tile, k: int, itemsize: int, fb: bool = False, forced: bool = False,
+             n_tracers: int = 0, strat: bool = False) -> int:
     """The largest slice (levels, a power of two up to 16 and the level
-    chunk) at which the nonlinear step's ``tile`` fits one block; at least
-    one level."""
+    chunk) at which the nonlinear step's ``tile`` fits one block, with the
+    composed arms' shared memory (``nl_smem_bytes``); at least one level."""
     kc = level_split(k)[1]
     ks = 1
-    while ks * 2 <= min(16, kc) and nl_smem_bytes(tile, k, itemsize, fb, ks * 2) <= SMEM_BYTES:
+    while ks * 2 <= min(16, kc) and nl_smem_bytes(tile, k, itemsize, fb, ks * 2, forced,
+                                                  n_tracers, strat) <= SMEM_BYTES:
         ks *= 2
     return ks
 
@@ -344,10 +363,9 @@ def check_error(name: str, err: int, what: str = "") -> None:
 def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: int = 0,
                 strat: bool = False) -> dict:
     """The launch fe_step makes for ``tile`` on an f32 ny2 x nx x k lattice
-    with the stencil ``table`` (host copy), with ``n_tracers`` tracers (its
-    periodic tracer arm), ``strat`` (its periodic stratified arm) or
-    neither: its clusters (one per tile) and the blocks one SM holds (CUDA's
-    occupancy calculator)."""
+    with the stencil ``table`` (host copy), of its periodic arm with
+    ``n_tracers`` tracers, ``strat`` or both or neither: its clusters (one
+    per tile) and the blocks one SM holds (CUDA's occupancy calculator)."""
     fn = build.load().mot_fe_plan
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -377,7 +395,7 @@ _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
     "steps": [_P] * 21 + [_D] * 8 + [_I] * 10 + [_P],
     "stack": [_P] * 13 + [_D] * 8 + [_I] * 10 + [_P],
-    "nl_steps": [_P, _P, _I] + [_P] * 15 + [_D] * 5 + [_I] * 8 + [_P],
+    "nl_steps": [_P, _P, _I] + [_P] * 22 + [_D] * 10 + [_I] * 11 + [_P],
     "nl_stack": [_P, _P, _I] + [_P] * 9 + [_D] * 5 + [_I] * 8 + [_P],
 }
 
@@ -511,13 +529,16 @@ def stack_tracer_args(tracers) -> tuple:
 
 def check_strat(strat_w, k: int, dtype, device, forcing=None, tracers=None) -> None:
     """The stratified arms' operand (``fused_model.kernel_strat``: W (K, K)
-    in the state dtype), contiguous, on the state's device; the arms run
-    unforced and tracer-free. None unstratified."""
+    in the state dtype), contiguous, on the state's device; None
+    unstratified. The forward entries compose it with any forcing and
+    tracers; the reverse ones (and the stack rebuild they run) pass theirs
+    as ``forcing`` and ``tracers``, and raise ValueError for either: their
+    stratified arms run unforced and tracer-free."""
     if strat_w is None:
         return
     check_tensor("strat_w", strat_w, (k, k), dtype, device)
     if forcing is not None or tracers is not None:
-        raise ValueError("the stratified arms run unforced and without tracers")
+        raise ValueError("the reverse's stratified arms run unforced and tracer-free")
 
 
 def forcing_ranks(forcing, kc: int) -> tuple[int, int]:
@@ -555,12 +576,11 @@ def _consts(h, f_edge, rts, table, weights, live, forcing=None):
 
 def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile,
          forcing=None, tracers=None, tr_bufs=None, strat_w=None):
-    global launches, forced_launches, tracer_launches, strat_launches
     table, weights, n_terms = stencil
     n_tr = 0 if tracers is None else tracers.planes.shape[-4] // 2
     strat = strat_w is not None
     if tile is None:
-        tile = fe_tile(*dims, h.element_size(), n_tr, strat)
+        tile = fe_tile(*dims, h.element_size(), n_tr, strat, forcing is not None)
     tile = tuple(tile)
     need = smem_bytes(tile, dims[2], h.element_size(), forcing is not None, n_tr, strat)
     if need > SMEM_BYTES:
@@ -583,13 +603,17 @@ def _run(kind, h, tensors, f_edge, rts, live, stencil, scal, dims, n_steps, tile
                  *ptrs, table.ctypes.data, weights.ctypes.data, *state_ptrs,
                  *scal, *coefs, *dims, n_steps, n_terms, *tile, *extra, stream)
     check_error("fe_step", err, f" (tile {tile})")
-    launches += n_steps
-    if forcing is not None:
-        forced_launches += n_steps
-    if tracers is not None:
-        tracer_launches += n_steps
-    if strat:
-        strat_launches += n_steps
+    count_launches(n_steps, forcing, tracers, strat_w)
+
+
+def count_launches(n: int, forcing, tracers, strat_w) -> None:
+    """Count n launches of fe_step, of both cores: in ``launches``, and in
+    the counters of the arms they ran."""
+    global launches, forced_launches, tracer_launches, strat_launches
+    launches += n
+    forced_launches += n if forcing is not None else 0
+    tracer_launches += n if tracers is not None else 0
+    strat_launches += n if strat_w is not None else 0
 
 
 def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch, tile,
@@ -600,7 +624,7 @@ def _rollout_into(src, out, f_edge, rts, table, weights, scal, n_steps, scratch,
     h = src[1]
     dims, stencil = _consts(h, f_edge, rts, table, weights, live, forcing)
     check_tracers(tracers, live, *dims, h.dtype, h.device)
-    check_strat(strat_w, dims[2], h.dtype, h.device, forcing, tracers)
+    check_strat(strat_w, dims[2], h.dtype, h.device)
     if scratch is None:
         scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
     for group, name in ((src, "src"), (out, "out"), (scratch, "scratch")):
@@ -711,40 +735,55 @@ def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
 
 
 def _nl_checks(name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile,
-               ks, live, fb):
+               ks, live, fb, forcing=None, tracers=None, strat_w=None):
     """The checks both nonlinear wrappers make (the state's device and
     dtype, the constants' device, dtype, shape and contiguity, the vertex
-    constants' 4 planes (periodic) or 20 (with ``live``), the plan's shared
-    memory); returns ((ny2, nx, k), the stencil, the vertex tables, n_fv)."""
+    constants' 4 planes (periodic) or 20 (with ``live``), the composed arms'
+    operands, the plan's shared memory with theirs); returns ((ny2, nx, k),
+    the stencil, the vertex tables, n_fv)."""
     ny2, nx, k = lattice_dims(h, name)
     dtype, device = h.dtype, h.device
     check_tensor("rts", rts, (2, ny2, nx), dtype, device)
     check_live(live, ny2, nx, device)
     n_fv = 4 if live is None else 20
     check_tensor("fv", fv, (n_fv, ny2, nx), dtype, device)
+    check_forcing(forcing, ny2, nx, dtype, device)
+    check_tracers(tracers, live, ny2, nx, k, dtype, device)
+    check_strat(strat_w, k, dtype, device)
     stencil = host_stencil(table, weights)
     tables = vertex_tables(vertex_cell_terms, edge_vertex_terms)
     kc = level_split(k)[1]
     if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
         raise ValueError(f"the nonlinear step's slices are a power of two of levels up to "
                          f"{min(16, kc)} (its level chunk at {k} levels), got {ks}")
-    need = nl_smem_bytes(tile, k, h.element_size(), fb, ks)
+    need = nl_smem_bytes(tile, k, h.element_size(), fb, ks, **nl_arms(forcing, tracers, strat_w))
     if need > SMEM_BYTES:
         raise ValueError(f"a nonlinear tile {tile} at {k} levels in slices of {ks} needs "
                          f"{need} bytes of shared memory per block, more than {SMEM_BYTES}")
     return (ny2, nx, k), stencil, tables, n_fv
 
 
+def nl_arms(forcing, tracers, strat_w) -> dict:
+    """The composed arms of a nonlinear launch as the planners take them
+    (``nl_plan``, ``nl_slice``, ``nl_smem_bytes``)."""
+    return dict(forced=forcing is not None,
+                n_tracers=0 if tracers is None else tracers.planes.shape[0] // 2,
+                strat=strat_w is not None)
+
+
 def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
-           edge_vertex_terms, scal, n_steps, tile, ks, live, fb=False, out=None, tmp=None):
-    """n_steps >= 0 nonlinear steps through ``entry``, fe_step.cu's FE
-    entry or (``fb``) tiled_step.cu's FB one, which take the same arguments;
-    returns (ssh, h, u), new or written into ``out`` (through ``tmp``,
-    allocated when None and n_steps > 1), and raises as ``check_error`` for a
-    failed launch, after ``_nl_checks``."""
+           edge_vertex_terms, scal, n_steps, tile, ks, live, fb=False, out=None, tmp=None,
+           forcing=None, tracers=None, strat_w=None):
+    """n_steps >= 0 nonlinear steps through ``entry``, the FE arm's entry
+    (csrc/nl_step_fe_*.cu) or (``fb``) the FB arm's (nl_step_fb_*.cu), which
+    take the same arguments; ``forcing``, ``tracers`` and ``strat_w`` (as
+    for ``fe_rollout``) run the composed arms. Returns (ssh, h, u), new or
+    written into ``out`` (through ``tmp``, allocated when None and
+    n_steps > 1), with new tracer planes fourth with ``tracers``, and raises
+    as ``check_error`` for a failed launch, after ``_nl_checks``."""
     dims, (table, weights, n_terms), (vc, vc_w, ev), n_fv = _nl_checks(
         name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile, ks, live,
-        fb)
+        fb, forcing, tracers, strat_w)
     if n_steps < 0:
         raise ValueError("n_steps must be >= 0")
     device = h.device
@@ -752,7 +791,8 @@ def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
     for x, shape, f in zip(src, state_shapes(*dims), ("ssh", "h", "u")):
         check_tensor(f, x, shape, h.dtype, device)
     if n_steps == 0:
-        return tuple(x.clone() for x in src)
+        out = tuple(x.clone() for x in src)
+        return out if tracers is None else (*out, tracers.planes.clone())
     if out is None:
         out = tuple(torch.empty_like(x) for x in src)
     if tmp is None:
@@ -760,44 +800,55 @@ def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
     for group, what in ((out, "out"), (tmp, "scratch")):
         for x, y, f in zip(group, src, ("ssh", "h", "u")):
             check_tensor(f"{what} {f}", x, y.shape, h.dtype, device)
+    tr_out = tr_tmp = None
+    if tracers is not None:
+        tr_out = torch.empty_like(tracers.planes)
+        tr_tmp = tr_out if n_steps == 1 else torch.empty_like(tr_out)
+    tr_ptrs, tr_opts, n_tr = tracer_args(tracers, tr_out, tr_tmp)
+    ptrs, coefs = forcing_args(forcing, level_split(dims[2])[1])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(rts.data_ptr(), fv.data_ptr(), n_fv,
-                    None if live is None else live.data_ptr(), table.ctypes.data,
+                    None if live is None else live.data_ptr(), *ptrs, table.ctypes.data,
                     weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data, ev.ctypes.data,
-                    *[x.data_ptr() for x in (*src, *out, *tmp)], *(float(x) for x in scal),
-                    *dims, n_steps, n_terms, *tile, ks, stream)
+                    *[x.data_ptr() for x in (*src, *out, *tmp)], *tr_ptrs,
+                    None if strat_w is None else strat_w.data_ptr(), *(float(x) for x in scal),
+                    *tr_opts, *coefs, *dims, n_steps, n_terms, *tile, ks, n_tr, stream)
     check_error(name, err, f" (tile {tile}, slice {ks})")
-    return out
+    return out if tracers is None else (*out, tr_out)
 
 
-def _fe_nl_plan(h, tile, ks):
+def _fe_nl_plan(h, tile, ks, arms=None):
     ny2, nx, k = lattice_dims(h)
-    tile = nl_plan(ny2, nx, k, h.element_size())[:2] if tile is None else tuple(tile)
-    return tile, nl_slice(tile, k, h.element_size()) if ks is None else ks
+    arms = arms or {}
+    tile = nl_plan(ny2, nx, k, h.element_size(), **arms)[:2] if tile is None else tuple(tile)
+    return tile, nl_slice(tile, k, h.element_size(), **arms) if ks is None else ks
 
 
 def fe_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
                   edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
                   s_curl: float, n_steps: int, live=None, tile=None, ks=None, out=None,
-                  scratch=None):
+                  scratch=None, forcing=None, tracers=None, strat_w=None):
     """n_steps forward-Euler steps of the nonlinear core on the card, one
     launch of fe_step's nonlinear arm each (csrc/nl_step.cuh). ssh, h, u and
     rts as for ``fe_rollout``; ``fv`` the vertex constants
     (``fused_model.nl_setup``: (4, ny2, nx), or (20, ny2, nx) with ``live``);
     the vertex stencils as ``StructMesh`` holds them; the scalars rounded to
-    the state dtype (``fused_model._scal``, ``fused_model.nl_scal``). The
-    tile (rows, columns) defaults to ``nl_plan``'s and the slice ks to the
-    largest that fits the tile (``nl_slice``). Returns (ssh, h, u): new, or
-    written into ``out`` through ``scratch`` (as ``fe_rollout_into``); raises
-    ValueError for a stencil that is not the hex lattice's."""
-    global launches
-    tile, ks = _fe_nl_plan(h, tile, ks)
+    the state dtype (``fused_model._scal``, ``fused_model.nl_scal``);
+    ``forcing``, ``tracers`` and ``strat_w`` (as for ``fe_rollout``) run the
+    forced, tracer and stratified arms, in any combination. The tile (rows,
+    columns) defaults to ``nl_plan``'s and the slice ks to the largest that
+    fits the tile (``nl_slice``), each sized with the composed arms' shared
+    memory. Returns (ssh, h, u), with the new tracer planes fourth with
+    ``tracers``: new, or written into ``out`` through ``scratch`` (as
+    ``fe_rollout_into``); raises ValueError for a stencil that is not the hex
+    lattice's."""
+    tile, ks = _fe_nl_plan(h, tile, ks, nl_arms(forcing, tracers, strat_w))
     out = nl_run("fe_step (nonlinear)", _entry("nl_steps", h.dtype), ssh, h, u, rts,
                  stencil_table, coriolis_weight, fv, vertex_cell_terms, edge_vertex_terms,
                  (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live, out=out,
-                 tmp=scratch)
-    launches += n_steps
+                 tmp=scratch, forcing=forcing, tracers=tracers, strat_w=strat_w)
+    count_launches(n_steps, forcing, tracers, strat_w)
     return out
 
 
@@ -807,8 +858,8 @@ def fe_nl_fill_stack(stack, rts, stencil_table, coriolis_weight, fv, vertex_cell
     """Fill a stack of states on the card with nonlinear steps: slot j + 1
     = one step of slot j for j < n_steps, the launches ``fe_nl_rollout``
     makes with the same plan, so the slots are its states bit for bit.
-    ``stack`` as for ``fe_fill_stack``, the rest as for ``fe_nl_rollout``."""
-    global launches
+    ``stack`` as for ``fe_fill_stack``, the rest as for ``fe_nl_rollout``
+    (the plain arm: the gradient takes no composed arm)."""
     ssh, h, u = stack
     if h.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h.shape)}")
@@ -829,4 +880,4 @@ def fe_nl_fill_stack(stack, rts, stencil_table, coriolis_weight, fv, vertex_cell
             ev.ctypes.data, *[x.data_ptr() for x in stack], float(dt), float(inv_dc),
             float(s_div), float(s_ke), float(s_curl), *dims, n_steps, n_terms, *tile, ks, stream)
     check_error("fe_step (nonlinear)", err, f" (tile {tile}, slice {ks})")
-    launches += n_steps
+    count_launches(n_steps, None, None, None)

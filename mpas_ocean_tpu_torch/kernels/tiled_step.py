@@ -8,7 +8,8 @@ lattice and, with the wall mask's ``live`` bits (``fe_step.live_bits``), on
 a coastal channel culled from one; ``tiled_rollout`` takes momentum forcing
 (``forcing=``), which runs the kernel's forced arm, tracers
 (``tracers=``), which run its tracer arm, and a stratification's W
-(``strat_w=``), which runs its stratified arm.
+(``strat_w=``), which runs its stratified arm, in any combination, and so
+does ``tiled_nl_rollout``.
 
 ``tiled_rollout`` takes tensors on a CUDA device and the stencil on the
 host (``StructMesh.host_stencil``), and launches one kernel per q steps on
@@ -46,6 +47,7 @@ from .fe_step import (
     host_stencil,
     lattice_dims,
     level_split,
+    nl_arms,
     nl_plan,
     nl_run,
     nl_slice,
@@ -62,8 +64,9 @@ __all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "forced_launches", "l
 
 _PLANES = 16  # kPlanes in csrc/tiled_step.cu
 
-# kernel launches made by tiled_rollout (one per q steps), and those of them
-# that ran the forced arm, the tracer arm and the stratified arm
+# kernel launches made by tiled_rollout (one per q steps) and
+# tiled_nl_rollout (one per step), and those of them that ran the forced
+# arm, the tracer arm and the stratified arm
 launches = 0
 forced_launches = 0
 tracer_launches = 0
@@ -127,11 +130,10 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     (the wall mask's live bits, or None) runs the masked arm, ``forcing``
     (``fused_model.kernel_forcing``'s operands, or None) the forced arm,
     ``tracers`` (``fused_model.kernel_tracers``' operands, or None) the
-    (unforced) tracer arm, ``strat_w`` (``fused_model.kernel_strat``'s W, or
-    None) the (unforced, tracer-free) stratified arm. Returns new (ssh, h,
-    u) tensors, and new tracer planes fourth with tracers; the inputs are
-    left as they are."""
-    global launches, forced_launches, tracer_launches, strat_launches
+    tracer arm, ``strat_w`` (``fused_model.kernel_strat``'s W, or None) the
+    stratified arm, in any combination. Returns new (ssh, h, u) tensors,
+    and new tracer planes fourth with tracers; the inputs are left as they
+    are."""
     ny2, nx, k = lattice_dims(h, "tiled_step")
     dtype, device = h.dtype, h.device
     if n_steps < 0:
@@ -154,7 +156,7 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     check_live(live, ny2, nx, device)
     check_forcing(forcing, ny2, nx, dtype, device)
     check_tracers(tracers, live, ny2, nx, k, dtype, device)
-    check_strat(strat_w, k, dtype, device, forcing, tracers)
+    check_strat(strat_w, k, dtype, device)
     table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
     src = tuple(x.contiguous() for x in (ssh, h, u))
     for x, shape, f in zip(src, state_shapes(ny2, nx, k), ("ssh", "h", "u")):
@@ -182,31 +184,36 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
             hm, hi, int(fb), n_tr, stream,
         )
     check_error("tiled_step", err)
-    launches += n_steps // q
-    if forcing is not None:
-        forced_launches += n_steps // q
-    if strat_w is not None:
-        strat_launches += n_steps // q
-    if tracers is not None:
-        tracer_launches += n_steps // q
-        return (*out, tr_out)
-    return out
+    count_launches(n_steps // q, forcing, tracers, strat_w)
+    return out if tracers is None else (*out, tr_out)
+
+
+def count_launches(n: int, forcing, tracers, strat_w) -> None:
+    """Count n launches of tiled_step, of both cores: in ``launches``, and
+    in the counters of the arms they ran."""
+    global launches, forced_launches, tracer_launches, strat_launches
+    launches += n
+    forced_launches += n if forcing is not None else 0
+    tracer_launches += n if tracers is not None else 0
+    strat_launches += n if strat_w is not None else 0
 
 
 def tiled_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
                      edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
-                     s_curl: float, n_steps: int, live=None, tile=None, ks=None):
+                     s_curl: float, n_steps: int, live=None, tile=None, ks=None, forcing=None,
+                     tracers=None, strat_w=None):
     """n_steps forward-backward steps of the nonlinear core on the card, one
     launch of the tiled kernel's nonlinear FB arm (reach 3, q = 1) each.
     Arguments as for ``fe_step.fe_nl_rollout``, whose FE arm is the tiled
-    route's nonlinear FE; the tile (rows, columns) defaults to
-    ``nl_plan``'s FB plan and the slice ks to the largest that fits it.
-    Returns new (ssh, h, u)."""
-    global launches
+    route's nonlinear FE (``forcing``, ``tracers`` and ``strat_w`` too); the
+    tile (rows, columns) defaults to ``nl_plan``'s FB plan and the slice ks
+    to the largest that fits it, with the composed arms' shared memory.
+    Returns new (ssh, h, u), and new tracer planes fourth with tracers."""
     ny2, nx, k = lattice_dims(h, "tiled_step")
     size = h.element_size()
-    tile = nl_plan(ny2, nx, k, size, True)[:2] if tile is None else tuple(tile)
-    ks = nl_slice(tile, k, size, True) if ks is None else ks
+    arms = nl_arms(forcing, tracers, strat_w)
+    tile = nl_plan(ny2, nx, k, size, True, **arms)[:2] if tile is None else tuple(tile)
+    ks = nl_slice(tile, k, size, True, **arms) if ks is None else ks
     lib = build.load()
     fn = {torch.float32: lib.mot_tiled_nl_steps_f32,
           torch.float64: lib.mot_tiled_nl_steps_f64}[h.dtype]
@@ -214,6 +221,7 @@ def tiled_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_
     fn.restype = ctypes.c_int
     out = nl_run("tiled_step (nonlinear FB)", fn, ssh, h, u, rts, stencil_table,
                  coriolis_weight, fv, vertex_cell_terms, edge_vertex_terms,
-                 (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live, fb=True)
-    launches += n_steps
+                 (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live, fb=True,
+                 forcing=forcing, tracers=tracers, strat_w=strat_w)
+    count_launches(n_steps, forcing, tracers, strat_w)
     return out

@@ -10,7 +10,8 @@ counterpart of ``_forcing_setup``, :646-709) and with tracers (a state's
 ``tracers``, the kernels' tracer arms; ``kernel_tracers`` is the counterpart
 of ``_tracer_setup``, :610-639) and with layered stratification
 (``strat=``, the forward kernels' stratified arms; ``kernel_strat`` is the
-counterpart of ``_strat_w``, :642-643). ``fused_run_loop`` runs forward
+counterpart of ``_strat_w``, :642-643), in any combination with each
+other and with either core (the composed arms). ``fused_run_loop`` runs forward
 Euler (FE) one hand-written kernel step per launch (kernels/fe_step.py,
 csrc/fe_step.cu); ``tiled_model.tiled_run_loop`` runs FE or
 forward-backward (FB) q steps per launch (kernels/tiled_step.py). State on
@@ -151,11 +152,13 @@ def kernel_forcing(forcing: Forcing | None, mesh: StructMesh, dtype: torch.dtype
 
 
 def check_forced_core(forcing, nonlinear: bool, device) -> None:
-    """The nonlinear kernels have no forced arm: on the card, forcing with
-    ``nonlinear`` raises (the plain steps on the CPU run it)."""
+    """The gradient's guard: the nonlinear reverse kernel has no forced arm,
+    so on the card a gradient with forcing and ``nonlinear`` raises (the
+    plain reverse on the CPU runs it; the forward kernels run every
+    combination)."""
     if forcing is not None and nonlinear and device.type == "cuda":
-        raise NotImplementedError("the nonlinear kernels have no forced arm; run forcing "
-                                  "with the linear core, or on the CPU")
+        raise NotImplementedError("the nonlinear reverse kernel has no forced arm; take the "
+                                  "gradient of forcing with the linear core, or on the CPU")
 
 
 def tracer_planes(tracers: torch.Tensor) -> torch.Tensor:
@@ -205,13 +208,14 @@ def kernel_tracers(state: StructState, mesh: StructMesh, kappa, upwind) -> Kerne
 
 
 def check_tracer_core(tracers, nonlinear: bool, forcing, device) -> None:
-    """The kernels' tracer arms run the linear, unforced core: on the card,
-    tracers with ``nonlinear`` or with ``forcing`` raise (the plain steps on
-    the CPU run them)."""
+    """The gradient's guard: the reverse kernels' tracer arms run the
+    linear, unforced core, so on the card a gradient with tracers and
+    ``nonlinear`` or ``forcing`` raises (the plain reverse on the CPU runs
+    it; the forward kernels run every combination)."""
     if tracers is not None and device.type == "cuda" and (nonlinear or forcing is not None):
-        raise NotImplementedError("the kernels' tracer arms run the linear, unforced core; "
-                                  "run tracers with the nonlinear core or with forcing on "
-                                  "the CPU")
+        raise NotImplementedError("the reverse kernels' tracer arms run the linear, unforced "
+                                  "core; take the gradient of tracers with the nonlinear core "
+                                  "or with forcing on the CPU")
 
 
 def kernel_strat(strat: Stratification | None, dtype: torch.dtype, device):
@@ -224,14 +228,16 @@ def kernel_strat(strat: Stratification | None, dtype: torch.dtype, device):
 
 
 def check_strat_core(strat, nonlinear: bool, forcing, tracers, device) -> None:
-    """The kernels' stratified arms run the linear, unforced, tracer-free
-    core: on the card, ``strat`` with ``nonlinear``, with ``forcing`` or with
-    tracers raises (the plain steps on the CPU run every combination)."""
+    """The gradient's guard: the reverse kernels' stratified arms run the
+    linear, unforced, tracer-free core, so on the card a gradient with
+    ``strat`` and ``nonlinear``, ``forcing`` or tracers raises (the plain
+    reverse on the CPU runs every combination; the forward kernels too)."""
     if strat is not None and device.type == "cuda" and (
             nonlinear or forcing is not None or tracers is not None):
-        raise NotImplementedError("the kernels' stratified arms run the linear, unforced, "
-                                  "tracer-free core; run stratification with the nonlinear "
-                                  "core, forcing or tracers on the CPU")
+        raise NotImplementedError("the reverse kernels' stratified arms run the linear, "
+                                  "unforced, tracer-free core; take the gradient of "
+                                  "stratification with the nonlinear core, forcing or tracers "
+                                  "on the CPU")
 
 
 def kernel_live(mesh: StructMesh):
@@ -250,11 +256,11 @@ def fused_run_loop(
 ) -> StructState:
     """n_steps forward-Euler steps of the linear core, or with ``nonlinear``
     of the vector-invariant one (periodic, or masked where the mesh has a
-    wall mask); ``forcing`` (struct layout) runs the forced arm, linear core
-    only on the card; the state's tracers, if any, run the tracer arm with
-    ``tracer_kappa`` and ``tracer_upwind`` (pallas_run_loop's arguments),
-    linear and unforced only on the card; ``strat`` runs the stratified
-    arm, linear, unforced and tracer-free only on the card."""
+    wall mask); ``forcing`` (struct layout) runs the forced arm; the state's
+    tracers, if any, run the tracer arm with ``tracer_kappa`` and
+    ``tracer_upwind`` (pallas_run_loop's arguments); ``strat`` runs the
+    stratified arm; on the card as on the CPU in any combination, with
+    either core."""
     device = state.layer_thickness.device
     if device.type == "cpu":
         return structured_run_loop(state, mesh, dt, n_steps, nonlinear=nonlinear,
@@ -262,27 +268,22 @@ def fused_run_loop(
                                    tracer_upwind=tracer_upwind, strat=strat)
     if device.type != "cuda":
         raise ValueError(f"no rollout for state on {device}")
-    check_forced_core(forcing, nonlinear, device)
-    check_tracer_core(state.tracers, nonlinear, forcing, device)
-    check_strat_core(strat, nonlinear, forcing, state.tracers, device)
     dtype = state.layer_thickness.dtype
     consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
+    arms = dict(live=kernel_live(mesh), forcing=kernel_forcing(forcing, mesh, dtype, device),
+                tracers=kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
+                strat_w=kernel_strat(strat, dtype, device))
     if nonlinear:
-        ssh, h, u = fe_step.fe_nl_rollout(
+        ssh, h, u, *tr = fe_step.fe_nl_rollout(
             state.ssh, state.layer_thickness, state.normal_velocity, *consts,
             nl_setup(mesh, dtype), mesh.vertex_cell_terms, mesh.edge_vertex_terms,
-            *_scal(mesh, dt, dtype), *nl_scal(mesh, dtype), n_steps, live=kernel_live(mesh))
+            *_scal(mesh, dt, dtype), *nl_scal(mesh, dtype), n_steps, **arms)
     else:
         ssh, h, u, *tr = fe_step.fe_rollout(
             state.ssh, state.layer_thickness, state.normal_velocity,
             mesh.f_edge.to(dtype).contiguous(), *consts, *_scal(mesh, dt, dtype), n_steps,
-            live=kernel_live(mesh), forcing=kernel_forcing(forcing, mesh, dtype, device),
-            tracers=kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
-            strat_w=kernel_strat(strat, dtype, device),
-        )
-        if tr:
-            return StructState(ssh, h, u, tracer_unplanes(tr[0]))
-    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
+            **arms)
+    return StructState(ssh, h, u, tracer_unplanes(tr[0]) if tr else None)
 
 
 def structured_auto_run_loop(
@@ -300,14 +301,13 @@ def structured_auto_run_loop(
     kernels' nonlinear arms). A mesh with a wall mask (a coastal channel)
     runs the same routes through the kernels' masked arms, or the plain
     masked steps on the CPU. ``forcing`` (struct layout,
-    ``StructuredModel.to_struct_forcing``) runs the kernels' forced arms;
-    with ``nonlinear`` it raises on the card. A state with tracers runs the
-    kernels' tracer arms with ``tracer_kappa`` and ``tracer_upwind`` (the
-    linear, unforced core on the card; the plain steps take every
-    combination). ``strat`` (``make_stratification``) takes each layer's
-    pressure gradient from its Montgomery potential, through the kernels'
-    stratified arms (the linear, unforced, tracer-free core on the card:
-    with the nonlinear core, forcing or tracers it raises there)."""
+    ``StructuredModel.to_struct_forcing``) runs the kernels' forced arms. A
+    state with tracers runs the kernels' tracer arms with ``tracer_kappa``
+    and ``tracer_upwind``. ``strat`` (``make_stratification``) takes each
+    layer's pressure gradient from its Montgomery potential, through the
+    kernels' stratified arms. The three compose with each other and with
+    either core, on the card (the kernels' composed arms) as in the plain
+    steps."""
     device = state.layer_thickness.device
     kw = dict(nonlinear=nonlinear, forcing=forcing, tracer_kappa=tracer_kappa,
               tracer_upwind=tracer_upwind, strat=strat)

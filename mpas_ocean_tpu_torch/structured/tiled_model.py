@@ -10,7 +10,8 @@ wall mask and the vertex constants windowed as f_edge, :1287-1288,
 1391-1394), with momentum forcing (the wind and level-index planes windowed
 as f_edge), with tracers (their planes windowed as h, the cell mask as
 rts; the tracer operands of :892-946, 1180-1190) and with layered
-stratification (W as a whole operand, :904-908, 1193-1194).
+stratification (W as a whole operand, :904-908, 1193-1194), in any
+combination.
 The lattice is cut into row_tile x col_tile tiles; each tile reads its core
 and q halos of ``slab.stencil_reach`` rows and columns per side, advances q
 steps on the shrinking window (``slab.window_steps``) and writes its core.
@@ -308,14 +309,12 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     or a masked channel, q per kernel launch over row_tile x col_tile
     tiles; the plan is completed by ``resolve_plan``. A CUDA state runs the
     kernel (its masked arm where the mesh has a wall mask, its forced arm
-    with ``forcing``; for the nonlinear core at q = 1 only, and a nonlinear
-    q > 1 raises, as does forcing with the nonlinear core: FE through
-    fe_step's nonlinear arm, FB through the tiled kernel's; the state's
-    tracers run the tracer arm with ``tracer_kappa`` and ``tracer_upwind``,
-    linear and unforced only, its plan sized with the tracer planes;
-    ``strat`` the stratified arm, linear, unforced and tracer-free only, its
-    plan sized with the arm's shared memory), a CPU state its plain version
-    with the same plan."""
+    with ``forcing``, its tracer arm for the state's tracers with
+    ``tracer_kappa`` and ``tracer_upwind``, its stratified arm with
+    ``strat``, in any combination, the plan sized with their shared memory;
+    the nonlinear core at q = 1 only, and a nonlinear q > 1 raises: FE
+    through fe_step's nonlinear arm, FB through the tiled kernel's), a CPU
+    state its plain version with the same plan."""
     device = state.layer_thickness.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rollout for state on {device}")
@@ -327,16 +326,16 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
         check_nl_mesh(mesh)
     nl_terms, _ = _nl_args(mesh, dtype, nonlinear)
     halo = stencil_reach(mesh.coriolis_terms, fb, nl_terms)
+    n_tr = 0 if state.tracers is None else state.tracers.shape[3]
+    arms = dict(forced=forcing is not None, n_tracers=n_tr, strat=strat is not None)
     if nonlinear and (row_tile is None or col_tile is None):
         tiles = [(r, c) for r in _divisors(mesh.ny2) for c in _divisors(mesh.nx)]
-        rt, ct, _ = fe_step.nl_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, fb, tiles)
+        rt, ct, _ = fe_step.nl_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, fb, tiles, **arms)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
-    n_tr = 0 if state.tracers is None else state.tracers.shape[3]
     window = forced_window_bytes
     if n_tr or strat is not None:
-        window = functools.partial(window_bytes, n_tracers=n_tr, strat=strat is not None,
-                                   fb=fb)
+        window = functools.partial(window_bytes, fb=fb, **arms)
     rt, ct, q = resolve_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, halo, n_steps,
                              row_tile, col_tile, q, window=window)
     if device.type == "cpu":
@@ -347,29 +346,24 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
                                    nonlinear=nonlinear, forcing=forcing,
                                    tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind,
                                    strat=strat)
-    fused_model.check_forced_core(forcing, nonlinear, device)
-    fused_model.check_tracer_core(state.tracers, nonlinear, forcing, device)
-    fused_model.check_strat_core(strat, nonlinear, forcing, state.tracers, device)
     consts = (mesh.resting_thickness_sum.to(dtype).contiguous(), *mesh.host_stencil)
     scal = fused_model._scal(mesh, dt, dtype)
+    kernel_arms = dict(
+        live=fused_model.kernel_live(mesh),
+        forcing=fused_model.kernel_forcing(forcing, mesh, dtype, device),
+        tracers=fused_model.kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
+        strat_w=fused_model.kernel_strat(strat, dtype, device))
     if nonlinear:
         if q != 1:
             raise ValueError(f"the tiled kernel's nonlinear arms run q = 1, not q = {q}")
         run = tiled_step.tiled_nl_rollout if fb else fe_step.fe_nl_rollout
-        ssh, h, u = run(state.ssh, state.layer_thickness, state.normal_velocity, *consts,
-                        fused_model.nl_setup(mesh, dtype), *nl_terms, *scal,
-                        *fused_model.nl_scal(mesh, dtype), n_steps,
-                        live=fused_model.kernel_live(mesh), tile=(rt, ct))
+        ssh, h, u, *tr = run(state.ssh, state.layer_thickness, state.normal_velocity, *consts,
+                             fused_model.nl_setup(mesh, dtype), *nl_terms, *scal,
+                             *fused_model.nl_scal(mesh, dtype), n_steps, tile=(rt, ct),
+                             **kernel_arms)
     else:
         ssh, h, u, *tr = tiled_step.tiled_rollout(
             state.ssh, state.layer_thickness, state.normal_velocity,
             mesh.f_edge.to(dtype).contiguous(), *consts, *scal, n_steps,
-            row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb,
-            live=fused_model.kernel_live(mesh),
-            forcing=fused_model.kernel_forcing(forcing, mesh, dtype, device),
-            tracers=fused_model.kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
-            strat_w=fused_model.kernel_strat(strat, dtype, device),
-        )
-        if tr:
-            return StructState(ssh, h, u, fused_model.tracer_unplanes(tr[0]))
-    return StructState(ssh=ssh, layer_thickness=h, normal_velocity=u)
+            row_tile=rt, col_tile=ct, q=q, halo=halo, fb=fb, **kernel_arms)
+    return StructState(ssh, h, u, fused_model.tracer_unplanes(tr[0]) if tr else None)

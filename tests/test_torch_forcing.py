@@ -241,9 +241,21 @@ def test_forcing_carries_across_bitwise():
 
 
 def test_forced_nonlinear_core_is_refused_on_the_card_only():
-    """The nonlinear kernels have no forced arm: the guard raises for a CUDA
-    device and lets the CPU, and the linear core, through."""
-    _, _, _, _, _, sfp = forced_lattice(8, 2)
+    """The gradient's guard: the nonlinear reverse kernel has no forced arm,
+    so the gradient's steps (diff_model._Steps) refuse forcing with the
+    nonlinear core for a CUDA state, before any kernel runs, and run it for
+    a CPU state; the guard itself raises for a CUDA device only and lets
+    the linear core through. (The forward kernels run the combination:
+    tests/test_torch_composed.py.)"""
+    from types import SimpleNamespace
+
+    from mpas_ocean_tpu_torch.structured import diff_model
+
+    _, smp, _, stp, _, sfp = forced_lattice(8, 2)
+    cuda = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float64)
+    with pytest.raises(NotImplementedError):
+        diff_model._Steps(smp.struct_mesh, 5.0, cuda, True, forcing=sfp)
+    diff_model._Steps(smp.struct_mesh, 5.0, stp.layer_thickness, True, forcing=sfp)
     with pytest.raises(NotImplementedError):
         check_forced_core(sfp, True, torch.device("cuda"))
     check_forced_core(sfp, True, torch.device("cpu"))

@@ -113,17 +113,27 @@ def test_strat_launch_counts(cuda, fb):
 
 
 def test_card_refuses_strat_with_nonlinear_forcing_or_tracers(cuda):
-    """Stratification with the nonlinear core, with forcing or with tracers
-    raises NotImplementedError on the card, on every forward route."""
+    """Stratification with the nonlinear core, with forcing or with tracers,
+    which the card refused before their composed arms were ported, now runs
+    there on every forward route (structured_auto_run_loop FE and FB,
+    tiled_run_loop FE): 4 steps within 1e-12 of the plain steps, each launch
+    counted as a stratified launch (tests/test_torch_composed_kernel.py
+    holds every combination)."""
     model, st = _lattice(False, 6, cuda)
     mesh, strat = model.struct_mesh, stratification(6)
     for kw, state in ((dict(nonlinear=True), st), (dict(forcing=random_forcing(model)), st),
                       ({}, with_tracers(model, st))):
-        for fb in (False, True):
-            with pytest.raises(NotImplementedError):
-                structured_auto_run_loop(state, mesh, 10.0, 2, fb=fb, strat=strat, **kw)
-        with pytest.raises(NotImplementedError):
-            tiled_run_loop(state, mesh, 10.0, 2, strat=strat, **kw)
+        for fb, run in ((False, structured_auto_run_loop), (True, structured_auto_run_loop),
+                        (False, tiled_run_loop)):
+            fe_step.strat_launches = tiled_step.strat_launches = 0
+            out = run(state, mesh, 10.0, 4, fb=fb, strat=strat, **kw)
+            ref = structured_run_loop(state, mesh, 10.0, 4, fb=fb, strat=strat, **kw)
+            errs = forward_errors(out, ref, mesh)
+            if state.tracers is not None:
+                errs["tracers"] = float((out.tracers - ref.tracers).abs().max()
+                                        / ref.tracers.abs().max())
+            assert max(errs.values()) <= 1e-12, (kw, fb, errs)
+            assert fe_step.strat_launches + tiled_step.strat_launches == 4
 
 
 @pytest.mark.parametrize("fb", [False, True])

@@ -50,6 +50,7 @@ from mpas_ocean_tpu_torch.structured import (
     tiled_run_loop,
 )
 from mpas_ocean_tpu_torch.structured.fused_model import (
+    KernelTracers,
     check_strat_core,
     kernel_live,
     kernel_strat,
@@ -318,10 +319,15 @@ def test_kernel_strat_casts_as_the_jax_setup(dtype):
 
 
 def test_card_refuses_strat_with_nonlinear_forcing_or_tracers():
-    """check_strat_core raises NotImplementedError for a CUDA device with
-    the nonlinear core, forcing or tracers, and passes the linear, unforced,
-    tracer-free core, and the CPU (no card needed: the check reads the
-    device's type only)."""
+    """The gradient's guard, check_strat_core: it raises NotImplementedError
+    for a CUDA device with the nonlinear core, forcing or tracers (the
+    reverse kernels' stratified arms run the linear, unforced, tracer-free
+    core), and passes that core and the CPU (no card needed: the check reads
+    the device's type only); the gradient's steps refuse the same for a
+    CUDA state, before any kernel runs. (The forward kernels run the
+    combinations: tests/test_torch_composed.py.)"""
+    from mpas_ocean_tpu_torch.structured import diff_model
+
     strat, cuda, cpu = make_stratification(RHO), torch.device("cuda"), torch.device("cpu")
     tr = torch.zeros(1)
     for kw in (dict(nonlinear=True), dict(forcing=object()), dict(tracers=tr)):
@@ -331,6 +337,11 @@ def test_card_refuses_strat_with_nonlinear_forcing_or_tracers():
         check_strat_core(strat, device=cpu, **args)
         check_strat_core(None, device=cuda, **args)
     check_strat_core(strat, False, None, None, cuda)
+    _, smp, _, _, _, _ = _lattice(False)
+    like = SimpleNamespace(device=cuda, dtype=torch.float64)
+    for kw in (dict(nonlinear=True), dict(tracers=True)):
+        with pytest.raises(NotImplementedError):
+            diff_model._Steps(smp.struct_mesh, DT, like, strat=strat, **kw)
 
 
 def test_planners_count_the_stratified_shared_memory():
@@ -363,7 +374,8 @@ def test_card_wrappers_pass_the_stratified_operands(monkeypatch):
     library stubbed by functions that check each call's argument count and
     types against its argtypes, fe_step.fe_rollout and tiled_step.
     tiled_rollout run with strat_w on a channel, each launch counted as a
-    stratified one; W of the wrong shape and W with tracers raise."""
+    stratified one; W of the wrong shape raises; W with tracers runs, and
+    the reverse's stack rebuild refuses it."""
     class Entry:
         def __init__(self):
             self.argtypes = None
@@ -407,14 +419,24 @@ def test_card_wrappers_pass_the_stratified_operands(monkeypatch):
     assert lib.mot_tiled_steps_f64.calls[0][20] == w.data_ptr()
     with pytest.raises(ValueError):
         fe_step.fe_rollout(*args, 2, strat_w=w[:2])
-    # valid tracer operands (check_tracers passes them), refused with W
+    # valid tracer operands (check_tracers passes them): the forward runs
+    # them with W (the composed arm), the reverse's stack rebuild refuses them
     kt = SimpleNamespace(planes=torch.zeros(2, *stp.layer_thickness.shape[1:],
                                             dtype=torch.float64),
                          cell_mask=sm.cell_mask.double().contiguous(), kappa=0.0, upwind=1.0)
     fe_step.check_tracers(kt, kernel_live(sm), *stp.layer_thickness.shape[1:], torch.float64,
                           torch.device("cpu"))
-    with pytest.raises(ValueError):
-        fe_step.fe_rollout(*args, 2, live=kernel_live(sm), tracers=kt, strat_w=w)
+    fe_step.fe_rollout(*args, 2, live=kernel_live(sm), tracers=kt, strat_w=w)
+    assert (fe_step.launches, fe_step.strat_launches) == (7, 7)
+    stack = tuple(torch.zeros((3, *x.shape), dtype=torch.float64)
+                  for x in (stp.ssh, stp.layer_thickness, stp.normal_velocity))
+    kt_stack = KernelTracers(kt.planes.expand(3, *kt.planes.shape).contiguous(), kt.cell_mask,
+                             kt.kappa, kt.upwind)
+    fe_step.check_tracer_stack(kt_stack, kernel_live(sm), 3, *stp.layer_thickness.shape[1:],
+                               torch.float64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="unforced and tracer-free"):
+        fe_step.fe_fill_stack(stack, *args[3:], 2, live=kernel_live(sm), tracers=kt_stack,
+                              strat_w=w)
 
 
 def test_internal_wave_half_period_fb():

@@ -116,17 +116,23 @@ def test_tracer_free_arms_run_without_tracers(cuda):
 
 
 def test_card_refuses_tracers_with_nonlinear_or_forcing(cuda):
-    """Tracers with the nonlinear core or with forcing raise
-    NotImplementedError on the card, on every forward route."""
+    """Tracers with the nonlinear core or with forcing, which the card
+    refused before their composed arms were ported, now run there on every
+    forward route (structured_auto_run_loop FE and FB, tiled_run_loop FE):
+    4 steps within 1e-12 of the plain steps, each launch counted as a
+    tracer launch (tests/test_torch_composed_kernel.py holds every
+    combination)."""
     model, st = _lattice(False, device=cuda)
     mesh = model.struct_mesh
     forcing = random_forcing(model)
     for kw in (dict(nonlinear=True), dict(forcing=forcing)):
-        for fb in (False, True):
-            with pytest.raises(NotImplementedError):
-                structured_auto_run_loop(st, mesh, 10.0, 2, fb=fb, **kw)
-        with pytest.raises(NotImplementedError):
-            tiled_run_loop(st, mesh, 10.0, 2, **kw)
+        for fb, run in ((False, structured_auto_run_loop), (True, structured_auto_run_loop),
+                        (False, tiled_run_loop)):
+            fe_step.tracer_launches = tiled_step.tracer_launches = 0
+            out = run(st, mesh, 10.0, 4, fb=fb, **kw)
+            ref = structured_run_loop(st, mesh, 10.0, 4, fb=fb, **kw)
+            assert max(tracer_errors(out, ref, mesh).values()) <= 1e-12, (kw, fb)
+            assert fe_step.tracer_launches + tiled_step.tracer_launches == 4
 
 
 @pytest.mark.parametrize("fb", [False, True])

@@ -557,9 +557,15 @@ def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card
 
 
 def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing():
-    """check_tracer_core raises NotImplementedError on a CUDA device for
-    tracers with the nonlinear core and with forcing, and passes tracers
-    alone, a CPU device and a state without tracers."""
+    """The gradient's guard, check_tracer_core: it raises
+    NotImplementedError on a CUDA device for tracers with the nonlinear core
+    and with forcing (the reverse kernels' tracer arms run the linear,
+    unforced core), and passes tracers alone, a CPU device and a state
+    without tracers; the gradient's steps call it for a CPU state too, and
+    run there. (The forward kernels run the combinations:
+    tests/test_torch_composed.py.)"""
+    from mpas_ocean_tpu_torch.structured import diff_model
+
     _, smp, _, stp, _, mp = tracer_lattice(16, 2)
     forcing = smp.to_struct_forcing(mt.make_forcing(mp, **FULL_FORCING))
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -568,4 +574,6 @@ def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing():
             check_tracer_core(stp.tracers, nonlinear, f, cuda)
         check_tracer_core(stp.tracers, nonlinear, f, cpu)
         check_tracer_core(None, nonlinear, f, cuda)
+        diff_model._Steps(smp.struct_mesh, DT, stp.layer_thickness, nonlinear, forcing=f,
+                          tracers=True)
     check_tracer_core(stp.tracers, False, None, cuda)
