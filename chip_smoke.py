@@ -95,8 +95,8 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      with bitwise reruns and controls; uniform T, conserved content,
      monotone upwinding and culled cells on the card; f32 100-step checks
      on bench.py's tracers at 64^2 and 256^2 with a bf16 control; the
-     refusals (nonlinear or forced with tracers in the gradient, which the
-     forward runs since phase 19; the tiled reverse with tracers at q > 1);
+     gradient with tracers and the nonlinear core or forcing (finite, held
+     in phase 20) and the tiled reverse's refusal of tracers at q > 1;
      the main paths from to_struct
      (bench.py's two-tracer 64x64x100 FE rollout over 8000 steps,
      256x256x100 FE and FB, the 64^2 channel FE with kappa 5) with exact
@@ -125,9 +125,9 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      bitwise reruns and the unstratified arm as a control; equal densities
      against the unstratified arm and the two-layer internal wave (FB over
      half a period) on the card; f32 100-step checks on bench.py's cell and
-     the 64^2 channel with a bf16 control; the refusals (the gradient with
-     stratification and the nonlinear core, forcing or tracers, which the
-     forward runs since phase 19); the main path, bench.py's
+     the 64^2 channel with a bf16 control; the gradient with
+     stratification and the nonlinear core, forcing or tracers (finite,
+     held in phase 20); the main path, bench.py's
      baroclinic 64x64x100 FE rollout over 8000 steps from to_struct with
      exact launch counts, and FB 64^2, FE and FB 256^2 and the 64^2 channel
      FE over 1000, timed beside the unstratified arm with their bounds.
@@ -142,7 +142,8 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      and the unstratified arm as a control; the stack rebuild bitwise the
      forward's; the dot-product identity with a direction in W; f32 100
      reverse steps with bench.py's densities by the distance from an f64
-     reverse with a bf16 control; the refusals; the slice's gradients of
+     reverse with a bf16 control; the stratified gradient with the other
+     options (finite) and the tiled q > 1 refusal; the slice's gradients of
      sum ssh^2 w.r.t. the state, dt and W from to_struct (64^2 IGW and
      channel over 4000 steps through auto_rollout_diff, 256^2 over 100
      through both routes) with exact stratified launch counts (7937
@@ -159,13 +160,36 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      with bitwise reruns, each run with one option dropped as a control;
      physics on the card (equal densities, uniform S, conserved content);
      f32 100-step checks of bench.py's full-physics cell (IGW and Kelvin
-     channel, FE and FB) with a bf16 control; the gradient's refusal of
-     every combination; the main paths from to_struct (bench.py's
+     channel, FE and FB) with a bf16 control; the gradient of every
+     combination (finite); the main paths from to_struct (bench.py's
      full-physics 64x64x100 FE rollout over 8000 steps, every fe_step
      launch forced, tracer and stratified; FB 64^2, FE and FB 256^2 and the
      64^2 channel FE with kappa 5 over 1000) with exact launch counts, timed
      beside each option alone with their bounds. ``python3 chip_smoke.py
-     --physics-only`` runs phases 1, 2, 9 and 19 alone.
+     --physics-only`` runs phases 1, 2, 9 and 19 alone;
+ 20. the composed reverse (every combination of two or more of the
+     nonlinear core, forcing, tracers and stratification in kernels 3 and 4
+     and in kernel 1's stack rebuild): the composed reverse instantiations'
+     ptxas lines; f64, each of the 11 combinations through the gradient's
+     card steps against the plain reverse on the kernel's own stack (16^2
+     and 64^2, periodic and channel, 4, 36 and 100 levels; d(dt), d(W) and
+     the coefficients' cotangents on their Cauchy-Schwarz scales) with
+     bitwise reruns, drop-one-option controls and the stack rebuild bitwise
+     the forward's; the dot-product identity with directions in the state,
+     tracers, wind, coefficients and W; f32 100 reverse steps of bench.py's
+     full-physics cell at 64^2 and 256^2, each kernel on its route's plan,
+     by the distance from an f64 reverse with a bf16 control; the
+     gradients of sum ssh^2 + sum T^2 w.r.t. the state, dt, W, the wind and
+     the coefficients from to_struct (bench.py's full-physics
+     64x64x100 over 4000 steps through auto_rollout_diff with 7937 composed
+     fe_step and 4000 composed nonlinear-reverse launches, the 64^2 channel
+     with kappa 5, 256^2 over 100 through both routes, 190 and 100; the
+     linear core's FTS at 64^2 and 256^2), the median of 3 with min and
+     max, a profiler breakdown with the idle share, each composed arm per
+     launch beside each option's reverse alone and its bound, with
+     bench.py's tracer options. ``python3
+     chip_smoke.py --composed-reverse-only`` runs phases 1, 2, 9 and 20
+     alone.
 After phase 8 the tracer-free 256x256x100 100-step gradients through
 fused_rollout_diff and tiled_rollout_diff are timed again in a fresh process
 (``python3 chip_smoke.py --grad-256``, which prints one JSON line), with
@@ -195,6 +219,12 @@ LARGE_ADJ_STEPS = max(10, HEADLINE_STEPS // 80)
 # the tiled path: bench.py's large rollout, max(10, STEPS // 8) steps; the
 # kernel-vs-plain check's length
 LARGE_MAIN_STEPS, TILED_CHECK_STEPS = HEADLINE_STEPS // 8, 100
+# Steps of the physics checks against the exact waves (phases 4, 7, 10 and
+# 12: the f32 and f64 kernels, the f32 plain run and the f64 1-layer host
+# run, at t = PHYSICS_STEPS * DT): a quarter of the main path's, so that
+# phase 20 fits the run's time budget (at 8000 steps the host runs took
+# 60-90 s of the GPU machine's CPU)
+PHYSICS_STEPS = HEADLINE_STEPS // 4
 REPS = 3
 # On the Kelvin channel the f32 u check holds the kernel's distance from an
 # f64 plain run to this many times the plain f32 run's: sound runs read
@@ -468,12 +498,13 @@ def byte_rate(peaks: dict, state_bytes: float) -> float:
     return peaks["l2"] if 2 * state_bytes <= L2_PASS_BYTES else peaks["hbm"]
 
 
-def cuda_times(fn, reps: int) -> list:
+def cuda_times(fn, reps: int, warm_up: bool = True) -> list:
     """Device seconds of each of reps calls of fn(), by CUDA events, after
-    one warm-up call."""
+    one warm-up call (none where the caller has just made one)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     out = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -719,8 +750,9 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> tuple:
                            tiled_fe_l, sites_l, gpu) + f"; fe_step {fe_us[LARGE_N]:.3f} "
         f"us/step (phase 5)")
 
-    # FB at the headline size: 8000 f32 steps against the exact IGW; f64
-    # against an f64 host run of the plain FB rollout with one 1000 m layer
+    # FB at the headline size: 8000 f32 steps (the main path), and at
+    # PHYSICS_STEPS against the exact IGW; f64 against an f64 host run of
+    # the plain FB rollout with one 1000 m layer
     horz, igw, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
     st, sm = model.to_struct(prog), model.struct_mesh
     sites = 2 * sm.ny2 * sm.nx * LEVELS
@@ -754,19 +786,20 @@ def tiled_phase(gpu: str, log_text: str, fe_us: dict) -> tuple:
         + share_line("tiled_step FB", fb_s, bound_fb[0],
                      alt_bounds(tiled_bounds, sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4,
                                 plan_fb, halo_fb)))
-    t_end = HEADLINE_STEPS * DT
+    t_end = PHYSICS_STEPS * DT
     exact = igw.exact_ssh(np.asarray(horz.cells.x, np.float64),
                           np.asarray(horz.cells.y, np.float64), t_end)
 
     def l2(ssh):
         return error_measures(ssh.double().numpy(), exact, horz, "cell").L_two
 
+    fin = model.from_struct(structured_auto_run_loop(st, sm, DT, PHYSICS_STEPS, fb=True))
     _, _, model64, prog64 = igw_case(HEADLINE_N, LEVELS, np.float64)
     k64 = model64.from_struct(structured_auto_run_loop(
-        model64.to_struct(prog64), model64.struct_mesh, DT, HEADLINE_STEPS, fb=True))
+        model64.to_struct(prog64), model64.struct_mesh, DT, PHYSICS_STEPS, fb=True))
     _, _, model1, prog1 = igw_case(HEADLINE_N, 1, np.float64, device="cpu")
     ref = model1.from_struct(structured_run_loop(
-        model1.to_struct(prog1), model1.struct_mesh, DT, HEADLINE_STEPS, fb=True))
+        model1.to_struct(prog1), model1.struct_mesh, DT, PHYSICS_STEPS, fb=True))
     l2_k, l2_k64, l2_ref = l2(fin.ssh), l2(k64.ssh), l2(ref.ssh)
     ssh_gap = float(np.abs(k64.ssh.numpy() - ref.ssh.numpy()).max())
     log(f"[7] FB IGW ssh L2 error vs exact at t={t_end:.0f} s, {HEADLINE_N}x{HEADLINE_N}x"
@@ -885,8 +918,12 @@ def grad_sum_ssh2(route, st, sm, n_steps: int, plan=None, **kw):
 
 
 def profile_by_kernel(fn, names: tuple):
-    """Device time by kernel of one call of fn(), from a profiler trace, and
-    the window's length by CUDA events: ({name: (us, count)}, window us)."""
+    """Device time by kernel of one call of fn(), from a profiler trace; the
+    window's length by CUDA events (or the trace's span of device activity,
+    if longer); and the device's busy time, the union of the device
+    activities' intervals (programmatically dependent launches overlap, so
+    the sum of their times can exceed the window): ({name: (us, count)},
+    window us, busy us)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -904,14 +941,26 @@ def profile_by_kernel(fn, names: tuple):
         name = next((k for k in names if k in e.key), "other")
         t, c = by_kernel.get(name, (0.0, 0))
         by_kernel[name] = (t + e.self_device_time_total, c + e.count)
-    return by_kernel, start.elapsed_time(end) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, -math.inf
+    for a, b in spans:
+        if b > reach:
+            busy_us += b - max(a, reach)
+            reach = b
+    window_us = start.elapsed_time(end) * 1e3
+    if spans:
+        window_us = max(window_us, reach - spans[0][0])
+    return by_kernel, window_us, busy_us
 
 
-def profile_line(by_kernel: dict, window_us: float, gpu: str) -> str:
-    busy_us = sum(t for t, _ in by_kernel.values())
+def profile_line(by_kernel: dict, window_us: float, busy_us: float, gpu: str) -> str:
+    summed_us = sum(t for t, _ in by_kernel.values())
     return (", ".join(f"{k} {t:.0f} us / {c} = {t / max(c, 1):.3f} us"
                       for k, (t, c) in by_kernel.items())
-            + f"; device busy {busy_us:.0f} us, idle share {1 - busy_us / window_us:.4f} [{gpu}]")
+            + f"; device busy {busy_us:.0f} us (the union of the kernels' intervals; their sum "
+            f"{summed_us:.0f} us, {summed_us - busy_us:.0f} us of it overlapping), idle share "
+            f"{1 - busy_us / window_us:.4f} [{gpu}]")
 
 
 def ddt_line(by_kernel: dict) -> str:
@@ -1164,11 +1213,11 @@ def tiled_adjoint_phase(gpu: str, log_text: str, fused_grad_64: list) -> tuple:
     log(f"[8] grad through tiled_rollout_diff from the lattice state, {n} steps: "
         f"{spread(tiled_s)} per grad, {spread([t / n for t in tiled_s], 1e6, 'us')} per "
         f"rollout step; earlier {EARLIER_GRAD_S[LARGE_N]} s per grad [{gpu}]")
-    by_kernel, window_us = profile_by_kernel(
+    by_kernel, window_us, busy_us = profile_by_kernel(
         lambda: grad_sum_ssh2(tiled_rollout_diff, st_l, sm_l, n),
         ("fe_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
     log(f"[8] profiler, one tiled grad ({window_us:.0f} us by events): "
-        + profile_line(by_kernel, window_us, gpu))
+        + profile_line(by_kernel, window_us, busy_us, gpu))
     log(f"[8] {ddt_line(by_kernel)}")
 
     # the size rule: the same 256^2 grad through the fused reverse, the
@@ -1535,23 +1584,24 @@ def channel_forward_phase(gpu: str, periodic: dict) -> dict:
         f"{med / periodic['fe 64']:.4f}")
     log("[10] " + share_line("masked fe_step 64^2", fe_s, bound_fe64, old_fe64))
 
-    # the Kelvin wave after 8000 steps against the exact solution: f32 and
-    # f64 through the kernel, and an f64 run of the plain version on the
-    # host with one 1000 m layer (identical layers make the 100-layer
+    # the Kelvin wave after PHYSICS_STEPS steps against the exact solution:
+    # f32 and f64 through the kernel, and an f64 run of the plain version on
+    # the host with one 1000 m layer (identical layers make the 100-layer
     # system the 1-layer one)
-    t_end = HEADLINE_STEPS * DT
+    t_end = PHYSICS_STEPS * DT
     exact = kw.exact_ssh(np.asarray(chan.cells.x, np.float64),
                          np.asarray(chan.cells.y, np.float64), t_end)
 
     def l2(ssh):
         return error_measures(ssh.double().numpy(), exact, chan, "cell").L_two
 
-    k64 = model64.from_struct(structured_auto_run_loop(st64, sm64, DT, HEADLINE_STEPS))
+    k32 = model.from_struct(structured_auto_run_loop(st, sm, DT, PHYSICS_STEPS))
+    k64 = model64.from_struct(structured_auto_run_loop(st64, sm64, DT, PHYSICS_STEPS))
     _, _, model1, prog1 = kelvin_case(HEADLINE_N, 1, np.float64, device="cpu")
     host = model1.from_struct(structured_run_loop(model1.to_struct(prog1), model1.struct_mesh,
-                                                  DT, HEADLINE_STEPS))
-    p32 = model.from_struct(structured_run_loop(st, sm, DT, HEADLINE_STEPS))
-    l2_k, l2_p, l2_k64, l2_host = l2(final.ssh), l2(p32.ssh), l2(k64.ssh), l2(host.ssh)
+                                                  DT, PHYSICS_STEPS))
+    p32 = model.from_struct(structured_run_loop(st, sm, DT, PHYSICS_STEPS))
+    l2_k, l2_p, l2_k64, l2_host = l2(k32.ssh), l2(p32.ssh), l2(k64.ssh), l2(host.ssh)
     ssh_gap = float(np.abs(k64.ssh.numpy() - host.ssh.numpy()).max())
     log(f"[10] Kelvin ssh L2 error vs exact at t={t_end:.0f} s, {HEADLINE_N}x{HEADLINE_N}x"
         f"{LEVELS} channel FE: f32 kernel {l2_k:.6e}, f32 plain {l2_p:.6e}; f64 kernel "
@@ -1565,7 +1615,7 @@ def channel_forward_phase(gpu: str, periodic: dict) -> dict:
     # version's size
     if not (np.isfinite(l2_k) and 0.5 * l2_p <= l2_k <= 2.0 * l2_p):
         raise AssertionError(f"f32 channel Kelvin error {l2_k} off the plain run's {l2_p}")
-    del k64, host, p32, model64, st64, sm64
+    del k32, k64, host, p32, model64, st64, sm64
 
     # FB at the headline size, 1000 steps
     q_fb = plan_of(sm, 4, True, LARGE_MAIN_STEPS)[2]
@@ -1892,11 +1942,11 @@ def channel_grad_phase(gpu: str, periodic: dict) -> dict:
         f"{spread([t / n for t in grad_64], 1e6, 'us')} per rollout step; periodic (phase 6) "
         f"{periodic['grad 64']:.6g} s, masked/periodic "
         f"{statistics.median(grad_64) / periodic['grad 64']:.4f} [{gpu}]")
-    by_kernel, window_us = profile_by_kernel(
+    by_kernel, window_us, busy_us = profile_by_kernel(
         lambda: grad_sum_ssh2(auto_rollout_diff, st, sm, n),
         ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce"))
     log(f"[11] profiler, one channel grad ({window_us:.0f} us by events): "
-        + profile_line(by_kernel, window_us, gpu))
+        + profile_line(by_kernel, window_us, busy_us, gpu))
 
     # 256^2, 100 steps, through tiled_rollout_diff (tiled_adjoint's masked arm)
     chan_l, model_l, prog_l, st_l, sm_l = cases[LARGE_N]
@@ -1925,11 +1975,11 @@ def channel_grad_phase(gpu: str, periodic: dict) -> dict:
     log(f"[11] channel grad through tiled_rollout_diff, {n} steps: {spread(grad_256)} per "
         f"grad; periodic (phase 8) {periodic['grad 256']:.6g} s, masked/periodic "
         f"{statistics.median(grad_256) / periodic['grad 256']:.4f} [{gpu}]")
-    by_kernel, window_us = profile_by_kernel(
+    by_kernel, window_us, busy_us = profile_by_kernel(
         lambda: grad_sum_ssh2(tiled_rollout_diff, st_l, sm_l, n),
         ("fe_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
     log(f"[11] profiler, one channel tiled grad ({window_us:.0f} us by events): "
-        + profile_line(by_kernel, window_us, gpu))
+        + profile_line(by_kernel, window_us, busy_us, gpu))
 
     dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
     dims_l = (sm_l.ny2, sm_l.nx, LEVELS, len(sm_l.coriolis_terms), 4)
@@ -2316,13 +2366,14 @@ def nonlinear_phase(gpu: str, log_text: str, linear: dict) -> dict:
                             2 * sm.ny2 * sm.nx * LEVELS, gpu)
         + f"; plain {statistics.median(p) * 1e6:.3f} us/step")
 
-    # the nonlinear IGW at t = 240000 s: its ssh error beside the linear
-    # one (phase 4), and the f64 kernel against an f64 host run with one
-    # 1000 m layer (identical layers make the 100-layer nonlinear system
+    # the nonlinear IGW at t = PHYSICS_STEPS * DT: its ssh error beside the
+    # linear one (phase 4), and the f64 kernel against an f64 host run with
+    # one 1000 m layer (identical layers make the 100-layer nonlinear system
     # the 1-layer one: q scales as 1/h and the flux as h)
-    horz, igw, *_ = timed["fe 64"][:2]
-    final = timed["fe 64"][4]
-    t_end = HEADLINE_STEPS * DT
+    horz, igw, model32, prog32 = timed["fe 64"][:4]
+    final = model32.from_struct(structured_auto_run_loop(
+        model32.to_struct(prog32), model32.struct_mesh, DT, PHYSICS_STEPS, nonlinear=True))
+    t_end = PHYSICS_STEPS * DT
     exact = igw.exact_ssh(np.asarray(horz.cells.x, np.float64),
                           np.asarray(horz.cells.y, np.float64), t_end)
 
@@ -2331,10 +2382,10 @@ def nonlinear_phase(gpu: str, log_text: str, linear: dict) -> dict:
 
     _, _, model64, prog64 = igw_case(HEADLINE_N, LEVELS, np.float64)
     k64 = model64.from_struct(structured_auto_run_loop(
-        model64.to_struct(prog64), model64.struct_mesh, DT, HEADLINE_STEPS, nonlinear=True))
+        model64.to_struct(prog64), model64.struct_mesh, DT, PHYSICS_STEPS, nonlinear=True))
     _, _, model1, prog1 = igw_case(HEADLINE_N, 1, np.float64, device="cpu")
     host = model1.from_struct(structured_run_loop(
-        model1.to_struct(prog1), model1.struct_mesh, DT, HEADLINE_STEPS, nonlinear=True))
+        model1.to_struct(prog1), model1.struct_mesh, DT, PHYSICS_STEPS, nonlinear=True))
     l2_k, l2_k64, l2_host = l2(final.ssh), l2(k64.ssh), l2(host.ssh)
     ssh_gap = float(np.abs(k64.ssh.numpy() - host.ssh.numpy()).max())
     log(f"[12] nonlinear IGW ssh L2 error vs exact at t={t_end:.0f} s, {HEADLINE_N}x"
@@ -2680,11 +2731,11 @@ def nl_reverse_phase(gpu: str, log_text: str) -> dict:
                                         auto_rollout_diff)
     _, _, _, grad_256_t = grad_path("IGW", igw_case, LARGE_N, LARGE_ADJ_STEPS,
                                     tiled_rollout_diff)
-    by_kernel, window_us = profile_by_kernel(
+    by_kernel, window_us, busy_us = profile_by_kernel(
         lambda: grad_sum_ssh2(auto_rollout_diff, st_l, sm_l, LARGE_ADJ_STEPS, nonlinear=True),
         ("nl_step_kernel", "nl_adjoint_kernel", "ddt_reduce"))
     log(f"[13] profiler, one {LARGE_N}^2 nonlinear grad ({window_us:.0f} us by events): "
-        + profile_line(by_kernel, window_us, gpu))
+        + profile_line(by_kernel, window_us, busy_us, gpu))
 
     # the kernel per launch by held_us (40-step calls, its d(dt) sum
     # included) beside its bound; the plain reverse step's time
@@ -3332,10 +3383,10 @@ def forcing_phase(gpu: str, log_text: str) -> list:
                                forcing=forced_of["256"])
         return torch.autograd.grad((o.ssh ** 2).sum(), leaves)
 
-    by_kernel, window_us = profile_by_kernel(traced, ("fe_step_kernel", "tiled_adjoint_kernel",
-                                                      "ddt_reduce"))
+    by_kernel, window_us, busy_us = profile_by_kernel(
+        traced, ("fe_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
     log(f"[14] profiler, bench.py's forced {LARGE_N}^2 tiled grad ({window_us:.0f} us by "
-        f"events): " + profile_line(by_kernel, window_us, gpu))
+        f"events): " + profile_line(by_kernel, window_us, busy_us, gpu))
 
     # the forced reverse arms per launch (held_us, 40-step calls), beside the
     # unforced arms on the same stack
@@ -3465,14 +3516,15 @@ def tracer_phase(gpu: str, log_text: str) -> list:
     the 64^2 x 100 Kelvin channel with kappa 5, each tracer's distance from
     an f64 plain run within U_GAP_FACTOR x the plain f32 run's, with a bf16
     control; uniform T, conserved content, monotone upwinding and culled
-    cells on the card (tests/test_tracers.py); the refusals (the gradient
-    of tracers with the nonlinear core or forcing, which the forward runs
-    since phase 19; the tiled reverse with tracers at q > 1); the main paths
+    cells on the card (tests/test_tracers.py); the gradient of tracers with
+    the nonlinear core and with forcing (finite: the composed reverse, held
+    in phase 20) and the refusal of the tiled reverse with tracers at
+    q > 1; the main paths
     from to_struct
     (bench.py's 64^2 x 100 two-tracer FE rollout over HEADLINE_STEPS, 256^2
     FE and FB, the 64^2 channel FE with kappa 5) timed beside the tracer-free
-    arm with exact launch counts and their bounds; the refusals. Returns the
-    tracer arms' entries of the kernels line."""
+    arm with exact launch counts and their bounds. Returns the tracer arms'
+    entries of the kernels line."""
     import numpy as np
     import torch
 
@@ -3718,7 +3770,7 @@ def tracer_phase(gpu: str, log_text: str) -> list:
         del st, st64, out, ref, ref64, bf
         torch.cuda.empty_cache()
 
-    # refusals on the card
+    # the gradient with tracers on the card
     horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
     st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
                                              prog.normal_velocity,
@@ -3727,21 +3779,23 @@ def tracer_phase(gpu: str, log_text: str) -> list:
     forcing = model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
         horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0, dtype=np.float32),
         dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
-    refused = []
-    for label, call in (
-            ("auto_rollout_diff nonlinear", lambda: auto_rollout_diff(st_t, sm, DT, 2,
-                                                                       nonlinear=True)),
-            ("tiled_rollout_diff forced", lambda: tiled_rollout_diff(st_t, sm, DT, 2,
-                                                                     forcing=forcing)),
-            ("tiled_rollout_diff q = 2", lambda: tiled_rollout_diff(st_t, sm, DT, 4,
-                                                                    plan=(4, 8, 2, 1)))):
-        try:
-            call()
-        except NotImplementedError:
-            refused.append(label)
-            continue
-        raise AssertionError(f"{label} with tracers ran on the card")
-    log(f"[15] refused on the card with tracers (NotImplementedError): {', '.join(refused)}")
+    # the gradient with tracers and the nonlinear core or forcing runs (the
+    # composed reverse, phase 20); at q > 1 the tiled reverse still refuses
+    for label, route, kw in (("auto_rollout_diff nonlinear", auto_rollout_diff,
+                              dict(nonlinear=True)),
+                             ("tiled_rollout_diff forced", tiled_rollout_diff,
+                              dict(forcing=forcing))):
+        if not grad_runs(route, st_t, sm, 2, **kw):
+            raise AssertionError(f"the gradient {label} with tracers is not finite")
+    try:
+        tiled_rollout_diff(st_t, sm, DT, 4, plan=(4, 8, 2, 1))
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("tiled_rollout_diff q = 2 with tracers ran on the card")
+    log("[15] the gradient with tracers on the card: nonlinear (auto_rollout_diff) and forced "
+        "(tiled_rollout_diff) run, finite; tiled_rollout_diff q = 2 refused "
+        "(NotImplementedError)")
 
     # the main paths from to_struct, timed beside the tracer-free arm
     times, launches = {}, {}
@@ -4277,11 +4331,11 @@ def tracer_reverse_phase(gpu: str, log_text: str) -> list:
             f"{spread(times[label]['tracers'])}, tracer-free {spread(times[label]['tracer-free'])}"
             f" per grad: x{med_t / med_0:.4f} [{gpu}]")
         if label == "64 auto":
-            by_kernel, window_us = profile_by_kernel(
+            by_kernel, window_us, busy_us = profile_by_kernel(
                 lambda: grad_tr(route, st_w, sm, n_steps, **kw),
                 ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce"))
             log(f"[16] profiler, one two-tracer grad at 64^2 ({window_us:.0f} us by events): "
-                + profile_line(by_kernel, window_us, gpu))
+                + profile_line(by_kernel, window_us, busy_us, gpu))
         del out, grads, st_w, bare
         torch.cuda.empty_cache()
 
@@ -4414,9 +4468,9 @@ def strat_phase(gpu: str, log_text: str) -> list:
     FB steps through structured_auto_run_loop, each field's distance from an
     f64 plain run within U_GAP_FACTOR x the plain f32 run's, with a bf16
     control; equal densities against the unstratified arm and the two-layer
-    internal wave (FB, half a period) on the card; the refusals (the
-    gradient with stratification and the nonlinear core, forcing or tracers,
-    which the forward runs since phase 19); the main
+    internal wave (FB, half a period) on the card; the gradient with
+    stratification and the nonlinear core, forcing or tracers (finite: the
+    composed reverse, held in phase 20); the main
     paths from to_struct (bench.py's 64^2 x 100 FE rollout over
     HEADLINE_STEPS with exact launch counts; FB 64^2, FE and FB 256^2 and
     the 64^2 channel FE over LARGE_MAIN_STEPS), timed beside the
@@ -4608,7 +4662,7 @@ def strat_phase(gpu: str, log_text: str) -> list:
         del st, st64, out, ref, ref64, bf
         torch.cuda.empty_cache()
 
-    # refusals on the card
+    # the gradient with stratification on the card
     horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
     st, sm = model.to_struct(prog), model.struct_mesh
     st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
@@ -4617,26 +4671,19 @@ def strat_phase(gpu: str, log_text: str) -> list:
     forcing = model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
         horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0, dtype=np.float32),
         dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
-    # (the forward runs every combination, phase 19; the gradient's
-    # refusals remain)
+    # (the forward runs every combination, phase 19; the gradient too, the
+    # composed reverse of phase 20)
     from mpas_ocean_tpu_torch.structured import auto_rollout_diff, tiled_rollout_diff
 
-    refused = []
-    for label, call in (
-            ("nonlinear", lambda: auto_rollout_diff(st, sm, DT, 2, nonlinear=True,
-                                                    strat=strat32)),
-            ("forced", lambda: auto_rollout_diff(st, sm, DT, 2, forcing=forcing, strat=strat32)),
-            ("tracers", lambda: auto_rollout_diff(st_t, sm, DT, 2, strat=strat32)),
-            ("tiled_rollout_diff nonlinear", lambda: tiled_rollout_diff(
-                st, sm, DT, 2, nonlinear=True, strat=strat32))):
-        try:
-            call()
-        except NotImplementedError:
-            refused.append(label)
-            continue
-        raise AssertionError(f"the gradient {label} with stratification ran on the card")
-    log(f"[17] refused on the card, the gradient with stratification (NotImplementedError): "
-        f"{', '.join(refused)}")
+    for label, route, s, kw in (
+            ("nonlinear", auto_rollout_diff, st, dict(nonlinear=True)),
+            ("forced", auto_rollout_diff, st, dict(forcing=forcing)),
+            ("tracers", auto_rollout_diff, st_t, {}),
+            ("tiled_rollout_diff nonlinear", tiled_rollout_diff, st, dict(nonlinear=True))):
+        if not grad_runs(route, s, sm, 2, strat=strat32, **kw):
+            raise AssertionError(f"the gradient {label} with stratification is not finite")
+    log("[17] the gradient with stratification runs on the card, finite: nonlinear, forced, "
+        "tracers, tiled_rollout_diff nonlinear")
 
     # the main path: bench.py's cell from to_struct, HEADLINE_STEPS FE steps
     zero_counts()
@@ -4817,8 +4864,9 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
     states within U_GAP_FACTOR x the plain f32 reverse's, a bf16 control
     failing it; one f32 reverse step on integer data whose sums in double
     are exact: both arms' d(W) bitwise the exact sums, the sums in float
-    not; the refusals;
-    the slice's gradients of sum ssh^2 w.r.t. the state, dt and W from
+    not; the stratified gradient with the nonlinear core, forcing and
+    tracers (finite; phase 20 holds it) and the tiled route's refusal at
+    q > 1; the slice's gradients of sum ssh^2 w.r.t. the state, dt and W from
     to_struct (64^2 IGW and channel over GRAD_STEPS through
     auto_rollout_diff, 256^2 over LARGE_ADJ_STEPS through tiled_rollout_diff
     and fused_rollout_diff) with exact stratified launch counts, timed
@@ -5180,8 +5228,8 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
         del stack, st, g, model, sm
         torch.cuda.empty_cache()
 
-    # refusals on the card: the gradients with stratification and the
-    # nonlinear core, forcing or tracers, and the tiled route at q > 1
+    # the gradients with stratification and the nonlinear core, forcing or
+    # tracers run on the card; the tiled route at q > 1 refuses
     horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
     st, sm = model.to_struct(prog), model.struct_mesh
     st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
@@ -5190,22 +5238,18 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
     forcing = model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=mt.make_vertical_mesh(
         horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0, dtype=np.float32),
         dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
-    refused = []
-    for label, call in (
-            ("nonlinear", lambda: auto_rollout_diff(st, sm, DT, 2, nonlinear=True,
-                                                    strat=strat32)),
-            ("forced", lambda: auto_rollout_diff(st, sm, DT, 2, forcing=forcing, strat=strat32)),
-            ("tracers", lambda: auto_rollout_diff(st_t, sm, DT, 2, strat=strat32)),
-            ("tiled q = 2", lambda: tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1),
-                                                       strat=strat32))):
-        try:
-            call()
-        except NotImplementedError:
-            refused.append(label)
-            continue
-        raise AssertionError(f"the stratified gradient {label} ran on the card")
-    log(f"[18] refused on the card, the stratified gradient (NotImplementedError): "
-        f"{', '.join(refused)}")
+    for label, s, kw in (("nonlinear", st, dict(nonlinear=True)),
+                         ("forced", st, dict(forcing=forcing)), ("tracers", st_t, {})):
+        if not grad_runs(auto_rollout_diff, s, sm, 2, strat=strat32, **kw):
+            raise AssertionError(f"the stratified gradient {label} is not finite")
+    try:
+        tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1), strat=strat32)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("the stratified gradient tiled q = 2 ran on the card")
+    log("[18] the stratified gradient on the card: nonlinear, forced and with tracers run "
+        "(the composed reverse, phase 20), finite; tiled q = 2 refused (NotImplementedError)")
     del st, st_t
 
     # the slice's gradients from to_struct, w.r.t. the state, dt and W, each
@@ -5260,11 +5304,11 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
             f", unstratified {spread(times[label]['unstratified'])} per grad: x{med_s / med_0:.4f} "
             f"[{gpu}]")
         if label == "64 auto":
-            by_kernel, window_us = profile_by_kernel(
+            by_kernel, window_us, busy_us = profile_by_kernel(
                 lambda: grad_w(route, st_w, sm, n_steps, strat32),
                 ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce", "strat_reduce"))
             log(f"[18] profiler, one stratified grad at 64^2 ({window_us:.0f} us by events): "
-                + profile_line(by_kernel, window_us, gpu))
+                + profile_line(by_kernel, window_us, busy_us, gpu))
         del out, grads, st_w
         torch.cuda.empty_cache()
 
@@ -5378,7 +5422,8 @@ def composed_combos() -> list:
 
 
 def composed_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts,
-                   n_tracers: int = 2, masked: bool = False, peaks: dict | None = None):
+                   n_tracers: int = 2, masked: bool = False, peaks: dict | None = None,
+                   reverse: bool = False):
     """(bound seconds, "bytes" or "operations") of one composed step with
     the options ``opts``: a state read and written, with tracers their 2 nT
     planes too; the core's constants and tables (``step_bound``'s linear
@@ -5386,12 +5431,32 @@ def composed_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts,
     levels, stratified W (K x K); the core's arithmetic (36 + 1.5 n_terms
     per cell-level, or step_flop_count's 184 + 4 n_terms (+ 6 masked) per
     site of two cells) plus TRACER_OPS per cell-level and tracer,
-    FORCED_FWD_OPS and strat_ops(K) per cell-level. ``peaks`` as for
+    FORCED_FWD_OPS and strat_ops(K) per cell-level.
+
+    With ``reverse``, one composed reverse step: a primal state and a
+    cotangent read and a cotangent written (tracers: 3 x 2 nT planes), h'
+    and T' of the next state (1 + 2 nT planes) read; the reverse's constants
+    and tables (``step_bound``'s, or ``nl_adjoint_bound``'s) and a d(dt)
+    share; with forcing d(wind) read and written too, with stratification
+    d(W) (K x K doubles) written too. Its arithmetic is 81 + n_terms per
+    cell-level, or NL_ADJOINT_FLOPS per site of two cells, plus
+    TRACER_ADJ_OPS per cell-level and tracer, FORCED_REV_OPS and
+    strat_adj_ops(K) per cell-level, those in double at the FP64 tensor
+    cores' or the shown f64 rate, whichever is higher. ``peaks`` as for
     ``step_bound``."""
     cells = 2 * ny2 * nx
     state = cells * (1 + 4 * k)
     tr = cells * k * n_tracers if "tracers" in opts else 0
-    if "nonlinear" in opts:
+    nl = "nonlinear" in opts
+    if reverse and nl:
+        consts = (20 if masked else 4) * ny2 * nx
+        tables = 4 * (2 * (44 + 3 * n_terms) + 12 * 11) + 8 * (2 * n_terms + 12)
+        ops = ny2 * nx * k * NL_ADJOINT_FLOPS
+    elif reverse:
+        consts = 3 * cells
+        tables = 4 * (44 + 3 * n_terms) + itemsize * n_terms
+        ops = cells * k * (81 + n_terms)
+    elif nl:
         consts = cells + (20 if masked else 4) * ny2 * nx
         tables = 4 * (44 + 3 * n_terms + 12 * 11) + 8 * (n_terms + 12)
         ops = ny2 * nx * k * (184 + 4 * n_terms + (6 if masked else 0))
@@ -5399,21 +5464,58 @@ def composed_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts,
         consts = 4 * cells
         tables = 4 * (44 + 3 * n_terms) + itemsize * n_terms
         ops = cells * k * (36 + 1.5 * n_terms)
-    nbytes = itemsize * (2 * (state + tr) + consts) + tables
+    if reverse:
+        nbytes = itemsize * (3 * (state + tr) + consts + (cells * k + tr if tr else 0)) + 8
+    else:
+        nbytes = itemsize * (2 * (state + tr) + consts)
+    nbytes += tables
     if masked:
         nbytes += 4 * ny2 * nx + (itemsize * cells if tr else 0)
+    ops_d = 0
     if "forced" in opts:
         nbytes += ny2 * nx * (6 * itemsize + 24) + 24
-        ops += cells * k * FORCED_FWD_OPS
+        nbytes += 2 * 6 * itemsize * ny2 * nx if reverse else 0
+        ops += cells * k * (FORCED_REV_OPS if reverse else FORCED_FWD_OPS)
     if "strat" in opts:
-        nbytes += itemsize * k * k
-        ops += cells * k * strat_ops(k)
+        nbytes += itemsize * k * k + (8 * k * k if reverse else 0)
+        ops_t, ops_d = strat_adj_ops(k) if reverse else (strat_ops(k), 0)
+        ops += cells * k * ops_t
     if tr:
-        ops += cells * k * TRACER_OPS * n_tracers
+        ops += cells * k * (TRACER_ADJ_OPS if reverse else TRACER_OPS) * n_tracers
     peaks = CEILING if peaks is None else peaks
-    rate = byte_rate(peaks, itemsize * (state + tr))
-    t_bytes, t_ops = nbytes / rate, ops / peaks["flops"][itemsize]
+    t_bytes = nbytes / byte_rate(peaks, itemsize * (state + tr))
+    t_ops = (ops / peaks["flops"][itemsize]
+             + cells * k * ops_d / max(DATASHEET["mma64"], peaks["flops"][8]))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bench_forcing(horz, model, np_dtype):
+    """bench.py's forcing (BENCH_FORCING) on ``horz`` in the model's struct
+    layout, made by make_forcing as a user would."""
+    import numpy as np
+
+    import mpas_ocean_tpu_torch as mt
+
+    vert = mt.make_vertical_mesh(horz, LEVELS, resting_thickness=np.full(
+        (horz.n_cells, LEVELS), 10.0, dtype=np_dtype), dtype=np_dtype)
+    return model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=vert),
+                                                   dtype=np_dtype, **BENCH_FORCING))
+
+
+def grad_runs(route, st, sm, n_steps: int, **kw) -> bool:
+    """Whether the gradient of sum ssh^2 (+ sum T^2 with tracers) through
+    ``route`` over n_steps from ``st`` runs on the card, finite: the
+    earlier phases' check of a gradient phase 20 holds in full."""
+    import torch
+
+    from mpas_ocean_tpu_torch.structured import StructState
+
+    x = [None if v is None else v.clone().requires_grad_(True) for v in
+         (st.ssh, st.layer_thickness, st.normal_velocity, st.tracers)]
+    out = route(StructState(*x), sm, DT, n_steps, **kw)
+    obj = (out.ssh ** 2).sum() + (0.0 if out.tracers is None else (out.tracers ** 2).sum())
+    grads = torch.autograd.grad(obj, [v for v in x if v is not None])
+    return all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def composed_phase(gpu: str, log_text: str) -> list:
@@ -5430,8 +5532,9 @@ def composed_phase(gpu: str, log_text: str) -> list:
     channel, FE and FB), each field's distance from an f64 plain run within
     U_GAP_FACTOR x the plain f32 run's, with a bf16 control; physics on the
     card (equal densities against the unstratified composed arm, S = 35
-    kept, tracer content conserved, periodic and channel); the refusals
-    that remain (the gradient with each combination); the main paths from
+    kept, tracer content conserved, periodic and channel); the gradient of
+    each combination (finite; phase 20 holds it against the plain reverse);
+    the main paths from
     to_struct with exact launch counts (bench.py's full-physics 64^2 x 100
     FE rollout over HEADLINE_STEPS; FB 64^2, FE and FB 256^2 and the 64^2
     channel FE with kappa 5 over LARGE_MAIN_STEPS), timed beside each arm
@@ -5635,12 +5738,6 @@ def composed_phase(gpu: str, log_text: str) -> list:
     strat64 = mt.make_stratification(bench_rho)
     all_opts = frozenset(COMPOSED_OPTIONS)
 
-    def bench_forcing(horz, model, np_dtype):
-        vert = mt.make_vertical_mesh(horz, LEVELS, resting_thickness=np.full(
-            (horz.n_cells, LEVELS), 10.0, dtype=np_dtype), dtype=np_dtype)
-        return model.to_struct_forcing(mt.make_forcing(mt.Mesh(horz=horz, vert=vert),
-                                                       dtype=np_dtype, **BENCH_FORCING))
-
     max_abs_err, gaps = {}, {}
     tfields = FIELDS + ("tracers",)
     for key, case, kappa in (("64", igw_case, BENCH_TRACER_KAPPA),
@@ -5696,28 +5793,25 @@ def composed_phase(gpu: str, log_text: str) -> list:
         del st, st64, out, ref, ref64, bf
         torch.cuda.empty_cache()
 
-    # the refusals that remain: the gradient with each combination
+    # the gradient of each combination runs on the card (phase 20 holds it
+    # against the plain reverse)
     horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
     sm = model.struct_mesh
     st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
                                              prog.normal_velocity,
                                              tracers=bench_tracers(horz, LEVELS, np.float32)))
     forcing = bench_forcing(horz, model, np.float32)
-    refused = []
+    ran = 0
     for opts in combos:
         st = st_t if "tracers" in opts else bare(st_t)
         kw = run_kw(opts, forcing, strat32, 0.0, 1.0)
-        for label, call in (("auto_rollout_diff", lambda: auto_rollout_diff(st, sm, DT, 2, **kw)),
-                            ("tiled_rollout_diff", lambda: tiled_rollout_diff(st, sm, DT, 2,
-                                                                              **kw))):
-            try:
-                call()
-            except NotImplementedError:
-                refused.append(f"{label} {'+'.join(o for o in COMPOSED_OPTIONS if o in opts)}")
-                continue
-            raise AssertionError(f"the gradient {label} with {sorted(opts)} ran on the card")
-    log(f"[19] refused on the card, the gradient of every combination (NotImplementedError): "
-        f"{len(refused)} calls: {', '.join(refused)}")
+        for route in (auto_rollout_diff, tiled_rollout_diff):
+            if not grad_runs(route, st, sm, 2, **kw):
+                raise AssertionError(f"the gradient {route.__name__} with {sorted(opts)} is not "
+                                     "finite")
+            ran += 1
+    log(f"[19] the gradient of every combination runs on the card, finite: {ran} calls "
+        "(auto_rollout_diff and tiled_rollout_diff)")
 
     # the main paths from to_struct: bench.py's full-physics cell, each path
     # from its own zeroed counts, then timed (CUDA events, REPS each) beside
@@ -5867,6 +5961,570 @@ def composed_phase(gpu: str, log_text: str) -> list:
     ]
 
 
+# ---- phase 20: the composed reverse -------------------------------------------
+
+# Reverse steps of the composed reverse's f64 checks, and the launches of a
+# held_us timing (one reverse call over a stack of that many states)
+COMPOSED_REV_STEPS, COMPOSED_HELD_STEPS = 6, 40
+
+
+def composed_reverse_phase(gpu: str, log_text: str) -> list:
+    """Phase 20, the composed reverse (every combination of two or more of
+    the nonlinear core (N), forcing (F), tracers (T) and stratification (S)
+    in kernels 3 and 4 and in kernel 1's stack rebuild): the composed
+    reverse instantiations' ptxas lines; f64, each of the 11 combinations
+    through the gradient's card steps (the nonlinear reverse kernel with N,
+    adjoint_step and tiled_adjoint at q = 1 without) against the plain
+    reverse on the kernel's own stack (mpas_ocean_tpu_torch/tools/
+    composed_reverse.py), COMPOSED_REV_STEPS steps, 16^2 and 64^2 random
+    states, periodic and channel, at 4, 36 and 100 levels: every cotangent
+    within 1e-12 of its scale (d(dt), d(r_lin, Cd, lambda) and d(W) of their
+    Cauchy-Schwarz scales), reruns bitwise, each run with one option dropped
+    at least 100x off, the launches in every arm's counter; the stack
+    rebuild with every arm bitwise the forward path's states; the
+    dot-product identity at f64 over 7 steps with directions in the state,
+    the tracers, the wind, the coefficients and W (NFTS and FTS, both
+    routes); f32, 100 reverse steps of bench.py's full-physics cell (NFTS on
+    the 64^2 x 100 IGW, the Kelvin channel and the 256^2 x 100 IGW, FTS on
+    the 64^2 and 256^2 IGW; each kernel on its route's plan): each
+    cotangent's distance from an f64 reverse of the same f32 states within
+    U_GAP_FACTOR x the plain f32 reverse's (or phase 16's floor, and phase
+    14's for the scalars), the plain reverse with bf16 cotangents failing
+    it; the main paths from to_struct, the gradient of sum ssh^2 + sum T^2
+    w.r.t. the state, dt, W, the wind and the coefficients (bench.py's
+    full-physics 64^2 x 100 over GRAD_STEPS through auto_rollout_diff, the
+    64^2 channel with kappa 5, 256^2 over LARGE_ADJ_STEPS through both
+    routes, and the linear core's FTS at 64^2 and 256^2) with exact launch
+    counts, the median of REPS with min and max; a profiler breakdown of
+    the 64^2 gradient with the device's idle share; each composed arm per
+    launch by held_us beside each option's reverse alone and its bound,
+    with bench.py's tracer options (kappa 0, upwind 1), the main path's.
+    Returns the kernels line's entries."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.models import Stratification, stratification_from_numpy
+    from mpas_ocean_tpu_torch.models.forcing import Forcing
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        adjoint_plan,
+        auto_rollout_diff,
+        diff_model,
+        fused_rollout_diff,
+        structured_adjoint_step,
+        structured_nl_adjoint_step,
+        structured_run_loop,
+        tiled_diff,
+        tiled_rollout_diff,
+    )
+    from mpas_ocean_tpu_torch.tools.composed_reverse import (
+        COMPOSED_COMBOS,
+        COMPOSED_KAPPA,
+        COMPOSED_UPWIND,
+        composed_ddt_scale,
+        composed_errors,
+        composed_reverse,
+        composed_stack,
+        composed_state,
+        composed_steps,
+        plain_composed_reverse,
+    )
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    t_phase = time.perf_counter()
+    log(f"[20] device memory held at the phase's start: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    # the composed reverse instantiations: the nonlinear kernel with any of
+    # (kForced, kTracers, kStrat), the linear ones with two or more of them
+    for line in (ptxas_report(log_text, ("nl_adjoint_kernel",),
+                              ("Lb1EEEv", "Lb1ELb0EEEv", "Lb1ELb0ELb0EEEv"))
+                 + ptxas_report(log_text, ("adjoint_step_kernel", "tiled_adjoint_kernel"),
+                                ("Lb1ELb1ELb0EEEv", "Lb1ELb0ELb1EEEv", "Lb1ELb1EEEv"))):
+        log(f"[20] ptxas {line}")
+    tfields = FIELDS + ("tracers",)
+    kinds = (("fe_step", fe_step, ""), ("adjoint_step", adjoint_step, ""),
+             ("nl_adjoint", adjoint_step, "nl_"), ("tiled_adjoint", tiled_adjoint, ""))
+    arm_names = ("launches", "forced_launches", "tracer_launches", "strat_launches")
+
+    def zero_counts():
+        for _, m, pre in kinds:
+            for c in arm_names:
+                setattr(m, pre + c, 0)
+
+    def counts():
+        return {name: tuple(getattr(m, pre + c) for c in arm_names) for name, m, pre in kinds}
+
+    def want(kernel, n, opts):
+        """The counts a run of n launches of ``kernel`` with ``opts``' arms
+        makes, every other kernel at 0."""
+        c = {name: (0,) * 4 for name, _, _ in kinds}
+        c[kernel] = (n, *(n if o in opts else 0 for o in "FTS"))
+        return c
+
+    def with_tracers(model, st, seed=3):
+        ny2, nx, k = st.layer_thickness.shape[1:]
+        rng = np.random.default_rng(seed)
+        x = np.arange(nx)[None, None, :, None] / nx
+        tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
+                       35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
+        if model.cell_mask is not None:
+            tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
+        return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
+                           torch.from_numpy(tr).to(st.layer_thickness))
+
+    def random_g(st, seed):
+        rng = np.random.default_rng(seed)
+        return StructState(*(None if getattr(st, f) is None else torch.from_numpy(
+            rng.normal(size=tuple(getattr(st, f).shape))).to(getattr(st, f)) for f in tfields))
+
+    def full_case(n, levels, channel, layer, u_amp=0.5):
+        """A random f64 state with two tracers, random winds, levels and
+        coefficients, and a dense random W (std 0.05)."""
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=5,
+                                                                   u_amp=u_amp, layer=layer)
+        st = with_tracers(model, model.to_struct(prog))
+        rng = np.random.default_rng(29 + levels)
+        strat = stratification_from_numpy({"phi_weights": 0.05 * rng.normal(size=(levels, levels)),
+                                           "densities": np.full(levels, 1025.0)})
+        return model, st, lattice_forcing(model, seed=11 + levels), strat
+
+    def same(a, b) -> bool:
+        return all(getattr(a[0], f) is None or torch.equal(getattr(a[0], f), getattr(b[0], f))
+                   for f in tfields) and all(x is None or torch.equal(x, y)
+                                             for x, y in zip(a[1:], b[1:]))
+
+    def bare(stack):  # a stack without its tracer planes
+        return StructState(stack.ssh, stack.layer_thickness, stack.normal_velocity)
+
+    def tiled_tile(st, sm, n, opts):
+        return tiled_diff._plan(st, sm, n, None, "N" in opts, "S" in opts, "F" in opts)[:2]
+
+    # f64 against the plain reverse on the kernel's own stack: (n, levels,
+    # channel, layer)
+    n_rev = COMPOSED_REV_STEPS
+    worst, n_checks, rebuilt = {}, 0, 0
+    f64_cases = [(16, 4, channel, 10.0) for channel in (False, True)]
+    f64_cases += [(HEADLINE_N, levels, channel, 60.0 / levels)
+                  for levels in (36, LEVELS) for channel in (False, True)]
+    for n, levels, channel, layer in f64_cases:
+        model, st_full, forcing, strat = full_case(n, levels, channel, layer)
+        sm = model.struct_mesh
+        g_full = random_g(st_full, 17)
+        name = (f"f64 {n}x{n}x{levels} {'channel' if channel else 'periodic'}, layers of "
+                f"{layer:.4g} m, u 0.5 m/s")
+        parts = []
+        for opts in COMPOSED_COMBOS:
+            st, g = composed_state(st_full, opts), composed_state(g_full, opts)
+            steps = composed_steps(sm, 10.0, st.layer_thickness, opts, forcing, strat)
+            stack = composed_stack(steps, st, n_rev)
+            if opts in ("NFTS", "FTS") and n == HEADLINE_N:
+                # the rebuild: slot j against j steps of the forward path
+                src = diff_model._planes_state(st)
+                for j in (1, n_rev - 1, n_rev):
+                    out, scratch = diff_model._empty(src), diff_model._empty(src)
+                    steps.advance(src, out, j, scratch)
+                    if not all(torch.equal(a, b) for a, b in zip(
+                            diff_model._fields(out), diff_model._fields(diff_model._slot(stack, j)))):
+                        raise AssertionError(f"{name} {opts}: the stack's slot {j} is not the "
+                                             f"forward path's {j} steps")
+                    rebuilt += 1
+            ref, scales = plain_composed_reverse(stack, g, sm, 10.0, n_rev, opts, forcing, strat)
+            scales["d_dt"] = composed_ddt_scale(st, sm, 10.0, n_rev, g, opts, forcing, strat)
+            # the tiled route: the linear combinations at 4 and 36 levels, the
+            # nonlinear ones (the same kernel on the route's tile) at 16^2
+            tiled = levels < LEVELS and ("N" not in opts or n < HEADLINE_N)
+            routes = [("fused", None)] + ([("tiled", tiled_tile(st, sm, n_rev, opts))]
+                                          if tiled else [])
+            for route, tl in routes:
+                kernel = ("nl_adjoint" if "N" in opts
+                          else "adjoint_step" if tl is None else "tiled_adjoint")
+                zero_counts()
+                out = composed_reverse(composed_steps(sm, 10.0, st.layer_thickness, opts, forcing,
+                                                      strat, tl), stack, g, n_rev)
+                again = composed_reverse(composed_steps(sm, 10.0, st.layer_thickness, opts,
+                                                        forcing, strat, tl), stack, g, n_rev)
+                c = counts()
+                if any(c[m] != w for m, w in want(kernel, 2 * n_rev, opts).items()
+                       if m != "fe_step"):
+                    raise AssertionError(f"{name} {opts} {route}: launch counts {c}")
+                errs = composed_errors(out, ref, scales)
+                err = max(r for _, r in errs.values())
+                if not err <= 1e-12:
+                    raise AssertionError(f"{name} {opts} {route}: {format_errors(errs)}")
+                if not same(out, again):
+                    raise AssertionError(f"{name} {opts} {route}: rerun differs")
+                misses = {}
+                for drop in opts:
+                    rest = opts.replace(drop, "")
+                    tl_r = tl and tiled_tile(composed_state(st_full, rest), sm, n_rev, rest)
+                    d = composed_reverse(composed_steps(sm, 10.0, st.layer_thickness, rest,
+                                                        forcing, strat, tl_r),
+                                         bare(stack) if drop == "T" else stack,
+                                         composed_state(g_full, rest), n_rev)
+                    misses[drop] = max(float((getattr(d[0], f) - getattr(ref[0], f)).abs().max()
+                                             / getattr(ref[0], f).abs().max())
+                                       for f in tfields if getattr(d[0], f) is not None)
+                if not min(misses.values()) >= 100 * 1e-12:
+                    raise AssertionError(f"{name} {opts} {route}: a control misses by only "
+                                         f"{misses}")
+                key = f"{kernel} {route}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                parts.append(f"{opts} {route} {err:.2e} ({min(misses.values()):.1e})")
+                n_checks += 1
+            del stack, steps
+        log(f"[20] {name}, {n_rev} reverse steps: worst error over scale (smallest drop-one "
+            "control miss) " + ", ".join(parts))
+        del model, st_full, g_full, sm
+        torch.cuda.empty_cache()
+    log(f"[20] {n_checks} f64 composed reverse checks of the 11 combinations, reruns bitwise "
+        f"equal, drop-one controls >= 100x off; {rebuilt} stack slots bitwise the forward path's; "
+        "worst relative errors: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" ({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    # the dot-product identity, f64, 7 steps, directions in the state, the
+    # tracers, the wind, the coefficients and W; all four options and the
+    # linear core's three, through both routes
+    model, st, forcing, strat = full_case(32, 6, False, 10.0)
+    sm = model.struct_mesh
+    v, gbar = random_g(st, 18), random_g(st, 19)
+    rng = np.random.default_rng(20)
+    v_wind = torch.from_numpy(1e-4 * rng.normal(size=tuple(forcing.wind_edge.shape))).to(
+        forcing.wind_edge)
+    v_coefs = [torch.tensor(x, dtype=torch.float64, device=st.ssh.device)
+               for x in (1e-4, 3e-4, 1e-5)]
+    v_w = torch.from_numpy(0.05 * rng.normal(size=(6, 6))).to(st.ssh)
+    coefs0 = (forcing.drag_linear, forcing.drag_quadratic, forcing.rayleigh)
+    w0 = strat.phi_weights.to(st.ssh)
+    dots = {}
+    for opts in ("NFTS", "FTS"):
+        def rollout7(*xs, nl="N" in opts):
+            f = Forcing(xs[4], forcing.top_mask, forcing.bottom_mask, *xs[5:8])
+            out = structured_run_loop(StructState(*xs[:4]), sm, 10.0, 7, nonlinear=nl, forcing=f,
+                                      tracer_kappa=COMPOSED_KAPPA, tracer_upwind=COMPOSED_UPWIND,
+                                      strat=Stratification(xs[8], strat.densities))
+            return tuple(getattr(out, f) for f in tfields)
+
+        prim = (*(getattr(st, f) for f in tfields), forcing.wind_edge, *coefs0, w0)
+        tang = (*(getattr(v, f) for f in tfields), v_wind, *v_coefs, v_w)
+        _, jv = torch.func.jvp(rollout7, prim, tang)
+        lhs = sum(float((x * getattr(gbar, f)).sum()) for x, f in zip(jv, tfields))
+        for label, route, kw in (("fused_rollout_diff", fused_rollout_diff, dict(plan=3)),
+                                 ("tiled_rollout_diff", tiled_rollout_diff,
+                                  dict(plan=(4, 8, 1, 3)))):
+            x = [p.clone().requires_grad_(True) for p in prim]
+            f = Forcing(x[4], forcing.top_mask, forcing.bottom_mask, *x[5:8])
+            out = route(StructState(*x[:4]), sm, 10.0, 7, nonlinear="N" in opts, forcing=f,
+                        tracer_kappa=COMPOSED_KAPPA, tracer_upwind=COMPOSED_UPWIND,
+                        strat=Stratification(x[8], strat.densities), **kw)
+            inner = sum((getattr(out, f) * getattr(gbar, f)).sum() for f in tfields)
+            jtg = torch.autograd.grad(inner, x)
+            rhs = sum(float((t * d).sum()) for t, d in zip(tang, jtg))
+            dots[opts, label] = abs(lhs - rhs) / abs(rhs)
+            log(f"[20] f64 dot-product identity, {opts}, 32x32x6, 7 steps, directions in the "
+                f"state, tracers, wind, coefficients and W, {label}: <Jv, g> {lhs:.17g}, "
+                f"<v, J^T g> {rhs:.17g}, relative gap {dots[opts, label]:.3e}")
+            if not dots[opts, label] <= 1e-12:
+                raise AssertionError(f"{opts} {label}: dot-product identity off by "
+                                     f"{dots[opts, label]:.3e}")
+    del model, st, sm
+
+    # f32, 100 reverse steps of bench.py's full-physics cell (bench.py's
+    # tracers, forcing and densities; kappa 5, upwind 0.5) at 64^2 and
+    # 256^2, each kernel on its route's plan (the fused route's, and the
+    # tiled route's tile: tiled_adjoint, or the nonlinear kernel on it), from
+    # the cotangent of sum ssh^2 + sum T^2 at step 100: each cotangent's distance
+    # from an f64 reverse of the same f32 primal states within U_GAP_FACTOR x
+    # the plain f32 reverse's or the floor, whichever is larger: for the
+    # fields (the tracers' and d(wind) among them) TRACER_REV_F32_FLOOR f32
+    # epsilons of their scale (phase 16's), for the scalars d(dt) and
+    # d(r_lin, Cd, lambda) SCALAR_FLOOR of their magnitude (phase 14's), for
+    # d(W) none (phase 18's); the plain reverse with its cotangents stored in
+    # bf16 after each step must miss that
+    strat32 = mt.make_stratification(1025.0 + np.linspace(0.0, BENCH_RHO_SPAN, LEVELS),
+                                     dtype=np.float32)
+    eps32 = float(np.finfo(np.float32).eps)
+    gaps, max_abs_err = {}, {}
+    n32 = TILED_CHECK_STEPS
+    for key, case, n, opts, kernels in (
+            ("64", igw_case, HEADLINE_N, "NFTS", (("nl_adjoint", "fused"),)),
+            ("channel 64", kelvin_case, HEADLINE_N, "NFTS", (("nl_adjoint", "fused"),)),
+            ("64 linear", igw_case, HEADLINE_N, "FTS",
+             (("adjoint_step", "fused"), ("tiled_adjoint", "tiled"))),
+            ("256", igw_case, LARGE_N, "NFTS", (("nl_adjoint", "fused"), ("nl_adjoint", "tiled"))),
+            ("256 linear", igw_case, LARGE_N, "FTS",
+             (("adjoint_step", "fused"), ("tiled_adjoint", "tiled")))):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=bench_tracers(horz, LEVELS, np.float32)))
+        forcing = bench_forcing(horz, model, np.float32)
+        steps = composed_steps(sm, DT, st.layer_thickness, opts, forcing, strat32)
+        stack = composed_stack(steps, st, n32)
+        end = diff_model._lattice_state(diff_model._slot(stack, n32))
+        g = StructState(2 * end.ssh, torch.zeros_like(end.layer_thickness),
+                        torch.zeros_like(end.normal_velocity), 2 * end.tracers)
+        del end  # a view of the stack (16 GB at 256^2)
+        ref64, scales = plain_composed_reverse(stack, g, sm, DT, n32, opts, forcing, strat32,
+                                               dtype=torch.float64)
+        p32, _ = plain_composed_reverse(stack, g, sm, DT, n32, opts, forcing, strat32)
+        bf, _ = plain_composed_reverse(stack, g, sm, DT, n32, opts, forcing, strat32,
+                                       store=lambda x: x.bfloat16().float())
+        flow = "Kelvin channel" if case is kelvin_case else "IGW"
+        magnitude = {"d_dt": abs(float(ref64[1]))}
+        if ref64[3] is not None:
+            magnitude.update(zip(("d_r_lin", "d_cd", "d_lambda"),
+                                 (abs(float(x)) for x in ref64[3])))
+        scales.update(magnitude)  # the scalars' errors over their magnitudes
+        for kernel, route in kernels:
+            tl = tiled_tile(st, sm, n32, opts) if route == "tiled" else None
+            out = composed_reverse(composed_steps(sm, DT, st.layer_thickness, opts, forcing,
+                                                  strat32, tl), stack, g, n32)
+            what = (f"f32 {n}^2x{LEVELS} {flow}, {opts}, bench.py's tracers, forcing and "
+                    f"densities, {n32} reverse steps, {kernel} on the {route} route"
+                    f"{'' if tl is None else f' tile {tuple(tl)}'}")
+            e_k, e_p, e_b = (composed_errors(x, ref64, scales) for x in (out, p32, bf))
+            ratios, control_fails, parts = {}, False, []
+            for f in e_k:
+                scale = e_k[f][0] / e_k[f][1] if e_k[f][1] else 0.0
+                floor = (SCALAR_FLOOR * magnitude[f] if f in magnitude else 0.0 if f == "d_w"
+                         else TRACER_REV_F32_FLOOR * eps32 * scale)
+                limit = U_GAP_FACTOR * max(e_p[f][0], floor)
+                ratios[f] = e_k[f][0] / limit
+                control_fails = control_fails or e_b[f][0] > limit
+                parts.append(f"{f} kernel {e_k[f][0]:.3e}, plain {e_p[f][0]:.3e}, floor "
+                             f"{floor:.3e}: x{ratios[f]:.3f} of the limit; bf16 {e_b[f][0]:.3e} "
+                             f"(x{e_b[f][0] / limit:.1f})")
+                if not e_k[f][0] <= limit:
+                    raise AssertionError(f"{what}: {f} {e_k[f][0]:.3e} from the f64 reverse, "
+                                         f"limit {limit:.3e}")
+            log(f"[20] {what}: distance from an f64 reverse of the same f32 states: "
+                + "; ".join(parts))
+            if not control_fails:
+                raise AssertionError(f"{what}: the bf16 control passes")
+            gaps[kernel, route, key] = ratios
+            max_abs_err[kernel, route, key] = max(e for e, _ in composed_errors(out, p32,
+                                                                                scales).values())
+            del out
+        del stack, ref64, p32, bf, st, steps, g
+        torch.cuda.empty_cache()
+
+    # the main paths from to_struct: the gradient of sum ssh^2 + sum T^2
+    # w.r.t. the state, dt, W, the wind and the coefficients, each path from
+    # its own zeroed counts, then timed (REPS)
+    def grad_full(route, s, sm, n_steps, forcing, kappa, **kw):
+        leaves = [getattr(s, f).clone().requires_grad_(True) for f in tfields]
+        dt = torch.tensor(DT, dtype=torch.float32, device=s.ssh.device, requires_grad=True)
+        w = strat32.phi_weights.to(s.ssh.device).clone().requires_grad_(True)
+        fd = [getattr(forcing, c).clone().requires_grad_(True)
+              for c in ("wind_edge", "drag_linear", "drag_quadratic", "rayleigh")]
+        f = Forcing(fd[0], forcing.top_mask, forcing.bottom_mask, *fd[1:])
+        out = route(StructState(*leaves), sm, dt, n_steps, forcing=f, tracer_kappa=kappa,
+                    tracer_upwind=BENCH_TRACER_UPWIND,
+                    strat=Stratification(w, strat32.densities), **kw)
+        loss = (out.ssh ** 2).sum() + (out.tracers ** 2).sum()
+        return out, torch.autograd.grad(loss, leaves + [dt, w] + fd)
+
+    times, launches, walls, prof = {}, {}, {}, None
+    for label, case, n, route, n_steps, nonlinear, kappa, kernel in (
+            ("64 auto", igw_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, True,
+             BENCH_TRACER_KAPPA, "nl_adjoint"),
+            ("channel 64 auto", kelvin_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, True, 5.0,
+             "nl_adjoint"),
+            ("256 tiled", igw_case, LARGE_N, tiled_rollout_diff, LARGE_ADJ_STEPS, True,
+             BENCH_TRACER_KAPPA, "nl_adjoint"),
+            ("256 fused", igw_case, LARGE_N, fused_rollout_diff, LARGE_ADJ_STEPS, True,
+             BENCH_TRACER_KAPPA, "nl_adjoint"),
+            ("64 linear auto", igw_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, False,
+             BENCH_TRACER_KAPPA, "adjoint_step"),
+            ("256 linear tiled", igw_case, LARGE_N, tiled_rollout_diff, LARGE_ADJ_STEPS, False,
+             BENCH_TRACER_KAPPA, "tiled_adjoint")):
+        horz, _, model, prog = case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        ptr = mt.PrognosticVars(prog.ssh, prog.layer_thickness, prog.normal_velocity,
+                                tracers=bench_tracers(horz, LEVELS, np.float32))
+        forcing = bench_forcing(horz, model, np.float32)
+        kw = dict(nonlinear=nonlinear)
+        zero_counts()
+        t0 = time.perf_counter()
+        out, grads = grad_full(route, model.to_struct(ptr), sm, n_steps, forcing, kappa, **kw)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        c = counts()
+        st_w = model.to_struct(ptr)
+        state_bytes = sum(f.numel() * 4 for f in state_fields(st_w)) + st_w.tracers.numel() * 4
+        group = adjoint_plan(n_steps, state_bytes, math.inf)
+        n_fe = 2 * n_steps - -(-n_steps // group)
+        wants = want(kernel, n_steps, "FTS")
+        wants["fe_step"] = (n_fe,) * 4
+        log(f"[20] main path: grad of sum ssh^2 + sum T^2 w.r.t. the state, dt, W, the wind and "
+            f"the coefficients through {route.__name__}, {n}^2x{LEVELS} f32 "
+            f"{'channel' if case is kelvin_case else 'IGW'}, {'NFTS' if nonlinear else 'FTS'} "
+            f"(bench.py's forcing, tracers with kappa {kappa}, densities), {n_steps} steps, groups "
+            f"of {group}, from to_struct: {walls[label]:.3f} s wall [{gpu}]; launches (all, "
+            f"forced, tracers, stratified) {c} (want {wants})")
+        if c != wants:
+            raise AssertionError(f"composed grad {label}: launch counts {c} != {wants}")
+        if not all(bool(torch.isfinite(x).all()) for x in grads) or not all(
+                float(x.abs().max()) > 0 for x in grads):
+            raise AssertionError(f"composed grad {label}: a cotangent not finite, or zero")
+        launches[label] = (c[kernel][0], c["fe_step"][0])
+        # the counted run above was the warm-up
+        times[label] = cuda_times(lambda: grad_full(route, st_w, sm, n_steps, forcing, kappa,
+                                                    **kw), REPS, warm_up=False)
+        log(f"[20] grad {label}, {n_steps} steps: {spread(times[label])} per grad (median of "
+            f"{REPS}, min, max) [{gpu}]")
+        if label == "64 auto":
+            prof = profile_by_kernel(
+                lambda: grad_full(route, st_w, sm, n_steps, forcing, kappa, **kw),
+                ("fe_step_kernel", "nl_step_kernel", "nl_adjoint_kernel", "ddt_reduce",
+                 "strat_reduce"))
+            log(f"[20] profiler, one full-physics grad at 64^2 ({prof[1]:.0f} us by events): "
+                + profile_line(*prof, gpu))
+        del out, grads, st_w
+        torch.cuda.empty_cache()
+
+    # each composed arm per launch (held_us over a COMPOSED_HELD_STEPS-step
+    # call) beside each option's reverse alone, its bound and the plain
+    # composed reverse step, with bench.py's tracer options (the main path's)
+    log(f"[20] device memory held before the per-launch timings: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    n_h = COMPOSED_HELD_STEPS
+    bench_tr = dict(kappa=BENCH_TRACER_KAPPA, upwind=BENCH_TRACER_UPWIND)
+    per_launch, plain_ms, bounds = {}, {}, {}
+    nl_arms = ("N", "NF", "NT", "NS", "NFTS")
+    lin_arms = ("", "F", "T", "S", "FTS")
+    for n in (HEADLINE_N, LARGE_N):
+        horz, _, model, prog = igw_case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=bench_tracers(horz, LEVELS, np.float32)))
+        forcing = bench_forcing(horz, model, np.float32)
+        g = random_g(st, 20)
+        for core, arms, tl in (("nl_adjoint", nl_arms, None), ("adjoint_step", lin_arms, None),
+                               ("tiled_adjoint", lin_arms, "plan")):
+            if core == "tiled_adjoint" and n == HEADLINE_N:
+                continue
+            full = arms[-1]
+            stack = composed_stack(composed_steps(sm, DT, st.layer_thickness, full, forcing,
+                                                  strat32, **bench_tr), composed_state(st, full),
+                                   n_h)
+            for opts in arms:
+                tile = tiled_tile(composed_state(st, opts), sm, n_h, opts) if tl else None
+                steps = composed_steps(sm, DT, st.layer_thickness, opts, forcing, strat32, tile,
+                                       **bench_tr)
+                s = stack if "T" in opts else bare(stack)
+                go = composed_state(g, opts)
+                per_launch[core, n, opts] = held_us(
+                    lambda steps=steps, s=s, go=go: composed_reverse(steps, s, go, n_h), n_h, REPS)
+            full_s = statistics.median(per_launch[core, n, full])
+            dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+            opts_set = {"forced", "tracers", "strat"} | ({"nonlinear"} if "N" in full else set())
+            bounds[core, n] = composed_bound(*dims, opts_set, reverse=True)
+            b, by = bounds[core, n]
+            log(f"[20] {core} per launch, {n}x{n}x{LEVELS} f32, bench.py's full physics (tracers "
+                f"with kappa {BENCH_TRACER_KAPPA}, upwind {BENCH_TRACER_UPWIND}): "
+                f"composed ({'+'.join(full) or 'linear'}) "
+                f"{spread(per_launch[core, n, full], 1, 'us')}; bound {b * 1e6:.3f} us ({by}): "
+                f"{b * 1e6 / full_s:.4f} of it; each option's reverse alone: " + ", ".join(
+                    f"{o or 'core'} {spread(per_launch[core, n, o], 1, 'us')}"
+                    for o in arms[:-1]) + f" [{gpu}]")
+            del stack, s, steps, go  # s: the stack or a view of it
+        # the plain composed reverse step, all four options
+        steps = composed_steps(sm, DT, st.layer_thickness, "NFTS", forcing, strat32, **bench_tr)
+        stack = composed_stack(steps, st, 1)
+        s1 = diff_model._lattice_state(diff_model._slot(stack, 0))
+        nxt = diff_model._lattice_state(diff_model._slot(stack, 1))
+        plain_ms[n] = [t * 1e3 for t in cuda_times(lambda: structured_nl_adjoint_step(
+            s1, g, sm, DT, forcing, tracer_kappa=BENCH_TRACER_KAPPA,
+            tracer_upwind=BENCH_TRACER_UPWIND, next_state=nxt, strat=strat32), REPS)]
+        lin_ms = [t * 1e3 for t in cuda_times(lambda: structured_adjoint_step(
+            s1, g, sm, DT, forcing, tracer_kappa=BENCH_TRACER_KAPPA,
+            tracer_upwind=BENCH_TRACER_UPWIND, next_state=nxt, strat=strat32), REPS)]
+        plain_ms[n, "linear"] = lin_ms
+        log(f"[20] plain composed reverse step, {n}x{n}x{LEVELS} f32: nonlinear "
+            f"{spread(plain_ms[n], 1, 'ms')}, linear {spread(lin_ms, 1, 'ms')} [{gpu}]")
+        plan = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n_tracers=2, strat=True)
+        log(f"[20] the nonlinear reverse's composed plan at {n}^2 x {LEVELS} f32 (rows, columns, "
+            f"levels per slice): {plan}, "
+            f"{adjoint_step.nl_adjoint_smem_bytes(plan[:2], LEVELS, 4, plan[2], 2, True)} bytes "
+            f"of shared memory per block, one block per SM; plain plan "
+            f"{adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)}")
+        del stack, st, steps
+        torch.cuda.empty_cache()
+    log(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+    med = statistics.median
+
+    def entry(name, src, replaces, kernel, route, label, n, plain, extra):
+        b, by = bounds[kernel, n]
+        full = "NFTS" if kernel == "nl_adjoint" else "FTS"
+        size = ("64" if n == HEADLINE_N else "256") + ("" if kernel == "nl_adjoint" else " linear")
+        return {"name": name, "route": "cuda", "source": f"mpas_ocean_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches[label][0],
+                "max_abs_err": max_abs_err[kernel, route, size],
+                "ms": med(per_launch[kernel, n, full]) / 1e3, "plain_ms": med(plain),
+                "bound_ms": b * 1e3, "bound_by": by, "library_ms": None,
+                "fe_step_composed_launches": launches[label][1], **extra}
+
+    def alone(kernel, n, arms):
+        return {f"{o or 'core'}_ms": med(per_launch[kernel, n, o]) / 1e3 for o in arms[:-1]}
+
+    summed = sum(t for t, _ in prof[0].values())
+    return [
+        entry("nl_adjoint (composed arms: forced, tracers, stratified)", "nl_adjoint.cuh",
+              "mpas_ocean_tpu/structured/pallas_model.py:1480 (nl_terms with the forced operands "
+              ":1514-1520, gt_ref :1525-1526, sw_ref :1506-1510) and :1979 at q = 1",
+              "nl_adjoint", "fused", "64 auto", HEADLINE_N, plain_ms[HEADLINE_N],
+              {**alone("nl_adjoint", HEADLINE_N, nl_arms),
+               "ms_256": med(per_launch["nl_adjoint", LARGE_N, "NFTS"]) / 1e3,
+               "max_abs_err_256": max_abs_err["nl_adjoint", "fused", "256"],
+               "max_abs_err_256_tiled": max_abs_err["nl_adjoint", "tiled", "256"],
+               "bound_ms_256": bounds["nl_adjoint", LARGE_N][0] * 1e3,
+               "plain_ms_256": med(plain_ms[LARGE_N]),
+               "grad_s_64": times["64 auto"], "grad_s_64_channel": times["channel 64 auto"],
+               "grad_s_256_tiled": times["256 tiled"], "grad_s_256_fused": times["256 fused"],
+               "grad_64_idle_share": 1 - prof[2] / prof[1],
+               "grad_64_overlap_us": summed - prof[2],
+               "f32_gap_ratios": {k: gaps["nl_adjoint", "fused", k]
+                                  for k in ("64", "channel 64", "256")},
+               "f32_gap_ratios_256_tiled": gaps["nl_adjoint", "tiled", "256"],
+               "max_rel_err_f64": worst.get("nl_adjoint fused"),
+               "dot_gap": dots["NFTS", "fused_rollout_diff"],
+               "sources": ["mpas_ocean_tpu_torch/csrc/nl_adjoint.cuh",
+                           "mpas_ocean_tpu_torch/csrc/nl_adjoint.cu",
+                           "mpas_ocean_tpu_torch/csrc/nl_adjoint_f32.cu",
+                           "mpas_ocean_tpu_torch/csrc/nl_adjoint_f32_forced.cu"]}),
+        entry("adjoint_step (composed arms: forced, tracers, stratified)", "adjoint_step.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:1480 (the forced operands :1514-1520, "
+              "gt_ref :1521-1528, sw_ref :1506-1510 together)", "adjoint_step", "fused",
+              "64 linear auto", HEADLINE_N, plain_ms[HEADLINE_N, "linear"],
+              {**alone("adjoint_step", HEADLINE_N, lin_arms),
+               "ms_256": med(per_launch["adjoint_step", LARGE_N, "FTS"]) / 1e3,
+               "max_abs_err_256": max_abs_err["adjoint_step", "fused", "256 linear"],
+               "grad_s_64_linear": times["64 linear auto"],
+               "f32_gap_ratios": {k: gaps["adjoint_step", "fused", k]
+                                  for k in ("64 linear", "256 linear")},
+               "max_rel_err_f64": worst.get("adjoint_step fused"),
+               "dot_gap": dots["FTS", "fused_rollout_diff"]}),
+        entry("tiled_adjoint (composed arms at q = 1: forced, tracers, stratified)",
+              "tiled_adjoint.cu",
+              "mpas_ocean_tpu/structured/pallas_model.py:1979 (q = 1 with the forced operands, "
+              "tracers0 and sw_ref together)", "tiled_adjoint", "tiled", "256 linear tiled",
+              LARGE_N, plain_ms[LARGE_N, "linear"],
+              {**alone("tiled_adjoint", LARGE_N, lin_arms),
+               "grad_s_256_linear": times["256 linear tiled"],
+               "max_abs_err_64": max_abs_err["tiled_adjoint", "tiled", "64 linear"],
+               "f32_gap_ratios": gaps["tiled_adjoint", "tiled", "256 linear"],
+               "f32_gap_ratios_64": gaps["tiled_adjoint", "tiled", "64 linear"],
+               "max_rel_err_f64": worst.get("tiled_adjoint tiled"),
+               "dot_gap": dots["FTS", "tiled_rollout_diff"]}),
+    ]
+
+
 def ptxas_report(log_text: str, kernels: tuple, arm=None) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``; with ``arm`` (a string, or a
@@ -5901,11 +6559,12 @@ def grad_256_child() -> dict:
     out = {}
     for route in (fused_rollout_diff, tiled_rollout_diff):
         t = cuda_times(lambda: grad_sum_ssh2(route, st, sm, LARGE_ADJ_STEPS), REPS)
-        by_kernel, window_us = profile_by_kernel(
+        by_kernel, window_us, busy_us = profile_by_kernel(
             lambda: grad_sum_ssh2(route, st, sm, LARGE_ADJ_STEPS),
             ("fe_step_kernel", "adjoint_step_kernel", "tiled_adjoint_kernel", "ddt_reduce"))
         out[route.__name__] = {"s": [statistics.median(t), min(t), max(t)],
-                               "by_kernel": by_kernel, "window_us": window_us}
+                               "by_kernel": by_kernel, "window_us": window_us,
+                               "busy_us": busy_us}
     return out
 
 
@@ -5929,7 +6588,8 @@ def fresh_grad_256(gpu: str) -> dict:
         by_kernel = {k: tuple(v) for k, v in res[name]["by_kernel"].items()}
         log(f"[8] fresh process, profiler, one grad through {name} "
             f"({res[name]['window_us']:.0f} us by events): "
-            + profile_line(by_kernel, res[name]["window_us"], gpu))
+            + profile_line(by_kernel, res[name]["window_us"], res[name]["busy_us"],
+                           gpu))
     return res
 
 
@@ -6014,6 +6674,11 @@ def main() -> int:
         print(json.dumps({"kernels": composed_phase(gpu, log_file.read_text())}))
         print(gpu)
         return 0
+    if "--composed-reverse-only" in sys.argv[1:]:
+        # phase 20 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": composed_reverse_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
 
     # -- 3. kernel against its plain version on the card ---------------------
     model, prog = random_case(16, 4)
@@ -6072,10 +6737,10 @@ def main() -> int:
         lambda n: fused_run_loop(st, sm, DT, n), HEADLINE_STEPS, REPS)
     # the plain version is timed over 100-step runs (its time per step does
     # not depend on the depth; 8000-step runs took ~48 s of this script) and
-    # runs the 8000 steps once for the f32 error below
+    # runs PHYSICS_STEPS once for the f32 error below
     _, p_times = timed_rollout(
         lambda n: structured_run_loop(st, sm, DT, n), TILED_CHECK_STEPS, REPS)
-    p_out = structured_run_loop(st, sm, DT, HEADLINE_STEPS)
+    p_out = structured_run_loop(st, sm, DT, PHYSICS_STEPS)
     log("[4] " + rate_line("kernel", k_times, sites, gpu, "fe_step 64"))
     log("[4] " + rate_line("plain ", p_times, sites, gpu))
     dims_h = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
@@ -6091,27 +6756,28 @@ def main() -> int:
     log(f"[4] fe_step per step in a replayed CUDA graph of 100 steps: "
         f"{spread(graph_s, 1e6, 'us')}; in stream launches "
         f"{spread(k_times, 1e6, 'us')} [{gpu}]")
-    # The IGW error after 8000 FE steps. FE is unstable for gravity waves
+    # The IGW error after PHYSICS_STEPS FE steps. FE is unstable for gravity waves
     # and grows the grid-scale modes fastest, so in f32 the column-sum
     # rounding noise grows to dominate the error of both versions (~0.8
     # against ~0.3 in f64, on an H100 at 700 W); the physics check is
     # the same path in f64 through the kernel against an independent f64 run
     # of the plain version on the host with one 1000 m layer (identical
     # layers make the 100-layer system the 1-layer one).
-    t_end = HEADLINE_STEPS * DT
+    t_end = PHYSICS_STEPS * DT
     exact = igw.exact_ssh(np.asarray(horz.cells.x, np.float64),
                           np.asarray(horz.cells.y, np.float64), t_end)
 
     def l2(ssh):
         return error_measures(ssh.double().numpy(), exact, horz, "cell").L_two
 
-    l2_k, l2_p = l2(final.ssh), l2(model.from_struct(p_out).ssh)
+    k32 = model.from_struct(fused_run_loop(st, sm, DT, PHYSICS_STEPS))
+    l2_k, l2_p = l2(k32.ssh), l2(model.from_struct(p_out).ssh)
     _, _, model64, prog64 = igw_case(HEADLINE_N, LEVELS, np.float64)
     k64 = model64.from_struct(structured_auto_run_loop(
-        model64.to_struct(prog64), model64.struct_mesh, DT, HEADLINE_STEPS))
+        model64.to_struct(prog64), model64.struct_mesh, DT, PHYSICS_STEPS))
     _, _, model1, prog1 = igw_case(HEADLINE_N, 1, np.float64, device="cpu")
     ref = model1.from_struct(structured_run_loop(
-        model1.to_struct(prog1), model1.struct_mesh, DT, HEADLINE_STEPS))
+        model1.to_struct(prog1), model1.struct_mesh, DT, PHYSICS_STEPS))
     l2_k64, l2_ref = l2(k64.ssh), l2(ref.ssh)
     igw_l2 = l2_k
     log(f"[4] IGW ssh L2 error vs exact at t={t_end:.0f} s: f32 kernel {l2_k:.6e}, "
@@ -6331,11 +6997,11 @@ def main() -> int:
         f"{EARLIER_GRAD_S[HEADLINE_N]} s): {spread(g_times)} per grad, "
         f"{spread([t / GRAD_STEPS for t in g_times], 1e6, 'us')} per rollout step [{gpu}]")
     # where one grad's device time goes, by kernel, from a profiler trace
-    by_kernel, window_us = profile_by_kernel(
+    by_kernel, window_us, busy_us = profile_by_kernel(
         lambda: grad_run(st, sm, GRAD_STEPS),
         ("fe_step_kernel", "adjoint_step_kernel", "ddt_reduce"))
     log(f"[6] profiler, one grad ({window_us:.0f} us by events): "
-        + profile_line(by_kernel, window_us, gpu))
+        + profile_line(by_kernel, window_us, busy_us, gpu))
     log(f"[6] {ddt_line(by_kernel)}")
     prof_ms = {k: t / max(c, 1) / 1e3 for k, (t, c) in by_kernel.items()}
 
@@ -6402,7 +7068,10 @@ def main() -> int:
 
     # -- 19. composed physics ------------------------------------------------------------
     composed_entries = composed_phase(gpu, log_file.read_text())
-    log("phases 1-19 done")
+
+    # -- 20. the composed reverse ---------------------------------------------------------
+    composed_entries += composed_reverse_phase(gpu, log_file.read_text())
+    log("phases 1-20 done")
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -7,10 +7,10 @@
 // nl_terms=None, periodic (masks=None) and masked (a coastal channel: the
 // vjp of _step_planes with masks, :1497-1501, 1545-1552), unforced and
 // forced (the `forced` operands, :1514-1520, 1545-1590: d(wind) and
-// d(coefs) beside d(dt)), without tracers and, unforced, with them (the
-// tracer cotangent gt_ref / gt_out, :1521-1528, 1561, 1573, 1599-1600),
-// unstratified and, unforced and tracer-free, stratified (W in sw_ref,
-// :1506-1510, its cotangent dsw, :1576-1601). The TPU
+// d(coefs) beside d(dt)), without tracers and with them (the tracer
+// cotangent gt_ref / gt_out, :1521-1528, 1561, 1573, 1599-1600),
+// unstratified and stratified (W in sw_ref, :1506-1510, its cotangent dsw,
+// :1576-1601), the last three in any combination. The TPU
 // kernel recomputes a b-step segment in VMEM and runs an in-kernel jax.vjp of
 // _step_planes per step. CUDA has no vjp, so the transpose is written out by
 // hand here, and the recompute is the forward kernel's (fe_step.cu) filling
@@ -93,18 +93,18 @@
 // each block writes three more shares in double beside d(dt): d(r_lin),
 // d(Cd) and d(lambda), summed in the same fixed order.
 //
-// The stratified arm (kStrat, chosen by a non-null W; unforced and
-// tracer-free; the unstratified arms keep their code) adds the transpose of
+// The stratified arm (kStrat, chosen by a non-null W; the unstratified
+// arms keep their code) adds the transpose of
 // the Montgomery pressure's h @ W part (adjoint_window.cuh,
 // strat_adjoint_pass): the body stores its chunk of S_c,k at the tile's
 // cells in shared memory; after a cluster barrier each rank reads the
 // others' chunks in place, adds (dt / dc) W dPhi at its levels to the
 // stored dh, and forms its rows of d(W) in double into the tile's
 // accumulator and d(dt)'s h @ W part into its share. Each rank stages its
-// rows of W with the window.
+// rows of W with the window, its shared memory after the forced arm's.
 //
-// The tracer arm (kTracers, chosen by a non-null tracer pointer; unforced;
-// the tracer-free arms keep their code) adds the transpose of the tracer
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; the
+// tracer-free arms keep their code) adds the transpose of the tracer
 // update (structured/adjoint.py, tracer_transpose). Each block stages its
 // level chunk of the window's 2 nT primal tracer planes after the primal
 // state's 8 and of their cotangent after the cotangent's 8, with the same
@@ -121,6 +121,13 @@
 // only its own level: no column sum and no cluster traffic more. It runs one
 // 512-thread block per SM (128 registers a thread), with the tile its
 // planner sizes for one block's shared memory.
+//
+// The arms compose (every combination of kForced, kTracers and kStrat,
+// 16 instantiations per dtype; adjoint_step_f64.cu holds the f64 ones):
+// the forced passes run after the body with the tracer arm too, the h
+// cotangent pass then adding the h_edge cotangents to the stored dh (which
+// holds the tracers' terms) rather than forming it again (dh_pass<true>);
+// the stratified pass runs last, on dh with every other term in it.
 //
 // What bounds it: about 3 state passes per step (read the primal h and u,
 // read the cotangent, write the new one), 19.7 MB at 64x64x100 in f32, 5.9
@@ -168,7 +175,6 @@ struct AdjArgs {
 template <typename T, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     adjoint_step_kernel(const AdjArgs<T> a, const AdjTaps<T> tp) {
-  static_assert(!kStrat || (!kForced && !kTracers), "the stratified arm: unforced, tracer-free");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -194,7 +200,8 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gsite + W;  // [W]: the masked arm's live bits
   const ForcingSmem<T> fsm(live_s + W, W, 0);  // the forced arm's winds and levels
-  const StratAdjSmem<T> ssm(live_s + W, core, kc);  // the stratified arm's S and W rows
+  // the stratified arm's S and W rows, after the forced arm's
+  const StratAdjSmem<T> ssm(kForced ? static_cast<void*>(fsm.lvl + 6 * W) : live_s + W, core, kc);
 
   // The partial sums below go straight into rank 0's shared memory, which
   // only a cluster barrier guarantees to exist: its arrival here and its
@@ -375,7 +382,7 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
           return a.dwind + ch * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c;
         },
         W, kc, k0, kr, a.dt, a.fc, &share, &s_lin, &s_quad);
-    dh_pass(prim, cot, tp, fsm, core, core_site,
+    dh_pass<kTracers>(prim, cot, tp, fsm, core, core_site,
             [&](int p, int t, int, int kl) -> T& {
               const int r = by_ct.div(t), c = by_ct.mod(t, r);
               return a.dh[(p * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl];
@@ -387,14 +394,15 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     // part, once every rank's S chunk is visible
     cluster.sync();
     strat_adjoint_pass(
-        ssm, cluster, prim, a.st.acc + static_cast<size_t>(tile) * K * K, a.st.first != 0,
+        ssm, cluster, WindowH<T>{prim, a.hm, a.hi, Wi, pk, a.kc_log2},
+        a.st.acc + static_cast<size_t>(tile) * K * K, a.st.first != 0,
         [&](int p, int t, int kl) -> T* {
           const int r = by_ct.div(t), c = by_ct.mod(t, r);
           const int gm = tm * a.rt + r, gi = ti * a.ct + c;
           return gm < a.ny2 && gi < a.nx ? a.dh + (p * plane + gm * a.nx + gi) * K + k0 + kl
                                          : nullptr;
         },
-        core, a.ct, a.hm, a.hi, Wi, W, a.kc_log2, k0, kr, K, n_ranks, a.dt, a.inv_dc, &share);
+        core, a.ct, a.kc_log2, k0, kr, K, n_ranks, a.dt, a.inv_dc, &share);
   }
   // the forced arm's Rayleigh part of d(dt), -lambda sum gu u
   if (kForced) share -= static_cast<double>(a.fc.rayl) * s_rayl;
@@ -467,12 +475,9 @@ int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const ForcingArg
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || rt > ny2 || ct > nx) return cudaErrorInvalidValue;
-  // the tracer arm: unforced, at least one tracer, the cell mask with the live bits
-  if (at.tr != nullptr &&
-      (fc.wind != nullptr || at.n < 1 || (live == nullptr) != (at.cmask == nullptr)))
+  // the tracer arm: at least one tracer, the cell mask with the live bits
+  if (at.tr != nullptr && (at.n < 1 || (live == nullptr) != (at.cmask == nullptr)))
     return cudaErrorInvalidValue;
-  // the stratified arm: unforced and tracer-free
-  if (st.w != nullptr && (fc.wind != nullptr || at.tr != nullptr)) return cudaErrorInvalidValue;
   int hm = 0, hi = 0;
   adjoint_reach(table, &hm, &hi);
   const int kc = step_chunk(k);
@@ -495,8 +500,8 @@ int make_plan(AdjPlan<T>* pl, const T* f_edge, const int* live, const ForcingArg
   return 0;
 }
 
-// The kernel of a plan, and its attribute: masked or not, forced or not,
-// with tracers (unforced) or not, stratified (unforced, tracer-free) or not.
+// The kernel of a plan, and its attribute: masked or not, and any
+// combination of forced, tracers and stratified.
 template <typename T>
 using AdjKernel = void (*)(AdjArgs<T>, AdjTaps<T>);
 template <typename T>
@@ -504,19 +509,24 @@ struct AdjArm {
   AdjKernel<T> kernel;
   int (*prepare)(int);
 };
-template <typename T, bool kMasked, bool kForced, bool kTracers = false, bool kStrat = false>
+template <typename T, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 constexpr AdjArm<T> arm() {
   return {adjoint_step_kernel<T, kMasked, kForced, kTracers, kStrat>,
           prepare<T, kMasked, kForced, kTracers, kStrat>};
 }
+template <typename T, bool kMasked>
+AdjArm<T> arm_of(bool forced, bool tracers, bool strat) {
+  static const AdjArm<T> arms[8] = {
+      arm<T, kMasked, false, false, false>(), arm<T, kMasked, false, false, true>(),
+      arm<T, kMasked, false, true, false>(),  arm<T, kMasked, false, true, true>(),
+      arm<T, kMasked, true, false, false>(),  arm<T, kMasked, true, false, true>(),
+      arm<T, kMasked, true, true, false>(),   arm<T, kMasked, true, true, true>()};
+  return arms[(forced ? 4 : 0) + (tracers ? 2 : 0) + (strat ? 1 : 0)];
+}
 template <typename T>
 AdjArm<T> arm_of(bool masked, bool forced, bool tracers, bool strat) {
-  if (tracers)  // the entry passes no wind with tracers
-    return masked ? arm<T, true, false, true>() : arm<T, false, false, true>();
-  if (strat)  // nor with W, and no tracers
-    return masked ? arm<T, true, false, false, true>() : arm<T, false, false, false, true>();
-  return masked ? (forced ? arm<T, true, true>() : arm<T, true, false>())
-                : (forced ? arm<T, false, true>() : arm<T, false, false>());
+  return masked ? arm_of<T, true>(forced, tracers, strat)
+                : arm_of<T, false>(forced, tracers, strat);
 }
 
 template <typename T>
@@ -613,9 +623,9 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
 // `gtr_in`, `gtr_out`, `gtr_tmp`, the state after the stack's last slot
 // `h_end`, `tr_end`, the live-cell mask `cmask` (non-null exactly when `live`
 // is), kappa and upwind); a null `strat_w` the unstratified arm, any other
-// (W, (k, k) row-major, with `wind` and `tr_st` null) the stratified one with
-// the tiles' accumulators `dw_acc` (tiles * k * k doubles) and d(W) `dstrat`
-// (k * k doubles, added to).
+// (W, (k, k) row-major) the stratified one with the tiles' accumulators
+// `dw_acc` (tiles * k * k doubles) and d(W) `dstrat` (k * k doubles, added
+// to); the forced, tracer and stratified arms in any combination.
 #define MOT_ADJOINT_ENTRY(T, SUFFIX)                                                          \
   extern "C" int mot_adjoint_rollout_##SUFFIX(                                                \
       const T* f_edge, const int* live, const T* wind, const int* lvl, T* dwind,              \
@@ -640,8 +650,12 @@ int adjoint_rollout(const T* f_edge, const int* live, const ForcingArgs<T>& fc, 
                               static_cast<cudaStream_t>(stream));                             \
   }
 
-MOT_ADJOINT_ENTRY(float, f32)
+// adjoint_step_f64.cu compiles this file with MOT_ADJOINT_STEP_F64 for the
+// f64 entry, so that the two dtypes' instantiations compile in parallel.
+#ifdef MOT_ADJOINT_STEP_F64
 MOT_ADJOINT_ENTRY(double, f64)
+#else
+MOT_ADJOINT_ENTRY(float, f32)
 
 // The launch adjoint_step makes for an rt x ct tile of an ny2 x nx x k f32
 // lattice with the transposed stencil `table` (a host copy), with n_tr
@@ -667,3 +681,4 @@ extern "C" int mot_adjoint_plan(const int* table, int ny2, int nx, int k, int rt
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[1], arm.kernel, kStepThreads, pl.smem));
 }
+#endif  // MOT_ADJOINT_STEP_F64

@@ -186,10 +186,12 @@ __device__ __forceinline__ T wind_drag_dhe(T gu, T u, T he, int lv, int k, const
 // its h cotangent again, G + 1/2 (the flux transpose's sum over the 6 edges
 // + their h_edge cotangents there, wind_drag_dhe), and stores it through
 // `out(p, t, s, kl)`: the body's sum and this one in one order, so that no
-// cotangent of G's size rounds the forcing's terms twice. `prim` and `cot`
+// cotangent of G's size rounds the forcing's terms twice. With kAdd (the
+// forced tracer arms, whose body adds the tracers' terms to dh) it adds
+// 1/2 the h_edge cotangents to the stored value instead. `prim` and `cot`
 // are the window's primal and (folded) cotangent chunks; `site(t)` the
 // window site of t, or -1 off the lattice.
-template <typename T, typename Site, typename Out>
+template <bool kAdd, typename T, typename Site, typename Out>
 __device__ __forceinline__ void dh_pass(const T* prim, const T* cot, const AdjTaps<T>& tp,
                                         const ForcingSmem<T>& fs, int n, Site site, Out out,
                                         int W, int kc, int k0, int kr, T dt, T dt_div,
@@ -224,19 +226,20 @@ __device__ __forceinline__ void dh_pass(const T* prim, const T* cot, const AdjTa
 #pragma unroll
       for (int f = 0; f < 3; ++f) {
         const int ch = 2 * f + p, us = tp.us[hex::self_u(ch)];
-        flux += v[us] * (dt_div * (g[tp.hs[hex::nb_h(ch)]] - Gc));
+        if (!kAdd) flux += v[us] * (dt_div * (g[tp.hs[hex::nb_h(ch)]] - Gc));
         dhe += wind_drag_dhe(g[us], v[us], T(0.5) * (v[tp.hs[hex::nb_h(ch)]] + hc), lv[f],
                              k0 + kl, fs.wind + es[f], fc, dt);
       }
 #pragma unroll
       for (int x = 3 * p; x < 3 * p + 3; ++x) {
         const int us = tp.us[hex::inc_u(x)];
-        flux += v[us] * (dt_div * (Gc - g[tp.hs[hex::inc_self_h(x)]]));
+        if (!kAdd) flux += v[us] * (dt_div * (Gc - g[tp.hs[hex::inc_self_h(x)]]));
         dhe += wind_drag_dhe(g[us], v[us],
                              T(0.5) * (v[tp.hs[hex::inc_nb_h(x)]] + v[tp.hs[hex::inc_self_h(x)]]),
                              lv[x - 3 * p + 3], k0 + kl, fs.wind + es[x - 3 * p + 3], fc, dt);
       }
-      out(p, t, s, kl) = Gc + T(0.5) * (flux + dhe);
+      T& o = out(p, t, s, kl);
+      o = kAdd ? o + T(0.5) * dhe : Gc + T(0.5) * (flux + dhe);
     }
   }
 }
@@ -400,13 +403,15 @@ __device__ __forceinline__ void tracer_edge_adjoint(T F, T he, T tn, T to, T dg,
 // the plain reverse forms them (a cell's G or a times its divergence, in
 // the forward's order), each term in T and their sum in double. `live` and
 // `inc_live` are the site's and its incoming edges' live bits (masked
-// arm).
+// arm). Without `inc_flux` trX leaves out the incoming edges' u dF: the
+// nonlinear reverse adds the tracers' dF to its stored flux cotangent on a
+// ring around the tile (nl_adjoint.cuh), where the incoming edges read it.
 template <typename T, bool kMasked, typename Store>
 __device__ __forceinline__ void tracer_adjoint(const T* P, const T* C, int pk,
                                                const AdjTaps<T>& tp, const AdjTracers<T>& at,
                                                unsigned live, unsigned inc_live, T dt_div,
                                                T s_div, T inv_dc, T* trF, T* trX, T* trY,
-                                               double* dd, Store store) {
+                                               double* dd, Store store, bool inc_flux = true) {
   T h[hex_adj::kG], u[hex_adj::kU];
 #pragma unroll
   for (int x = 0; x < hex_adj::kG; ++x) h[x] = P[tp.hs[x]];
@@ -467,7 +472,7 @@ __device__ __forceinline__ void tracer_adjoint(const T* P, const T* C, int pk,
         T dF, dtn, dto, dhe, g;
         tracer_edge_adjoint(ue * he, he, c[nb], c[ow], dt_div * (a[nb] - a[ow]), on, at,
                             inv_dc, &dF, &dtn, &dto, &dhe, &g);
-        trX[p] += ue * dF + dhe;
+        trX[p] += inc_flux ? ue * dF + dhe : dhe;
         d += dtn;
         total = total - g;
       }
@@ -676,19 +681,20 @@ __device__ __forceinline__ void load_strat_rows(const StratAdjSmem<T>& sm, const
 // The stratified arm's pass, after the body has stored the tile's
 // cotangent and its S chunk, behind a cluster barrier (every rank's S
 // visible), and before a cluster barrier that keeps every rank's shared
-// memory alive until the last read. `h` is the window's primal h chunk
-// [2][W][kc]; the tile's site t (rt x ct, ct columns a row) sits at window
-// site (hm + t / ct) * Wi + hi + t % ct; `dh(p, t, kl)` returns the stored
-// h cotangent of cell (t, p) at level k0 + kl, or null off the lattice;
-// `acc` is the tile's accumulator. Adds the h @ W part of d(dt) to *share.
-template <typename T, typename Dh>
+// memory alive until the last read. `h(p, r, c, kl)` is the primal h of the
+// tile's cell (row r, column c, parity p) at level k0 + kl (0 off the
+// lattice): the window's chunk (window_h), or for the nonlinear reverse,
+// which holds one slice at a time, device memory; the tile's site t is
+// (t / ct, t % ct); `dh(p, t, kl)` returns the stored h cotangent of cell
+// (t, p) at level k0 + kl, or null off the lattice; `acc` is the tile's
+// accumulator. Adds the h @ W part of d(dt) to *share.
+template <typename T, typename Hv, typename Dh>
 __device__ __forceinline__ void strat_adjoint_pass(const StratAdjSmem<T>& sm,
-                                                   cg::cluster_group& cluster, const T* h,
+                                                   cg::cluster_group& cluster, Hv h,
                                                    double* acc, bool first, Dh dh, int core,
-                                                   int ct, int hm, int hi, int Wi, int W,
-                                                   int kc_log2, int k0, int kr, int K,
+                                                   int ct, int kc_log2, int k0, int kr, int K,
                                                    int n_ranks, T dt, T inv_dc, double* share) {
-  const int kc = 1 << kc_log2, pk = W << kc_log2;
+  const int kc = 1 << kc_log2;
   const T dt_inv_dc = dt * inv_dc;
   // dh += (dt / dc) sum_k W[k0 + kl][k] S[k], k in rank order: a thread per
   // (cell, level), neighbouring threads on neighbouring levels
@@ -719,21 +725,30 @@ __device__ __forceinline__ void strat_adjoint_pass(const StratAdjSmem<T>& sm,
     const T* src = cluster.map_shared_rank(sm.sl, k >> kc_log2) + (k & (kc - 1));
     double sum = 0.0;
     for (int p = 0; p < 2; ++p) {
-      const T* hp = h + p * pk + kl;
       const T* sp = src + ((p * core) << kc_log2);
       int t = 0;
-      for (int r = 0; t < core; ++r) {
-        const T* hr = hp + (((hm + r) * Wi + hi) << kc_log2);
+      for (int r = 0; t < core; ++r)
         for (int c = 0; c < ct; ++c, ++t)
-          sum = fma(static_cast<double>(hr[c << kc_log2]), static_cast<double>(sp[t << kc_log2]),
+          sum = fma(static_cast<double>(h(p, r, c, kl)), static_cast<double>(sp[t << kc_log2]),
                     sum);
-      }
     }
     double* a = acc + static_cast<size_t>(k) * K + k0 + kl;
     *a = first ? s_dw * sum : *a + s_dw * sum;
     *share += s_dd * static_cast<double>(sm.wt[e]) * sum;
   }
 }
+
+// strat_adjoint_pass's h from a window's primal h chunk [2][W][kc] (the
+// linear reverses'), the tile's site (r, c) at window site (hm + r) * Wi +
+// hi + c.
+template <typename T>
+struct WindowH {
+  const T* h;
+  int hm, hi, Wi, pk, kc_log2;
+  __device__ T operator()(int p, int r, int c, int kl) const {
+    return h[p * pk + (((hm + r) * Wi + hi + c) << kc_log2) + kl];
+  }
+};
 
 // d(W)[l][k] += the sum over the tiles of acc[tile][k][l], in tile order
 // (a thread per entry). A template, as ddt_reduce_kernel, so that a source

@@ -1,35 +1,41 @@
-// The nonlinear reverse kernel (nl_adjoint.cuh): its instantiations (f32,
-// f64; periodic, masked), its launch loop and its C entries. It serves the
-// reverse of kernel 3 (_adjoint_segment_kernel) and, at q = 1, of kernel 4
-// (_tiled_adjoint_kernel): kernels/adjoint_step.nl_adjoint_rollout.
+// The nonlinear reverse kernel's (nl_adjoint.cuh) launch loop and C entries.
+// It serves the reverse of kernel 3 (_adjoint_segment_kernel) and, at q = 1,
+// of kernel 4 (_tiled_adjoint_kernel): kernels/adjoint_step.nl_adjoint_rollout.
+// The kernel's 32 arms (f32, f64; periodic, masked; forced, tracers,
+// stratified in any combination) are instantiated in
+// nl_adjoint_{f32,f64}{,_forced}.cu, 8 each, which compile in parallel.
 
 #include "nl_adjoint.cuh"
+
+namespace lattice {
+MOT_NL_ADJ_ARMS(MOT_NL_ADJ_EXTERN, float, false)
+MOT_NL_ADJ_ARMS(MOT_NL_ADJ_EXTERN, float, true)
+MOT_NL_ADJ_ARMS(MOT_NL_ADJ_EXTERN, double, false)
+MOT_NL_ADJ_ARMS(MOT_NL_ADJ_EXTERN, double, true)
+}  // namespace lattice
 
 namespace {
 
 using namespace lattice;
 
+template <typename T>
+using NlAdjLaunch = int (*)(const NlAdjPlan<T>&, cudaStream_t);
+
+// The launch of the plan's arm: masked or not, and any combination of
+// forced, tracers and stratified.
 template <typename T, bool kMasked>
-int prepare(int max_smem) {
-  static bool done = false;
-  if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      nl_adjoint_kernel<T, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-  done = e == cudaSuccess;
-  return static_cast<int>(e);
+NlAdjLaunch<T> arm_of(bool forced, bool tracers, bool strat) {
+  static const NlAdjLaunch<T> arms[8] = {
+      nl_adj_launch<T, kMasked, false, false, false>, nl_adj_launch<T, kMasked, false, false, true>,
+      nl_adj_launch<T, kMasked, false, true, false>,  nl_adj_launch<T, kMasked, false, true, true>,
+      nl_adj_launch<T, kMasked, true, false, false>,  nl_adj_launch<T, kMasked, true, false, true>,
+      nl_adj_launch<T, kMasked, true, true, false>,   nl_adj_launch<T, kMasked, true, true, true>};
+  return arms[(forced ? 4 : 0) + (tracers ? 2 : 0) + (strat ? 1 : 0)];
 }
 
-// One call's launch set-up.
 template <typename T>
-struct NlAdjPlan {
-  NlAdjArgs<T> a;
-  NlAdjTaps<T> tp;
-  int n_ranks, n_tiles, max_smem;
-  size_t smem;
-};
-
-template <typename T>
-int make_plan(NlAdjPlan<T>* pl, const T* fv, int n_fv, const int* live, const int* table,
+int make_plan(NlAdjPlan<T>* pl, const T* fv, int n_fv, const int* live, const ForcingArgs<T>& fc,
+              T* dwind, const AdjTracers<T>& at, const AdjStrat<T>& st, const int* table,
               const double* weights, const int* adj, const double* adj_w, const int* vc,
               const double* vc_w, const int* ev, double dt, double inv_dc, double s_div,
               double s_ke, double s_curl, double ds_scale, double dke_scale, int ny2, int nx,
@@ -39,6 +45,9 @@ int make_plan(NlAdjPlan<T>* pl, const T* fv, int n_fv, const int* live, const in
   if (rt < 1 || ct < 1 || rt > ny2 || ct > nx || (n_fv != 4 && n_fv != 20) ||
       (live != nullptr) != (n_fv == 20))
     return cudaErrorInvalidValue;
+  // the tracer arm: at least one tracer, the cell mask with the live bits
+  if (at.tr != nullptr && (at.n < 1 || (live == nullptr) != (at.cmask == nullptr)))
+    return cudaErrorInvalidValue;
   const int kc = step_chunk(k);
   if (ks < 1 || ks > kc || (ks & (ks - 1)) || ks > 16) return cudaErrorInvalidValue;
   pl->n_ranks = (k + kc - 1) / kc;
@@ -46,50 +55,61 @@ int make_plan(NlAdjPlan<T>* pl, const T* fv, int n_fv, const int* live, const in
     return kNotHexTable;
   int e = opt_in_smem(&pl->max_smem);
   if (e != 0) return e;
-  pl->smem = nl_adjoint_smem_bytes(rt, ct, ks, sizeof(T));
+  pl->smem = nl_adjoint_smem_bytes(rt, ct, ks, sizeof(T), at.tr != nullptr ? at.n : 0, kc,
+                                   st.w != nullptr ? k : 0);
   if (pl->smem > static_cast<size_t>(pl->max_smem)) return cudaErrorInvalidValue;
   const int n_ti = (nx + ct - 1) / ct;
   pl->n_tiles = ((ny2 + rt - 1) / rt) * n_ti;
   const bool vec_ok = vec && (ks * static_cast<int>(sizeof(T))) % 16 == 0;
   pl->a = NlAdjArgs<T>{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, fv, live, nullptr,
-                       nullptr, nullptr, nullptr, T(dt), T(inv_dc), T(s_div), T(s_ke),
-                       T(s_curl), T(ds_scale), T(dke_scale), ny2, nx, k, rt, ct, n_fv,
+                       nullptr, nullptr, nullptr, fc, dwind, at, st, T(dt), T(inv_dc), T(s_div),
+                       T(s_ke), T(s_curl), T(ds_scale), T(dke_scale), ny2, nx, k, rt, ct, n_fv,
                        log2_exact(kc), log2_exact(ks),
-                       vec_ok ? log2_exact(ks * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
+                       vec_ok ? log2_exact(ks * static_cast<int>(sizeof(T)) / 16) : -1, n_ti,
+                       static_cast<long long>(n_steps) * pl->n_tiles * pl->n_ranks};
   return 0;
 }
 
 // n_steps reverse steps, as adjoint_step.cu's adjoint_rollout: the primal
 // state of step j in slot j of the stacks, the cotangent at step n_steps in
 // `g_in` (left as it is), the one at step 0 out in `g_out` through `g_tmp`;
-// `part` holds n_steps * tiles * ranks doubles; d(dt) is added to ddt[0].
+// `part` holds n_steps * tiles * ranks doubles (kShares times as many for
+// the forced arm); d(dt) is added to ddt[0], the forced arm's d(wind) to
+// dwind and d(r_lin, Cd, lambda) to dcoef[0 .. 2]; the tracer arm (at.tr
+// the tracer stack) and the stratified arm (st.w the W; d(W) added to
+// dstrat) as adjoint_rollout's.
 template <typename T>
-int nl_adjoint_rollout(const T* fv, int n_fv, const int* live, const int* table,
-                       const double* weights, const int* adj, const double* adj_w,
-                       const int* vc, const double* vc_w, const int* ev, const T* ssh_st,
-                       const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,
-                       const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp,
-                       T* gu_tmp, double* part, double* ddt, double dt, double inv_dc,
-                       double s_div, double s_ke, double s_curl, double ds_scale,
-                       double dke_scale, int ny2, int nx, int k, int n_steps, int n_terms,
-                       int rt, int ct, int ks, cudaStream_t stream) {
+int nl_adjoint_rollout(const T* fv, int n_fv, const int* live, const ForcingArgs<T>& fc,
+                       T* dwind, double* dcoef, AdjTracers<T> at, T* gtr_out, T* gtr_tmp,
+                       const T* h_end, const T* tr_end, AdjStrat<T> st, double* dstrat,
+                       const int* table, const double* weights, const int* adj,
+                       const double* adj_w, const int* vc, const double* vc_w, const int* ev,
+                       const T* ssh_st, const T* h_st, const T* u_st, const T* gs_in,
+                       const T* gh_in, const T* gu_in, T* gs_out, T* gh_out, T* gu_out,
+                       T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part, double* ddt, double dt,
+                       double inv_dc, double s_div, double s_ke, double s_curl, double ds_scale,
+                       double dke_scale, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
+                       int ct, int ks, cudaStream_t stream) {
   const int kc = step_chunk(k);
+  const bool tracers = at.tr != nullptr;
   const bool vec = vector_loads(k, kc, sizeof(T), h_st, u_st) &&
                    vector_loads(k, kc, sizeof(T), gh_in, gu_in) &&
                    vector_loads(k, kc, sizeof(T), gh_out, gu_out) &&
-                   vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp);
+                   vector_loads(k, kc, sizeof(T), gh_tmp, gu_tmp) &&
+                   (!tracers || (vector_loads(k, kc, sizeof(T), at.tr, at.gtr) &&
+                                 vector_loads(k, kc, sizeof(T), gtr_out, gtr_tmp)));
   NlAdjPlan<T> pl;
-  int err = make_plan<T>(&pl, fv, n_fv, live, table, weights, adj, adj_w, vc, vc_w, ev, dt,
-                         inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale, ny2, nx, k, n_steps,
-                         n_terms, rt, ct, ks, vec);
+  int err = make_plan<T>(&pl, fv, n_fv, live, fc, dwind, at, st, table, weights, adj, adj_w, vc,
+                         vc_w, ev, dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale, ny2, nx,
+                         k, n_steps, n_terms, rt, ct, ks, vec);
   if (err != 0) return err;
-  const bool masked = live != nullptr;
-  if ((err = masked ? prepare<T, true>(pl.max_smem) : prepare<T, false>(pl.max_smem)) != 0)
-    return err;
+  const bool forced = fc.wind != nullptr, strat = st.w != nullptr;
+  const NlAdjLaunch<T> launch = live != nullptr ? arm_of<T, true>(forced, tracers, strat)
+                                                : arm_of<T, false>(forced, tracers, strat);
   const size_t cells = 2ULL * ny2 * nx;
-  const size_t hs = cells * k, us = 3 * cells * k;
+  const size_t hs = cells * k, us = 3 * cells * k, trs = tracers ? at.n * hs : 0;
   const size_t shares = static_cast<size_t>(pl.n_tiles) * pl.n_ranks;
-  const T *gs = gs_in, *gh = gh_in, *gu = gu_in;
+  const T *gs = gs_in, *gh = gh_in, *gu = gu_in, *gt = at.gtr;
   for (int s = 0; s < n_steps; ++s) {
     const size_t j = n_steps - 1 - s;
     const bool to_out = ((n_steps - 1 - s) & 1) == 0;
@@ -100,17 +120,22 @@ int nl_adjoint_rollout(const T* fv, int n_fv, const int* live, const int* table,
     a.dh = to_out ? gh_out : gh_tmp;
     a.du = to_out ? gu_out : gu_tmp;
     a.ddt_part = part + s * shares;
-    cudaLaunchAttribute attr[2];
-    const cudaLaunchConfig_t cfg = step_config(pl.n_ranks, pl.n_tiles, pl.smem, stream, attr);
-    cudaError_t le = masked ? cudaLaunchKernelEx(&cfg, nl_adjoint_kernel<T, true>, pl.a, pl.tp)
-                            : cudaLaunchKernelEx(&cfg, nl_adjoint_kernel<T, false>, pl.a, pl.tp);
-    if (le == cudaSuccess) le = cudaGetLastError();
-    if (le != cudaSuccess) return static_cast<int>(le);
+    a.st.first = s == 0;
+    if (tracers) {
+      const bool last = static_cast<int>(j) + 1 == n_steps;
+      a.at.tr = at.tr + j * trs, a.at.gtr = gt;
+      a.at.h_next = last ? h_end : h_st + (j + 1) * hs;
+      a.at.tr_next = last ? tr_end : at.tr + (j + 1) * trs;
+      a.at.dtr = to_out ? gtr_out : gtr_tmp;
+      gt = a.at.dtr;
+    }
+    if ((err = launch(pl, stream)) != 0) return err;
     gs = a.ds, gh = a.dh, gu = a.du;
   }
   if (n_steps == 0) return 0;
-  return reduce_ddt(part, static_cast<long long>(n_steps) * static_cast<long long>(shares), ddt,
-                    stream);
+  err = reduce_shares(part, pl.a.n_shares, ddt, forced ? dcoef : nullptr, stream);
+  if (err == 0 && strat) err = strat_reduce(st.acc, pl.n_tiles, k, dstrat, stream);
+  return err;
 }
 
 }  // namespace
@@ -123,40 +148,43 @@ int nl_adjoint_rollout(const T* fv, int n_fv, const int* live, const int* table,
 // (kernels/fe_step.vertex_tables); rt x ct is the tile (it need not divide
 // the lattice), ks the levels per slice; `fv` holds the vertex constants
 // (n_fv = 4 planes periodic, 20 with live bits); ds_scale = g dt / dc and
-// dke_scale = dt / dc.
+// dke_scale = dt / dc. A null `wind` runs the unforced arm, any other the
+// forced one with `lvl`, the coefficients and the accumulators `dwind`
+// (6, ny2, nx) and `dcoef` (3 doubles); a null `tr_st` the tracer-free arm,
+// any other the tracer arm with n_tr tracers (the tracer stack, the
+// cotangent planes in, out and scratch, the state after the stack's last
+// slot `h_end`, `tr_end`, the live-cell mask `cmask`, kappa and upwind); a
+// null `strat_w` the unstratified arm, any other (W, (k, k) row-major) the
+// stratified one with the tiles' accumulators `dw_acc` (tiles * k * k
+// doubles) and d(W) `dstrat` (k * k doubles, added to); as adjoint_step.cu's
+// entry takes them, and in any combination.
 #define MOT_NL_ADJOINT_ENTRY(T, SUFFIX)                                                        \
   extern "C" int mot_nl_adjoint_##SUFFIX(                                                      \
-      const T* fv, int n_fv, const int* live, const int* table, const double* weights,         \
-      const int* adj, const double* adj_w, const int* vc, const double* vc_w, const int* ev,   \
-      const T* ssh_st, const T* h_st, const T* u_st, const T* gs_in, const T* gh_in,           \
-      const T* gu_in, T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp,        \
-      double* part, double* ddt, double dt, double inv_dc, double s_div, double s_ke,          \
-      double s_curl, double ds_scale, double dke_scale, int ny2, int nx, int k, int n_steps,   \
-      int n_terms, int rt, int ct, int ks, void* stream) {                                     \
-    return nl_adjoint_rollout<T>(fv, n_fv, live, table, weights, adj, adj_w, vc, vc_w, ev,     \
-                                 ssh_st, h_st, u_st, gs_in, gh_in, gu_in, gs_out, gh_out,      \
-                                 gu_out, gs_tmp, gh_tmp, gu_tmp, part, ddt, dt, inv_dc, s_div, \
-                                 s_ke, s_curl, ds_scale, dke_scale, ny2, nx, k, n_steps,       \
-                                 n_terms, rt, ct, ks,                                          \
+      const T* fv, int n_fv, const int* live, const T* wind, const int* lvl, T* dwind,         \
+      double* dcoef, const int* table, const double* weights, const int* adj,                 \
+      const double* adj_w, const int* vc, const double* vc_w, const int* ev, const T* ssh_st,  \
+      const T* h_st, const T* u_st, const T* gs_in, const T* gh_in, const T* gu_in,            \
+      T* gs_out, T* gh_out, T* gu_out, T* gs_tmp, T* gh_tmp, T* gu_tmp, double* part,          \
+      double* ddt, const T* tr_st, const T* gtr_in, T* gtr_out, T* gtr_tmp, const T* h_end,   \
+      const T* tr_end, const T* cmask, const T* strat_w, double* dw_acc, double* dstrat,      \
+      double dt, double inv_dc, double s_div, double s_ke, double s_curl, double ds_scale,     \
+      double dke_scale, double dlin, double dquad, double rayl, double kappa, double upwind,   \
+      int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms, int rt, \
+      int ct, int ks, int n_tr, void* stream) {                                                \
+    const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                             \
+                            static_cast<unsigned>(lvl_ranks),                                  \
+                            static_cast<unsigned>(wind_ranks)};                                \
+    const AdjTracers<T> at{tr_st, gtr_in, nullptr, nullptr, cmask, nullptr, T(kappa),          \
+                           T(0.5 * upwind), n_tr};                                             \
+    const AdjStrat<T> st{strat_w, dw_acc, 1};                                                  \
+    return nl_adjoint_rollout<T>(fv, n_fv, live, fc, dwind, dcoef, at, gtr_out, gtr_tmp,       \
+                                 h_end, tr_end, st, dstrat, table, weights, adj, adj_w, vc,    \
+                                 vc_w, ev, ssh_st, h_st, u_st, gs_in, gh_in, gu_in, gs_out,    \
+                                 gh_out, gu_out, gs_tmp, gh_tmp, gu_tmp, part, ddt, dt,        \
+                                 inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale, ny2, nx, k, \
+                                 n_steps, n_terms, rt, ct, ks,                                 \
                                  static_cast<cudaStream_t>(stream));                           \
   }
 
 MOT_NL_ADJOINT_ENTRY(float, f32)
 MOT_NL_ADJOINT_ENTRY(double, f64)
-
-// The launch of an f32 plan: out[0] the clusters (one per tile), out[1] the
-// blocks per SM (CUDA's occupancy calculator), out[2] one block's shared
-// memory in bytes. Returns 0 or the CUDA error.
-extern "C" int mot_nl_adjoint_plan(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
-  int max_smem = 0;
-  int e = opt_in_smem(&max_smem);
-  if (e != 0) return e;
-  const size_t smem = nl_adjoint_smem_bytes(rt, ct, ks, sizeof(float));
-  if (smem > static_cast<size_t>(max_smem) || ks < 1 || ks > step_chunk(k))
-    return cudaErrorInvalidValue;
-  if ((e = prepare<float, false>(max_smem)) != 0) return e;
-  out[0] = ((ny2 + rt - 1) / rt) * ((nx + ct - 1) / ct);
-  out[2] = static_cast<int>(smem);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], nl_adjoint_kernel<float, false>, kStepThreads, smem));
-}

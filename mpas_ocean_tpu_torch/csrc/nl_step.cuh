@@ -858,26 +858,32 @@ int nl_steps(const T* rts, const T* fv, int n_fv, const int* live, const Forcing
 }
 
 // n_steps nonlinear steps through a stack of states: slot s + 1 = step(slot
-// s), the launches nl_steps makes (the same kernel and plan, unforced,
-// tracer-free and unstratified), so a stack refilled from a state holds
-// nl_steps' states bit for bit.
+// s), the launches nl_steps makes (the same kernel and plan, with the same
+// forced, tracer and stratified arms; tr.tr the tracer stack (S, 2 nT, ny2,
+// nx, K)), so a stack refilled from a state holds nl_steps' states bit for
+// bit.
 template <typename T, bool FB>
-int nl_stack(const T* rts, const T* fv, int n_fv, const int* live, const int* table,
+int nl_stack(const T* rts, const T* fv, int n_fv, const int* live, const ForcingArgs<T>& fc,
+             const TracerArgs<T>& tr, const T* strat_w, const int* table,
              const double* weights, const int* vc, const double* vc_w, const int* ev, T* ssh,
              T* h, T* u, double dt, double inv_dc, double s_div, double s_ke, double s_curl,
              int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct, int ks,
              cudaStream_t stream) {
+  const int kc = step_chunk(k);
   NlPlan<T> pl;
-  int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, ForcingArgs<T>{}, TracerArgs<T>{},
-                            nullptr, table, weights, vc, vc_w, ev, dt, inv_dc, s_div, s_ke,
-                            s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks,
-                            vector_loads(k, step_chunk(k), sizeof(T), h, u));
+  int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, fc, tr, strat_w, table, weights, vc,
+                            vc_w, ev, dt, inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps,
+                            n_terms, rt, ct, ks,
+                            vector_loads(k, kc, sizeof(T), h, u) &&
+                                (tr.tr == nullptr || vector_loads(k, kc, sizeof(T), tr.tr, tr.tr)));
   if (err != 0) return err;
   const size_t cells = 2ULL * ny2 * nx;
-  const size_t hs = cells * k, us = 3 * cells * k;
+  const size_t hs = cells * k, us = 3 * cells * k, trs = tr.tr != nullptr ? tr.n * hs : 0;
+  T* t = const_cast<T*>(tr.tr);
   for (int s = 0; s < n_steps; ++s) {
     err = nl_launch<T, FB>(&pl, ssh + s * cells, h + s * hs, u + s * us, ssh + (s + 1) * cells,
-                           h + (s + 1) * hs, u + (s + 1) * us, stream);
+                           h + (s + 1) * hs, u + (s + 1) * us, stream,
+                           t ? t + s * trs : nullptr, t ? t + (s + 1) * trs : nullptr);
     if (err != 0) return err;
   }
   return 0;
@@ -921,8 +927,9 @@ int nl_plan_query(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
 // `strat_w` the unstratified arm, any other (W, (k, k) row-major) the
 // stratified one; the three in any combination. The stack entry (the
 // gradient's rebuild, nl_stack): slot s + 1 = step(slot s) for s < n_steps,
-// the plain arm. Each returns 0, kNotHexTable for a table that is not the
-// hex lattice's, or the CUDA error.
+// the same arms, the tracer arm's planes in the tracer stack `tr`
+// (S, 2 n_tr, ny2, nx, k). Each returns 0, kNotHexTable for a table that is
+// not the hex lattice's, or the CUDA error.
 #define MOT_NL_ENTRIES(T, SUFFIX, ARM, FB)                                                    \
   extern "C" int mot_##ARM##_nl_steps_##SUFFIX(                                               \
       const T* rts, const T* fv, int n_fv, const int* live, const T* wind, const int* lvl,    \
@@ -946,12 +953,19 @@ int nl_plan_query(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
   }
 #define MOT_NL_STACK_ENTRY(T, SUFFIX, ARM, FB)                                                \
   extern "C" int mot_##ARM##_nl_stack_##SUFFIX(                                               \
-      const T* rts, const T* fv, int n_fv, const int* live, const int* table,                 \
-      const double* weights, const int* vc, const double* vc_w, const int* ev, T* ssh, T* h,  \
-      T* u, double dt, double inv_dc, double s_div, double s_ke, double s_curl, int ny2,      \
-      int nx, int k, int n_steps, int n_terms, int rt, int ct, int ks, void* stream) {        \
-    return lattice::nl_stack<T, FB>(rts, fv, n_fv, live, table, weights, vc, vc_w, ev, ssh,   \
-                                    h, u, dt, inv_dc, s_div, s_ke, s_curl, ny2, nx, k,        \
-                                    n_steps, n_terms, rt, ct, ks,                             \
+      const T* rts, const T* fv, int n_fv, const int* live, const T* wind, const int* lvl,    \
+      const int* table, const double* weights, const int* vc, const double* vc_w,             \
+      const int* ev, T* ssh, T* h, T* u, T* tr, const T* cmask, const T* strat_w, double dt,  \
+      double inv_dc, double s_div, double s_ke, double s_curl, double kappa, double upwind,   \
+      double dlin, double dquad, double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, \
+      int k, int n_steps, int n_terms, int rt, int ct, int ks, int n_tr, void* stream) {      \
+    const lattice::ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                   \
+                                     static_cast<unsigned>(lvl_ranks),                        \
+                                     static_cast<unsigned>(wind_ranks)};                      \
+    const lattice::TracerArgs<T> trs{tr, nullptr, cmask, T(kappa), T(0.5 * upwind), n_tr,    \
+                                     {}, {}};                                                 \
+    return lattice::nl_stack<T, FB>(rts, fv, n_fv, live, fc, trs, strat_w, table, weights,    \
+                                    vc, vc_w, ev, ssh, h, u, dt, inv_dc, s_div, s_ke, s_curl, \
+                                    ny2, nx, k, n_steps, n_terms, rt, ct, ks,                 \
                                     static_cast<cudaStream_t>(stream));                       \
   }

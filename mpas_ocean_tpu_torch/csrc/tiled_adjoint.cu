@@ -82,8 +82,8 @@
 // steps are apart by barriers), and its blocks' shares of d(r_lin), d(Cd)
 // and d(lambda) in double beside d(dt).
 //
-// The tracer arm (kTracers, chosen by a non-null tracer pointer; q = 1 and
-// unforced, the JAX router's only q; the tracer-free arms keep their code)
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; q = 1, the
+// JAX router's only q; the tracer-free arms keep their code)
 // is adjoint_step.cu's: the tracer planes staged after the state's in the
 // primal and the cotangent chunks, a and the h' feedback folded once per
 // window from h' and T' of the superstep's end state (adjoint_window.cuh,
@@ -91,13 +91,17 @@
 // (tracer_adjoint), one block per SM as there. A tracer state at q > 1 is
 // refused by the entry.
 //
-// The stratified arm (kStrat, chosen by a non-null W; q = 1, unforced and
-// tracer-free, the JAX router's only q; the unstratified arms keep their
-// code) is adjoint_step.cu's: the body stores its S chunk at the core's
+// The stratified arm (kStrat, chosen by a non-null W; q = 1, the JAX
+// router's only q; the unstratified arms keep their code) is
+// adjoint_step.cu's: the body stores its S chunk at the core's
 // cells, and after a cluster barrier the pass of adjoint_window.cuh
 // (strat_adjoint_pass) adds W dPhi to the stored dh, forms the tile's d(W)
 // rows in double into its accumulator and d(dt)'s h @ W part. A stratified
 // q > 1 is refused by the entry.
+//
+// At q = 1 the forced, tracer and stratified arms compose in any
+// combination as in adjoint_step.cu (16 instantiations per dtype, 4 more at
+// q > 1, forced or not; tiled_adjoint_f64.cu holds the f64 ones).
 //
 // What bounds it: a reverse step reads the primal state and the end
 // cotangent and writes the start cotangent, three state passes, 94 us at
@@ -208,14 +212,11 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster, T* part, T* d
 // kMulti: q > 1. The q = 1 instantiation compiles without the recompute and
 // the exchanges between steps, which cost one body for all q 11% at q = 1
 // (PERF.md). kMasked: the masked arm. kForced: the forced arm. kTracers: the
-// tracer arm (q = 1, unforced). kStrat: the stratified arm (q = 1, unforced,
-// tracer-free).
+// tracer arm (q = 1). kStrat: the stratified arm (q = 1).
 template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     tiled_adjoint_kernel(const TiledArgs<T> a, const AdjTaps<T> tp, const StepTaps<T> fw) {
-  static_assert(!kTracers || (!kMulti && !kForced), "the tracer arm runs q = 1, unforced");
-  static_assert(!kStrat || (!kMulti && !kForced && !kTracers),
-                "the stratified arm runs q = 1, unforced, tracer-free");
+  static_assert(!(kTracers || kStrat) || !kMulti, "the tracer and stratified arms run q = 1");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -245,7 +246,8 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   int* gsite = reinterpret_cast<int*>(recv + n_ranks * 2 * core);  // [W]: lattice site
   int* live_s = gsite + W;                            // [W]: the masked arm's live bits
   const ForcingSmem<T> fsm(live_s + W, W, 0);        // the forced arm's winds and levels
-  const StratAdjSmem<T> ssm(live_s + W, core, kc);   // the stratified arm's S and W rows
+  // the stratified arm's S and W rows, after the forced arm's
+  const StratAdjSmem<T> ssm(kForced ? static_cast<void*>(fsm.lvl + 6 * W) : live_s + W, core, kc);
 
   cluster_arrive_relaxed();
   allow_next_grid();
@@ -564,7 +566,7 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
           },
           [&](int ch, int t) { return a.dwind + ch * plane + core_site(t); },
           W, kc, k0, kr, a.dt, a.fc, &share, &s_lin, &s_quad);
-      dh_pass(P, Cb, tp, fsm, rg.n, region_site,
+      dh_pass<kTracers>(P, Cb, tp, fsm, rg.n, region_site,
               [&](int p, int t, int s, int kl) -> T& {
                 return j > 0 ? Cn[p * pk + s * kc + kl]
                              : a.dh[(p * plane + core_site(t)) * K + k0 + kl];
@@ -586,12 +588,13 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     cluster.sync();
     const FastDiv by_ct(a.ct);
     strat_adjoint_pass(
-        ssm, cluster, prim, a.st.acc + static_cast<size_t>(tile) * K * K, a.st.first != 0,
+        ssm, cluster, WindowH<T>{prim, a.hm, a.hi, Wi, pk, a.kp_log2},
+        a.st.acc + static_cast<size_t>(tile) * K * K, a.st.first != 0,
         [&](int p, int t, int kl) -> T* {
           const int r = by_ct.div(t), c = by_ct.mod(t, r);
           return a.dh + (p * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl;
         },
-        core, a.ct, a.hm, a.hi, Wi, W, a.kp_log2, k0, kr, K, n_ranks, a.dt, a.inv_dc, &share);
+        core, a.ct, a.kp_log2, k0, kr, K, n_ranks, a.dt, a.inv_dc, &share);
   }
   // the forced arm's Rayleigh part of d(dt), -lambda sum gu u
   if (kForced) share -= static_cast<double>(a.fc.rayl) * s_rayl;
@@ -631,8 +634,7 @@ int prepare(int max_smem) {
 }
 
 // The kernel of a plan, and its attribute: q > 1 or not, masked or not,
-// forced or not, with tracers (q = 1, unforced) or not, stratified (q = 1,
-// unforced, tracer-free) or not.
+// forced or not, and at q = 1 with tracers or not and stratified or not.
 template <typename T>
 using TiledKernel = void (*)(TiledArgs<T>, AdjTaps<T>, StepTaps<T>);
 template <typename T>
@@ -646,18 +648,21 @@ constexpr TiledArm<T> arm() {
   return {tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers, kStrat>,
           prepare<T, kMulti, kMasked, kForced, kTracers, kStrat>};
 }
+template <typename T, bool kMasked>
+TiledArm<T> arm_of(bool multi, bool forced, bool tracers, bool strat) {
+  if (multi)  // the entry checked: no tracers, unstratified
+    return forced ? arm<T, true, kMasked, true>() : arm<T, true, kMasked, false>();
+  static const TiledArm<T> arms[8] = {
+      arm<T, false, kMasked, false, false, false>(), arm<T, false, kMasked, false, false, true>(),
+      arm<T, false, kMasked, false, true, false>(),  arm<T, false, kMasked, false, true, true>(),
+      arm<T, false, kMasked, true, false, false>(),  arm<T, false, kMasked, true, false, true>(),
+      arm<T, false, kMasked, true, true, false>(),   arm<T, false, kMasked, true, true, true>()};
+  return arms[(forced ? 4 : 0) + (tracers ? 2 : 0) + (strat ? 1 : 0)];
+}
 template <typename T>
 TiledArm<T> arm_of(bool multi, bool masked, bool forced, bool tracers, bool strat) {
-  if (tracers)  // the entry checked q = 1 and unforced
-    return masked ? arm<T, false, true, false, true>() : arm<T, false, false, false, true>();
-  if (strat)  // the entry checked q = 1, unforced and tracer-free
-    return masked ? arm<T, false, true, false, false, true>()
-                  : arm<T, false, false, false, false, true>();
-  if (multi)
-    return masked ? (forced ? arm<T, true, true, true>() : arm<T, true, true, false>())
-                  : (forced ? arm<T, true, false, true>() : arm<T, true, false, false>());
-  return masked ? (forced ? arm<T, false, true, true>() : arm<T, false, true, false>())
-                : (forced ? arm<T, false, false, true>() : arm<T, false, false, false>());
+  return masked ? arm_of<T, true>(multi, forced, tracers, strat)
+                : arm_of<T, false>(multi, forced, tracers, strat);
 }
 
 // n_ss reverse supersteps through the stack's slots n_ss - 1 .. 0, from the
@@ -686,14 +691,13 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || kc < 1 || ny2 % rt || nx % ct)
     return cudaErrorInvalidValue;
-  // the tracer arm: q = 1, unforced, at least one tracer, the cell mask with the live bits
+  // the tracer arm: q = 1, at least one tracer, the cell mask with the live bits
   const bool tracers = at.tr != nullptr;
-  if (tracers && (q != 1 || fc.wind != nullptr || at.n < 1 ||
-                  (live == nullptr) != (at.cmask == nullptr)))
+  if (tracers && (q != 1 || at.n < 1 || (live == nullptr) != (at.cmask == nullptr)))
     return cudaErrorInvalidValue;
-  // the stratified arm: q = 1, unforced and tracer-free
+  // the stratified arm: q = 1
   const bool strat = st.w != nullptr;
-  if (strat && (q != 1 || fc.wind != nullptr || tracers)) return cudaErrorInvalidValue;
+  if (strat && q != 1) return cudaErrorInvalidValue;
   const int n_ranks = (k + kc - 1) / kc;  // no block without levels
   if (n_ranks > kMaxCluster) return cudaErrorInvalidValue;
   const int span = 2 * q - 1;
@@ -765,10 +769,10 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
 // masked one; a null `wind` the unforced arm, any other the forced one with
 // `lvl`, the coefficients, and the accumulators `dwind` (6, ny2, nx) and
 // `dcoef` (3 doubles); a null `tr_st` the tracer-free arm, any other the
-// tracer arm (q = 1, unforced) with its operands as adjoint_step.cu's entry
-// takes them; a null `strat_w` the unstratified arm, any other the
-// stratified one (q = 1, unforced, tracer-free) with `dw_acc` and `dstrat`
-// as adjoint_step.cu's entry takes them.
+// tracer arm (q = 1) with its operands as adjoint_step.cu's entry takes
+// them; a null `strat_w` the unstratified arm, any other the stratified one
+// (q = 1) with `dw_acc` and `dstrat` as adjoint_step.cu's entry takes them;
+// at q = 1 the forced, tracer and stratified arms in any combination.
 #define MOT_TILED_ADJOINT_ENTRY(T, SUFFIX)                                                    \
   extern "C" int mot_tiled_adjoint_##SUFFIX(                                                  \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -795,8 +799,12 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
                             n_terms, rt, ct, q, hm, hi, kc, static_cast<cudaStream_t>(stream)); \
   }
 
-MOT_TILED_ADJOINT_ENTRY(float, f32)
+// tiled_adjoint_f64.cu compiles this file with MOT_TILED_ADJOINT_F64 for the
+// f64 entry, so that the two dtypes' instantiations compile in parallel.
+#ifdef MOT_TILED_ADJOINT_F64
 MOT_TILED_ADJOINT_ENTRY(double, f64)
+#else
+MOT_TILED_ADJOINT_ENTRY(float, f32)
 
 // One block's dynamic shared memory (bytes) and the blocks one SM holds, for
 // an f32 plan with n_ranks blocks of kc levels per cluster, with n_tr
@@ -819,3 +827,4 @@ extern "C" int mot_tiled_adjoint_occupancy(int rt, int ct, int q, int hm, int hi
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[1], arm.kernel, kStepThreads, smem));
 }
+#endif  // MOT_TILED_ADJOINT_F64

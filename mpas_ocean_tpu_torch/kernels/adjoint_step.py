@@ -23,12 +23,17 @@ adjoint-step launches (one per reverse step), ``forced_launches`` those of
 the forced arm, ``tracer_launches`` those of the tracer arm and
 ``strat_launches`` those of the stratified arm.
 
+The forced, tracer and stratified arms compose in any combination, in
+both kernels.
+
 ``nl_adjoint_rollout`` does the same for the nonlinear core, one launch of
 the nonlinear reverse kernel per reverse step over tiles of
-``nl_adjoint_plan``'s; it also serves the tiled route's nonlinear reverse at
+``nl_adjoint_plan``'s, with the same ``forcing=``, ``tracers=`` and
+``strat_w=`` arms; it also serves the tiled route's nonlinear reverse at
 q = 1 (the JAX package's kernel 4 at its only q). Its plain PyTorch version
 is ``structured.adjoint.structured_nl_adjoint_step``; ``nl_launches`` counts
-its launches.
+its launches, ``nl_forced_launches``, ``nl_tracer_launches`` and
+``nl_strat_launches`` those of its arms.
 """
 
 from __future__ import annotations
@@ -63,8 +68,9 @@ from .fe_step import (
 __all__ = ["NL_ADJ_RINGS", "NL_ADJ_SLICE", "REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout",
            "adjoint_tile", "check_dstrat", "forced_launches", "launch_plan", "launches",
            "nl_adjoint_launch_plan", "nl_adjoint_plan", "nl_adjoint_rollout", "nl_adjoint_slice",
-           "nl_adjoint_smem_bytes", "nl_launches", "reverse_tracer_args", "smem_bytes",
-           "strat_args", "strat_launches", "strat_smem_bytes", "tracer_launches"]
+           "nl_adjoint_smem_bytes", "nl_forced_launches", "nl_launches", "nl_strat_launches",
+           "nl_tracer_launches", "reverse_tracer_args", "smem_bytes", "strat_args",
+           "strat_launches", "strat_smem_bytes", "tracer_launches"]
 
 # adjoint-step kernel launches made by adjoint_rollout (one per step), and
 # those of them that ran the forced arm, the tracer arm and the stratified arm
@@ -72,8 +78,12 @@ launches = 0
 forced_launches = 0
 tracer_launches = 0
 strat_launches = 0
-# nonlinear reverse kernel launches made by nl_adjoint_rollout (one per step)
+# nonlinear reverse kernel launches made by nl_adjoint_rollout (one per step),
+# and those of them that ran the forced, the tracer and the stratified arm
 nl_launches = 0
+nl_forced_launches = 0
+nl_tracer_launches = 0
+nl_strat_launches = 0
 
 # The reach of one reverse step, (rows, columns) per side:
 # slab.adjoint_stencil_reach of the hex lattice's tables; csrc/adjoint_step.cu
@@ -95,9 +105,9 @@ MIN_WAVES = 4
 # stages C, B, A and of the window (csrc/nl_adjoint.cuh; slab.nl_adjoint_rings
 # derives them from the hex lattice's tables)
 NL_ADJ_RINGS = ((1, 1), (2, 2), (3, 4), (4, 6))
-# ... its values per window site and level (primal and cotangent), per ring
-# A, B and C site and level, per window site (ssh, gs, 20 vertex constant
-# planes reserved); ints per window site (site, live bits)
+# ... its values per window site and level (primal and cotangent; 4 more per
+# tracer), per ring A, B and C site and level, per window site (ssh, gs, 20
+# vertex constant planes reserved); ints per window site (site, live bits)
 _NLA_WIN, _NLA_A, _NLA_B, _NLA_C, _NLA_SITE, _NLA_INTS = 16, 12, 14, 8, 24, 2
 # Levels per slice of the nonlinear reverse at which nl_adjoint_plan sizes the
 # tile; the slice then grows while it fits
@@ -135,16 +145,17 @@ def smem_bytes(tile, k: int, itemsize: int, forced: bool = False, n_tracers: int
 
 
 def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0,
-                 strat: bool = False) -> tuple[int, int]:
+                 strat: bool = False, forced: bool = False) -> tuple[int, int]:
     """adjoint_step's tile (rows, columns) on a ny2 x nx lattice: the
     largest tile of TILE_ROWS x TILE_COLS (ragged ones too) whose window
     leaves room for two blocks per SM, then the smallest window, then the
     widest, where its launch makes at least MIN_WAVES waves of clusters on
     the card; else ``fe_step.best_tile``'s power-of-two tile. The window is
     the forced arm's, so that one tile serves both arms, or with ``strat``
-    the (unforced, tracer-free) stratified arm's; with ``n_tracers``
-    the (unforced) tracer arm's, which runs one block per SM (its launch
-    bounds), ``best_tile``'s largest tile that fits one block. At 100 f32
+    the stratified arm's (with the forced arm's too where ``forced``); with
+    ``n_tracers`` the tracer arm's (with the forced and stratified arms'
+    where asked), which runs one block per SM (its launch bounds),
+    ``best_tile``'s largest tile that fits one block. At 100 f32
     levels the tracer-free tile is
     (4, 12) at 256x256 and (4, 8) at 64x64, the fastest tiles of the sweep
     there (PERF.md section 5, tools/tile_sweep.py): a larger tile re-reads
@@ -153,10 +164,11 @@ def adjoint_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0,
     ValueError."""
     name = f"adjoint_step ({k} levels of {itemsize}-byte values, {n_tracers} tracers)"
     if n_tracers:
-        return best_tile(ny2, nx, REACH, lambda t: smem_bytes(t, k, itemsize,
-                                                             n_tracers=n_tracers),
+        return best_tile(ny2, nx, REACH, lambda t: smem_bytes(t, k, itemsize, forced,
+                                                             n_tracers, strat),
                          name, budgets=(SMEM_BYTES,))
-    smem = lambda t: smem_bytes(t, k, itemsize, forced=not strat, strat=strat)  # noqa: E731
+    smem = lambda t: smem_bytes(t, k, itemsize, forced=forced or not strat,  # noqa: E731
+                                strat=strat)
     tile = best_tile(ny2, nx, REACH, smem, name)
     hm, hi = REACH
     two = [(rt * ct, -(rt + 2 * hm) * (ct + 2 * hi), ct, rt)
@@ -189,36 +201,45 @@ def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: i
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
-def nl_adjoint_smem_bytes(tile, k: int, itemsize: int, ks: int) -> int:
+def nl_adjoint_smem_bytes(tile, k: int, itemsize: int, ks: int, n_tracers: int = 0,
+                          strat: bool = False) -> int:
     """Dynamic shared memory of one block of the nonlinear reverse for a tile
     (rows, columns) at k levels in slices of ks (``nl_adjoint_smem_bytes`` in
     csrc/nl_adjoint.cuh): the warps' d(dt) sums; a slice of the window's
-    primal state and cotangent and of the rings' planes; the window's ssh, gs
-    and vertex constants; the partial sums of the tile's sites; the window's
-    site indices and live bits."""
+    primal state and cotangent (with ``n_tracers``, the tracer arm's
+    2 n_tracers planes of each) and of the rings' planes; the window's ssh,
+    gs and vertex constants; the partial sums of the tile's sites; the
+    window's site indices and live bits; with ``strat``, the stratified
+    arm's S chunk and W rows (``strat_smem_bytes``). The forced arm takes
+    none."""
     rt, ct = tile
     (cm, ci), (bm, bi), (am, ai), (wm, wi) = NL_ADJ_RINGS
     ring = lambda m, i: (rt + 2 * m) * (ct + 2 * i)  # noqa: E731
     w = ring(wm, wi)
-    vals = ((_NLA_WIN * w + _NLA_A * ring(am, ai) + _NLA_B * ring(bm, bi)
+    vals = (((_NLA_WIN + 4 * n_tracers) * w + _NLA_A * ring(am, ai) + _NLA_B * ring(bm, bi)
              + _NLA_C * ring(cm, ci)) * ks + _NLA_SITE * w + 2 * rt * ct)
-    return _RED_BYTES + itemsize * vals + 4 * _NLA_INTS * w
+    return (_RED_BYTES + itemsize * vals + 4 * _NLA_INTS * w
+            + (strat_smem_bytes(rt * ct, level_split(k)[1], k, itemsize) if strat else 0))
 
 
-def nl_adjoint_slice(tile, k: int, itemsize: int) -> int:
+def nl_adjoint_slice(tile, k: int, itemsize: int, n_tracers: int = 0,
+                     strat: bool = False) -> int:
     """The largest slice (levels, a power of two up to 16 and the level
-    chunk) at which the nonlinear reverse's ``tile`` fits one block; at least
-    one level."""
+    chunk) at which the nonlinear reverse's ``tile`` fits one block with the
+    arms' shared memory (``nl_adjoint_smem_bytes``); at least one level."""
     kc = level_split(k)[1]
     ks = 1
-    while ks * 2 <= min(16, kc) and nl_adjoint_smem_bytes(tile, k, itemsize, ks * 2) <= SMEM_BYTES:
+    while ks * 2 <= min(16, kc) and nl_adjoint_smem_bytes(tile, k, itemsize, ks * 2, n_tracers,
+                                                          strat) <= SMEM_BYTES:
         ks *= 2
     return ks
 
 
-def nl_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, tiles=None):
+def nl_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, tiles=None, *,
+                    n_tracers: int = 0, strat: bool = False):
     """The nonlinear reverse's plan (rows, columns, levels per slice) on a
-    ny2 x nx lattice at k levels, reckoned as ``fe_step.nl_plan``: among
+    ny2 x nx lattice at k levels, with ``n_tracers`` tracers and ``strat``
+    sized with their arms' shared memory, reckoned as ``fe_step.nl_plan``: among
     ``tiles`` (by default the powers of two up to 64 a side, cut to the
     lattice; the kernel runs ragged tiles), the tile of largest area that
     fits one block's shared memory at NL_ADJ_SLICE levels per slice and
@@ -230,21 +251,26 @@ def nl_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, tiles=None):
     that is (8, 8, 4) at both, the fastest of the 65 plans swept at each:
     sized at 2-level slices the rule took (8, 16, 2), 1.29x as long at
     256^2 (a deeper slice halves the barriers and window loads per level
-    more than a larger tile saves in rings)."""
+    more than a larger tile saves in rings). A tile that fits at one level
+    per slice where none fits at NL_ADJ_SLICE is taken so; where none fits
+    at all, it raises ValueError."""
     kc = level_split(k)[1]
-    base = min(NL_ADJ_SLICE, kc)
     wm, wi = NL_ADJ_RINGS[-1]
     if tiles is None:
         tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
-    ok = [t for t in tiles if nl_adjoint_smem_bytes(t, k, itemsize, base) <= SMEM_BYTES]
+    for base in (min(NL_ADJ_SLICE, kc), 1):
+        ok = [t for t in tiles
+              if nl_adjoint_smem_bytes(t, k, itemsize, base, n_tracers, strat) <= SMEM_BYTES]
+        if ok:
+            break
     if not ok:
         raise ValueError(f"no tile of the nonlinear reverse fits ({k} levels of {itemsize}-byte "
-                         f"values)")
+                         f"values, {n_tracers} tracers, stratified: {strat})")
     ranks = level_split(k)[0]
     full = [t for t in ok if -(-ny2 // t[0]) * -(-nx // t[1]) * ranks >= SMS] or ok
     *_, ct, rt = max((t[0] * t[1], -(t[0] + 2 * wm) * (t[1] + 2 * wi), t[1], t[0])
                      for t in full)
-    return rt, ct, nl_adjoint_slice((rt, ct), k, itemsize)
+    return rt, ct, nl_adjoint_slice((rt, ct), k, itemsize, n_tracers, strat)
 
 
 def nl_adjoint_launch_plan(ny2: int, nx: int, k: int, tile, ks: int) -> dict:
@@ -310,13 +336,13 @@ def check_reverse_tracers(tracers, end, groups, live, slots: int, ny2: int, nx: 
     return planes[0] // 2
 
 
-def check_dstrat(strat_w, dstrat, k: int, dtype, device, forcing=None, tracers=None) -> None:
+def check_dstrat(strat_w, dstrat, k: int, dtype, device) -> None:
     """The stratified reverse arms' operands: W (K, K) in the state dtype
     (``fe_step.check_strat``) and its cotangent's accumulator ``dstrat``
-    (K, K) float64, given together; the arms run unforced and tracer-free."""
+    (K, K) float64, given together."""
     if (strat_w is None) != (dstrat is None):
         raise ValueError("the stratified reverse takes strat_w and dstrat together")
-    check_strat(strat_w, k, dtype, device, forcing, tracers)
+    check_strat(strat_w, k, dtype, device)
     if dstrat is not None:
         check_tensor("dstrat", dstrat, (k, k), torch.float64, device)
 
@@ -378,7 +404,7 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
     check_forcing(forcing, ny2, nx, dtype, device)
     check_dforc(dforc, forcing, ny2, nx, dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
-    check_dstrat(strat_w, dstrat, k, dtype, device, forcing, tracers)
+    check_dstrat(strat_w, dstrat, k, dtype, device)
     if tracers is not None:
         shapes = (*shapes, tracers.planes.shape[1:])
     if out is None:
@@ -396,7 +422,9 @@ def _rollout(stack, g_in, f_edge, table, weights, scal, n_steps, ddt, out, scrat
             check_tensor(f"{name} {f}", x, shape, dtype, device)
     table, weights, n_terms = host_stencil(table, weights)
     itemsize, masked = h_st.element_size(), live is not None
-    tile = adjoint_tile(ny2, nx, k, itemsize, n_tr, strat) if tile is None else tuple(tile)
+    if tile is None:
+        tile = adjoint_tile(ny2, nx, k, itemsize, n_tr, strat, forcing is not None)
+    tile = tuple(tile)
     need = smem_bytes(tile, k, itemsize, forcing is not None, n_tr, strat)
     if need > SMEM_BYTES:
         raise ValueError(f"an adjoint_step tile {tile} at {k} levels needs {need} bytes of "
@@ -455,33 +483,34 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
     dtype and a float64 (3,) tensor, on the card). ``tracers`` (as for
     ``fe_step.fe_fill_stack``: ``fused_model.kernel_tracers``' operands whose
     planes are the tracer stack (S, 2 nT, ny2, nx, K) of the primal
-    tracers) runs the tracer arm, unforced: ``g_in``, ``out`` and
+    tracers) runs the tracer arm: ``g_in``, ``out`` and
     ``scratch`` then carry the tracer cotangent planes (2 nT, ny2, nx, K)
     fourth, and ``end`` = (h, tracer planes) is the state after slot
     n_steps - 1 (the next checkpoint, or the rollout's final state), whose
     h' and T' the last step reads. ``strat_w`` (W (K, K) in the state dtype,
     on the card: ``fused_model.kernel_strat``) runs the stratified arm,
-    unforced and tracer-free, which adds d(W) to ``dstrat``, a float64
-    (K, K) tensor on the card."""
+    which adds d(W) to ``dstrat``, a float64 (K, K) tensor on the card. The
+    forced, tracer and stratified arms compose in any combination."""
     return _rollout(stack, g_in, f_edge, stencil_table, coriolis_weight, (dt, inv_dc, s_div),
                     n_steps, ddt, out, scratch, None, live, forcing, dforc, tracers, end,
                     strat_w, dstrat)
 
 
-_NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_double] * 7
-                + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 36
+                + [ctypes.c_double] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_table,
                        adjoint_weight, vertex_cell_terms, edge_vertex_terms, dt: float,
                        inv_dc: float, s_div: float, s_ke: float, s_curl: float,
                        ds_scale: float, dke_scale: float, n_steps: int, ddt: torch.Tensor,
-                       out=None, scratch=None, *, live=None, tile=None, ks=None):
+                       out=None, scratch=None, *, live=None, tile=None, ks=None, forcing=None,
+                       dforc=None, tracers=None, end=None, strat_w=None, dstrat=None):
     """n_steps >= 1 reverse forward-Euler steps of the nonlinear core on the
     card, one launch of the nonlinear reverse kernel (csrc/nl_adjoint.cuh)
     each, over tiles of ``tile`` (rows, columns; ragged ones too) in slices
     of ks levels, by default ``nl_adjoint_plan``'s tile and the largest slice
-    that fits it.
+    that fits it, each sized with the arms' shared memory.
 
     ``stack``, ``g_in``, ``ddt``, ``out``, ``scratch`` and ``live`` as for
     ``adjoint_rollout``; ``fv`` the vertex constants
@@ -490,9 +519,14 @@ def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_
     ``host_adjoint_stencil``), the vertex stencils as ``StructMesh`` holds
     them; the scalars rounded to the state dtype (``fused_model._scal``,
     ``fused_model.nl_scal``, and ds_scale = g dt / dc, dke_scale = dt / dc
-    from ``fused_model.nl_adjoint_scal``). Returns the cotangent at step 0. A stencil or
-    vertex table that is not the hex lattice's raises ValueError."""
-    global nl_launches
+    from ``fused_model.nl_adjoint_scal``). ``forcing`` and ``dforc``,
+    ``tracers`` and ``end``, ``strat_w`` and ``dstrat`` run the forced,
+    tracer and stratified arms, in any combination, as for
+    ``adjoint_rollout`` (``g_in``, ``out`` and ``scratch`` then carry the
+    tracer cotangent planes fourth). Returns the cotangent at step 0. A
+    stencil or vertex table that is not the hex lattice's raises
+    ValueError."""
+    global nl_launches, nl_forced_launches, nl_tracer_launches, nl_strat_launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
@@ -508,48 +542,67 @@ def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_
     n_fv = 4 if live is None else 20
     check_tensor("fv", fv, (n_fv, ny2, nx), dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
+    check_forcing(forcing, ny2, nx, dtype, device)
+    check_dforc(dforc, forcing, ny2, nx, dtype, device)
+    check_dstrat(strat_w, dstrat, k, dtype, device)
+    if tracers is not None:
+        shapes = (*shapes, tracers.planes.shape[1:])
     if out is None:
         out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
     if scratch is None:
         scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
-    for x, shape, f in zip(stack, shapes, ("ssh", "h", "u")):
+    for x, shape, f in zip(stack, shapes[:3], ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), dtype, device)
+    n_tr = check_reverse_tracers(tracers, end, (("g_in", g_in), ("out", out),
+                                                ("scratch", scratch)),
+                                 live, slots, ny2, nx, k, dtype, device)
+    strat = strat_w is not None
     for group, name in ((g_in, "g_in"), (out, "out"), (scratch, "scratch")):
-        for x, shape, f in zip(group, shapes, ("ssh", "h", "u")):
+        for x, shape, f in zip(group, shapes[:3], ("ssh", "h", "u")):
             check_tensor(f"{name} {f}", x, shape, dtype, device)
     table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
     adj_table, adj_weights, n_adj = host_stencil(adjoint_table, adjoint_weight)
     if n_adj != n_terms:
         raise ValueError("the adjoint table must be the transpose of the stencil table")
     vc, vc_w, ev = vertex_tables(vertex_cell_terms, edge_vertex_terms)
-    tile = nl_adjoint_plan(ny2, nx, k, itemsize)[:2] if tile is None else tuple(tile)
-    ks = nl_adjoint_slice(tile, k, itemsize) if ks is None else ks
+    arms = dict(n_tracers=n_tr, strat=strat)
+    tile = nl_adjoint_plan(ny2, nx, k, itemsize, **arms)[:2] if tile is None else tuple(tile)
+    ks = nl_adjoint_slice(tile, k, itemsize, **arms) if ks is None else ks
     kc = level_split(k)[1]
     if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
         raise ValueError(f"the nonlinear reverse's slices are a power of two of levels up to "
                          f"{min(16, kc)} (its level chunk at {k} levels), got {ks}")
-    need = nl_adjoint_smem_bytes(tile, k, itemsize, ks)
+    need = nl_adjoint_smem_bytes(tile, k, itemsize, ks, **arms)
     if need > SMEM_BYTES:
         raise ValueError(f"a nonlinear reverse tile {tile} at {k} levels in slices of {ks} "
                          f"needs {need} bytes of shared memory per block, more than "
                          f"{SMEM_BYTES}")
     ranks, _ = level_split(k)
     tiles = -(-ny2 // tile[0]) * -(-nx // tile[1])
-    part = torch.empty(n_steps * tiles * ranks, dtype=torch.float64, device=device)
+    shares = 1 if forcing is None else SHARES
+    part = torch.empty(shares * n_steps * tiles * ranks, dtype=torch.float64, device=device)
     lib = build.load()
     fn = {torch.float32: lib.mot_nl_adjoint_f32, torch.float64: lib.mot_nl_adjoint_f64}[dtype]
     fn.argtypes = _NL_ARGTYPES
     fn.restype = ctypes.c_int
+    ptrs, coefs = forcing_args(forcing, kc)
+    tr_ptrs, tr_opts, n_tr = reverse_tracer_args(tracers, end, g_in, out, scratch)
+    st_ptrs, _acc = strat_args(strat_w, dstrat, tiles, k)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            fv.data_ptr(), n_fv, None if live is None else live.data_ptr(),
-            table.ctypes.data, weights.ctypes.data, adj_table.ctypes.data,
+            fv.data_ptr(), n_fv, None if live is None else live.data_ptr(), *ptrs,
+            *dforc_args(dforc), table.ctypes.data, weights.ctypes.data, adj_table.ctypes.data,
             adj_weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data, ev.ctypes.data,
-            *[x.data_ptr() for x in (*stack, *g_in, *out, *scratch, part, ddt)],
-            *(float(x) for x in (dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale)), ny2, nx, k,
-            n_steps, n_terms, *tile, ks, stream,
+            *[x.data_ptr() for x in (*stack, *g_in[:3], *out[:3], *scratch[:3], part, ddt)],
+            *tr_ptrs, *st_ptrs,
+            *(float(x) for x in (dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale)),
+            *coefs[:3], *tr_opts, *coefs[3:], ny2, nx, k, n_steps, n_terms, *tile, ks, n_tr,
+            stream,
         )
     check_error("the nonlinear reverse", err, f" (tile {tile}, slice {ks})")
     nl_launches += n_steps
+    nl_forced_launches += n_steps if forcing is not None else 0
+    nl_tracer_launches += n_steps if tracers is not None else 0
+    nl_strat_launches += n_steps if strat else 0
     return out

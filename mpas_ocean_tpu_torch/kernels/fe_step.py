@@ -396,7 +396,7 @@ _ARGTYPES = {
     "steps": [_P] * 21 + [_D] * 8 + [_I] * 10 + [_P],
     "stack": [_P] * 13 + [_D] * 8 + [_I] * 10 + [_P],
     "nl_steps": [_P, _P, _I] + [_P] * 22 + [_D] * 10 + [_I] * 11 + [_P],
-    "nl_stack": [_P, _P, _I] + [_P] * 9 + [_D] * 5 + [_I] * 8 + [_P],
+    "nl_stack": [_P, _P, _I] + [_P] * 14 + [_D] * 10 + [_I] * 11 + [_P],
 }
 
 
@@ -527,18 +527,14 @@ def stack_tracer_args(tracers) -> tuple:
             (float(tracers.kappa), float(tracers.upwind)), tracers.planes.shape[1] // 2)
 
 
-def check_strat(strat_w, k: int, dtype, device, forcing=None, tracers=None) -> None:
+def check_strat(strat_w, k: int, dtype, device) -> None:
     """The stratified arms' operand (``fused_model.kernel_strat``: W (K, K)
     in the state dtype), contiguous, on the state's device; None
-    unstratified. The forward entries compose it with any forcing and
-    tracers; the reverse ones (and the stack rebuild they run) pass theirs
-    as ``forcing`` and ``tracers``, and raise ValueError for either: their
-    stratified arms run unforced and tracer-free."""
+    unstratified. Every entry, forward and reverse, composes it with any
+    forcing and tracers."""
     if strat_w is None:
         return
     check_tensor("strat_w", strat_w, (k, k), dtype, device)
-    if forcing is not None or tracers is not None:
-        raise ValueError("the reverse's stratified arms run unforced and tracer-free")
 
 
 def forcing_ranks(forcing, kc: int) -> tuple[int, int]:
@@ -662,12 +658,12 @@ def fe_rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
     levels, (r_lin, Cd, lambda) rounded to the state dtype), which runs the
     forced arm, or None. ``tracers`` (``structured.fused_model.
     kernel_tracers``' operands, as for ``fe_rollout``: the source planes, the
-    cell mask, kappa and upwind) runs the tracer arm, unforced, into
-    ``tr_out`` through ``tr_scratch`` (allocated here when None and
-    n_steps > 1). ``strat_w`` (W (K, K) in the state dtype, on the card:
-    ``structured.fused_model.kernel_strat``) runs the stratified arm,
-    unforced and tracer-free. Raises ValueError for a stencil that is not
-    the hex lattice's."""
+    cell mask, kappa and upwind) runs the tracer arm into ``tr_out`` through
+    ``tr_scratch`` (allocated here when None and n_steps > 1). ``strat_w``
+    (W (K, K) in the state dtype, on the card:
+    ``structured.fused_model.kernel_strat``) runs the stratified arm; the
+    forced, tracer and stratified arms compose. Raises ValueError for a
+    stencil that is not the hex lattice's."""
     _rollout_into(src, out, f_edge, rts, stencil_table, coriolis_weight,
                   (dt, inv_dc, s_div), n_steps, scratch, None, live, forcing, tracers, tr_out,
                   tr_scratch, strat_w)
@@ -694,7 +690,7 @@ def fe_fill_stack(stack, f_edge, rts, stencil_table, coriolis_weight,
     for x, shape, f in zip(stack, state_shapes(*dims), ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), h.dtype, h.device)
     check_tracer_stack(tracers, live, slots, *dims, h.dtype, h.device)
-    check_strat(strat_w, dims[2], h.dtype, h.device, forcing, tracers)
+    check_strat(strat_w, dims[2], h.dtype, h.device)
     _run("stack", h, stack, f_edge, rts, live, stencil, (dt, inv_dc, s_div), dims, n_steps,
          None, forcing, tracers, strat_w=strat_w)
 
@@ -727,7 +723,7 @@ def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     are left as they are. ``tracers`` (``structured.fused_model.
     kernel_tracers``' operands: tracer planes (2 nT, ny2, nx, K), on a
     channel the cell mask, kappa and upwind rounded to the state dtype) runs
-    the tracer arm, unforced, and the new tracer planes come fourth.
+    the tracer arm, and the new tracer planes come fourth.
     ``strat_w`` (as for ``fe_rollout_into``) runs the stratified arm."""
     return _rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                     (dt, inv_dc, s_div), n_steps, None, live, forcing, tracers, strat_w)
@@ -773,14 +769,15 @@ def nl_arms(forcing, tracers, strat_w) -> dict:
 
 def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
            edge_vertex_terms, scal, n_steps, tile, ks, live, fb=False, out=None, tmp=None,
-           forcing=None, tracers=None, strat_w=None):
+           forcing=None, tracers=None, strat_w=None, tr_out=None, tr_tmp=None):
     """n_steps >= 0 nonlinear steps through ``entry``, the FE arm's entry
     (csrc/nl_step_fe_*.cu) or (``fb``) the FB arm's (nl_step_fb_*.cu), which
     take the same arguments; ``forcing``, ``tracers`` and ``strat_w`` (as
     for ``fe_rollout``) run the composed arms. Returns (ssh, h, u), new or
     written into ``out`` (through ``tmp``, allocated when None and
-    n_steps > 1), with new tracer planes fourth with ``tracers``, and raises
-    as ``check_error`` for a failed launch, after ``_nl_checks``."""
+    n_steps > 1), with the tracer planes fourth with ``tracers``, new or
+    written into ``tr_out`` (through ``tr_tmp``, alike), and raises as
+    ``check_error`` for a failed launch, after ``_nl_checks``."""
     dims, (table, weights, n_terms), (vc, vc_w, ev), n_fv = _nl_checks(
         name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile, ks, live,
         fb, forcing, tracers, strat_w)
@@ -800,10 +797,13 @@ def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
     for group, what in ((out, "out"), (tmp, "scratch")):
         for x, y, f in zip(group, src, ("ssh", "h", "u")):
             check_tensor(f"{what} {f}", x, y.shape, h.dtype, device)
-    tr_out = tr_tmp = None
     if tracers is not None:
-        tr_out = torch.empty_like(tracers.planes)
-        tr_tmp = tr_out if n_steps == 1 else torch.empty_like(tr_out)
+        if tr_out is None:
+            tr_out = torch.empty_like(tracers.planes)
+        if tr_tmp is None:
+            tr_tmp = tr_out if n_steps == 1 else torch.empty_like(tr_out)
+        for x, what in ((tr_out, "tracer out"), (tr_tmp, "tracer scratch")):
+            check_tensor(what, x, tracers.planes.shape, h.dtype, device)
     tr_ptrs, tr_opts, n_tr = tracer_args(tracers, tr_out, tr_tmp)
     ptrs, coefs = forcing_args(forcing, level_split(dims[2])[1])
     with torch.cuda.device(device):
@@ -828,7 +828,8 @@ def _fe_nl_plan(h, tile, ks, arms=None):
 def fe_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
                   edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
                   s_curl: float, n_steps: int, live=None, tile=None, ks=None, out=None,
-                  scratch=None, forcing=None, tracers=None, strat_w=None):
+                  scratch=None, forcing=None, tracers=None, strat_w=None, tr_out=None,
+                  tr_scratch=None):
     """n_steps forward-Euler steps of the nonlinear core on the card, one
     launch of fe_step's nonlinear arm each (csrc/nl_step.cuh). ssh, h, u and
     rts as for ``fe_rollout``; ``fv`` the vertex constants
@@ -840,44 +841,54 @@ def fe_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cel
     columns) defaults to ``nl_plan``'s and the slice ks to the largest that
     fits the tile (``nl_slice``), each sized with the composed arms' shared
     memory. Returns (ssh, h, u), with the new tracer planes fourth with
-    ``tracers``: new, or written into ``out`` through ``scratch`` (as
+    ``tracers``: new, or written into ``out`` through ``scratch`` and the
+    tracer planes into ``tr_out`` through ``tr_scratch`` (as
     ``fe_rollout_into``); raises ValueError for a stencil that is not the hex
     lattice's."""
     tile, ks = _fe_nl_plan(h, tile, ks, nl_arms(forcing, tracers, strat_w))
     out = nl_run("fe_step (nonlinear)", _entry("nl_steps", h.dtype), ssh, h, u, rts,
                  stencil_table, coriolis_weight, fv, vertex_cell_terms, edge_vertex_terms,
                  (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live, out=out,
-                 tmp=scratch, forcing=forcing, tracers=tracers, strat_w=strat_w)
+                 tmp=scratch, forcing=forcing, tracers=tracers, strat_w=strat_w, tr_out=tr_out,
+                 tr_tmp=tr_scratch)
     count_launches(n_steps, forcing, tracers, strat_w)
     return out
 
 
 def fe_nl_fill_stack(stack, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
                      edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
-                     s_curl: float, n_steps: int, live=None, tile=None, ks=None):
+                     s_curl: float, n_steps: int, live=None, tile=None, ks=None, forcing=None,
+                     tracers=None, strat_w=None):
     """Fill a stack of states on the card with nonlinear steps: slot j + 1
     = one step of slot j for j < n_steps, the launches ``fe_nl_rollout``
-    makes with the same plan, so the slots are its states bit for bit.
-    ``stack`` as for ``fe_fill_stack``, the rest as for ``fe_nl_rollout``
-    (the plain arm: the gradient takes no composed arm)."""
+    makes with the same plan and arms, so the slots are its states bit for
+    bit. ``stack`` as for ``fe_fill_stack``; ``forcing``, ``tracers`` (its
+    planes the tracer stack (S, 2 nT, ny2, nx, K)) and ``strat_w`` run the
+    composed arms, in any combination; the rest as for ``fe_nl_rollout``."""
     ssh, h, u = stack
     if h.dim() != 5:
         raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h.shape)}")
-    tile, ks = _fe_nl_plan(h[0], tile, ks)
+    slots = h.shape[0]
+    check_tracer_stack(tracers, live, slots, *lattice_dims(h[0]), h.dtype, h.device)
+    slot_tracers = None if tracers is None else tracers._replace(planes=tracers.planes[0])
+    tile, ks = _fe_nl_plan(h[0], tile, ks, nl_arms(forcing, slot_tracers, strat_w))
     dims, (table, weights, n_terms), (vc, vc_w, ev), n_fv = _nl_checks(
         "fe_step (nonlinear)", h[0], rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
-        edge_vertex_terms, tile, ks, live, False)
-    slots = h.shape[0]
+        edge_vertex_terms, tile, ks, live, False, forcing, slot_tracers, strat_w)
     if not 0 <= n_steps < slots:
         raise ValueError(f"{n_steps} steps do not fit a stack of {slots} slots")
     for x, shape, f in zip(stack, state_shapes(*dims), ("ssh", "h", "u")):
         check_tensor(f"stack {f}", x, (slots, *shape), h.dtype, h.device)
+    ptrs, coefs = forcing_args(forcing, level_split(dims[2])[1])
+    (tr, cmask), tr_opts, n_tr = stack_tracer_args(tracers)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = _entry("nl_stack", h.dtype)(
             rts.data_ptr(), fv.data_ptr(), n_fv, None if live is None else live.data_ptr(),
-            table.ctypes.data, weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data,
-            ev.ctypes.data, *[x.data_ptr() for x in stack], float(dt), float(inv_dc),
-            float(s_div), float(s_ke), float(s_curl), *dims, n_steps, n_terms, *tile, ks, stream)
+            *ptrs, table.ctypes.data, weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data,
+            ev.ctypes.data, *[x.data_ptr() for x in stack], tr, cmask,
+            None if strat_w is None else strat_w.data_ptr(), float(dt), float(inv_dc),
+            float(s_div), float(s_ke), float(s_curl), *tr_opts, *coefs, *dims, n_steps, n_terms,
+            *tile, ks, n_tr, stream)
     check_error("fe_step (nonlinear)", err, f" (tile {tile}, slice {ks})")
-    count_launches(n_steps, None, None, None)
+    count_launches(n_steps, forcing, tracers, strat_w)

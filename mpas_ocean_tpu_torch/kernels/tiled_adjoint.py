@@ -6,7 +6,8 @@ forward-Euler core, on a periodic lattice and, with the wall mask's
 with ``forcing=`` its forced arm, which adds d(wind) and d(r_lin, Cd,
 lambda) to ``dforc``, with ``tracers=`` its tracer arm at q = 1, and with
 ``strat_w=`` its stratified arm at q = 1, which adds d(W) to ``dstrat`` (all
-as ``adjoint_step.adjoint_rollout``).
+as ``adjoint_step.adjoint_rollout``); at q = 1 the three compose in any
+combination.
 
 ``tiled_adjoint_rollout`` takes tensors on a CUDA device and the stencils on
 the host (``StructMesh.host_stencil``, ``StructMesh.host_adjoint_stencil``),
@@ -161,7 +162,8 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     superstep starts) the tracer arm, which runs q = 1 only: a tracer
     state at q > 1 raises NotImplementedError; ``strat_w`` and ``dstrat`` (as
     for ``adjoint_step.adjoint_rollout``) the stratified arm, q = 1 only
-    likewise."""
+    likewise; at q = 1 the forced, tracer and stratified arms in any
+    combination."""
     global launches, forced_launches, tracer_launches, strat_launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
@@ -197,7 +199,7 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     check_forcing(forcing, ny2, nx, dtype, device)
     check_dforc(dforc, forcing, ny2, nx, dtype, device)
     check_tensor("ddt", ddt, (1,), torch.float64, device)
-    check_dstrat(strat_w, dstrat, k, dtype, device, forcing, tracers)
+    check_dstrat(strat_w, dstrat, k, dtype, device)
     if tracers is not None:
         shapes = (*shapes, tracers.planes.shape[1:])
     if out is None:

@@ -28,8 +28,8 @@ nondifferentiable, :2619). Inside the sweep they are held as the kernels'
 planes (``fused_model.tracer_planes``: (2 nT, ny2, nx, K), a stack
 (S, 2 nT, ny2, nx, K)), on the CPU as on the card; the entry points take and
 return the lattice layout (2, ny2, nx, nT, K). On the card the kernels'
-tracer arms run them, linear and unforced only (``fused_model.
-check_tracer_core``; the CPU runs every combination). The reverse kernels
+tracer arms run them, with either core and with forcing and
+stratification. The reverse kernels
 read the step's h' and T' from the next slot of the stack, and for a
 group's last step from the state after it: the next checkpoint, or the
 rollout's final state, which the forward keeps for that.
@@ -37,17 +37,19 @@ rollout's final state, which the forward keeps for that.
 Layered stratification (``strat=``, ``make_stratification``): its W
 (``phi_weights``) is a differentiated input; the densities get none, since
 they build W on the host only (the JAX package returns zeros for them). On
-the card the stratified arms of the kernels run, linear, unforced and
-tracer-free only (``fused_model.check_strat_core``; the CPU runs every
-combination): fe_step's to rebuild each group's states, and the reverse
-kernels', which accumulate d(W) in double beside d(dt) (``dstrat``).
+the card the stratified arms of the kernels run: fe_step's to rebuild each
+group's states, and the reverse kernels', which accumulate d(W) in double
+beside d(dt) (``dstrat``).
 
 Momentum forcing (``forcing=``, struct layout) is a differentiated input:
 its wind and its three coefficients get cotangents (the level masks none,
 as in the JAX package's ``_forcing_cotangent``, :1939-1955). On the card the
-forced arms of the kernels run, linear core only (``nonlinear`` with
-``forcing`` raises there); the reverse kernels accumulate d(wind) per edge
-and d(r_lin, Cd, lambda) in double beside d(dt).
+forced arms of the kernels run; the reverse kernels accumulate d(wind) per
+edge and d(r_lin, Cd, lambda) in double beside d(dt).
+
+The three compose with each other and with either core, on the card (the
+kernels' composed arms: the linear reverse's and the nonlinear reverse's
+take every combination) as on the CPU.
 
 State on a CUDA device runs the kernels, and a failed build or launch
 raises. State on the CPU runs the same plan with the plain step
@@ -72,9 +74,6 @@ from .adjoint import ForcingCot, structured_adjoint_step, structured_nl_adjoint_
 from .fused_model import (
     KernelTracers,
     _scal,
-    check_forced_core,
-    check_strat_core,
-    check_tracer_core,
     fused_run_loop,
     kernel_forcing,
     kernel_live,
@@ -194,9 +193,6 @@ class _Steps:
             raise ValueError(f"no rollout for state on {like.device}")
         if nonlinear:
             check_nl_mesh(mesh)
-        check_forced_core(forcing, nonlinear, like.device)
-        check_tracer_core(True if tracers else None, nonlinear, forcing, like.device)
-        check_strat_core(strat, nonlinear, forcing, True if tracers else None, like.device)
         self.dforc = None
         if forcing is not None:
             # d(wind) in the state dtype, per edge channel; the coefficients' in double
@@ -263,8 +259,11 @@ class _Steps:
     def advance(self, src: StructState, out: StructState, n: int, scratch: StructState):
         """n >= 1 steps from src into out."""
         if self.cuda and self.nonlinear:
-            fe_step.fe_nl_rollout(*_fields(src), *self.nl_fwd, *self.nl_scal, n,
-                                  live=self.live, out=_fields(out), scratch=_fields(scratch))
+            fe_step.fe_nl_rollout(*_fields(src)[:3], *self.nl_fwd, *self.nl_scal, n,
+                                  live=self.live, out=_fields(out)[:3],
+                                  scratch=_fields(scratch)[:3], forcing=self.kf,
+                                  tracers=self.kernel_tracers(src.tracers), strat_w=self.sw,
+                                  tr_out=out.tracers, tr_scratch=scratch.tracers)
         elif self.cuda:
             fe_step.fe_rollout_into(_fields(src)[:3], _fields(out)[:3], *self.fwd, *self.scal,
                                     n, _fields(scratch)[:3], live=self.live, forcing=self.kf,
@@ -282,8 +281,9 @@ class _Steps:
     def fill(self, stack: StructState, n: int):
         """Slot j + 1 = one step of slot j, for j < n."""
         if self.cuda and self.nonlinear:
-            fe_step.fe_nl_fill_stack(_fields(stack), *self.nl_fwd, *self.nl_scal, n,
-                                     live=self.live)
+            fe_step.fe_nl_fill_stack(_fields(stack)[:3], *self.nl_fwd, *self.nl_scal, n,
+                                     live=self.live, forcing=self.kf,
+                                     tracers=self.kernel_tracers(stack.tracers), strat_w=self.sw)
         elif self.cuda:
             fe_step.fe_fill_stack(_fields(stack)[:3], *self.fwd, *self.scal, n, live=self.live,
                                   forcing=self.kf, tracers=self.kernel_tracers(stack.tracers),
@@ -318,10 +318,14 @@ class _Steps:
         stratification d(W) to ``dstrat``. With tracers on the card, ``end``
         is the state after slot n - 1 (its h and tracers are read)."""
         if self.cuda and self.nonlinear:
-            adjoint_step.nl_adjoint_rollout(_fields(stack), _fields(g), *self.nl_adj,
+            adjoint_step.nl_adjoint_rollout(_fields(stack)[:3], _fields(g), *self.nl_adj,
                                             *self.nl_adj_scal, n, ddt, _fields(out),
                                             _fields(scratch), live=self.live,
-                                            tile=self.nl_tile)
+                                            tile=self.nl_tile, forcing=self.kf,
+                                            dforc=self.dforc,
+                                            tracers=self.kernel_tracers(stack.tracers),
+                                            end=_end(end, self.tracers), strat_w=self.sw,
+                                            dstrat=self.dstrat)
             return
         if self.cuda:
             adjoint_step.adjoint_rollout(_fields(stack)[:3], _fields(g), *self.adj,
@@ -385,7 +389,6 @@ def _forward(state: StructState, mesh: StructMesh, dt, n_steps: int, group: int,
     ckpts = _empty(state, len(starts))
     if nonlinear:
         check_nl_mesh(mesh)
-    check_forced_core(forcing, nonlinear, state.layer_thickness.device)
     if n_steps == 0:
         return _copy(state), ckpts
     steps = steps or _steps(mesh, dt, state, nonlinear, forcing, tropts, strat)
@@ -634,6 +637,17 @@ def _grads(ctx, res) -> tuple:
     return (*_state_inputs(d_state), d_dt, *d_forc, d_w)
 
 
+def _kept_end(final: StructState, tracers) -> StructState | None:
+    """The end state a tracer reverse reads (None without tracers), for
+    ctx: detached aliases, since the outputs themselves on ctx would tie
+    them to their own grad_fn, a cycle through autograd's nodes that
+    Python's collector cannot break, keeping the outputs and the
+    checkpoints on the device for good."""
+    if tracers is None:
+        return None
+    return StructState(*(None if x is None else x.detach() for x in _state_inputs(final)))
+
+
 def _output_cotangent(like: StructState, grads) -> StructState:
     """The outputs' cotangents as a state like ``like`` (tracers in the
     lattice layout where ``like`` has them): zeros where autograd gave
@@ -668,7 +682,7 @@ class FusedRolloutDiff(torch.autograd.Function):
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.group = ckpts, mesh, n_steps, group
         ctx.nonlinear = nonlinear
         # the end state of the last group, which a tracer reverse reads
-        ctx.final = final if tracers is not None else None
+        ctx.final = _kept_end(final, tracers)
         return _state_inputs(_lattice_state(final))
 
     @staticmethod
@@ -699,10 +713,9 @@ def fused_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *
     stratification's W: the reverse-mode pass through the whole loop, which
     the reference validates with Enzyme against finite differences. Forward
     through ``fe_step`` on the card, backward through ``adjoint_step`` (the
-    nonlinear core: the nonlinear reverse kernel; forcing with the
-    nonlinear core, tracers with the nonlinear core or forcing, and
-    stratification with the nonlinear core, forcing or tracers raise there).
-    Counterpart of ``pallas_rollout_diff``."""
+    nonlinear core: the nonlinear reverse kernel), every combination of the
+    core, forcing, tracers and stratification through the kernels' composed
+    arms. Counterpart of ``pallas_rollout_diff``."""
     return StructState(*FusedRolloutDiff.apply(*_state_inputs(state), dt,
                                                *_forcing_inputs(forcing), _strat_input(strat),
                                                mesh, n_steps, plan, nonlinear, forcing,
@@ -728,7 +741,7 @@ class FusedStep(torch.autograd.Function):
         final = fused_run_loop(StructState(ssh, h, u, tracers), mesh, ctx.dt_v, 1,
                                nonlinear=nonlinear, forcing=forcing, strat=strat, **ctx.tropts)
         # the step's end state, which a tracer reverse reads
-        ctx.final = final if tracers is not None else None
+        ctx.final = _kept_end(final, tracers)
         return _state_inputs(final)
 
     @staticmethod

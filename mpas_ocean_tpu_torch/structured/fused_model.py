@@ -33,8 +33,7 @@ from ..models.stratification import Stratification
 from . import tiled_model
 from .model import StructMesh, StructState, check_nl_mesh, structured_run_loop
 
-__all__ = ["KernelForcing", "KernelTracers", "check_forced_core", "check_strat_core",
-           "check_tracer_core", "forcing_scal", "forcing_setup", "fused_run_loop",
+__all__ = ["KernelForcing", "KernelTracers", "forcing_scal", "forcing_setup", "fused_run_loop",
            "kernel_forcing", "kernel_live", "kernel_strat", "kernel_tracers",
            "nl_adjoint_scal", "nl_scal", "nl_setup", "pack_levels",
            "structured_auto_run_loop", "tracer_opts", "tracer_planes", "tracer_unplanes"]
@@ -151,15 +150,6 @@ def kernel_forcing(forcing: Forcing | None, mesh: StructMesh, dtype: torch.dtype
                          forcing_scal(forcing, dtype), *used)
 
 
-def check_forced_core(forcing, nonlinear: bool, device) -> None:
-    """The gradient's guard: the nonlinear reverse kernel has no forced arm,
-    so on the card a gradient with forcing and ``nonlinear`` raises (the
-    plain reverse on the CPU runs it; the forward kernels run every
-    combination)."""
-    if forcing is not None and nonlinear and device.type == "cuda":
-        raise NotImplementedError("the nonlinear reverse kernel has no forced arm; take the "
-                                  "gradient of forcing with the linear core, or on the CPU")
-
 
 def tracer_planes(tracers: torch.Tensor) -> torch.Tensor:
     """Lattice tracers (2, ny2, nx, nT, K) as the kernels take them
@@ -207,16 +197,6 @@ def kernel_tracers(state: StructState, mesh: StructMesh, kappa, upwind) -> Kerne
                          *tracer_opts(kappa, upwind, dtype))
 
 
-def check_tracer_core(tracers, nonlinear: bool, forcing, device) -> None:
-    """The gradient's guard: the reverse kernels' tracer arms run the
-    linear, unforced core, so on the card a gradient with tracers and
-    ``nonlinear`` or ``forcing`` raises (the plain reverse on the CPU runs
-    it; the forward kernels run every combination)."""
-    if tracers is not None and device.type == "cuda" and (nonlinear or forcing is not None):
-        raise NotImplementedError("the reverse kernels' tracer arms run the linear, unforced "
-                                  "core; take the gradient of tracers with the nonlinear core "
-                                  "or with forcing on the CPU")
-
 
 def kernel_strat(strat: Stratification | None, dtype: torch.dtype, device):
     """The stratification's W (K, K) as the stratified arms take it: cast
@@ -226,18 +206,6 @@ def kernel_strat(strat: Stratification | None, dtype: torch.dtype, device):
         return None
     return strat.phi_weights.to(dtype=dtype, device=device).contiguous()
 
-
-def check_strat_core(strat, nonlinear: bool, forcing, tracers, device) -> None:
-    """The gradient's guard: the reverse kernels' stratified arms run the
-    linear, unforced, tracer-free core, so on the card a gradient with
-    ``strat`` and ``nonlinear``, ``forcing`` or tracers raises (the plain
-    reverse on the CPU runs every combination; the forward kernels too)."""
-    if strat is not None and device.type == "cuda" and (
-            nonlinear or forcing is not None or tracers is not None):
-        raise NotImplementedError("the reverse kernels' stratified arms run the linear, "
-                                  "unforced, tracer-free core; take the gradient of "
-                                  "stratification with the nonlinear core, forcing or tracers "
-                                  "on the CPU")
 
 
 def kernel_live(mesh: StructMesh):

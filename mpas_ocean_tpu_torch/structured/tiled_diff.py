@@ -43,19 +43,22 @@ card, as the nonlinear forward's does; the plain superstep runs any q.
 
 Tracers (a state's ``tracers``, with ``tracer_kappa=`` and
 ``tracer_upwind=``) are a fourth differentiated field, as in diff_model; on
-the card the tiled adjoint kernel's tracer arm runs them at q = 1, the linear
-unforced core only (a tracer state at q > 1 raises NotImplementedError
-there, as the JAX router takes q = 1 only; the plain superstep runs any q).
+the card the tiled adjoint kernel's tracer arm runs them at q = 1 (a tracer
+state at q > 1 raises NotImplementedError there, as the JAX router takes
+q = 1 only; the plain superstep runs any q).
 
 Layered stratification (``strat=``, its W a differentiated input, as in
-diff_model) runs the stratified arms on the card at q = 1, the linear,
-unforced, tracer-free core only (a stratified q > 1 raises
-NotImplementedError there; the plain superstep runs any q); the tiled
-reverse accumulates d(W) in double beside d(dt).
+diff_model) runs the stratified arms on the card at q = 1 (a stratified
+q > 1 raises NotImplementedError there; the plain superstep runs any q);
+the tiled reverse accumulates d(W) in double beside d(dt).
 
-Momentum forcing (``forcing=``) runs the forced arms, linear core only on
-the card: the tiled reverse accumulates d(wind) per edge (each tile its
-core's, over its q steps) and d(r_lin, Cd, lambda) in double beside d(dt).
+Momentum forcing (``forcing=``) runs the forced arms: the tiled reverse
+accumulates d(wind) per edge (each tile its core's, over its q steps) and
+d(r_lin, Cd, lambda) in double beside d(dt).
+
+At q = 1 the three compose with each other and with either core on the
+card: the linear ones in the tiled adjoint kernel's composed arms, the
+nonlinear ones in the nonlinear reverse kernel's.
 
 A CUDA state runs the kernels, and a failed build, a failed launch or a
 plan that does not fit raises; a CPU state runs the same plan with the plain
@@ -86,6 +89,7 @@ from .diff_model import (
     _forcing_inputs,
     _forward,
     _grads,
+    _kept_end,
     _lattice_state,
     _output_cotangent,
     _planes_state,
@@ -167,33 +171,39 @@ def forced_adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: i
 
 def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *, halo,
                        budget: float = math.inf, row_tile=None, col_tile=None, q=None,
-                       nonlinear: bool = False, n_tracers: int = 0, strat: bool = False):
+                       nonlinear: bool = False, n_tracers: int = 0, strat: bool = False,
+                       forced: bool = False):
     """(row_tile, col_tile, q, group) for the gradient of an n-step rollout
     on ny2 x nx sites and k levels, ``halo`` from ``reverse_halo``: the
     caller's choices completed by ``tiled_model.resolve_plan`` with the
     adjoint's window (by default q = 1 and the largest tile whose window
     leaves room for two blocks per SM, else the largest that fits one; for
     ``nonlinear``, q = 1 and ``adjoint_step.nl_adjoint_plan``'s tile among
-    those that divide the lattice; with ``n_tracers``, the tracer arm's
-    window at q = 1 by default, sized for one block per SM, the arm's launch
-    bounds; with ``strat``, the stratified arm's window at q = 1 by
-    default), and ``group`` supersteps per checkpoint
+    those that divide the lattice, sized with its arms' shared memory; with
+    ``n_tracers``, the tracer arm's window at q = 1 by default, sized for
+    one block per SM, the arm's launch bounds; with ``strat``, the
+    stratified arm's window at q = 1 by default; either with the forced
+    arm's too where ``forced``), and ``group`` supersteps per checkpoint
     group from ``diff_model.adjoint_plan`` over n / q supersteps within
     ``budget`` bytes, a state counting its tracer planes."""
     if nonlinear and (row_tile is None or col_tile is None):
         tiles = [(r, c) for r in _divisors(ny2) for c in _divisors(nx)]
-        rt, ct, _ = adjoint_step.nl_adjoint_plan(ny2, nx, k, itemsize, tiles)
+        rt, ct, _ = adjoint_step.nl_adjoint_plan(ny2, nx, k, itemsize, tiles,
+                                                 n_tracers=n_tracers, strat=strat)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
         q = 1 if q is None else q
     window, budgets = forced_adjoint_window_bytes, ADJOINT_BUDGETS
-    if n_tracers:  # the tracer arm runs q = 1 and one block per SM
+    if nonlinear:  # the nonlinear reverse's own planner sized its tile
+        pass
+    elif n_tracers:  # the tracer arm runs q = 1 and one block per SM
         q = 1 if q is None else q
-        window = functools.partial(adjoint_window_bytes, n_tracers=n_tracers)
+        window = functools.partial(adjoint_window_bytes, forced=forced, n_tracers=n_tracers,
+                                   strat=strat)
         budgets = (tiled_adjoint.SMEM_BYTES,)
     elif strat:  # the stratified arm runs q = 1
         q = 1 if q is None else q
-        window = functools.partial(adjoint_window_bytes, strat=True)
+        window = functools.partial(adjoint_window_bytes, forced=forced, strat=True)
     rt, ct, q = resolve_plan(ny2, nx, k, itemsize, halo, n_steps, row_tile, col_tile, q,
                              window=window, budgets=budgets)
     state_bytes = itemsize * 2 * ny2 * nx * (1 + 4 * k + n_tracers * k)
@@ -361,7 +371,7 @@ class _TiledSteps(_Steps):
 
 
 def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan, nonlinear: bool,
-          strat: bool = False):
+          strat: bool = False, forced: bool = False):
     if plan:
         return tuple(plan)
     h = state.layer_thickness
@@ -370,7 +380,7 @@ def _plan(state: StructState, mesh: StructMesh, n_steps: int, plan, nonlinear: b
     return tiled_adjoint_plan(mesh.ny2, mesh.nx, h.shape[-1], h.element_size(), n_steps,
                               halo=reverse_halo(mesh.coriolis_terms, nl_terms),
                               budget=_default_budget(h.device), nonlinear=nonlinear,
-                              n_tracers=n_tr, strat=strat)
+                              n_tracers=n_tr, strat=strat, forced=forced)
 
 
 def _tiled_steps(mesh, dt, state: StructState, plan, nonlinear, forcing, tropts,
@@ -418,7 +428,7 @@ def tiled_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int
     d_strat_w. ``plan`` = (row_tile, col_tile, q, group) overrides
     ``tiled_adjoint_plan``. Counterpart of ``_pallas_tiled_adjoint``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
-    plan = _plan(state, mesh, n_steps, plan, nonlinear, strat is not None)
+    plan = _plan(state, mesh, n_steps, plan, nonlinear, strat is not None, forcing is not None)
     _check_nl_q(plan, nonlinear, state.layer_thickness.device, state.tracers is not None,
                 strat is not None)
     kw = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind, strat=strat)
@@ -448,7 +458,7 @@ class TiledRolloutDiff(torch.autograd.Function):
         forcing = _save_forcing(ctx, forcing, wind, dlin, dquad, rayl)
         strat = _save_strat(ctx, strat, w)
         plan = _plan(StructState(ssh, h, u, tracers), mesh, n_steps, plan, nonlinear,
-                     strat is not None)
+                     strat is not None, forcing is not None)
         if n_steps % plan[2]:
             raise ValueError(f"q={plan[2]} must divide n_steps={n_steps}")
         _check_nl_q(plan, nonlinear, h.device, tracers is not None, strat is not None)
@@ -457,7 +467,7 @@ class TiledRolloutDiff(torch.autograd.Function):
                                 forcing, ctx.tropts, strat=strat)
         ctx.ckpts, ctx.mesh, ctx.n_steps, ctx.plan = ckpts, mesh, n_steps, plan
         ctx.nonlinear = nonlinear
-        ctx.final = final if tracers is not None else None
+        ctx.final = _kept_end(final, tracers)
         return _state_inputs(_lattice_state(final))
 
     @staticmethod
@@ -487,10 +497,10 @@ def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *
     it), a tensor ``dt``, the forcing's wind and coefficients and the
     stratification's W, with the tiled reverse: forward through ``fe_step``
     on the card, backward through ``tiled_adjoint`` (nonlinear: the
-    nonlinear reverse kernel, q = 1; a nonlinear q > 1, a tracer state or
-    stratification at q > 1, forcing with the nonlinear core, tracers with
-    the nonlinear core or forcing, and stratification with the nonlinear
-    core, forcing or tracers raise on the card). ``plan`` = (row_tile,
+    nonlinear reverse kernel, q = 1), every combination of the core,
+    forcing, tracers and stratification at q = 1 through the kernels'
+    composed arms (a nonlinear q > 1, and a tracer state or stratification
+    at q > 1, raise on the card). ``plan`` = (row_tile,
     col_tile, q, group) overrides ``tiled_adjoint_plan``. The tiled arm of
     ``pallas_rollout_diff``."""
     return StructState(*TiledRolloutDiff.apply(*_state_inputs(state), dt,

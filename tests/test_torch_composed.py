@@ -8,7 +8,7 @@ plain version) against the JAX Pallas kernels in interpret mode
 (``pallas_run_loop`` FE and FB, ``pallas_tiled_run_loop`` FE at q = 1 and
 2); the planners' shared memory of the composed arms; a CPU rehearsal of
 the card's composed wrappers with the kernel library stubbed; and the
-gradient's refusal of the combinations on the card. The CUDA composed arms
+gradient's card steps for the combinations. The CUDA composed arms
 are held against these plain versions on the card
 (tests/test_torch_composed_kernel.py, chip_smoke.py phase 19).
 """
@@ -50,6 +50,7 @@ from torch_port_cases import (
     max_rel_err,
     nl_channel,
     nl_periodic,
+    stub_card,
 )
 
 DT = 5.0
@@ -248,7 +249,7 @@ def test_card_wrappers_pass_the_composed_operands(monkeypatch):
     and the linear ones run forced, with tracers and stratified on the
     channel, each launch counted in every arm's counter, the operands where
     the entries take them and the new tracer planes returned fourth; the
-    reverse's stack rebuild still refuses W with tracers or forcing."""
+    reverse's stack rebuild takes W with forcing."""
     class Lib:
         def __getattr__(self, name):
             setattr(self, name, _Entry())
@@ -300,19 +301,23 @@ def test_card_wrappers_pass_the_composed_operands(monkeypatch):
     # a tile whose composed window does not fit raises before any launch
     with pytest.raises(ValueError):
         fe_step.fe_nl_rollout(*nl_args, 1, tile=(16, 16), ks=4, **arms)
-    # the reverse's rebuild runs the stratified arm unforced and tracer-free
+    # the reverse's rebuild runs the stratified arm forced too
     stack = tuple(torch.zeros((3, *x.shape), dtype=dtype) for x in state)
-    with pytest.raises(ValueError):
-        fe_step.fe_fill_stack(stack, sm.f_edge.contiguous(), rts, *sm.host_stencil, DT, 1e-3,
-                              1e-3, 2, live=arms["live"], forcing=kf, strat_w=w)
+    fe_step.fe_fill_stack(stack, sm.f_edge.contiguous(), rts, *sm.host_stencil, DT, 1e-3,
+                          1e-3, 2, live=arms["live"], forcing=kf, strat_w=w)
+    call = lib.mot_fe_stack_f64.calls[-1]
+    assert call[3] == kf.wind.data_ptr() and call[12] == w.data_ptr()
 
 
-def test_gradients_refuse_the_combinations_on_the_card():
-    """The reverse of the combinations is not ported: the gradient's steps
-    (diff_model._Steps) refuse on a CUDA device, before any kernel runs
-    (NotImplementedError), forcing with the nonlinear core, tracers with
-    the nonlinear core or forcing, and stratification with the nonlinear
-    core, forcing or tracers; a CPU state runs them."""
+def test_gradients_refuse_the_combinations_on_the_card(monkeypatch):
+    """The reverse of the combinations is ported: the gradient's steps
+    (diff_model._Steps) build on a CUDA device (its operands kept on the CPU
+    here, torch_port_cases.stub_card) for forcing with the nonlinear core,
+    tracers with the nonlinear core or forcing, and stratification with the
+    nonlinear core, forcing or tracers, no refusal left, each with its arms'
+    operands and accumulators on hand (the nonlinear reverse's among them);
+    a CPU state runs them."""
+    stub_card(monkeypatch)
     _, smp, _, stp, (_, fp), (_, sp) = _case(16)
     sm = smp.struct_mesh
     cuda = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float64)
@@ -321,6 +326,9 @@ def test_gradients_refuse_the_combinations_on_the_card():
               dict(forcing=fp, strat=sp), dict(tracers=True, strat=sp),
               dict(nonlinear=True, forcing=fp, tracers=True, strat=sp)]
     for kw in combos:
-        with pytest.raises(NotImplementedError):
-            diff_model._Steps(sm, DT, cuda, **kw)
+        steps = diff_model._Steps(sm, DT, cuda, **kw)
+        assert steps.cuda and (steps.kf is not None) == ("forcing" in kw)
+        assert (steps.dforc is not None) == ("forcing" in kw)
+        assert (steps.sw is not None) == ("strat" in kw) == (steps.dstrat is not None)
+        assert hasattr(steps, "nl_adj") == ("nonlinear" in kw)
         diff_model._Steps(sm, DT, stp.layer_thickness, **kw)

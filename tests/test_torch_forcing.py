@@ -34,7 +34,6 @@ from mpas_ocean_tpu_torch.structured import (
     structured_step,
 )
 from mpas_ocean_tpu_torch.structured.fused_model import (
-    check_forced_core,
     forcing_scal,
     forcing_setup,
     pack_levels,
@@ -49,6 +48,7 @@ from torch_port_cases import (
     forced_lattice,
     jax_forcing_dict,
     max_rel_err,
+    stub_card,
 )
 
 DT = 5.0
@@ -240,27 +240,28 @@ def test_forcing_carries_across_bitwise():
         assert np.array_equal(back[name], w), name
 
 
-def test_forced_nonlinear_core_is_refused_on_the_card_only():
-    """The gradient's guard: the nonlinear reverse kernel has no forced arm,
-    so the gradient's steps (diff_model._Steps) refuse forcing with the
-    nonlinear core for a CUDA state, before any kernel runs, and run it for
-    a CPU state; the guard itself raises for a CUDA device only and lets
-    the linear core through. (The forward kernels run the combination:
-    tests/test_torch_composed.py.)"""
+def test_forced_nonlinear_core_is_refused_on_the_card_only(monkeypatch):
+    """The nonlinear reverse kernel has a forced arm now, so no guard is
+    left: the gradient's steps (diff_model._Steps) build forcing with the
+    nonlinear core for a CUDA state (its operands kept on the CPU here,
+    torch_port_cases.stub_card), with the forced operands and the d(wind)
+    (6, ny2, nx) and f64 d(coefs) accumulators the nonlinear reverse takes,
+    as for the linear core, and run it for a CPU state. (The kernels:
+    tests/test_torch_composed_adjoint_kernel.py.)"""
     from types import SimpleNamespace
 
     from mpas_ocean_tpu_torch.structured import diff_model
 
+    stub_card(monkeypatch)
     _, smp, _, stp, _, sfp = forced_lattice(8, 2)
+    sm = smp.struct_mesh
     cuda = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        diff_model._Steps(smp.struct_mesh, 5.0, cuda, True, forcing=sfp)
-    diff_model._Steps(smp.struct_mesh, 5.0, stp.layer_thickness, True, forcing=sfp)
-    with pytest.raises(NotImplementedError):
-        check_forced_core(sfp, True, torch.device("cuda"))
-    check_forced_core(sfp, True, torch.device("cpu"))
-    check_forced_core(sfp, False, torch.device("cuda"))
-    check_forced_core(None, True, torch.device("cuda"))
+    for nonlinear in (True, False):
+        steps = diff_model._Steps(sm, 5.0, cuda, nonlinear, forcing=sfp)
+        assert steps.kf is not None and hasattr(steps, "nl_adj") == nonlinear
+        assert tuple(steps.dforc.wind.shape) == (6, sm.ny2, sm.nx)
+        assert steps.dforc.coefs.dtype == torch.float64
+    diff_model._Steps(sm, 5.0, stp.layer_thickness, True, forcing=sfp)
 
 
 def test_forced_state_stays_a_struct_state():

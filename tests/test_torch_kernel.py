@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import mpas_ocean_tpu_torch as mt
-from mpas_ocean_tpu_torch.kernels import fe_step, tiled_step
+from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_step
 from mpas_ocean_tpu_torch.structured import fused_model, fused_run_loop, structured_run_loop
 
 from torch_gpu_cases import (  # noqa: F401 (fixture)
@@ -371,9 +371,10 @@ def test_forced_stack_is_the_rollout_bitwise(cuda):
 
 def test_forced_nonlinear_raises_on_the_card(cuda):
     """Forcing with nonlinear=True, which the card refused before the
-    nonlinear kernels' forced arm was ported, now runs forward on every
+    nonlinear kernels' forced arms were ported, now runs forward on every
     route (FE and FB) within 1e-12 of the plain steps, each launch a forced
-    one; its gradient still raises on the card and runs nothing."""
+    one, and its gradient runs too: finite, through the nonlinear reverse's
+    forced arm (2 forced reverse launches)."""
     model, st = random_lattice(16, 16, 4, cuda)
     sm = model.struct_mesh
     forcing = random_forcing(model)
@@ -384,7 +385,10 @@ def test_forced_nonlinear_raises_on_the_card(cuda):
         ref = structured_run_loop(st, sm, 10.0, 2, nonlinear=True, fb=fb, forcing=forcing)
         assert max(forward_errors(out, ref, sm).values()) <= 1e-12
         assert fe_step.forced_launches + tiled_step.forced_launches == 2
-    before = fe_step.launches
-    with pytest.raises(NotImplementedError):
-        mt.auto_rollout_diff(st, sm, 10.0, 2, nonlinear=True, forcing=forcing)
-    assert fe_step.launches == before
+    adjoint_step.nl_forced_launches = 0
+    x = [getattr(st, f).clone().requires_grad_(True) for f in FIELDS]
+    out = mt.auto_rollout_diff(mt.structured.StructState(*x), sm, 10.0, 2, nonlinear=True,
+                               forcing=forcing)
+    grads = torch.autograd.grad((out.ssh ** 2).sum(), x)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert adjoint_step.nl_forced_launches == 2

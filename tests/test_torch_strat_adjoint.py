@@ -74,7 +74,14 @@ from mpas_ocean_tpu_torch.structured.adjoint import ForcingCot
 from mpas_ocean_tpu_torch.structured.tiled_diff import adjoint_window_bytes
 
 from torch_gpu_cases import integer_strat_case
-from torch_port_cases import FULL_FORCING, STATE_FIELDS, max_rel_err, nl_channel, nl_periodic
+from torch_port_cases import (
+    FULL_FORCING,
+    STATE_FIELDS,
+    max_rel_err,
+    nl_channel,
+    nl_periodic,
+    stub_card,
+)
 
 DT = 5.0
 K = 4
@@ -483,7 +490,8 @@ def test_card_routes_pass_the_stratified_operands(monkeypatch):
     stratified one (7 forward, 4 rebuild and 7 reverse launches per route),
     each entry gets W where its stratified pointer goes, the reverse entries
     a d(W) accumulator of (tiles, K, K) doubles and d(W) (K, K); W of the
-    wrong shape, a W without its d(W) and a W with forcing raise."""
+    wrong shape and a W without its d(W) raise, and a W with forcing runs
+    the composed arm (the wind where its pointer goes)."""
     lib = _Lib()
     monkeypatch.setattr(build, "load", lambda: lib)
     for m in (fe_step, adjoint_step, tiled_adjoint):
@@ -527,29 +535,36 @@ def test_card_routes_pass_the_stratified_operands(monkeypatch):
     assert len(lib.mot_adjoint_rollout_f64.calls) == calls + 1
     forced = dict(forcing=SimpleNamespace(
         wind=torch.zeros(6, sm.ny2, sm.nx, dtype=torch.float64),
-        levels=torch.zeros(6, sm.ny2, sm.nx, dtype=torch.int32), coefs=(0.0, 0.0, 0.0)),
+        levels=torch.zeros(6, sm.ny2, sm.nx, dtype=torch.int32), coefs=(0.0, 0.0, 0.0),
+        top_levels=(0,), bottom_levels=(K - 1,)),
         dforc=ForcingCot(torch.zeros(6, sm.ny2, sm.nx, dtype=torch.float64),
                          torch.zeros(3, dtype=torch.float64)))
-    for bad in (dict(strat_w=w[:2], dstrat=dw), dict(strat_w=w), dict(strat_w=w, dstrat=dw[:2]),
-                dict(strat_w=w, dstrat=dw, **forced)):
+    for bad in (dict(strat_w=w[:2], dstrat=dw), dict(strat_w=w), dict(strat_w=w, dstrat=dw[:2])):
         with pytest.raises(ValueError):
             adjoint_step.adjoint_rollout(*args, **bad)
+    adjoint_step.adjoint_rollout(*args, strat_w=w, dstrat=dw, **forced)
+    call = lib.mot_adjoint_rollout_f64.calls[-1]
+    assert call[2] == forced["forcing"].wind.data_ptr() and call[29] == w.data_ptr()
 
 
 def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(monkeypatch):
     """On the card (no card needed: the checks read the device's type
-    only) the stratified reverse with the nonlinear core, forcing or tracers
-    raises NotImplementedError, and so does a stratified tiled reverse at
-    q > 1, in the steps and in the wrapper; the CPU runs every combination
-    (the tests above)."""
+    only; the steps' operands kept on the CPU, torch_port_cases.stub_card)
+    the stratified reverse builds with the nonlinear core, forcing and
+    tracers, on either route at q = 1 (the composed arms), and only a
+    stratified tiled reverse at q > 1 raises NotImplementedError, in the
+    steps and in the wrapper; the CPU runs every combination (the tests
+    above)."""
+    stub_card(monkeypatch)
     _, smp, _, _, mj, mp = _lattice()
     sm = smp.struct_mesh
     _, sp = _strats("rho")
     like = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
     forcing = smp.to_struct_forcing(mt.make_forcing(mp, **FULL_FORCING))
     for kw in (dict(nonlinear=True), dict(forcing=forcing), dict(tracers=True)):
-        with pytest.raises(NotImplementedError):
-            diff_model._Steps(sm, DT, like, strat=sp, **kw)
+        for steps in (diff_model._Steps(sm, DT, like, strat=sp, **kw),
+                      tiled_diff._TiledSteps(sm, DT, like, (4, 8, 1, 1), strat=sp, **kw)):
+            assert steps.sw is not None and steps.dstrat is not None
     with pytest.raises(NotImplementedError):
         tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), strat=sp)
     with pytest.raises(NotImplementedError):

@@ -255,18 +255,28 @@ def test_strat_grad_launch_counts(cuda, route):
 
 
 def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(cuda):
-    """On the card the stratified gradients raise NotImplementedError with
-    the nonlinear core, with forcing, with tracers, and on the tiled route at
-    q > 1; tiled_adjoint's wrapper refuses a stratified q > 1 itself."""
+    """On the card the stratified gradients run with the nonlinear core,
+    with forcing and with tracers (the composed arms: a finite, nonzero
+    d(W)), and raise NotImplementedError only on the tiled route at q > 1;
+    tiled_adjoint's wrapper refuses a stratified q > 1 itself."""
     model, st = _lattice(False, 32, 6, cuda, np.float32)
     sm, strat = model.struct_mesh, stratification(6, "rho", np.float32)
     forcing = random_forcing(model)
-    for call in (lambda: fused_rollout_diff(st, sm, DT, 2, nonlinear=True, strat=strat),
-                 lambda: auto_rollout_diff(st, sm, DT, 2, forcing=forcing, strat=strat),
-                 lambda: auto_rollout_diff(with_tracers(model, st), sm, DT, 2, strat=strat),
-                 lambda: tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1), strat=strat)):
-        with pytest.raises(NotImplementedError):
-            call()
+
+    def d_w(route, s, **kw):
+        w = strat.phi_weights.clone().requires_grad_(True)
+        x = [getattr(s, f).clone().requires_grad_(True) for f in FIELDS]
+        out = route(StructState(*x, s.tracers), sm, DT, 2,
+                    strat=Stratification(w, strat.densities), **kw)
+        return torch.autograd.grad((out.ssh ** 2).sum(), [w])[0]
+
+    for route, s, kw in ((fused_rollout_diff, st, dict(nonlinear=True)),
+                         (auto_rollout_diff, st, dict(forcing=forcing)),
+                         (auto_rollout_diff, with_tracers(model, st), {})):
+        dw = d_w(route, s, **kw)
+        assert bool(torch.isfinite(dw).all()) and float(dw.abs().max()) > 0
+    with pytest.raises(NotImplementedError):
+        tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1), strat=strat)
     stack, w, _ = strat_stack(st, sm, DT, 2, strat)
     g = _cotangent(st)
     with pytest.raises(NotImplementedError):

@@ -51,7 +51,6 @@ from mpas_ocean_tpu_torch.structured import (
 )
 from mpas_ocean_tpu_torch.structured.fused_model import (
     KernelTracers,
-    check_strat_core,
     kernel_live,
     kernel_strat,
 )
@@ -62,7 +61,14 @@ from mpas_ocean_tpu_torch.structured.tiled_model import (
     window_bytes,
 )
 
-from torch_port_cases import FULL_FORCING, STATE_FIELDS, max_rel_err, nl_channel, nl_periodic
+from torch_port_cases import (
+    FULL_FORCING,
+    STATE_FIELDS,
+    max_rel_err,
+    nl_channel,
+    nl_periodic,
+    stub_card,
+)
 
 DT = 5.0
 K = 4
@@ -318,30 +324,29 @@ def test_kernel_strat_casts_as_the_jax_setup(dtype):
     assert kernel_strat(None, dtype, torch.device("cpu")) is None
 
 
-def test_card_refuses_strat_with_nonlinear_forcing_or_tracers():
-    """The gradient's guard, check_strat_core: it raises NotImplementedError
-    for a CUDA device with the nonlinear core, forcing or tracers (the
-    reverse kernels' stratified arms run the linear, unforced, tracer-free
-    core), and passes that core and the CPU (no card needed: the check reads
-    the device's type only); the gradient's steps refuse the same for a
-    CUDA state, before any kernel runs. (The forward kernels run the
-    combinations: tests/test_torch_composed.py.)"""
-    from mpas_ocean_tpu_torch.structured import diff_model
+def test_card_refuses_strat_with_nonlinear_forcing_or_tracers(monkeypatch):
+    """The reverse kernels' stratified arms run with either core, forcing
+    and tracers now, so no guard is left: the gradient's steps build
+    stratification with the nonlinear core, with forcing and with tracers
+    for a CUDA state (its operands kept on the CPU here,
+    torch_port_cases.stub_card), W in the state dtype and a (K, K) d(W)
+    accumulator in double on hand, and only a stratified tiled reverse at
+    q > 1 still raises NotImplementedError there. (The kernels:
+    tests/test_torch_composed_adjoint_kernel.py.)"""
+    from mpas_ocean_tpu_torch.structured import diff_model, tiled_diff
 
-    strat, cuda, cpu = make_stratification(RHO), torch.device("cuda"), torch.device("cpu")
-    tr = torch.zeros(1)
-    for kw in (dict(nonlinear=True), dict(forcing=object()), dict(tracers=tr)):
-        args = dict(nonlinear=False, forcing=None, tracers=None) | kw
-        with pytest.raises(NotImplementedError):
-            check_strat_core(strat, device=cuda, **args)
-        check_strat_core(strat, device=cpu, **args)
-        check_strat_core(None, device=cuda, **args)
-    check_strat_core(strat, False, None, None, cuda)
-    _, smp, _, _, _, _ = _lattice(False)
-    like = SimpleNamespace(device=cuda, dtype=torch.float64)
-    for kw in (dict(nonlinear=True), dict(tracers=True)):
-        with pytest.raises(NotImplementedError):
-            diff_model._Steps(smp.struct_mesh, DT, like, strat=strat, **kw)
+    stub_card(monkeypatch)
+    strat, cuda = make_stratification(RHO), torch.device("cuda")
+    _, smp, _, _, _, mp = _lattice(False)
+    forcing = smp.to_struct_forcing(mt.make_forcing(mp, wind_stress_zonal=0.1))
+    like = SimpleNamespace(device=cuda, dtype=torch.float32)
+    for kw in (dict(nonlinear=True), dict(forcing=forcing), dict(tracers=True)):
+        steps = diff_model._Steps(smp.struct_mesh, DT, like, strat=strat, **kw)
+        assert steps.sw.dtype == torch.float32 and tuple(steps.sw.shape) == (K, K)
+        assert steps.dstrat.dtype == torch.float64 and tuple(steps.dstrat.shape) == (K, K)
+    tiled_diff._check_nl_q((4, 8, 1, 1), False, cuda, strat=True)
+    with pytest.raises(NotImplementedError):
+        tiled_diff._check_nl_q((4, 8, 2, 1), False, cuda, strat=True)
 
 
 def test_planners_count_the_stratified_shared_memory():
@@ -374,8 +379,8 @@ def test_card_wrappers_pass_the_stratified_operands(monkeypatch):
     library stubbed by functions that check each call's argument count and
     types against its argtypes, fe_step.fe_rollout and tiled_step.
     tiled_rollout run with strat_w on a channel, each launch counted as a
-    stratified one; W of the wrong shape raises; W with tracers runs, and
-    the reverse's stack rebuild refuses it."""
+    stratified one; W of the wrong shape raises; W with tracers runs, in the
+    forward and in the reverse's stack rebuild (the composed arms)."""
     class Entry:
         def __init__(self):
             self.argtypes = None
@@ -434,9 +439,11 @@ def test_card_wrappers_pass_the_stratified_operands(monkeypatch):
                              kt.kappa, kt.upwind)
     fe_step.check_tracer_stack(kt_stack, kernel_live(sm), 3, *stp.layer_thickness.shape[1:],
                                torch.float64, torch.device("cpu"))
-    with pytest.raises(ValueError, match="unforced and tracer-free"):
-        fe_step.fe_fill_stack(stack, *args[3:], 2, live=kernel_live(sm), tracers=kt_stack,
-                              strat_w=w)
+    fe_step.fe_fill_stack(stack, *args[3:], 2, live=kernel_live(sm), tracers=kt_stack,
+                          strat_w=w)
+    assert (fe_step.launches, fe_step.strat_launches) == (9, 9)
+    call = lib.mot_fe_stack_f64.calls[-1]
+    assert call[10] == kt_stack.planes.data_ptr() and call[12] == w.data_ptr()
 
 
 def test_internal_wave_half_period_fb():

@@ -142,17 +142,21 @@ def test_tracer_gradients_on_the_card_match_the_cpu(cuda, masked, route):
 
 
 def test_card_refuses_tracers_where_no_arm_runs_them(cuda):
-    """On the card, the gradients raise NotImplementedError for a tracer
-    state with the nonlinear core, with forcing, and on the tiled route at
+    """On the card, the gradients of a tracer state run with the nonlinear
+    core and with forcing (the composed arms: the tracers' cotangent finite
+    and nonzero), and raise NotImplementedError only on the tiled route at
     q > 1; tiled_adjoint's wrapper refuses tracers at q > 1 itself."""
     model, st = _lattice(False, cuda, dtype=np.float32)
     sm = model.struct_mesh
     forcing = random_forcing(model)
-    for call in (lambda: fused_rollout_diff(st, sm, 10.0, 2, nonlinear=True),
-                 lambda: auto_rollout_diff(st, sm, 10.0, 2, forcing=forcing),
-                 lambda: tiled_rollout_diff(st, sm, 10.0, 4, plan=(4, 8, 2, 1))):
-        with pytest.raises(NotImplementedError):
-            call()
+    for route, kw in ((fused_rollout_diff, dict(nonlinear=True)),
+                      (auto_rollout_diff, dict(forcing=forcing))):
+        x = [getattr(st, f).clone().requires_grad_(True) for f in TRACER_FIELDS]
+        out = route(StructState(*x), sm, 10.0, 2, **kw)
+        d_tr = torch.autograd.grad((out.tracers ** 2).sum(), x[3])[0]
+        assert bool(torch.isfinite(d_tr).all()) and float(d_tr.abs().max()) > 0
+    with pytest.raises(NotImplementedError):
+        tiled_rollout_diff(st, sm, 10.0, 4, plan=(4, 8, 2, 1))
     stack, kt, end = tracer_stack(st, sm, 10.0, 2, 0.0, 1.0)
     g = _cotangent(st)
     with pytest.raises(NotImplementedError):

@@ -51,7 +51,6 @@ from mpas_ocean_tpu_torch.structured import (
     tiled_run_loop,
 )
 from mpas_ocean_tpu_torch.structured.fused_model import (
-    check_tracer_core,
     kernel_tracers,
     tracer_opts,
     tracer_planes,
@@ -70,6 +69,7 @@ from torch_port_cases import (
     max_rel_err,
     nl_channel,
     nl_periodic,
+    stub_card,
 )
 
 DT = 5.0
@@ -521,24 +521,26 @@ def test_gradients_carry_tracers_as_jax_does(entry):
         assert e <= 1e-12, (f, e)
 
 
-def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card():
-    """The reverse's steps refuse, on a CUDA device, tracers with the
-    nonlinear core or with forcing (NotImplementedError, before any kernel
-    runs) and a tracer state at q > 1 on the tiled route; on the CPU the
-    gradients run those combinations, here against jax.vjp of the JAX roll
-    model within 1e-12 of scale."""
+def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card(monkeypatch):
+    """The reverse's steps build, on a CUDA device (their operands kept on
+    the CPU here, torch_port_cases.stub_card), tracers with the nonlinear
+    core, with forcing and with both, and still refuse a tracer state at
+    q > 1 on the tiled route (NotImplementedError); on the CPU the gradients
+    run those combinations, here against jax.vjp of the JAX roll model
+    within 1e-12 of scale."""
     from types import SimpleNamespace
 
     from mpas_ocean_tpu.models.forcing import make_forcing as jax_make_forcing
     from mpas_ocean_tpu_torch.structured import diff_model, tiled_diff
 
+    stub_card(monkeypatch)
     smj, smp, stj, stp, mj, mp = tracer_lattice(16, 2)
     sm = smp.struct_mesh
     fp = smp.to_struct_forcing(mt.make_forcing(mp, **FULL_FORCING))
     like = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
     for nonlinear, f in ((True, None), (False, fp), (True, fp)):
-        with pytest.raises(NotImplementedError):
-            diff_model._Steps(sm, DT, like, nonlinear, forcing=f, tracers=True)
+        steps = diff_model._Steps(sm, DT, like, nonlinear, forcing=f, tracers=True)
+        assert steps.tracers and hasattr(steps, "nl_adj") == nonlinear
     with pytest.raises(NotImplementedError):
         tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cuda"), True)
     tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cpu"), True)
@@ -556,24 +558,31 @@ def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card
             assert e <= 1e-12, (nonlinear, forced, f, e)
 
 
-def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing():
-    """The gradient's guard, check_tracer_core: it raises
-    NotImplementedError on a CUDA device for tracers with the nonlinear core
-    and with forcing (the reverse kernels' tracer arms run the linear,
-    unforced core), and passes tracers alone, a CPU device and a state
-    without tracers; the gradient's steps call it for a CPU state too, and
-    run there. (The forward kernels run the combinations:
-    tests/test_torch_composed.py.)"""
-    from mpas_ocean_tpu_torch.structured import diff_model
+def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing(monkeypatch):
+    """The reverse kernels' tracer arms run with either core and with
+    forcing now, so no guard is left: the gradient's steps build tracers
+    with the nonlinear core, with forcing and with both, for a CUDA state
+    (its operands kept on the CPU here, torch_port_cases.stub_card), their
+    tracer operands on hand (the cell mask, kappa and upwind rounded to the
+    state dtype), and for a CPU state; only the tiled route at q > 1 still
+    refuses a tracer state on the card. (The kernels:
+    tests/test_torch_composed_adjoint_kernel.py.)"""
+    from types import SimpleNamespace
 
+    from mpas_ocean_tpu_torch.structured import diff_model, tiled_diff
+
+    stub_card(monkeypatch)
     _, smp, _, stp, _, mp = tracer_lattice(16, 2)
     forcing = smp.to_struct_forcing(mt.make_forcing(mp, **FULL_FORCING))
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cuda = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
     for nonlinear, f in ((True, None), (False, forcing), (True, forcing)):
-        with pytest.raises(NotImplementedError):
-            check_tracer_core(stp.tracers, nonlinear, f, cuda)
-        check_tracer_core(stp.tracers, nonlinear, f, cpu)
-        check_tracer_core(None, nonlinear, f, cuda)
+        steps = diff_model._Steps(smp.struct_mesh, DT, cuda, nonlinear, forcing=f, tracers=True,
+                                  tracer_kappa=5.0, tracer_upwind=0.5)
+        kt = steps.kernel_tracers(torch.zeros(1))
+        assert kt.cell_mask is None and (kt.kappa, kt.upwind) == (5.0, 0.5)
+        assert (steps.kf is not None) == (f is not None)
         diff_model._Steps(smp.struct_mesh, DT, stp.layer_thickness, nonlinear, forcing=f,
                           tracers=True)
-    check_tracer_core(stp.tracers, False, None, cuda)
+        tiled_diff._check_nl_q((4, 8, 1, 1), False, torch.device("cuda"), True)
+        with pytest.raises(NotImplementedError):
+            tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cuda"), True)

@@ -10,6 +10,16 @@ import pytest
 import torch
 
 import mpas_ocean_tpu_torch as mt
+from mpas_ocean_tpu_torch.tools.composed_reverse import (  # noqa: F401 (the GPU tests' helpers)
+    COMPOSED_COMBOS,
+    composed_ddt_scale,
+    composed_errors,
+    composed_reverse,
+    composed_stack,
+    composed_state,
+    composed_steps,
+    plain_composed_reverse,
+)
 
 FIELDS = ("ssh", "layer_thickness", "normal_velocity")
 
@@ -697,3 +707,22 @@ def strat_reverse_errors(a, b, ddt_scale, w_scale) -> dict:
     e = float((a[2] - b[2]).abs().max())
     out["d_w"] = (e, e / w_scale)
     return out
+
+
+# ---- the composed reverse (tests/test_torch_composed_adjoint_kernel.py; the
+# runs and errors in mpas_ocean_tpu_torch/tools/composed_reverse.py) --------
+
+def composed_case(opts, n, k, channel, device, dtype=np.float64, seed=7):
+    """(model, state, forcing, stratification) of a combination ``opts`` (a
+    string of N, F, T, S) on a random n x n lattice of k 10 m layers,
+    periodic or the channel: u of 0.5 m/s with N (so that the nonlinear
+    terms matter), 0.01 m/s without; two random tracers with T
+    (``with_tracers``), random winds, levels and coefficients with F
+    (``random_forcing``), a dense random W with S; None for an option off."""
+    model, st = (channel_lattice if channel else random_lattice)(
+        n, n, k, device, seed=seed, dc=1e4, dtype=dtype, u_amp=0.5 if "N" in opts else 0.01)
+    if "T" in opts:
+        st = with_tracers(model, st)
+    forcing = random_forcing(model) if "F" in opts else None
+    strat = stratification(k, "dense", dtype) if "S" in opts else None
+    return model, st, forcing, strat

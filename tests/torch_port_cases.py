@@ -177,3 +177,64 @@ def forced_lattice(n, k, channel=False, seed=5, **forcing_kw):
 
 def jax_forcing_dict(forcing) -> dict:
     return {f.name: np.asarray(getattr(forcing, f.name)) for f in dataclasses.fields(forcing)}
+
+
+# ---- the card's routes rehearsed on the CPU (tests/test_torch_composed_adjoint.py
+# and the gradients' card checks) ---------------------------------------------
+
+class StubEntry:
+    """A stubbed kernel entry: checks each call's argument count and types
+    against its argtypes, keeps the calls and returns 0."""
+
+    def __init__(self):
+        self.argtypes = None
+        self.calls = []
+
+    def __call__(self, *args):
+        import ctypes
+
+        assert len(args) == len(self.argtypes)
+        for a, t in zip(args, self.argtypes):
+            want = {ctypes.c_void_p: (int, type(None)), ctypes.c_double: (float,),
+                    ctypes.c_int: (int,)}[t]
+            assert isinstance(a, want) and not isinstance(a, bool)
+        self.calls.append(args)
+        return 0
+
+
+class StubLib:
+    """The kernel library stubbed: every entry a StubEntry."""
+
+    def __getattr__(self, name):
+        setattr(self, name, StubEntry())
+        return getattr(self, name)
+
+
+def stub_card(monkeypatch) -> StubLib:
+    """The card's steps and wrappers on the CPU: the kernel library stubbed
+    (StubLib), the wrappers' lattice_dims taking CPU tensors, the steps'
+    operands (the forcing's, W) and accumulators kept on the CPU, and every
+    launch counter at 0. Returns the stub library."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, build, fe_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.structured import diff_model
+
+    lib = StubLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    for m in (fe_step, adjoint_step, tiled_adjoint):
+        monkeypatch.setattr(m, "lattice_dims", lambda h, name="fe_step": tuple(h.shape[1:]))
+        for c in [c for c, v in vars(m).items() if c.endswith("launches") and isinstance(v, int)]:
+            monkeypatch.setattr(m, c, 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: SimpleNamespace(cuda_stream=0))
+    zeros, kernel_forcing = torch.zeros, diff_model.kernel_forcing
+    monkeypatch.setattr(torch, "zeros", lambda *a, device=None, **kw: zeros(*a, **kw))
+    monkeypatch.setattr(diff_model, "kernel_strat",
+                        lambda s, dtype, device: None if s is None
+                        else s.phi_weights.to(dtype).contiguous())
+    monkeypatch.setattr(diff_model, "kernel_forcing",
+                        lambda f, mesh, dtype, device: kernel_forcing(f, mesh, dtype, "cpu"))
+    return lib
