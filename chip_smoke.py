@@ -96,7 +96,7 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      monotone upwinding and culled cells on the card; f32 100-step checks
      on bench.py's tracers at 64^2 and 256^2 with a bf16 control; the
      gradient with tracers and the nonlinear core or forcing (finite, held
-     in phase 20) and the tiled reverse's refusal of tracers at q > 1;
+     in phase 20) and through the tiled reverse at q = 2 (held in phase 21);
      the main paths from to_struct
      (bench.py's two-tracer 64x64x100 FE rollout over 8000 steps,
      256x256x100 FE and FB, the 64^2 channel FE with kappa 5) with exact
@@ -143,7 +143,7 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      forward's; the dot-product identity with a direction in W; f32 100
      reverse steps with bench.py's densities by the distance from an f64
      reverse with a bf16 control; the stratified gradient with the other
-     options (finite) and the tiled q > 1 refusal; the slice's gradients of
+     options (finite) and the tiled route at q = 2; the slice's gradients of
      sum ssh^2 w.r.t. the state, dt and W from to_struct (64^2 IGW and
      channel over 4000 steps through auto_rollout_diff, 256^2 over 100
      through both routes) with exact stratified launch counts (7937
@@ -189,6 +189,22 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      launch beside each option's reverse alone and its bound, with
      bench.py's tracer options. ``python3
      chip_smoke.py --composed-reverse-only`` runs phases 1, 2, 9 and 20
+     alone;
+ 21. temporal blocking, q > 1: kernel 2's nonlinear arms at q > 1 (the
+     q-step kernel, csrc/nl_tiled.cuh) and kernel 4's tracer and stratified
+     arms at q > 1: the q-step instantiations' ptxas summary; f64, every
+     combination of forcing, tracers and stratification with the nonlinear
+     core at q = 2, 3 (FE and FB, periodic and channel, 4 and 36 levels)
+     and tiled_adjoint's T, S, TS, FT, FS and FTS arms at q = 2, 3 against
+     the plain versions to 1e-12 of scale, reruns bitwise, drop-one
+     controls >= 100x off, a composition no tile fits refused; FB q = 3 in
+     f32; the q = 2 gradient's dot-product identity; f32 after 100 steps at
+     64^2 and 256^2 x 100 with a bf16 control; the main paths from to_struct
+     with n / q launches; q = 2 against q = 1 in the same call (the
+     nonlinear FE and FB alone and with all four options over 200 steps at
+     256^2 and 1000 at 64^2, the FTS gradient at 256^2, tiled_adjoint per
+     launch).
+     ``python3 chip_smoke.py --window-only`` runs phases 1, 2, 9 and 21
      alone.
 After phase 8 the tracer-free 256x256x100 100-step gradients through
 fused_rollout_diff and tiled_rollout_diff are timed again in a fresh process
@@ -3518,8 +3534,8 @@ def tracer_phase(gpu: str, log_text: str) -> list:
     control; uniform T, conserved content, monotone upwinding and culled
     cells on the card (tests/test_tracers.py); the gradient of tracers with
     the nonlinear core and with forcing (finite: the composed reverse, held
-    in phase 20) and the refusal of the tiled reverse with tracers at
-    q > 1; the main paths
+    in phase 20) and through the tiled reverse at q = 2 (held in phase 21);
+    the main paths
     from to_struct
     (bench.py's 64^2 x 100 two-tracer FE rollout over HEADLINE_STEPS, 256^2
     FE and FB, the 64^2 channel FE with kappa 5) timed beside the tracer-free
@@ -3537,6 +3553,7 @@ def tracer_phase(gpu: str, log_text: str) -> list:
         fused_run_loop,
         structured_auto_run_loop,
         structured_run_loop,
+        tiled_adjoint_plan,
         tiled_rollout_diff,
         tiled_run_loop,
     )
@@ -3553,18 +3570,7 @@ def tracer_phase(gpu: str, log_text: str) -> list:
     def counts():
         return {m.__name__.rsplit(".", 1)[-1]: (m.launches, m.tracer_launches) for m in counters}
 
-    def with_tracers(model, st, seed=3):
-        """st with two random tracers (a wave in x plus noise, 35 plus noise),
-        0 on culled cells."""
-        ny2, nx, k = st.layer_thickness.shape[1:]
-        rng = np.random.default_rng(seed)
-        x = np.arange(nx)[None, None, :, None] / nx
-        tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
-                       35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
-        if model.cell_mask is not None:
-            tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
-        return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
-                           torch.from_numpy(tr).to(st.layer_thickness))
+    with_tracers = random_tracers
 
     def errors(out, ref, mesh) -> dict:
         errs = field_errors(out, ref, mesh.resting_thickness_sum)
@@ -3780,22 +3786,18 @@ def tracer_phase(gpu: str, log_text: str) -> list:
         horz, LEVELS, resting_thickness=np.full((horz.n_cells, LEVELS), 10.0, dtype=np.float32),
         dtype=np.float32)), dtype=np.float32, **BENCH_FORCING))
     # the gradient with tracers and the nonlinear core or forcing runs (the
-    # composed reverse, phase 20); at q > 1 the tiled reverse still refuses
+    # composed reverse, phase 20), and the tiled reverse at q = 2 (phase 21)
+    q2 = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, 4, halo=(1, 2), q=2, n_tracers=2)
     for label, route, kw in (("auto_rollout_diff nonlinear", auto_rollout_diff,
                               dict(nonlinear=True)),
                              ("tiled_rollout_diff forced", tiled_rollout_diff,
-                              dict(forcing=forcing))):
-        if not grad_runs(route, st_t, sm, 2, **kw):
+                              dict(forcing=forcing)),
+                             (f"tiled_rollout_diff q = 2 {q2}", tiled_rollout_diff,
+                              dict(plan=q2))):
+        if not grad_runs(route, st_t, sm, 4, **kw):
             raise AssertionError(f"the gradient {label} with tracers is not finite")
-    try:
-        tiled_rollout_diff(st_t, sm, DT, 4, plan=(4, 8, 2, 1))
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("tiled_rollout_diff q = 2 with tracers ran on the card")
-    log("[15] the gradient with tracers on the card: nonlinear (auto_rollout_diff) and forced "
-        "(tiled_rollout_diff) run, finite; tiled_rollout_diff q = 2 refused "
-        "(NotImplementedError)")
+    log(f"[15] the gradient with tracers on the card: nonlinear (auto_rollout_diff), forced "
+        f"(tiled_rollout_diff) and tiled_rollout_diff at q = 2 (plan {q2}) run, finite")
 
     # the main paths from to_struct, timed beside the tracer-free arm
     times, launches = {}, {}
@@ -3980,16 +3982,7 @@ def tracer_reverse_phase(gpu: str, log_text: str) -> list:
     def counts():
         return {m.__name__.rsplit(".", 1)[-1]: (m.launches, m.tracer_launches) for m in counters}
 
-    def with_tracers(model, st, seed=3):
-        ny2, nx, k = st.layer_thickness.shape[1:]
-        rng = np.random.default_rng(seed)
-        x = np.arange(nx)[None, None, :, None] / nx
-        tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
-                       35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
-        if model.cell_mask is not None:
-            tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
-        return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
-                           torch.from_numpy(tr).to(st.layer_thickness))
+    with_tracers = random_tracers
 
     def random_g(st, seed):
         rng = np.random.default_rng(seed)
@@ -4865,8 +4858,8 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
     failing it; one f32 reverse step on integer data whose sums in double
     are exact: both arms' d(W) bitwise the exact sums, the sums in float
     not; the stratified gradient with the nonlinear core, forcing and
-    tracers (finite; phase 20 holds it) and the tiled route's refusal at
-    q > 1; the slice's gradients of sum ssh^2 w.r.t. the state, dt and W from
+    tracers (finite; phase 20 holds it) and the tiled route at q = 2
+    (phase 21 holds it); the slice's gradients of sum ssh^2 w.r.t. the state, dt and W from
     to_struct (64^2 IGW and channel over GRAD_STEPS through
     auto_rollout_diff, 256^2 over LARGE_ADJ_STEPS through tiled_rollout_diff
     and fused_rollout_diff) with exact stratified launch counts, timed
@@ -5229,7 +5222,7 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
         torch.cuda.empty_cache()
 
     # the gradients with stratification and the nonlinear core, forcing or
-    # tracers run on the card; the tiled route at q > 1 refuses
+    # tracers run on the card, and the tiled route at q = 2 (phase 21)
     horz, _, model, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
     st, sm = model.to_struct(prog), model.struct_mesh
     st_t = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
@@ -5242,14 +5235,12 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
                          ("forced", st, dict(forcing=forcing)), ("tracers", st_t, {})):
         if not grad_runs(auto_rollout_diff, s, sm, 2, strat=strat32, **kw):
             raise AssertionError(f"the stratified gradient {label} is not finite")
-    try:
-        tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1), strat=strat32)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("the stratified gradient tiled q = 2 ran on the card")
-    log("[18] the stratified gradient on the card: nonlinear, forced and with tracers run "
-        "(the composed reverse, phase 20), finite; tiled q = 2 refused (NotImplementedError)")
+    q2 = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, 4, halo=(1, 2), q=2, strat=True)
+    if not grad_runs(tiled_rollout_diff, st, sm, 4, strat=strat32, plan=q2):
+        raise AssertionError("the stratified gradient tiled q = 2 is not finite")
+    log(f"[18] the stratified gradient on the card: nonlinear, forced and with tracers run "
+        f"(the composed reverse, phase 20), and tiled_rollout_diff at q = 2 (plan {q2}; "
+        "phase 21 holds it), finite")
     del st, st_t
 
     # the slice's gradients from to_struct, w.r.t. the state, dt and W, each
@@ -5423,7 +5414,7 @@ def composed_combos() -> list:
 
 def composed_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts,
                    n_tracers: int = 2, masked: bool = False, peaks: dict | None = None,
-                   reverse: bool = False):
+                   reverse: bool = False, parts: bool = False):
     """(bound seconds, "bytes" or "operations") of one composed step with
     the options ``opts``: a state read and written, with tracers their 2 nT
     planes too; the core's constants and tables (``step_bound``'s linear
@@ -5443,7 +5434,7 @@ def composed_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts,
     TRACER_ADJ_OPS per cell-level and tracer, FORCED_REV_OPS and
     strat_adj_ops(K) per cell-level, those in double at the FP64 tensor
     cores' or the shown f64 rate, whichever is higher. ``peaks`` as for
-    ``step_bound``."""
+    ``step_bound``. With ``parts``, (the bytes' seconds, the operations')."""
     cells = 2 * ny2 * nx
     state = cells * (1 + 4 * k)
     tr = cells * k * n_tracers if "tracers" in opts else 0
@@ -5486,6 +5477,8 @@ def composed_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts,
     t_bytes = nbytes / byte_rate(peaks, itemsize * (state + tr))
     t_ops = (ops / peaks["flops"][itemsize]
              + cells * k * ops_d / max(DATASHEET["mma64"], peaks["flops"][8]))
+    if parts:
+        return t_bytes, t_ops
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -5576,18 +5569,7 @@ def composed_phase(gpu: str, log_text: str) -> list:
         return {m.__name__.rsplit(".", 1)[-1]: (m.launches, *(getattr(m, c) for c in arm_counters))
                 for m in counters}
 
-    def with_tracers(model, st, seed=3):
-        """st with two random tracers (a wave in x plus noise, 35 plus noise),
-        0 on culled cells."""
-        ny2, nx, k = st.layer_thickness.shape[1:]
-        rng = np.random.default_rng(seed)
-        x = np.arange(nx)[None, None, :, None] / nx
-        tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
-                       35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
-        if model.cell_mask is not None:
-            tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
-        return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
-                           torch.from_numpy(tr).to(st.layer_thickness))
+    with_tracers = random_tracers
 
     def bare(st):
         return StructState(st.ssh, st.layer_thickness, st.normal_velocity)
@@ -6063,16 +6045,7 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
         c[kernel] = (n, *(n if o in opts else 0 for o in "FTS"))
         return c
 
-    def with_tracers(model, st, seed=3):
-        ny2, nx, k = st.layer_thickness.shape[1:]
-        rng = np.random.default_rng(seed)
-        x = np.arange(nx)[None, None, :, None] / nx
-        tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
-                       35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
-        if model.cell_mask is not None:
-            tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
-        return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
-                           torch.from_numpy(tr).to(st.layer_thickness))
+    with_tracers = random_tracers
 
     def random_g(st, seed):
         rng = np.random.default_rng(seed)
@@ -6525,6 +6498,691 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
     ]
 
 
+# ---- phase 21: temporal blocking, q > 1 ---------------------------------------
+
+# The forward's f64 checks: (levels, q) on the 32 x 32 lattice, whose 16
+# rows a parity hold the FB q = 2 and FE q = 3 windows; the reverse's:
+# (n, levels, q)
+WINDOW_FWD_F64 = ((4, 2), (4, 3), (36, 2))
+WINDOW_REV_F64 = ((16, 4, 2), (16, 4, 3), (32, 36, 2))
+WINDOW_OPTS = ("", "F", "T", "S", "FT", "FS", "TS", "FTS")
+WINDOW_REV_OPTS = ("T", "S", "TS", "FT", "FS", "FTS")
+WINDOW_Q = 2
+# supersteps of the reverse's f64 checks
+WINDOW_REV_SS = 3
+# steps of the timed forward runs at 256^2 (the q = 2 composed FB step
+# takes 19 ms, so LARGE_MAIN_STEPS would cost phase 21 ~110 s more; the reps
+# spread 0.1-0.7%), and reverse steps of the held_us timings
+WINDOW_TIMED_STEPS_256, WINDOW_HELD_STEPS = LARGE_MAIN_STEPS // 5, 16
+
+
+def window_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts, q: int,
+                 reverse: bool = False):
+    """(bound seconds, "bytes" or "operations") of one launch of a q-step
+    kernel: the state (and tracers) read and written once, the operands
+    once (``composed_bound``'s bytes of one step), and q steps' operations;
+    with ``reverse``, one reverse superstep: one reverse step's bytes, q
+    reverse steps' and q - 1 forward steps' (the recompute) operations."""
+    t_bytes, t_ops = composed_bound(ny2, nx, k, n_terms, itemsize, opts, reverse=reverse,
+                                    parts=True)
+    t_ops *= q
+    if reverse:
+        t_ops += (q - 1) * composed_bound(ny2, nx, k, n_terms, itemsize, opts, parts=True)[1]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_tracers(model, st, seed: int = 3):
+    """``st`` with two random tracers (a wave in x plus noise, and 35 plus
+    noise), 0 on a channel's culled cells, in the state's dtype."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.structured import StructState
+
+    ny2, nx, k = st.layer_thickness.shape[1:]
+    rng = np.random.default_rng(seed)
+    x = np.arange(nx)[None, None, :, None] / nx
+    tr = np.stack([10.0 + 2.0 * np.sin(2 * np.pi * x) + 0.3 * rng.normal(size=(2, ny2, nx, k)),
+                   35.0 + 0.3 * rng.normal(size=(2, ny2, nx, k))], axis=3)
+    if model.cell_mask is not None:
+        tr = tr * model.cell_mask.cpu().numpy()[..., None, None]
+    return StructState(st.ssh, st.layer_thickness, st.normal_velocity,
+                       torch.from_numpy(tr).to(st.layer_thickness))
+
+
+def window_phase(gpu: str, log_text: str) -> list:
+    """Phase 21, temporal blocking (q > 1): kernel 2's nonlinear arms at
+    q > 1 (the q-step kernel, csrc/nl_tiled.cuh, FE at reach 2 and FB at
+    reach 3) and kernel 4's tracer and stratified arms at q > 1
+    (tiled_adjoint, with forcing too). The q-step instantiations' ptxas
+    summary; f64, every combination of forcing (F), tracers (T) and
+    stratification (S) with the nonlinear core through tiled_run_loop at
+    q = 2, 3 (32^2 x 4 and x 36, periodic and channel, FE and FB) against
+    the plain steps, and tiled_adjoint's T, S, TS, FT, FS and FTS at q = 2, 3
+    (16^2 x 4, 32^2 x 36) against the plain reverse of every step: within
+    1e-12 of scale (d(dt), d(W) and the forcing scalars of their
+    Cauchy-Schwarz scales), reruns bitwise, each run with one option
+    dropped at least 100x off, a composition no tile fits refused with
+    ValueError; FB at q = 3 in f32 (its f64 windows fit no tile); the
+    dot-product identity of the q = 2 FTS gradient with directions in the
+    state, tracers, W, wind and coefficients; f32 after 100 steps (64^2 and
+    256^2 x 100, bench.py's full physics, FE and FB at q = 2, and the FTS
+    reverse at q = 2): each field's distance from f64 within U_GAP_FACTOR x
+    the plain f32 run's (phases 19 and 20's floors), the plain run stored in
+    bf16 failing it; the main paths from to_struct with exact launch counts
+    (n / q); q = 2 against q = 1 in this call, median of REPS with min and
+    max: the nonlinear FE and FB, alone and NFTS, at 256^2 x 100 over
+    WINDOW_TIMED_STEPS_256 steps and at 64^2 over LARGE_MAIN_STEPS, the FTS
+    gradient at 256^2 over LARGE_ADJ_STEPS steps, tiled_adjoint's q = 2 FTS
+    arm per launch.
+    Returns the kernels line's entries."""
+    import re
+
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import fe_step, tiled_adjoint, tiled_step
+    from mpas_ocean_tpu_torch.models import Stratification, stratification_from_numpy
+    from mpas_ocean_tpu_torch.models.forcing import Forcing
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        diff_model,
+        fused_model,
+        structured_adjoint_step,
+        structured_run_loop,
+        tiled_diff,
+        tiled_model,
+        tiled_rollout_diff,
+        tiled_run_loop,
+    )
+    from mpas_ocean_tpu_torch.tools.composed_reverse import (
+        composed_ddt_scale,
+        composed_errors,
+        composed_reverse,
+        composed_stack,
+        composed_state,
+        composed_steps,
+        plain_composed_reverse,
+        plain_superstep_reverse,
+        superstep_stack,
+    )
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    t_phase = time.perf_counter()
+    tfields = FIELDS + ("tracers",)
+    kappa5 = dict(tracer_kappa=5.0, tracer_upwind=0.5)
+    for name, kernels in (("nl_tiled_kernel", ("nl_tiled_kernel",)),
+                          ("tiled_adjoint_kernel at q > 1",
+                           ("tiled_adjoint_kernelIfLb1E", "tiled_adjoint_kernelIdLb1E"))):
+        text = "\n".join(ptxas_report(log_text, kernels))
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+        log(f"[21] ptxas {name}: {len(regs)} instantiations, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, spill stores up to {max(spills, default=0)} "
+            "bytes")
+
+    def case(n, levels, channel, opts, seed=5):
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=seed,
+                                                                   u_amp=0.5)
+        st = model.to_struct(prog)
+        if "T" in opts:
+            st = random_tracers(model, st)
+        rng = np.random.default_rng(29 + levels)
+        strat = stratification_from_numpy({"phi_weights": 0.05 * rng.normal(size=(levels,
+                                                                                   levels)),
+                                           "densities": np.full(levels, 1025.0)})
+        return model, st, lattice_forcing(model, seed=11 + levels), strat
+
+    def fwd_kw(opts, forcing, strat):
+        return dict(forcing=forcing if "F" in opts else None,
+                    strat=strat if "S" in opts else None, **kappa5)
+
+    def fwd_errors(out, ref, sm):  # over each field's scale, the tracers' too
+        errs = {f: r for f, (_, r) in field_errors(out, ref, sm.resting_thickness_sum).items()}
+        if ref.tracers is not None:
+            errs["tracers"] = float((out.tracers - ref.tracers).abs().max()
+                                    / ref.tracers.abs().max())
+        return errs
+
+    def same(a, b):
+        return all(getattr(a, f) is None or torch.equal(getattr(a, f), getattr(b, f))
+                   for f in tfields)
+
+    # f64 forward: the q-step kernel against the plain steps
+    worst_f, n_fwd, refused = 0.0, 0, []
+    for levels, q in WINDOW_FWD_F64:
+        for channel in (False, True):
+            model, st_full, forcing, strat = case(32, levels, channel, "T")
+            sm = model.struct_mesh
+            parts = []
+            for fb in (False, True):
+                for opts in WINDOW_OPTS:
+                    st = composed_state(st_full, opts)
+                    kw = fwd_kw(opts, forcing, strat)
+                    arm = f"{'FB' if fb else 'FE'} q={q} {opts or '-'}"
+
+                    def run(o=opts, s=st):
+                        return tiled_run_loop(s, sm, 10.0, 2 * q, q=q, nonlinear=True, fb=fb,
+                                              **fwd_kw(o, forcing, strat))
+
+                    arms = dict(forced="F" in opts, n_tracers=2 * ("T" in opts),
+                                strat="S" in opts)
+                    tiles = [(r, c) for r in range(1, sm.ny2 + 1) if sm.ny2 % r == 0
+                             for c in range(1, sm.nx + 1) if sm.nx % c == 0]
+                    if all(fe_step.nl_smem_bytes(t, levels, 8, fb, 1, **arms, q=q)
+                           > fe_step.SMEM_BYTES for t in tiles):
+                        tiled_step.window_launches = 0
+                        try:
+                            run()
+                        except ValueError as e:
+                            if "shared memory" not in str(e) or tiled_step.window_launches:
+                                raise
+                            refused.append(f"{levels} levels {arm} "
+                                           f"{'channel' if channel else 'periodic'}")
+                            continue
+                        raise AssertionError(f"f64 {arm} at {levels} levels: fits no tile, "
+                                             "yet ran")
+                    tiled_step.window_launches = tiled_step.launches = 0
+                    out = run()
+                    if (tiled_step.window_launches, tiled_step.launches) != (2, 2):
+                        raise AssertionError(f"f64 {arm}: launches {tiled_step.window_launches}")
+                    ref = structured_run_loop(st, sm, 10.0, 2 * q, nonlinear=True, fb=fb, **kw)
+                    errs = fwd_errors(out, ref, sm)
+                    err = max(errs.values())
+                    if not err <= 1e-12:
+                        raise AssertionError(f"f64 {arm} {levels} levels: {errs}")
+                    if not same(out, run()):
+                        raise AssertionError(f"f64 {arm}: rerun differs")
+                    # each option dropped; the tracers, which the state does not
+                    # feel, left where they started
+                    miss = min([float((st.tracers - ref.tracers).abs().max()
+                                      / ref.tracers.abs().max()) if d == "T" else
+                                max(fwd_errors(run(opts.replace(d, ""),
+                                                   composed_state(st_full,
+                                                                  opts.replace(d, ""))),
+                                               ref, sm).values()) for d in opts] or [1.0])
+                    if not miss >= 100 * 1e-12:
+                        raise AssertionError(f"f64 {arm}: a drop-one control misses by {miss}")
+                    if channel:
+                        check_walls(out, sm, f"f64 {arm} channel")
+                    worst_f, n_fwd = max(worst_f, err), n_fwd + 1
+                    parts.append(f"{arm} {err:.1e}")
+            log(f"[21] f64 nonlinear q-step kernel vs plain steps, 32^2x{levels} "
+                f"{'channel' if channel else 'periodic'}, 2q steps: " + ", ".join(parts))
+            del model, st_full
+    log(f"[21] {n_fwd} f64 forward checks within 1e-12 (worst {worst_f:.3e}), reruns bitwise, "
+        f"drop-one controls >= 100x off; refused with ValueError naming the shared memory "
+        f"(no tile fits): {', '.join(refused)}")
+
+    # FB at q = 3 and FE and FB at q = 4 in f32 (their f64 windows fit no
+    # block, refused with ValueError): the distance rule; FB at q = 4 with
+    # all four options fits no block in f32 either
+    eps32 = float(np.finfo(np.float32).eps)
+    for fb, q, n in ((True, 3, 40), (False, 4, 52), (True, 4, 52)):
+        for opts in ("", "FTS"):
+            _, _, model, prog = igw_case(n, 4, np.float32)
+            _, _, model64, prog64 = igw_case(n, 4, np.float64)
+            sm, sm64 = model.struct_mesh, model64.struct_mesh
+            st32 = composed_state(random_tracers(model, model.to_struct(prog)), opts)
+            st64 = StructState(*(None if x is None else x.double() for x in
+                                 (st32.ssh, st32.layer_thickness, st32.normal_velocity,
+                                  st32.tracers)))
+            rng = np.random.default_rng(33)
+            w = 0.05 * rng.normal(size=(4, 4))
+            s32, s64 = (stratification_from_numpy({"phi_weights": w.astype(t),
+                                                   "densities": np.full(4, 1025.0, dtype=t)})
+                        for t in (np.float32, np.float64))
+            f32, f64 = lattice_forcing(model), lattice_forcing(model64)
+            arm = f"{'FB' if fb else 'FE'} q = {q}"
+            tiled_step.window_launches = 0
+            try:
+                tiled_run_loop(st64, sm64, DT, 2 * q, q=q, nonlinear=True, fb=fb,
+                               **fwd_kw(opts, f64, s64))
+            except ValueError as e:
+                if "shared memory" not in str(e) or tiled_step.window_launches:
+                    raise
+            else:
+                raise AssertionError(f"f64 {arm} {opts}: expected no tile to fit")
+            if fb and q == 4 and opts:
+                try:
+                    tiled_run_loop(st32, sm, DT, 2 * q, q=q, nonlinear=True, fb=fb,
+                                   **fwd_kw(opts, f32, s32))
+                except ValueError as e:
+                    if "shared memory" not in str(e) or tiled_step.window_launches:
+                        raise
+                    log(f"[21] f32 {arm} {opts}: no tile fits, refused with ValueError")
+                    continue
+                raise AssertionError(f"f32 {arm} {opts}: expected no tile to fit")
+            out = tiled_run_loop(st32, sm, DT, 2 * q, q=q, nonlinear=True, fb=fb,
+                                 **fwd_kw(opts, f32, s32))
+            plain = structured_run_loop(st32, sm, DT, 2 * q, nonlinear=True, fb=fb,
+                                        **fwd_kw(opts, f32, s32))
+            ref = structured_run_loop(st64, sm64, DT, 2 * q, nonlinear=True, fb=fb,
+                                      **fwd_kw(opts, f64, s64))
+            if tiled_step.window_launches != 2:
+                raise AssertionError(f"f32 {arm}: launch count {tiled_step.window_launches}")
+            parts = []
+            for f in tfields:
+                if getattr(ref, f) is None:
+                    continue
+                r = getattr(ref, f)
+                d_k = float((getattr(out, f).double() - r).abs().max())
+                d_p = float((getattr(plain, f).double() - r).abs().max())
+                floor = (TRACER_F32_FLOOR * eps32 * float(r.abs().max()) if f == "tracers"
+                         else 0.0)
+                limit = U_GAP_FACTOR * max(d_p, floor)
+                if not d_k <= limit:
+                    raise AssertionError(f"f32 {arm} {opts}: {f} {d_k:.3e} > {limit:.3e}")
+                parts.append(f"{f} x{d_k / limit:.3f}")
+            log(f"[21] f32 {arm}, the {n}^2x4 IGW {'+ ' + opts if opts else 'nonlinear alone'}, "
+                f"{2 * q} steps in 2 launches (f64 refused: no tile fits): distance from an f64 "
+                f"plain run over the limit: {', '.join(parts)}")
+    torch.cuda.empty_cache()
+
+    # f64 reverse: tiled_adjoint's q > 1 arms against the plain reverse of
+    # every step on the kernel-built states
+    n_ss, worst_r, n_rev = WINDOW_REV_SS, {}, 0
+    for n, levels, q in WINDOW_REV_F64:
+        for channel in (False, True):
+            model, st_full, forcing, strat = case(n, levels, channel, "T")
+            sm = model.struct_mesh
+            rng = np.random.default_rng(17)
+            g_full = StructState(*(None if getattr(st_full, f) is None else torch.from_numpy(
+                rng.normal(size=tuple(getattr(st_full, f).shape))).to(getattr(st_full, f))
+                for f in tfields))
+            parts = []
+            for opts in WINDOW_REV_OPTS:
+                st, g = composed_state(st_full, opts), composed_state(g_full, opts)
+                full = composed_stack(composed_steps(sm, 10.0, st.layer_thickness, opts, forcing,
+                                                     strat), st, n_ss * q)
+
+                def rev(o=opts, stk=full):
+                    steps = composed_steps(sm, 10.0, st.layer_thickness, o, forcing, strat,
+                                           (2, 4, q))
+                    return composed_reverse(steps, superstep_stack(stk, q),
+                                            composed_state(g_full, o), n_ss)
+
+                for c in ("launches", "forced_launches", "tracer_launches", "strat_launches"):
+                    setattr(tiled_adjoint, c, 0)
+                out = rev()
+                counts = [tiled_adjoint.launches, tiled_adjoint.forced_launches,
+                          tiled_adjoint.tracer_launches, tiled_adjoint.strat_launches]
+                if counts != [n_ss] + [n_ss * (o in opts) for o in "FTS"]:
+                    raise AssertionError(f"f64 reverse {opts} q={q}: launch counts {counts}")
+                ref, scales = plain_composed_reverse(full, g, sm, 10.0, n_ss * q, opts, forcing,
+                                                     strat)
+                scales["d_dt"] = composed_ddt_scale(st, sm, 10.0, n_ss * q, g, opts, forcing,
+                                                    strat)
+                errs = composed_errors(out, ref, scales)
+                err = max(r for _, r in errs.values())
+                if not err <= 1e-12:
+                    raise AssertionError(f"f64 reverse {opts} q={q} {n}^2x{levels}: "
+                                         f"{format_errors(errs)}")
+                again = rev()
+                if not (same(out[0], again[0]) and all(
+                        x is None or torch.equal(x, y) for x, y in zip(out[1:], again[1:]))):
+                    raise AssertionError(f"f64 reverse {opts} q={q}: rerun differs")
+                misses = []
+                for d in opts:
+                    rest = opts.replace(d, "")
+                    bare = rev(rest, full if d != "T" else StructState(
+                        full.ssh, full.layer_thickness, full.normal_velocity))
+                    misses.append(max(float((getattr(bare[0], f) - getattr(ref[0], f)).abs()
+                                            .max() / getattr(ref[0], f).abs().max())
+                                      for f in tfields if getattr(bare[0], f) is not None))
+                if not min(misses) >= 100 * 1e-12:
+                    raise AssertionError(f"f64 reverse {opts} q={q}: a control misses by "
+                                         f"{misses}")
+                worst_r[opts] = max(worst_r.get(opts, 0.0), err)
+                n_rev += 1
+                parts.append(f"{opts} {err:.1e} ({min(misses):.1e})")
+                del full
+            log(f"[21] f64 tiled_adjoint q={q} vs the plain reverse, {n}^2x{levels} "
+                f"{'channel' if channel else 'periodic'}, {n_ss} supersteps: error over scale "
+                "(least drop-one miss) " + ", ".join(parts))
+            del model, st_full, g_full
+            torch.cuda.empty_cache()
+    log(f"[21] {n_rev} f64 reverse checks within 1e-12, reruns bitwise, controls >= 100x off; "
+        "worst: " + ", ".join(f"{k} {v:.3e}" for k, v in worst_r.items()))
+
+    # the dot-product identity of the q = 2 gradient, directions in the
+    # state, tracers, W, the wind and the coefficients
+    dots = {}
+    for channel in (False, True):
+        model, st, forcing, strat = case(32, 6, channel, "T")
+        sm = model.struct_mesh
+        rng = np.random.default_rng(18)
+        v, gbar = (StructState(*(torch.from_numpy(rng.normal(size=tuple(getattr(st, f).shape)))
+                                 .to(getattr(st, f)) for f in tfields)) for _ in range(2))
+        tang = (*(getattr(v, f) for f in tfields),
+                torch.from_numpy(1e-4 * rng.normal(size=tuple(forcing.wind_edge.shape))).to(
+                    forcing.wind_edge),
+                *(torch.tensor(x, dtype=torch.float64, device=st.ssh.device)
+                  for x in (1e-4, 3e-4, 1e-5)),
+                torch.from_numpy(0.05 * rng.normal(size=(6, 6))).to(st.ssh))
+        prim = (*(getattr(st, f) for f in tfields), forcing.wind_edge, forcing.drag_linear,
+                forcing.drag_quadratic, forcing.rayleigh, strat.phi_weights.to(st.ssh))
+
+        def rollout(*xs):
+            f = Forcing(xs[4], forcing.top_mask, forcing.bottom_mask, *xs[5:8])
+            out = structured_run_loop(StructState(*xs[:4]), sm, 10.0, 6, forcing=f,
+                                      strat=Stratification(xs[8], strat.densities), **kappa5)
+            return tuple(getattr(out, f) for f in tfields)
+
+        _, jv = torch.func.jvp(rollout, prim, tang)
+        lhs = sum(float((x * getattr(gbar, f)).sum()) for x, f in zip(jv, tfields))
+        x = [p.clone().requires_grad_(True) for p in prim]
+        tiled_adjoint.launches = 0
+        out = tiled_rollout_diff(StructState(*x[:4]), sm, 10.0, 6,
+                                 forcing=Forcing(x[4], forcing.top_mask, forcing.bottom_mask,
+                                                 *x[5:8]),
+                                 strat=Stratification(x[8], strat.densities),
+                                 plan=(2, 4, WINDOW_Q, 1), **kappa5)
+        jtg = torch.autograd.grad(sum((getattr(out, f) * getattr(gbar, f)).sum()
+                                      for f in tfields), x)
+        rhs = sum(float((t * d).sum()) for t, d in zip(tang, jtg))
+        dots[channel] = abs(lhs - rhs) / abs(rhs)
+        log(f"[21] f64 dot-product identity, FTS q = 2 through tiled_rollout_diff, 32x32x6 "
+            f"{'channel' if channel else 'periodic'}, 6 steps ({tiled_adjoint.launches} "
+            f"tiled_adjoint launches): <Jv, g> {lhs:.17g}, <v, J^T g> {rhs:.17g}, relative gap "
+            f"{dots[channel]:.3e}")
+        if not (dots[channel] <= 1e-12 and tiled_adjoint.launches == 3):
+            raise AssertionError(f"q = 2 dot-product identity off by {dots[channel]:.3e}")
+        del model, st
+    log(f"[21] checks took {time.perf_counter() - t_phase:.1f} s")
+
+    # f32, 100 steps of bench.py's full-physics cell at q = 2: the forward
+    # (FE and FB) and the FTS reverse, at 64^2 and 256^2
+    strat32 = mt.make_stratification(1025.0 + np.linspace(0.0, BENCH_RHO_SPAN, LEVELS),
+                                     dtype=np.float32)
+    strat64 = mt.make_stratification(1025.0 + np.linspace(0.0, BENCH_RHO_SPAN, LEVELS))
+    bench_kw = dict(tracer_kappa=BENCH_TRACER_KAPPA, tracer_upwind=BENCH_TRACER_UPWIND)
+    max_abs_err, gaps = {}, {}
+    n32 = TILED_CHECK_STEPS
+    for n in (HEADLINE_N, LARGE_N):
+        horz, _, model, prog = igw_case(n, LEVELS, np.float32)
+        horz64, _, model64, _ = igw_case(n, LEVELS, np.float64)
+        sm, sm64 = model.struct_mesh, model64.struct_mesh
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=bench_tracers(horz, LEVELS, np.float32)))
+        st64 = StructState(*(getattr(st, f).double() for f in tfields))
+        f32, f64 = bench_forcing(horz, model, np.float32), bench_forcing(horz64, model64,
+                                                                         np.float64)
+        for fb in (False, True):
+            kw = dict(nonlinear=True, fb=fb, **bench_kw)
+            out = tiled_run_loop(st, sm, DT, n32, q=WINDOW_Q, forcing=f32, strat=strat32, **kw)
+            ref = structured_run_loop(st, sm, DT, n32, forcing=f32, strat=strat32, **kw)
+            ref64 = structured_run_loop(st64, sm64, DT, n32, forcing=f64, strat=strat64, **kw)
+            bf = st
+            for _ in range(n32):
+                bf = structured_run_loop(bf, sm, DT, 1, forcing=f32, strat=strat32, **kw)
+                bf = StructState(*(getattr(bf, f).bfloat16().float() for f in tfields))
+            what = f"f32 {n}^2x{LEVELS} IGW NFTS {'FB' if fb else 'FE'} q = 2, {n32} steps"
+            ratios, control_fails = [], False
+            for f in tfields:
+                d = lambda x: float((getattr(x, f).double()  # noqa: E731
+                                     - getattr(ref64, f)).abs().max())
+                g_k, g_p, g_b = d(out), d(ref), d(bf)
+                floor = (TRACER_F32_FLOOR * eps32 * float(ref64.tracers.abs().max())
+                         if f == "tracers" else 0.0)
+                limit = U_GAP_FACTOR * max(g_p, floor)
+                if not g_k <= limit:
+                    raise AssertionError(f"{what}: {f} {g_k:.3e} from f64, limit {limit:.3e}")
+                control_fails = control_fails or g_b > limit
+                ratios.append(g_k / limit)
+            if not control_fails:
+                raise AssertionError(f"{what}: the bf16 control passes")
+            gaps["fwd", fb, n] = ratios
+            max_abs_err["fwd", fb, n] = max(float((getattr(out, f) - getattr(ref, f)).abs().max())
+                                            for f in tfields)
+            log(f"[21] {what}: distance from f64 over the limit {[f'{r:.3f}' for r in ratios]} "
+                f"(fields, tracers); the bf16 control fails; max |kernel - plain f32| "
+                f"{max_abs_err['fwd', fb, n]:.3e}")
+            del out, ref, ref64, bf
+        # the FTS reverse at q = 2 on the kernel-built superstep starts, the
+        # plain reverse recomputing each superstep's inner state as the
+        # kernel does (in f32, and in f64 from the same f32 starts)
+        n_ss = n32 // WINDOW_Q
+        tile = tiled_diff.tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n32, halo=(1, 2),
+                                             q=WINDOW_Q, n_tracers=2, strat=True,
+                                             forced=True)[:2]
+        steps = composed_steps(sm, DT, st.layer_thickness, "FTS", f32, strat32,
+                               (*tile, WINDOW_Q))
+        sup = composed_stack(steps, composed_state(st, "FTS"), n_ss)
+        end = sup.ssh[n_ss], sup.tracers[n_ss]
+        g = StructState(2 * end[0], torch.zeros_like(st.layer_thickness),
+                        torch.zeros_like(st.normal_velocity),
+                        2 * fused_model.tracer_unplanes(end[1]))
+        del end
+        ref64, scales = plain_superstep_reverse(sup, g, sm, DT, n_ss, WINDOW_Q, "FTS", f32,
+                                                strat32, dtype=torch.float64)
+        p32, _ = plain_superstep_reverse(sup, g, sm, DT, n_ss, WINDOW_Q, "FTS", f32, strat32)
+        bf, _ = plain_superstep_reverse(sup, g, sm, DT, n_ss, WINDOW_Q, "FTS", f32, strat32,
+                                        store=lambda x: x.bfloat16().float())
+        out = composed_reverse(steps, sup, g, n_ss)
+        magnitude = {"d_dt": abs(float(ref64[1]))}
+        magnitude.update(zip(("d_r_lin", "d_cd", "d_lambda"), (abs(float(x)) for x in ref64[3])))
+        scales.update(magnitude)
+        e_k, e_p, e_b = (composed_errors(x, ref64, scales) for x in (out, p32, bf))
+        ratios, control_fails = {}, False
+        for f in e_k:
+            scale = e_k[f][0] / e_k[f][1] if e_k[f][1] else 0.0
+            floor = (SCALAR_FLOOR * magnitude[f] if f in magnitude else 0.0 if f == "d_w"
+                     else TRACER_REV_F32_FLOOR * eps32 * scale)
+            limit = U_GAP_FACTOR * max(e_p[f][0], floor)
+            ratios[f] = e_k[f][0] / limit
+            control_fails = control_fails or e_b[f][0] > limit
+            if not e_k[f][0] <= limit:
+                raise AssertionError(f"f32 FTS reverse q = 2 at {n}^2: {f} {e_k[f][0]:.3e}, "
+                                     f"limit {limit:.3e}")
+        if not control_fails:
+            raise AssertionError(f"f32 FTS reverse q = 2 at {n}^2: the bf16 control passes")
+        gaps["rev", n] = ratios
+        max_abs_err["rev", n] = max(e for e, _ in composed_errors(out, p32, scales).values())
+        log(f"[21] f32 {n}^2x{LEVELS} FTS reverse q = 2 (tile {tile}), {n32} reverse steps: "
+            "distance from an f64 reverse of the same f32 superstep starts (the inner states "
+            "recomputed in f64) over the limit " + ", ".join(
+                f"{f} {r:.3f}" for f, r in ratios.items()) + "; the bf16 control fails")
+        del sup, ref64, p32, bf, out, st, st64, steps
+        torch.cuda.empty_cache()
+
+    # the main paths from to_struct at q = 2, and q = 2 against q = 1 in this
+    # call: the nonlinear arm alone and with all three options, FE and FB
+    times, launches, walls, plain, plans = {}, {}, {}, {}, {}
+    nfts = {"nonlinear", "forced", "tracers", "strat"}
+    for n, n_steps in ((LARGE_N, WINDOW_TIMED_STEPS_256), (HEADLINE_N, LARGE_MAIN_STEPS)):
+        horz, _, model, prog = igw_case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        ptr = mt.PrognosticVars(prog.ssh, prog.layer_thickness, prog.normal_velocity,
+                                tracers=bench_tracers(horz, LEVELS, np.float32))
+        forcing = bench_forcing(horz, model, np.float32)
+        for fb in (False, True):
+            tiled_step.window_launches = tiled_step.launches = tiled_step.tracer_launches = 0
+            tiled_step.forced_launches = tiled_step.strat_launches = fe_step.launches = 0
+            t0 = time.perf_counter()
+            fin = model.from_struct(tiled_run_loop(
+                model.to_struct(ptr), sm, DT, n_steps, q=WINDOW_Q, nonlinear=True, fb=fb,
+                forcing=forcing, strat=strat32, **bench_kw))
+            walls[n, fb] = time.perf_counter() - t0
+            c = (tiled_step.window_launches, tiled_step.launches, tiled_step.forced_launches,
+                 tiled_step.tracer_launches, tiled_step.strat_launches, fe_step.launches)
+            want = (n_steps // WINDOW_Q,) * 5 + (0,)
+            log(f"[21] main path: tiled_run_loop(nonlinear=True, q=2, fb={fb}), {n}^2x{LEVELS} "
+                f"f32, bench.py's full physics, from to_struct, {n_steps} steps: "
+                f"{walls[n, fb]:.3f} s wall; launches (q-step kernel, tiled_step, forced, "
+                f"tracers, stratified, fe_step) {c} (want {want}) [{gpu}]")
+            if c != want:
+                raise AssertionError(f"q = 2 main path {n} fb={fb}: launch counts {c}")
+            if not all(bool(torch.isfinite(getattr(fin, f)).all()) for f in tfields):
+                raise AssertionError(f"q = 2 main path {n} fb={fb}: output not finite")
+            launches[n, fb] = c[0]
+            st_w = model.to_struct(ptr)
+            bare = StructState(st_w.ssh, st_w.layer_thickness, st_w.normal_velocity)
+            for label, s, kw in (("N", bare, {}),
+                                 ("NFTS", st_w, dict(forcing=forcing, strat=strat32,
+                                                     **bench_kw))):
+                for q in (1, WINDOW_Q):
+                    times[n, fb, label, q] = timed_rollout(
+                        lambda m, s=s, kw=kw, q=q: tiled_run_loop(s, sm, DT, m, q=q,
+                                                                  nonlinear=True, fb=fb, **kw),
+                        n_steps, REPS)[1]
+            dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+            for q in (1, WINDOW_Q):
+                plans[n, fb, q] = tiled_model._nl_tile(sm.ny2, sm.nx, LEVELS, 4,
+                                                       (3 if fb else 2, 4), n_steps, q, fb,
+                                                       dict(forced=True, n_tracers=2,
+                                                            strat=True))
+            b2, by2 = window_bound(*dims, nfts, WINDOW_Q)
+            med2 = statistics.median(times[n, fb, "NFTS", WINDOW_Q]) * WINDOW_Q
+            log(f"[21] {'FB' if fb else 'FE'} {n}^2x{LEVELS} f32 over {n_steps} steps, per step: "
+                + "; ".join(f"{label} q=1 {spread(times[n, fb, label, 1], 1e6, 'us')}, q=2 "
+                            f"{spread(times[n, fb, label, WINDOW_Q], 1e6, 'us')}, q=2/q=1 x"
+                            f"{statistics.median(times[n, fb, label, WINDOW_Q]) / statistics.median(times[n, fb, label, 1]):.4f}"  # noqa: E501
+                            for label in ("N", "NFTS"))
+                + f"; NFTS q=2 per launch {med2 * 1e6:.3f} us against its bound {b2 * 1e6:.3f} us "
+                f"({by2}): {b2 / med2:.4f} of it; NFTS plans q=1 {plans[n, fb, 1]}, q=2 "
+                f"{plans[n, fb, WINDOW_Q]} [{gpu}]")
+            if n == LARGE_N:
+                s, kw = st_w, dict(nonlinear=True, fb=fb, forcing=forcing, strat=strat32,
+                                   **bench_kw)
+                plain[fb] = timed_rollout(lambda m: structured_run_loop(s, sm, DT, m, **kw),
+                                          10, REPS)[1]
+            del st_w, bare, fin
+        del ptr
+        torch.cuda.empty_cache()
+
+    # the FTS gradient at 256^2 over LARGE_ADJ_STEPS steps, q = 2 against
+    # q = 1, and tiled_adjoint's q = 2 FTS arm per launch
+    horz, _, model, prog = igw_case(LARGE_N, LEVELS, np.float32)
+    sm = model.struct_mesh
+    ptr = mt.PrognosticVars(prog.ssh, prog.layer_thickness, prog.normal_velocity,
+                            tracers=bench_tracers(horz, LEVELS, np.float32))
+    forcing = bench_forcing(horz, model, np.float32)
+
+    def grad_fts(s, plan):
+        leaves = [getattr(s, f).clone().requires_grad_(True) for f in tfields]
+        w = strat32.phi_weights.to(s.ssh.device).clone().requires_grad_(True)
+        fd = [getattr(forcing, c).clone().requires_grad_(True)
+              for c in ("wind_edge", "drag_linear", "drag_quadratic", "rayleigh")]
+        out = tiled_rollout_diff(StructState(*leaves), sm, DT, LARGE_ADJ_STEPS,
+                                 forcing=Forcing(fd[0], forcing.top_mask, forcing.bottom_mask,
+                                                 *fd[1:]),
+                                 strat=Stratification(w, strat32.densities), plan=plan,
+                                 **bench_kw)
+        loss = (out.ssh ** 2).sum() + (out.tracers ** 2).sum()
+        return torch.autograd.grad(loss, leaves + [w] + fd)
+
+    grad_s, rev_launches, rev_plans = {}, {}, {}
+    for q in (1, WINDOW_Q):
+        st_w = model.to_struct(ptr)
+        plan = rev_plans[q] = tiled_diff.tiled_adjoint_plan(
+            sm.ny2, sm.nx, LEVELS, 4, LARGE_ADJ_STEPS, halo=(1, 2), q=q, n_tracers=2,
+            strat=True, forced=True, budget=diff_model._default_budget(st_w.ssh.device))
+        for c in ("launches", "forced_launches", "tracer_launches", "strat_launches"):
+            setattr(tiled_adjoint, c, 0)
+        grads = grad_fts(st_w, plan)
+        c = [tiled_adjoint.launches, tiled_adjoint.forced_launches,
+             tiled_adjoint.tracer_launches, tiled_adjoint.strat_launches]
+        if c != [LARGE_ADJ_STEPS // q] * 4 or not all(bool(torch.isfinite(x).all())
+                                                        for x in grads):
+            raise AssertionError(f"FTS grad q = {q}: launches {c}, or not finite")
+        rev_launches[q] = c[0]
+        grad_s[q] = cuda_times(lambda: grad_fts(st_w, plan), REPS, warm_up=False)
+        log(f"[21] FTS grad of sum ssh^2 + sum T^2 (state, W, wind, coefficients) through "
+            f"tiled_rollout_diff, {LARGE_N}^2x{LEVELS} f32, {LARGE_ADJ_STEPS} steps, plan "
+            f"{tuple(plan)}: {spread(grad_s[q])} per grad; tiled_adjoint launches {c[0]} (each "
+            f"forced, tracer and stratified) [{gpu}]")
+        del grads, st_w
+    log(f"[21] FTS grad q = 2 / q = 1: x{statistics.median(grad_s[WINDOW_Q]) / statistics.median(grad_s[1]):.4f}")  # noqa: E501
+    st = model.to_struct(ptr)
+    n_h = WINDOW_HELD_STEPS
+    full = composed_stack(composed_steps(sm, DT, st.layer_thickness, "FTS", forcing, strat32,
+                                         kappa=BENCH_TRACER_KAPPA, upwind=BENCH_TRACER_UPWIND),
+                          st, n_h)
+    rng = np.random.default_rng(20)
+    g = StructState(*(torch.from_numpy(rng.normal(size=tuple(getattr(st, f).shape))).to(
+        getattr(st, f)) for f in tfields))
+    per_launch = {}
+    for q in (1, WINDOW_Q):
+        plan = (*rev_plans[q][:2], q)
+        steps = composed_steps(sm, DT, st.layer_thickness, "FTS", forcing, strat32, plan,
+                               kappa=BENCH_TRACER_KAPPA, upwind=BENCH_TRACER_UPWIND)
+        sup = superstep_stack(full, q)
+        per_launch[q] = held_us(lambda steps=steps, sup=sup: composed_reverse(
+            steps, sup, g, n_h // q), n_h // q, REPS)
+        del sup
+    dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+    rb, rby = window_bound(*dims, {"forced", "tracers", "strat"}, WINDOW_Q, reverse=True)
+    s1 = diff_model._lattice_state(diff_model._slot(full, 0))
+    nxt = diff_model._lattice_state(diff_model._slot(full, 1))
+    plain_rev = [t * 1e3 for t in cuda_times(lambda: structured_adjoint_step(
+        s1, g, sm, DT, forcing, next_state=nxt, strat=strat32, **bench_kw), REPS)]
+    med_q2 = statistics.median(per_launch[WINDOW_Q])
+    log(f"[21] tiled_adjoint FTS per launch (held_us), {LARGE_N}^2x{LEVELS} f32: q = 1 "
+        f"{spread(per_launch[1], 1, 'us')} at {rev_plans[1][:2]}, q = 2 "
+        f"{spread(per_launch[WINDOW_Q], 1, 'us')} at {rev_plans[WINDOW_Q][:2]} "
+        f"(x{med_q2 / statistics.median(per_launch[1]):.4f}, per step "
+        f"x{med_q2 / 2 / statistics.median(per_launch[1]):.4f}); q = 2 bound {rb * 1e6:.3f} us "
+        f"({rby}): {rb * 1e6 / med_q2:.4f} of it; plain FTS reverse step "
+        f"{spread(plain_rev, 1, 'ms')} [{gpu}]")
+    del full, st, s1, nxt
+    torch.cuda.empty_cache()
+    log(f"[21] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+    med = statistics.median
+    d256 = (LARGE_N // 2, LARGE_N, LEVELS, 48, 4)
+    d64 = (HEADLINE_N // 2, HEADLINE_N, LEVELS, 48, 4)
+    entries = []
+    for fb in (False, True):
+        arm = "FB" if fb else "FE"
+        b, by = window_bound(*d256, nfts, WINDOW_Q)
+        entries.append({
+            "name": f"tiled_step (nonlinear q-step kernel, {arm}, q = 2: nonlinear, forced, "
+                    "tracers, stratified)",
+            "route": "cuda", "source": "mpas_ocean_tpu_torch/csrc/nl_tiled.cuh",
+            "replaces": "mpas_ocean_tpu/structured/pallas_model.py:852 (_window_steps :802-849 "
+                        f"with nl_terms, {'fb=True, reach 3' if fb else 'reach 2'}, q > 1)",
+            "launches": launches[LARGE_N, fb],
+            "max_abs_err": max_abs_err["fwd", fb, LARGE_N],
+            "ms": med(times[LARGE_N, fb, "NFTS", WINDOW_Q]) * WINDOW_Q * 1e3,
+            "plain_ms": med(plain[fb]) * WINDOW_Q * 1e3,
+            "bound_ms": b * 1e3, "bound_by": by, "library_ms": None,
+            "q": WINDOW_Q,
+            "ms_per_step_q1": med(times[LARGE_N, fb, "NFTS", 1]) * 1e3,
+            "ms_per_step_q2": med(times[LARGE_N, fb, "NFTS", WINDOW_Q]) * 1e3,
+            "nonlinear_alone_ms_per_step_q1": med(times[LARGE_N, fb, "N", 1]) * 1e3,
+            "nonlinear_alone_ms_per_step_q2": med(times[LARGE_N, fb, "N", WINDOW_Q]) * 1e3,
+            "ms_per_step_64_q1": med(times[HEADLINE_N, fb, "NFTS", 1]) * 1e3,
+            "ms_per_step_64_q2": med(times[HEADLINE_N, fb, "NFTS", WINDOW_Q]) * 1e3,
+            "nonlinear_alone_ms_per_step_64_q1": med(times[HEADLINE_N, fb, "N", 1]) * 1e3,
+            "nonlinear_alone_ms_per_step_64_q2": med(times[HEADLINE_N, fb, "N", WINDOW_Q]) * 1e3,
+            "bound_ms_64": window_bound(*d64, nfts, WINDOW_Q)[0] * 1e3,
+            "main_path_wall_s": walls[LARGE_N, fb],
+            "f32_gap_ratios": gaps["fwd", fb, LARGE_N],
+            "f32_gap_ratios_64": gaps["fwd", fb, HEADLINE_N],
+            "max_rel_err_f64": worst_f,
+            "sources": ["mpas_ocean_tpu_torch/csrc/nl_tiled.cuh",
+                        f"mpas_ocean_tpu_torch/csrc/nl_tiled_{arm.lower()}_f32.cu"]})
+    entries.append({
+        "name": "tiled_adjoint (tracer and stratified arms at q = 2, with forcing: FTS)",
+        "route": "cuda", "source": "mpas_ocean_tpu_torch/csrc/tiled_adjoint.cu",
+        "replaces": "mpas_ocean_tpu/structured/pallas_model.py:1979 (q > 1 with tracers0, "
+                    "sw_ref and the forced operands together)",
+        "launches": rev_launches[WINDOW_Q],
+        "max_abs_err": max_abs_err["rev", LARGE_N],
+        "ms": med_q2 / 1e3, "plain_ms": med(plain_rev) * WINDOW_Q,
+        "bound_ms": rb * 1e3, "bound_by": rby, "library_ms": None, "q": WINDOW_Q,
+        "ms_q1": med(per_launch[1]) / 1e3,
+        "grad_s_256_q2": grad_s[WINDOW_Q], "grad_s_256_q1": grad_s[1],
+        "launches_q1": rev_launches[1],
+        "max_abs_err_64": max_abs_err["rev", HEADLINE_N],
+        "f32_gap_ratios": gaps["rev", LARGE_N], "f32_gap_ratios_64": gaps["rev", HEADLINE_N],
+        "max_rel_err_f64": worst_r, "dot_gaps": [dots[False], dots[True]]})
+    return entries
+
+
 def ptxas_report(log_text: str, kernels: tuple, arm=None) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``; with ``arm`` (a string, or a
@@ -6667,6 +7325,11 @@ def main() -> int:
     if "--forcing-only" in sys.argv[1:]:
         # phase 14 alone (after the build and the peaks its bounds divide by)
         print(json.dumps({"kernels": forcing_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
+    if "--window-only" in sys.argv[1:]:
+        # phase 21 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": window_phase(gpu, log_file.read_text())}))
         print(gpu)
         return 0
     if "--physics-only" in sys.argv[1:]:
@@ -7071,7 +7734,10 @@ def main() -> int:
 
     # -- 20. the composed reverse ---------------------------------------------------------
     composed_entries += composed_reverse_phase(gpu, log_file.read_text())
-    log("phases 1-20 done")
+
+    # -- 21. temporal blocking, q > 1 -------------------------------------------------------
+    window_entries = window_phase(gpu, log_file.read_text())
+    log("phases 1-21 done")
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -7118,6 +7784,7 @@ def main() -> int:
     kernels.extend(tracer_entries)
     kernels.extend(strat_entries)
     kernels.extend(composed_entries)
+    kernels.extend(window_entries)
     kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -318,7 +318,8 @@ struct AdjTracers {
 // reads it at the neighbours (structured/adjoint.py, tracer_transpose).
 // `cot` is the window's cotangent chunk, its tracer planes after the state's
 // 8; h' and T' are read from device memory, a level per thread, neighbouring
-// threads on neighbouring levels.
+// threads on neighbouring levels. Chunks are kc values apart, and an index
+// splits by 2^kc_log2 >= kc.
 template <typename T>
 __device__ __forceinline__ void fold_tracers(T* cot, const int* gsite, const AdjTracers<T>& at,
                                              int W, int kc, int kc_log2, int k0, int kr, int K,
@@ -326,7 +327,7 @@ __device__ __forceinline__ void fold_tracers(T* cot, const int* gsite, const Adj
   const int pk = W * kc;
   const int n = (2 * W) << kc_log2;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int kl = e & (kc - 1);
+    const int kl = e & ((1 << kc_log2) - 1);
     const int q = e >> kc_log2;
     if (kl >= kr) continue;
     const int p = q >= W ? 1 : 0, s = q - p * W;

@@ -1,0 +1,7 @@
+// nl_tiled.cuh instantiated for tiled_step's nonlinear forward-backward (reach 3) arm at q > 1
+// (kernel 2, _tiled_step_kernel) in double: every combination of the forced,
+// tracer and stratified arms, periodic and masked, with its C entry.
+
+#include "nl_tiled.cuh"
+
+MOT_NL_TILED_ENTRY(double, f64, fb, true)

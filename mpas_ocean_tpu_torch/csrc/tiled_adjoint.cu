@@ -7,10 +7,10 @@
 // (masks off) and masked (a coastal channel: the vjp of _window_steps with
 // masks_full, :2001-2006, 2063), unforced and forced (the wind and
 // level-index windows, whose cotangents d(wind) and dscal[3:6] it returns,
-// :2938-2941), without tracers and, unforced at q = 1, with them (the tracer
-// blocks and the cell mask, :2017-2104), unstratified and, unforced and
-// tracer-free at q = 1, stratified (W whole, :2022-2035, its per-tile
-// d(W), :2113-2118, 2143-2146, 2235-2238). The TPU kernel traces jax.vjp of
+// :2938-2941), without tracers and with them (the tracer blocks and the cell
+// mask, :2017-2104), unstratified and stratified (W whole, :2022-2035, its
+// per-tile d(W), :2113-2118, 2143-2146, 2235-2238), in any combination and
+// at any q (the JAX kernel's q=, :2284). The TPU kernel traces jax.vjp of
 // _window_steps in-kernel and emits the cotangent of the whole padded window,
 // which its caller overlap-adds (_halo_unscatter). CUDA has no vjp, so the
 // transpose is written out by hand, as in adjoint_step.cu; and it is taken in
@@ -82,26 +82,49 @@
 // steps are apart by barriers), and its blocks' shares of d(r_lin), d(Cd)
 // and d(lambda) in double beside d(dt).
 //
-// The tracer arm (kTracers, chosen by a non-null tracer pointer; q = 1, the
-// JAX router's only q; the tracer-free arms keep their code)
-// is adjoint_step.cu's: the tracer planes staged after the state's in the
-// primal and the cotangent chunks, a and the h' feedback folded once per
-// window from h' and T' of the superstep's end state (adjoint_window.cuh,
-// fold_tracers), and the tracer transpose's sums added in the body
-// (tracer_adjoint), one block per SM as there. A tracer state at q > 1 is
-// refused by the entry.
+// The tracer arm (kTracers, chosen by a non-null tracer pointer; the
+// tracer-free arms keep their code) is adjoint_step.cu's: the tracer planes
+// staged after the state's in the primal and the cotangent chunks, a and the
+// h' feedback folded once per window from h' and T' of the superstep's end
+// state (adjoint_window.cuh, fold_tracers), and the tracer transpose's sums
+// added in the body (tracer_adjoint), one block per SM as there. At q > 1
+// the recompute carries the tracer planes (tiled_step.cu's tracer_step), a
+// reverse step j > 0 stores the tracers' cotangent in cotangent j's planes,
+// and after its gs fold a and the h' feedback of cotangent j are folded
+// from the primal state j, h' and T' of the step before it, which the block
+// holds (fold_tracers_window).
 //
-// The stratified arm (kStrat, chosen by a non-null W; q = 1, the JAX
-// router's only q; the unstratified arms keep their code) is
-// adjoint_step.cu's: the body stores its S chunk at the core's
-// cells, and after a cluster barrier the pass of adjoint_window.cuh
+// The stratified arm (kStrat, chosen by a non-null W; the unstratified arms
+// keep their code) is adjoint_step.cu's: the body stores its S chunk at the
+// core's cells, and after a cluster barrier the pass of adjoint_window.cuh
 // (strat_adjoint_pass) adds W dPhi to the stored dh, forms the tile's d(W)
-// rows in double into its accumulator and d(dt)'s h @ W part. A stratified
-// q > 1 is refused by the entry.
+// rows in double into its accumulator and d(dt)'s h @ W part. At q > 1 the
+// recompute's pressure is the gradient of Phi of the old state, formed at
+// each step from every rank's h chunk in place (chunk_phi, into the second
+// cotangent chunk, free until the reverse steps), and each reverse step j
+// stores S on R_j and runs the pass on R_j after its body
+// (strat_region_pass): W dPhi into R_j's dh, before cotangent j is folded
+// and read, and d(W) and d(dt) over the core's cells only, each cell
+// counted by the tile that owns it.
 //
-// At q = 1 the forced, tracer and stratified arms compose in any
-// combination as in adjoint_step.cu (16 instantiations per dtype, 4 more at
-// q > 1, forced or not; tiled_adjoint_f64.cu holds the f64 ones).
+// Shared memory at q > 1 with tracers. A block holds q primal chunks and
+// two cotangent chunks of 8 + 2 nT planes, (8 + 2 nT)(q + 2) kc values per
+// window site. At q = 2 with two tracers, K = 100 f32 and the 8-block
+// split's 13 levels a block, even the (1, 1) tile's window (R_3, 7 x 13
+// sites) takes 234608 bytes, and with forcing and stratification 247328,
+// more than a block's 232448 (kernels/tiled_adjoint.smem_bytes mirrors
+// smem_bytes). So at q > 1 the tracer arm splits the levels over up to
+// kMaxWideCluster blocks (H100's non-portable cluster size; 15 blocks of 7
+// levels at K = 100), which fits the FTS arm's (2, 4) tile in 194784 bytes.
+// Chunks are then not powers of two, which chunk_phi, fold_tracers_window,
+// load_tracer_chunk and strat_region_pass take. The other choice, keeping
+// the recomputed states in device memory and one primal chunk here, saves a
+// quarter of the chunks at q = 2: the FTS arm would fit the (1, 1) tile
+// only, with a second copy of each state through device memory.
+//
+// The forced, tracer and stratified arms compose in any combination as in
+// adjoint_step.cu, at q = 1 and at q > 1 (16 instantiations per dtype each;
+// tiled_adjoint_f64.cu holds the f64 ones).
 //
 // What bounds it: a reverse step reads the primal state and the end
 // cotangent and writes the start cotangent, three state passes, 94 us at
@@ -134,12 +157,18 @@ struct TiledArgs {
                      // three more kinds n_shares apart
   ForcingArgs<T> fc;  // the forced arm's operands; wind null otherwise
   T* dwind;           // the forced arm's d(wind) (6, ny2, nx), added to
-  AdjTracers<T> at;   // the tracer arm's operands (q = 1); tr null otherwise
-  AdjStrat<T> st;     // the stratified arm's operands (q = 1); w null otherwise
+  AdjTracers<T> at;   // the tracer arm's operands; tr null otherwise
+  AdjStrat<T> st;     // the stratified arm's operands; w null otherwise
+  NbrReach nr;        // the pressure gradient's reach (the recompute's Phi, q > 1)
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc, kp_log2, vec_log2, n_tiles_i;
   long long n_shares;
 };
+
+// Most blocks in a cluster of the tracer arm at q > 1, whose q + 2 chunks of
+// 8 + 2 nT planes take the fewest levels per block: H100's non-portable
+// cluster size (kernels/tiled_adjoint.WIDE_CLUSTER).
+constexpr int kMaxWideCluster = 16;
 
 // Per-window-site planes besides the level chunks: f_edge [6], gs [2], and
 // per primal state its ssh [2]; at q > 1 also rts [2] and two arrays of
@@ -148,21 +177,23 @@ inline int site_planes(int q) { return 8 + 2 * q + (q > 1 ? 6 : 0); }
 
 // Dynamic shared memory of one block (kernels/tiled_adjoint.smem_bytes
 // mirrors this): the warps' d(dt) sums; q primal chunks and one cotangent
-// chunk (two at q > 1) [8][sites][kc], at q = 1 with the tracer arm's
-// 2 n_tr planes after each chunk's 8; the per-site planes; the ranks'
-// partial sums of the core for rank 0 [n_ranks][2][core]; the sites and
-// the masked arm's live bits, reserved by the periodic arm too so that one
-// plan serves both; the forced arm's winds and packed levels beyond, or the
-// stratified arm's S chunk and W rows at k levels (strat_k > 0, q = 1).
-size_t smem_bytes(long long sites, int core, int kc, int q, int n_ranks, size_t itemsize,
-                  bool forced, int n_tr, int strat_k) {
-  const size_t chunks = (8 * static_cast<size_t>(q + (q > 1 ? 2 : 1)) + 4 * n_tr) * kc;
+// chunk (two at q > 1) [8][sites][kc], with the tracer arm's 2 n_tr planes
+// after each chunk's 8; the per-site planes; the ranks' partial sums of the
+// core for rank 0 [n_ranks][2][core]; the sites and the masked arm's live
+// bits, reserved by the periodic arm too so that one plan serves both; the
+// forced arm's winds and packed levels beyond, then the stratified arm's S
+// chunk on s_cells cells (the core at q = 1, R_{q-1} at q > 1) and W rows
+// at k levels (strat_k > 0), in chunks of 2^kc_log2 >= kc levels.
+size_t smem_bytes(long long sites, int core, int s_cells, int kc, int kc_log2, int q,
+                  int n_ranks, size_t itemsize, bool forced, int n_tr, int strat_k) {
+  const size_t chunks =
+      static_cast<size_t>(8 + 2 * n_tr) * static_cast<size_t>(q + (q > 1 ? 2 : 1)) * kc;
   return sizeof(double) * kRedDoubles +
          itemsize * (static_cast<size_t>(sites) * (chunks + site_planes(q)) +
                      static_cast<size_t>(n_ranks) * 2 * core) +
          sizeof(int) * static_cast<size_t>(sites) * 2 +  // sites, live bits
          (forced ? forcing_smem_bytes(sites, 0, itemsize) : 0) +
-         (strat_k > 0 ? strat_adj_smem_bytes(core, kc, strat_k, itemsize) : 0);
+         (strat_k > 0 ? strat_adj_smem_bytes(s_cells, 1 << kc_log2, strat_k, itemsize) : 0);
 }
 
 // Sum over the `width` lanes of a group (a power of two <= 32) in lane
@@ -209,14 +240,147 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster, T* part, T* d
   __syncthreads();
 }
 
+// The recompute's Phi = g ssh + h @ W at this block's kr levels on a region
+// of the window, into phi [2][W][kc], from every rank's chunk of the primal
+// h ([2][W][kc], at the same offset in every rank's shared memory) read in
+// place through distributed shared memory, in rank and level order (the
+// sum over l in level order 0 .. K-1, as montgomery's), W (K, K) read from
+// device memory. Chunks of any width (montgomery's are powers of two).
+// Needs every rank's h visible (a cluster barrier after its last write);
+// ends with a block barrier.
+template <typename T>
+__device__ __forceinline__ void chunk_phi(T* phi, cg::cluster_group& cluster, const T* h,
+                                          const T* ssh, const T* w, const Region& rg, int W,
+                                          int Wi, int kc, int kr, int k0, int K, int n_ranks) {
+  const int pk = W * kc;
+  const FastDiv by_nc(rg.nc), by_kc(kc);
+  for (int e = threadIdx.x; e < 2 * rg.n * kc; e += blockDim.x) {
+    const int pt = by_kc.div(e), kl = by_kc.mod(e, pt);
+    if (kl >= kr) continue;
+    const int p = pt >= rg.n ? 1 : 0, t = pt - p * rg.n;
+    const int r = by_nc.div(t), c = by_nc.mod(t, r);
+    const int s = (rg.r0 + r) * Wi + rg.c0 + c;
+    const T* wc = w + k0 + kl;
+    T sum = T(0);
+    for (int rr = 0; rr < n_ranks; ++rr) {
+      const T* src = cluster.map_shared_rank(const_cast<T*>(h), rr) + p * pk + s * kc;
+      const int kr2 = min(kc, K - rr * kc);
+      for (int l = 0; l < kr2; ++l) sum += src[l] * wc[(rr * kc + l) * K];
+    }
+    phi[p * pk + s * kc + kl] = T(kGravity) * ssh[p * W + s] + sum;
+  }
+  __syncthreads();
+}
+
+// The tracer transpose's first half on a region (fold_tracers' arithmetic)
+// at q > 1, for the cotangent of a state j > 0 that the superstep holds:
+// h' and T' are the primal state j's, in shared memory (`prim`, its tracer
+// planes after its 8).
+template <typename T>
+__device__ __forceinline__ void fold_tracers_window(T* cot, const T* prim, const int* gsite,
+                                                    const AdjTracers<T>& at, const Region& rg,
+                                                    int W, int Wi, int kc, int kr, int plane) {
+  const int pk = W * kc;
+  const FastDiv by_nc(rg.nc), by_kc(kc);
+  for (int e = threadIdx.x; e < 2 * rg.n * kc; e += blockDim.x) {
+    const int pt = by_kc.div(e), kl = by_kc.mod(e, pt);
+    if (kl >= kr) continue;
+    const int p = pt >= rg.n ? 1 : 0, t = pt - p * rg.n;
+    const int r = by_nc.div(t), c = by_nc.mod(t, r);
+    const int s = (rg.r0 + r) * Wi + rg.c0 + c;
+    const int b = s * kc + kl;
+    const T hn = prim[p * pk + b];
+    const bool live = at.cmask == nullptr || at.cmask[p * plane + gsite[s]] > T(0);
+    T corr = T(0);
+    for (int t2 = 0; t2 < at.n; ++t2) {
+      T* ap = cot + (8 + 2 * t2 + p) * pk + b;
+      const T a = live ? *ap / hn : T(0);
+      *ap = a;
+      corr += a * prim[(8 + 2 * t2 + p) * pk + b];
+    }
+    cot[p * pk + b] -= corr;
+  }
+}
+
+// The stratified arm's pass of a reverse step at q > 1: strat_adjoint_pass's
+// arithmetic on the step's region R_j, whose S chunk the body stored (sl
+// [2][R_j][2^kc_log2], W's rows of the block's levels in wt [K][2^kc_log2]),
+// between the same cluster barriers. dh += (dt / dc) sum_k W[k0 + kl][k]
+// S[k] at R_j's cells (`dh(p, t, kl)`: R_j's cell t's stored cotangent, in
+// shared memory or, at j = 0, the output); over the core's cells only (each
+// cell counted by the tile that owns it), d(W)'s rows of the block's levels
+// into the tile's accumulator `acc` in double and d(dt)'s h @ W part into
+// *share, h the primal state j's chunk `P` [2][W][kc]. Level k lies in rank
+// k / kc's chunk, which need not be a power of two.
+template <typename T, typename Dh>
+__device__ __forceinline__ void strat_region_pass(const StratAdjSmem<T>& sm,
+                                                  cg::cluster_group& cluster, const T* P,
+                                                  const Region& rg, int core_r, int core_c,
+                                                  int rt, int ct, double* acc, bool first,
+                                                  Dh dh, int W, int Wi, int kc, int kc_log2,
+                                                  int k0, int kr, int K, int n_ranks, T dt,
+                                                  T inv_dc, double* share) {
+  const int kp = 1 << kc_log2, pk = W * kc;
+  const T dt_inv_dc = dt * inv_dc;
+  for (int e = threadIdx.x; e < (2 * rg.n << kc_log2); e += blockDim.x) {
+    const int kl = e & (kp - 1), pt = e >> kc_log2;
+    if (kl >= kr) continue;
+    const int p = pt >= rg.n ? 1 : 0;
+    T* d = dh(p, pt - p * rg.n, kl);
+    T sum = T(0);
+    for (int rr = 0; rr < n_ranks; ++rr) {
+      const T* src = cluster.map_shared_rank(sm.sl, rr) + (pt << kc_log2);
+      const T* wr = sm.wt + ((rr * kc) << kc_log2) + kl;
+      const int kr2 = min(kc, K - rr * kc);
+      for (int kk = 0; kk < kr2; ++kk) sum += wr[kk << kc_log2] * src[kk];
+    }
+    *d = *d + dt_inv_dc * sum;
+  }
+  const double s_dw = static_cast<double>(dt) * static_cast<double>(inv_dc);
+  const double s_dd = static_cast<double>(inv_dc);
+  for (int e = threadIdx.x; e < (K << kc_log2); e += blockDim.x) {
+    const int kl = e & (kp - 1), k = e >> kc_log2;
+    if (kl >= kr) continue;
+    const int rk = k / kc;
+    const T* src = cluster.map_shared_rank(sm.sl, rk) + (k - rk * kc);
+    double sum = 0.0;
+    for (int p = 0; p < 2; ++p)
+      for (int r = 0; r < rt; ++r)
+        for (int c = 0; c < ct; ++c) {
+          const int t = (core_r - rg.r0 + r) * rg.nc + core_c - rg.c0 + c;
+          const int sw = (core_r + r) * Wi + core_c + c;
+          sum = fma(static_cast<double>(P[p * pk + sw * kc + kl]),
+                    static_cast<double>(src[(p * rg.n + t) << kc_log2]), sum);
+        }
+    double* a = acc + static_cast<size_t>(k) * K + k0 + kl;
+    *a = first ? s_dw * sum : *a + s_dw * sum;
+    *share += s_dd * static_cast<double>(sm.wt[e]) * sum;
+  }
+}
+
+// The block's level chunk of n_planes tracer planes over the window into
+// dst [n_planes][W][kc], one value per async copy (load_tracers' layout at
+// chunks of any width).
+template <typename T>
+__device__ __forceinline__ void load_tracer_chunk(T* dst, const int* gs, const T* tr,
+                                                  int n_planes, int W, int kc, int k0, int kr,
+                                                  int K, int plane) {
+  const FastDiv by_kc(kc);
+  for (int e = threadIdx.x; e < n_planes * W * kc; e += blockDim.x) {
+    const int q = by_kc.div(e), kl = by_kc.mod(e, q);
+    if (kl >= kr) continue;
+    const int ch = q / W, s = q - ch * W;
+    copy_async(dst + e, tr + (static_cast<size_t>(ch) * plane + gs[s]) * K + k0 + kl);
+  }
+}
+
 // kMulti: q > 1. The q = 1 instantiation compiles without the recompute and
 // the exchanges between steps, which cost one body for all q 11% at q = 1
 // (PERF.md). kMasked: the masked arm. kForced: the forced arm. kTracers: the
-// tracer arm (q = 1). kStrat: the stratified arm (q = 1).
+// tracer arm. kStrat: the stratified arm.
 template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     tiled_adjoint_kernel(const TiledArgs<T> a, const AdjTaps<T> tp, const StepTaps<T> fw) {
-  static_assert(!(kTracers || kStrat) || !kMulti, "the tracer and stratified arms run q = 1");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -233,6 +397,9 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   const int n_cot = kMulti ? 2 : 1;
   // the tracer arm's planes follow the state's, in the primal and the cotangent
   const int n_pl = kTracers ? 8 + 2 * a.at.n : 8;
+  // the stratified arm's S cells: the core, or at q > 1 R_{q-1}, the
+  // largest region a reverse step stores
+  const int s_cells = (a.rt + 2 * a.hm * (q - 1)) * (a.ct + 2 * a.hi * (q - 1));
 
   double* red = reinterpret_cast<double*>(smem_raw);  // [kRedDoubles]
   T* prim = reinterpret_cast<T*>(red + kRedDoubles);  // [q][n_pl][W][kc]
@@ -247,7 +414,8 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   int* live_s = gsite + W;                            // [W]: the masked arm's live bits
   const ForcingSmem<T> fsm(live_s + W, W, 0);        // the forced arm's winds and levels
   // the stratified arm's S and W rows, after the forced arm's
-  const StratAdjSmem<T> ssm(kForced ? static_cast<void*>(fsm.lvl + 6 * W) : live_s + W, core, kc);
+  const StratAdjSmem<T> ssm(kForced ? static_cast<void*>(fsm.lvl + 6 * W) : live_s + W,
+                            kMulti ? s_cells : core, kMulti ? 1 << a.kp_log2 : kc);
 
   cluster_arrive_relaxed();
   allow_next_grid();
@@ -266,13 +434,17 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
              plane);
   if (kMasked) load_live(live_s, gsite, a.live, W);
   if (kForced) load_forcing(fsm, gsite, a.fc, W, plane, rank);
-  if (kTracers) {
+  if (kTracers && !kMulti) {
     load_tracers(prim + 8 * pk, gsite, a.at.tr, 2 * a.at.n, W, a.kp_log2, a.vec_log2, k0, kr,
                  K, plane);
     load_tracers(cot + 8 * pk, gsite, a.at.gtr, 2 * a.at.n, W, a.kp_log2, a.vec_log2, k0, kr,
                  K, plane);
   }
-  if (kStrat) load_strat_rows(ssm, a.st.w, core, K, k0, kr, a.kp_log2);
+  if (kTracers && kMulti) {  // chunks of any width
+    load_tracer_chunk(prim + 8 * pk, gsite, a.at.tr, 2 * a.at.n, W, kc, k0, kr, K, plane);
+    load_tracer_chunk(cot + 8 * pk, gsite, a.at.gtr, 2 * a.at.n, W, kc, k0, kr, K, plane);
+  }
+  if (kStrat) load_strat_rows(ssm, a.st.w, kMulti ? s_cells : core, K, k0, kr, a.kp_log2);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -284,6 +456,8 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
     __syncthreads();
   }
   cluster_wait();
+  // the recompute's Phi reads every rank's primal h chunk
+  if (kMulti && kStrat) cluster.sync();
 
   const T dt_div = a.dt * a.s_div;
   const T grav = T(kGravity);
@@ -302,28 +476,54 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   int xchg = 0;  // exchanges through `part` so far: its parity picks the array
 
   // the primal states 1 .. q - 1, forward on the window less j + 1 reaches
+  // (the tracer arm's planes carried as tiled_step.cu's; the stratified
+  // arm's pressure the gradient of Phi, formed first into the second
+  // cotangent chunk, which the reverse steps do not use yet)
+  const T pg_rec = kStrat ? -a.dt : pg_scale;
+  T* phi = cot + n_pl * pk;
   for (int j = 0; kMulti && j + 1 < q; ++j, ++xchg) {
-    const T* cur = prim + j * 8 * pk;
-    T* nxt = prim + (j + 1) * 8 * pk;
+    const T* cur = prim + j * n_pl * pk;
+    T* nxt = prim + (j + 1) * n_pl * pk;
     const T* ssh_c = ssh_s + j * 2 * W;
     T* sums = part + (xchg & 1) * 2 * W;
     const Region rg = shrunk(Wm, Wi, a.hm * (j + 1), a.hi * (j + 1));
     const FastDiv by_nc(rg.nc);
+    if (kStrat) {
+      const Region pr{rg.r0 + a.nr.m0, rg.c0 + a.nr.i0, rg.nr + a.nr.m1 - a.nr.m0,
+                      rg.nc + a.nr.i1 - a.nr.i0,
+                      (rg.nr + a.nr.m1 - a.nr.m0) * (rg.nc + a.nr.i1 - a.nr.i0)};
+      chunk_phi(phi, cluster, cur, ssh_c, a.st.w, pr, W, Wi, kc, kr, k0, K, n_ranks);
+    }
     for (int b = warp_base; b < rg.n; b += site_stride) {
       const int t = b + sub;
       const int tt = t < rg.n ? t : b;
       const int r = by_nc.div(tt), c = by_nc.mod(tt, r);
       const int s = (rg.r0 + r) * Wi + rg.c0 + c;
       T grad[6];
+      if (!kStrat) {
 #pragma unroll
-      for (int ch = 0; ch < 6; ++ch)
-        grad[ch] = (ssh_c[s + fw.nb[ch]] - ssh_c[(ch & 1) * W + s]) * a.inv_dc;
+        for (int ch = 0; ch < 6; ++ch)
+          grad[ch] = (ssh_c[s + fw.nb[ch]] - ssh_c[(ch & 1) * W + s]) * a.inv_dc;
+      }
       const unsigned live = kMasked ? static_cast<unsigned>(live_s[s]) : 0u;
+      // the tracer arm's live bits of the incoming edges and live-cell mask
+      T cm[2] = {T(1), T(1)};
+      unsigned inc_live = 0u;
+      if (kTracers && kMasked && t < rg.n) {
+        inc_live = adj_incoming_live(live_s, s, tp);
+        cm[0] = a.at.cmask[gsite[s]], cm[1] = a.at.cmask[plane + gsite[s]];
+      }
       T acc0 = T(0), acc1 = T(0);
       for (int kl = lane; kl < kc; kl += G) {
         if (t >= rg.n || kl >= kr) continue;
         const T* lv = cur + s * kc + kl;
         T* o = nxt + s * kc + kl;
+        if (kStrat) {
+          const T* ph = phi + s * kc + kl;
+#pragma unroll
+          for (int ch = 0; ch < 6; ++ch)
+            grad[ch] = (ph[fw.nb[ch] * kc] - ph[(ch & 1) * pk]) * a.inv_dc;
+        }
         T hnew[2], unew[6];
         T u[hex::kU], h[hex::kH];
 #pragma unroll
@@ -359,7 +559,7 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
             const T contrib = fw.w[t2] * uf[hex::tap_u(t2)];
             acc = (x == 0) ? contrib : acc + contrib;
           }
-          unew[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_scale * grad[ch];
+          unew[ch] = u[hex::self_u(ch)] + a.dt * acc + pg_rec * grad[ch];
           if (kForced) unew[ch] = unew[ch] - dt_rayl * u[hex::self_u(ch)];
         }
         if (kMasked && live != kAllLive) {
@@ -371,6 +571,12 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
         for (int p = 0; p < 2; ++p) o[p * pk] = hnew[p];
 #pragma unroll
         for (int ch = 0; ch < 6; ++ch) o[(2 + ch) * pk] = unew[ch];
+        if (kTracers) {
+          const TracerArgs<T> ftr{nullptr, nullptr, a.at.cmask, a.at.kappa, a.at.half_up,
+                                  a.at.n, {}, {}};
+          tracer_step<T, kMasked>(lv, pk, fw, u, h, hnew, cm, live, inc_live, ftr, dt_div,
+                                  a.inv_dc, [&](int i, T v) { o[(8 + i) * pk] = v; });
+        }
         acc0 += hnew[0];
         acc1 += hnew[1];
       }
@@ -405,10 +611,10 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   // (Rayleigh) and of the d(r_lin) and d(Cd) shares
   double s_rayl = 0.0, s_lin = 0.0, s_quad = 0.0;
   for (int j = q - 1; j >= 0; --j, ++xchg) {
-    const T* P = prim + j * 8 * pk;  // primal state j
+    const T* P = prim + j * n_pl * pk;  // primal state j
     const T* ssh_p = ssh_s + j * 2 * W;
-    const T* Cb = cot + ((q - 1 - j) & 1) * 8 * pk;  // cotangent j + 1 (G, gu)
-    T* Cn = cot + ((q - j) & 1) * 8 * pk;            // cotangent j, for j > 0
+    const T* Cb = cot + ((q - 1 - j) & 1) * n_pl * pk;  // cotangent j + 1 (G, gu, a)
+    T* Cn = cot + ((q - j) & 1) * n_pl * pk;            // cotangent j, for j > 0
     const Region rg = shrunk(Wm, Wi, a.hm * (span - j), a.hi * (span - j));
     const FastDiv by_nc(rg.nc);
     T* sums = j > 0 ? part + (xchg & 1) * 2 * W
@@ -438,16 +644,20 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
         if (t >= rg.n || kl >= kr) continue;
         const T* Pl = P + s * kc + kl;
         const T* Cl = Cb + s * kc + kl;
-        // the tracer arm's sums (q = 1: j = 0, the core), which the
-        // transpose below adds, and its per-cell d(dt) terms, which replace
-        // the per-edge <G, tend_h>
+        // the tracer arm's sums, which the transpose below adds, and its
+        // per-cell d(dt) terms, which replace the per-edge <G, tend_h>; the
+        // tracers' cotangent j to the output (j = 0, the core) or to
+        // cotangent j's tracer planes
         T trF[6], trX[2], trY[2];
         double trdd = 0.0;
         if (kTracers)
           tracer_adjoint<T, kMasked>(Pl, Cl, pk, tp, a.at, live, inc_live, dt_div, a.s_div,
                                      a.inv_dc, trF, trX, trY, &trdd, [&](int i, T v) {
-                                       a.at.dtr[(static_cast<size_t>(i) * plane + g) * K + k0 +
-                                                kl] = v;
+                                       if (j == 0)
+                                         a.at.dtr[(static_cast<size_t>(i) * plane + g) * K + k0 +
+                                                  kl] = v;
+                                       else
+                                         Cn[(8 + i) * pk + s * kc + kl] = v;
                                      });
         T gu[hex_adj::kGu], Gv[hex_adj::kG], h[hex_adj::kH], u[hex_adj::kU];
 #pragma unroll
@@ -497,9 +707,9 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
           S[p] = (gu[hex::self_u(p)] + gu[hex::self_u(2 + p)] + gu[hex::self_u(4 + p)]) -
                  (gu[hex::inc_u(3 * p)] + gu[hex::inc_u(3 * p + 1)] + gu[hex::inc_u(3 * p + 2)]);
         }
-        if (kStrat) {  // q = 1: R_0 is the core; the S chunk for the stratified pass
+        if (kStrat) {  // the S chunk of R_j (q = 1: the core) for the stratified pass
           ssm.sl[(t << a.kp_log2) + kl] = S[0];
-          ssm.sl[((core + t) << a.kp_log2) + kl] = S[1];
+          ssm.sl[(((kMulti ? rg.n : core) + t) << a.kp_log2) + kl] = S[1];
         }
         if (j == 0) {
           T* h_o = a.dh + g * K + k0 + kl;
@@ -574,15 +784,36 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
               W, kc, k0, kr, a.dt, dt_div, a.fc);
       __syncthreads();
     }
+    if (kMulti && kStrat) {
+      // W dPhi into R_j's stored dh, the core's d(W) rows and d(dt)'s h @ W
+      // part, once every rank's S chunk of R_j is visible
+      cluster.sync();
+      strat_region_pass(ssm, cluster, P, rg, core_r, core_c, a.rt, a.ct,
+                        a.st.acc + static_cast<size_t>(tile) * K * K,
+                        a.st.first != 0 && j == q - 1,
+                        [&](int p, int t, int kl) -> T* {
+                          const int r = by_nc.div(t), c = by_nc.mod(t, r);
+                          if (j > 0)
+                            return Cn + (p * W + (rg.r0 + r) * Wi + rg.c0 + c) * kc + kl;
+                          return a.dh + (static_cast<size_t>(p) * plane +
+                                         (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl;
+                        },
+                        W, Wi, kc, a.kp_log2, k0, kr, K, n_ranks, a.dt, a.inv_dc, &share);
+    }
     if (kMulti && j > 0) {
-      // gs of cotangent j on R_j, then folded into its gh (G)
+      // gs of cotangent j on R_j, then folded into its gh (G); the tracer
+      // arm's a and h' feedback from the primal state j
       gather(cluster, sums, gs_s, static_cast<const T*>(nullptr), ds_scale, rg, W, Wi,
              n_ranks);
       fold_ssh(Cn, gs_s, W, Wi, rg.r0, rg.c0, rg.nr, rg.nc, kc, a.kp_log2, kr);
       __syncthreads();
+      if (kTracers) {
+        fold_tracers_window(Cn, P, gsite, a.at, rg, W, Wi, kc, kr, plane);
+        __syncthreads();
+      }
     }
   }
-  if (kStrat) {
+  if (kStrat && !kMulti) {
     // W dPhi into the stored dh, the tile's d(W) rows and d(dt)'s h @ W
     // part, once every rank's S chunk is visible
     cluster.sync();
@@ -620,21 +851,24 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   }
 }
 
-// The kernel's attribute, set once per instantiation: dynamic shared memory
-// up to the device's opt-in limit.
+// The kernel's attributes, set once per instantiation: dynamic shared memory
+// up to the device's opt-in limit, and for the tracer arm at q > 1 clusters
+// of up to kMaxWideCluster blocks.
 template <typename T, bool kMulti, bool kMasked, bool kForced, bool kTracers, bool kStrat>
 int prepare(int max_smem) {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t e =
-      cudaFuncSetAttribute(tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers, kStrat>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  const auto kernel = tiled_adjoint_kernel<T, kMulti, kMasked, kForced, kTracers, kStrat>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (e == cudaSuccess && kMulti && kTracers)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   done = e == cudaSuccess;
   return static_cast<int>(e);
 }
 
 // The kernel of a plan, and its attribute: q > 1 or not, masked or not,
-// forced or not, and at q = 1 with tracers or not and stratified or not.
+// forced or not, with tracers or not and stratified or not.
 template <typename T>
 using TiledKernel = void (*)(TiledArgs<T>, AdjTaps<T>, StepTaps<T>);
 template <typename T>
@@ -650,8 +884,12 @@ constexpr TiledArm<T> arm() {
 }
 template <typename T, bool kMasked>
 TiledArm<T> arm_of(bool multi, bool forced, bool tracers, bool strat) {
-  if (multi)  // the entry checked: no tracers, unstratified
-    return forced ? arm<T, true, kMasked, true>() : arm<T, true, kMasked, false>();
+  static const TiledArm<T> multi_arms[8] = {
+      arm<T, true, kMasked, false, false, false>(), arm<T, true, kMasked, false, false, true>(),
+      arm<T, true, kMasked, false, true, false>(),  arm<T, true, kMasked, false, true, true>(),
+      arm<T, true, kMasked, true, false, false>(),  arm<T, true, kMasked, true, false, true>(),
+      arm<T, true, kMasked, true, true, false>(),   arm<T, true, kMasked, true, true, true>()};
+  if (multi) return multi_arms[(forced ? 4 : 0) + (tracers ? 2 : 0) + (strat ? 1 : 0)];
   static const TiledArm<T> arms[8] = {
       arm<T, false, kMasked, false, false, false>(), arm<T, false, kMasked, false, false, true>(),
       arm<T, false, kMasked, false, true, false>(),  arm<T, false, kMasked, false, true, true>(),
@@ -673,8 +911,8 @@ TiledArm<T> arm_of(bool multi, bool masked, bool forced, bool tracers, bool stra
 // d(r_lin, Cd, lambda) to dcoef[0 .. 2]. The stencils (`table`, `weights`
 // and their transposes) are host copies; kc is the chunk of levels per
 // block (kernels/tiled_adjoint.level_split). The tracer arm (at.tr the
-// tracer stack, q = 1) and the stratified arm (st.w the W, q = 1; d(W) added
-// to dstrat) as adjoint_step.cu's adjoint_rollout.
+// tracer stack) and the stratified arm (st.w the W; d(W) added to dstrat) as
+// adjoint_step.cu's adjoint_rollout, at any q.
 template <typename T>
 int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingArgs<T>& fc,
                   T* dwind, double* dcoef, AdjTracers<T> at, T* gtr_out, T* gtr_tmp,
@@ -691,15 +929,13 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || kc < 1 || ny2 % rt || nx % ct)
     return cudaErrorInvalidValue;
-  // the tracer arm: q = 1, at least one tracer, the cell mask with the live bits
+  // the tracer arm: at least one tracer, the cell mask with the live bits
   const bool tracers = at.tr != nullptr;
-  if (tracers && (q != 1 || at.n < 1 || (live == nullptr) != (at.cmask == nullptr)))
+  if (tracers && (at.n < 1 || (live == nullptr) != (at.cmask == nullptr)))
     return cudaErrorInvalidValue;
-  // the stratified arm: q = 1
   const bool strat = st.w != nullptr;
-  if (strat && q != 1) return cudaErrorInvalidValue;
   const int n_ranks = (k + kc - 1) / kc;  // no block without levels
-  if (n_ranks > kMaxCluster) return cudaErrorInvalidValue;
+  if (n_ranks > (q > 1 && tracers ? kMaxWideCluster : kMaxCluster)) return cudaErrorInvalidValue;
   const int span = 2 * q - 1;
   const int Wi = ct + 2 * hi * span, W = (rt + 2 * hm * span) * Wi;
   StepTaps<T> fw;
@@ -708,8 +944,9 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
       !resolve_adjoint_taps<T>(&tp, adj_table, adj_weights, Wi, W, kc))
     return kNotHexTable;
   const bool forced = fc.wind != nullptr;
-  const size_t smem = smem_bytes(W, rt * ct, kc, q, n_ranks, sizeof(T), forced,
-                                 tracers ? at.n : 0, strat ? k : 0);
+  const int s_cells = q > 1 ? (rt + 2 * hm * (q - 1)) * (ct + 2 * hi * (q - 1)) : rt * ct;
+  const size_t smem = smem_bytes(W, rt * ct, s_cells, kc, log2_exact(kc), q, n_ranks, sizeof(T),
+                                 forced, tracers ? at.n : 0, strat ? k : 0);
   int max_smem = 0;
   int err = opt_in_smem(&max_smem);
   if (err != 0) return err;
@@ -728,7 +965,8 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
   const size_t hs = cells * k, us = 3 * cells * k, trs = tracers ? at.n * hs : 0;
   const long long n_shares = static_cast<long long>(n_ss) * n_tiles * n_ranks;
   TiledArgs<T> a{nullptr, nullptr, nullptr, gs_in, gh_in, gu_in, f_edge, rts, live, nullptr,
-                 nullptr, nullptr, nullptr, fc, dwind, at, st, T(dt), T(inv_dc), T(s_div), ny2, nx,
+                 nullptr, nullptr, nullptr, fc, dwind, at, st, nbr_reach(table), T(dt), T(inv_dc),
+                 T(s_div), ny2, nx,
                  k, rt, ct, q, hm, hi, kc, kp_log2,
                  vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct,
                  n_shares};
@@ -769,10 +1007,10 @@ int tiled_adjoint(const T* f_edge, const T* rts, const int* live, const ForcingA
 // masked one; a null `wind` the unforced arm, any other the forced one with
 // `lvl`, the coefficients, and the accumulators `dwind` (6, ny2, nx) and
 // `dcoef` (3 doubles); a null `tr_st` the tracer-free arm, any other the
-// tracer arm (q = 1) with its operands as adjoint_step.cu's entry takes
-// them; a null `strat_w` the unstratified arm, any other the stratified one
-// (q = 1) with `dw_acc` and `dstrat` as adjoint_step.cu's entry takes them;
-// at q = 1 the forced, tracer and stratified arms in any combination.
+// tracer arm with its operands as adjoint_step.cu's entry takes them; a
+// null `strat_w` the unstratified arm, any other the stratified one with
+// `dw_acc` and `dstrat` as adjoint_step.cu's entry takes them; the forced,
+// tracer and stratified arms in any combination, at any q.
 #define MOT_TILED_ADJOINT_ENTRY(T, SUFFIX)                                                    \
   extern "C" int mot_tiled_adjoint_##SUFFIX(                                                  \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -808,16 +1046,16 @@ MOT_TILED_ADJOINT_ENTRY(float, f32)
 
 // One block's dynamic shared memory (bytes) and the blocks one SM holds, for
 // an f32 plan with n_ranks blocks of kc levels per cluster, with n_tr
-// tracers (the periodic tracer arm, q = 1), stratified at k levels (strat_k
-// > 0: the periodic stratified arm, q = 1) or neither; returns 0 or the
-// CUDA error.
+// tracers (the periodic tracer arm), stratified at k levels (strat_k > 0:
+// the periodic stratified arm), both or neither; returns 0 or the CUDA
+// error.
 extern "C" int mot_tiled_adjoint_occupancy(int rt, int ct, int q, int hm, int hi, int kc,
                                            int n_ranks, int n_tr, int strat_k, int* out) {
-  if ((n_tr > 0 || strat_k > 0) && q != 1) return cudaErrorInvalidValue;
   const int span = 2 * q - 1;
   const long long sites = static_cast<long long>(rt + 2 * hm * span) * (ct + 2 * hi * span);
-  const size_t smem =
-      smem_bytes(sites, rt * ct, kc, q, n_ranks, sizeof(float), false, n_tr, strat_k);
+  const int s_cells = q > 1 ? (rt + 2 * hm * (q - 1)) * (ct + 2 * hi * (q - 1)) : rt * ct;
+  const size_t smem = smem_bytes(sites, rt * ct, s_cells, kc, log2_exact(kc), q, n_ranks,
+                                 sizeof(float), false, n_tr, strat_k);
   int max_smem = 0;
   const TiledArm<float> arm = arm_of<float>(q > 1, false, false, n_tr > 0, strat_k > 0);
   int e = opt_in_smem(&max_smem);

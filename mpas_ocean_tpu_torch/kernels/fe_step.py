@@ -66,6 +66,7 @@ __all__ = [
     "fe_nl_rollout",
     "nl_launch_plan",
     "nl_plan",
+    "nl_scratch_size",
     "nl_slice",
     "nl_smem_bytes",
     "pack_stencil",
@@ -114,6 +115,9 @@ _NL_STATE, _NL_DERIVED, _NL_SITE, _NL_INTS = 16, 20, 24, 2
 # Levels per slice of the nonlinear step (csrc/nl_step.cuh) at which its
 # planner (nl_plan) sizes the tile; the slice then grows while it fits
 NL_SLICE = 4
+# At q > 1 the planner takes the largest slice, from NL_SLICE down, at
+# which a tile of at least this many sites fits (nl_plan)
+NL_Q_SITES = 32
 # The SMs of an H100 SXM (the planners' count of a launch's waves)
 SMS = 132
 
@@ -239,7 +243,7 @@ def fe_tile(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0,
 
 
 def nl_smem_bytes(tile, k: int, itemsize: int, fb: bool, ks: int, forced: bool = False,
-                  n_tracers: int = 0, strat: bool = False) -> int:
+                  n_tracers: int = 0, strat: bool = False, q: int = 1) -> int:
     """Dynamic shared memory of one block of the nonlinear step for a tile
     (rows, columns) at k levels in slices of ks (``nl_smem_bytes`` in
     csrc/nl_step.cuh): two state slices of the window (with ``n_tracers``,
@@ -250,9 +254,12 @@ def nl_smem_bytes(tile, k: int, itemsize: int, fb: bool, ks: int, forced: bool =
     the window's site indices and live bits; with ``strat``, the stratified
     arm's Phi, staging, W slice and chunk of h on the tile plus one ring
     (``strat_smem_bytes`` with ``fresh``); with ``forced``, the tile's winds
-    and packed levels (``forcing_smem_bytes``)."""
-    rt, ct = tile
+    and packed levels (``forcing_smem_bytes``). At q > 1, the q-step
+    kernel's (``nl_tiled_smem_bytes`` in csrc/nl_tiled.cuh): the q = 1
+    kernel's at the tile grown by q - 1 reaches per side, and a second ssh
+    pair over its window."""
     (hm, hi), (dr, dc) = NL_REACH[fb], NL_RING[fb]
+    rt, ct = tile[0] + 2 * hm * (q - 1), tile[1] + 2 * hi * (q - 1)
     _, kc = level_split(k)
     w = (rt + 2 * hm) * (ct + 2 * hi)
     d = (rt + 2 * dr) * (ct + 2 * dc)
@@ -261,13 +268,15 @@ def nl_smem_bytes(tile, k: int, itemsize: int, fb: bool, ks: int, forced: bool =
         + 2 * (f if fb else core)
     if fb or strat:
         vals += 2 * f + 6 * core * kc
+    if q > 1:
+        vals += 2 * w
     return (itemsize * vals + 4 * _NL_INTS * w
             + (strat_smem_bytes(f, kc, k, itemsize, fresh=True) if strat else 0)
             + (forcing_smem_bytes(core, 0, itemsize) if forced else 0))
 
 
 def nl_plan(ny2: int, nx: int, k: int, itemsize: int, fb: bool = False, tiles=None,
-            forced: bool = False, n_tracers: int = 0, strat: bool = False):
+            forced: bool = False, n_tracers: int = 0, strat: bool = False, q: int = 1):
     """The nonlinear step's plan (rows, columns, levels per slice) on a
     ny2 x nx lattice at k levels: among ``tiles`` (by default the powers of
     two up to 64 a side, cut to the lattice; both arms run ragged
@@ -281,36 +290,53 @@ def nl_plan(ny2: int, nx: int, k: int, itemsize: int, fb: bool = False, tiles=No
     (4, 16, 8) and (8, 16, 4), FB (8, 8, 4) at both. ``forced``,
     ``n_tracers`` and ``strat`` size the plan for the composed arms' shared
     memory (``nl_smem_bytes``), which may leave fewer levels per slice, or
-    none at NL_SLICE: then the tile is sized at one level per slice. A
-    composition that fits no tile raises ValueError."""
+    none at NL_SLICE: then the tile is sized at one level per slice. With
+    q > 1 over the q-step kernel's shared memory and windows
+    (csrc/nl_tiled.cuh; ``tiles`` then the tiles that divide the lattice),
+    the tile is sized at the largest slice, from NL_SLICE down, at which a
+    tile of at least NL_Q_SITES sites fits (else at one level): the halo
+    recompute, which a larger tile cuts, grows with q. On an H100 at
+    256x256x100 and 64x64x100 f32 at q = 2 (PERF.md section 6,
+    tools/tile_sweep.py --kernels nonlinear --q 1 2) that is FE (4, 16, 4),
+    the fastest of 60 plans at both, and FB (4, 8, 2), within 1.6% of the
+    fastest of 28 and the fastest; sizing at one level per slice took FE
+    (8, 32, 1), 1.98x the fastest. A composition that fits no tile raises
+    ValueError, which names the shared memory."""
     kc = level_split(k)[1]
     hm, hi = NL_REACH[fb]
-    arms = dict(forced=forced, n_tracers=n_tracers, strat=strat)
+    arms = dict(forced=forced, n_tracers=n_tracers, strat=strat, q=q)
     if tiles is None:
         tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
-    for base in dict.fromkeys((min(NL_SLICE, kc), 1)):
-        ok = [t for t in tiles if nl_smem_bytes(t, k, itemsize, fb, base, **arms) <= SMEM_BYTES]
+    top = min(NL_SLICE, kc)
+    bases = ([(top, 0), (1, 0)] if q == 1 else
+             [(b, NL_Q_SITES) for b in (4, 2, 1) if b <= top] + [(1, 0)])
+    for base, least in bases:
+        ok = [t for t in tiles if t[0] * t[1] >= least
+              and nl_smem_bytes(t, k, itemsize, fb, base, **arms) <= SMEM_BYTES]
         if ok:
             break
     else:
-        raise ValueError(f"no tile of the nonlinear step fits ({k} levels of {itemsize}-byte "
-                         f"values{''.join(f', {a}' for a, on in arms.items() if on)})")
+        on = [a for a in ("forced", "n_tracers", "strat") if arms[a]] + [f"q={q}"] * (q > 1)
+        raise ValueError(f"no tile of the nonlinear step fits {SMEM_BYTES} bytes of shared "
+                         f"memory per block ({k} levels of {itemsize}-byte "
+                         f"values{''.join(f', {a}' for a in on)})")
     ranks = level_split(k)[0]
     full = [t for t in ok if -(-ny2 // t[0]) * -(-nx // t[1]) * ranks >= SMS] or ok
-    *_, ct, rt = max((t[0] * t[1], -(t[0] + 2 * hm) * (t[1] + 2 * hi), t[1], t[0])
+    *_, ct, rt = max((t[0] * t[1], -(t[0] + 2 * hm * q) * (t[1] + 2 * hi * q), t[1], t[0])
                      for t in full)
     return rt, ct, nl_slice((rt, ct), k, itemsize, fb, **arms)
 
 
 def nl_slice(tile, k: int, itemsize: int, fb: bool = False, forced: bool = False,
-             n_tracers: int = 0, strat: bool = False) -> int:
+             n_tracers: int = 0, strat: bool = False, q: int = 1) -> int:
     """The largest slice (levels, a power of two up to 16 and the level
     chunk) at which the nonlinear step's ``tile`` fits one block, with the
-    composed arms' shared memory (``nl_smem_bytes``); at least one level."""
+    composed arms' shared memory (``nl_smem_bytes``, of the q-step kernel at
+    q > 1); at least one level."""
     kc = level_split(k)[1]
     ks = 1
     while ks * 2 <= min(16, kc) and nl_smem_bytes(tile, k, itemsize, fb, ks * 2, forced,
-                                                  n_tracers, strat) <= SMEM_BYTES:
+                                                  n_tracers, strat, q) <= SMEM_BYTES:
         ks *= 2
     return ks
 
@@ -397,6 +423,7 @@ _ARGTYPES = {
     "stack": [_P] * 13 + [_D] * 8 + [_I] * 10 + [_P],
     "nl_steps": [_P, _P, _I] + [_P] * 22 + [_D] * 10 + [_I] * 11 + [_P],
     "nl_stack": [_P, _P, _I] + [_P] * 14 + [_D] * 10 + [_I] * 11 + [_P],
+    "nl_tiled": [_P, _P, _I] + [_P] * 23 + [_D] * 10 + [_I] * 12 + [_P],
 }
 
 
@@ -731,7 +758,7 @@ def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
 
 
 def _nl_checks(name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile,
-               ks, live, fb, forcing=None, tracers=None, strat_w=None):
+               ks, live, fb, forcing=None, tracers=None, strat_w=None, q=1):
     """The checks both nonlinear wrappers make (the state's device and
     dtype, the constants' device, dtype, shape and contiguity, the vertex
     constants' 4 planes (periodic) or 20 (with ``live``), the composed arms'
@@ -752,10 +779,12 @@ def _nl_checks(name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_
     if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
         raise ValueError(f"the nonlinear step's slices are a power of two of levels up to "
                          f"{min(16, kc)} (its level chunk at {k} levels), got {ks}")
-    need = nl_smem_bytes(tile, k, h.element_size(), fb, ks, **nl_arms(forcing, tracers, strat_w))
+    need = nl_smem_bytes(tile, k, h.element_size(), fb, ks, **nl_arms(forcing, tracers, strat_w),
+                         q=q)
     if need > SMEM_BYTES:
-        raise ValueError(f"a nonlinear tile {tile} at {k} levels in slices of {ks} needs "
-                         f"{need} bytes of shared memory per block, more than {SMEM_BYTES}")
+        raise ValueError(f"a nonlinear tile {tile} at {k} levels in slices of {ks}"
+                         f"{f' and q={q}' if q > 1 else ''} needs {need} bytes of shared memory "
+                         f"per block, more than {SMEM_BYTES}")
     return (ny2, nx, k), stencil, tables, n_fv
 
 
@@ -769,20 +798,28 @@ def nl_arms(forcing, tracers, strat_w) -> dict:
 
 def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
            edge_vertex_terms, scal, n_steps, tile, ks, live, fb=False, out=None, tmp=None,
-           forcing=None, tracers=None, strat_w=None, tr_out=None, tr_tmp=None):
+           forcing=None, tracers=None, strat_w=None, tr_out=None, tr_tmp=None, q=1):
     """n_steps >= 0 nonlinear steps through ``entry``, the FE arm's entry
     (csrc/nl_step_fe_*.cu) or (``fb``) the FB arm's (nl_step_fb_*.cu), which
-    take the same arguments; ``forcing``, ``tracers`` and ``strat_w`` (as
+    take the same arguments, or with q > 1 the q-step kernel's entry of the
+    arm (csrc/nl_tiled_*.cu: q steps per launch over tiles that divide the
+    lattice, the tiles' state between the steps in a scratch allocated here,
+    ``nl_scratch_size``); ``forcing``, ``tracers`` and ``strat_w`` (as
     for ``fe_rollout``) run the composed arms. Returns (ssh, h, u), new or
-    written into ``out`` (through ``tmp``, allocated when None and
-    n_steps > 1), with the tracer planes fourth with ``tracers``, new or
+    written into ``out`` (through ``tmp``, allocated when None and more
+    than one launch), with the tracer planes fourth with ``tracers``, new or
     written into ``tr_out`` (through ``tr_tmp``, alike), and raises as
     ``check_error`` for a failed launch, after ``_nl_checks``."""
     dims, (table, weights, n_terms), (vc, vc_w, ev), n_fv = _nl_checks(
         name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile, ks, live,
-        fb, forcing, tracers, strat_w)
+        fb, forcing, tracers, strat_w, q)
     if n_steps < 0:
         raise ValueError("n_steps must be >= 0")
+    if q < 1 or n_steps % q:
+        raise ValueError(f"q={q} must be >= 1 and divide n_steps={n_steps}")
+    if q > 1 and (dims[0] % tile[0] or dims[1] % tile[1]):
+        raise ValueError(f"the q-step kernel's tile {tuple(tile)} must divide the "
+                         f"{dims[0]}x{dims[1]} lattice")
     device = h.device
     src = tuple(x.contiguous() for x in (ssh, h, u))
     for x, shape, f in zip(src, state_shapes(*dims), ("ssh", "h", "u")):
@@ -793,7 +830,7 @@ def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
     if out is None:
         out = tuple(torch.empty_like(x) for x in src)
     if tmp is None:
-        tmp = out if n_steps == 1 else tuple(torch.empty_like(x) for x in src)
+        tmp = out if n_steps == q else tuple(torch.empty_like(x) for x in src)
     for group, what in ((out, "out"), (tmp, "scratch")):
         for x, y, f in zip(group, src, ("ssh", "h", "u")):
             check_tensor(f"{what} {f}", x, y.shape, h.dtype, device)
@@ -801,21 +838,35 @@ def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
         if tr_out is None:
             tr_out = torch.empty_like(tracers.planes)
         if tr_tmp is None:
-            tr_tmp = tr_out if n_steps == 1 else torch.empty_like(tr_out)
+            tr_tmp = tr_out if n_steps == q else torch.empty_like(tr_out)
         for x, what in ((tr_out, "tracer out"), (tr_tmp, "tracer scratch")):
             check_tensor(what, x, tracers.planes.shape, h.dtype, device)
     tr_ptrs, tr_opts, n_tr = tracer_args(tracers, tr_out, tr_tmp)
     ptrs, coefs = forcing_args(forcing, level_split(dims[2])[1])
+    # the q-step kernel's scratch, held until the launches are queued
+    scr = (torch.empty(nl_scratch_size(*dims, tile, q, fb, n_tr), dtype=h.dtype, device=device)
+           if q > 1 else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(rts.data_ptr(), fv.data_ptr(), n_fv,
                     None if live is None else live.data_ptr(), *ptrs, table.ctypes.data,
                     weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data, ev.ctypes.data,
                     *[x.data_ptr() for x in (*src, *out, *tmp)], *tr_ptrs,
-                    None if strat_w is None else strat_w.data_ptr(), *(float(x) for x in scal),
-                    *tr_opts, *coefs, *dims, n_steps, n_terms, *tile, ks, n_tr, stream)
+                    None if strat_w is None else strat_w.data_ptr(),
+                    *(() if scr is None else (scr.data_ptr(),)),
+                    *(float(x) for x in scal), *tr_opts, *coefs, *dims, n_steps, n_terms, *tile,
+                    ks, n_tr, *((q,) if q > 1 else ()), stream)
     check_error(name, err, f" (tile {tile}, slice {ks})")
     return out if tracers is None else (*out, tr_out)
+
+
+def nl_scratch_size(ny2: int, nx: int, k: int, tile, q: int, fb: bool, n_tracers: int) -> int:
+    """Values of the q-step kernel's scratch (csrc/nl_tiled.cuh): per tile
+    of ``tile`` (dividing the lattice), the 8 state and 2 n_tracers tracer
+    planes of its tile grown by q - 1 reaches per side at k levels."""
+    hm, hi = NL_REACH[fb]
+    grown = (tile[0] + 2 * hm * (q - 1)) * (tile[1] + 2 * hi * (q - 1))
+    return (ny2 // tile[0]) * (nx // tile[1]) * (8 + 2 * n_tracers) * grown * k
 
 
 def _fe_nl_plan(h, tile, ks, arms=None):

@@ -4,10 +4,10 @@ which replaces the TPU kernel ``_tiled_adjoint_kernel``
 forward-Euler core, on a periodic lattice and, with the wall mask's
 ``live`` bits (``fe_step.live_bits``), on a coastal channel culled from one;
 with ``forcing=`` its forced arm, which adds d(wind) and d(r_lin, Cd,
-lambda) to ``dforc``, with ``tracers=`` its tracer arm at q = 1, and with
-``strat_w=`` its stratified arm at q = 1, which adds d(W) to ``dstrat`` (all
-as ``adjoint_step.adjoint_rollout``); at q = 1 the three compose in any
-combination.
+lambda) to ``dforc``, with ``tracers=`` its tracer arm, and with
+``strat_w=`` its stratified arm, which adds d(W) to ``dstrat`` (all as
+``adjoint_step.adjoint_rollout``); the three compose in any combination, at
+any q.
 
 ``tiled_adjoint_rollout`` takes tensors on a CUDA device and the stencils on
 the host (``StructMesh.host_stencil``, ``StructMesh.host_adjoint_stencil``),
@@ -48,8 +48,8 @@ from .fe_step import (
 )
 
 __all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "forced_launches", "launches",
-           "level_split", "occupancy", "smem_bytes", "strat_launches", "tiled_adjoint_rollout",
-           "tracer_launches", "window_sites"]
+           "level_split", "occupancy", "smem_bytes", "strat_cells", "strat_launches",
+           "tiled_adjoint_rollout", "tracer_launches", "window_sites"]
 
 _RED_BYTES = 8 * 16  # kRedDoubles doubles in csrc/adjoint_window.cuh
 
@@ -61,16 +61,23 @@ tracer_launches = 0
 strat_launches = 0
 
 
-def level_split(k: int, q: int) -> tuple[int, int]:
+# Most blocks in a cluster of the tracer arm at q > 1 (kMaxWideCluster in
+# csrc/tiled_adjoint.cu): H100's non-portable cluster size
+WIDE_CLUSTER = 16
+
+
+def level_split(k: int, q: int, n_tracers: int = 0) -> tuple[int, int]:
     """(blocks per cluster, levels per block) of the tiled adjoint kernel.
     At q = 1 the forward kernels' split (``fe_step.level_split``: power-of-
     two chunks, 16 at K = 100, moved by 16-byte copies); at q > 1, whose
     window holds q primal copies and two cotangents, the fewest levels per
-    block over at most MAX_CLUSTER blocks (13 at K = 100). No block is
-    without levels."""
+    block over at most MAX_CLUSTER blocks (13 at K = 100), and with tracers,
+    whose planes ride in every copy, over at most WIDE_CLUSTER blocks (7 at
+    K = 100: the (1, 1) tile's two-tracer window at 13 levels a block takes
+    more than a block's shared memory). No block is without levels."""
     if q == 1:
         return fe_step.level_split(k)
-    kc = -(-k // MAX_CLUSTER)
+    kc = -(-k // (WIDE_CLUSTER if n_tracers else MAX_CLUSTER))
     return -(-k // kc), kc
 
 
@@ -83,33 +90,46 @@ def window_sites(row_tile: int, col_tile: int, q: int, halo) -> int:
 
 
 def smem_bytes(sites: int, core: int, k: int, q: int, itemsize: int,
-               forced: bool = False, n_tracers: int = 0, strat: bool = False) -> int:
+               forced: bool = False, n_tracers: int = 0, strat: bool = False,
+               s_cells: int | None = None) -> int:
     """Dynamic shared memory of one block for a window of ``sites`` lattice
     sites around a core of ``core`` sites, k levels and q steps
     (``smem_bytes`` in csrc/tiled_adjoint.cu): the warps' d(dt) sums; q
     primal chunks and one cotangent chunk (two at q > 1) of 8 planes, with
-    ``n_tracers`` (q = 1) the tracer arm's 2 n_tracers more in each; per
-    site f_edge, gs and q ssh planes, at q > 1 also rts and two pairs of
-    partial sums; the ranks' partial sums of the core; the site indices and
-    live bits (the masked arm's, reserved either way, as in
+    ``n_tracers`` the tracer arm's 2 n_tracers more in each; per site
+    f_edge, gs and q ssh planes, at q > 1 also rts and two pairs of partial
+    sums; the ranks' partial sums of the core; the site indices and live
+    bits (the masked arm's, reserved either way, as in
     ``fe_step.smem_bytes``); with ``forced``, the forced arm's
     (``fe_step.forcing_smem_bytes``); with ``strat``, the stratified arm's
-    (q = 1: ``adjoint_step.strat_smem_bytes``)."""
-    ranks, kc = level_split(k, q)
-    chunks = (8 * (q + (2 if q > 1 else 1)) + 4 * n_tracers) * kc
+    (``adjoint_step.strat_smem_bytes``: S on ``s_cells`` cells, the core by
+    default, R_{q-1} at q > 1, ``strat_cells``, and W's rows, in chunks of
+    the power of two at or above the level chunk)."""
+    ranks, kc = level_split(k, q, n_tracers)
+    chunks = (8 + 2 * n_tracers) * (q + (2 if q > 1 else 1)) * kc
     planes = 8 + 2 * q + (6 if q > 1 else 0)
+    kp = 1 << (kc - 1).bit_length()
     return (_RED_BYTES + itemsize * (sites * (chunks + planes) + ranks * 2 * core)
             + (4 + LIVE_BYTES) * sites + (forcing_smem_bytes(sites, 0, itemsize) if forced else 0)
-            + (strat_smem_bytes(core, kc, k, itemsize) if strat else 0))
+            + (strat_smem_bytes(core if s_cells is None else s_cells, kp, k, itemsize)
+               if strat else 0))
+
+
+def strat_cells(row_tile: int, col_tile: int, q: int, halo) -> int:
+    """Cells of the stratified arm's S chunk: R_{q-1}, the core grown by
+    q - 1 ``halo`` = (rows, columns) per side, the largest region a reverse
+    step of the superstep stores (the core at q = 1)."""
+    hm, hi = halo
+    return (row_tile + 2 * hm * (q - 1)) * (col_tile + 2 * hi * (q - 1))
 
 
 def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int,
               n_tracers: int = 0, strat: bool = False) -> tuple[int, int]:
     """(one block's shared memory in bytes as the kernel reckons it, blocks
     per SM by CUDA's occupancy calculator) of an f32 plan, with
-    ``n_tracers`` tracers (the periodic tracer arm, q = 1), ``strat`` (the
-    periodic stratified arm, q = 1) or neither."""
-    ranks, kc = level_split(k, q)
+    ``n_tracers`` tracers (the periodic tracer arm), ``strat`` (the
+    periodic stratified arm), both or neither."""
+    ranks, kc = level_split(k, q, n_tracers)
     fn = build.load().mot_tiled_adjoint_occupancy
     fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -159,11 +179,10 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
     the masked forward steps; ``forcing`` and ``dforc`` (as for
     ``adjoint_step.adjoint_rollout``) the forced arm; ``tracers`` and ``end``
     (as for ``adjoint_step.adjoint_rollout``, the stack's slots being
-    superstep starts) the tracer arm, which runs q = 1 only: a tracer
-    state at q > 1 raises NotImplementedError; ``strat_w`` and ``dstrat`` (as
-    for ``adjoint_step.adjoint_rollout``) the stratified arm, q = 1 only
-    likewise; at q = 1 the forced, tracer and stratified arms in any
-    combination."""
+    superstep starts) the tracer arm; ``strat_w`` and ``dstrat`` (as for
+    ``adjoint_step.adjoint_rollout``) the stratified arm; the forced, tracer
+    and stratified arms in any combination, at any q. A plan that does not
+    fit the card's shared memory raises ValueError."""
     global launches, forced_launches, tracer_launches, strat_launches
     ssh_st, h_st, u_st = stack
     if h_st.dim() != 5:
@@ -178,17 +197,14 @@ def tiled_adjoint_rollout(stack, g_in, f_edge, rts, stencil_table, coriolis_weig
                          f"got {slots}")
     if q < 1:
         raise ValueError(f"q={q} must be >= 1")
-    if tracers is not None and q != 1:
-        raise NotImplementedError(f"the tiled reverse's tracer arm runs q = 1, not q = {q}")
-    if strat_w is not None and q != 1:
-        raise NotImplementedError(f"the tiled reverse's stratified arm runs q = 1, not q = {q}")
     if row_tile < 1 or col_tile < 1 or ny2 % row_tile or nx % col_tile:
         raise ValueError(f"tile {row_tile}x{col_tile} must divide the {ny2}x{nx} lattice")
     hm, hi = halo
-    cluster, kc = level_split(k, q)
     n_tr = 0 if tracers is None else tracers.planes.shape[1] // 2
+    cluster, kc = level_split(k, q, n_tr)
     need = smem_bytes(window_sites(row_tile, col_tile, q, halo), row_tile * col_tile, k, q,
-                      h_st.element_size(), forcing is not None, n_tr, strat_w is not None)
+                      h_st.element_size(), forcing is not None, n_tr, strat_w is not None,
+                      strat_cells(row_tile, col_tile, q, halo))
     if need > SMEM_BYTES:
         raise ValueError(f"a {row_tile}x{col_tile} tile at q={q} needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")

@@ -1,9 +1,10 @@
 """Wrapper of the hand-written tiled q-step kernel (csrc/tiled_step.cu),
 which replaces the TPU kernel ``_tiled_step_kernel``
 (mpas_ocean_tpu/structured/pallas_model.py:852) for the linear core, forward
-Euler and forward-backward, and, in its nonlinear FB arm
-(csrc/nl_step.cuh, ``tiled_nl_rollout``, q = 1), for the vector-invariant
-one (its FE arm is fe_step's, ``fe_step.fe_nl_rollout``), on a periodic
+Euler and forward-backward, and, in its nonlinear arms (``tiled_nl_rollout``:
+FB at q = 1 in csrc/nl_step.cuh, whose FE arm at q = 1 is fe_step's,
+``fe_step.fe_nl_rollout``; FE and FB at q > 1 in the q-step kernel,
+csrc/nl_tiled.cuh), for the vector-invariant one, on a periodic
 lattice and, with the wall mask's ``live`` bits (``fe_step.live_bits``), on
 a coastal channel culled from one; ``tiled_rollout`` takes momentum forcing
 (``forcing=``), which runs the kernel's forced arm, tracers
@@ -20,7 +21,8 @@ version is ``structured.tiled_model.plain_tiled_rollout``, which
 ``structured.tiled_model.tiled_run_loop`` runs for tensors on the CPU.
 ``launches`` counts kernel launches (one per q steps), of both cores,
 ``forced_launches`` those of the forced arm, ``tracer_launches`` those of
-the tracer arm and ``strat_launches`` those of the stratified arm.
+the tracer arm, ``strat_launches`` those of the stratified arm and
+``window_launches`` those of the nonlinear q-step kernel.
 """
 
 from __future__ import annotations
@@ -60,17 +62,20 @@ from .fe_step import (
 __all__ = ["MAX_CLUSTER", "SMEM_BYTES", "TWO_BLOCK_BYTES", "forced_launches", "launches",
            "level_split",
            "nl_plan", "nl_slice", "nl_smem_bytes", "occupancy", "smem_bytes",
-           "strat_launches", "tiled_nl_rollout", "tiled_rollout", "tracer_launches"]
+           "strat_launches", "tiled_nl_rollout", "tiled_rollout", "tracer_launches",
+           "window_launches"]
 
 _PLANES = 16  # kPlanes in csrc/tiled_step.cu
 
-# kernel launches made by tiled_rollout (one per q steps) and
-# tiled_nl_rollout (one per step), and those of them that ran the forced
-# arm, the tracer arm and the stratified arm
+# kernel launches made by tiled_rollout and tiled_nl_rollout (one per q
+# steps), and those of them that ran the forced arm, the tracer arm and the
+# stratified arm; ``window_launches`` those of the nonlinear q-step kernel
+# (csrc/nl_tiled.cuh, q > 1)
 launches = 0
 forced_launches = 0
 tracer_launches = 0
 strat_launches = 0
+window_launches = 0
 
 
 def smem_bytes(sites: int, kc: int, q: int, itemsize: int, forced: bool = False,
@@ -201,27 +206,45 @@ def count_launches(n: int, forcing, tracers, strat_w) -> None:
 def tiled_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
                      edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
                      s_curl: float, n_steps: int, live=None, tile=None, ks=None, forcing=None,
-                     tracers=None, strat_w=None):
-    """n_steps forward-backward steps of the nonlinear core on the card, one
-    launch of the tiled kernel's nonlinear FB arm (reach 3, q = 1) each.
-    Arguments as for ``fe_step.fe_nl_rollout``, whose FE arm is the tiled
-    route's nonlinear FE (``forcing``, ``tracers`` and ``strat_w`` too); the
-    tile (rows, columns) defaults to ``nl_plan``'s FB plan and the slice ks
-    to the largest that fits it, with the composed arms' shared memory.
-    Returns new (ssh, h, u), and new tracer planes fourth with tracers."""
+                     tracers=None, strat_w=None, q: int = 1, fb: bool = True):
+    """n_steps steps of the nonlinear core on the card: at q = 1
+    forward-backward, one launch of the tiled kernel's nonlinear FB arm
+    (reach 3) each (its FE arm at q = 1 is ``fe_step.fe_nl_rollout``'s);
+    at q > 1 FB or (``fb=False``) FE, one launch of the q-step kernel
+    (csrc/nl_tiled.cuh) per q steps over tiles that divide the lattice.
+    Arguments as for ``fe_step.fe_nl_rollout`` (``forcing``, ``tracers`` and
+    ``strat_w`` too); the tile (rows, columns) defaults to ``nl_plan``'s
+    plan at q (over the tiles that divide the lattice at q > 1) and the
+    slice ks to the largest that fits it, with the composed arms' shared
+    memory; a plan that does not fit raises ValueError. Returns new
+    (ssh, h, u), and new tracer planes fourth with tracers."""
     ny2, nx, k = lattice_dims(h, "tiled_step")
+    if q < 1 or (q == 1 and not fb):
+        raise ValueError(f"tiled_nl_rollout runs FB at q = 1 and FE or FB at q > 1, not "
+                         f"{'FB' if fb else 'FE'} at q = {q}")
     size = h.element_size()
-    arms = nl_arms(forcing, tracers, strat_w)
-    tile = nl_plan(ny2, nx, k, size, True, **arms)[:2] if tile is None else tuple(tile)
-    ks = nl_slice(tile, k, size, True, **arms) if ks is None else ks
+    arms = dict(nl_arms(forcing, tracers, strat_w), q=q)
+    if tile is None:
+        tiles = None if q == 1 else [(r, c) for r in range(1, ny2 + 1) if ny2 % r == 0
+                                     for c in range(1, nx + 1) if nx % c == 0]
+        tile = nl_plan(ny2, nx, k, size, fb, tiles, **arms)[:2]
+    tile = tuple(tile)
+    ks = nl_slice(tile, k, size, fb, **arms) if ks is None else ks
     lib = build.load()
-    fn = {torch.float32: lib.mot_tiled_nl_steps_f32,
-          torch.float64: lib.mot_tiled_nl_steps_f64}[h.dtype]
-    fn.argtypes = _FE_ARGTYPES["nl_steps"]
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[h.dtype]
+    if q == 1:
+        fn, kind = getattr(lib, f"mot_tiled_nl_steps_{suffix}"), "nl_steps"
+    else:
+        fn, kind = getattr(lib, f"mot_nl_tiled_{'fb' if fb else 'fe'}_{suffix}"), "nl_tiled"
+    fn.argtypes = _FE_ARGTYPES[kind]
     fn.restype = ctypes.c_int
-    out = nl_run("tiled_step (nonlinear FB)", fn, ssh, h, u, rts, stencil_table,
-                 coriolis_weight, fv, vertex_cell_terms, edge_vertex_terms,
-                 (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live, fb=True,
-                 forcing=forcing, tracers=tracers, strat_w=strat_w)
-    count_launches(n_steps, forcing, tracers, strat_w)
+    name = f"tiled_step (nonlinear {'FB' if fb else 'FE'}{f', q={q}' if q > 1 else ''})"
+    out = nl_run(name, fn, ssh, h, u, rts, stencil_table, coriolis_weight, fv,
+                 vertex_cell_terms, edge_vertex_terms, (dt, inv_dc, s_div, s_ke, s_curl),
+                 n_steps, tile, ks, live, fb=fb, forcing=forcing, tracers=tracers,
+                 strat_w=strat_w, q=q)
+    count_launches(n_steps // q, forcing, tracers, strat_w)
+    if q > 1:
+        global window_launches
+        window_launches += n_steps // q
     return out

@@ -43,22 +43,19 @@ card, as the nonlinear forward's does; the plain superstep runs any q.
 
 Tracers (a state's ``tracers``, with ``tracer_kappa=`` and
 ``tracer_upwind=``) are a fourth differentiated field, as in diff_model; on
-the card the tiled adjoint kernel's tracer arm runs them at q = 1 (a tracer
-state at q > 1 raises NotImplementedError there, as the JAX router takes
-q = 1 only; the plain superstep runs any q).
+the card the tiled adjoint kernel's tracer arm runs them, at any q.
 
 Layered stratification (``strat=``, its W a differentiated input, as in
-diff_model) runs the stratified arms on the card at q = 1 (a stratified
-q > 1 raises NotImplementedError there; the plain superstep runs any q);
-the tiled reverse accumulates d(W) in double beside d(dt).
+diff_model) runs the stratified arms on the card, at any q; the tiled
+reverse accumulates d(W) in double beside d(dt).
 
 Momentum forcing (``forcing=``) runs the forced arms: the tiled reverse
 accumulates d(wind) per edge (each tile its core's, over its q steps) and
 d(r_lin, Cd, lambda) in double beside d(dt).
 
-At q = 1 the three compose with each other and with either core on the
-card: the linear ones in the tiled adjoint kernel's composed arms, the
-nonlinear ones in the nonlinear reverse kernel's.
+The three compose with each other and with either core on the card: the
+linear ones in the tiled adjoint kernel's composed arms at any q, the
+nonlinear ones in the nonlinear reverse kernel's at q = 1.
 
 A CUDA state runs the kernels, and a failed build, a failed launch or a
 plan that does not fit raises; a CPU state runs the same plan with the plain
@@ -153,13 +150,13 @@ def adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
     """Shared memory of one block of the tiled adjoint kernel: its level
     chunk of q primal states and one cotangent (two at q > 1) over the
     window of 2q - 1 halos per side, with ``n_tracers`` the tracer arm's
-    2 n_tracers planes of each (q = 1), and the window's planes without
-    levels and live bits, with ``strat`` the stratified arm's (q = 1:
-    ``adjoint_step.strat_smem_bytes``) (csrc/tiled_adjoint.cu:
-    ``smem_bytes``)."""
+    2 n_tracers planes of each, and the window's planes without levels and
+    live bits, with ``strat`` the stratified arm's (its S chunk on R_{q-1},
+    ``tiled_adjoint.strat_cells``) (csrc/tiled_adjoint.cu: ``smem_bytes``)."""
     sites = tiled_adjoint.window_sites(row_tile, col_tile, q, halo)
     return tiled_adjoint.smem_bytes(sites, row_tile * col_tile, k, q, itemsize, forced,
-                                    n_tracers, strat)
+                                    n_tracers, strat,
+                                    tiled_adjoint.strat_cells(row_tile, col_tile, q, halo))
 
 
 def forced_adjoint_window_bytes(row_tile: int, col_tile: int, q: int, halo, k: int,
@@ -180,10 +177,11 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
     leaves room for two blocks per SM, else the largest that fits one; for
     ``nonlinear``, q = 1 and ``adjoint_step.nl_adjoint_plan``'s tile among
     those that divide the lattice, sized with its arms' shared memory; with
-    ``n_tracers``, the tracer arm's window at q = 1 by default, sized for
-    one block per SM, the arm's launch bounds; with ``strat``, the
-    stratified arm's window at q = 1 by default; either with the forced
-    arm's too where ``forced``), and ``group`` supersteps per checkpoint
+    ``n_tracers``, the tracer arm's window at q = 1 by default (or the
+    caller's q), sized for one block per SM, the arm's launch bounds; with
+    ``strat``, the stratified arm's window at q = 1 by default (or the
+    caller's q); either with the forced arm's too where ``forced``), and
+    ``group`` supersteps per checkpoint
     group from ``diff_model.adjoint_plan`` over n / q supersteps within
     ``budget`` bytes, a state counting its tracer planes."""
     if nonlinear and (row_tile is None or col_tile is None):
@@ -196,12 +194,12 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
     window, budgets = forced_adjoint_window_bytes, ADJOINT_BUDGETS
     if nonlinear:  # the nonlinear reverse's own planner sized its tile
         pass
-    elif n_tracers:  # the tracer arm runs q = 1 and one block per SM
+    elif n_tracers:  # the tracer arm: q = 1 by default, one block per SM
         q = 1 if q is None else q
         window = functools.partial(adjoint_window_bytes, forced=forced, n_tracers=n_tracers,
                                    strat=strat)
         budgets = (tiled_adjoint.SMEM_BYTES,)
-    elif strat:  # the stratified arm runs q = 1
+    elif strat:  # the stratified arm: q = 1 by default
         q = 1 if q is None else q
         window = functools.partial(adjoint_window_bytes, forced=forced, strat=True)
     rt, ct, q = resolve_plan(ny2, nx, k, itemsize, halo, n_steps, row_tile, col_tile, q,
@@ -297,18 +295,11 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
                                       torch.stack(d_forc[1:])), *d_w)
 
 
-def _check_nl_q(plan, nonlinear: bool, device, tracers: bool = False,
-                strat: bool = False) -> None:
-    """The card's nonlinear tiled reverse runs q = 1 only (ValueError), and
-    so do its tracer and stratified arms (NotImplementedError: q > 1 is
-    still to port)."""
+def _check_nl_q(plan, nonlinear: bool, device) -> None:
+    """The card's nonlinear tiled reverse runs q = 1 only (ValueError)."""
     if nonlinear and device.type == "cuda" and plan[2] != 1:
         raise ValueError(f"the nonlinear tiled reverse runs q = 1 on the card, not q = "
                          f"{plan[2]}")
-    for arm, on in (("tracer", tracers), ("stratified", strat)):
-        if on and device.type == "cuda" and plan[2] != 1:
-            raise NotImplementedError(f"the tiled reverse's {arm} arm runs q = 1 on the card, "
-                                      f"not q = {plan[2]}; run q = 1, or on the CPU")
 
 
 class _TiledSteps(_Steps):
@@ -321,8 +312,7 @@ class _TiledSteps(_Steps):
     def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, plan, nonlinear: bool = False,
                  forcing: Forcing | None = None, strat: Stratification | None = None,
                  **tracer_kw):
-        _check_nl_q(plan, nonlinear, like.device, tracer_kw.get("tracers", False),
-                    strat is not None)
+        _check_nl_q(plan, nonlinear, like.device)
         super().__init__(mesh, dt, like, nonlinear, nl_tile=tuple(plan[:2]), forcing=forcing,
                          strat=strat, **tracer_kw)
         self.rt, self.ct, self.q, _ = plan
@@ -429,8 +419,7 @@ def tiled_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int
     ``tiled_adjoint_plan``. Counterpart of ``_pallas_tiled_adjoint``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
     plan = _plan(state, mesh, n_steps, plan, nonlinear, strat is not None, forcing is not None)
-    _check_nl_q(plan, nonlinear, state.layer_thickness.device, state.tracers is not None,
-                strat is not None)
+    _check_nl_q(plan, nonlinear, state.layer_thickness.device)
     kw = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind, strat=strat)
     final, ckpts = forward_ckpts(state, mesh, dt, n_steps, plan[2] * plan[3], nonlinear,
                                  forcing, **kw)
@@ -461,7 +450,7 @@ class TiledRolloutDiff(torch.autograd.Function):
                      strat is not None, forcing is not None)
         if n_steps % plan[2]:
             raise ValueError(f"q={plan[2]} must divide n_steps={n_steps}")
-        _check_nl_q(plan, nonlinear, h.device, tracers is not None, strat is not None)
+        _check_nl_q(plan, nonlinear, h.device)
         ctx.tropts = (tracer_kappa, tracer_upwind)
         final, ckpts = _forward(state, mesh, ctx.dt_v, n_steps, plan[2] * plan[3], nonlinear,
                                 forcing, ctx.tropts, strat=strat)
@@ -498,9 +487,9 @@ def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *
     stratification's W, with the tiled reverse: forward through ``fe_step``
     on the card, backward through ``tiled_adjoint`` (nonlinear: the
     nonlinear reverse kernel, q = 1), every combination of the core,
-    forcing, tracers and stratification at q = 1 through the kernels'
-    composed arms (a nonlinear q > 1, and a tracer state or stratification
-    at q > 1, raise on the card). ``plan`` = (row_tile,
+    forcing, tracers and stratification through the kernels' composed arms
+    (the linear core's at any q; a nonlinear q > 1 raises on the card).
+    ``plan`` = (row_tile,
     col_tile, q, group) overrides ``tiled_adjoint_plan``. The tiled arm of
     ``pallas_rollout_diff``."""
     return StructState(*TiledRolloutDiff.apply(*_state_inputs(state), dt,

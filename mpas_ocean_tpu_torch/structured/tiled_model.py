@@ -27,12 +27,16 @@ fits when one block's share of the window, ``window_bytes``, fits the
 card's shared memory (csrc/tiled_step.cu reckons it the same way; the
 registers are fixed by the kernel's 512-thread blocks); among the plans
 that fit it takes q = 1 and the largest tile, the rule read off the
-measurements in PERF.md. The nonlinear core runs q = 1 only, FE through
+measurements in PERF.md. The nonlinear core runs at q = 1 FE through
 fe_step's nonlinear arm and FB through the tiled kernel's (one template,
-csrc/nl_step.cuh), planned by ``fe_step.nl_plan`` over the tiles that divide
-the lattice. A nonlinear q > 1 window is not planned: no such plan was
-timed; the linear q = 2 plans lost to q = 1 by 47-139% on an H100, and the
-nonlinear halos are 2-3 times as deep (PERF.md section 7).
+csrc/nl_step.cuh), and at q > 1 (the caller's q) FE and FB through the
+q-step kernel (csrc/nl_tiled.cuh, ``tiled_step.tiled_nl_rollout``),
+planned by ``fe_step.nl_plan`` over the tiles that divide the lattice, at
+q. The planner keeps q = 1 for the nonlinear core too: on an H100 the
+linear q = 2 plans lost to q = 1 by 47-139%, and the nonlinear q = 2 arms
+took 2.0-4.8x the q = 1 time a step alone and 5.1-11.4x with forcing,
+tracers and stratification (PERF.md section 5, tools/tile_sweep.py
+--kernels nonlinear --q 1 2).
 """
 
 from __future__ import annotations
@@ -154,8 +158,9 @@ def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
     if row_tile is None or col_tile is None:
         best = _best_tile(ny2, nx, k, itemsize, halo, q, window, budgets)
         if best is None and window(1, 1, q, halo, k, itemsize) > budgets[-1]:
-            raise ValueError(f"no tile of the tiled kernel fits its window at q={q} ({k} "
-                             f"levels of {itemsize}-byte values)")
+            raise ValueError(f"no tile of the tiled kernel fits its window in {budgets[-1]} "
+                             f"bytes of shared memory at q={q} ({k} levels of {itemsize}-byte "
+                             f"values)")
         rt, ct = best or (1, 1)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
@@ -169,6 +174,24 @@ def resolve_plan(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
             while n_steps % q:
                 q -= 1
     return int(row_tile), int(col_tile), int(q)
+
+
+def _nl_tile(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int, q, fb: bool,
+             arms: dict) -> tuple[int, int]:
+    """The nonlinear core's tile for ``tiled_run_loop``: ``fe_step.nl_plan``
+    over the tiles that divide the lattice, at q (the caller's, or
+    ``tile_plan``'s q = 1, lowered to divide n_steps as ``resolve_plan``
+    does) with the q-step kernel's shared memory where q > 1, among the
+    tiles whose q-window fits the lattice where any does."""
+    hm, hi = halo
+    q = max(1, min(int(q or 1), n_steps or 1))
+    while n_steps and n_steps % q:
+        q -= 1
+    tiles = [(r, c) for r in _divisors(ny2) for c in _divisors(nx)]
+    if q > 1:
+        tiles = [(r, c) for r, c in tiles
+                 if r + 2 * hm * q <= ny2 and c + 2 * hi * q <= nx] or tiles
+    return fe_step.nl_plan(ny2, nx, k, itemsize, fb, tiles, **arms, q=q)[:2]
 
 
 def _windows(x, rt, ct, hm, hi):
@@ -312,9 +335,10 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     with ``forcing``, its tracer arm for the state's tracers with
     ``tracer_kappa`` and ``tracer_upwind``, its stratified arm with
     ``strat``, in any combination, the plan sized with their shared memory;
-    the nonlinear core at q = 1 only, and a nonlinear q > 1 raises: FE
-    through fe_step's nonlinear arm, FB through the tiled kernel's), a CPU
-    state its plain version with the same plan."""
+    the nonlinear core at q = 1 FE through fe_step's nonlinear arm and FB
+    through the tiled kernel's, at q > 1 both through the q-step kernel,
+    whose plan the q sizes and which refuses a tile that does not fit with
+    ValueError), a CPU state its plain version with the same plan."""
     device = state.layer_thickness.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rollout for state on {device}")
@@ -329,8 +353,7 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
     n_tr = 0 if state.tracers is None else state.tracers.shape[3]
     arms = dict(forced=forcing is not None, n_tracers=n_tr, strat=strat is not None)
     if nonlinear and (row_tile is None or col_tile is None):
-        tiles = [(r, c) for r in _divisors(mesh.ny2) for c in _divisors(mesh.nx)]
-        rt, ct, _ = fe_step.nl_plan(mesh.ny2, mesh.nx, k, dtype.itemsize, fb, tiles, **arms)
+        rt, ct = _nl_tile(mesh.ny2, mesh.nx, k, dtype.itemsize, halo, n_steps, q, fb, arms)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
     window = forced_window_bytes
@@ -354,13 +377,14 @@ def tiled_run_loop(state: StructState, mesh: StructMesh, dt, n_steps: int, *,
         tracers=fused_model.kernel_tracers(state, mesh, tracer_kappa, tracer_upwind),
         strat_w=fused_model.kernel_strat(strat, dtype, device))
     if nonlinear:
-        if q != 1:
-            raise ValueError(f"the tiled kernel's nonlinear arms run q = 1, not q = {q}")
-        run = tiled_step.tiled_nl_rollout if fb else fe_step.fe_nl_rollout
-        ssh, h, u, *tr = run(state.ssh, state.layer_thickness, state.normal_velocity, *consts,
-                             fused_model.nl_setup(mesh, dtype), *nl_terms, *scal,
-                             *fused_model.nl_scal(mesh, dtype), n_steps, tile=(rt, ct),
-                             **kernel_arms)
+        nl_args = (state.ssh, state.layer_thickness, state.normal_velocity, *consts,
+                   fused_model.nl_setup(mesh, dtype), *nl_terms, *scal,
+                   *fused_model.nl_scal(mesh, dtype), n_steps)
+        if q == 1 and not fb:
+            ssh, h, u, *tr = fe_step.fe_nl_rollout(*nl_args, tile=(rt, ct), **kernel_arms)
+        else:
+            ssh, h, u, *tr = tiled_step.tiled_nl_rollout(*nl_args, tile=(rt, ct), q=q, fb=fb,
+                                                         **kernel_arms)
     else:
         ssh, h, u, *tr = tiled_step.tiled_rollout(
             state.ssh, state.layer_thickness, state.normal_velocity,

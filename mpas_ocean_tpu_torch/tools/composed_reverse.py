@@ -1,6 +1,7 @@
 """The composed reverse run two ways on one stack of primal states: through
 the card's kernels (the gradient's steps, ``diff_model._Steps`` or
-``tiled_diff._TiledSteps`` at q = 1, with the combination's arms) and
+``tiled_diff._TiledSteps``, with the combination's arms; at q > 1 through
+the supersteps' starts, ``superstep_stack``) and
 through the plain reverse (``structured_nl_adjoint_step`` or
 ``structured_adjoint_step`` with forcing, tracers and strat), with the
 cotangents' errors on their scales: the fields' max |b|, the scalars'
@@ -23,7 +24,8 @@ import torch
 
 __all__ = ["COMPOSED_COMBOS", "COMPOSED_KAPPA", "COMPOSED_UPWIND", "FIELDS4", "composed_ddt_scale",
            "composed_errors", "composed_reverse", "composed_stack", "composed_state",
-           "composed_steps", "plain_composed_reverse"]
+           "composed_steps", "plain_composed_reverse", "plain_superstep_reverse",
+           "superstep_stack"]
 
 # The 11 combinations of two or more of the nonlinear core (N), forcing (F),
 # tracers (T) and stratification (S)
@@ -37,10 +39,10 @@ FIELDS4 = FIELDS + ("tracers",)
 def composed_steps(mesh, dt, like, opts, forcing, strat, plan=None, kappa=COMPOSED_KAPPA,
                    upwind=COMPOSED_UPWIND):
     """The gradient's card steps of the combination ``opts``: diff_model's
-    (the fused route; plan None) or tiled_diff's at q = 1 over ``plan`` =
-    (row_tile, col_tile), with the options ``opts`` leaves on (forcing and
-    strat given for the full combination) and the tracers' ``kappa`` and
-    ``upwind``."""
+    (the fused route; plan None) or tiled_diff's over ``plan`` =
+    (row_tile, col_tile), at q = 1, or (row_tile, col_tile, q), with the
+    options ``opts`` leaves on (forcing and strat given for the full
+    combination) and the tracers' ``kappa`` and ``upwind``."""
     from ..structured import diff_model, tiled_diff
 
     kw = dict(nonlinear="N" in opts, forcing=forcing if "F" in opts else None,
@@ -48,7 +50,8 @@ def composed_steps(mesh, dt, like, opts, forcing, strat, plan=None, kappa=COMPOS
               tracer_kappa=kappa, tracer_upwind=upwind)
     if plan is None:
         return diff_model._Steps(mesh, dt, like, **kw)
-    return tiled_diff._TiledSteps(mesh, dt, like, (*plan, 1, 1), **kw)
+    return tiled_diff._TiledSteps(mesh, dt, like, (*plan[:2], plan[2] if len(plan) > 2 else 1, 1),
+                                  **kw)
 
 
 def composed_state(st, opts):
@@ -70,6 +73,16 @@ def composed_stack(steps, st, n):
         dst.copy_(x)
     steps.fill(stack, n)
     return stack
+
+
+def superstep_stack(stack, q):
+    """The slots 0, q, 2q, .. of a stack of states (``composed_stack``'s,
+    slot j after j steps), contiguous: the starts of supersteps of q steps,
+    the stack tiled_diff's steps reverse at q."""
+    from ..structured import StructState
+
+    return StructState(*(None if x is None else x[::q].contiguous() for x in (
+        stack.ssh, stack.layer_thickness, stack.normal_velocity, stack.tracers)))
 
 
 def composed_reverse(steps, stack, g, n):
@@ -176,6 +189,51 @@ def plain_composed_reverse(stack, g, mesh, dt, n, opts, forcing, strat, dtype=No
     if forcing is not None:
         scales.update(zip(("d_r_lin", "d_cd", "d_lambda"), (float(x) for x in c_scale)))
     return (d, ddt, dwind, dcoef, dw), scales
+
+
+def plain_superstep_reverse(stack, g, mesh, dt, n, q, opts, forcing, strat, dtype=None,
+                            store=None):
+    """The plain version of the tiled reverse at q > 1 (the VJP of
+    ``slab.window_steps``' q steps): back through n supersteps whose starts
+    are the stack's slots n - 1 .. 0 (``superstep_stack``'s; slot n the
+    state after the last), each superstep's states 1 .. q - 1 recomputed
+    from its start by the plain steps of the combination in ``dtype`` (the
+    stack's by default), as the kernel recomputes them, then its q steps
+    reversed by ``plain_composed_reverse`` (h' and T' of its last step from
+    the next start). Returns that function's tuple over all the steps, and
+    its scales summed over the supersteps (at least the single sum's)."""
+    from ..models import Stratification
+    from ..models.forcing import Forcing
+    from ..structured import StructState, diff_model, structured_run_loop
+
+    dtype = dtype or stack.layer_thickness.dtype
+    kw = dict(nonlinear="N" in opts, tracer_kappa=COMPOSED_KAPPA, tracer_upwind=COMPOSED_UPWIND)
+    if "F" in opts:
+        kw["forcing"] = Forcing(*(getattr(forcing, f.name).to(dtype)
+                                  for f in dataclasses.fields(forcing)))
+    if "S" in opts:
+        kw["strat"] = Stratification(strat.phi_weights.to(dtype), strat.densities.to(dtype))
+    fields = lambda s: (s.ssh, s.layer_thickness, s.normal_velocity, s.tracers)  # noqa: E731
+    total, scales = None, {}
+    for j in reversed(range(n)):
+        start = diff_model._lattice_state(StructState(*(
+            None if x is None else x[j].to(dtype) for x in fields(stack))))
+        states = [start]
+        for _ in range(q - 1):
+            states.append(structured_run_loop(states[-1], mesh, dt, 1, **kw))
+        planes = [diff_model._planes_state(s) for s in states]
+        mini = StructState(*(None if x[0] is None else torch.stack(x)
+                             for x in zip(*(fields(p) for p in planes))))
+        mini = StructState(*(None if x is None else torch.cat([x, y[j + 1:j + 2].to(dtype)])
+                             for x, y in zip(fields(mini), fields(stack))))
+        res, sc = plain_composed_reverse(mini, g, mesh, dt, q, opts, forcing, strat, dtype,
+                                         store)
+        g = res[0]
+        total = res if total is None else (res[0], *(
+            None if a is None else a + b for a, b in zip(total[1:], res[1:])))
+        for key, v in sc.items():
+            scales[key] = scales.get(key, 0.0) + v
+    return (g, *total[1:]), scales
 
 
 def composed_ddt_scale(st, mesh, dt, n, g, opts, forcing, strat) -> float:

@@ -2,7 +2,7 @@
 
     python -m mpas_ocean_tpu_torch.tools.tile_sweep [--sizes 256 64] [--steps 40]
         [--kernels forward reverse nonlinear nonlinear-reverse] [--tracers 0]
-        [--out tile_sweep.json]
+        [--strat] [--q 1] [--out tile_sweep.json]
 
 For each lattice size (n x n cells, 100 levels, f32, the inertial-gravity
 wave at dt = 30 s):
@@ -17,20 +17,26 @@ wave at dt = 30 s):
   columns 2-32, ragged tiles too) that fits, and ``tiled_adjoint_rollout``
   for each plan of at least 8 sites that divides the lattice and fits (q = 1
   and 2), each per launch by ``reverse_timing.held_us`` (median of 3 after
-  a warm-up); with ``--tracers N`` (N > 0) the tracer arms of both, q = 1
-  only, over a stack of states carrying N tracers (bench.py's temperature
-  wave and uniform salinity, repeated), their tiles and plans sized with
-  the tracer planes (``adjoint_tile``'s and ``tiled_adjoint_plan``'s
-  ``n_tracers``);
-* nonlinear: the nonlinear arms (csrc/nl_step.cuh) at q = 1, by CUDA events
-  as forward: fe_step's FE arm through ``fe_step.fe_nl_rollout`` and
+  a warm-up); with ``--tracers N`` (N > 0) the tracer arms of both over a
+  stack of states carrying N tracers (bench.py's temperature wave and
+  uniform salinity, repeated), their tiles and plans sized with the tracer
+  planes (``adjoint_tile``'s and ``tiled_adjoint_plan``'s ``n_tracers``);
+  with ``--strat`` the stratified arms (bench.py's densities, 1025 +
+  linspace(0, 1)); the tiled adjoint's plans at each q of ``--q`` (q = 1
+  and 2 by default without tracers or ``--strat``, q = 1 with them);
+* nonlinear: the nonlinear arms by CUDA events as forward: at q = 1
+  (csrc/nl_step.cuh) fe_step's FE arm through ``fe_step.fe_nl_rollout`` and
   tiled_step's FB arm through ``tiled_step.tiled_nl_rollout``, for each
   tile of powers of two up to 16 x 32 of at least 8 sites, cut to the
-  lattice, and each slice of 1-16 levels that fits;
+  lattice, and each slice of 1-16 levels that fits; at each q > 1 of
+  ``--q``, the q-step kernel's FE and FB (csrc/nl_tiled.cuh) through
+  ``tiled_step.tiled_nl_rollout(q=)`` for those tiles that divide the
+  lattice and each slice that fits;
 * nonlinear-reverse: the nonlinear reverse (csrc/nl_adjoint.cuh) through
   ``adjoint_step.nl_adjoint_rollout`` over a stack of ``--steps`` primal
   states of fe_step's nonlinear arm, for the same tiles and slices, per
-  launch by ``reverse_timing.held_us``.
+  launch by ``reverse_timing.held_us`` (q = 1: its q > 1 arm is still to
+  port).
 
 Prints one line per plan, fastest first, with the blocks per SM (CUDA's
 occupancy calculator), the plan the planner (``tile_plan``, ``fe_tile``,
@@ -130,24 +136,26 @@ def fe_tiles(ny2: int, nx: int, k: int, itemsize: int):
     return [t for t in tiles if fe_step.smem_bytes(t, k, itemsize) <= fe_step.SMEM_BYTES]
 
 
-def reverse_tiles(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0):
+def reverse_tiles(ny2: int, nx: int, k: int, itemsize: int, n_tracers: int = 0,
+                  strat: bool = False):
     """adjoint_step's candidate tiles: rows 1-16 and columns 2-32 of at least
     8 sites, cut to the lattice (ragged tiles included), whose window (with
-    ``n_tracers`` the tracer arm's) fits one block's shared memory."""
+    ``n_tracers`` the tracer arm's, with ``strat`` the stratified arm's)
+    fits one block's shared memory."""
     tiles = dict.fromkeys((min(rt, ny2), min(ct, nx)) for rt in adjoint_step.TILE_ROWS
                           for ct in adjoint_step.TILE_COLS if rt * ct >= 8)
-    return [t for t in tiles if adjoint_step.smem_bytes(t, k, itemsize, n_tracers=n_tracers)
-            <= fe_step.SMEM_BYTES]
+    return [t for t in tiles if adjoint_step.smem_bytes(t, k, itemsize, n_tracers=n_tracers,
+                                                        strat=strat) <= fe_step.SMEM_BYTES]
 
 
 def reverse_plans(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
-                  n_tracers: int = 0):
+                  n_tracers: int = 0, strat: bool = False, qs=(1, 2)):
     """The tiled adjoint's candidate plans: tiles up to 32 sites a side of
-    at least 8 sites that divide the lattice, q = 1 and 2 (dividing
-    n_steps; q = 1 only with ``n_tracers``), kept by the clamp and fitting
-    one block's shared memory (the tracer arm's window with
-    ``n_tracers``)."""
-    for q in ((1,) if n_tracers else (1, 2)):
+    at least 8 sites that divide the lattice, each q of ``qs`` (dividing
+    n_steps), kept by the clamp and fitting one block's shared memory (the
+    tracer arm's window with ``n_tracers``, the stratified arm's with
+    ``strat``)."""
+    for q in qs:
         if n_steps % q:
             continue
         for rt in (d for d in range(1, min(ny2, 32) + 1) if ny2 % d == 0):
@@ -156,7 +164,7 @@ def reverse_plans(ny2: int, nx: int, k: int, itemsize: int, halo, n_steps: int,
                         and resolve_plan(ny2, nx, k, itemsize, halo, n_steps, rt, ct, q)
                         == (rt, ct, q)
                         and adjoint_window_bytes(rt, ct, q, halo, k, itemsize,
-                                                 n_tracers=n_tracers)
+                                                 n_tracers=n_tracers, strat=strat)
                         <= fe_step.SMEM_BYTES):
                     yield rt, ct, q
 
@@ -189,10 +197,23 @@ def tracer_stack(st, sm, n_steps: int, n_tracers: int):
             (full[1][n_steps], trs[n_steps]))
 
 
-def reverse_sweep(n: int, model, st, n_steps: int, gpu: str, n_tracers: int = 0) -> dict:
+def bench_strat_w(device):
+    """bench.py's stratification's W (densities 1025 + linspace(0, 1)) in
+    f32, as the kernels take it."""
+    from mpas_ocean_tpu_torch.structured import fused_model
+
+    strat = mt.make_stratification(1025.0 + np.linspace(0.0, 1.0, LEVELS), dtype=np.float32)
+    return fused_model.kernel_strat(strat, torch.float32, device)
+
+
+def reverse_sweep(n: int, model, st, n_steps: int, gpu: str, n_tracers: int = 0,
+                  strat: bool = False, qs=None) -> dict:
     """Per-launch device times of both reverse kernels over every tile and
     plan that fits, from a stack of n_steps primal states of the lattice
-    (with ``n_tracers``, carrying that many tracers: the tracer arms)."""
+    (with ``n_tracers``, carrying that many tracers: the tracer arms; with
+    ``strat``, the stratified arms), the tiled adjoint's at each q of
+    ``qs`` (q = 1 and 2 by default without the tracer or stratified arms,
+    q = 1 with them)."""
     from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
 
     sm = model.struct_mesh
@@ -214,9 +235,15 @@ def reverse_sweep(n: int, model, st, n_steps: int, gpu: str, n_tracers: int = 0)
         fe_step.fe_fill_stack(stack, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
                               *scal, n_steps - 1)
     acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
+    if strat:
+        w = bench_strat_w(st.ssh.device)
+        kw.update(strat_w=w, dstrat=torch.zeros((LEVELS, LEVELS), dtype=torch.float64,
+                                                device=st.ssh.device))
+    if qs is None:
+        qs = (1,) if n_tracers or strat else (1, 2)
     table = sm.host_adjoint_stencil[0]
     rows = []
-    for tile in reverse_tiles(sm.ny2, sm.nx, LEVELS, 4, n_tracers):
+    for tile in reverse_tiles(sm.ny2, sm.nx, LEVELS, 4, n_tracers, strat):
         progress(f"{n}: adjoint_step {tile}")
         t = held_us(lambda: adjoint_step._rollout(
             stack, g_in, sm.f_edge, *sm.host_adjoint_stencil, scal, n_steps, acc, None, None,
@@ -224,7 +251,7 @@ def reverse_sweep(n: int, model, st, n_steps: int, gpu: str, n_tracers: int = 0)
         rows.append((tile, t, adjoint_step.launch_plan(table, sm.ny2, sm.nx, LEVELS, tile,
                                                        n_tracers)))
     rows.sort(key=lambda r: statistics.median(r[1]))
-    chosen = adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4, n_tracers)
+    chosen = adjoint_step.adjoint_tile(sm.ny2, sm.nx, LEVELS, 4, n_tracers, strat=strat)
     rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
     print(f"{n}x{n}x{LEVELS} f32: adjoint_step, {len(rows)} tiles; adjoint_tile picks "
           f"{chosen}, rank {rank} [{gpu}]", flush=True)
@@ -236,17 +263,24 @@ def reverse_sweep(n: int, model, st, n_steps: int, gpu: str, n_tracers: int = 0)
              "adjoint_step_chosen": chosen}
     halo = reverse_halo(sm.coriolis_terms)
     rows = []
-    for rt, ct, q in reverse_plans(sm.ny2, sm.nx, LEVELS, 4, halo, n_steps, n_tracers):
+    for rt, ct, q in reverse_plans(sm.ny2, sm.nx, LEVELS, 4, halo, n_steps, n_tracers, strat,
+                                   qs):
         progress(f"{n}: tiled_adjoint {(rt, ct, q)}")
+        # at q > 1 a superstep starts at every q-th state (the last one's
+        # tracer arm reads h' and T' of the end state, as at q = 1)
+        sup = tuple(x[::q].contiguous() for x in stack)
+        skw = dict(kw)
+        if n_tracers and q > 1:
+            skw.update(tracers=kt._replace(planes=kt.planes[::q].contiguous()))
         t = held_us(lambda: tiled_adjoint.tiled_adjoint_rollout(
-            stack, g_in, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
+            sup, g_in, sm.f_edge, sm.resting_thickness_sum, *sm.host_stencil,
             *sm.host_adjoint_stencil, *scal, n_steps // q, acc, row_tile=rt, col_tile=ct, q=q,
-            halo=halo, **kw), n_steps // q, REPS)
+            halo=halo, **skw), n_steps // q, REPS)
         rows.append(((rt, ct, q), [x / q for x in t],
-                     tiled_adjoint.occupancy(rt, ct, q, halo, LEVELS, n_tracers)))
+                     tiled_adjoint.occupancy(rt, ct, q, halo, LEVELS, n_tracers, strat)))
     rows.sort(key=lambda r: statistics.median(r[1]))
     chosen = tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n_steps, halo=halo,
-                                n_tracers=n_tracers)[:3]
+                                n_tracers=n_tracers, strat=strat)[:3]
     rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
     print(f"  tiled_adjoint: {len(rows)} plans; tiled_adjoint_plan picks {chosen}, rank "
           f"{rank}", flush=True)
@@ -260,9 +294,11 @@ def reverse_sweep(n: int, model, st, n_steps: int, gpu: str, n_tracers: int = 0)
     return entry
 
 
-def nonlinear_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
+def nonlinear_sweep(n: int, model, st, n_steps: int, gpu: str, qs=(1,)) -> dict:
     """Per-step device times of the nonlinear arms over every tile and slice
-    that fits: fe_step's FE arm, tiled_step's FB arm (q = 1)."""
+    that fits: at q = 1 fe_step's FE arm and tiled_step's FB arm, at each
+    q > 1 of ``qs`` the q-step kernel's FE and FB over the tiles that
+    divide the lattice."""
     sm = model.struct_mesh
     consts = (sm.resting_thickness_sum, *sm.host_stencil, nl_setup(sm, torch.float32),
               sm.vertex_cell_terms, sm.edge_vertex_terms, *_scal(sm, DT, torch.float32),
@@ -271,21 +307,35 @@ def nonlinear_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
     tiles = dict.fromkeys((min(rt, sm.ny2), min(ct, sm.nx)) for rt in (1, 2, 4, 8, 16)
                           for ct in (1, 2, 4, 8, 16, 32) if rt * ct >= 8)
     entry = {}
-    for name, fb in (("fe_step FE", False), ("tiled_step FB", True)):
+    arms = [(name, fb, 1) for name, fb in (("fe_step FE", False), ("tiled_step FB", True))
+            if 1 in qs] + [(f"tiled_step {'FB' if fb else 'FE'} q={q}", fb, q)
+                           for q in qs if q > 1 and n_steps % q == 0 for fb in (False, True)]
+    for name, fb, q in arms:
         rows = []
-        wrapper = tiled_step.tiled_nl_rollout if fb else fe_step.fe_nl_rollout
-        for tile in tiles:
+        if q == 1:
+            wrapper = tiled_step.tiled_nl_rollout if fb else fe_step.fe_nl_rollout
+            q_tiles = tiles
+        else:
+            wrapper = lambda *a, fb=fb, q=q, **kw: tiled_step.tiled_nl_rollout(  # noqa: E731
+                *a, q=q, fb=fb, **kw)
+            q_tiles = [t for t in tiles if sm.ny2 % t[0] == 0 and sm.nx % t[1] == 0]
+        for tile in q_tiles:
             for ks in (1, 2, 4, 8, 16):
-                if ks > kc or fe_step.nl_smem_bytes(tile, LEVELS, 4, fb, ks) > fe_step.SMEM_BYTES:
+                if ks > kc or (fe_step.nl_smem_bytes(tile, LEVELS, 4, fb, ks, q=q)
+                               > fe_step.SMEM_BYTES):
                     continue
                 progress(f"{n}: {name} {tile} slice {ks}")
                 run = lambda s: wrapper(st.ssh, st.layer_thickness, st.normal_velocity, *consts,
                                         s, tile=tile, ks=ks)
                 t = per_step_us(run, n_steps)
-                rows.append(((*tile, ks), t, fe_step.nl_launch_plan(sm.ny2, sm.nx, LEVELS, tile,
-                                                                    ks, fb)))
+                lp = (fe_step.nl_launch_plan(sm.ny2, sm.nx, LEVELS, tile, ks, fb) if q == 1
+                      else {"smem_bytes": fe_step.nl_smem_bytes(tile, LEVELS, 4, fb, ks, q=q),
+                            "blocks_per_sm": 1,
+                            "clusters": (sm.ny2 // tile[0]) * (sm.nx // tile[1])})
+                rows.append(((*tile, ks), t, lp))
         rows.sort(key=lambda r: statistics.median(r[1]))
-        chosen = fe_step.nl_plan(sm.ny2, sm.nx, LEVELS, 4, fb)
+        chosen = fe_step.nl_plan(sm.ny2, sm.nx, LEVELS, 4, fb, None if q == 1 else q_tiles,
+                                 q=q)
         rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
         print(f"{n}x{n}x{LEVELS} f32: nonlinear {name}, {len(rows)} (tile, slice) plans; the "
               f"planner picks {chosen}, rank {rank} [{gpu}]", flush=True)
@@ -348,19 +398,21 @@ def nonlinear_reverse_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
             "nl_adjoint_chosen": chosen}
 
 
-def sweep(sizes, n_steps: int, kernels=("forward", "reverse"), n_tracers: int = 0) -> dict:
+def sweep(sizes, n_steps: int, kernels=("forward", "reverse"), n_tracers: int = 0,
+          strat: bool = False, qs=None) -> dict:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    result = {"gpu": gpu, "levels": LEVELS, "steps": n_steps, "tracers": n_tracers, "sizes": {}}
+    result = {"gpu": gpu, "levels": LEVELS, "steps": n_steps, "tracers": n_tracers,
+              "strat": strat, "q": qs, "sizes": {}}
     for n in sizes:
         model, st = igw_lattice(n)
         if "reverse" in kernels:
             result.setdefault("reverse", {})[str(n)] = reverse_sweep(n, model, st, n_steps, gpu,
-                                                                     n_tracers)
+                                                                     n_tracers, strat, qs)
         if "nonlinear" in kernels:
             result.setdefault("nonlinear", {})[str(n)] = nonlinear_sweep(n, model, st, n_steps,
-                                                                         gpu)
+                                                                         gpu, qs or (1,))
         if "nonlinear-reverse" in kernels:
             result.setdefault("nonlinear-reverse", {})[str(n)] = nonlinear_reverse_sweep(
                 n, model, st, n_steps, gpu)
@@ -426,11 +478,17 @@ def main() -> int:
                     default=["forward", "reverse"])
     ap.add_argument("--tracers", type=int, default=0,
                     help="tracers carried by the reverse sweep's states (its tracer arms)")
+    ap.add_argument("--strat", action="store_true",
+                    help="the reverse sweep's stratified arms (bench.py's densities)")
+    ap.add_argument("--q", type=int, nargs="+", default=None,
+                    help="steps per launch of the nonlinear sweep (1 by default) and of the "
+                         "tiled adjoint's plans (1 and 2 by default, 1 with --tracers or "
+                         "--strat)")
     ap.add_argument("--out", type=Path, default=Path("tile_sweep.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep needs a CUDA device")
-    result = sweep(args.sizes, args.steps, args.kernels, args.tracers)
+    result = sweep(args.sizes, args.steps, args.kernels, args.tracers, args.strat, args.q)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     return 0

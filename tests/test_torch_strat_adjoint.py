@@ -551,29 +551,49 @@ def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(monkeypatch):
     """On the card (no card needed: the checks read the device's type
     only; the steps' operands kept on the CPU, torch_port_cases.stub_card)
     the stratified reverse builds with the nonlinear core, forcing and
-    tracers, on either route at q = 1 (the composed arms), and only a
-    stratified tiled reverse at q > 1 raises NotImplementedError, in the
-    steps and in the wrapper; the CPU runs every combination (the tests
-    above)."""
-    stub_card(monkeypatch)
-    _, smp, _, _, mj, mp = _lattice()
+    tracers, on either route at q = 1 (the composed arms), and the
+    stratified tiled reverse builds and runs at q > 1 too (tiled_adjoint's
+    stratified arm at q > 1): a 6-step rollout's gradient at q = 2 reverses
+    through 3 launches of the stubbed tiled_adjoint entry, each given q = 2,
+    W, its d(W) accumulators and d(W), and the wrapper takes a stratified
+    superstep of q = 2 itself; only a nonlinear q > 1 still raises
+    (ValueError). The kernels' q > 1 arms against the plain reverse:
+    tests/test_torch_window_adjoint_kernel.py."""
+    lib = stub_card(monkeypatch)
+    _, smp, _, stp, mj, mp = _lattice()
     sm = smp.struct_mesh
     _, sp = _strats("rho")
-    like = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
+    cuda = torch.device("cuda")
+    like = SimpleNamespace(device=cuda, dtype=torch.float32)
     forcing = smp.to_struct_forcing(mt.make_forcing(mp, **FULL_FORCING))
     for kw in (dict(nonlinear=True), dict(forcing=forcing), dict(tracers=True)):
         for steps in (diff_model._Steps(sm, DT, like, strat=sp, **kw),
                       tiled_diff._TiledSteps(sm, DT, like, (4, 8, 1, 1), strat=sp, **kw)):
             assert steps.sw is not None and steps.dstrat is not None
-    with pytest.raises(NotImplementedError):
-        tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), strat=sp)
-    with pytest.raises(NotImplementedError):
-        tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cuda"), strat=True)
-    tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cpu"), strat=True)
-    monkeypatch.setattr(tiled_adjoint, "lattice_dims", lambda h, name: tuple(h.shape[1:]))
-    with pytest.raises(NotImplementedError):
-        tiled_adjoint.tiled_adjoint_rollout(
-            (torch.zeros(1, 2, 8, 16), torch.zeros(1, 2, 8, 16, K), torch.zeros(1, 3, 2, 8, 16, K)),
-            None, None, None, None, None, None, None, DT, 1e-3, 1e-3, 1, None, row_tile=4,
-            col_tile=8, q=2, halo=(1, 2), strat_w=sp.phi_weights.float(),
-            dstrat=torch.zeros(K, K, dtype=torch.float64))
+    for kw in (dict(forcing=forcing), dict(tracers=True), {}):
+        steps = tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), strat=sp, **kw)
+        assert steps.sw is not None and steps.dstrat is not None
+    tiled_diff._check_nl_q((4, 8, 2, 1), False, cuda)
+    with pytest.raises(ValueError, match="q = 1"):
+        tiled_diff._check_nl_q((4, 8, 2, 1), True, cuda)
+    with pytest.raises(ValueError, match="q = 1"):
+        tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), nonlinear=True, strat=sp)
+    like64 = SimpleNamespace(device=cuda, dtype=torch.float64)
+    steps = tiled_diff._TiledSteps(sm, DT, like64, (4, 8, 2, 1), strat=sp)
+    final, ckpts = diff_model._forward(stp, sm, DT, 6, 2, False, None, (0.0, 1.0),
+                                       steps=steps)
+    _, _, d_w = diff_model._reverse(steps, ckpts, 3, 1, stp, final)
+    assert d_w is steps.dstrat and tuple(d_w.shape) == (K, K)
+    assert (tiled_adjoint.launches, tiled_adjoint.strat_launches) == (3, 3)
+    w = steps.sw
+    assert all(c[32] == w.data_ptr() and c[33] is not None and c[34] == d_w.data_ptr()
+               and c[52] == 2 for c in lib.mot_tiled_adjoint_f64.calls)
+    stack = tuple(torch.zeros((1, *getattr(stp, f).shape), dtype=torch.float64)
+                  for f in STATE_FIELDS)
+    g = tuple(getattr(stp, f).contiguous() for f in STATE_FIELDS)
+    tiled_adjoint.tiled_adjoint_rollout(
+        stack, g, sm.f_edge.contiguous(), sm.resting_thickness_sum.contiguous(),
+        *sm.host_stencil, *sm.host_adjoint_stencil, DT, 1e-3, 1e-3, 1,
+        torch.zeros(1, dtype=torch.float64), row_tile=4, col_tile=8, q=2, halo=(1, 2),
+        strat_w=w, dstrat=torch.zeros(K, K, dtype=torch.float64))
+    assert lib.mot_tiled_adjoint_f64.calls[-1][52] == 2 and tiled_adjoint.strat_launches == 4

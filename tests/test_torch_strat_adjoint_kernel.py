@@ -1,5 +1,5 @@
 """The stratified arms of the hand-written reverse kernels (adjoint_step, and
-tiled_adjoint at q = 1) and of fe_step's stack entry against their plain
+tiled_adjoint at q = 1 and q = 2) and of fe_step's stack entry against their plain
 PyTorch versions, on a CUDA card, and the gradient entry points with strat=
 on the card against the same on the CPU. These tests skip on machines
 without a card. They import no JAX, so on a GPU machine without JAX they run
@@ -257,8 +257,13 @@ def test_strat_grad_launch_counts(cuda, route):
 def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(cuda):
     """On the card the stratified gradients run with the nonlinear core,
     with forcing and with tracers (the composed arms: a finite, nonzero
-    d(W)), and raise NotImplementedError only on the tiled route at q > 1;
-    tiled_adjoint's wrapper refuses a stratified q > 1 itself."""
+    d(W)), and on the tiled route at q > 1 (tiled_adjoint's stratified arm
+    at q > 1): tiled_adjoint's wrapper, two supersteps of q = 2 through the
+    stack's slots 0 and 2, within 1e-12 of the plain stratified reverse of
+    the four steps (d(dt) and d(W) over their Cauchy-Schwarz scales) in two
+    stratified launches, and the q = 2 gradient through tiled_rollout_diff
+    a finite, nonzero d(W); only a nonlinear q > 1 still raises
+    (ValueError)."""
     model, st = _lattice(False, 32, 6, cuda, np.float32)
     sm, strat = model.struct_mesh, stratification(6, "rho", np.float32)
     forcing = random_forcing(model)
@@ -266,23 +271,27 @@ def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(cuda):
     def d_w(route, s, **kw):
         w = strat.phi_weights.clone().requires_grad_(True)
         x = [getattr(s, f).clone().requires_grad_(True) for f in FIELDS]
-        out = route(StructState(*x, s.tracers), sm, DT, 2,
+        out = route(StructState(*x, s.tracers), sm, DT, 4,
                     strat=Stratification(w, strat.densities), **kw)
         return torch.autograd.grad((out.ssh ** 2).sum(), [w])[0]
 
     for route, s, kw in ((fused_rollout_diff, st, dict(nonlinear=True)),
                          (auto_rollout_diff, st, dict(forcing=forcing)),
-                         (auto_rollout_diff, with_tracers(model, st), {})):
+                         (auto_rollout_diff, with_tracers(model, st), {}),
+                         (tiled_rollout_diff, st, dict(plan=(4, 8, 2, 1)))):
         dw = d_w(route, s, **kw)
         assert bool(torch.isfinite(dw).all()) and float(dw.abs().max()) > 0
-    with pytest.raises(NotImplementedError):
-        tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1), strat=strat)
-    stack, w, _ = strat_stack(st, sm, DT, 2, strat)
-    g = _cotangent(st)
-    with pytest.raises(NotImplementedError):
-        tiled_adjoint.tiled_adjoint_rollout(
-            stack, tuple(getattr(g, f).contiguous() for f in FIELDS),
-            sm.f_edge.float().contiguous(), sm.resting_thickness_sum.float().contiguous(),
-            *sm.host_stencil, *sm.host_adjoint_stencil, *fused_model._scal(sm, DT, torch.float32),
-            2, torch.zeros(1, dtype=torch.float64, device=cuda), row_tile=4, col_tile=8, q=2,
-            halo=(1, 2), strat_w=w, dstrat=torch.zeros(6, 6, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="q = 1"):
+        tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1), strat=strat, nonlinear=True)
+    model64, st64 = _lattice(False, 32, 6, cuda)
+    sm64, strat64 = model64.struct_mesh, stratification(6, "dense")
+    stack, w, _ = strat_stack(st64, sm64, DT, 4, strat64)
+    g = _cotangent(st64)
+    sup = tuple(x[0::2].contiguous() for x in stack)
+    tiled_adjoint.strat_launches = 0
+    out = strat_reverse(sup, w, g, sm64, DT, 2, tile=(4, 8), q=2)
+    assert tiled_adjoint.strat_launches == 2
+    ref, w_scale, _ = plain_strat_reverse(stack, w, g, sm64, DT, 4)
+    errs = strat_reverse_errors(out, ref, strat_ddt_scale(st64, sm64, DT, 4, g, strat64),
+                                w_scale)
+    assert max(r for _, r in errs.values()) <= 1e-12, errs

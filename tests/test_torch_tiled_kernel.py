@@ -264,8 +264,9 @@ def test_nonlinear_kernel_matches_plain_f64(cuda, fb, shape, tile, masked):
 @pytest.mark.parametrize("masked", [False, True])
 def test_nonlinear_fb_route_runs_the_kernel(cuda, masked, monkeypatch):
     """structured_auto_run_loop(nonlinear=True, fb=True) on a CUDA state:
-    one tiled_step launch a step, never the plain steps; a nonlinear q > 1
-    on the card raises (not planned)."""
+    one tiled_step launch a step, never the plain steps; at q = 2 on a
+    32 x 32 lattice (room for the FB q = 2 window) the q-step kernel, one
+    launch per two steps, within 1e-12 of the plain steps."""
     lattice = channel_lattice if masked else random_lattice
     model, st = lattice(16, 16, 4, cuda, seed=5, u_amp=0.5)
     sm = model.struct_mesh
@@ -282,9 +283,13 @@ def test_nonlinear_fb_route_runs_the_kernel(cuda, masked, monkeypatch):
     for f, err in _rel_errors(out, ref, sm.resting_thickness_sum).items():
         assert err <= 1e-12, (f, err)
     big, st_b = lattice(32, 32, 4, cuda, seed=5, u_amp=0.5)  # room for q = 2 windows
-    with pytest.raises(ValueError, match="q = 1"):
-        tiled_run_loop(st_b, big.struct_mesh, 10.0, 4, row_tile=2, col_tile=4, q=2,
-                       nonlinear=True, fb=True)
+    ref_b = structured_run_loop(st_b, big.struct_mesh, 10.0, 4, nonlinear=True, fb=True)
+    tiled_step.launches = tiled_step.window_launches = 0
+    out_b = tiled_run_loop(st_b, big.struct_mesh, 10.0, 4, row_tile=2, col_tile=4, q=2,
+                           nonlinear=True, fb=True)
+    assert tiled_step.launches == tiled_step.window_launches == 2
+    for f, err in _rel_errors(out_b, ref_b, big.struct_mesh.resting_thickness_sum).items():
+        assert err <= 1e-12, (f, err)
 
 
 @pytest.mark.parametrize("kind", ["igw", "kelvin"])

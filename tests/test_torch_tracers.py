@@ -524,10 +524,11 @@ def test_gradients_carry_tracers_as_jax_does(entry):
 def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card(monkeypatch):
     """The reverse's steps build, on a CUDA device (their operands kept on
     the CPU here, torch_port_cases.stub_card), tracers with the nonlinear
-    core, with forcing and with both, and still refuse a tracer state at
-    q > 1 on the tiled route (NotImplementedError); on the CPU the gradients
-    run those combinations, here against jax.vjp of the JAX roll model
-    within 1e-12 of scale."""
+    core, with forcing and with both, and a tracer state at q > 1 on the
+    tiled route too (tiled_adjoint's tracer arm at q > 1), with forcing;
+    only the nonlinear core at q > 1 still raises (ValueError); on the CPU
+    the gradients run those combinations, here against jax.vjp of the JAX
+    roll model within 1e-12 of scale."""
     from types import SimpleNamespace
 
     from mpas_ocean_tpu.models.forcing import make_forcing as jax_make_forcing
@@ -541,9 +542,13 @@ def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card
     for nonlinear, f in ((True, None), (False, fp), (True, fp)):
         steps = diff_model._Steps(sm, DT, like, nonlinear, forcing=f, tracers=True)
         assert steps.tracers and hasattr(steps, "nl_adj") == nonlinear
-    with pytest.raises(NotImplementedError):
-        tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cuda"), True)
-    tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cpu"), True)
+    for f in (None, fp):
+        steps = tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), forcing=f, tracers=True)
+        assert steps.tracers and steps.q == 2
+    tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cuda"))
+    with pytest.raises(ValueError, match="q = 1"):
+        tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), nonlinear=True, tracers=True)
+    tiled_diff._check_nl_q((4, 8, 2, 1), True, torch.device("cpu"))
     fj = smj.to_struct_forcing(jax_make_forcing(mj, **FULL_FORCING))
     rng = np.random.default_rng(32)
     g = {f: rng.normal(size=tuple(getattr(stp, f).shape)) for f in FIELDS}
@@ -564,9 +569,11 @@ def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing(monkeypatch):
     with the nonlinear core, with forcing and with both, for a CUDA state
     (its operands kept on the CPU here, torch_port_cases.stub_card), their
     tracer operands on hand (the cell mask, kappa and upwind rounded to the
-    state dtype), and for a CPU state; only the tiled route at q > 1 still
-    refuses a tracer state on the card. (The kernels:
-    tests/test_torch_composed_adjoint_kernel.py.)"""
+    state dtype), and for a CPU state, and so does the tiled route's at
+    q > 1 (tiled_adjoint's tracer arm at q > 1); only its nonlinear core at
+    q > 1 still refuses on the card (ValueError). (The kernels:
+    tests/test_torch_composed_adjoint_kernel.py,
+    tests/test_torch_window_adjoint_kernel.py.)"""
     from types import SimpleNamespace
 
     from mpas_ocean_tpu_torch.structured import diff_model, tiled_diff
@@ -583,6 +590,8 @@ def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing(monkeypatch):
         assert (steps.kf is not None) == (f is not None)
         diff_model._Steps(smp.struct_mesh, DT, stp.layer_thickness, nonlinear, forcing=f,
                           tracers=True)
-        tiled_diff._check_nl_q((4, 8, 1, 1), False, torch.device("cuda"), True)
-        with pytest.raises(NotImplementedError):
-            tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cuda"), True)
+        tiled_diff._check_nl_q((4, 8, 1, 1), nonlinear, torch.device("cuda"))
+        tiled_diff._TiledSteps(smp.struct_mesh, DT, cuda, (4, 8, 2, 1), forcing=f,
+                               tracers=True, tracer_kappa=5.0, tracer_upwind=0.5)
+        with pytest.raises(ValueError, match="q = 1"):
+            tiled_diff._check_nl_q((4, 8, 2, 1), True, torch.device("cuda"))

@@ -2,8 +2,9 @@
 (tests/test_torch_kernel.py, tests/test_torch_adjoint_kernel.py,
 tests/test_torch_tiled_kernel.py, tests/test_torch_tiled_adjoint_kernel.py,
 tests/test_torch_peaks.py, tests/test_torch_tracer_kernel.py,
-tests/test_torch_strat_adjoint_kernel.py and the others of the kernels'
-arms). They import no JAX, so they run on a GPU machine without it."""
+tests/test_torch_strat_adjoint_kernel.py, tests/test_torch_window_kernel.py
+and the others of the kernels' arms). They import no JAX, so they run on a
+GPU machine without it."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from mpas_ocean_tpu_torch.tools.composed_reverse import (  # noqa: F401 (the GPU
     composed_state,
     composed_steps,
     plain_composed_reverse,
+    superstep_stack,
 )
 
 FIELDS = ("ssh", "layer_thickness", "normal_velocity")
@@ -465,13 +467,14 @@ def tracer_stack(st, mesh, dt, n, kappa, upwind):
     return tuple(x[:n] for x in full), kt._replace(planes=trs[:n]), (full[1][n], trs[n])
 
 
-def tracer_reverse(stack, kt, end, g, mesh, dt, n, tile=None, tracers=True):
+def tracer_reverse(stack, kt, end, g, mesh, dt, n, tile=None, tracers=True, q=1):
     """n reverse steps through the stack (``tracer_stack``'s) from the
     cotangent g (its tracers in the lattice layout): adjoint_step's tracer
-    arm for ``tile`` None, tiled_adjoint's at q = 1 over ``tile`` = (rows,
-    columns) otherwise; with ``tracers`` False the tracer-free arm on the
-    same primal states and g's ssh, h and u. Returns (cotangent, d(dt)) as
-    f64, the cotangent's tracers in the lattice layout."""
+    arm for ``tile`` None, tiled_adjoint's over ``tile`` = (rows, columns)
+    otherwise, n supersteps of q steps (the stack's slots the supersteps'
+    starts); with ``tracers`` False the tracer-free arm on the same primal
+    states and g's ssh, h and u. Returns (cotangent, d(dt)) as f64, the
+    cotangent's tracers in the lattice layout."""
     from mpas_ocean_tpu_torch.kernels import adjoint_step, tiled_adjoint
     from mpas_ocean_tpu_torch.structured import StructState, fused_model
     from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
@@ -492,7 +495,7 @@ def tracer_reverse(stack, kt, end, g, mesh, dt, n, tile=None, tracers=True):
         out = tiled_adjoint.tiled_adjoint_rollout(
             stack, gk, f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
             *mesh.host_stencil, *mesh.host_adjoint_stencil, *scal, n, ddt, row_tile=tile[0],
-            col_tile=tile[1], q=1, halo=reverse_halo(mesh.coriolis_terms), **kw)
+            col_tile=tile[1], q=q, halo=reverse_halo(mesh.coriolis_terms), **kw)
     tr = fused_model.tracer_unplanes(out[3]).double() if tracers else None
     return StructState(*(x.double() for x in out[:3]), tr), ddt[0]
 
@@ -584,12 +587,13 @@ def strat_stack(st, mesh, dt, n, strat):
     return tuple(x[:n] for x in full), w, tuple(x[n] for x in full)
 
 
-def strat_reverse(stack, w, g, mesh, dt, n, tile=None, strat=True):
+def strat_reverse(stack, w, g, mesh, dt, n, tile=None, strat=True, q=1):
     """n reverse steps through the stack (``strat_stack``'s) from the
     cotangent g (ssh, h, u): adjoint_step's stratified arm for ``tile`` None,
-    tiled_adjoint's at q = 1 over ``tile`` = (rows, columns) otherwise; with
-    ``strat`` False the unstratified arm on the same states. Returns
-    (cotangent, d(dt), d(W) or None) as f64."""
+    tiled_adjoint's over ``tile`` = (rows, columns) otherwise, n supersteps
+    of q steps (the stack's slots the supersteps' starts); with ``strat``
+    False the unstratified arm on the same states. Returns (cotangent,
+    d(dt), d(W) or None) as f64."""
     from mpas_ocean_tpu_torch.kernels import adjoint_step, tiled_adjoint
     from mpas_ocean_tpu_torch.structured import StructState, fused_model
     from mpas_ocean_tpu_torch.structured.tiled_diff import reverse_halo
@@ -609,7 +613,7 @@ def strat_reverse(stack, w, g, mesh, dt, n, tile=None, strat=True):
         out = tiled_adjoint.tiled_adjoint_rollout(
             stack, gk, f_edge, mesh.resting_thickness_sum.to(dtype).contiguous(),
             *mesh.host_stencil, *mesh.host_adjoint_stencil, *scal, n, ddt, row_tile=tile[0],
-            col_tile=tile[1], q=1, halo=reverse_halo(mesh.coriolis_terms), **kw)
+            col_tile=tile[1], q=q, halo=reverse_halo(mesh.coriolis_terms), **kw)
     return StructState(*(x.double() for x in out[:3])), ddt[0], dw
 
 
@@ -712,17 +716,45 @@ def strat_reverse_errors(a, b, ddt_scale, w_scale) -> dict:
 # ---- the composed reverse (tests/test_torch_composed_adjoint_kernel.py; the
 # runs and errors in mpas_ocean_tpu_torch/tools/composed_reverse.py) --------
 
-def composed_case(opts, n, k, channel, device, dtype=np.float64, seed=7):
+def composed_case(opts, n, k, channel, device, dtype=np.float64, seed=7, ny=None):
     """(model, state, forcing, stratification) of a combination ``opts`` (a
-    string of N, F, T, S) on a random n x n lattice of k 10 m layers,
+    string of N, F, T, S) on a random n x n (n x ``ny``) lattice of k 10 m
+    layers,
     periodic or the channel: u of 0.5 m/s with N (so that the nonlinear
     terms matter), 0.01 m/s without; two random tracers with T
     (``with_tracers``), random winds, levels and coefficients with F
     (``random_forcing``), a dense random W with S; None for an option off."""
     model, st = (channel_lattice if channel else random_lattice)(
-        n, n, k, device, seed=seed, dc=1e4, dtype=dtype, u_amp=0.5 if "N" in opts else 0.01)
+        n, ny or n, k, device, seed=seed, dc=1e4, dtype=dtype,
+        u_amp=0.5 if "N" in opts else 0.01)
     if "T" in opts:
         st = with_tracers(model, st)
     forcing = random_forcing(model) if "F" in opts else None
     strat = stratification(k, "dense", dtype) if "S" in opts else None
     return model, st, forcing, strat
+
+
+# ---- q > 1 (tests/test_torch_window_kernel.py,
+# tests/test_torch_window_adjoint_kernel.py) ---------------------------------
+
+# the forward windows' lattice: nx x ny = 32 x 40 (20 x 32 sites a parity),
+# room for the FB q = 3 window (rows tile + 18) and the FE q = 3 one
+# (columns tile + 24)
+WINDOW_NX, WINDOW_NY = 32, 40
+WINDOW_KAPPA, WINDOW_UPWIND = 5.0, 0.5
+
+
+def window_kw(opts, forcing, strat) -> dict:
+    """The forward entry points' keywords of a combination ``opts`` (F, T,
+    S; the state carries its tracers where T is on): the forcing, W, and
+    the tracers' kappa 5 and upwind 0.5."""
+    return dict(forcing=forcing if "F" in opts else None, strat=strat if "S" in opts else None,
+                tracer_kappa=WINDOW_KAPPA, tracer_upwind=WINDOW_UPWIND)
+
+
+def window_errors(out, ref, mesh) -> dict:
+    """``forward_errors``, and ``tracer_errors``' tracers where both have
+    them."""
+    if out.tracers is not None and ref.tracers is not None:
+        return tracer_errors(out, ref, mesh)
+    return forward_errors(out, ref, mesh)
