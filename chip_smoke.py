@@ -201,11 +201,26 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      f32; the q = 2 gradient's dot-product identity; f32 after 100 steps at
      64^2 and 256^2 x 100 with a bf16 control; the main paths from to_struct
      with n / q launches; q = 2 against q = 1 in the same call (the
-     nonlinear FE and FB alone and with all four options over 200 steps at
-     256^2 and 1000 at 64^2, the FTS gradient at 256^2, tiled_adjoint per
+     nonlinear FE and FB alone and with all four options over 100 steps at
+     256^2 and 200 at 64^2, the FTS gradient at 256^2, tiled_adjoint per
      launch).
      ``python3 chip_smoke.py --window-only`` runs phases 1, 2, 9 and 21
      alone.
+ 22. the sharded row-slab path: kernel 2's received-halo arm
+     (ShardedStructuredModel.run_pallas, each slab's state in buffers of
+     R + 2 hq rows whose halo rows one exchange per field fills): f64
+     against the plain superstep over 1, 2 and 4 slabs (linear FE and FB at
+     q = 1, 2, 3, nonlinear at q = 1, 2, forcing, tracers and
+     stratification alone and all four, periodic and channel, 4 and 36
+     levels) to 1e-12 of scale with exact launch and exchange counts,
+     reruns bitwise, bitwise tiled_run_loop's at the same plan, a stale-halo
+     control >= 100x off, objective_pallas's f64 gradient against the plain
+     objective's and the dot-product identity, f32 100 steps at 64^2 x 100
+     with a bf16 control; bench.py's superstep cell (64x64x100 f32, P = 1,
+     q = 2, 8000 steps) and sharded adjoint (1000 steps) from
+     scatter(to_struct) with exact counts and times beside the single-chip
+     kernel and the superstep at q = 1, 2, 4. ``python3 chip_smoke.py
+     --sharded-only`` runs phases 1, 2, 9 and 22 alone.
 After phase 8 the tracer-free 256x256x100 100-step gradients through
 fused_rollout_diff and tiled_rollout_diff are timed again in a fresh process
 (``python3 chip_smoke.py --grad-256``, which prints one JSON line), with
@@ -6512,8 +6527,10 @@ WINDOW_Q = 2
 WINDOW_REV_SS = 3
 # steps of the timed forward runs at 256^2 (the q = 2 composed FB step
 # takes 19 ms, so LARGE_MAIN_STEPS would cost phase 21 ~110 s more; the reps
-# spread 0.1-0.7%), and reverse steps of the held_us timings
-WINDOW_TIMED_STEPS_256, WINDOW_HELD_STEPS = LARGE_MAIN_STEPS // 5, 16
+# spread 0.1-0.7%; 200 until phase 22 took the run's budget) and at 64^2
+# (LARGE_MAIN_STEPS until then), and reverse steps of the held_us timings
+WINDOW_TIMED_STEPS_256, WINDOW_HELD_STEPS = LARGE_MAIN_STEPS // 10, 16
+WINDOW_TIMED_STEPS_64 = LARGE_MAIN_STEPS // 5
 
 
 def window_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts, q: int,
@@ -6572,7 +6589,7 @@ def window_phase(gpu: str, log_text: str) -> list:
     bf16 failing it; the main paths from to_struct with exact launch counts
     (n / q); q = 2 against q = 1 in this call, median of REPS with min and
     max: the nonlinear FE and FB, alone and NFTS, at 256^2 x 100 over
-    WINDOW_TIMED_STEPS_256 steps and at 64^2 over LARGE_MAIN_STEPS, the FTS
+    WINDOW_TIMED_STEPS_256 steps and at 64^2 over WINDOW_TIMED_STEPS_64, the FTS
     gradient at 256^2 over LARGE_ADJ_STEPS steps, tiled_adjoint's q = 2 FTS
     arm per launch.
     Returns the kernels line's entries."""
@@ -6992,7 +7009,7 @@ def window_phase(gpu: str, log_text: str) -> list:
     # call: the nonlinear arm alone and with all three options, FE and FB
     times, launches, walls, plain, plans = {}, {}, {}, {}, {}
     nfts = {"nonlinear", "forced", "tracers", "strat"}
-    for n, n_steps in ((LARGE_N, WINDOW_TIMED_STEPS_256), (HEADLINE_N, LARGE_MAIN_STEPS)):
+    for n, n_steps in ((LARGE_N, WINDOW_TIMED_STEPS_256), (HEADLINE_N, WINDOW_TIMED_STEPS_64)):
         horz, _, model, prog = igw_case(n, LEVELS, np.float32)
         sm = model.struct_mesh
         ptr = mt.PrognosticVars(prog.ssh, prog.layer_thickness, prog.normal_velocity,
@@ -7183,6 +7200,437 @@ def window_phase(gpu: str, log_text: str) -> list:
     return entries
 
 
+# the sharded superstep (phase 22): bench.py's measure_superstep and
+# measure_sharded_adjoint run ShardedStructuredModel(devices=[device]) at
+# q = 2, the superstep over HEADLINE_STEPS and the adjoint over
+# max(8, HEADLINE_STEPS // 8) steps
+SHARDED_Q = 2
+SHARDED_ADJ_STEPS = max(8, HEADLINE_STEPS // 8)
+SHARDED_SUPERSTEPS = 3  # supersteps of each f64 check
+# steps of the sharded adjoint's timed reps: a 1000-step gradient takes
+# 17-21 s on the card (its reverse replays the plain superstep), so REPS of
+# them would cost phase 22 ~60 s; the main path's 1000-step run is timed
+# once beside them
+SHARDED_ADJ_TIMED_STEPS = SHARDED_ADJ_STEPS // 10
+# steps of the superstep's timed variants (q = 1 and 4, P = 2 and 4): the
+# host's work per superstep sets their time a step, which 1000 steps read as
+# well as 8000; bench.py's cell and the single-chip kernel run 8000
+SHARDED_VARIANT_STEPS = HEADLINE_STEPS // 8
+
+
+def sharded_phase(gpu: str, log_text: str) -> list:
+    """Phase 22, the sharded row-slab path: kernel 2's received-halo arm,
+    ShardedStructuredModel.run_pallas, each slab's state in buffers of
+    R + 2 hq rows whose halo rows one exchange per field fills, one launch a
+    superstep (csrc/step_window.cuh, buffer_plane). The instantiations'
+    ptxas summary; f64 against the plain superstep (the same model on CPU
+    slabs, slab.window_steps on each slab's extended window) within 1e-12
+    of scale over 1, 2 and 4 slabs: the linear core FE and FB at q = 1, 2,
+    3 and the nonlinear at q = 1, 2 (32^2 and 16^2 x 4), forcing, tracers
+    and stratification alone and all four with the nonlinear core (32^2 x
+    36), the channel; exact counts, P n / q launches and n / q exchanges
+    per field; reruns bitwise; bitwise equal to the single-chip
+    tiled_run_loop at the same plan; the stale-halo control (the exchange
+    skipped) >= 100x off; objective_pallas's gradient against the plain
+    objective's within 1e-12 of scale and the dot-product identity against
+    the plain rollout's tangent (forward-mode AD) within 1e-12, linear,
+    nonlinear, FB and NFTS at P = 1 and 2; f32 after 100 steps at P = 1,
+    64^2 x 100: each field's distance from an f64 plain run within
+    U_GAP_FACTOR x the plain f32 run's, a bf16 control failing it; bench.py's
+    superstep cell (64x64x100 f32, P = 1, q = 2, HEADLINE_STEPS steps from
+    scatter(to_struct)) and its sharded adjoint (SHARDED_ADJ_STEPS steps,
+    timed once, and REPS times over SHARDED_ADJ_TIMED_STEPS) with exact
+    counts, timed (median of REPS) beside the single-chip tiled_run_loop at
+    q = 2 and 1 and the superstep at q = 1, 2, 4; one launch's device time
+    (held_us) against its bound; P = 2 and 4 on the one card once. Returns
+    the kernels line's entries."""
+    import math
+    import re
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import tiled_step
+    from mpas_ocean_tpu_torch.models import stratification_from_numpy
+    from mpas_ocean_tpu_torch.structured import (
+        ShardedStructuredModel,
+        StructState,
+        sharded,
+        structured_run_loop,
+        tiled_run_loop,
+    )
+    from mpas_ocean_tpu_torch.structured.slab import reach
+    from mpas_ocean_tpu_torch.tools.composed_reverse import composed_state
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+    from mpas_ocean_tpu_torch.tools.sharded_checks import (
+        field_errors,
+        kernel_launches,
+        pair_runs,
+        run_sharded,
+        zero_counts,
+    )
+
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    tfields = FIELDS + ("tracers",)
+    kappa5 = dict(tracer_kappa=5.0, tracer_upwind=0.5)
+    for name in ("tiled_step_kernel", "nl_step_kernel", "nl_tiled_kernel"):
+        text = "\n".join(ptxas_report(log_text, (name,)))
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+        log(f"[22] ptxas {name} (received halos a runtime row mode): {len(regs)} "
+            f"instantiations, {min(regs, default=0)}-{max(regs, default=0)} registers, spill "
+            f"stores up to {max(spills, default=0)} bytes")
+
+    def case(n, levels, channel, opts, seed=5):
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=seed,
+                                                                   u_amp=0.5)
+        st = model.to_struct(prog)
+        if "T" in opts:
+            st = random_tracers(model, st)
+        rng = np.random.default_rng(29 + levels)
+        strat = stratification_from_numpy({"phi_weights": 0.05 * rng.normal(size=(levels,
+                                                                                   levels)),
+                                           "densities": np.full(levels, 1025.0)})
+        kw = dict(forcing=lattice_forcing(model, seed=11 + levels) if "F" in opts else None,
+                  strat=strat if "S" in opts else None, nonlinear="N" in opts, **kappa5)
+        return model.struct_mesh, composed_state(st, opts), kw
+
+    def same(a, b):
+        return all(getattr(a, f) is None or torch.equal(getattr(a, f), getattr(b, f))
+                   for f in tfields)
+
+    def plan_q(sm, parts, n, k, q, fb, kw, st):
+        """The q run_pallas takes for q (JAX's reduction: the halo limit and
+        the shared memory), without its warning."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return ShardedStructuredModel(sm, [dev] * parts).superstep_plan(
+                n, k, torch.float64, q=q, nonlinear=kw["nonlinear"], fb=fb,
+                n_tracers=0 if st.tracers is None else st.tracers.shape[3],
+                forced=kw["forcing"] is not None, strat=kw["strat"] is not None)["q"]
+
+    # f64 against the plain superstep
+    checks = []
+    for n, levels, channel, opts_list, qs, slabs in (
+            (32, 4, False, ("", "N"), None, (1, 2, 4)), (16, 4, False, ("", "N"), (2,), (1, 2)),
+            (32, 36, False, ("F", "T", "S"), (2,), (2,)),
+            (32, 36, False, ("NFTS",), (1, 2), (2,)),
+            (32, 4, True, ("", "NFTS"), (1, 2), (2,)), (32, 4, True, ("FTS",), (2,), (4,))):
+        for opts in opts_list:
+            sm, st, kw = case(n, levels, channel, opts)
+            for fb in (False, True):
+                for q in qs or ((1, 2) if "N" in opts else (1, 2, 3)):
+                    for parts in slabs:
+                        if sm.ny2 % parts or reach(fb, "N" in opts) * q > sm.ny2 // parts:
+                            continue
+                        if plan_q(sm, parts, SHARDED_SUPERSTEPS * q, levels, q, fb, kw,
+                                  st) != q:
+                            continue
+                        checks.append((n, levels, channel, opts, fb, q, parts, sm, st, kw))
+    worst, parts_log, n_checks = 0.0, {}, 0
+    for n, levels, channel, opts, fb, q, parts, sm, st, kw in checks:
+        steps = SHARDED_SUPERSTEPS * q
+        card, plain, counts = pair_runs(sm, st, parts, 10.0, steps, q=q, fb=fb, **kw)
+        errs = {f: r for f, (_, r) in field_errors(card, plain).items()}
+        arm = (f"{n}^2x{levels} {'channel ' if channel else ''}{opts or '-'} "
+               f"{'FB' if fb else 'FE'} q={q} P={parts}")
+        n_fields = 3 + (st.tracers is not None)
+        want = (parts * SHARDED_SUPERSTEPS, n_fields * SHARDED_SUPERSTEPS)
+        got = (counts["fe_step"] + counts["tiled_step"], counts["exchanges"])
+        if got != want:
+            raise AssertionError(f"f64 {arm}: launches, exchanges {got} != {want}")
+        if not max(errs.values()) <= 1e-12:
+            raise AssertionError(f"f64 {arm}: received-halo arm vs plain superstep {errs}")
+        again, _ = run_sharded(sm, st, [dev] * parts, 10.0, steps, q=q, fb=fb, **kw)
+        if not same(card, again):
+            raise AssertionError(f"f64 {arm}: rerun differs")
+        if channel:
+            check_walls(card, sm, f"f64 {arm}")
+        worst, n_checks = max(worst, max(errs.values())), n_checks + 1
+        parts_log.setdefault(f"{n}^2x{levels}{' channel' if channel else ''}", []).append(
+            f"{opts or '-'} {'FB' if fb else 'FE'} q{q} P{parts} {max(errs.values()):.1e}")
+    for where, items in parts_log.items():
+        log(f"[22] f64 received-halo arm vs plain superstep, {where}, {SHARDED_SUPERSTEPS} "
+            "supersteps (of scale): " + ", ".join(items))
+    log(f"[22] {n_checks} f64 checks within 1e-12 of scale (worst {worst:.3e}), P n / q "
+        "launches and n / q exchanges per field each, reruns bitwise")
+    del checks
+
+    # bitwise against the single-chip kernel at the same plan
+    n_bit = 0
+    for opts, fb, q, tile in (("", False, 2, (4, 8)), ("", True, 1, (4, 16)),
+                              ("FTS", True, 2, (4, 8)), ("N", False, 1, (4, 8)),
+                              ("N", True, 1, (4, 8)), ("N", False, 2, (4, 8)),
+                              ("NFTS", True, 2, (2, 4))):
+        sm, st, kw = case(32, 4, False, opts)
+        ref = tiled_run_loop(st, sm, 10.0, 2 * q, row_tile=tile[0], col_tile=tile[1], q=q,
+                             fb=fb, **kw)
+        for parts in (1, 2):
+            out, _ = run_sharded(sm, st, [dev] * parts, 10.0, 2 * q, row_tile=tile[0],
+                                 col_tile=tile[1], q=q, fb=fb, **kw)
+            if not same(out, ref):
+                raise AssertionError(f"{opts or '-'} {'FB' if fb else 'FE'} q={q} P={parts}: "
+                                     "not bitwise tiled_run_loop's at the same plan")
+            n_bit += 1
+    log(f"[22] f64 32^2x4, tiles dividing the slab: the sharded run bitwise tiled_run_loop's "
+        f"at the same (row_tile, col_tile, q), {n_bit} runs (P = 1, 2; linear FE q=2, FB q=1, "
+        "FTS FB q=2, nonlinear FE q=1, 2, FB q=1, NFTS FB q=2)")
+
+    # the stale-halo control: the exchange skipped after the first superstep
+    for opts in ("", "N"):
+        sm, st, kw = case(32, 4, False, opts)
+        model = ShardedStructuredModel(sm, [dev] * 2)
+        plain, _ = run_sharded(sm, st, [cpu] * 2, 10.0, 6, q=2, **kw)
+        good = model.gather(model.run_pallas(model.scatter(st), 10.0, 6, q=2, **kw))
+        stale = model.gather(model.run_pallas(model.scatter(st), 10.0, 6, q=2, exchange=False,
+                                              **kw))
+        e_good, e_stale = field_errors(good, plain)["ssh"][1], field_errors(stale, plain)["ssh"][1]
+        log(f"[22] control, {opts or 'linear'} FE q=2 P=2, 3 supersteps: ssh off the plain "
+            f"superstep by {e_good:.3e} of scale with the exchange, {e_stale:.3e} with stale "
+            f"halos (x{e_stale / 1e-12:.3g} the 1e-12 limit; limit x100)")
+        if not (e_good <= 1e-12 and e_stale >= 100 * 1e-12):
+            raise AssertionError(f"stale-halo control: {e_good}, {e_stale}")
+
+    # the gradient, f64: objective_pallas against the plain objective, and
+    # the dot-product identity against the plain rollout's tangent
+    def plain_j(sm, kw, fb, n):
+        def j(*xs):
+            out = structured_run_loop(StructState(*xs), sm, 10.0, n, fb=fb, **kw)
+            return (out.ssh ** 2).sum()
+        return j
+
+    grad_log = []
+    for opts, fb in (("", False), ("N", False), ("", True), ("NFTS", False)):
+        sm, st, kw = case(16, 4, False, opts)
+        xs = tuple(x for x in (st.ssh, st.layer_thickness, st.normal_velocity, st.tracers)
+                   if x is not None)
+        rng = np.random.default_rng(41)
+        v = tuple(torch.from_numpy(rng.normal(size=tuple(x.shape))).to(x) for x in xs)
+        _, jv = torch.func.jvp(plain_j(sm, kw, fb, 4), xs, v)
+        for parts in (1, 2):
+            model = ShardedStructuredModel(sm, [dev] * parts)
+            grads = []
+            for name in ("objective_pallas", "objective"):
+                local = {k: [x.requires_grad_() for x in xs_] for k, xs_ in
+                         model.scatter(st).items()}
+                extra = {"q": SHARDED_Q} if name == "objective_pallas" else {}
+                getattr(model, name)(local, 10.0, 4, fb=fb, **kw, **extra).backward()
+                g = model.gather({k: [torch.zeros_like(x) if x.grad is None else x.grad
+                                      for x in xs_] for k, xs_ in local.items()})
+                grads.append(g)
+            errs = field_errors(*grads)
+            err = max(r for f, (_, r) in errs.items() if f != "tracers")
+            g = grads[0]
+            dot = sum(float((a * b).sum()) for a, b in zip(
+                (g.ssh, g.layer_thickness, g.normal_velocity, g.tracers), v) if a is not None)
+            gap = abs(dot - float(jv)) / abs(float(jv))
+            what = f"{opts or 'linear'} {'FB' if fb else 'FE'} P={parts}"
+            grad_log.append(f"{what} {err:.1e}, identity {gap:.1e}")
+            if not (err <= 1e-12 and gap <= 1e-12):
+                raise AssertionError(f"f64 gradient {what}: vs plain objective {errs}, "
+                                     f"dot-product gap {gap:.3e}")
+    log("[22] f64 16^2x4, 4 steps, q=2: objective_pallas's gradient vs the plain objective's "
+        "(of scale), the dot-product identity <grad, v> vs the plain rollout's tangent "
+        "(relative; limits 1e-12): " + "; ".join(grad_log))
+
+    # f32 after 100 steps at P = 1, 64^2 x 100: the distance rule, with a
+    # bf16 control
+    horz, _, model32, prog = igw_case(HEADLINE_N, LEVELS, np.float32)
+    _, _, model64, prog64 = igw_case(HEADLINE_N, LEVELS, np.float64)
+    sm, sm64 = model32.struct_mesh, model64.struct_mesh
+    st = model32.to_struct(prog)
+    st64 = StructState(*(getattr(st, f).double() for f in FIELDS))
+    out, _ = run_sharded(sm, st, [dev], DT, TILED_CHECK_STEPS, q=SHARDED_Q)
+    ref = structured_run_loop(st, sm, DT, TILED_CHECK_STEPS)
+    ref64 = structured_run_loop(st64, sm64, DT, TILED_CHECK_STEPS)
+    bf = st
+    for _ in range(TILED_CHECK_STEPS):
+        bf = structured_run_loop(bf, sm, DT, 1)
+        bf = StructState(*(getattr(bf, f).bfloat16().float() for f in FIELDS))
+    control_fails, ratios = False, []
+    for f in FIELDS:
+        d = lambda x: float((getattr(x, f).double() - getattr(ref64, f)).abs().max())  # noqa
+        g_k, g_p, g_b = d(out), d(ref), d(bf)
+        limit = U_GAP_FACTOR * g_p
+        log(f"[22] f32 {HEADLINE_N}^2x{LEVELS} IGW, P=1 q={SHARDED_Q}, {TILED_CHECK_STEPS} steps: "
+            f"{f}'s distance from the f64 plain run: sharded {g_k:.3e}, plain f32 {g_p:.3e}: "
+            f"x{g_k / limit:.3f} of the limit {limit:.3e}; bf16 control {g_b:.3e} "
+            f"(x{g_b / limit:.1f})")
+        if not g_k <= limit:
+            raise AssertionError(f"f32 sharded {f}: {g_k:.3e} from f64, limit {limit:.3e}")
+        control_fails = control_fails or g_b > limit
+        ratios.append(g_k / limit)
+    if not control_fails:
+        raise AssertionError("f32 sharded: the bf16 control passes")
+    del st64, ref64, bf, out, ref
+
+    # one launch of the arm against the plain superstep on the card, at the
+    # bench cell's plan: max |diff| and the per-launch times
+    model = ShardedStructuredModel(sm, [dev])
+    local = model.scatter(st)
+    su = model._superstep_setup(local, DT, SHARDED_Q, SHARDED_Q, None, None, None, 0.0, 1.0,
+                                None, False, False)
+    hq, rows = su["hq"], model.rows
+    ext = [torch.cat([x[:, -1 - hq:-1], x[:, 1:-1], x[:, 1:1 + hq]], 1).contiguous()
+           for x in (local[k][0] for k in ("ssh", "h", "u"))]
+    dst = [torch.empty_like(x) for x in ext]
+    model._launch(su, 0, ext, dst)
+    plain = model._plain_superstep(su, 0, ext)
+    launch_err = max(float((d[:, hq:hq + rows] - p).abs().max()) for d, p in zip(dst, plain))
+    # the launch's device time behind a held stream (tools/reverse_timing.
+    # held_us), and its time by events with the wrapper's host work
+    launch_us = held_us(lambda: [model._launch(su, 0, ext, dst) for _ in range(10)], 10, REPS)
+    call_s = cuda_times(lambda: model._launch(su, 0, ext, dst), REPS)
+    plain_s = cuda_times(lambda: model._plain_superstep(su, 0, ext), REPS)
+    log(f"[22] one launch ({SHARDED_Q} steps, plan rt={su['row_tile']} ct={su['col_tile']}) "
+        f"vs the plain superstep on the card, f32 {HEADLINE_N}^2x{LEVELS}: max|diff| "
+        f"{launch_err:.3e}; launch device time {spread(launch_us, 1, 'us')}, one call by events "
+        f"(the wrapper's host work in it) {spread(call_s, 1e6, 'us')}, plain superstep "
+        f"{spread(plain_s, 1e6, 'us')} [{gpu}]")
+    del ext, dst, plain
+
+    # bench.py's superstep cell from scatter(to_struct), exact counts
+    n_grid = horz.n_cells * LEVELS
+    zero_counts()
+    t0 = time.perf_counter()
+    model = ShardedStructuredModel(sm, [dev])
+    loc = model.run_pallas(model.scatter(model32.to_struct(prog)), DT, HEADLINE_STEPS,
+                           q=SHARDED_Q)
+    final = model32.from_struct(model.gather(loc))
+    wall = time.perf_counter() - t0
+    counts = kernel_launches()
+    want_l, want_x = HEADLINE_STEPS // SHARDED_Q, 3 * HEADLINE_STEPS // SHARDED_Q
+    log(f"[22] main path: bench.py's superstep cell, {HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32, "
+        f"P=1 q={SHARDED_Q}, {HEADLINE_STEPS} steps, scatter(to_struct) .. from_struct(gather) "
+        f"{wall:.3f} s wall; launches tiled_step {counts['tiled_step']} (want {want_l}), "
+        f"fe_step {counts['fe_step']} (want 0), field exchanges {counts['exchanges']} (want "
+        f"{want_x})")
+    if (counts["tiled_step"], counts["fe_step"], counts["exchanges"]) != (want_l, 0, want_x):
+        raise AssertionError(f"superstep cell counts {counts}")
+    for f in FIELDS:
+        if not bool(torch.isfinite(getattr(final, f)).all()):
+            raise AssertionError(f"superstep cell: {f} is not finite")
+    if tuple(final.ssh.shape) != (horz.n_cells,) or tuple(
+            final.normal_velocity.shape) != (horz.n_edges, LEVELS):
+        raise AssertionError("superstep cell: wrong output shapes")
+    ssh_gap = float((model.gather(loc).ssh
+                     - tiled_run_loop(st, sm, DT, HEADLINE_STEPS, q=SHARDED_Q,
+                                      row_tile=su["row_tile"],
+                                      col_tile=su["col_tile"]).ssh).abs().max())
+    log(f"[22] superstep cell vs tiled_run_loop at the same plan, {HEADLINE_STEPS} steps: "
+        f"max|ssh diff| {ssh_gap:.3e} (want 0: bitwise)")
+    if ssh_gap != 0.0:
+        raise AssertionError(f"superstep cell differs from tiled_run_loop: {ssh_gap}")
+    del loc, final
+
+    # the times: the superstep cell, the single-chip kernel beside it, the
+    # superstep at q = 1, 2, 4 and the auto q
+    local = model.scatter(st)
+    times = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the warm-up's 10 steps reduce q = 4
+        for label, fn, n_steps in (
+                (f"superstep q={SHARDED_Q}",
+                 lambda n: model.run_pallas(local, DT, n, q=SHARDED_Q), HEADLINE_STEPS),
+                (f"tiled_run_loop q={SHARDED_Q}",
+                 lambda n: tiled_run_loop(st, sm, DT, n, q=SHARDED_Q), HEADLINE_STEPS),
+                ("tiled_run_loop q=1", lambda n: tiled_run_loop(st, sm, DT, n, q=1),
+                 HEADLINE_STEPS),
+                ("superstep q=1", lambda n: model.run_pallas(local, DT, n, q=1),
+                 SHARDED_VARIANT_STEPS),
+                ("superstep q=4", lambda n: model.run_pallas(local, DT, n, q=4),
+                 SHARDED_VARIANT_STEPS)):
+            _, t = timed_rollout(fn, n_steps, REPS)
+            times[label] = t
+            log(f"[22] {label}, {HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32, {n_steps} steps: "
+                f"{spread(t, 1e6, 'us')} per step, {n_grid / statistics.median(t):.6g} "
+                f"gridpoints*steps/s [{gpu}]")
+    q4 = model.superstep_plan(HEADLINE_STEPS, LEVELS, torch.float32, q=4)
+    auto = model.superstep_plan(HEADLINE_STEPS, LEVELS, torch.float32)
+    log(f"[22] superstep plans: q={SHARDED_Q} {su['row_tile']}x{su['col_tile']}, q=4 "
+        f"{q4['row_tile']}x{q4['col_tile']}; the auto q (sharded.AUTO_Q) runs q={auto['q']} at "
+        f"{auto['row_tile']}x{auto['col_tile']}")
+    for parts in (2, 4):
+        mp = ShardedStructuredModel(sm, [dev] * parts)
+        lp = mp.scatter(st)
+        _, t = timed_rollout(lambda n: mp.run_pallas(lp, DT, n, q=SHARDED_Q),
+                             SHARDED_VARIANT_STEPS, 1)
+        times[f"superstep q={SHARDED_Q} P={parts}"] = t
+        log(f"[22] superstep q={SHARDED_Q}, P={parts} slabs on the one card (record only), "
+            f"{SHARDED_VARIANT_STEPS} steps: {t[0] * 1e6:.6g} us per step [{gpu}]")
+        del mp, lp
+
+    # bench.py's sharded adjoint: the gradient of objective_pallas over
+    # SHARDED_ADJ_STEPS steps at P = 1, q = 2, from scatter(to_struct)
+    def sharded_grad(n_steps=SHARDED_ADJ_STEPS):
+        loc_g = {k: [x.requires_grad_() for x in v] for k, v in
+                 model.scatter(model32.to_struct(prog)).items()}
+        model.objective_pallas(loc_g, DT, n_steps, q=SHARDED_Q).backward()
+        sharded_grad.last = loc_g
+
+    zero_counts()
+    sharded.objective_supersteps = 0
+    t0 = time.perf_counter()
+    g_main = cuda_times(sharded_grad, 1, warm_up=False)
+    wall = time.perf_counter() - t0
+    loc_g = sharded_grad.last
+    n_ss = SHARDED_ADJ_STEPS // SHARDED_Q
+    b = max(1, math.isqrt(n_ss))
+    a, rem = divmod(n_ss, b)
+    counts = kernel_launches()
+    log(f"[22] main path: bench.py's sharded adjoint, grad of objective_pallas, "
+        f"{HEADLINE_N}x{HEADLINE_N}x{LEVELS} f32, P=1 q={SHARDED_Q}, {SHARDED_ADJ_STEPS} steps: "
+        f"{wall:.3f} s wall (scatter .. grad); launches tiled_step {counts['tiled_step']} = the "
+        f"supersteps run forward {sharded.objective_supersteps} ({n_ss} forward, the "
+        f"checkpoints' recomputes {counts['tiled_step'] - n_ss}; n + a (2b - 1) + rem = "
+        f"{n_ss + a * (2 * b - 1) + rem} for a = {a} chunks of b = {b})")
+    if counts["tiled_step"] != sharded.objective_supersteps or counts["tiled_step"] < n_ss:
+        raise AssertionError(f"sharded adjoint counts {counts}, {sharded.objective_supersteps}")
+    for k, v in loc_g.items():
+        if not all(x.grad is None or bool(torch.isfinite(x.grad).all()) for x in v):
+            raise AssertionError(f"sharded adjoint: d_{k} is not finite")
+    del loc_g
+    sharded_grad.last = None
+    g_times = cuda_times(lambda: sharded_grad(SHARDED_ADJ_TIMED_STEPS), REPS, warm_up=False)
+    log(f"[22] sharded adjoint: {SHARDED_ADJ_STEPS} steps {g_main[0]:.6g} s per grad "
+        f"({g_main[0] / SHARDED_ADJ_STEPS * 1e6:.6g} us per step); {SHARDED_ADJ_TIMED_STEPS} "
+        f"steps {spread(g_times)} per grad, "
+        f"{spread([t / SHARDED_ADJ_TIMED_STEPS for t in g_times], 1e6, 'us')} per step [{gpu}]")
+
+    dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+    bound, bound_by = window_bound(*dims, frozenset(), SHARDED_Q)
+    launch_ms = statistics.median(launch_us) / 1e3
+    log(f"[22] received-halo arm per launch {launch_ms * 1e3:.6g} us, bound {bound * 1e6:.6g} "
+        f"us ({bound_by}), x{launch_ms / 1e3 / bound:.2f} of it; phase 22 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return [{
+        "name": "tiled_step (received halos)",
+        "route": "cuda",
+        "source": "mpas_ocean_tpu_torch/csrc/tiled_step.cu",
+        "replaces": "mpas_ocean_tpu/structured/pallas_model.py:852 (received halos, "
+                    "sharded.py:1640-1886)",
+        "launches": want_l,
+        "max_abs_err": launch_err,
+        "ms": launch_ms,
+        "plain_ms": statistics.median(plain_s) * 1e3,
+        "bound_ms": bound * 1e3,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "q": SHARDED_Q,
+        "plan": [su["row_tile"], su["col_tile"]],
+        "f64_checks": n_checks,
+        "f32_gap_ratios": ratios,
+        "us_per_step": {k: statistics.median(t) * 1e6 for k, t in times.items()},
+        "ms_per_call_by_events": statistics.median(call_s) * 1e3,
+        "sharded_adjoint_s_per_grad": g_main[0],
+        "sharded_adjoint_steps": SHARDED_ADJ_STEPS,
+        f"sharded_adjoint_s_per_grad_{SHARDED_ADJ_TIMED_STEPS}_steps": statistics.median(g_times),
+    }]
+
+
 def ptxas_report(log_text: str, kernels: tuple, arm=None) -> list:
     """ptxas's lines (registers, spills) for the entry functions whose
     mangled names contain one of ``kernels``; with ``arm`` (a string, or a
@@ -7330,6 +7778,11 @@ def main() -> int:
     if "--window-only" in sys.argv[1:]:
         # phase 21 alone (after the build and the peaks its bounds divide by)
         print(json.dumps({"kernels": window_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
+    if "--sharded-only" in sys.argv[1:]:
+        # phase 22 alone (after the build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": sharded_phase(gpu, log_file.read_text())}))
         print(gpu)
         return 0
     if "--physics-only" in sys.argv[1:]:
@@ -7737,7 +8190,10 @@ def main() -> int:
 
     # -- 21. temporal blocking, q > 1 -------------------------------------------------------
     window_entries = window_phase(gpu, log_file.read_text())
-    log("phases 1-21 done")
+
+    # -- 22. the sharded row-slab path ---------------------------------------------------------
+    sharded_entries = sharded_phase(gpu, log_file.read_text())
+    log("phases 1-22 done")
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -7785,6 +8241,7 @@ def main() -> int:
     kernels.extend(strat_entries)
     kernels.extend(composed_entries)
     kernels.extend(window_entries)
+    kernels.extend(sharded_entries)
     kernels.extend(probe_entries)
     print(json.dumps({"kernels": kernels}))
     print(gpu)

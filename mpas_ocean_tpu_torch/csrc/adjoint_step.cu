@@ -208,7 +208,7 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
   // wait after the loads, so that the loads hide it.
   cluster_arrive_relaxed();
   allow_next_grid();
-  window_sites(gsite, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx);
+  window_sites(gsite, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx, 0);
   __syncthreads();
   wait_previous_grid();
   for (int s = threadIdx.x; s < W; s += blockDim.x)

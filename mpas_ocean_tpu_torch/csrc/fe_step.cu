@@ -178,7 +178,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   // reads the other ranks' h, so it waits for their loads at a full barrier.
   if (!kStrat) cluster_arrive_relaxed();
   allow_next_grid();
-  window_sites(gs, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx);
+  window_sites(gs, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx, 0);
   __syncthreads();
   wait_previous_grid();
   load_consts(f_s, rts_s, gs, a.f_edge, a.rts, W, plane);

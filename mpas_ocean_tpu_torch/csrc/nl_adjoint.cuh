@@ -466,7 +466,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const StratAdjSmem<T> ssm(live_s + W, core, 1 << a.kc_log2);
 
   allow_next_grid();
-  window_sites(gsite, tm * a.rt - kWinM, ti * a.ct - kWinI, Wi, W, a.ny2, a.nx);
+  window_sites(gsite, tm * a.rt - kWinM, ti * a.ct - kWinI, Wi, W, a.ny2, a.nx, 0);
   __syncthreads();
   wait_previous_grid();
   for (int s = threadIdx.x; s < W; s += blockDim.x) {

@@ -12,6 +12,10 @@
 // any combination, in _step_planes' order: the base update plus dt F of the
 // old u and h_edge, then the wall mask; the tracers by the old thickness
 // flux over h'; Phi of the old state (FE) or of the fresh h' and ssh' (FB).
+// The halo rows are read from the state, periodically (the single-chip
+// rollout), or received (ro > 0: the sharded superstep at q = 1, sharded.py:
+// 1640-1886, whose slabs hold ro = reach halo rows per side; step_window.cuh,
+// buffer_plane).
 //
 // Per site and level, from the old state: the thickness flux
 // F = u (h + h_nbr) / 2, KE = s_ke (sum of the cell's 6 u^2), the curl at the
@@ -155,6 +159,7 @@ struct NlArgs {
   NbrReach nr;        // the gradient's reach, which grows the tile to Phi's region
   T dt, inv_dc, s_div, s_ke, s_curl;
   int ny2, nx, K, rt, ct, hm, hi, dr, dc, n_fv, kc_log2, ks_log2, vec_log2, n_tiles_i;
+  int ro;  // received halo rows per side (step_window.cuh, buffer_plane); 0 periodic
 };
 
 // The stencils as offsets, resolved once per call on the host (kernel
@@ -317,7 +322,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int kc = 1 << a.kc_log2, ks = 1 << a.ks_log2;
   const int k0 = rank * kc, kr = min(kc, a.K - k0);
   const int n_slices = (kr + ks - 1) >> a.ks_log2;
-  const int plane = a.ny2 * a.nx;
+  const int plane = buffer_plane(a.ny2, a.nx, a.ro);
   const int K = a.K;
   const int WK = W * ks, DK = D * ks;
   // one state slice: the state's 8 planes, and the tracer arm's after them
@@ -341,7 +346,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
                            core, 0);
 
   allow_next_grid();
-  window_sites(gs, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx);
+  window_sites(gs, tm * a.rt - a.hm, ti * a.ct - a.hi, Wi, W, a.ny2, a.nx, a.ro);
   __syncthreads();
   wait_previous_grid();
   for (int s = threadIdx.x; s < W; s += blockDim.x) {
@@ -496,7 +501,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         const int gm = tm * a.rt + r, gi = ti * a.ct + c;
         const bool own = r >= 0 && r < a.rt && c >= 0 && c < a.ct && gm < a.ny2 && gi < a.nx;
         if (own) {
-          T* h_o = a.h_out + (gm * a.nx + gi) * K + k0 + kb + kl;
+          T* h_o = a.h_out + buffer_site(gm, gi, a.nx, a.ro) * K + k0 + kb + kl;
           h_o[0] = hnew[0];
           h_o[plane * K] = hnew[1];
         }
@@ -506,7 +511,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         }
         if (kTracers && own) {
           const T* lv = cur + sw * ks + kl;
-          const int g = gm * a.nx + gi;
+          const int g = buffer_site(gm, gi, a.nx, a.ro);
           T u[hex::kEdgeU], h[hex::kH];
 #pragma unroll
           for (int i = 0; i < hex::kEdgeU; ++i) u[i] = lv[tp.us[i]];
@@ -573,7 +578,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         const int gm = tm * a.rt + r, gi = ti * a.ct + c;
         if (gm >= a.ny2 || gi >= a.nx) continue;  // a ragged tile's edge
         const unsigned lb = kMasked ? static_cast<unsigned>(live_s[sw]) : kAllLive;
-        T* u_o = a.u_out + (gm * a.nx + gi) * K + k0 + kb + kl;
+        T* u_o = a.u_out + buffer_site(gm, gi, a.nx, a.ro) * K + k0 + kb + kl;
 #pragma unroll
         for (int ch = 0; ch < 6; ++ch) {
           const T grad = (ssh_s[sw + tp.nb_p[ch]] - ssh_s[(ch & 1) * W + sw]) * a.inv_dc;
@@ -604,7 +609,8 @@ __global__ void __launch_bounds__(kStepThreads, 1)
           const T* v = cur + sw * ks + kl;
           const T he = T(0.5) * (v[tp.hs[hex::nb_h(ch)]] + v[tp.hs[hex::self_h(ch & 1)]]);
           T& o = kDefer ? upart[(ch * core + t) * kc + kb + kl]
-                        : a.u_out[(ch * plane + gm * a.nx + gi) * K + k0 + kb + kl];
+                        : a.u_out[(ch * plane + buffer_site(gm, gi, a.nx, a.ro)) * K + k0 +
+                                  kb + kl];
           o = o + a.dt * wind_drag(v[tp.us[hex::self_u(ch)]], he, lv, k0 + kb + kl,
                                    fsm.wind + ch * core + t, a.fc);
         }
@@ -639,7 +645,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       if (FB) sshf[e] = ssh;
       const int gm = tm * a.rt + r - 1, gi = ti * a.ct + c - 1;
       if (rank == 0 && r >= 1 && r <= a.rt && c >= 1 && c <= a.ct && gm < a.ny2 && gi < a.nx)
-        a.ssh_out[p * plane + gm * a.nx + gi] = ssh;
+        a.ssh_out[p * plane + buffer_site(gm, gi, a.nx, a.ro)] = ssh;
     }
   }
   if (kStrat && !FB) {
@@ -669,7 +675,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       const int sf = (r + 1) * Fi + c + 1;
       const unsigned lb =
           kMasked ? static_cast<unsigned>(live_s[(a.hm + r) * Wi + a.hi + c]) : kAllLive;
-      T* u_o = a.u_out + (gm * a.nx + gi) * K + k0 + kl;
+      T* u_o = a.u_out + buffer_site(gm, gi, a.nx, a.ro) * K + k0 + kl;
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) {
         T grad;
@@ -732,10 +738,10 @@ int make_nl_plan(NlPlan<T>* pl, bool fb, const T* rts, const T* fv, int n_fv, co
                  const int* table, const double* weights, const int* vc, const double* vc_w,
                  const int* ev, double dt, double inv_dc, double s_div, double s_ke,
                  double s_curl, int ny2, int nx, int k, int n_steps, int n_terms, int rt, int ct,
-                 int ks, bool vec) {
+                 int ks, bool vec, int ro = 0) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
-  if (rt < 1 || ct < 1 || rt > ny2 || ct > nx || (n_fv != 4 && n_fv != 20) ||
+  if (rt < 1 || ct < 1 || rt > ny2 + 2 * ro || ct > nx || ro < 0 || (n_fv != 4 && n_fv != 20) ||
       (live != nullptr) != (n_fv == 20))
     return cudaErrorInvalidValue;
   // the tracer arm: at least one tracer, the cell mask with the live bits
@@ -765,7 +771,7 @@ int make_nl_plan(NlPlan<T>* pl, bool fb, const T* rts, const T* fv, int n_fv, co
                     tr, strat_w, nbr_reach(table), T(dt), T(inv_dc), T(s_div), T(s_ke),
                     T(s_curl), ny2, nx, k, rt, ct, hm, hi, dr, dc, n_fv, log2_exact(kc),
                     log2_exact(ks),
-                    vec_ok ? log2_exact(ks * static_cast<int>(sizeof(T)) / 16) : -1, n_ti};
+                    vec_ok ? log2_exact(ks * static_cast<int>(sizeof(T)) / 16) : -1, n_ti, ro};
   return 0;
 }
 
@@ -831,7 +837,10 @@ int nl_steps(const T* rts, const T* fv, int n_fv, const int* live, const Forcing
              const T* ssh_in, const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out,
              T* ssh_tmp, T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div,
              double s_ke, double s_curl, int ny2, int nx, int k, int n_steps, int n_terms,
-             int rt, int ct, int ks, cudaStream_t stream) {
+             int rt, int ct, int ks, int ro, cudaStream_t stream) {
+  // received halos: one step's reach of rows (FE 2, FB 3), and no more, and
+  // tiles whose rows divide the slab's (a ragged tile's window would leave it)
+  if (ro != 0 && (ro != (FB ? 3 : 2) || ny2 % rt)) return cudaErrorInvalidValue;
   const int kc = step_chunk(k);
   const bool vec = vector_loads(k, kc, sizeof(T), h_in, u_in) &&
                    vector_loads(k, kc, sizeof(T), h_out, u_out) &&
@@ -841,7 +850,7 @@ int nl_steps(const T* rts, const T* fv, int n_fv, const int* live, const Forcing
   NlPlan<T> pl;
   int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, fc, tr, strat_w, table, weights, vc,
                             vc_w, ev, dt, inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps,
-                            n_terms, rt, ct, ks, vec);
+                            n_terms, rt, ct, ks, vec, ro);
   if (err != 0) return err;
   const T *ssh = ssh_in, *h = h_in, *u = u_in, *t = tr.tr;
   for (int s = 0; s < n_steps; ++s) {
@@ -939,7 +948,7 @@ int nl_plan_query(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
       const T* cmask, const T* strat_w, double dt, double inv_dc, double s_div, double s_ke,  \
       double s_curl, double kappa, double upwind, double dlin, double dquad, double rayl,     \
       int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps, int n_terms,        \
-      int rt, int ct, int ks, int n_tr, void* stream) {                                       \
+      int ro, int rt, int ct, int ks, int n_tr, void* stream) {                               \
     const lattice::ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                   \
                                      static_cast<unsigned>(lvl_ranks),                        \
                                      static_cast<unsigned>(wind_ranks)};                      \
@@ -949,7 +958,7 @@ int nl_plan_query(int ny2, int nx, int k, int rt, int ct, int ks, int* out) {
                                     weights, vc, vc_w, ev, ssh_in, h_in, u_in, ssh_out,       \
                                     h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div,   \
                                     s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks,   \
-                                    static_cast<cudaStream_t>(stream));                       \
+                                    ro, static_cast<cudaStream_t>(stream));                   \
   }
 #define MOT_NL_STACK_ENTRY(T, SUFFIX, ARM, FB)                                                \
   extern "C" int mot_##ARM##_nl_stack_##SUFFIX(                                               \

@@ -9,7 +9,9 @@
 // _step_slab_nl (sharded.py:597): step j works on the window less j reaches
 // per side, (2, 4) for FE and (3, 4) for FB, periodic and wall-masked, with
 // momentum forcing, tracers and layered stratification in any combination,
-// as nl_step.cuh's q = 1 kernel takes them.
+// as nl_step.cuh's q = 1 kernel takes them; the halo rows read from the
+// state periodically, or (ro = reach * q > 0) received by the sharded
+// superstep's exchange (sharded.py:1640-1886; step_window.cuh, buffer_plane).
 //
 // Design. Step j of a tile is nl_step.cuh's step on the tile grown by
 // q - 1 - j reaches per side: step 0 is the q = 1 kernel on the tile grown
@@ -130,7 +132,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int kc = 1 << a.kc_log2, ks = 1 << a.ks_log2;
   const int k0 = rank * kc, kr = min(kc, a.K - k0);
   const int n_slices = (kr + ks - 1) >> a.ks_log2;
-  const int plane = a.ny2 * a.nx;
+  const int plane = buffer_plane(a.ny2, a.nx, a.ro);
   const int K = a.K;
   const int WK = W * ks, DK = D * ks;
   const int n_pl = kTracers ? 8 + 2 * a.tr.n : 8;
@@ -153,7 +155,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
                            core0, 0);
 
   allow_next_grid();
-  window_sites(gs, tm * a.rt - a.hm * q, ti * a.ct - a.hi * q, Wi, W, a.ny2, a.nx);
+  window_sites(gs, tm * a.rt - a.hm * q, ti * a.ct - a.hi * q, Wi, W, a.ny2, a.nx, a.ro);
   __syncthreads();
   wait_previous_grid();
   for (int s = threadIdx.x; s < W; s += blockDim.x) {
@@ -197,7 +199,8 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     const int dst_plane = last ? plane : core0;
     // the destination's site of the step's tile site (r, c)
     const auto dst_site = [&](int r, int c) {
-      return last ? (tm * a.rt + r) * a.nx + ti * a.ct + c : (om + r) * ct0 + oi + c;
+      return last ? buffer_site(tm * a.rt + r, ti * a.ct + c, a.nx, a.ro)
+                  : (om + r) * ct0 + oi + c;
     };
     const T* ssh_o = ssh_s + (j & 1) * 2 * W;    // FE: the step's old ssh
     T* ssh_n = ssh_s + ((j + 1) & 1) * 2 * W;    // FE: the next step's
@@ -482,7 +485,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         else if (!last)
           ssh_n[p * W + sw] = ssh;
         if (last && rank == 0 && r >= 0 && r < rj && c >= 0 && c < cj)
-          a.ssh_out[p * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c] = ssh;
+          a.ssh_out[p * plane + buffer_site(tm * a.rt + r, ti * a.ct + c, a.nx, a.ro)] = ssh;
       }
     }
     if (kStrat && !FB) {
@@ -597,10 +600,12 @@ int nl_tiled_steps(const T* rts, const T* fv, int n_fv, const int* live,
                    const T* h_in, const T* u_in, T* ssh_out, T* h_out, T* u_out, T* ssh_tmp,
                    T* h_tmp, T* u_tmp, double dt, double inv_dc, double s_div, double s_ke,
                    double s_curl, int ny2, int nx, int k, int n_steps, int n_terms, int rt,
-                   int ct, int ks, int q, cudaStream_t stream) {
+                   int ct, int ks, int q, int ro, cudaStream_t stream) {
   const int hm = FB ? 3 : 2, hi = 4;
   if (q < 2 || n_steps % q || rt < 1 || ct < 1 || ny2 % rt || nx % ct || scratch == nullptr)
     return cudaErrorInvalidValue;
+  // received halos: the windows' q reaches of rows, and no more
+  if (ro != 0 && ro != hm * q) return cudaErrorInvalidValue;
   const int rt0 = rt + 2 * hm * (q - 1), ct0 = ct + 2 * hi * (q - 1);
   const int kc = step_chunk(k);
   const bool vec = vector_loads(k, kc, sizeof(T), h_in, u_in) &&
@@ -613,7 +618,7 @@ int nl_tiled_steps(const T* rts, const T* fv, int n_fv, const int* live,
   NlPlan<T> pl;
   int err = make_nl_plan<T>(&pl, FB, rts, fv, n_fv, live, fc, tr, strat_w, table, weights, vc,
                             vc_w, ev, dt, inv_dc, s_div, s_ke, s_curl, ny2, nx, k, n_steps,
-                            n_terms, rt0, ct0, ks, vec);
+                            n_terms, rt0, ct0, ks, vec, ro);
   if (err != 0) return err;
   const size_t smem = nl_tiled_smem_bytes(rt, ct, q, hm, hi, FB ? 2 : 1, 2, kc, ks, FB, sizeof(T),
                                           fc.wind != nullptr, tr.tr != nullptr ? tr.n : 0,
@@ -660,7 +665,7 @@ int nl_tiled_steps(const T* rts, const T* fv, int n_fv, const int* live,
       const T* cmask, const T* strat_w, T* scratch, double dt, double inv_dc, double s_div,   \
       double s_ke, double s_curl, double kappa, double upwind, double dlin, double dquad,     \
       double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps,        \
-      int n_terms, int rt, int ct, int ks, int n_tr, int q, void* stream) {                   \
+      int n_terms, int ro, int rt, int ct, int ks, int n_tr, int q, void* stream) {           \
     const lattice::ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                   \
                                      static_cast<unsigned>(lvl_ranks),                        \
                                      static_cast<unsigned>(wind_ranks)};                      \
@@ -669,6 +674,6 @@ int nl_tiled_steps(const T* rts, const T* fv, int n_fv, const int* live,
     return lattice::nl_tiled_steps<T, FB>(                                                    \
         rts, fv, n_fv, live, fc, tr, tr_tmp, strat_w, scratch, table, weights, vc, vc_w, ev,  \
         ssh_in, h_in, u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp, dt, inv_dc, s_div,  \
-        s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks, q,                            \
+        s_ke, s_curl, ny2, nx, k, n_steps, n_terms, rt, ct, ks, q, ro,                        \
         static_cast<cudaStream_t>(stream));                                                   \
   }

@@ -189,13 +189,27 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-// The window's lattice sites, periodic (one division per site).
+// The rows of the buffers a window kernel reads and writes. ro = 0: the
+// periodic lattice, ny2 rows that wrap. ro > 0: a row slab with received
+// halos (structured/sharded.py), its ny2 rows stored after ro halo rows and
+// before ro more, ny2 + 2 ro rows in all, which a window reads unwrapped
+// (each window's rows lie inside them: the halo holds q reaches); columns
+// wrap either way. Lattice row gm of the slab is buffer row gm + ro.
+__host__ __device__ __forceinline__ int buffer_plane(int ny2, int nx, int ro) {
+  return (ny2 + 2 * ro) * nx;
+}
+__device__ __forceinline__ int buffer_site(int gm, int gi, int nx, int ro) {
+  return (gm + ro) * nx + gi;
+}
+
+// The window's lattice sites, as buffer sites (one division per site).
 __device__ __forceinline__ void window_sites(int* gs, int m_base, int i_base, int Wi, int W,
-                                             int ny2, int nx) {
+                                             int ny2, int nx, int ro) {
   const FastDiv by_wi(Wi);
   for (int s = threadIdx.x; s < W; s += blockDim.x) {
     const int r = by_wi.div(s), c = by_wi.mod(s, r);
-    gs[s] = wrap(m_base + r, ny2) * nx + wrap(i_base + c, nx);
+    const int m = m_base + r;
+    gs[s] = (ro > 0 ? m + ro : wrap(m, ny2)) * nx + wrap(i_base + c, nx);
   }
 }
 

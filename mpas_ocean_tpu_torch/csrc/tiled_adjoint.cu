@@ -419,7 +419,8 @@ __global__ void __launch_bounds__(kStepThreads, kTracers ? 1 : 2)
 
   cluster_arrive_relaxed();
   allow_next_grid();
-  window_sites(gsite, tm * a.rt - a.hm * span, ti * a.ct - a.hi * span, Wi, W, a.ny2, a.nx);
+  window_sites(gsite, tm * a.rt - a.hm * span, ti * a.ct - a.hi * span, Wi, W, a.ny2, a.nx,
+               0);
   __syncthreads();
   wait_previous_grid();
   for (int s = threadIdx.x; s < W; s += blockDim.x) {

@@ -3,8 +3,10 @@
 // for NVIDIA Hopper (sm_90a).
 //
 // Replaces: _tiled_step_kernel (mpas_ocean_tpu/structured/pallas_model.py:852),
-// the arms with the nonlinear terms off, halos read from
-// the state, periodic (masks off) and masked (a coastal channel culled from
+// the arms with the nonlinear terms off, halos read from the state (the
+// single-chip rollout) or received from the neighbour slabs (the sharded
+// superstep, structured/sharded.py:1640-1886, whose outermost halo blocks
+// arrive by ppermute), periodic (masks off) and masked (a coastal channel culled from
 // a periodic lattice: the mask operands of :875-877, 1287-1288, windowed as
 // f_edge), unforced and forced (the wind and the level-index operands),
 // without tracers and with them (the tracer and cell-mask operands of
@@ -17,7 +19,11 @@
 // Layout (all contiguous, K innermost), as in fe_step.cu:
 //   ssh (2, ny2, nx)   h (2, ny2, nx, K)   u (6, ny2, nx, K), channel f*2+p
 //   f_edge (6, ny2, nx)   rts (2, ny2, nx)   live (ny2, nx) int, or null;
-//   stencil table as in lattice.cuh.
+//   stencil table as in lattice.cuh. With received halos (ro = hm * q > 0)
+//   every lattice operand holds ny2 + 2 ro rows instead, the slab's ny2
+//   after ro halo rows (step_window.cuh, buffer_plane): the windows read
+//   them unwrapped, and a launch writes the slab's ny2 rows of its outputs
+//   and leaves their halo rows as they are, for the exchange to fill.
 //
 // Design. The lattice is cut into rt x ct tiles of sites. A tile's window
 // is the tile plus q halos of (hm, hi) sites per side, hm = 1 (FE) or 2 (FB)
@@ -146,6 +152,7 @@ struct StepArgs {
   NbrReach nr;        // the gradient's reach, which grows the momentum region to Phi's
   T dt, inv_dc, s_div;
   int ny2, nx, K, rt, ct, q, hm, hi, kc_log2, vec_log2, n_tiles_i;
+  int ro;  // received halo rows per side (step_window.cuh, buffer_plane); 0 periodic
 };
 
 // Each distinct u and h value of a (site, level) is loaded once and each
@@ -161,7 +168,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
   const int tm = tile / a.n_tiles_i, ti = tile % a.n_tiles_i;
   const int Wm = a.rt + 2 * a.hm * a.q, Wi = a.ct + 2 * a.hi * a.q, W = Wm * Wi;
   const int kc = 1 << a.kc_log2, k0 = rank * kc, kr = min(kc, a.K - k0);
-  const int plane = a.ny2 * a.nx;
+  const int plane = buffer_plane(a.ny2, a.nx, a.ro);
   const int pk = W * kc;  // one plane of a level chunk
   const int K = a.K;
 
@@ -180,7 +187,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
 
   allow_next_grid();
   const int m_base = tm * a.rt - a.hm * a.q, i_base = ti * a.ct - a.hi * a.q;
-  window_sites(gs, m_base, i_base, Wi, W, a.ny2, a.nx);
+  window_sites(gs, m_base, i_base, Wi, W, a.ny2, a.nx, a.ro);
   __syncthreads();
   wait_previous_grid();
   load_consts(f_s, rts_s, gs, a.f_edge, a.rts, W, plane);
@@ -234,7 +241,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
       const int s = (hr0 + r) * Wi + hc0 + c;
       const int cr = hr0 + r - r_core, cc = hc0 + c - c_core;
       const bool out = last && cr >= 0 && cr < a.rt && cc >= 0 && cc < a.ct;
-      const int g = (tm * a.rt + cr) * a.nx + ti * a.ct + cc;
+      const int g = buffer_site(tm * a.rt + cr, ti * a.ct + cc, a.nx, a.ro);
       // the tracer arm's live bits and live-cell mask of the site (a channel's)
       T cm[2] = {T(1), T(1)};
       unsigned live = 0u, inc_live = 0u;
@@ -345,7 +352,8 @@ __global__ void __launch_bounds__(kStepThreads, 2)
     for (int t = threadIdx.x >> g_log2; t < un; t += blockDim.x >> g_log2) {
       const int r = by_unc.div(t), c = by_unc.mod(t, r);
       const int s = (ur0 + r) * Wi + uc0 + c;
-      const int g = (tm * a.rt + r) * a.nx + ti * a.ct + c;  // the core's site (last step)
+      // the core's site (last step)
+      const int g = buffer_site(tm * a.rt + r, ti * a.ct + c, a.nx, a.ro);
       T grad[6];
       if (!kStrat) {
 #pragma unroll
@@ -407,7 +415,8 @@ __global__ void __launch_bounds__(kStepThreads, 2)
           [&](int ch, int t, int s, int kl) -> T& {
             if (!last) return nxt[(2 + ch) * pk + s * kc + kl];
             const int r = by_unc.div(t), c = by_unc.mod(t, r);
-            return a.u_out[(ch * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c) * K + k0 + kl];
+            const int g = buffer_site(tm * a.rt + r, ti * a.ct + c, a.nx, a.ro);
+            return a.u_out[(ch * plane + g) * K + k0 + kl];
           },
           W, kc, k0, kr, a.dt, a.fc);
       __syncthreads();
@@ -422,7 +431,7 @@ __global__ void __launch_bounds__(kStepThreads, 2)
     for (int e = threadIdx.x; e < 2 * core; e += blockDim.x) {
       const int p = e >= core ? 1 : 0, x = e - p * core;
       const int r = by_ct.div(x), c = by_ct.mod(x, r);
-      a.ssh_out[p * plane + (tm * a.rt + r) * a.nx + ti * a.ct + c] =
+      a.ssh_out[p * plane + buffer_site(tm * a.rt + r, ti * a.ct + c, a.nx, a.ro)] =
           ssh_fin[p * W + (r_core + r) * Wi + c_core + c];
     }
   }
@@ -524,11 +533,13 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
                 const double* weights, const T* ssh_in, const T* h_in, const T* u_in,
                 T* ssh_out, T* h_out, T* u_out, T* ssh_tmp, T* h_tmp, T* u_tmp, double dt,
                 double inv_dc, double s_div, int ny2, int nx, int k, int n_steps, int n_terms,
-                int rt, int ct, int q, int hm, int hi, int fb, cudaStream_t stream) {
+                int rt, int ct, int q, int hm, int hi, int fb, int ro, cudaStream_t stream) {
   if (!valid_shape(ny2, nx, k, n_steps, n_terms) || table[0] != n_terms)
     return cudaErrorInvalidValue;
   if (rt < 1 || ct < 1 || q < 1 || hm < 1 || hi < 1 || ny2 % rt || nx % ct || n_steps % q)
     return cudaErrorInvalidValue;
+  // received halos: the windows' q reaches of rows, and no more, around the slab
+  if (ro != 0 && ro != hm * q) return cudaErrorInvalidValue;
   const bool tracers = tr.tr != nullptr;
   // the tracer arm: at least one tracer, the cell mask with the live bits
   if (tracers && (tr.n < 1 || (live == nullptr) != (tr.cmask == nullptr)))
@@ -551,7 +562,8 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
   const StepArgs<T> a{ssh_in, h_in, u_in, f_edge, rts, live, nullptr, nullptr, nullptr,
                       fc, tr, strat_w, nbr_reach(table), T(dt), T(inv_dc), T(s_div), ny2, nx,
                       k, rt, ct, q, hm, hi, log2_exact(kc),
-                      vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct};
+                      vec ? log2_exact(kc * static_cast<int>(sizeof(T)) / 16) : -1, nx / ct,
+                      ro};
   const size_t smem = smem_bytes(sites, kc, q, sizeof(T), fc.wind != nullptr,
                                  tracers ? tr.n : 0, strat ? k : 0, fb != 0);
   const int n_tiles = (ny2 / rt) * (nx / ct);
@@ -573,7 +585,9 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
 // `cmask` (non-null exactly when `live` is), kappa and upwind; a null
 // `strat_w` the unstratified arm, any other (W, (k, k) row-major) the
 // stratified one; the forced, tracer and stratified arms in any
-// combination.
+// combination. `ro` = 0 reads the rows periodically; ro = hm * q > 0 takes
+// every lattice operand as a slab of ny2 rows with ro received halo rows
+// per side (see Layout).
 #define MOT_TILED_ENTRY(T, SUFFIX)                                                            \
   extern "C" int mot_tiled_steps_##SUFFIX(                                                    \
       const T* f_edge, const T* rts, const int* live, const T* wind, const int* lvl,          \
@@ -582,14 +596,15 @@ int tiled_steps(const T* f_edge, const T* rts, const int* live, const ForcingArg
       const T* tr_in, T* tr_out, T* tr_tmp, const T* cmask, const T* strat_w, double dt,      \
       double inv_dc, double s_div, double kappa, double upwind, double dlin, double dquad,    \
       double rayl, int lvl_ranks, int wind_ranks, int ny2, int nx, int k, int n_steps,        \
-      int n_terms, int rt, int ct, int q, int hm, int hi, int fb, int n_tr, void* stream) {    \
+      int n_terms, int ro, int rt, int ct, int q, int hm, int hi, int fb, int n_tr,           \
+      void* stream) {                                                                         \
     const ForcingArgs<T> fc{wind, lvl, T(dlin), T(dquad), T(rayl),                            \
                             static_cast<unsigned>(lvl_ranks), static_cast<unsigned>(wind_ranks)}; \
     const TracerArgs<T> tr{tr_in, tr_out, cmask, T(kappa), T(0.5 * upwind), n_tr, {}, {}};   \
     return tiled_steps<T>(f_edge, rts, live, fc, tr, tr_tmp, strat_w, table, weights,        \
                           ssh_in, h_in, u_in, ssh_out, h_out, u_out, ssh_tmp, h_tmp, u_tmp,   \
                           dt, inv_dc, s_div, ny2, nx, k, n_steps, n_terms, rt, ct, q, hm, hi, \
-                          fb, static_cast<cudaStream_t>(stream));                             \
+                          fb, ro, static_cast<cudaStream_t>(stream));                         \
   }
 
 // tiled_step_f64.cu compiles this file with MOT_TILED_STEP_F64 for the f64

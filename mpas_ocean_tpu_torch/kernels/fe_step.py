@@ -421,9 +421,9 @@ _P, _D, _I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
 _ARGTYPES = {
     "steps": [_P] * 21 + [_D] * 8 + [_I] * 10 + [_P],
     "stack": [_P] * 13 + [_D] * 8 + [_I] * 10 + [_P],
-    "nl_steps": [_P, _P, _I] + [_P] * 22 + [_D] * 10 + [_I] * 11 + [_P],
+    "nl_steps": [_P, _P, _I] + [_P] * 22 + [_D] * 10 + [_I] * 12 + [_P],
     "nl_stack": [_P, _P, _I] + [_P] * 14 + [_D] * 10 + [_I] * 11 + [_P],
-    "nl_tiled": [_P, _P, _I] + [_P] * 23 + [_D] * 10 + [_I] * 12 + [_P],
+    "nl_tiled": [_P, _P, _I] + [_P] * 23 + [_D] * 10 + [_I] * 13 + [_P],
 }
 
 
@@ -450,6 +450,19 @@ def check_tensor(name, t, shape, dtype, device):
 def state_shapes(ny2: int, nx: int, k: int):
     """Shapes of (ssh, h, u) on the lattice."""
     return (2, ny2, nx), (2, ny2, nx, k), (3, 2, ny2, nx, k)
+
+
+def slab_rows(rows: int, halo_rows: int, reach: int, q: int, name: str) -> int:
+    """The slab's own rows of buffers of ``rows`` rows that hold
+    ``halo_rows`` received halo rows per side (structured/sharded.py; 0: a
+    periodic lattice, all its rows its own), after checking that the halo
+    is the windows' q reaches of ``reach`` rows and leaves rows."""
+    if halo_rows == 0:
+        return rows
+    if halo_rows != reach * q or rows <= 2 * halo_rows:
+        raise ValueError(f"{name} takes {reach * q} received halo rows per side (reach "
+                         f"{reach}, q={q}) around a slab, got {halo_rows} in {rows} rows")
+    return rows - 2 * halo_rows
 
 
 def lattice_dims(h: torch.Tensor, name: str = "fe_step") -> tuple[int, int, int]:
@@ -758,20 +771,23 @@ def fe_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
 
 
 def _nl_checks(name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile,
-               ks, live, fb, forcing=None, tracers=None, strat_w=None, q=1):
+               ks, live, fb, forcing=None, tracers=None, strat_w=None, q=1, ro=0):
     """The checks both nonlinear wrappers make (the state's device and
     dtype, the constants' device, dtype, shape and contiguity, the vertex
     constants' 4 planes (periodic) or 20 (with ``live``), the composed arms'
-    operands, the plan's shared memory with theirs); returns ((ny2, nx, k),
-    the stencil, the vertex tables, n_fv)."""
-    ny2, nx, k = lattice_dims(h, name)
+    operands, the plan's shared memory with theirs, and with ``ro`` received
+    halo rows the slab's, ``slab_rows``); returns ((ny2, nx, k), the
+    stencil, the vertex tables, n_fv), ny2 the lattice's or the slab's own
+    rows."""
+    rows, nx, k = lattice_dims(h, name)
+    ny2 = slab_rows(rows, ro, NL_REACH[fb][0], q, name)
     dtype, device = h.dtype, h.device
-    check_tensor("rts", rts, (2, ny2, nx), dtype, device)
-    check_live(live, ny2, nx, device)
+    check_tensor("rts", rts, (2, rows, nx), dtype, device)
+    check_live(live, rows, nx, device)
     n_fv = 4 if live is None else 20
-    check_tensor("fv", fv, (n_fv, ny2, nx), dtype, device)
-    check_forcing(forcing, ny2, nx, dtype, device)
-    check_tracers(tracers, live, ny2, nx, k, dtype, device)
+    check_tensor("fv", fv, (n_fv, rows, nx), dtype, device)
+    check_forcing(forcing, rows, nx, dtype, device)
+    check_tracers(tracers, live, rows, nx, k, dtype, device)
     check_strat(strat_w, k, dtype, device)
     stencil = host_stencil(table, weights)
     tables = vertex_tables(vertex_cell_terms, edge_vertex_terms)
@@ -798,7 +814,7 @@ def nl_arms(forcing, tracers, strat_w) -> dict:
 
 def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
            edge_vertex_terms, scal, n_steps, tile, ks, live, fb=False, out=None, tmp=None,
-           forcing=None, tracers=None, strat_w=None, tr_out=None, tr_tmp=None, q=1):
+           forcing=None, tracers=None, strat_w=None, tr_out=None, tr_tmp=None, q=1, ro=0):
     """n_steps >= 0 nonlinear steps through ``entry``, the FE arm's entry
     (csrc/nl_step_fe_*.cu) or (``fb``) the FB arm's (nl_step_fb_*.cu), which
     take the same arguments, or with q > 1 the q-step kernel's entry of the
@@ -809,20 +825,26 @@ def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
     written into ``out`` (through ``tmp``, allocated when None and more
     than one launch), with the tracer planes fourth with ``tracers``, new or
     written into ``tr_out`` (through ``tr_tmp``, alike), and raises as
-    ``check_error`` for a failed launch, after ``_nl_checks``."""
+    ``check_error`` for a failed launch, after ``_nl_checks``. ``ro`` > 0
+    takes every lattice operand as a slab with ``ro`` received halo rows per
+    side (one step's reach, or q reaches at q > 1; ``slab_rows``): the
+    windows read them unwrapped, and the launches write the slab's own rows
+    of the outputs and leave their halo rows as they are (csrc/
+    step_window.cuh, buffer_plane). Its tiles divide the slab."""
     dims, (table, weights, n_terms), (vc, vc_w, ev), n_fv = _nl_checks(
         name, h, rts, table, weights, fv, vertex_cell_terms, edge_vertex_terms, tile, ks, live,
-        fb, forcing, tracers, strat_w, q)
+        fb, forcing, tracers, strat_w, q, ro)
     if n_steps < 0:
         raise ValueError("n_steps must be >= 0")
     if q < 1 or n_steps % q:
         raise ValueError(f"q={q} must be >= 1 and divide n_steps={n_steps}")
-    if q > 1 and (dims[0] % tile[0] or dims[1] % tile[1]):
-        raise ValueError(f"the q-step kernel's tile {tuple(tile)} must divide the "
-                         f"{dims[0]}x{dims[1]} lattice")
+    if (q > 1 and dims[1] % tile[1]) or ((q > 1 or ro) and dims[0] % tile[0]):
+        raise ValueError(f"the {'q-step kernel' if q > 1 else 'received-halo arm'}'s tile "
+                         f"{tuple(tile)} must divide the {dims[0]}x{dims[1]} "
+                         f"{'slab' if ro else 'lattice'}")
     device = h.device
     src = tuple(x.contiguous() for x in (ssh, h, u))
-    for x, shape, f in zip(src, state_shapes(*dims), ("ssh", "h", "u")):
+    for x, shape, f in zip(src, state_shapes(dims[0] + 2 * ro, *dims[1:]), ("ssh", "h", "u")):
         check_tensor(f, x, shape, h.dtype, device)
     if n_steps == 0:
         out = tuple(x.clone() for x in src)
@@ -854,8 +876,8 @@ def nl_run(name, entry, ssh, h, u, rts, table, weights, fv, vertex_cell_terms,
                     *[x.data_ptr() for x in (*src, *out, *tmp)], *tr_ptrs,
                     None if strat_w is None else strat_w.data_ptr(),
                     *(() if scr is None else (scr.data_ptr(),)),
-                    *(float(x) for x in scal), *tr_opts, *coefs, *dims, n_steps, n_terms, *tile,
-                    ks, n_tr, *((q,) if q > 1 else ()), stream)
+                    *(float(x) for x in scal), *tr_opts, *coefs, *dims, n_steps, n_terms, ro,
+                    *tile, ks, n_tr, *((q,) if q > 1 else ()), stream)
     check_error(name, err, f" (tile {tile}, slice {ks})")
     return out if tracers is None else (*out, tr_out)
 
@@ -880,7 +902,7 @@ def fe_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cel
                   edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
                   s_curl: float, n_steps: int, live=None, tile=None, ks=None, out=None,
                   scratch=None, forcing=None, tracers=None, strat_w=None, tr_out=None,
-                  tr_scratch=None):
+                  tr_scratch=None, halo_rows: int = 0):
     """n_steps forward-Euler steps of the nonlinear core on the card, one
     launch of fe_step's nonlinear arm each (csrc/nl_step.cuh). ssh, h, u and
     rts as for ``fe_rollout``; ``fv`` the vertex constants
@@ -895,13 +917,16 @@ def fe_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cel
     ``tracers``: new, or written into ``out`` through ``scratch`` and the
     tracer planes into ``tr_out`` through ``tr_scratch`` (as
     ``fe_rollout_into``); raises ValueError for a stencil that is not the hex
-    lattice's."""
+    lattice's. ``halo_rows`` = 2 takes the operands as slabs with received
+    halos (``nl_run``'s ro; the tile and ks given)."""
+    if halo_rows and (tile is None or ks is None):
+        raise ValueError("the received-halo arm takes its tile and slice from the caller")
     tile, ks = _fe_nl_plan(h, tile, ks, nl_arms(forcing, tracers, strat_w))
     out = nl_run("fe_step (nonlinear)", _entry("nl_steps", h.dtype), ssh, h, u, rts,
                  stencil_table, coriolis_weight, fv, vertex_cell_terms, edge_vertex_terms,
                  (dt, inv_dc, s_div, s_ke, s_curl), n_steps, tile, ks, live, out=out,
                  tmp=scratch, forcing=forcing, tracers=tracers, strat_w=strat_w, tr_out=tr_out,
-                 tr_tmp=tr_scratch)
+                 tr_tmp=tr_scratch, ro=halo_rows)
     count_launches(n_steps, forcing, tracers, strat_w)
     return out
 

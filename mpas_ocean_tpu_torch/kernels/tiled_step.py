@@ -54,6 +54,7 @@ from .fe_step import (
     nl_run,
     nl_slice,
     nl_smem_bytes,
+    slab_rows,
     state_shapes,
     strat_smem_bytes,
     tracer_args,
@@ -94,7 +95,7 @@ def smem_bytes(sites: int, kc: int, q: int, itemsize: int, forced: bool = False,
             + (strat_smem_bytes(sites, kc, strat_levels, itemsize, fb) if strat_levels else 0))
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_double] * 8 + [ctypes.c_int] * 14
+_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_double] * 8 + [ctypes.c_int] * 15
              + [ctypes.c_void_p])
 
 
@@ -128,7 +129,8 @@ def occupancy(row_tile: int, col_tile: int, q: int, halo, k: int, fb: bool = Fal
 def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
                   dt: float, inv_dc: float, s_div: float, n_steps: int, *,
                   row_tile: int, col_tile: int, q: int, halo, fb: bool = False, live=None,
-                  forcing=None, tracers=None, strat_w=None):
+                  forcing=None, tracers=None, strat_w=None, halo_rows: int = 0, out=None,
+                  tr_out=None):
     """n_steps FE (or FB) steps of the linear core on the card, q per launch
     over row_tile x col_tile tiles whose windows carry q ``halo`` = (rows,
     columns) per side. Arguments as for ``fe_step.fe_rollout``; ``live``
@@ -137,17 +139,26 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     ``tracers`` (``fused_model.kernel_tracers``' operands, or None) the
     tracer arm, ``strat_w`` (``fused_model.kernel_strat``'s W, or None) the
     stratified arm, in any combination. Returns new (ssh, h, u) tensors,
-    and new tracer planes fourth with tracers; the inputs are left as they
-    are."""
-    ny2, nx, k = lattice_dims(h, "tiled_step")
+    and new tracer planes fourth with tracers, or writes them into ``out``
+    (and ``tr_out``) where given; the inputs are left as they are.
+
+    ``halo_rows`` > 0, the received-halo arm (the sharded superstep,
+    structured/sharded.py): every lattice operand is a slab buffer of its
+    own rows with ``halo_rows`` = halo[0] * q received halo rows per side
+    (``fe_step.slab_rows``), which the windows read unwrapped; the launches
+    write the slab's own rows of the outputs and leave their halo rows as
+    they are (csrc/step_window.cuh, buffer_plane)."""
+    rows, nx, k = lattice_dims(h, "tiled_step")
     dtype, device = h.dtype, h.device
     if n_steps < 0:
         raise ValueError("n_steps must be >= 0")
     if q < 1 or n_steps % q:
         raise ValueError(f"q={q} must be >= 1 and divide n_steps={n_steps}")
-    if row_tile < 1 or col_tile < 1 or ny2 % row_tile or nx % col_tile:
-        raise ValueError(f"tile {row_tile}x{col_tile} must divide the {ny2}x{nx} lattice")
     hm, hi = halo
+    ny2 = slab_rows(rows, halo_rows, hm, q, "tiled_step")
+    if row_tile < 1 or col_tile < 1 or ny2 % row_tile or nx % col_tile:
+        raise ValueError(f"tile {row_tile}x{col_tile} must divide the {ny2}x{nx} "
+                         f"{'slab' if halo_rows else 'lattice'}")
     _, kc = level_split(k)
     sites = (row_tile + 2 * hm * q) * (col_tile + 2 * hi * q)
     n_tr = 0 if tracers is None else tracers.planes.shape[0] // 2
@@ -156,24 +167,29 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
     if need > SMEM_BYTES:
         raise ValueError(f"a {row_tile}x{col_tile} tile at q={q} needs {need} bytes of "
                          f"shared memory per block, more than {SMEM_BYTES}")
-    check_tensor("f_edge", f_edge, (3, 2, ny2, nx), dtype, device)
-    check_tensor("rts", rts, (2, ny2, nx), dtype, device)
-    check_live(live, ny2, nx, device)
-    check_forcing(forcing, ny2, nx, dtype, device)
-    check_tracers(tracers, live, ny2, nx, k, dtype, device)
+    check_tensor("f_edge", f_edge, (3, 2, rows, nx), dtype, device)
+    check_tensor("rts", rts, (2, rows, nx), dtype, device)
+    check_live(live, rows, nx, device)
+    check_forcing(forcing, rows, nx, dtype, device)
+    check_tracers(tracers, live, rows, nx, k, dtype, device)
     check_strat(strat_w, k, dtype, device)
     table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
     src = tuple(x.contiguous() for x in (ssh, h, u))
-    for x, shape, f in zip(src, state_shapes(ny2, nx, k), ("ssh", "h", "u")):
+    for x, shape, f in zip(src, state_shapes(rows, nx, k), ("ssh", "h", "u")):
         check_tensor(f, x, shape, dtype, device)
     if n_steps == 0:
         out = tuple(x.clone() for x in src)
         return out if tracers is None else (*out, tracers.planes.clone())
-    out = tuple(torch.empty_like(x) for x in src)
+    if out is None:
+        out = tuple(torch.empty_like(x) for x in src)
+    for x, y, f in zip(out, src, ("ssh", "h", "u")):
+        check_tensor(f"out {f}", x, y.shape, dtype, device)
     tmp = out if n_steps == q else tuple(torch.empty_like(x) for x in src)
-    tr_out = tr_tmp = None
+    tr_tmp = None
     if tracers is not None:
-        tr_out = torch.empty_like(tracers.planes)
+        if tr_out is None:
+            tr_out = torch.empty_like(tracers.planes)
+        check_tensor("tracer out", tr_out, tracers.planes.shape, dtype, device)
         tr_tmp = tr_out if n_steps == q else torch.empty_like(tr_out)
     tr_ptrs, tr_opts, n_tr = tracer_args(tracers, tr_out, tr_tmp)
     fn = _entry(dtype)
@@ -185,8 +201,8 @@ def tiled_rollout(ssh, h, u, f_edge, rts, stencil_table, coriolis_weight,
             *ptrs, table.ctypes.data, weights.ctypes.data,
             *[x.data_ptr() for x in (*src, *out, *tmp)], *tr_ptrs,
             None if strat_w is None else strat_w.data_ptr(), float(dt), float(inv_dc),
-            float(s_div), *tr_opts, *coefs, ny2, nx, k, n_steps, n_terms, row_tile, col_tile, q,
-            hm, hi, int(fb), n_tr, stream,
+            float(s_div), *tr_opts, *coefs, ny2, nx, k, n_steps, n_terms, halo_rows, row_tile,
+            col_tile, q, hm, hi, int(fb), n_tr, stream,
         )
     check_error("tiled_step", err)
     count_launches(n_steps // q, forcing, tracers, strat_w)
@@ -206,7 +222,8 @@ def count_launches(n: int, forcing, tracers, strat_w) -> None:
 def tiled_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_cell_terms,
                      edge_vertex_terms, dt: float, inv_dc: float, s_div: float, s_ke: float,
                      s_curl: float, n_steps: int, live=None, tile=None, ks=None, forcing=None,
-                     tracers=None, strat_w=None, q: int = 1, fb: bool = True):
+                     tracers=None, strat_w=None, q: int = 1, fb: bool = True,
+                     halo_rows: int = 0, out=None, tr_out=None):
     """n_steps steps of the nonlinear core on the card: at q = 1
     forward-backward, one launch of the tiled kernel's nonlinear FB arm
     (reach 3) each (its FE arm at q = 1 is ``fe_step.fe_nl_rollout``'s);
@@ -217,7 +234,12 @@ def tiled_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_
     plan at q (over the tiles that divide the lattice at q > 1) and the
     slice ks to the largest that fits it, with the composed arms' shared
     memory; a plan that does not fit raises ValueError. Returns new
-    (ssh, h, u), and new tracer planes fourth with tracers."""
+    (ssh, h, u), and new tracer planes fourth with tracers, or writes them
+    into ``out`` (and ``tr_out``) where given. ``halo_rows`` > 0 runs the
+    received-halo arm (``fe_step.nl_run``'s ro: q reaches of rows per side;
+    the tile given, dividing the slab)."""
+    if halo_rows and tile is None:
+        raise ValueError("the received-halo arm takes its tile from the caller")
     ny2, nx, k = lattice_dims(h, "tiled_step")
     if q < 1 or (q == 1 and not fb):
         raise ValueError(f"tiled_nl_rollout runs FB at q = 1 and FE or FB at q > 1, not "
@@ -241,8 +263,8 @@ def tiled_nl_rollout(ssh, h, u, rts, stencil_table, coriolis_weight, fv, vertex_
     name = f"tiled_step (nonlinear {'FB' if fb else 'FE'}{f', q={q}' if q > 1 else ''})"
     out = nl_run(name, fn, ssh, h, u, rts, stencil_table, coriolis_weight, fv,
                  vertex_cell_terms, edge_vertex_terms, (dt, inv_dc, s_div, s_ke, s_curl),
-                 n_steps, tile, ks, live, fb=fb, forcing=forcing, tracers=tracers,
-                 strat_w=strat_w, q=q)
+                 n_steps, tile, ks, live, fb=fb, out=out, forcing=forcing, tracers=tracers,
+                 strat_w=strat_w, tr_out=tr_out, q=q, ro=halo_rows)
     count_launches(n_steps // q, forcing, tracers, strat_w)
     if q > 1:
         global window_launches

@@ -24,7 +24,10 @@ f_edge and the mask (..., 6, R, C, K or 1), the vertex constants (..., 4 or
 parity``, vertex channel ``kind * 2 + parity``. The mask and the vertex
 constants are windowed as f_edge is, and so is the forcing: ``forc`` =
 (wind (..., 6, R, C, 1), level indices (..., 12, R, C, 1) int = [top x 6;
-bottom x 6] of ``fused_model.forcing_setup``, r_lin, Cd, lambda). Tracers
+bottom x 6] of ``fused_model.forcing_setup``, r_lin, Cd, lambda), or in
+place of the indices the dense one-hot level masks (..., 12, R, C, K) in
+the state dtype (the sharded per-step path's, which differentiates them, as
+sharded._apply_forcing takes dense masks). Tracers
 ride as planes [t * 2 + parity] (..., 2 nT, R, C, K), as the kernels take
 them (``fused_model.tracer_planes``), with the cell mask (..., 2, R, C, 1)
 of a channel windowed as rts.
@@ -46,9 +49,9 @@ from .stencils import (
     transpose_kite_terms,
 )
 
-__all__ = ["adjoint_stencil_reach", "apply_forcing", "derived_ring", "nl_adjoint_rings",
-           "reach", "stencil_reach", "step_slab", "step_slab_nl", "tracer_update",
-           "window_steps"]
+__all__ = ["adjoint_stencil_reach", "apply_forcing", "derived_ring", "derived_slab",
+           "nl_adjoint_rings", "nl_continuity", "nl_momentum", "pressure", "reach",
+           "stencil_reach", "step_slab", "step_slab_nl", "tracer_update", "window_steps"]
 
 
 def reach(fb: bool, nonlinear: bool = False) -> int:
@@ -221,15 +224,16 @@ def _flux_thickness(h, u, rts, dt, s_div, reg):
 def apply_forcing(un, u, h, forc, dt, c, reg):
     """un + dt F for edge channel c on the region ``reg``: the forcing
     ``forc`` (module docstring; sharded._apply_forcing) of the old u on the
-    old h_edge, the level indices expanded to one-hot masks
-    (``level_onehot``)."""
+    old h_edge, integer level indices expanded to one-hot masks
+    (``level_onehot``), dense masks taken as they are."""
     wind, idx, dlin, dquad, rayl = forc
     fam, p = divmod(c, 2)
     pin, dm, di = NEIGHBOR[(fam, p)]
     he = 0.5 * (_sh(h[..., pin, :, :, :], dm, di, reg) + _interior(h[..., p, :, :, :], reg))
     u_i = _interior(u[..., c, :, :, :], reg)
-    top = level_onehot(_interior(idx[..., c, :, :, :], reg), u_i)
-    bot = level_onehot(_interior(idx[..., 6 + c, :, :, :], reg), u_i)
+    top, bot = (_interior(idx[..., o + c, :, :, :], reg) for o in (0, 6))
+    if not idx.is_floating_point():
+        top, bot = level_onehot(top, u_i), level_onehot(bot, u_i)
     return un + dt * forcing_core(u_i, he, _interior(wind[..., c, :, :, :], reg), top, bot,
                                   dlin, dquad, rayl)
 
@@ -288,7 +292,7 @@ def tracer_update(h, u, tr, h_new, dt, inv_dc, s_div, kappa, upwind, reg, mask=N
     return out
 
 
-def _pressure(pg_ssh, pg_h, dt, strat_w):
+def pressure(pg_ssh, pg_h, dt, strat_w):
     """(planes, scale) of the pressure gradient (sharded._step_slab,
     :242-257): the ssh planes and -g dt, or with ``strat_w`` (K, K) each
     parity's Montgomery potential g ssh + h @ W on the same padded planes
@@ -324,10 +328,10 @@ def step_slab(ssh, h, u, f_edge, rts, dt, inv_dc, s_div, terms, rows, cols, halo
         pg_reg = (1, rows + 1, 1, cols + 1)
         h_new = [_interior(x, pg_reg) for x in h_pad]
         ssh_new = [_interior(x, pg_reg) for x in ssh_pad]
-        pg, pg_scale = _pressure(ssh_pad, h_pad, dt, strat_w)
+        pg, pg_scale = pressure(ssh_pad, h_pad, dt, strat_w)
     else:
         h_new, ssh_new = _flux_thickness(h, u, rts, dt, s_div, inner)
-        pg, pg_scale = _pressure([ssh[..., p, :, :, :] for p in (0, 1)],
+        pg, pg_scale = pressure([ssh[..., p, :, :, :] for p in (0, 1)],
                                  [h[..., p, :, :, :] for p in (0, 1)], dt, strat_w)
         pg_reg = inner
 
@@ -451,6 +455,42 @@ def nl_continuity(h, flux, rts, dt, s_div, reg, dreg):
     return h_new, ssh_new
 
 
+def nl_momentum(u, h, flux, ke, q_e, dt, inv_dc, terms, inner, local, pg, pg_scale, pg_reg,
+                mask=None, forc=None):
+    """Stage B's momentum (sharded._apply_slab_nonlinear, :505-543): u' = u
+    + dt (q_e T(F) / 2 + T(F q_e) / 2 - grad KE) + pg_scale grad pg over the
+    region ``inner`` of the padded state planes u and h, from the derived
+    planes F, KE and q_e (lists) read around ``local``, their region of
+    ``inner``, and the pressure planes ``pg`` read around ``pg_reg``; the
+    forcing ``forc`` adds dt F of the old u and h_edge, the wall ``mask``
+    multiplies u' last. Returns the six channels' planes as a list."""
+    def tangential(x):
+        acc = [None] * 6
+        for f_out, p_out, f_in, p_in, dm, di, w in terms:
+            contrib = w * _sh(x[f_in * 2 + p_in], dm, di, local)
+            c = f_out * 2 + p_out
+            acc[c] = contrib if acc[c] is None else acc[c] + contrib
+        return acc
+
+    w_flux = tangential(flux)
+    w_fq = tangential([flux[c] * q_e[c] for c in range(6)])
+    u_new = []
+    for fam in (E, NE, NW):
+        for p in (0, 1):
+            c = fam * 2 + p
+            pin, dm, di = NEIGHBOR[(fam, p)]
+            grad_ke = (_sh(ke[pin], dm, di, local) - _interior(ke[p], local)) * inv_dc
+            grad = (_sh(pg[pin], dm, di, pg_reg) - _interior(pg[p], pg_reg)) * inv_dc
+            pv = 0.5 * (_interior(q_e[c], local) * w_flux[c] + w_fq[c])
+            un = _interior(u[..., c, :, :, :], inner) + dt * (pv - grad_ke) + pg_scale * grad
+            if forc is not None:
+                un = apply_forcing(un, u, h, forc, dt, c, inner)
+            if mask is not None:
+                un = un * _interior(mask[..., c, :, :, :], inner)
+            u_new.append(un)
+    return u_new
+
+
 def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_terms,
                  ev_terms, rows, cols, halo, fb=False, mask=None, forc=None, tr=None,
                  tropts=(0.0, 1.0), cmask=None, strat_w=None):
@@ -476,37 +516,15 @@ def step_slab_nl(ssh, h, u, fv, rts, dt, inv_dc, s_div, s_ke, s_curl, terms, vc_
         pg_reg = (1, rows + 1, 1, cols + 1)
         h_new = [_interior(x, pg_reg) for x in h_pad]
         ssh_new = [_interior(x, pg_reg) for x in ssh_pad]
-        pg, pg_scale = _pressure(ssh_pad, h_pad, dt, strat_w)
+        pg, pg_scale = pressure(ssh_pad, h_pad, dt, strat_w)
     else:
         h_new, ssh_new = nl_continuity(h, flux, rts, dt, s_div, inner, dreg)
-        pg, pg_scale = _pressure([ssh[..., p, :, :, :] for p in (0, 1)],
+        pg, pg_scale = pressure([ssh[..., p, :, :, :] for p in (0, 1)],
                                  [h[..., p, :, :, :] for p in (0, 1)], dt, strat_w)
         pg_reg = inner
 
-    def tangential(x):
-        acc = [None] * 6
-        for f_out, p_out, f_in, p_in, dm, di, w in terms:
-            contrib = w * _sh(x[f_in * 2 + p_in], dm, di, local)
-            c = f_out * 2 + p_out
-            acc[c] = contrib if acc[c] is None else acc[c] + contrib
-        return acc
-
-    w_flux = tangential(flux)
-    w_fq = tangential([flux[c] * q_e[c] for c in range(6)])
-    u_new = []
-    for fam in (E, NE, NW):
-        for p in (0, 1):
-            c = fam * 2 + p
-            pin, dm, di = NEIGHBOR[(fam, p)]
-            grad_ke = (_sh(ke[pin], dm, di, local) - _interior(ke[p], local)) * inv_dc
-            grad = (_sh(pg[pin], dm, di, pg_reg) - _interior(pg[p], pg_reg)) * inv_dc
-            pv = 0.5 * (_interior(q_e[c], local) * w_flux[c] + w_fq[c])
-            un = _interior(u[..., c, :, :, :], inner) + dt * (pv - grad_ke) + pg_scale * grad
-            if forc is not None:
-                un = apply_forcing(un, u, h, forc, dt, c, inner)
-            if mask is not None:
-                un = un * _interior(mask[..., c, :, :, :], inner)
-            u_new.append(un)
+    u_new = nl_momentum(u, h, flux, ke, q_e, dt, inv_dc, terms, inner, local, pg, pg_scale,
+                        pg_reg, mask, forc)
     new = [ssh_new, h_new, u_new]
     if tr is not None:
         new.append(tracer_update(h, u, tr, h_new, dt, inv_dc, s_div, *tropts, inner, mask,

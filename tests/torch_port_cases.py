@@ -238,3 +238,50 @@ def stub_card(monkeypatch) -> StubLib:
     monkeypatch.setattr(diff_model, "kernel_forcing",
                         lambda f, mesh, dtype, device: kernel_forcing(f, mesh, dtype, "cpu"))
     return lib
+
+
+# ---- the sharded row slabs (tests/test_torch_sharded.py,
+# tests/test_torch_sharded_grad.py) --------------------------------------------
+
+# a stable column of four layers (kg/m^3), top first
+SHARDED_RHO = [1024.0, 1025.0, 1025.5, 1027.0]
+
+
+def full_lattice(n, k, channel=False, seed=5):
+    """(JAX model, port model, JAX state, port state, (JAX, port) lattice
+    Forcing, (JAX, port) Stratification) on ``nl_periodic``'s or
+    ``nl_channel``'s n x n lattice of k 50 m levels (k = 4: SHARDED_RHO's
+    densities), the states carrying two tracers (T with a wave and noise,
+    S = 35) made by each package from the same numpy fields, the forcing
+    FULL_FORCING's."""
+    from mpas_ocean_tpu.models import stratification as jax_strat
+    from mpas_ocean_tpu.models.forcing import make_forcing as jax_make_forcing
+    from mpas_ocean_tpu.models.tracers import make_tracers as jax_make_tracers
+
+    smj, smp, stj, stp, mj, mp = (nl_channel if channel else nl_periodic)(n, k, seed)
+    x = np.asarray(mp.horz.cells.x)
+    rng = np.random.default_rng(9)
+    fields = [10.0 + 2.0 * np.sin(2 * np.pi * x / (x.max() + 1))[:, None]
+              + 0.3 * rng.normal(size=(mp.n_cells, k)), np.full(mp.n_cells, 35.0)]
+    progj = smj.from_struct(stj).replace(tracers=jax_make_tracers(mj, fields))
+    progp = mt.PrognosticVars(*(getattr(smp.from_struct(stp), f) for f in STATE_FIELDS),
+                              tracers=mt.make_tracers(mp, fields))
+    forcing = (smj.to_struct_forcing(jax_make_forcing(mj, **FULL_FORCING)),
+               smp.to_struct_forcing(mt.make_forcing(mp, **FULL_FORCING)))
+    rho = SHARDED_RHO if k == 4 else list(1024.0 + np.linspace(0.0, 3.0, k))
+    strat = jax_strat.make_stratification(rho), mt.make_stratification(rho)
+    return smj, smp, smj.to_struct(progj), smp.to_struct(progp), forcing, strat
+
+
+def port_local(jax_local: dict, device="cpu") -> dict:
+    """A JAX slab dict (ShardedStructuredModel.scatter's: each field stacked
+    over the slabs, (P, planes, R + 2, nx, ...)) -> the port's ({field: [one
+    tensor per slab]})."""
+    return {k: [torch.from_numpy(np.array(x)).to(device) for x in np.asarray(v)]
+            for k, v in jax_local.items()}
+
+
+def jax_local(port_local: dict) -> dict:
+    """The port's slab dict -> the JAX package's (each field stacked)."""
+    return {k: jnp.asarray(np.stack([x.detach().cpu().numpy() for x in v]))
+            for k, v in port_local.items()}
