@@ -203,9 +203,19 @@ Phases, each of which raises on failure (so the exit code is nonzero):
      with n / q launches; q = 2 against q = 1 in the same call (the
      nonlinear FE and FB alone and with all four options over 100 steps at
      256^2 and 200 at 64^2, the FTS gradient at 256^2, tiled_adjoint per
-     launch).
+     launch); then kernel 4's nonlinear arm at q > 1, the q-step nonlinear
+     reverse (csrc/nl_window_adjoint.cuh): its ptxas lines per arm; f64,
+     every arm (the nonlinear core with forcing, tracers and stratification
+     in every combination, periodic and channel) at q = 2 and 3 at the f32
+     main paths' tiles against the plain reverse of every step, reruns
+     bitwise, drop-one controls >= 100x off; the q = 2 gradient's
+     dot-product identity; f32 after 100 reverse steps at 64^2 and 256^2 x
+     100 with a bf16 control; the full-physics 256^2 gradient through
+     tiled_rollout_diff(nonlinear=True) at q = 2 with n / 2 launches, the
+     nonlinear gradient at q = 2 against q = 1, and per launch at 64^2 and
+     256^2 beside two q = 1 launches and the bound.
      ``python3 chip_smoke.py --window-only`` runs phases 1, 2, 9 and 21
-     alone.
+     alone, ``--nl-window-only`` phases 1, 2, 9 and that last part.
  22. the sharded row-slab path: kernel 2's received-halo arm
      (ShardedStructuredModel.run_pallas, each slab's state in buffers of
      R + 2 hq rows whose halo rows one exchange per field fills): f64
@@ -245,6 +255,11 @@ DT = 30.0
 HEADLINE_N, LEVELS, HEADLINE_STEPS = 64, 100, 8000
 LARGE_N, LARGE_STEPS = 256, 200
 GRAD_STEPS, PLAIN_ADJ_STEPS = HEADLINE_STEPS // 2, 100
+# phase 20's timed side gradients (the 64^2 channel and the linear core's
+# 64^2 full-physics gradient; GRAD_STEPS until the run's budget took the
+# time for phase 21's q-step nonlinear reverse) and phase 21's timed FTS
+# gradients at q = 1 and 2 (LARGE_ADJ_STEPS until then)
+COMPOSED_SIDE_STEPS = GRAD_STEPS // 4
 # the tiled reverse: bench.py's "large-mesh tiled adjoint" line, max(10, STEPS // 80)
 LARGE_ADJ_STEPS = max(10, HEADLINE_STEPS // 80)
 # the tiled path: bench.py's large rollout, max(10, STEPS // 8) steps; the
@@ -5990,8 +6005,9 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
     it; the main paths from to_struct, the gradient of sum ssh^2 + sum T^2
     w.r.t. the state, dt, W, the wind and the coefficients (bench.py's
     full-physics 64^2 x 100 over GRAD_STEPS through auto_rollout_diff, the
-    64^2 channel with kappa 5, 256^2 over LARGE_ADJ_STEPS through both
-    routes, and the linear core's FTS at 64^2 and 256^2) with exact launch
+    64^2 channel with kappa 5 over COMPOSED_SIDE_STEPS, 256^2 over
+    LARGE_ADJ_STEPS through both routes, and the linear core's FTS at 64^2
+    over COMPOSED_SIDE_STEPS and 256^2) with exact launch
     counts, the median of REPS with min and max; a profiler breakdown of
     the 64^2 gradient with the device's idle share; each composed arm per
     launch by held_us beside each option's reverse alone and its bound,
@@ -6319,14 +6335,14 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
     for label, case, n, route, n_steps, nonlinear, kappa, kernel in (
             ("64 auto", igw_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, True,
              BENCH_TRACER_KAPPA, "nl_adjoint"),
-            ("channel 64 auto", kelvin_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, True, 5.0,
-             "nl_adjoint"),
+            ("channel 64 auto", kelvin_case, HEADLINE_N, auto_rollout_diff, COMPOSED_SIDE_STEPS,
+             True, 5.0, "nl_adjoint"),
             ("256 tiled", igw_case, LARGE_N, tiled_rollout_diff, LARGE_ADJ_STEPS, True,
              BENCH_TRACER_KAPPA, "nl_adjoint"),
             ("256 fused", igw_case, LARGE_N, fused_rollout_diff, LARGE_ADJ_STEPS, True,
              BENCH_TRACER_KAPPA, "nl_adjoint"),
-            ("64 linear auto", igw_case, HEADLINE_N, auto_rollout_diff, GRAD_STEPS, False,
-             BENCH_TRACER_KAPPA, "adjoint_step"),
+            ("64 linear auto", igw_case, HEADLINE_N, auto_rollout_diff, COMPOSED_SIDE_STEPS,
+             False, BENCH_TRACER_KAPPA, "adjoint_step"),
             ("256 linear tiled", igw_case, LARGE_N, tiled_rollout_diff, LARGE_ADJ_STEPS, False,
              BENCH_TRACER_KAPPA, "tiled_adjoint")):
         horz, _, model, prog = case(n, LEVELS, np.float32)
@@ -6531,6 +6547,7 @@ WINDOW_REV_SS = 3
 # (LARGE_MAIN_STEPS until then), and reverse steps of the held_us timings
 WINDOW_TIMED_STEPS_256, WINDOW_HELD_STEPS = LARGE_MAIN_STEPS // 10, 16
 WINDOW_TIMED_STEPS_64 = LARGE_MAIN_STEPS // 5
+WINDOW_GRAD_STEPS = LARGE_ADJ_STEPS // 5
 
 
 def window_bound(ny2: int, nx: int, k: int, n_terms: int, itemsize: int, opts, q: int,
@@ -6590,7 +6607,7 @@ def window_phase(gpu: str, log_text: str) -> list:
     (n / q); q = 2 against q = 1 in this call, median of REPS with min and
     max: the nonlinear FE and FB, alone and NFTS, at 256^2 x 100 over
     WINDOW_TIMED_STEPS_256 steps and at 64^2 over WINDOW_TIMED_STEPS_64, the FTS
-    gradient at 256^2 over LARGE_ADJ_STEPS steps, tiled_adjoint's q = 2 FTS
+    gradient at 256^2 over WINDOW_GRAD_STEPS steps, tiled_adjoint's q = 2 FTS
     arm per launch.
     Returns the kernels line's entries."""
     import re
@@ -7070,7 +7087,7 @@ def window_phase(gpu: str, log_text: str) -> list:
         del ptr
         torch.cuda.empty_cache()
 
-    # the FTS gradient at 256^2 over LARGE_ADJ_STEPS steps, q = 2 against
+    # the FTS gradient at 256^2 over WINDOW_GRAD_STEPS steps, q = 2 against
     # q = 1, and tiled_adjoint's q = 2 FTS arm per launch
     horz, _, model, prog = igw_case(LARGE_N, LEVELS, np.float32)
     sm = model.struct_mesh
@@ -7083,7 +7100,7 @@ def window_phase(gpu: str, log_text: str) -> list:
         w = strat32.phi_weights.to(s.ssh.device).clone().requires_grad_(True)
         fd = [getattr(forcing, c).clone().requires_grad_(True)
               for c in ("wind_edge", "drag_linear", "drag_quadratic", "rayleigh")]
-        out = tiled_rollout_diff(StructState(*leaves), sm, DT, LARGE_ADJ_STEPS,
+        out = tiled_rollout_diff(StructState(*leaves), sm, DT, WINDOW_GRAD_STEPS,
                                  forcing=Forcing(fd[0], forcing.top_mask, forcing.bottom_mask,
                                                  *fd[1:]),
                                  strat=Stratification(w, strat32.densities), plan=plan,
@@ -7095,20 +7112,20 @@ def window_phase(gpu: str, log_text: str) -> list:
     for q in (1, WINDOW_Q):
         st_w = model.to_struct(ptr)
         plan = rev_plans[q] = tiled_diff.tiled_adjoint_plan(
-            sm.ny2, sm.nx, LEVELS, 4, LARGE_ADJ_STEPS, halo=(1, 2), q=q, n_tracers=2,
+            sm.ny2, sm.nx, LEVELS, 4, WINDOW_GRAD_STEPS, halo=(1, 2), q=q, n_tracers=2,
             strat=True, forced=True, budget=diff_model._default_budget(st_w.ssh.device))
         for c in ("launches", "forced_launches", "tracer_launches", "strat_launches"):
             setattr(tiled_adjoint, c, 0)
         grads = grad_fts(st_w, plan)
         c = [tiled_adjoint.launches, tiled_adjoint.forced_launches,
              tiled_adjoint.tracer_launches, tiled_adjoint.strat_launches]
-        if c != [LARGE_ADJ_STEPS // q] * 4 or not all(bool(torch.isfinite(x).all())
+        if c != [WINDOW_GRAD_STEPS // q] * 4 or not all(bool(torch.isfinite(x).all())
                                                         for x in grads):
             raise AssertionError(f"FTS grad q = {q}: launches {c}, or not finite")
         rev_launches[q] = c[0]
         grad_s[q] = cuda_times(lambda: grad_fts(st_w, plan), REPS, warm_up=False)
         log(f"[21] FTS grad of sum ssh^2 + sum T^2 (state, W, wind, coefficients) through "
-            f"tiled_rollout_diff, {LARGE_N}^2x{LEVELS} f32, {LARGE_ADJ_STEPS} steps, plan "
+            f"tiled_rollout_diff, {LARGE_N}^2x{LEVELS} f32, {WINDOW_GRAD_STEPS} steps, plan "
             f"{tuple(plan)}: {spread(grad_s[q])} per grad; tiled_adjoint launches {c[0]} (each "
             f"forced, tracer and stratified) [{gpu}]")
         del grads, st_w
@@ -7197,7 +7214,471 @@ def window_phase(gpu: str, log_text: str) -> list:
         "max_abs_err_64": max_abs_err["rev", HEADLINE_N],
         "f32_gap_ratios": gaps["rev", LARGE_N], "f32_gap_ratios_64": gaps["rev", HEADLINE_N],
         "max_rel_err_f64": worst_r, "dot_gaps": [dots[False], dots[True]]})
+    entries.append(nl_window_section(gpu, log_text))
     return entries
+
+
+# ---- phase 21: kernel 4's nonlinear arm at q > 1 ----------------------------------
+
+# the nonlinear core (N) alone and with forcing (F), tracers (T) and
+# stratification (S) in every combination: the q-step nonlinear reverse's
+# arms, each periodic and on the channel
+NL_WIN_OPTS = ("N", "NF", "NT", "NS", "NFT", "NFS", "NTS", "NFTS")
+# the f64 checks' lattice (n, levels) and supersteps; reverse steps of the
+# held_us timings (4 launches at q = 2, 8 of the q = 1 kernel)
+NL_WIN_F64, NL_WIN_SS, NL_WIN_HELD_STEPS = (32, 36), 2, 8
+
+
+def nl_window_section(gpu: str, log_text: str) -> dict:
+    """Phase 21's part for kernel 4's nonlinear arm at q > 1, the q-step
+    nonlinear reverse (csrc/nl_window_adjoint.cuh): its instantiations'
+    registers and spills per arm; f64, every arm (N with F, T and S in every
+    combination, periodic and channel) at q = 2 and 3 on a 32^2 x 36 random
+    state with u of 0.5 m/s, at the f32 main paths' tiles (nl_window_plan's
+    at 256^2 x 100), against the plain reverse of every step on the
+    kernel-built states: within 1e-12 of scale (d(dt), d(W) and the forcing
+    scalars of their Cauchy-Schwarz scales), reruns bitwise, N_SS launches
+    in every arm's counter, at q = 2 each run with one option dropped at
+    least 100x off (N: the linear reverse of every step); the dot-product identity
+    of the q = 2 NFTS gradient; f32 after 100 reverse steps (64^2 and 256^2
+    x 100, bench.py's full physics, NFTS at q = 2): each cotangent's distance
+    from an f64 reverse of the same superstep starts within U_GAP_FACTOR x
+    the plain f32 reverse's (phase 20's floors), the plain reverse stored in
+    bf16 failing it; the main path, tiled_rollout_diff(nonlinear=True,
+    q = 2) with bench.py's full physics at 256^2 over LARGE_ADJ_STEPS steps,
+    with exact launch counts (n / 2 in each arm's counter, none of the q = 1
+    nonlinear reverse or the linear tiled reverse); the nonlinear gradient
+    (N) at q = 2 and q = 1 there; per launch by held_us at 64^2 and 256^2,
+    N and NFTS, q = 2 beside two q = 1 launches, and the bound. Returns the
+    kernels line's entry."""
+    import re
+
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.kernels import adjoint_step, tiled_adjoint
+    from mpas_ocean_tpu_torch.models import Stratification, stratification_from_numpy
+    from mpas_ocean_tpu_torch.models.forcing import Forcing
+    from mpas_ocean_tpu_torch.structured import (
+        StructState,
+        diff_model,
+        fused_model,
+        structured_nl_adjoint_step,
+        structured_run_loop,
+        tiled_diff,
+        tiled_rollout_diff,
+    )
+    from mpas_ocean_tpu_torch.tools.composed_reverse import (
+        composed_ddt_scale,
+        composed_errors,
+        composed_reverse,
+        composed_stack,
+        composed_state,
+        composed_steps,
+        plain_composed_reverse,
+        plain_superstep_reverse,
+        superstep_stack,
+    )
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    t_part = time.perf_counter()
+    tfields = FIELDS + ("tracers",)
+    counters = ("nl_window_launches", "nl_window_forced_launches", "nl_window_tracer_launches",
+                "nl_window_strat_launches")
+    kappa5 = dict(tracer_kappa=5.0, tracer_upwind=0.5)
+    q2 = WINDOW_Q
+
+    def zero():
+        for c in counters + ("nl_launches",):
+            setattr(adjoint_step, c, 0)
+        tiled_adjoint.launches = 0
+
+    def counts():
+        return [getattr(adjoint_step, c) for c in counters]
+
+    def arms_of(opts):
+        return dict(n_tracers=2 * ("T" in opts), strat="S" in opts, forced="F" in opts)
+
+    # ptxas, per arm (dtype, masked, forced, tracers, stratified)
+    arm_re = re.compile(r"nl_window_adjoint_kernelI([fd])Lb([01])ELb([01])ELb([01])ELb([01])E")
+    lines = ptxas_report(log_text, ("nl_window_adjoint_kernel",))
+    per_arm, label = {}, None
+    for line in lines:
+        m = arm_re.search(line)
+        if m:
+            label = ("f32" if m.group(1) == "f" else "f64") + " " + (
+                ("M" if m.group(2) == "1" else "P") + "N"
+                + "".join(o for o, b in zip("FTS", m.groups()[2:]) if b == "1"))
+            continue
+        r = re.search(r"Used (\d+) registers", line)
+        s = re.search(r"(\d+) bytes spill stores", line)
+        if label and r:
+            per_arm.setdefault(label, [0, 0])[0] = int(r.group(1))
+        if label and s:
+            per_arm.setdefault(label, [0, 0])[1] = max(per_arm.get(label, [0, 0])[1],
+                                                       int(s.group(1)))
+    log(f"[21] ptxas nl_window_adjoint_kernel, {len(per_arm)} instantiations (P periodic, M "
+        "masked), registers/spill-store bytes: "
+        + ", ".join(f"{a} {r}/{s}" for a, (r, s) in sorted(per_arm.items())))
+
+    # f64: every arm at q = 2 and 3 against the plain reverse of every step
+    n, levels = NL_WIN_F64
+    n_ss, worst, n_checks, refused = NL_WIN_SS, {}, 0, []
+    for channel in (False, True):
+        model, prog = (random_channel if channel else random_case)(n, levels, seed=5,
+                                                                   u_amp=0.5)
+        sm = model.struct_mesh
+        st_full = random_tracers(model, model.to_struct(prog))
+        rng = np.random.default_rng(29 + levels)
+        strat = stratification_from_numpy({"phi_weights": 0.05 * rng.normal(size=(levels,
+                                                                                   levels)),
+                                           "densities": np.full(levels, 1025.0)})
+        forcing = lattice_forcing(model, seed=11 + levels)
+        rng = np.random.default_rng(17)
+        g_full = StructState(*(torch.from_numpy(rng.normal(size=tuple(getattr(st_full, f).shape)))
+                               .to(getattr(st_full, f)) for f in tfields))
+        parts = []
+        for q in (q2, 3):
+            for opts in NL_WIN_OPTS:
+                st, g = composed_state(st_full, opts), composed_state(g_full, opts)
+                tile = adjoint_step.nl_window_plan(LARGE_N // 2, LARGE_N, LEVELS, 4,
+                                                   **arms_of(opts))[:2]
+                full = composed_stack(composed_steps(sm, 10.0, st.layer_thickness, opts, forcing,
+                                                     strat), st, n_ss * q)
+
+                def rev(o=opts, stk=full, q=q, tile=tile):
+                    if "N" not in o:  # the drop-N control: the linear reverse of every step
+                        return composed_reverse(
+                            composed_steps(sm, 10.0, st.layer_thickness, o, forcing, strat),
+                            stk, composed_state(g_full, o), n_ss * q)
+                    steps = composed_steps(sm, 10.0, st.layer_thickness, o, forcing, strat,
+                                           (*tile, q))
+                    return composed_reverse(steps, superstep_stack(stk, q),
+                                            composed_state(g_full, o), n_ss)
+
+                arm = f"{'channel' if channel else 'periodic'} {opts} q={q} {tile}"
+                if adjoint_step.nl_window_smem_bytes(tile, levels, 8, 1, **arms_of(opts)) > \
+                        adjoint_step.SMEM_BYTES:
+                    zero()
+                    try:
+                        rev()
+                    except ValueError as e:
+                        if "shared memory" not in str(e) or counts()[0]:
+                            raise
+                        refused.append(arm)
+                        continue
+                    raise AssertionError(f"f64 {arm}: fits no block, yet ran")
+                zero()
+                out = rev()
+                c = counts()
+                if c != [n_ss] + [n_ss * (o in opts) for o in "FTS"] or \
+                        adjoint_step.nl_launches or tiled_adjoint.launches:
+                    raise AssertionError(f"f64 {arm}: launch counts {c}, q = 1 "
+                                         f"{adjoint_step.nl_launches}, linear "
+                                         f"{tiled_adjoint.launches}")
+                ref, scales = plain_composed_reverse(full, g, sm, 10.0, n_ss * q, opts, forcing,
+                                                     strat)
+                scales["d_dt"] = composed_ddt_scale(st, sm, 10.0, n_ss * q, g, opts, forcing,
+                                                    strat)
+                errs = composed_errors(out, ref, scales)
+                err = max(r for _, r in errs.values())
+                if not err <= 1e-12:
+                    raise AssertionError(f"f64 {arm}: {format_errors(errs)}")
+                again = rev()
+                if not (all(getattr(out[0], f) is None
+                            or torch.equal(getattr(out[0], f), getattr(again[0], f))
+                            for f in tfields)
+                        and all(x is None or torch.equal(x, y)
+                                for x, y in zip(out[1:], again[1:]))):
+                    raise AssertionError(f"f64 {arm}: rerun differs")
+                miss = None
+                if q == q2:
+                    misses = []
+                    for d in opts:
+                        rest = opts.replace(d, "")
+                        stk = full if d not in "NT" else composed_stack(
+                            composed_steps(sm, 10.0, st.layer_thickness, rest, forcing, strat),
+                            composed_state(st_full, rest), n_ss * q)
+                        bare = rev(rest, stk)
+                        misses.append(max(float((getattr(bare[0], f) - getattr(ref[0], f))
+                                                .abs().max() / getattr(ref[0], f).abs().max())
+                                          for f in tfields if getattr(bare[0], f) is not None))
+                    miss = min(misses)
+                    if not miss >= 100 * 1e-12:
+                        raise AssertionError(f"f64 {arm}: a drop-one control misses by "
+                                             f"{misses}")
+                worst[opts] = max(worst.get(opts, 0.0), err)
+                n_checks += 1
+                parts.append(f"{opts} q={q} {err:.1e}"
+                             + ("" if miss is None else f" ({miss:.1e})"))
+                del full
+        log(f"[21] f64 q-step nonlinear reverse vs the plain reverse, {n}^2x{levels} "
+            f"{'channel' if channel else 'periodic'}, {n_ss} supersteps, at the f32 main "
+            "paths' tiles: error over scale (least drop-one miss) " + ", ".join(parts))
+        del model, st_full, g_full
+        torch.cuda.empty_cache()
+    log(f"[21] {n_checks} f64 checks of the q-step nonlinear reverse within 1e-12, reruns "
+        f"bitwise, controls >= 100x off; refused (no block fits): {refused or 'none'}; worst: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # the dot-product identity of the q = 2 NFTS gradient
+    dots = {}
+    for channel in (False, True):
+        model, prog = (random_channel if channel else random_case)(32, 6, seed=5, u_amp=0.5)
+        sm = model.struct_mesh
+        st = random_tracers(model, model.to_struct(prog))
+        forcing = lattice_forcing(model, seed=17)
+        rng = np.random.default_rng(18)
+        strat = stratification_from_numpy({"phi_weights": 0.05 * rng.normal(size=(6, 6)),
+                                           "densities": np.full(6, 1025.0)})
+        v, gbar = (StructState(*(torch.from_numpy(rng.normal(size=tuple(getattr(st, f).shape)))
+                                 .to(getattr(st, f)) for f in tfields)) for _ in range(2))
+        tang = (*(getattr(v, f) for f in tfields),
+                torch.from_numpy(1e-4 * rng.normal(size=tuple(forcing.wind_edge.shape))).to(
+                    forcing.wind_edge),
+                *(torch.tensor(x, dtype=torch.float64, device=st.ssh.device)
+                  for x in (1e-4, 3e-4, 1e-5)),
+                torch.from_numpy(0.05 * rng.normal(size=(6, 6))).to(st.ssh))
+        prim = (*(getattr(st, f) for f in tfields), forcing.wind_edge, forcing.drag_linear,
+                forcing.drag_quadratic, forcing.rayleigh, strat.phi_weights.to(st.ssh))
+
+        def rollout(*xs):
+            f = Forcing(xs[4], forcing.top_mask, forcing.bottom_mask, *xs[5:8])
+            out = structured_run_loop(StructState(*xs[:4]), sm, 10.0, 6, nonlinear=True,
+                                      forcing=f, strat=Stratification(xs[8], strat.densities),
+                                      **kappa5)
+            return tuple(getattr(out, f) for f in tfields)
+
+        _, jv = torch.func.jvp(rollout, prim, tang)
+        lhs = sum(float((x * getattr(gbar, f)).sum()) for x, f in zip(jv, tfields))
+        x = [p.clone().requires_grad_(True) for p in prim]
+        zero()
+        out = tiled_rollout_diff(StructState(*x[:4]), sm, 10.0, 6, nonlinear=True,
+                                 forcing=Forcing(x[4], forcing.top_mask, forcing.bottom_mask,
+                                                 *x[5:8]),
+                                 strat=Stratification(x[8], strat.densities),
+                                 plan=(2, 4, q2, 1), **kappa5)
+        jtg = torch.autograd.grad(sum((getattr(out, f) * getattr(gbar, f)).sum()
+                                      for f in tfields), x)
+        rhs = sum(float((t * d).sum()) for t, d in zip(tang, jtg))
+        dots[channel] = abs(lhs - rhs) / abs(rhs)
+        log(f"[21] f64 dot-product identity, NFTS q = 2 through tiled_rollout_diff(nonlinear="
+            f"True), 32x32x6 {'channel' if channel else 'periodic'}, 6 steps ({counts()} q-step "
+            f"nonlinear reverse launches): <Jv, g> {lhs:.17g}, <v, J^T g> {rhs:.17g}, relative "
+            f"gap {dots[channel]:.3e}")
+        if not (dots[channel] <= 1e-12 and counts() == [3] * 4):
+            raise AssertionError(f"nonlinear q = 2 dot-product identity off by "
+                                 f"{dots[channel]:.3e}, launches {counts()}")
+        del model, st
+    log(f"[21] the q-step nonlinear reverse's checks took {time.perf_counter() - t_part:.1f} s")
+
+    # f32 after 100 reverse steps of bench.py's full physics at q = 2
+    strat32 = mt.make_stratification(1025.0 + np.linspace(0.0, BENCH_RHO_SPAN, LEVELS),
+                                     dtype=np.float32)
+    bench_kw = dict(tracer_kappa=BENCH_TRACER_KAPPA, tracer_upwind=BENCH_TRACER_UPWIND)
+    eps32 = float(np.finfo(np.float32).eps)
+    n32 = TILED_CHECK_STEPS
+    gaps, max_abs_err = {}, {}
+    for n in (HEADLINE_N, LARGE_N):
+        horz, _, model, prog = igw_case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=bench_tracers(horz, LEVELS, np.float32)))
+        f32 = bench_forcing(horz, model, np.float32)
+        n_ss32 = n32 // q2
+        tile = adjoint_step.nl_window_plan(sm.ny2, sm.nx, LEVELS, 4, **arms_of("NFTS"))[:2]
+        steps = composed_steps(sm, DT, st.layer_thickness, "NFTS", f32, strat32, (*tile, q2))
+        sup = composed_stack(steps, st, n_ss32)
+        end = sup.ssh[n_ss32], sup.tracers[n_ss32]
+        g = StructState(2 * end[0], torch.zeros_like(st.layer_thickness),
+                        torch.zeros_like(st.normal_velocity),
+                        2 * fused_model.tracer_unplanes(end[1]))
+        del end
+        ref64, scales = plain_superstep_reverse(sup, g, sm, DT, n_ss32, q2, "NFTS", f32, strat32,
+                                                dtype=torch.float64)
+        p32, _ = plain_superstep_reverse(sup, g, sm, DT, n_ss32, q2, "NFTS", f32, strat32)
+        bf, _ = plain_superstep_reverse(sup, g, sm, DT, n_ss32, q2, "NFTS", f32, strat32,
+                                        store=lambda x: x.bfloat16().float())
+        zero()
+        out = composed_reverse(steps, sup, g, n_ss32)
+        if counts() != [n_ss32] * 4:
+            raise AssertionError(f"f32 NFTS reverse q = 2 at {n}^2: launches {counts()}")
+        magnitude = {"d_dt": abs(float(ref64[1]))}
+        magnitude.update(zip(("d_r_lin", "d_cd", "d_lambda"), (abs(float(x)) for x in ref64[3])))
+        scales.update(magnitude)
+        e_k, e_p, e_b = (composed_errors(x, ref64, scales) for x in (out, p32, bf))
+        ratios, control_fails = {}, False
+        for f in e_k:
+            scale = e_k[f][0] / e_k[f][1] if e_k[f][1] else 0.0
+            floor = (SCALAR_FLOOR * magnitude[f] if f in magnitude else 0.0 if f == "d_w"
+                     else TRACER_REV_F32_FLOOR * eps32 * scale)
+            limit = U_GAP_FACTOR * max(e_p[f][0], floor)
+            ratios[f] = e_k[f][0] / limit
+            control_fails = control_fails or e_b[f][0] > limit
+            if not e_k[f][0] <= limit:
+                raise AssertionError(f"f32 NFTS reverse q = 2 at {n}^2: {f} {e_k[f][0]:.3e}, "
+                                     f"limit {limit:.3e}")
+        if not control_fails:
+            raise AssertionError(f"f32 NFTS reverse q = 2 at {n}^2: the bf16 control passes")
+        gaps[n] = ratios
+        max_abs_err[n] = max(e for e, _ in composed_errors(out, p32, scales).values())
+        log(f"[21] f32 {n}^2x{LEVELS} NFTS q-step nonlinear reverse q = 2 (tile {tile}), {n32} "
+            "reverse steps: distance from an f64 reverse of the same f32 superstep starts (the "
+            "inner states recomputed in f64) over the limit " + ", ".join(
+                f"{f} {r:.3f}" for f, r in ratios.items()) + "; the bf16 control fails; max "
+            f"|kernel - plain f32| {max_abs_err[n]:.3e}")
+        del sup, ref64, p32, bf, out, st, steps
+        torch.cuda.empty_cache()
+
+    # the main path: bench.py's full-physics gradient at q = 2 from to_struct,
+    # exact launch counts; the nonlinear gradient at q = 2 and q = 1
+    horz, _, model, prog = igw_case(LARGE_N, LEVELS, np.float32)
+    sm = model.struct_mesh
+    ptr = mt.PrognosticVars(prog.ssh, prog.layer_thickness, prog.normal_velocity,
+                            tracers=bench_tracers(horz, LEVELS, np.float32))
+    forcing = bench_forcing(horz, model, np.float32)
+
+    def grad(s, plan, full_physics):
+        fs = tfields if full_physics else FIELDS
+        leaves = [getattr(s, f).clone().requires_grad_(True) for f in fs]
+        kw = {}
+        extra = []
+        if full_physics:
+            w = strat32.phi_weights.to(s.ssh.device).clone().requires_grad_(True)
+            fd = [getattr(forcing, c).clone().requires_grad_(True)
+                  for c in ("wind_edge", "drag_linear", "drag_quadratic", "rayleigh")]
+            kw = dict(forcing=Forcing(fd[0], forcing.top_mask, forcing.bottom_mask, *fd[1:]),
+                      strat=Stratification(w, strat32.densities), **bench_kw)
+            extra = [w] + fd
+        out = tiled_rollout_diff(StructState(*leaves), sm, DT, LARGE_ADJ_STEPS, nonlinear=True,
+                                 plan=plan, **kw)
+        loss = (out.ssh ** 2).sum() + (0 if out.tracers is None else (out.tracers ** 2).sum())
+        return torch.autograd.grad(loss, leaves + extra)
+
+    st_w = model.to_struct(ptr)
+    plan = tiled_diff.tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, LARGE_ADJ_STEPS, halo=(2, 4),
+                                         q=q2, nonlinear=True, **arms_of("NFTS"),
+                                         budget=diff_model._default_budget(st_w.ssh.device))
+    zero()
+    grads = grad(st_w, plan, True)
+    c = counts()
+    main_launches = c[0]
+    log(f"[21] main path: tiled_rollout_diff(nonlinear=True, q = 2) with bench.py's full "
+        f"physics, {LARGE_N}^2x{LEVELS} f32 from to_struct, {LARGE_ADJ_STEPS} steps, plan "
+        f"{tuple(plan)}: launches (q-step nonlinear reverse, forced, tracers, stratified) {c}, "
+        f"q = 1 nonlinear reverse {adjoint_step.nl_launches}, linear tiled reverse "
+        f"{tiled_adjoint.launches} [{gpu}]")
+    if c != [LARGE_ADJ_STEPS // q2] * 4 or adjoint_step.nl_launches or tiled_adjoint.launches \
+            or not all(bool(torch.isfinite(x).all()) for x in grads):
+        raise AssertionError(f"nonlinear q = 2 main path: launches {c}, or not finite")
+    del grads
+    grad_s, plans = {}, {}
+    bare = StructState(st_w.ssh, st_w.layer_thickness, st_w.normal_velocity)
+    for q in (1, q2):
+        plans[q] = tiled_diff.tiled_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, LARGE_ADJ_STEPS,
+                                                 halo=(2, 4), q=q, nonlinear=True,
+                                                 budget=diff_model._default_budget(
+                                                     st_w.ssh.device))
+        grad_s[q] = cuda_times(lambda q=q: grad(bare, plans[q], False), REPS)
+        log(f"[21] nonlinear grad of sum ssh^2 through tiled_rollout_diff, {LARGE_N}^2x{LEVELS} "
+            f"f32, {LARGE_ADJ_STEPS} steps, plan {tuple(plans[q])}: {spread(grad_s[q])} per "
+            f"grad [{gpu}]")
+    log(f"[21] nonlinear grad q = 2 / q = 1: x"
+        f"{statistics.median(grad_s[q2]) / statistics.median(grad_s[1]):.4f}")
+    del st_w, bare
+
+    # per launch (held_us): q = 2 against two q = 1 launches, N and NFTS, at
+    # 64^2 and 256^2; the bound; the plain reverse of one superstep
+    held, bounds, plain_ms = {}, {}, None
+    n_h = NL_WIN_HELD_STEPS
+    for n in (HEADLINE_N, LARGE_N):
+        horz, _, model, prog = igw_case(n, LEVELS, np.float32)
+        sm = model.struct_mesh
+        st = model.to_struct(mt.PrognosticVars(prog.ssh, prog.layer_thickness,
+                                               prog.normal_velocity,
+                                               tracers=bench_tracers(horz, LEVELS, np.float32)))
+        f32 = bench_forcing(horz, model, np.float32) if n != LARGE_N else forcing
+        rng = np.random.default_rng(20)
+        g = StructState(*(torch.from_numpy(rng.normal(size=tuple(getattr(st, f).shape))).to(
+            getattr(st, f)) for f in tfields))
+        for opts in ("N", "NFTS"):
+            full = composed_stack(composed_steps(sm, DT, st.layer_thickness, opts, f32, strat32,
+                                                 kappa=BENCH_TRACER_KAPPA,
+                                                 upwind=BENCH_TRACER_UPWIND),
+                                  composed_state(st, opts), n_h)
+            gg = composed_state(g, opts)
+            for q in (1, q2):
+                tile = (adjoint_step.nl_window_plan if q > 1 else adjoint_step.nl_adjoint_plan)(
+                    sm.ny2, sm.nx, LEVELS, 4, [(r, c) for r in range(1, sm.ny2 + 1)
+                                               if sm.ny2 % r == 0
+                                               for c in range(1, sm.nx + 1) if sm.nx % c == 0],
+                    **(arms_of(opts) if q > 1 else dict(n_tracers=2 * ("T" in opts),
+                                                        strat="S" in opts)))[:2]
+                steps = composed_steps(sm, DT, st.layer_thickness, opts, f32, strat32,
+                                       (*tile, q), kappa=BENCH_TRACER_KAPPA,
+                                       upwind=BENCH_TRACER_UPWIND)
+                sup = superstep_stack(full, q)
+                held[n, opts, q] = held_us(lambda steps=steps, sup=sup: composed_reverse(
+                    steps, sup, gg, n_h // q), n_h // q, REPS)
+                held[n, opts, q, "tile"] = tile
+                del sup
+            dims = (sm.ny2, sm.nx, LEVELS, len(sm.coriolis_terms), 4)
+            names = {"N": {"nonlinear"}, "NFTS": {"nonlinear", "forced", "tracers", "strat"}}
+            bounds[n, opts] = window_bound(*dims, names[opts], q2, reverse=True)
+            med2 = statistics.median(held[n, opts, q2])
+            med1 = statistics.median(held[n, opts, 1])
+            log(f"[21] q-step nonlinear reverse {opts} per launch (held_us), {n}^2x{LEVELS} f32: "
+                f"q = 2 {spread(held[n, opts, q2], 1, 'us')} at {held[n, opts, q2, 'tile']}; two "
+                f"q = 1 launches {2 * med1:.6g} us (per launch {spread(held[n, opts, 1], 1, 'us')}"
+                f" at {held[n, opts, 1, 'tile']}): q = 2 / (2 q = 1) x{med2 / (2 * med1):.4f}; "
+                f"bound {bounds[n, opts][0] * 1e6:.3f} us ({bounds[n, opts][1]}): "
+                f"{bounds[n, opts][0] * 1e6 / med2:.4f} of it [{gpu}]")
+            if n == LARGE_N and opts == "NFTS":
+                s0 = diff_model._lattice_state(diff_model._slot(full, 0))
+                nxt = diff_model._lattice_state(diff_model._slot(full, 1))
+                g1 = composed_state(g, opts)
+                plain_ms = [t * 1e3 for t in cuda_times(
+                    lambda: structured_nl_adjoint_step(s0, g1, sm, DT, f32, next_state=nxt,
+                                                       strat=strat32, **bench_kw), REPS)]
+                del s0, nxt
+            del full
+        del st, g
+        torch.cuda.empty_cache()
+    med = statistics.median
+    b, by = bounds[LARGE_N, "NFTS"]
+    log(f"[21] the q-step nonlinear reverse's part took {time.perf_counter() - t_part:.1f} s")
+    return {
+        "name": "nl_window_adjoint (kernel 4's nonlinear arm at q = 2: nonlinear, forced, "
+                "tracers, stratified)",
+        "route": "cuda", "source": "mpas_ocean_tpu_torch/csrc/nl_window_adjoint.cuh",
+        "replaces": "mpas_ocean_tpu/structured/pallas_model.py:1979 (_tiled_adjoint_kernel with "
+                    "nl_terms, q > 1: the VJP of _window_steps :2040-2124)",
+        "launches": main_launches,
+        "max_abs_err": max_abs_err[LARGE_N],
+        "ms": med(held[LARGE_N, "NFTS", q2]) / 1e3,
+        # the plain reverse of one superstep: q plain reverse steps (the
+        # recompute's forward step not counted)
+        "plain_ms": med(plain_ms) * q2,
+        "bound_ms": b * 1e3, "bound_by": by, "library_ms": None, "q": q2,
+        "ms_two_q1": 2 * med(held[LARGE_N, "NFTS", 1]) / 1e3,
+        "nonlinear_alone_ms": med(held[LARGE_N, "N", q2]) / 1e3,
+        "nonlinear_alone_ms_two_q1": 2 * med(held[LARGE_N, "N", 1]) / 1e3,
+        "nonlinear_alone_bound_ms": bounds[LARGE_N, "N"][0] * 1e3,
+        "ms_64": med(held[HEADLINE_N, "NFTS", q2]) / 1e3,
+        "ms_64_two_q1": 2 * med(held[HEADLINE_N, "NFTS", 1]) / 1e3,
+        "nonlinear_alone_ms_64": med(held[HEADLINE_N, "N", q2]) / 1e3,
+        "nonlinear_alone_ms_64_two_q1": 2 * med(held[HEADLINE_N, "N", 1]) / 1e3,
+        "bound_ms_64": bounds[HEADLINE_N, "NFTS"][0] * 1e3,
+        "nonlinear_grad_s_256_q2": grad_s[q2], "nonlinear_grad_s_256_q1": grad_s[1],
+        "tiles": {"N": held[LARGE_N, "N", q2, "tile"], "NFTS": held[LARGE_N, "NFTS", q2, "tile"]},
+        "max_abs_err_64": max_abs_err[HEADLINE_N],
+        "f32_gap_ratios": gaps[LARGE_N], "f32_gap_ratios_64": gaps[HEADLINE_N],
+        "max_rel_err_f64": worst, "refused_f64": refused,
+        "dot_gaps": [dots[False], dots[True]], "ptxas": per_arm,
+        "sources": ["mpas_ocean_tpu_torch/csrc/nl_window_adjoint.cuh",
+                    "mpas_ocean_tpu_torch/csrc/nl_window_adjoint.cu"]}
 
 
 # the sharded superstep (phase 22): bench.py's measure_superstep and
@@ -7778,6 +8259,12 @@ def main() -> int:
     if "--window-only" in sys.argv[1:]:
         # phase 21 alone (after the build and the peaks its bounds divide by)
         print(json.dumps({"kernels": window_phase(gpu, log_file.read_text())}))
+        print(gpu)
+        return 0
+    if "--nl-window-only" in sys.argv[1:]:
+        # phase 21's part for the q-step nonlinear reverse alone (after the
+        # build and the peaks its bounds divide by)
+        print(json.dumps({"kernels": [nl_window_section(gpu, log_file.read_text())]}))
         print(gpu)
         return 0
     if "--sharded-only" in sys.argv[1:]:

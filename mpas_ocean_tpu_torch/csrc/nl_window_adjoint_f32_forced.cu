@@ -1,0 +1,9 @@
+// The q-step nonlinear reverse kernel (nl_window_adjoint.cuh) instantiated in
+// float, forced: periodic and masked, with and without tracers, stratified or
+// not (8 arms), which nl_window_adjoint.cu launches.
+
+#include "nl_window_adjoint.cuh"
+
+namespace lattice {
+MOT_NL_ADJ_ARMS(MOT_NL_WIN_INSTANTIATE, float, true)
+}  // namespace lattice

@@ -45,6 +45,7 @@ import torch
 
 from . import build
 from .fe_step import (
+    _NL_DERIVED,
     LIVE_BYTES,
     SMEM_BYTES,
     SMS,
@@ -64,12 +65,16 @@ from .fe_step import (
     state_shapes,
     vertex_tables,
 )
+from .fe_step import strat_smem_bytes as fe_strat_smem_bytes
 
 __all__ = ["NL_ADJ_RINGS", "NL_ADJ_SLICE", "REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout",
            "adjoint_tile", "check_dstrat", "forced_launches", "launch_plan", "launches",
            "nl_adjoint_launch_plan", "nl_adjoint_plan", "nl_adjoint_rollout", "nl_adjoint_slice",
            "nl_adjoint_smem_bytes", "nl_forced_launches", "nl_launches", "nl_strat_launches",
-           "nl_tracer_launches", "reverse_tracer_args", "smem_bytes", "strat_args",
+           "nl_tracer_launches", "nl_window_adjoint_rollout", "nl_window_forced_launches",
+           "nl_window_launches", "nl_window_plan", "nl_window_scratch_values",
+           "nl_window_slice", "nl_window_smem_bytes", "nl_window_strat_launches",
+           "nl_window_tracer_launches", "reverse_tracer_args", "smem_bytes", "strat_args",
            "strat_launches", "strat_smem_bytes", "tracer_launches"]
 
 # adjoint-step kernel launches made by adjoint_rollout (one per step), and
@@ -496,6 +501,70 @@ def adjoint_rollout(stack, g_in, f_edge, stencil_table, coriolis_weight,
                     strat_w, dstrat)
 
 
+def _nl_reverse_checks(name, stack, g_in, fv, stencil_table, coriolis_weight, adjoint_table,
+                       adjoint_weight, vertex_cell_terms, edge_vertex_terms, n_steps, ddt, out,
+                       scratch, live, forcing, dforc, tracers, end, strat_w, dstrat):
+    """The nonlinear reverses' checks of their operands (as ``nl_adjoint_rollout``
+    takes them), with ``out`` and ``scratch`` allocated where None: ((ny2,
+    nx, k), out, scratch, the tracer count, the vertex constants' planes,
+    the host tables (stencil, its transpose, the vertex tables) and the
+    stencil's term count)."""
+    ssh_st, h_st, u_st = stack
+    if h_st.dim() != 5:
+        raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
+    ny2, nx, k = lattice_dims(h_st[0], name)
+    dtype, device = h_st.dtype, h_st.device
+    if n_steps < 1:
+        raise ValueError(f"{name} takes n_steps >= 1")
+    slots = h_st.shape[0]
+    if n_steps > slots:
+        raise ValueError(f"{n_steps} steps need {n_steps} primal slots, got {slots}")
+    shapes = state_shapes(ny2, nx, k)
+    check_live(live, ny2, nx, device)
+    n_fv = 4 if live is None else 20
+    check_tensor("fv", fv, (n_fv, ny2, nx), dtype, device)
+    check_tensor("ddt", ddt, (1,), torch.float64, device)
+    check_forcing(forcing, ny2, nx, dtype, device)
+    check_dforc(dforc, forcing, ny2, nx, dtype, device)
+    check_dstrat(strat_w, dstrat, k, dtype, device)
+    if tracers is not None:
+        shapes = (*shapes, tracers.planes.shape[1:])
+    if out is None:
+        out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
+    if scratch is None:
+        scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
+    for x, shape, f in zip(stack, shapes[:3], ("ssh", "h", "u")):
+        check_tensor(f"stack {f}", x, (slots, *shape), dtype, device)
+    n_tr = check_reverse_tracers(tracers, end, (("g_in", g_in), ("out", out),
+                                                ("scratch", scratch)),
+                                 live, slots, ny2, nx, k, dtype, device)
+    for group, gname in ((g_in, "g_in"), (out, "out"), (scratch, "scratch")):
+        for x, shape, f in zip(group, shapes[:3], ("ssh", "h", "u")):
+            check_tensor(f"{gname} {f}", x, shape, dtype, device)
+    table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
+    adj_table, adj_weights, n_adj = host_stencil(adjoint_table, adjoint_weight)
+    if n_adj != n_terms:
+        raise ValueError("the adjoint table must be the transpose of the stencil table")
+    tables = (table, weights, adj_table, adj_weights,
+              *vertex_tables(vertex_cell_terms, edge_vertex_terms))
+    return (ny2, nx, k), out, scratch, n_tr, n_fv, tables, n_terms
+
+
+def _nl_reverse_args(stack, g_in, out, scratch, fv, n_fv, live, tables, part, ddt, forcing,
+                     dforc, tracers, end, strat_w, dstrat, kc: int, tiles: int, k: int) -> tuple:
+    """The nonlinear reverse entries' shared pointers, from ``fv`` to the
+    stratified arm's (``_NL_ARGTYPES``' first 38), and the arms' scalars
+    (r_lin, Cd, lambda; kappa, upwind; the rank masks), with the d(W)
+    accumulators the caller keeps until the entry has returned."""
+    ptrs, coefs = forcing_args(forcing, kc)
+    tr_ptrs, tr_opts, _ = reverse_tracer_args(tracers, end, g_in, out, scratch)
+    st_ptrs, acc = strat_args(strat_w, dstrat, tiles, k)
+    return ((fv.data_ptr(), n_fv, None if live is None else live.data_ptr(), *ptrs,
+             *dforc_args(dforc), *(t.ctypes.data for t in tables),
+             *[x.data_ptr() for x in (*stack, *g_in[:3], *out[:3], *scratch[:3], part, ddt)],
+             *tr_ptrs, *st_ptrs), (*coefs[:3], *tr_opts), coefs[3:], acc)
+
+
 _NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 36
                 + [ctypes.c_double] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
@@ -527,48 +596,16 @@ def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_
     stencil or vertex table that is not the hex lattice's raises
     ValueError."""
     global nl_launches, nl_forced_launches, nl_tracer_launches, nl_strat_launches
-    ssh_st, h_st, u_st = stack
-    if h_st.dim() != 5:
-        raise ValueError(f"h stack must be (S, 2, ny2, nx, K), got {tuple(h_st.shape)}")
-    ny2, nx, k = lattice_dims(h_st[0], "the nonlinear reverse")
-    dtype, device, itemsize = h_st.dtype, h_st.device, h_st.element_size()
-    if n_steps < 1:
-        raise ValueError("nl_adjoint_rollout takes n_steps >= 1")
-    slots = h_st.shape[0]
-    if n_steps > slots:
-        raise ValueError(f"{n_steps} steps need {n_steps} primal slots, got {slots}")
-    shapes = state_shapes(ny2, nx, k)
-    check_live(live, ny2, nx, device)
-    n_fv = 4 if live is None else 20
-    check_tensor("fv", fv, (n_fv, ny2, nx), dtype, device)
-    check_tensor("ddt", ddt, (1,), torch.float64, device)
-    check_forcing(forcing, ny2, nx, dtype, device)
-    check_dforc(dforc, forcing, ny2, nx, dtype, device)
-    check_dstrat(strat_w, dstrat, k, dtype, device)
-    if tracers is not None:
-        shapes = (*shapes, tracers.planes.shape[1:])
-    if out is None:
-        out = tuple(torch.empty(s, dtype=dtype, device=device) for s in shapes)
-    if scratch is None:
-        scratch = out if n_steps == 1 else tuple(torch.empty_like(x) for x in out)
-    for x, shape, f in zip(stack, shapes[:3], ("ssh", "h", "u")):
-        check_tensor(f"stack {f}", x, (slots, *shape), dtype, device)
-    n_tr = check_reverse_tracers(tracers, end, (("g_in", g_in), ("out", out),
-                                                ("scratch", scratch)),
-                                 live, slots, ny2, nx, k, dtype, device)
+    (ny2, nx, k), out, scratch, n_tr, n_fv, tables, n_terms = _nl_reverse_checks(
+        "the nonlinear reverse", stack, g_in, fv, stencil_table, coriolis_weight, adjoint_table,
+        adjoint_weight, vertex_cell_terms, edge_vertex_terms, n_steps, ddt, out, scratch, live,
+        forcing, dforc, tracers, end, strat_w, dstrat)
+    dtype, device, itemsize = fv.dtype, fv.device, fv.element_size()
     strat = strat_w is not None
-    for group, name in ((g_in, "g_in"), (out, "out"), (scratch, "scratch")):
-        for x, shape, f in zip(group, shapes[:3], ("ssh", "h", "u")):
-            check_tensor(f"{name} {f}", x, shape, dtype, device)
-    table, weights, n_terms = host_stencil(stencil_table, coriolis_weight)
-    adj_table, adj_weights, n_adj = host_stencil(adjoint_table, adjoint_weight)
-    if n_adj != n_terms:
-        raise ValueError("the adjoint table must be the transpose of the stencil table")
-    vc, vc_w, ev = vertex_tables(vertex_cell_terms, edge_vertex_terms)
     arms = dict(n_tracers=n_tr, strat=strat)
     tile = nl_adjoint_plan(ny2, nx, k, itemsize, **arms)[:2] if tile is None else tuple(tile)
     ks = nl_adjoint_slice(tile, k, itemsize, **arms) if ks is None else ks
-    kc = level_split(k)[1]
+    ranks, kc = level_split(k)
     if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
         raise ValueError(f"the nonlinear reverse's slices are a power of two of levels up to "
                          f"{min(16, kc)} (its level chunk at {k} levels), got {ks}")
@@ -577,7 +614,6 @@ def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_
         raise ValueError(f"a nonlinear reverse tile {tile} at {k} levels in slices of {ks} "
                          f"needs {need} bytes of shared memory per block, more than "
                          f"{SMEM_BYTES}")
-    ranks, _ = level_split(k)
     tiles = -(-ny2 // tile[0]) * -(-nx // tile[1])
     shares = 1 if forcing is None else SHARES
     part = torch.empty(shares * n_steps * tiles * ranks, dtype=torch.float64, device=device)
@@ -585,24 +621,209 @@ def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_
     fn = {torch.float32: lib.mot_nl_adjoint_f32, torch.float64: lib.mot_nl_adjoint_f64}[dtype]
     fn.argtypes = _NL_ARGTYPES
     fn.restype = ctypes.c_int
-    ptrs, coefs = forcing_args(forcing, kc)
-    tr_ptrs, tr_opts, n_tr = reverse_tracer_args(tracers, end, g_in, out, scratch)
-    st_ptrs, _acc = strat_args(strat_w, dstrat, tiles, k)
+    ptrs, opts, ranks_masks, _acc = _nl_reverse_args(
+        stack, g_in, out, scratch, fv, n_fv, live, tables, part, ddt, forcing, dforc, tracers,
+        end, strat_w, dstrat, kc, tiles, k)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            fv.data_ptr(), n_fv, None if live is None else live.data_ptr(), *ptrs,
-            *dforc_args(dforc), table.ctypes.data, weights.ctypes.data, adj_table.ctypes.data,
-            adj_weights.ctypes.data, vc.ctypes.data, vc_w.ctypes.data, ev.ctypes.data,
-            *[x.data_ptr() for x in (*stack, *g_in[:3], *out[:3], *scratch[:3], part, ddt)],
-            *tr_ptrs, *st_ptrs,
-            *(float(x) for x in (dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale)),
-            *coefs[:3], *tr_opts, *coefs[3:], ny2, nx, k, n_steps, n_terms, *tile, ks, n_tr,
-            stream,
+            *ptrs, *(float(x) for x in (dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale)),
+            *opts, *ranks_masks, ny2, nx, k, n_steps, n_terms, *tile, ks, n_tr, stream,
         )
     check_error("the nonlinear reverse", err, f" (tile {tile}, slice {ks})")
     nl_launches += n_steps
     nl_forced_launches += n_steps if forcing is not None else 0
     nl_tracer_launches += n_steps if tracers is not None else 0
     nl_strat_launches += n_steps if strat else 0
+    return out
+
+
+# The q-step nonlinear reverse (csrc/nl_window_adjoint.cuh): launches made by
+# nl_window_adjoint_rollout (one per superstep of q steps), and those of them
+# that ran the forced, the tracer and the stratified arm
+nl_window_launches = 0
+nl_window_forced_launches = 0
+nl_window_tracer_launches = 0
+nl_window_strat_launches = 0
+# ... its recompute's FE step: reach and ring of derived planes (fe_step's
+# NL_REACH and NL_RING, FE)
+NL_WIN_FWD = ((2, 4), (1, 2))
+
+
+def nl_window_smem_bytes(tile, k: int, itemsize: int, ks: int, n_tracers: int = 0,
+                         strat: bool = False, forced: bool = False) -> int:
+    """Dynamic shared memory of one block of the q-step nonlinear reverse
+    for a tile (rows, columns) at k levels in slices of ks
+    (``nl_window_smem_bytes`` in csrc/nl_window_adjoint.cuh), whatever q:
+    the warps' d(dt) sums and four ints per reverse window site (lattice,
+    primal and cotangent scratch sites, live bits), then the larger of the
+    reverse's layout (``nl_adjoint_smem_bytes``' values and stratified
+    part) and the recompute's (the FE step's with one state slice, its
+    derived planes, the window's ssh, rts and vertex constants, the partial
+    sums; with ``strat`` Phi's ssh, the kept momentum and
+    ``fe_step.strat_smem_bytes`` with the h chunk; with ``forced`` the
+    tile's winds and levels, ``fe_step.forcing_smem_bytes``)."""
+    rt, ct = tile
+    (cm, ci), (bm, bi), (am, ai), (wm, wi) = NL_ADJ_RINGS
+    (fm, fi), (dm, di) = NL_WIN_FWD
+    ring = lambda m, i: (rt + 2 * m) * (ct + 2 * i)  # noqa: E731
+    w, fw, core, fs = ring(wm, wi), ring(fm, fi), rt * ct, ring(1, 1)
+    kc = level_split(k)[1]
+    n_pl = 8 + 2 * n_tracers
+    rev = (itemsize * ((2 * n_pl * w + _NLA_A * ring(am, ai) + _NLA_B * ring(bm, bi)
+                        + _NLA_C * ring(cm, ci)) * ks + _NLA_SITE * w + 2 * core)
+           + (strat_smem_bytes(core, kc, k, itemsize) if strat else 0))
+    fvals = (n_pl * fw + _NL_DERIVED * ring(dm, di)) * ks + _NLA_SITE * fw + 2 * core
+    if strat:
+        fvals += 2 * fs + 6 * core * kc
+    fwd = (itemsize * fvals + (fe_strat_smem_bytes(fs, kc, k, itemsize, True) if strat else 0)
+           + (forcing_smem_bytes(core, 0, itemsize) if forced else 0))
+    return _RED_BYTES + 4 * 4 * w + max(rev, fwd)
+
+
+def nl_window_scratch_values(tile, q: int, k: int, n_tracers: int = 0) -> int:
+    """Values of one tile's scratch in device memory
+    (``scratch_per_tile`` in csrc/nl_window_adjoint.cu): q - 1 slots of
+    the recomputed primal states over the core grown by q (4, 6) +
+    (q - 2) (2, 4) per side, then min(q - 1, 2) of the cotangents between
+    the reverse steps over the core grown by (q - 1) (4, 6), each slot every
+    rank's ssh pair (padded to a multiple of 4 values) and the 8 + 2
+    n_tracers planes of K levels."""
+    rt, ct = tile
+    (_, _), (_, _), (_, _), (wm, wi) = NL_ADJ_RINGS
+    (fm, fi), _ = NL_WIN_FWD
+    ranks = level_split(k)[0]
+    ps = (rt + 2 * (wm * q + fm * (q - 2))) * (ct + 2 * (wi * q + fi * (q - 2)))
+    cs = (rt + 2 * wm * (q - 1)) * (ct + 2 * wi * (q - 1))
+    planes = (8 + 2 * n_tracers) * k
+    ssh = lambda sites: -(-2 * ranks * sites // 4) * 4  # noqa: E731
+    return (q - 1) * (ssh(ps) + planes * ps) + min(q - 1, 2) * (ssh(cs) + planes * cs)
+
+
+def nl_window_slice(tile, k: int, itemsize: int, n_tracers: int = 0, strat: bool = False,
+                    forced: bool = False) -> int:
+    """The largest slice (levels, a power of two up to 16 and the level
+    chunk) at which the q-step nonlinear reverse's ``tile`` fits one block
+    (``nl_window_smem_bytes``); at least one level."""
+    kc = level_split(k)[1]
+    ks = 1
+    while ks * 2 <= min(16, kc) and nl_window_smem_bytes(tile, k, itemsize, ks * 2, n_tracers,
+                                                         strat, forced) <= SMEM_BYTES:
+        ks *= 2
+    return ks
+
+
+def nl_window_plan(ny2: int, nx: int, k: int, itemsize: int, tiles=None, *,
+                   n_tracers: int = 0, strat: bool = False, forced: bool = False):
+    """The q-step nonlinear reverse's plan (rows, columns, levels per slice),
+    by ``nl_adjoint_plan``'s rule with this kernel's shared memory
+    (``nl_window_smem_bytes``, which does not grow with q: the regions are
+    walked in sub-tiles of the tile): among ``tiles`` (by default those
+    that divide the lattice, which the kernel needs), the tile of largest
+    area that fits one block at NL_ADJ_SLICE levels per slice (else at one)
+    and makes at least one block for each of the card's SMS SMs (else the
+    largest that fits), then the smallest window, then the widest; then the
+    largest slice that fits. Where no tile fits, ValueError."""
+    kc = level_split(k)[1]
+    wm, wi = NL_ADJ_RINGS[-1]
+    if tiles is None:
+        tiles = [(r, c) for r in range(1, ny2 + 1) if ny2 % r == 0
+                 for c in range(1, nx + 1) if nx % c == 0]
+    arms = dict(n_tracers=n_tracers, strat=strat, forced=forced)
+    ok = []
+    for base in (min(NL_ADJ_SLICE, kc), 1):
+        ok = [t for t in tiles if nl_window_smem_bytes(t, k, itemsize, base, **arms) <= SMEM_BYTES]
+        if ok:
+            break
+    if not ok:
+        raise ValueError(f"no tile of the q-step nonlinear reverse fits one block's shared "
+                         f"memory ({SMEM_BYTES} bytes) at {k} levels of {itemsize}-byte "
+                         f"values, {n_tracers} tracers, stratified: {strat}, forced: {forced}")
+    ranks = level_split(k)[0]
+    full = [t for t in ok if -(-ny2 // t[0]) * -(-nx // t[1]) * ranks >= SMS] or ok
+    *_, ct, rt = max((t[0] * t[1], -(t[0] + 2 * wm) * (t[1] + 2 * wi), t[1], t[0])
+                     for t in full)
+    return rt, ct, nl_window_slice((rt, ct), k, itemsize, **arms)
+
+
+_NL_WIN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 37
+                    + [ctypes.c_longlong] + [ctypes.c_double] * 12 + [ctypes.c_int] * 12
+                    + [ctypes.c_void_p])
+
+
+def nl_window_adjoint_rollout(stack, g_in, rts, fv, stencil_table, coriolis_weight,
+                              adjoint_table, adjoint_weight, vertex_cell_terms,
+                              edge_vertex_terms, dt: float, inv_dc: float, s_div: float,
+                              s_ke: float, s_curl: float, ds_scale: float, dke_scale: float,
+                              n_steps: int, q: int, ddt: torch.Tensor, out=None, scratch=None,
+                              *, live=None, tile, ks=None, forcing=None, dforc=None,
+                              tracers=None, end=None, strat_w=None, dstrat=None):
+    """n_steps >= 1 reverse supersteps of q > 1 nonlinear forward-Euler
+    steps each on the card, one launch of the q-step nonlinear reverse
+    kernel (csrc/nl_window_adjoint.cuh) per superstep, over ``tile`` (rows,
+    columns; they must divide the lattice) in slices of ks levels, by
+    default the largest that fits (``nl_window_slice``).
+
+    ``stack`` holds the superstep-start states (slot j the state before
+    superstep j); ``rts`` the resting thickness sum (2, ny2, nx) in the
+    state dtype, which the kernel's recompute of the steps inside a
+    superstep reads; the rest as for ``nl_adjoint_rollout`` (``end`` the
+    state after the last superstep). The tiles' recomputed states and
+    cotangents between the steps live in a scratch allocated here
+    (``nl_window_scratch_values`` per tile). Returns the cotangent at the
+    first superstep's start. A tile that does not divide the lattice or
+    fits no block raises ValueError."""
+    global nl_window_launches, nl_window_forced_launches, nl_window_tracer_launches
+    global nl_window_strat_launches
+    if q < 2:
+        raise ValueError(f"the q-step nonlinear reverse takes q >= 2, got {q} (q = 1 is "
+                         f"nl_adjoint_rollout's)")
+    tile = tuple(tile)
+    ny2, nx = stack[1].shape[-3:-1]
+    if ny2 % tile[0] or nx % tile[1]:
+        raise ValueError(f"the q-step nonlinear reverse's tile {tile} must divide the "
+                         f"{ny2} x {nx} lattice")
+    (ny2, nx, k), out, scratch, n_tr, n_fv, tables, n_terms = _nl_reverse_checks(
+        "the q-step nonlinear reverse", stack, g_in, fv, stencil_table, coriolis_weight,
+        adjoint_table, adjoint_weight, vertex_cell_terms, edge_vertex_terms, n_steps, ddt, out,
+        scratch, live, forcing, dforc, tracers, end, strat_w, dstrat)
+    dtype, device, itemsize = fv.dtype, fv.device, fv.element_size()
+    check_tensor("rts", rts, (2, ny2, nx), dtype, device)
+    strat, forced = strat_w is not None, forcing is not None
+    arms = dict(n_tracers=n_tr, strat=strat, forced=forced)
+    ks = nl_window_slice(tile, k, itemsize, **arms) if ks is None else ks
+    ranks, kc = level_split(k)
+    if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
+        raise ValueError(f"the q-step nonlinear reverse's slices are a power of two of levels "
+                         f"up to {min(16, kc)} (its level chunk at {k} levels), got {ks}")
+    need = nl_window_smem_bytes(tile, k, itemsize, ks, **arms)
+    if need > SMEM_BYTES:
+        raise ValueError(f"a q-step nonlinear reverse tile {tile} at {k} levels in slices of "
+                         f"{ks} needs {need} bytes of shared memory per block, more than "
+                         f"{SMEM_BYTES}")
+    tiles = (ny2 // tile[0]) * (nx // tile[1])
+    shares = 1 if forcing is None else SHARES
+    part = torch.empty(shares * n_steps * tiles * ranks, dtype=torch.float64, device=device)
+    values = tiles * nl_window_scratch_values(tile, q, k, n_tr)
+    tile_scratch = torch.empty(values, dtype=dtype, device=device)
+    lib = build.load()
+    fn = {torch.float32: lib.mot_nl_window_adjoint_f32,
+          torch.float64: lib.mot_nl_window_adjoint_f64}[dtype]
+    fn.argtypes = _NL_WIN_ARGTYPES
+    fn.restype = ctypes.c_int
+    ptrs, opts, ranks_masks, _acc = _nl_reverse_args(
+        stack, g_in, out, scratch, fv, n_fv, live, tables, part, ddt, forcing, dforc, tracers,
+        end, strat_w, dstrat, kc, tiles, k)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            rts.data_ptr(), *ptrs, tile_scratch.data_ptr(), values,
+            *(float(x) for x in (dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale)),
+            *opts, *ranks_masks, ny2, nx, k, n_steps, n_terms, *tile, ks, n_tr, q, stream,
+        )
+    check_error("the q-step nonlinear reverse", err, f" (tile {tile}, slice {ks}, q {q})")
+    nl_window_launches += n_steps
+    nl_window_forced_launches += n_steps if forced else 0
+    nl_window_tracer_launches += n_steps if tracers is not None else 0
+    nl_window_strat_launches += n_steps if strat else 0
     return out

@@ -3,8 +3,10 @@ forward-Euler step kernel (kernels/fe_step.py) forward, and a reverse sweep
 through the hand-written tiled adjoint kernel (kernels/tiled_adjoint.py,
 csrc/tiled_adjoint.cu), q steps per launch over row x column tiles; for the
 nonlinear core, through the nonlinear reverse kernel at q = 1
-(kernels/adjoint_step.nl_adjoint_rollout, csrc/nl_adjoint.cuh), over tiles
-that divide the lattice.
+(kernels/adjoint_step.nl_adjoint_rollout, csrc/nl_adjoint.cuh) and the
+q-step nonlinear reverse kernel at q > 1
+(kernels/adjoint_step.nl_window_adjoint_rollout, csrc/nl_window_adjoint.cuh),
+over tiles that divide the lattice.
 
 Counterpart of mpas_ocean_tpu/structured/pallas_model.py's tiled reverse
 (:1960-2584: ``_tiled_adjoint_plan``, ``_halo_unscatter``,
@@ -34,12 +36,14 @@ blocks per SM (else the largest that fits one), with
 ``tiled_model.resolve_plan``'s clamp, and ``group`` from
 ``diff_model.adjoint_plan`` over the n / q supersteps.
 
-The nonlinear tiled reverse is kernel 4's nonlinear arm at q = 1, the only
-q the JAX router takes (``_ADJ_Q_ORDER``, pallas_model.py:2673): the VJP of
-one nonlinear FE step per tile, which is the nonlinear reverse kernel's
-launch, so it runs that kernel (planned by ``adjoint_step.nl_adjoint_plan``
-over the tiles that divide the lattice). A nonlinear q > 1 raises on the
-card, as the nonlinear forward's does; the plain superstep runs any q.
+The nonlinear tiled reverse is kernel 4's nonlinear arm. At q = 1, the
+only q the JAX router takes (``_ADJ_Q_ORDER``, pallas_model.py:2673) and the
+planner's default, it is the VJP of one nonlinear FE step per tile, which is
+the nonlinear reverse kernel's launch, so it runs that kernel (planned by
+``adjoint_step.nl_adjoint_plan`` over the tiles that divide the lattice). At
+an explicit q > 1 it runs the q-step nonlinear reverse kernel, one launch
+per superstep (planned by ``adjoint_step.nl_window_plan``, whose shared
+memory does not grow with q); the plain superstep runs any q.
 
 Tracers (a state's ``tracers``, with ``tracer_kappa=`` and
 ``tracer_upwind=``) are a fourth differentiated field, as in diff_model; on
@@ -55,7 +59,8 @@ d(r_lin, Cd, lambda) in double beside d(dt).
 
 The three compose with each other and with either core on the card: the
 linear ones in the tiled adjoint kernel's composed arms at any q, the
-nonlinear ones in the nonlinear reverse kernel's at q = 1.
+nonlinear ones in the nonlinear reverse kernel's at q = 1 and in the q-step
+nonlinear reverse kernel's at q > 1.
 
 A CUDA state runs the kernels, and a failed build, a failed launch or a
 plan that does not fit raises; a CPU state runs the same plan with the plain
@@ -176,7 +181,9 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
     adjoint's window (by default q = 1 and the largest tile whose window
     leaves room for two blocks per SM, else the largest that fits one; for
     ``nonlinear``, q = 1 and ``adjoint_step.nl_adjoint_plan``'s tile among
-    those that divide the lattice, sized with its arms' shared memory; with
+    those that divide the lattice, sized with its arms' shared memory, or at
+    the caller's q > 1 ``adjoint_step.nl_window_plan``'s, sized with the
+    q-step kernel's (ValueError where no tile fits); with
     ``n_tracers``, the tracer arm's window at q = 1 by default (or the
     caller's q), sized for one block per SM, the arm's launch bounds; with
     ``strat``, the stratified arm's window at q = 1 by default (or the
@@ -186,8 +193,13 @@ def tiled_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, n_steps: int, *
     ``budget`` bytes, a state counting its tracer planes."""
     if nonlinear and (row_tile is None or col_tile is None):
         tiles = [(r, c) for r in _divisors(ny2) for c in _divisors(nx)]
-        rt, ct, _ = adjoint_step.nl_adjoint_plan(ny2, nx, k, itemsize, tiles,
-                                                 n_tracers=n_tracers, strat=strat)
+        if q is not None and q > 1:
+            rt, ct, _ = adjoint_step.nl_window_plan(ny2, nx, k, itemsize, tiles,
+                                                    n_tracers=n_tracers, strat=strat,
+                                                    forced=forced)
+        else:
+            rt, ct, _ = adjoint_step.nl_adjoint_plan(ny2, nx, k, itemsize, tiles,
+                                                     n_tracers=n_tracers, strat=strat)
         row_tile = rt if row_tile is None else row_tile
         col_tile = ct if col_tile is None else col_tile
         q = 1 if q is None else q
@@ -295,24 +307,16 @@ def plain_tiled_adjoint_superstep(state: StructState, cot: StructState, mesh: St
                                       torch.stack(d_forc[1:])), *d_w)
 
 
-def _check_nl_q(plan, nonlinear: bool, device) -> None:
-    """The card's nonlinear tiled reverse runs q = 1 only (ValueError)."""
-    if nonlinear and device.type == "cuda" and plan[2] != 1:
-        raise ValueError(f"the nonlinear tiled reverse runs q = 1 on the card, not q = "
-                         f"{plan[2]}")
-
-
 class _TiledSteps(_Steps):
     """diff_model's steps with a slot per superstep of q steps: the
     forward kernel fills the slots, the tiled adjoint kernel (or its plain
     version, for a CPU state) reverses them; for ``nonlinear`` on the card,
     the nonlinear reverse kernel at q = 1 over the plan's tiles (diff_model's
-    reverse)."""
+    reverse), the q-step nonlinear reverse kernel at q > 1."""
 
     def __init__(self, mesh: StructMesh, dt, like: torch.Tensor, plan, nonlinear: bool = False,
                  forcing: Forcing | None = None, strat: Stratification | None = None,
                  **tracer_kw):
-        _check_nl_q(plan, nonlinear, like.device)
         super().__init__(mesh, dt, like, nonlinear, nl_tile=tuple(plan[:2]), forcing=forcing,
                          strat=strat, **tracer_kw)
         self.rt, self.ct, self.q, _ = plan
@@ -337,8 +341,16 @@ class _TiledSteps(_Steps):
         forcing d(wind) and d(r_lin, Cd, lambda) to ``dforc``, with
         stratification d(W) to ``dstrat``. With tracers on the card, ``end``
         is the state after slot n - 1."""
-        if self.cuda and self.nonlinear:
+        if self.cuda and self.nonlinear and self.q == 1:
             super().reverse(stack, g, n, ddt, out, scratch, end)
+            return
+        if self.cuda and self.nonlinear:
+            adjoint_step.nl_window_adjoint_rollout(
+                _fields(stack)[:3], _fields(g), self.nl_fwd[0], *self.nl_adj,
+                *self.nl_adj_scal, n, self.q, ddt, _fields(out), _fields(scratch),
+                live=self.live, tile=(self.rt, self.ct), forcing=self.kf, dforc=self.dforc,
+                tracers=self.kernel_tracers(stack.tracers), end=_end(end, self.tracers),
+                strat_w=self.sw, dstrat=self.dstrat)
             return
         if self.cuda:
             tiled_adjoint.tiled_adjoint_rollout(
@@ -419,7 +431,6 @@ def tiled_adjoint_rollout(state: StructState, mesh: StructMesh, dt, n_steps: int
     ``tiled_adjoint_plan``. Counterpart of ``_pallas_tiled_adjoint``."""
     dtype, device = _dt_meta(dt, state.layer_thickness.device)
     plan = _plan(state, mesh, n_steps, plan, nonlinear, strat is not None, forcing is not None)
-    _check_nl_q(plan, nonlinear, state.layer_thickness.device)
     kw = dict(tracer_kappa=tracer_kappa, tracer_upwind=tracer_upwind, strat=strat)
     final, ckpts = forward_ckpts(state, mesh, dt, n_steps, plan[2] * plan[3], nonlinear,
                                  forcing, **kw)
@@ -450,7 +461,6 @@ class TiledRolloutDiff(torch.autograd.Function):
                      strat is not None, forcing is not None)
         if n_steps % plan[2]:
             raise ValueError(f"q={plan[2]} must divide n_steps={n_steps}")
-        _check_nl_q(plan, nonlinear, h.device)
         ctx.tropts = (tracer_kappa, tracer_upwind)
         final, ckpts = _forward(state, mesh, ctx.dt_v, n_steps, plan[2] * plan[3], nonlinear,
                                 forcing, ctx.tropts, strat=strat)
@@ -486,9 +496,9 @@ def tiled_rollout_diff(state: StructState, mesh: StructMesh, dt, n_steps: int, *
     it), a tensor ``dt``, the forcing's wind and coefficients and the
     stratification's W, with the tiled reverse: forward through ``fe_step``
     on the card, backward through ``tiled_adjoint`` (nonlinear: the
-    nonlinear reverse kernel, q = 1), every combination of the core,
-    forcing, tracers and stratification through the kernels' composed arms
-    (the linear core's at any q; a nonlinear q > 1 raises on the card).
+    nonlinear reverse kernel at q = 1, the q-step nonlinear reverse kernel
+    at q > 1), every combination of the core, forcing, tracers and
+    stratification through the kernels' composed arms, at any q.
     ``plan`` = (row_tile,
     col_tile, q, group) overrides ``tiled_adjoint_plan``. The tiled arm of
     ``pallas_rollout_diff``."""

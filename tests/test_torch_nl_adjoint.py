@@ -159,20 +159,22 @@ def test_fused_route_matches_pallas_adjoint(case, periodic8, channel8):
     _close(got, d_j, d_dt, ddt_j)
 
 
+@pytest.mark.parametrize("q", [1, 2])
 @pytest.mark.parametrize("case", ["periodic", "channel"])
-def test_tiled_route_matches_pallas_tiled_adjoint(case, periodic8, channel8):
+def test_tiled_route_matches_pallas_tiled_adjoint(case, q, periodic8, channel8):
     """tiled_adjoint_rollout(nonlinear=True) on a CPU state (the plain
     superstep, the VJP of slab.window_steps with the vertex constants, 2 x 4
-    tiles) against _pallas_tiled_adjoint(nl_terms=, f_vert=, q=1,
-    interpret=True) (pallas_model.py:2284, with _nl_setup and
-    _tiled_scal(nonlinear=True)): 2 steps of 8x8x2, 1e-12 of scale, d(dt)
-    against dscal[0]."""
+    tiles, q steps per superstep: the plain version of the nonlinear
+    reverse kernel at q = 1 and of the q-step one at q = 2) against
+    _pallas_tiled_adjoint(nl_terms=, f_vert=, q=q, interpret=True)
+    (pallas_model.py:2284, with _nl_setup and _tiled_scal(nonlinear=True)):
+    2 steps of 8x8x2, 1e-12 of scale, d(dt) against dscal[0]."""
     smj, smp, st_j, st = _case(case, periodic8, channel8)[:4]
     sj = smj.struct_mesh
     n, k = 2, st.layer_thickness.shape[-1]
     ny2, nx = sj.ny2, sj.nx
     g = _cotangent(st, 6)
-    got, d_dt = tiled_adjoint_rollout(st, smp.struct_mesh, DT, n, g, plan=(2, 4, 1, 1),
+    got, d_dt = tiled_adjoint_rollout(st, smp.struct_mesh, DT, n, g, plan=(2, 4, q, 1),
                                       nonlinear=True)
     dtype = st_j.layer_thickness.dtype
     nl_terms, f_vert = jax_nl_setup(sj, dtype, True)
@@ -183,7 +185,7 @@ def test_tiled_route_matches_pallas_tiled_adjoint(case, periodic8, channel8):
         sj.resting_thickness_sum[..., None],
         tuple(jnp.asarray(x) for x in (g.ssh[..., None].numpy(), g.layer_thickness.numpy(),
                                        g.normal_velocity.reshape(6, ny2, nx, k).numpy())),
-        mask, terms=sj.coriolis_terms, row_tile=2, n_steps=n, b=1, interpret=True, q=1,
+        mask, terms=sj.coriolis_terms, row_tile=2, n_steps=n, b=1, interpret=True, q=q,
         f_vert=f_vert, nl_terms=nl_terms)
     _close(got, _cot_from_planes(cot, ny2, nx, k), d_dt, dscal[0])
 

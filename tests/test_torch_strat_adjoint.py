@@ -556,9 +556,10 @@ def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(monkeypatch):
     stratified arm at q > 1): a 6-step rollout's gradient at q = 2 reverses
     through 3 launches of the stubbed tiled_adjoint entry, each given q = 2,
     W, its d(W) accumulators and d(W), and the wrapper takes a stratified
-    superstep of q = 2 itself; only a nonlinear q > 1 still raises
-    (ValueError). The kernels' q > 1 arms against the plain reverse:
-    tests/test_torch_window_adjoint_kernel.py."""
+    superstep of q = 2 itself; a nonlinear q > 1 builds too (the q-step
+    nonlinear reverse's steps, no guard left). The kernels' q > 1 arms
+    against the plain reverse: tests/test_torch_window_adjoint_kernel.py,
+    tests/test_torch_nl_window_adjoint_kernel.py."""
     lib = stub_card(monkeypatch)
     _, smp, _, stp, mj, mp = _lattice()
     sm = smp.struct_mesh
@@ -573,11 +574,9 @@ def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(monkeypatch):
     for kw in (dict(forcing=forcing), dict(tracers=True), {}):
         steps = tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), strat=sp, **kw)
         assert steps.sw is not None and steps.dstrat is not None
-    tiled_diff._check_nl_q((4, 8, 2, 1), False, cuda)
-    with pytest.raises(ValueError, match="q = 1"):
-        tiled_diff._check_nl_q((4, 8, 2, 1), True, cuda)
-    with pytest.raises(ValueError, match="q = 1"):
-        tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), nonlinear=True, strat=sp)
+    assert not hasattr(tiled_diff, "_check_nl_q")
+    steps = tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), nonlinear=True, strat=sp)
+    assert steps.q == 2 and steps.sw is not None and steps.dstrat is not None
     like64 = SimpleNamespace(device=cuda, dtype=torch.float64)
     steps = tiled_diff._TiledSteps(sm, DT, like64, (4, 8, 2, 1), strat=sp)
     final, ckpts = diff_model._forward(stp, sm, DT, 6, 2, False, None, (0.0, 1.0),

@@ -262,8 +262,8 @@ def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(cuda):
     stack's slots 0 and 2, within 1e-12 of the plain stratified reverse of
     the four steps (d(dt) and d(W) over their Cauchy-Schwarz scales) in two
     stratified launches, and the q = 2 gradient through tiled_rollout_diff
-    a finite, nonzero d(W); only a nonlinear q > 1 still raises
-    (ValueError)."""
+    a finite, nonzero d(W), with the nonlinear core too (the q-step
+    nonlinear reverse's stratified arm, 2 of its launches)."""
     model, st = _lattice(False, 32, 6, cuda, np.float32)
     sm, strat = model.struct_mesh, stratification(6, "rho", np.float32)
     forcing = random_forcing(model)
@@ -278,11 +278,12 @@ def test_card_refuses_the_stratified_reverse_where_no_arm_runs_it(cuda):
     for route, s, kw in ((fused_rollout_diff, st, dict(nonlinear=True)),
                          (auto_rollout_diff, st, dict(forcing=forcing)),
                          (auto_rollout_diff, with_tracers(model, st), {}),
-                         (tiled_rollout_diff, st, dict(plan=(4, 8, 2, 1)))):
+                         (tiled_rollout_diff, st, dict(plan=(4, 8, 2, 1))),
+                         (tiled_rollout_diff, st, dict(plan=(4, 8, 2, 1), nonlinear=True))):
+        adjoint_step.nl_window_strat_launches = 0
         dw = d_w(route, s, **kw)
         assert bool(torch.isfinite(dw).all()) and float(dw.abs().max()) > 0
-    with pytest.raises(ValueError, match="q = 1"):
-        tiled_rollout_diff(st, sm, DT, 4, plan=(4, 8, 2, 1), strat=strat, nonlinear=True)
+    assert adjoint_step.nl_window_strat_launches == 2
     model64, st64 = _lattice(False, 32, 6, cuda)
     sm64, strat64 = model64.struct_mesh, stratification(6, "dense")
     stack, w, _ = strat_stack(st64, sm64, DT, 4, strat64)

@@ -331,10 +331,11 @@ def test_card_refuses_strat_with_nonlinear_forcing_or_tracers(monkeypatch):
     for a CUDA state (its operands kept on the CPU here,
     torch_port_cases.stub_card), W in the state dtype and a (K, K) d(W)
     accumulator in double on hand, and the stratified tiled reverse builds
-    at q > 1 too, with each of them but the nonlinear core, whose q > 1
-    alone still raises (ValueError). (The kernels:
+    at q > 1 too, with each of them and with the nonlinear core, whose q > 1
+    runs the q-step nonlinear reverse (no guard left). (The kernels:
     tests/test_torch_composed_adjoint_kernel.py,
-    tests/test_torch_window_adjoint_kernel.py.)"""
+    tests/test_torch_window_adjoint_kernel.py,
+    tests/test_torch_nl_window_adjoint_kernel.py.)"""
     from mpas_ocean_tpu_torch.structured import diff_model, tiled_diff
 
     stub_card(monkeypatch)
@@ -346,14 +347,12 @@ def test_card_refuses_strat_with_nonlinear_forcing_or_tracers(monkeypatch):
         steps = diff_model._Steps(smp.struct_mesh, DT, like, strat=strat, **kw)
         assert steps.sw.dtype == torch.float32 and tuple(steps.sw.shape) == (K, K)
         assert steps.dstrat.dtype == torch.float64 and tuple(steps.dstrat.shape) == (K, K)
-    tiled_diff._check_nl_q((4, 8, 1, 1), False, cuda)
-    tiled_diff._check_nl_q((4, 8, 2, 1), False, cuda)
-    for kw in (dict(forcing=forcing), dict(tracers=True)):
-        steps = tiled_diff._TiledSteps(smp.struct_mesh, DT, like, (4, 8, 2, 1), strat=strat, **kw)
-        assert steps.sw.dtype == torch.float32 and tuple(steps.dstrat.shape) == (K, K)
-    with pytest.raises(ValueError, match="q = 1"):
-        tiled_diff._TiledSteps(smp.struct_mesh, DT, like, (4, 8, 2, 1), nonlinear=True,
-                               strat=strat)
+    for kw in (dict(forcing=forcing), dict(tracers=True), dict(nonlinear=True)):
+        for plan in ((4, 8, 1, 1), (4, 8, 2, 1)):
+            steps = tiled_diff._TiledSteps(smp.struct_mesh, DT, like, plan, strat=strat, **kw)
+            assert steps.sw.dtype == torch.float32 and tuple(steps.dstrat.shape) == (K, K)
+            assert steps.q == plan[2]
+    assert not hasattr(tiled_diff, "_check_nl_q")
 
 
 def test_planners_count_the_stratified_shared_memory():

@@ -277,8 +277,9 @@ def test_nonlinear_tiled_reverse_matches_plain_f64(cuda, case, plan):
     f64, 6 steps: against the plain superstep (the VJP of slab.window_steps
     with the vertex constants) back through the forward kernel's states,
     and against the plain nonlinear reverse step, 1e-12 of scale and of
-    d(dt); tiled_rollout_diff's forward is fused_run_loop's bit for bit; a
-    nonlinear q = 2 raises on the card."""
+    d(dt); tiled_rollout_diff's forward is fused_run_loop's bit for bit; at
+    q = 2 the same plan's tiles run the q-step nonlinear reverse, n / 2
+    launches, within 1e-12 of the q = 1 result's scale and d(dt)."""
     from mpas_ocean_tpu_torch.kernels import adjoint_step
 
     lattice = random_lattice if case == "periodic" else channel_lattice
@@ -308,8 +309,14 @@ def test_nonlinear_tiled_reverse_matches_plain_f64(cuda, case, plan):
     fwd = tiled_rollout_diff(st, sm, DT, n, plan=plan, nonlinear=True)
     want = fused_run_loop(st, sm, DT, n, nonlinear=True)
     assert all(torch.equal(getattr(fwd, f), getattr(want, f)) for f in FIELDS)
-    with pytest.raises(ValueError, match="q = 1"):
-        tiled_adjoint_rollout(st, sm, DT, n, g, plan=(plan[0], plan[1], 2, 1), nonlinear=True)
+    adjoint_step.nl_window_launches = 0
+    out2, ddt2 = tiled_adjoint_rollout(st, sm, DT, n, g, plan=(plan[0], plan[1], 2, 1),
+                                       nonlinear=True)
+    assert adjoint_step.nl_window_launches == n // 2
+    for f in FIELDS:
+        a, b = getattr(out2, f), getattr(out, f)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, f
+    assert abs(float(ddt2) - float(ddt)) <= 1e-12 * abs(float(ddt))
 
 
 # ---- the forced arm (momentum forcing) --------------------------------------

@@ -525,8 +525,9 @@ def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card
     """The reverse's steps build, on a CUDA device (their operands kept on
     the CPU here, torch_port_cases.stub_card), tracers with the nonlinear
     core, with forcing and with both, and a tracer state at q > 1 on the
-    tiled route too (tiled_adjoint's tracer arm at q > 1), with forcing;
-    only the nonlinear core at q > 1 still raises (ValueError); on the CPU
+    tiled route too (tiled_adjoint's tracer arm at q > 1), with forcing,
+    and with the nonlinear core at q > 1 (the q-step nonlinear reverse's
+    steps, no guard left); on the CPU
     the gradients run those combinations, here against jax.vjp of the JAX
     roll model within 1e-12 of scale."""
     from types import SimpleNamespace
@@ -545,10 +546,9 @@ def test_gradients_refuse_tracers_with_the_nonlinear_core_or_forcing_on_the_card
     for f in (None, fp):
         steps = tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), forcing=f, tracers=True)
         assert steps.tracers and steps.q == 2
-    tiled_diff._check_nl_q((4, 8, 2, 1), False, torch.device("cuda"))
-    with pytest.raises(ValueError, match="q = 1"):
-        tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), nonlinear=True, tracers=True)
-    tiled_diff._check_nl_q((4, 8, 2, 1), True, torch.device("cpu"))
+    steps = tiled_diff._TiledSteps(sm, DT, like, (4, 8, 2, 1), nonlinear=True, tracers=True)
+    assert steps.tracers and steps.q == 2 and hasattr(steps, "nl_adj")
+    assert not hasattr(tiled_diff, "_check_nl_q")
     fj = smj.to_struct_forcing(jax_make_forcing(mj, **FULL_FORCING))
     rng = np.random.default_rng(32)
     g = {f: rng.normal(size=tuple(getattr(stp, f).shape)) for f in FIELDS}
@@ -570,10 +570,11 @@ def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing(monkeypatch):
     (its operands kept on the CPU here, torch_port_cases.stub_card), their
     tracer operands on hand (the cell mask, kappa and upwind rounded to the
     state dtype), and for a CPU state, and so does the tiled route's at
-    q > 1 (tiled_adjoint's tracer arm at q > 1); only its nonlinear core at
-    q > 1 still refuses on the card (ValueError). (The kernels:
+    q > 1 (tiled_adjoint's tracer arm at q > 1), its nonlinear core at
+    q > 1 too (the q-step nonlinear reverse's steps). (The kernels:
     tests/test_torch_composed_adjoint_kernel.py,
-    tests/test_torch_window_adjoint_kernel.py.)"""
+    tests/test_torch_window_adjoint_kernel.py,
+    tests/test_torch_nl_window_adjoint_kernel.py.)"""
     from types import SimpleNamespace
 
     from mpas_ocean_tpu_torch.structured import diff_model, tiled_diff
@@ -590,8 +591,8 @@ def test_card_refuses_tracers_with_the_nonlinear_core_or_forcing(monkeypatch):
         assert (steps.kf is not None) == (f is not None)
         diff_model._Steps(smp.struct_mesh, DT, stp.layer_thickness, nonlinear, forcing=f,
                           tracers=True)
-        tiled_diff._check_nl_q((4, 8, 1, 1), nonlinear, torch.device("cuda"))
-        tiled_diff._TiledSteps(smp.struct_mesh, DT, cuda, (4, 8, 2, 1), forcing=f,
-                               tracers=True, tracer_kappa=5.0, tracer_upwind=0.5)
-        with pytest.raises(ValueError, match="q = 1"):
-            tiled_diff._check_nl_q((4, 8, 2, 1), True, torch.device("cuda"))
+        for plan in ((4, 8, 1, 1), (4, 8, 2, 1)):
+            steps = tiled_diff._TiledSteps(smp.struct_mesh, DT, cuda, plan, nonlinear,
+                                           forcing=f, tracers=True, tracer_kappa=5.0,
+                                           tracer_upwind=0.5)
+            assert steps.tracers and steps.q == plan[2] and hasattr(steps, "nl_adj") == nonlinear

@@ -4,16 +4,19 @@ JAX package (numpy-seeded inputs, lattices of 8 x 8 and 28 x 28 with
 * the nonlinear forward-backward window steps at q = 2 with forcing, two
   tracers and stratification together (``tiled_run_loop``'s plain version)
   against ``pallas_tiled_run_loop`` in interpret mode;
-* the tiled reverse at q = 2 with tracers, and with tracers, W and forcing
-  together (``tiled_adjoint_rollout``'s plain supersteps) against
-  ``_pallas_tiled_adjoint`` in interpret mode (the stratified reverse
-  alone at q = 2: tests/test_torch_strat_adjoint.py);
-* the Python mirrors of the q-step kernels' shared memory
-  (csrc/nl_tiled.cuh, csrc/tiled_adjoint.cu) against bytes counted by hand,
-  the wide level split of the tracer reverse at q > 1, and the refusals of
-  plans that do not fit.
+* the tiled reverse at q = 2 with tracers, with tracers, W and forcing
+  together, and with those and the nonlinear core (``tiled_adjoint_rollout``'s
+  plain supersteps) against ``_pallas_tiled_adjoint`` in interpret mode (the
+  stratified reverse alone at q = 2: tests/test_torch_strat_adjoint.py);
+* the Python mirrors of the q-step kernels' shared memory and scratch
+  (csrc/nl_tiled.cuh, csrc/tiled_adjoint.cu, csrc/nl_window_adjoint.cuh)
+  against bytes counted by hand, the wide level split of the tracer reverse
+  at q > 1, the planners' tiles and the refusals of plans that do not fit;
+* a CPU rehearsal of the card's nonlinear tiled reverse at q = 2 (the
+  kernel library stubbed) and the CPU route's q = 2 nonlinear gradient.
 The kernels themselves run on a card: tests/test_torch_window_kernel.py,
-tests/test_torch_window_adjoint_kernel.py.
+tests/test_torch_window_adjoint_kernel.py,
+tests/test_torch_nl_window_adjoint_kernel.py.
 """
 
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ import torch
 from mpas_ocean_tpu.structured.pallas_model import (
     _cot_from_planes,
     _forcing_setup,
+    _nl_setup,
     _pallas_tiled_adjoint,
     _strat_w,
     _tiled_scal,
@@ -61,7 +65,8 @@ def _random_cotangent(state, seed):
     return {f: rng.normal(size=tuple(getattr(state, f).shape)) for f in FIELDS}
 
 
-@pytest.mark.parametrize("arms", ["tracers", "tracers+strat+forcing"])
+@pytest.mark.parametrize("arms", ["tracers", "tracers+strat+forcing",
+                                  "nonlinear+tracers+strat+forcing"])
 def test_tiled_reverse_q2_matches_jax_tiled_adjoint(arms):
     """tiled_adjoint_rollout's plain route at q = 2 (the vjp of the slab
     windows, tiles of 2 x 4, groups of 2) against _pallas_tiled_adjoint in
@@ -69,10 +74,14 @@ def test_tiled_reverse_q2_matches_jax_tiled_adjoint(arms):
     tracers (kappa 5, upwind 0.7) on the 8 x 8 x 4 channel (the windows wrap
     onto themselves), or on the periodic lattice with the tracers, a
     stratification and forcing
-    together: the state's cotangent, the tracers' among it, within 1e-12 of
-    scale; d(dt), d(W), d(wind) and d(r_lin, Cd, lambda) to 1e-10 of
-    theirs."""
+    together, and with those and the nonlinear core (nl_terms=, f_vert=; the
+    8 x 8 x 4 lattice is the smallest here whose rows hold the nonlinear
+    q = 2 windows, which wrap onto themselves; the plain version of the
+    q-step nonlinear reverse kernel): the state's cotangent, the tracers'
+    among it, within 1e-12 of scale; d(dt), d(W), d(wind) and d(r_lin, Cd,
+    lambda) to 1e-10 of theirs."""
     full = arms != "tracers"
+    nonlinear = arms.startswith("nonlinear")
     if full:
         smj, smp, stj, stp, (fj, fp), (sj, sp) = _case(8)
     else:
@@ -89,8 +98,9 @@ def test_tiled_reverse_q2_matches_jax_tiled_adjoint(arms):
     if sj_m.edge_mask is not None:
         mask = sj_m.edge_mask.reshape(6, ny2, nx, 1).astype(dtype)
         cmask = sj_m.cell_mask.reshape(2, ny2, nx, 1).astype(dtype)
+    nl_terms, f_vert = _nl_setup(sj_m, dtype, True) if nonlinear else (None, None)
     cot, dscal, dwind, dsw = _pallas_tiled_adjoint(
-        _tiled_scal(sj_m, DT, dtype, fj), stj.ssh[..., None], stj.layer_thickness,
+        _tiled_scal(sj_m, DT, dtype, fj, nonlinear), stj.ssh[..., None], stj.layer_thickness,
         stj.normal_velocity.reshape(6, ny2, nx, k), sj_m.f_edge.reshape(6, ny2, nx, 1),
         sj_m.resting_thickness_sum[..., None],
         (gj.ssh[..., None], gj.layer_thickness, gj.normal_velocity.reshape(6, ny2, nx, k),
@@ -98,10 +108,12 @@ def test_tiled_reverse_q2_matches_jax_tiled_adjoint(arms):
         mask, terms=sj_m.coriolis_terms, row_tile=rt, n_steps=n, b=b, interpret=True, q=2,
         fwind=fwind, fidx=fidx, tracers0=_tr_planes(stj.tracers, ny2, nx, k), cmask=cmask,
         strat_w=_strat_w(sj, dtype),
-        tropts=(TR_KW["tracer_kappa"], TR_KW["tracer_upwind"]))
+        tropts=(TR_KW["tracer_kappa"], TR_KW["tracer_upwind"]), f_vert=f_vert,
+        nl_terms=nl_terms)
     ref = _cot_from_planes(cot, ny2, nx, k)
     res = tiled_adjoint_rollout(stp, smp.struct_mesh, DT, n, struct_state_from_numpy(g),
-                                plan=(rt, 4, 2, b), forcing=fp, strat=sp, **TR_KW)
+                                plan=(rt, 4, 2, b), forcing=fp, strat=sp, nonlinear=nonlinear,
+                                **TR_KW)
     for f in FIELDS:
         err = max_rel_err(getattr(res[0], f).numpy(), np.asarray(getattr(ref, f)))
         assert err <= 1e-12, (f, err)
@@ -218,3 +230,148 @@ def test_nonlinear_q2_plain_windows_match_the_roll_steps():
             err = max_rel_err(getattr(out, f).numpy(), getattr(ref, f).numpy())
             assert err <= 1e-12, (fb, q, f, err)
     assert torch.is_tensor(out.tracers)
+
+
+def test_nl_window_shared_memory_and_scratch_by_hand():
+    """adjoint_step.nl_window_smem_bytes (csrc/nl_window_adjoint.cuh,
+    nl_window_smem_bytes) against bytes counted by hand for a (4, 8) tile
+    at 100 f32 levels in slices of 2 with two tracers, W and forcing: 128
+    bytes of d(dt) sums and 4 ints per reverse window site, then the larger
+    of the reverse's layout (two slices of 12 planes on the 12 x 20 window,
+    rings A, B, C, 24 values a window site, the partial sums, the S chunk and
+    W rows) and the recompute's (one slice on the 8 x 16 FE window, 20
+    derived planes on the 6 x 12 ring, 24 values a window site, the partial
+    sums, Phi's ssh and the kept momentum, StratSmem with the h chunk, the
+    winds and levels); the same at any q. The scratch of a (2, 4) tile
+    counted by hand at q = 2 and 3: q - 1 primal slots over the tile grown by
+    q (4, 6) + (q - 2) (2, 4), min(q - 1, 2) cotangent slots over the tile
+    grown by (q - 1) (4, 6), each 7 ranks' ssh pairs and 12 planes of 100
+    levels."""
+    from mpas_ocean_tpu_torch.kernels import adjoint_step
+
+    k, kc, ks, n_tr, item = 100, 16, 2, 2, 4
+    w, a, b, c = 12 * 20, 10 * 16, 8 * 12, 6 * 10
+    fw, d, fs, core = 8 * 16, 6 * 12, 6 * 10, 32
+    rev = (item * ((2 * 12 * w + 12 * a + 14 * b + 8 * c) * ks + 24 * w + 2 * core)
+           + 16 + item * (2 * core * kc + k * kc))
+    fwd = (item * ((12 * fw + 20 * d) * ks + 24 * fw + 2 * core + 2 * fs + 6 * core * kc)
+           + 16 + item * (6 * fs * kc + k * kc) + 16 + (item + 4) * 6 * core)
+    want = 128 + 16 * w + max(rev, fwd)
+    assert rev > fwd and want == 113808
+    assert adjoint_step.nl_window_smem_bytes((4, 8), k, item, ks, n_tr, True, True) == want
+    planes = 12 * k
+    ps2, cs2 = (2 + 16) * (4 + 24), (2 + 8) * (4 + 12)
+    assert adjoint_step.nl_window_scratch_values((2, 4), 2, k, n_tr) == \
+        (2 * 7 * ps2 + planes * ps2) + (2 * 7 * cs2 + planes * cs2)
+    ps3, cs3 = (2 + 28) * (4 + 44), (2 + 16) * (4 + 24)
+    assert adjoint_step.nl_window_scratch_values((2, 4), 3, k, n_tr) == \
+        2 * (2 * 7 * ps3 + planes * ps3) + 2 * (2 * 7 * cs3 + planes * cs3)
+
+
+def test_nl_window_plan_and_refusals(monkeypatch):
+    """tiled_adjoint_plan's nonlinear tile: at the default q = 1 the
+    nonlinear reverse's (nl_adjoint_plan's), at an explicit q = 2 the q-step
+    kernel's (nl_window_plan over the tiles that divide the lattice; 256 x
+    256 x 100 f32: (8, 8), and (4, 8) with forcing, two tracers and W),
+    which fits one block; a composition no tile fits (60 tracers at 100 f64
+    levels) raises ValueError naming the shared memory, as does the
+    wrapper for a tile that does not divide the lattice."""
+    from mpas_ocean_tpu_torch.kernels import adjoint_step
+
+    halo = (2, 4)
+    assert tiled_diff.tiled_adjoint_plan(128, 256, 100, 4, 100, halo=halo,
+                                         nonlinear=True)[:3] == (8, 8, 1)
+    assert tiled_diff.tiled_adjoint_plan(128, 256, 100, 4, 100, halo=halo, nonlinear=True,
+                                         q=2)[:3] == (8, 8, 2)
+    arms = dict(n_tracers=2, strat=True, forced=True)
+    rt, ct, q, _ = tiled_diff.tiled_adjoint_plan(128, 256, 100, 4, 100, halo=halo,
+                                                 nonlinear=True, q=2, **arms)
+    assert (rt, ct, q) == (4, 8, 2)
+    ks = adjoint_step.nl_window_slice((rt, ct), 100, 4, **arms)
+    assert adjoint_step.nl_window_smem_bytes((rt, ct), 100, 4, ks, **arms) <= \
+        adjoint_step.SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        adjoint_step.nl_window_plan(128, 256, 100, 8, n_tracers=60)
+    with pytest.raises(ValueError, match="shared memory"):
+        tiled_diff.tiled_adjoint_plan(128, 256, 100, 8, 100, halo=halo, nonlinear=True, q=2,
+                                      n_tracers=60)
+    monkeypatch.setattr(adjoint_step, "lattice_dims", lambda h, name="": tuple(h.shape[1:]))
+    stack = tuple(torch.zeros((1, *s), dtype=torch.float64) for s in
+                  ((2, 8, 8), (2, 8, 8, 4), (3, 2, 8, 8, 4)))
+    with pytest.raises(ValueError, match="divide"):
+        adjoint_step.nl_window_adjoint_rollout(stack, None, *(None,) * 8, *(1.0,) * 7, 1, 2,
+                                               None, tile=(3, 4))
+
+
+@pytest.mark.parametrize("combo", ["N", "NFTS"])
+def test_card_route_runs_the_q_step_nonlinear_reverse(monkeypatch, combo):
+    """A CPU rehearsal of the card's nonlinear tiled reverse at q = 2 (the
+    kernel library stubbed: torch_port_cases.stub_card): tiled_diff's steps
+    at plan (2, 4, 2, 3) on the 8 x 8 x 4 channel run a 12-step sweep, the
+    forward rebuild 6 supersteps and the reverse one launch of the q-step
+    nonlinear reverse per superstep (6, each in its arms' counters), none
+    of the q = 1 nonlinear reverse; every launch takes q = 2, the tile, the
+    tracer count, the wind, the tracer planes and W where the arms' pointers
+    go, and a scratch of nl_window_scratch_values per tile."""
+    from types import SimpleNamespace
+
+    from mpas_ocean_tpu_torch.kernels import adjoint_step
+    from mpas_ocean_tpu_torch.structured import diff_model
+    from torch_port_cases import stub_card
+
+    lib = stub_card(monkeypatch)
+    forced, tracers, strat = (c in combo for c in "FTS")
+    _, smp, _, stp, (_, fp), (_, sp) = _case(8, channel=True)
+    sm = smp.struct_mesh
+    fp = fp if forced else None
+    sp = sp if strat else None
+    st = stp if tracers else type(stp)(stp.ssh, stp.layer_thickness, stp.normal_velocity)
+    like = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float64)
+    steps = tiled_diff._TiledSteps(sm, DT, like, (2, 4, 2, 3), True, fp, sp, tracers=tracers,
+                                   tracer_kappa=5.0, tracer_upwind=0.7)
+    final, ckpts = diff_model._forward(diff_model._planes_state(st), sm, DT, 12, 6, True, fp,
+                                       (5.0, 0.7), steps=steps, strat=sp)
+    res = diff_model._reverse(steps, ckpts, 6, 3, st, final)
+    assert len(res) == 2 + forced + strat and (res[0].tracers is not None) == tracers
+    counts = [adjoint_step.nl_window_launches] + [
+        getattr(adjoint_step, f"nl_window_{a}_launches") for a in ("forced", "tracer", "strat")]
+    assert counts == [6] + [6 * a for a in (forced, tracers, strat)]
+    assert adjoint_step.nl_launches == 0
+    calls = lib.mot_nl_window_adjoint_f64.calls
+    assert len(calls) == 2
+    wind = steps.kf.wind.data_ptr() if forced else None
+    w = steps.sw.data_ptr() if strat else None
+    per_tile = adjoint_step.nl_window_scratch_values((2, 4), 2, 4, 2 if tracers else 0)
+    for c in calls:
+        assert c[4] == wind and (c[29] is not None) == tracers and c[36] == w
+        assert c[60:62] == (2, 4) and c[63] == (2 if tracers else 0) and c[64] == 2
+        assert c[40] == (sm.ny2 // 2) * (sm.nx // 4) * per_tile
+
+
+def test_nonlinear_q2_gradient_on_the_cpu():
+    """tiled_rollout_diff with the nonlinear core at plan (2, 4, 2, 1) on a
+    CPU state (the plain supersteps; the card's route at q = 2 is the q-step
+    nonlinear reverse kernel), 4 steps of the 8 x 8 x 4 lattice with
+    forcing, two tracers and W: the gradient with respect to the state, the
+    tracers, the wind, the coefficients and W within 1e-12 of the q = 1
+    route's (plan (2, 4, 1, 1))."""
+    from mpas_ocean_tpu_torch.models import Stratification
+    from mpas_ocean_tpu_torch.models.forcing import Forcing
+    from mpas_ocean_tpu_torch.structured import StructState, tiled_rollout_diff
+
+    _, smp, _, stp, (_, fp), (_, sp) = _case(8)
+    sm = smp.struct_mesh
+    g = _random_cotangent(stp, 21)
+    grads = []
+    for q in (1, 2):
+        x = [getattr(stp, f).clone().requires_grad_(True) for f in FIELDS]
+        wind = fp.wind_edge.clone().requires_grad_(True)
+        w = sp.phi_weights.clone().requires_grad_(True)
+        f = Forcing(wind, fp.top_mask, fp.bottom_mask, fp.drag_linear, fp.drag_quadratic,
+                    fp.rayleigh)
+        out = tiled_rollout_diff(StructState(*x), sm, DT, 4, plan=(2, 4, q, 1), nonlinear=True,
+                                 forcing=f, strat=Stratification(w, sp.densities), **TR_KW)
+        inner = sum((getattr(out, name) * torch.from_numpy(g[name])).sum() for name in FIELDS)
+        grads.append(torch.autograd.grad(inner, (*x, wind, w)))
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())

@@ -196,7 +196,7 @@ class StubEntry:
         assert len(args) == len(self.argtypes)
         for a, t in zip(args, self.argtypes):
             want = {ctypes.c_void_p: (int, type(None)), ctypes.c_double: (float,),
-                    ctypes.c_int: (int,)}[t]
+                    ctypes.c_int: (int,), ctypes.c_longlong: (int,)}[t]
             assert isinstance(a, want) and not isinstance(a, bool)
         self.calls.append(args)
         return 0
