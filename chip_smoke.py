@@ -2804,10 +2804,12 @@ def nl_reverse_phase(gpu: str, log_text: str) -> dict:
                        nl_adjoint_bound(*dims, DATASHEET)[0])
         (b, by), probe, sheet = bounds[key]
         ops_s = sm.ny2 * sm.nx * LEVELS * NL_ADJOINT_FLOPS / CEILING["flops"][4]
-        plan = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)
+        masked = sm.edge_mask is not None
+        plan = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, masked=masked)
         lp = adjoint_step.nl_adjoint_launch_plan(sm.ny2, sm.nx, LEVELS, plan[:2], plan[2])
         med = statistics.median(launch_s[key])
-        log(f"[13] nonlinear reverse {key}^2 f32, plan {plan} ({lp['clusters']} clusters, "
+        log(f"[13] nonlinear reverse {key}^2 f32, plan {plan} "
+            f"({lp['clusters']} clusters, "
             f"{lp['blocks_per_sm']} block per SM, {lp['smem_bytes']} bytes): "
             f"{spread(launch_s[key], 1e6, 'us')} per launch; bound {b * 1e6:.3f} us ({by}; "
             f"bytes at the probes' rates {probe * 1e6:.3f}, at the data sheet's "
@@ -5215,21 +5217,8 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
     # in double is exact: both arms' d(W) bitwise the plain f64 reverse's;
     # the same sums over the cells in float (an f32 matrix product) are not
     for n in (HEADLINE_N, LARGE_N):
-        horz = mt.planar_hex_mesh(n, n, 1024.0, f0=1e-4, dtype=np.float32)
-        vert = mt.make_vertical_mesh(horz, LEVELS, resting_thickness=np.full(
-            (horz.n_cells, LEVELS), 2.0 ** 20, dtype=np.float32), dtype=np.float32)
-        model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n)
-        sm = model.struct_mesh
-        rng = np.random.default_rng(31)
-        h = (2.0 ** 20 + rng.integers(0, 1024, size=(horz.n_cells, LEVELS))).astype(np.float32)
-        st = model.to_struct(mt.PrognosticVars(
-            ssh=torch.zeros(horz.n_cells), layer_thickness=torch.from_numpy(h),
-            normal_velocity=torch.zeros(horz.n_edges, LEVELS)))
-        stack = tuple(getattr(st, f)[None].contiguous() for f in FIELDS)
-        gu = rng.integers(-7, 8, size=tuple(st.normal_velocity.shape)).astype(np.float32)
-        g = StructState(torch.zeros_like(st.ssh), torch.zeros_like(st.layer_thickness),
-                        torch.from_numpy(gu).to(st.normal_velocity))
-        w = fused_model.kernel_strat(strat32, torch.float32, st.ssh.device)
+        sm, stack, g = integer_strat_case(n)
+        w = fused_model.kernel_strat(strat32, torch.float32, stack[0].device)
         (_, _, exact), _, _ = plain_rev(stack, w, g, sm, 1.0, 1, dtype=torch.float64)
         _, _, dw_float = plain_rev(stack, w, g, sm, 1.0, 1)
         if torch.equal(dw_float, exact):
@@ -5248,7 +5237,7 @@ def strat_reverse_phase(gpu: str, log_text: str) -> list:
             f"gu -7 .. 7, dt 1 s, dc 1024 m): adjoint_step's and tiled_adjoint's d(W) bitwise "
             f"the exact sums (max |d(W)| {float(exact.abs().max()):.6e}); summed over the cells "
             f"in float {float((dw_float - exact).abs().max()):.3e} off")
-        del stack, st, g, model, sm
+        del stack, g, sm
         torch.cuda.empty_cache()
 
     # the gradients with stratification and the nonlinear core, forcing or
@@ -5978,6 +5967,155 @@ def composed_phase(gpu: str, log_text: str) -> list:
 # Reverse steps of the composed reverse's f64 checks, and the launches of a
 # held_us timing (one reverse call over a stack of that many states)
 COMPOSED_REV_STEPS, COMPOSED_HELD_STEPS = 6, 40
+# Calls of the stratified pass's wrapper timed together at each size
+PASS_TIMED = 20
+
+
+def strat_pass_bound(ny2: int, nx: int, k: int, itemsize: int, peaks: dict | None = None):
+    """(bound seconds, "bytes" or "operations") of one launch of the
+    nonlinear reverse's stratified pass: h and S read, dh read and written,
+    W read, d(W) (K x K doubles) and a d(dt) share written, over the byte
+    rate; its two products' 2 K^2 operations per cell each, W S at the
+    dtype's FMA rate and d(W) at the FP64 tensor cores' (the data sheet's,
+    or the f64 FMA ceiling where higher, as composed_bound takes it), which
+    run side by side: the larger of the two."""
+    cells = 2 * ny2 * nx
+    nbytes = itemsize * (4 * cells * k + k * k) + 8 * (k * k + 1)
+    peaks = CEILING if peaks is None else peaks
+    t_bytes = nbytes / byte_rate(peaks, itemsize * cells * k)
+    ops = 2 * cells * k * k
+    t_ops = max(ops / peaks["flops"][itemsize], ops / max(DATASHEET["mma64"], peaks["flops"][8]))
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def strat_pass_section(gpu: str) -> dict:
+    """The nonlinear reverse's stratified pass alone (csrc/adjoint_window.cuh,
+    strat_pass_kernel, through adjoint_step.nl_strat_pass) against its plain
+    version structured.adjoint.strat_pass: f64 on random (h, S, W, dh) at
+    64^2 and 256^2 x 100 and a ragged 9 x 14 x 36 lattice, dh within 1e-12
+    of its scale, d(W) and d(dt) within 1e-12 of their terms' magnitudes,
+    reruns bitwise; f32 on integer data whose d(W) sums are exact in
+    double, d(W) bitwise those sums; f32 at the main paths' shapes, a call
+    of the wrapper (the launch and the two sums a rollout call makes once)
+    by held_us over PASS_TIMED calls, beside its bound and the plain
+    version. Returns the numbers the kernels line reports."""
+    import numpy as np
+    import torch
+
+    from mpas_ocean_tpu_torch.kernels import adjoint_step
+    from mpas_ocean_tpu_torch.structured.adjoint import _own_minus_incoming, strat_pass
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+
+    dev = torch.device("cuda")
+    dt, inv_dc = DT, HEADLINE_N / 10000.0e3
+
+    def operands(ny2, nx, k, dtype, seed=5):
+        rng = np.random.default_rng(seed)
+        shape = (2, ny2, nx, k)
+        return tuple(torch.from_numpy(x).to(device=dev, dtype=dtype) for x in (
+            50.0 + rng.normal(size=shape), rng.normal(size=shape),
+            0.05 * rng.normal(size=(k, k)), rng.normal(size=shape)))
+
+    def run(h, s, w, dh):
+        k = h.shape[-1]
+        dh = dh.clone()
+        dstrat = torch.zeros((k, k), dtype=torch.float64, device=dev)
+        ddt = torch.zeros(1, dtype=torch.float64, device=dev)
+        adjoint_step.nl_strat_pass(h, s, w, dh, dt, inv_dc, dstrat, ddt)
+        return dh, dstrat, ddt[0]
+
+    worst, max_abs = 0.0, 0.0
+    for ny2, nx, k in ((HEADLINE_N // 2, HEADLINE_N, LEVELS), (LARGE_N // 2, LARGE_N, LEVELS),
+                       (9, 14, 36)):
+        h, s, w, dh0 = operands(ny2, nx, k, torch.float64)
+        got, again = run(h, s, w, dh0), run(h, s, w, dh0)
+        dh_w, d_w, d_dt = strat_pass(h, s, w, dt, inv_dc)
+        want = dh0 + dh_w
+        sums = h.reshape(-1, k).abs().T @ s.reshape(-1, k).abs()
+        errs = (float((got[0] - want).abs().max()) / float(want.abs().max()),
+                float((got[1] - d_w).abs().max()) / (dt * inv_dc * float(sums.max())),
+                abs(float(got[2] - d_dt)) / (inv_dc * float((w.abs() * sums).sum())))
+        log(f"[20] stratified pass f64 {ny2}x{nx}x{k} vs plain: dh, d(W), d(dt) "
+            + ", ".join(f"{e:.3e}" for e in errs) + " of scale")
+        if not max(errs) <= 1e-12:
+            raise AssertionError(f"stratified pass f64 {ny2}x{nx}x{k}: {errs}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"stratified pass f64 {ny2}x{nx}x{k}: reruns differ")
+        worst = max(worst, *errs)
+        del h, s, w, dh0, got, again, want, sums
+    for n in (HEADLINE_N, LARGE_N):
+        mesh, stack, g = integer_strat_case(n)
+        h = stack[1][0].contiguous()
+        s = _own_minus_incoming(g.normal_velocity).contiguous()
+        dstrat = torch.zeros((LEVELS, LEVELS), dtype=torch.float64, device=dev)
+        ddt = torch.zeros(1, dtype=torch.float64, device=dev)
+        adjoint_step.nl_strat_pass(h, s, torch.eye(LEVELS, dtype=torch.float32, device=dev),
+                                   torch.zeros_like(h), 1.0, 1.0 / mesh.dc, dstrat, ddt)
+        exact = h.reshape(-1, LEVELS).double().T @ (s.reshape(-1, LEVELS).double() / mesh.dc)
+        if not torch.equal(dstrat, exact):
+            raise AssertionError(f"stratified pass f32 {n}^2 integer data: d(W) "
+                                 f"{float((dstrat - exact).abs().max()):.3e} off the exact sums")
+        log(f"[20] stratified pass f32 {n}^2x{LEVELS} on integer data: d(W) bitwise the exact "
+            f"sums in double")
+        del mesh, stack, g, h, s
+    out = {"max_rel_err_f64": worst}
+    for n in (HEADLINE_N, LARGE_N):
+        h, s, w, dh = operands(n // 2, n, LEVELS, torch.float32)
+        ref = run(*(x.double() for x in (h, s, w, dh)))
+        got = run(h, s, w, dh)
+        max_abs = max(max_abs, float((got[0].double() - ref[0]).abs().max()))
+        dstrat = torch.zeros((LEVELS, LEVELS), dtype=torch.float64, device=dev)
+        ddt = torch.zeros(1, dtype=torch.float64, device=dev)
+        # a call of the wrapper: the pass's launch and the two kernels that
+        # sum its d(W) partials and d(dt) shares (a rollout call's once)
+        times = held_us(lambda: [adjoint_step.nl_strat_pass(h, s, w, dh, dt, inv_dc, dstrat, ddt)
+                                 for _ in range(PASS_TIMED)], PASS_TIMED, REPS)
+        plain = cuda_times(lambda: strat_pass(h, s, w, dt, inv_dc), REPS)
+        (b, by), sheet = strat_pass_bound(n // 2, n, LEVELS, 4), strat_pass_bound(
+            n // 2, n, LEVELS, 4, DATASHEET)[0]
+        us = statistics.median(times)
+        log(f"[20] stratified pass f32 {n}x{n}x{LEVELS}: {spread(times, 1, 'us')} a call (the "
+            f"pass and its two sums, held_us over {PASS_TIMED}); bound {b * 1e6:.3f} us ({by}; "
+            f"{sheet * 1e6:.3f} at the data sheet's rates): {b * 1e6 / us:.4f} of it; plain "
+            f"{spread(plain, 1e3, 'ms')}; {adjoint_step.strat_pass_groups(n * n)} groups of 2 "
+            f"blocks [{gpu}]")
+        key = "" if n == HEADLINE_N else "_256"
+        out.update({f"ms{key}": us / 1e3, f"bound_ms{key}": b * 1e3, f"bound_by{key}": by,
+                    f"plain_ms{key}": statistics.median(plain) * 1e3})
+        del h, s, w, dh, ref, got
+    out["max_abs_err"] = max_abs
+    torch.cuda.empty_cache()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def integer_strat_case(n: int):
+    """One f32 reverse step whose d(W) sums are exact in double, on the card
+    (tests/torch_gpu_cases.py's integer_strat_case at n x n x LEVELS): the
+    periodic lattice at 1024 m spacing, h = 2^20 + integers 0 .. 1023, u and
+    ssh 0, the cotangent of u integers -7 .. 7 (the others 0); with dt = 1 s
+    every product h dPhi and every sum of them in double is exact.
+    Returns (StructMesh, the one-slot (ssh, h, u) stack, the cotangent);
+    built once per size and shared by phases 18 and 20, which only read it."""
+    import numpy as np
+    import torch
+
+    import mpas_ocean_tpu_torch as mt
+    from mpas_ocean_tpu_torch.structured import StructState
+
+    horz = mt.planar_hex_mesh(n, n, 1024.0, f0=1e-4, dtype=np.float32)
+    vert = mt.make_vertical_mesh(horz, LEVELS, resting_thickness=np.full(
+        (horz.n_cells, LEVELS), 2.0 ** 20, dtype=np.float32), dtype=np.float32)
+    model = mt.StructuredModel(mt.Mesh(horz=horz, vert=vert), n, n)
+    rng = np.random.default_rng(31)
+    h = (2.0 ** 20 + rng.integers(0, 1024, size=(horz.n_cells, LEVELS))).astype(np.float32)
+    st = model.to_struct(mt.PrognosticVars(
+        ssh=torch.zeros(horz.n_cells), layer_thickness=torch.from_numpy(h),
+        normal_velocity=torch.zeros(horz.n_edges, LEVELS)))
+    gu = rng.integers(-7, 8, size=tuple(st.normal_velocity.shape)).astype(np.float32)
+    g = StructState(torch.zeros_like(st.ssh), torch.zeros_like(st.layer_thickness),
+                    torch.from_numpy(gu).to(st.normal_velocity))
+    return model.struct_mesh, tuple(getattr(st, f)[None].contiguous() for f in FIELDS), g
 
 
 def composed_reverse_phase(gpu: str, log_text: str) -> list:
@@ -6065,15 +6203,20 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
         for _, m, pre in kinds:
             for c in arm_names:
                 setattr(m, pre + c, 0)
+        adjoint_step.nl_strat_pass_launches = 0
 
     def counts():
-        return {name: tuple(getattr(m, pre + c) for c in arm_names) for name, m, pre in kinds}
+        c = {name: tuple(getattr(m, pre + c) for c in arm_names) for name, m, pre in kinds}
+        c["strat_pass"] = (adjoint_step.nl_strat_pass_launches,)
+        return c
 
     def want(kernel, n, opts):
         """The counts a run of n launches of ``kernel`` with ``opts``' arms
-        makes, every other kernel at 0."""
+        makes, every other kernel at 0 (the stratified pass: one after each
+        stratified nonlinear reverse launch)."""
         c = {name: (0,) * 4 for name, _, _ in kinds}
         c[kernel] = (n, *(n if o in opts else 0 for o in "FTS"))
+        c["strat_pass"] = (n if kernel == "nl_adjoint" and "S" in opts else 0,)
         return c
 
     with_tracers = random_tracers
@@ -6383,8 +6526,8 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
         if label == "64 auto":
             prof = profile_by_kernel(
                 lambda: grad_full(route, st_w, sm, n_steps, forcing, kappa, **kw),
-                ("fe_step_kernel", "nl_step_kernel", "nl_adjoint_kernel", "ddt_reduce",
-                 "strat_reduce"))
+                ("fe_step_kernel", "nl_step_kernel", "nl_adjoint_kernel", "strat_pass_kernel",
+                 "ddt_reduce", "strat_reduce"))
             log(f"[20] profiler, one full-physics grad at 64^2 ({prof[1]:.0f} us by events): "
                 + profile_line(*prof, gpu))
         del out, grads, st_w
@@ -6454,11 +6597,15 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
         plan = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n_tracers=2, strat=True)
         log(f"[20] the nonlinear reverse's composed plan at {n}^2 x {LEVELS} f32 (rows, columns, "
             f"levels per slice): {plan}, "
-            f"{adjoint_step.nl_adjoint_smem_bytes(plan[:2], LEVELS, 4, plan[2], 2, True)} bytes "
+            f"{adjoint_step.nl_adjoint_smem_bytes(plan[:2], 4, plan[2], 2)} bytes "
             f"of shared memory per block, one block per SM; plain plan "
-            f"{adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)}")
+            f"{adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)}; the stratified pass "
+            f"{adjoint_step.strat_pass_groups(2 * sm.ny2 * sm.nx)} groups of 2 blocks, "
+            f"(sub-chunk of cells, W's columns staged at once) "
+            f"{adjoint_step.strat_pass_fit(LEVELS, 4)}")
         del stack, st, steps
         torch.cuda.empty_cache()
+    sp = strat_pass_section(gpu)
     log(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s")
 
     med = statistics.median
@@ -6478,7 +6625,20 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
         return {f"{o or 'core'}_ms": med(per_launch[kernel, n, o]) / 1e3 for o in arms[:-1]}
 
     summed = sum(t for t, _ in prof[0].values())
+    pass_keys = {"strat_pass_launches": launches["64 auto"][0],
+                 "strat_pass_ms": sp["ms"], "strat_pass_ms_256": sp["ms_256"],
+                 "strat_pass_bound_ms": sp["bound_ms"],
+                 "strat_pass_bound_ms_256": sp["bound_ms_256"]}
     return [
+        {"name": "strat_pass (the nonlinear reverse's stratified pass)", "route": "cuda",
+         "source": "mpas_ocean_tpu_torch/csrc/adjoint_window.cuh",
+         "replaces": "mpas_ocean_tpu/structured/pallas_model.py:159 (the pressure's jnp.dot of h "
+                     "and W inside _adjoint_segment_kernel's jax.vjp, :1480, transposed)",
+         "launches": launches["64 auto"][0], "max_abs_err": sp["max_abs_err"],
+         "ms": sp["ms"], "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
+         "bound_by": sp["bound_by"], "library_ms": None, "ms_256": sp["ms_256"],
+         "plain_ms_256": sp["plain_ms_256"], "bound_ms_256": sp["bound_ms_256"],
+         "bound_by_256": sp["bound_by_256"], "max_rel_err_f64": sp["max_rel_err_f64"]},
         entry("nl_adjoint (composed arms: forced, tracers, stratified)", "nl_adjoint.cuh",
               "mpas_ocean_tpu/structured/pallas_model.py:1480 (nl_terms with the forced operands "
               ":1514-1520, gt_ref :1525-1526, sw_ref :1506-1510) and :1979 at q = 1",
@@ -6497,7 +6657,7 @@ def composed_reverse_phase(gpu: str, log_text: str) -> list:
                                   for k in ("64", "channel 64", "256")},
                "f32_gap_ratios_256_tiled": gaps["nl_adjoint", "tiled", "256"],
                "max_rel_err_f64": worst.get("nl_adjoint fused"),
-               "dot_gap": dots["NFTS", "fused_rollout_diff"],
+               "dot_gap": dots["NFTS", "fused_rollout_diff"], **pass_keys,
                "sources": ["mpas_ocean_tpu_torch/csrc/nl_adjoint.cuh",
                            "mpas_ocean_tpu_torch/csrc/nl_adjoint.cu",
                            "mpas_ocean_tpu_torch/csrc/nl_adjoint_f32.cu",
@@ -6543,10 +6703,12 @@ WINDOW_Q = 2
 WINDOW_REV_SS = 3
 # steps of the timed forward runs at 256^2 (the q = 2 composed FB step
 # takes 19 ms, so LARGE_MAIN_STEPS would cost phase 21 ~110 s more; the reps
-# spread 0.1-0.7%; 200 until phase 22 took the run's budget) and at 64^2
-# (LARGE_MAIN_STEPS until then), and reverse steps of the held_us timings
-WINDOW_TIMED_STEPS_256, WINDOW_HELD_STEPS = LARGE_MAIN_STEPS // 10, 16
-WINDOW_TIMED_STEPS_64 = LARGE_MAIN_STEPS // 5
+# spread 0.1-0.7%; 200 until phase 22 took the run's budget, 100 until a
+# run on a slower host reached 975 s by the end of phase 20) and at 64^2
+# (LARGE_MAIN_STEPS until then, 200 until that run), and reverse steps of
+# the held_us timings
+WINDOW_TIMED_STEPS_256, WINDOW_HELD_STEPS = LARGE_MAIN_STEPS // 20, 16
+WINDOW_TIMED_STEPS_64 = LARGE_MAIN_STEPS // 10
 WINDOW_GRAD_STEPS = LARGE_ADJ_STEPS // 5
 
 
@@ -7693,10 +7855,12 @@ SHARDED_SUPERSTEPS = 3  # supersteps of each f64 check
 # them would cost phase 22 ~60 s; the main path's 1000-step run is timed
 # once beside them
 SHARDED_ADJ_TIMED_STEPS = SHARDED_ADJ_STEPS // 10
-# steps of the superstep's timed variants (q = 1 and 4, P = 2 and 4): the
-# host's work per superstep sets their time a step, which 1000 steps read as
-# well as 8000; bench.py's cell and the single-chip kernel run 8000
-SHARDED_VARIANT_STEPS = HEADLINE_STEPS // 8
+# steps of the superstep's timed variants (q = 1 and 4, P = 2 and 4, record
+# only): the host's work per superstep sets their time a step, which 500
+# steps read as well as 8000 (1000 until a run on a slower host left the
+# whole run too little room under its limit); bench.py's cell and the
+# single-chip kernel run 8000
+SHARDED_VARIANT_STEPS = HEADLINE_STEPS // 16
 
 
 def sharded_phase(gpu: str, log_text: str) -> list:

@@ -775,4 +775,322 @@ static inline int strat_reduce(const double* acc, int n_tiles, int K, double* dw
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the nonlinear reverse's stratified pass -----------------------------
+//
+// The h @ W part of the stratified pressure's transpose for the nonlinear
+// reverse at q = 1 (nl_adjoint.cu launches it after each step's stencil
+// launch): the stencil kernel stores S = Sg at every cell and level in a
+// device scratch [cells][K], and this kernel, one launch a step, adds
+// (dt / dc) W S to the stored dh, forms the step's d(W) = (dt / dc) sum over
+// the cells of h (x) S in double, and d(dt)'s W part (1 / dc) sum W (.) that
+// sum. It replaces the in-kernel jnp.dot of the JAX step at HIGHEST
+// precision (mpas_ocean_tpu/structured/pallas_model.py:159-163, the TPU's
+// matrix unit) transposed inside kernel 3 (_adjoint_segment_kernel, :1480);
+// its plain version is structured/adjoint.strat_pass.
+//
+// Design. The cells fall in a fixed set of groups (one per 64 cells, at
+// most 64: kernels/adjoint_step.strat_pass_groups; a fixed range of cells
+// each) and the levels l of dh and of d(W)'s rows in
+// kPassSplits halves (8-aligned): a block per (group, half), walking its
+// group's cells in sub-chunks of cb, staged in shared memory transposed
+// (S [k][cell] at every level, h [l][cell] at the half's), with the half's
+// rows of W transposed (wt[k][l]), all K of its columns at once where they
+// fit (K = 100) and kb at a time where they do not:
+//   W S: a thread a 4-cell x 4-level register tile (at most one a thread:
+//     strat_pass_fit sizes cb so), the K-term sums in T in level order
+//     across W's column chunks (FP32 register tiles in f32), vector loads
+//     of S and W;
+//   d(W): the FP64 tensor cores (mma.sync m8n8k4 f64), D[l][k] += h[c][l]
+//     S[c][k] four cells a step, each warp holding up to kPassTiles 8 x 8
+//     tiles of the half's rows in registers over the group's range (more
+//     tiles in batches that walk the range again);
+//   after the range, d(dt)'s share (1 / dc) sum W (.) D over the block's
+//     tiles (the warps' sums in order), and (dt / dc) D written into its
+//     rows of the group's partial [groups][K][K] (k-major) at a call's
+//     first launch and added to at every later one; strat_reduce adds the
+//     partials in group order once per call. No atomics: f64 reruns are
+//     bitwise equal.
+// What bounds it: 2 K^2 operations per cell for each product (82 MFLOP at
+// 64x64x100, 1.3 GFLOP at 256x256x100) against h, S and dh read once and dh
+// written once (S is read by both halves); the partials take groups K^2
+// doubles (5.1 MB at K = 100). Shared memory grows with K through the
+// staged S and h only: the pass takes up to 1312 levels in f64 and 2048 in
+// f32 (strat_pass_fit; W's columns in chunks from 113 and 250 levels).
+template <typename T>
+struct StratPassArgs {
+  const T* h;      // the step's primal h, [cells][K]
+  const T* s;      // the step's S (the stencil's scratch), [cells][K]
+  const T* w;      // W (K, K), row-major
+  T* dh;           // the step's h cotangent, [cells][K], added to
+  double* acc;     // the groups' d(W) partials [groups][K][K], k-major
+  double* share;   // this launch's d(dt) shares, one per block
+  T dtdc;          // dt / dc in T (the W S product's scale)
+  double s_dw, s_dd;  // dt / dc and 1 / dc in double (d(W)'s and d(dt)'s)
+  int cells, K, chunk, cb, kb, first;  // cells a group (a multiple of cb); cells a
+                                       // sub-chunk; W's columns staged at once
+};
+
+constexpr int kPassThreads = 512;
+constexpr int kPassWarps = kPassThreads / 32;
+constexpr int kPassTiles = 8;   // most d(W) tiles a warp holds at once
+constexpr int kPassSplits = 2;  // level halves: blocks per group
+
+// The pass's strides for K levels and sub-chunks of cb cells: a half's
+// levels kh (8-aligned), the K rows padded to 8 (kp), the staged rows'
+// width (cb + 4: 16-byte rows, the tensor cores' fragments across banks).
+struct StratPassShape {
+  int kh, kp, cbp;
+  __host__ __device__ StratPassShape(int K, int cb) {
+    kh = (K + 8 * kPassSplits - 1) / (8 * kPassSplits) * 8;
+    kp = (K + 7) / 8 * 8;
+    cbp = cb + 4;
+  }
+};
+
+inline size_t strat_pass_smem_bytes(int K, int cb, int kb, size_t itemsize) {
+  const StratPassShape sh(K, cb);
+  return itemsize * (static_cast<size_t>(kb) * sh.kh +
+                     static_cast<size_t>(sh.kp + sh.kh) * sh.cbp) +
+         sizeof(double) * kPassWarps;
+}
+
+// The pass's staging at K levels in `max_smem` bytes: the sub-chunk cb, the
+// largest of 128, 64, 32, 16 and 8 cells whose W S tiles are at most one a
+// thread and whose S and h leave room for 8 of W's columns (all of them
+// below 8), then kb, the most of W's columns that fit: all K, else a
+// multiple of 8. False where no sub-chunk fits.
+inline bool strat_pass_fit(int K, size_t itemsize, int max_smem, int* cb, int* kb) {
+  for (int c = 128; c >= 8; c /= 2) {
+    const StratPassShape sh(K, c);
+    if ((sh.kh / 4) * (c / 4) > kPassThreads) continue;
+    const size_t base = strat_pass_smem_bytes(K, c, 0, itemsize), col = itemsize * sh.kh;
+    if (base + col * min(K, 8) > static_cast<size_t>(max_smem)) continue;
+    const int room = static_cast<int>((static_cast<size_t>(max_smem) - base) / col);
+    *cb = c;
+    *kb = room >= K ? K : room / 8 * 8;
+    return true;
+  }
+  return false;
+}
+
+// D += A B on the FP64 tensor cores, an 8 x 8 x 4 product per warp: a the
+// lane's element of A (row lane / 4, column lane % 4), b of B (row lane % 4,
+// column lane / 4), d0, d1 of D (row lane / 4, columns 2 (lane % 4) + 0, 1).
+__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+// Four consecutive values from 16-byte aligned shared memory.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  const double2 y = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = x.x, v[1] = x.y, v[2] = y.x, v[3] = y.y;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPassThreads, 1) strat_pass_kernel(const StratPassArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* red = reinterpret_cast<double*>(smem_raw);  // [kPassWarps]
+  T* wt = reinterpret_cast<T*>(red + kPassWarps);     // [kb][kh]: the half's W rows, transposed
+  const int K = a.K, cb = a.cb, kb = a.kb;
+  const StratPassShape sh(K, cb);
+  T* st = wt + kb * sh.kh;      // [kp][cbp]: the sub-chunk's S, transposed
+  T* ht = st + sh.kp * sh.cbp;  // [kh][cbp]: its h at the half's levels
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = blockIdx.x / kPassSplits;
+  const int l0 = (blockIdx.x % kPassSplits) * sh.kh, nl = min(sh.kh, K - l0);
+  const int begin = group * a.chunk, end = min(begin + a.chunk, a.cells);
+  const int lt_n = sh.kh / 8, kt_n = sh.kp / 8, n_tiles = nl > 0 ? lt_n * kt_n : 0;
+  const int per_batch = kPassWarps * kPassTiles;
+  const int n_batches = (n_tiles + per_batch - 1) / per_batch;
+  const int jg_n = sh.kh / 4, n_items = jg_n * (cb / 4);  // W S tiles: 4 levels x 4 cells
+  const int jg = tid % jg_n, cg = tid / jg_n;             // this thread's (tid < n_items)
+  const int cb_log2 = 31 - __clz(cb);
+  const bool whole = kb >= K;  // all of W's columns staged once
+  // W's columns k0 .. k0 + kb of the half's rows, transposed (rows past the
+  // half's levels 0)
+  auto stage_w = [&](int k0) {
+    const int n = min(kb, K - k0) * sh.kh;
+    for (int e = tid; e < n; e += kPassThreads) {
+      const int k = e / sh.kh, j = e - k * sh.kh;
+      wt[e] = j < nl ? a.w[(l0 + j) * K + k0 + k] : T(0);
+    }
+  };
+
+  allow_next_grid();
+  wait_previous_grid();
+  if (nl <= 0) {  // a half with no levels (K <= 8)
+    if (tid == 0) a.share[blockIdx.x] = 0.0;
+    return;
+  }
+  if (whole) stage_w(0);
+  for (int e = tid; e < (sh.kp + sh.kh) * sh.cbp; e += kPassThreads) st[e] = T(0);
+  double dd = 0.0;
+  for (int batch = 0; batch < n_batches; ++batch) {
+    // the warp's tiles: offsets of their fragments in ht and st
+    int ao[kPassTiles], bo[kPassTiles];
+#pragma unroll
+    for (int m = 0; m < kPassTiles; ++m) {
+      const int t = min(batch * per_batch + m * kPassWarps + warp, n_tiles - 1);
+      const int lt = t / kt_n, kt = t - lt * kt_n;
+      ao[m] = (lt * 8 + (lane >> 2)) * sh.cbp + (lane & 3);
+      bo[m] = (kt * 8 + (lane >> 2)) * sh.cbp + (lane & 3);
+    }
+    double d[kPassTiles][2];
+#pragma unroll
+    for (int m = 0; m < kPassTiles; ++m) d[m][0] = d[m][1] = 0.0;
+    for (int c0 = begin; c0 < end; c0 += cb) {
+      __syncthreads();
+      // the sub-chunk, transposed (rows past K and past the half's levels
+      // stay 0), a thread a cell of a row, eight loads in flight a thread
+      const int n_s = cb * K, n_h = cb * nl;
+      for (int e0 = tid; e0 < n_s + n_h; e0 += 8 * kPassThreads) {
+        T v[8];
+        int dst[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = e0 + i * kPassThreads;
+          const int x = e < n_s ? e : e - n_s;
+          const int c = x & (cb - 1), k = x >> cb_log2;
+          dst[i] = e < n_s ? k * sh.cbp + c : e < n_s + n_h ? (sh.kp + k) * sh.cbp + c : -1;
+          v[i] = T(0);
+          if (dst[i] >= 0 && c0 + c < end)
+            v[i] = e < n_s ? a.s[static_cast<size_t>(c0 + c) * K + k]
+                           : a.h[static_cast<size_t>(c0 + c) * K + l0 + k];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (dst[i] >= 0) st[dst[i]] = v[i];
+      }
+      __syncthreads();
+      // d(W): four cells a step, the warp's tiles in order
+      for (int c4 = 0; c4 < cb; c4 += 4) {
+#pragma unroll
+        for (int m = 0; m < kPassTiles; ++m)
+          if (batch * per_batch + m * kPassWarps + warp < n_tiles)
+            mma_f64(d[m][0], d[m][1], static_cast<double>(ht[ao[m] + c4]),
+                    static_cast<double>(st[bo[m] + c4]));
+      }
+      if (batch > 0) continue;
+      // W S into dh: the K-term sums in T, in level order, across W's
+      // column chunks
+      T acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+      for (int k0 = 0; k0 < K; k0 += kb) {
+        if (!whole) {
+          __syncthreads();
+          stage_w(k0);
+          __syncthreads();
+        }
+        const int k1 = min(k0 + kb, K);
+        if (tid < n_items)
+          for (int k = k0; k < k1; ++k) {
+            T sv[4], wv[4];
+            load4(st + k * sh.cbp + 4 * cg, sv);
+            load4(wt + (k - k0) * sh.kh + 4 * jg, wv);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j] += wv[j] * sv[i];
+          }
+      }
+      if (tid < n_items) {
+        T old[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = c0 + 4 * cg + i, l = 4 * jg + j;
+            old[i][j] = c < end && l < nl ? a.dh[static_cast<size_t>(c) * K + l0 + l] : T(0);
+          }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = c0 + 4 * cg + i, l = 4 * jg + j;
+            if (c < end && l < nl)
+              a.dh[static_cast<size_t>(c) * K + l0 + l] = old[i][j] + a.dtdc * acc[i][j];
+          }
+      }
+    }
+    // the group's d(W) partial at the half's rows, and d(dt)'s terms
+#pragma unroll
+    for (int m = 0; m < kPassTiles; ++m) {
+      const int t = batch * per_batch + m * kPassWarps + warp;
+      if (t >= n_tiles) continue;
+      const int lt = t / kt_n, kt = t - lt * kt_n;
+      const int j = lt * 8 + (lane >> 2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int k = kt * 8 + 2 * (lane & 3) + i;
+        if (j >= nl || k >= K) continue;
+        dd += static_cast<double>(a.w[(l0 + j) * K + k]) * d[m][i];
+        double* o = a.acc + (static_cast<size_t>(group) * K + k) * K + l0 + j;
+        *o = a.first ? a.s_dw * d[m][i] : *o + a.s_dw * d[m][i];
+      }
+    }
+  }
+  dd = warp_sum(dd);
+  if (lane == 0) red[warp] = dd;
+  __syncthreads();
+  if (tid == 0) {
+    double v = red[0];
+    for (int w = 1; w < kPassWarps; ++w) v += red[w];
+    a.share[blockIdx.x] = a.s_dd * v;
+  }
+}
+
+// One launch of the pass over `groups` groups (kPassSplits blocks each)
+// with `smem` bytes a block (after the previous kernel on the stream, which
+// it may overlap until its wait_previous_grid); returns 0 or the CUDA error.
+template <typename T>
+int launch_strat_pass(const StratPassArgs<T>& a, int groups, size_t smem, int max_smem,
+                      cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        strat_pass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * kPassSplits);
+  cfg.blockDim = dim3(kPassThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t le = cudaLaunchKernelEx(&cfg, strat_pass_kernel<T>, a);
+  if (le == cudaSuccess) le = cudaGetLastError();
+  return static_cast<int>(le);
+}
+
+// The pass's operands for one call: `groups` groups over `cells` cells,
+// each a range of a multiple of cb cells; false where no sub-chunk fits.
+template <typename T>
+inline bool strat_pass_setup(StratPassArgs<T>* p, size_t* smem, int cells, int K, int groups,
+                             int max_smem, const T* w, double* acc, double dt, double inv_dc) {
+  int cb = 0, kb = 0;
+  if (!strat_pass_fit(K, sizeof(T), max_smem, &cb, &kb) || groups < 1) return false;
+  const int per = (cells + groups - 1) / groups;
+  *p = StratPassArgs<T>{nullptr, nullptr, w, nullptr, acc, nullptr, T(dt) * T(inv_dc),
+                        static_cast<double>(T(dt)) * static_cast<double>(T(inv_dc)),
+                        static_cast<double>(T(inv_dc)), cells, K, (per + cb - 1) / cb * cb, cb,
+                        kb, 1};
+  *smem = strat_pass_smem_bytes(K, cb, kb, sizeof(T));
+  return true;
+}
+
 }  // namespace lattice

@@ -36,10 +36,21 @@
 //   D (the tile): du = gu + h_edge dF + 2 s_ke u (dKE_owner + dKE_nbr) + the
 //     curl's transpose of dzeta s_curl, dh = G + sum over the 6 edges of
 //     u dF / 2 + the kite's transpose of dh_v, dKE = dt Sg / dc; the level
-//     sums of Sg for ds.
+//     sums of Sg for ds. A thread takes one parity of a (site, level): its
+//     three du channels and its dh (2 core ks items: 512 on the core's
+//     (8, 8, 4) plan, every thread busy); where the items are at most half
+//     the block's threads (256 on the tracer arms' (4, 8, 4) plan), two
+//     threads take each, the three du channels on one and the dh on the
+//     other, and where at most a quarter (128 on f64's (4, 4, 4)), four, a
+//     du channel on each of three: on the planner's plans no thread idles.
+//     Each output is a template instance with its channel's offsets
+//     constant.
 // Levels couple only through ds = (g / dc) dt sum_k Sg and d(dt): as in
 // adjoint_step.cu, a thread-block cluster takes a tile, its blocks split the
-// levels in power-of-two chunks (step_window.cuh), each block's per-site
+// levels in chunks of kc (a multiple of the slice; nl_adjoint.cu's
+// choose_kc picks the split that the card's resident clusters run in the
+// fewest slice times: at 64x64x100 f32 3 blocks of 36 levels, not 7 of
+// 16, the last of which idled at the cluster barrier), each block's per-site
 // partial sums are added by rank 0 in rank order through distributed shared
 // memory, and each block writes one d(dt) share that ddt_reduce adds in a
 // fixed order: no atomics, so f64 reruns are bitwise equal. A block walks its
@@ -47,14 +58,17 @@
 // the primal h, u and the cotangent gh, gu comes in by async copies (16-byte
 // ones where the shape allows; adjoint_window.cuh folds gs into gh and, on a
 // channel, the wall mask into gu: fold_ssh, fold_live), then the four
-// stages, one barrier apart; the window is single-buffered. The stencils are
+// stages. Each slice waits for its own copies (the tracer arm's h' and T'
+// loads are issued before the wait); a second window buffer, which would
+// keep the next slice's copies in flight as nl_step.cuh's forward does, fits
+// none of the main plans. The folds and stage A share one barrier. The stencils are
 // resolved once per call on the host into constant-bank offsets: the Coriolis
 // table through resolve_taps (T) and resolve_adjoint_taps (T^T: hex_adj::),
 // the vertex tables through hex_vert:: and their transposes hex_vadj::, which
 // the host derives from the tables and checks; the kernel takes the hex
 // lattice's tables only. Shared memory binds: 16 window values per
-// site-level, 12 on ring A, 14 on ring B and 8 on ring C, so slices are
-// 1-4 levels and a block takes an SM (kernels/adjoint_step.nl_adjoint_plan).
+// site-level a buffer, 12 on ring A, 14 on ring B and 8 on ring C, so slices
+// are 1-4 levels and a block takes an SM (kernels/adjoint_step.nl_adjoint_plan).
 // What bounds it is read in PERF.md: per (m, i, k) site a primal state, a
 // cotangent and the vertex constants read, a cotangent written (bytes, like
 // the linear reverse), against ~3x the forward's arithmetic on rings that
@@ -63,36 +77,38 @@
 // The composed arms (template flags kForced, kTracers, kStrat, each off in
 // the plain arm's code; structured/adjoint.structured_nl_adjoint_step with
 // forcing=, tracers and strat=):
-//   forced: Rayleigh's du -= dt lambda gu in stage D at every level (its
+//   forced: in stage D, Rayleigh's du -= dt lambda gu at every level (its
 //     sum of gu u in double gives d(lambda) and d(dt)'s Rayleigh part), and
-//     after stage D of each slice, in the ranks whose chunk holds some
-//     edge's top or bottom level, two passes over the tile (a thread an
-//     edge, then a cell; adjoint_window.cuh's wind_drag_adjoint and
-//     wind_drag_dhe): at the slice's top and bottom levels the wind and drag
-//     terms added to the stored du, d(wind) per edge in place (one block
-//     owns each edge's top level), the d(r_lin) and d(Cd) shares, and the
-//     h_edge cotangents added to the stored dh, half to each of the edge's
-//     cells. The winds and packed levels are read from device memory there:
-//     two levels of the K touch them, and shared memory is what bounds the
-//     slice. A block writes kShares shares in double, summed in a fixed
-//     order as adjoint_step.cu's forced arm does.
+//     at each edge's top and bottom level (the packed levels of the edges
+//     owned on the tile plus one ring staged once a launch) the wind and
+//     drag terms added to du (adjoint_window.cuh's wind_drag_adjoint),
+//     d(wind) per edge in place (one block owns each edge's top level), the
+//     d(r_lin) and d(Cd) shares, and the h_edge cotangents of the cell's 6
+//     edges added to its dh, half each (wind_drag_dhe). The winds are read
+//     from device memory at those levels only. A block writes kShares shares
+//     in double, summed in a fixed order as adjoint_step.cu's forced arm
+//     does.
 //   tracers: each slice's window carries the 2 nT tracer planes of the
-//     primal and of the cotangent after the state's 8 (SK planes a state),
+//     primal and of the cotangent after the state's 8 (n_pl planes a state),
 //     a and the h' feedback folded into G once per slice from h' and T' of
-//     state j + 1 (the stack's next slot, or `end`: fold_tracers); stage B
-//     adds the tracers' flux cotangent sum_t dg te to dF on ring B, where
-//     the incoming edges' u dF reads it; stage D forms, per site-level, the
+//     state j + 1 (the stack's next slot, or `end`), read from device memory
+//     into registers while the window's copies land (fold_tracers' work,
+//     which it does for more than 2 tracers). Stage B
+//     forms each edge's tracer transpose once, at the owner's site on the
+//     tile plus one ring (tracer_edge_once): the tracers' flux cotangent
+//     sum_t dg te joins dF there, and the edge's kappa h_edge cotangent
+//     (summed over the tracers) and per tracer dT_n, dT_o and its flux g go
+//     to shared memory ([1 + 3 nT][6][ring C][ks]); stage D's dh items read
+//     them back for the owned and the incoming edges (tracer_cell_sums): the
 //     tracer cotangents, the kappa h_edge cotangents, sum_t a T and the
-//     per-cell d(dt) terms (tracer_adjoint without the incoming edges' u dF),
-//     and takes <G, tend_h> per cell from them in place of stage B's edge
+//     per-cell d(dt) terms, <G, tend_h> per cell in place of stage B's edge
 //     form, as the linear tracer arm does.
-//   stratified: stage D keeps the slice's S = Sg at the tile's cells in
-//     shared memory, so that each rank holds its chunk of S on the tile
-//     ([2][core][kc]) with its rows of W; after the slices a cluster barrier
-//     and adjoint_window.cuh's strat_adjoint_pass (every rank's S read in
-//     place, the rank's h from device memory) add (dt / dc) W S to the
-//     stored dh and form the tile's d(W) rows in double into its
-//     accumulator, summed over tiles by strat_reduce, no atomics.
+//   stratified: stage D's dh items store the step's S = Sg at every cell
+//     and level of the tile in a device scratch [cells][K]; after the launch
+//     one launch of adjoint_window.cuh's strat_pass_kernel adds (dt / dc) W S
+//     to the stored dh and forms the step's d(W) (on the FP64 tensor cores)
+//     and d(dt)'s W part; nl_adjoint.cu chains the two by programmatic
+//     dependent launch.
 
 #pragma once
 
@@ -172,6 +188,8 @@ struct NlAdjArgs {
   T ds_scale, dke_scale;
   int ny2, nx, K, rt, ct, n_fv, kc_log2, ks_log2, vec_log2, n_tiles_i;
   long long n_shares;
+  T* s_out;  // the stratified arm's S scratch [cells][K] (q = 1 kernel); null otherwise
+  int kc;    // levels a block of the q = 1 kernel (a multiple of ks; kc_log2 is the q > 1 one's)
 };
 
 // The stencils as offsets, resolved once per call on the host (kernel
@@ -192,6 +210,8 @@ struct NlAdjTaps {
   int d_kw[hex_vadj::kTaps];  //   their vertices, window sites (the channel's kite planes)
   int d_ke[6];                //   Sg across channel c's owned edge, ring B
   int d_f[6];                 //   dF at incoming edge x = 3p + j, ring B
+  int d_tr[6];                //   the tracers' values of incoming edge x, ring C
+  int c_inc[6];               //   its owner's ring C site, from the site's
   AdjTaps<T> adj;  // T^T on the window: its weights, the gu and G sources of stage B,
                    // and the sources of the composed arms (as the linear reverse's)
 };
@@ -275,6 +295,8 @@ inline bool resolve_nl_adjoint_taps(NlAdjTaps<T>* s, const int* table, const dou
   for (int x = 0; x < 6; ++x) {
     const int* tc = table + kInc + 3 * x;
     s->d_f[x] = ((6 + tc[0]) * B + tc[1] * Bi + tc[2]) * ks;
+    s->d_tr[x] = (tc[0] * C + tc[1] * Ci + tc[2]) * ks;
+    s->c_inc[x] = tc[1] * Ci + tc[2];
   }
   return true;
 }
@@ -332,96 +354,97 @@ __device__ __forceinline__ T tracer_dflux(const T* P, const T* C, int pk, const 
   return sum;
 }
 
-// The forced arm's passes after stage D of a slice (levels kb .. kb + kn -
-// 1 of the block's chunk from k0), over the tile's rt x ct sites: first a
-// thread an owned edge, which at the edge's top and bottom level in the
-// slice adds the wind and drag terms to the stored du and d(wind), and
-// their d(dt), d(r_lin) and d(Cd) terms to *dd, *d_lin, *d_quad; then a
-// thread a cell, which at each slice level that is the top or bottom level
-// of one of its 6 edges adds 1/2 their h_edge cotangents to the stored dh
-// (as dh_pass<true>). `st` and `cot` are the window's primal and (folded)
-// cotangent slices, the winds and packed levels are read from device memory
-// (incoming edges at their owners' lattice sites, gsite).
+// The tracers' transpose at the owned edge of channel ch of a site-level,
+// formed once for both of its cells (tracer_edge_adjoint with the edge's
+// kappa term and live bit `live`; dg = dt s_div (a_nb - a_own), the sign of
+// the primal flux F held fixed): returns sum_t dF, the tracers' flux
+// cotangent that joins dF, and stores at `out` (values [1 + 3 nT][6] planes
+// of `stride` apart) the sum over the tracers of the kappa h_edge
+// cotangent, then per tracer dT_n, dT_o and the flux g. P and C point at the
+// site-level in the window's primal and cotangent slices, the tracer planes
+// after the state's 8, pk values a plane apart.
 template <typename T>
-__device__ __forceinline__ void nl_forcing_passes(const NlAdjArgs<T>& a, const AdjTaps<T>& tp,
-                                                  const T* st, const T* cot, const int* gsite,
-                                                  int tm, int ti, int Wi, int kb, int kn, int k0,
-                                                  double* dd, double* d_lin, double* d_quad) {
-  const int ks = 1 << a.ks_log2, core = a.rt * a.ct, plane = a.ny2 * a.nx, K = a.K;
-  const FastDiv by_ct(a.ct);
-  for (int e = threadIdx.x; e < 6 * core; e += blockDim.x) {
-    const int ch = e / core, t = e - ch * core;
-    const int r = by_ct.div(t), c = by_ct.mod(t, r);
-    const int gm = tm * a.rt + r, gi = ti * a.ct + c;
-    if (gm >= a.ny2 || gi >= a.nx) continue;
-    const int g = gm * a.nx + gi;
-    const int lv = a.fc.lvl[ch * plane + g];
-    int lev[2];
-    chunk_levels(lv, k0 + kb, kn, &lev[0], &lev[1]);
-    const int sw = (r + kWinM) * Wi + c + kWinI;
-    for (int j = 0; j < 2; ++j) {
-      const int kl = lev[j];
-      if (kl < 0) continue;
-      const T* v = st + sw * ks + kl;
-      const T* gq = cot + sw * ks + kl;
-      const int us = tp.us[hex::self_u(ch)];
-      const T he = T(0.5) * (v[tp.hs[hex::nb_h(ch)]] + v[tp.hs[hex::self_h(ch & 1)]]);
-      T du = T(0);
-      wind_drag_adjoint(gq[us], v[us], he, lv, k0 + kb + kl, a.fc.wind + ch * plane + g,
-                        a.dwind + ch * plane + g, a.fc, a.dt, &du, dd, d_lin, d_quad);
-      T& o = a.du[(static_cast<size_t>(ch) * plane + g) * K + k0 + kb + kl];
-      o = o + du;
-    }
+__device__ __forceinline__ T tracer_edge_once(const T* P, const T* C, int pk, const AdjTaps<T>& tp,
+                                              const AdjTracers<T>& at, int ch, T F, bool live,
+                                              T dt_div, T inv_dc, T* out, int stride) {
+  const int o = tp.hs[hex::self_h(ch & 1)], nb = tp.hs[hex::nb_h(ch)];
+  const T he = T(0.5) * (P[nb] + P[o]);
+  T sum = T(0), dhe_sum = T(0);
+  for (int t = 0; t < at.n; ++t) {
+    const T* tv = P + (8 + 2 * t) * pk;
+    const T* av = C + (8 + 2 * t) * pk;
+    T dF, dtn, dto, dhe, g;
+    tracer_edge_adjoint(F, he, tv[nb], tv[o], dt_div * (av[nb] - av[o]), live, at, inv_dc, &dF,
+                        &dtn, &dto, &dhe, &g);
+    sum += dF;
+    dhe_sum += dhe;
+    T* v = out + (1 + 3 * t) * 6 * stride;
+    v[0] = dtn;
+    v[6 * stride] = dto;
+    v[12 * stride] = g;
   }
-  for (int e = threadIdx.x; e < 2 * core; e += blockDim.x) {
-    const int p = e >= core ? 1 : 0, t = e - p * core;
-    const int r = by_ct.div(t), c = by_ct.mod(t, r);
-    const int gm = tm * a.rt + r, gi = ti * a.ct + c;
-    if (gm >= a.ny2 || gi >= a.nx) continue;
-    const int g = gm * a.nx + gi;
-    const int sw = (r + kWinM) * Wi + c + kWinI;
-    // the 6 edges: owned i = f (channel 2f + p), incoming x = 3p + i - 3
-    int lv[6], ew[6];
+  out[0] = dhe_sum;
+  return sum;
+}
+
+// The tracer transpose's per-cell half at one (site, level) of the tile and
+// parity P, from the edges' values tracer_edge_once stored (`pe` at the
+// site's ring C site-level; an incoming edge's at its owner's, tp.d_tr):
+// per tracer dT = a h + the owned edges' dT_o + the incoming ones' dT_n,
+// through store(2 t + P, v); in *trX the six edges' kappa h_edge cotangents,
+// in *trY sum_t a T, and in *dd the d(dt) terms that the h' feedback makes
+// cancel, <G, tend_h> and sum_t <a, tend_T>, per cell as tracer_adjoint forms
+// them (a cell's G or a times its divergence, in the forward's order).
+template <int P, typename T, typename Store>
+__device__ __forceinline__ void tracer_cell_sums(const T* Pv, const T* Cv, int pk,
+                                                 const NlAdjTaps<T>& tp, const AdjTracers<T>& at,
+                                                 const T* pe, int CK, T s_div, T* trX, T* trY,
+                                                 double* dd, Store store) {
+  const AdjTaps<T>& ap = tp.adj;
+  const int o = ap.hs[hex::self_h(P)];
+  T total = T(0);  // the owned edges' flux - the incoming ones'
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      ew[i] = i < 3 ? (2 * i + p) * plane + g
-                    : tp.inc_ch[3 * p + i - 3] * plane + gsite[sw + tp.inc_off[3 * p + i - 3]];
-      lv[i] = a.fc.lvl[ew[i]];
-    }
-    for (int m = 0; m < 12; ++m) {
-      int lev[2];
-      chunk_levels(lv[m >> 1], k0 + kb, kn, &lev[0], &lev[1]);
-      const int kl = lev[m & 1];
-      if (kl < 0) continue;
-      bool seen = false;  // the level of an earlier (edge, end)
-      for (int m2 = 0; m2 < m; ++m2) {
-        int l2[2];
-        chunk_levels(lv[m2 >> 1], k0 + kb, kn, &l2[0], &l2[1]);
-        seen = seen || l2[m2 & 1] == kl;
-      }
-      if (seen) continue;
-      const T* v = st + sw * ks + kl;
-      const T* gq = cot + sw * ks + kl;
-      const T hc = v[tp.hs[hex::self_h(p)]];
-      T dhe = T(0);
-#pragma unroll
-      for (int f = 0; f < 3; ++f) {
-        const int ch = 2 * f + p, us = tp.us[hex::self_u(ch)];
-        dhe += wind_drag_dhe(gq[us], v[us], T(0.5) * (v[tp.hs[hex::nb_h(ch)]] + hc), lv[f],
-                             k0 + kb + kl, a.fc.wind + ew[f], a.fc, a.dt);
-      }
-#pragma unroll
-      for (int x = 3 * p; x < 3 * p + 3; ++x) {
-        const int us = tp.us[hex::inc_u(x)];
-        dhe += wind_drag_dhe(gq[us], v[us],
-                             T(0.5) * (v[tp.hs[hex::inc_nb_h(x)]] + v[tp.hs[hex::inc_self_h(x)]]),
-                             lv[x - 3 * p + 3], k0 + kb + kl, a.fc.wind + ew[x - 3 * p + 3], a.fc,
-                             a.dt);
-      }
-      T& o = a.dh[(static_cast<size_t>(p) * plane + g) * K + k0 + kb + kl];
-      o = o + T(0.5) * dhe;
-    }
+  for (int f = 0; f < 3; ++f) {
+    const int ch = 2 * f + P;
+    const T fl = Pv[ap.us[hex::self_u(ch)]] * (T(0.5) * (Pv[ap.hs[hex::nb_h(ch)]] + Pv[o]));
+    total = (f == 0) ? fl : total + fl;
   }
+#pragma unroll
+  for (int x = 3 * P; x < 3 * P + 3; ++x)
+    total = total - Pv[ap.us[hex::inc_u(x)]] *
+                        (T(0.5) * (Pv[ap.hs[hex::inc_nb_h(x)]] + Pv[ap.hs[hex::inc_self_h(x)]]));
+  *dd = static_cast<double>(Cv[o] * -(total * s_div));
+  T x_sum = T(0);
+#pragma unroll
+  for (int f = 0; f < 3; ++f) x_sum += pe[(2 * f + P) * CK];
+#pragma unroll
+  for (int x = 3 * P; x < 3 * P + 3; ++x) x_sum += pe[tp.d_tr[x]];
+  *trX = x_sum;
+  T y = T(0);
+  const T h_o = Pv[o];
+  for (int t = 0; t < at.n; ++t) {
+    const T a_o = Cv[(8 + 2 * t) * pk + o];
+    T d = a_o * h_o;
+    y += a_o * Pv[(8 + 2 * t) * pk + o];
+    const T* dn = pe + (1 + 3 * t) * 6 * CK;
+    const T* dov = dn + 6 * CK;
+    const T* gv = dn + 12 * CK;
+    T tot = T(0);
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      const int ch = 2 * f + P;
+      d += dov[ch * CK];
+      tot = (f == 0) ? gv[ch * CK] : tot + gv[ch * CK];
+    }
+#pragma unroll
+    for (int x = 3 * P; x < 3 * P + 3; ++x) {
+      d += dn[tp.d_tr[x]];
+      tot = tot - gv[tp.d_tr[x]];
+    }
+    *dd += static_cast<double>(a_o * -(tot * s_div));
+    store(2 * t + P, d);
+  }
+  *trY = y;
 }
 
 // One reverse step; a cluster of n_ranks blocks per tile, blocks of
@@ -441,29 +464,47 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int Bi = a.ct + 2 * kRingBi, B = (a.rt + 2 * kRingBm) * Bi;
   const int Ci = a.ct + 2 * kRingCi, C = (a.rt + 2 * kRingCm) * Ci;
   const int core = a.rt * a.ct;
-  const int kc = 1 << a.kc_log2, ks = 1 << a.ks_log2;
+  const int kc = a.kc, ks = 1 << a.ks_log2;
   const int k0 = rank * kc, kr = min(kc, a.K - k0);
   const int n_slices = (kr + ks - 1) >> a.ks_log2;
   const int plane = a.ny2 * a.nx;
   const int K = a.K;
   const int WK = W * ks, AK = A * ks, BK = B * ks, CK = C * ks;
-  // the tracer arm's planes follow the state's, in the primal and the cotangent
+  // the tracer arm's planes follow the state's, in the primal and the
+  // cotangent; the window holds both slices; the tracer arm's values per
+  // edge (tracer_edge_once)
   const int n_pl = kTracers ? 8 + 2 * a.at.n : 8;
+  const int SK = 2 * n_pl * WK;
+  const int n_te = kTracers ? 1 + 3 * a.at.n : 0;
 
   double* red = reinterpret_cast<double*>(smem_raw);  // [kRedDoubles]
-  T* st = reinterpret_cast<T*>(red + kRedDoubles);    // [n_pl][W][ks]: h, u, T
-  T* cot = st + n_pl * WK;                            // [n_pl][W][ks]: G, gu, a
-  T* pa = st + 2 * n_pl * WK;                         // [12][A][ks]: F, q_e
+  T* win = reinterpret_cast<T*>(red + kRedDoubles);   // [2][n_pl][W][ks]: h, u, T; G, gu, a
+  T* pa = win + SK;                                   // [12][A][ks]: F, q_e
   T* pb = pa + kAPlanes * AK;                         // [14][B][ks]: dq_e, dF, Sg
   T* pc = pb + kBPlanes * BK;                         // [8][C][ks]: dzeta s_curl, dh_v
-  T* ssh_s = pc + kCPlanes * CK;                      // [2][W]
+  T* pt = pc + kCPlanes * CK;                         // [n_te][6][C][ks]: the tracers' edges
+  T* ssh_s = pt + 6 * n_te * CK;                      // [2][W]
   T* gs_s = ssh_s + 2 * W;                            // [2][W]
-  T* fv_s = gs_s + 2 * W;                             // [kFv][W]
-  T* part = fv_s + kFv * W;                           // [2][core]: sum over levels of Sg
+  T* fv_s = gs_s + 2 * W;                             // [n_fv][W]
+  T* part = fv_s + a.n_fv * W;                        // [2][core]: sum over levels of Sg
   int* gsite = reinterpret_cast<int*>(part + 2 * core);  // [W]
   int* live_s = gsite + W;                               // [W]
-  // the stratified arm's S chunk on the tile and W rows
-  const StratAdjSmem<T> ssm(live_s + W, core, 1 << a.kc_log2);
+  int* lvl_s = live_s + W;  // [6][C]: the forced arm's packed levels of the edges owned on ring C
+
+  // the copies of slice sl of the primal state and the cotangent (and the
+  // tracer planes) into the window
+  auto issue = [&](int sl, T* st) {
+    const int kb = sl * ks, kn = min(ks, kr - kb);
+    T* cot = st + n_pl * WK;
+    load_slice(st, gsite, a.h, a.u, W, a.ks_log2, a.vec_log2, k0 + kb, kn, K, plane);
+    load_slice(cot, gsite, a.gh, a.gu, W, a.ks_log2, a.vec_log2, k0 + kb, kn, K, plane);
+    if (kTracers) {
+      load_tracers(st + 8 * WK, gsite, a.at.tr, 2 * a.at.n, W, a.ks_log2, a.vec_log2, k0 + kb,
+                   kn, K, plane);
+      load_tracers(cot + 8 * WK, gsite, a.at.gtr, 2 * a.at.n, W, a.ks_log2, a.vec_log2, k0 + kb,
+                   kn, K, plane);
+    }
+  };
 
   allow_next_grid();
   window_sites(gsite, tm * a.rt - kWinM, ti * a.ct - kWinI, Wi, W, a.ny2, a.nx, 0);
@@ -478,7 +519,13 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     for (int x = 0; x < a.n_fv; ++x) copy_async(fv_s + x * W + s, a.fv + x * plane + g);
   }
   if (kMasked) load_live(live_s, gsite, a.live, W);
-  if (kStrat) load_strat_rows(ssm, a.st.w, core, K, k0, kr, a.kc_log2);
+  if (kForced)
+    for (int e = threadIdx.x; e < 6 * C; e += blockDim.x) {
+      const int ch = e / C, x = e - ch * C, r = x / Ci, c = x - r * Ci;
+      copy_async(lvl_s + e, a.fc.lvl + ch * plane +
+                                gsite[(r + kWinM - kRingCm) * Wi + c + kWinI - kRingCi]);
+    }
+  if (n_slices > 0) issue(0, win);
   __pipeline_commit();
 
   const T dt_div = a.dt * a.s_div;
@@ -488,32 +535,76 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int lane_mask = ks - 1;
   double share = 0.0;
   // the forced arm: dt lambda; the sums, in double, of gu u (Rayleigh) and
-  // of the d(r_lin) and d(Cd) shares; whether this rank's chunk holds some
-  // edge's top or bottom level (its passes run)
+  // of the d(r_lin) and d(Cd) shares
   const T dt_rayl = a.dt * a.fc.rayl;
   double s_rayl = 0.0, s_lin = 0.0, s_quad = 0.0;
-  const bool wd = kForced && ((a.fc.lvl_ranks >> rank) & 1u);
+  // stage D's items: the 2 parities of a (site, level), on `split` threads
+  // each where they are at most a half or a quarter of the block: at 2 the
+  // three du channels on the first and the dh on the second, at 4 a du
+  // channel on each of the first three
+  const int nd = (2 * core) << a.ks_log2;
+  const int split = 4 * nd <= static_cast<int>(blockDim.x)   ? 4
+                    : 2 * nd <= static_cast<int>(blockDim.x) ? 2
+                                                             : 1;
+  // the tracer arm's fold from values loaded before each window wait (up to
+  // kFoldTracers tracers and kFoldItems items a thread; fold_tracers else)
+  constexpr int kFoldItems = 6, kFoldTracers = 2;
+  const bool fold_fast = kTracers && a.at.n <= kFoldTracers &&
+                         (2 * W << a.ks_log2) <= kFoldItems * static_cast<int>(blockDim.x);
 
   for (int sl = 0; sl < n_slices; ++sl) {
     const int kb = sl * ks;           // the slice's first level in the chunk
     const int kn = min(ks, kr - kb);  // its real levels
-    load_slice(st, gsite, a.h, a.u, W, a.ks_log2, a.vec_log2, k0 + kb, kn, K, plane);
-    load_slice(cot, gsite, a.gh, a.gu, W, a.ks_log2, a.vec_log2, k0 + kb, kn, K, plane);
-    if (kTracers) {
-      load_tracers(st + 8 * WK, gsite, a.at.tr, 2 * a.at.n, W, a.ks_log2, a.vec_log2, k0 + kb,
-                   kn, K, plane);
-      load_tracers(cot + 8 * WK, gsite, a.at.gtr, 2 * a.at.n, W, a.ks_log2, a.vec_log2, k0 + kb,
-                   kn, K, plane);
+    T* st = win;
+    T* cot = st + n_pl * WK;
+    // the tracer arm: h' and T' (and on a channel the cell mask) of the
+    // fold's items from device memory, loaded while the window's copies land
+    T fh[kFoldItems], ft[kFoldItems][kFoldTracers], fm[kFoldItems];
+    if (kTracers && fold_fast)
+#pragma unroll
+      for (int i = 0; i < kFoldItems; ++i) {
+        const int e = threadIdx.x + i * blockDim.x, q = e >> a.ks_log2, kl = e & lane_mask;
+        fh[i] = T(1), fm[i] = T(1);
+        if (q >= 2 * W || kl >= kn) continue;
+        const int p = q >= W ? 1 : 0;
+        const size_t g = static_cast<size_t>(p) * plane + gsite[q - p * W];
+        const size_t o = g * K + k0 + kb + kl;
+        fh[i] = a.at.h_next[o];
+        if (kMasked) fm[i] = a.at.cmask[g];
+#pragma unroll
+        for (int t = 0; t < kFoldTracers; ++t)
+          if (t < a.at.n) ft[i][t] = a.at.tr_next[o + static_cast<size_t>(2 * t) * plane * K];
+      }
+    if (sl > 0) {  // the last slice's stages are done (the barrier after stage D)
+      issue(sl, st);
+      __pipeline_commit();
     }
-    __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
+    // the folds (fold_ssh and fold_tracers take each (parity, site, level)
+    // of G on the same thread; fold_live other planes) and stage A, which
+    // reads the primal slice only: one barrier
     fold_ssh(cot, gs_s, W, Wi, 0, 0, a.rt + 2 * kWinM, Wi, ks, a.ks_log2, kn);
     if (kMasked) fold_live(cot + 2 * WK, live_s, W, ks, kn);
-    __syncthreads();
-    if (kTracers) {  // a = c gT' / h' and the h' feedback into G
+    if (kTracers && fold_fast) {  // fold_tracers from the loaded values
+#pragma unroll
+      for (int i = 0; i < kFoldItems; ++i) {
+        const int e = threadIdx.x + i * blockDim.x, q = e >> a.ks_log2, kl = e & lane_mask;
+        if (q >= 2 * W || kl >= kn) continue;
+        const int p = q >= W ? 1 : 0, s = q - p * W;
+        T corr = T(0);
+#pragma unroll
+        for (int t = 0; t < kFoldTracers; ++t) {
+          if (t >= a.at.n) continue;
+          T* ap = cot + (8 + 2 * t + p) * WK + s * ks + kl;
+          const T av = fm[i] > T(0) ? *ap / fh[i] : T(0);
+          *ap = av;
+          corr += av * ft[i][t];
+        }
+        cot[(p * W + s) * ks + kl] -= corr;
+      }
+    } else if (kTracers) {
       fold_tracers(cot, gsite, a.at, W, ks, a.ks_log2, k0 + kb, kn, K, plane);
-      __syncthreads();
     }
 
     // stage A: the primal F and q_e on ring A
@@ -544,7 +635,8 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     }
     __syncthreads();
 
-    // stage B: dq_e, dF and Sg on ring B; on the tile, the step's d(dt)
+    // stage B: dq_e, dF and Sg on ring B; on the tile, the step's d(dt); on
+    // the tile plus one ring, the tracers' edges
     for (int e = threadIdx.x; e < B * ks; e += blockDim.x) {
       const int d = e >> a.ks_log2, kl = e & lane_mask;
       if (kl >= kn) continue;
@@ -560,6 +652,10 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       const int gm = tm * a.rt + r - kRingBm, gi = ti * a.ct + c - kRingBi;
       const bool on_tile = r >= kRingBm && r < kRingBm + a.rt && c >= kRingBi &&
                            c < kRingBi + a.ct && gm < a.ny2 && gi < a.nx;
+      const int rc = r - (kRingBm - kRingCm), cc = c - (kRingBi - kRingCi);
+      const bool ring_c = kTracers && rc >= 0 && rc < a.rt + 2 * kRingCm && cc >= 0 &&
+                          cc < a.ct + 2 * kRingCi;
+      const unsigned live = kMasked && kTracers ? static_cast<unsigned>(live_s[sw]) : 0u;
       T* out = pb + d * ks + kl;
       T part_dt = T(0);
 #pragma unroll
@@ -582,8 +678,10 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         const T dG = G[hex::nb_h(ch)] - G[ch & 1];
         out[ch * BK] = T(0.5) * (ac * tf + Fc * ta);
         T dF = dG * dt_div + T(0.5) * (a.dt * tgq + qc * ta);
-        if (kTracers)
-          dF += tracer_dflux(st + sw * ks + kl, cv, WK, tp.adj, a.at, ch, Fc, dt_div, a.inv_dc);
+        if (kTracers && ring_c)
+          dF += tracer_edge_once(st + sw * ks + kl, cv, WK, tp.adj, a.at, ch, Fc,
+                                 !kMasked || ((live >> ch) & 1u), dt_div, a.inv_dc,
+                                 pt + (ch * C + rc * Ci + cc) * ks + kl, CK);
         out[(6 + ch) * BK] = dF;
         // <G, tend_h>'s edge term; the tracer arm takes it per cell in stage D
         if (on_tile)
@@ -646,128 +744,160 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     }
     __syncthreads();
 
-    // stage D on the tile: du, dh stored; each slice's level sums of Sg
-    // added to the block's partial sums in order
-    for (int e0 = 0; e0 < core * ks; e0 += blockDim.x) {
-      const int e = e0 + threadIdx.x;
-      const int t = e >> a.ks_log2, kl = e & lane_mask;
-      const int tt = e < core * ks ? t : 0;
-      const int r = by_ct.div(tt), c = by_ct.mod(tt, r);
-      const int gm = tm * a.rt + r, gi = ti * a.ct + c;
-      const bool on = e < core * ks && kl < kn;
-      T sg[2] = {T(0), T(0)};
-      if (on) {
+    // stage D on the tile: a parity of a (site, level) on `split` threads,
+    // kl fastest: its three du channels and its dh (with the tracers' sums,
+    // S for the stratified pass and the level sums of Sg)
+    for (int e0 = 0; e0 < split * nd; e0 += blockDim.x) {
+      const int ex = e0 + threadIdx.x;
+      const int part_of = split == 1 ? 0 : min(ex / nd, split - 1);  // split - 1: the dh
+      const int e = ex - part_of * nd;
+      // the item's du channel f (0 .. 2) and its dh on this thread
+      auto do_du = [&](int f) { return split == 1 || (split == 2 ? part_of == 0 : part_of == f); };
+      const bool do_dh = part_of == split - 1;
+      const int kl = e & lane_mask, q = e >> a.ks_log2;
+      const int j = q >= core ? 1 : 0, t = q - j * core;
+      T sg = T(0);
+      if (e < nd && kl < kn) {
+        const int r = by_ct.div(t), c = by_ct.mod(t, r);
+        const int gm = tm * a.rt + r, gi = ti * a.ct + c;
+        const bool inside = gm < a.ny2 && gi < a.nx;
+        const size_t g = static_cast<size_t>(gm) * a.nx + gi;
+        const size_t ko = static_cast<size_t>(k0 + kb + kl);
         const int sw = (r + kWinM) * Wi + c + kWinI;
         const T* lv = st + sw * ks + kl;
         const T* cv = cot + sw * ks + kl;
         const T* qb = pb + ((r + kRingBm) * Bi + c + kRingBi) * ks + kl;
         const T* qc = pc + ((r + kRingCm) * Ci + c + kRingCi) * ks + kl;
-        const bool inside = gm < a.ny2 && gi < a.nx;
-        const size_t g = static_cast<size_t>(gm) * a.nx + gi;
-        sg[0] = qb[12 * BK];
-        sg[1] = qb[13 * BK];
-        // the tracer arm's terms of dh (the kappa h_edge cotangents, sum_t
-        // a T), its tracer cotangents and its per-cell d(dt) terms
-        T trX[2] = {T(0), T(0)}, trY[2] = {T(0), T(0)};
-        if (kTracers) {
-          T trF[6];
-          double trdd = 0.0;
-          const unsigned live = kMasked ? static_cast<unsigned>(live_s[sw]) : 0u;
-          const unsigned inc_live = kMasked ? adj_incoming_live(live_s, sw, tp.adj) : 0u;
-          tracer_adjoint<T, kMasked>(
-              lv, cv, WK, tp.adj, a.at, live, inc_live, dt_div, a.s_div, a.inv_dc, trF, trX, trY,
-              &trdd,
-              [&](int i, T v) {
-                if (inside) a.at.dtr[(static_cast<size_t>(i) * plane + g) * K + k0 + kb + kl] = v;
-              },
-              false);
-          if (inside) share += trdd;
-        }
-        if (kStrat && inside) {  // the tile's S chunk, for the stratified pass
-          ssm.sl[(t << a.kc_log2) + kb + kl] = sg[0];
-          ssm.sl[((core + t) << a.kc_log2) + kb + kl] = sg[1];
-        }
-        T du[6], dh[2];
-#pragma unroll
-        for (int ch = 0; ch < 6; ++ch) {
+        const int sc = (r + kRingCm) * Ci + c + kRingCi;  // the site on ring C
+        auto du_item = [&](auto chc) {
+          constexpr int ch = decltype(chc)::value;
           const T he = T(0.5) * (lv[tp.a_h[nb_h(ch)]] + lv[tp.a_h[ch & 1]]);
-          const T dke = a.dke_scale * qb[tp.d_ke[ch]] + a.dke_scale * sg[ch & 1];
+          const T dke = a.dke_scale * qb[tp.d_ke[ch]] + a.dke_scale * qb[(12 + (ch & 1)) * BK];
           const T uc = lv[tp.a_u[ch]];
           T curl = T(0);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int t2 = 2 * ch + j;
+          for (int jj = 0; jj < 2; ++jj) {
+            const int t2 = 2 * ch + jj;
             const T v = hex_vadj::curl_t(t2, 5) > 0 ? qc[tp.d_z[t2]] : -qc[tp.d_z[t2]];
-            curl = j == 0 ? v : curl + v;
+            curl = jj == 0 ? v : curl + v;
           }
-          du[ch] = ((cv[(2 + ch) * WK] + he * qb[(6 + ch) * BK]) + two_ske * uc * dke) + curl;
-          if (kForced) {
-            const T gue = cv[(2 + ch) * WK];
-            du[ch] = du[ch] - dt_rayl * gue;
-            if (inside) s_rayl = fma(static_cast<double>(gue), static_cast<double>(uc), s_rayl);
+          const T gue = cv[(2 + ch) * WK];
+          T du = ((gue + he * qb[(6 + ch) * BK]) + two_ske * uc * dke) + curl;
+          if (kForced && inside) {
+            du = du - dt_rayl * gue;
+            s_rayl = fma(static_cast<double>(gue), static_cast<double>(uc), s_rayl);
+            // the wind and drag at the edge's top and bottom level, d(wind)
+            // in place (the edge's top level is this block's alone)
+            const int lvl = lvl_s[ch * C + sc];
+            if (top_level(lvl, static_cast<int>(ko)) || bottom_level(lvl, static_cast<int>(ko))) {
+              const size_t ew = static_cast<size_t>(ch) * plane + g;
+              T du_f = T(0);
+              double x_dd = 0.0, x_lin = 0.0, x_quad = 0.0;
+              wind_drag_adjoint(gue, uc, he, lvl, static_cast<int>(ko), a.fc.wind + ew,
+                                a.dwind + ew, a.fc, a.dt, &du_f, &x_dd, &x_lin, &x_quad);
+              du = du + du_f;
+              share += x_dd, s_lin += x_lin, s_quad += x_quad;
+            }
           }
-        }
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
+          if (inside) a.du[(static_cast<size_t>(ch) * plane + g) * K + ko] = du;
+        };
+        auto dh_item = [&](auto pcc) {
+          constexpr int p = decltype(pcc)::value;
+          const T s = qb[(12 + p) * BK];
           T flux = (lv[tp.a_u[p]] * qb[(6 + p) * BK] + lv[tp.a_u[2 + p]] * qb[(8 + p) * BK]) +
                    lv[tp.a_u[4 + p]] * qb[(10 + p) * BK];
 #pragma unroll
           for (int x = 3 * p; x < 3 * p + 3; ++x) flux += lv[tp.a_u[inc_u(x)]] * qb[tp.d_f[x]];
           T kite = T(0);
 #pragma unroll
-          for (int j = 0; j < 6; ++j) {
-            const int t2 = 6 * p + j;
+          for (int jj = 0; jj < 6; ++jj) {
+            const int t2 = 6 * p + jj;
             const T wgt = kMasked ? fv_s[(8 + hex_vadj::kite_t(t2, 5)) * W + sw + tp.d_kw[t2]]
                                   : tp.kw[hex_vadj::kite_t(t2, 5)];
             const T v = wgt * qc[tp.d_hv[t2]];
-            kite = j == 0 ? v : kite + v;
+            kite = jj == 0 ? v : kite + v;
           }
-          dh[p] = kTracers ? ((cv[p * WK] + T(0.5) * (flux + trX[p])) + kite) + trY[p]
-                           : (cv[p * WK] + T(0.5) * flux) + kite;
-        }
-        if (inside) {
-          T* h_o = a.dh + (gm * a.nx + gi) * K + k0 + kb + kl;
-          T* u_o = a.du + (gm * a.nx + gi) * K + k0 + kb + kl;
+          T dh;
+          if (kTracers) {
+            // the tracer arm's terms of dh (the kappa h_edge cotangents,
+            // sum_t a T), its tracer cotangents and its per-cell d(dt) terms
+            T trX, trY;
+            double trdd;
+            tracer_cell_sums<p>(
+                lv, cv, WK, tp, a.at, pt + ((r + kRingCm) * Ci + c + kRingCi) * ks + kl, CK,
+                a.s_div, &trX, &trY, &trdd, [&](int i, T v) {
+                  if (inside) a.at.dtr[(static_cast<size_t>(i) * plane + g) * K + ko] = v;
+                });
+            if (inside) share += trdd;
+            dh = ((cv[p * WK] + T(0.5) * (flux + trX)) + kite) + trY;
+          } else {
+            dh = (cv[p * WK] + T(0.5) * flux) + kite;
+          }
+          if (kForced && inside) {
+            // the h_edge cotangents of the wind and drag at the top and
+            // bottom levels of the cell's 6 edges (owned, then incoming at
+            // their owners), half each
+            int lvs[6];
+            bool any = false;
 #pragma unroll
-          for (int p = 0; p < 2; ++p) h_o[p * plane * K] = dh[p];
+            for (int i = 0; i < 6; ++i) {
+              const int x = 3 * p + i - 3;
+              lvs[i] = i < 3 ? lvl_s[(2 * i + p) * C + sc]
+                             : lvl_s[tp.adj.inc_ch[x] * C + sc + tp.c_inc[x]];
+              any = any || top_level(lvs[i], static_cast<int>(ko)) ||
+                    bottom_level(lvs[i], static_cast<int>(ko));
+            }
+            if (any) {
+              const AdjTaps<T>& ap = tp.adj;
+              const T hc = lv[ap.hs[hex::self_h(p)]];
+              T dhe = T(0);
 #pragma unroll
-          for (int ch = 0; ch < 6; ++ch) u_o[ch * plane * K] = du[ch];
+              for (int f = 0; f < 3; ++f) {
+                const int ch = 2 * f + p, us = ap.us[hex::self_u(ch)];
+                dhe += wind_drag_dhe(cv[us], lv[us], T(0.5) * (lv[ap.hs[hex::nb_h(ch)]] + hc),
+                                     lvs[f], static_cast<int>(ko),
+                                     a.fc.wind + static_cast<size_t>(ch) * plane + g, a.fc,
+                                     a.dt);
+              }
+#pragma unroll
+              for (int x = 3 * p; x < 3 * p + 3; ++x) {
+                const int us = ap.us[hex::inc_u(x)];
+                const size_t ew = static_cast<size_t>(ap.inc_ch[x]) * plane +
+                                  gsite[sw + ap.inc_off[x]];
+                dhe += wind_drag_dhe(
+                    cv[us], lv[us],
+                    T(0.5) * (lv[ap.hs[hex::inc_nb_h(x)]] + lv[ap.hs[hex::inc_self_h(x)]]),
+                    lvs[x - 3 * p + 3], static_cast<int>(ko), a.fc.wind + ew, a.fc, a.dt);
+              }
+              dh = dh + T(0.5) * dhe;
+            }
+          }
+          if (inside) {
+            const size_t o = (static_cast<size_t>(p) * plane + g) * K + ko;
+            if (kStrat) a.s_out[o] = s;  // the stratified pass's S
+            a.dh[o] = dh;
+          }
+          return s;
+        };
+        if (j == 0) {  // the parity's three channels and its cell
+          if (do_du(0)) du_item(std::integral_constant<int, 0>{});
+          if (do_du(1)) du_item(std::integral_constant<int, 2>{});
+          if (do_du(2)) du_item(std::integral_constant<int, 4>{});
+          if (do_dh) sg = dh_item(std::integral_constant<int, 0>{});
+        } else {
+          if (do_du(0)) du_item(std::integral_constant<int, 1>{});
+          if (do_du(1)) du_item(std::integral_constant<int, 3>{});
+          if (do_du(2)) du_item(std::integral_constant<int, 5>{});
+          if (do_dh) sg = dh_item(std::integral_constant<int, 1>{});
         }
       }
-      const T s0 = group_sum(sg[0], ks), s1 = group_sum(sg[1], ks);
-      if (e < core * ks && kl == 0) {
-        part[t] = sl == 0 ? s0 : part[t] + s0;
-        part[core + t] = sl == 0 ? s1 : part[core + t] + s1;
+      const T s = group_sum(sg, ks);
+      if (e < nd && kl == 0 && do_dh) {
+        T& o = part[j * core + t];
+        o = sl == 0 ? s : o + s;
       }
     }
     __syncthreads();
-    if (wd) {  // the wind and drag at the slice's top and bottom levels
-      nl_forcing_passes(a, tp.adj, st, cot, gsite, tm, ti, Wi, kb, kn, k0, &share, &s_lin,
-                        &s_quad);
-      __syncthreads();
-    }
-  }
-  if (kStrat) {
-    // W dPhi into the stored dh, the tile's d(W) rows and d(dt)'s h @ W
-    // part, once every rank's S chunk is visible; h from device memory
-    cluster.sync();
-    strat_adjoint_pass(
-        ssm, cluster,
-        [&](int p, int r, int c, int kl) -> T {
-          const int gm = tm * a.rt + r, gi = ti * a.ct + c;
-          return gm < a.ny2 && gi < a.nx
-                     ? a.h[(static_cast<size_t>(p) * plane + gm * a.nx + gi) * K + k0 + kl]
-                     : T(0);
-        },
-        a.st.acc + static_cast<size_t>(tile) * K * K, a.st.first != 0,
-        [&](int p, int t, int kl) -> T* {
-          const int r = by_ct.div(t), c = by_ct.mod(t, r);
-          const int gm = tm * a.rt + r, gi = ti * a.ct + c;
-          return gm < a.ny2 && gi < a.nx
-                     ? a.dh + (static_cast<size_t>(p) * plane + gm * a.nx + gi) * K + k0 + kl
-                     : nullptr;
-        },
-        core, a.ct, a.kc_log2, k0, kr, K, n_ranks, a.dt, a.inv_dc, &share);
   }
   // the forced arm's Rayleigh part of d(dt), -lambda sum gu u
   if (kForced) share -= static_cast<double>(a.fc.rayl) * s_rayl;
@@ -796,25 +926,24 @@ __global__ void __launch_bounds__(kStepThreads, 1)
 }
 
 // Dynamic shared memory of one block (kernels/adjoint_step.nl_adjoint_smem_bytes
-// mirrors this): the warps' d(dt) sums; the window's slice of the primal
-// state and the cotangent, with the tracer arm's 2 n_tr planes each, the
-// rings' planes; the window's ssh, gs and vertex constants (20 planes, the
-// masked arm's, reserved by the periodic one too); the partial sums; the
-// window's sites with their live bits; the stratified arm's S chunk and W
-// rows at strat_k levels in chunks of kc (strat_k > 0). The forced arm
-// takes none.
-inline size_t nl_adjoint_smem_bytes(int rt, int ct, int ks, size_t itemsize, int n_tr = 0,
-                                    int kc = 0, int strat_k = 0) {
+// mirrors this): the warps' d(dt) sums; the window, the slice of the
+// primal state and of the cotangent, with the tracer arm's 2 n_tr planes
+// each; the rings' planes; the tracer arm's values per edge on ring C
+// (1 + 3 n_tr a channel); the window's ssh, gs and n_fv vertex constant
+// planes (4 periodic, 20 masked); the partial sums; the window's sites with
+// their live bits; the packed levels of the 6 edges of each ring C site (the
+// forced arm's, reserved by every arm). The stratified arm takes none.
+inline size_t nl_adjoint_smem_bytes(int rt, int ct, int ks, size_t itemsize, int n_tr, int n_fv) {
   const long long W = static_cast<long long>(rt + 2 * kWinM) * (ct + 2 * kWinI);
   const long long A = static_cast<long long>(rt + 2 * kRingAm) * (ct + 2 * kRingAi);
   const long long B = static_cast<long long>(rt + 2 * kRingBm) * (ct + 2 * kRingBi);
   const long long C = static_cast<long long>(rt + 2 * kRingCm) * (ct + 2 * kRingCi);
-  const long long vals = ((kWinPlanes + 4LL * n_tr) * W + kAPlanes * A + kBPlanes * B +
-                          kCPlanes * C) * ks +
-                         (4 + hex_vert::kFv) * W + 2LL * rt * ct;
+  const long long vals =
+      (2LL * (8 + 2LL * n_tr) * W + kAPlanes * A + kBPlanes * B + kCPlanes * C +
+       (n_tr > 0 ? 6LL * (1 + 3LL * n_tr) * C : 0)) * ks +
+      (4LL + n_fv) * W + 2LL * rt * ct;
   return sizeof(double) * kRedDoubles + itemsize * static_cast<size_t>(vals) +
-         2 * sizeof(int) * static_cast<size_t>(W) +
-         (strat_k > 0 ? strat_adj_smem_bytes(rt * ct, kc, strat_k, itemsize) : 0);
+         sizeof(int) * static_cast<size_t>(2 * W + 6 * C);
 }
 
 // One call's launch set-up.
@@ -853,15 +982,30 @@ int nl_adj_launch(const NlAdjPlan<T>& pl, cudaStream_t stream) {
   return static_cast<int>(le);
 }
 
+// The clusters of n_ranks blocks of `smem` bytes an arm's launch keeps
+// resident at once (CUDA's occupancy calculator for clusters) in *out;
+// returns 0 or the CUDA error. Instantiated with nl_adj_launch.
+template <typename T, bool kMasked, bool kForced, bool kTracers, bool kStrat>
+int nl_adj_clusters(size_t smem, int n_ranks, int max_smem, int* out) {
+  int err = nl_adj_prepare<T, kMasked, kForced, kTracers, kStrat>(max_smem);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = step_config(n_ranks, 1, smem, nullptr, attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      out, nl_adjoint_kernel<T, kMasked, kForced, kTracers, kStrat>, &cfg));
+}
+
 // X(T, kMasked, kForced, kTracers, kStrat) for the 8 arms of one dtype and
 // forcing.
 #define MOT_NL_ADJ_ARMS(X, T, F)                                                             \
   X(T, false, F, false, false) X(T, false, F, false, true) X(T, false, F, true, false)       \
   X(T, false, F, true, true) X(T, true, F, false, false) X(T, true, F, false, true)          \
   X(T, true, F, true, false) X(T, true, F, true, true)
-#define MOT_NL_ADJ_INSTANTIATE(T, M, F, TR, S) \
-  template int nl_adj_launch<T, M, F, TR, S>(const NlAdjPlan<T>&, cudaStream_t);
-#define MOT_NL_ADJ_EXTERN(T, M, F, TR, S) \
-  extern template int nl_adj_launch<T, M, F, TR, S>(const NlAdjPlan<T>&, cudaStream_t);
+#define MOT_NL_ADJ_INSTANTIATE(T, M, F, TR, S)                                   \
+  template int nl_adj_launch<T, M, F, TR, S>(const NlAdjPlan<T>&, cudaStream_t); \
+  template int nl_adj_clusters<T, M, F, TR, S>(size_t, int, int, int*);
+#define MOT_NL_ADJ_EXTERN(T, M, F, TR, S)                                               \
+  extern template int nl_adj_launch<T, M, F, TR, S>(const NlAdjPlan<T>&, cudaStream_t); \
+  extern template int nl_adj_clusters<T, M, F, TR, S>(size_t, int, int, int*);
 
 }  // namespace lattice

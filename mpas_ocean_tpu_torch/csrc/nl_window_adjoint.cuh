@@ -856,8 +856,9 @@ __global__ void __launch_bounds__(kStepThreads, 1)
 
         if (wd) {
           // the wind and drag at the slice's top and bottom levels of the
-          // sub-tile's owned edges and cells (nl_adjoint.cuh's
-          // nl_forcing_passes, d(wind) and the shares the core's only)
+          // sub-tile's owned edges and cells (adjoint_window.cuh's
+          // wind_drag_adjoint and wind_drag_dhe, d(wind) and the shares the
+          // core's only)
           for (int e = threadIdx.x; e < 6 * core; e += blockDim.x) {
             const int ch = e / core, t = e - ch * core;
             const int r = by_ct.div(t), c = by_ct.mod(t, r);

@@ -33,7 +33,11 @@ the nonlinear reverse kernel per reverse step over tiles of
 q = 1 (the JAX package's kernel 4 at its only q). Its plain PyTorch version
 is ``structured.adjoint.structured_nl_adjoint_step``; ``nl_launches`` counts
 its launches, ``nl_forced_launches``, ``nl_tracer_launches`` and
-``nl_strat_launches`` those of its arms.
+``nl_strat_launches`` those of its arms. Its stratified arm runs, after each
+step, one launch of the stratified pass (csrc/adjoint_window.cuh:
+``strat_pass_kernel``, the W S product and d(W) on the FP64 tensor cores),
+counted in ``nl_strat_pass_launches``; ``nl_strat_pass`` runs one alone, its
+plain version ``structured.adjoint.strat_pass``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from . import build
 from .fe_step import (
     _NL_DERIVED,
     LIVE_BYTES,
+    MAX_CLUSTER,
     SMEM_BYTES,
     SMS,
     TWO_BLOCK_BYTES,
@@ -69,13 +74,15 @@ from .fe_step import strat_smem_bytes as fe_strat_smem_bytes
 
 __all__ = ["NL_ADJ_RINGS", "NL_ADJ_SLICE", "REACH", "TILE_COLS", "TILE_ROWS", "adjoint_rollout",
            "adjoint_tile", "check_dstrat", "forced_launches", "launch_plan", "launches",
-           "nl_adjoint_launch_plan", "nl_adjoint_plan", "nl_adjoint_rollout", "nl_adjoint_slice",
-           "nl_adjoint_smem_bytes", "nl_forced_launches", "nl_launches", "nl_strat_launches",
-           "nl_tracer_launches", "nl_window_adjoint_rollout", "nl_window_forced_launches",
-           "nl_window_launches", "nl_window_plan", "nl_window_scratch_values",
-           "nl_window_slice", "nl_window_smem_bytes", "nl_window_strat_launches",
-           "nl_window_tracer_launches", "reverse_tracer_args", "smem_bytes", "strat_args",
-           "strat_launches", "strat_smem_bytes", "tracer_launches"]
+           "nl_adjoint_launch_plan", "nl_adjoint_plan",
+           "nl_adjoint_rollout", "nl_adjoint_slice", "nl_adjoint_smem_bytes",
+           "nl_forced_launches", "nl_launches", "nl_strat_launches", "nl_strat_pass",
+           "nl_strat_pass_launches", "nl_tracer_launches", "nl_window_adjoint_rollout",
+           "nl_window_forced_launches", "nl_window_launches", "nl_window_plan",
+           "nl_window_scratch_values", "nl_window_slice", "nl_window_smem_bytes",
+           "nl_window_strat_launches", "nl_window_tracer_launches", "reverse_tracer_args",
+           "smem_bytes", "strat_args", "strat_launches", "strat_pass_fit", "strat_pass_groups",
+           "strat_pass_smem_bytes", "strat_smem_bytes", "tracer_launches"]
 
 # adjoint-step kernel launches made by adjoint_rollout (one per step), and
 # those of them that ran the forced arm, the tracer arm and the stratified arm
@@ -89,6 +96,9 @@ nl_launches = 0
 nl_forced_launches = 0
 nl_tracer_launches = 0
 nl_strat_launches = 0
+# launches of the stratified pass (csrc/adjoint_window.cuh, strat_pass_kernel):
+# one after each stratified step of nl_adjoint_rollout, one a nl_strat_pass call
+nl_strat_pass_launches = 0
 
 # The reach of one reverse step, (rows, columns) per side:
 # slab.adjoint_stencil_reach of the hex lattice's tables; csrc/adjoint_step.cu
@@ -110,10 +120,10 @@ MIN_WAVES = 4
 # stages C, B, A and of the window (csrc/nl_adjoint.cuh; slab.nl_adjoint_rings
 # derives them from the hex lattice's tables)
 NL_ADJ_RINGS = ((1, 1), (2, 2), (3, 4), (4, 6))
-# ... its values per window site and level (primal and cotangent; 4 more per
-# tracer), per ring A, B and C site and level, per window site (ssh, gs, 20
-# vertex constant planes reserved); ints per window site (site, live bits)
-_NLA_WIN, _NLA_A, _NLA_B, _NLA_C, _NLA_SITE, _NLA_INTS = 16, 12, 14, 8, 24, 2
+# ... its values per ring A, B and C site and level, per window site (ssh,
+# gs, 20 vertex constant planes: the q-step kernel reserves the masked
+# arm's); ints per window site (site, live bits)
+_NLA_A, _NLA_B, _NLA_C, _NLA_SITE, _NLA_INTS = 12, 14, 8, 24, 2
 # Levels per slice of the nonlinear reverse at which nl_adjoint_plan sizes the
 # tile; the slice then grows while it fits
 NL_ADJ_SLICE = 4
@@ -206,83 +216,132 @@ def launch_plan(table: np.ndarray, ny2: int, nx: int, k: int, tile, n_tracers: i
     return {"clusters": out[0], "blocks_per_sm": out[1], "smem_bytes": out[2]}
 
 
-def nl_adjoint_smem_bytes(tile, k: int, itemsize: int, ks: int, n_tracers: int = 0,
-                          strat: bool = False) -> int:
+def nl_adjoint_smem_bytes(tile, itemsize: int, ks: int, n_tracers: int = 0,
+                          masked: bool = False) -> int:
     """Dynamic shared memory of one block of the nonlinear reverse for a tile
-    (rows, columns) at k levels in slices of ks (``nl_adjoint_smem_bytes`` in
-    csrc/nl_adjoint.cuh): the warps' d(dt) sums; a slice of the window's
-    primal state and cotangent (with ``n_tracers``, the tracer arm's
-    2 n_tracers planes of each) and of the rings' planes; the window's ssh,
-    gs and vertex constants; the partial sums of the tile's sites; the
-    window's site indices and live bits; with ``strat``, the stratified
-    arm's S chunk and W rows (``strat_smem_bytes``). The forced arm takes
-    none."""
+    (rows, columns) in slices of ks levels (``nl_adjoint_smem_bytes`` in
+    csrc/nl_adjoint.cuh): the warps' d(dt) sums; the window, a slice of its
+    primal state and cotangent (with ``n_tracers``, the tracer arm's 2
+    n_tracers planes of each); the rings'
+    planes; with tracers, their values per edge on ring C (1 + 3 n_tracers
+    a channel); the window's ssh, gs and vertex constants (4 planes, 20
+    ``masked``); the partial sums of the tile's sites; the window's site
+    indices and live bits; the packed levels of the 6 edges of each ring C
+    site (the forced arm's, reserved by every arm). The stratified arm takes
+    none (the stratified pass is a kernel of its own,
+    ``strat_pass_smem_bytes``)."""
     rt, ct = tile
     (cm, ci), (bm, bi), (am, ai), (wm, wi) = NL_ADJ_RINGS
     ring = lambda m, i: (rt + 2 * m) * (ct + 2 * i)  # noqa: E731
-    w = ring(wm, wi)
-    vals = (((_NLA_WIN + 4 * n_tracers) * w + _NLA_A * ring(am, ai) + _NLA_B * ring(bm, bi)
-             + _NLA_C * ring(cm, ci)) * ks + _NLA_SITE * w + 2 * rt * ct)
-    return (_RED_BYTES + itemsize * vals + 4 * _NLA_INTS * w
-            + (strat_smem_bytes(rt * ct, level_split(k)[1], k, itemsize) if strat else 0))
+    w, c = ring(wm, wi), ring(cm, ci)
+    edges = 6 * (1 + 3 * n_tracers) * c if n_tracers else 0
+    vals = ((2 * (8 + 2 * n_tracers) * w + _NLA_A * ring(am, ai) + _NLA_B * ring(bm, bi)
+             + _NLA_C * c + edges) * ks + (4 + (20 if masked else 4)) * w + 2 * rt * ct)
+    return _RED_BYTES + itemsize * vals + 4 * (_NLA_INTS * w + 6 * c)
 
 
 def nl_adjoint_slice(tile, k: int, itemsize: int, n_tracers: int = 0,
-                     strat: bool = False) -> int:
+                     masked: bool = False) -> int:
     """The largest slice (levels, a power of two up to 16 and the level
     chunk) at which the nonlinear reverse's ``tile`` fits one block with the
     arms' shared memory (``nl_adjoint_smem_bytes``); at least one level."""
     kc = level_split(k)[1]
     ks = 1
-    while ks * 2 <= min(16, kc) and nl_adjoint_smem_bytes(tile, k, itemsize, ks * 2, n_tracers,
-                                                          strat) <= SMEM_BYTES:
+    while ks * 2 <= min(16, kc) and nl_adjoint_smem_bytes(tile, itemsize, ks * 2, n_tracers,
+                                                          masked) <= SMEM_BYTES:
         ks *= 2
     return ks
 
 
+# The stratified pass (csrc/adjoint_window.cuh, strat_pass_kernel): its
+# threads, its level splits (blocks per group of cells), its largest group
+# count (one group per 64 cells up to it) and the sub-chunks it tries,
+# largest first
+_PASS_THREADS, _PASS_SPLITS, _PASS_GROUPS, _PASS_CELLS = 512, 2, 64, (128, 64, 32, 16, 8)
+
+
+def strat_pass_smem_bytes(k: int, cb: int, kb: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of the stratified pass at k
+    levels in sub-chunks of cb cells with kb of W's columns staged at once
+    (``strat_pass_smem_bytes`` in csrc/adjoint_window.cuh): a half's rows
+    of W at those columns transposed [kb][kh] (kh = 8 ceil(k / 16), the
+    half's levels), the sub-chunk's S [8 ceil(k / 8)] and h [kh] rows of
+    cb + 4 values, and the warps' d(dt) sums."""
+    kh, kp = -(-k // 16) * 8, -(-k // 8) * 8
+    return itemsize * (kb * kh + (kp + kh) * (cb + 4)) + 8 * (_PASS_THREADS // 32)
+
+
+def strat_pass_fit(k: int, itemsize: int) -> tuple[int, int]:
+    """The stratified pass's staging at k levels (``strat_pass_fit`` in
+    csrc/adjoint_window.cuh): (cb, kb), the sub-chunk cb the largest of
+    128, 64, 32, 16, 8 cells whose W S tiles (4 levels x 4 cells) are at
+    most one a thread and whose S and h leave room in one block for 8 of
+    W's columns (all below 8), then kb the most of W's columns that fit:
+    all k, else a multiple of 8. ValueError where no sub-chunk fits (past
+    1320 levels in f64, 2048 in f32)."""
+    kh = -(-k // 16) * 8
+    for cb in _PASS_CELLS:
+        if (kh // 4) * (cb // 4) > _PASS_THREADS:
+            continue
+        base = strat_pass_smem_bytes(k, cb, 0, itemsize)
+        if base + itemsize * kh * min(k, 8) > SMEM_BYTES:
+            continue
+        room = (SMEM_BYTES - base) // (itemsize * kh)
+        return cb, k if room >= k else room // 8 * 8
+    raise ValueError(f"the stratified pass of the nonlinear reverse fits no block at {k} "
+                     f"levels of {itemsize}-byte values (a sub-chunk of h and S and 8 of W's "
+                     f"columns in {SMEM_BYTES} bytes of shared memory)")
+
+
+def strat_pass_groups(cells: int) -> int:
+    """The stratified pass's groups of cells over ``cells`` cells: one per 64
+    cells, at most 64 (each group holds a K x K partial of d(W) in device
+    memory, and takes _PASS_SPLITS blocks, one per half of the levels)."""
+    return max(1, min(_PASS_GROUPS, -(-cells // 64)))
+
+
 def nl_adjoint_plan(ny2: int, nx: int, k: int, itemsize: int, tiles=None, *,
-                    n_tracers: int = 0, strat: bool = False):
+                    n_tracers: int = 0, strat: bool = False, masked: bool = False):
     """The nonlinear reverse's plan (rows, columns, levels per slice) on a
-    ny2 x nx lattice at k levels, with ``n_tracers`` tracers and ``strat``
-    sized with their arms' shared memory, reckoned as ``fe_step.nl_plan``: among
-    ``tiles`` (by default the powers of two up to 64 a side, cut to the
-    lattice; the kernel runs ragged tiles), the tile of largest area that
-    fits one block's shared memory at NL_ADJ_SLICE levels per slice and
-    makes at least one block for each of the card's SMS SMs (else the
-    largest that fits), then the smallest window, then the widest; then the
-    largest slice that still fits (``nl_adjoint_slice``). One block per SM:
-    the budget is one block's. On an H100 at 64x64x100 and 256x256x100 f32
-    (PERF.md section 6, tools/tile_sweep.py --kernels nonlinear-reverse)
-    that is (8, 8, 4) at both, the fastest of the 65 plans swept at each:
-    sized at 2-level slices the rule took (8, 16, 2), 1.29x as long at
-    256^2 (a deeper slice halves the barriers and window loads per level
-    more than a larger tile saves in rings). A tile that fits at one level
-    per slice where none fits at NL_ADJ_SLICE is taken so; where none fits
-    at all, it raises ValueError."""
+    ny2 x nx lattice at k levels, with ``n_tracers`` tracers sized with
+    their arm's shared memory (``masked``: the channel's 20 vertex constant
+    planes), reckoned as ``fe_step.nl_plan``: among ``tiles`` (by default
+    the powers of two up to 64 a side, cut to the lattice; the kernel runs
+    ragged tiles), the tile of largest area that fits one block's shared
+    memory at NL_ADJ_SLICE levels per slice and makes at least one block for
+    each of the card's SMS SMs (else the largest that fits), then the
+    smallest window, then the widest; then the largest slice that still fits
+    (``nl_adjoint_slice``). One block per SM: the budget is one block's.
+    With ``strat`` the stratified pass must fit too (``strat_pass_fit``). A
+    tile that fits
+    at one level per slice where none fits at NL_ADJ_SLICE is taken so;
+    where none fits at all, it raises ValueError."""
     kc = level_split(k)[1]
     wm, wi = NL_ADJ_RINGS[-1]
+    if strat:
+        strat_pass_fit(k, itemsize)
     if tiles is None:
         tiles = {(min(1 << a, ny2), min(1 << b, nx)) for a in range(7) for b in range(7)}
     for base in (min(NL_ADJ_SLICE, kc), 1):
         ok = [t for t in tiles
-              if nl_adjoint_smem_bytes(t, k, itemsize, base, n_tracers, strat) <= SMEM_BYTES]
+              if nl_adjoint_smem_bytes(t, itemsize, base, n_tracers, masked) <= SMEM_BYTES]
         if ok:
             break
     if not ok:
         raise ValueError(f"no tile of the nonlinear reverse fits ({k} levels of {itemsize}-byte "
-                         f"values, {n_tracers} tracers, stratified: {strat})")
+                         f"values, {n_tracers} tracers)")
     ranks = level_split(k)[0]
     full = [t for t in ok if -(-ny2 // t[0]) * -(-nx // t[1]) * ranks >= SMS] or ok
     *_, ct, rt = max((t[0] * t[1], -(t[0] + 2 * wm) * (t[1] + 2 * wi), t[1], t[0])
                      for t in full)
-    return rt, ct, nl_adjoint_slice((rt, ct), k, itemsize, n_tracers, strat)
+    return rt, ct, nl_adjoint_slice((rt, ct), k, itemsize, n_tracers, masked)
 
 
 def nl_adjoint_launch_plan(ny2: int, nx: int, k: int, tile, ks: int) -> dict:
     """The launch of the nonlinear reverse for ``tile`` at ks levels per
-    slice on an f32 ny2 x nx x k lattice: its clusters (one per tile), the
-    blocks one SM holds (CUDA's occupancy calculator) and one block's shared
-    memory in bytes."""
+    slice on an f32 periodic ny2 x nx x k lattice: its clusters (one per
+    tile), the blocks one SM holds (CUDA's occupancy calculator) and one
+    block's shared memory in bytes."""
     fn = build.load().mot_nl_adjoint_plan
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -565,21 +624,26 @@ def _nl_reverse_args(stack, g_in, out, scratch, fv, n_fv, live, tables, part, dd
              *tr_ptrs, *st_ptrs), (*coefs[:3], *tr_opts), coefs[3:], acc)
 
 
-_NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 36
-                + [ctypes.c_double] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+_NL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 38
+                + [ctypes.c_double] * 12 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 
 
 def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_table,
                        adjoint_weight, vertex_cell_terms, edge_vertex_terms, dt: float,
                        inv_dc: float, s_div: float, s_ke: float, s_curl: float,
                        ds_scale: float, dke_scale: float, n_steps: int, ddt: torch.Tensor,
-                       out=None, scratch=None, *, live=None, tile=None, ks=None, forcing=None,
-                       dforc=None, tracers=None, end=None, strat_w=None, dstrat=None):
+                       out=None, scratch=None, *, live=None, tile=None, ks=None,
+                       forcing=None, dforc=None, tracers=None, end=None, strat_w=None,
+                       dstrat=None, _kc=None):
     """n_steps >= 1 reverse forward-Euler steps of the nonlinear core on the
     card, one launch of the nonlinear reverse kernel (csrc/nl_adjoint.cuh)
     each, over tiles of ``tile`` (rows, columns; ragged ones too) in slices
-    of ks levels, by default ``nl_adjoint_plan``'s tile and the largest slice
-    that fits it, each sized with the arms' shared memory.
+    of ks levels, by default ``nl_adjoint_plan``'s tile and the largest
+    slice that fits it, each sized with the arms' shared memory; a block
+    takes the levels of the split the kernel's launch reckons fastest from
+    the clusters the card keeps resident (csrc/nl_adjoint.cu, choose_kc;
+    the tools and tests may fix it with ``_kc``, a multiple of ks with at
+    most MAX_CLUSTER blocks a tile).
 
     ``stack``, ``g_in``, ``ddt``, ``out``, ``scratch`` and ``live`` as for
     ``adjoint_rollout``; ``fv`` the vertex constants
@@ -592,50 +656,115 @@ def nl_adjoint_rollout(stack, g_in, fv, stencil_table, coriolis_weight, adjoint_
     ``tracers`` and ``end``, ``strat_w`` and ``dstrat`` run the forced,
     tracer and stratified arms, in any combination, as for
     ``adjoint_rollout`` (``g_in``, ``out`` and ``scratch`` then carry the
-    tracer cotangent planes fourth). Returns the cotangent at step 0. A
-    stencil or vertex table that is not the hex lattice's raises
-    ValueError."""
+    tracer cotangent planes fourth); the stratified arm runs one launch of
+    the stratified pass after each step (``nl_strat_pass_launches``), its S
+    scratch, d(W) partials and d(dt) shares allocated here. Returns the
+    cotangent at step 0. A stencil or vertex table that is not the hex
+    lattice's raises ValueError."""
     global nl_launches, nl_forced_launches, nl_tracer_launches, nl_strat_launches
+    global nl_strat_pass_launches
     (ny2, nx, k), out, scratch, n_tr, n_fv, tables, n_terms = _nl_reverse_checks(
         "the nonlinear reverse", stack, g_in, fv, stencil_table, coriolis_weight, adjoint_table,
         adjoint_weight, vertex_cell_terms, edge_vertex_terms, n_steps, ddt, out, scratch, live,
         forcing, dforc, tracers, end, strat_w, dstrat)
     dtype, device, itemsize = fv.dtype, fv.device, fv.element_size()
-    strat = strat_w is not None
-    arms = dict(n_tracers=n_tr, strat=strat)
-    tile = nl_adjoint_plan(ny2, nx, k, itemsize, **arms)[:2] if tile is None else tuple(tile)
+    strat, masked = strat_w is not None, live is not None
+    arms = dict(n_tracers=n_tr, masked=masked)
+    if tile is None:
+        tile = nl_adjoint_plan(ny2, nx, k, itemsize, strat=strat, **arms)[:2]
+    tile = tuple(tile)
     ks = nl_adjoint_slice(tile, k, itemsize, **arms) if ks is None else ks
-    ranks, kc = level_split(k)
-    if not (1 <= ks <= min(16, kc) and ks & (ks - 1) == 0):
+    chunk = level_split(k)[1]
+    if not (1 <= ks <= min(16, chunk) and ks & (ks - 1) == 0):
         raise ValueError(f"the nonlinear reverse's slices are a power of two of levels up to "
-                         f"{min(16, kc)} (its level chunk at {k} levels), got {ks}")
-    need = nl_adjoint_smem_bytes(tile, k, itemsize, ks, **arms)
+                         f"{min(16, chunk)} (its level chunk at {k} levels), got {ks}")
+    need = nl_adjoint_smem_bytes(tile, itemsize, ks, **arms)
     if need > SMEM_BYTES:
         raise ValueError(f"a nonlinear reverse tile {tile} at {k} levels in slices of {ks} "
                          f"needs {need} bytes of shared memory per block, more than "
                          f"{SMEM_BYTES}")
+    if _kc is not None and not (_kc >= ks and _kc % ks == 0 and -(-k // _kc) <= MAX_CLUSTER):
+        raise ValueError(f"the nonlinear reverse's blocks take a multiple of its slice ({ks}) "
+                         f"of levels, at most {MAX_CLUSTER} a tile, got {_kc} of {k}")
     tiles = -(-ny2 // tile[0]) * -(-nx // tile[1])
     shares = 1 if forcing is None else SHARES
-    part = torch.empty(shares * n_steps * tiles * ranks, dtype=torch.float64, device=device)
+    # one share a block: the kernel picks the blocks a tile (up to MAX_CLUSTER)
+    part = torch.empty(shares * n_steps * tiles * MAX_CLUSTER, dtype=torch.float64,
+                       device=device)
+    groups = strat_pass_groups(2 * ny2 * nx)
+    s_scr = pass_shares = None
+    if strat:
+        strat_pass_fit(k, itemsize)
+        s_scr = torch.empty((2, ny2, nx, k), dtype=dtype, device=device)
+        pass_shares = torch.empty(n_steps * groups * _PASS_SPLITS, dtype=torch.float64,
+                                  device=device)
     lib = build.load()
     fn = {torch.float32: lib.mot_nl_adjoint_f32, torch.float64: lib.mot_nl_adjoint_f64}[dtype]
     fn.argtypes = _NL_ARGTYPES
     fn.restype = ctypes.c_int
     ptrs, opts, ranks_masks, _acc = _nl_reverse_args(
         stack, g_in, out, scratch, fv, n_fv, live, tables, part, ddt, forcing, dforc, tracers,
-        end, strat_w, dstrat, kc, tiles, k)
+        end, strat_w, dstrat, chunk, groups, k)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *ptrs, *(float(x) for x in (dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale)),
-            *opts, *ranks_masks, ny2, nx, k, n_steps, n_terms, *tile, ks, n_tr, stream,
+            *ptrs, *(None if x is None else x.data_ptr() for x in (s_scr, pass_shares)),
+            *(float(x) for x in (dt, inv_dc, s_div, s_ke, s_curl, ds_scale, dke_scale)),
+            *opts, *ranks_masks, ny2, nx, k, n_steps, n_terms, *tile, ks, groups, _kc or 0,
+            n_tr, stream,
         )
     check_error("the nonlinear reverse", err, f" (tile {tile}, slice {ks})")
     nl_launches += n_steps
     nl_forced_launches += n_steps if forcing is not None else 0
     nl_tracer_launches += n_steps if tracers is not None else 0
     nl_strat_launches += n_steps if strat else 0
+    nl_strat_pass_launches += n_steps if strat else 0
     return out
+
+
+def nl_strat_pass(h, s, w, dh, dt: float, inv_dc: float, dstrat, ddt):
+    """One step's stratified pass of the nonlinear reverse, alone (the
+    launch nl_adjoint_rollout makes after each stratified step): for the
+    primal h and the step's S = sum_owned gu - sum_incoming gu (each
+    (2, ny2, nx, K) or (cells, K)), W (K, K), dh += (dt / dc) S W^T in
+    place, d(W) (dt / dc) sum_c h (x) S added to ``dstrat`` (K, K) f64 and
+    d(dt)'s W part to ``ddt`` (1,) f64. On CUDA tensors one launch of the
+    kernel (csrc/adjoint_window.cuh, strat_pass_kernel; counted in
+    ``nl_strat_pass_launches``), on CPU tensors its plain version
+    ``structured.adjoint.strat_pass``. Returns dh."""
+    global nl_strat_pass_launches
+    k = h.shape[-1]
+    dtype, device = h.dtype, h.device
+    for name, x in (("h", h), ("s", s), ("dh", dh)):
+        check_tensor(name, x, tuple(h.shape), dtype, device)
+    check_tensor("strat_w", w, (k, k), dtype, device)
+    check_tensor("dstrat", dstrat, (k, k), torch.float64, device)
+    check_tensor("ddt", ddt, (1,), torch.float64, device)
+    if device.type != "cuda":
+        from ..structured.adjoint import strat_pass
+
+        dh_w, d_w, d_dt = strat_pass(h, s, w, dt, inv_dc)
+        dh += dh_w
+        dstrat += d_w
+        ddt += d_dt
+        return dh
+    cells = h.numel() // k
+    strat_pass_fit(k, h.element_size())
+    groups = strat_pass_groups(cells)
+    acc = torch.empty(groups * k * k, dtype=torch.float64, device=device)
+    shares = torch.empty(groups * _PASS_SPLITS, dtype=torch.float64, device=device)
+    lib = build.load()
+    fn = {torch.float32: lib.mot_strat_pass_f32, torch.float64: lib.mot_strat_pass_f64}[dtype]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_double] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(x.data_ptr() for x in (h, s, w, dh, acc, shares, dstrat, ddt)), float(dt),
+                 float(inv_dc), cells, k, groups, stream)
+    check_error("the stratified pass", err, f" ({cells} cells, {k} levels)")
+    nl_strat_pass_launches += 1
+    return dh
 
 
 # The q-step nonlinear reverse (csrc/nl_window_adjoint.cuh): launches made by

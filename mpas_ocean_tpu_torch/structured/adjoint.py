@@ -134,7 +134,7 @@ from .stencils import (
     transpose_kite_terms,
 )
 
-__all__ = ["ForcingCot", "TracerCot", "forcing_transpose", "pressure_transpose",
+__all__ = ["ForcingCot", "TracerCot", "forcing_transpose", "pressure_transpose", "strat_pass",
            "structured_adjoint_run_loop", "structured_adjoint_step", "structured_nl_adjoint_step",
            "tracer_transpose"]
 
@@ -260,6 +260,26 @@ def pressure_transpose(h, gu, dt, mesh: StructMesh, strat: Stratification):
     d_phi = _own_minus_incoming(dt * gu) * (1.0 / mesh.dc)
     k = h.shape[-1]
     return d_phi @ w.T, h.reshape(-1, k).double().T @ d_phi.reshape(-1, k).double()
+
+
+def strat_pass(h, s, w, dt, inv_dc):
+    """The plain version of the nonlinear reverse's stratified pass
+    (csrc/adjoint_window.cuh, strat_pass_kernel; ``kernels.adjoint_step.
+    nl_strat_pass``): for the primal h and S = sum_owned gu - sum_incoming
+    gu (gu m * gu on a channel; each (..., K)) and W (K, K), (the dh term
+    (dt / dc) S W^T in h's dtype, d(W) = (dt / dc) sum_c h (x) S and d(dt)'s
+    W part (1 / dc) sum W (.) sum_c h (x) S, both in double). dt and inv_dc
+    are rounded to h's dtype first, as the kernel takes them. With
+    ``structured_nl_adjoint_step(strat=None)`` it splits the stratified
+    reverse step as the card does."""
+    k = h.shape[-1]
+    dt_t = torch.tensor(float(dt), dtype=h.dtype)
+    inv_t = torch.tensor(float(inv_dc), dtype=h.dtype)
+    w = w.to(dtype=h.dtype, device=h.device)
+    sums = h.reshape(-1, k).double().T @ s.reshape(-1, k).double()
+    d_w = (float(dt_t) * float(inv_t)) * sums
+    d_dt = float(inv_t) * (w.double() * sums).sum()
+    return (dt_t * inv_t).to(h.device) * (s @ w.T), d_w, d_dt
 
 
 def _result(d_state: StructState, d_dt, d_forc, d_w=None):

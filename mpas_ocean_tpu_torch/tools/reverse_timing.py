@@ -16,7 +16,15 @@ nonlinear states filled through ``structured_auto_run_loop(nonlinear=True)``
 (phase 13's timer). With ``--tracers N`` (N > 0) it times the tracer arms of
 adjoint_step and tiled_adjoint (q = 1, the planners' tracer tiles) over a
 stack of states carrying N tracers (``tile_sweep.tracer_stack``) instead,
-and no nonlinear reverse. Prints
+and no nonlinear reverse. With ``--nl-arms`` it times the nonlinear
+reverse's arms instead, each a reverse of the gradient's card steps
+(``tools/composed_reverse``: ``composed_steps`` on the planner's plan, its
+d(dt) sums and, stratified, its passes included) over a stack of
+``--group`` states of bench.py's full-physics cell (its forcing, two
+tracers with kappa 0 and upwind 1, densities 1025 + linspace(0, 1)): the
+core (N), N with forcing (NF), tracers (NT), stratification (NS) and all
+four (NFTS) at each size, and the core on the 64^2 Kelvin channel (the
+masked arm); ``--reps`` reps each. Prints
 one JSON line with the µs per launch of every rep, the card and the
 package's path. To compare two checkouts of the package on one card, run
 this file against each in turn:
@@ -150,20 +158,115 @@ def time_size(n: int, group: int) -> dict:
     return out
 
 
+def igw_full_physics(n: int):
+    """(StructMesh, lattice state with bench.py's two tracers, its forcing
+    in the struct layout, its Stratification) of the n x n IGW lattice (as
+    chip_smoke.py's igw_case), f32 on the card."""
+    import numpy as np
+
+    import mpas_ocean_tpu_torch as mt
+
+    dc = 10000.0e3 / n
+    horz = mt.planar_hex_mesh(n, n, dc, f0=1e-4, dtype=np.float32)
+    igw = mt.InertialGravityWave(lx=n * dc / 1e3)
+    vert = mt.make_vertical_mesh(horz, LEVELS, resting_thickness=np.full(
+        (horz.n_cells, LEVELS), igw.bottom_depth / LEVELS, dtype=np.float32), dtype=np.float32)
+    mesh = mt.Mesh(horz=horz, vert=vert)
+    ssh, h, u = igw.initial_state(horz, LEVELS)
+    x = np.asarray(horz.cells.x)
+    tracers = mt.make_tracers(mesh, [10.0 + 2.0 * np.sin(2 * np.pi * x / (x.max() + 1)),
+                                     np.full(horz.n_cells, 35.0)], dtype=np.float32)
+    prog = mt.PrognosticVars(*(torch.from_numpy(v.astype(np.float32)) for v in (ssh, h, u)),
+                             tracers=tracers)
+    model = mt.StructuredModel(mesh, n, n)
+    forcing = model.to_struct_forcing(mt.make_forcing(
+        mesh, dtype=np.float32, wind_stress_zonal=0.1, bottom_drag_linear=1e-4, rayleigh=1e-5))
+    strat = mt.make_stratification(1025.0 + np.linspace(0.0, 1.0, LEVELS), dtype=np.float32)
+    return model.struct_mesh, model.to_struct(prog), forcing, strat
+
+
+def kelvin_channel(n: int):
+    """(StructMesh, lattice state) of bench.py's Kelvin channel at n x n
+    cells (the 10000 km lattice with its first and last cell rows culled),
+    f32 on the card."""
+    import numpy as np
+
+    import mpas_ocean_tpu_torch as mt
+
+    dc = 10000.0e3 / n
+    horz = mt.planar_hex_mesh(n, n, dc, f0=1e-4, dtype=np.float32)
+    y = np.asarray(horz.cells.y)
+    keep = (y > 0.5 * dc) & (y < y.max() - 0.5 * dc)
+    chan = mt.cull_cells(horz, keep)
+    vert = mt.make_vertical_mesh(chan, LEVELS, resting_thickness=np.full(
+        (chan.n_cells, LEVELS), 1000.0 / LEVELS, dtype=np.float32), dtype=np.float32)
+    ssh, h, u = mt.KelvinWave(lx=n * dc / 1e3, f0=1e-4).initial_state(chan, LEVELS)
+    prog = mt.PrognosticVars(*(torch.from_numpy(v.astype(np.float32)) for v in (ssh, h, u)))
+    model = mt.StructuredModel(mt.Mesh(horz=chan, vert=vert), n, n, parent_horz=horz,
+                               keep_cells=keep)
+    return model.struct_mesh, model.to_struct(prog)
+
+
+def time_nl_arms(n: int, group: int, reps: int, masked: bool) -> dict:
+    """{arm: [µs per launch]} of the nonlinear reverse's arms N, NF, NT, NS,
+    NFTS at n x n (and "N masked" on the channel with ``masked``), each the
+    gradient's card reverse over a stack of ``group`` states."""
+    from mpas_ocean_tpu_torch.structured import StructState
+    from mpas_ocean_tpu_torch.tools.composed_reverse import (
+        composed_reverse,
+        composed_stack,
+        composed_state,
+        composed_steps,
+    )
+
+    sm, st, forcing, strat = igw_full_physics(n)
+    gen = torch.Generator(device=st.ssh.device).manual_seed(15)
+    g = StructState(*(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+                      for x in (st.ssh, st.layer_thickness, st.normal_velocity, st.tracers)))
+    tr = dict(kappa=0.0, upwind=1.0)
+    out = {}
+    for opts in ("N", "NF", "NT", "NS", "NFTS"):
+        steps = composed_steps(sm, DT, st.layer_thickness, opts, forcing, strat, **tr)
+        stack = composed_stack(steps, composed_state(st, opts), group)
+        go = composed_state(g, opts)
+        out[opts] = held_us(lambda: composed_reverse(steps, stack, go, group), group, reps)
+        del stack, steps
+        torch.cuda.empty_cache()
+    if masked:
+        cm, cs = kelvin_channel(n)
+        steps = composed_steps(cm, DT, cs.layer_thickness, "N", None, None, **tr)
+        stack = composed_stack(steps, cs, group)
+        gc = StructState(*(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+                           for x in (cs.ssh, cs.layer_thickness, cs.normal_velocity)))
+        out["N masked"] = held_us(lambda: composed_reverse(steps, stack, gc, group), group,
+                                  reps)
+    return {"n": n, "group": group,
+            "nl_adjoint_plan": list(adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)),
+            "us_per_launch": out}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", type=int, nargs="+", default=[64, 256])
     ap.add_argument("--group", type=int, default=40)
     ap.add_argument("--tracers", type=int, default=0,
                     help="time the tracer arms with this many tracers")
+    ap.add_argument("--nl-arms", action="store_true",
+                    help="time the nonlinear reverse's arms (N, NF, NT, NS, NFTS; masked N at "
+                         "the smallest size) instead")
+    ap.add_argument("--reps", type=int, default=REPS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("reverse_timing needs a CUDA device")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=False).stdout.strip()
-    sizes = [time_tracer_arms(n, args.group, args.tracers) if args.tracers
-             else time_size(n, args.group) for n in args.sizes]
+    if args.nl_arms:
+        sizes = [time_nl_arms(n, args.group, args.reps, n == min(args.sizes))
+                 for n in args.sizes]
+    else:
+        sizes = [time_tracer_arms(n, args.group, args.tracers) if args.tracers
+                 else time_size(n, args.group) for n in args.sizes]
     print(json.dumps({"package": mpas_ocean_tpu_torch.__file__, "gpu": gpu, "sizes": sizes}),
           flush=True)
 

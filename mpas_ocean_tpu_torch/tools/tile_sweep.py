@@ -33,10 +33,12 @@ wave at dt = 30 s):
   ``tiled_step.tiled_nl_rollout(q=)`` for those tiles that divide the
   lattice and each slice that fits;
 * nonlinear-reverse: the nonlinear reverse (csrc/nl_adjoint.cuh) through
-  ``adjoint_step.nl_adjoint_rollout`` over a stack of ``--steps`` primal
-  states of fe_step's nonlinear arm, for the same tiles and slices, per
-  launch by ``reverse_timing.held_us`` (q = 1: its q > 1 arm is still to
-  port).
+  ``adjoint_step.nl_adjoint_rollout``, the core and bench.py's full
+  physics (NFTS), each over a stack of ``--steps`` primal states of its
+  rebuild, for each tile of at least 16 sites (rows 2-16, columns 2-32)
+  and slice of 2-8 levels that fit, per launch by
+  ``reverse_timing.held_us`` (q = 1), then the planner's plan at each split
+  of the levels over 1-8 blocks a tile and at the kernel's own choice.
 
 Prints one line per plan, fastest first, with the blocks per SM (CUDA's
 occupancy calculator), the plan the planner (``tile_plan``, ``fe_tile``,
@@ -63,7 +65,7 @@ import torch
 import mpas_ocean_tpu_torch as mt
 from mpas_ocean_tpu_torch.kernels import adjoint_step, fe_step, tiled_adjoint, tiled_step
 from mpas_ocean_tpu_torch.structured import tile_plan, tiled_adjoint_plan, tiled_run_loop
-from mpas_ocean_tpu_torch.structured.fused_model import _scal, nl_adjoint_scal, nl_scal, nl_setup
+from mpas_ocean_tpu_torch.structured.fused_model import _scal, nl_scal, nl_setup
 from mpas_ocean_tpu_torch.structured.slab import stencil_reach
 from mpas_ocean_tpu_torch.structured.tiled_diff import adjoint_window_bytes, reverse_halo
 from mpas_ocean_tpu_torch.structured.tiled_model import resolve_plan, window_bytes
@@ -348,54 +350,90 @@ def nonlinear_sweep(n: int, model, st, n_steps: int, gpu: str, qs=(1,)) -> dict:
     return entry
 
 
-def nonlinear_reverse_sweep(n: int, model, st, n_steps: int, gpu: str) -> dict:
-    """Per-launch device times of the nonlinear reverse over every tile and
-    slice that fits, from a stack of n_steps primal states of fe_step's
-    nonlinear arm."""
-    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us
+def nonlinear_reverse_sweep(n: int, n_steps: int, gpu: str, arms=("N", "NFTS")) -> dict:
+    """Per-launch device times of the nonlinear reverse over every tile of
+    at least 16 sites and slice of 2-8 levels that fit, for each arm of
+    ``arms`` (the core N, and NFTS: bench.py's full-physics cell, its two
+    tracers with kappa 0 and upwind 1,
+    ``reverse_timing.igw_full_physics``), from a stack of n_steps primal
+    states of the arm's rebuild (its stratified passes and d(dt) sums
+    included)."""
+    from mpas_ocean_tpu_torch.structured import StructState, diff_model
+    from mpas_ocean_tpu_torch.tools.composed_reverse import (
+        composed_stack,
+        composed_state,
+        composed_steps,
+    )
+    from mpas_ocean_tpu_torch.tools.reverse_timing import held_us, igw_full_physics
 
-    sm = model.struct_mesh
-    dtype = torch.float32
-    scal = (*_scal(sm, DT, dtype), *nl_scal(sm, dtype))
-    fv = nl_setup(sm, dtype)
-    fields = (st.ssh, st.layer_thickness, st.normal_velocity)
-    stack = tuple(torch.empty((n_steps, *x.shape), dtype=x.dtype, device=x.device)
-                  for x in fields)
-    for dst, x in zip(stack, fields):
-        dst[0].copy_(x)
-    fe_step.fe_nl_fill_stack(stack, sm.resting_thickness_sum, *sm.host_stencil, fv,
-                             sm.vertex_cell_terms, sm.edge_vertex_terms, *scal, n_steps - 1)
+    sm, st, forcing, strat = igw_full_physics(n)
     gen = torch.Generator(device=st.ssh.device).manual_seed(15)
-    g_in = tuple(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
-                 for x in fields)
-    acc = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
-    args = (fv, *sm.host_stencil, *sm.host_adjoint_stencil, sm.vertex_cell_terms,
-            sm.edge_vertex_terms, *scal, *nl_adjoint_scal(sm, DT, dtype))
-    kc = fe_step.level_split(LEVELS)[1]
-    tiles = dict.fromkeys((min(rt, sm.ny2), min(ct, sm.nx)) for rt in (1, 2, 4, 8, 16)
-                          for ct in (1, 2, 4, 8, 16, 32) if rt * ct >= 8)
-    rows = []
-    for tile in tiles:
-        for ks in (1, 2, 4, 8, 16):
-            if ks > kc or (adjoint_step.nl_adjoint_smem_bytes(tile, LEVELS, 4, ks)
-                           > fe_step.SMEM_BYTES):
+    g = StructState(*(torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+                      for x in (st.ssh, st.layer_thickness, st.normal_velocity, st.tracers)))
+    chunk = fe_step.level_split(LEVELS)[1]
+    tiles = dict.fromkeys((min(rt, sm.ny2), min(ct, sm.nx)) for rt in (2, 4, 8, 16)
+                          for ct in (2, 4, 8, 16, 32) if rt * ct >= 16)
+    entry = {}
+    for opts in arms:
+        steps = composed_steps(sm, DT, st.layer_thickness, opts, forcing, strat, kappa=0.0,
+                               upwind=1.0)
+        stack = composed_stack(steps, composed_state(st, opts), n_steps)
+        like = diff_model._slot(stack, 0)
+        out, scratch = diff_model._empty(like), diff_model._empty(like)
+        gp = diff_model._cotangent(diff_model._planes_state(composed_state(g, opts)), like)
+        end = diff_model._end(diff_model._slot(stack, n_steps), steps.tracers)
+        n_tr = 0 if stack.tracers is None else stack.tracers.shape[1] // 2
+        ddt = torch.zeros(1, dtype=torch.float64, device=st.ssh.device)
+
+        def run(tile, ks, kc=None):
+            adjoint_step.nl_adjoint_rollout(
+                diff_model._fields(stack)[:3], diff_model._fields(gp), *steps.nl_adj,
+                *steps.nl_adj_scal, n_steps, ddt, diff_model._fields(out),
+                diff_model._fields(scratch), live=steps.live, tile=tile, ks=ks,
+                forcing=steps.kf, dforc=steps.dforc,
+                tracers=steps.kernel_tracers(stack.tracers), end=end, strat_w=steps.sw,
+                dstrat=steps.dstrat, _kc=kc)
+
+        rows = []
+        for tile in tiles:
+            for ks in (2, 4, 8):
+                if ks > chunk or adjoint_step.nl_adjoint_smem_bytes(
+                        tile, 4, ks, n_tr) > fe_step.SMEM_BYTES:
+                    continue
+                progress(f"{n}: nonlinear reverse {opts} {tile} slice {ks}")
+                t = held_us(lambda: run(tile, ks), n_steps, REPS)
+                rows.append(((*tile, ks), t))
+        rows.sort(key=lambda r: statistics.median(r[1]))
+        chosen = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4, n_tracers=n_tr,
+                                              strat="S" in opts)
+        rank = next((i for i, (p, _) in enumerate(rows) if p == chosen), None)
+        print(f"{n}x{n}x{LEVELS} f32: nonlinear reverse {opts}, {len(rows)} (tile, slice) "
+              f"plans; nl_adjoint_plan picks {chosen}, rank {rank} [{gpu}]", flush=True)
+        for p, t in rows:
+            print(f"    nonlinear reverse {opts} {p}: {statistics.median(t):.3f} us/launch (min "
+                  f"{min(t):.3f}, max {max(t):.3f}); "
+                  f"{adjoint_step.nl_adjoint_smem_bytes(p[:2], 4, p[2], n_tr)} bytes",
+                  flush=True)
+        # the planner's plan at each level split (levels a block, a multiple
+        # of the slice; None: the kernel's own choice)
+        splits = []
+        ks = chosen[2]
+        for kc in sorted({ks * -(-LEVELS // (r * ks)) for r in range(1, 9)}) + [None]:
+            if kc is not None and -(-LEVELS // kc) > 8:
                 continue
-            progress(f"{n}: nonlinear reverse {tile} slice {ks}")
-            t = held_us(lambda: adjoint_step.nl_adjoint_rollout(
-                stack, g_in, *args, n_steps, acc, tile=tile, ks=ks), n_steps, REPS)
-            rows.append(((*tile, ks), t, adjoint_step.nl_adjoint_launch_plan(
-                sm.ny2, sm.nx, LEVELS, tile, ks)))
-    rows.sort(key=lambda r: statistics.median(r[1]))
-    chosen = adjoint_step.nl_adjoint_plan(sm.ny2, sm.nx, LEVELS, 4)
-    rank = next((i for i, (p, *_) in enumerate(rows) if p == chosen), None)
-    print(f"{n}x{n}x{LEVELS} f32: nonlinear reverse, {len(rows)} (tile, slice) plans; "
-          f"nl_adjoint_plan picks {chosen}, rank {rank} [{gpu}]", flush=True)
-    for plan, t, lp in rows:
-        print(f"    nonlinear reverse {plan}: {statistics.median(t):.3f} us/launch (min "
-              f"{min(t):.3f}, max {max(t):.3f}); {lp['smem_bytes']} bytes, "
-              f"{lp['blocks_per_sm']} blocks per SM, {lp['clusters']} clusters", flush=True)
-    return {"nl_adjoint": [{"plan": p, "us_per_launch": t, **lp} for p, t, lp in rows],
-            "nl_adjoint_chosen": chosen}
+            progress(f"{n}: nonlinear reverse {opts} {chosen} levels a block {kc}")
+            t = held_us(lambda: run(chosen[:2], chosen[2], kc), n_steps, REPS)
+            splits.append((kc, t))
+            split = kc or "the kernel's choice of"
+            print(f"    nonlinear reverse {opts} {chosen}, {split} levels a block: "
+                  f"{statistics.median(t):.3f} us/launch (min {min(t):.3f}, max {max(t):.3f})",
+                  flush=True)
+        entry[opts] = {"plans": [{"plan": p, "us_per_launch": t} for p, t in rows],
+                       "chosen": chosen,
+                       "level_splits": [{"kc": kc, "us_per_launch": t} for kc, t in splits]}
+        del stack, steps, out, scratch, gp, end
+        torch.cuda.empty_cache()
+    return entry
 
 
 def sweep(sizes, n_steps: int, kernels=("forward", "reverse"), n_tracers: int = 0,
@@ -415,7 +453,7 @@ def sweep(sizes, n_steps: int, kernels=("forward", "reverse"), n_tracers: int = 
                                                                          gpu, qs or (1,))
         if "nonlinear-reverse" in kernels:
             result.setdefault("nonlinear-reverse", {})[str(n)] = nonlinear_reverse_sweep(
-                n, model, st, n_steps, gpu)
+                n, n_steps, gpu)
         if "forward" not in kernels:
             continue
         sm = model.struct_mesh

@@ -424,7 +424,7 @@ def test_nonlinear_reverse_plan_matches_the_wrappers_reckoning(cuda):
     for ny2, nx in ((32, 64), (128, 256)):
         rt, ct, ks = adjoint_step.nl_adjoint_plan(ny2, nx, 100, 4)
         plan = adjoint_step.nl_adjoint_launch_plan(ny2, nx, 100, (rt, ct), ks)
-        assert plan["smem_bytes"] == adjoint_step.nl_adjoint_smem_bytes((rt, ct), 100, 4, ks)
+        assert plan["smem_bytes"] == adjoint_step.nl_adjoint_smem_bytes((rt, ct), 4, ks)
         assert plan["clusters"] == -(-ny2 // rt) * -(-nx // ct)
         assert plan["blocks_per_sm"] == 1
 

@@ -249,28 +249,31 @@ def test_card_routes_pass_the_composed_operands(monkeypatch, combo):
 def test_reverse_planners_count_every_arm():
     """The reverse planners size their tiles with every arm's shared memory:
     the nonlinear reverse's (nl_adjoint_smem_bytes) adds 4 values per tracer
-    per window site-level and the stratified arm's S chunk and W rows
-    (strat_smem_bytes), the forced arm none; nl_adjoint_plan's plan fits
-    with the arms, the composed plan never larger than the plain one's, and
-    it raises where no tile fits; adjoint_step's smem adds the arms' parts
+    per window site-level and 6 (1 + 3 per tracer) per ring C site-level
+    (the tracers' edges), the forced and stratified arms none (the
+    stratified pass, a kernel of its own, fits a block at K = 100:
+    strat_pass_smem_bytes); nl_adjoint_plan's plan fits with the arms, the
+    composed plan never larger than the plain one's, and it raises where no
+    tile fits; adjoint_step's smem adds the arms' parts
     and adjoint_tile's composed tile fits them; tiled_adjoint_plan sizes the
     linear composed window at q = 1 and the nonlinear one by
     nl_adjoint_plan over the tiles that divide the lattice."""
-    k, kc = 100, fe_step.level_split(100)[1]
+    k = 100
     for itemsize in (4, 8):
         for tile, ks in (((8, 8), 4), ((4, 8), 2), ((3, 5), 1)):
-            (wm, wi) = adjoint_step.NL_ADJ_RINGS[-1]
+            (cm, ci), *_, (wm, wi) = adjoint_step.NL_ADJ_RINGS
             w = (tile[0] + 2 * wm) * (tile[1] + 2 * wi)
-            core = tile[0] * tile[1]
-            base = adjoint_step.nl_adjoint_smem_bytes(tile, k, itemsize, ks)
-            assert adjoint_step.nl_adjoint_smem_bytes(tile, k, itemsize, ks, n_tracers=2) - base \
-                == itemsize * 8 * w * ks
-            assert adjoint_step.nl_adjoint_smem_bytes(tile, k, itemsize, ks, strat=True) - base \
-                == adjoint_step.strat_smem_bytes(core, kc, k, itemsize)
+            c = (tile[0] + 2 * cm) * (tile[1] + 2 * ci)
+            base = adjoint_step.nl_adjoint_smem_bytes(tile, itemsize, ks)
+            assert adjoint_step.nl_adjoint_smem_bytes(tile, itemsize, ks, n_tracers=2) - base \
+                == itemsize * (8 * w + 42 * c) * ks
+        cb, kb = adjoint_step.strat_pass_fit(k, itemsize)
+        assert kb == k
+        assert adjoint_step.strat_pass_smem_bytes(k, cb, kb, itemsize) <= fe_step.SMEM_BYTES
         for n in (64, 256):
-            arms = dict(n_tracers=2, strat=True)
-            rt, ct, ks = adjoint_step.nl_adjoint_plan(n // 2, n, k, itemsize, **arms)
-            assert adjoint_step.nl_adjoint_smem_bytes((rt, ct), k, itemsize, ks, **arms) \
+            rt, ct, ks = adjoint_step.nl_adjoint_plan(n // 2, n, k, itemsize, n_tracers=2,
+                                                      strat=True)
+            assert adjoint_step.nl_adjoint_smem_bytes((rt, ct), itemsize, ks, n_tracers=2) \
                 <= fe_step.SMEM_BYTES
             plain = adjoint_step.nl_adjoint_plan(n // 2, n, k, itemsize)
             assert rt * ct * ks <= plain[0] * plain[1] * plain[2]

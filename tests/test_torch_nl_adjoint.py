@@ -531,16 +531,16 @@ def test_nl_adjoint_plans_fit(itemsize):
     reckoning), gives every SM a block, takes the largest slice that fits,
     and over the tiles that divide the lattice (the tiled route's) picks the
     same plan; f32 (8, 8, 4) at both (the fastest plan of the sweep on an
-    H100, PERF.md section 6), f64 (4, 4, 4);
-    the reckoning counted by hand for one plan; tiled_adjoint_plan's
-    nonlinear plan (q = 1)."""
+    H100, PERF.md section 6), f64 (4, 4, 4); the reckoning counted by hand
+    for one plan;
+    tiled_adjoint_plan's nonlinear plan (q = 1)."""
     for n in (64, 256):
         ny2, nx = n // 2, n
         rt, ct, ks = adjoint_step.nl_adjoint_plan(ny2, nx, 100, itemsize)
-        assert adjoint_step.nl_adjoint_smem_bytes((rt, ct), 100, itemsize, ks) \
+        assert adjoint_step.nl_adjoint_smem_bytes((rt, ct), itemsize, ks) \
             <= fe_step.SMEM_BYTES
         assert ks == 16 or adjoint_step.nl_adjoint_smem_bytes(
-            (rt, ct), 100, itemsize, 2 * ks) > fe_step.SMEM_BYTES
+            (rt, ct), itemsize, 2 * ks) > fe_step.SMEM_BYTES
         assert -(-ny2 // rt) * -(-nx // ct) * 7 >= fe_step.SMS
         dividing = [(r, c) for r in range(1, ny2 + 1) for c in range(1, nx + 1)
                     if ny2 % r == 0 and nx % c == 0]
@@ -549,9 +549,9 @@ def test_nl_adjoint_plans_fit(itemsize):
         assert tiled_adjoint_plan(ny2, nx, 100, itemsize, 100, halo=(2, 4),
                                   nonlinear=True)[:3] == (rt, ct, 1)
     w, a, b, c = 12 * 20, 10 * 16, 8 * 12, 6 * 10
-    vals = (16 * w + 12 * a + 14 * b + 8 * c) * 2 + 24 * w + 2 * 32
-    assert adjoint_step.nl_adjoint_smem_bytes((4, 8), 100, itemsize, 2) == \
-        128 + itemsize * vals + 8 * w
+    vals = (16 * w + 12 * a + 14 * b + 8 * c) * 2 + 8 * w + 2 * 32
+    assert adjoint_step.nl_adjoint_smem_bytes((4, 8), itemsize, 2) == \
+        128 + itemsize * vals + 8 * w + 24 * c
 
 
 def test_fe_nl_fill_stack_and_the_reverse_refuse_cpu_tensors(periodic8):
